@@ -43,3 +43,5 @@ except Exception:
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-process / long-running tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
