@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (`distributed_pytorch_tpu_torch`) on one
 CUDA card: build the hand-written kernels, hold each against its plain
-version, run the flagship GPT-124M at full width, and serve it over HTTP.
+version, run the flagship GPT-124M at full width, serve it over HTTP, and
+train it.
 
     python3 chip_smoke.py          # from the repo root, one CUDA card
 
@@ -13,18 +14,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the serving path's shapes, in fp32 and bf16, with times
-             (CUDA events), the least time the card could take (bound),
-             and one PyTorch library call for the same function as a
-             yardstick.
+             the serving path's shapes (decode, prefill) and the training
+             path's (flash forward, dq, dkv at B 8, T 1024, 12 heads x 64,
+             causal), in fp32 and bf16, with times (CUDA events), the
+             least time the card could take (bound), and one PyTorch
+             library call for the same function as a yardstick
+             (`scaled_dot_product_attention`; its backward for dq and dkv
+             together).
 4. model   — flagship_gpt124m (12 x 768, vocab 50304) with seeded
              N(0, 0.02) weights: a 300-token paged prefill and 16 paged
              decode steps held against the uncached forward of the same
-             tokens, in fp32 and bf16; the contiguous-cache `generate` held
-             against greedy argmax of the uncached forward. Both runs must
-             launch the kernels layers x steps times (generate: its decode
-             steps through the contiguous route) and call no plain
-             version.
+             tokens through the naive einsum attention (no kernel), in
+             fp32 and bf16; the contiguous-cache `generate` held against
+             greedy argmax of that naive forward. Both runs must
+             launch the kernels layers x steps times (generate: its prompt
+             pass through flash_attn_fwd, its decode steps through the
+             contiguous route) and call no plain version.
 5. serve   — the serve CLI's engine (bf16, 8 slots, max_len 1024, KV block
              16, greedy) behind the Scheduler and ServeApp on 127.0.0.1:
              8 concurrent SSE completions, three sharing a 256-token
@@ -32,6 +37,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
              must hit, the kernel launch counters must move by layers x
              steps (decode) and layers x admissions (prefill), and the
              plain versions must not run.
+6. train   — the trainer's own `train()` on flagship_gpt124m at full width
+             (`--attn_impl pallas`, bf16 compute over fp32 masters, B 8 x
+             T 1024, accum 2, synthetic data, 20 iterations, a checkpoint
+             at iteration 10): the loss must stay finite and fall by
+             TRAIN_DROP, the flash kernels must launch layers x
+             micro-steps times each (no plain calls), and the checkpoint
+             must verify and restore. Then a full-width fp32 parity check
+             at B 2 (loss and gradients through the kernels against
+             `attn_impl='naive'`) and a profile of two steps.
 
 The last two lines are a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}.
@@ -41,8 +55,10 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,6 +74,23 @@ TOL = {"float32": 1e-4, "bfloat16": 8e-3}
 # order only; bf16 rounds activations at different points across 12 layers
 # (largest bf16 gap seen on the H100: 3.1e-2)
 LOGIT_TOL = {"float32": 2e-3, "bfloat16": 6e-2}
+# flash kernels vs plain, element by element, for each output on its own:
+# |kernel - plain| <= atol + rtol * |plain|. fp32 differs by summation
+# order; a bf16 output rounds to bf16 on both sides (at most one ulp
+# apart: rtol 2^-7), and the forward rounds p against a running max in
+# the kernel, the global max in the plain version (atol). lse is fp32
+# whatever the inputs' dtype and takes the fp32 limits.
+FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (4e-3, 2 ** -7)}
+FLASH_OUTPUTS = {"flash_attn_fwd": ("out", "lse"),
+                 "flash_attn_bwd_dq": ("dq",),
+                 "flash_attn_bwd_dkv": ("dk", "dv")}
+# phase 6: the loss must fall at least this much from the first iteration
+# to the mean of the last three
+TRAIN_DROP = 1.0
+# phase 6 parity (fp32): |loss difference|, and for every parameter the
+# largest gradient difference as a fraction of that parameter's largest
+# gradient
+PARITY_TOL = {"loss": 1e-4, "grad": 1e-4}
 REPLACES = {
     "paged": "distributed_pytorch_tpu/ops/flash_decode.py:264 "
              "(_paged_body, driven by paged_flash_decode :276)",
@@ -65,7 +98,19 @@ REPLACES = {
                   "(_kernel, driven by flash_decode :184)",
     "prefill": "distributed_pytorch_tpu/ops/flash_decode.py:361 "
                "(_prefill_kernel, driven by paged_flash_prefill :458)",
+    "flash_attn_fwd": "distributed_pytorch_tpu/ops/flash_attention.py:339 "
+                      "(_fwd_kernel -> _fwd :367; slab face "
+                      "_slab_fwd_kernel :570 -> _slab_fwd :662)",
+    "flash_attn_bwd_dq": "distributed_pytorch_tpu/ops/flash_attention.py:414 "
+                         "(_bwd_dq_kernel -> _bwd_impl :460; slab face "
+                         "_slab_bwd_dq_kernel :601 -> _slab_bwd :707)",
+    "flash_attn_bwd_dkv": "distributed_pytorch_tpu/ops/flash_attention.py:436 "
+                          "(_bwd_dkv_kernel -> _bwd_impl :460; slab face "
+                          "_slab_bwd_dkv_kernel :626 -> _slab_bwd :707)",
 }
+FLASH_SOURCE = {"flash_attn_fwd": "flash_attn_fwd",
+                "flash_attn_bwd_dq": "flash_attn_bwd",
+                "flash_attn_bwd_dkv": "flash_attn_bwd"}
 SOURCE = "distributed_pytorch_tpu_torch/csrc/{}.cu"
 DEVICE = "cuda"
 
@@ -82,6 +127,21 @@ def check(cond: bool, msg: str) -> None:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def reset_counts() -> None:
+    from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_pytorch_tpu_torch.ops import flash_decode as fd
+    fd.reset_counts()
+    fa.reset_counts()
+
+
+def counts() -> tuple[dict, dict]:
+    """(launches, plain calls) of every kernel."""
+    from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_pytorch_tpu_torch.ops import flash_decode as fd
+    return ({**fd.LAUNCHES, **fa.LAUNCHES},
+            {**fd.PLAIN_CALLS, **fa.PLAIN_CALLS})
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -189,6 +249,114 @@ def kernel_cases(torch, fd, dev):
                    4 * keys * nh * hs)
 
 
+def flash_cases(torch, dev):
+    """Yield (dtype, kernel, fn_kernel, fn_plain, fn_library, n_bytes,
+    flops) for the three flash kernels at the training path's shape."""
+    import torch.nn.functional as F
+
+    from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+
+    B, T, nh, D = 8, 1024, 12, 64
+    scale = D ** -0.5
+    pairs = B * nh * T * (T + 1) // 2          # causal (query, key) pairs
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        el = torch.finfo(dtype).bits // 8
+
+        def rnd():
+            return torch.randn(B, T, nh, D, generator=g, device=dev).to(dtype)
+
+        q, k, v, dout = rnd(), rnd(), rnd(), rnd()
+        out, lse = fa.flash_attn_fwd_plain(q, k, v, scale=scale)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        kw = dict(scale=scale, causal=True)
+        act = B * T * nh * D * el                # one activation tensor
+        stat = B * nh * T * 4                    # lse or delta (fp32)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 scale=scale)
+        lib_dout = dout.transpose(1, 2)
+        yield (dn, "flash_attn_fwd",
+               lambda: fa.flash_attn_fwd(q, k, v, **kw),
+               lambda: fa.flash_attn_fwd_plain(q, k, v, **kw),
+               lambda: F.scaled_dot_product_attention(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   is_causal=True, scale=scale),
+               4 * act + stat, 4 * pairs * D)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), lib_dout,
+                                       retain_graph=True)
+
+        yield (dn, "flash_attn_bwd_dq",
+               lambda: fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta, **kw),
+               lambda: fa.flash_attn_bwd_dq_plain(q, k, v, dout, lse, delta,
+                                                  **kw),
+               lib_bwd, 5 * act + 2 * stat, 6 * pairs * D)
+        yield (dn, "flash_attn_bwd_dkv",
+               lambda: fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta,
+                                             **kw),
+               lambda: fa.flash_attn_bwd_dkv_plain(q, k, v, dout, lse,
+                                                   delta, **kw),
+               lib_bwd, 6 * act + 2 * stat, 8 * pairs * D)
+
+
+def _elementwise(out, ref, atol: float, rtol: float) -> dict:
+    """Readings of `out` against `ref` under |out - ref| <= atol + rtol *
+    |ref|: the largest error, the reference's largest and RMS magnitude,
+    the worst error as a fraction of its limit, and the least atol that
+    would pass at this rtol."""
+    d = (out.float() - ref.float()).abs()
+    r = ref.float().abs()
+    return dict(err=d.max().item(), mag=r.max().item(),
+                rms=r.square().mean().sqrt().item(),
+                frac=(d / (atol + rtol * r)).max().item(),
+                need_atol=(d - rtol * r).clamp_min(0).max().item())
+
+
+def run_flash_kernels(torch, dev) -> dict:
+    results = {}
+    for dn, name, fk, fp, fl, n_bytes, flops in flash_cases(torch, dev):
+        out, ref = fk(), fp()
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        check(all(bool(torch.isfinite(t).all()) for t in outs),
+              f"{name} {dn}: non-finite")
+        errs, tols = {}, {}
+        for oname, a, b in zip(FLASH_OUTPUTS[name], outs, refs):
+            atol, rtol = FLASH_TOL["float32" if oname == "lse" else dn]
+            e = errs[oname] = _elementwise(a, b, atol, rtol)
+            tols[oname] = {"atol": atol, "rtol": rtol}
+            print(f"  {name:18s} {dn:9s} {oname:3s} max_abs_err "
+                  f"{e['err']:.3e} (|ref| max {e['mag']:.3e}, rms "
+                  f"{e['rms']:.3e}); worst {e['frac']:.3f} of its limit "
+                  f"{atol:.0e} + {rtol:.2e} x |ref|; least atol at this "
+                  f"rtol {e['need_atol']:.3e}", flush=True)
+            check(e["frac"] <= 1.0,
+                  f"{name} {dn}: {oname} differs from its plain version "
+                  f"beyond {atol} + {rtol} x |plain| ({e['frac']:.3f} of "
+                  f"the limit)")
+        b_ms, b_by = bound(n_bytes, flops, dn)
+        results[(name, dn)] = dict(
+            max_abs_err=max(e["err"] for o, e in errs.items() if o != "lse"),
+            lse_max_abs_err=errs["lse"]["err"] if "lse" in errs else None,
+            tol=tols, ms=time_ms(fk, iters=10),
+            plain_ms=time_ms(fp, iters=3, warmup=1),
+            library_ms=time_ms(fl, iters=10), bound_ms=b_ms, bound_by=b_by,
+            bytes=n_bytes, flops=flops)
+        r = results[(name, dn)]
+        print(f"  {'':18s} {'':9s} kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({b_by})", flush=True)
+    torch.cuda.empty_cache()
+    return results
+
+
 def run_kernels(torch, fd, dev) -> dict:
     results = {}
     for dn, case, fk, fp, fl, n_bytes, flops in kernel_cases(torch, fd, dev):
@@ -218,14 +386,34 @@ def run_kernels(torch, fd, dev) -> dict:
 # phase 4: the model at full width
 # ---------------------------------------------------------------------------
 
-def _counted(fd, want: dict, what: str) -> dict:
-    """Read the launch counters after a run and hold them to `want`; the
-    plain versions must not have run."""
-    launches, plain = dict(fd.LAUNCHES), dict(fd.PLAIN_CALLS)
+def _counted(want: dict, what: str) -> dict:
+    """Read the launch counters after a run and hold them to `want` (every
+    kernel it does not name at 0); the plain versions must not have
+    run."""
+    launches, plain = counts()
     check(plain == {k: 0 for k in plain},
           f"{what}: plain versions ran on the card: {plain}")
+    want = {k: want.get(k, 0) for k in launches}
     check(launches == want, f"{what}: launches {launches}, expected {want}")
     return launches
+
+
+def naive_forward(model, idx, **kw):
+    """The model's uncached forward through the plain einsum attention
+    (`attn_impl='naive'`), so that phase 4's references launch none of
+    the kernels phase 4 checks."""
+    for blk in model.blocks:
+        blk.attn.attn_impl = "naive"
+    reset_counts()
+    try:
+        out = model(idx, **kw)
+    finally:
+        for blk in model.blocks:
+            blk.attn.attn_impl = model.attn_impl
+    launches, _ = counts()
+    check(launches == {k: 0 for k in launches},
+          f"the naive reference launched kernels: {launches}")
+    return out
 
 
 def run_model(torch, fd, dev) -> dict:
@@ -260,15 +448,16 @@ def run_model(torch, fd, dev) -> dict:
             bucket = 512
             buf = torch.tensor([toks + [0] * (bucket - prompt_len)],
                                device=dev)
-            fd.reset_counts()
-            logits = model(buf, caches, 0, logits_idx=[prompt_len - 1],
+            reset_counts()
+            logits = model(buf, caches=caches, pos=0,
+                           logits_idx=[prompt_len - 1],
                            block_tables=table)[0, -1]
             paged_launches["paged_prefill_attn"] += \
-                _counted(fd, {"paged_decode_attn": 0,
-                              "paged_prefill_attn": L},
+                _counted({"paged_prefill_attn": L},
                          f"paged prefill {dn}")["paged_prefill_attn"]
             for step in range(n_steps + 1):
-                ref = model(torch.tensor([toks], device=dev))[0, -1]
+                ref = naive_forward(model,
+                                    torch.tensor([toks], device=dev))[0, -1]
                 check(bool(torch.isfinite(logits).all()),
                       f"model {dn}: non-finite logits")
                 worst = max(worst, (logits.float() - ref.float())
@@ -278,12 +467,12 @@ def run_model(torch, fd, dev) -> dict:
                 nxt = int(ref.float().argmax())
                 toks.append(nxt)
                 pos = torch.tensor([len(toks) - 1], device=dev)
-                fd.reset_counts()
-                logits = model(torch.tensor([[nxt]], device=dev), caches,
-                               pos, block_tables=table)[0, -1]
+                reset_counts()
+                logits = model(torch.tensor([[nxt]], device=dev),
+                               caches=caches, pos=pos,
+                               block_tables=table)[0, -1]
                 paged_launches["paged_decode_attn"] += \
-                    _counted(fd, {"paged_decode_attn": L,
-                                  "paged_prefill_attn": 0},
+                    _counted({"paged_decode_attn": L},
                              f"paged decode {dn}")["paged_decode_attn"]
         print(f"  paged prefill {prompt_len} + {n_steps} decode steps, "
               f"{dn}: max |logit - uncached| {worst:.3e} "
@@ -294,19 +483,17 @@ def run_model(torch, fd, dev) -> dict:
               f"by {worst}")
 
         # contiguous-cache generate vs greedy argmax of the uncached
-        # forward, where the top-2 margin exceeds the tolerance
-        # the prefill over the contiguous cache takes the naive path (the
-        # reference sends it to XLA, not to a kernel); each later step
-        # launches the decode kernel once per layer
-        fd.reset_counts()
+        # forward, where the top-2 margin exceeds the tolerance: the
+        # prompt pass over the contiguous cache launches the flash forward
+        # once per layer, each later step the decode kernel once per layer
+        reset_counts()
         out = generate(model, prompt, n_steps, temperature=0.0)[0].tolist()
         contiguous[dn] = _counted(
-            fd, {"paged_decode_attn": L * (n_steps - 1),
-                 "paged_prefill_attn": 0},
+            {"paged_decode_attn": L * (n_steps - 1), "flash_attn_fwd": L},
             f"generate {dn}")["paged_decode_attn"]
         with torch.no_grad():
-            ref = model(torch.tensor([out[:-1]], device=dev),
-                        all_logits=True)[0, prompt_len - 1:].float()
+            ref = naive_forward(model, torch.tensor([out[:-1]], device=dev),
+                                all_logits=True)[0, prompt_len - 1:].float()
         top2 = ref.topk(2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).tolist()
         agree = 0
@@ -318,8 +505,8 @@ def run_model(torch, fd, dev) -> dict:
             agree += 1
         print(f"  generate {dn}: {agree}/{n_steps} tokens checked against "
               f"the uncached argmax; paged_decode_attn launched "
-              f"{contiguous[dn]} times ({n_steps - 1} steps x {L} layers)",
-              flush=True)
+              f"{contiguous[dn]} times ({n_steps - 1} steps x {L} layers), "
+              f"flash_attn_fwd {L} (prompt pass)", flush=True)
         del model, caches
         torch.cuda.empty_cache()
     return contiguous
@@ -405,10 +592,10 @@ def run_serve(torch, fd, card: str) -> None:
     budgets = [32, 40, 48, 56, 64, 33, 50, 60]
     L = cfg.n_layer
     steps0, admits0 = eng.n_steps, eng.n_admitted
-    fd.reset_counts()
+    reset_counts()
     res, wall = asyncio.run(asyncio.wait_for(
         _serve(eng, prompts, budgets), 600))
-    launches, plain = dict(fd.LAUNCHES), dict(fd.PLAIN_CALLS)
+    launches, plain = counts()
     steps, admits = eng.n_steps - steps0, eng.n_admitted - admits0
     for i, (r, b) in enumerate(zip(res, budgets)):
         check(r["status"] == 200, f"stream {i}: HTTP {r['status']}")
@@ -427,6 +614,8 @@ def run_serve(torch, fd, card: str) -> None:
     check(launches["paged_prefill_attn"] == L * admits,
           f"paged_prefill_attn launched {launches['paged_prefill_attn']} "
           f"times for {admits} admissions x {L} layers")
+    check(all(launches[k] == 0 for k in FLASH_SOURCE),
+          f"the training kernels ran on the serve path: {launches}")
     n_tok = sum(len(r["tokens"]) for r in res)
     ttft = sorted(r["ttft"] for r in res)
     step_ms = sorted(e["step_ms"] for e in eng.flight.entries(steps))
@@ -465,19 +654,204 @@ def profile_decode(torch, eng, prompts) -> None:
             eng.step()
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    ev = [e for e in prof.key_averages() if dev_us(e) > 0]
-    dev_ms = sum(dev_us(e) for e in ev) / n / 1e3
-    top = sorted(ev, key=dev_us, reverse=True)[:8]
+    ev, dev_ms = device_kernels(prof, n)
     print(f"  decode step (8 live slots): host wall {wall_ms:.3f} ms, "
-          f"device {dev_ms:.3f} ms, device busy "
+          f"device {dev_ms:.3f} ms (kernels), device busy "
           f"{100 * dev_ms / wall_ms:.1f}%", flush=True)
-    for e in top:
-        print(f"    {dev_us(e) / n / 1e3:8.4f} ms/step  {e.count // n:4d}x  "
+    print_kernels(ev, n, 8)
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_kernels(prof, n: int) -> tuple[list, float]:
+    """The profile's device-side events (kernels, copies) and their time
+    per step in ms. Operator-level events and user annotations are left
+    out: their device time repeats the time of the kernels inside them."""
+    from torch.autograd import DeviceType
+    ev = [e for e in prof.key_averages()
+          if e.device_type != DeviceType.CPU and _dev_us(e) > 0
+          and not getattr(e, "is_user_annotation", False)]
+    return ev, sum(_dev_us(e) for e in ev) / n / 1e3
+
+
+def print_kernels(ev, n: int, top: int) -> None:
+    for e in sorted(ev, key=_dev_us, reverse=True)[:top]:
+        print(f"    {_dev_us(e) / n / 1e3:8.4f} ms/step  {e.count // n:4d}x  "
               f"{e.key[:90]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--preset", "gpt2_124m", "--attn_impl", "pallas",
+              "--compute_dtype", "bfloat16", "--dataset", "synthetic",
+              "--batch_size", "8", "--total_batch_size_str", "2**14",
+              "--max_iters", "19", "--warmup_steps", "5",
+              "--learning_rate", "1e-3", "--ckpt_interval", "10",
+              "--file_name", "chip_smoke_train", "--seed", "0"]
+
+
+def run_train(torch, dev, card: str) -> dict:
+    """The trainer's own train() at full width; returns the flash kernels'
+    launches in it."""
+    from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
+    from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
+    from distributed_pytorch_tpu_torch.train.loop import train
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            model_cfg, train_cfg = parse_train_argv(
+                TRAIN_ARGV + ["--data_dir", os.path.join(tmp, "data")])
+            L = model_cfg.n_layer
+            accum = train_cfg.total_batch_size // (
+                train_cfg.batch_size * model_cfg.block_size)
+            iters = train_cfg.max_iters + 1
+            reset_counts()
+            stats = train(model_cfg, train_cfg,
+                          log=lambda line: print(f"  {line}", flush=True))
+            launches = _counted(
+                {k: L * accum * iters for k in FLASH_SOURCE},
+                "train")
+            losses = stats["train_losses"]
+            check(len(losses) == iters and all(np.isfinite(losses)),
+                  f"train: losses {losses}")
+            last = float(np.mean(losses[-3:]))
+            check(last <= losses[0] - TRAIN_DROP,
+                  f"train: loss fell from {losses[0]:.4f} to {last:.4f}, "
+                  f"less than {TRAIN_DROP}")
+            root = os.path.join("checkpoints", train_cfg.file_name)
+            step_dir = os.path.join(root, "step_10")
+            check(ckpt.verify_manifest(step_dir) == [],
+                  f"train: checkpoint {step_dir} does not verify")
+            state = stats["state"]
+            restored = ckpt.restore_latest(root, state)
+            check(restored is not None and restored[1].endswith("step_10")
+                  and restored[0].step == 11,
+                  f"train: restore_latest gave {restored and restored[1:]}")
+            profile_train(torch, state, train_cfg, model_cfg)
+            del state, stats["state"], restored
+        finally:
+            os.chdir(cwd)
+    print(f"  20 iterations x {accum} micro-steps of {train_cfg.batch_size} x "
+          f"{model_cfg.block_size}: loss {losses[0]:.4f} -> {last:.4f} "
+          f"(mean of the last 3; drop >= {TRAIN_DROP}); step ms p50 "
+          f"{stats['median_step_time'] * 1e3:.3f}, tok/s "
+          f"{stats['median_tokens_per_sec']:.1f}, MFU "
+          f"{stats['median_mfu']:.4f}, peak memory "
+          f"{stats['peak_mem_gb']:.3f} GB; launches "
+          f"{ {k: launches[k] for k in FLASH_SOURCE} }; "
+          f"checkpoint step_10 verified and restored; card {card}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in FLASH_SOURCE}
+
+
+def profile_train(torch, state, train_cfg, model_cfg) -> None:
+    """Where a steady train step's time goes: host wall per step, device
+    time by kernel (torch.profiler), device busy share. Runs after the
+    main path's counts were read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_pytorch_tpu_torch.data.loader import DataLoader
+    from distributed_pytorch_tpu_torch.train.loop import data_paths
+    from distributed_pytorch_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(train_cfg)
+    B, T = train_cfg.batch_size, model_cfg.block_size
+    loader = DataLoader(data_paths(train_cfg, model_cfg.vocab_size)[0], B, T,
+                        grad_accum=train_cfg.total_batch_size // (B * T),
+                        device=state.model.device)
+    x, y = loader.next_batch(step=100)
+    step(state, x, y)
+    torch.cuda.synchronize()
+    n = 2
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, x, y)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(state, x, y)
+        torch.cuda.synchronize()
+
+    ev, dev_ms = device_kernels(prof, n)
+    print(f"  train step (B {B} x T {T} x accum 2): host wall "
+          f"{wall_ms:.3f} ms, device {dev_ms:.3f} ms (kernels), device busy "
+          f"{100 * dev_ms / wall_ms:.1f}%", flush=True)
+    split = {"flash attention kernels": 0.0, "matmuls (cuBLAS)": 0.0,
+             "everything else": 0.0}
+    for e in ev:
+        if "flash::Params" in e.key:
+            split["flash attention kernels"] += _dev_us(e)
+        elif any(m in e.key.lower() for m in ("gemm", "nvjet", "xmma",
+                                              "cutlass")):
+            split["matmuls (cuBLAS)"] += _dev_us(e)
+        else:
+            split["everything else"] += _dev_us(e)
+    print("  split: " + ", ".join(f"{k} {v / n / 1e3:.3f} ms"
+                                  for k, v in split.items()), flush=True)
+    print_kernels(ev, n, 12)
+
+
+def run_parity(torch, dev) -> None:
+    """One train step's loss and gradients at full width in fp32, B 2:
+    through the flash kernels against attn_impl='naive'."""
+    from distributed_pytorch_tpu_torch.config import (TrainConfig,
+                                                      flagship_gpt124m)
+    from distributed_pytorch_tpu_torch.train.state import build_model
+
+    cfg = flagship_gpt124m()
+    rng = np.random.default_rng(5)
+    shape = (2, cfg.block_size)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    y = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    res = {}
+    for impl in ("pallas", "naive"):
+        model = build_model(cfg, TrainConfig(compute_dtype="float32",
+                                             attn_impl=impl), dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        model.init_weights(g)
+        model.train()
+        reset_counts()
+        _, loss = model(x, y)
+        loss.backward()
+        launches, _ = counts()
+        res[impl] = (loss.item(), {n: p.grad for n, p in
+                                   model.named_parameters()}, launches)
+        del model
+    (l_k, g_k, n_k), (l_n, g_n, n_n) = res["pallas"], res["naive"]
+    check(all(n_k[k] == cfg.n_layer for k in FLASH_SOURCE)
+          and all(n_n[k] == 0 for k in FLASH_SOURCE),
+          f"parity: kernel routes {n_k}, naive routes {n_n}")
+    # per parameter: max |grad diff| / max |grad| (0 / 0 counts as 0)
+    rel = {}
+    for name, b in g_n.items():
+        err = (g_k[name] - b).abs().max().item()
+        mag = b.abs().max().item()
+        rel[name] = err / mag if mag > 0 else (0.0 if err == 0 else np.inf)
+    worst = max(rel, key=rel.get)
+    attn = max((n for n in rel if "c_attn" in n), key=rel.get)
+    print(f"  fp32 parity, B 2 x T {cfg.block_size}: loss {l_k:.6f} (kernels) "
+          f"vs {l_n:.6f} (naive), |diff| {abs(l_k - l_n):.3e} (tol "
+          f"{PARITY_TOL['loss']:.0e}); max |grad diff| / max |grad| per "
+          f"parameter: worst {rel[worst]:.3e} ({worst}), worst c_attn "
+          f"{rel[attn]:.3e} ({attn}) (tol {PARITY_TOL['grad']:.0e})",
+          flush=True)
+    check(abs(l_k - l_n) <= PARITY_TOL["loss"], "parity: losses differ")
+    check(rel[worst] <= PARITY_TOL["grad"],
+          f"parity: gradients of {worst} differ by {rel[worst]:.3e} of "
+          f"their largest")
+    del res, g_k, g_n
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -510,12 +884,17 @@ def main() -> None:
 
     phase("3 kernels vs plain versions")
     kres = run_kernels(torch, fd, dev)
+    fres = run_flash_kernels(torch, dev)
 
     phase("4 flagship model at full width")
     contiguous = run_model(torch, fd, dev)
 
     phase("5 serve")
     launches = run_serve(torch, fd, card)
+
+    phase("6 train")
+    train_launches = run_train(torch, dev, card)
+    run_parity(torch, dev)
 
     rows = []
     for case, kname in (("paged", "paged_decode_attn"),
@@ -538,6 +917,28 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "ms_fp32": r32["ms"], "plain_ms_fp32": r32["plain_ms"],
+            "bound_ms_fp32": r32["bound_ms"],
+            "library_ms_fp32": r32["library_ms"]})
+    for kname in FLASH_SOURCE:
+        r, r32 = fres[(kname, "bfloat16")], fres[(kname, "float32")]
+        rows.append({
+            "name": kname, "case": "B8_T1024_H12x64_causal",
+            "dtype": "bfloat16", "route": "cuda",
+            "source": SOURCE.format(FLASH_SOURCE[kname]),
+            "replaces": REPLACES[kname],
+            "launches": train_launches[kname], "launches_path": "train",
+            "max_abs_err": r["max_abs_err"], "tol": r["tol"],
+            "lse_max_abs_err": r["lse_max_abs_err"], "launches_fp32": None,
+            "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],
+            "lse_max_abs_err_fp32": r32["lse_max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_call": ("scaled_dot_product_attention"
+                             if kname == "flash_attn_fwd" else
+                             "scaled_dot_product_attention backward "
+                             "(dq, dk, dv together)"),
             "ms_fp32": r32["ms"], "plain_ms_fp32": r32["plain_ms"],
             "bound_ms_fp32": r32["bound_ms"],
             "library_ms_fp32": r32["library_ms"]})

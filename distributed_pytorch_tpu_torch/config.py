@@ -1,15 +1,18 @@
 """Configuration: the model dataclass, the size presets and the env-knob
 registry of the PyTorch port.
 
-A copy of the reference package's `config.py` cut to what the serving
-slice reads: `LLMConfig` (field-for-field, so one config drives both
-packages and `convert.params_from_jax`), the GPT-2 presets, and the knobs
-the copied serving modules look up. `TrainConfig` and the trainer CLI
-come with the training slice.
+A copy of the reference package's `config.py` cut to what the serving and
+training slices read: `LLMConfig` and `TrainConfig` (field-for-field, so
+one config drives both packages and `convert.params_from_jax`), the GPT-2
+presets, the trainer CLI (`build_parser`, `configs_from_args`) and the
+knobs the copied modules look up. Fields of later slices are carried and
+refused where they are read (train/loop.py).
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -94,6 +97,26 @@ register_knob("SLO_BATCH_RESUME_TIMEOUT_S", "0",
               "for re-admission before an explicit "
               "ShedError(preempted_batch_timeout); 0 = never (resumed "
               "batch waits out any interactive burst, lossless)")
+
+
+# --- training (train/step.py, train/loop.py, train/checkpoint.py) ---
+register_knob("TRAIN_POISON_IT", "-1", int,
+              "NaN-bomb iteration k's loss+grads (anomaly-guard fault "
+              "injection, train/step.py)")
+register_knob("CKPT_VERIFY", "on",
+              lambda s: s.lower() not in ("off", "0", ""),
+              "deep blake2b manifest verification on checkpoint restore "
+              "(train/checkpoint.py); off = structural checks only")
+register_knob("TRAIN_KEEP_CKPTS", "0", int,
+              "checkpoint retention: keep the newest K verified step dirs, "
+              "prune older ones after each save; 0 = keep everything "
+              "(TrainConfig.keep_ckpts overrides when > 0)")
+
+
+PARALLELISM_RECIPES = (
+    "single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp", "ep", "sp",
+    "pp",
+)
 
 
 ACTIVATIONS = (
@@ -286,3 +309,174 @@ PRESETS = {
     "gpt2_7b": gpt2_7b,
 }
 
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters, field-for-field the reference package's
+    `TrainConfig`. The port's training slice runs `parallelism='single'`
+    on one card (or the CPU with `platform='cpu'`); the loop refuses the
+    fields of later slices."""
+
+    dataset: str = "tinystories"  # shakespeare | tinystories | fineweb | synthetic
+    data_dir: str = "data"
+    total_batch_size: int = 2 ** 11   # in tokens
+    batch_size: int = 2              # micro-batch size (sequences)
+    max_iters: int = 2500
+    eval: bool = False
+    eval_interval: int = 100
+    eval_iters: int = 100
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"         # adamw | lion | adafactor
+    save_model: bool = False
+    save_stats: bool = True          # persist run stats as <ckpt>/stats.json
+    file_name: str = "llm_model"
+    act_recomp: bool = False
+    seed: int = 1729
+
+    parallelism: str = "single"      # see PARALLELISM_RECIPES
+    platform: str = "auto"           # auto | cuda | cpu (the reference:
+                                     # auto | tpu | cpu)
+    dp_size: int = -1
+    tp_size: int = 1
+    ep_size: int = 1
+    sp_size: int = 1
+    pp_size: int = 1
+    compute_dtype: str = "bfloat16"  # bf16 compute, fp32 params/opt state
+    attn_impl: str = "auto"  # auto | xla | pallas | naive | ring | zigzag | ulysses
+    moe_impl: str = "dense"          # 'dense' | 'scatter' | 'grouped'
+    overlap: str = "auto"            # auto | on | off
+    ckpt_interval: int = 0           # 0 = end-of-run only
+    resume: bool = False
+    keep_ckpts: int = 0              # keep newest K verified step dirs;
+                                     # 0 defers to TRAIN_KEEP_CKPTS
+    log_interval: int = 1
+    profile: bool = False
+    profile_dir: str = ""
+    telemetry: bool = True
+    metrics_port: int = -1
+    anomaly: str = "warn"            # loss/grad guard: 'skip' withholds
+                                     # the optimizer update on a NaN/inf
+                                     # step, 'warn' records only, 'off'
+    offload: str = "auto"            # auto | on | off
+
+    def __post_init__(self):
+        assert self.parallelism in PARALLELISM_RECIPES, \
+            f"unknown parallelism recipe {self.parallelism!r}"
+        assert self.moe_impl in ("dense", "scatter", "grouped"), \
+            f"unknown moe_impl {self.moe_impl!r}"
+        assert self.attn_impl in ("auto", "xla", "pallas", "naive", "ring",
+                                  "zigzag", "ulysses"), \
+            f"unknown attn_impl {self.attn_impl!r}"
+        assert self.platform in ("auto", "cuda", "cpu"), \
+            f"unknown platform {self.platform!r}"
+        assert self.overlap in ("auto", "on", "off"), \
+            f"unknown overlap mode {self.overlap!r}"
+        assert self.optimizer in ("adamw", "lion", "adafactor"), \
+            f"unknown optimizer {self.optimizer!r}"
+        assert self.anomaly in ("skip", "warn", "off"), \
+            f"unknown anomaly mode {self.anomaly!r}"
+        assert self.offload in ("auto", "on", "off"), \
+            f"unknown offload mode {self.offload!r}"
+
+
+# ---------------------------------------------------------------------------
+# CLI: one flag per dataclass field, routed to whichever config owns it
+# ---------------------------------------------------------------------------
+
+_BOOL_FLAGS = {
+    "moe", "aux_free", "eval", "save_model", "act_recomp",
+    "resume", "profile", "save_stats", "telemetry",
+}
+
+
+def build_parser(model_defaults: LLMConfig | None = None,
+                 train_defaults: TrainConfig | None = None
+                 ) -> argparse.ArgumentParser:
+    """An argparse parser exposing every field of both dataclasses, plus
+    `--total_batch_size_str` (an arithmetic expression such as "2**14"),
+    `--preset` and `--knobs`."""
+    model_defaults = model_defaults or LLMConfig()
+    train_defaults = train_defaults or TrainConfig()
+    p = argparse.ArgumentParser(
+        description="Train an LLM on a CUDA card (PyTorch)")
+    seen: set[str] = set()
+    for cfg in (train_defaults, model_defaults):
+        for f in dataclasses.fields(cfg):
+            name = f.name
+            if name in seen:  # act_recomp lives in both configs
+                continue
+            seen.add(name)
+            if name == "total_batch_size":
+                p.add_argument("--total_batch_size_str", type=str,
+                               default=str(train_defaults.total_batch_size),
+                               help="Total batch size in tokens, as an "
+                                    "arithmetic expression, e.g. '2**14'")
+                continue
+            default = getattr(cfg, name)
+            if name in _BOOL_FLAGS:
+                if default:
+                    p.add_argument(f"--{name}", default=default,
+                                   action=argparse.BooleanOptionalAction)
+                else:
+                    p.add_argument(f"--{name}", action="store_true",
+                                   default=default)
+            elif f.type in ("int", "Optional[int]", int):
+                p.add_argument(f"--{name}", type=int, default=default)
+            elif f.type in ("float", float):
+                p.add_argument(f"--{name}", type=float, default=default)
+            else:
+                p.add_argument(f"--{name}", type=str, default=default)
+    p.add_argument("--preset", choices=sorted(PRESETS), default=None,
+                   help="model-size preset; explicit flags still override "
+                        "its fields")
+    p.add_argument("--knobs", action="store_true", default=False,
+                   help="print the env-knob registry (name, default, "
+                        "current value, doc) and exit")
+    return p
+
+
+def _safe_int_expr(s: str) -> int:
+    """Arithmetic-only evaluation of an int expression such as "2**14"."""
+    import ast
+    node = ast.parse(s, mode="eval")
+    allowed = (ast.Expression, ast.BinOp, ast.UnaryOp, ast.Constant,
+               ast.Add, ast.Sub, ast.Mult, ast.Div, ast.FloorDiv, ast.Pow,
+               ast.USub, ast.Mod)
+    for n in ast.walk(node):
+        if not isinstance(n, allowed):
+            raise ValueError(f"disallowed expression: {s!r}")
+    return int(eval(compile(node, "<total_batch_size_str>", "eval")))  # noqa: S307
+
+
+def configs_from_args(args: argparse.Namespace,
+                      model_defaults: LLMConfig | None = None,
+                      train_defaults: TrainConfig | None = None,
+                      ) -> tuple[LLMConfig, TrainConfig]:
+    """Route parsed flags onto the owning dataclass: strings lowercased
+    except `non_linearity` and paths; act_recomp is copied into the model
+    config."""
+    model_defaults = model_defaults or LLMConfig()
+    train_defaults = train_defaults or TrainConfig()
+    model_fields = {f.name for f in dataclasses.fields(LLMConfig)}
+    train_fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    no_lower = {"non_linearity", "file_name", "data_dir", "profile_dir"}
+    m_kw, t_kw = {}, {}
+    for key, value in vars(args).items():
+        if key == "total_batch_size_str":
+            t_kw["total_batch_size"] = _safe_int_expr(value)
+            continue
+        if isinstance(value, str) and key not in no_lower:
+            value = value.lower().strip()
+        if key in train_fields:
+            t_kw[key] = value
+        if key in model_fields:
+            m_kw[key] = value
+    if "act_recomp" in t_kw:
+        m_kw["act_recomp"] = t_kw["act_recomp"]
+    model = dataclasses.replace(model_defaults, **m_kw)
+    train = dataclasses.replace(train_defaults, **t_kw)
+    return model, train

@@ -1,0 +1,73 @@
+"""Memmap token loader.
+
+Counterpart of the reference package's `data/loader.py`
+(`make_synthetic_bin`, `DataLoader`; loader.py:28-110) with its numpy
+backend: np.memmap of a raw uint16 token file; every batch is B
+uniform-random start offsets drawn from a counter-based stream keyed on
+(seed, step, accum slot, row) (`data/native.philox_offsets`), and y is x
+shifted by one. The stream is the reference's, so both packages see the
+same batches for the same (seed, step), and a resumed run continues the
+exact stream. `next_batch` returns the whole optimizer step, (A, B, T)
+int64 tensors on the loader's device.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from distributed_pytorch_tpu_torch.data.native import philox_offsets
+
+
+def make_synthetic_bin(path: str, n_tokens: int = 2 ** 20,
+                       vocab_size: int = 50304, seed: int = 1729) -> str:
+    """Write a synthetic uint16 token file with mild Markov structure (so
+    loss can decrease): a noisy ramp next ~ prev + small step (mod
+    min(vocab, 1024)), with 5% uniform-noise resets. Written to a temp
+    file and renamed, so a reader never sees a torn file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    rng = np.random.default_rng(seed)
+    eff_vocab = min(vocab_size, 1024)
+    walk = np.cumsum(rng.integers(-3, 4, size=n_tokens)) % eff_vocab
+    noise = rng.integers(0, eff_vocab, size=n_tokens)
+    toks = np.where(rng.random(n_tokens) < 0.05, noise, walk)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    toks.astype(np.uint16).tofile(tmp)
+    os.replace(tmp, path)
+    return path
+
+
+class DataLoader:
+    """Random-offset batch sampler over a uint16 token memmap."""
+
+    def __init__(self, file_path: str, batch_size: int, block_size: int, *,
+                 grad_accum: int = 1, seed: int = 1729, device=None):
+        self.tokens = np.memmap(file_path, dtype=np.uint16, mode="r")
+        assert len(self.tokens) > block_size + 1, (
+            f"dataset {file_path} too small: {len(self.tokens)} tokens "
+            f"<= block_size+1")
+        self.B, self.T, self.A = batch_size, block_size, grad_accum
+        self.seed = seed
+        self.step = 0
+        self.device = device
+
+    def _sample(self, step: int, rows: np.ndarray):
+        """(len(rows), T) x/y int32 pairs for global batch-row ids `rows`
+        at `step`."""
+        hi = len(self.tokens) - self.T - 1
+        offsets = philox_offsets(self.seed, step, rows, hi)
+        idx = offsets[:, None] + np.arange(self.T + 1)[None, :]
+        seqs = self.tokens[idx].astype(np.int32)
+        return seqs[:, :-1], seqs[:, 1:]
+
+    def next_batch(self, step: Optional[int] = None):
+        """(x, y), each (A, B, T) int64 on the loader's device."""
+        step = self.step if step is None else step
+        self.step = step + 1
+        x, y = self._sample(step, np.arange(self.A * self.B))
+        shp = (self.A, self.B, self.T)
+        return (torch.from_numpy(x.reshape(shp)).long().to(self.device),
+                torch.from_numpy(y.reshape(shp)).long().to(self.device))

@@ -240,7 +240,7 @@ class DecodeEngine:
         and returns its first sampled token (1,)."""
         padded = torch.tensor([suffix + [0] * (bucket - len(suffix))],
                               dtype=torch.long, device=self.device)
-        logits = self.model(padded, self.caches, prefix_len,
+        logits = self.model(padded, caches=self.caches, pos=prefix_len,
                             logits_idx=[len(suffix) - 1],
                             block_tables=self.block_tables[slot:slot + 1])
         first = self._sample(logits[:, -1, :])
@@ -254,7 +254,8 @@ class DecodeEngine:
         """Advance every live slot by one token. Dead slots freeze their
         token and position; their zeroed table rows send the write to the
         null block."""
-        logits = self.model(self.tok[:, None], self.caches, self.pos,
+        logits = self.model(self.tok[:, None], caches=self.caches,
+                            pos=self.pos,
                             block_tables=self.block_tables)
         nxt = self._sample(logits[:, -1, :])
         self.tok = torch.where(self.live, nxt, self.tok)

@@ -5,8 +5,16 @@ Counterpart of the reference package's `models/attention.py` `GQA`,
 `init_attn_cache` and `init_paged_attn_cache`: one fused qkv projection
 `c_attn` of width C + 2*n_kv_heads*head_size with a bias, split
 [q | k | v] at [C, C + nkv*hs], RoPE on q and k, the attention dispatch
-(ops/attention_core.py), and the `c_proj` output projection. MLA waits for
-its slice.
+(ops/attention_core.py), the `c_proj` output projection and residual
+dropout after it. MLA waits for its slice.
+
+Weights may be held in fp32 while the activations run in bf16 (the
+training model's fp32 masters): each projection casts its weight and bias
+to the activations' dtype at use, as flax's Dense with `param_dtype=float32,
+dtype=bfloat16` does. In training mode (`nn.Module.train()`) with
+`config.dropout > 0`, attention-weight dropout runs inside the attention
+kernels and residual dropout after `c_proj`, both keyed on `dropout_seed`
+(ops/dropout.py).
 
 Caches are dicts {'k', 'v'} of tensors updated IN PLACE (the reference
 returns new buffers; the port saves the copy). A contiguous cache is
@@ -24,6 +32,8 @@ from torch import nn
 from distributed_pytorch_tpu_torch.config import LLMConfig
 from distributed_pytorch_tpu_torch.ops.attention_core import sdpa
 from distributed_pytorch_tpu_torch.ops.block_pool import paged_update
+from distributed_pytorch_tpu_torch.ops.dropout import (dropout, seed_pair,
+                                                      subseed)
 from distributed_pytorch_tpu_torch.ops.rope import apply_rotary_emb, slice_rows
 
 Cache = dict
@@ -52,20 +62,25 @@ def _update_cache(cache_arr: torch.Tensor, new: torch.Tensor, pos) -> None:
 class GQA(nn.Module):
     """Grouped-query attention; n_kv_heads == n_head gives MHA, == 1 MQA."""
 
-    def __init__(self, config: LLMConfig, *, device=None, dtype=None):
+    def __init__(self, config: LLMConfig, *, device=None, dtype=None,
+                 attn_impl: str = "auto"):
         super().__init__()
         self.config = config
+        self.attn_impl = attn_impl
         C, nkv, hs = config.n_embd, config.n_kv_heads, config.head_size
         self.c_attn = nn.Linear(C, C + 2 * nkv * hs, bias=True,
                                 device=device, dtype=dtype)
         self.c_proj = nn.Linear(C, C, bias=True, device=device, dtype=dtype)
 
     def forward(self, x, freqs, cache: Optional[Cache] = None, pos=0, *,
-                block_tables=None):
+                block_tables=None, dropout_seed: Optional[int] = None):
+        """`dropout_seed` keys this layer's dropout masks in training
+        mode (ops/dropout.py); unused otherwise."""
         cfg = self.config
         B, T, C = x.shape
         nh, nkv, hs = cfg.n_head, cfg.n_kv_heads, cfg.head_size
-        q, k, v = self.c_attn(x).split([C, nkv * hs, nkv * hs], dim=-1)
+        qkv = _linear(x, self.c_attn)
+        q, k, v = qkv.split([C, nkv * hs, nkv * hs], dim=-1)
         q = q.reshape(B, T, nh, hs)
         k = k.reshape(B, T, nkv, hs)
         v = v.reshape(B, T, nkv, hs)
@@ -87,9 +102,22 @@ class GQA(nn.Module):
                 k, v = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
             q_offset = pos
 
+        drop = self.training and cfg.dropout > 0.0
         y = sdpa(q, k, v, q_offset=q_offset, decode=cache is not None,
-                 block_tables=block_tables)
-        return self.c_proj(y.reshape(B, T, C))
+                 block_tables=block_tables, impl=self.attn_impl,
+                 dropout_rate=cfg.dropout if drop else 0.0,
+                 dropout_seed=seed_pair(subseed(dropout_seed, 0), x.device)
+                 if drop else None)
+        y = _linear(y.reshape(B, T, C), self.c_proj)
+        if drop:
+            y = dropout(y, cfg.dropout, subseed(dropout_seed, 1))
+        return y
+
+
+def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """`lin(x)` with the weight and bias cast to x's dtype at use."""
+    return torch.nn.functional.linear(x, lin.weight.to(x.dtype),
+                                      lin.bias.to(x.dtype))
 
 
 def _check_family(config: LLMConfig) -> None:

@@ -6,8 +6,10 @@ block_size tokens, prefilled in one forward over a contiguous cache, then
 decoded one token per step in a Python loop (the reference's `lax.scan`).
 Decode positions are tensors, so cache writes wrap as a ring once the
 window fills, as in the reference. This one-shot path is the greedy
-oracle the engine is held against; it decodes through `flash_decode`
-(the contiguous-cache route of the `paged_decode_attn` kernel).
+oracle the engine is held against. Its prompt pass (static offset 0 over
+the contiguous cache) runs the `flash_attn_fwd` kernel; it decodes
+through `flash_decode` (the contiguous-cache route of the
+`paged_decode_attn` kernel).
 
 Sampling draws from an explicit `torch.Generator`; temperature 0 is greedy
 argmax (first index on ties, as jnp.argmax).
@@ -59,13 +61,13 @@ def generate(model, prompt, max_new_tokens: int, *, generator=None,
     B, T0 = prompt.shape
     assert T0 <= max_len, f"prompt length {T0} exceeds cache size {max_len}"
     caches = init_cache(cfg, B, max_len, dtype=model.dtype, device=device)
-    logits = model(prompt, caches, 0)
+    logits = model(prompt, caches=caches, pos=0)
     tok = sample_token(logits[:, -1], generator, temperature=temperature,
                        top_k=top_k)
     out = [tok]
     pos = torch.tensor(T0, device=device)
     for _ in range(1, max_new_tokens):
-        logits = model(tok[:, None], caches, pos)
+        logits = model(tok[:, None], caches=caches, pos=pos)
         tok = sample_token(logits[:, -1], generator,
                            temperature=temperature, top_k=top_k)
         out.append(tok)

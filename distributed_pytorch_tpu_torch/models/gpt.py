@@ -1,5 +1,5 @@
 """The LLM: token/positional embeddings, pre-LN transformer blocks, a
-weight-tied LM head, KV-cached decoding.
+weight-tied LM head with its cross-entropy loss, KV-cached decoding.
 
 Counterpart of the reference package's `models/gpt.py` (`LLM`, `Block`,
 `init_cache`, `init_paged_cache`, `count_params`), as `nn.Module`s:
@@ -8,14 +8,28 @@ Counterpart of the reference package's `models/gpt.py` (`LLM`, `Block`,
   fp32 statistics and parameters whatever the activation dtype, with the
   output in the activations' dtype — flax's LayerNorm with a float32
   param dtype.
-* Linear/embedding/MLP weights live in the model's compute dtype (fp32, or
-  bf16 for serving); the reference keeps fp32 master weights and casts at
-  use, which for inference is the same numbers.
+* Linear/embedding/MLP weights live in `dtype` and the activations in
+  `compute_dtype` (default: `dtype`); every weight is cast to the compute
+  dtype at use, with explicit casts where flax casts (embedding table,
+  positional rows, dense kernels and biases, the tied LM head), not
+  `torch.autocast`, whose cast points differ. Training builds fp32 masters
+  with bf16 compute (flax's `param_dtype=float32, dtype=bfloat16`);
+  serving builds bf16 weights, so its casts are no-ops.
 * The LM head is tied to the (V, C) token embedding.
+* `forward(idx, targets)` returns (logits, loss): the mean cross-entropy
+  over targets != -1 through `config.loss_impl` (ops/losses.py), and the
+  last position's logits (every position's with `all_logits`). The
+  reference returns every position's logits and lets XLA drop them when
+  unused; eager PyTorch would compute them, so the port does not.
+  Without targets `forward` returns the logits alone.
+* Training mode (`nn.Module.train()`) with `config.dropout > 0` applies
+  embedding, attention-weight and residual dropout, keyed on the
+  `dropout_seed` the train step passes (ops/dropout.py).
+* `act_recomp` recomputes whole blocks ('block') or the attention sublayer
+  ('attn') in the backward through `torch.utils.checkpoint`.
 * `logits_idx` (B,) picks each sequence's true last row of a right-padded
   (bucketed) prefill; `all_logits` returns every position.
-* Caches are updated in place; `forward` returns the logits. The loss path
-  comes with the training slice.
+* Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -25,12 +39,16 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distributed_pytorch_tpu_torch import resolve_device
 from distributed_pytorch_tpu_torch.config import LLMConfig
 from distributed_pytorch_tpu_torch.models.attention import (
     GQA, init_attn_cache, init_paged_attn_cache)
 from distributed_pytorch_tpu_torch.models.mlp import MLP
+from distributed_pytorch_tpu_torch.ops.dropout import dropout, subseed
+from distributed_pytorch_tpu_torch.ops.losses import (fused_cross_entropy,
+                                                     unchunked_cross_entropy)
 from distributed_pytorch_tpu_torch.ops.rope import (precompute_rope_freqs,
                                                    slice_rows)
 
@@ -48,22 +66,42 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
-class Block(nn.Module):
-    """Pre-LN transformer block: x + attn(ln1(x)), then x + mlp(ln2(x))."""
+def _recompute(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with its activations recomputed in the backward
+    (dropout masks come from explicit seeds, so no RNG state is kept)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kwargs)
 
-    def __init__(self, config: LLMConfig, *, device=None, dtype=None):
+
+class Block(nn.Module):
+    """Pre-LN transformer block: x + attn(ln1(x)), then x + mlp(ln2(x)).
+    `remat_attn` recomputes the attention sublayer in the backward."""
+
+    def __init__(self, config: LLMConfig, *, device=None, dtype=None,
+                 attn_impl: str = "auto", remat_attn: bool = False):
         super().__init__()
         if config.moe:
             raise NotImplementedError("MoE blocks come with a later slice")
+        self.remat_attn = remat_attn
         self.ln1 = LayerNorm(config.n_embd, device=device)
-        self.attn = GQA(config, device=device, dtype=dtype)
+        self.attn = GQA(config, device=device, dtype=dtype,
+                        attn_impl=attn_impl)
         self.ln2 = LayerNorm(config.n_embd, device=device)
         self.mlp = MLP(config, device=device, dtype=dtype)
 
-    def forward(self, x, freqs, cache=None, pos=0, block_tables=None):
-        x = x + self.attn(self.ln1(x), freqs, cache, pos,
-                          block_tables=block_tables)
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, freqs, cache=None, pos=0, block_tables=None,
+                dropout_seed=None):
+        drop = self.training and dropout_seed is not None
+        a_seed = subseed(dropout_seed, 0) if drop else None
+        h = self.ln1(x)
+        if self.remat_attn and cache is None and torch.is_grad_enabled():
+            y = _recompute(self.attn, h, freqs, dropout_seed=a_seed)
+        else:
+            y = self.attn(h, freqs, cache, pos, block_tables=block_tables,
+                          dropout_seed=a_seed)
+        x = x + y
+        return x + self.mlp(self.ln2(x),
+                            subseed(dropout_seed, 1) if drop else None)
 
 
 def _sin_table(block_size: int, n_embd: int) -> torch.Tensor:
@@ -80,19 +118,25 @@ def _sin_table(block_size: int, n_embd: int) -> torch.Tensor:
 
 class LLM(nn.Module):
     """The full model. Build with `device` (the card unless "cpu" is asked
-    for; see `resolve_device`) and `dtype` (the compute dtype);
-    `init_weights(generator)` draws the reference's N(0, 0.02) init."""
+    for; see `resolve_device`), `dtype` (the weights' dtype),
+    `compute_dtype` (the activations'; default `dtype`) and `attn_impl`
+    (ops/attention_core.py); `init_weights(generator)` draws the
+    reference's N(0, 0.02) init. `self.dtype` is the compute dtype."""
 
     def __init__(self, config: LLMConfig, *, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, compute_dtype=None,
+                 attn_impl: str = "auto"):
         super().__init__()
         cfg = config
         device = resolve_device(device)
         if cfg.pp_stages > 1:
             raise NotImplementedError("pipeline-parallel models come with "
-                                      "the training slice")
+                                      "slice 6 (parallel recipes)")
         self.config = cfg
-        self.dtype = dtype
+        self.dtype = compute_dtype or dtype
+        self.attn_impl = attn_impl
+        recomp = cfg.act_recomp
+        self.remat_block = recomp and cfg.act_recomp_policy == "block"
         self.tkn_emb = nn.Embedding(cfg.vocab_size, cfg.n_embd,
                                     device=device, dtype=dtype)
         if cfg.pos_emb == "rope":
@@ -106,7 +150,9 @@ class LLM(nn.Module):
             self.register_buffer("sin_tab", _sin_table(
                 cfg.block_size, cfg.n_embd).to(device), persistent=False)
         self.blocks = nn.ModuleList(
-            Block(cfg, device=device, dtype=dtype) for _ in range(cfg.n_layer))
+            Block(cfg, device=device, dtype=dtype, attn_impl=attn_impl,
+                  remat_attn=recomp and cfg.act_recomp_policy == "attn")
+            for _ in range(cfg.n_layer))
         self.ln_f = LayerNorm(cfg.n_embd, device=device)
 
     @property
@@ -126,27 +172,48 @@ class LLM(nn.Module):
             else:
                 p.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, idx, caches=None, pos=0, *, logits_idx=None,
-                block_tables=None, all_logits: bool = False):
-        """`idx` (B, T) token ids; `pos` the global position of idx[:, 0]
-        (an int, a 0-d tensor, or a per-sequence (B,) tensor). Returns the
-        logits of the last position (B, 1, V), of `logits_idx` (B,) rows,
-        or of every position with `all_logits`."""
+    def forward(self, idx, targets=None, caches=None, pos=0, *,
+                dropout_seed=None, logits_idx=None, block_tables=None,
+                all_logits: bool = False):
+        """`idx` (B, T) token ids; `targets` (B, T) ids with -1 ignored;
+        `pos` the global position of idx[:, 0] (an int, a 0-d tensor, or a
+        per-sequence (B,) tensor). Returns the logits of the last position
+        (B, 1, V), of `logits_idx` (B,) rows, or of every position with
+        `all_logits` — and with `targets`, (logits, loss). In training
+        mode with `config.dropout > 0`, `dropout_seed` (an int) keys every
+        dropout mask."""
         cfg = self.config
         T = idx.shape[1]
-        x = self.tkn_emb(idx)
+        dt = self.dtype
+        drop = self.training and cfg.dropout > 0.0
+        if drop and dropout_seed is None:
+            raise ValueError("training with dropout > 0 needs a dropout_seed")
+        x = F.embedding(idx, self.tkn_emb.weight.to(dt))
         freqs = None
         if cfg.pos_emb == "rope":
             freqs = self.freqs
         else:
             tab = self.pos_emb if cfg.pos_emb == "learn" else self.sin_tab
-            p = slice_rows(tab, pos, T).to(x.dtype)
+            p = slice_rows(tab, pos, T).to(dt)
             x = x + (p if p.dim() == 3 else p[None])
+        if drop:
+            x = dropout(x, cfg.dropout, subseed(dropout_seed, 0))
         if caches is None:
             caches = [None] * cfg.n_layer
-        for blk, cache in zip(self.blocks, caches):
-            x = blk(x, freqs, cache, pos, block_tables=block_tables)
+        remat = self.remat_block and caches[0] is None \
+            and torch.is_grad_enabled()
+        for i, (blk, cache) in enumerate(zip(self.blocks, caches)):
+            seed = subseed(dropout_seed, 1 + i) if drop else None
+            if remat:
+                x = _recompute(blk, x, freqs, dropout_seed=seed)
+            else:
+                x = blk(x, freqs, cache, pos, block_tables=block_tables,
+                        dropout_seed=seed)
         x = self.ln_f(x)
+        if targets is not None:
+            loss = self._loss(x, targets)
+            sel = x if all_logits else x[:, -1:, :]
+            return sel @ self.tkn_emb.weight.to(dt).t(), loss
         if all_logits:
             sel = x
         elif logits_idx is None:
@@ -155,7 +222,21 @@ class LLM(nn.Module):
             li = torch.as_tensor(logits_idx, device=x.device).long()
             sel = torch.gather(x, 1, li.reshape(-1, 1, 1)
                                .expand(-1, 1, x.shape[-1]))
-        return sel @ self.tkn_emb.weight.t()
+        return sel @ self.tkn_emb.weight.to(dt).t()
+
+    def _loss(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """Weight-tied mean cross-entropy (ignore_index -1, fp32 logits)
+        through `config.loss_impl`."""
+        cfg = self.config
+        emb = self.tkn_emb.weight.to(self.dtype)
+        if cfg.loss_impl == "pallas":
+            raise NotImplementedError(
+                "loss_impl='pallas' (the fused cross-entropy kernels of "
+                "ops/fused_ce.py) comes with the next slice; use 'fused' or "
+                "'unchunked'")
+        if cfg.loss_impl == "fused":
+            return fused_cross_entropy(x, emb, targets, chunk=cfg.loss_chunk)
+        return unchunked_cross_entropy(x, emb, targets)
 
 
 def init_cache(config: LLMConfig, batch_size: int, max_len=None,

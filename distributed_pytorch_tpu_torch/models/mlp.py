@@ -4,7 +4,10 @@ Counterpart of the reference package's `models/mlp.py` `MLP`/`mlp_apply`:
 bias-free up/down projections stored as bare (in, out) parameters
 `c_fc` (C, fc_out) and `c_proj` (up, C), as the reference stores them;
 gated variants ('swiglu'/'glu') split ONE fused (C, 2*up) product in half
-with the gate FIRST. `MoE` waits for its slice.
+with the gate FIRST. The weights are cast to the activations' dtype at use
+(fp32 masters under bf16 compute); in training mode with `config.dropout >
+0` the output takes residual dropout keyed on `dropout_seed`. `MoE` waits
+for its slice.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_pytorch_tpu_torch.config import LLMConfig
+from distributed_pytorch_tpu_torch.ops.dropout import dropout
 
 
 def _activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -63,10 +67,15 @@ class MLP(nn.Module):
         C, up = config.n_embd, config.up_dim
         fc_out = 2 * up if _is_gated(config.non_linearity) else up
         self.non_linearity = config.non_linearity
+        self.dropout = config.dropout
         self.c_fc = nn.Parameter(torch.empty(C, fc_out, device=device,
                                              dtype=dtype))
         self.c_proj = nn.Parameter(torch.empty(up, C, device=device,
                                                dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp_apply(x, self.c_fc, self.c_proj, self.non_linearity)
+    def forward(self, x: torch.Tensor, dropout_seed=None) -> torch.Tensor:
+        y = mlp_apply(x, self.c_fc.to(x.dtype), self.c_proj.to(x.dtype),
+                      self.non_linearity)
+        if self.training and self.dropout > 0.0:
+            y = dropout(y, self.dropout, dropout_seed)
+        return y

@@ -1,8 +1,9 @@
 """Scaled dot-product attention dispatch.
 
 Counterpart of the reference package's `ops/attention_core.py`, cut to the
-serving slice's routes. Layout: q (B, T, nh, hs); k, v (B, S, nkv, hs)
-("BTNH"), or (n_blocks, bs, nkv, hs) pools with `block_tables`.
+routes of the serving and training slices. Layout: q (B, T, nh, hs);
+k, v (B, S, nkv, hs) ("BTNH"), or (n_blocks, bs, nkv, hs) pools with
+`block_tables`.
 
 * Paged cache, one query token per sequence -> `paged_flash_decode`
   (CUDA kernel `paged_decode_attn` on the card).
@@ -10,17 +11,24 @@ serving slice's routes. Layout: q (B, T, nh, hs); k, v (B, S, nkv, hs)
   bucketed wave prefill) -> `paged_flash_prefill` (`paged_prefill_attn`).
 * Contiguous cache, one query token -> `flash_decode` (`paged_decode_attn`
   over the cache as a pool of B blocks of S rows).
-* Everything else — uncached full-sequence attention, a contiguous-cache
-  prefill, a paged multi-sequence chunk — takes `_naive_sdpa`, the
-  explicit causal einsum path (the paged route first gathers the logical
-  view). The reference sends these to XLA's attention, not to a Pallas
-  kernel; the port keeps the naive path there until the training slice
-  ports `flash_attention`. No library attention call stands in for a
-  kernel.
+* Non-paged k/v, a static `q_offset == 0` and T > 1, `impl` 'auto' or
+  'pallas' -> `flash_attention` (kernels `flash_attn_fwd`, and in the
+  backward `flash_attn_bwd_dq` / `flash_attn_bwd_dkv`), with in-kernel
+  attention-weight dropout. This is the training forward and `generate`'s
+  prompt pass over its contiguous cache (keys past the prompt are masked
+  by position). The reference sends these to XLA's attention under
+  'auto' at T <= 4096; the port has no XLA, and no library attention
+  stands in for a kernel.
+* `impl='naive'`, a cache offset (int, 0-d or per-sequence tensor) or a
+  paged multi-sequence chunk -> `_naive_sdpa`, the explicit einsum path
+  (the paged route first gathers the logical view), with the same
+  dropout mask as the kernels.
+* 'xla', 'ring', 'zigzag' and 'ulysses' raise NotImplementedError naming
+  the slice that brings them.
 
 The kernel routes are chosen by shape alone. On the card a wrapper
-launches its kernel or raises on operands the kernel does not take, so a
-cached call never falls quietly to the naive path; on CPU tensors the
+launches its kernel or raises on operands the kernel does not take, so no
+call on the card falls quietly to the naive path; on CPU tensors the
 wrappers run their plain versions, so the CPU walks the same routes.
 """
 
@@ -30,15 +38,27 @@ from typing import Optional
 
 import torch
 
+from distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from distributed_pytorch_tpu_torch.ops import flash_decode as fd
 from distributed_pytorch_tpu_torch.ops.block_pool import paged_gather
 
+#: impls the reference offers that come with a later slice of the port
+LATER_IMPLS = {
+    "xla": "the port has no XLA; use 'auto' or 'pallas' (the flash "
+           "kernels) or 'naive'",
+    "ring": "sequence parallelism comes with slice 6 (parallel recipes)",
+    "zigzag": "sequence parallelism comes with slice 6 (parallel recipes)",
+    "ulysses": "sequence parallelism comes with slice 6 (parallel recipes)",
+}
 
-def _naive_sdpa(q, k, v, *, scale, q_offset=0):
+
+def _naive_sdpa(q, k, v, *, scale, q_offset=0, causal=True,
+                dropout_rate=0.0, dropout_seed=None):
     """Reference-semantics einsum attention with a cache-offset causal
     mask: query at global position q_offset + i attends keys j <=
     q_offset + i. `q_offset` may be an int, a 0-d tensor or a
-    per-sequence (B,) tensor."""
+    per-sequence (B,) tensor. Dropout multiplies the normalized weights by
+    the kernels' keep-mask (`flash_attention.keep_mask`)."""
     B, T, nh, hs = q.shape
     S, nkv = k.shape[1], k.shape[2]
     if nkv != nh:
@@ -46,25 +66,41 @@ def _naive_sdpa(q, k, v, *, scale, q_offset=0):
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     attn = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) * scale
-    off = torch.as_tensor(q_offset, device=q.device).long()
-    qpos = off.reshape(-1, 1, 1) \
-        + torch.arange(T, device=q.device)[None, :, None]       # (B|1, T, 1)
-    kpos = torch.arange(S, device=q.device)[None, None, :]
-    mask = qpos >= kpos                                        # (B|1, T, S)
-    attn = attn.masked_fill(~mask[:, None], float("-inf"))
+    if causal:
+        off = torch.as_tensor(q_offset, device=q.device).long()
+        qpos = off.reshape(-1, 1, 1) \
+            + torch.arange(T, device=q.device)[None, :, None]   # (B|1, T, 1)
+        kpos = torch.arange(S, device=q.device)[None, None, :]
+        mask = qpos >= kpos                                    # (B|1, T, S)
+        attn = attn.masked_fill(~mask[:, None], float("-inf"))
     attn = torch.softmax(attn, dim=-1)
+    if dropout_rate > 0.0:
+        attn = attn * fa.keep_mask(dropout_seed, dropout_rate, B, nh, T, S,
+                                   q.device)
     return torch.einsum("bnts,bsnh->btnh", attn.to(v.dtype), v)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-         scale: Optional[float] = None, q_offset=0, decode: bool = False,
+         causal: bool = True, scale: Optional[float] = None, q_offset=0,
+         dropout_rate: float = 0.0,
+         dropout_seed: Optional[torch.Tensor] = None, impl: str = "auto",
+         decode: bool = False,
          block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal scaled dot-product attention over (B, T, N, H) tensors.
+    """Scaled dot-product attention over (B, T, N, H) tensors.
 
     `q_offset` is the global position of q[:, 0]: an int, a 0-d tensor or
     a per-sequence (B,) tensor. `decode=True` marks a KV-cached call.
     `block_tables` (B, max_blocks) int32 marks k/v as PAGED pools
-    (ops/block_pool.py)."""
+    (ops/block_pool.py). `dropout_rate` > 0 with a (2,) int32
+    `dropout_seed` drops attention weights (training); a rate > 0 without
+    a seed raises."""
+    if impl in LATER_IMPLS:
+        raise NotImplementedError(f"attn_impl={impl!r}: {LATER_IMPLS[impl]}")
+    if impl not in ("auto", "pallas", "naive"):
+        raise ValueError(f"unknown attention impl {impl!r}; expected "
+                         "'auto' | 'pallas' | 'naive'")
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 needs a (2,) int32 dropout_seed")
     B, T, _, hs = q.shape
     scale = (1.0 / hs ** 0.5) if scale is None else scale
 
@@ -85,5 +121,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         cl = (torch.as_tensor(q_offset, device=q.device).long().reshape(-1)
               + 1).clamp(max=k.shape[1]).expand(B)
         return fd.flash_decode(q[:, 0], k, v, cl, scale=scale)[:, None]
+    elif (impl != "naive" and T > 1 and isinstance(q_offset, int)
+          and q_offset == 0):
+        return fa.flash_attention(q, k, v, scale=scale, causal=causal,
+                                  dropout_rate=dropout_rate,
+                                  seed=dropout_seed)
 
-    return _naive_sdpa(q, k, v, scale=scale, q_offset=q_offset)
+    return _naive_sdpa(q, k, v, scale=scale, q_offset=q_offset,
+                       causal=causal, dropout_rate=dropout_rate,
+                       dropout_seed=dropout_seed)

@@ -1,16 +1,17 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library
+Each `csrc/<source>.cu` is compiled by `nvcc` into its own shared library
 with a plain C interface, at first use, for `sm_90a` (Hopper), and loaded
 with `ctypes` — no PyTorch headers in the sources, so a build takes
-seconds, not the minutes `torch.utils.cpp_extension` needs. Libraries are
-keyed by a hash of their sources and flags, under `build/torch_kernels/`
-at the repo root (git-ignored); a stale key simply builds anew.
-`build()` compiles every missing library at once, one `nvcc` process per
-source, all started together.
+seconds, not the minutes `torch.utils.cpp_extension` needs. A source may
+export several kernels' entries (flash_attn_bwd.cu: dq and dkv). Libraries
+are keyed by a hash of their sources and flags, under
+`build/torch_kernels/` at the repo root (git-ignored); a stale key simply
+builds anew. `build()` compiles every missing library at once, one `nvcc`
+process per source, all started together.
 
 Every C entry returns the launch's `cudaGetLastError()`; the wrappers in
-ops/flash_decode.py raise when it is not 0.
+ops/flash_decode.py and ops/flash_attention.py raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 
 #: kernel name -> (source file, C argument types); every entry returns int
 KERNELS = {
@@ -44,6 +45,24 @@ KERNELS = {
         # dtype, q, k, v, table, out, n_tok, nh, nkv, hs, bs, n_max, off,
         # scale, stream
         (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)),
+    # dims (host int[7]) = B, T, S, nh, nkv, causal, dropout; strides (host
+    # int64[8]) = q, k, v, dout (batch, time) element strides
+    "flash_attn_fwd": (
+        "flash_attn_fwd.cu",
+        # dtype, D, q, k, v, out, lse, seed, dims, strides, scale, thresh,
+        # keep_scale, stream
+        (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U, _F, _P)),
+    "flash_attn_bwd_dq": (
+        "flash_attn_bwd.cu",
+        # dtype, D, q, k, v, dout, lse, delta, dq, seed, dims, strides,
+        # scale, thresh, keep_scale, stream
+        (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U, _F, _P)),
+    "flash_attn_bwd_dkv": (
+        "flash_attn_bwd.cu",
+        # dtype, D, q, k, v, dout, lse, delta, dk, dv, seed, dims, strides,
+        # scale, thresh, keep_scale, stream
+        (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U, _F,
+         _P)),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -55,13 +74,14 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Where the library of `name` lives for the current sources."""
+    """Where the library holding kernel `name` lives for the current
+    sources (one library per source file)."""
+    src = KERNELS[name][0]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted([KERNELS[name][0]] + [p.name for p in
-                                          CSRC.glob("*.cuh")]):
+    for f in sorted([src] + [p.name for p in CSRC.glob("*.cuh")]):
         h.update(f.encode())
         h.update((CSRC / f).read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None, *, verbose: bool = False) -> dict:
@@ -80,6 +100,8 @@ def build(names=None, *, verbose: bool = False) -> dict:
         if out.exists():
             took[name] = 0.0
             continue
+        if any(o == out for _, _, o in procs.values()):
+            continue                    # its source is already building
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
                "-o", str(tmp), str(CSRC / KERNELS[name][0])]
@@ -89,7 +111,9 @@ def build(names=None, *, verbose: bool = False) -> dict:
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        took[name] = time.perf_counter() - t0
+        for other in names:             # every kernel of the source
+            if lib_path(other) == out:
+                took[other] = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
@@ -112,8 +136,10 @@ def load(name: str) -> ctypes.CDLL:
             if not path.exists():
                 build([name])
             lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, name)
-            fn.argtypes = list(KERNELS[name][1])
-            fn.restype = ctypes.c_int
-            _LIBS[name] = lib
+            for other, (src, argtypes) in KERNELS.items():
+                if src == KERNELS[name][0]:
+                    fn = getattr(lib, other)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                    _LIBS[other] = lib
     return _LIBS[name]

@@ -1,0 +1,132 @@
+"""Cross-entropy losses for the weight-tied LM head.
+
+Counterpart of the reference package's `ops/losses.py`
+(`unchunked_cross_entropy`, `_chunk_for`, `_nll_sum_chunked`,
+`fused_cross_entropy`; losses.py:47-191). `fused_cross_entropy` never
+holds the whole (B, T, V) logits: the sequence axis is split into chunks
+and each chunk's `logsumexp(logits) - logit[target]` runs under
+`torch.utils.checkpoint`, so forward and backward each hold at most one
+(B, chunk, V) block — the reference's `jax.checkpoint` + `lax.scan`, as a
+Python loop.
+
+Logits are fp32 whatever the compute dtype, as the reference's
+`preferred_element_type=float32` gives them: a bf16 lm-head product
+accumulates and returns in fp32 (`torch.mm(..., out_dtype=float32)` on the
+card), and its backward takes the fp32 gradient back to bf16 products.
+ignore_index is -1 throughout. The sequence-parallel variant
+(`sp_fused_cross_entropy`) comes with slice 5; the streaming-kernel loss
+(`loss_impl='pallas'`, ops/fused_ce.py) with the next slice.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) with fp32 accumulation and an fp32 result."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _LmHead(torch.autograd.Function):
+    """fp32 logits x @ emb^T from compute-dtype operands."""
+
+    @staticmethod
+    def forward(ctx, x, emb):
+        ctx.save_for_backward(x, emb)
+        return _mm_f32(x.reshape(-1, x.shape[-1]), emb.t()) \
+            .reshape(*x.shape[:-1], emb.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, emb = ctx.saved_tensors
+        g = g.reshape(-1, emb.shape[0]).to(x.dtype)
+        dx = (g @ emb).reshape(x.shape)
+        demb = g.t() @ x.reshape(-1, x.shape[-1])
+        return dx, demb
+
+
+def _logits(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
+    """x (..., C) @ embedding^T (V, C) -> (..., V) fp32."""
+    if x.dtype == torch.float32 and embedding.dtype == torch.float32:
+        return x @ embedding.t()
+    return _LmHead.apply(x, embedding)
+
+
+def unchunked_cross_entropy(x: torch.Tensor, embedding: torch.Tensor,
+                            targets: torch.Tensor, *,
+                            ignore_index: int = -1) -> torch.Tensor:
+    """Mean CE over valid targets from the full (B, T, V) logits (the
+    semantics oracle)."""
+    logits = _logits(x, embedding)
+    mask = targets != ignore_index
+    safe = torch.where(mask, targets, torch.zeros_like(targets))
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    denom = mask.sum().clamp_min(1)
+    return torch.where(mask, nll, torch.zeros_like(nll)).sum() / denom
+
+
+def _chunk_for(T: int, V: int, target_tokens: int = 128,
+               min_chunk: int = 16) -> int:
+    """Largest divisor of T that is <= target_tokens (0 = don't chunk):
+    short sequences and small vocabularies skip chunking, and a divisor
+    below `min_chunk` falls back to unchunked."""
+    if T <= target_tokens or V < 8192:
+        return 0
+    for c in range(target_tokens, min_chunk - 1, -1):
+        if T % c == 0 and T // c > 1:
+            return c
+    return 0
+
+
+def _block_nll(x_c, embedding, t_c, ignore_index: int):
+    """(sum of nll over valid targets, valid count) of one T-chunk."""
+    logits = _logits(x_c, embedding)                  # (B, chunk, V) fp32
+    mask = t_c != ignore_index
+    safe = torch.where(mask, t_c, torch.zeros_like(t_c))
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, safe[..., None])[..., 0]
+    nll = lse - tgt
+    return torch.where(mask, nll, torch.zeros_like(nll)).sum(), mask.sum()
+
+
+def _nll_sum_chunked(x: torch.Tensor, embedding: torch.Tensor,
+                     targets: torch.Tensor, ignore_index: int, chunk: int):
+    """(sum of nll, valid count) with the T axis chunked, each chunk's
+    logits recomputed in the backward; one unchunked block when chunking
+    cannot help."""
+    T = x.shape[1]
+    if chunk <= 0:
+        chunk = _chunk_for(T, embedding.shape[0])
+    if chunk <= 0 or T % chunk != 0 or T // chunk <= 1:
+        return _block_nll(x, embedding, targets, ignore_index)
+    total, count = 0.0, 0
+    for c0 in range(0, T, chunk):
+        s, n = checkpoint(_block_nll, x[:, c0:c0 + chunk], embedding,
+                          targets[:, c0:c0 + chunk], ignore_index,
+                          use_reentrant=False, preserve_rng_state=False)
+        total, count = total + s, count + n
+    return total, count
+
+
+def fused_cross_entropy(x: torch.Tensor, embedding: torch.Tensor,
+                        targets: torch.Tensor, *, ignore_index: int = -1,
+                        chunk: int = 0) -> torch.Tensor:
+    """Chunked weight-tied CE: x (B, T, C) hidden states (compute dtype),
+    embedding (V, C), targets (B, T). `chunk=0` picks a divisor of T, or
+    falls back to the unchunked oracle when chunking cannot help."""
+    T = x.shape[1]
+    if chunk <= 0:
+        chunk = _chunk_for(T, embedding.shape[0])
+    if chunk <= 0 or T % chunk != 0 or T // chunk <= 1:
+        return unchunked_cross_entropy(x, embedding, targets,
+                                       ignore_index=ignore_index)
+    total, count = _nll_sum_chunked(x, embedding, targets, ignore_index,
+                                    chunk)
+    return total / count.clamp_min(1)

@@ -1,0 +1,288 @@
+"""The training loop on one device.
+
+Counterpart of the reference package's `train/loop.py` (`_data_paths`
+:147-180, `estimate_loss` :290-306, `train` :309-832) for the 'single'
+recipe. Per optimizer step one `train_step` call runs the micro-batch
+accumulation, clip and AdamW update (train/step.py) while the host
+prefetches the next batch; the host syncs on the step metrics only at
+log, eval and checkpoint boundaries, so the step time is a window
+average. Log lines carry loss, step ms, tok/s, MFU against the card's
+peak (train/metrics.py) and peak device memory.
+
+Checkpoints (train/checkpoint.py): `ckpt_interval` saves verified step
+dirs under checkpoints/<file_name>/, `resume` restores the newest good
+one (falling back past corrupt ones), `keep_ckpts` (or the
+TRAIN_KEEP_CKPTS knob) prunes old ones; `save_model` writes a final one.
+stats.json (loss curves, throughput, peak memory) lands beside them.
+
+Not here yet, and refused where a config asks for them: the parallel
+recipes and ZeRO-Offload (slice 6); the profiler and the live metrics
+endpoint (slice 7). The reference's telemetry flight recorder, memory
+planner, AOT program store and multi-host bring-up also come with slices
+6-7, its signal-driven preemption save with the next slice;
+`telemetry` is accepted and records nothing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from distributed_pytorch_tpu_torch import config as cfg_mod
+from distributed_pytorch_tpu_torch import resolve_device
+from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
+from distributed_pytorch_tpu_torch.data.loader import (DataLoader,
+                                                       make_synthetic_bin)
+from distributed_pytorch_tpu_torch.models.gpt import count_params
+from distributed_pytorch_tpu_torch.ops.attention_core import LATER_IMPLS
+from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
+from distributed_pytorch_tpu_torch.train import metrics as M
+from distributed_pytorch_tpu_torch.train.state import create_train_state
+from distributed_pytorch_tpu_torch.train.step import (make_eval_step,
+                                                      make_train_step)
+
+
+def check_slice(model_cfg: LLMConfig, train_cfg: TrainConfig) -> None:
+    """Refuse, naming the slice that brings it, what the port's training
+    slice does not run."""
+    later = []
+    if train_cfg.parallelism != "single":
+        later.append(f"parallelism={train_cfg.parallelism!r}: the parallel "
+                     "recipes come with slice 6")
+    if train_cfg.attn_impl in LATER_IMPLS:
+        later.append(f"attn_impl={train_cfg.attn_impl!r}: "
+                     f"{LATER_IMPLS[train_cfg.attn_impl]}")
+    if model_cfg.loss_impl == "pallas":
+        later.append("loss_impl='pallas': the fused cross-entropy kernels "
+                     "come with the next slice")
+    if train_cfg.optimizer != "adamw":
+        later.append(f"optimizer={train_cfg.optimizer!r} comes with a later "
+                     "slice")
+    if model_cfg.moe or model_cfg.attn == "mla":
+        later.append("MoE and MLA models come with slice 5")
+    if train_cfg.offload == "on":
+        later.append("offload comes with slice 6 (parallel recipes)")
+    if train_cfg.profile or train_cfg.metrics_port >= 0:
+        later.append("the profiler and the metrics endpoint come with "
+                     "slice 7 (operations tooling)")
+    if later:
+        raise NotImplementedError("; ".join(later))
+
+
+def train_device(train_cfg: TrainConfig) -> torch.device:
+    """The card unless `platform='cpu'`; with no card and no such request
+    this raises (resolve_device)."""
+    return resolve_device("cpu" if train_cfg.platform == "cpu" else None)
+
+
+def data_paths(train_cfg: TrainConfig, vocab_size: int) -> tuple[str, str]:
+    """(train.bin, val.bin) of the dataset. `synthetic` writes both with
+    `make_synthetic_bin` when missing, or when a file left by a run with a
+    larger vocabulary holds out-of-range ids."""
+    d = os.path.join(train_cfg.data_dir, train_cfg.dataset)
+    train_bin = os.path.join(d, "train.bin")
+    val_bin = os.path.join(d, "val.bin")
+    if train_cfg.dataset == "synthetic" and os.path.exists(train_bin):
+        try:
+            probe = np.memmap(train_bin, dtype=np.uint16, mode="r")
+            stale = int(probe[:65536].max()) >= vocab_size
+            del probe
+        except (ValueError, OSError):
+            stale = True
+        if stale:
+            for p in (train_bin, val_bin):
+                if os.path.exists(p):
+                    os.remove(p)
+    if not os.path.exists(train_bin):
+        if train_cfg.dataset != "synthetic":
+            raise FileNotFoundError(
+                f"{train_bin} not found — prepare the dataset's .bin files "
+                f"(or use --dataset synthetic)")
+        make_synthetic_bin(train_bin, n_tokens=2 ** 21,
+                           vocab_size=vocab_size)
+        make_synthetic_bin(val_bin, n_tokens=2 ** 17, seed=271828,
+                           vocab_size=vocab_size)
+    return train_bin, val_bin
+
+
+def estimate_loss(eval_step, state, loaders: dict, eval_iters: int) -> dict:
+    """Mean eval loss over `eval_iters` batches per split, keyed on the
+    eval iteration k (the same batches at every eval), micro-batch 0."""
+    out = {}
+    for split, loader in loaders.items():
+        losses = [eval_step(state, *(t[0] for t in loader.next_batch(step=k)))
+                  for k in range(eval_iters)]
+        out[split] = float(torch.stack(losses).mean())
+    return out
+
+
+def _write_stats(path: str, stats: dict, model_cfg, train_cfg) -> None:
+    record = {k: v for k, v in stats.items() if k != "state"}
+    record["model_config"] = dataclasses.asdict(model_cfg)
+    record["train_config"] = dataclasses.asdict(train_cfg)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path + ".tmp", "w") as f:
+        json.dump(record, f, indent=1)
+    os.replace(path + ".tmp", path)
+
+
+def _prune(ckpt_root: str, train_cfg: TrainConfig, say) -> None:
+    keep = train_cfg.keep_ckpts if train_cfg.keep_ckpts > 0 \
+        else cfg_mod.knob("TRAIN_KEEP_CKPTS")
+    for d in ckpt.prune_checkpoints(ckpt_root, keep):
+        say(f"retention: pruned {d} (keeping newest {keep})")
+
+
+def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
+          log: Callable[[str], None] = print) -> dict[str, Any]:
+    """Run the training job; returns the stats dict (loss curves, step
+    times, tok/s, MFU, peak memory) with the final state under 'state'."""
+    check_slice(model_cfg, train_cfg)
+    say = log
+    device = train_device(train_cfg)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    say(f"device {device} ({name}); recipe=single")
+
+    B, T = train_cfg.batch_size, model_cfg.block_size
+    assert train_cfg.total_batch_size % (B * T) == 0, (
+        f"total_batch_size {train_cfg.total_batch_size} not divisible by "
+        f"B*T = {B * T}")
+    grad_accum = train_cfg.total_batch_size // (B * T)
+    tokens_per_step = train_cfg.total_batch_size
+    say(f"grad_accum={grad_accum} micro-steps of {B}x{T} tokens "
+        f"-> {tokens_per_step} tokens/step")
+
+    train_bin, val_bin = data_paths(train_cfg, model_cfg.vocab_size)
+
+    def mk(path, seed):
+        return DataLoader(path, B, T, grad_accum=grad_accum, seed=seed,
+                          device=device)
+
+    train_loader = mk(train_bin, train_cfg.seed)
+    # eval streams of their own: the training batches do not depend on the
+    # eval cadence
+    val_loader = mk(val_bin, train_cfg.seed + 1)
+    eval_train_loader = mk(train_bin, train_cfg.seed + 2)
+
+    state = create_train_state(model_cfg, train_cfg, device)
+    total, active = count_params(state.model, model_cfg)
+    say(f"params: {total / 1e6:.2f}M total, {active / 1e6:.2f}M active")
+
+    ckpt_root = os.path.join("checkpoints", train_cfg.file_name)
+    start_step = 0
+    if train_cfg.resume:
+        restored = ckpt.restore_latest(ckpt_root, state)
+        if restored is not None:
+            state, last, skipped = restored
+            start_step = state.step
+            for bad in skipped:
+                say(f"resume: skipped unusable checkpoint {bad}")
+            say(f"resumed from {last} at step {start_step}")
+
+    train_step = make_train_step(train_cfg)
+    eval_step = make_eval_step()
+    stats = {"train_losses": [], "val_losses": [], "step_times": [],
+             "tokens_per_sec": [], "mfu": []}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    x, y = train_loader.next_batch(step=start_step)
+    pending: list = []
+    win_t0 = time.perf_counter()
+    for it in range(start_step, train_cfg.max_iters + 1):
+        if train_cfg.eval and it % train_cfg.eval_interval == 0:
+            t0 = time.perf_counter()
+            ev = estimate_loss(eval_step, state,
+                               {"train": eval_train_loader,
+                                "val": val_loader}, train_cfg.eval_iters)
+            stats["val_losses"].append((it, ev["val"]))
+            say(f"iter {it}: train {ev['train']:.4f} val {ev['val']:.4f} "
+                f"({time.perf_counter() - t0:.1f}s)")
+            win_t0 = time.perf_counter()   # eval time is not step time
+
+        m = train_step(state, x, y)
+        pending.append(m)
+        if it < train_cfg.max_iters:       # prefetch while the device runs
+            x, y = train_loader.next_batch(step=it + 1)
+
+        ckpt_due = bool(train_cfg.ckpt_interval and it
+                        and it % train_cfg.ckpt_interval == 0)
+        eval_next = (train_cfg.eval
+                     and (it + 1) % train_cfg.eval_interval == 0)
+        if (it % train_cfg.log_interval == 0 or ckpt_due or eval_next
+                or it == train_cfg.max_iters):
+            got = [{k: float(v) for k, v in g.items()} for g in pending]
+            t_now = time.perf_counter()
+            dt = (t_now - win_t0) / len(got)
+            win_t0 = t_now
+            mfu = M.mfu(model_cfg, tokens_per_step, T, dt, device=device)
+            first_window = not stats["train_losses"]
+            for k, g in enumerate(got):
+                it_k = it - len(got) + 1 + k
+                stats["train_losses"].append(g["loss"])
+                if g.get("nonfinite"):
+                    ev = {"it": it_k, "loss": g["loss"],
+                          "grad_norm": g["grad_norm"],
+                          "skipped": bool(g.get("update_skipped", 0.0))}
+                    stats.setdefault("anomalies", []).append(ev)
+                    say(f"[anomaly] iter {it_k}: loss {g['loss']:.4g}, "
+                        f"grad_norm {g['grad_norm']:.4g}"
+                        f"{', update skipped' if ev['skipped'] else ''}")
+                if not first_window:       # the first window holds warmup
+                    stats["step_times"].append(dt)
+                    stats["tokens_per_sec"].append(tokens_per_step / dt)
+                    if mfu is not None:
+                        stats["mfu"].append(mfu)
+            pending.clear()
+            if it % train_cfg.log_interval == 0:
+                mem = M.device_memory_gb(device)
+                mfu_s = f" | mfu {mfu:6.2%}" if mfu is not None else ""
+                mem_s = f" | mem {mem:5.2f}GB" if mem else ""
+                say(f"iter {it:5d} | loss {got[-1]['loss']:.4f} | "
+                    f"dt {dt * 1e3:7.1f}ms | tok/s "
+                    f"{tokens_per_step / dt:10.0f}{mfu_s}{mem_s}")
+
+        if ckpt_due:
+            path = ckpt.save_checkpoint(
+                os.path.join(ckpt_root, f"step_{it}"), state, model_cfg,
+                train_cfg)
+            say(f"checkpoint -> {path}")
+            if train_cfg.save_stats:
+                _write_stats(os.path.join(ckpt_root, "stats.json"), stats,
+                             model_cfg, train_cfg)
+            _prune(ckpt_root, train_cfg, say)
+            win_t0 = time.perf_counter()   # checkpoint time is not step time
+
+    if train_cfg.save_model:
+        path = ckpt.save_checkpoint(
+            os.path.join(ckpt_root, f"step_{state.step}"), state, model_cfg,
+            train_cfg)
+        say(f"final checkpoint -> {path}")
+    _prune(ckpt_root, train_cfg, say)
+
+    stats["final_loss"] = stats["train_losses"][-1] \
+        if stats["train_losses"] else None
+    stats["peak_mem_gb"] = M.device_memory_gb(device)
+    if stats["step_times"]:
+        med = float(np.median(stats["step_times"]))
+        stats["median_step_time"] = med
+        stats["median_tokens_per_sec"] = tokens_per_step / med
+        stats["median_mfu"] = M.mfu(model_cfg, tokens_per_step, T, med,
+                                    device=device)
+    stats["params_total"], stats["params_active"] = int(total), int(active)
+    stats["device"] = name
+    if stats.get("anomalies"):
+        stats["n_anomalies"] = len(stats["anomalies"])
+    if train_cfg.save_stats:
+        path = os.path.join(ckpt_root, "stats.json")
+        _write_stats(path, stats, model_cfg, train_cfg)
+        say(f"stats -> {path}")
+    stats["state"] = state
+    return stats

@@ -1,0 +1,86 @@
+"""Throughput and MFU accounting.
+
+Counterpart of the reference package's `train/metrics.py`
+(`matmul_params_per_token`, `attn_matmul_params_per_token`, `step_flops`,
+`mfu`; metrics.py:121-238) for the dense family, with a table of NVIDIA
+peaks in place of the TPU one. Model FLOPs: every matmul a token touches
+costs 2*in*out FLOPs forward, backward twice that; attention scores and
+values add 4*T*C per token per layer, halved for causality; recomputation
+adds the recomputed forward. The tied lm-head matmul counts; the
+embedding lookup does not.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from distributed_pytorch_tpu_torch.config import LLMConfig
+
+# Peak dense bf16 FLOP/s per card, by `torch.cuda.get_device_name`
+# substring (NVIDIA data sheets, SXM parts).
+_PEAK_FLOPS = (
+    ("H200", 989e12),
+    ("H100", 989e12),
+)
+
+
+def peak_flops_per_chip(device=None) -> float | None:
+    """The card's dense bf16 peak, or None off the card (CPU) or for a
+    card not in the table."""
+    dev = torch.device(device) if device is not None else None
+    if dev is None or dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    name = torch.cuda.get_device_name(dev)
+    for key, val in _PEAK_FLOPS:
+        if key in name:
+            return val
+    return None
+
+
+def attn_matmul_params_per_token(cfg: LLMConfig) -> int:
+    """Matmul parameters of the attention sublayers per token."""
+    C, hs, nkvh = cfg.n_embd, cfg.head_size, cfg.n_kv_heads
+    return cfg.n_layer * (C * (C + 2 * nkvh * hs) + C * C)
+
+
+def matmul_params_per_token(cfg: LLMConfig) -> int:
+    """Matmul parameters a token touches (dense family): attention, MLP,
+    and the tied lm head."""
+    C = cfg.n_embd
+    fc_out = 2 * cfg.up_dim if cfg.non_linearity.lower() in ("swiglu", "glu") \
+        else cfg.up_dim
+    one_mlp = C * fc_out + cfg.up_dim * C
+    return attn_matmul_params_per_token(cfg) + cfg.n_layer * one_mlp \
+        + cfg.vocab_size * C
+
+
+def step_flops(cfg: LLMConfig, tokens_per_step: int, seq_len: int) -> float:
+    """Total train-step FLOPs (fwd + bwd [+ recomputed fwd]); 'attn'
+    recomputation counts only the attention projections and scores."""
+    score_flops = cfg.n_layer * 2 * cfg.n_embd * seq_len  # causal: 4*T*C/2
+    per_tok_fwd = 2 * matmul_params_per_token(cfg) + score_flops
+    recompute = 0.0
+    if cfg.act_recomp:
+        if cfg.act_recomp_policy == "attn":
+            recompute = 2 * attn_matmul_params_per_token(cfg) + score_flops
+        else:
+            recompute = per_tok_fwd
+    return (3 * per_tok_fwd + recompute) * tokens_per_step
+
+
+def mfu(cfg: LLMConfig, tokens_per_step: int, seq_len: int,
+        step_time_s: float, n_chips: int = 1, device=None) -> float | None:
+    peak = peak_flops_per_chip(device)
+    if peak is None or step_time_s <= 0:
+        return None
+    return step_flops(cfg, tokens_per_step, seq_len) / step_time_s \
+        / (peak * n_chips)
+
+
+def device_memory_gb(device=None) -> float | None:
+    """Peak memory allocated on the card in GiB since the last reset
+    (`torch.cuda.max_memory_allocated`), or None off the card."""
+    dev = torch.device(device) if device is not None else None
+    if dev is None or dev.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30

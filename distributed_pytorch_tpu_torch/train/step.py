@@ -1,0 +1,99 @@
+"""The training and eval steps.
+
+Counterpart of the reference package's `train/step.py` (`make_grads_fn`
+:60-160, `make_train_step` :163-253, `make_eval_step` :300-322), run
+eagerly: one call of `train_step(state, x, y)` takes x, y (A, B, T) — the
+whole optimizer step — runs A micro-batches forward and backward
+(gradients accumulate in `.grad`), divides the gradients by A, clips them
+by global norm and applies AdamW at the schedule's learning rate.
+
+* Dropout: micro-batch `m` of step `s` uses the seed `subseed(seed, s, m)`
+  (ops/dropout.py), drawn here, outside every recomputed region, so
+  activation recomputation regenerates the masks it drew.
+* Fault injection: TRAIN_POISON_IT=k NaN-bombs iteration k's loss and
+  gradients, as a poisoned batch would.
+* Anomaly guard (`train_cfg.anomaly`): 'warn' and 'skip' add `nonfinite`
+  (1.0 when the loss or the gradient norm is not finite) to the metrics;
+  'skip' then withholds the update from the weights and the optimizer
+  moments (and the schedule's count) while `step` still advances, so the
+  data stream stays step-keyed. 'skip' reads the flag on the host each
+  step; 'warn' and 'off' never sync.
+
+Metrics are 0-d device tensors: `loss` (mean over micro-batches),
+`grad_norm` (before clipping), `nonfinite`, and `update_skipped` under
+'skip'.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from distributed_pytorch_tpu_torch import config as cfg_mod
+from distributed_pytorch_tpu_torch.config import TrainConfig
+from distributed_pytorch_tpu_torch.ops.dropout import subseed
+from distributed_pytorch_tpu_torch.train.state import (TrainState,
+                                                       clip_by_global_norm,
+                                                       global_norm,
+                                                       lr_schedule)
+
+
+def make_train_step(train_cfg: TrainConfig):
+    """`train_step(state, x, y) -> metrics`, updating `state` in place."""
+    poison_it = cfg_mod.knob("TRAIN_POISON_IT")
+    anomaly = train_cfg.anomaly
+    sched = lr_schedule(train_cfg)
+
+    def train_step(state: TrainState, x: torch.Tensor,
+                   y: torch.Tensor) -> dict:
+        model, opt = state.model, state.optimizer
+        model.train()
+        params = [p for g in opt.param_groups for p in g["params"]]
+        for p in params:
+            p.grad = None
+        accum = x.shape[0]
+        losses = []
+        for m in range(accum):
+            _, loss = model(x[m], y[m], dropout_seed=subseed(
+                train_cfg.seed, state.step, m))
+            loss.backward()
+            losses.append(loss.detach())
+        grads = [p.grad for p in params]
+        torch._foreach_div_(grads, float(accum))
+        losses = torch.stack(losses)
+        if 0 <= poison_it == state.step:
+            losses = losses * float("nan")
+            torch._foreach_mul_(grads, float("nan"))
+        gnorm = global_norm(grads)
+        metrics = {"loss": losses.mean(), "grad_norm": gnorm}
+        apply = True
+        if anomaly != "off":
+            finite = torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm)
+            metrics["nonfinite"] = (~finite).float()
+            if anomaly == "skip":
+                metrics["update_skipped"] = metrics["nonfinite"]
+                apply = bool(finite)
+        if apply:
+            clip_by_global_norm(grads, gnorm, train_cfg.grad_clip)
+            lr = sched(state.updates)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
+            state.updates += 1
+        state.step += 1
+        return metrics
+
+    return train_step
+
+
+def make_eval_step():
+    """`eval_step(state, x, y) -> loss` on one (B, T) batch, eval mode,
+    no gradients."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, x: torch.Tensor,
+                  y: torch.Tensor) -> torch.Tensor:
+        state.model.eval()
+        _, loss = state.model(x, y)
+        return loss
+
+    return eval_step

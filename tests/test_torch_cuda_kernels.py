@@ -4,6 +4,13 @@ dead blocks poisoned), contiguous decode, and paged prefill at offset 0
 and at block-aligned offsets, in fp32 (atol 1e-4: summation order) and
 bf16 (atol 2e-2: outputs round to bf16, and p rounds to bf16 against a
 running max in the kernel but the global max in the plain version).
+The flash-attention kernels (forward, dq, dkv) over causal and full
+attention, MHA and GQA, dropout 0 and 0.2, ragged T and S > T, head sizes
+64 and 128, each output element by element within atol + rtol x |plain|:
+fp32 (1e-5, 1e-5: summation order); bf16 (4e-3, 2^-7: outputs round to
+bf16 on both sides, and p rounds against a running max in the forward
+kernel); lse, fp32 whatever the inputs, at the fp32 limits. And the
+autograd path against the naive attention's gradients in fp32.
 
 These carry the `cuda` marker and skip without a card. This file imports
 no JAX, so on a machine without it run it alone, without the JAX conftest:
@@ -16,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from distributed_pytorch_tpu_torch.ops import flash_decode as fd
 from distributed_pytorch_tpu_torch.ops.attention_core import sdpa
 
@@ -137,3 +145,92 @@ def test_sdpa_cached_call_raises_rather_than_falls_back(dev, T, B, paged):
         sdpa(q, pool, pool, q_offset=torch.tensor(0), decode=True,
              block_tables=bt)
     assert fd.PLAIN_CALLS == {k: 0 for k in fd.PLAIN_CALLS}
+
+
+FLASH_CASES = [  # B, T, S, nh, nkv, D, causal
+    (2, 128, 128, 4, 4, 64, True), (2, 128, 128, 4, 2, 64, False),
+    (1, 100, 100, 4, 2, 64, True), (1, 40, 256, 4, 4, 64, True),
+    (2, 96, 96, 2, 1, 128, True), (1, 70, 70, 2, 2, 128, False)]
+
+
+#: (atol, rtol) of the flash kernels, element by element:
+#: |kernel - plain| <= atol + rtol * |plain|
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (4e-3, 2 ** -7)}
+
+
+def _flash_close(out, ref, dtype):
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,T,S,nh,nkv,D,causal", FLASH_CASES)
+def test_flash_kernels(dev, dtype, B, T, S, nh, nkv, D, causal, rate):
+    g = torch.Generator(device=dev)
+    g.manual_seed(T + S + D)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    q, k, v = rnd(B, T, nh, D), rnd(B, S, nkv, D), rnd(B, S, nkv, D)
+    dout = rnd(B, T, nh, D)
+    seed = torch.tensor([7, -11], dtype=torch.int32, device=dev)
+    kw = dict(scale=D ** -0.5, causal=causal, dropout_rate=rate)
+    fa.reset_counts()
+    out, lse = fa.flash_attn_fwd(q, k, v, seed, **kw)
+    ref, ref_lse = fa.flash_attn_fwd_plain(q, k, v, seed, **kw)
+    _flash_close(out, ref, dtype)
+    _flash_close(lse, ref_lse, torch.float32)
+    delta = (dout.float() * ref.float()).sum(-1).transpose(1, 2) \
+        - torch.randn(B, nh, T, generator=g, device=dev)
+    dq = fa.flash_attn_bwd_dq(q, k, v, dout, ref_lse, delta, seed, **kw)
+    _flash_close(dq, fa.flash_attn_bwd_dq_plain(q, k, v, dout, ref_lse,
+                                                delta, seed, **kw), dtype)
+    dk, dv = fa.flash_attn_bwd_dkv(q, k, v, dout, ref_lse, delta, seed, **kw)
+    rk, rv = fa.flash_attn_bwd_dkv_plain(q, k, v, dout, ref_lse, delta, seed,
+                                         **kw)
+    _flash_close(dk, rk, dtype)
+    _flash_close(dv, rv, dtype)
+    assert fa.LAUNCHES == {k: 1 for k in fa.LAUNCHES}
+
+
+def test_flash_reads_strided_views(dev):
+    """q, k, v as views of one fused qkv projection (row stride 3*C), as
+    the model hands them over, equal contiguous copies."""
+    B, T, nh, D = 2, 130, 4, 64
+    qkv = torch.randn(B, T, 3 * nh * D, device=dev)
+    q, k, v = (t.reshape(B, T, nh, D) for t in qkv.split(nh * D, dim=-1))
+    assert q.stride(1) == 3 * nh * D
+    out, lse = fa.flash_attn_fwd(q, k, v, scale=0.125)
+    ref, ref_lse = fa.flash_attn_fwd(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), scale=0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+
+
+@pytest.mark.parametrize("nh,nkv,causal", [(4, 4, True), (4, 2, False)])
+def test_flash_autograd_matches_naive(dev, nh, nkv, causal):
+    """out and dq/dk/dv through the kernels against autograd through the
+    naive einsum attention, fp32 (atol 2e-4: summation order over 200
+    rows)."""
+    from distributed_pytorch_tpu_torch.ops.attention_core import _naive_sdpa
+    B, T, D = 2, 200, 64
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    ins = [torch.randn(B, T, n, D, generator=g, device=dev)
+           for n in (nh, nkv, nkv)]
+    w = torch.randn(B, T, nh, D, generator=g, device=dev)
+    res = []
+    for fn in (lambda a, b, c: fa.flash_attention(a, b, c, scale=0.125,
+                                                  causal=causal),
+               lambda a, b, c: _naive_sdpa(a, b, c, scale=0.125,
+                                           causal=causal)):
+        xs = [t.clone().requires_grad_() for t in ins]
+        out = fn(*xs)
+        res.append([out] + list(torch.autograd.grad((out * w).sum(), xs)))
+    for a, b in zip(*res):
+        assert (a - b).abs().max().item() <= 2e-4

@@ -1,0 +1,138 @@
+"""The port's flash attention (distributed_pytorch_tpu_torch/ops/
+flash_attention.py) against the reference's `_flash_lse` run in interpret
+mode, as tests/test_flash_attention.py runs it: out, lse, and dq/dk/dv
+through `jax.vjp` with a nonzero dlse, causal and full, MHA and GQA (rep
+2), dropout 0 and 0.2 with the same (2,) seed on both sides. On the CPU
+the wrappers run the kernels' plain versions. fp32, atol 1e-5: the two
+sides sum in different orders (tiles of 16 in the reference, one pass
+here). Also: `dropout_bits` is `_mix_bits` bit for bit, and `sdpa` routes
+uncached calls through the flash wrappers."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_pytorch_tpu.ops.flash_attention import _flash_lse, _mix_bits
+from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+from distributed_pytorch_tpu_torch.ops.attention_core import sdpa
+
+ATOL = 1e-5
+SEED = np.array([123456789, -987654321], np.int32)
+
+
+def _inputs(B, T, nh, nkv, D, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, nh, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, nkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, nkv, D)).astype(np.float32)
+    dout = rng.standard_normal((B, T, nh, D)).astype(np.float32)
+    dlse = rng.standard_normal((B, T, nh)).astype(np.float32)
+    return q, k, v, dout, dlse
+
+
+def _jax_flash(q, k, v, scale, causal, rate):
+    """The reference's rows face: BTNH -> (B*H, T, D) rows, 16-row tiles."""
+    B, T, nh, D = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    qt = jnp.transpose(q, (0, 2, 1, 3)).reshape(B * nh, T, D)
+    kt = jnp.transpose(k, (0, 2, 1, 3)).reshape(B * nkv, S, D)
+    vt = jnp.transpose(v, (0, 2, 1, 3)).reshape(B * nkv, S, D)
+    out, lse = _flash_lse(qt, kt, vt, jnp.asarray(SEED), scale, 16, 16, 1,
+                          True, causal, rate)
+    out = jnp.transpose(out.reshape(B, nh, T, D), (0, 2, 1, 3))
+    return out, jnp.transpose(lse.reshape(B, nh, T), (0, 2, 1))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("nh,nkv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_matches_reference_kernel(causal, nh, nkv, rate):
+    B, T, D = 2, 32, 16
+    scale = D ** -0.5
+    q, k, v, dout, dlse = _inputs(B, T, nh, nkv, D, seed=nh + nkv)
+    (ref_o, ref_l), vjp = jax.vjp(
+        lambda a, b, c: _jax_flash(a, b, c, scale, causal, rate),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_g = vjp((jnp.asarray(dout), jnp.asarray(dlse)))
+
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    fa.reset_counts()
+    out, lse = fa.flash_attention_lse(tq, tk, tv, scale=scale, causal=causal,
+                                      dropout_rate=rate,
+                                      seed=torch.from_numpy(SEED))
+    grads = torch.autograd.grad((out, lse), (tq, tk, tv),
+                                (torch.from_numpy(dout),
+                                 torch.from_numpy(dlse)))
+    assert fa.PLAIN_CALLS == {"flash_attn_fwd": 1, "flash_attn_bwd_dq": 1,
+                              "flash_attn_bwd_dkv": 1}
+    assert fa.LAUNCHES == {k: 0 for k in fa.LAUNCHES}
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_o),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(ref_l),
+                               atol=ATOL, rtol=0)
+    for name, g, r in zip("qkv", grads, ref_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+def test_dropout_bits_match_mix_bits():
+    """Bit for bit on a grid that covers uint32 wrap-around, with seeds of
+    both signs."""
+    row = np.arange(0, 2 ** 32, 2 ** 32 // 7, dtype=np.uint64)[:, None, None]
+    qp = np.array([0, 1, 31, 1023, 65535, 2 ** 31 + 5])[None, :, None]
+    kp = np.arange(0, 4096, 511)[None, None, :]
+    for s0, s1 in [(0, 0), (123456789, -987654321), (-1, 2 ** 31 - 1)]:
+        ref = np.asarray(_mix_bits(
+            np.int32(s0), np.int32(s1),
+            *np.broadcast_arrays(row.astype(np.uint32),
+                                 qp.astype(np.uint32),
+                                 kp.astype(np.uint32))))
+        got = fa.dropout_bits(s0, s1, torch.from_numpy(row.astype(np.int64)),
+                              torch.from_numpy(qp), torch.from_numpy(kp))
+        np.testing.assert_array_equal(got.numpy().astype(np.uint32), ref)
+    assert fa.dropout_threshold(0.2) == min(int(0.2 * 2.0 ** 32),
+                                            2 ** 32 - 1)
+
+
+def test_sdpa_routes():
+    """Uncached T > 1 at a static offset 0 takes the flash wrappers (their
+    plain versions on the CPU); 'naive' takes the einsum path with the
+    same dropout mask; the reference's impls of later slices raise."""
+    q, k, v, _, _ = _inputs(1, 24, 4, 2, 16, seed=3)
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    seed = torch.from_numpy(SEED)
+    fa.reset_counts()
+    flash = sdpa(q, k, v, dropout_rate=0.3, dropout_seed=seed)
+    assert fa.PLAIN_CALLS["flash_attn_fwd"] == 1
+    naive = sdpa(q, k, v, dropout_rate=0.3, dropout_seed=seed, impl="naive")
+    assert fa.PLAIN_CALLS["flash_attn_fwd"] == 1
+    torch.testing.assert_close(flash, naive, atol=ATOL, rtol=0)
+    sdpa(q, k, v, q_offset=torch.tensor(0))         # traced offset: naive
+    assert fa.PLAIN_CALLS["flash_attn_fwd"] == 1
+    for impl in ("xla", "ring", "zigzag", "ulysses"):
+        with pytest.raises(NotImplementedError, match="slice|XLA"):
+            sdpa(q, k, v, impl=impl)
+    for impl in ("auto", "naive"):      # dropout never drops out quietly
+        with pytest.raises(ValueError, match="dropout_seed"):
+            sdpa(q, k, v, dropout_rate=0.3, impl=impl)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    """A non-CPU tensor never takes the plain version: off the card the
+    wrappers raise, and the usable gate names the kernels' limits."""
+    q = torch.zeros(1, 8, 2, 64, device="meta")
+    stat = torch.zeros(1, 2, 8, device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_attn_fwd(q, q, q, scale=0.125)
+    for fn in (fa.flash_attn_bwd_dq, fa.flash_attn_bwd_dkv):
+        with pytest.raises(ValueError):
+            fn(q, q, q, q, stat, stat, scale=0.125)
+    z = torch.zeros(1, 8, 2, 32)
+    assert not fa.flash_attention_usable(z, z, z)
+    assert fa.flash_attention_usable(torch.zeros(1, 8, 4, 64),
+                                     torch.zeros(1, 8, 2, 64),
+                                     torch.zeros(1, 8, 2, 64))
+    with pytest.raises(ValueError, match="seed"):
+        fa.flash_attention_lse(z, z, z, scale=1.0, dropout_rate=0.1)

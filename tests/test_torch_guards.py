@@ -74,6 +74,29 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert eng.device.type == "cpu"
 
 
+def test_trainer_raises_without_cuda(monkeypatch, tmp_path):
+    """`python -m distributed_pytorch_tpu_torch` and the training model
+    raise without a card unless the CPU is asked for (--platform cpu)."""
+    from distributed_pytorch_tpu_torch import __main__ as trainer
+    from distributed_pytorch_tpu_torch.config import TrainConfig
+    from distributed_pytorch_tpu_torch.train.state import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    argv = ["--dataset", "synthetic", "--data_dir", str(tmp_path),
+            "--vocab_size", "32", "--block_size", "16", "--n_embd", "16",
+            "--n_head", "2", "--attn", "mha", "--n_layer", "1", "--up_dim",
+            "16", "--batch_size", "1", "--total_batch_size_str", "16",
+            "--max_iters", "1", "--no-save_stats"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.main(argv)
+    cfg = LLMConfig(vocab_size=32, block_size=16, n_embd=16, n_head=2,
+                    n_kv_heads=2, attn="mha", n_layer=1, up_dim=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg, TrainConfig())
+    assert build_model(cfg, TrainConfig(), "cpu").device.type == "cpu"
+    trainer.main(argv + ["--platform", "cpu"])
+
+
 def test_kernel_wrappers_refuse_non_cuda_non_cpu_tensors():
     """A wrapper takes the plain version only for CPU tensors; anything
     else must be a CUDA tensor the kernel takes, or it raises."""

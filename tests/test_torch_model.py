@@ -87,7 +87,8 @@ def test_paged_prefill_then_decode(pair):
                             logits_idx=jnp.asarray(li, jnp.int32),
                             block_tables=jnp.asarray(bt[row:row + 1]))
         with torch.no_grad():
-            out = tm(torch.from_numpy(toks).long(), tc, pos, logits_idx=li,
+            out = tm(torch.from_numpy(toks).long(), caches=tc, pos=pos,
+                         logits_idx=li,
                      block_tables=torch.from_numpy(bt[row:row + 1]))
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
                                    rtol=0)
@@ -97,8 +98,8 @@ def test_paged_prefill_then_decode(pair):
         ref, _, jc = japply(var, jnp.asarray(tok), None, jc,
                             jnp.asarray(pos), block_tables=jnp.asarray(bt))
         with torch.no_grad():
-            out = tm(torch.from_numpy(tok).long(), tc,
-                     torch.from_numpy(pos).long(),
+            out = tm(torch.from_numpy(tok).long(), caches=tc,
+                     pos=torch.from_numpy(pos).long(),
                      block_tables=torch.from_numpy(bt))
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
                                    rtol=0)

@@ -1,0 +1,322 @@
+"""The port's training slice against the reference package, on the CPU:
+the chunked and unchunked losses and their gradients, the learning-rate
+schedule, the loader's token stream, the CLI's configs, and a 5-step fp32
+parameter trajectory against the reference's `make_train_step` from
+converted weights on the same batches; then the port's own guarantees —
+the anomaly guard's 'skip', bit-identical resume, checkpoint fallback past
+a flipped byte, recomputation and dropout determinism. Each test states
+its tolerance."""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_pytorch_tpu import __main__ as jmain
+from distributed_pytorch_tpu.config import LLMConfig as JConfig
+from distributed_pytorch_tpu.config import TrainConfig as JTrainConfig
+from distributed_pytorch_tpu.data.loader import DataLoader as JLoader
+from distributed_pytorch_tpu.models.gpt import LLM as JLLM
+from distributed_pytorch_tpu.ops import losses as jlosses
+from distributed_pytorch_tpu.train.state import create_train_state as jstate
+from distributed_pytorch_tpu.train.state import lr_schedule as jlr
+from distributed_pytorch_tpu.train.step import make_train_step as jstep
+from distributed_pytorch_tpu_torch import __main__ as tmain
+from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
+from distributed_pytorch_tpu_torch.convert import params_from_jax
+from distributed_pytorch_tpu_torch.data.loader import (DataLoader,
+                                                       make_synthetic_bin)
+from distributed_pytorch_tpu_torch.ops import losses
+from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
+from distributed_pytorch_tpu_torch.train.loop import check_slice, train
+from distributed_pytorch_tpu_torch.train.state import (TrainState,
+                                                       build_model,
+                                                       lr_schedule,
+                                                       make_optimizer)
+from distributed_pytorch_tpu_torch.train.step import make_train_step
+
+TINY = dict(vocab_size=97, block_size=32, n_embd=64, n_head=4, n_kv_heads=2,
+            attn="gqa", n_layer=2, up_dim=96, non_linearity="swiglu",
+            pos_emb="rope")
+
+
+# ---------------------------------------------------------------------------
+# losses, schedule, data, CLI
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fn", ["fused_cross_entropy",
+                                "unchunked_cross_entropy"])
+def test_losses_match_reference(fn):
+    """T=256, V=8192 chunks the fused path (two chunks of 128); targets
+    hold ignored -1s. fp32, rtol 1e-5 on the loss and atol 1e-6 on the
+    gradients (summation order)."""
+    rng = np.random.default_rng(0)
+    B, T, C, V = 2, 256, 32, 8192
+    x = rng.standard_normal((B, T, C)).astype(np.float32)
+    emb = (0.1 * rng.standard_normal((V, C))).astype(np.float32)
+    t = rng.integers(0, V, (B, T))
+    t[0, :7] = -1
+    assert losses._chunk_for(T, V) == 128
+    ref, ref_g = jax.value_and_grad(
+        lambda a, b: getattr(jlosses, fn)(a, b, jnp.asarray(t)),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(emb))
+    tx = torch.from_numpy(x).requires_grad_()
+    te = torch.from_numpy(emb).requires_grad_()
+    loss = getattr(losses, fn)(tx, te, torch.from_numpy(t))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(ref), rtol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(ref_g[0]),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(te.grad.numpy(), np.asarray(ref_g[1]),
+                               atol=1e-6, rtol=0)
+
+
+def test_lr_schedule_matches_reference():
+    """Both compute in fp32: rtol 1e-6 at every step 0 .. max_iters + 5."""
+    cfg = dict(learning_rate=6e-4, warmup_steps=7, max_iters=40)
+    ref = jlr(JTrainConfig(**cfg))
+    got = lr_schedule(TrainConfig(**cfg))
+    for s in range(cfg["max_iters"] + 6):
+        np.testing.assert_allclose(got(s), float(ref(s)), rtol=1e-6,
+                                   err_msg=f"step {s}")
+
+
+def test_loader_stream_matches_reference(tmp_path):
+    """Exactly the reference's numpy-backend batches for steps 0..3."""
+    path = make_synthetic_bin(str(tmp_path / "train.bin"), n_tokens=50_000,
+                              vocab_size=500)
+    ref = JLoader(path, 3, 16, grad_accum=2, seed=11, backend="numpy")
+    got = DataLoader(path, 3, 16, grad_accum=2, seed=11)
+    for step in range(4):
+        rx, ry = ref.next_batch(step=step)
+        x, y = got.next_batch(step=step)
+        assert x.dtype == torch.int64 and x.shape == (2, 3, 16)
+        np.testing.assert_array_equal(x.numpy(), np.asarray(rx))
+        np.testing.assert_array_equal(y.numpy(), np.asarray(ry))
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--preset", "gpt2_124m", "--attn_impl", "PALLAS", "--batch_size", "8",
+     "--total_batch_size_str", "2**14", "--dataset", "synthetic",
+     "--act_recomp", "--no-aux_free", "--learning_rate", "1e-3"],
+], ids=["defaults", "flagship"])
+def test_cli_configs_match_reference(argv):
+    jm, jt = jmain.parse_train_argv(argv)
+    tm, tt = tmain.parse_train_argv(argv)
+    assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
+    assert dataclasses.asdict(tt) == dataclasses.asdict(jt)
+
+
+# ---------------------------------------------------------------------------
+# the train step against the reference
+# ---------------------------------------------------------------------------
+
+def _batches(n, accum, B, T, V, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, V, (accum, B, T)),
+             rng.integers(0, V, (accum, B, T))) for _ in range(n)]
+
+
+def _params_close(model, jparams, cfg, atol):
+    ref = params_from_jax(jax.device_get(jparams), cfg)
+    sd = model.state_dict()
+    for name, r in ref.items():
+        np.testing.assert_allclose(sd[name].numpy(), r.numpy(), atol=atol,
+                                   rtol=0, err_msg=name)
+
+
+def test_five_step_trajectory_matches_reference():
+    """5 AdamW steps, accum 2, clipping active (grad_clip 0.05 under a
+    grad norm near 1), dropout 0, from the reference's init converted into
+    the port's fp32-master model, on the same batches. fp32, atol 1e-4 on
+    every parameter after every step (AdamW's first steps are sign-like,
+    so near-zero gradient elements amplify float noise toward lr)."""
+    mc = JConfig(**TINY)
+    kw = dict(batch_size=2, total_batch_size=2 * 2 * 32, max_iters=10,
+              warmup_steps=2, learning_rate=1e-3, grad_clip=0.05,
+              compute_dtype="float32", seed=5)
+    jtc = JTrainConfig(**kw)
+    jmodel, tx, js, _ = jstate(mc, jtc, None)
+    jparams0 = jax.tree_util.tree_map(np.array, jax.device_get(js.params))
+    jtrain = jstep(jmodel, tx, mc, jtc, None, None)
+
+    cfg, tc = LLMConfig(**TINY), TrainConfig(**kw, platform="cpu")
+    model = build_model(cfg, tc, device="cpu")
+    model.load_state_dict(params_from_jax(jparams0, cfg))
+    state = TrainState(step=0, model=model,
+                       optimizer=make_optimizer(model, tc))
+    step = make_train_step(tc)
+    for x, y in _batches(5, 2, 2, 32, 97):
+        js, jm = jtrain(js, jnp.asarray(x, jnp.int32),
+                        jnp.asarray(y, jnp.int32))
+        m = step(state, torch.from_numpy(x), torch.from_numpy(y))
+        assert float(jm["grad_norm"]) > tc.grad_clip      # clipping active
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+        _params_close(model, js.params, cfg, atol=1e-4)
+
+
+def test_converted_tree_loads_into_fp32_master_model():
+    """A converted reference tree round-trips into the training model
+    (fp32 masters): every tensor equal, and the loss with targets equal to
+    the reference's (fp32, rtol 1e-5)."""
+    jm = JLLM(JConfig(**TINY), attn_impl="naive")
+    x = np.random.default_rng(1).integers(0, 97, (2, 32))
+    y = np.random.default_rng(2).integers(0, 97, (2, 32))
+    key = jax.random.PRNGKey(3)
+    var = jm.init({"params": key, "dropout": key}, jnp.asarray(x),
+                  jnp.asarray(y))
+    _, ref, _ = jm.apply(var, jnp.asarray(x), jnp.asarray(y))
+    cfg = LLMConfig(**TINY)
+    model = build_model(cfg, TrainConfig(compute_dtype="float32"), "cpu")
+    sd = params_from_jax(jax.device_get(var["params"]), cfg)
+    model.load_state_dict(sd)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    for name, t in model.state_dict().items():
+        assert torch.equal(t, sd[name]), name
+    _, loss = model(torch.from_numpy(x), torch.from_numpy(y))
+    np.testing.assert_allclose(loss.item(), float(ref), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the port's own guarantees
+# ---------------------------------------------------------------------------
+
+def _tiny_run(tmp_path, monkeypatch, **kw):
+    tmp_path.mkdir(exist_ok=True)
+    monkeypatch.chdir(tmp_path)
+    base = dict(dataset="synthetic", data_dir=str(tmp_path / "data"),
+                batch_size=2, total_batch_size=2 * 2 * 32, warmup_steps=2,
+                platform="cpu", compute_dtype="float32", log_interval=100,
+                save_stats=False)
+    base.update(kw)
+    model_kw = {k: base.pop(k) for k in list(base) if k in ("dropout",)}
+    return train(LLMConfig(**TINY, **model_kw), TrainConfig(**base),
+                 log=lambda s: None)
+
+
+def _weights(state):
+    return {k: v.clone() for k, v in state.model.state_dict().items()}
+
+
+def test_anomaly_skip_withholds_the_update(tmp_path, monkeypatch):
+    """TRAIN_POISON_IT=1 under anomaly 'skip': iteration 1 is nonfinite,
+    its update is withheld from the weights and the AdamW moments, the
+    step still advances, and the run goes on finite."""
+    monkeypatch.setenv("TRAIN_POISON_IT", "1")
+    seen = []
+    from distributed_pytorch_tpu_torch.train import step as step_mod
+    orig = step_mod.make_train_step
+
+    def spy(train_cfg):
+        fn = orig(train_cfg)
+
+        def wrapped(state, x, y):
+            before = (_weights(state), {k: v["exp_avg"].clone() for k, v in
+                                        state.optimizer.state.items()})
+            m = fn(state, x, y)
+            seen.append((before, _weights(state), {
+                k: v["exp_avg"].clone()
+                for k, v in state.optimizer.state.items()}, m, state.step))
+            return m
+        return wrapped
+
+    monkeypatch.setattr("distributed_pytorch_tpu_torch.train.loop."
+                        "make_train_step", spy)
+    stats = _tiny_run(tmp_path, monkeypatch, max_iters=3, anomaly="skip")
+    assert [int(s[3]["nonfinite"]) for s in seen] == [0, 1, 0, 0]
+    (w0, mom0), w1, mom1, m, step_after = seen[1]
+    assert step_after == 2 and float(m["update_skipped"]) == 1.0
+    assert all(torch.equal(w0[k], w1[k]) for k in w0)
+    assert all(torch.equal(mom0[k], mom1[k]) for k in mom0)
+    assert not all(torch.equal(seen[2][0][0][k], seen[2][1][k])
+                   for k in w0)                      # step 2 updates
+    assert stats["n_anomalies"] == 1 and np.isfinite(stats["final_loss"])
+    assert stats["state"].updates == 3 and stats["state"].step == 4
+
+
+def test_resume_is_bit_identical(tmp_path, monkeypatch):
+    """Iterations 0..5 straight, against 0..2, a checkpoint, a restore
+    into a fresh state and 3..5: every weight equal bit for bit (CPU)."""
+    straight = _weights(_tiny_run(tmp_path / "a", monkeypatch, max_iters=5,
+                                  dropout=0.1)["state"])
+    _tiny_run(tmp_path / "b", monkeypatch, max_iters=2, ckpt_interval=2,
+              dropout=0.1)
+    resumed = _tiny_run(tmp_path / "b", monkeypatch, max_iters=5,
+                        resume=True, dropout=0.1)["state"]
+    assert resumed.step == 6
+    got = _weights(resumed)
+    assert all(torch.equal(straight[k], got[k]) for k in straight)
+
+
+def test_restore_latest_falls_back_past_a_flipped_byte(tmp_path,
+                                                       monkeypatch):
+    state = _tiny_run(tmp_path / "r", monkeypatch, max_iters=4,
+                      ckpt_interval=2, keep_ckpts=3)["state"]
+    root = str(tmp_path / "r" / "checkpoints" / "llm_model")
+    assert [os.path.basename(p) for _, p in ckpt._step_dirs(root)] == \
+        ["step_2", "step_4"]
+    assert ckpt.verify_manifest(os.path.join(root, "step_4")) == []
+    f = os.path.join(root, "step_4", "state.pt")
+    data = bytearray(open(f, "rb").read())
+    data[len(data) // 2] ^= 0xFF
+    open(f, "wb").write(bytes(data))
+    assert ckpt.verify_manifest(os.path.join(root, "step_4"))
+    assert ckpt.latest_step_dir(root).endswith("step_4")  # sizes still fit
+    restored, path, skipped = ckpt.restore_latest(root, state)
+    assert path.endswith("step_2") and len(skipped) == 1
+    assert restored.step == 3
+    with pytest.raises(ckpt.CheckpointCorrupt):
+        ckpt.restore_checkpoint(os.path.join(root, "step_4"), state)
+    mc, tc, step = ckpt.load_configs(os.path.join(root, "step_2"))
+    assert mc == LLMConfig(**TINY) and step == 3
+
+
+@pytest.mark.parametrize("policy", ["block", "attn"])
+def test_recompute_and_dropout_keep_the_gradients(policy):
+    """With dropout 0.1, recomputing blocks or the attention sublayer in
+    the backward gives the same loss and gradients as storing them: every
+    dropout mask is regenerated from its seed (fp32, exact)."""
+    cfg = LLMConfig(**TINY, dropout=0.1)
+    tc = TrainConfig(compute_dtype="float32")
+    x = torch.from_numpy(np.random.default_rng(4).integers(0, 97, (2, 32)))
+    grads = []
+    for recomp in (False, True):
+        c = dataclasses.replace(cfg, act_recomp=recomp,
+                                act_recomp_policy=policy)
+        torch.manual_seed(0)
+        model = build_model(c, tc, "cpu")
+        g = torch.Generator().manual_seed(0)
+        model.init_weights(g)
+        model.train()
+        _, loss = model(x, x.roll(-1, 1), dropout_seed=77)
+        loss.backward()
+        grads.append([loss.detach()] + [p.grad for p in model.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    with pytest.raises(ValueError, match="dropout_seed"):
+        model(x, x)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("parallelism", "fsdp"), ("attn_impl", "xla"), ("attn_impl", "ring"),
+    ("optimizer", "lion"), ("optimizer", "adafactor"), ("loss_impl", "pallas")])
+def test_later_slices_raise(field, value):
+    mc, tc = LLMConfig(**TINY), TrainConfig(platform="cpu")
+    if field == "loss_impl":
+        mc = dataclasses.replace(mc, loss_impl=value)
+    else:
+        tc = dataclasses.replace(tc, **{field: value})
+    with pytest.raises(NotImplementedError, match="slice|XLA"):
+        check_slice(mc, tc)
+    if field == "loss_impl":
+        model = build_model(mc, tc, "cpu")
+        with pytest.raises(NotImplementedError, match="next slice"):
+            model(torch.zeros(1, 8, dtype=torch.long),
+                  torch.zeros(1, 8, dtype=torch.long))
