@@ -20,7 +20,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
              least time the card could take (bound), and one PyTorch
              library call for the same function as a yardstick
              (`scaled_dot_product_attention`; its backward for dq and dkv
-             together).
+             together). The fused CE kernels (forward, dx, dW) at the
+             training path's shape (n 8192, C 768, V 50304) beside the
+             chunked loss they replace and `torch.mm` of x W^T.
 4. model   — flagship_gpt124m (12 x 768, vocab 50304) with seeded
              N(0, 0.02) weights: a 300-token paged prefill and 16 paged
              decode steps held against the uncached forward of the same
@@ -46,6 +48,16 @@ Phases, each of which ends the run with a non-zero exit on failure:
              must verify and restore. Then a full-width fp32 parity check
              at B 2 (loss and gradients through the kernels against
              `attn_impl='naive'`) and a profile of two steps.
+7. train with the fused CE kernels, then sample and serve the checkpoint
+           — phase 6's run with `--loss_impl pallas --eval --eval_interval
+             10 --eval_iters 2 --save_model`: a falling loss whose first
+             iteration agrees with phase 6's, exact launch counts (CE
+             forward per micro-step and per eval batch, dx and dW per
+             micro-step; no plain calls, no degraded loss); an fp32 parity
+             step at B 2 against `loss_impl='unchunked'`; then the saved
+             checkpoint sampled (`sample.main`, greedy) and served (`serve
+             --ckpt`'s engine, 4 concurrent greedy streams, bf16 and fp32)
+             with its weights_version, and a profile of two steps.
 
 The last two lines are a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}.
@@ -84,9 +96,26 @@ FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (4e-3, 2 ** -7)}
 FLASH_OUTPUTS = {"flash_attn_fwd": ("out", "lse"),
                  "flash_attn_bwd_dq": ("dq",),
                  "flash_attn_bwd_dkv": ("dk", "dv")}
+# fused CE kernels vs plain, element by element, |kernel - plain| <= atol +
+# rtol * |plain|: nll and lse are fp32 scores of the same operand values
+# summed in another order (mma tiles vs one product), fp32 limits in both
+# dtypes. dx and dW are fp32 sums over the vocabulary (dx) or the 8192
+# tokens (dW) of terms up to |coef x| ~ 3, taken in another order: errors
+# reach ~5e-5 at |dW| ~ 15 (atol); bf16 outputs also round on both sides
+# (one ulp: rtol 2^-7)
+CE_TOL = {"lse": (1e-5, 1e-5), "float32": (1e-4, 1e-5),
+          "bfloat16": (1e-4, 2 ** -7)}
+CE_SHAPE = (8, 1024, 768, 50304)       # B, T, C, V of the training path
+CE_OUTPUTS = {"fused_ce_fwd": ("nll", "lse"), "fused_ce_bwd_dx": ("dx",),
+              "fused_ce_bwd_dw": ("dw",)}
 # phase 6: the loss must fall at least this much from the first iteration
 # to the mean of the last three
 TRAIN_DROP = 1.0
+# phase 7: iteration 0's loss against phase 6's. Same seed, init and
+# batch, and the hidden states come from the same deterministic kernels;
+# only the loss differs (fp32 logits of bf16 operands summed by the CE
+# kernels' mma tiles instead of cuBLAS, logsumexp online over vocab tiles)
+ITER0_TOL = 1e-4
 # phase 6 parity (fp32): |loss difference|, and for every parameter the
 # largest gradient difference as a fraction of that parameter's largest
 # gradient
@@ -111,6 +140,16 @@ REPLACES = {
 FLASH_SOURCE = {"flash_attn_fwd": "flash_attn_fwd",
                 "flash_attn_bwd_dq": "flash_attn_bwd",
                 "flash_attn_bwd_dkv": "flash_attn_bwd"}
+CE_SOURCE = {"fused_ce_fwd": "fused_ce_fwd", "fused_ce_bwd_dx": "fused_ce_bwd",
+             "fused_ce_bwd_dw": "fused_ce_bwd"}
+REPLACES.update({
+    "fused_ce_fwd": "distributed_pytorch_tpu/ops/fused_ce.py:84 "
+                    "(_fwd_kernel -> _fwd :112, pallas_call :115)",
+    "fused_ce_bwd_dx": "distributed_pytorch_tpu/ops/fused_ce.py:153 "
+                       "(_bwd_dx_kernel -> _bwd :190, pallas_call :193)",
+    "fused_ce_bwd_dw": "distributed_pytorch_tpu/ops/fused_ce.py:171 "
+                       "(_bwd_dw_kernel -> _bwd :190, pallas_call :210)",
+})
 SOURCE = "distributed_pytorch_tpu_torch/csrc/{}.cu"
 DEVICE = "cuda"
 
@@ -132,16 +171,19 @@ def phase(name: str) -> None:
 def reset_counts() -> None:
     from distributed_pytorch_tpu_torch.ops import flash_attention as fa
     from distributed_pytorch_tpu_torch.ops import flash_decode as fd
+    from distributed_pytorch_tpu_torch.ops import fused_ce as ce
     fd.reset_counts()
     fa.reset_counts()
+    ce.reset_counts()
 
 
 def counts() -> tuple[dict, dict]:
     """(launches, plain calls) of every kernel."""
     from distributed_pytorch_tpu_torch.ops import flash_attention as fa
     from distributed_pytorch_tpu_torch.ops import flash_decode as fd
-    return ({**fd.LAUNCHES, **fa.LAUNCHES},
-            {**fd.PLAIN_CALLS, **fa.PLAIN_CALLS})
+    from distributed_pytorch_tpu_torch.ops import fused_ce as ce
+    return ({**fd.LAUNCHES, **fa.LAUNCHES, **ce.LAUNCHES},
+            {**fd.PLAIN_CALLS, **fa.PLAIN_CALLS, **ce.PLAIN_CALLS})
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -382,6 +424,116 @@ def run_kernels(torch, fd, dev) -> dict:
     return results
 
 
+def ce_cases(torch, dev):
+    """Yield (dtype, kernel, fn_kernel, fn_plain, n_bytes, flops) for the
+    three fused CE kernels at the training path's shape, and per dtype the
+    yardsticks {name: fn}: the chunked loss they replace (forward; forward
+    and backward) and torch.mm of x W^T alone."""
+    from distributed_pytorch_tpu_torch.ops import fused_ce as ce
+    from distributed_pytorch_tpu_torch.ops.losses import (_mm_f32,
+                                                          fused_cross_entropy)
+
+    B, T, C, V = CE_SHAPE
+    n = B * T
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        el = torch.finfo(dtype).bits // 8
+        x = torch.randn(n, C, generator=g, device=dev).to(dtype)
+        w = (0.02 * torch.randn(V, C, generator=g, device=dev)).to(dtype)
+        t = torch.randint(0, V, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+        t[:64] = -2                                  # ignored rows
+        # coef of unit scale, so dx and dW are not all near 0 (the loss's
+        # own 1/n would shrink every gradient below the limits' atol)
+        coef = torch.randn(n, generator=g, device=dev)
+        coef[:64] = 0.0
+        _, lse = ce.fused_ce_fwd_plain(x, w, t)
+        rows = n * 4 * 3                             # t, lse, coef
+        xw = (n + V) * C * el
+        yield (dn, "fused_ce_fwd", lambda: ce.fused_ce_fwd(x, w, t),
+               lambda: ce.fused_ce_fwd_plain(x, w, t),
+               xw + n * 4 * 3, 2 * n * V * C)
+        yield (dn, "fused_ce_bwd_dx",
+               lambda: ce.fused_ce_bwd_dx(x, w, t, lse, coef),
+               lambda: ce.fused_ce_bwd_dx_plain(x, w, t, lse, coef),
+               xw + rows + n * C * el, 4 * n * V * C)
+        yield (dn, "fused_ce_bwd_dw",
+               lambda: ce.fused_ce_bwd_dw(x, w, t, lse, coef),
+               lambda: ce.fused_ce_bwd_dw_plain(x, w, t, lse, coef),
+               xw + rows + V * C * el, 4 * n * V * C)
+
+        tgt = torch.where(t >= 0, t, -1).long().reshape(B, T)
+        xl = x.reshape(B, T, C).detach().requires_grad_()
+        wl = w.detach().requires_grad_()
+
+        def chunked_fwd():
+            with torch.no_grad():
+                return fused_cross_entropy(xl, wl, tgt)
+
+        def chunked_fwd_bwd():
+            return torch.autograd.grad(fused_cross_entropy(xl, wl, tgt),
+                                       (xl, wl))
+
+        yield (dn, "yardsticks", {
+            "replaced_fwd": chunked_fwd, "replaced_fwd_bwd": chunked_fwd_bwd,
+            "mm": lambda: _mm_f32(x, w.t())}, None, None, None)
+        del x, w, xl, wl, lse, coef
+
+
+def run_ce_kernels(torch, dev) -> dict:
+    results = {}
+    for dn, name, fk, fp, n_bytes, flops in ce_cases(torch, dev):
+        if name == "yardsticks":
+            it = 2 if dn == "float32" else 10
+            results[("yardsticks", dn)] = {k: time_ms(f, iters=it)
+                                           for k, f in fk.items()}
+            print(f"  {'yardsticks':18s} {dn:9s} " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in
+                results[("yardsticks", dn)].items()), flush=True)
+            torch.cuda.empty_cache()
+            continue
+        out, ref = fk(), fp()
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              f"{name} {dn}: non-finite")
+        errs, tols = {}, {}
+        for oname, a, b in zip(CE_OUTPUTS[name], outs, refs):
+            atol, rtol = CE_TOL["lse" if oname in ("nll", "lse") else dn]
+            e = errs[oname] = _elementwise(a, b, atol, rtol)
+            tols[oname] = {"atol": atol, "rtol": rtol}
+            print(f"  {name:18s} {dn:9s} {oname:3s} max_abs_err "
+                  f"{e['err']:.3e} (|ref| max {e['mag']:.3e}, rms "
+                  f"{e['rms']:.3e}); worst {e['frac']:.3f} of its limit "
+                  f"{atol:.0e} + {rtol:.2e} x |ref|; least atol at this "
+                  f"rtol {e['need_atol']:.3e}", flush=True)
+            check(e["frac"] <= 1.0,
+                  f"{name} {dn}: {oname} differs from its plain version "
+                  f"beyond {atol} + {rtol} x |plain| ({e['frac']:.3f} of "
+                  f"the limit)")
+        if name == "fused_ce_bwd_dx":
+            check(int(torch.count_nonzero(outs[0][:64])) == 0,
+                  f"{name} {dn}: ignored rows have nonzero dx")
+        del out, ref, outs, refs
+        b_ms, b_by = bound(n_bytes, flops, dn)
+        slow = dn == "float32"          # FMA loops: tens of ms a call
+        results[(name, dn)] = dict(
+            max_abs_err=max(e["err"] for e in errs.values()), errs=errs,
+            tol=tols, ms=time_ms(fk, iters=2 if slow else 10,
+                                 warmup=1 if slow else 3),
+            plain_ms=time_ms(fp, iters=2, warmup=1), bound_ms=b_ms,
+            bound_by=b_by, bytes=n_bytes, flops=flops)
+        r = results[(name, dn)]
+        print(f"  {'':18s} {dn:9s} kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({b_by})", flush=True)
+        torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the model at full width
 # ---------------------------------------------------------------------------
@@ -548,11 +700,23 @@ async def _sse(port: int, prompt: list, max_tokens: int) -> dict:
             "e2e": time.perf_counter() - t0}
 
 
-async def _serve(eng, prompts, budgets):
+async def _get(port: int, path: str) -> str:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    return data.partition(b"\r\n\r\n")[2].decode()
+
+
+async def _serve(eng, prompts, budgets, weights_version=None):
+    """Serve the streams; returns (results, wall s, /metrics body)."""
     from distributed_pytorch_tpu_torch.serve.scheduler import Scheduler
     from distributed_pytorch_tpu_torch.serve.server import ServeApp
 
     sched = Scheduler(eng, max_queue=64)
+    if weights_version is not None:
+        sched.metrics.set_weights_version(weights_version)
     app = ServeApp(sched, host="127.0.0.1", port=0)
     await sched.start()
     await app.start()
@@ -561,10 +725,11 @@ async def _serve(eng, prompts, budgets):
         res = await asyncio.gather(*(_sse(app.port, p, b)
                                      for p, b in zip(prompts, budgets)))
         wall = time.perf_counter() - t0
+        metrics = await _get(app.port, "/metrics")
     finally:
         await app.stop()
         await sched.stop()
-    return res, wall
+    return res, wall, metrics
 
 
 def run_serve(torch, fd, card: str) -> None:
@@ -593,7 +758,7 @@ def run_serve(torch, fd, card: str) -> None:
     L = cfg.n_layer
     steps0, admits0 = eng.n_steps, eng.n_admitted
     reset_counts()
-    res, wall = asyncio.run(asyncio.wait_for(
+    res, wall, _ = asyncio.run(asyncio.wait_for(
         _serve(eng, prompts, budgets), 600))
     launches, plain = counts()
     steps, admits = eng.n_steps - steps0, eng.n_admitted - admits0
@@ -749,13 +914,13 @@ def run_train(torch, dev, card: str) -> dict:
           f"checkpoint step_10 verified and restored; card {card}",
           flush=True)
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in FLASH_SOURCE}
+    return {k: launches[k] for k in FLASH_SOURCE}, losses[0]
 
 
-def profile_train(torch, state, train_cfg, model_cfg) -> None:
+def profile_train(torch, state, train_cfg, model_cfg) -> dict:
     """Where a steady train step's time goes: host wall per step, device
     time by kernel (torch.profiler), device busy share. Runs after the
-    main path's counts were read."""
+    main path's counts were read. Returns the split in ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_pytorch_tpu_torch.data.loader import DataLoader
@@ -783,13 +948,16 @@ def profile_train(torch, state, train_cfg, model_cfg) -> None:
         torch.cuda.synchronize()
 
     ev, dev_ms = device_kernels(prof, n)
-    print(f"  train step (B {B} x T {T} x accum 2): host wall "
+    print(f"  train step (B {B} x T {T} x accum 2, loss "
+          f"{model_cfg.loss_impl}): host wall "
           f"{wall_ms:.3f} ms, device {dev_ms:.3f} ms (kernels), device busy "
           f"{100 * dev_ms / wall_ms:.1f}%", flush=True)
-    split = {"flash attention kernels": 0.0, "matmuls (cuBLAS)": 0.0,
-             "everything else": 0.0}
+    split = {"flash attention kernels": 0.0, "fused CE kernels": 0.0,
+             "matmuls (cuBLAS)": 0.0, "everything else": 0.0}
     for e in ev:
-        if "flash::Params" in e.key:
+        if "fce::" in e.key:
+            split["fused CE kernels"] += _dev_us(e)
+        elif "flash::Params" in e.key:
             split["flash attention kernels"] += _dev_us(e)
         elif any(m in e.key.lower() for m in ("gemm", "nvjet", "xmma",
                                               "cutlass")):
@@ -799,6 +967,8 @@ def profile_train(torch, state, train_cfg, model_cfg) -> None:
     print("  split: " + ", ".join(f"{k} {v / n / 1e3:.3f} ms"
                                   for k, v in split.items()), flush=True)
     print_kernels(ev, n, 12)
+    return {"host_wall_ms": wall_ms, "device_ms": dev_ms,
+            **{k: v / n / 1e3 for k, v in split.items()}}
 
 
 def run_parity(torch, dev) -> None:
@@ -854,6 +1024,227 @@ def run_parity(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: train with the fused CE kernels, then sample and serve
+# ---------------------------------------------------------------------------
+
+CE_ARGV = TRAIN_ARGV + ["--loss_impl", "pallas", "--eval",
+                        "--eval_interval", "10", "--eval_iters", "2",
+                        "--save_model", "--file_name", "chip_smoke_ce"]
+
+
+def run_train_ce(torch, dev, card: str, loss0_fused: float, tmp: str
+                 ) -> dict:
+    """The trainer's own train() with `--loss_impl pallas` and eval, in
+    `tmp` (the checkpoint stays there for sampling and serving). Returns
+    the CE kernels' launches and the run's numbers."""
+    from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
+    from distributed_pytorch_tpu_torch.ops import fused_ce as ce
+    from distributed_pytorch_tpu_torch.train.loop import train
+
+    model_cfg, train_cfg = parse_train_argv(
+        CE_ARGV + ["--data_dir", os.path.join(tmp, "data")])
+    L = model_cfg.n_layer
+    accum = train_cfg.total_batch_size // (
+        train_cfg.batch_size * model_cfg.block_size)
+    iters = train_cfg.max_iters + 1
+    evals = len(range(0, iters, train_cfg.eval_interval))
+    eval_fwd = evals * 2 * train_cfg.eval_iters     # 2 splits
+    micro = accum * iters
+    reset_counts()
+    stats = train(model_cfg, train_cfg,
+                  log=lambda line: print(f"  {line}", flush=True))
+    launches = _counted(
+        {"fused_ce_fwd": micro + eval_fwd, "fused_ce_bwd_dx": micro,
+         "fused_ce_bwd_dw": micro, "flash_attn_fwd": L * (micro + eval_fwd),
+         "flash_attn_bwd_dq": L * micro, "flash_attn_bwd_dkv": L * micro},
+        "train with loss_impl='pallas'")
+    check(ce.DEGRADED["chunked"] == 0,
+          f"train: the pallas loss degraded {ce.DEGRADED} times")
+    losses = stats["train_losses"]
+    check(len(losses) == iters and all(np.isfinite(losses)),
+          f"train ce: losses {losses}")
+    last = float(np.mean(losses[-3:]))
+    check(last <= losses[0] - TRAIN_DROP,
+          f"train ce: loss fell from {losses[0]:.4f} to {last:.4f}, less "
+          f"than {TRAIN_DROP}")
+    d0 = abs(losses[0] - loss0_fused)
+    check(d0 <= ITER0_TOL,
+          f"train ce: iteration 0's loss {losses[0]:.6f} differs from "
+          f"phase 6's {loss0_fused:.6f} by {d0:.3e} > {ITER0_TOL}")
+    vals = [v for _, v in stats["val_losses"]]
+    check(len(vals) == evals and all(np.isfinite(vals)),
+          f"train ce: eval losses {stats['val_losses']}")
+    split = profile_train(torch, stats["state"], train_cfg, model_cfg)
+    out = dict(launches={k: launches[k] for k in CE_SOURCE},
+               loss0=losses[0], loss_last3=last, iter0_diff=d0,
+               val_losses=stats["val_losses"],
+               step_ms=stats["median_step_time"] * 1e3,
+               tok_s=stats["median_tokens_per_sec"],
+               mfu=stats["median_mfu"], peak_gb=stats["peak_mem_gb"],
+               split=split)
+    print(f"  {iters} iterations x {accum} micro-steps, loss_impl pallas: "
+          f"loss {losses[0]:.4f} -> {last:.4f} (mean of the last 3); "
+          f"iteration 0 vs phase 6 (chunked loss) |diff| {d0:.3e} (tol "
+          f"{ITER0_TOL:.0e}); val {vals}; step ms p50 {out['step_ms']:.3f}, "
+          f"tok/s {out['tok_s']:.1f}, MFU {out['mfu']:.4f}, peak memory "
+          f"{out['peak_gb']:.3f} GB; CE launches {out['launches']}, "
+          f"degraded 0, plain calls 0; card {card}", flush=True)
+    del stats
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_parity_ce(torch, dev) -> None:
+    """One fp32 forward and backward at full width, B 2: the loss through
+    the fused CE kernels against `loss_impl='unchunked'` (full logits),
+    both over the flash kernels."""
+    import dataclasses
+
+    from distributed_pytorch_tpu_torch.config import (TrainConfig,
+                                                      flagship_gpt124m)
+    from distributed_pytorch_tpu_torch.train.state import build_model
+
+    cfg = flagship_gpt124m()
+    rng = np.random.default_rng(6)
+    shape = (2, cfg.block_size)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    y = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    y[0, :17] = -1                                   # ignored targets
+    res = {}
+    for impl in ("pallas", "unchunked"):
+        model = build_model(dataclasses.replace(cfg, loss_impl=impl),
+                            TrainConfig(compute_dtype="float32",
+                                        attn_impl="pallas"), dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        model.init_weights(g)
+        model.train()
+        reset_counts()
+        _, loss = model(x, y)
+        loss.backward()
+        launches, plain = counts()
+        res[impl] = (loss.item(), {n: p.grad for n, p in
+                                   model.named_parameters()}, launches)
+        del model
+    (l_k, g_k, n_k), (l_u, g_u, n_u) = res["pallas"], res["unchunked"]
+    check(all(n_k[k] == 1 for k in CE_SOURCE)
+          and all(n_u[k] == 0 for k in CE_SOURCE),
+          f"parity ce: kernel routes {n_k}, unchunked routes {n_u}")
+    rel = {}
+    for name, b in g_u.items():
+        err = (g_k[name] - b).abs().max().item()
+        mag = b.abs().max().item()
+        rel[name] = err / mag if mag > 0 else (0.0 if err == 0 else np.inf)
+    worst = max(rel, key=rel.get)
+    print(f"  fp32 parity, B 2 x T {cfg.block_size}: loss {l_k:.6f} (CE "
+          f"kernels) vs {l_u:.6f} (unchunked), |diff| {abs(l_k - l_u):.3e} "
+          f"(tol {PARITY_TOL['loss']:.0e}); max |grad diff| / max |grad| "
+          f"per parameter: worst {rel[worst]:.3e} ({worst}), tkn_emb.weight "
+          f"{rel['tkn_emb.weight']:.3e} (tol {PARITY_TOL['grad']:.0e})",
+          flush=True)
+    check(abs(l_k - l_u) <= PARITY_TOL["loss"], "parity ce: losses differ")
+    check(rel[worst] <= PARITY_TOL["grad"],
+          f"parity ce: gradients of {worst} differ by {rel[worst]:.3e} of "
+          f"their largest")
+    del res, g_k, g_u
+    torch.cuda.empty_cache()
+
+
+def run_sample_serve(torch, dev, card: str, root: str) -> dict:
+    """Sample the checkpoint under `root` (the CLI, greedy, through
+    `generate`) and serve it (`serve --ckpt`'s engine, in bf16 and in
+    fp32): the engine's tokens equal `generate`'s on the same loaded model
+    wherever that path's top-2 margin exceeds LOGIT_TOL, and the
+    weights_version rides the payloads and /metrics."""
+    from distributed_pytorch_tpu_torch import sample
+    from distributed_pytorch_tpu_torch.models.generate import generate
+    from distributed_pytorch_tpu_torch.serve.__main__ import (build_args,
+                                                              build_engine)
+    from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
+
+    step_dir = ckpt.latest_step_dir(root)
+    version = ckpt.weights_version(step_dir)
+    L = ckpt.load_configs(step_dir)[0].n_layer
+    prompt = [int(t) for t in np.random.default_rng(8).integers(0, 50304, 9)]
+    n_new = 16
+    reset_counts()
+    outs = sample.main(["--ckpt", root, "--prompt",
+                        ",".join(map(str, prompt)), "--temperature", "0",
+                        "--max_new_tokens", str(n_new)])
+    check(len(outs) == 1 and len(outs[0]) == len(prompt) + n_new
+          and outs[0][:len(prompt)] == prompt, f"sample: {outs}")
+    s_launch = _counted({"paged_decode_attn": L * (n_new - 1),
+                         "flash_attn_fwd": L}, "sample")
+
+    rng = np.random.default_rng(9)
+    prompts = [prompt] + [rng.integers(0, 50304, k).tolist()
+                          for k in (3, 40, 200)]
+    budgets = [n_new, 24, 32, 20]
+    agree = {}
+    for dn in ("bfloat16", "float32"):
+        eng, _, wv, _ = build_engine(build_args(
+            ["--ckpt", root, "--slots", "8", "--kv-block", "16",
+             "--temperature", "0", "--port", "0", "--dtype", dn]))
+        check(wv == version and version and version.startswith(
+            os.path.basename(step_dir) + "-"),
+              f"serve: weights_version {wv}, checkpoint {version}")
+        steps0, admits0 = eng.n_steps, eng.n_admitted
+        reset_counts()
+        res, wall, metrics = asyncio.run(asyncio.wait_for(
+            _serve(eng, prompts, budgets, weights_version=version), 600))
+        launches, plain = counts()
+        steps, admits = eng.n_steps - steps0, eng.n_admitted - admits0
+        check(plain == {k: 0 for k in plain},
+              f"serve ckpt {dn}: plain ran {plain}")
+        check(launches["paged_decode_attn"] == L * steps
+              and launches["paged_prefill_attn"] == L * admits,
+              f"serve ckpt {dn}: launches {launches} for {steps} steps, "
+              f"{admits} admissions x {L} layers")
+        check(f'version="{version}"' in metrics,
+              f"serve ckpt {dn}: /metrics lacks the weights_version")
+        # the engine's tokens against `generate` on the same loaded model,
+        # wherever generate's path has a top-2 margin above LOGIT_TOL
+        agree[dn] = []
+        for i, (r, p, b) in enumerate(zip(res, prompts, budgets)):
+            check(r["status"] == 200 and r["done"] is not None
+                  and r["done"].get("weights_version") == version
+                  and len(r["tokens"]) == b,
+                  f"serve ckpt {dn} stream {i}: {r['status']} {r['done']}")
+            ref = generate(eng.model, p, b, temperature=0.0)[0].tolist()
+            with torch.no_grad():
+                lg = naive_forward(
+                    eng.model, torch.tensor([ref[:-1]], device=dev),
+                    all_logits=True)[0, len(p) - 1:].float()
+            top2 = lg.topk(2, dim=-1).values
+            k = 0
+            for m in (top2[:, 0] - top2[:, 1]).tolist():
+                if m <= LOGIT_TOL[dn]:
+                    break
+                check(r["tokens"][k] == ref[len(p) + k],
+                      f"serve ckpt {dn} stream {i}: token {k} differs "
+                      f"from generate")
+                k += 1
+            agree[dn].append(k)
+        if dn == "bfloat16":
+            check(outs[0] == generate(eng.model, prompt, n_new,
+                                      temperature=0.0)[0].tolist(),
+                  "sample CLI tokens differ from generate on the served "
+                  "model")
+        print(f"  serve --ckpt {dn}: 4/4 streams on budget in {wall:.3f} s, "
+              f"tokens equal generate's for {agree[dn]} of {budgets} (up to "
+              f"the first top-2 margin <= {LOGIT_TOL[dn]}); "
+              f"weights_version on payloads and /metrics; {steps} steps, "
+              f"{admits} admissions", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    print(f"  checkpoint {step_dir} [{version}]: sample.main greedy "
+          f"{outs[0][len(prompt):]}; launches {s_launch['flash_attn_fwd']} "
+          f"flash_attn_fwd, {s_launch['paged_decode_attn']} "
+          f"paged_decode_attn; card {card}", flush=True)
+    return {"agree": agree, "budgets": budgets}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -885,6 +1276,7 @@ def main() -> None:
     phase("3 kernels vs plain versions")
     kres = run_kernels(torch, fd, dev)
     fres = run_flash_kernels(torch, dev)
+    cres = run_ce_kernels(torch, dev)
 
     phase("4 flagship model at full width")
     contiguous = run_model(torch, fd, dev)
@@ -893,8 +1285,21 @@ def main() -> None:
     launches = run_serve(torch, fd, card)
 
     phase("6 train")
-    train_launches = run_train(torch, dev, card)
+    train_launches, loss0 = run_train(torch, dev, card)
     run_parity(torch, dev)
+
+    phase("7 train with the fused CE kernels, then sample and serve")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            ce_run = run_train_ce(torch, dev, card, loss0, tmp)
+            run_parity_ce(torch, dev)
+            run_sample_serve(torch, dev, card,
+                             os.path.join(tmp, "checkpoints",
+                                          "chip_smoke_ce"))
+        finally:
+            os.chdir(cwd)
 
     rows = []
     for case, kname in (("paged", "paged_decode_attn"),
@@ -942,6 +1347,35 @@ def main() -> None:
             "ms_fp32": r32["ms"], "plain_ms_fp32": r32["plain_ms"],
             "bound_ms_fp32": r32["bound_ms"],
             "library_ms_fp32": r32["library_ms"]})
+    for kname in CE_SOURCE:
+        r, r32 = cres[(kname, "bfloat16")], cres[(kname, "float32")]
+        y, y32 = cres[("yardsticks", "bfloat16")], \
+            cres[("yardsticks", "float32")]
+        rep = "replaced_fwd" if kname == "fused_ce_fwd" else \
+            "replaced_fwd_bwd"
+        rows.append({
+            "name": kname, "case": "n8192_C768_V50304", "dtype": "bfloat16",
+            "route": "cuda", "source": SOURCE.format(CE_SOURCE[kname]),
+            "replaces": REPLACES[kname],
+            "launches": ce_run["launches"][kname],
+            "launches_path": "train_ce",
+            "max_abs_err": r["max_abs_err"], "tol": r["tol"],
+            "errs": {o: e["err"] for o, e in r["errs"].items()},
+            "launches_fp32": None,
+            "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes a fused "
+                            "lm-head + cross-entropy",
+            "replaced_path": "the chunked fused_cross_entropy (ops/"
+                             "losses.py) on the same x, W, targets: "
+                             + ("forward" if rep == "replaced_fwd" else
+                                "forward and backward (dx, dW)"),
+            "replaced_path_ms": y[rep], "mm_ms": y["mm"],
+            "ms_fp32": r32["ms"], "plain_ms_fp32": r32["plain_ms"],
+            "bound_ms_fp32": r32["bound_ms"], "library_ms_fp32": None,
+            "replaced_path_ms_fp32": y32[rep], "mm_ms_fp32": y32["mm"]})
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

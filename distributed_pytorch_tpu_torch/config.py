@@ -112,6 +112,11 @@ register_knob("TRAIN_KEEP_CKPTS", "0", int,
               "prune older ones after each save; 0 = keep everything "
               "(TrainConfig.keep_ckpts overrides when > 0)")
 
+# --- kernels (ops/fused_ce.py) ---
+register_knob("CE_BLOCK_N", "512", int,
+              "fused-CE token tile of the reference's usability gate "
+              "(ops/fused_ce.py pallas_ce_usable)")
+
 
 PARALLELISM_RECIPES = (
     "single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp", "ep", "sp",

@@ -17,7 +17,8 @@ Counterpart of the reference package's `models/gpt.py` (`LLM`, `Block`,
   serving builds bf16 weights, so its casts are no-ops.
 * The LM head is tied to the (V, C) token embedding.
 * `forward(idx, targets)` returns (logits, loss): the mean cross-entropy
-  over targets != -1 through `config.loss_impl` (ops/losses.py), and the
+  over targets != -1 through `config.loss_impl` (ops/losses.py; 'pallas'
+  through the fused CE kernels of ops/fused_ce.py), and the
   last position's logits (every position's with `all_logits`). The
   reference returns every position's logits and lets XLA drop them when
   unused; eager PyTorch would compute them, so the port does not.
@@ -46,6 +47,7 @@ from distributed_pytorch_tpu_torch.config import LLMConfig
 from distributed_pytorch_tpu_torch.models.attention import (
     GQA, init_attn_cache, init_paged_attn_cache)
 from distributed_pytorch_tpu_torch.models.mlp import MLP
+from distributed_pytorch_tpu_torch.ops import fused_ce
 from distributed_pytorch_tpu_torch.ops.dropout import dropout, subseed
 from distributed_pytorch_tpu_torch.ops.losses import (fused_cross_entropy,
                                                      unchunked_cross_entropy)
@@ -230,10 +232,15 @@ class LLM(nn.Module):
         cfg = self.config
         emb = self.tkn_emb.weight.to(self.dtype)
         if cfg.loss_impl == "pallas":
-            raise NotImplementedError(
-                "loss_impl='pallas' (the fused cross-entropy kernels of "
-                "ops/fused_ce.py) comes with the next slice; use 'fused' or "
-                "'unchunked'")
+            # the reference's gate (models/gpt.py:218-236): shapes the
+            # kernels tile, else degrade to the chunked path. CUDA tensors
+            # run the kernels, CPU tensors the same function through the
+            # plain versions (ops/fused_ce.py).
+            n, C = x.shape[0] * x.shape[1], x.shape[-1]
+            if fused_ce.pallas_ce_usable(n, C, x.dtype):
+                return fused_ce.pallas_cross_entropy(x, emb, targets)
+            fused_ce.DEGRADED["chunked"] += 1
+            return fused_cross_entropy(x, emb, targets, chunk=cfg.loss_chunk)
         if cfg.loss_impl == "fused":
             return fused_cross_entropy(x, emb, targets, chunk=cfg.loss_chunk)
         return unchunked_cross_entropy(x, emb, targets)

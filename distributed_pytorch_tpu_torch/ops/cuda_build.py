@@ -4,14 +4,16 @@ Each `csrc/<source>.cu` is compiled by `nvcc` into its own shared library
 with a plain C interface, at first use, for `sm_90a` (Hopper), and loaded
 with `ctypes` — no PyTorch headers in the sources, so a build takes
 seconds, not the minutes `torch.utils.cpp_extension` needs. A source may
-export several kernels' entries (flash_attn_bwd.cu: dq and dkv). Libraries
+export several kernels' entries (flash_attn_bwd.cu: dq and dkv;
+fused_ce_bwd.cu: dx and dW). Libraries
 are keyed by a hash of their sources and flags, under
 `build/torch_kernels/` at the repo root (git-ignored); a stale key simply
 builds anew. `build()` compiles every missing library at once, one `nvcc`
 process per source, all started together.
 
 Every C entry returns the launch's `cudaGetLastError()`; the wrappers in
-ops/flash_decode.py and ops/flash_attention.py raise when it is not 0.
+ops/flash_decode.py, ops/flash_attention.py and ops/fused_ce.py raise when
+it is not 0.
 """
 
 from __future__ import annotations
@@ -63,6 +65,18 @@ KERNELS = {
         # scale, thresh, keep_scale, stream
         (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U, _F,
          _P)),
+    "fused_ce_fwd": (
+        "fused_ce_fwd.cu",
+        # dtype, x, w, t, nll, lse, n, V, C, stream
+        (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "fused_ce_bwd_dx": (
+        "fused_ce_bwd.cu",
+        # dtype, x, w, t, lse, coef, dx, n, V, C, stream
+        (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "fused_ce_bwd_dw": (
+        "fused_ce_bwd.cu",
+        # dtype, x, w, t, lse, coef, dw, n, V, C, stream
+        (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

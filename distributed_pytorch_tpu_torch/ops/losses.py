@@ -15,7 +15,7 @@ accumulates and returns in fp32 (`torch.mm(..., out_dtype=float32)` on the
 card), and its backward takes the fp32 gradient back to bf16 products.
 ignore_index is -1 throughout. The sequence-parallel variant
 (`sp_fused_cross_entropy`) comes with slice 5; the streaming-kernel loss
-(`loss_impl='pallas'`, ops/fused_ce.py) with the next slice.
+(`loss_impl='pallas'`) is ops/fused_ce.py.
 """
 
 from __future__ import annotations

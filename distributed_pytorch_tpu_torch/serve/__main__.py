@@ -1,15 +1,18 @@
-"""Serving CLI: `python -m distributed_pytorch_tpu_torch.serve --preset
-gpt2_124m` or `--demo`.
+"""Serving CLI: `python -m distributed_pytorch_tpu_torch.serve --ckpt
+checkpoints/<name>`, `--preset gpt2_124m` or `--demo`.
 
-Builds a model (a size preset with seeded N(0, 0.02) weights, or the tiny
-`--demo` model), wraps a `DecodeEngine` in the async scheduler, and
-serves `POST /v1/completions` (SSE streaming), `/healthz` and `/metrics`
-until interrupted. Runs on the CUDA card unless `--cpu` is given; with no
-card and no `--cpu` it exits with an error.
+Builds a model (a trainer checkpoint's weights through
+`sample.load_for_inference`, a size preset with seeded N(0, 0.02)
+weights, or the tiny `--demo` model), wraps a `DecodeEngine` in the async
+scheduler, and serves `POST /v1/completions` (SSE streaming), `/healthz`
+and `/metrics` until interrupted. The weights' identity (`step_N-<manifest
+digest prefix>` for a checkpoint) goes on `/metrics` and on every
+completion payload. Runs on the CUDA card unless `--cpu` is given; with
+no card and no `--cpu` it exits with an error.
 
-Waiting for later slices: `--ckpt`/`--shard` (checkpoint restore),
-`--aot-store`, int8 cache and weights, chunked prefill, the host KV tier,
-and `POST /admin/profile`.
+Waiting for later slices: `--shard` (slice 6), `--aot-store`, int8 cache
+and weights, chunked prefill (slice 4), the host KV tier, and `POST
+/admin/profile`.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ def build_args(argv=None):
     p = argparse.ArgumentParser(
         description="Streaming HTTP serving over the DecodeEngine")
     src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--ckpt", type=str,
+                     help="checkpoint dir (trainer layout; the newest "
+                          "step is used when given the run root)")
     src.add_argument("--preset", choices=sorted(PRESETS),
                      help="serve a model preset at full width with seeded "
                           "random weights (token-id prompts only)")
@@ -63,6 +69,8 @@ def build_args(argv=None):
                    help="disable radix prefix reuse (A/B baseline)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the kernels' plain versions)")
+    p.add_argument("--shard", action="store_true",
+                   help="sharded checkpoint restore (slice 6; refused)")
     p.add_argument("--request-timeout-s", "--request_timeout_s",
                    dest="request_timeout_s", type=float, default=30.0,
                    help="per-connection read timeout while parsing a "
@@ -82,9 +90,9 @@ def _demo_config():
 
 def build_engine(args):
     """Engine spin-up: the model on the card (or the CPU with --cpu), its
-    seeded weights, and the DecodeEngine over it. Returns (engine,
-    encoder, weights_version, spinup) where `spinup` is the phase record
-    list {phase: load, ms}."""
+    weights (restored from --ckpt, or seeded), and the DecodeEngine over
+    it. Returns (engine, encoder, weights_version, spinup) where `spinup`
+    is the phase record list {phase: load, ms}."""
     import time
 
     import torch
@@ -98,18 +106,30 @@ def build_engine(args):
     dtype = getattr(torch, args.dtype) if args.dtype else (
         torch.bfloat16 if device.type == "cuda" else torch.float32)
     t0 = time.perf_counter()
-    if args.demo:
-        cfg = _demo_config()
-        weights_version = "demo"
-        print("demo mode: tiny random-init model, token-id prompts only")
+    encoder = None
+    if args.ckpt:
+        from distributed_pytorch_tpu_torch.sample import (_encoder,
+                                                          load_for_inference)
+        model, _, _, _, weights_version = load_for_inference(
+            args.ckpt, device=device, dtype=dtype, shard=args.shard)
+        encoder = _encoder()
     else:
-        cfg = PRESETS[args.preset]()
-        weights_version = f"{args.preset}-random-seed{args.seed}"
-    model = LLM(cfg, device=device, dtype=dtype)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    model.init_weights(gen)
-    model.eval()
+        if args.shard:
+            raise NotImplementedError("--shard restores a checkpoint; "
+                                      "sharded restore comes with slice 6")
+        if args.demo:
+            cfg = _demo_config()
+            weights_version = "demo"
+            print("demo mode: tiny random-init model, token-id prompts "
+                  "only")
+        else:
+            cfg = PRESETS[args.preset]()
+            weights_version = f"{args.preset}-random-seed{args.seed}"
+        model = LLM(cfg, device=device, dtype=dtype)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed)
+        model.init_weights(gen)
+        model.eval()
     spinup = [{"spinup": "weights", "phase": "load",
                "ms": round((time.perf_counter() - t0) * 1e3, 3)}]
     eng = DecodeEngine(model, n_slots=args.slots, max_len=args.max_len,
@@ -117,7 +137,7 @@ def build_engine(args):
                        eos_id=args.eos_id, seed=args.seed,
                        block_size=args.kv_block, n_blocks=args.kv_blocks,
                        prefix_cache=args.prefix_cache)
-    return eng, None, weights_version, spinup
+    return eng, encoder, weights_version, spinup
 
 
 async def _amain(args) -> None:
@@ -132,7 +152,8 @@ async def _amain(args) -> None:
     sched = Scheduler(eng, max_queue=args.max_queue,
                       default_deadline_s=args.deadline_s)
     sched.metrics.set_build_info(
-        preset="demo" if args.demo else args.preset, trace=args.trace)
+        preset="demo" if args.demo else (args.ckpt or args.preset),
+        trace=args.trace)
     sched.metrics.set_weights_version(weights_version)
     app = ServeApp(sched, host=args.host, port=args.port, encoder=encoder,
                    default_max_tokens=args.max_tokens_default,

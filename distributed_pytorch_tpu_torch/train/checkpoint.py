@@ -15,6 +15,9 @@ completed.
   oldest past corrupt ones and returns the first that restores.
 * `prune_checkpoints(root, keep)` deletes the oldest verified dirs so at
   most `keep` remain; the newest good one always survives.
+* `restore_for_inference` loads the model's weights alone (the optimizer
+  moments are never copied into memory); `weights_version` names them
+  `step_N-<blake2b(manifest)[:8]>` for the serving front-end.
 """
 
 from __future__ import annotations
@@ -125,6 +128,30 @@ def verify_manifest(path: str, *, deep: bool = True) -> list[str]:
     return violations
 
 
+def weights_version(path: str) -> Optional[str]:
+    """Identity string for the weights under a step dir:
+    `<step_dir_basename>-<blake2b(manifest)[:8]>`. The manifest digests
+    every payload file, so the version changes iff a weight byte changed.
+    None when the dir has no manifest."""
+    path = _abs(path)
+    try:
+        with open(os.path.join(path, MANIFEST), "rb") as f:
+            digest = hashlib.blake2b(f.read(), digest_size=16).hexdigest()
+    except OSError:
+        return None
+    return f"{os.path.basename(os.path.normpath(path))}-{digest[:8]}"
+
+
+def _verify(path: str) -> None:
+    """With a manifest and CKPT_VERIFY on, raise `CheckpointCorrupt` on a
+    failed deep verification."""
+    if os.path.exists(os.path.join(path, MANIFEST)) \
+            and cfg_mod.knob("CKPT_VERIFY"):
+        violations = verify_manifest(path, deep=True)
+        if violations:
+            raise CheckpointCorrupt(path, violations)
+
+
 def save_checkpoint(path: str, state: TrainState,
                     model_cfg: Optional[LLMConfig] = None,
                     train_cfg: Optional[TrainConfig] = None) -> str:
@@ -164,11 +191,7 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     and CKPT_VERIFY on, a failed deep verification raises
     `CheckpointCorrupt` before anything is loaded."""
     path = _abs(path)
-    if os.path.exists(os.path.join(path, MANIFEST)) \
-            and cfg_mod.knob("CKPT_VERIFY"):
-        violations = verify_manifest(path, deep=True)
-        if violations:
-            raise CheckpointCorrupt(path, violations)
+    _verify(path)
     payload = torch.load(os.path.join(path, STATE),
                          map_location=state.model.device, weights_only=True)
     state.model.load_state_dict(payload["model"])
@@ -176,6 +199,20 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     state.step = int(payload["step"])
     state.updates = int(payload["updates"])
     return state
+
+
+def restore_for_inference(path: str, model: torch.nn.Module
+                          ) -> torch.nn.Module:
+    """Load a step dir's model weights into `model` (in place; returned),
+    verified as `restore_checkpoint` verifies. The file is memory-mapped
+    and only the model's state dict is read, so the optimizer moments are
+    never copied into memory; weights cast to the model's dtypes."""
+    path = _abs(path)
+    _verify(path)
+    payload = torch.load(os.path.join(path, STATE), map_location="cpu",
+                         mmap=True, weights_only=True)
+    model.load_state_dict(payload["model"])
+    return model
 
 
 def _step_dirs(root: str) -> list[tuple[int, str]]:

@@ -14,20 +14,26 @@ dirs under checkpoints/<file_name>/, `resume` restores the newest good
 one (falling back past corrupt ones), `keep_ckpts` (or the
 TRAIN_KEEP_CKPTS knob) prunes old ones; `save_model` writes a final one.
 stats.json (loss curves, throughput, peak memory) lands beside them.
+Preemption (`_graceful_stop`, reference :183-219, :589-612): on SIGTERM or
+SIGINT the loop, at its next log or eval boundary, drains the pending
+metrics, saves `step_<k>` and stops (`stats["stopped_early"]`); a later
+`--resume` continues the same step-keyed data stream.
 
 Not here yet, and refused where a config asks for them: the parallel
 recipes and ZeRO-Offload (slice 6); the profiler and the live metrics
 endpoint (slice 7). The reference's telemetry flight recorder, memory
 planner, AOT program store and multi-host bring-up also come with slices
-6-7, its signal-driven preemption save with the next slice;
-`telemetry` is accepted and records nothing.
+6-7; `telemetry` is accepted and records nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import signal
+import threading
 import time
 from typing import Any, Callable
 
@@ -58,12 +64,6 @@ def check_slice(model_cfg: LLMConfig, train_cfg: TrainConfig) -> None:
     if train_cfg.attn_impl in LATER_IMPLS:
         later.append(f"attn_impl={train_cfg.attn_impl!r}: "
                      f"{LATER_IMPLS[train_cfg.attn_impl]}")
-    if model_cfg.loss_impl == "pallas":
-        later.append("loss_impl='pallas': the fused cross-entropy kernels "
-                     "come with the next slice")
-    if train_cfg.optimizer != "adamw":
-        later.append(f"optimizer={train_cfg.optimizer!r} comes with a later "
-                     "slice")
     if model_cfg.moe or model_cfg.attn == "mla":
         later.append("MoE and MLA models come with slice 5")
     if train_cfg.offload == "on":
@@ -132,6 +132,38 @@ def _write_stats(path: str, stats: dict, model_cfg, train_cfg) -> None:
     os.replace(path + ".tmp", path)
 
 
+@contextlib.contextmanager
+def _graceful_stop():
+    """Preemption-safe shutdown: on SIGTERM (what a preempted machine is
+    sent before it is reclaimed) or SIGINT (Ctrl-C), set a flag that the
+    loop checks at its log and eval boundaries, where it writes a
+    checkpoint and stops; `--resume` then continues the exact stream.
+    Installed only from the main thread (the signal API's constraint);
+    the previous handlers come back on exit. The handler only sets the
+    flag: printing from a signal handler can re-enter a locked stdout."""
+    stop = {"flag": False, "signame": ""}
+    prevs: list[tuple[int, object]] = []
+    if threading.current_thread() is threading.main_thread():
+        def _handler(signum, frame):
+            stop["flag"] = True
+            stop["signame"] = signal.Signals(signum).name
+        for signum in (signal.SIGTERM, signal.SIGINT):
+            prevs.append((signum, signal.signal(signum, _handler)))
+    try:
+        yield stop
+    finally:
+        # None: the previous handler was installed from C; leave ours
+        for signum, prev in prevs:
+            if prev is not None:
+                signal.signal(signum, prev)
+
+
+def _agree_stop(local_flag: bool) -> bool:
+    """Whether every process stops. One process here; the reference's
+    cross-process agreement (a max over processes) comes with slice 6."""
+    return local_flag
+
+
 def _prune(ckpt_root: str, train_cfg: TrainConfig, say) -> None:
     keep = train_cfg.keep_ckpts if train_cfg.keep_ckpts > 0 \
         else cfg_mod.knob("TRAIN_KEEP_CKPTS")
@@ -196,71 +228,94 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
     x, y = train_loader.next_batch(step=start_step)
     pending: list = []
     win_t0 = time.perf_counter()
-    for it in range(start_step, train_cfg.max_iters + 1):
-        if train_cfg.eval and it % train_cfg.eval_interval == 0:
-            t0 = time.perf_counter()
-            ev = estimate_loss(eval_step, state,
-                               {"train": eval_train_loader,
-                                "val": val_loader}, train_cfg.eval_iters)
-            stats["val_losses"].append((it, ev["val"]))
-            say(f"iter {it}: train {ev['train']:.4f} val {ev['val']:.4f} "
-                f"({time.perf_counter() - t0:.1f}s)")
-            win_t0 = time.perf_counter()   # eval time is not step time
+    stopped_early = False
+    with _graceful_stop() as stop:
+        for it in range(start_step, train_cfg.max_iters + 1):
+            # stop checks at deterministic boundaries (the first
+            # iteration, log and eval), where the metrics sync anyway
+            check_due = (it == start_step
+                         or it % train_cfg.log_interval == 0
+                         or (train_cfg.eval
+                             and it % train_cfg.eval_interval == 0))
+            if check_due and _agree_stop(stop["flag"]):
+                # drain queued metrics, checkpoint the state as of the last
+                # completed step, exit before another eval or step
+                stats["train_losses"].extend(float(g["loss"])
+                                             for g in pending)
+                pending.clear()
+                path = ckpt.save_checkpoint(
+                    os.path.join(ckpt_root, f"step_{state.step}"), state,
+                    model_cfg, train_cfg)
+                say(f"[signal] {stop['signame'] or 'SIGTERM'}: checkpoint "
+                    f"-> {path}; stopping at iter {it} (resume with "
+                    "--resume)")
+                stopped_early = True
+                break
 
-        m = train_step(state, x, y)
-        pending.append(m)
-        if it < train_cfg.max_iters:       # prefetch while the device runs
-            x, y = train_loader.next_batch(step=it + 1)
+            if train_cfg.eval and it % train_cfg.eval_interval == 0:
+                t0 = time.perf_counter()
+                ev = estimate_loss(eval_step, state,
+                                   {"train": eval_train_loader,
+                                    "val": val_loader}, train_cfg.eval_iters)
+                stats["val_losses"].append((it, ev["val"]))
+                say(f"iter {it}: train {ev['train']:.4f} val {ev['val']:.4f} "
+                    f"({time.perf_counter() - t0:.1f}s)")
+                win_t0 = time.perf_counter()   # eval time is not step time
 
-        ckpt_due = bool(train_cfg.ckpt_interval and it
-                        and it % train_cfg.ckpt_interval == 0)
-        eval_next = (train_cfg.eval
-                     and (it + 1) % train_cfg.eval_interval == 0)
-        if (it % train_cfg.log_interval == 0 or ckpt_due or eval_next
-                or it == train_cfg.max_iters):
-            got = [{k: float(v) for k, v in g.items()} for g in pending]
-            t_now = time.perf_counter()
-            dt = (t_now - win_t0) / len(got)
-            win_t0 = t_now
-            mfu = M.mfu(model_cfg, tokens_per_step, T, dt, device=device)
-            first_window = not stats["train_losses"]
-            for k, g in enumerate(got):
-                it_k = it - len(got) + 1 + k
-                stats["train_losses"].append(g["loss"])
-                if g.get("nonfinite"):
-                    ev = {"it": it_k, "loss": g["loss"],
-                          "grad_norm": g["grad_norm"],
-                          "skipped": bool(g.get("update_skipped", 0.0))}
-                    stats.setdefault("anomalies", []).append(ev)
-                    say(f"[anomaly] iter {it_k}: loss {g['loss']:.4g}, "
-                        f"grad_norm {g['grad_norm']:.4g}"
-                        f"{', update skipped' if ev['skipped'] else ''}")
-                if not first_window:       # the first window holds warmup
-                    stats["step_times"].append(dt)
-                    stats["tokens_per_sec"].append(tokens_per_step / dt)
-                    if mfu is not None:
-                        stats["mfu"].append(mfu)
-            pending.clear()
-            if it % train_cfg.log_interval == 0:
-                mem = M.device_memory_gb(device)
-                mfu_s = f" | mfu {mfu:6.2%}" if mfu is not None else ""
-                mem_s = f" | mem {mem:5.2f}GB" if mem else ""
-                say(f"iter {it:5d} | loss {got[-1]['loss']:.4f} | "
-                    f"dt {dt * 1e3:7.1f}ms | tok/s "
-                    f"{tokens_per_step / dt:10.0f}{mfu_s}{mem_s}")
+            m = train_step(state, x, y)
+            pending.append(m)
+            if it < train_cfg.max_iters:       # prefetch while the device runs
+                x, y = train_loader.next_batch(step=it + 1)
 
-        if ckpt_due:
-            path = ckpt.save_checkpoint(
-                os.path.join(ckpt_root, f"step_{it}"), state, model_cfg,
-                train_cfg)
-            say(f"checkpoint -> {path}")
-            if train_cfg.save_stats:
-                _write_stats(os.path.join(ckpt_root, "stats.json"), stats,
-                             model_cfg, train_cfg)
-            _prune(ckpt_root, train_cfg, say)
-            win_t0 = time.perf_counter()   # checkpoint time is not step time
+            ckpt_due = bool(train_cfg.ckpt_interval and it
+                            and it % train_cfg.ckpt_interval == 0)
+            eval_next = (train_cfg.eval
+                         and (it + 1) % train_cfg.eval_interval == 0)
+            if (it % train_cfg.log_interval == 0 or ckpt_due or eval_next
+                    or it == train_cfg.max_iters):
+                got = [{k: float(v) for k, v in g.items()} for g in pending]
+                t_now = time.perf_counter()
+                dt = (t_now - win_t0) / len(got)
+                win_t0 = t_now
+                mfu = M.mfu(model_cfg, tokens_per_step, T, dt, device=device)
+                first_window = not stats["train_losses"]
+                for k, g in enumerate(got):
+                    it_k = it - len(got) + 1 + k
+                    stats["train_losses"].append(g["loss"])
+                    if g.get("nonfinite"):
+                        ev = {"it": it_k, "loss": g["loss"],
+                              "grad_norm": g["grad_norm"],
+                              "skipped": bool(g.get("update_skipped", 0.0))}
+                        stats.setdefault("anomalies", []).append(ev)
+                        say(f"[anomaly] iter {it_k}: loss {g['loss']:.4g}, "
+                            f"grad_norm {g['grad_norm']:.4g}"
+                            f"{', update skipped' if ev['skipped'] else ''}")
+                    if not first_window:       # the first window holds warmup
+                        stats["step_times"].append(dt)
+                        stats["tokens_per_sec"].append(tokens_per_step / dt)
+                        if mfu is not None:
+                            stats["mfu"].append(mfu)
+                pending.clear()
+                if it % train_cfg.log_interval == 0:
+                    mem = M.device_memory_gb(device)
+                    mfu_s = f" | mfu {mfu:6.2%}" if mfu is not None else ""
+                    mem_s = f" | mem {mem:5.2f}GB" if mem else ""
+                    say(f"iter {it:5d} | loss {got[-1]['loss']:.4f} | "
+                        f"dt {dt * 1e3:7.1f}ms | tok/s "
+                        f"{tokens_per_step / dt:10.0f}{mfu_s}{mem_s}")
 
-    if train_cfg.save_model:
+            if ckpt_due:
+                path = ckpt.save_checkpoint(
+                    os.path.join(ckpt_root, f"step_{it}"), state, model_cfg,
+                    train_cfg)
+                say(f"checkpoint -> {path}")
+                if train_cfg.save_stats:
+                    _write_stats(os.path.join(ckpt_root, "stats.json"), stats,
+                                 model_cfg, train_cfg)
+                _prune(ckpt_root, train_cfg, say)
+                win_t0 = time.perf_counter()   # not step time
+
+    if train_cfg.save_model and not stopped_early:
         path = ckpt.save_checkpoint(
             os.path.join(ckpt_root, f"step_{state.step}"), state, model_cfg,
             train_cfg)
@@ -277,6 +332,7 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
         stats["median_mfu"] = M.mfu(model_cfg, tokens_per_step, T, med,
                                     device=device)
     stats["params_total"], stats["params_active"] = int(total), int(active)
+    stats["stopped_early"] = stopped_early
     stats["device"] = name
     if stats.get("anomalies"):
         stats["n_anomalies"] = len(stats["anomalies"])

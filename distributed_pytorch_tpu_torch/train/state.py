@@ -7,11 +7,16 @@ Counterpart of the reference package's `train/state.py`:
   of updates applied so far, as optax's schedule count is.
 * AdamW with betas (0.9, 0.999) and eps 1e-8 over two groups: weight
   decay iff `p.dim() >= 2` (`_decay_mask`, state.py:60-63).
+* Lion and Adafactor with optax's rules (state.py:77-99: `optax.lion`
+  with b1 0.9, b2 0.99; `optax.adafactor` with its defaults and a
+  constant weight_decay_rate = weight_decay * learning_rate), as
+  `torch.optim.Optimizer`s on foreach ops. torch's own `Adafactor`
+  follows other rules (its decay, clipping and scaling differ), so it is
+  not used.
 * Global-norm clipping with optax's rule (`clip_by_global_norm`): grads
-  scale by max_norm / norm only when norm >= max_norm. (torch's
-  `clip_grad_norm_` adds 1e-6 to the norm and always scales, which moves
-  the trajectory.)
-* 'lion' and 'adafactor' come with a later slice and raise.
+  scale by max_norm / norm only when norm >= max_norm, before any of the
+  three rules. (torch's `clip_grad_norm_` adds 1e-6 to the norm and always
+  scales, which moves the trajectory.)
 
 The state is mutable: the model's fp32 master weights, the optimizer, the
 iteration count `step` (advances every iteration) and `updates` (the
@@ -20,6 +25,7 @@ updates applied; an anomaly-skipped step applies none).
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Callable
 
@@ -66,18 +72,136 @@ def _decay_mask(p: torch.Tensor) -> bool:
     return p.dim() >= 2
 
 
+class Lion(torch.optim.Optimizer):
+    """optax.lion (scale_by_lion, add_decayed_weights, scale by -lr): the
+    update is sign((1 - b1) g + b1 m) (+ weight_decay p), then m = (1 - b2)
+    g + b2 m. One moment per parameter (`exp_avg`)."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.99,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            gs = [p.grad for p in ps]
+            for p in ps:
+                if "exp_avg" not in self.state[p]:
+                    self.state[p]["exp_avg"] = torch.zeros_like(p)
+            ms = [self.state[p]["exp_avg"] for p in ps]
+            b1, b2 = group["b1"], group["b2"]
+            u = torch._foreach_mul(gs, 1.0 - b1)
+            torch._foreach_add_(u, torch._foreach_mul(ms, b1))
+            torch._foreach_sign_(u)
+            if group["weight_decay"]:
+                torch._foreach_add_(u, torch._foreach_mul(
+                    ps, group["weight_decay"]))
+            torch._foreach_mul_(u, -group["lr"])
+            torch._foreach_add_(ps, u)
+            torch._foreach_mul_(ms, b2)
+            torch._foreach_add_(ms, torch._foreach_mul(gs, 1.0 - b2))
+
+
+def _factored_dims(shape) -> tuple[int, int] | None:
+    """optax's rule: the (second largest, largest) axes when both are at
+    least 128 long, else None (an unfactored second moment)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape, kind="stable")
+    if shape[order[-2]] < 128:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    return x.square().mean().sqrt()
+
+
+class Adafactor(torch.optim.Optimizer):
+    """optax.adafactor with its defaults: factored second moments (row and
+    column means of g^2 + 1e-30) for parameters with two axes of >= 128,
+    decay 1 - (k + 1)^-0.8 at the k-th update, the update clipped to block
+    RMS 1, scaled by lr and by max(RMS(p), 1e-3), plus weight_decay p
+    (a constant rate), subtracted."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    self._update(p, p.grad, group)
+
+    def _update(self, p, g, group):
+        st = self.state[p]
+        dims = _factored_dims(tuple(p.shape))
+        if not st:
+            st["step"] = 0
+            if dims is None:
+                st["v"] = torch.zeros_like(p)
+            else:
+                st["v_row"] = torch.zeros_like(p.mean(dim=dims[1]))
+                st["v_col"] = torch.zeros_like(p.mean(dim=dims[0]))
+        t = np.float32(st["step"] + 1)
+        decay = float(np.float32(1.0) - t ** np.float32(-0.8))
+        g_sqr = g * g + 1e-30
+        if dims is None:
+            v = st["v"]
+            v.mul_(decay).add_(g_sqr.mul_(1.0 - decay))
+            u = g * v.pow(-0.5)
+        else:
+            d1, d0 = dims
+            v_row, v_col = st["v_row"], st["v_col"]
+            v_row.mul_(decay).add_(g_sqr.mean(dim=d0).mul_(1.0 - decay))
+            v_col.mul_(decay).add_(g_sqr.mean(dim=d1).mul_(1.0 - decay))
+            row = (v_row / v_row.mean()).pow(-0.5)
+            u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
+        u = u / torch.clamp_min(_rms(u), 1.0)       # clip_by_block_rms(1.0)
+        u = u * group["lr"]
+        rms = _rms(p)
+        u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
+        if group["weight_decay"]:
+            u = u + group["weight_decay"] * p
+        p.sub_(u)
+        st["step"] += 1
+
+
 def make_optimizer(model: torch.nn.Module,
                    cfg: TrainConfig) -> torch.optim.Optimizer:
-    if cfg.optimizer != "adamw":
-        raise NotImplementedError(
-            f"optimizer={cfg.optimizer!r} comes with a later slice of the "
-            "port (ROADMAP Queue 1); the training slice runs 'adamw'")
+    """`cfg.optimizer`'s rule over two groups: weight decay iff
+    `_decay_mask`. The learning rate is set before every step (the
+    schedule's value at the count of updates applied)."""
     params = list(model.parameters())
-    groups = [{"params": [p for p in params if _decay_mask(p)],
-               "weight_decay": cfg.weight_decay},
-              {"params": [p for p in params if not _decay_mask(p)],
-               "weight_decay": 0.0}]
-    return torch.optim.AdamW(groups, lr=lr_schedule(cfg)(0),
+    lr0 = lr_schedule(cfg)(0)
+
+    def groups(wd):
+        return [{"params": [p for p in params if _decay_mask(p)],
+                 "weight_decay": wd},
+                {"params": [p for p in params if not _decay_mask(p)],
+                 "weight_decay": 0.0}]
+
+    if cfg.optimizer == "lion":
+        if cfg.learning_rate > 2e-4:
+            warnings.warn(
+                f"optimizer=lion with learning_rate={cfg.learning_rate:g}: "
+                "Lion's sign-based update typically needs a ~3-10x smaller "
+                "LR than AdamW (an AdamW-tuned 6e-4-class value usually "
+                "diverges). Set --learning_rate explicitly for lion.",
+                RuntimeWarning, stacklevel=2)
+        return Lion(groups(cfg.weight_decay), lr=lr0, b1=0.9, b2=0.99)
+    if cfg.optimizer == "adafactor":
+        # optax's weight_decay_rate is a raw per-step multiplier; the
+        # reference matches AdamW's magnitude at peak LR with a constant
+        # weight_decay * learning_rate
+        return Adafactor(groups(cfg.weight_decay * cfg.learning_rate),
+                         lr=lr0)
+    return torch.optim.AdamW(groups(cfg.weight_decay), lr=lr0,
                              betas=(0.9, 0.999), eps=1e-8)
 
 

@@ -10,7 +10,12 @@ attention, MHA and GQA, dropout 0 and 0.2, ragged T and S > T, head sizes
 fp32 (1e-5, 1e-5: summation order); bf16 (4e-3, 2^-7: outputs round to
 bf16 on both sides, and p rounds against a running max in the forward
 kernel); lse, fp32 whatever the inputs, at the fp32 limits. And the
-autograd path against the naive attention's gradients in fp32.
+autograd path against the naive attention's gradients in fp32. The fused
+cross-entropy kernels (forward, dx, dW) at ragged token counts and
+vocabularies, with ignored rows, each output element by element within
+atol + rtol x |plain| (`CE_TOL`), and their autograd route against the
+plain route on the CPU. Last, Lion and Adafactor steps on the card
+against the same steps on the CPU.
 
 These carry the `cuda` marker and skip without a card. This file imports
 no JAX, so on a machine without it run it alone, without the JAX conftest:
@@ -25,6 +30,7 @@ import torch
 
 from distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from distributed_pytorch_tpu_torch.ops import flash_decode as fd
+from distributed_pytorch_tpu_torch.ops import fused_ce as ce
 from distributed_pytorch_tpu_torch.ops.attention_core import sdpa
 
 pytestmark = pytest.mark.cuda
@@ -234,3 +240,157 @@ def test_flash_autograd_matches_naive(dev, nh, nkv, causal):
         res.append([out] + list(torch.autograd.grad((out * w).sum(), xs)))
     for a, b in zip(*res):
         assert (a - b).abs().max().item() <= 2e-4
+
+
+# fused CE, per output: nll and lse are fp32 scores from the same operand
+# values summed in another order (fp32 limits in both dtypes); dx and dW
+# are fp32 sums of O(1) terms taken in another order (atol; chip_smoke
+# saw 5e-5 at n 8192), and bf16 outputs round on both sides (one ulp:
+# rtol 2^-7).
+CE_TOL = {"lse": (1e-5, 1e-5), torch.float32: (1e-4, 1e-5),
+          torch.bfloat16: (1e-4, 2 ** -7)}
+
+
+def _ce_inputs(dev, dtype, n, C, V, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn(n, C, generator=g, device=dev).to(dtype)
+    w = (0.02 * torch.randn(V, C, generator=g, device=dev)).to(dtype)
+    t = torch.randint(0, V, (n,), generator=g, device=dev, dtype=torch.int32)
+    t[:5] = -2                                   # ignored rows
+    coef = torch.randn(n, generator=g, device=dev)
+    coef[:5] = 0.0
+    return x, w, t, coef
+
+
+def _within(out, ref, tol):
+    atol, rtol = tol
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    d = (out.float() - ref.float()).abs()
+    assert (d <= atol + rtol * ref.float().abs()).all(), d.max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("n,C,V", [(100, 128, 100), (300, 768, 50304),
+                                   (64, 256, 96), (8, 640, 64),
+                                   (130, 1024, 1000), (70, 1152, 300),
+                                   (40, 1280, 50304)])
+def test_fused_ce_kernels(dev, dtype, n, C, V):
+    """Each kernel against its plain version. Past C 768 the kernels
+    stream C in chunks: 1024 and 1280 in two equal ones, 1152 in 640 +
+    512 columns."""
+    x, w, t, coef = _ce_inputs(dev, dtype, n, C, V)
+    ce.reset_counts()
+    nll, lse = ce.fused_ce_fwd(x, w, t)
+    r_nll, r_lse = ce.fused_ce_fwd_plain(x, w, t)
+    _within(nll, r_nll, CE_TOL["lse"])
+    _within(lse, r_lse, CE_TOL["lse"])
+    dx = ce.fused_ce_bwd_dx(x, w, t, r_lse, coef)
+    dw = ce.fused_ce_bwd_dw(x, w, t, r_lse, coef)
+    _within(dx, ce.fused_ce_bwd_dx_plain(x, w, t, r_lse, coef), CE_TOL[dtype])
+    _within(dw, ce.fused_ce_bwd_dw_plain(x, w, t, r_lse, coef), CE_TOL[dtype])
+    assert torch.count_nonzero(dx[:5]) == 0      # ignored rows: exactly 0
+    assert ce.LAUNCHES == {k: 1 for k in ce.LAUNCHES}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_fused_ce_autograd_matches_plain_route(dev, dtype):
+    """`pallas_cross_entropy`'s loss and gradients through the kernels
+    against the same function on CPU copies (the plain versions): loss
+    within 1e-5 relative, gradients within CE_TOL."""
+    B, T, C, V = 2, 70, 256, 1000
+    x, w, _, _ = _ce_inputs(dev, dtype, B * T, C, V, seed=1)
+    tgt = torch.randint(0, V, (B, T), device=dev)
+    tgt[:, -4:] = -1
+    res = []
+    for d in (dev, torch.device("cpu")):
+        xs = x.reshape(B, T, C).to(d).clone().requires_grad_()
+        ws = w.to(d).clone().requires_grad_()
+        loss = ce.pallas_cross_entropy(xs, ws, tgt.to(d))
+        loss.backward()
+        res.append((loss.detach().cpu(), xs.grad.cpu(), ws.grad.cpu()))
+    (lk, gxk, gwk), (lp, gxp, gwp) = res
+    assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
+    for a, b in ((gxk, gxp), (gwk, gwp)):
+        d = (a.float() - b.float()).abs()
+        atol, rtol = CE_TOL[dtype]
+        assert (d <= atol + rtol * b.float().abs()).all(), d.max().item()
+    assert torch.count_nonzero(gxk[:, -4:]) == 0
+
+
+def test_pallas_loss_at_gpt2_medium_width_runs_the_kernels(dev):
+    """A model of GPT-2 medium's width (C 1024) with loss_impl='pallas' on
+    the card: the loss runs the three kernels (no degrade, no plain call)
+    and agrees with loss_impl='unchunked' in fp32 within 1e-5 relative,
+    its gradients within 1e-4 of each parameter's largest."""
+    import dataclasses
+
+    from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
+    from distributed_pytorch_tpu_torch.train.state import build_model
+
+    cfg = LLMConfig(vocab_size=1000, block_size=64, n_embd=1024, n_head=8,
+                    n_kv_heads=8, attn="mha", n_layer=1, up_dim=512,
+                    loss_impl="pallas")
+    model = build_model(cfg, TrainConfig(compute_dtype="float32"), dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    x = torch.randint(0, 1000, (2, 64), device=dev)
+    res = []
+    for impl in ("pallas", "unchunked"):
+        model.config = dataclasses.replace(cfg, loss_impl=impl)
+        model.zero_grad()
+        ce.reset_counts()
+        _, loss = model(x, x.roll(-1, 1))
+        loss.backward()
+        if impl == "pallas":
+            assert ce.LAUNCHES == {k: 1 for k in ce.LAUNCHES}
+            assert ce.DEGRADED["chunked"] == 0
+            assert ce.PLAIN_CALLS == {k: 0 for k in ce.PLAIN_CALLS}
+        res.append((loss.item(), {k: p.grad.clone() for k, p in
+                                  model.named_parameters()}))
+    (lk, gk), (lr, gr) = res
+    assert abs(lk - lr) <= 1e-5 * abs(lr)
+    for k in gr:
+        scale = gr[k].abs().max().item()
+        assert (gk[k] - gr[k]).abs().max().item() <= 1e-4 * scale, k
+
+
+@pytest.mark.parametrize("optimizer,lr", [("lion", 1e-4), ("adafactor", 1e-2)])
+def test_optimizer_steps_on_card_match_cpu(dev, optimizer, lr):
+    """3 fp32 train steps with Lion or Adafactor from one init on the card
+    and on the CPU: losses within 1e-5 relative; weights within 1e-5
+    (Adafactor: reduction order), or for Lion 2 x lr per step (an update
+    entry whose argument is within float noise of 0 can take the other
+    sign, moving the weight by at most 2 lr)."""
+    from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
+    from distributed_pytorch_tpu_torch.train.state import (TrainState,
+                                                           build_model,
+                                                           make_optimizer)
+    from distributed_pytorch_tpu_torch.train.step import make_train_step
+
+    cfg = LLMConfig(vocab_size=256, block_size=32, n_embd=128, n_head=2,
+                    n_kv_heads=2, attn="mha", n_layer=1, up_dim=256)
+    tc = TrainConfig(compute_dtype="float32", optimizer=optimizer,
+                     learning_rate=lr, warmup_steps=1, max_iters=5)
+    init = build_model(cfg, tc, "cpu")
+    init.init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, 256, (2, 1, 2, 32)))
+               for _ in range(3)]
+    runs = []
+    for d in ("cpu", dev):
+        model = build_model(cfg, tc, d)
+        model.load_state_dict(init.state_dict())
+        state = TrainState(step=0, model=model,
+                           optimizer=make_optimizer(model, tc))
+        step = make_train_step(tc)
+        losses = [float(step(state, b[0].to(d), b[1].to(d))["loss"])
+                  for b in batches]
+        runs.append((losses, {k: v.float().cpu() for k, v in
+                              model.state_dict().items()}))
+    (l_c, w_c), (l_g, w_g) = runs
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-5)
+    atol = 2 * lr * len(batches) if optimizer == "lion" else 1e-5
+    for k in w_c:
+        assert torch.isfinite(w_g[k]).all()
+        assert (w_g[k] - w_c[k]).abs().max().item() <= atol, k

@@ -163,6 +163,58 @@ def test_five_step_trajectory_matches_reference():
         _params_close(model, js.params, cfg, atol=1e-4)
 
 
+# widths of >= 128 on both axes, so Adafactor factors the embedding and
+# the attention/MLP matrices (optax's min_dim_size_to_factor)
+WIDE = dict(TINY, vocab_size=160, n_embd=128, up_dim=256)
+
+
+def _flips(model, jparams, cfg, atol):
+    """Entries farther than atol from the reference (all parameters)."""
+    ref = params_from_jax(jax.device_get(jparams), cfg)
+    sd = model.state_dict()
+    return sum(int(((sd[k] - r).abs() > atol).sum()) for k, r in ref.items())
+
+
+@pytest.mark.parametrize("optimizer,lr,wd", [("lion", 1e-4, 10.0),
+                                             ("adafactor", 1e-2, 0.1)])
+def test_five_step_optimizer_trajectory_matches_reference(optimizer, lr, wd):
+    """5 steps of Lion or Adafactor (optax's rules, after the global-norm
+    clip, which is active), accum 2, from the reference's init converted
+    into the port's fp32-master model, on the same batches. Adafactor:
+    fp32, atol 1e-5 on every parameter after every step. Lion's update is
+    sign(0.1 g + 0.9 m): an entry whose argument lies within float noise
+    of 0 can take the other sign in the other framework and then sits
+    2 lr = 2e-4 away; these inputs flip no entry (counted: 0 of the
+    model's 317,440 entries farther than 1e-5 after any step). The weight
+    decay is large enough to show: Lion's lr x wd = 1e-3 moves a weight of
+    |p| ~0.02 by ~2e-5 a step (2x the limit), and decaying the norm scales
+    (p = 1) would move them by 1e-3; Adafactor's wd x lr = 1e-3 likewise."""
+    mc = JConfig(**WIDE)
+    kw = dict(batch_size=2, total_batch_size=2 * 2 * 32, max_iters=10,
+              warmup_steps=2, learning_rate=lr, grad_clip=0.05,
+              compute_dtype="float32", seed=5, optimizer=optimizer,
+              weight_decay=wd)
+    jtc = JTrainConfig(**kw)
+    jmodel, tx, js, _ = jstate(mc, jtc, None)
+    jparams0 = jax.tree_util.tree_map(np.array, jax.device_get(js.params))
+    jtrain = jstep(jmodel, tx, mc, jtc, None, None)
+
+    cfg, tc = LLMConfig(**WIDE), TrainConfig(**kw, platform="cpu")
+    model = build_model(cfg, tc, device="cpu")
+    model.load_state_dict(params_from_jax(jparams0, cfg))
+    state = TrainState(step=0, model=model,
+                       optimizer=make_optimizer(model, tc))
+    step = make_train_step(tc)
+    for x, y in _batches(5, 2, 2, 32, 160, seed=3):
+        js, jm = jtrain(js, jnp.asarray(x, jnp.int32),
+                        jnp.asarray(y, jnp.int32))
+        m = step(state, torch.from_numpy(x), torch.from_numpy(y))
+        assert float(jm["grad_norm"]) > tc.grad_clip      # clipping active
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        assert _flips(model, js.params, cfg, 1e-5) == 0
+
+
 def test_converted_tree_loads_into_fp32_master_model():
     """A converted reference tree round-trips into the training model
     (fp32 masters): every tensor equal, and the loss with targets equal to
@@ -305,18 +357,85 @@ def test_recompute_and_dropout_keep_the_gradients(policy):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("parallelism", "fsdp"), ("attn_impl", "xla"), ("attn_impl", "ring"),
-    ("optimizer", "lion"), ("optimizer", "adafactor"), ("loss_impl", "pallas")])
+    ("parallelism", "fsdp"), ("attn_impl", "xla"), ("attn_impl", "ring")])
 def test_later_slices_raise(field, value):
     mc, tc = LLMConfig(**TINY), TrainConfig(platform="cpu")
-    if field == "loss_impl":
-        mc = dataclasses.replace(mc, loss_impl=value)
-    else:
-        tc = dataclasses.replace(tc, **{field: value})
+    tc = dataclasses.replace(tc, **{field: value})
     with pytest.raises(NotImplementedError, match="slice|XLA"):
         check_slice(mc, tc)
-    if field == "loss_impl":
-        model = build_model(mc, tc, "cpu")
-        with pytest.raises(NotImplementedError, match="next slice"):
-            model(torch.zeros(1, 8, dtype=torch.long),
-                  torch.zeros(1, 8, dtype=torch.long))
+
+
+def test_sigterm_saves_and_resume_finishes_the_stream(tmp_path,
+                                                      monkeypatch):
+    """SIGTERM sent to the process from the `log` callback after iteration
+    2 (log_interval 1): the loop stops at the top of iteration 3 with a
+    verified `step_3` and `stopped_early`, without the final save; then
+    `--resume` runs 3..5. The losses of both runs together equal an
+    uninterrupted run's, and so do the final weights, bit for bit (fp32,
+    CPU)."""
+    import signal
+    straight = _tiny_run(tmp_path / "a", monkeypatch, max_iters=5,
+                         log_interval=1)
+    sent = []
+
+    def log(line):
+        if line.startswith("iter     2 |") and not sent:
+            sent.append(line)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    monkeypatch.chdir(tmp_path)
+    base = dict(dataset="synthetic", data_dir=str(tmp_path / "b" / "data"),
+                batch_size=2, total_batch_size=2 * 2 * 32, warmup_steps=2,
+                platform="cpu", compute_dtype="float32", log_interval=1,
+                save_stats=False, max_iters=5, save_model=True)
+    (tmp_path / "b").mkdir()
+    monkeypatch.chdir(tmp_path / "b")
+    first = train(LLMConfig(**TINY), TrainConfig(**base), log=log)
+    assert sent and first["stopped_early"]
+    assert first["state"].step == 3 and len(first["train_losses"]) == 3
+    root = os.path.join("checkpoints", "llm_model")
+    assert [os.path.basename(p) for _, p in ckpt._step_dirs(root)] == \
+        ["step_3"]
+    assert ckpt.verify_manifest(os.path.join(root, "step_3")) == []
+    resumed = train(LLMConfig(**TINY), TrainConfig(**base, resume=True),
+                    log=lambda s: None)
+    assert not resumed["stopped_early"] and resumed["state"].step == 6
+    assert first["train_losses"] + resumed["train_losses"] == \
+        straight["train_losses"]
+    want, got = _weights(straight["state"]), _weights(resumed["state"])
+    assert all(torch.equal(want[k], got[k]) for k in want)
+
+
+def test_eval_through_the_pallas_loss(tmp_path, monkeypatch):
+    """`--loss_impl pallas --eval` on the CPU: training and eval losses go
+    through the fused CE functions (their plain versions: forward,
+    dx and dW once per micro-step, the forward alone per eval batch), never
+    the chunked path, and equal a 'fused' run's to 1e-5 (fp32)."""
+    from distributed_pytorch_tpu_torch.ops import fused_ce
+    runs = {}
+    for impl in ("pallas", "fused"):
+        fused_ce.reset_counts()
+        tmp = tmp_path / impl
+        tmp.mkdir()
+        monkeypatch.chdir(tmp)
+        runs[impl] = train(
+            LLMConfig(**WIDE, loss_impl=impl),
+            TrainConfig(dataset="synthetic", data_dir=str(tmp / "data"),
+                        batch_size=2, total_batch_size=2 * 2 * 32,
+                        warmup_steps=2, platform="cpu",
+                        compute_dtype="float32", log_interval=100,
+                        save_stats=False, max_iters=3, eval=True,
+                        eval_interval=2, eval_iters=2),
+            log=lambda s: None)
+        if impl == "pallas":
+            # 4 iterations x 2 micro-steps; evals at 0 and 2, 2 splits x 2
+            assert fused_ce.PLAIN_CALLS == {
+                "fused_ce_fwd": 8 + 2 * 2 * 2, "fused_ce_bwd_dx": 8,
+                "fused_ce_bwd_dw": 8}
+            assert fused_ce.DEGRADED["chunked"] == 0
+    p, f = runs["pallas"], runs["fused"]
+    assert [i for i, _ in p["val_losses"]] == [0, 2]
+    np.testing.assert_allclose(p["train_losses"], f["train_losses"],
+                               rtol=1e-5)
+    np.testing.assert_allclose([v for _, v in p["val_losses"]],
+                               [v for _, v in f["val_losses"]], rtol=1e-5)
