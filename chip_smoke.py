@@ -14,7 +14,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the serving path's shapes (decode, prefill) and the training
+             the serving path's shapes (decode, prefill; over a bf16/fp32
+             cache and over an int8 cache with fp32 row scales, the _q8
+             kernels, whose yardstick is the path they replace: the
+             gathered rows dequantized, then SDPA) and the training
              path's (flash forward, dq, dkv at B 8, T 1024, 12 heads x 64,
              causal), in fp32 and bf16, with times (CUDA events), the
              least time the card could take (bound), and one PyTorch
@@ -28,10 +31,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
              decode steps held against the uncached forward of the same
              tokens through the naive einsum attention (no kernel), in
              fp32 and bf16; the contiguous-cache `generate` held against
-             greedy argmax of that naive forward. Both runs must
-             launch the kernels layers x steps times (generate: its prompt
-             pass through flash_attn_fwd, its decode steps through the
-             contiguous route) and call no plain version.
+             greedy argmax of that naive forward, and again with an int8
+             cache (its decode steps through paged_decode_attn_q8) against
+             the naive forward over the dequantized int8 cache. Every
+             run must launch the kernels layers x steps times (generate:
+             its prompt pass through flash_attn_fwd, its decode steps
+             through the contiguous route) and call no plain version.
 5. serve   — the serve CLI's engine (bf16, 8 slots, max_len 1024, KV block
              16, greedy) behind the Scheduler and ServeApp on 127.0.0.1:
              8 concurrent SSE completions, three sharing a 256-token
@@ -58,6 +63,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
              checkpoint sampled (`sample.main`, greedy) and served (`serve
              --ckpt`'s engine, 4 concurrent greedy streams, bf16 and fp32)
              with its weights_version, and a profile of two steps.
+8. int8 and chunked serving — phase 5's traffic served from phase 7's
+             checkpoint (trained weights, so that top-2 margins are wide
+             enough to hold tokens to) through three engines: (w) the
+             bf16 wave engine, (a) a bf16 cache with prefill_chunk 256,
+             (b) an int8 cache with int8 weights, chunked. Every stream
+             ends on its budget; the prefill kernel launches layers x
+             chunk steps, the decode kernel layers x steps (the _q8
+             kernels in (b)), no plain version; (a)'s tokens equal (w)'s
+             up to the first small top-2 margin; (a)'s and (b)'s tokens
+             equal the argmax of a kernel-free reference (the uncached
+             forward; for (b) the forward over a dequantized int8 cache
+             on the engine's int8 weights) at every position whose margin
+             clears the limit, for at least MIN_CHECKED of each stream;
+             /metrics shows the chunk use and the engine's options. Then
+             the engine's own admit/step path teacher-forced on (a)'s
+             tokens (staged admissions that hit the shared prefix, a pool
+             small enough to preempt): bf16 within LOGIT_TOL of the
+             uncached forward, int8 within Q8_LOGIT_TOL of bf16. An fp32
+             chunked run is held to an fp32 wave run and the uncached
+             forward the same way. Then the serve CLI itself with
+             `--cache-dtype int8 --quant-weights --prefill-chunk 256`, in
+             a subprocess, answers one completion.
 
 The last two lines are a JSON line of per-kernel numbers and
 {"ok": true, "device": {...}}.
@@ -66,6 +93,7 @@ The last two lines are a JSON line of per-kernel numbers and
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import subprocess
@@ -108,6 +136,21 @@ CE_TOL = {"lse": (1e-5, 1e-5), "float32": (1e-4, 1e-5),
 CE_SHAPE = (8, 1024, 768, 50304)       # B, T, C, V of the training path
 CE_OUTPUTS = {"fused_ce_fwd": ("nll", "lse"), "fused_ce_bwd_dx": ("dx",),
               "fused_ce_bwd_dw": ("dw",)}
+# phase 8: teacher-forced logits of the engine with an int8 KV cache, and
+# with an int8 cache and int8 weights, against the bf16 engine's on phase
+# 7's checkpoint, max abs over phase 5's 8 streams. int8 codes hold each
+# K/V row and weight row to 1/254 of its largest entry; the H100 read
+# 0.0469 and 0.0625, so the limits keep about 2x headroom
+Q8_LOGIT_TOL = {"cache": 0.1, "cache_weights": 0.15}
+# tokens checked against a reference's argmax at every position whose
+# top-2 margin clears the limit: at least this share of each stream. bf16
+# logits keep 8 significant bits (steps of 0.0625 at |logit| 8-16), so the
+# bf16 share counts margins of about one rounding step or more; the H100
+# read 30-100% per stream in bf16, 95-100% in fp32
+MIN_CHECKED = {"float32": 0.5, "bfloat16": 0.2}
+# phase 8's teacher-forced engines: a pool smaller than the traffic's 162
+# blocks (after the shared prefix), so that sequences are preempted
+TF_BLOCKS = 128
 # phase 6: the loss must fall at least this much from the first iteration
 # to the mean of the last three
 TRAIN_DROP = 1.0
@@ -149,6 +192,17 @@ REPLACES.update({
                        "(_bwd_dx_kernel -> _bwd :190, pallas_call :193)",
     "fused_ce_bwd_dw": "distributed_pytorch_tpu/ops/fused_ce.py:171 "
                        "(_bwd_dw_kernel -> _bwd :190, pallas_call :210)",
+})
+REPLACES.update({
+    "paged_q8": "distributed_pytorch_tpu/ops/flash_decode.py:271 "
+                "(_paged_body_q8, driven by paged_flash_decode :276, "
+                "pallas_call :350)",
+    "contiguous_q8": "distributed_pytorch_tpu/ops/flash_decode.py:131 "
+                     "(_kernel_q8, driven by flash_decode :184, "
+                     "pallas_call :253)",
+    "prefill_q8": "distributed_pytorch_tpu/ops/flash_decode.py:408 "
+                  "(_prefill_kernel_q8, driven by paged_flash_prefill :458, "
+                  "pallas_call :534)",
 })
 SOURCE = "distributed_pytorch_tpu_torch/csrc/{}.cu"
 DEVICE = "cuda"
@@ -217,6 +271,7 @@ def kernel_cases(torch, fd, dev):
     import torch.nn.functional as F
 
     from distributed_pytorch_tpu_torch.ops.block_pool import paged_gather
+    from distributed_pytorch_tpu_torch.ops.quant import quantize_kv
 
     B, nh, nkv, hs, bs, n_max = 8, 12, 12, 64, 16, 64
     n_blocks = 520
@@ -288,6 +343,62 @@ def kernel_cases(torch, fd, dev):
                        scale=scale),
                    (2 * T * nh * hs + 2 * (off + T) * nkv * hs) * el
                    + n_max * 4,
+                   4 * keys * nh * hs)
+
+        # the same calls over an int8 cache with fp32 row scales (the _q8
+        # kernels). No PyTorch call takes int8 codes with row scales: the
+        # yardstick is the path they replace, the gathered rows
+        # dequantized to the activations' dtype, then SDPA.
+        (pkc, pks), (pvc, pvs) = quantize_kv(kp), quantize_kv(vp)
+        sc = dict(k_scale=pks, v_scale=pvs)
+        q8_row = nkv * (2 * hs + 2 * 4)          # K and V codes + scales
+
+        def deq(codes, scales):
+            return (codes.float() * scales).to(dtype)
+
+        gk = (paged_gather(pkc, tables), paged_gather(pks, tables))
+        gv = (paged_gather(pvc, tables), paged_gather(pvs, tables))
+        yield (dn, "paged_q8",
+               lambda: fd.paged_flash_decode(q, pkc, pvc, tables, cl,
+                                             scale=scale, **sc),
+               lambda: fd.paged_flash_decode_plain(q, pkc, pvc, tables, cl,
+                                                   scale=scale, **sc),
+               lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], deq(*gk).transpose(1, 2),
+                   deq(*gv).transpose(1, 2), attn_mask=dmask, scale=scale),
+               2 * B * nh * hs * el + live * q8_row + tables.numel() * 4
+               + B * 4, dec_flops)
+        (kcc, kcs), (vcc, vcs) = quantize_kv(kc), quantize_kv(vc)
+        csc = dict(k_scale=kcs, v_scale=vcs)
+        yield (dn, "contiguous_q8",
+               lambda: fd.flash_decode(q, kcc, vcc, cl, scale=scale, **csc),
+               lambda: fd.flash_decode_plain(q, kcc, vcc, cl, scale=scale,
+                                             **csc),
+               lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], deq(kcc, kcs).transpose(1, 2),
+                   deq(vcc, vcs).transpose(1, 2), attn_mask=dmask,
+                   scale=scale),
+               2 * B * nh * hs * el + live * q8_row + B * 4, dec_flops)
+        for off in (0, 256):
+            rows = slice(0, off + T)
+            pk = (paged_gather(pkc, table)[:, rows],
+                  paged_gather(pks, table)[:, rows])
+            pv = (paged_gather(pvc, table)[:, rows],
+                  paged_gather(pvs, table)[:, rows])
+            pmask = (torch.arange(off + T, device=dev)[None, :]
+                     <= off + torch.arange(T, device=dev)[:, None])
+            keys = T * off + T * (T + 1) // 2
+            yield (dn, f"prefill_q8_off{off}",
+                   lambda off=off: fd.paged_flash_prefill(
+                       qp, pkc, pvc, table, off, scale=scale, **sc),
+                   lambda off=off: fd.paged_flash_prefill_plain(
+                       qp, pkc, pvc, table, off, scale=scale, **sc),
+                   lambda pk=pk, pv=pv, pmask=pmask:
+                   F.scaled_dot_product_attention(
+                       qp.transpose(1, 2), deq(*pk).transpose(1, 2),
+                       deq(*pv).transpose(1, 2), attn_mask=pmask,
+                       scale=scale),
+                   2 * T * nh * hs * el + (off + T) * q8_row + n_max * 4,
                    4 * keys * nh * hs)
 
 
@@ -568,9 +679,78 @@ def naive_forward(model, idx, **kw):
     return out
 
 
-def run_model(torch, fd, dev) -> dict:
+def _agree_upto_margin(torch, model, dev, prompt, tokens, ref_tokens,
+                       lim: float, what: str) -> int:
+    """`tokens` against `ref_tokens` (both continuations of `prompt`) up to
+    the first position where the uncached naive forward of the reference
+    sequence has a top-2 margin <= lim. Returns how many were checked."""
+    lg = uncached_logits(torch, model, dev, prompt, ref_tokens)
+    top2 = lg.topk(2, dim=-1).values
+    k = 0
+    for m in (top2[:, 0] - top2[:, 1]).tolist():
+        if m <= lim:
+            break
+        check(tokens[k] == ref_tokens[k],
+              f"{what}: token {k} differs (margin {m:.3g} > {lim})")
+        k += 1
+    return k
+
+
+def uncached_logits(torch, model, dev, prompt, tokens):
+    """The naive uncached forward over `prompt` + `tokens`, teacher-forced:
+    one fp32 logits row per token of `tokens`, the row that predicts it."""
+    seq = list(prompt) + list(tokens)
+    with torch.no_grad():
+        return naive_forward(model, torch.tensor([seq[:-1]], device=dev),
+                             all_logits=True)[0, len(prompt) - 1:].float()
+
+
+def q8_mirror_logits(torch, model, dev, prompt, tokens, store=None):
+    """The int8 serving path's arithmetic without its kernels, teacher-
+    forced on `tokens`: `prompt` through the naive forward on the model's
+    own weights into a contiguous int8 cache (rows quantized as they are
+    written, read back dequantized), then `tokens` from the same cache
+    under the quantized-weight `store` when one is given (the engine runs
+    only its decode forwards on int8 weights). One fp32 logits row per
+    token of `tokens`."""
+    from distributed_pytorch_tpu_torch.models.gpt import init_cache
+    from distributed_pytorch_tpu_torch.ops import quant
+
+    P = len(prompt)
+    caches = init_cache(model.config, 1, P + len(tokens), dtype=torch.int8,
+                        device=dev)
+    with torch.no_grad():
+        first = naive_forward(model, torch.tensor([list(prompt)], device=dev),
+                              caches=caches, pos=0)[0, -1:]
+        with quant.use_quantized_params(store):
+            rest = naive_forward(model, torch.tensor([list(tokens[:-1])],
+                                                     device=dev),
+                                 caches=caches, pos=P, all_logits=True)[0]
+    return torch.cat([first, rest]).float()
+
+
+def held_per_position(torch, lg, tokens, lim: float, least: int,
+                      what: str) -> int:
+    """`tokens` against the argmax of reference logits `lg` (one row per
+    token, teacher-forced on `tokens`) at EVERY position whose top-2
+    margin exceeds `lim`; at least `least` positions must be checked.
+    Returns how many were."""
+    top2 = lg.topk(2, dim=-1)
+    margin = top2.values[:, 0] - top2.values[:, 1]
+    sel = margin > lim
+    want = torch.as_tensor(list(tokens), device=lg.device)
+    bad = (sel & (top2.indices[:, 0] != want)).nonzero().flatten().tolist()
+    check(not bad, f"{what}: tokens at {bad} are not the reference's argmax "
+          f"(margins {[round(margin[i].item(), 4) for i in bad]} > {lim})")
+    n = int(sel.sum())
+    check(n >= least, f"{what}: only {n} of {len(tokens)} positions have a "
+          f"top-2 margin above {lim}, fewer than {least}")
+    return n
+
+
+def run_model(torch, fd, dev) -> tuple[dict, dict]:
     """Returns the contiguous route's kernel launches in `generate`, per
-    dtype."""
+    dtype: over the native cache and over an int8 cache."""
     from distributed_pytorch_tpu_torch.config import flagship_gpt124m
     from distributed_pytorch_tpu_torch.models.generate import generate
     from distributed_pytorch_tpu_torch.models.gpt import (LLM,
@@ -581,7 +761,7 @@ def run_model(torch, fd, dev) -> dict:
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab_size, prompt_len).tolist()
     L = cfg.n_layer
-    contiguous = {}
+    contiguous, contiguous_q8 = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).removeprefix("torch.")
         model = LLM(cfg, device=dev, dtype=dtype)
@@ -643,25 +823,42 @@ def run_model(torch, fd, dev) -> dict:
         contiguous[dn] = _counted(
             {"paged_decode_attn": L * (n_steps - 1), "flash_attn_fwd": L},
             f"generate {dn}")["paged_decode_attn"]
-        with torch.no_grad():
-            ref = naive_forward(model, torch.tensor([out[:-1]], device=dev),
-                                all_logits=True)[0, prompt_len - 1:].float()
-        top2 = ref.topk(2, dim=-1).values
-        margin = (top2[:, 0] - top2[:, 1]).tolist()
-        agree = 0
-        for i, m in enumerate(margin):
-            if m <= LOGIT_TOL[dn]:
-                break
-            check(out[prompt_len + i] == int(ref[i].argmax()),
-                  f"generate {dn}: token {i} is not the uncached argmax")
-            agree += 1
+        agree = held_per_position(
+            torch, uncached_logits(torch, model, dev, prompt,
+                                   out[prompt_len:]),
+            out[prompt_len:], LOGIT_TOL[dn], MIN_CHECKED[dn] * n_steps,
+            f"generate {dn} vs the uncached argmax")
         print(f"  generate {dn}: {agree}/{n_steps} tokens checked against "
-              f"the uncached argmax; paged_decode_attn launched "
-              f"{contiguous[dn]} times ({n_steps - 1} steps x {L} layers), "
-              f"flash_attn_fwd {L} (prompt pass)", flush=True)
+              f"the uncached argmax (top-2 margin > {LOGIT_TOL[dn]})"
+              f"; paged_decode_attn launched {contiguous[dn]} times "
+              f"({n_steps - 1} steps x {L} layers), flash_attn_fwd {L} "
+              f"(prompt pass)", flush=True)
+
+        # the same over an int8 cache: the prompt pass reads it
+        # dequantized, each decode step goes through paged_decode_attn_q8
+        # (the reference's _kernel_q8 face); tokens against the argmax of
+        # the same arithmetic without the kernels
+        reset_counts()
+        out8 = generate(model, prompt, n_steps, temperature=0.0,
+                        cache_dtype=torch.int8)[0].tolist()
+        contiguous_q8[dn] = _counted(
+            {"paged_decode_attn_q8": L * (n_steps - 1), "flash_attn_fwd": L},
+            f"generate int8 {dn}")["paged_decode_attn_q8"]
+        agree8 = held_per_position(
+            torch, q8_mirror_logits(torch, model, dev, prompt,
+                                    out8[prompt_len:]),
+            out8[prompt_len:], LOGIT_TOL[dn], MIN_CHECKED[dn] * n_steps,
+            f"generate int8 {dn} vs the dequantized-cache forward")
+        print(f"  generate int8 cache {dn}: {agree8}/{n_steps} tokens "
+              f"checked against the argmax of the naive forward over the "
+              f"dequantized int8 cache (top-2 margin > {LOGIT_TOL[dn]}); "
+              f"{sum(a == b for a, b in zip(out8, out)) - prompt_len}/"
+              f"{n_steps} equal the native cache's; paged_decode_attn_q8 "
+              f"launched {contiguous_q8[dn]} times, flash_attn_fwd {L}",
+              flush=True)
         del model, caches
         torch.cuda.empty_cache()
-    return contiguous
+    return contiguous, contiguous_q8
 
 
 # ---------------------------------------------------------------------------
@@ -678,7 +875,7 @@ async def _sse(port: int, prompt: list, max_tokens: int) -> dict:
     status = int((await reader.readline()).split(b" ")[1])
     while (await reader.readline()).strip():
         pass
-    tokens, done, ttft = [], None, None
+    tokens, times, done = [], [], None
     while status == 200:
         line = (await reader.readline()).decode().strip()
         if not line:
@@ -690,13 +887,13 @@ async def _sse(port: int, prompt: list, max_tokens: int) -> dict:
             break
         ev = json.loads(payload)
         if "token" in ev:
-            if ttft is None:
-                ttft = time.perf_counter() - t0
+            times.append(time.perf_counter() - t0)
             tokens.append(ev["token"])
         else:
             done = ev
     writer.close()
-    return {"status": status, "tokens": tokens, "done": done, "ttft": ttft,
+    return {"status": status, "tokens": tokens, "done": done,
+            "ttft": times[0] if times else None, "times": times,
             "e2e": time.perf_counter() - t0}
 
 
@@ -732,78 +929,154 @@ async def _serve(eng, prompts, budgets, weights_version=None):
     return res, wall, metrics
 
 
-def run_serve(torch, fd, card: str) -> None:
+SERVE_ARGV = ["--preset", "gpt2_124m", "--slots", "8", "--kv-block", "16",
+              "--temperature", "0", "--seed", "0", "--port", "0"]
+
+
+def serve_traffic(vocab: int) -> tuple[list, list]:
+    """8 requests of 5-906 prompt tokens and 32-64 output tokens, three
+    sharing a 256-token prefix (phases 5 and 8)."""
+    rng = np.random.default_rng(2)
+
+    def toks(n):
+        return rng.integers(0, vocab, n).tolist()
+
+    prefix = toks(256)
+    prompts = [toks(5), toks(40), toks(130), prefix + toks(20),
+               prefix + toks(61), prefix + toks(150), toks(600), toks(900)]
+    return prompts, [32, 40, 48, 56, 64, 33, 50, 60]
+
+
+def _pct(xs, p: float) -> float:
+    """The p-th percentile of xs (nearest rank)."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, int(np.ceil(p / 100 * len(xs))) - 1))]
+
+
+def serve_leg(torch, eng, prompts, budgets, what: str) -> dict:
+    """Serve the streams through `eng` with the counters zeroed just
+    before; check every stream ended on its budget. Returns the results,
+    the counts, the engine's steps (and chunk steps) in the run, and the
+    end-to-end numbers."""
+    steps0, admits0 = eng.n_steps, eng.n_admitted
+    tok0 = (eng.prompt_tokens, eng.prefix_hit_tokens, eng.prefilled_tokens)
+    gc.collect()                     # earlier phases' tensors are freed
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res, wall, metrics = asyncio.run(asyncio.wait_for(
+        _serve(eng, prompts, budgets), 600))
+    launches, plain = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = eng.n_steps - steps0
+    flight = eng.flight.entries(steps)
+    for i, (r, b) in enumerate(zip(res, budgets)):
+        check(r["status"] == 200, f"{what} stream {i}: HTTP {r['status']}")
+        check(r["done"] is not None and r["done"].get("reason") == "budget"
+              and len(r["tokens"]) == b,
+              f"{what} stream {i}: ended {r['done']} after "
+              f"{len(r['tokens'])} of {b} tokens")
+        check(all(0 <= t < eng.cfg.vocab_size for t in r["tokens"]),
+              f"{what} stream {i}: token id out of range")
+    check(plain == {k: 0 for k in plain},
+          f"{what}: plain versions ran on the serve path: {plain}")
+    n_tok = sum(len(r["tokens"]) for r in res)
+    ttft = [r["ttft"] for r in res]
+    itl = [b - a for r in res for a, b in zip(r["times"], r["times"][1:])]
+    step_ms = sorted(e["step_ms"] for e in flight)
+    prompt_tok, hit_tok, prefilled = (
+        a - b for a, b in zip((eng.prompt_tokens, eng.prefix_hit_tokens,
+                               eng.prefilled_tokens), tok0))
+    check(prompt_tok == sum(map(len, prompts)) == hit_tok + prefilled,
+          f"{what}: {prompt_tok} prompt tokens, {hit_tok} from the prefix "
+          f"cache, {prefilled} prefilled")
+    return dict(res=res, metrics=metrics, launches=launches, steps=steps,
+                admits=eng.n_admitted - admits0,
+                chunk_steps=sum(e["prefill_tokens"] > 0 for e in flight),
+                chunk_tokens=sum(e["prefill_tokens"] for e in flight),
+                prefilled=prefilled,
+                numbers=dict(tok_s=n_tok / wall, wall_s=wall, tokens=n_tok,
+                             ttft_p50_ms=_pct(ttft, 50) * 1e3,
+                             ttft_p99_ms=_pct(ttft, 99) * 1e3,
+                             itl_p99_ms=_pct(itl, 99) * 1e3,
+                             step_ms_p50=step_ms[len(step_ms) // 2],
+                             step_ms_max=step_ms[-1], peak_gb=peak,
+                             resident_gb=resident))
+
+
+def _numbers_line(n: dict, prof: dict) -> str:
+    return (f"{n['tokens']} tokens in {n['wall_s']:.3f} s = "
+            f"{n['tok_s']:.1f} tok/s; TTFT p50 {n['ttft_p50_ms']:.1f} ms, "
+            f"p99 {n['ttft_p99_ms']:.1f} ms; ITL p99 {n['itl_p99_ms']:.1f} "
+            f"ms; step ms p50 {n['step_ms_p50']:.2f}, max "
+            f"{n['step_ms_max']:.2f}; decode step host {prof['host_ms']:.3f}"
+            f" ms, kernels {prof['device_ms']:.3f} ms, device busy "
+            f"{prof['busy_pct']:.1f}%; peak memory {n['peak_gb']:.3f} GB "
+            f"({n['resident_gb']:.3f} GB resident before)")
+
+
+def run_serve(torch, fd, card: str) -> dict:
     from distributed_pytorch_tpu_torch.serve.__main__ import (build_args,
                                                               build_engine)
 
-    eng, _, _, _ = build_engine(build_args(
-        ["--preset", "gpt2_124m", "--slots", "8", "--kv-block", "16",
-         "--temperature", "0", "--seed", "0", "--port", "0",
-         "--dtype", "bfloat16"]))
+    eng, _, _, _ = build_engine(build_args(SERVE_ARGV + ["--dtype",
+                                                         "bfloat16"]))
     cfg = eng.cfg
     check(eng.device.type == DEVICE and eng.cache_dtype == torch.bfloat16,
           "serve engine is not bf16 on the card")
     print(f"  engine: {cfg.n_layer} layers x {cfg.n_embd}, "
           f"{eng.n_slots} slots, max_len {eng.max_len}, "
           f"{eng.n_blocks} blocks x {eng.block_size} rows", flush=True)
-    rng = np.random.default_rng(2)
-
-    def toks(n):
-        return rng.integers(0, cfg.vocab_size, n).tolist()
-
-    prefix = toks(256)
-    prompts = [toks(5), toks(40), toks(130), prefix + toks(20),
-               prefix + toks(61), prefix + toks(150), toks(600), toks(900)]
-    budgets = [32, 40, 48, 56, 64, 33, 50, 60]
+    prompts, budgets = serve_traffic(cfg.vocab_size)
     L = cfg.n_layer
-    steps0, admits0 = eng.n_steps, eng.n_admitted
-    reset_counts()
-    res, wall, _ = asyncio.run(asyncio.wait_for(
-        _serve(eng, prompts, budgets), 600))
-    launches, plain = counts()
-    steps, admits = eng.n_steps - steps0, eng.n_admitted - admits0
-    for i, (r, b) in enumerate(zip(res, budgets)):
-        check(r["status"] == 200, f"stream {i}: HTTP {r['status']}")
-        check(r["done"] is not None and r["done"].get("reason") == "budget"
-              and len(r["tokens"]) == b,
-              f"stream {i}: ended {r['done']} after {len(r['tokens'])} of "
-              f"{b} tokens")
-        check(all(0 <= t < cfg.vocab_size for t in r["tokens"]),
-              f"stream {i}: token id out of range")
+    r = serve_leg(torch, eng, prompts, budgets, "serve")
+    launches, steps, admits = r["launches"], r["steps"], r["admits"]
     check(eng.prefix_hit_rate > 0, "the shared prefix never hit the cache")
-    check(plain == {k: 0 for k in plain},
-          f"plain versions ran on the serve path: {plain}")
     check(launches["paged_decode_attn"] == L * steps,
           f"paged_decode_attn launched {launches['paged_decode_attn']} "
           f"times for {steps} steps x {L} layers")
     check(launches["paged_prefill_attn"] == L * admits,
           f"paged_prefill_attn launched {launches['paged_prefill_attn']} "
           f"times for {admits} admissions x {L} layers")
-    check(all(launches[k] == 0 for k in FLASH_SOURCE),
-          f"the training kernels ran on the serve path: {launches}")
-    n_tok = sum(len(r["tokens"]) for r in res)
-    ttft = sorted(r["ttft"] for r in res)
-    step_ms = sorted(e["step_ms"] for e in eng.flight.entries(steps))
-    print(f"  8/8 streams ended on budget; {n_tok} tokens in {wall:.3f} s "
-          f"= {n_tok / wall:.1f} tok/s; TTFT p50 {ttft[3] * 1e3:.1f} ms, "
-          f"max {ttft[-1] * 1e3:.1f} ms; prefix hit rate "
-          f"{eng.prefix_hit_rate:.3f}; {steps} steps, {admits} admissions "
-          f"(step ms p50 {step_ms[len(step_ms) // 2]:.2f}, max "
-          f"{step_ms[-1]:.2f}); launches {launches}; plain calls {plain}; "
-          f"card {card}", flush=True)
-    profile_decode(torch, eng, prompts)
-    return launches
+    check(sum(launches.values()) == launches["paged_decode_attn"]
+          + launches["paged_prefill_attn"],
+          f"other kernels ran on the serve path: {launches}")
+    prof = profile_decode(torch, eng, prompts)
+    print(f"  8/8 streams ended on budget; {_numbers_line(r['numbers'], prof)}"
+          f"; prefix hit rate {eng.prefix_hit_rate:.3f}; {steps} steps, "
+          f"{admits} admissions; launches {launches}; plain calls 0; card "
+          f"{card}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(launches=launches, prompts=prompts, budgets=budgets,
+                tokens=[x["tokens"] for x in r["res"]],
+                numbers=r["numbers"], profile=prof)
 
 
-def profile_decode(torch, eng, prompts) -> None:
+def profile_decode(torch, eng, prompts) -> dict:
     """Where a steady 8-slot decode step's time goes: host wall per step
     (no profiler), device time per step and by kernel (torch.profiler),
     and the device's busy share. Runs after the main path's counts were
-    read."""
+    read. A chunked engine first steps until every prompt is in, under
+    the profiler too: there the parked slots make the decode kernel walk
+    their whole table (the null block), so its device time per launch is
+    read on those chunk steps and on the plain steps apart."""
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for p in prompts:
         eng.admit(p[:200], 64)
+    parked, n_chunk = [], 0
+    with profile(activities=acts) as prof_c:
+        for _ in range(64):
+            parked.append(sum(eng._is_partial(q) for q in
+                              eng._slots.values()))
+            if eng.step().prefill_tokens == 0:
+                parked.pop()
+                break
+            n_chunk += 1
+        torch.cuda.synchronize()
     for _ in range(3):
         eng.step()
     torch.cuda.synchronize()
@@ -813,8 +1086,7 @@ def profile_decode(torch, eng, prompts) -> None:
         eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         for _ in range(n):
             eng.step()
         torch.cuda.synchronize()
@@ -824,6 +1096,29 @@ def profile_decode(torch, eng, prompts) -> None:
           f"device {dev_ms:.3f} ms (kernels), device busy "
           f"{100 * dev_ms / wall_ms:.1f}%", flush=True)
     print_kernels(ev, n, 8)
+    out = {"host_ms": wall_ms, "device_ms": dev_ms,
+           "busy_pct": 100 * dev_ms / wall_ms,
+           "decode_kernel_ms": _per_launch(ev, "paged_decode_kernel")}
+    if n_chunk:
+        ev_c, _ = device_kernels(prof_c, n_chunk)
+        out.update(chunk_decode_kernel_ms=_per_launch(ev_c,
+                                                      "paged_decode_kernel"),
+                   chunk_steps=n_chunk,
+                   parked_mean=sum(parked) / n_chunk)
+        print(f"  decode kernel per launch: {out['decode_kernel_ms']:.4f} ms "
+              f"on plain steps (8 live slots), "
+              f"{out['chunk_decode_kernel_ms']:.4f} ms on {n_chunk} chunk "
+              f"steps (mean {out['parked_mean']:.2f} parked slots walking "
+              f"{eng.table_width} table columns of the null block)",
+              flush=True)
+    return out
+
+
+def _per_launch(ev, name: str) -> float:
+    """Device ms per launch of the kernels whose name contains `name`."""
+    hit = [e for e in ev if name in e.key]
+    n = sum(e.count for e in hit)
+    return sum(_dev_us(e) for e in hit) / n / 1e3 if n else float("nan")
 
 
 def _dev_us(e) -> float:
@@ -846,6 +1141,345 @@ def print_kernels(ev, n: int, top: int) -> None:
     for e in sorted(ev, key=_dev_us, reverse=True)[:top]:
         print(f"    {_dev_us(e) / n / 1e3:8.4f} ms/step  {e.count // n:4d}x  "
               f"{e.key[:90]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: int8 and chunked serving
+# ---------------------------------------------------------------------------
+
+CHUNK = 256
+# the serve CLI as phase 8 starts it
+CLI_ARGV = ["--preset", "gpt2_124m", "--cache-dtype", "int8",
+            "--quant-weights", "--prefill-chunk", str(CHUNK), "--port", "0",
+            "--temperature", "0"]
+
+
+def engine_teacher_forced(torch, model, prompts, forced, **kw) -> dict:
+    """The DecodeEngine's own admit/step path (chunked, 8 slots, blocks of
+    16) fed `forced[i]` as stream i's tokens: its sampler is swapped for
+    one that keeps every row's logits and returns the forced token.
+    Streams 4 and 5 are admitted only once stream 3's prompt is in, so they
+    reuse the 256-token prefix blocks its chunks published; the pool holds
+    TF_BLOCKS blocks, fewer than the traffic needs, so sequences are
+    preempted and resumed from their retained blocks. `kw` picks the cache
+    dtype and weights. Returns per-stream fp32 logits (one row per forced
+    token) and the run's prefix-hit tokens and preemptions."""
+    from collections import deque
+
+    from distributed_pytorch_tpu_torch.engine import (DecodeEngine,
+                                                      NoFreeBlocks)
+
+    eng = DecodeEngine(model, n_slots=8, block_size=16, n_blocks=TF_BLOCKS,
+                       prefill_chunk=CHUNK, temperature=0.0, **kw)
+    rows = [[None] * len(f) for f in forced]
+
+    def sample(logits, **_):
+        if logits.shape[0] == 1:           # a chunk: the oldest partial
+            slots = [min((q.order, s) for s, q in eng._slots.items()
+                         if eng._is_partial(q))[1]]
+        else:                              # a decode step: the live slots
+            live = eng.live.tolist()
+            slots = [s if live[s] else None for s in range(len(live))]
+        out = torch.zeros(logits.shape[0], dtype=torch.long,
+                          device=logits.device)
+        for r, s in enumerate(slots):
+            q = eng._slots.get(s)
+            if q is None:
+                continue
+            i = q.seq_id
+            k = len(q.tokens) - len(prompts[i])    # the token it predicts
+            rows[i][k] = logits[r].float()         # a last chunk's stays
+            out[r] = forced[i][k]
+        return out
+
+    eng._sample = sample
+    queue = deque((i, list(prompts[i])) for i in (0, 1, 2, 3, 6, 7))
+    later = [(i, list(prompts[i])) for i in (4, 5)]
+    got = [[] for _ in prompts]
+    preempted = 0
+    while queue or later or eng._slots:
+        if later and got[3]:
+            queue.extend(later)
+            later = []
+        while queue and eng.free_slots:
+            i, toks = queue[0]
+            try:
+                eng.admit(toks, len(forced[i]) - len(got[i]), seq_id=i)
+            except NoFreeBlocks:
+                break
+            queue.popleft()
+        check(bool(eng._slots), "teacher-forced engine: nothing to step")
+        res = eng.step()
+        for i, t in res.emitted.items():
+            got[i] += t
+        for i, ret in res.retired.items():
+            if ret.reason == "preempted":
+                preempted += 1
+                queue.appendleft((i, list(ret.tokens)))
+            else:
+                check(ret.reason == "budget", f"teacher-forced stream {i} "
+                      f"ended {ret.reason}")
+    check(got == [list(f) for f in forced]
+          and all(r is not None for rs in rows for r in rs),
+          "teacher-forced engine: tokens or logits rows missing")
+    return dict(logits=[torch.stack(r) for r in rows],
+                prefix_hit=eng.prefix_hit_tokens, preempted=preempted)
+
+
+def run_int8_chunked(torch, dev, card: str, wave: dict, root: str) -> dict:
+    """Phase 5's traffic served from phase 7's checkpoint under `root`
+    (trained weights, so that top-2 margins are wide enough to check
+    tokens against): (w) the bf16 wave engine, (a) bf16 with prefill_chunk
+    CHUNK, (b) the same with an int8 cache and int8 weights. Then the
+    engine teacher-forced on leg (a)'s tokens in bf16, with an int8 cache
+    and with both int8. Returns leg (b)'s q8 launches and the legs'
+    numbers."""
+    from distributed_pytorch_tpu_torch.serve.__main__ import (build_args,
+                                                              build_engine)
+
+    prompts, budgets = wave["prompts"], wave["budgets"]
+    base = ["--ckpt", root, "--slots", "8", "--kv-block", "16",
+            "--temperature", "0", "--seed", "0", "--port", "0", "--dtype",
+            "bfloat16"]
+    chunked = ["--prefill-chunk", str(CHUNK)]
+    lim = LOGIT_TOL["bfloat16"]
+    out, toks = {}, {}
+    for leg, extra in (("w", []), ("a", chunked),
+                       ("b", chunked + ["--cache-dtype", "int8",
+                                        "--quant-weights"])):
+        eng, _, _, _ = build_engine(build_args(base + extra))
+        q8, L = leg == "b", eng.cfg.n_layer
+        check(eng.prefill_chunk == (0 if leg == "w" else CHUNK)
+              and eng.kv_quantized == q8 and eng.weights_quantized == q8
+              and eng.model.dtype == torch.bfloat16,
+              f"leg {leg}: engine {eng.cache_dtype}, quant_w "
+              f"{eng.weights_quantized}, chunk {eng.prefill_chunk}")
+        r = serve_leg(torch, eng, prompts, budgets, f"int8/chunked {leg}")
+        sfx = "_q8" if q8 else ""
+        want = {f"paged_prefill_attn{sfx}":
+                L * (r["admits"] if leg == "w" else r["chunk_steps"]),
+                f"paged_decode_attn{sfx}": L * r["steps"]}
+        check(r["launches"] == {k: want.get(k, 0) for k in r["launches"]},
+              f"leg {leg}: launches {r['launches']}, expected {want} "
+              f"({r['chunk_steps']} chunk steps of {r['steps']})")
+        toks[leg] = [x["tokens"] for x in r["res"]]
+        if leg == "w":
+            detail = "the reference for leg a"
+        else:
+            check(r["chunk_tokens"] == r["prefilled"],
+                  f"leg {leg}: chunks carried {r['chunk_tokens']} prompt "
+                  f"tokens of {r['prefilled']} prefilled")
+            lines = dict(ln.rsplit(" ", 1) for ln in r["metrics"].splitlines()
+                         if ln and not ln.startswith("#"))
+            info = [ln for ln in r["metrics"].splitlines()
+                    if ln.startswith("serve_build_info{")]
+            labels = [f'prefill_chunk="{CHUNK}"',
+                      f'cache_dtype="{"int8" if q8 else "bfloat16"}"',
+                      f'quant_weights="{q8}"']
+            check(float(lines.get("serve_prefill_tokens_per_step_count", -1))
+                  == r["steps"] and float(lines.get(
+                      "serve_prefill_tokens_per_step_sum", -1))
+                  == r["prefilled"] and info
+                  and all(lb in info[0] for lb in labels),
+                  f"leg {leg}: /metrics lacks the chunk use or {labels}")
+        least = [int(MIN_CHECKED["bfloat16"] * b) for b in budgets]
+        if leg == "a":
+            # against the wave's tokens up to the first small margin, and
+            # at every position against the uncached forward's argmax
+            agree = [_agree_upto_margin(
+                torch, eng.model, dev, p, t, w, lim,
+                f"leg a stream {i} vs the wave")
+                for i, (p, t, w) in enumerate(zip(prompts, toks["a"],
+                                                  toks["w"]))]
+            held = [held_per_position(
+                torch, uncached_logits(torch, eng.model, dev, p, t), t, lim,
+                n, f"leg a stream {i} vs the uncached forward")
+                for i, (p, t, n) in enumerate(zip(prompts, toks["a"],
+                                                  least))]
+            detail = (f"tokens equal the wave's for {agree} of {budgets} "
+                      f"(up to the first top-2 margin <= {lim}); the "
+                      f"uncached argmax at every position with a margin > "
+                      f"{lim}: {held} checked, all equal")
+            out["held_a"] = held
+        elif leg == "b":
+            # at every position against the same arithmetic without the
+            # kernels: the prompt on the model's weights into an int8
+            # cache, the served tokens on the engine's int8 weights. The
+            # quantization is on both sides, so the kernels' rounding is
+            # all that differs, as for leg a against the uncached forward
+            held = [held_per_position(
+                torch, q8_mirror_logits(torch, eng.model, dev, p, t,
+                                        eng._qparams), t, lim, n,
+                f"leg b stream {i} vs the dequantized-cache forward")
+                for i, (p, t, n) in enumerate(zip(prompts, toks["b"],
+                                                  least))]
+            same = [sum(x == y for x, y in zip(t, u))
+                    for t, u in zip(toks["b"], toks["a"])]
+            detail = (f"the argmax of the naive forward over the "
+                      f"dequantized int8 cache on int8 weights at every "
+                      f"position with a margin > {lim}: {held} "
+                      f"checked, all equal; equal to leg a's, position by "
+                      f"position: {same}")
+            out["held_b"] = held
+        prof = profile_decode(torch, eng, prompts)
+        out[leg] = dict(numbers=r["numbers"], profile=prof,
+                        launches=r["launches"], steps=r["steps"],
+                        chunk_steps=r["chunk_steps"])
+        what = {"w": "bf16, wave", "a": f"bf16, prefill_chunk {CHUNK}",
+                "b": f"int8 cache + int8 weights, prefill_chunk {CHUNK}"}
+        print(f"  leg {leg} ({what[leg]}): 8/8 streams on budget; "
+              f"{_numbers_line(r['numbers'], prof)}; {r['steps']} steps, "
+              f"{r['chunk_steps']} with a chunk; launches {r['launches']}; "
+              f"plain calls 0; {detail}; card {card}", flush=True)
+        if leg == "b":
+            del eng
+        else:
+            model = eng.model
+            del eng
+        torch.cuda.empty_cache()
+    n5, p5 = wave["numbers"], wave["profile"]
+    print(f"  phase 5 (bf16, wave, seeded weights) for comparison: "
+          f"{_numbers_line(n5, p5)}", flush=True)
+
+    # teacher-forced through the engine on leg a's tokens: int8 against
+    # bf16, and bf16 against the uncached forward
+    reset_counts()
+    tf = {v: engine_teacher_forced(torch, model, prompts, toks["a"], **kw)
+          for v, kw in (("bf16", {}), ("cache", {"cache_dtype": "int8"}),
+                        ("cache_weights", {"cache_dtype": "int8",
+                                           "quantize_weights": True}))}
+    launches, plain = counts()
+    check(plain == {k: 0 for k in plain} and all(
+        launches[k] > 0 for k in ("paged_decode_attn", "paged_prefill_attn",
+                                  "paged_decode_attn_q8",
+                                  "paged_prefill_attn_q8")),
+          f"teacher-forced engines: launches {launches}, plain {plain}")
+    ref = [uncached_logits(torch, model, dev, p, t)
+           for p, t in zip(prompts, toks["a"])]
+    diff = {"bf16": max((x - y).abs().max().item()
+                        for x, y in zip(tf["bf16"]["logits"], ref))}
+    for v in ("cache", "cache_weights"):
+        diff[v] = max((x - y).abs().max().item() for x, y in
+                      zip(tf[v]["logits"], tf["bf16"]["logits"]))
+    check(all(r["prefix_hit"] >= 2 * 256 and r["preempted"] > 0
+              for r in tf.values()),
+          f"teacher-forced engines: prefix hits "
+          f"{[r['prefix_hit'] for r in tf.values()]}, preemptions "
+          f"{[r['preempted'] for r in tf.values()]}")
+    check(diff["bf16"] <= lim, f"teacher-forced bf16 engine vs uncached: "
+          f"max |logit diff| {diff['bf16']:.4g} > {lim}")
+    for v in ("cache", "cache_weights"):
+        check(diff[v] <= Q8_LOGIT_TOL[v], f"teacher-forced int8 {v} vs "
+              f"bf16 engine: max |logit diff| {diff[v]:.4g} > "
+              f"{Q8_LOGIT_TOL[v]}")
+    print(f"  teacher-forced engine on leg a's {sum(budgets)} tokens "
+          f"(8 streams, {TF_BLOCKS}-block pool: "
+          f"{tf['bf16']['preempted']} preemptions, "
+          f"{tf['bf16']['prefix_hit']} prefix-hit tokens): max |logit "
+          f"diff| bf16 engine vs uncached {diff['bf16']:.4g} (limit {lim}); "
+          f"int8 cache vs bf16 engine {diff['cache']:.4g} (limit "
+          f"{Q8_LOGIT_TOL['cache']}); int8 cache + weights vs bf16 engine "
+          f"{diff['cache_weights']:.4g} (limit "
+          f"{Q8_LOGIT_TOL['cache_weights']})", flush=True)
+    out["teacher_forced"] = diff
+    del model, tf, ref
+    torch.cuda.empty_cache()
+    out["held_fp32"] = run_chunked_fp32(torch, dev, prompts, budgets, root)
+    run_serve_cli(torch)
+    return out
+
+
+def run_chunked_fp32(torch, dev, prompts, budgets, root: str) -> list:
+    """Leg (a) in fp32, offline, from the same checkpoint: the chunked
+    engine's tokens equal the wave engine's up to the first top-2 margin
+    at the fp32 limit, and the uncached argmax at every position whose
+    margin exceeds it."""
+    from distributed_pytorch_tpu_torch.serve.__main__ import (build_args,
+                                                              build_engine)
+
+    outs = {}
+    for name, extra in (("wave", []), ("chunked", ["--prefill-chunk",
+                                                   str(CHUNK)])):
+        eng, _, _, _ = build_engine(build_args(
+            ["--ckpt", root, "--slots", "8", "--kv-block", "16",
+             "--temperature", "0", "--port", "0", "--dtype", "float32"]
+            + extra))
+        outs[name] = [t[len(p):] for t, p in
+                      zip(eng.run(prompts, budgets), prompts)]
+        model = eng.model
+        del eng
+    lim = LOGIT_TOL["float32"]
+    agree = [_agree_upto_margin(torch, model, dev, p, c, w, lim,
+                                f"fp32 chunked stream {i} vs the wave")
+             for i, (p, c, w) in enumerate(zip(prompts, outs["chunked"],
+                                               outs["wave"]))]
+    held = [held_per_position(
+        torch, uncached_logits(torch, model, dev, p, c), c, lim,
+        int(MIN_CHECKED["float32"] * b),
+        f"fp32 chunked stream {i} vs the uncached forward")
+        for i, (p, c, b) in enumerate(zip(prompts, outs["chunked"],
+                                          budgets))]
+    print(f"  fp32, prefill_chunk {CHUNK} vs wave: tokens equal for {agree} "
+          f"of {budgets} (up to the first top-2 margin <= {lim}); the "
+          f"uncached argmax at every position with a margin > {lim}: "
+          f"{held} checked, all equal; all equal to the wave's: "
+          f"{outs['chunked'] == outs['wave']}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return held
+
+
+def run_serve_cli(torch) -> None:
+    """`python -m distributed_pytorch_tpu_torch.serve --preset gpt2_124m
+    --cache-dtype int8 --quant-weights --prefill-chunk 256 --port 0` in a
+    subprocess: it must name its options at startup and answer one greedy
+    completion on its budget; it is stopped (SIGINT, then killed) after."""
+    import queue
+    import signal
+    import threading
+
+    cmd = [sys.executable, "-m", "distributed_pytorch_tpu_torch.serve",
+           *CLI_ARGV]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    try:
+        deadline = time.time() + 300
+        start = None
+        seen = []
+        while start is None and time.time() < deadline:
+            try:
+                ln = lines.get(timeout=max(0.1, deadline - time.time()))
+            except queue.Empty:
+                break
+            seen.append(ln.rstrip())
+            if ln.startswith("serving on http://"):
+                start = ln.strip()
+        check(start is not None, f"serve CLI did not start: {seen[-20:]}")
+        check(all(f in start for f in ("cache=int8", "quant_w=True",
+                                       f"prefill_chunk={CHUNK}")),
+              f"serve CLI startup line lacks its options: {start}")
+        port = int(start.split("http://", 1)[1].split()[0].rsplit(":", 1)[1])
+        prompt = list(range(1, 201))
+        r = asyncio.run(asyncio.wait_for(_sse(port, prompt, 16), 300))
+        check(r["status"] == 200 and len(r["tokens"]) == 16
+              and r["done"] is not None
+              and r["done"].get("reason") == "budget",
+              f"serve CLI completion: {r['status']} {r['done']}")
+        print(f"  serve CLI ({' '.join(cmd[3:])}): {start}; one 200-token "
+              f"completion of 16 tokens on budget, TTFT "
+              f"{r['ttft'] * 1e3:.1f} ms", flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
 
 
 # ---------------------------------------------------------------------------
@@ -1212,20 +1846,9 @@ def run_sample_serve(torch, dev, card: str, root: str) -> dict:
                   and len(r["tokens"]) == b,
                   f"serve ckpt {dn} stream {i}: {r['status']} {r['done']}")
             ref = generate(eng.model, p, b, temperature=0.0)[0].tolist()
-            with torch.no_grad():
-                lg = naive_forward(
-                    eng.model, torch.tensor([ref[:-1]], device=dev),
-                    all_logits=True)[0, len(p) - 1:].float()
-            top2 = lg.topk(2, dim=-1).values
-            k = 0
-            for m in (top2[:, 0] - top2[:, 1]).tolist():
-                if m <= LOGIT_TOL[dn]:
-                    break
-                check(r["tokens"][k] == ref[len(p) + k],
-                      f"serve ckpt {dn} stream {i}: token {k} differs "
-                      f"from generate")
-                k += 1
-            agree[dn].append(k)
+            agree[dn].append(_agree_upto_margin(
+                torch, eng.model, dev, p, r["tokens"], ref[len(p):],
+                LOGIT_TOL[dn], f"serve ckpt {dn} stream {i} vs generate"))
         if dn == "bfloat16":
             check(outs[0] == generate(eng.model, prompt, n_new,
                                       temperature=0.0)[0].tolist(),
@@ -1279,10 +1902,11 @@ def main() -> None:
     cres = run_ce_kernels(torch, dev)
 
     phase("4 flagship model at full width")
-    contiguous = run_model(torch, fd, dev)
+    contiguous, contiguous_q8 = run_model(torch, fd, dev)
 
     phase("5 serve")
-    launches = run_serve(torch, fd, card)
+    wave = run_serve(torch, fd, card)
+    launches = wave["launches"]
 
     phase("6 train")
     train_launches, loss0 = run_train(torch, dev, card)
@@ -1295,11 +1919,14 @@ def main() -> None:
         try:
             ce_run = run_train_ce(torch, dev, card, loss0, tmp)
             run_parity_ce(torch, dev)
-            run_sample_serve(torch, dev, card,
-                             os.path.join(tmp, "checkpoints",
-                                          "chip_smoke_ce"))
+            root = os.path.join(tmp, "checkpoints", "chip_smoke_ce")
+            run_sample_serve(torch, dev, card, root)
+
+            phase("8 int8 and chunked serving")
+            q8_run = run_int8_chunked(torch, dev, card, wave, root)
         finally:
             os.chdir(cwd)
+
 
     rows = []
     for case, kname in (("paged", "paged_decode_attn"),
@@ -1325,6 +1952,38 @@ def main() -> None:
             "ms_fp32": r32["ms"], "plain_ms_fp32": r32["plain_ms"],
             "bound_ms_fp32": r32["bound_ms"],
             "library_ms_fp32": r32["library_ms"]})
+    for case, kname in (("paged_q8", "paged_decode_attn_q8"),
+                        ("contiguous_q8", "paged_decode_attn_q8"),
+                        ("prefill_q8_off0", "paged_prefill_attn_q8"),
+                        ("prefill_q8_off256", "paged_prefill_attn_q8")):
+        r = kres[(case, "bfloat16")]
+        r32 = kres[(case, "float32")]
+        contig = case == "contiguous_q8"
+        rows.append({
+            "name": kname, "case": case, "dtype": "bfloat16",
+            "route": "cuda",
+            "source": SOURCE.format(kname.removesuffix("_q8")),
+            "replaces": REPLACES[case.split("_off")[0]],
+            "launches": (contiguous_q8["bfloat16"] if contig
+                         else q8_run["b"]["launches"][kname]),
+            "launches_path": ("generate_int8" if contig
+                              else "serve_int8_chunked"),
+            "max_abs_err": r["max_abs_err"], "tol": r["tol"],
+            "launches_fp32": contiguous_q8["float32"] if contig else None,
+            "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "library_call": "none: no PyTorch call takes int8 codes with "
+                            "row scales",
+            # run_kernels timed the yardstick under 'library_ms'
+            "replaced_path": "the gathered int8 rows dequantized to the "
+                             "activations' dtype, then "
+                             "scaled_dot_product_attention",
+            "replaced_path_ms": r["library_ms"],
+            "ms_fp32": r32["ms"], "plain_ms_fp32": r32["plain_ms"],
+            "bound_ms_fp32": r32["bound_ms"], "library_ms_fp32": None,
+            "replaced_path_ms_fp32": r32["library_ms"]})
     for kname in FLASH_SOURCE:
         r, r32 = fres[(kname, "bfloat16")], fres[(kname, "float32")]
         rows.append({

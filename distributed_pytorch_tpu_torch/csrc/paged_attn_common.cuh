@@ -4,8 +4,13 @@
 // an fp32 online softmax. Built for sm_90a by ops/cuda_build.py.
 //
 // What it replaces: the body shared by the reference package's Pallas
-// kernels `_kernel` / `_paged_body` / `_prefill_kernel`
-// (distributed_pytorch_tpu/ops/flash_decode.py). There the grid walked the
+// kernels `_kernel` / `_paged_body` / `_prefill_kernel` and their int8
+// variants `_kernel_q8` / `_paged_body_q8` / `_prefill_kernel_q8`
+// (distributed_pytorch_tpu/ops/flash_decode.py). The cache element type C
+// is the activations' type T, or int8 codes with one fp32 scale per
+// (key row, kv head) in (n_blocks, bs, nkv, 1) scale pools: one loop for
+// both, so the table walk, the causal mask and the online softmax are one
+// piece of code. There the grid walked the
 // kv blocks in order on one core and carried (m, l, acc) in VMEM scratch
 // from one grid step to the next; here one CTA owns a set of query rows and
 // walks the keys in an inner loop, so nothing has to carry across CTAs.
@@ -30,11 +35,22 @@
 // * K rows are stored in shared memory with one float of padding, so the
 //   score pass (consecutive threads on consecutive keys, same query row)
 //   reads 32 distinct banks.
+// * int8 cache: codes convert to fp32 exactly in shared memory (8-byte
+//   vectors of 8 codes, so every head size that is a multiple of 8 tiles);
+//   the tile's K and V scales are staged in shared memory beside them. The
+//   score is the fp32 dot of q with the codes times (k_scale * scale); the
+//   normalizer sums the fp32 p; the PV operand is (p * v_scale) rounded to
+//   T against the codes — the reference's `_q8` arithmetic. Halving the
+//   cache bytes is the point of the int8 cache; the FMA loops are
+//   unchanged (packed int8 dot products are later work).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace paged_attn {
 
@@ -58,10 +74,22 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f<T>(from_f<T>(x));
 }
 
-// A 16-byte vector of T as floats: 4 fp32 values, or 8 bf16 values (a
-// bf16 is the upper half of the fp32 with the same value; the lower
-// element of each 32-bit word comes first).
-template <typename T> __device__ __forceinline__ void unpack(const uint4& x, float* f);
+// How a cache row moves: fp32 and bf16 rows as 16-byte vectors of
+// 16 / sizeof(C) elements, int8 codes as 8-byte vectors of 8 codes.
+template <typename C> struct RowVec {
+  using type = uint4;
+  static constexpr int n = 16 / sizeof(C);
+};
+template <> struct RowVec<int8_t> {
+  using type = uint2;
+  static constexpr int n = 8;
+};
+
+// One vector of C as floats: 4 fp32 values, 8 bf16 values (a bf16 is the
+// upper half of the fp32 with the same value), or 8 int8 codes (exact);
+// the lower element of each 32-bit word comes first.
+template <typename C>
+__device__ __forceinline__ void unpack(const typename RowVec<C>::type& x, float* f);
 template <> __device__ __forceinline__ void unpack<float>(const uint4& x, float* f) {
   f[0] = __uint_as_float(x.x);
   f[1] = __uint_as_float(x.y);
@@ -76,6 +104,15 @@ template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& x
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+template <> __device__ __forceinline__ void unpack<int8_t>(const uint2& x, float* f) {
+  const unsigned w[2] = {x.x, x.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)  // byte b, sign-extended by the shift
+      f[4 * i + b] = (float)(static_cast<int>(w[i] << (24 - 8 * b)) >> 24);
+  }
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -87,13 +124,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Bytes of dynamic shared memory `attend_rows` needs for n_rows query rows.
-inline size_t smem_bytes(int n_rows, int hs) {
+// Bytes of dynamic shared memory `attend_rows` needs for n_rows query rows
+// (ops/flash_decode.py `_smem_bytes` computes the same).
+inline size_t smem_bytes(int n_rows, int hs, bool q8) {
   const size_t floats = (size_t)n_rows * hs * 2   // q_s, acc_s
                       + (size_t)kTile * (hs + 1)  // k_s, padded rows
                       + (size_t)kTile * hs        // v_s
                       + (size_t)n_rows * kTile    // p_s
-                      + (size_t)n_rows * 3;       // m_s, l_s, a_s
+                      + (size_t)n_rows * 3        // m_s, l_s, a_s
+                      + (q8 ? 2 * kTile : 0);     // ks_s, vs_s
   return floats * sizeof(float);
 }
 
@@ -109,12 +148,17 @@ struct Rows {
   int pos0;
 };
 
-template <typename T, int NT>
+// T: the activations' type; C: the cache's (T, or int8 codes with the
+// fp32 scale pools k_scale/v_scale, null otherwise).
+template <typename T, typename C, int NT>
 __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
-                            const Rows r, const T* __restrict__ k,
-                            const T* __restrict__ v,
+                            const Rows r, const C* __restrict__ k,
+                            const C* __restrict__ v,
+                            const float* __restrict__ k_scale,
+                            const float* __restrict__ v_scale,
                             const int* __restrict__ table, int n_max, int bs,
                             int nkv, int g, int hs, float scale) {
+  constexpr bool kQ8 = std::is_same<C, int8_t>::value;
   extern __shared__ float smem[];
   const int n_rows = r.n_rows;
   const int ks = hs + 1;
@@ -126,6 +170,8 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   float* m_s = p_s + (size_t)n_rows * kTile;
   float* l_s = m_s + n_rows;
   float* a_s = l_s + n_rows;
+  float* ks_s = a_s + n_rows;  // int8 cache: the tile's K and V scales
+  float* vs_s = ks_s + kTile;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -144,11 +190,12 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   const int n_keys = min(last_pos + 1, n_max * bs);
   __syncthreads();
 
-  // K/V rows move as 16-byte vectors (kVec elements; the wrapper checks
-  // hs % kVec == 0 and 16-byte aligned pools), kUnroll of them per thread
-  // in flight before any is stored, so a tile's loads overlap instead of
-  // paying the memory latency once per element
-  constexpr int kVec = 16 / sizeof(T);
+  // K/V rows move as vectors of kVec elements (the wrapper checks hs % 8
+  // == 0 and 16-byte aligned pools), kUnroll of them per thread in flight
+  // before any is stored, so a tile's loads overlap instead of paying the
+  // memory latency once per element
+  using Vec = typename RowVec<C>::type;
+  constexpr int kVec = RowVec<C>::n;
   constexpr int kUnroll = 4;
   const int vpr = hs / kVec;              // vectors per row
   const int nvec = kTile * vpr;           // vectors per tile (K or V)
@@ -156,20 +203,20 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
     const int nk = min(kTile, n_keys - k0);
     // gather the tile's K/V rows through the block table
     for (int base = 0; base < nvec; base += NT * kUnroll) {
-      uint4 kr[kUnroll], vr[kUnroll];
+      Vec kr[kUnroll], vr[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int e = base + u * NT + tid;
         const int j = e / vpr;
-        kr[u] = make_uint4(0u, 0u, 0u, 0u);
-        vr[u] = make_uint4(0u, 0u, 0u, 0u);
+        kr[u] = Vec{};
+        vr[u] = Vec{};
         if (e < nvec && j < nk) {
           const int kp = k0 + j;
           const long long blk = table[kp / bs];
           const long long off = ((blk * bs + kp % bs) * nkv + g) * (long long)hs +
                                 (long long)(e - j * vpr) * kVec;
-          kr[u] = *reinterpret_cast<const uint4*>(k + off);
-          vr[u] = *reinterpret_cast<const uint4*>(v + off);
+          kr[u] = *reinterpret_cast<const Vec*>(k + off);
+          vr[u] = *reinterpret_cast<const Vec*>(v + off);
         }
       }
 #pragma unroll
@@ -178,14 +225,28 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
         if (e < nvec) {
           const int j = e / vpr, d0 = (e - j * vpr) * kVec;
           float kf[kVec], vf[kVec];
-          unpack<T>(kr[u], kf);
-          unpack<T>(vr[u], vf);
+          unpack<C>(kr[u], kf);
+          unpack<C>(vr[u], vf);
 #pragma unroll
           for (int i = 0; i < kVec; ++i) {
             k_s[j * ks + d0 + i] = kf[i];
             v_s[j * hs + d0 + i] = vf[i];
           }
         }
+      }
+    }
+    if constexpr (kQ8) {
+      // one scale per (key row, kv head); 0 past the tile's last key
+      for (int j = tid; j < kTile; j += NT) {
+        float a = 0.f, b = 0.f;
+        if (j < nk) {
+          const int kp = k0 + j;
+          const long long row = ((long long)table[kp / bs] * bs + kp % bs) * nkv + g;
+          a = k_scale[row];
+          b = v_scale[row];
+        }
+        ks_s[j] = a;
+        vs_s[j] = b;
       }
     }
     __syncthreads();
@@ -199,7 +260,10 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
         const float* kr = k_s + (size_t)j * ks;
         float dot = 0.f;
         for (int d = 0; d < hs; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
+        if constexpr (kQ8)
+          s = dot * (ks_s[j] * scale);  // dequantize k, then softmax scale
+        else
+          s = dot * scale;
       }
       p_s[e] = s;
     }
@@ -216,7 +280,10 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       for (int j = lane; j < kTile; j += 32) {
         const float p = expf(pr[j] - m_new);
         sum += p;
-        pr[j] = round_to<T>(p);
+        if constexpr (kQ8)
+          pr[j] = round_to<T>(p * vs_s[j]);  // dequantize v into p
+        else
+          pr[j] = round_to<T>(p);
       }
       sum = warp_sum(sum);
       if (lane == 0) {

@@ -26,10 +26,32 @@ of jitted programs:
 * **One step advances every live slot**: a (n_slots, 1) forward with
   per-slot positions — one `paged_decode_attn` launch per layer — then
   sampling on the device, one host sync for the sampled tokens.
+* **Chunked prefill fused into the step** (`prefill_chunk=N`, the
+  reference's Sarathi-style path): admission is bookkeeping only; the
+  prompt is split into <=N-token chunks and ONE chunk of the oldest
+  partial prompt rides each step, before the decode forward of every live
+  slot — one `paged_prefill_attn` launch per layer for the chunk, one
+  `paged_decode_attn` per layer for the decode. Decode tokens have
+  priority: a chunk takes the budget left after the live decode count,
+  in whole blocks, at least one block. The chunk buffer is padded to N
+  and written at a block-aligned offset; `table_width` adds N / bs slack
+  columns so the padded tail of a prompt's last chunk writes only zero
+  (null-block) entries. While a slot prefills it is PARKED: not live, its
+  decode write position in the never-allocated last table column, so the
+  step's decode write for it lands in the null block. Full blocks are
+  published to the radix index as each chunk fills them; a mid-prefill
+  preemption retires the partial with those blocks cached, so its resume
+  is a prefix hit. `prefill_chunk=0` keeps the bucketed wave prefill.
+* **int8 serving** (ops/quant.py): `cache_dtype='int8'` keeps int8 codes
+  with fp32 scale pools (the `_q8` kernels read them);
+  `quantize_weights=True` quantizes the weights once per engine and runs
+  the DECODE forwards under the store — wave prefill and chunk forwards
+  keep the model's own weights, as in the reference. MLA's latent cache
+  declines int8 and keeps the model's dtype (`quant.quant_kv_usable`).
 
-Not ported yet (later slices): chunked prefill, speculative decoding, int8
-KV and weights, the host-RAM KV tier, the AOT program store, meshes.
-`trace_guards` is an empty dict and `aot_store` None — eager PyTorch
+Not ported yet (later slices): speculative decoding, the host-RAM KV tier,
+the AOT program store, meshes. `trace_guards` and `admit_traces` are
+empty dicts, `fused_step_traces` 0 and `aot_store` None — eager PyTorch
 compiles no programs — so the scheduler's trace and store gauges read 0.
 """
 
@@ -45,6 +67,7 @@ import torch
 from distributed_pytorch_tpu_torch.models.generate import sample_token
 from distributed_pytorch_tpu_torch.models.gpt import init_paged_cache
 from distributed_pytorch_tpu_torch.obs.flight import FlightRecorder
+from distributed_pytorch_tpu_torch.ops import quant
 from distributed_pytorch_tpu_torch.ops.block_pool import (BlockPool,
                                                           NoFreeBlocks,
                                                           chain_keys)
@@ -98,10 +121,10 @@ class StepResult:
     """One step's host-visible output: `emitted` maps every sequence that
     advanced to the LIST of tokens it emitted (one per plain step);
     `retired` holds the sequences that finished, including any preempted
-    BEFORE the step ran (those emit no token). `prefill_tokens`,
-    `drafted` and `accepted` keep the reference's surface for the
-    scheduler and stay 0 until chunked prefill and speculative decoding
-    are ported."""
+    BEFORE the step ran (those emit no token). `prefill_tokens` counts
+    the chunk's prompt tokens on a chunked step; `drafted` and `accepted`
+    keep the reference's surface for the scheduler and stay 0 until
+    speculative decoding is ported."""
 
     emitted: dict
     retired: dict
@@ -120,8 +143,15 @@ class _Slot:
     n_new: int            # generated tokens recorded so far
     max_new: int
     pos: int              # device pos mirror: next cache write position
+                          # (for a partial slot: prefill rows written)
     blocks: list          # owned physical block ids, logical order
     order: int            # admission counter (preemption picks the max)
+    # chunked prefill (prefill_chunk > 0): the suffix left to compute
+    # after the prefix-cache hit and how much of it is in the cache;
+    # suffix_done < len(suffix) marks the slot PARTIAL (parked)
+    suffix: Optional[list] = None
+    suffix_done: int = 0
+    prefix_len: int = 0
 
 
 class DecodeEngine:
@@ -133,12 +163,16 @@ class DecodeEngine:
     >>> outs = eng.run(prompts, max_new_tokens=64)   # list of token lists
 
     The engine runs on `model`'s device, with a KV cache in the model's
-    dtype. Paging knobs: `block_size` (KV rows per block, pow2; default
-    16 capped at `min_bucket` so the pow2 buckets stay block-aligned),
-    `n_blocks` (pool size; default the slot cache's n_slots x max_len
-    footprint plus the null block), `prefix_cache=False` disables
-    content-addressed reuse. `seed` seeds the sampling generator (on the
-    model's device).
+    dtype, or int8 (`cache_dtype='int8'`; any other `cache_dtype` must be
+    the model's own). `quantize_weights=True` runs the decode forwards on
+    int8 weights. Paging knobs: `block_size` (KV rows per block, pow2;
+    default 16 capped at `min_bucket` so the pow2 buckets stay
+    block-aligned), `n_blocks` (pool size; default the slot cache's
+    n_slots x max_len footprint plus the null block), `prefix_cache=False`
+    disables content-addressed reuse. `prefill_chunk=N` (a multiple of
+    `block_size`; pick N >= n_slots + block_size) fuses chunked prefill
+    into the step; 0 keeps the wave prefill. `seed` seeds the sampling
+    generator (on the model's device).
 
     The stable accounting surface a scheduler reads: `n_free`/`occupancy`
     /`retire_counts` plus `block_utilization`/`block_fragmentation`/
@@ -146,11 +180,13 @@ class DecodeEngine:
     """
 
     def __init__(self, model, *, n_slots: int = 8,
-                 max_len: Optional[int] = None,
+                 max_len: Optional[int] = None, cache_dtype=None,
+                 quantize_weights: bool = False,
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  eos_id: Optional[int] = None, seed: int = 0,
                  min_bucket: int = 16, block_size: Optional[int] = None,
-                 n_blocks: Optional[int] = None, prefix_cache: bool = True):
+                 n_blocks: Optional[int] = None, prefix_cache: bool = True,
+                 prefill_chunk: int = 0):
         cfg = model.config
         self.model = model
         self.cfg = cfg
@@ -158,7 +194,20 @@ class DecodeEngine:
         self.n_slots = n_slots
         self.max_len = max_len or cfg.block_size
         assert self.max_len <= cfg.block_size
-        self.cache_dtype = model.dtype
+        # int8 serving (ops/quant.py), as the caller asks
+        if cache_dtype is not None and not isinstance(cache_dtype, str):
+            cache_dtype = str(cache_dtype).removeprefix("torch.")
+        if cache_dtype == "int8" and quant.quant_kv_usable(cfg):
+            self.cache_dtype = torch.int8
+        else:
+            self.cache_dtype = model.dtype
+            if cache_dtype and cache_dtype != "int8" and \
+                    getattr(torch, cache_dtype) != model.dtype:
+                raise ValueError(
+                    f"cache_dtype {cache_dtype!r} differs from the model's "
+                    f"{model.dtype}: build the model in that dtype")
+        self.kv_quantized = self.cache_dtype == torch.int8
+        self.weights_quantized = bool(quantize_weights)
         self.temperature = temperature
         self.top_k = top_k
         self.eos_id = eos_id
@@ -185,6 +234,29 @@ class DecodeEngine:
         self.block_pool = BlockPool(n_blocks, bs)
         self.prefix_cache = prefix_cache
 
+        # chunked prefill: chunks are whole blocks, so every chunk writes
+        # at a block-aligned offset (paged_update's prefill contract)
+        if prefill_chunk:
+            assert prefill_chunk % bs == 0 and prefill_chunk >= bs, (
+                f"prefill_chunk {prefill_chunk} must be a positive "
+                f"multiple of block_size {bs}")
+            prefill_chunk = min(prefill_chunk, self.max_len)
+        self.prefill_chunk = prefill_chunk
+        # slack columns absorb the padded chunk buffer's overhang: the
+        # last chunk of a prompt ending near max_len writes its whole
+        # buffer, and the rows past the prompt must land in table entries
+        # that exist AND are zero (null-block writes) — without the slack
+        # paged_update's window would clamp back onto earlier blocks
+        self.table_width = self.max_blocks + prefill_chunk // bs
+        # partial slots park their decode write in the last table column,
+        # which is never allocated, so it lands in the null block
+        self._park_pos = (self.table_width - 1) * bs
+
+        # weight-only int8: quantized once per engine; the decode forwards
+        # run under it
+        self._qparams = (quant.quantize_params(dict(model.named_parameters()))
+                         if self.weights_quantized else None)
+
         self.caches = init_paged_cache(cfg, n_blocks, bs,
                                        dtype=self.cache_dtype,
                                        device=self.device)
@@ -193,7 +265,7 @@ class DecodeEngine:
         self.live = torch.zeros(n_slots, dtype=torch.bool, device=self.device)
         # host-mirrored block tables: rows of physical block ids per slot;
         # zeroed rows route dead-slot writes to the null block
-        self._tables_h = np.zeros((n_slots, self.max_blocks), np.int32)
+        self._tables_h = np.zeros((n_slots, self.table_width), np.int32)
         self._tables_dirty = True
         self.block_tables = None
         self._sync_tables()
@@ -203,6 +275,8 @@ class DecodeEngine:
         self._t = 0                            # global step counter
         # eager PyTorch compiles no programs: no retrace guards, no store
         self.trace_guards: dict = {}
+        self.admit_traces: dict = {}
+        self.fused_step_traces = 0
         self.aot_store = None
         # lifetime counters — the stable occupancy/accounting surface a
         # scheduler reads instead of poking _slots
@@ -251,15 +325,33 @@ class DecodeEngine:
 
     @torch.no_grad()
     def _decode_step(self) -> None:
-        """Advance every live slot by one token. Dead slots freeze their
-        token and position; their zeroed table rows send the write to the
-        null block."""
-        logits = self.model(self.tok[:, None], caches=self.caches,
-                            pos=self.pos,
-                            block_tables=self.block_tables)
+        """Advance every live slot by one token, on the int8 weights when
+        the engine quantized them. Dead slots freeze their token and
+        position; their zeroed table rows send the write to the null
+        block, and parked slots' positions point at it."""
+        with quant.use_quantized_params(self._qparams):
+            logits = self.model(self.tok[:, None], caches=self.caches,
+                                pos=self.pos,
+                                block_tables=self.block_tables)
         nxt = self._sample(logits[:, -1, :])
         self.tok = torch.where(self.live, nxt, self.tok)
         self.pos = self.pos + self.live.long()
+
+    @torch.no_grad()
+    def _chunk_forward(self, slot: int, chunk: list, off: int) -> None:
+        """Prefill `chunk` (at most `prefill_chunk` tokens, padded to it)
+        of the slot's prompt at the block-aligned offset `off`, on the
+        model's own weights. Rows past the chunk are pads: they land in the
+        slot's partial last block (overwritten before they are read) or in
+        zero table entries (the null block). Samples the chunk's last row
+        into `tok[slot]` — the first token when this is the prompt's last
+        chunk; the decode step then leaves it alone (the slot is not live)."""
+        buf = torch.tensor([chunk + [0] * (self.prefill_chunk - len(chunk))],
+                           dtype=torch.long, device=self.device)
+        logits = self.model(buf, caches=self.caches, pos=off,
+                            logits_idx=[len(chunk) - 1],
+                            block_tables=self.block_tables[slot:slot + 1])
+        self.tok[slot] = self._sample(logits[:, -1, :])[0]
 
     # ------------------------------------------------------------------
     # host API
@@ -269,9 +361,20 @@ class DecodeEngine:
     def free_slots(self) -> list[int]:
         return [s for s in range(self.n_slots) if s not in self._slots]
 
+    @staticmethod
+    def _is_partial(seq: _Slot) -> bool:
+        """A chunked admission whose prompt is not all in the cache yet —
+        parked out of the decode batch until its last chunk runs."""
+        return seq.suffix is not None and seq.suffix_done < len(seq.suffix)
+
+    def _live_slots(self) -> list[int]:
+        """Slots decoding this step (occupied and not mid-prefill)."""
+        return [s for s, seq in self._slots.items()
+                if not self._is_partial(seq)]
+
     def _rebuild_live(self) -> None:
         mask = np.zeros((self.n_slots,), bool)
-        mask[list(self._slots)] = True
+        mask[self._live_slots()] = True
         self.live = torch.from_numpy(mask).to(self.device)
 
     @property
@@ -390,7 +493,13 @@ class DecodeEngine:
         AssertionError when no slot is free (check `free_slots`) and
         `NoFreeBlocks` when the pool cannot cover the suffix even after
         evicting every unreferenced cached block — the caller keeps the
-        request queued and admits again after a retirement."""
+        request queued and admits again after a retirement.
+
+        With `prefill_chunk` set, admission is bookkeeping only: the slot
+        is parked, the first chunk's blocks are reserved (NoFreeBlocks
+        keeps its meaning), and the prompt is chunked into the following
+        steps — `first_token` is None and arrives in `StepResult.emitted`
+        when the last chunk runs."""
         free = self.free_slots
         assert free, "no free slot — step()/retire before admitting"
         assert max_new_tokens >= 1
@@ -401,6 +510,9 @@ class DecodeEngine:
         L = len(toks)
         bs = self.block_size
         prefix_len, matched = self._match_prefix(toks)
+        if self.prefill_chunk:
+            return self._admit_chunked(slot, toks, prefix_len, matched,
+                                       max_new_tokens, seq_id)
         suffix = toks[prefix_len:]
         bucket = min(self.prefill_bucket(len(suffix)),
                      self.max_len - prefix_len)
@@ -445,6 +557,80 @@ class DecodeEngine:
                          retired=retired, prefix_len=prefix_len,
                          prefilled=len(suffix))
 
+    def _admit_chunked(self, slot: int, toks: list, prefix_len: int,
+                       matched: list, max_new_tokens: int,
+                       seq_id: Optional[int]) -> Admission:
+        """Chunked-mode admission: no device forward. The slot is parked
+        (not live, its write position in the never-allocated last table
+        column) and only the first chunk's blocks are reserved; the rest
+        are allocated chunk by chunk, so a long prompt never holds blocks
+        for rows it has not written."""
+        bs = self.block_size
+        suffix = toks[prefix_len:]
+        first_rows = prefix_len + min(self.prefill_chunk, len(suffix))
+        new_ids = self.block_pool.alloc_many(
+            max(-(-first_rows // bs) - len(matched), 0))
+        if new_ids is None:
+            self.block_pool.release_all(matched)
+            raise NoFreeBlocks(
+                f"pool exhausted: {self.block_pool.n_referenced} of "
+                f"{self.block_pool.capacity} blocks referenced by "
+                f"{self.n_live} live sequences; admit after a retirement")
+        blocks = matched + new_ids
+        self._tables_h[slot, :] = 0
+        self._tables_h[slot, :len(blocks)] = blocks
+        self._tables_dirty = True
+        self.pos[slot] = self._park_pos
+        if seq_id is None:
+            seq_id = self._next_id
+        self._next_id = max(self._next_id, seq_id) + 1
+        self._slots[slot] = _Slot(
+            seq_id=seq_id, tokens=list(toks), prompt_len=len(toks), n_new=0,
+            max_new=max_new_tokens, pos=prefix_len, blocks=blocks,
+            order=self.n_admitted, suffix=suffix, prefix_len=prefix_len)
+        self.n_admitted += 1
+        self.prompt_tokens += len(toks)
+        self.prefix_hit_tokens += prefix_len
+        return Admission(seq_id=seq_id, first_token=None,
+                         prefix_len=prefix_len, prefilled=len(suffix))
+
+    def _next_chunk(self, preempted: dict) -> Optional[tuple[int, int]]:
+        """This step's prefill work: the OLDEST partial prompt gets the
+        token budget the live decode slots leave, in whole blocks, at
+        least one block (a full slot table cannot starve prefill). Grows
+        that slot's blocks to cover the chunk, preempting youngest-first
+        when the pool is dry (the partial itself is often the youngest —
+        then the next-oldest partial gets its turn). Returns (slot, take)
+        or None; preemption victims land in `preempted`."""
+        bs = self.block_size
+        while True:
+            partials = [(seq.order, slot) for slot, seq in
+                        self._slots.items() if self._is_partial(seq)]
+            if not partials:
+                return None
+            slot = min(partials)[1]
+            seq = self._slots[slot]
+            avail = self.prefill_chunk - len(self._live_slots())
+            avail -= avail % bs
+            avail = min(max(avail, bs), self.prefill_chunk)
+            take = min(avail, len(seq.suffix) - seq.suffix_done)
+            need = -(-(seq.prefix_len + seq.suffix_done + take) // bs)
+            while slot in self._slots and len(seq.blocks) < need:
+                blk = self.block_pool.alloc()
+                if blk is None:
+                    # the id first: _retire drops the slot
+                    victim = self._pick_victim()
+                    vseq = self._slots[victim]
+                    preempted[vseq.seq_id] = self._retire(victim,
+                                                          "preempted")
+                    self._rebuild_live()
+                    continue
+                self._tables_h[slot, len(seq.blocks)] = blk
+                seq.blocks.append(blk)
+                self._tables_dirty = True
+            if slot in self._slots:
+                return slot, take
+
     def _pick_victim(self) -> int:
         """Slot of the youngest-admitted live sequence — the last one in
         has the least sunk decode work and the best chance of a prefix
@@ -459,6 +645,9 @@ class DecodeEngine:
         preempted: dict[int, Retired] = {}
         for slot in sorted(self._slots):
             seq = self._slots.get(slot)
+            # partial slots write no decode row; they grow per chunk
+            if seq is not None and self._is_partial(seq):
+                continue
             while seq is not None and \
                     seq.pos >= len(seq.blocks) * self.block_size:
                 blk = self.block_pool.alloc()
@@ -477,32 +666,64 @@ class DecodeEngine:
         return preempted
 
     def step(self) -> StepResult:
-        """Advance every live slot one token. Returns a `StepResult`:
-        {seq_id: [token]} emitted this step, plus {seq_id: Retired} for
-        the sequences that finished (eos | budget | cache_full |
-        preempted; preempted ones yielded their blocks BEFORE the step and
-        emit no token — requeue them)."""
+        """Advance every live slot one token, running one prefill chunk of
+        the oldest partial prompt first when `prefill_chunk` is set.
+        Returns a `StepResult`: {seq_id: [token]} emitted this step
+        (including the first token of a prompt whose LAST chunk ran), plus
+        {seq_id: Retired} for the sequences that finished (eos | budget |
+        cache_full | preempted; preempted ones yielded their blocks BEFORE
+        the step and emit no token — requeue them)."""
         if not self._slots:
             return StepResult({}, {})
         t_step0 = time.perf_counter()
         preempted = self._ensure_blocks()
-        if not self._slots:
+        chunk = self._next_chunk(preempted) if self.prefill_chunk else None
+        if not self._slots or (chunk is None and not self._live_slots()):
             return StepResult({}, preempted)
-        n_live_in = len(self._slots)
+        n_live_in = len(self._live_slots())    # decoding slots this step
         self._sync_tables()
+        chunk_done = False
+        if chunk is not None:
+            slot_c, take = chunk
+            seq_c = self._slots[slot_c]
+            off = seq_c.prefix_len + seq_c.suffix_done
+            chunk_done = seq_c.suffix_done + take == len(seq_c.suffix)
+            self._chunk_forward(
+                slot_c, seq_c.suffix[seq_c.suffix_done:seq_c.suffix_done
+                                     + take], off)
         self._decode_step()
+        if chunk_done:
+            # the prompt is in: the slot goes live with its first token,
+            # where a wave admit would have left it
+            self.pos[slot_c] = off + take
+            self.live[slot_c] = True
         self._t += 1
         # THE step sync boundary: every slot's sampled token drains to the
         # host once per step
         sampled = self.tok.tolist()
         emitted: dict[int, list] = {}
         retired: dict[int, Retired] = dict(preempted)
+        prefill_tokens = 0
+        if chunk is not None:
+            # host mirror of the chunk: progress the partial and publish
+            # the blocks that just became full (first-writer-wins, so
+            # re-publishing earlier ones is a no-op)
+            prefill_tokens = take
+            seq_c.suffix_done += take
+            seq_c.pos = seq_c.prefix_len + seq_c.suffix_done
+            self.prefilled_tokens += take
+            full = min(seq_c.pos, len(seq_c.blocks) * self.block_size) \
+                // self.block_size
+            self._register_blocks(seq_c.tokens, full, seq_c.blocks)
         for slot in list(self._slots):
             seq = self._slots[slot]
+            if self._is_partial(seq):
+                continue                       # still parked: no token
             nxt = int(sampled[slot])
             seq.tokens.append(nxt)
             seq.n_new += 1
-            seq.pos += 1
+            if not (chunk_done and slot == slot_c):
+                seq.pos += 1                   # the first token is unwritten
             emitted[seq.seq_id] = [nxt]
             reason = self._retire_reason(slot, nxt)
             if reason is not None:
@@ -515,11 +736,12 @@ class DecodeEngine:
         self.flight.record(
             step=self._t,
             step_ms=round((time.perf_counter() - t_step0) * 1e3, 3),
-            n_live=n_live_in, prefill_tokens=0, emitted=n_emitted,
-            retired=len(retired) - len(preempted),
+            n_live=n_live_in, prefill_tokens=prefill_tokens,
+            emitted=n_emitted, retired=len(retired) - len(preempted),
             blocks_in_use=self.block_pool.n_referenced,
             preemptions=len(preempted), drafted=0, accepted=0)
-        return StepResult(emitted=emitted, retired=retired)
+        return StepResult(emitted=emitted, retired=retired,
+                          prefill_tokens=prefill_tokens)
 
     def run(self, prompts, max_new_tokens,
             progress=None) -> list[list]:

@@ -19,7 +19,14 @@ kernels and residual dropout after `c_proj`, both keyed on `dropout_seed`
 Caches are dicts {'k', 'v'} of tensors updated IN PLACE (the reference
 returns new buffers; the port saves the copy). A contiguous cache is
 (B, S, nkv, hs); a paged one is an (n_blocks, bs, nkv, hs) pool addressed
-through `block_tables` (ops/block_pool.py).
+through `block_tables` (ops/block_pool.py). An int8 cache adds fp32
+'k_scale'/'v_scale' of the same leading shape with a last dim of 1: each
+write quantizes its rows (ops/quant.py `quantize_kv`) and lands codes and
+scales through the same row writes.
+
+Under an active quantized-weight store (the engine's decode forwards,
+ops/quant.py) `c_attn` and `c_proj` read int8 codes; the store knows them
+by the name `LLM` gives each module (`qname`).
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from distributed_pytorch_tpu_torch.ops.attention_core import sdpa
 from distributed_pytorch_tpu_torch.ops.block_pool import paged_update
 from distributed_pytorch_tpu_torch.ops.dropout import (dropout, seed_pair,
                                                       subseed)
+from distributed_pytorch_tpu_torch.ops.quant import (maybe_quantized_matmul,
+                                                    quantize_kv)
 from distributed_pytorch_tpu_torch.ops.rope import apply_rotary_emb, slice_rows
 
 Cache = dict
@@ -91,15 +100,24 @@ class GQA(nn.Module):
             k = apply_rotary_emb(k, f)
 
         q_offset = 0
+        scales = {}
         if cache is not None:
-            if block_tables is not None:
-                paged_update(cache["k"], k, pos, block_tables)
-                paged_update(cache["v"], v, pos, block_tables)
-                k, v = cache["k"], cache["v"]
-            else:
-                _update_cache(cache["k"], k, pos)
-                _update_cache(cache["v"], v, pos)
-                k, v = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+            new = {"k": k, "v": v}
+            if "k_scale" in cache:
+                # int8 cache: quantize on the write
+                (new["k"], new["k_scale"]), (new["v"], new["v_scale"]) = \
+                    quantize_kv(k), quantize_kv(v)
+            for name, rows in new.items():
+                if block_tables is not None:
+                    paged_update(cache[name], rows, pos, block_tables)
+                else:
+                    _update_cache(cache[name], rows, pos)
+            k, v = cache["k"], cache["v"]
+            if "k_scale" in cache:
+                scales = {"k_scale": cache["k_scale"],
+                          "v_scale": cache["v_scale"]}
+            elif block_tables is None:
+                k, v = k.to(q.dtype), v.to(q.dtype)
             q_offset = pos
 
         drop = self.training and cfg.dropout > 0.0
@@ -107,7 +125,7 @@ class GQA(nn.Module):
                  block_tables=block_tables, impl=self.attn_impl,
                  dropout_rate=cfg.dropout if drop else 0.0,
                  dropout_seed=seed_pair(subseed(dropout_seed, 0), x.device)
-                 if drop else None)
+                 if drop else None, **scales)
         y = _linear(y.reshape(B, T, C), self.c_proj)
         if drop:
             y = dropout(y, cfg.dropout, subseed(dropout_seed, 1))
@@ -115,7 +133,13 @@ class GQA(nn.Module):
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    """`lin(x)` with the weight and bias cast to x's dtype at use."""
+    """`lin(x)` with the weight and bias cast to x's dtype at use; from
+    the active quantized store's codes when it holds this weight."""
+    name = getattr(lin, "qname", None)
+    y = maybe_quantized_matmul(x, name and name + ".weight",
+                               transpose_b=True)
+    if y is not None:
+        return y + lin.bias.to(x.dtype)
     return torch.nn.functional.linear(x, lin.weight.to(x.dtype),
                                       lin.bias.to(x.dtype))
 
@@ -127,20 +151,32 @@ def _check_family(config: LLMConfig) -> None:
             "MLA comes with a later slice")
 
 
+def _kv_buffers(config: LLMConfig, rows: tuple, dtype, device) -> Cache:
+    """k/v buffers of shape rows + (nkv, hs); for `torch.int8`, int8 code
+    buffers and fp32 'k_scale'/'v_scale' of shape rows + (nkv, 1)."""
+    _check_family(config)
+    shape = rows + (config.n_kv_heads, config.head_size)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        sc = rows + (config.n_kv_heads, 1)
+        cache["k_scale"] = torch.zeros(sc, dtype=torch.float32,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(sc, dtype=torch.float32,
+                                       device=device)
+    return cache
+
+
 def init_attn_cache(config: LLMConfig, batch_size: int, max_len: int,
                     dtype=torch.float32, device=None) -> Cache:
-    """Per-layer contiguous (B, S, nkv, hs) KV buffers."""
-    _check_family(config)
-    shape = (batch_size, max_len, config.n_kv_heads, config.head_size)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """Per-layer contiguous (B, S, nkv, hs) KV buffers (int8 with scale
+    sidecars for `dtype=torch.int8`)."""
+    return _kv_buffers(config, (batch_size, max_len), dtype, device)
 
 
 def init_paged_attn_cache(config: LLMConfig, n_blocks: int, block_size: int,
                           dtype=torch.float32, device=None) -> Cache:
-    """Per-layer paged KV POOL buffers (n_blocks, block_size, nkv, hs).
-    Block 0 is the null block (ops/block_pool.py)."""
-    _check_family(config)
-    shape = (n_blocks, block_size, config.n_kv_heads, config.head_size)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """Per-layer paged KV POOL buffers (n_blocks, block_size, nkv, hs)
+    (int8 with scale sidecars for `dtype=torch.int8`). Block 0 is the null
+    block (ops/block_pool.py)."""
+    return _kv_buffers(config, (n_blocks, block_size), dtype, device)

@@ -9,7 +9,9 @@ window fills, as in the reference. This one-shot path is the greedy
 oracle the engine is held against. Its prompt pass (static offset 0 over
 the contiguous cache) runs the `flash_attn_fwd` kernel; it decodes
 through `flash_decode` (the contiguous-cache route of the
-`paged_decode_attn` kernel).
+`paged_decode_attn` kernel). `cache_dtype=torch.int8` keeps an int8
+cache: the prompt pass reads it dequantized, each decode step goes
+through `paged_decode_attn_q8` (the reference's `_kernel_q8` face).
 
 Sampling draws from an explicit `torch.Generator`; temperature 0 is greedy
 argmax (first index on ties, as jnp.argmax).
@@ -43,9 +45,12 @@ def sample_token(logits: torch.Tensor, generator=None, *,
 @torch.no_grad()
 def generate(model, prompt, max_new_tokens: int, *, generator=None,
              temperature: float = 1.0, top_k: Optional[int] = None,
-             max_len: Optional[int] = None) -> torch.Tensor:
+             max_len: Optional[int] = None,
+             cache_dtype=None) -> torch.Tensor:
     """Return (B, T0 + max_new_tokens) tokens: the (cropped) prompt and
-    what follows it. `prompt` is a 1-D or (B, T0) sequence of ids."""
+    what follows it. `prompt` is a 1-D or (B, T0) sequence of ids. The
+    cache is in the model's dtype unless `cache_dtype` names another
+    (`torch.int8`: the quantized cache)."""
     cfg = model.config
     device = model.device
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
@@ -60,7 +65,8 @@ def generate(model, prompt, max_new_tokens: int, *, generator=None,
         f"max_len {max_len} exceeds block_size {cfg.block_size}")
     B, T0 = prompt.shape
     assert T0 <= max_len, f"prompt length {T0} exceeds cache size {max_len}"
-    caches = init_cache(cfg, B, max_len, dtype=model.dtype, device=device)
+    caches = init_cache(cfg, B, max_len, dtype=cache_dtype or model.dtype,
+                        device=device)
     logits = model(prompt, caches=caches, pos=0)
     tok = sample_token(logits[:, -1], generator, temperature=temperature,
                        top_k=top_k)

@@ -30,7 +30,12 @@ Counterpart of the reference package's `models/gpt.py` (`LLM`, `Block`,
   ('attn') in the backward through `torch.utils.checkpoint`.
 * `logits_idx` (B,) picks each sequence's true last row of a right-padded
   (bucketed) prefill; `all_logits` returns every position.
-* Caches are updated in place.
+* Caches are updated in place; `dtype=torch.int8` caches hold int8 codes
+  with fp32 scale sidecars (models/attention.py).
+* Weight-only int8: every module carries its dotted name (`qname`), the
+  key of its weights in a quantized store (ops/quant.py); under an active
+  store the attention and MLP products and the tied LM head read int8
+  codes.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from distributed_pytorch_tpu_torch.ops import fused_ce
 from distributed_pytorch_tpu_torch.ops.dropout import dropout, subseed
 from distributed_pytorch_tpu_torch.ops.losses import (fused_cross_entropy,
                                                      unchunked_cross_entropy)
+from distributed_pytorch_tpu_torch.ops.quant import maybe_quantized_matmul
 from distributed_pytorch_tpu_torch.ops.rope import (precompute_rope_freqs,
                                                    slice_rows)
 
@@ -156,6 +162,9 @@ class LLM(nn.Module):
                   remat_attn=recomp and cfg.act_recomp_policy == "attn")
             for _ in range(cfg.n_layer))
         self.ln_f = LayerNorm(cfg.n_embd, device=device)
+        # the key of each module's weights in a quantized store
+        for name, mod in self.named_modules():
+            mod.qname = name
 
     @property
     def device(self) -> torch.device:
@@ -224,6 +233,11 @@ class LLM(nn.Module):
             li = torch.as_tensor(logits_idx, device=x.device).long()
             sel = torch.gather(x, 1, li.reshape(-1, 1, 1)
                                .expand(-1, 1, x.shape[-1]))
+        # the tied head from int8 codes under an active quantized store
+        logits = maybe_quantized_matmul(sel, "tkn_emb.weight",
+                                        transpose_b=True)
+        if logits is not None:
+            return logits
         return sel @ self.tkn_emb.weight.to(dt).t()
 
     def _loss(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -248,7 +262,8 @@ class LLM(nn.Module):
 
 def init_cache(config: LLMConfig, batch_size: int, max_len=None,
                dtype=torch.float32, device=None) -> list:
-    """Per-layer contiguous KV caches for one-shot decoding."""
+    """Per-layer contiguous KV caches for one-shot decoding (int8 codes
+    with scale sidecars for `dtype=torch.int8`)."""
     max_len = max_len or config.block_size
     return [init_attn_cache(config, batch_size, max_len, dtype, device)
             for _ in range(config.n_layer)]
@@ -257,7 +272,8 @@ def init_cache(config: LLMConfig, batch_size: int, max_len=None,
 def init_paged_cache(config: LLMConfig, n_blocks: int, block_size: int,
                      dtype=torch.float32, device=None) -> list:
     """Per-layer paged KV pools, shared by every sequence through
-    per-sequence block tables (engine/decode.py owns the tables)."""
+    per-sequence block tables (engine/decode.py owns the tables); int8
+    codes with scale sidecars for `dtype=torch.int8`."""
     return [init_paged_attn_cache(config, n_blocks, block_size, dtype,
                                   device)
             for _ in range(config.n_layer)]

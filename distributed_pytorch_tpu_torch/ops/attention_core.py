@@ -8,9 +8,14 @@ k, v (B, S, nkv, hs) ("BTNH"), or (n_blocks, bs, nkv, hs) pools with
 * Paged cache, one query token per sequence -> `paged_flash_decode`
   (CUDA kernel `paged_decode_attn` on the card).
 * Paged cache, a multi-token chunk of ONE sequence at `q_offset` (the
-  bucketed wave prefill) -> `paged_flash_prefill` (`paged_prefill_attn`).
+  bucketed wave prefill, a prefill chunk) -> `paged_flash_prefill`
+  (`paged_prefill_attn`).
 * Contiguous cache, one query token -> `flash_decode` (`paged_decode_attn`
   over the cache as a pool of B blocks of S rows).
+* An int8 cache (`k_scale`/`v_scale` given: k/v hold int8 codes) takes
+  the same three routes to the `_q8` kernels (`paged_decode_attn_q8`,
+  `paged_prefill_attn_q8`); on every other route it is dequantized up
+  front to the query's dtype, as the reference does.
 * Non-paged k/v, a static `q_offset == 0` and T > 1, `impl` 'auto' or
   'pallas' -> `flash_attention` (kernels `flash_attn_fwd`, and in the
   backward `flash_attn_bwd_dq` / `flash_attn_bwd_dkv`), with in-kernel
@@ -41,6 +46,7 @@ import torch
 from distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from distributed_pytorch_tpu_torch.ops import flash_decode as fd
 from distributed_pytorch_tpu_torch.ops.block_pool import paged_gather
+from distributed_pytorch_tpu_torch.ops.quant import dequantize_int8
 
 #: impls the reference offers that come with a later slice of the port
 LATER_IMPLS = {
@@ -85,15 +91,18 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          dropout_rate: float = 0.0,
          dropout_seed: Optional[torch.Tensor] = None, impl: str = "auto",
          decode: bool = False,
-         block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+         block_tables: Optional[torch.Tensor] = None,
+         k_scale: Optional[torch.Tensor] = None,
+         v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled dot-product attention over (B, T, N, H) tensors.
 
     `q_offset` is the global position of q[:, 0]: an int, a 0-d tensor or
     a per-sequence (B,) tensor. `decode=True` marks a KV-cached call.
     `block_tables` (B, max_blocks) int32 marks k/v as PAGED pools
-    (ops/block_pool.py). `dropout_rate` > 0 with a (2,) int32
-    `dropout_seed` drops attention weights (training); a rate > 0 without
-    a seed raises."""
+    (ops/block_pool.py). `k_scale`/`v_scale` (k's shape with a last dim of
+    1, fp32) mark k/v as int8 codes (ops/quant.py). `dropout_rate` > 0
+    with a (2,) int32 `dropout_seed` drops attention weights (training); a
+    rate > 0 without a seed raises."""
     if impl in LATER_IMPLS:
         raise NotImplementedError(f"attn_impl={impl!r}: {LATER_IMPLS[impl]}")
     if impl not in ("auto", "pallas", "naive"):
@@ -103,26 +112,40 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("dropout_rate > 0 needs a (2,) int32 dropout_seed")
     B, T, _, hs = q.shape
     scale = (1.0 / hs ** 0.5) if scale is None else scale
+    kv_scales = dict(k_scale=k_scale, v_scale=v_scale)
 
     if block_tables is not None:
         if decode and T == 1:
             cl = (torch.as_tensor(q_offset, device=q.device).long()
                   .reshape(-1) + 1).expand(B)
             return fd.paged_flash_decode(q[:, 0], k, v, block_tables, cl,
-                                         scale=scale)[:, None]
+                                         scale=scale, **kv_scales)[:, None]
         if decode and B == 1:
             return fd.paged_flash_prefill(q, k, v, block_tables,
-                                          int(q_offset), scale=scale)
-        k = paged_gather(k, block_tables).to(q.dtype)
-        v = paged_gather(v, block_tables).to(q.dtype)
+                                          int(q_offset), scale=scale,
+                                          **kv_scales)
+        k = paged_gather(k, block_tables)
+        v = paged_gather(v, block_tables)
+        if k_scale is not None:
+            k_scale = paged_gather(k_scale, block_tables)
+            v_scale = paged_gather(v_scale, block_tables)
+        else:
+            k, v = k.to(q.dtype), v.to(q.dtype)
     elif decode and T == 1:
         # live rows per sequence: the query's position + 1, capped at the
         # buffer length (a wrapped ring cache is fully live)
         cl = (torch.as_tensor(q_offset, device=q.device).long().reshape(-1)
               + 1).clamp(max=k.shape[1]).expand(B)
-        return fd.flash_decode(q[:, 0], k, v, cl, scale=scale)[:, None]
-    elif (impl != "naive" and T > 1 and isinstance(q_offset, int)
-          and q_offset == 0):
+        return fd.flash_decode(q[:, 0], k, v, cl, scale=scale,
+                               **kv_scales)[:, None]
+    if k_scale is not None:
+        # int8 cache off the kernel routes (a contiguous prefill, a paged
+        # multi-sequence chunk): dequantize up front
+        k = dequantize_int8(k, k_scale, q.dtype)
+        v = dequantize_int8(v, v_scale, q.dtype)
+
+    if (block_tables is None and impl != "naive" and T > 1
+            and isinstance(q_offset, int) and q_offset == 0):
         return fa.flash_attention(q, k, v, scale=scale, causal=causal,
                                   dropout_rate=dropout_rate,
                                   seed=dropout_seed)

@@ -4,8 +4,9 @@ Each `csrc/<source>.cu` is compiled by `nvcc` into its own shared library
 with a plain C interface, at first use, for `sm_90a` (Hopper), and loaded
 with `ctypes` — no PyTorch headers in the sources, so a build takes
 seconds, not the minutes `torch.utils.cpp_extension` needs. A source may
-export several kernels' entries (flash_attn_bwd.cu: dq and dkv;
-fused_ce_bwd.cu: dx and dW). Libraries
+export several kernels' entries (paged_decode_attn.cu and
+paged_prefill_attn.cu: the bf16/fp32 cache and the int8 one;
+flash_attn_bwd.cu: dq and dkv; fused_ce_bwd.cu: dx and dW). Libraries
 are keyed by a hash of their sources and flags, under
 `build/torch_kernels/` at the repo root (git-ignored); a stale key simply
 builds anew. `build()` compiles every missing library at once, one `nvcc`
@@ -47,6 +48,18 @@ KERNELS = {
         # dtype, q, k, v, table, out, n_tok, nh, nkv, hs, bs, n_max, off,
         # scale, stream
         (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)),
+    "paged_decode_attn_q8": (
+        "paged_decode_attn.cu",
+        # dtype, q, k, k_scale, v, v_scale, tables, cache_len, out, B, nh,
+        # nkv, hs, bs, n_max, scale, stream
+        (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+         _P)),
+    "paged_prefill_attn_q8": (
+        "paged_prefill_attn.cu",
+        # dtype, q, k, k_scale, v, v_scale, table, out, n_tok, nh, nkv, hs,
+        # bs, n_max, off, scale, stream
+        (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+         _P)),
     # dims (host int[7]) = B, T, S, nh, nkv, causal, dropout; strides (host
     # int64[8]) = q, k, v, dout (batch, time) element strides
     "flash_attn_fwd": (

@@ -1,8 +1,8 @@
 """Paged flash-decode and paged chunk-prefill attention: wrappers of the
 hand-written CUDA kernels (csrc/) and their plain PyTorch versions.
 
-Counterpart of the reference package's `ops/flash_decode.py`, whose three
-Pallas kernels on the serving path map to two CUDA kernels here:
+Counterpart of the reference package's `ops/flash_decode.py`, whose six
+Pallas bodies on the serving path map to four CUDA kernels here:
 
 * `paged_flash_decode` (reference `_paged_body`) and `flash_decode`
   (reference `_kernel`, contiguous cache) -> `paged_decode_attn`
@@ -12,21 +12,29 @@ Pallas kernels on the serving path map to two CUDA kernels here:
 * `paged_flash_prefill` (reference `_prefill_kernel`) ->
   `paged_prefill_attn` (csrc/paged_prefill_attn.cu). A T-row chunk of ONE
   sequence at a block-aligned offset, causal on global position off + t.
+* The int8-cache variants (reference `_paged_body_q8`, `_kernel_q8`,
+  `_prefill_kernel_q8`) -> `paged_decode_attn_q8` and
+  `paged_prefill_attn_q8`, in the same two sources. Given `k_scale` /
+  `v_scale` (the cache's fp32 (..., nkv, 1) scale rows, ops/quant.py),
+  k/v hold int8 codes: the score is the fp32 dot of q with the codes
+  times (k_scale * scale), the normalizer sums the fp32 p, and the PV
+  operand is (p * v_scale) rounded to the query dtype against the codes.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; for CPU tensors it runs the plain version, which
-repeats the kernel's arithmetic (fp32 scores, -1e30 masking, p rounded to
-the value dtype before the PV product, fp32 normalizer) in one pass. Both
-kinds of call are counted: `LAUNCHES[name]` where a kernel is launched,
-`PLAIN_CALLS[name]` where its plain version runs — so a run can show its
-main path went through the kernels.
+repeats the kernel's arithmetic (fp32 scores, -1e30 masking, the PV
+operand rounded to the activations' dtype, fp32 normalizer) in one pass.
+Both kinds of call are counted: `LAUNCHES[name]` where a kernel is
+launched, `PLAIN_CALLS[name]` where its plain version runs — so a run can
+show its main path went through the kernels.
 
 The `*_usable` gates say whether the kernels take a call's shapes and
-dtypes (fp32/bf16 activations, a same-dtype 16-byte aligned cache, head
-size a multiple of 8, whole kv-head groups, tiles within the card's 227
-KB of shared memory). A wrapper given CUDA tensors its gate declines
-raises: `ops/attention_core.py` routes by shape alone, so no cached call
-on the card falls quietly to a plain path.
+dtypes (fp32/bf16 activations over a same-dtype cache, or an int8 cache
+with fp32 scale rows; head size a multiple of 8, whole kv-head groups,
+16-byte aligned pools, tiles within the card's 227 KB of shared memory).
+A wrapper given CUDA tensors its gate declines raises:
+`ops/attention_core.py` routes by shape alone, so no cached call on the
+card falls quietly to a plain path.
 """
 
 from __future__ import annotations
@@ -37,10 +45,12 @@ from distributed_pytorch_tpu_torch.ops.block_pool import paged_gather
 
 _NEG_INF = -1e30  # large-negative instead of -inf: masked rows stay NaN-free
 
+_KERNELS = ("paged_decode_attn", "paged_prefill_attn",
+            "paged_decode_attn_q8", "paged_prefill_attn_q8")
 #: kernel launches per kernel, counted by the wrappers
-LAUNCHES = {"paged_decode_attn": 0, "paged_prefill_attn": 0}
+LAUNCHES = dict.fromkeys(_KERNELS, 0)
 #: plain-version calls per kernel (CPU tensors)
-PLAIN_CALLS = {"paged_decode_attn": 0, "paged_prefill_attn": 0}
+PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024         # dynamic shared memory a block may use
@@ -54,63 +64,80 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-def _smem_bytes(n_rows: int, hs: int) -> int:
-    """csrc/paged_attn_common.cuh `smem_bytes`."""
+def _smem_bytes(n_rows: int, hs: int, q8: bool = False) -> int:
+    """csrc/paged_attn_common.cuh `smem_bytes`: fp32 q and accumulator
+    rows, a K tile (rows padded by one float), a V tile, the scores, three
+    row statistics, and for an int8 cache the tile's K and V scales."""
     return 4 * (2 * n_rows * hs + _TILE * (hs + 1) + _TILE * hs
-                + n_rows * _TILE + 3 * n_rows)
+                + n_rows * _TILE + 3 * n_rows + (2 * _TILE if q8 else 0))
 
 
-def _kernel_operands_ok(q, k, v) -> bool:
-    """fp32/bf16 activations over a same-dtype cache whose rows the
-    kernels can move as 16-byte vectors (head size a multiple of 8,
-    16-byte aligned pools)."""
-    return (q.dtype in _DTYPE_CODE and k.dtype == q.dtype
-            and v.dtype == q.dtype and k.dim() == 4 and k.shape == v.shape
-            and k.shape[-1] == q.shape[-1] and q.shape[-1] % 8 == 0
-            and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+def _kernel_operands_ok(q, k, v, k_scale=None, v_scale=None) -> bool:
+    """fp32/bf16 activations over a same-dtype cache, or over int8 codes
+    with fp32 (..., nkv, 1) scale rows; head size a multiple of 8 (the
+    kernels move rows as 16-byte vectors of fp32/bf16, 8-byte vectors of
+    int8) and 16-byte aligned pools."""
+    if q.dtype not in _DTYPE_CODE or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[-1] != q.shape[-1] or q.shape[-1] % 8 != 0 \
+            or k.data_ptr() % 16 != 0 or v.data_ptr() % 16 != 0:
+        return False
+    if k_scale is None and v_scale is None:
+        return k.dtype == q.dtype and v.dtype == q.dtype
+    sshape = k.shape[:-1] + (1,)
+    return (k_scale is not None and v_scale is not None
+            and k.dtype == torch.int8 and v.dtype == torch.int8
+            and k_scale.dtype == torch.float32
+            and v_scale.dtype == torch.float32
+            and k_scale.shape == sshape and v_scale.shape == sshape)
 
 
-def paged_flash_decode_usable(q, k, v) -> bool:
+def paged_flash_decode_usable(q, k, v, k_scale=None, v_scale=None) -> bool:
     """Decode-shaped (B, 1, nh, hs) query over (n_blocks, bs, nkv, hs)
-    pools, or a contiguous (B, S, nkv, hs) cache, the decode kernel
-    takes."""
-    if q.dim() != 4 or q.shape[1] != 1 or not _kernel_operands_ok(q, k, v):
+    pools, or a contiguous (B, S, nkv, hs) cache, the decode kernels
+    take (int8 codes with `k_scale`/`v_scale`)."""
+    if q.dim() != 4 or q.shape[1] != 1 \
+            or not _kernel_operands_ok(q, k, v, k_scale, v_scale):
         return False
     nh, hs = q.shape[2], q.shape[3]
     nkv = k.shape[2]
-    return nh % nkv == 0 and _smem_bytes(nh // nkv, hs) <= _SMEM_LIMIT
+    return nh % nkv == 0 and \
+        _smem_bytes(nh // nkv, hs, k_scale is not None) <= _SMEM_LIMIT
 
 
-def paged_flash_prefill_usable(q, k, v) -> bool:
-    """One sequence's (1, T>1, nh, hs) chunk the prefill kernel takes."""
+def paged_flash_prefill_usable(q, k, v, k_scale=None,
+                               v_scale=None) -> bool:
+    """One sequence's (1, T>1, nh, hs) chunk the prefill kernels take."""
     if q.dim() != 4 or q.shape[0] != 1 or q.shape[1] <= 1 \
-            or not _kernel_operands_ok(q, k, v):
+            or not _kernel_operands_ok(q, k, v, k_scale, v_scale):
         return False
     nh, hs = q.shape[2], q.shape[3]
     return nh % k.shape[2] == 0 and \
-        _smem_bytes(_PREFILL_ROWS, hs) <= _SMEM_LIMIT
+        _smem_bytes(_PREFILL_ROWS, hs, k_scale is not None) <= _SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _softmax_p(s, valid, v_dtype):
+def _softmax_p(s, valid, dtype, v_scale=None):
     """Masked one-pass softmax with the kernels' arithmetic: -1e30
-    masking, fp32 normalizer `l`, and p rounded to the value dtype as the
-    PV product sees it. `s` (..., S) fp32 scores; `valid` broadcasts
-    against it. Returns (p, l), p unnormalized."""
+    masking, fp32 normalizer `l` of the unrounded p, and the PV operand —
+    p, times the value rows' scales for an int8 cache — rounded to the
+    activations' dtype. `s` (..., S) fp32 scores; `valid` and `v_scale`
+    broadcast against it. Returns (PV operand, l), unnormalized."""
     s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    p = p.to(v_dtype).float()
-    return p, l
+    if v_scale is not None:
+        p = p * v_scale
+    return p.to(dtype).float(), l
 
 
-def _decode_plain(q, kl, vl, cache_len, scale):
+def _decode_plain(q, kl, vl, cache_len, scale, ksl=None, vsl=None):
     """q (B, nh, hs) against logical views kl/vl (B, S, nkv, hs) with live
-    rows [0, cache_len)."""
+    rows [0, cache_len); for an int8 cache, codes with scale views ksl/vsl
+    (B, S, nkv, 1)."""
     B, nh, hs = q.shape
     S, nkv = kl.shape[1], kl.shape[2]
     rep = nh // nkv
@@ -118,45 +145,78 @@ def _decode_plain(q, kl, vl, cache_len, scale):
         cache_len.reshape(B, 1).to(q.device)                  # (B, S)
     # rows past cache_len are never read by the kernel: zero them so
     # garbage there cannot turn 0 * x into NaN
-    vf = torch.where(live[:, :, None, None], vl.float(),
-                     torch.zeros((), device=q.device))
+    zero = torch.zeros((), device=q.device)
+    vf = torch.where(live[:, :, None, None], vl.float(), zero)
     qf = q.float().reshape(B, nkv, rep, hs)
-    s = torch.einsum("bgrh,bsgh->bgrs", qf, kl.float()) * scale
-    p, l = _softmax_p(s, live[:, None, None, :], vl.dtype)
+    s = torch.einsum("bgrh,bsgh->bgrs", qf, kl.float())
+    vs = None
+    if ksl is None:
+        s = s * scale
+    else:
+        # one scale per (key row, kv head): (B, S, nkv, 1) -> (B, nkv, 1, S)
+        s = s * (ksl[..., 0].permute(0, 2, 1)[:, :, None, :] * scale)
+        vs = torch.where(live[:, :, None], vsl[..., 0], zero) \
+            .permute(0, 2, 1)[:, :, None, :]
+    p, l = _softmax_p(s, live[:, None, None, :], q.dtype, vs)
     out = torch.einsum("bgrs,bsgh->bgrh", p, vf) / l.clamp_min(1e-30)
     return out.reshape(B, nh, hs).to(q.dtype)
 
 
-def paged_flash_decode_plain(q, k, v, block_tables, cache_len, *, scale):
-    """Plain version of `paged_decode_attn` over a paged pool."""
-    PLAIN_CALLS["paged_decode_attn"] += 1
+def _kname(base: str, k_scale) -> str:
+    """The kernel a call runs: `base`, or its int8 variant `base_q8`."""
+    return base if k_scale is None else base + "_q8"
+
+
+def paged_flash_decode_plain(q, k, v, block_tables, cache_len, *, scale,
+                             k_scale=None, v_scale=None):
+    """Plain version of `paged_decode_attn` (`_q8` with scales) over a
+    paged pool."""
+    PLAIN_CALLS[_kname("paged_decode_attn", k_scale)] += 1
+    ks = vs = None
+    if k_scale is not None:
+        ks = paged_gather(k_scale, block_tables)
+        vs = paged_gather(v_scale, block_tables)
     return _decode_plain(q, paged_gather(k, block_tables),
-                         paged_gather(v, block_tables), cache_len, scale)
+                         paged_gather(v, block_tables), cache_len, scale,
+                         ks, vs)
 
 
-def flash_decode_plain(q, k, v, cache_len, *, scale):
-    """Plain version of `paged_decode_attn` over a contiguous cache."""
-    PLAIN_CALLS["paged_decode_attn"] += 1
-    return _decode_plain(q, k, v, cache_len, scale)
+def flash_decode_plain(q, k, v, cache_len, *, scale, k_scale=None,
+                       v_scale=None):
+    """Plain version of `paged_decode_attn` (`_q8` with scales) over a
+    contiguous cache."""
+    PLAIN_CALLS[_kname("paged_decode_attn", k_scale)] += 1
+    return _decode_plain(q, k, v, cache_len, scale, k_scale, v_scale)
 
 
 def paged_flash_prefill_plain(q, k, v, block_tables, q_offset: int, *,
-                              scale):
-    """Plain version of `paged_prefill_attn`."""
-    PLAIN_CALLS["paged_prefill_attn"] += 1
+                              scale, k_scale=None, v_scale=None):
+    """Plain version of `paged_prefill_attn` (`_q8` with scales)."""
+    PLAIN_CALLS[_kname("paged_prefill_attn", k_scale)] += 1
     _, T, nh, hs = q.shape
-    kl = paged_gather(k, block_tables.reshape(1, -1))[0]      # (S, nkv, hs)
-    vl = paged_gather(v, block_tables.reshape(1, -1))[0]
+    table = block_tables.reshape(1, -1)
+    kl = paged_gather(k, table)[0]                            # (S, nkv, hs)
+    vl = paged_gather(v, table)[0]
     S, nkv = kl.shape[0], kl.shape[1]
     rep = nh // nkv
     qpos = q_offset + torch.arange(T, device=q.device)
     valid = torch.arange(S, device=q.device)[None, :] <= qpos[:, None]
     seen = torch.arange(S, device=q.device) < q_offset + T
-    vf = torch.where(seen[:, None, None], vl.float(),
-                     torch.zeros((), device=q.device))
+    zero = torch.zeros((), device=q.device)
+    vf = torch.where(seen[:, None, None], vl.float(), zero)
     qf = q[0].float().reshape(T, nkv, rep, hs)
-    s = torch.einsum("tgrh,sgh->gtrs", qf, kl.float()) * scale
-    p, l = _softmax_p(s, valid[None, :, None, :], vl.dtype)
+    s = torch.einsum("tgrh,sgh->gtrs", qf, kl.float())
+    vs = None
+    if k_scale is None:
+        s = s * scale
+    else:
+        # (S, nkv, 1) scale rows -> (nkv, 1, 1, S)
+        ksl = paged_gather(k_scale, table)[0, :, :, 0]
+        vsl = torch.where(seen[:, None],
+                          paged_gather(v_scale, table)[0, :, :, 0], zero)
+        s = s * (ksl.t()[:, None, None, :] * scale)
+        vs = vsl.t()[:, None, None, :]
+    p, l = _softmax_p(s, valid[None, :, None, :], q.dtype, vs)
     out = torch.einsum("gtrs,sgh->tgrh", p, vf) \
         / l.permute(1, 0, 2, 3).clamp_min(1e-30)
     return out.reshape(1, T, nh, hs).to(q.dtype)
@@ -177,18 +237,27 @@ def _check(q, *tensors) -> None:
             raise ValueError("kernel operands must be contiguous")
 
 
-def _launch_decode(q, k, v, tables, cache_len, scale) -> torch.Tensor:
-    """paged_decode_attn over pools k/v (n_blocks, bs, nkv, hs)."""
+def _describe(q, k, k_scale) -> str:
+    return (f"q {tuple(q.shape)} {q.dtype} with a {tuple(k.shape)} "
+            f"{k.dtype} cache" + ("" if k_scale is None else
+                                  f" and {tuple(k_scale.shape)} "
+                                  f"{k_scale.dtype} scales"))
+
+
+def _launch_decode(q, k, v, tables, cache_len, scale, k_scale,
+                   v_scale) -> torch.Tensor:
+    """paged_decode_attn (`_q8` with scales) over pools k/v (n_blocks, bs,
+    nkv, hs)."""
     from distributed_pytorch_tpu_torch.ops import cuda_build
-    if not paged_flash_decode_usable(q[:, None], k, v):
-        raise ValueError(
-            f"paged_decode_attn does not take q {tuple(q.shape)} "
-            f"{q.dtype} with a {tuple(k.shape)} {k.dtype} cache")
+    name = _kname("paged_decode_attn", k_scale)
+    if not paged_flash_decode_usable(q[:, None], k, v, k_scale, v_scale):
+        raise ValueError(f"{name} does not take {_describe(q, k, k_scale)}")
     q = q.contiguous()
     tables = tables.to(torch.int32).contiguous()
     cache_len = cache_len.to(device=q.device, dtype=torch.int32) \
         .reshape(-1).contiguous()
-    _check(q, k, v, tables, cache_len)
+    scales = () if k_scale is None else (k_scale, v_scale)
+    _check(q, k, v, tables, cache_len, *scales)
     B, nh, hs = q.shape
     if tables.dim() != 2 or tables.shape[0] != B or cache_len.numel() != B:
         raise ValueError(f"need a (B, max_blocks) table and (B,) lengths "
@@ -196,68 +265,81 @@ def _launch_decode(q, k, v, tables, cache_len, scale) -> torch.Tensor:
                          f"{tuple(cache_len.shape)}")
     bs, nkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lib = cuda_build.load("paged_decode_attn")
+    lib = cuda_build.load(name)
+    kv = (k.data_ptr(), v.data_ptr()) if k_scale is None else \
+        (k.data_ptr(), k_scale.data_ptr(), v.data_ptr(), v_scale.data_ptr())
     with torch.cuda.device(q.device):
-        err = lib.paged_decode_attn(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            tables.data_ptr(), cache_len.data_ptr(), out.data_ptr(), B, nh,
-            nkv, hs, bs, tables.shape[1], float(scale),
+        err = getattr(lib, name)(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), *kv, tables.data_ptr(),
+            cache_len.data_ptr(), out.data_ptr(), B, nh, nkv, hs, bs,
+            tables.shape[1], float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"paged_decode_attn launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["paged_decode_attn"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return out
 
 
-def paged_flash_decode(q, k, v, block_tables, cache_len, *, scale):
+def paged_flash_decode(q, k, v, block_tables, cache_len, *, scale,
+                       k_scale=None, v_scale=None):
     """Single-token attention over a PAGED cache: q (B, nh, hs) against
     (n_blocks, bs, nkv, hs) pools through `block_tables` (B, max_blocks)
-    int32, live rows [0, cache_len) per sequence. Returns (B, nh, hs)."""
+    int32, live rows [0, cache_len) per sequence. With `k_scale`/`v_scale`
+    (n_blocks, bs, nkv, 1) fp32 the pools hold int8 codes. Returns
+    (B, nh, hs)."""
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k, v, block_tables, cache_len,
-                                        scale=scale)
-    return _launch_decode(q, k, v, block_tables, cache_len, scale)
+                                        scale=scale, k_scale=k_scale,
+                                        v_scale=v_scale)
+    return _launch_decode(q, k, v, block_tables, cache_len, scale, k_scale,
+                          v_scale)
 
 
-def flash_decode(q, k, v, cache_len, *, scale):
+def flash_decode(q, k, v, cache_len, *, scale, k_scale=None, v_scale=None):
     """Single-token attention over a contiguous (B, S, nkv, hs) cache with
-    live rows [0, cache_len) per sequence. Returns (B, nh, hs)."""
+    live rows [0, cache_len) per sequence (int8 codes with (B, S, nkv, 1)
+    `k_scale`/`v_scale`). Returns (B, nh, hs)."""
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, cache_len, scale=scale)
+        return flash_decode_plain(q, k, v, cache_len, scale=scale,
+                                  k_scale=k_scale, v_scale=v_scale)
     table = torch.arange(q.shape[0], dtype=torch.int32,
                          device=q.device)[:, None]
-    return _launch_decode(q, k, v, table, cache_len, scale)
+    return _launch_decode(q, k, v, table, cache_len, scale, k_scale,
+                          v_scale)
 
 
-def paged_flash_prefill(q, k, v, block_tables, q_offset: int, *, scale):
+def paged_flash_prefill(q, k, v, block_tables, q_offset: int, *, scale,
+                        k_scale=None, v_scale=None):
     """Chunk attention over a PAGED cache: q (1, T, nh, hs), rows at
     global positions [q_offset, q_offset + T) already written to the pool,
     attending causally over the sequence's blocks (`block_tables`
-    (1, max_blocks) int32). Returns (1, T, nh, hs)."""
+    (1, max_blocks) int32). With `k_scale`/`v_scale` the pools hold int8
+    codes. Returns (1, T, nh, hs)."""
     if q.device.type == "cpu":
         return paged_flash_prefill_plain(q, k, v, block_tables, q_offset,
-                                         scale=scale)
+                                         scale=scale, k_scale=k_scale,
+                                         v_scale=v_scale)
     from distributed_pytorch_tpu_torch.ops import cuda_build
-    if not paged_flash_prefill_usable(q, k, v):
-        raise ValueError(
-            f"paged_prefill_attn does not take q {tuple(q.shape)} "
-            f"{q.dtype} with a {tuple(k.shape)} {k.dtype} cache")
+    name = _kname("paged_prefill_attn", k_scale)
+    if not paged_flash_prefill_usable(q, k, v, k_scale, v_scale):
+        raise ValueError(f"{name} does not take {_describe(q, k, k_scale)}")
     q = q.contiguous()
     table = block_tables.to(torch.int32).reshape(-1).contiguous()
-    _check(q, k, v, table)
+    scales = () if k_scale is None else (k_scale, v_scale)
+    _check(q, k, v, table, *scales)
     _, T, nh, hs = q.shape
     bs, nkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lib = cuda_build.load("paged_prefill_attn")
+    lib = cuda_build.load(name)
+    kv = (k.data_ptr(), v.data_ptr()) if k_scale is None else \
+        (k.data_ptr(), k_scale.data_ptr(), v.data_ptr(), v_scale.data_ptr())
     with torch.cuda.device(q.device):
-        err = lib.paged_prefill_attn(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            table.data_ptr(), out.data_ptr(), T, nh, nkv, hs, bs,
-            table.shape[0], int(q_offset), float(scale),
+        err = getattr(lib, name)(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), *kv, table.data_ptr(),
+            out.data_ptr(), T, nh, nkv, hs, bs, table.shape[0],
+            int(q_offset), float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"paged_prefill_attn launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["paged_prefill_attn"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return out

@@ -7,13 +7,14 @@ is installed; otherwise the prompt is comma-separated token ids and the
 output is printed as ids.
 
 The model is built in the serving dtype (the checkpoint's compute dtype,
-or `--cache-dtype`) from the checkpoint's configs, on the card unless
-`--cpu` is given. Decoding runs `models/generate.py:generate` (the flash
-forward for the prompt, the contiguous-cache decode kernel per step);
-`--cache-dtype bfloat16|float32` routes it through the `DecodeEngine`
-(paged kernels) instead. Refused, naming the slice that brings them:
-`--shard` (slice 6), `--cache-dtype int8`, `--quant-weights` and
-`--prefill-chunk` (slice 4).
+or `--cache-dtype bfloat16|float32`) from the checkpoint's configs, on the
+card unless `--cpu` is given. Decoding runs `models/generate.py:generate`
+(the flash forward for the prompt, the contiguous-cache decode kernel per
+step); `--cache-dtype`, `--quant-weights` and `--prefill-chunk N` route it
+through the `DecodeEngine` instead (paged kernels; an int8 cache through
+the `_q8` kernels; weight-only int8 decode; chunked prefill), one slot per
+sample, as in the reference. Refused, naming the slice that brings it:
+`--shard` (slice 6).
 """
 
 from __future__ import annotations
@@ -92,32 +93,26 @@ def build_args(argv=None):
                    help="sharded restore (slice 6; refused)")
     p.add_argument("--cache-dtype", "--cache_dtype", dest="cache_dtype",
                    default="", choices=["", "int8", "bfloat16", "float32"],
-                   help="KV-cache (and model) dtype; routes decoding "
-                        "through the DecodeEngine (int8: slice 4, refused)")
+                   help="KV-cache dtype (bfloat16/float32: the model's "
+                        "too; int8: int8 codes with fp32 row scales); "
+                        "routes decoding through the DecodeEngine")
     p.add_argument("--quant-weights", "--quant_weights",
                    dest="quant_weights", action="store_true",
-                   help="weight-only int8 decode (slice 4; refused)")
+                   help="weight-only int8 decode (through the "
+                        "DecodeEngine)")
     p.add_argument("--prefill-chunk", "--prefill_chunk",
                    dest="prefill_chunk", type=int, default=0,
-                   help="chunked prefill (slice 4; refused)")
+                   help="chunked prefill of N tokens a step (a multiple "
+                        "of the engine's KV block, 16; through the "
+                        "DecodeEngine)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> list[list[int]]:
     """Decode and print; returns each sample's tokens (prompt included)."""
     args = build_args(argv)
-    later = []
-    if args.cache_dtype == "int8":
-        later.append("--cache-dtype int8")
-    if args.quant_weights:
-        later.append("--quant-weights")
-    if args.prefill_chunk:
-        later.append("--prefill-chunk")
-    if later:
-        raise NotImplementedError(f"{', '.join(later)}: int8 serving and "
-                                  "chunked prefill come with slice 4")
-
-    dtype = getattr(torch, args.cache_dtype) if args.cache_dtype else None
+    dtype = getattr(torch, args.cache_dtype) \
+        if args.cache_dtype not in ("", "int8") else None
     model, model_cfg, _, _, _ = load_for_inference(
         args.ckpt, device="cpu" if args.cpu else None, dtype=dtype,
         shard=args.shard)
@@ -132,14 +127,19 @@ def main(argv=None) -> list[list[int]]:
     n_new = args.num_samples * args.max_new_tokens
 
     t0 = time.perf_counter()
-    if args.cache_dtype:
+    if args.cache_dtype or args.quant_weights or args.prefill_chunk:
         # one slot per sample, continuous batching degenerate to one wave
         from distributed_pytorch_tpu_torch.engine import DecodeEngine
         eng = DecodeEngine(model, n_slots=args.num_samples,
+                           cache_dtype=args.cache_dtype or None,
+                           quantize_weights=args.quant_weights,
                            temperature=args.temperature, top_k=args.top_k,
-                           seed=args.seed)
+                           seed=args.seed,
+                           prefill_chunk=args.prefill_chunk)
         outs = eng.run([ids] * args.num_samples, args.max_new_tokens)
-        route = f"engine, cache={args.cache_dtype}"
+        route = (f"engine, cache={str(eng.cache_dtype).removeprefix('torch.')}"
+                 f" quant_w={eng.weights_quantized} "
+                 f"prefill_chunk={eng.prefill_chunk or 'wave'}")
     else:
         from distributed_pytorch_tpu_torch.models.generate import generate
         gen = torch.Generator(device=model.device)

@@ -8,11 +8,12 @@ scheduler, and serves `POST /v1/completions` (SSE streaming), `/healthz`
 and `/metrics` until interrupted. The weights' identity (`step_N-<manifest
 digest prefix>` for a checkpoint) goes on `/metrics` and on every
 completion payload. Runs on the CUDA card unless `--cpu` is given; with
-no card and no `--cpu` it exits with an error.
+no card and no `--cpu` it exits with an error. `--cache-dtype int8`,
+`--quant-weights` and `--prefill-chunk N` pass the engine's int8 cache,
+weight-only int8 decode and chunked prefill through.
 
-Waiting for later slices: `--shard` (slice 6), `--aot-store`, int8 cache
-and weights, chunked prefill (slice 4), the host KV tier, and `POST
-/admin/profile`.
+Waiting for later slices: `--shard` (slice 6), `--aot-store`, the host KV
+tier `--kv-host-gb` (slice 7), and `POST /admin/profile`.
 """
 
 from __future__ import annotations
@@ -56,6 +57,20 @@ def build_args(argv=None):
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default=None,
                    help="compute and KV-cache dtype (default bfloat16 on "
                         "the card, float32 with --cpu)")
+    p.add_argument("--cache-dtype", "--cache_dtype", dest="cache_dtype",
+                   default="", choices=["", "int8", "bfloat16", "float32"],
+                   help="KV-cache dtype: int8 keeps int8 codes with fp32 "
+                        "row scales; bfloat16/float32 set --dtype")
+    p.add_argument("--quant-weights", "--quant_weights",
+                   dest="quant_weights", action="store_true",
+                   help="weight-only int8 decode (prefill keeps the "
+                        "model's weights)")
+    p.add_argument("--prefill-chunk", "--prefill_chunk",
+                   dest="prefill_chunk", type=int, default=0,
+                   help="fuse chunked prefill into the decode step: <=N "
+                        "prompt tokens ride each step (a multiple of "
+                        "--kv-block; pick N >= slots + kv-block). 0 = the "
+                        "wave prefill")
     p.add_argument("--kv-block", "--kv_block", dest="kv_block", type=int,
                    default=None,
                    help="paged-cache block size in KV rows (pow2; "
@@ -103,7 +118,9 @@ def build_engine(args):
     from distributed_pytorch_tpu_torch.models.gpt import LLM
 
     device = resolve_device("cpu" if args.cpu else None)
-    dtype = getattr(torch, args.dtype) if args.dtype else (
+    name = args.dtype or (args.cache_dtype
+                          if args.cache_dtype not in ("", "int8") else None)
+    dtype = getattr(torch, name) if name else (
         torch.bfloat16 if device.type == "cuda" else torch.float32)
     t0 = time.perf_counter()
     encoder = None
@@ -133,10 +150,13 @@ def build_engine(args):
     spinup = [{"spinup": "weights", "phase": "load",
                "ms": round((time.perf_counter() - t0) * 1e3, 3)}]
     eng = DecodeEngine(model, n_slots=args.slots, max_len=args.max_len,
+                       cache_dtype=args.cache_dtype or None,
+                       quantize_weights=args.quant_weights,
                        temperature=args.temperature, top_k=args.top_k,
                        eos_id=args.eos_id, seed=args.seed,
                        block_size=args.kv_block, n_blocks=args.kv_blocks,
-                       prefix_cache=args.prefix_cache)
+                       prefix_cache=args.prefix_cache,
+                       prefill_chunk=args.prefill_chunk)
     return eng, encoder, weights_version, spinup
 
 
@@ -163,8 +183,11 @@ async def _amain(args) -> None:
     print(f"serving on http://{args.host}:{app.port} "
           f"(device={eng.device}, slots={args.slots}, "
           f"queue<={args.max_queue}, "
+          f"cache={'int8' if eng.kv_quantized else 'native'}, "
+          f"quant_w={eng.weights_quantized}, "
           f"blocks={eng.n_blocks}x{eng.block_size}, "
-          f"prefix_cache={eng.prefix_cache})")
+          f"prefix_cache={eng.prefix_cache}, "
+          f"prefill_chunk={eng.prefill_chunk or 'wave'})", flush=True)
     print(f"  curl -N -X POST http://{args.host}:{app.port}/v1/completions "
           "-d '{\"prompt\": [1, 2, 3], \"max_tokens\": 16}'")
     try:

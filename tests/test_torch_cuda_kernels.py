@@ -3,7 +3,9 @@ paged decode (GQA ratios, ragged lengths including 1 and the full table,
 dead blocks poisoned), contiguous decode, and paged prefill at offset 0
 and at block-aligned offsets, in fp32 (atol 1e-4: summation order) and
 bf16 (atol 2e-2: outputs round to bf16, and p rounds to bf16 against a
-running max in the kernel but the global max in the plain version).
+running max in the kernel but the global max in the plain version); the
+same three routes over an int8 cache with fp32 scale rows (the `_q8`
+kernels, head sizes 8 mod 16 included), at the same limits.
 The flash-attention kernels (forward, dq, dkv) over causal and full
 attention, MHA and GQA, dropout 0 and 0.2, ragged T and S > T, head sizes
 64 and 128, each output element by element within atol + rtol x |plain|:
@@ -32,6 +34,7 @@ from distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from distributed_pytorch_tpu_torch.ops import flash_decode as fd
 from distributed_pytorch_tpu_torch.ops import fused_ce as ce
 from distributed_pytorch_tpu_torch.ops.attention_core import sdpa
+from distributed_pytorch_tpu_torch.ops.quant import quantize_kv
 
 pytestmark = pytest.mark.cuda
 
@@ -150,6 +153,92 @@ def test_sdpa_cached_call_raises_rather_than_falls_back(dev, T, B, paged):
     with pytest.raises(ValueError):
         sdpa(q, pool, pool, q_offset=torch.tensor(0), decode=True,
              block_tables=bt)
+    assert fd.PLAIN_CALLS == {k: 0 for k in fd.PLAIN_CALLS}
+
+
+def _q8_pools(dev, n_blocks, bs, nkv, hs, seed):
+    """int8 code pools and their fp32 (..., nkv, 1) scale pools, as the
+    cache's quantizing writes leave them."""
+    kp, vp, g = _pools(dev, torch.float32, n_blocks, bs, nkv, hs, seed)
+    (kc, ks), (vc, vs) = quantize_kv(kp), quantize_kv(vp)
+    return kc, ks, vc, vs, g
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("nh,nkv,hs", [(12, 12, 64), (8, 2, 40),
+                                       (4, 1, 24), (8, 1, 128)])
+def test_paged_decode_q8(dev, dtype, nh, nkv, hs):
+    """The int8 decode kernel against its plain version; blocks past each
+    sequence's length are poisoned (NaN scales) and never reach it."""
+    B, bs, n_max = 5, 16, 8
+    kc, ks, vc, vs, g = _q8_pools(dev, 2 + B * n_max, bs, nkv, hs, seed=nh)
+    tables = torch.from_numpy(np.random.default_rng(0).permutation(
+        np.arange(1, 1 + B * n_max)).reshape(B, n_max).astype(np.int32)) \
+        .to(dev)
+    cl = torch.tensor([1, 16, 17, 100, 128], dtype=torch.int32, device=dev)
+    q = torch.randn(B, nh, hs, generator=g, device=dev).to(dtype)
+    kw = dict(scale=hs ** -0.5, k_scale=ks, v_scale=vs)
+    ref = fd.paged_flash_decode_plain(q, kc, vc, tables, cl, **kw)
+    ks[-1] = float("nan")                    # a block no table holds
+    vs[-1] = float("nan")
+    ks[tables[0, 0], 1:] = float("nan")      # rows past cache_len = 1
+    vs[tables[0, 0], 1:] = float("nan")
+    fd.reset_counts()
+    out = fd.paged_flash_decode(q, kc, vc, tables, cl, **kw)
+    assert fd.LAUNCHES["paged_decode_attn_q8"] == 1
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_contiguous_decode_q8(dev, dtype):
+    B, S, nh, nkv, hs = 4, 256, 8, 4, 64
+    kc, ks, vc, vs, g = _q8_pools(dev, B, S, nkv, hs, seed=2)
+    q = torch.randn(B, nh, hs, generator=g, device=dev).to(dtype)
+    cl = torch.tensor([1, 77, 255, 256], dtype=torch.int32, device=dev)
+    kw = dict(scale=hs ** -0.5, k_scale=ks, v_scale=vs)
+    fd.reset_counts()
+    out = fd.flash_decode(q, kc, vc, cl, **kw)
+    assert fd.LAUNCHES["paged_decode_attn_q8"] == 1
+    _close(out, fd.flash_decode_plain(q, kc, vc, cl, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("T,off,nh,nkv,hs", [(64, 0, 12, 12, 64),
+                                             (100, 32, 8, 2, 40),
+                                             (512, 256, 12, 12, 64),
+                                             (16, 48, 4, 1, 24)])
+def test_paged_prefill_q8(dev, dtype, T, off, nh, nkv, hs):
+    bs, n_max = 16, 64
+    kc, ks, vc, vs, g = _q8_pools(dev, 1 + n_max, bs, nkv, hs, seed=T)
+    table = torch.from_numpy(np.random.default_rng(T).permutation(
+        np.arange(1, 1 + n_max)).astype(np.int32)).to(dev)[None]
+    q = torch.randn(1, T, nh, hs, generator=g, device=dev).to(dtype)
+    kw = dict(scale=hs ** -0.5, k_scale=ks, v_scale=vs)
+    fd.reset_counts()
+    out = fd.paged_flash_prefill(q, kc, vc, table, off, **kw)
+    assert fd.LAUNCHES["paged_prefill_attn_q8"] == 1
+    _close(out, fd.paged_flash_prefill_plain(q, kc, vc, table, off, **kw),
+           dtype)
+
+
+def test_q8_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """fp16 activations, or bf16 codes handed over as an int8 cache, raise
+    on the card; nothing runs a plain version."""
+    kc, ks, vc, vs, _ = _q8_pools(dev, 3, 16, 4, 64, seed=0)
+    bt = torch.ones(2, 2, dtype=torch.int32, device=dev)
+    cl = torch.ones(2, dtype=torch.int32, device=dev)
+    fd.reset_counts()
+    for q, k in ((torch.zeros(2, 4, 64, device=dev, dtype=torch.float16), kc),
+                 (torch.zeros(2, 4, 64, device=dev, dtype=torch.bfloat16),
+                  kc.bfloat16())):
+        with pytest.raises(ValueError):
+            fd.paged_flash_decode(q, k, vc, bt, cl, scale=0.125,
+                                  k_scale=ks, v_scale=vs)
+        with pytest.raises(ValueError):
+            fd.paged_flash_prefill(torch.zeros(1, 8, 4, 64, device=dev,
+                                               dtype=q.dtype),
+                                   k, vc, bt[:1], 0, scale=0.125,
+                                   k_scale=ks, v_scale=vs)
     assert fd.PLAIN_CALLS == {k: 0 for k in fd.PLAIN_CALLS}
 
 

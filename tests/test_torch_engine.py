@@ -1,10 +1,18 @@
 """The port's DecodeEngine against the reference package's DecodeEngine and
 against the port's own one-shot `generate`: greedy outputs through
 continuous batching, with a shared prompt prefix (radix reuse) and with a
-pool small enough to force preemption and requeue. Greedy tokens are
-compared where the reference's top-2 logit margin exceeds the tolerance;
-past a position where it does not, a legitimate tie flip may diverge the
-rest of the sequence, so the comparison stops there."""
+pool small enough to force preemption and requeue; with an int8 KV cache,
+with int8 weights and with chunked prefill (the reference run with
+FLASH_DECODE=on, so its int8 legs go through its `_q8` kernels in
+interpret mode). Greedy tokens are compared where the reference's top-2
+logit margin exceeds the tolerance (for the int8 legs the tolerance plus
+twice the int8-vs-fp32 logit limit of tests/test_torch_quant.py, since
+the margins come from the fp32 model); past a position where it does not,
+a legitimate tie flip may diverge the rest of the sequence, so the
+comparison stops there. Inside the port: chunked prefill gives the wave
+engine's tokens exactly (fp32 and int8 caches), composes with prefix
+reuse and with mid-prefill preemption, and prefill forwards keep the
+model's own weights under `quantize_weights`."""
 
 import jax
 import jax.numpy as jnp
@@ -49,12 +57,12 @@ def _prompts():
                      for n in (5, 17, 2)]
 
 
-def _assert_greedy_agree(ref, out, prompt_len, margins):
+def _assert_greedy_agree(ref, out, prompt_len, margins, tol=TOL):
     """ref/out token lists; margins[i] is the reference's top-2 gap for the
     token at prompt_len + i."""
     assert out[:prompt_len] == ref[:prompt_len]
     for i, m in enumerate(margins):
-        if m <= TOL:
+        if m <= tol:
             return
         assert out[prompt_len + i] == ref[prompt_len + i], (
             f"token {i} differs with margin {m}")
@@ -130,3 +138,173 @@ def test_cancel_eos_and_accounting(models):
     assert eng.block_utilization > 0 and 0 <= eng.block_fragmentation < 1
     assert eng.trace_guards == {} and eng.aot_store is None
     assert eng.flight.total == eng.n_steps
+
+
+# ----------------------------------------------------------------------
+# int8 serving and chunked prefill
+# ----------------------------------------------------------------------
+
+# a trivial prompt, a multi-chunk one and a mid-size one (the reference's
+# tests/test_engine.py CHUNK_PROMPTS); prompt + budget stays under max_len
+CHUNK_PROMPTS = [[1, 2, 3], list(range(1, 40)), [7] * 10]
+#: int8-vs-fp32 logit limits (cache, weights) the margins must clear
+INT8_LIMIT = {"cache_dtype": 2e-2, "quantize_weights": 5e-2}
+
+
+@pytest.mark.parametrize("leg", [dict(cache_dtype="int8"),
+                                 dict(quantize_weights=True),
+                                 dict(prefill_chunk=16)],
+                         ids=["int8-cache", "int8-weights", "chunked"])
+def test_int8_and_chunked_engines_match_reference_engine(models, leg,
+                                                         monkeypatch):
+    jm, var, tm, japply = models
+    kw = dict(n_slots=2, temperature=0.0, min_bucket=8, block_size=8, **leg)
+    monkeypatch.setenv("FLASH_DECODE", "on")
+    jeng = JEngine(JLLM(JConfig(**KW), attn_impl="auto"), var, **kw)
+    ref = jeng.run([list(p) for p in CHUNK_PROMPTS], 12)
+    tfd.reset_counts()
+    eng = DecodeEngine(tm, **kw)
+    out = eng.run([list(p) for p in CHUNK_PROMPTS], 12)
+    assert eng.kv_quantized == jeng.kv_quantized
+    assert eng.weights_quantized == jeng.weights_quantized
+    assert eng.retire_counts == jeng.retire_counts
+    q8 = "_q8" if "cache_dtype" in leg else ""
+    assert tfd.PLAIN_CALLS[f"paged_decode_attn{q8}"] > 0
+    assert tfd.PLAIN_CALLS[f"paged_prefill_attn{q8}"] > 0
+    assert sum(tfd.LAUNCHES.values()) == 0
+    tol = TOL + 2 * sum(INT8_LIMIT.get(k, 0.0) for k in leg)
+    for p, r, o in zip(CHUNK_PROMPTS, ref, out):
+        _assert_greedy_agree(r, o, len(p),
+                             _margins_jax(japply, var, r, len(p)), tol)
+
+
+@pytest.mark.parametrize("cache_dtype", [None, "int8"],
+                         ids=["native", "int8"])
+def test_chunked_matches_wave(models, cache_dtype):
+    """Splitting prompts into 16-token chunks fused into the steps is
+    invisible in the tokens (per-row scales make int8 quantization
+    independent of the chunking); native legs equal `generate` too. A
+    chunked admission runs no forward and returns no first token; every
+    chunk step reports its prompt tokens."""
+    tm = models[2]
+    kw = dict(n_slots=2, temperature=0.0, min_bucket=8, block_size=8,
+              cache_dtype=cache_dtype)
+    refs = DecodeEngine(tm, **kw).run([list(p) for p in CHUNK_PROMPTS], 12)
+    if cache_dtype is None:
+        for p, r in zip(CHUNK_PROMPTS, refs):
+            assert r == generate(tm, p, 12, temperature=0.0)[0].tolist()
+    eng = DecodeEngine(tm, prefill_chunk=16, **kw)
+    assert eng.table_width == eng.max_blocks + 2
+    adm = eng.admit(CHUNK_PROMPTS[1], 12)
+    assert adm.first_token is None and adm.prefilled == 39
+    assert eng.block_pool.n_referenced == 2    # the first chunk's blocks
+    steps = [eng.step() for _ in range(3)]
+    assert [r.prefill_tokens for r in steps] == [16, 16, 7]
+    assert [list(r.emitted.values()) for r in steps[:2]] == [[], []]
+    assert list(steps[2].emitted.values()) == [[refs[1][39]]]
+    eng.cancel(adm.seq_id)
+    assert eng.run([list(p) for p in CHUNK_PROMPTS], 12) == refs
+    assert eng.admit_traces == {} and eng.fused_step_traces == 0
+    assert eng.flight.total == eng.n_steps
+
+
+@pytest.mark.parametrize("prefix_cache", [True, False],
+                         ids=["prefix-on", "prefix-off"])
+def test_chunked_prefix_reuse(models, prefix_cache):
+    """A re-admitted prompt hits the blocks its own chunks published as
+    they filled and chunks in only the tail, with the same tokens; with
+    the cache off everything is chunked again."""
+    tm = models[2]
+    eng = DecodeEngine(tm, n_slots=1, temperature=0.0, min_bucket=8,
+                       prefill_chunk=16, block_size=8,
+                       prefix_cache=prefix_cache)
+    p = list(range(1, 40))
+    ref = generate(tm, p, 12, temperature=0.0)[0].tolist()
+    assert eng.run([list(p)], 12)[0] == ref
+    assert eng.run([list(p)], 12)[0] == ref
+    if prefix_cache:
+        assert 0 < eng.prefix_hit_tokens < 2 * len(p)
+    else:
+        assert eng.prefix_hit_tokens == 0
+        assert eng.prefilled_tokens == 2 * len(p)
+
+
+@pytest.mark.parametrize("prefix_cache", [True, False],
+                         ids=["prefix-on", "prefix-off"])
+def test_chunked_mid_prefill_preemption(models, prefix_cache):
+    """A pool too small for a decode stream and a multi-chunk prompt
+    preempts the partial MID-PREFILL; `run` requeues it and the resume
+    (a prefix hit on its written blocks when the cache is on) gives the
+    one-shot tokens. Nothing leaks."""
+    tm = models[2]
+    eng = DecodeEngine(tm, n_slots=2, temperature=0.0, min_bucket=8,
+                       prefill_chunk=16, block_size=8, n_blocks=9,
+                       prefix_cache=prefix_cache)
+    prompts = [[1, 2, 3], list(range(1, 40))]
+    outs = eng.run([list(p) for p in prompts], 20)
+    assert eng.retire_counts["preempted"] >= 1
+    for p, o in zip(prompts, outs):
+        assert o == generate(tm, p, 20, temperature=0.0)[0].tolist()
+    assert (eng.prefix_hit_tokens > 0) == prefix_cache
+    assert eng.block_pool.n_referenced == 0
+
+
+@pytest.mark.parametrize("n_blocks,prompts", [
+    (10, [range(1, 20), range(3, 45)]),
+    (9, [range(1, 30), range(3, 48)]),
+    (11, [range(1, 40), range(2, 50), range(5, 20)]),
+], ids=["decode-victim", "long-partial", "three-streams"])
+def test_chunked_preemption_while_growing_a_chunk(models, n_blocks,
+                                                  prompts):
+    """A dry pool when the next chunk's blocks are allocated preempts the
+    youngest sequence from inside the chunk scheduler; its retirement is
+    reported (the slot is read before `_retire` drops it), `run` resumes
+    it, and every stream gives the one-shot tokens. Nothing leaks."""
+    tm = models[2]
+    eng = DecodeEngine(tm, n_slots=2, temperature=0.0, min_bucket=8,
+                       prefill_chunk=16, block_size=8, n_blocks=n_blocks)
+    chunk_victims = []
+    next_chunk = eng._next_chunk
+
+    def counted(preempted):
+        out = next_chunk(preempted)
+        chunk_victims.extend(preempted)
+        return out
+
+    eng._next_chunk = counted
+    prompts = [list(p) for p in prompts]
+    outs = eng.run([list(p) for p in prompts], 16)
+    assert chunk_victims
+    for p, o in zip(prompts, outs):
+        assert o == generate(tm, p, 16, temperature=0.0)[0].tolist()
+    assert eng.block_pool.n_referenced == 0
+
+
+@pytest.mark.parametrize("prefill_chunk", [0, 16], ids=["wave", "chunked"])
+def test_prefill_keeps_the_models_weights(models, prefill_chunk):
+    """Under `quantize_weights` only decode forwards read int8 weights: a
+    prompt's prefill writes the same cache as an unquantized engine's, to
+    the bit; the first decode step's write differs."""
+    tm = models[2]
+    kw = dict(n_slots=1, temperature=0.0, min_bucket=8, block_size=8,
+              prefill_chunk=prefill_chunk)
+    engs = [DecodeEngine(tm, quantize_weights=q, **kw) for q in (False, True)]
+    assert engs[1]._qparams and engs[0]._qparams is None
+    p = list(range(3, 30))
+    for e in engs:
+        e.admit(p, 8)
+        while prefill_chunk and e._is_partial(e._slots[0]):
+            e.step()
+    rows = len(p)
+    bt = engs[0].block_tables[:1]
+    assert torch.equal(engs[0].block_tables, engs[1].block_tables)
+
+    def written(e, n):
+        from distributed_pytorch_tpu_torch.ops.block_pool import paged_gather
+        return paged_gather(e.caches[0]["k"], bt)[0, :n]
+
+    assert torch.equal(written(engs[0], rows), written(engs[1], rows))
+    for e in engs:
+        e.step()
+    assert not torch.equal(written(engs[0], rows + 1)[rows],
+                           written(engs[1], rows + 1)[rows])

@@ -4,8 +4,11 @@ in interpret mode on the CPU: paged decode across GQA ratios and ragged
 lengths, the contiguous decode, and the paged chunk prefill at offset 0
 and at a block-aligned offset. Same numpy inputs to both; fp32, atol 1e-5
 (the two sum in different orders: one-pass softmax vs an online one over
-8-row blocks). Also the dispatcher's kernel routes against its naive path,
-and the launch/plain counters.
+8-row blocks). The int8-cache (`_q8`) plain versions against the
+reference's `_q8` bodies the same way, for nkv 1/2/4 and chunk offsets 0
+and 8, with poisoned scales in blocks no sequence owns. Also the
+dispatcher's kernel routes against its naive path (int8: against the naive
+path on the dequantized cache), the gates, and the launch/plain counters.
 """
 
 import jax.numpy as jnp
@@ -36,6 +39,20 @@ def _paged(B, n_max, bs, nh, nkv, hs, seed):
 
 def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
+
+
+def _q8(pool_shape, seed):
+    """int8 code pools and fp32 (..., nkv, 1) scale pools."""
+    rng = np.random.default_rng(seed)
+    sc = pool_shape[:-1] + (1,)
+    return (rng.integers(-127, 128, pool_shape).astype(np.int8),
+            rng.uniform(1e-3, 4e-2, sc).astype(np.float32),
+            rng.integers(-127, 128, pool_shape).astype(np.int8),
+            rng.uniform(1e-3, 4e-2, sc).astype(np.float32))
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
 
 
 @pytest.mark.parametrize("nkv", [4, 2, 1], ids=lambda n: f"nkv{n}")
@@ -87,6 +104,118 @@ def test_paged_prefill_matches_jax_kernel(nkv, off):
     out = tfd.paged_flash_prefill(tq, tk, tv, tbt, off, scale=hs ** -0.5)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("nkv", [4, 2, 1], ids=lambda n: f"nkv{n}")
+def test_q8_paged_decode_matches_jax_kernel(nkv):
+    B, n_max, bs, nh, hs = 4, 4, 8, 4, 16
+    q, kp, _, bt = _paged(B, n_max, bs, nh, nkv, hs, seed=30 + nkv)
+    kc, ks, vc, vs = _q8(kp.shape, seed=nkv)
+    cl = np.array([1, 7, 17, 32], np.int32)
+    ref = jfd.paged_flash_decode(*_j(q, kc, vc, bt, cl), scale=hs ** -0.5,
+                                 k_scale=jnp.asarray(ks),
+                                 v_scale=jnp.asarray(vs), interpret=True)
+    tq, tkc, tvc, tbt, tcl, tks, tvs = _t(q, kc, vc, bt, cl, ks, vs)
+    tfd.reset_counts()
+    out = tfd.paged_flash_decode(tq, tkc, tvc, tbt, tcl, scale=hs ** -0.5,
+                                 k_scale=tks, v_scale=tvs)
+    assert tfd.PLAIN_CALLS["paged_decode_attn_q8"] == 1
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("nkv", [4, 1], ids=lambda n: f"nkv{n}")
+def test_q8_contiguous_decode_matches_jax_kernel(nkv):
+    B, S, nh, hs = 3, 32, 4, 16
+    q = np.random.default_rng(40 + nkv).standard_normal((B, nh, hs)) \
+        .astype(np.float32)
+    kc, ks, vc, vs = _q8((B, S, nkv, hs), seed=41 + nkv)
+    cl = np.array([1, 13, 32], np.int32)
+    ref = jfd.flash_decode(*_j(q, kc, vc, cl), scale=hs ** -0.5,
+                           k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+                           block_s=8, interpret=True)
+    tq, tkc, tvc, tcl, tks, tvs = _t(q, kc, vc, cl, ks, vs)
+    out = tfd.flash_decode(tq, tkc, tvc, tcl, scale=hs ** -0.5, k_scale=tks,
+                           v_scale=tvs)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("nkv,off", [(4, 0), (2, 8), (1, 8), (1, 0)],
+                         ids=["nkv4-off0", "nkv2-off8", "nkv1-off8",
+                              "nkv1-off0"])
+def test_q8_paged_prefill_matches_jax_kernel(nkv, off):
+    T, n_max, bs, nh, hs = 16, 6, 8, 4, 16
+    _, kp, _, bt = _paged(1, n_max, bs, nh, nkv, hs, seed=50 + off)
+    kc, ks, vc, vs = _q8(kp.shape, seed=51 + nkv)
+    q = np.random.default_rng(off).standard_normal((1, T, nh, hs)) \
+        .astype(np.float32)
+    ref = jfd.paged_flash_prefill(*_j(q, kc, vc, bt), jnp.int32(off),
+                                  scale=hs ** -0.5, k_scale=jnp.asarray(ks),
+                                  v_scale=jnp.asarray(vs), interpret=True)
+    tq, tkc, tvc, tbt, tks, tvs = _t(q, kc, vc, bt, ks, vs)
+    tfd.reset_counts()
+    out = tfd.paged_flash_prefill(tq, tkc, tvc, tbt, off, scale=hs ** -0.5,
+                                  k_scale=tks, v_scale=tvs)
+    assert tfd.PLAIN_CALLS["paged_prefill_attn_q8"] == 1
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=0)
+
+
+def test_q8_dead_blocks_never_reach_the_output():
+    """NaN scales in every block a 1-token sequence does not own, and in
+    its own rows past the live one: the output is the one live value row,
+    dequantized (softmax weight 1.0)."""
+    n_max, bs, nh, nkv, hs = 4, 8, 4, 4, 8
+    q, kp, _, bt = _paged(1, n_max, bs, nh, nkv, hs, seed=6)
+    kc, ks, vc, vs = _q8(kp.shape, seed=6)
+    own = int(bt[0, 0])
+    want = vc[own, 0].astype(np.float32) * vs[own, 0]
+    for s in (ks, vs):
+        s[np.arange(s.shape[0]) != own] = np.nan
+        s[own, 1:] = np.nan
+    out = tfd.paged_flash_decode(*_t(q, kc, vc, bt, np.array([1], np.int32)),
+                                 scale=hs ** -0.5,
+                                 k_scale=torch.from_numpy(ks),
+                                 v_scale=torch.from_numpy(vs))
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out[0].numpy(), want, atol=ATOL)
+
+
+@pytest.mark.parametrize("T", [1, 16], ids=["decode", "prefill"])
+def test_sdpa_q8_route_matches_naive_on_dequantized_cache(T):
+    """An int8 paged call takes the `_q8` route (its plain version on the
+    CPU) and agrees with the naive path on the dequantized logical view;
+    a paged multi-sequence chunk dequantizes up front."""
+    B = 3 if T == 1 else 1
+    n_max, bs, nh, nkv, hs = 4, 8, 4, 2, 16
+    _, kp, _, bt = _paged(B, n_max, bs, nh, nkv, hs, seed=8)
+    kc, ks, vc, vs = (torch.from_numpy(a) for a in _q8(kp.shape, seed=9))
+    q = torch.from_numpy(np.random.default_rng(T).standard_normal(
+        (B, T, nh, hs)).astype(np.float32))
+    pos = torch.tensor([0, 9, 31]) if T == 1 else 8
+    tbt = torch.from_numpy(bt)
+    kd = paged_gather(kc.float() * ks, tbt)
+    vd = paged_gather(vc.float() * vs, tbt)
+    ref = _naive_sdpa(q, kd, vd, scale=hs ** -0.5, q_offset=pos)
+    tfd.reset_counts()
+    out = sdpa(q, kc, vc, q_offset=pos, decode=True, block_tables=tbt,
+               k_scale=ks, v_scale=vs)
+    name = "paged_decode_attn_q8" if T == 1 else "paged_prefill_attn_q8"
+    assert tfd.PLAIN_CALLS[name] == 1 and sum(tfd.LAUNCHES.values()) == 0
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL, rtol=0)
+    # two sequences' 16-row chunks: the naive path on the dequantized view
+    q2 = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 16, nh, hs)).astype(np.float32))
+    bt2 = torch.from_numpy(np.stack([bt[0], bt[0]]))
+    tfd.reset_counts()
+    out2 = sdpa(q2, kc, vc, q_offset=8, decode=True, block_tables=bt2,
+                k_scale=ks, v_scale=vs)
+    ref2 = _naive_sdpa(q2, paged_gather(kc.float() * ks, bt2),
+                       paged_gather(vc.float() * vs, bt2), scale=hs ** -0.5,
+                       q_offset=8)
+    assert sum(tfd.PLAIN_CALLS.values()) == 0
+    np.testing.assert_allclose(out2.numpy(), ref2.numpy(), atol=ATOL, rtol=0)
 
 
 def test_dead_blocks_never_reach_the_output():
@@ -159,3 +288,31 @@ def test_usable_gates():
     big = torch.zeros(5, 16, 1, 512)
     assert not tfd.paged_flash_prefill_usable(torch.zeros(1, 32, 8, 512),
                                               big, big)
+
+
+def test_q8_usable_gates():
+    """An int8 pool with fp32 scale rows passes at every head size the
+    reference's gate takes (a multiple of 8, 8 mod 16 included); codes
+    without scales, scales of the wrong shape or dtype, or bf16 codes
+    labelled int8 do not."""
+    for hs in (8, 24, 40, 64, 128):
+        q1 = torch.zeros(2, 1, 8, hs)
+        codes = torch.zeros(5, 16, 2, hs, dtype=torch.int8)
+        sc = torch.zeros(5, 16, 2, 1)
+        assert tfd.paged_flash_decode_usable(q1, codes, codes, sc, sc)
+        assert tfd.paged_flash_decode_usable(q1.bfloat16(), codes, codes,
+                                             sc, sc)
+        assert tfd.paged_flash_prefill_usable(torch.zeros(1, 32, 8, hs),
+                                              codes, codes, sc, sc)
+    assert not tfd.paged_flash_decode_usable(q1, codes, codes)
+    assert not tfd.paged_flash_decode_usable(q1, codes, codes, sc.double(),
+                                             sc.double())
+    assert not tfd.paged_flash_decode_usable(q1, codes, codes, sc[..., 0],
+                                             sc[..., 0])
+    assert not tfd.paged_flash_decode_usable(q1, codes.float(),
+                                             codes.float(), sc, sc)
+    odd = torch.zeros(5, 16, 2, 12, dtype=torch.int8)
+    assert not tfd.paged_flash_decode_usable(torch.zeros(2, 1, 8, 12), odd,
+                                             odd, sc, sc)
+    # the scale tiles count against the shared-memory limit
+    assert tfd._smem_bytes(64, 64, True) == tfd._smem_bytes(64, 64) + 512

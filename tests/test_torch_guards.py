@@ -108,3 +108,34 @@ def test_kernel_wrappers_refuse_non_cuda_non_cpu_tensors():
         fd.paged_flash_decode(q, pool, pool, bt,
                               torch.ones(1, dtype=torch.int32, device="meta"),
                               scale=1.0)
+
+
+@pytest.mark.parametrize("route", ["paged", "contiguous", "prefill"])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.float16],
+                         ids=["taken", "declined"])
+def test_q8_wrappers_refuse_non_cpu_calls_they_cannot_launch(route,
+                                                             scale_dtype):
+    """The int8 wrappers, like the others, run the plain version only for
+    CPU tensors: a call on another device raises whether the kernel would
+    take it (no card here to launch on) or its gate declines it (fp16
+    scales) — it never falls back to the plain version."""
+    from distributed_pytorch_tpu_torch.ops import flash_decode as fd
+    meta = dict(device="meta")
+    codes = torch.zeros(3, 4, 2, 8, dtype=torch.int8, **meta)
+    sc = torch.zeros(3, 4, 2, 1, dtype=scale_dtype, **meta)
+    kw = dict(scale=1.0, k_scale=sc, v_scale=sc)
+    bt = torch.zeros(1, 2, dtype=torch.int32, **meta)
+    cl = torch.ones(1, dtype=torch.int32, **meta)
+    fd.reset_counts()
+    with pytest.raises(ValueError):
+        if route == "paged":
+            fd.paged_flash_decode(torch.zeros(1, 2, 8, **meta), codes, codes,
+                                  bt, cl, **kw)
+        elif route == "contiguous":
+            fd.flash_decode(torch.zeros(3, 2, 8, **meta), codes, codes,
+                            torch.ones(3, dtype=torch.int32, **meta), **kw)
+        else:
+            fd.paged_flash_prefill(torch.zeros(1, 8, 2, 8, **meta), codes,
+                                   codes, bt, 0, **kw)
+    assert fd.PLAIN_CALLS == dict.fromkeys(fd.PLAIN_CALLS, 0)
+    assert fd.LAUNCHES == dict.fromkeys(fd.LAUNCHES, 0)

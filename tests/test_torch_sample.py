@@ -4,7 +4,9 @@ model's greedy tokens; converted reference weights saved as a port
 checkpoint decode the reference's greedy tokens; `serve --ckpt` streams
 the same tokens and carries the checkpoint's `weights_version` on
 /metrics and on every completion payload; a flipped byte raises
-`CheckpointCorrupt`; the options of later slices refuse, naming them."""
+`CheckpointCorrupt`; `--cache-dtype int8`, `--quant-weights` and
+`--prefill-chunk` decode through the DecodeEngine with those options;
+`--shard` refuses, naming its slice."""
 
 import asyncio
 import json
@@ -23,6 +25,7 @@ from distributed_pytorch_tpu.models.gpt import LLM as JLLM
 from distributed_pytorch_tpu_torch import sample
 from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
 from distributed_pytorch_tpu_torch.convert import params_from_jax
+from distributed_pytorch_tpu_torch.engine import DecodeEngine
 from distributed_pytorch_tpu_torch.models.generate import generate
 from distributed_pytorch_tpu_torch.serve.__main__ import (build_args,
                                                           build_engine)
@@ -156,9 +159,7 @@ def test_corrupt_checkpoint_raises(trained, tmp_path):
         sample.load_for_inference(str(bad), device="cpu", log=lambda s: None)
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--shard"], "slice 6"), (["--cache-dtype", "int8"], "slice 4"),
-    (["--quant-weights"], "slice 4"), (["--prefill-chunk", "32"], "slice 4")])
+@pytest.mark.parametrize("flags,match", [(["--shard"], "slice 6")])
 def test_later_slice_options_refuse(trained, flags, match):
     root, _ = trained
     with pytest.raises(NotImplementedError, match=match):
@@ -167,3 +168,36 @@ def test_later_slice_options_refuse(trained, flags, match):
     if flags == ["--shard"]:
         with pytest.raises(NotImplementedError, match=match):
             build_engine(build_args(["--ckpt", root, "--cpu", "--shard"]))
+
+
+@pytest.mark.parametrize("flags,engine_kw", [
+    (["--cache-dtype", "int8"], dict(cache_dtype="int8")),
+    (["--quant-weights"], dict(quantize_weights=True)),
+    (["--prefill-chunk", "16"], dict(prefill_chunk=16)),
+    (["--cache-dtype", "int8", "--quant-weights", "--prefill-chunk", "32"],
+     dict(cache_dtype="int8", quantize_weights=True, prefill_chunk=32))],
+    ids=["int8-cache", "int8-weights", "chunked", "all-three"])
+def test_int8_and_chunk_flags_decode_through_the_engine(trained, flags,
+                                                        engine_kw, capsys):
+    """Each flag reaches the DecodeEngine (the printed route names it) and
+    the CLI's tokens equal an engine built with the same options on the
+    restored model; chunked prefill alone gives `generate`'s tokens."""
+    root, _ = trained
+    argv = ["--ckpt", root, "--prompt", ",".join(map(str, PROMPT)),
+            "--temperature", "0", "--max_new_tokens", "8", "--cpu"]
+    got = sample.main(argv + flags)
+    route = [l for l in capsys.readouterr().out.splitlines()
+             if l.startswith("decode:")][0]
+    assert "engine, cache=" + ("int8" if "cache_dtype" in engine_kw
+                               else "float32") in route
+    assert f"quant_w={bool(engine_kw.get('quantize_weights'))}" in route
+    assert f"prefill_chunk={engine_kw.get('prefill_chunk') or 'wave'}" \
+        in route
+    model = sample.load_for_inference(root, device="cpu",
+                                      log=lambda s: None)[0]
+    want = DecodeEngine(model, n_slots=1, temperature=0.0, seed=1729,
+                        **engine_kw).run([PROMPT], 8)
+    assert got == want and len(got[0]) == len(PROMPT) + 8
+    if flags == ["--prefill-chunk", "16"]:
+        assert got[0] == generate(model, PROMPT, 8,
+                                  temperature=0.0)[0].tolist()

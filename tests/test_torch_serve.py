@@ -3,7 +3,9 @@ engine behind the copied Scheduler and ServeApp, over loopback. Concurrent
 SSE completions with a shared prompt prefix and a mid-stream disconnect
 must match the offline engine's greedy output; /healthz, /metrics and the
 429 backpressure path behave as in the reference; the engine-side gauges
-the port does not have yet (traces, AOT store, host tier) read 0."""
+the port does not have yet (traces, AOT store, host tier) read 0. The
+CLI's `--cache-dtype int8 --quant-weights --prefill-chunk N` engine serves
+the offline engine's tokens and names its options on /metrics."""
 
 import asyncio
 import json
@@ -152,3 +154,52 @@ def test_queue_full_is_429_and_unknown_routes():
     statuses = [s for s, _, _ in outs]
     assert 429 in statuses and statuses.count(200) >= 1
     assert p_status == 404          # the profiler endpoint waits
+
+
+def test_int8_and_chunked_flags_serve_the_offline_engines_tokens():
+    """`--cache-dtype int8 --quant-weights --prefill-chunk 32` reach the
+    engine; its SSE streams equal an offline engine with the same options,
+    every step's chunk use lands in `prefill_tokens_per_step`, and the
+    build info names the options."""
+    eng, *_ = build_engine(build_args(
+        ["--demo", "--cpu", "--temperature", "0", "--port", "0",
+         "--slots", "3", "--kv-block", "16", "--cache-dtype", "int8",
+         "--quant-weights", "--prefill-chunk", "32"]))
+    assert eng.kv_quantized and eng.weights_quantized
+    assert eng.prefill_chunk == 32 and eng.caches[0]["k"].dtype.itemsize == 1
+    rng = np.random.default_rng(4)
+    prompts = [[int(t) for t in rng.integers(1, 1024, n)]
+               for n in (3, 70, 20, 45)]
+    budgets = [5, 7, 4, 6]
+
+    async def main():
+        sched = Scheduler(eng, max_queue=8)
+        app = ServeApp(sched, port=0)
+        await sched.start()
+        await app.start()
+        res = await asyncio.gather(*(sse_client(app.port, p, b)
+                                     for p, b in zip(prompts, budgets)))
+        metrics = await http_get(app.port, "/metrics")
+        await app.stop()
+        await sched.stop()
+        return res, metrics
+
+    res, (m_status, m_body) = run_async(main())
+    ref = DecodeEngine(eng.model, n_slots=3, temperature=0.0, block_size=16,
+                       cache_dtype="int8", quantize_weights=True,
+                       prefill_chunk=32).run(prompts, budgets)
+    for (status, tokens, done), p, r in zip(res, prompts, ref):
+        assert status == 200 and done["reason"] == "budget"
+        assert tokens == r[len(p):]
+    lines = dict(l.rsplit(" ", 1) for l in m_body.splitlines()
+                 if l and not l.startswith("#"))
+    assert m_status == 200
+    assert float(lines["serve_prefill_tokens_per_step_count"]) == \
+        eng.n_steps
+    assert float(lines["serve_prefill_tokens_per_step_sum"]) == \
+        sum(map(len, prompts))
+    info = [l for l in m_body.splitlines()
+            if l.startswith("serve_build_info{")][0]
+    for label in ('cache_dtype="int8"', 'quant_weights="True"',
+                  'prefill_chunk="32"'):
+        assert label in info
