@@ -7,8 +7,12 @@ works, and so does anything else with the same keys — and returns a
 `state_dict` for `models.gpt.LLM` (fp32 torch tensors; `load_state_dict`
 casts to the model's dtypes). Flax dense kernels are (in, out) while
 `nn.Linear` stores (out, in), so `c_attn`/`c_proj` kernels transpose; the
-MLP's bare (in, out) matrices and the (V, C) embedding carry over as they
-are. The fused qkv keeps its [q | k | v] column order.
+MLP's bare (in, out) matrices, the MoE layer's stacked (n_exp, in, out)
+expert weights and (C, n_routed) router, and the (V, C) embedding carry
+over as they are. The fused qkv keeps its [q | k | v] column order. The
+MoE routing state (the reference's `moe_state` collection: `expert_bias`
+and `dropped_frac` per layer) maps onto the MoE layers' buffers; without
+it they keep their zero initial values.
 """
 
 from __future__ import annotations
@@ -23,12 +27,15 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def params_from_jax(params: dict, cfg: LLMConfig) -> dict:
+def params_from_jax(params: dict, cfg: LLMConfig,
+                    moe_state: dict | None = None) -> dict:
     """Map the flax tree {tkn_emb, [pos_emb], block_i/{ln1, ln2, attn/
-    {c_attn, c_proj}, mlp/{c_fc, c_proj}}, ln_f} onto `LLM`'s names."""
-    if cfg.attn not in ("mha", "mqa", "gqa") or cfg.moe:
-        raise NotImplementedError("the port converts the dense mha/mqa/gqa "
-                                  "family")
+    {c_attn, c_proj}, mlp/{c_fc, c_proj} or moe/{experts_fc,
+    experts_proj, gate}}, ln_f} and the optional `moe_state` tree
+    {block_i/moe/{expert_bias, dropped_frac}} onto `LLM`'s names."""
+    if cfg.attn not in ("mha", "mqa", "gqa"):
+        raise NotImplementedError("MLA comes with a later slice: the port "
+                                  "converts the mha/mqa/gqa family")
     sd = {"tkn_emb.weight": _t(params["tkn_emb"]["embedding"]),
           "ln_f.weight": _t(params["ln_f"]["scale"]),
           "ln_f.bias": _t(params["ln_f"]["bias"])}
@@ -44,6 +51,15 @@ def params_from_jax(params: dict, cfg: LLMConfig) -> dict:
             sd[pre + f"attn.{lin}.weight"] = _t(b["attn"][lin]["kernel"]).t() \
                 .contiguous()
             sd[pre + f"attn.{lin}.bias"] = _t(b["attn"][lin]["bias"])
-        sd[pre + "mlp.c_fc"] = _t(b["mlp"]["c_fc"])
-        sd[pre + "mlp.c_proj"] = _t(b["mlp"]["c_proj"])
+        if not cfg.moe:
+            sd[pre + "mlp.c_fc"] = _t(b["mlp"]["c_fc"])
+            sd[pre + "mlp.c_proj"] = _t(b["mlp"]["c_proj"])
+            continue
+        for name in ("experts_fc", "experts_proj", "gate"):
+            sd[pre + "moe." + name] = _t(b["moe"][name])
+        st = (moe_state or {}).get(f"block_{i}", {}).get("moe", {})
+        if cfg.aux_free:
+            sd[pre + "moe.expert_bias"] = _t(
+                st.get("expert_bias", np.zeros(cfg.n_routed)))
+        sd[pre + "moe.dropped_frac"] = _t(st.get("dropped_frac", 0.0))
     return sd

@@ -28,6 +28,10 @@ Counterpart of the reference package's `models/gpt.py` (`LLM`, `Block`,
   `dropout_seed` the train step passes (ops/dropout.py).
 * `act_recomp` recomputes whole blocks ('block') or the attention sublayer
   ('attn') in the backward through `torch.utils.checkpoint`.
+* MoE blocks (`config.moe`) run `models.mlp.MoE` in place of the MLP;
+  with targets the loss adds the layers' aux losses over n_layer, in
+  training and in eval, as the reference does. `commit_moe_state()`
+  writes the routing state of the last training forward (models/mlp.py).
 * `logits_idx` (B,) picks each sequence's true last row of a right-padded
   (bucketed) prefill; `all_logits` returns every position.
 * Caches are updated in place; `dtype=torch.int8` caches hold int8 codes
@@ -51,7 +55,7 @@ from distributed_pytorch_tpu_torch import resolve_device
 from distributed_pytorch_tpu_torch.config import LLMConfig
 from distributed_pytorch_tpu_torch.models.attention import (
     GQA, init_attn_cache, init_paged_attn_cache)
-from distributed_pytorch_tpu_torch.models.mlp import MLP
+from distributed_pytorch_tpu_torch.models.mlp import MLP, MoE
 from distributed_pytorch_tpu_torch.ops import fused_ce
 from distributed_pytorch_tpu_torch.ops.dropout import dropout, subseed
 from distributed_pytorch_tpu_torch.ops.losses import (fused_cross_entropy,
@@ -82,20 +86,22 @@ def _recompute(fn, *args, **kwargs):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block: x + attn(ln1(x)), then x + mlp(ln2(x)).
+    """Pre-LN transformer block: x + attn(ln1(x)), then x + mlp(ln2(x))
+    (the MoE layer for MoE configs). Returns (x, aux loss or None).
     `remat_attn` recomputes the attention sublayer in the backward."""
 
     def __init__(self, config: LLMConfig, *, device=None, dtype=None,
                  attn_impl: str = "auto", remat_attn: bool = False):
         super().__init__()
-        if config.moe:
-            raise NotImplementedError("MoE blocks come with a later slice")
         self.remat_attn = remat_attn
         self.ln1 = LayerNorm(config.n_embd, device=device)
         self.attn = GQA(config, device=device, dtype=dtype,
                         attn_impl=attn_impl)
         self.ln2 = LayerNorm(config.n_embd, device=device)
-        self.mlp = MLP(config, device=device, dtype=dtype)
+        if config.moe:
+            self.moe = MoE(config, device=device, dtype=dtype)
+        else:
+            self.mlp = MLP(config, device=device, dtype=dtype)
 
     def forward(self, x, freqs, cache=None, pos=0, block_tables=None,
                 dropout_seed=None):
@@ -108,8 +114,11 @@ class Block(nn.Module):
             y = self.attn(h, freqs, cache, pos, block_tables=block_tables,
                           dropout_seed=a_seed)
         x = x + y
+        if hasattr(self, "moe"):
+            y, aux = self.moe(self.ln2(x))
+            return x + y, aux
         return x + self.mlp(self.ln2(x),
-                            subseed(dropout_seed, 1) if drop else None)
+                            subseed(dropout_seed, 1) if drop else None), None
 
 
 def _sin_table(block_size: int, n_embd: int) -> torch.Tensor:
@@ -213,16 +222,21 @@ class LLM(nn.Module):
             caches = [None] * cfg.n_layer
         remat = self.remat_block and caches[0] is None \
             and torch.is_grad_enabled()
+        total_aux = None
         for i, (blk, cache) in enumerate(zip(self.blocks, caches)):
             seed = subseed(dropout_seed, 1 + i) if drop else None
             if remat:
-                x = _recompute(blk, x, freqs, dropout_seed=seed)
+                x, aux = _recompute(blk, x, freqs, dropout_seed=seed)
             else:
-                x = blk(x, freqs, cache, pos, block_tables=block_tables,
-                        dropout_seed=seed)
+                x, aux = blk(x, freqs, cache, pos, block_tables=block_tables,
+                             dropout_seed=seed)
+            if aux is not None:
+                total_aux = aux if total_aux is None else total_aux + aux
         x = self.ln_f(x)
         if targets is not None:
             loss = self._loss(x, targets)
+            if total_aux is not None:
+                loss = loss + total_aux / cfg.n_layer
             sel = x if all_logits else x[:, -1:, :]
             return sel @ self.tkn_emb.weight.to(dt).t(), loss
         if all_logits:
@@ -239,6 +253,16 @@ class LLM(nn.Module):
         if logits is not None:
             return logits
         return sel @ self.tkn_emb.weight.to(dt).t()
+
+    def moe_layers(self) -> list:
+        """The MoE layers, in block order (empty for dense models)."""
+        return [blk.moe for blk in self.blocks if hasattr(blk, "moe")]
+
+    def commit_moe_state(self) -> None:
+        """Write every MoE layer's routing state from the last training
+        forward into its buffers (once per micro-step, after backward)."""
+        for moe in self.moe_layers():
+            moe.commit_state()
 
     def _loss(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """Weight-tied mean cross-entropy (ignore_index -1, fp32 logits)
@@ -280,7 +304,15 @@ def init_paged_cache(config: LLMConfig, n_blocks: int, block_size: int,
 
 
 def count_params(model: nn.Module, config: LLMConfig) -> tuple[int, int]:
-    """(total, active) parameter counts; equal for the dense models the
-    port runs."""
+    """(total, active) parameter counts (reference `count_params`): active
+    counts the shared experts and n_act_routed routed experts of each MoE
+    layer, everything else fully."""
     total = sum(p.numel() for p in model.parameters())
-    return total, total
+    if not config.moe:
+        return total, total
+    inactive = sum(p.numel() // config.n_exp
+                   * (config.n_routed - config.n_act_routed)
+                   for name, p in model.named_parameters()
+                   if name.rsplit(".", 1)[-1] in ("experts_fc",
+                                                  "experts_proj"))
+    return total, total - inactive

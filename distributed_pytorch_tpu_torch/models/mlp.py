@@ -1,20 +1,51 @@
-"""Dense feed-forward layer.
+"""Feed-forward layers: the dense MLP and DeepSeekMoE.
 
-Counterpart of the reference package's `models/mlp.py` `MLP`/`mlp_apply`:
-bias-free up/down projections stored as bare (in, out) parameters
-`c_fc` (C, fc_out) and `c_proj` (up, C), as the reference stores them;
-gated variants ('swiglu'/'glu') split ONE fused (C, 2*up) product in half
-with the gate FIRST. The weights are cast to the activations' dtype at use
-(fp32 masters under bf16 compute); in training mode with `config.dropout >
-0` the output takes residual dropout keyed on `dropout_seed`. Under an
-active quantized-weight store (the engine's decode forwards, ops/quant.py)
-both products read int8 codes with a scale per output column, applied
-before the gating split (exact: the scale is per column of the fused
-product). `MoE` waits for its slice.
+Counterpart of the reference package's `models/mlp.py`:
+
+* `MLP`/`mlp_apply`: bias-free up/down projections stored as bare (in,
+  out) parameters `c_fc` (C, fc_out) and `c_proj` (up, C), as the
+  reference stores them; gated variants ('swiglu'/'glu') split ONE fused
+  (C, 2*up) product in half with the gate FIRST. The weights are cast to
+  the activations' dtype at use (fp32 masters under bf16 compute); in
+  training mode with `config.dropout > 0` the output takes residual
+  dropout keyed on `dropout_seed`. Under an active quantized-weight store
+  (the engine's decode forwards, ops/quant.py) both products read int8
+  codes with a scale per output column, applied before the gating split
+  (exact: the scale is per column of the fused product).
+* `MoE` (reference :244-384): stacked expert weights `experts_fc`
+  (n_exp, C, fc_out) and `experts_proj` (n_exp, up, C), the first n_shared
+  always on; an fp32 router `gate` (C, n_routed) — kept in fp32 whatever
+  the model's weight dtype, as the reference keeps fp32 params — picks
+  the top n_act_routed experts. With `aux_free` the selection adds the
+  `expert_bias` buffer while the gates come from the unbiased logits, the
+  bias moves by gamma (1/n_routed - f_i) per training micro-step, and the
+  complementary aux loss is alpha n_routed sum(p_i f_i); otherwise the
+  classic aux loss coeff n_routed sum(p_i f_i). No output dropout (the
+  reference's MoE has none). Three dispatches (`config.moe_impl`):
+  'dense' runs every routed expert on every token and combines with a
+  gate matrix that is zero outside the top-k; 'scatter'
+  (`scatter_dispatch`) packs each expert's first `capacity` assignments
+  and drops the rest, surfaced as the `dropped_frac` buffer; 'grouped'
+  runs the dropless grouped-matmul kernels (ops/grouped_matmul.py), shared
+  experts included, and degrades to 'dense' where `grouped_usable`
+  refuses: counted in `grouped_matmul.DEGRADED` (the trainer's
+  `moe_degraded_dense` stat) and warned once per layer, since 'dense'
+  runs n_routed / n_act_routed times the routed experts' FLOPs.
+* The reference's forward is pure: the new `moe_state` comes back from
+  `apply` and the train step carries it. Here a training forward only
+  computes the new `expert_bias` and `dropped_frac` (`pending_state`), and
+  `commit_state()` writes them — the train step commits once per
+  micro-step after its backward. A forward recomputed in the backward
+  (`act_recomp`) therefore routes with the bias the micro-step started
+  with, as the reference's remat does, and the bias moves once.
+  `_expert_constraint` (a mesh constraint) comes with slice 6.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+import warnings
 from typing import Callable
 
 import torch
@@ -22,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_pytorch_tpu_torch.config import LLMConfig
+from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
 from distributed_pytorch_tpu_torch.ops.dropout import dropout
 from distributed_pytorch_tpu_torch.ops.quant import maybe_quantized_matmul
 
@@ -48,6 +80,17 @@ def _is_gated(name: str) -> bool:
     return name.lower() in ("swiglu", "glu")
 
 
+def activate(h: torch.Tensor, non_linearity: str) -> torch.Tensor:
+    """The nonlinearity on the fc product: gated variants split it in half,
+    act(x1) * x2 with the gate first; the others map it elementwise."""
+    if _is_gated(non_linearity):
+        x1, x2 = h.chunk(2, dim=-1)
+        gate = F.silu(x1) if non_linearity.lower() == "swiglu" \
+            else torch.sigmoid(x1)
+        return gate * x2
+    return _activation(non_linearity)(h)
+
+
 def mlp_apply(x: torch.Tensor, w_fc: torch.Tensor, w_proj: torch.Tensor,
               non_linearity: str, qnames=None) -> torch.Tensor:
     """Apply one MLP given its (in, out) weights. Gated variants: w_fc is
@@ -57,13 +100,7 @@ def mlp_apply(x: torch.Tensor, w_fc: torch.Tensor, w_proj: torch.Tensor,
     h = maybe_quantized_matmul(x, fc_name)
     if h is None:
         h = x @ w_fc
-    if _is_gated(non_linearity):
-        x1, x2 = h.chunk(2, dim=-1)
-        gate = F.silu(x1) if non_linearity.lower() == "swiglu" \
-            else torch.sigmoid(x1)
-        h = gate * x2
-    else:
-        h = _activation(non_linearity)(h)
+    h = activate(h, non_linearity)
     y = maybe_quantized_matmul(h, proj_name)
     return h @ w_proj if y is None else y
 
@@ -90,3 +127,161 @@ class MLP(nn.Module):
         if self.training and self.dropout > 0.0:
             y = dropout(y, self.dropout, dropout_seed)
         return y
+
+
+def scatter_dispatch(x_flat: torch.Tensor, topk_idx: torch.Tensor,
+                     topk_gates: torch.Tensor, experts_fc: torch.Tensor,
+                     experts_proj: torch.Tensor, *, non_linearity: str,
+                     capacity: int) -> torch.Tensor:
+    """Capacity-bounded sort-based routed-expert dispatch (reference
+    :193). x_flat (N, C); topk_idx/topk_gates (N, k) over the E routed
+    experts whose stacked weights are experts_fc (E, C, fc_out) /
+    experts_proj (E, up, C), in x's dtype. Returns (N, C). Assignments
+    past an expert's `capacity` are dropped (earlier tokens win)."""
+    N, k = topk_idx.shape
+    E = experts_fc.shape[0]
+    dev = x_flat.device
+
+    flat_e = topk_idx.reshape(-1)
+    flat_g = topk_gates.reshape(-1).float()
+    flat_t = torch.arange(N * k, device=dev) // k          # owning token
+    order = torch.argsort(flat_e, stable=True)             # group by expert
+    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+
+    counts = torch.zeros(E, dtype=torch.long, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(N * k, device=dev) - starts[se]     # rank in expert
+    # dropped assignments land in one overflow cell that is sliced away
+    slot = torch.where(pos < capacity, se * capacity + pos,
+                       torch.full_like(pos, E * capacity))
+    buf_tok = torch.zeros(E * capacity + 1, dtype=torch.long,
+                          device=dev).index_put((slot,), st)
+    buf_gate = torch.zeros(E * capacity + 1, device=dev).index_put(
+        (slot,), sg)
+    tok_grid = buf_tok[:-1].reshape(E, capacity)
+    gate_grid = buf_gate[:-1].reshape(E, capacity)
+    # unfilled slots keep token 0 with gate 0: computed, then zeroed
+    y = mlp_apply(x_flat[tok_grid], experts_fc, experts_proj, non_linearity)
+    y = y * gate_grid[..., None].to(x_flat.dtype)          # (E, cap, C)
+    return torch.zeros_like(x_flat).index_add(
+        0, tok_grid.reshape(-1), y.reshape(E * capacity, -1))
+
+
+class MoE(nn.Module):
+    """DeepSeekMoE layer (reference :244-384); `forward` returns (y,
+    aux_loss). Expert e's weights are slice [e] of the stacks; the first
+    n_shared are the shared experts."""
+
+    def __init__(self, config: LLMConfig, *, device=None, dtype=None):
+        super().__init__()
+        cfg = config
+        C, up = cfg.n_embd, cfg.up_dim
+        fc_out = 2 * up if _is_gated(cfg.non_linearity) else up
+        self.config = cfg
+        self.experts_fc = nn.Parameter(torch.empty(
+            cfg.n_exp, C, fc_out, device=device, dtype=dtype))
+        self.experts_proj = nn.Parameter(torch.empty(
+            cfg.n_exp, up, C, device=device, dtype=dtype))
+        self.gate = nn.Parameter(torch.empty(
+            C, cfg.n_routed, device=device, dtype=torch.float32))
+        if cfg.aux_free:
+            self.register_buffer("expert_bias", torch.zeros(
+                cfg.n_routed, device=device, dtype=torch.float32))
+        self.register_buffer("dropped_frac", torch.zeros(
+            (), device=device, dtype=torch.float32))
+        self.pending_state = None
+        self.warned_dense = False
+
+    @torch.no_grad()
+    def commit_state(self) -> None:
+        """Write the `expert_bias` and `dropped_frac` of the last training
+        forward into the buffers (a no-op when none is pending)."""
+        if self.pending_state is None:
+            return
+        bias, drop = self.pending_state
+        if bias is not None:
+            self.expert_bias.copy_(bias)
+        self.dropped_frac.copy_(drop)
+        self.pending_state = None
+
+    def forward(self, x: torch.Tensor):
+        cfg = self.config
+        B, T, C = x.shape
+        dt = x.dtype
+        n_shared, n_routed, k = cfg.n_shared, cfg.n_routed, cfg.n_act_routed
+        x_flat = x.reshape(-1, C)
+        n_tokens = x_flat.shape[0]
+        fc = self.experts_fc.to(dt)
+        proj = self.experts_proj.to(dt)
+
+        use_grouped = False
+        if cfg.moe_impl == "grouped":
+            use_grouped = gm.grouped_usable(cfg, dt, x.device)
+            if not use_grouped:
+                gm.DEGRADED["dense"] += 1
+                if not self.warned_dense:
+                    self.warned_dense = True
+                    warnings.warn(
+                        f"moe_impl='grouped' refused for {dt} on "
+                        f"{x.device.type} (n_embd {C}, up_dim {cfg.up_dim}):"
+                        f" this layer takes the 'dense' dispatch, "
+                        f"{n_routed}/{k} x the routed experts' FLOPs",
+                        RuntimeWarning, stacklevel=2)
+
+        # shared experts (reference :286-297); the grouped path runs them
+        # in its kernels as always-on groups
+        shared_out = None
+        if n_shared > 0 and not use_grouped:
+            shared_out = mlp_apply(x_flat, fc[:n_shared], proj[:n_shared],
+                                   cfg.non_linearity).sum(dim=0)
+
+        # router in fp32 (reference :299-329)
+        logits = x_flat.float() @ self.gate.float()        # (N, n_routed)
+        if cfg.aux_free:
+            topk_idx = (logits + self.expert_bias).topk(k, dim=1).indices
+            # gates from the UNbiased logits of the selected experts
+            topk_gates = torch.softmax(logits.gather(1, topk_idx), dim=1)
+        else:
+            topk_vals, topk_idx = logits.topk(k, dim=1)
+            topk_gates = torch.softmax(topk_vals, dim=1)
+        one_hot = F.one_hot(topk_idx, n_routed).float()
+        fi = one_hot.sum(dim=(0, 1)).detach() / n_tokens
+        pi = torch.softmax(logits, dim=1).mean(dim=0)
+        coef = cfg.alpha if cfg.aux_free else cfg.coeff
+        aux_loss = coef * n_routed * (pi * fi).sum()
+
+        # routed dispatch (reference :331-371)
+        dropped_frac = torch.zeros((), device=x.device)
+        if cfg.moe_impl == "scatter":
+            capacity = max(k, math.ceil(
+                cfg.capacity_factor * n_tokens * k / n_routed))
+            routed_out = scatter_dispatch(
+                x_flat, topk_idx, topk_gates, fc[n_shared:], proj[n_shared:],
+                non_linearity=cfg.non_linearity, capacity=capacity)
+            load = torch.zeros(n_routed, device=x.device).index_add_(
+                0, topk_idx.reshape(-1),
+                torch.ones(topk_idx.numel(), device=x.device))
+            dropped_frac = (load - capacity).clamp_min(0).sum() \
+                / float(n_tokens * k)
+        elif use_grouped:
+            routed_out = gm.grouped_dispatch(
+                x_flat, topk_idx, topk_gates, fc, proj,
+                act=functools.partial(activate,
+                                      non_linearity=cfg.non_linearity),
+                n_shared=n_shared)
+        else:
+            combine = (one_hot * topk_gates[..., None]).sum(dim=1)  # (N, E)
+            all_routed = mlp_apply(x_flat, fc[n_shared:], proj[n_shared:],
+                                   cfg.non_linearity)       # (E, N, C)
+            routed_out = torch.einsum("enc,ne->nc", all_routed,
+                                      combine.to(dt))
+
+        if self.training:
+            bias = None
+            if cfg.aux_free:
+                bias = self.expert_bias + cfg.gamma * (1.0 / n_routed - fi)
+            self.pending_state = (bias, dropped_frac.detach())
+
+        y = routed_out if shared_out is None else shared_out + routed_out
+        return y.reshape(B, T, C), aux_loss.float()

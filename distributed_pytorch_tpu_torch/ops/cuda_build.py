@@ -6,15 +6,16 @@ with `ctypes` — no PyTorch headers in the sources, so a build takes
 seconds, not the minutes `torch.utils.cpp_extension` needs. A source may
 export several kernels' entries (paged_decode_attn.cu and
 paged_prefill_attn.cu: the bf16/fp32 cache and the int8 one;
-flash_attn_bwd.cu: dq and dkv; fused_ce_bwd.cu: dx and dW). Libraries
+flash_attn_bwd.cu: dq and dkv; fused_ce_bwd.cu and grouped_mm_bwd.cu: dx
+and dW). Libraries
 are keyed by a hash of their sources and flags, under
 `build/torch_kernels/` at the repo root (git-ignored); a stale key simply
 builds anew. `build()` compiles every missing library at once, one `nvcc`
 process per source, all started together.
 
 Every C entry returns the launch's `cudaGetLastError()`; the wrappers in
-ops/flash_decode.py, ops/flash_attention.py and ops/fused_ce.py raise when
-it is not 0.
+ops/flash_decode.py, ops/flash_attention.py, ops/fused_ce.py and
+ops/grouped_matmul.py raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -90,6 +91,18 @@ KERNELS = {
         "fused_ce_bwd.cu",
         # dtype, x, w, t, lse, coef, dw, n, V, C, stream
         (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "grouped_mm_fwd": (
+        "grouped_mm_fwd.cu",
+        # dtype, x, w, scale, tile_group, y, P, K, N, E, bm, stream
+        (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "grouped_mm_bwd_dx": (
+        "grouped_mm_bwd.cu",
+        # dtype, dy, w, scale, tile_group, dx, P, K, N, E, bm, stream
+        (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "grouped_mm_bwd_dw": (
+        "grouped_mm_bwd.cu",
+        # dtype, x, dy, scale, counts, gstart, dw, P, K, N, E, bm, stream
+        (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

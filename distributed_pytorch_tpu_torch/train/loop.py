@@ -19,7 +19,12 @@ SIGINT the loop, at its next log or eval boundary, drains the pending
 metrics, saves `step_<k>` and stops (`stats["stopped_early"]`); a later
 `--resume` continues the same step-keyed data stream.
 
-Not here yet, and refused where a config asks for them: the parallel
+MoE models (slice 5) log `moe_drop`, the share of routed assignments the
+'scatter' dispatch dropped, and keep it as `stats["moe_dropped_frac"]`;
+`stats["moe_degraded_dense"]` counts the layer forwards of the run that
+asked for 'grouped' and took 'dense' (`grouped_matmul.DEGRADED`).
+
+Not here yet, and refused where a config asks for them: MLA; the parallel
 recipes and ZeRO-Offload (slice 6); the profiler and the live metrics
 endpoint (slice 7). The reference's telemetry flight recorder, memory
 planner, AOT program store and multi-host bring-up also come with slices
@@ -46,6 +51,7 @@ from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
 from distributed_pytorch_tpu_torch.data.loader import (DataLoader,
                                                        make_synthetic_bin)
 from distributed_pytorch_tpu_torch.models.gpt import count_params
+from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
 from distributed_pytorch_tpu_torch.ops.attention_core import LATER_IMPLS
 from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
 from distributed_pytorch_tpu_torch.train import metrics as M
@@ -64,8 +70,9 @@ def check_slice(model_cfg: LLMConfig, train_cfg: TrainConfig) -> None:
     if train_cfg.attn_impl in LATER_IMPLS:
         later.append(f"attn_impl={train_cfg.attn_impl!r}: "
                      f"{LATER_IMPLS[train_cfg.attn_impl]}")
-    if model_cfg.moe or model_cfg.attn == "mla":
-        later.append("MoE and MLA models come with slice 5")
+    if model_cfg.attn == "mla":
+        later.append("MLA models come with a later slice (after the MoE "
+                     "slice 5)")
     if train_cfg.offload == "on":
         later.append("offload comes with slice 6 (parallel recipes)")
     if train_cfg.profile or train_cfg.metrics_port >= 0:
@@ -177,6 +184,16 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
     times, tok/s, MFU, peak memory) with the final state under 'state'."""
     check_slice(model_cfg, train_cfg)
     say = log
+    if model_cfg.moe:
+        # moe_impl lives in both configs (the CLI routes the flag to both);
+        # for programmatic callers a non-default TrainConfig value wins,
+        # but its default ('dense') never downgrades a model configured
+        # otherwise (reference loop.py:318-328)
+        want = train_cfg.moe_impl if train_cfg.moe_impl != "dense" \
+            else model_cfg.moe_impl
+        if want != model_cfg.moe_impl:
+            say(f"moe_impl: TrainConfig overrides model config -> {want}")
+            model_cfg = dataclasses.replace(model_cfg, moe_impl=want)
     device = train_device(train_cfg)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
@@ -222,6 +239,9 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
     eval_step = make_eval_step()
     stats = {"train_losses": [], "val_losses": [], "step_times": [],
              "tokens_per_sec": [], "mfu": []}
+    if model_cfg.moe:
+        stats["moe_dropped_frac"] = []  # per-synced-step drop fractions
+        degraded0 = gm.DEGRADED["dense"]
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -282,6 +302,9 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
                 for k, g in enumerate(got):
                     it_k = it - len(got) + 1 + k
                     stats["train_losses"].append(g["loss"])
+                    if "moe_dropped_frac" in g:
+                        stats["moe_dropped_frac"].append(
+                            g["moe_dropped_frac"])
                     if g.get("nonfinite"):
                         ev = {"it": it_k, "loss": g["loss"],
                               "grad_norm": g["grad_norm"],
@@ -300,9 +323,15 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
                     mem = M.device_memory_gb(device)
                     mfu_s = f" | mfu {mfu:6.2%}" if mfu is not None else ""
                     mem_s = f" | mem {mem:5.2f}GB" if mem else ""
+                    # the dropped share of routed assignments ('scatter'
+                    # drops past capacity; 0 for dense and grouped)
+                    drop_s = (f" | moe_drop "
+                              f"{stats['moe_dropped_frac'][-1]:6.2%}"
+                              if stats.get("moe_dropped_frac") else "")
                     say(f"iter {it:5d} | loss {got[-1]['loss']:.4f} | "
                         f"dt {dt * 1e3:7.1f}ms | tok/s "
-                        f"{tokens_per_step / dt:10.0f}{mfu_s}{mem_s}")
+                        f"{tokens_per_step / dt:10.0f}{mfu_s}{mem_s}"
+                        f"{drop_s}")
 
             if ckpt_due:
                 path = ckpt.save_checkpoint(
@@ -332,6 +361,10 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
         stats["median_mfu"] = M.mfu(model_cfg, tokens_per_step, T, med,
                                     device=device)
     stats["params_total"], stats["params_active"] = int(total), int(active)
+    if stats.get("moe_dropped_frac"):
+        stats["final_moe_dropped_frac"] = stats["moe_dropped_frac"][-1]
+    if model_cfg.moe:
+        stats["moe_degraded_dense"] = gm.DEGRADED["dense"] - degraded0
     stats["stopped_early"] = stopped_early
     stats["device"] = name
     if stats.get("anomalies"):

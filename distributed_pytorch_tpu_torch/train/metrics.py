@@ -2,8 +2,11 @@
 
 Counterpart of the reference package's `train/metrics.py`
 (`matmul_params_per_token`, `attn_matmul_params_per_token`, `step_flops`,
-`mfu`; metrics.py:121-238) for the dense family, with a table of NVIDIA
-peaks in place of the TPU one. Model FLOPs: every matmul a token touches
+`moe_overcompute_factor`, `mfu`; metrics.py:121-238) for the
+mha/mqa/gqa family, dense and MoE, with a table of NVIDIA peaks in place
+of the TPU one. An MoE token counts its active experts (the shared ones
+and n_act_routed routed ones) and the router, whatever the dispatch
+computes. Model FLOPs: every matmul a token touches
 costs 2*in*out FLOPs forward, backward twice that; attention scores and
 values add 4*T*C per token per layer, halved for causality; recomputation
 adds the recomputed forward. The tied lm-head matmul counts; the
@@ -44,14 +47,36 @@ def attn_matmul_params_per_token(cfg: LLMConfig) -> int:
 
 
 def matmul_params_per_token(cfg: LLMConfig) -> int:
-    """Matmul parameters a token touches (dense family): attention, MLP,
-    and the tied lm head."""
+    """Active matmul parameters a token touches: attention, the MLP (MoE:
+    the shared and n_act_routed routed experts, plus the router), and the
+    tied lm head."""
     C = cfg.n_embd
     fc_out = 2 * cfg.up_dim if cfg.non_linearity.lower() in ("swiglu", "glu") \
         else cfg.up_dim
     one_mlp = C * fc_out + cfg.up_dim * C
-    return attn_matmul_params_per_token(cfg) + cfg.n_layer * one_mlp \
+    if cfg.moe:
+        ffn = one_mlp * (cfg.n_shared + cfg.n_act_routed) + C * cfg.n_routed
+    else:
+        ffn = one_mlp
+    return attn_matmul_params_per_token(cfg) + cfg.n_layer * ffn \
         + cfg.vocab_size * C
+
+
+def moe_overcompute_factor(cfg: LLMConfig) -> float:
+    """Executed over useful expert-FFN FLOPs for the configured dispatch:
+    MFU counts the active experts only, and this says how much more the
+    dispatch runs — 'dense' every routed expert on every token, 'scatter'
+    each expert padded to its capacity, 'grouped' ~1 (tile rounding
+    only)."""
+    if not cfg.moe:
+        return 1.0
+    active = cfg.n_shared + cfg.n_act_routed
+    if cfg.moe_impl == "dense":
+        return (cfg.n_shared + cfg.n_routed) / active
+    if cfg.moe_impl == "scatter":
+        return (cfg.n_shared + cfg.capacity_factor * cfg.n_act_routed) \
+            / active
+    return 1.0
 
 
 def step_flops(cfg: LLMConfig, tokens_per_step: int, seq_len: int) -> float:

@@ -111,7 +111,7 @@ def _factored_dims(shape) -> tuple[int, int] | None:
     least 128 long, else None (an unfactored second moment)."""
     if len(shape) < 2:
         return None
-    order = np.argsort(shape, kind="stable")
+    order = np.argsort(shape)
     if shape[order[-2]] < 128:
         return None
     return int(order[-2]), int(order[-1])
@@ -123,7 +123,8 @@ def _rms(x: torch.Tensor) -> torch.Tensor:
 
 class Adafactor(torch.optim.Optimizer):
     """optax.adafactor with its defaults: factored second moments (row and
-    column means of g^2 + 1e-30) for parameters with two axes of >= 128,
+    column means of g^2 + 1e-30 over the two largest axes) for parameters
+    whose second-largest axis is >= 128,
     decay 1 - (k + 1)^-0.8 at the k-th update, the update clipped to block
     RMS 1, scaled by lr and by max(RMS(p), 1e-3), plus weight_decay p
     (a constant rate), subtracted."""
@@ -160,7 +161,12 @@ class Adafactor(torch.optim.Optimizer):
             v_row, v_col = st["v_row"], st["v_col"]
             v_row.mul_(decay).add_(g_sqr.mean(dim=d0).mul_(1.0 - decay))
             v_col.mul_(decay).add_(g_sqr.mean(dim=d1).mul_(1.0 - decay))
-            row = (v_row / v_row.mean()).pow(-0.5)
+            # v_row lacks axis d0: normalise over what was axis d1 only,
+            # so each leading index (each expert of a stacked MoE weight)
+            # is normalised on its own, as optax's row_col_mean is
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)
+                   ).pow(-0.5)
             u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
         u = u / torch.clamp_min(_rms(u), 1.0)       # clip_by_block_rms(1.0)
         u = u * group["lr"]

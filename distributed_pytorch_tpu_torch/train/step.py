@@ -10,18 +10,26 @@ by global norm and applies AdamW at the schedule's learning rate.
 * Dropout: micro-batch `m` of step `s` uses the seed `subseed(seed, s, m)`
   (ops/dropout.py), drawn here, outside every recomputed region, so
   activation recomputation regenerates the masks it drew.
+* MoE routing state (models/mlp.py): after each micro-step's backward
+  the step commits every MoE layer's new `expert_bias` and
+  `dropped_frac`, so the bias moves once per micro-step and the next
+  micro-step routes with it, as the reference's scan carries its
+  `moe_state` (step.py:136-147).
 * Fault injection: TRAIN_POISON_IT=k NaN-bombs iteration k's loss and
   gradients, as a poisoned batch would.
 * Anomaly guard (`train_cfg.anomaly`): 'warn' and 'skip' add `nonfinite`
   (1.0 when the loss or the gradient norm is not finite) to the metrics;
-  'skip' then withholds the update from the weights and the optimizer
-  moments (and the schedule's count) while `step` still advances, so the
-  data stream stays step-keyed. 'skip' reads the flag on the host each
+  'skip' then withholds the update from the weights, the optimizer
+  moments, the MoE routing state (restored to the step's start) and the
+  schedule's count while `step` still advances, so the data stream stays
+  step-keyed. 'skip' reads the flag on the host each
   step; 'warn' and 'off' never sync.
 
 Metrics are 0-d device tensors: `loss` (mean over micro-batches),
-`grad_norm` (before clipping), `nonfinite`, and `update_skipped` under
-'skip'.
+`grad_norm` (before clipping), `nonfinite`, `update_skipped` under
+'skip', and for MoE models `moe_dropped_frac` (the mean over layers of
+the fraction of routed assignments 'scatter' dropped; 0 for 'dense' and
+'grouped'; reference `_dropped_frac` :38).
 """
 
 from __future__ import annotations
@@ -51,11 +59,15 @@ def make_train_step(train_cfg: TrainConfig):
         for p in params:
             p.grad = None
         accum = x.shape[0]
+        moe = model.moe_layers()
+        moe_start = [b.clone() for layer in moe for b in layer.buffers()] \
+            if anomaly == "skip" else []
         losses = []
         for m in range(accum):
             _, loss = model(x[m], y[m], dropout_seed=subseed(
                 train_cfg.seed, state.step, m))
             loss.backward()
+            model.commit_moe_state()
             losses.append(loss.detach())
         grads = [p.grad for p in params]
         torch._foreach_div_(grads, float(accum))
@@ -72,6 +84,14 @@ def make_train_step(train_cfg: TrainConfig):
             if anomaly == "skip":
                 metrics["update_skipped"] = metrics["nonfinite"]
                 apply = bool(finite)
+        if not apply:
+            with torch.no_grad():
+                for b, b0 in zip((b for layer in moe
+                                  for b in layer.buffers()), moe_start):
+                    b.copy_(b0)
+        if moe:
+            metrics["moe_dropped_frac"] = torch.stack(
+                [layer.dropped_frac for layer in moe]).mean()
         if apply:
             clip_by_global_norm(grads, gnorm, train_cfg.grad_clip)
             lr = sched(state.updates)

@@ -16,8 +16,13 @@ autograd path against the naive attention's gradients in fp32. The fused
 cross-entropy kernels (forward, dx, dW) at ragged token counts and
 vocabularies, with ignored rows, each output element by element within
 atol + rtol x |plain| (`CE_TOL`), and their autograd route against the
-plain route on the CPU. Last, Lion and Adafactor steps on the card
-against the same steps on the CPU.
+plain route on the CPU. Lion and Adafactor steps on the card against the
+same steps on the CPU. The grouped-matmul kernels (forward, dx, dW;
+unscaled and scaled) over ragged groups with empty and singleton
+experts, every row on one expert, and widths that are not multiples of
+the 128-wide tiles, each output element by element within `GMM_TOL`;
+the grouped dispatch's autograd route against the plain route on the
+CPU, and an MoE layer through the kernels against its dense dispatch.
 
 These carry the `cuda` marker and skip without a card. This file imports
 no JAX, so on a machine without it run it alone, without the JAX conftest:
@@ -30,9 +35,11 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_pytorch_tpu_torch.models.mlp import activate
 from distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from distributed_pytorch_tpu_torch.ops import flash_decode as fd
 from distributed_pytorch_tpu_torch.ops import fused_ce as ce
+from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
 from distributed_pytorch_tpu_torch.ops.attention_core import sdpa
 from distributed_pytorch_tpu_torch.ops.quant import quantize_kv
 
@@ -483,3 +490,157 @@ def test_optimizer_steps_on_card_match_cpu(dev, optimizer, lr):
     for k in w_c:
         assert torch.isfinite(w_g[k]).all()
         assert (w_g[k] - w_c[k]).abs().max().item() <= atol, k
+
+
+# grouped matmul, kernel vs plain, element by element: |kernel - plain| <=
+# atol x max|plain| + rtol x |plain|. Both sum the same fp32 products of
+# the operands' values in another order (atol, relative to the output's
+# scale: dW sums thousands of rows); bf16 outputs round on both sides (one
+# ulp: rtol 2^-7); dW is fp32 whatever the operands.
+GMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2 ** -7)}
+GMM_CASES = [(768, 2048, [3000, 0, 1, 129, 2000, 0, 700, 5]),
+             (1024, 768, [1024, 1024, 512, 0, 3]),
+             (768, 256, [0, 0, 4096, 0]),
+             (264, 136, [200, 57, 0, 300])]
+
+
+def _gmm_within(out, ref, tol):
+    atol, rtol = tol
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    ref = ref.float()
+    d = (out.float() - ref).abs()
+    lim = atol * ref.abs().max() + rtol * ref.abs()
+    assert (d <= lim).all(), (d - lim).max().item()
+
+
+def _gmm_inputs(dev, dtype, K, N, counts, bm=128, seed=0):
+    """A packed buffer for groups of `counts` rows: metadata from the
+    dispatch's own `_gmm_metadata`, random rows, weights and gates."""
+    E = len(counts)
+    flat_e = torch.repeat_interleave(torch.arange(E, device=dev),
+                                     torch.tensor(counts, device=dev))
+    n_tiles = -(-sum(counts) // bm) + E
+    cnt, pstart, _, tile_group = gm._gmm_metadata(flat_e, E, n_tiles, bm)
+    P = n_tiles * bm
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn(P, K, generator=g, device=dev).to(dtype)
+    w = (0.02 * torch.randn(E, K, N, generator=g, device=dev)).to(dtype)
+    dy = torch.randn(P, N, generator=g, device=dev).to(dtype)
+    s = torch.rand(P, 1, generator=g, device=dev)
+    return x, w, dy, s, cnt, pstart, tile_group
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("K,N,counts", GMM_CASES,
+                         ids=["ragged", "proj", "one_expert", "odd_widths"])
+def test_grouped_kernels(dev, dtype, K, N, counts):
+    """Each grouped kernel, unscaled and scaled, against its plain version
+    on the same operands; dW of an expert with no rows is exactly 0."""
+    x, w, dy, s, cnt, pstart, tg = _gmm_inputs(dev, dtype, K, N, counts)
+    gm.reset_counts()
+    for sc in (None, s):
+        _gmm_within(gm.gmm_fwd(x, w, tg, sc, bm=128),
+                    gm.gmm_fwd_plain(x, w, tg, sc, bm=128), GMM_TOL[dtype])
+        _gmm_within(gm.gmm_bwd_dx(dy, w, tg, sc, bm=128),
+                    gm.gmm_bwd_dx_plain(dy, w, tg, sc, bm=128),
+                    GMM_TOL[dtype])
+        dw = gm.gmm_bwd_dw(x, dy, cnt, pstart, sc, bm=128)
+        _gmm_within(dw, gm.gmm_bwd_dw_plain(x, dy, cnt, pstart, sc, bm=128),
+                    GMM_TOL[torch.float32])
+        for e, c in enumerate(counts):
+            if c == 0:
+                assert torch.count_nonzero(dw[e]) == 0
+    assert gm.LAUNCHES == {k: 2 for k in gm.LAUNCHES}
+
+
+def test_grouped_dispatch_autograd_matches_plain_route(dev):
+    """`grouped_dispatch` (shared + routed experts through the kernels,
+    bm 128) against the same function on CPU copies (the plain versions at
+    bm 128), in fp32: output and the gradients of x, the gates and both
+    weight stacks, element by element within GMM_TOL."""
+    dtype = torch.float32
+    N, C, up, E, k, n_shared = 300, 256, 384, 6, 2, 1
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(N, C, generator=g, device=dev).to(dtype)
+    fc = (0.05 * torch.randn(E, C, 2 * up, generator=g, device=dev)).to(dtype)
+    proj = (0.05 * torch.randn(E, up, C, generator=g, device=dev)).to(dtype)
+    logits = torch.randn(N, E - n_shared, generator=g, device=dev)
+    vals, idx = logits.topk(k, dim=1)
+    gates = torch.softmax(vals, dim=1)
+    dy = torch.randn(N, C, generator=g, device=dev).to(dtype)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [t.to(d).clone().requires_grad_() for t in (x, gates, fc,
+                                                             proj)]
+        if d.type == "cpu":
+            old, gm.CPU_BLOCK_M = gm.CPU_BLOCK_M, 128
+        try:
+            y = gm.grouped_dispatch(
+                leaves[0], idx.to(d), leaves[1], leaves[2], leaves[3],
+                act=lambda h: activate(h, "swiglu"), n_shared=n_shared)
+        finally:
+            if d.type == "cpu":
+                gm.CPU_BLOCK_M = old
+        y.backward(dy.to(d))
+        res.append([y.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for a, b in zip(*res):
+        _gmm_within(a, b, GMM_TOL[dtype])
+
+
+def test_moe_layer_grouped_matches_dense_on_card(dev):
+    """An fp32 MoE layer (1 shared + 7 routed experts, top 2) through the
+    grouped kernels against its dense dispatch on the card: output and
+    every gradient within 1e-5 of its largest entry (summation order);
+    the kernels launch 2 forward, 1 recompute, 2 dx and 2 dW times."""
+    import dataclasses
+
+    from distributed_pytorch_tpu_torch.config import LLMConfig
+    from distributed_pytorch_tpu_torch.models.mlp import MoE
+
+    cfg = LLMConfig(n_embd=256, up_dim=384, moe=True, n_exp=8, n_shared=1,
+                    n_act=3, moe_impl="grouped")
+    x = torch.randn(2, 200, 256, device=dev)
+    dy = torch.randn(2, 200, 256, device=dev)
+    res = []
+    for impl in ("grouped", "dense"):
+        torch.manual_seed(0)
+        layer = MoE(dataclasses.replace(cfg, moe_impl=impl), device=dev)
+        with torch.no_grad():
+            for p in layer.parameters():
+                p.normal_(0.0, 0.05)
+        xs = x.clone().requires_grad_()
+        gm.reset_counts()
+        y, aux = layer(xs)
+        (y * dy).sum().add(aux).backward()
+        if impl == "grouped":
+            assert gm.LAUNCHES == {"grouped_mm_fwd": 3,
+                                   "grouped_mm_bwd_dx": 2,
+                                   "grouped_mm_bwd_dw": 2}
+            assert gm.PLAIN_CALLS == {k: 0 for k in gm.PLAIN_CALLS}
+            assert gm.DEGRADED["dense"] == 0
+        res.append([y.detach(), xs.grad] + [p.grad for p in
+                                            layer.parameters()])
+    for a, b in zip(*res):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def test_grouped_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, w, dy, s, cnt, pstart, tg = _gmm_inputs(dev, torch.bfloat16, 256,
+                                               128, [100, 30])
+    with pytest.raises(ValueError, match="dtype"):
+        gm.gmm_fwd(x.half(), w.half(), tg, bm=128)
+    with pytest.raises(ValueError, match="dtype"):
+        gm.gmm_fwd(x, w.float(), tg, bm=128)
+    with pytest.raises(ValueError, match="multiple"):
+        gm.gmm_fwd(x[:, :252].contiguous(), w[:, :252].contiguous(), tg,
+                   bm=128)
+    with pytest.raises(ValueError, match="bm"):
+        gm.gmm_fwd(x, w, tg, bm=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.gmm_bwd_dx(dy.t().contiguous().t(), w, tg, bm=128)
+    with pytest.raises(ValueError, match="int32"):
+        gm.gmm_bwd_dw(x, dy, cnt.long(), pstart, bm=128)
+    with pytest.raises(ValueError, match="scales"):
+        gm.gmm_fwd(x, w, tg, s.double(), bm=128)

@@ -308,3 +308,49 @@ def test_prefill_keeps_the_models_weights(models, prefill_chunk):
         e.step()
     assert not torch.equal(written(engs[0], rows + 1)[rows],
                            written(engs[1], rows + 1)[rows])
+
+
+@pytest.mark.parametrize("cache_dtype,quant", [(None, False), ("int8", True)],
+                         ids=["native", "int8_cache_and_weights"])
+def test_moe_engine_chunked_matches_wave(cache_dtype, quant):
+    """An MoE model (1 shared + 5 routed experts, top 2, the grouped
+    dispatch) in the engine: chunked prefill gives the wave engine's
+    tokens exactly, and the native wave `generate`'s; the grouped forward
+    runs twice per layer per model forward, and never moves the bias;
+    under `quantize_weights` the store holds the attention weights and
+    the tied head but no expert stack or router, which stay in the
+    model's dtype (the reference's quantize_params leaves them too)."""
+    from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
+    cfg = LLMConfig(**dict(KW, moe=True, n_exp=6, n_shared=1, n_act=3,
+                           moe_impl="grouped"))
+    tm = LLM(cfg, device="cpu")
+    tm.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in tm.moe_layers():
+            m.expert_bias.normal_(0.0, 0.3,
+                                  generator=torch.Generator().manual_seed(1))
+    tm.eval()
+    bias = [m.expert_bias.clone() for m in tm.moe_layers()]
+    kw = dict(n_slots=2, temperature=0.0, min_bucket=8, block_size=8,
+              cache_dtype=cache_dtype, quantize_weights=quant)
+    prompts = [list(p) for p in CHUNK_PROMPTS]
+    refs = DecodeEngine(tm, **kw).run(prompts, 10)
+    if cache_dtype is None:
+        for p, r in zip(prompts, refs):
+            assert r == generate(tm, p, 10, temperature=0.0)[0].tolist()
+    calls = []
+    hook = tm.moe_layers()[1].register_forward_hook(
+        lambda *a: calls.append(1))
+    gm.reset_counts()
+    try:
+        eng = DecodeEngine(tm, prefill_chunk=16, **kw)
+        assert eng.run(prompts, 10) == refs
+    finally:
+        hook.remove()
+    assert gm.PLAIN_CALLS["grouped_mm_fwd"] == 2 * cfg.n_layer * len(calls)
+    assert gm.DEGRADED["dense"] == 0
+    assert all(torch.equal(b, m.expert_bias)
+               for b, m in zip(bias, tm.moe_layers()))
+    if quant:
+        assert "blocks.0.attn.c_attn.weight" in eng._qparams
+        assert not any(".moe." in k for k in eng._qparams)

@@ -20,6 +20,14 @@ SOURCES = sorted((ROOT / "distributed_pytorch_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 
+CUDA_SOURCES = sorted((ROOT / "distributed_pytorch_tpu_torch" / "csrc")
+                      .glob("*.cu*"))
+# what a hand-written kernel may include: the port's own headers and the
+# CUDA runtime's and the C++ library's own
+CUDA_HEADERS = {"cuda_runtime.h", "cuda_bf16.h", "stdint.h", "cstdint",
+                "type_traits"}
+
+
 def _imported_tops(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -41,6 +49,34 @@ def _imported_tops(path):
 def test_port_imports_nothing_of_jax(path):
     bad = BANNED.intersection(_imported_tops(path))
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
+def test_kernel_sources_include_no_library(path):
+    """Every CUDA source includes only the port's own headers and the CUDA
+    runtime's: no PyTorch header, cuBLAS, CUTLASS or other library of
+    finished kernels (the grouped-matmul kernels among them)."""
+    import re
+    text = path.read_text()
+    local = {p.name for p in CUDA_SOURCES}
+    for inc in re.findall(r'#include\s*[<"]([^>"]+)[>"]', text):
+        assert inc in local or inc in CUDA_HEADERS, f"{path.name}: {inc}"
+    assert not re.search(r"cublas|cutlass|cute::|_grouped_mm", text,
+                         re.IGNORECASE), path.name
+
+
+def test_grouped_kernels_have_sources_and_guarded_module():
+    """The grouped-matmul module and its kernels are among the guarded
+    files: the module is a source of the import guard above, and each of
+    its kernels is registered to a source under csrc/ that the include
+    guard reads."""
+    from distributed_pytorch_tpu_torch.ops import cuda_build
+    from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
+    assert ROOT / "distributed_pytorch_tpu_torch" / "ops" / \
+        "grouped_matmul.py" in SOURCES
+    for name in gm.LAUNCHES:
+        src = cuda_build.CSRC / cuda_build.KERNELS[name][0]
+        assert src in CUDA_SOURCES, name
 
 
 def test_guard_matches_exact_top_level_names(tmp_path):

@@ -1,0 +1,366 @@
+"""The port's MoE (models/mlp.py `MoE`, ops/grouped_matmul.py) against the
+reference package's on the CPU: the layer under each dispatch and both
+balancing modes (output, aux loss, and the routing state it leaves), a
+tiny MoE model's logits and loss from converted weights, a 5-step AdamW
+trajectory with the aux-free bias moving, and greedy engine tokens. Then
+the port's own guarantees: recomputing blocks leaves the trajectory and
+the bias exactly as they are, a skipped step restores the bias, and
+restore_for_inference brings it back. The reference's grouped dispatch
+runs its Pallas kernels in interpret mode (bm 8), as its own tests do.
+Each test states its tolerance."""
+
+import dataclasses
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_pytorch_tpu.config import LLMConfig as JConfig
+from distributed_pytorch_tpu.config import TrainConfig as JTrainConfig
+from distributed_pytorch_tpu.engine import DecodeEngine as JEngine
+from distributed_pytorch_tpu.models.gpt import LLM as JLLM
+from distributed_pytorch_tpu.models.mlp import MoE as JMoE
+from distributed_pytorch_tpu.train.state import create_train_state as jstate
+from distributed_pytorch_tpu.train.step import make_train_step as jstep
+from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
+from distributed_pytorch_tpu_torch.convert import params_from_jax
+from distributed_pytorch_tpu_torch.engine import DecodeEngine
+from distributed_pytorch_tpu_torch.models.gpt import LLM
+from distributed_pytorch_tpu_torch.models.mlp import MoE
+from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
+from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
+from distributed_pytorch_tpu_torch.train.state import (TrainState,
+                                                       build_model,
+                                                       make_optimizer)
+from distributed_pytorch_tpu_torch.train.step import make_train_step
+
+TINY = dict(vocab_size=97, block_size=32, n_embd=32, n_head=4, n_kv_heads=2,
+            attn="gqa", n_layer=2, up_dim=48, non_linearity="swiglu",
+            pos_emb="rope", moe=True, n_exp=6, n_shared=1, n_act=3,
+            gamma=1e-2)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the layer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("aux_free", [True, False], ids=["aux_free", "aux"])
+@pytest.mark.parametrize("impl", ["dense", "scatter", "grouped"])
+def test_moe_layer_matches_reference(impl, aux_free):
+    """One training forward of the layer from the same weights, input and
+    (nonzero, so that it changes the selection) expert bias: output, aux
+    loss, the updated expert_bias and dropped_frac against the
+    reference's `MoE.apply(..., mutable=['moe_state'])`, fp32, atol 1e-5.
+    'scatter' runs at capacity_factor 0.5, so it drops assignments."""
+    cfg = dict(TINY, moe_impl=impl, aux_free=aux_free, capacity_factor=0.5)
+    jcfg, tcfg = JConfig(**cfg), LLMConfig(**cfg)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 16, 32)).astype(np.float32)
+    var = JMoE(jcfg).init({"params": jax.random.PRNGKey(1)}, jnp.asarray(x))
+    var = jax.tree_util.tree_map(np.array, jax.device_get(dict(var)))
+    bias0 = (0.3 * rng.standard_normal(tcfg.n_routed)).astype(np.float32)
+    if aux_free:
+        var["moe_state"]["expert_bias"] = bias0
+    (y_ref, aux_ref), mut = JMoE(jcfg).apply(
+        var, jnp.asarray(x), deterministic=False, mutable=["moe_state"])
+
+    layer = MoE(tcfg, device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        for name in ("experts_fc", "experts_proj", "gate"):
+            getattr(layer, name).copy_(_t(var["params"][name]))
+        if aux_free:
+            layer.expert_bias.copy_(_t(bias0))
+    layer.train()
+    gm.reset_counts()
+    y, aux = layer(_t(x))
+    layer.commit_state()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(aux.item(), float(aux_ref), atol=1e-5)
+    st = mut["moe_state"]
+    if aux_free:
+        np.testing.assert_allclose(layer.expert_bias.numpy(),
+                                   np.asarray(st["expert_bias"]), atol=1e-5)
+        assert not np.allclose(layer.expert_bias.numpy(), bias0)
+    np.testing.assert_allclose(layer.dropped_frac.item(),
+                               float(st["dropped_frac"]), atol=1e-5)
+    if impl == "scatter":
+        assert layer.dropped_frac.item() > 0
+    assert gm.PLAIN_CALLS["grouped_mm_fwd"] == (2 if impl == "grouped"
+                                                else 0)
+    assert gm.DEGRADED["dense"] == 0
+
+
+def test_eval_forward_never_moves_the_bias_and_grouped_degrades_counted():
+    """In eval mode the layer reads the bias and leaves nothing to commit;
+    a grouped layer whose widths the gate refuses (up_dim 44) runs the
+    dense dispatch, counted in DEGRADED and warned once, with the dense
+    layer's output."""
+    cfg = LLMConfig(**dict(TINY, up_dim=44, moe_impl="grouped"))
+    layer = MoE(cfg, device="cpu")
+    torch.manual_seed(0)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, 0.2)
+        layer.expert_bias.normal_()
+    bias = layer.expert_bias.clone()
+    layer.eval()
+    x = torch.randn(2, 8, 32)
+    gm.reset_counts()
+    with pytest.warns(RuntimeWarning, match="'dense' dispatch"):
+        y, _ = layer(x)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert torch.equal(layer(x)[0], y)       # warned once per layer
+    assert layer.pending_state is None
+    layer.commit_state()
+    assert torch.equal(layer.expert_bias, bias)
+    assert gm.DEGRADED["dense"] == 2 and gm.PLAIN_CALLS["grouped_mm_fwd"] == 0
+    layer.config = dataclasses.replace(cfg, moe_impl="dense")
+    assert torch.equal(layer(x)[0], y)
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", ["dense", "grouped"])
+def test_tiny_moe_model_matches_reference(impl):
+    """A 2-layer MoE LLM (n_embd 32) from converted weights and moe_state
+    (a nonzero bias): every position's logits and the loss (the mean CE
+    plus the layers' aux losses over n_layer) in eval mode, fp32, atol
+    1e-4; the active parameter count equals the reference's."""
+    from distributed_pytorch_tpu.models.gpt import count_params as jcount
+
+    from distributed_pytorch_tpu_torch.models.gpt import count_params
+    cfg = dict(TINY, moe_impl=impl)
+    jm = JLLM(JConfig(**cfg), attn_impl="naive")
+    rng = np.random.default_rng(2)
+    x = rng.integers(0, 97, (2, 32))
+    y = rng.integers(0, 97, (2, 32))
+    key = jax.random.PRNGKey(3)
+    var = dict(jm.init({"params": key, "dropout": key}, jnp.asarray(x),
+                       jnp.asarray(y)))
+    var = jax.tree_util.tree_map(np.array, jax.device_get(var))
+    for i in range(2):
+        var["moe_state"][f"block_{i}"]["moe"]["expert_bias"] = \
+            (0.3 * rng.standard_normal(5)).astype(np.float32)
+    logits_ref, loss_ref, _ = jm.apply(var, jnp.asarray(x), jnp.asarray(y),
+                                       all_logits=True)
+    tcfg = LLMConfig(**cfg)
+    model = LLM(tcfg, device="cpu", attn_impl="naive")
+    model.load_state_dict(params_from_jax(var["params"], tcfg,
+                                          var["moe_state"]))
+    model.eval()
+    with torch.no_grad():
+        logits, loss = model(torch.from_numpy(x), torch.from_numpy(y),
+                             all_logits=True)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(logits_ref),
+                               atol=1e-4, rtol=0)
+    np.testing.assert_allclose(loss.item(), float(loss_ref), atol=1e-4)
+    assert count_params(model, tcfg) == jcount(var["params"], JConfig(**cfg))
+
+
+def _batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 97, (2, 2, 32)), rng.integers(0, 97, (2, 2, 32)))
+            for _ in range(n)]
+
+
+def _port_state(cfg, tc, jparams, jmoe):
+    model = build_model(cfg, tc, device="cpu")
+    model.load_state_dict(params_from_jax(jparams, cfg, jmoe))
+    return TrainState(step=0, model=model,
+                      optimizer=make_optimizer(model, tc))
+
+
+TRAIN_KW = dict(batch_size=2, total_batch_size=2 * 2 * 32, max_iters=10,
+                warmup_steps=2, learning_rate=1e-3, grad_clip=1.0,
+                compute_dtype="float32", seed=5)
+
+
+def test_five_step_moe_trajectory_matches_reference():
+    """5 AdamW steps at accum 2 of the grouped MoE model (gamma 1e-2, so
+    the aux-free bias moves visibly at each micro-step) from the
+    reference's init, on the same batches: the loss (rtol 1e-5), every
+    parameter (atol 1e-4, as the dense trajectory test) and every layer's
+    expert_bias (atol 1e-5) after every step; moe_dropped_frac is 0."""
+    mc = JConfig(**TINY, moe_impl="grouped")
+    jtc = JTrainConfig(**TRAIN_KW, moe_impl="grouped")
+    jmodel, tx, js, _ = jstate(mc, jtc, None)
+    jtrain = jstep(jmodel, tx, mc, jtc, None, None)
+    cfg = LLMConfig(**TINY, moe_impl="grouped")
+    tc = TrainConfig(**TRAIN_KW, moe_impl="grouped", platform="cpu")
+    state = _port_state(cfg, tc, jax.device_get(js.params),
+                        jax.device_get(js.moe_state))
+    step = make_train_step(tc)
+    bias0 = [m.expert_bias.clone() for m in state.model.moe_layers()]
+    for x, y in _batches(5):
+        js, jm = jtrain(js, jnp.asarray(x, jnp.int32),
+                        jnp.asarray(y, jnp.int32))
+        m = step(state, torch.from_numpy(x), torch.from_numpy(y))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        assert float(m["moe_dropped_frac"]) == 0.0
+        ref = params_from_jax(jax.device_get(js.params), cfg,
+                              jax.device_get(js.moe_state))
+        sd = state.model.state_dict()
+        for name, r in ref.items():
+            atol = 1e-5 if name.endswith(("expert_bias", "dropped_frac")) \
+                else 1e-4
+            np.testing.assert_allclose(sd[name].numpy(), r.numpy(),
+                                       atol=atol, rtol=0, err_msg=name)
+    for b0, layer in zip(bias0, state.model.moe_layers()):
+        assert not torch.equal(b0, layer.expert_bias)
+
+
+def _run_steps(cfg, tc, n, poison=None, monkeypatch=None):
+    model = build_model(cfg, tc, device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    state = TrainState(step=0, model=model,
+                       optimizer=make_optimizer(model, tc))
+    step = make_train_step(tc)
+    snaps, metrics = [], []
+    for x, y in _batches(n, seed=7):
+        metrics.append(step(state, torch.from_numpy(x), torch.from_numpy(y)))
+        snaps.append({k: v.clone() for k, v in
+                      state.model.state_dict().items()})
+    return state, snaps, metrics
+
+
+@pytest.mark.parametrize("impl", ["grouped", "scatter"])
+def test_block_recompute_keeps_trajectory_and_bias(impl):
+    """act_recomp with policy 'block' re-runs each MoE forward in the
+    backward: routing there uses the bias the micro-step started with and
+    the bias moves once per micro-step, so 3 steps at accum 2 leave every
+    parameter and buffer exactly equal to the run without recomputation
+    (fp32, bitwise)."""
+    cfg = LLMConfig(**TINY, moe_impl=impl, capacity_factor=0.5)
+    tc = TrainConfig(**TRAIN_KW, platform="cpu")
+    runs = []
+    for recomp in (False, True):
+        c = dataclasses.replace(cfg, act_recomp=recomp,
+                                act_recomp_policy="block")
+        runs.append(_run_steps(c, tc, 3)[1])
+    for a, b in zip(*runs):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert not torch.equal(runs[0][0]["blocks.0.moe.expert_bias"],
+                           runs[0][1]["blocks.0.moe.expert_bias"])
+
+
+def test_skipped_step_restores_the_routing_state(monkeypatch):
+    """anomaly='skip' with iteration 1 poisoned: the step applies no
+    update and leaves every layer's expert_bias and dropped_frac as step
+    0 left them; the next step moves them again."""
+    monkeypatch.setenv("TRAIN_POISON_IT", "1")
+    cfg = LLMConfig(**TINY, moe_impl="scatter", capacity_factor=0.5)
+    tc = TrainConfig(**TRAIN_KW, platform="cpu", anomaly="skip")
+    state, snaps, metrics = _run_steps(cfg, tc, 3)
+    assert [float(m["update_skipped"]) for m in metrics] == [0.0, 1.0, 0.0]
+    assert state.updates == 2
+    for k in snaps[0]:
+        assert torch.equal(snaps[0][k], snaps[1][k]), k
+    assert not torch.equal(snaps[1]["blocks.1.moe.expert_bias"],
+                           snaps[2]["blocks.1.moe.expert_bias"])
+    assert float(metrics[1]["moe_dropped_frac"]) == \
+        float(metrics[0]["moe_dropped_frac"]) > 0
+
+
+def test_restore_for_inference_brings_the_bias_back(tmp_path):
+    """A trained MoE model's checkpoint restored into a fresh bf16 serving
+    model: every expert_bias and dropped_frac buffer equal, the weights
+    equal after the cast."""
+    cfg = LLMConfig(**TINY, moe_impl="scatter", capacity_factor=0.5)
+    tc = TrainConfig(**TRAIN_KW, platform="cpu")
+    state, _, _ = _run_steps(cfg, tc, 2)
+    path = ckpt.save_checkpoint(str(tmp_path / "step_2"), state, cfg, tc)
+    served = LLM(cfg, device="cpu", dtype=torch.bfloat16)
+    ckpt.restore_for_inference(path, served)
+    sd, live = served.state_dict(), state.model.state_dict()
+    for k, v in live.items():
+        if k.endswith(("expert_bias", "dropped_frac")):
+            assert torch.equal(sd[k], v), k
+            assert v.abs().sum() > 0, k
+        else:
+            assert torch.equal(sd[k], v.to(sd[k].dtype)), k
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+ENGINE_KW = dict(TINY, block_size=64)
+
+
+@pytest.fixture(scope="module")
+def engine_models():
+    """The reference's MoE model (dense dispatch: the same dropless
+    semantics) and the port's grouped one from the same weights and a
+    nonzero bias."""
+    jm = JLLM(JConfig(**ENGINE_KW), attn_impl="naive")
+    x = jnp.zeros((1, 64), jnp.int32)
+    key = jax.random.PRNGKey(0)
+    var = dict(jm.init({"params": key, "dropout": key}, x, x))
+    var = jax.tree_util.tree_map(np.array, jax.device_get(var))
+    rng = np.random.default_rng(3)
+    for i in range(2):
+        var["moe_state"][f"block_{i}"]["moe"]["expert_bias"] = \
+            (0.3 * rng.standard_normal(5)).astype(np.float32)
+    cfg = LLMConfig(**ENGINE_KW, moe_impl="grouped")
+    tm = LLM(cfg, device="cpu")
+    tm.load_state_dict(params_from_jax(var["params"], cfg, var["moe_state"]))
+    tm.eval()
+    return jm, var, tm, jax.jit(jm.apply, static_argnames="all_logits")
+
+
+def _margins(japply, var, seq, prompt_len):
+    buf = np.zeros((1, 64), np.int32)
+    buf[0, :len(seq) - 1] = seq[:-1]
+    logits, _, _ = japply(var, jnp.asarray(buf), all_logits=True)
+    top2 = np.sort(np.asarray(logits)[0, prompt_len - 1:len(seq) - 1],
+                   axis=-1)[:, -2:]
+    return top2[:, 1] - top2[:, 0]
+
+
+@pytest.mark.parametrize("chunk", [0, 16], ids=["wave", "chunked"])
+def test_engine_tokens_match_reference_engine(engine_models, chunk):
+    """Greedy tokens of the port's engine (the grouped dispatch, plain
+    versions at bm 8: 2 forward calls per layer per decode step and per
+    prefill forward) against the reference's engine, compared where the
+    reference's top-2 margin exceeds 1e-4; the bias is read, never moved."""
+    jm, var, tm, japply = engine_models
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(1, 97, n)] for n in (5, 17, 2)]
+    kw = dict(n_slots=2, temperature=0.0, min_bucket=8, block_size=8)
+    ref = JEngine(jm, var, **kw).run(prompts, 6)
+    bias = [m.expert_bias.clone() for m in tm.moe_layers()]
+    forwards = []
+    hook = tm.moe_layers()[0].register_forward_hook(
+        lambda *a: forwards.append(1))
+    gm.reset_counts()
+    try:
+        eng = DecodeEngine(tm, prefill_chunk=chunk, **kw)
+        out = eng.run(prompts, 6)
+    finally:
+        hook.remove()
+    if chunk == 0:
+        assert len(forwards) == eng.n_steps + eng.n_admitted
+    assert gm.PLAIN_CALLS["grouped_mm_fwd"] == 2 * 2 * len(forwards)
+    assert gm.DEGRADED["dense"] == 0
+    for b, m in zip(bias, tm.moe_layers()):
+        assert torch.equal(b, m.expert_bias)
+    for p, r, o in zip(prompts, ref, out):
+        margins = _margins(japply, var, r, len(p))
+        assert o[:len(p)] == r[:len(p)]
+        for i, mg in enumerate(margins):
+            if mg <= 1e-4:
+                break
+            assert o[len(p) + i] == r[len(p) + i], (i, mg)

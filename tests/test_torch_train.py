@@ -9,6 +9,7 @@ its tolerance."""
 
 import dataclasses
 import os
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -104,7 +105,11 @@ def test_loader_stream_matches_reference(tmp_path):
     ["--preset", "gpt2_124m", "--attn_impl", "PALLAS", "--batch_size", "8",
      "--total_batch_size_str", "2**14", "--dataset", "synthetic",
      "--act_recomp", "--no-aux_free", "--learning_rate", "1e-3"],
-], ids=["defaults", "flagship"])
+    ["--preset", "gpt2_124m", "--moe", "--n_exp", "8", "--n_shared", "1",
+     "--n_act", "3", "--up_dim", "1024", "--moe_impl", "grouped",
+     "--attn_impl", "pallas", "--batch_size", "8",
+     "--total_batch_size_str", "2**14", "--dataset", "synthetic"],
+], ids=["defaults", "flagship", "flagship_moe"])
 def test_cli_configs_match_reference(argv):
     jm, jt = jmain.parse_train_argv(argv)
     tm, tt = tmain.parse_train_argv(argv)
@@ -439,3 +444,120 @@ def test_eval_through_the_pallas_loss(tmp_path, monkeypatch):
                                rtol=1e-5)
     np.testing.assert_allclose([v for _, v in p["val_losses"]],
                                [v for _, v in f["val_losses"]], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# MoE: the CLI on the CPU, the FLOP count, Adafactor on stacked experts
+# ---------------------------------------------------------------------------
+
+def test_cli_trains_a_grouped_moe_model_on_the_cpu(tmp_path, monkeypatch,
+                                                   capsys):
+    """`python -m distributed_pytorch_tpu_torch --platform cpu --moe ...
+    --moe_impl grouped`: the loss is finite, each log line carries
+    `moe_drop` (0.00% for the dropless grouped dispatch), and the grouped
+    functions ran their plain versions 3 (forward: fc, proj, and proj's
+    recompute for the gate cotangent) and 2 (dx, dW) times per layer per
+    micro-step, with no degraded layer."""
+    from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
+    monkeypatch.chdir(tmp_path)
+    argv = ["--platform", "cpu", "--compute_dtype", "float32",
+            "--dataset", "synthetic", "--data_dir", str(tmp_path / "d"),
+            "--vocab_size", "97", "--block_size", "32", "--n_embd", "32",
+            "--n_head", "4", "--n_kv_heads", "2", "--n_layer", "2",
+            "--up_dim", "48", "--moe", "--n_exp", "6", "--n_shared", "1",
+            "--n_act", "3", "--moe_impl", "grouped", "--batch_size", "2",
+            "--total_batch_size_str", "2*2*32", "--max_iters", "2",
+            "--warmup_steps", "1", "--log_interval", "1", "--no-save_stats"]
+    gm.reset_counts()
+    tmain.main(argv)
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("iter ")]
+    assert len(lines) == 3 and all(ln.endswith("| moe_drop  0.00%") for ln in lines)
+    micro = 2 * 3 * 2                       # layers x iterations x accum
+    assert gm.PLAIN_CALLS == {"grouped_mm_fwd": 3 * micro,
+                              "grouped_mm_bwd_dx": 2 * micro,
+                              "grouped_mm_bwd_dw": 2 * micro}
+    assert gm.DEGRADED["dense"] == 0
+    assert "params:" in out and "active" in out
+
+
+@pytest.mark.parametrize("up_dim", [96, 100])
+def test_train_stats_count_dense_degrades(tmp_path, monkeypatch, up_dim):
+    """`stats["moe_degraded_dense"]` counts the MoE layer forwards of the
+    run that asked for 'grouped' and took 'dense': 0 where the gate takes
+    the widths, every layer forward (2 layers x 2 iterations x 2
+    micro-steps) where it refuses them (up_dim 100 is not a multiple of
+    8), with one warning per layer."""
+    monkeypatch.chdir(tmp_path)
+    model_cfg = LLMConfig(**dict(TINY, up_dim=up_dim), moe=True, n_exp=4,
+                          n_shared=1, n_act=2, moe_impl="grouped")
+    train_cfg = TrainConfig(
+        dataset="synthetic", data_dir=str(tmp_path / "data"), batch_size=2,
+        total_batch_size=2 * 2 * 32, max_iters=1, warmup_steps=1,
+        platform="cpu", compute_dtype="float32", log_interval=100,
+        save_stats=False)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        stats = train(model_cfg, train_cfg, log=lambda s: None)
+    refused = up_dim % 8 != 0
+    assert stats["moe_degraded_dense"] == (2 * 2 * 2 if refused else 0)
+    assert sum("'dense' dispatch" in str(w.message)
+               for w in caught) == (2 if refused else 0)
+
+
+@pytest.mark.parametrize("impl", ["dense", "scatter", "grouped"])
+@pytest.mark.parametrize("recomp", [None, "block", "attn"])
+def test_moe_flop_count_matches_reference(impl, recomp):
+    """The MFU numerator of the flagship MoE (8 experts, 1 shared, top 2
+    routed, up_dim 1024) equals the reference's `step_flops`, and the
+    over-compute factor its `moe_overcompute_factor`, exactly."""
+    from distributed_pytorch_tpu.config import flagship_gpt124m as jflag
+    from distributed_pytorch_tpu.train import metrics as jmetrics
+
+    from distributed_pytorch_tpu_torch.config import flagship_gpt124m
+    from distributed_pytorch_tpu_torch.train import metrics
+    kw = dict(moe=True, n_exp=8, n_shared=1, n_act=3, up_dim=1024,
+              moe_impl=impl, act_recomp=recomp is not None,
+              act_recomp_policy=recomp or "block")
+    jc, tc = jflag(**kw), flagship_gpt124m(**kw)
+    assert metrics.step_flops(tc, 2 ** 14, 1024) == \
+        jmetrics.step_flops(jc, 2 ** 14, 1024)
+    assert metrics.moe_overcompute_factor(tc) == \
+        jmetrics.moe_overcompute_factor(jc)
+    assert metrics.matmul_params_per_token(tc) > \
+        metrics.matmul_params_per_token(flagship_gpt124m())
+
+
+def test_adafactor_on_stacked_expert_weights_matches_optax():
+    """3 Adafactor steps (lr 1e-2, weight decay rate 1e-3) on the
+    flagship MoE's two expert stacks, (8, 768, 2048) and (8, 1024, 768),
+    against optax.adafactor on the same gradients: the second moment
+    factors over the two largest axes, and the row statistic is normalised
+    over its own axis for each expert (optax's row_col_mean), not over the
+    whole stack. fp32, atol 1e-5 on every weight after every step."""
+    import optax
+
+    from distributed_pytorch_tpu_torch.train.state import Adafactor
+    rng = np.random.default_rng(0)
+    shapes = [(8, 768, 2048), (8, 1024, 768)]
+    # experts of different gradient scales, so a stack-wide normalisation
+    # would show
+    scale = [np.geomspace(0.1, 10, s[0]).astype(np.float32)[:, None, None]
+             for s in shapes]
+    p0 = [(0.02 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+    grads = [[(rng.standard_normal(s).astype(np.float32) * c)
+              for s, c in zip(shapes, scale)] for _ in range(3)]
+    tx = optax.adafactor(learning_rate=1e-2, weight_decay_rate=1e-3)
+    jp = [jnp.asarray(p) for p in p0]
+    st = tx.init(jp)
+    tp = [torch.from_numpy(p.copy()) for p in p0]
+    opt = Adafactor([{"params": tp, "weight_decay": 1e-3}], lr=1e-2)
+    for g in grads:
+        upd, st = tx.update([jnp.asarray(a) for a in g], st, jp)
+        jp = optax.apply_updates(jp, upd)
+        for p, a in zip(tp, g):
+            p.grad = torch.from_numpy(a)
+        opt.step()
+        for p, r in zip(tp, jp):
+            np.testing.assert_allclose(p.numpy(), np.asarray(r), atol=1e-5,
+                                       rtol=0)
