@@ -12,7 +12,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
              (nvidia-smi); TF32 off for matmuls and cuDNN.
 2. build   — compiles every CUDA source under
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
-             parallel) and prints the seconds it took.
+             parallel) and prints the seconds it took; counts each
+             flash kernel's HGMMA and UTMALDG instructions
+             (`cuobjdump -sass`): the bf16 forward and dkv kernels must
+             hold both (wgmma on TMA-fed shared memory), the FMA kernels
+             (fp32, and dq) neither.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's shapes (decode, prefill; over a bf16/fp32
              cache and over an int8 cache with fp32 row scales, the _q8
@@ -52,7 +56,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
              micro-steps times each (no plain calls), and the checkpoint
              must verify and restore. Then a full-width fp32 parity check
              at B 2 (loss and gradients through the kernels against
-             `attn_impl='naive'`) and a profile of two steps.
+             `attn_impl='naive'`) and a profile of two steps, its flash
+             time split per kernel (fwd, dq, dkv ms a step).
 7. train with the fused CE kernels, then sample and serve the checkpoint
            — phase 6's run with `--loss_impl pallas --eval --eval_interval
              10 --eval_iters 2 --save_model`: a falling loss whose first
@@ -304,6 +309,49 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
+def sass_inventory() -> dict:
+    """{kernel: {op: count}} of SASS_OPS in the built flash libraries
+    (`cuobjdump -sass`), kernels by their mangled names."""
+    import shutil
+
+    from distributed_pytorch_tpu_torch.ops import cuda_build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    counts = {}
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dkv"):
+        out = subprocess.run([tool, "-sass", str(cuda_build.lib_path(name))],
+                             capture_output=True, text=True, timeout=120)
+        check(out.returncode == 0,
+              f"cuobjdump -sass failed on {name}: {out.stderr[-500:]}")
+        fn = None
+        for line in out.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            elif fn is not None:
+                for op in SASS_OPS:
+                    counts[fn][op] += op in line
+    return counts
+
+
+def check_sass(counts: dict) -> None:
+    """The bf16 flash forward and dkv (`*_kernel_sm90`) run wgmma on TMA
+    loads; the FMA kernels hold neither instruction."""
+    check(sum("kernel_sm90" in fn for fn in counts) == 4,
+          f"expected 4 bf16 wgmma kernels, found {sorted(counts)}")
+    for fn, c in sorted(counts.items()):
+        short = fn.split("_17_", 1)[-1][:80]
+        print(f"  {short}: " + ", ".join(f"{op} {n}" for op, n in c.items()),
+              flush=True)
+        if "kernel_sm90" in fn:
+            check(all(c.values()), f"{short}: no {SASS_OPS} in its SASS")
+        else:
+            check(not any(c.values()), f"{short}: an FMA kernel with {c}")
 
 
 def bound(n_bytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -1365,6 +1413,22 @@ def _per_launch(ev, name: str) -> float:
     return sum(_dev_us(e) for e in hit) / n / 1e3 if n else float("nan")
 
 
+# each flash kernel's own name in csrc/flash_attn_fwd.cu and
+# csrc/flash_attn_bwd.cu, whatever its design (FMA or wgmma) and its
+# parameter types
+FLASH_KERNEL_NAMES = {"flash_attn_fwd": "::fwd_kernel",
+                      "flash_attn_bwd_dq": "::dq_kernel",
+                      "flash_attn_bwd_dkv": "::dkv_kernel"}
+
+
+def flash_kernel_of(key: str):
+    """The flash kernel a profiler event's name belongs to, or None."""
+    for kname, mark in FLASH_KERNEL_NAMES.items():
+        if mark in key:
+            return kname
+    return None
+
+
 def _dev_us(e) -> float:
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0.0))
@@ -1835,13 +1899,16 @@ def profile_train(torch, state, train_cfg, model_cfg) -> dict:
     split = {"flash attention kernels": 0.0, "fused CE kernels": 0.0,
              "grouped-mm kernels": 0.0, "matmuls (cuBLAS)": 0.0,
              "everything else": 0.0}
+    flash = dict.fromkeys(FLASH_KERNEL_NAMES, 0.0)
     for e in ev:
+        kname = flash_kernel_of(e.key)
         if "fce::" in e.key:
             split["fused CE kernels"] += _dev_us(e)
         elif "gmm::" in e.key:
             split["grouped-mm kernels"] += _dev_us(e)
-        elif "flash::Params" in e.key:
+        elif kname is not None:
             split["flash attention kernels"] += _dev_us(e)
+            flash[kname] += _dev_us(e)
         elif any(m in e.key.lower() for m in ("gemm", "nvjet", "xmma",
                                               "cutlass")):
             split["matmuls (cuBLAS)"] += _dev_us(e)
@@ -1849,9 +1916,12 @@ def profile_train(torch, state, train_cfg, model_cfg) -> dict:
             split["everything else"] += _dev_us(e)
     print("  split: " + ", ".join(f"{k} {v / n / 1e3:.3f} ms"
                                   for k, v in split.items()), flush=True)
+    print("  flash a step: " + ", ".join(
+        f"{k} {v / n / 1e3:.3f} ms" for k, v in flash.items()), flush=True)
     print_kernels(ev, n, 12)
     return {"host_wall_ms": wall_ms, "device_ms": dev_ms,
-            **{k: v / n / 1e3 for k, v in split.items()}}
+            **{k: v / n / 1e3 for k, v in split.items()},
+            **{k: v / n / 1e3 for k, v in flash.items()}}
 
 
 def run_parity(torch, dev) -> None:
@@ -2381,6 +2451,7 @@ def main() -> None:
     took = cuda_build.build(verbose=True)
     print(f"  built {sorted(took)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    check_sass(sass_inventory())
 
     phase("3 kernels vs plain versions")
     kres = run_kernels(torch, fd, dev)

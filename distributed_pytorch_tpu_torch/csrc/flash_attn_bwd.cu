@@ -6,30 +6,55 @@
 // lse folds in. Built and bound by ops/cuda_build.py; wrapped by
 // ops/flash_attention.py.
 //
-// Replaces: `_bwd_dq_kernel` and `_bwd_dkv_kernel` -> `_bwd_impl` (rows
-// face) and `_slab_bwd_dq_kernel` / `_slab_bwd_dkv_kernel` -> `_slab_bwd`
-// (slab face) of distributed_pytorch_tpu/ops/flash_attention.py.
+// Replaces: `_bwd_dq_kernel` (pallas_call :482) and `_bwd_dkv_kernel`
+// (:516) -> `_bwd_impl` (rows face) and `_slab_bwd_dq_kernel` (:727) /
+// `_slab_bwd_dkv_kernel` (:756) -> `_slab_bwd` (slab face) of
+// distributed_pytorch_tpu/ops/flash_attention.py, the arithmetic of its
+// `_dq_tile` and `_dkv_tile`.
 //
 // Bound on the H100: at the training shape (B 8, T 1024, 12 heads x 64,
 // causal) dq does 3 and dkv 4 products of the forward's ~6.4 GFLOP each,
-// so operations bound both (~0.020 and ~0.026 ms at the bf16 peak). These
-// kernels run FMA loops out of shared memory, as the forward does.
+// so operations bound both in bf16 (~0.020 and ~0.026 ms at 989 TFLOP/s).
 //
-// Design, two kernels and no atomics (deterministic):
-// * dq: one CTA per (64-row query tile, head, batch), walking key tiles up
-//   to the causal frontier: S = Q K^T and dP = dO V^T (4 x 4 per thread),
-//   dS = p * (dP * mask - delta) rounded to the key dtype, dQ += dS K.
-//   dq carries * scale at the write.
-// * dkv: one CTA per (64-key tile, kv head, batch), looping over the rep
-//   query heads of its GQA group and over the query tiles from the causal
-//   frontier on: S^T = K Q^T and dP^T = V dO^T, then dV += (p * mask)^T dO
-//   and dK += dS^T Q, so the group sum happens in the CTA's fp32
-//   registers and each key row is written once. The dropout mask is
-//   regenerated from the forward's coordinates (row b*nh + h, query
-//   position, key position), not from this kernel's loop order. Head size
-//   128 uses 32-row query tiles to fit shared memory.
+// No atomics: dq and dkv are two kernels, each writing its rows once, so
+// the results are deterministic. The dropout mask is regenerated from the
+// forward's coordinates (row b*nh + h, query position, key position), not
+// from a kernel's loop order.
+//
+// * dq, fp32 and bf16 (`dq_kernel`): still the FMA design of
+//   flash_attn_common.cuh. One CTA per (64-row query tile, head, batch),
+//   walking key tiles up to the causal frontier: S = Q K^T and
+//   dP = dO V^T, dS = p * (dP * mask - delta) rounded to the key dtype,
+//   dQ += dS K; dq carries * scale at the write.
+// * dkv, fp32 (`dkv_kernel`): the FMA design, unchanged (tensor cores take
+//   fp32 only as TF32, which would break the fp32 limits of the kernel
+//   checks and the training parity). One CTA per (64-key tile, kv head,
+//   batch); Q and dO are loaded in both orientations; head size 128 uses
+//   32-row query tiles to fit shared memory.
+// * dkv, bf16 (`dkv_kernel_sm90`): tensor cores. One CTA of one warpgroup
+//   (128 threads) per (64-key tile, kv head, batch) keeps its K and V
+//   tiles resident and walks the query tiles of every head of its GQA
+//   group from the causal frontier on: 64 rows at head size 64, 32 at 128,
+//   so that the dK and dV accumulators (64 x D fp32 each) and the two
+//   score accumulators fit the thread's registers without spills (~200 a
+//   thread: two CTAs an SM). TMA brings each query tile's Q and dO rows
+//   and its lse and delta values into a 2-stage ring (mbarrier
+//   completion), the tile after next requested as soon as a stage is
+//   free; lse and delta come as one 1-D box from the 16-byte boundary at
+//   or before the tile's first value (a TMA box must start on one; the
+//   rows of a (B, nh, T) array need not). Per tile: S^T = K Q^T and
+//   dP^T = V dO^T are wgmmas with both operands in shared memory
+//   (K-major); P^T = exp(s * scale - lse), as the FMA kernel writes it,
+//   and dS^T = P^T (dP^T * mask - delta) are formed on the accumulators in
+//   registers and rounded to bf16 into the register A operands of
+//   dV += (P^T * mask) dO and dK += dS^T Q, which read the same one copy
+//   of dO and Q MN-major (the transpose bit). The group sum stays in the
+//   fp32 accumulators and each key row is written once, dk * scale. Only
+//   tiles on the diagonal or at the ragged ends are masked. Key tiles
+//   launch in order, the causal heaviest first.
 
 #include "flash_attn_common.cuh"
+#include "flash_attn_sm90.cuh"
 
 namespace {
 
@@ -277,6 +302,230 @@ int launch_dkv(const Params& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ---- bf16 dkv: wgmma on TMA-fed shared memory -----------------------------
+
+namespace flash_sm90 {
+
+using sm90::bf16;
+constexpr int kBK = 64;  // key rows per CTA: one warpgroup
+constexpr int kStages = 2;
+constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+__host__ __device__ constexpr int bq() {
+  return D == 64 ? 64 : 32;  // query rows per tile
+}
+
+template <int D>
+struct Smem {
+  static constexpr int BQ = bq<D>();
+  alignas(1024) bf16 k[kBK * D];
+  alignas(1024) bf16 v[kBK * D];
+  alignas(1024) bf16 q[kStages][BQ * D];
+  alignas(1024) bf16 dout[kStages][BQ * D];
+  // BQ + 4 values from a 16-byte aligned start, each stage 128-byte aligned
+  static constexpr int LS = (BQ + 4 + 31) / 32 * 32;
+  alignas(128) float lse[kStages][LS];
+  alignas(128) float delta[kStages][LS];
+  uint64_t kvbar, full[kStages];
+};
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(Smem<D>) + 1024;
+}
+
+struct Maps {
+  CUtensorMap q, k, v, dout, lse, delta;
+};
+
+// where the lse and delta rows of (h, i0, b) start in their stage
+__device__ __forceinline__ int stat_skew(const Params& p, int h, int i0, int b) {
+  return ((b * p.nh + h) * p.T + i0) & 3;
+}
+
+// query tile `it` (head r of the group, then time) into stage s (one thread)
+template <int D>
+__device__ __forceinline__ void load_q(Smem<D>& sm, const Maps& mp, const Params& p, int it,
+                                       int s, int n_qt, int t_begin, int g, int b) {
+  constexpr int BQ = bq<D>();
+  const int h = g * (p.nh / p.nkv) + it / n_qt;
+  const int i0 = t_begin + (it % n_qt) * BQ;
+  sm90::mbar_expect_tx(&sm.full[s], 2 * BQ * D * 2 + 2 * (BQ + 4) * 4);
+  sm90::tma_rows<D, BQ>(sm.q[s], &mp.q, &sm.full[s], h, i0, b);
+  sm90::tma_rows<D, BQ>(sm.dout[s], &mp.dout, &sm.full[s], h, i0, b);
+  // a TMA box starts on 16 bytes: the rows from (b * nh + h) * T + i0 sit
+  // stat_skew values into the box
+  const int stat = (b * p.nh + h) * p.T + i0;
+  sm90::tma_load_1d(sm.lse[s], &mp.lse, &sm.full[s], stat & ~3);
+  sm90::tma_load_1d(sm.delta[s], &mp.delta, &sm.full[s], stat & ~3);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dkv_kernel_sm90(const __grid_constant__ Maps mp, const Params p) {
+  using namespace sm90;
+  constexpr int BQ = bq<D>();
+  extern __shared__ uint8_t smem_raw[];
+  Smem<D>& sm = smem_aligned<Smem<D>>(smem_raw);
+  const int g = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * kBK;
+  const int rep = p.nh / p.nkv;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  // the first query row that sees this key tile (j0 is a multiple of BQ)
+  const int t_begin = p.causal ? j0 : 0;
+  const int n_qt = p.T > t_begin ? (p.T - t_begin + BQ - 1) / BQ : 0;
+  const int n_it = rep * n_qt;
+
+  if (tid == 0) {
+    mbar_init(&sm.kvbar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && n_it > 0) {
+    mbar_expect_tx(&sm.kvbar, 2 * kBK * D * 2);
+    tma_rows<D, kBK>(sm.k, &mp.k, &sm.kvbar, g, j0, b);
+    tma_rows<D, kBK>(sm.v, &mp.v, &sm.kvbar, g, j0, b);
+    for (int it = 0; it < kStages && it < n_it; ++it)
+      load_q<D>(sm, mp, p, it, it, n_qt, t_begin, g, b);
+  }
+
+  uint32_t s0 = 0, s1 = 0;
+  if (p.dropout) {
+    s0 = (uint32_t)p.seed[0];
+    s1 = (uint32_t)p.seed[1];
+  }
+  const int r0 = w * 16 + (lane >> 2);  // this thread's key rows: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);        // and query columns 8 j + c0 + {0, 1}
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
+  if (n_it > 0) mbar_wait(&sm.kvbar, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const uint32_t ph = (it / kStages) & 1;
+    const int h = g * rep + it / n_qt;
+    const int i0 = t_begin + (it % n_qt) * BQ;
+    float st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      st[i] = 0.f;
+      dpt[i] = 0.f;
+    }
+    mbar_wait(&sm.full[s], ph);
+    fence_regs(st);
+    fence_regs(dpt);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ, 0>(st, desc_kmajor<kBK>(sm.k, kk), desc_kmajor<BQ>(sm.q[s], kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ, 0>(dpt, desc_kmajor<kBK>(sm.v, kk), desc_kmajor<BQ>(sm.dout[s], kk), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // mask only tiles on the diagonal or at the ragged ends
+    const bool edge = (p.causal && j0 + kBK - 1 > i0) || i0 + BQ > p.T || j0 + kBK > p.S;
+    const uint32_t row = (uint32_t)(b * p.nh + h);
+    const float* lse_s = sm.lse[s] + stat_skew(p, h, i0, b);
+    const float* dl_s = sm.delta[s] + stat_skew(p, h, i0, b);
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int ih = (i >> 1) & 1;
+      const int qi = 8 * (i >> 2) + c0 + (i & 1);
+      const int kp = j0 + r0 + 8 * ih, qp = i0 + qi;
+      const float lse = lse_s[qi], dl = dl_s[qi];
+      bool ok = true;
+      if (edge) ok = qp < p.T && kp < p.S && (!p.causal || kp <= qp);
+      // the fp32 score q.k * scale, then exp(score - lse)
+      const float pv = ok ? exp2_ftz((st[i] * p.scale - lse) * kLog2e) : 0.f;
+      float d = dpt[i], pm = pv;
+      if (p.dropout) {
+        const float mk = flash::keep(p, s0, s1, row, qp, kp);
+        pm = pv * mk;
+        d *= mk;
+      }
+      st[i] = pm;                 // P^T * mask, rounded to bf16 below
+      dpt[i] = pv * (d - dl);     // dS^T
+    }
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      acc_to_frag(st, kk, pa[kk]);
+      acc_to_frag(dpt, kk, da[kk]);
+    }
+    fence_regs(dv);
+    fence_regs(dk);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D, 1>(dv, pa[kk], desc_mnmajor<BQ>(sm.dout[s], kk));
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D, 1>(dk, da[kk], desc_mnmajor<BQ>(sm.q[s], kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncthreads();  // every product on stage s is done: refill it
+    if (tid == 0 && it + kStages < n_it) load_q<D>(sm, mp, p, it + kStages, s, n_qt, t_begin, g, b);
+  }
+
+  const long long base = (long long)b * p.S * p.nkv * D + (long long)g * D;
+  bf16* dk_out = static_cast<bf16*>(p.out0) + base;
+  bf16* dv_out = static_cast<bf16*>(p.out1) + base;
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int kp = j0 + r0 + 8 * ih;
+    if (kp >= p.S) continue;
+    const long long off = (long long)kp * p.nkv * D + c0;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_out + off + 8 * jj) = __floats2bfloat162_rn(
+          dk[4 * jj + 2 * ih] * p.scale, dk[4 * jj + 2 * ih + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv_out + off + 8 * jj) =
+          __floats2bfloat162_rn(dv[4 * jj + 2 * ih], dv[4 * jj + 2 * ih + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch(const Params& p, void* stream) {
+  constexpr int BQ = bq<D>();
+  static size_t cap[64] = {};
+  const size_t smem = smem_bytes<D>();
+  const int err = flash::set_smem(dkv_kernel_sm90<D>, smem, cap);
+  if (err) return err;
+  if (p.S == 0 || p.B == 0 || p.nkv == 0) return 0;
+  if (p.T == 0) {  // no query sees a key: zero gradients, as the FMA kernel writes
+    const size_t n = (size_t)p.B * p.S * p.nkv * D * sizeof(bf16);
+    cudaMemsetAsync(p.out0, 0, n, (cudaStream_t)stream);
+    cudaMemsetAsync(p.out1, 0, n, (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+  }
+  Maps mp;
+  const long long n_stat = (long long)p.B * p.nh * p.T;
+  if (!sm90::rows_map(&mp.q, p.q, D, p.nh, p.T, p.B, p.q_st, p.q_sb, BQ) ||
+      !sm90::rows_map(&mp.dout, p.dout, D, p.nh, p.T, p.B, p.do_st, p.do_sb, BQ) ||
+      !sm90::rows_map(&mp.k, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
+      !sm90::rows_map(&mp.v, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK) ||
+      !sm90::vec_map(&mp.lse, p.lse_in, n_stat, BQ + 4) ||
+      !sm90::vec_map(&mp.delta, p.delta, n_stat, BQ + 4))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.nkv, p.B, (p.S + kBK - 1) / kBK);
+  dkv_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash_sm90
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; D: 64 or 128. lse and delta (B, nh, T)
@@ -295,7 +544,8 @@ extern "C" int flash_attn_bwd_dq(int dtype, int D, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// As flash_attn_bwd_dq; dk and dv (B, S, nkv, D) contiguous.
+// As flash_attn_bwd_dq (dtype 0: the FMA kernel, 1: the wgmma kernel); dk
+// and dv (B, S, nkv, D) contiguous.
 extern "C" int flash_attn_bwd_dkv(int dtype, int D, const void* q, const void* k,
                                   const void* v, const void* dout, const float* lse,
                                   const float* delta, void* dk, void* dv, const int* seed,
@@ -305,7 +555,7 @@ extern "C" int flash_attn_bwd_dkv(int dtype, int D, const void* q, const void* k
                                       strides, scale, thresh, keep_scale);
   if (dtype == 0 && D == 64) return launch_dkv<float, 64>(p, stream);
   if (dtype == 0 && D == 128) return launch_dkv<float, 128>(p, stream);
-  if (dtype == 1 && D == 64) return launch_dkv<__nv_bfloat16, 64>(p, stream);
-  if (dtype == 1 && D == 128) return launch_dkv<__nv_bfloat16, 128>(p, stream);
+  if (dtype == 1 && D == 64) return flash_sm90::launch<64>(p, stream);
+  if (dtype == 1 && D == 128) return flash_sm90::launch<128>(p, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,34 +4,56 @@
 // attention-weight dropout from a counter hash. Built and bound by
 // ops/cuda_build.py; wrapped by ops/flash_attention.py.
 //
-// Replaces: `_fwd_kernel` -> `_fwd` (rows face) and `_slab_fwd_kernel` ->
-// `_slab_fwd` (slab face) of distributed_pytorch_tpu/ops/flash_attention.py.
-// Both compute the same function; this kernel reads the model's (B, T, N, H)
-// layout through row strides, so it needs neither the rows face's
-// transposes nor the slab face's in-VMEM relayout.
+// Replaces: `_fwd_kernel` -> `_fwd` (rows face, pallas_call :378) and
+// `_slab_fwd_kernel` -> `_slab_fwd` (slab face, :678) of
+// distributed_pytorch_tpu/ops/flash_attention.py. Both compute one
+// function; this kernel reads the model's (B, T, N, H) layout through
+// (batch, time) strides, so it needs neither the rows face's transposes
+// nor the slab face's in-VMEM relayout. The arithmetic is the reference's
+// `_fwd_tile`: scores q.k * scale in fp32, masked scores -1e30, the
+// normalizer sums the undropped p, the dropout mask multiplies p after
+// the normalizer update, p is rounded to the value dtype before P V, and
+// lse = m + log(max(l, 1e-30)).
 //
 // Bound on the H100: at the training shape (B 8, T 1024, 12 heads x 64,
-// causal) the call does ~12.9 GFLOP on ~50 MB, so operations bound it
-// (~0.013 ms at the bf16 tensor-core peak). This kernel runs its products
-// as FMA loops on CUDA cores out of shared memory, so it is bound by FMA
-// and shared-memory issue, far above that; mma.sync/wgmma is the later step.
+// causal) a call does ~12.9 GFLOP (Q K^T and P V over the causal pairs)
+// and moves ~50 MB, so bf16 is bound by bytes (~0.015 ms at 3.35 TB/s;
+// ~0.013 ms of tensor-core time at 989 TFLOP/s) and fp32, which has no
+// tensor-core path here, by FMA issue.
 //
-// Design: one CTA per (64-row query tile, head, batch). The tile's queries
-// stay in shared memory; the CTA walks 64-key tiles up to the causal
-// frontier of its last row (keys past it are never read), computing
-// S = Q K^T with each thread holding a 4 x 4 block, the running max and
-// normalizer per row (half-warp shuffles), then P V into a 4 x D/16 block
-// of fp32 accumulators. Arithmetic as the TPU kernel (flash_attention.py
-// `_fwd_tile`): scores q.k * scale in fp32, masked scores -1e30, the
-// normalizer sums the undropped p, the dropout mask multiplies p after the
-// normalizer update, p is rounded to the value dtype before P V, and
-// lse = m + log(max(l, 1e-30)).
+// The dtype picks the kernel; it is not a fallback:
+// * bf16 (`fwd_kernel_sm90`): tensor cores. One CTA of one warpgroup (128
+//   threads) per (64-row query tile, head, batch); 42 KB of shared memory
+//   at head size 64 (five CTAs an SM), 82 KB at 128 (two). TMA brings the
+//   query tile, then 64-key K and V tiles into a 2-stage ring (128-byte
+//   swizzle, mbarrier completion); the tile after next is requested as
+//   soon as a stage is free, so one tile is always in flight while the
+//   warpgroup computes. S = Q K^T is a wgmma with both operands in
+//   shared memory (K-major); the online softmax runs on the fp32
+//   accumulator in registers (a row lives in the 4 threads of a quad,
+//   exp2 on the special-function unit); P is rounded to bf16 and becomes
+//   the register A operand of O += P V, with V read MN-major through the
+//   transpose bit. There is no separate producer warp: the loads are one
+//   thread's few instructions per tile, and the other CTAs on the SM
+//   overlap one CTA's softmax with their products. (Measured on the
+//   H100: a third stage, and starting the next tile's S beside P V inside
+//   the warpgroup, were both slower, as the extra stage's shared memory
+//   costs CTAs per SM.) Only the diagonal tile and the ragged last tile
+//   are masked (TMA zero-fills rows past T and S). Query tiles launch
+//   heaviest first (the grid's slowest axis runs down the causal
+//   frontier), so long tiles do not form the grid's tail.
+// * fp32 (`fwd_kernel`): the FMA design of flash_attn_common.cuh,
+//   unchanged. Tensor cores take fp32 only as TF32, which would break the
+//   fp32 limits of the kernel-vs-plain checks and of the training parity.
 
 #include "flash_attn_common.cuh"
+#include "flash_attn_sm90.cuh"
 
 namespace {
 
 using flash::Params;
+
+// ---- fp32: FMA loops on CUDA cores (flash_attn_common.cuh) -----------------
 
 template <int D>
 constexpr size_t fwd_smem() {
@@ -150,11 +172,199 @@ int launch(const Params& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ---- bf16: wgmma on TMA-fed shared memory ---------------------------------
+
+namespace flash_sm90 {
+
+using sm90::bf16;
+constexpr int kBQ = 64;      // query rows per CTA: one warpgroup
+constexpr int kBK = 64;      // keys per stage
+constexpr int kStages = 2;
+constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  alignas(1024) bf16 q[kBQ * D];
+  alignas(1024) bf16 k[kStages][kBK * D];
+  alignas(1024) bf16 v[kStages][kBK * D];
+  uint64_t qbar, kbar[kStages], vbar[kStages];
+};
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(Smem<D>) + 1024;  // + room to align the base to 1024
+}
+
+// K and V tile j into stage s (one thread)
+template <int D>
+__device__ __forceinline__ void load_kv(Smem<D>& sm, const CUtensorMap* tk, const CUtensorMap* tv,
+                                        int j, int s, int g, int b) {
+  sm90::mbar_expect_tx(&sm.kbar[s], kBK * D * 2);
+  sm90::tma_rows<D, kBK>(sm.k[s], tk, &sm.kbar[s], g, j * kBK, b);
+  sm90::mbar_expect_tx(&sm.vbar[s], kBK * D * 2);
+  sm90::tma_rows<D, kBK>(sm.v[s], tv, &sm.vbar[s], g, j * kBK, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Params p) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<D>& sm = smem_aligned<Smem<D>>(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest tiles first
+  const int g = h / (p.nh / p.nkv);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  // the keys any row of this tile may see
+  const int n_keys = p.causal ? min(p.S, i0 + kBQ) : p.S;
+  const int n_kt = (n_keys + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    mbar_init(&sm.qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.kbar[s], 1);
+      mbar_init(&sm.vbar[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&sm.qbar, kBQ * D * 2);
+    tma_rows<D, kBQ>(sm.q, &tq, &sm.qbar, h, i0, b);
+    for (int j = 0; j < kStages && j < n_kt; ++j) load_kv<D>(sm, &tk, &tv, j, j, g, b);
+  }
+
+  uint32_t s0 = 0, s1 = 0;
+  if (p.dropout) {
+    s0 = (uint32_t)p.seed[0];
+    s1 = (uint32_t)p.seed[1];
+  }
+  const uint32_t row = (uint32_t)(b * p.nh + h);
+  const int r0 = w * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+  const int c0 = 2 * (lane & 3);        // and columns 8 j + c0 + {0, 1}
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {flash::kNegInf, flash::kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's part
+
+  mbar_wait(&sm.qbar, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % kStages;
+    const uint32_t ph = (j / kStages) & 1;
+    const int k0 = j * kBK;
+    float sc[kBK / 2];
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+    mbar_wait(&sm.kbar[s], ph);
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kBK, 0>(sc, desc_kmajor<kBQ>(sm.q, kk), desc_kmajor<kBK>(sm.k[s], kk), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+
+    // mask only the diagonal tile and the ragged last one
+    const bool edge = (p.causal && k0 + kBK - 1 > i0) || k0 + kBK > p.S;
+    float mx[2] = {flash::kNegInf, flash::kNegInf};
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int ih = (i >> 1) & 1;
+      float x = sc[i] * p.scale;
+      if (edge) {
+        const int qp = i0 + r0 + 8 * ih, kp = k0 + 8 * (i >> 2) + c0 + (i & 1);
+        if (!(kp < p.S && (!p.causal || kp <= qp))) x = flash::kNegInf;
+      }
+      sc[i] = x;
+      mx[ih] = fmaxf(mx[ih], x);
+    }
+    float ml[2];
+#pragma unroll
+    for (int ih = 0; ih < 2; ++ih) {
+      const float m_new = fmaxf(m[ih], quad_max(mx[ih]));
+      const float alpha = exp2_ftz((m[ih] - m_new) * kLog2e);
+      m[ih] = m_new;
+      ml[ih] = m_new * kLog2e;
+      l[ih] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        o[4 * jj + 2 * ih] *= alpha;
+        o[4 * jj + 2 * ih + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int ih = (i >> 1) & 1;
+      float pr = exp2_ftz(fmaf(sc[i], kLog2e, -ml[ih]));
+      l[ih] += pr;  // the undropped p
+      if (p.dropout) {
+        const int qp = i0 + r0 + 8 * ih, kp = k0 + 8 * (i >> 2) + c0 + (i & 1);
+        pr *= flash::keep(p, s0, s1, row, qp, kp);
+      }
+      sc[i] = pr;
+    }
+    uint32_t pa[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) acc_to_frag(sc, kk, pa[kk]);
+
+    mbar_wait(&sm.vbar[s], ph);
+    fence_regs(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<D, 1>(o, pa[kk], desc_mnmajor<kBK>(sm.v[s], kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    __syncthreads();  // every product on stage s is done: refill it
+    if (tid == 0 && j + kStages < n_kt) load_kv<D>(sm, &tk, &tv, j + kStages, s, g, b);
+  }
+
+  float* lse = p.lse_out + (long long)(b * p.nh + h) * p.T;
+  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * D + (long long)h * D;
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int qp = i0 + r0 + 8 * ih;
+    const float ls = fmaxf(quad_sum(l[ih]), 1e-30f);
+    if (qp >= p.T) continue;
+    bf16* orow = out + (long long)qp * p.nh * D + c0;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
+          __floats2bfloat162_rn(o[4 * jj + 2 * ih] / ls, o[4 * jj + 2 * ih + 1] / ls);
+    if ((lane & 3) == 0) lse[qp] = m[ih] + logf(ls);
+  }
+}
+
+template <int D>
+int launch(const Params& p, void* stream) {
+  static size_t cap[64] = {};
+  const size_t smem = smem_bytes<D>();
+  const int err = flash::set_smem(fwd_kernel_sm90<D>, smem, cap);
+  if (err) return err;
+  if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
+  CUtensorMap tq, tk, tv;
+  if (!sm90::rows_map(&tq, p.q, D, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
+      !sm90::rows_map(&tk, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
+      !sm90::rows_map(&tv, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.nh, p.B, (p.T + kBQ - 1) / kBQ);
+  fwd_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash_sm90
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128. out (B, T, nh, D) and
-// lse (B, nh, T) fp32, both contiguous. dims and strides as in
-// flash::make_params. Returns the launch's cudaError_t (0 = success).
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel); D: 64 or
+// 128. out (B, T, nh, D) and lse (B, nh, T) fp32, both contiguous. dims
+// and strides as in flash::make_params. Returns the launch's cudaError_t
+// (0 = success).
 extern "C" int flash_attn_fwd(int dtype, int D, const void* q, const void* k, const void* v,
                               void* out, float* lse, const int* seed, const int* dims,
                               const long long* strides, float scale, unsigned thresh,
@@ -163,7 +373,7 @@ extern "C" int flash_attn_fwd(int dtype, int D, const void* q, const void* k, co
                                       seed, dims, strides, scale, thresh, keep_scale);
   if (dtype == 0 && D == 64) return launch<float, 64>(p, stream);
   if (dtype == 0 && D == 128) return launch<float, 128>(p, stream);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(p, stream);
-  if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(p, stream);
+  if (dtype == 1 && D == 64) return flash_sm90::launch<64>(p, stream);
+  if (dtype == 1 && D == 128) return flash_sm90::launch<128>(p, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,7 +16,11 @@ layout through (batch, time) strides, so they serve both:
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take (dtypes other than fp32/bf16, head sizes other than
-64 and 128); for CPU tensors it runs the plain version, which repeats the
+64 and 128). The dtype picks the design inside the C entry, by dtype and
+never as a fallback: bf16 forward and dkv run on tensor cores (wgmma on
+TMA-fed shared memory, csrc/flash_attn_sm90.cuh), fp32 and dq on the FMA
+design (csrc/flash_attn_common.cuh), since tensor cores take fp32 only as
+TF32. For CPU tensors a wrapper runs the plain version, which repeats the
 kernel's arithmetic in one pass: fp32 scores, masked scores -1e30, the
 normalizer over the undropped p, p (and dS) rounded to the operand dtype
 before each product, lse = m + log(max(l, 1e-30)). Both kinds of call are
@@ -220,16 +224,24 @@ def flash_attention_usable(q, k, v) -> bool:
             and q.shape[2] % k.shape[2] == 0)
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """`x` contiguous from a 16-byte aligned address, copied only where
+    needed (a contiguous view may start off a 16-byte boundary)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _strided(x: torch.Tensor) -> torch.Tensor:
     """`x` itself when the kernels can read it through (batch, time)
-    strides — heads and head dims packed, 16-byte aligned rows — else a
-    contiguous copy."""
+    strides — heads and head dims packed, base and row strides 16-byte
+    aligned, as the FMA kernels' vector loads and the bf16 kernels' TMA
+    maps need — else an aligned contiguous copy."""
     el = x.element_size()
     if (x.stride(3) == 1 and x.stride(2) == x.shape[3]
             and x.data_ptr() % 16 == 0 and (x.stride(0) * el) % 16 == 0
             and (x.stride(1) * el) % 16 == 0):
         return x
-    return x.contiguous()
+    return _aligned(x)
 
 
 def _prepare(name, q, k, v, seed, rate, *more):
@@ -308,8 +320,8 @@ def _bwd_operands(name, q, k, v, dout, lse, delta, seed, rate):
                          f"{tuple(lse.shape)}, delta {tuple(delta.shape)} "
                          f"do not fit q {tuple(q.shape)}")
     dout = _strided(dout.to(q.dtype))
-    lse = lse.float().contiguous()
-    delta = delta.float().contiguous()
+    lse = _aligned(lse.float())
+    delta = _aligned(delta.float())
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                v.stride(0), v.stride(1), dout.stride(0), dout.stride(1))
     return q, k, v, dout, lse, delta, seed, dims, strides

@@ -7,12 +7,16 @@ running max in the kernel but the global max in the plain version); the
 same three routes over an int8 cache with fp32 scale rows (the `_q8`
 kernels, head sizes 8 mod 16 included), at the same limits.
 The flash-attention kernels (forward, dq, dkv) over causal and full
-attention, MHA and GQA, dropout 0 and 0.2, ragged T and S > T, head sizes
-64 and 128, each output element by element within atol + rtol x |plain|:
+attention, MHA and GQA (rep 4 at head size 128), dropout 0 and 0.2, T and
+S off the bf16 kernels' tiles (T 1, 70, 130, 200) and S > T, head sizes 64
+and 128, and bf16 at the training shape (B 8, T 1024, 12 x 64), each
+output element by element within atol + rtol x |plain|:
 fp32 (1e-5, 1e-5: summation order); bf16 (4e-3, 2^-7: outputs round to
 bf16 on both sides, and p rounds against a running max in the forward
-kernel); lse, fp32 whatever the inputs, at the fp32 limits. And the
-autograd path against the naive attention's gradients in fp32. The fused
+kernel); lse, fp32 whatever the inputs, at the fp32 limits. Strided q/k/v
+views of a fused qkv (the bf16 TMA maps' time stride) equal contiguous
+copies bit for bit, and two bf16 dkv launches are bit-equal (no atomics).
+And the autograd path against the naive attention's gradients in fp32. The fused
 cross-entropy kernels (forward, dx, dW) at ragged token counts and
 vocabularies, with ignored rows, each output element by element within
 atol + rtol x |plain| (`CE_TOL`), and their autograd route against the
@@ -252,7 +256,12 @@ def test_q8_wrappers_refuse_what_the_kernels_do_not_take(dev):
 FLASH_CASES = [  # B, T, S, nh, nkv, D, causal
     (2, 128, 128, 4, 4, 64, True), (2, 128, 128, 4, 2, 64, False),
     (1, 100, 100, 4, 2, 64, True), (1, 40, 256, 4, 4, 64, True),
-    (2, 96, 96, 2, 1, 128, True), (1, 70, 70, 2, 2, 128, False)]
+    (2, 96, 96, 2, 1, 128, True), (1, 70, 70, 2, 2, 128, False),
+    # T and S off the bf16 kernels' 64-row (dkv at D 128: 32-row) tiles
+    (1, 200, 200, 4, 2, 64, True), (2, 1, 1, 4, 4, 64, True),
+    (2, 1, 70, 2, 1, 64, False),
+    # D 128 with GQA rep 4 (dkv sums four query heads per kv head)
+    (1, 200, 200, 8, 2, 128, True), (2, 130, 70, 8, 2, 128, False)]
 
 
 #: (atol, rtol) of the flash kernels, element by element:
@@ -268,10 +277,8 @@ def _flash_close(out, ref, dtype):
                                rtol=rtol)
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("B,T,S,nh,nkv,D,causal", FLASH_CASES)
-def test_flash_kernels(dev, dtype, B, T, S, nh, nkv, D, causal, rate):
+def _flash_case(dev, dtype, B, T, S, nh, nkv, D, causal, rate):
+    """Forward, dq and dkv of one case against their plain versions."""
     g = torch.Generator(device=dev)
     g.manual_seed(T + S + D)
 
@@ -300,11 +307,27 @@ def test_flash_kernels(dev, dtype, B, T, S, nh, nkv, D, causal, rate):
     assert fa.LAUNCHES == {k: 1 for k in fa.LAUNCHES}
 
 
-def test_flash_reads_strided_views(dev):
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,T,S,nh,nkv,D,causal", FLASH_CASES)
+def test_flash_kernels(dev, dtype, B, T, S, nh, nkv, D, causal, rate):
+    _flash_case(dev, dtype, B, T, S, nh, nkv, D, causal, rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_flash_kernels_bf16_training_shape(dev, rate):
+    """The bf16 kernels at the training path's shape: B 8, T 1024, 12
+    heads x 64, causal (16 query and key tiles a head)."""
+    _flash_case(dev, torch.bfloat16, 8, 1024, 1024, 12, 12, 64, True, rate)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_reads_strided_views(dev, dtype):
     """q, k, v as views of one fused qkv projection (row stride 3*C), as
-    the model hands them over, equal contiguous copies."""
+    the model hands them over, equal contiguous copies (bf16: through the
+    TMA maps' time stride)."""
     B, T, nh, D = 2, 130, 4, 64
-    qkv = torch.randn(B, T, 3 * nh * D, device=dev)
+    qkv = torch.randn(B, T, 3 * nh * D, device=dev).to(dtype)
     q, k, v = (t.reshape(B, T, nh, D) for t in qkv.split(nh * D, dim=-1))
     assert q.stride(1) == 3 * nh * D
     out, lse = fa.flash_attn_fwd(q, k, v, scale=0.125)
@@ -312,6 +335,28 @@ def test_flash_reads_strided_views(dev):
                                      v.contiguous(), scale=0.125)
     torch.cuda.synchronize()
     assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+
+
+@pytest.mark.parametrize("D,nh,nkv", [(64, 4, 2), (128, 8, 2)])
+def test_flash_dkv_bf16_is_deterministic(dev, D, nh, nkv):
+    """Two bf16 dkv launches on the same inputs are bit-equal: the GQA
+    group is summed in registers and each key row written once, with no
+    atomics."""
+    B, T = 2, 200
+    g = torch.Generator(device=dev)
+    g.manual_seed(D)
+    q, dout = (torch.randn(B, T, nh, D, generator=g, device=dev).bfloat16()
+               for _ in range(2))
+    k, v = (torch.randn(B, T, nkv, D, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(scale=D ** -0.5, causal=True)
+    out, lse = fa.flash_attn_fwd(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    first = fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    second = fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("nh,nkv,causal", [(4, 4, True), (4, 2, False)])

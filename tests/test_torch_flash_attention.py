@@ -5,8 +5,9 @@ through `jax.vjp` with a nonzero dlse, causal and full, MHA and GQA (rep
 2), dropout 0 and 0.2 with the same (2,) seed on both sides. On the CPU
 the wrappers run the kernels' plain versions. fp32, atol 1e-5: the two
 sides sum in different orders (tiles of 16 in the reference, one pass
-here). Also: `dropout_bits` is `_mix_bits` bit for bit, and `sdpa` routes
-uncached calls through the flash wrappers."""
+here). Also: `dropout_bits` is `_mix_bits` bit for bit, `sdpa` routes
+uncached calls through the flash wrappers, and the kernels' operands come
+from 16-byte aligned addresses."""
 
 import jax
 import jax.numpy as jnp
@@ -136,3 +137,28 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                                      torch.zeros(1, 8, 2, 64))
     with pytest.raises(ValueError, match="seed"):
         fa.flash_attention_lse(z, z, z, scale=1.0, dropout_rate=0.1)
+
+
+def test_kernel_operands_are_16_byte_aligned():
+    """What the wrappers hand the kernels: a q/k/v view is read in place
+    through its (batch, time) strides when its base and strides are
+    16-byte aligned (the fused qkv view), else as an aligned contiguous
+    copy, also when the view is contiguous but starts off a 16-byte
+    boundary; lse and delta likewise (the bf16 dkv kernel reads them
+    through TMA)."""
+    B, T, nh, D = 2, 10, 4, 64
+    qkv = torch.zeros(B, T, 3 * nh * D)
+    q = qkv[..., :nh * D].reshape(B, T, nh, D)
+    assert fa._strided(q).data_ptr() == q.data_ptr()
+    flat = torch.arange(B * T * nh * D + 1, dtype=torch.float32)
+    odd = flat[1:].reshape(B, T, nh, D)          # contiguous, 4 bytes off
+    assert odd.is_contiguous() and odd.data_ptr() % 16 == 4
+    got = fa._strided(odd)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, odd)
+    stat = torch.arange(B * nh * T, dtype=torch.float32).reshape(B, nh, T)
+    assert fa._aligned(stat).data_ptr() == stat.data_ptr()
+    for x in (flat[1:B * nh * T + 1].reshape(B, nh, T),
+              stat.transpose(1, 2).contiguous().transpose(1, 2)):
+        got = fa._aligned(x)
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, x)

@@ -22,10 +22,13 @@ SOURCES = sorted((ROOT / "distributed_pytorch_tpu_torch").rglob("*.py")) \
 
 CUDA_SOURCES = sorted((ROOT / "distributed_pytorch_tpu_torch" / "csrc")
                       .glob("*.cu*"))
-# what a hand-written kernel may include: the port's own headers and the
-# CUDA runtime's and the C++ library's own
+# what a hand-written kernel may include: the port's own headers, the CUDA
+# runtime's and the C++ library's own, and the driver API's types
+# (cuda.h: `CUtensorMap` and the signature of `cuTensorMapEncodeTiled`,
+# which the bf16 flash kernels reach through the runtime's driver entry
+# point, without linking the driver library)
 CUDA_HEADERS = {"cuda_runtime.h", "cuda_bf16.h", "stdint.h", "cstdint",
-                "type_traits"}
+                "type_traits", "cuda.h"}
 
 
 def _imported_tops(path):
