@@ -13,10 +13,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
 2. build   — compiles every CUDA source under
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took; counts each
-             flash kernel's HGMMA and UTMALDG instructions
-             (`cuobjdump -sass`): the bf16 forward and dkv kernels must
-             hold both (wgmma on TMA-fed shared memory), the FMA kernels
-             (fp32, and dq) neither.
+             flash and grouped kernel's HGMMA and UTMALDG instructions
+             (`cuobjdump -sass`): the bf16 flash forward, dq and dkv
+             kernels and the bf16 grouped dW kernel must hold both (wgmma
+             on TMA-fed shared memory), the others (fp32, and the grouped
+             forward and dx) neither.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's shapes (decode, prefill; over a bf16/fp32
              cache and over an int8 cache with fp32 row scales, the _q8
@@ -119,6 +120,7 @@ import asyncio
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -312,18 +314,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 SASS_OPS = ("HGMMA", "UTMALDG")
+# the libraries whose kernels phase 2 inventories (flash_attn_bwd_dq and
+# _dkv share one, as do grouped_mm_bwd_dx and _dw)
+SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
+             "grouped_mm_bwd_dw")
+# the bf16 kernels on wgmma and TMA: fwd, dq and dkv at D 64 and 128, dW
+# unscaled (fc) and gate-scaled (proj)
+SASS_WGMMA_KERNELS = 8
 
 
 def sass_inventory() -> dict:
-    """{kernel: {op: count}} of SASS_OPS in the built flash libraries
-    (`cuobjdump -sass`), kernels by their mangled names."""
+    """{kernel: {op: count}} of SASS_OPS in the built flash and grouped
+    libraries (`cuobjdump -sass`), kernels by their mangled names."""
     import shutil
 
     from distributed_pytorch_tpu_torch.ops import cuda_build
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(cuda_build._nvcc()), "cuobjdump")
     counts = {}
-    for name in ("flash_attn_fwd", "flash_attn_bwd_dkv"):
+    for name in SASS_LIBS:
         out = subprocess.run([tool, "-sass", str(cuda_build.lib_path(name))],
                              capture_output=True, text=True, timeout=120)
         check(out.returncode == 0,
@@ -340,10 +349,13 @@ def sass_inventory() -> dict:
 
 
 def check_sass(counts: dict) -> None:
-    """The bf16 flash forward and dkv (`*_kernel_sm90`) run wgmma on TMA
-    loads; the FMA kernels hold neither instruction."""
-    check(sum("kernel_sm90" in fn for fn in counts) == 4,
-          f"expected 4 bf16 wgmma kernels, found {sorted(counts)}")
+    """The bf16 flash forward, dq and dkv and the bf16 grouped dW
+    (`*_kernel_sm90`) run wgmma on TMA loads; every other kernel (fp32,
+    the grouped forward and dx) holds neither instruction."""
+    n_sm90 = sum("kernel_sm90" in fn for fn in counts)
+    check(n_sm90 == SASS_WGMMA_KERNELS,
+          f"expected {SASS_WGMMA_KERNELS} bf16 wgmma kernels, found "
+          f"{n_sm90}: {sorted(counts)}")
     for fn, c in sorted(counts.items()):
         short = fn.split("_17_", 1)[-1][:80]
         print(f"  {short}: " + ", ".join(f"{op} {n}" for op, n in c.items()),
@@ -351,7 +363,8 @@ def check_sass(counts: dict) -> None:
         if "kernel_sm90" in fn:
             check(all(c.values()), f"{short}: no {SASS_OPS} in its SASS")
         else:
-            check(not any(c.values()), f"{short}: an FMA kernel with {c}")
+            check(not any(c.values()),
+                  f"{short}: a kernel off wgmma and TMA with {c}")
 
 
 def bound(n_bytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -1429,6 +1442,23 @@ def flash_kernel_of(key: str):
     return None
 
 
+# the modes of `gmm::gmm_kernel<T, MODE>` (csrc/grouped_mm_common.cuh)
+GMM_MODES = {"0": "grouped_mm_fwd", "1": "grouped_mm_bwd_dx",
+             "2": "grouped_mm_bwd_dw"}
+
+
+def gmm_kernel_of(key: str):
+    """The grouped kernel a profiler event's name belongs to, or None:
+    the bf16 dW `gmm::dw_kernel_sm90`, or `gmm::gmm_kernel<T, MODE>` by
+    its mode."""
+    if "gmm::" not in key:
+        return None
+    if "dw_kernel_sm90" in key:
+        return "grouped_mm_bwd_dw"
+    m = re.search(r"gmm_kernel<[^>]*?(\d)\s*>", key)
+    return GMM_MODES.get(m.group(1)) if m else None
+
+
 def _dev_us(e) -> float:
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0.0))
@@ -1900,12 +1930,16 @@ def profile_train(torch, state, train_cfg, model_cfg) -> dict:
              "grouped-mm kernels": 0.0, "matmuls (cuBLAS)": 0.0,
              "everything else": 0.0}
     flash = dict.fromkeys(FLASH_KERNEL_NAMES, 0.0)
+    grouped = dict.fromkeys(GMM_MODES.values(), 0.0)
     for e in ev:
         kname = flash_kernel_of(e.key)
         if "fce::" in e.key:
             split["fused CE kernels"] += _dev_us(e)
         elif "gmm::" in e.key:
             split["grouped-mm kernels"] += _dev_us(e)
+            gname = gmm_kernel_of(e.key)
+            if gname is not None:
+                grouped[gname] += _dev_us(e)
         elif kname is not None:
             split["flash attention kernels"] += _dev_us(e)
             flash[kname] += _dev_us(e)
@@ -1918,10 +1952,15 @@ def profile_train(torch, state, train_cfg, model_cfg) -> dict:
                                   for k, v in split.items()), flush=True)
     print("  flash a step: " + ", ".join(
         f"{k} {v / n / 1e3:.3f} ms" for k, v in flash.items()), flush=True)
+    if split["grouped-mm kernels"]:
+        print("  grouped a step: " + ", ".join(
+            f"{k} {v / n / 1e3:.3f} ms" for k, v in grouped.items()),
+            flush=True)
     print_kernels(ev, n, 12)
     return {"host_wall_ms": wall_ms, "device_ms": dev_ms,
             **{k: v / n / 1e3 for k, v in split.items()},
-            **{k: v / n / 1e3 for k, v in flash.items()}}
+            **{k: v / n / 1e3 for k, v in flash.items()},
+            **{k: v / n / 1e3 for k, v in grouped.items()}}
 
 
 def run_parity(torch, dev) -> None:

@@ -21,11 +21,30 @@
 // forward's coordinates (row b*nh + h, query position, key position), not
 // from a kernel's loop order.
 //
-// * dq, fp32 and bf16 (`dq_kernel`): still the FMA design of
-//   flash_attn_common.cuh. One CTA per (64-row query tile, head, batch),
-//   walking key tiles up to the causal frontier: S = Q K^T and
-//   dP = dO V^T, dS = p * (dP * mask - delta) rounded to the key dtype,
-//   dQ += dS K; dq carries * scale at the write.
+// * dq, fp32 (`dq_kernel`): the FMA design of flash_attn_common.cuh
+//   (tensor cores take fp32 only as TF32). One CTA per (64-row query
+//   tile, head, batch), walking key tiles up to the causal frontier:
+//   S = Q K^T and dP = dO V^T, dS = p * (dP * mask - delta) rounded to the
+//   key dtype, dQ += dS K; dq carries * scale at the write.
+// * dq, bf16 (`dq_kernel_sm90`): tensor cores. One CTA of one warpgroup
+//   (128 threads) per (64-row query tile, head, batch), the causal
+//   heaviest tiles first (the grid's slowest axis runs down the frontier,
+//   as in the forward). TMA brings the Q and dO tiles once and streams the
+//   kv head's 64-key K and V tiles through a 2-stage ring (mbarrier
+//   completion), the tile after next requested as soon as a stage is
+//   free; 48 KB of shared memory at head size 64, 96 KB at 128. Each
+//   thread reads the lse and delta of its own two rows from device memory
+//   once. Per key tile up to the frontier: S = Q K^T and dP = dO V^T are
+//   wgmmas with both operands in shared memory (K-major); p = exp(s *
+//   scale - lse) (expf of the fp32 score, as the FMA dq kernel and the
+//   plain version form it; the bf16 dkv takes exp2 of the same score
+//   times log2 e, which differs in the last bits), the dropout mask on
+//   dP, and dS = p (dP * mask - delta) are computed on the accumulators
+//   in registers and rounded to bf16 straight into the register A operand
+//   of dQ += dS K, which reads the same K stage MN-major (the transpose
+//   bit). Only tiles on the diagonal or at the ragged ends are masked (TMA
+//   zero-fills rows past T and S). Each query row is written once,
+//   dq * scale.
 // * dkv, fp32 (`dkv_kernel`): the FMA design, unchanged (tensor cores take
 //   fp32 only as TF32, which would break the fp32 limits of the kernel
 //   checks and the training parity). One CTA per (64-key tile, kv head,
@@ -308,7 +327,7 @@ int launch_dkv(const Params& p, void* stream) {
 namespace flash_sm90 {
 
 using sm90::bf16;
-constexpr int kBK = 64;  // key rows per CTA: one warpgroup
+constexpr int kBK = 64;  // key rows: of a dkv CTA (one warpgroup), of a dq stage
 constexpr int kStages = 2;
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -424,10 +443,10 @@ __global__ void __launch_bounds__(kThreads)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BQ, 0>(st, desc_kmajor<kBK>(sm.k, kk), desc_kmajor<BQ>(sm.q[s], kk), 1);
+      wgmma_ss<BQ, 0, 0>(st, desc_kmajor<kBK>(sm.k, kk), desc_kmajor<BQ>(sm.q[s], kk), 1);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BQ, 0>(dpt, desc_kmajor<kBK>(sm.v, kk), desc_kmajor<BQ>(sm.dout[s], kk), 1);
+      wgmma_ss<BQ, 0, 0>(dpt, desc_kmajor<kBK>(sm.v, kk), desc_kmajor<BQ>(sm.dout[s], kk), 1);
     wg_commit();
     wg_wait<0>();
     fence_regs(st);
@@ -497,7 +516,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int D>
-int launch(const Params& p, void* stream) {
+int launch_dkv(const Params& p, void* stream) {
   constexpr int BQ = bq<D>();
   static size_t cap[64] = {};
   const size_t smem = smem_bytes<D>();
@@ -524,12 +543,177 @@ int launch(const Params& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 dq: wgmma on TMA-fed shared memory ------------------------------
+
+constexpr int kBQ = 64;  // query rows per dq CTA: one warpgroup
+
+template <int D>
+struct DqSmem {
+  alignas(1024) bf16 q[kBQ * D];
+  alignas(1024) bf16 dout[kBQ * D];
+  alignas(1024) bf16 k[kStages][kBK * D];
+  alignas(1024) bf16 v[kStages][kBK * D];
+  uint64_t qbar, full[kStages];
+};
+
+struct DqMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+// K and V tile j of kv head g into stage s (one thread)
+template <int D>
+__device__ __forceinline__ void load_kv(DqSmem<D>& sm, const DqMaps& mp, int j, int s, int g,
+                                        int b) {
+  sm90::mbar_expect_tx(&sm.full[s], 2 * kBK * D * 2);
+  sm90::tma_rows<D, kBK>(sm.k[s], &mp.k, &sm.full[s], g, j * kBK, b);
+  sm90::tma_rows<D, kBK>(sm.v[s], &mp.v, &sm.full[s], g, j * kBK, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dq_kernel_sm90(const __grid_constant__ DqMaps mp, const Params p) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem<D>& sm = smem_aligned<DqSmem<D>>(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest tiles first
+  const int g = h / (p.nh / p.nkv);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  // the keys any row of this tile may see
+  const int n_keys = p.causal ? min(p.S, i0 + kBQ) : p.S;
+  const int n_kt = (n_keys + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    mbar_init(&sm.qbar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&sm.qbar, 2 * kBQ * D * 2);
+    tma_rows<D, kBQ>(sm.q, &mp.q, &sm.qbar, h, i0, b);
+    tma_rows<D, kBQ>(sm.dout, &mp.dout, &sm.qbar, h, i0, b);
+    for (int j = 0; j < kStages && j < n_kt; ++j) load_kv<D>(sm, mp, j, j, g, b);
+  }
+
+  uint32_t s0 = 0, s1 = 0;
+  if (p.dropout) {
+    s0 = (uint32_t)p.seed[0];
+    s1 = (uint32_t)p.seed[1];
+  }
+  const uint32_t row = (uint32_t)(b * p.nh + h);
+  const int r0 = w * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+  const int c0 = 2 * (lane & 3);        // and columns 8 j + c0 + {0, 1}
+  const long long stat = (long long)(b * p.nh + h) * p.T;
+  float lse[2], dl[2];
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int qp = i0 + r0 + 8 * ih;
+    lse[ih] = qp < p.T ? p.lse_in[stat + qp] : 0.f;
+    dl[ih] = qp < p.T ? p.delta[stat + qp] : 0.f;
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(&sm.qbar, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % kStages;
+    const uint32_t ph = (j / kStages) & 1;
+    const int k0 = j * kBK;
+    float sc[kBK / 2], dp[kBK / 2];
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      sc[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    mbar_wait(&sm.full[s], ph);
+    fence_regs(sc);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kBK, 0, 0>(sc, desc_kmajor<kBQ>(sm.q, kk), desc_kmajor<kBK>(sm.k[s], kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kBK, 0, 0>(dp, desc_kmajor<kBQ>(sm.dout, kk), desc_kmajor<kBK>(sm.v[s], kk), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // mask only tiles on the diagonal or at the ragged ends
+    const bool edge = (p.causal && k0 + kBK - 1 > i0) || i0 + kBQ > p.T || k0 + kBK > p.S;
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int ih = (i >> 1) & 1;
+      const int qp = i0 + r0 + 8 * ih, kp = k0 + 8 * (i >> 2) + c0 + (i & 1);
+      bool ok = true;
+      if (edge) ok = qp < p.T && kp < p.S && (!p.causal || kp <= qp);
+      // the fp32 score q.k * scale, then exp(score - lse), as the FMA dq
+      // kernel forms it
+      const float pv = ok ? expf(sc[i] * p.scale - lse[ih]) : 0.f;
+      float d = dp[i];
+      if (p.dropout) d *= flash::keep(p, s0, s1, row, qp, kp);
+      sc[i] = pv * (d - dl[ih]);  // dS, rounded to bf16 below
+    }
+    uint32_t da[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) acc_to_frag(sc, kk, da[kk]);
+    fence_regs(dq);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<D, 1>(dq, da[kk], desc_mnmajor<kBK>(sm.k[s], kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dq);
+    __syncthreads();  // every product on stage s is done: refill it
+    if (tid == 0 && j + kStages < n_kt) load_kv<D>(sm, mp, j + kStages, s, g, b);
+  }
+
+  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * D + (long long)h * D;
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int qp = i0 + r0 + 8 * ih;
+    if (qp >= p.T) continue;
+    bf16* orow = out + (long long)qp * p.nh * D + c0;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) = __floats2bfloat162_rn(
+          dq[4 * jj + 2 * ih] * p.scale, dq[4 * jj + 2 * ih + 1] * p.scale);
+  }
+}
+
+template <int D>
+int launch_dq(const Params& p, void* stream) {
+  static size_t cap[64] = {};
+  const size_t smem = sizeof(DqSmem<D>) + 1024;  // + room to align the base to 1024
+  const int err = flash::set_smem(dq_kernel_sm90<D>, smem, cap);
+  if (err) return err;
+  if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
+  if (p.S == 0) {  // no key to attend to: zero gradients, as the FMA kernel writes
+    cudaMemsetAsync(p.out0, 0, (size_t)p.B * p.T * p.nh * D * sizeof(bf16),
+                    (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+  }
+  DqMaps mp;
+  if (!sm90::rows_map(&mp.q, p.q, D, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
+      !sm90::rows_map(&mp.dout, p.dout, D, p.nh, p.T, p.B, p.do_st, p.do_sb, kBQ) ||
+      !sm90::rows_map(&mp.k, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
+      !sm90::rows_map(&mp.v, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.nh, p.B, (p.T + kBQ - 1) / kBQ);
+  dq_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace flash_sm90
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128. lse and delta (B, nh, T)
-// fp32; dq (B, T, nh, D) contiguous. Returns the launch's cudaError_t.
+// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the wgmma kernel);
+// D: 64 or 128. lse and delta (B, nh, T) fp32; dq (B, T, nh, D)
+// contiguous. Returns the launch's cudaError_t.
 extern "C" int flash_attn_bwd_dq(int dtype, int D, const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse, const float* delta,
                                  void* dq, const int* seed, const int* dims,
@@ -539,12 +723,12 @@ extern "C" int flash_attn_bwd_dq(int dtype, int D, const void* q, const void* k,
                                       dims, strides, scale, thresh, keep_scale);
   if (dtype == 0 && D == 64) return launch_dq<float, 64>(p, stream);
   if (dtype == 0 && D == 128) return launch_dq<float, 128>(p, stream);
-  if (dtype == 1 && D == 64) return launch_dq<__nv_bfloat16, 64>(p, stream);
-  if (dtype == 1 && D == 128) return launch_dq<__nv_bfloat16, 128>(p, stream);
+  if (dtype == 1 && D == 64) return flash_sm90::launch_dq<64>(p, stream);
+  if (dtype == 1 && D == 128) return flash_sm90::launch_dq<128>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// As flash_attn_bwd_dq (dtype 0: the FMA kernel, 1: the wgmma kernel); dk
+// As flash_attn_bwd_dq; dk
 // and dv (B, S, nkv, D) contiguous.
 extern "C" int flash_attn_bwd_dkv(int dtype, int D, const void* q, const void* k,
                                   const void* v, const void* dout, const float* lse,
@@ -555,7 +739,7 @@ extern "C" int flash_attn_bwd_dkv(int dtype, int D, const void* q, const void* k
                                       strides, scale, thresh, keep_scale);
   if (dtype == 0 && D == 64) return launch_dkv<float, 64>(p, stream);
   if (dtype == 0 && D == 128) return launch_dkv<float, 128>(p, stream);
-  if (dtype == 1 && D == 64) return flash_sm90::launch<64>(p, stream);
-  if (dtype == 1 && D == 128) return flash_sm90::launch<128>(p, stream);
+  if (dtype == 1 && D == 64) return flash_sm90::launch_dkv<64>(p, stream);
+  if (dtype == 1 && D == 128) return flash_sm90::launch_dkv<128>(p, stream);
   return (int)cudaErrorInvalidValue;
 }

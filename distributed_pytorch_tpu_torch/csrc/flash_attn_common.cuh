@@ -10,17 +10,15 @@
 // own (B, T, N, H) layout through row strides, so one kernel serves both
 // faces.
 //
-// Who uses the FMA design below: the fp32 forward and dkv kernels, and dq
-// in both dtypes. The bf16 forward and dkv kernels run on tensor cores
-// instead (wgmma on TMA-fed shared memory, flash_attn_sm90.cuh); they
-// share only `Params`, `keep` and `set_smem` with this file. fp32 stays
-// here because tensor cores take fp32 only as TF32, which would break the
-// fp32 limits of the kernel checks and of the training parity; dq keeps
-// this design until it is redesigned in turn.
+// Who uses the FMA design below: the fp32 forward, dq and dkv kernels.
+// The bf16 kernels run on tensor cores instead (wgmma on TMA-fed shared
+// memory, flash_attn_sm90.cuh and sm90_common.cuh); they share only
+// `Params`, `keep` and `set_smem` with this file. fp32 stays here because
+// tensor cores take fp32 only as TF32, which would break the fp32 limits
+// of the kernel checks and of the training parity.
 //
 // What bounds it on the H100: the products are FMA loops on CUDA cores out
-// of shared memory, so FMA and shared-memory issue bound them (the bf16
-// dq at the training shape runs ~45x above its tensor-core bound).
+// of shared memory, so FMA and shared-memory issue bound them.
 // * A CTA of 256 threads is a 16 x 16 grid; thread (ty, tx) owns a 4 x RN
 //   block of every 64-row output tile: rows ty*4 .. ty*4+3, columns
 //   tx*RN .. tx*RN+RN-1. Row reductions (softmax max and sum) stay inside

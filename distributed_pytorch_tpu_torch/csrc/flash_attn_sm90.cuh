@@ -1,102 +1,17 @@
-// Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): mbarriers, TMA tile loads, the
-// shared-memory matrix descriptors of a 128-byte-swizzled tile, the
-// `wgmma.mma_async` products (bf16 operands, fp32 accumulators) and the
-// conversion of an accumulator into the A operand of the next product.
-// Device code only, plus the host-side tensor-map encoding; no library.
-//
-// Tiles. A tile of R rows x C bf16 columns (C 64 or 128) is loaded by TMA
-// with the 128-byte swizzle, 64 columns (128 bytes) per box, as C / 64
-// sub-tiles of R x 64, each R * 128 bytes and 1024-byte aligned. One tile
-// is read two ways by wgmma:
-// * K-major (the contraction runs along the columns, as Q and K in
-//   S = Q K^T): the 16-column k-step kk starts kk % 4 * 32 bytes into
-//   sub-tile kk / 4; 8-row groups are 1024 bytes apart (SBO).
-// * MN-major (the contraction runs along the rows, as V in O = P V, with
-//   the transpose bit that 16-bit types allow): the 16-row k-step kk
-//   starts kk * 2048 bytes in; 8-row groups are 1024 bytes apart (SBO)
-//   and the 64-column sub-tiles R * 128 bytes apart (LBO).
-//
-// Accumulators. A thread t of the warpgroup (warp w = t / 32, lane l)
-// holds, of a 64 x N fp32 result, rows r = 16 w + l / 4 and r + 8 at
-// columns 8 j + 2 (l % 4) + {0, 1}: register 4 j + {0, 1} (row r) and
-// 4 j + {2, 3} (row r + 8). Columns 16 kk .. 16 kk + 15 of such a result,
-// rounded to bf16 and packed in pairs, are exactly the A fragment of
-// k-step kk of a register-sourced (RS) wgmma: registers 8 kk .. 8 kk + 7
-// become the 4 32-bit fragment words (`acc_to_frag`), with no trip
-// through shared memory.
+// The flash-attention kernels' own Hopper (sm_90a) pieces, beside the
+// shared ones of sm90_common.cuh (mbarriers, TMA loads, descriptors, the
+// wgmma products, `acc_to_frag`, the tensor-map encoding): the TMA load
+// and map of the rows of one head of a BTNH tensor, exp2 on the
+// special-function unit, and the row reductions of the softmax across the
+// four threads that hold one accumulator row (these two serve the
+// forward's online softmax). Used by the bf16 forward, dq and dkv kernels
+// (flash_attn_fwd.cu, flash_attn_bwd.cu).
 
 #pragma once
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace sm90 {
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// ---- mbarriers -----------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// make the initialised barriers visible to the async (TMA) proxy
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// one arrival that also expects `bytes` of TMA transactions this phase
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred P1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, P1;\n}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// wait until the barrier's phase `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-// ---- TMA -----------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0)
-      : "memory");
-}
 
 // Rows t0 .. t0 + R - 1 of head `head` of batch `b` (a 4-D map over
 // (D, heads, time, batch) with a 64 x 1 x R x 1 box) into the R x C tile
@@ -109,189 +24,12 @@ __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map, uint
   for (int s = 0; s < C / 64; ++s) tma_load_4d(dst + s * R * 64, map, bar, s * 64, head, t0, b);
 }
 
-// ---- wgmma ---------------------------------------------------------------
-
-// Descriptor of a 128-byte-swizzled operand at shared address `addr`.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// k-step kk of an R x C tile read K-major (see the note at the top)
-template <int R>
-__device__ __forceinline__ uint64_t desc_kmajor(const bf16* tile, int kk) {
-  return desc_sw128(smem_u32(tile) + (kk >> 2) * R * 128 + (kk & 3) * 32, 16, 1024);
-}
-
-// k-step kk of an R x C tile read MN-major
-template <int R>
-__device__ __forceinline__ uint64_t desc_mnmajor(const bf16* tile, int kk) {
-  return desc_sw128(smem_u32(tile) + kk * 2048, R * 128, 1024);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products that own them.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 32, fp32, accumulator layout) = A B + (scale_d ? d : 0), A and B
-// from shared memory: A K-major; B K-major (TB 0) or MN-major (TB 1).
-template <int TB>
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
-}
-
-// d (64 x 64, fp32, accumulator layout) = A B + (scale_d ? d : 0), A and B
-// from shared memory: A K-major; B K-major (TB 0) or MN-major (TB 1).
-template <int TB>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
-}
-
-// d (64 x 64) = A B + (scale_d ? d : 0), A from registers (`a`, the
-// m64k16 fragment), B from shared memory, K-major (TB 0) or MN-major (TB 1).
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
-}
-
-// d (64 x 128) = A B + (scale_d ? d : 0), A from registers (`a`, the
-// m64k16 fragment), B from shared memory, K-major (TB 0) or MN-major (TB 1).
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
-}
-
-// d (64 x N) = A B over one k-step, A and B from shared memory
-template <int N, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  static_assert(N == 32 || N == 64, "SS products are 64 x 32 or 64 x 64");
-  if constexpr (N == 32)
-    wgmma_ss_n32<TB>(d, da, db, scale_d);
-  else
-    wgmma_ss_n64<TB>(d, da, db, scale_d);
-}
-
-// d (64 x N) += A B over one k-step, A from registers
-template <int N, int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 64 || N == 128, "RS products are 64 x 64 or 64 x 128");
-  if constexpr (N == 64)
-    wgmma_rs_n64<TB>(d, a, db, 1);
-  else
-    wgmma_rs_n128<TB>(d, a, db, 1);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Columns 16 kk .. 16 kk + 15 of an accumulator (values already final),
-// rounded to bf16: the A fragment of k-step kk.
-template <int R>
-__device__ __forceinline__ void acc_to_frag(const float (&acc)[R], int kk, uint32_t (&a)[4]) {
-  a[0] = pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
-  a[1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
-  a[2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
-  a[3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
-}
-
 // 2^x on the special-function unit (one MUFU.EX2); results below 2^-126
 // flush to zero, where exp2f would return subnormals
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// The shared-memory struct S at the first 1024-byte boundary of the
-// dynamic shared memory `raw` (pointer arithmetic on `raw` keeps loads
-// through it in the shared state space).
-template <typename S>
-__device__ __forceinline__ S& smem_aligned(uint8_t* raw) {
-  return *reinterpret_cast<S*>(raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u));
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -302,31 +40,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// ---- host: tensor maps ---------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so that the
-// library needs no -lcuda
-inline EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                     &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
 }
 
 // The map of a bf16 (B, time, heads, C) tensor read through element
@@ -345,20 +58,6 @@ inline bool rows_map(CUtensorMap* map, const void* base, int C, int heads, int t
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The map of n contiguous fp32 values, read R at a time from any offset
-// (zeros past the end).
-inline bool vec_map(CUtensorMap* map, const float* base, long long n, int R) {
-  const EncodeTiledFn fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[1] = {(cuuint64_t)n};
-  const cuuint64_t strides[1] = {4};
-  const cuuint32_t box[1] = {(cuuint32_t)R};
-  const cuuint32_t estr[1] = {1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base), dims, strides,
-            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

@@ -19,10 +19,209 @@
 // gate-0 rows (proj) or zero dy rows (fc), which add nothing.
 //
 // Bound on the H100: operations — 2 P K N FLOP each (80.5 / 40.3 GFLOP,
-// 0.081 / 0.041 ms in bf16 for the flagship's fc / proj); design and limits
-// in grouped_mm_common.cuh.
+// 0.081 / 0.041 ms in bf16 for the flagship's fc / proj).
+//
+// The dtype picks dW's kernel; it is not a fallback:
+// * fp32 (`gmm_kernel<float, DW>`) and dx in both dtypes: the design of
+//   grouped_mm_common.cuh (fp32 runs FMA loops: tensor cores take fp32
+//   only as TF32).
+// * bf16 dW (`dw_kernel_sm90`): tensor cores. One CTA of two warpgroups
+//   (256 threads) per (K block, N block, expert), experts on the grid's
+//   slowest axis so that the shared expert (every token's row) starts
+//   first; warpgroup w owns dW rows m0 + 64 w .. m0 + 64 w + 63. Thread 0
+//   streams the expert's rows through a 3-stage TMA ring, a stage being
+//   one 128-row tile: the x tile [128 rows][128 K-columns] and the dy tile
+//   [128 rows][128 N-columns], 32 KB each as two 64-column sub-tiles with
+//   the 128-byte swizzle (192 KB in all: one CTA an SM). The product
+//   dW += x^T dy reads both tiles MN-major (the contraction runs along
+//   the rows): x^T through the A operand's transpose bit, dy through
+//   B's, 8 m64n128k16 wgmmas a tile and warpgroup. Each tile is summed
+//   into a fresh fp32 partial (scale-d 0 on its first k-step) that is
+//   then added to the accumulator, the plain version's per-tile order, so
+//   the tensor cores never accumulate over more than 128 rows. gstart is
+//   a multiple of bm (itself a multiple of 128), so tiles start aligned;
+//   TMA zero-fills rows past P and columns past K and N, and a 64-column
+//   box wholly past K or N is not requested (what it would feed is not
+//   stored). Each dW block is written once, bounded at K and N.
+//   The gate is a template parameter (fc unscaled, proj scaled). proj's
+//   consumer threads scale each landed dy tile in place, bf16(dy * gate)
+//   as the reference rounds it (the swizzle only permutes 16-byte chunks
+//   within a row, so each row keeps its gate; a thread takes one
+//   half-row, its gate read a tile ahead into a register), fence the
+//   async proxy and meet at the barrier that also frees the previous
+//   stage. Tile c + 1 is scaled while the products of tile c run, with
+//   no branch in the C++ code between a product's issue and its wait
+//   (the mbarrier wait is a PTX loop): ptxas serializes wgmmas that are
+//   in flight across a branch. (On the H100, scaling each tile before
+//   its own products, and waits written as C++ loops, were both slower.)
 
 #include "grouped_mm_common.cuh"
+#include "sm90_common.cuh"
+
+namespace gmm {
+
+constexpr int kDwRows = 128;     // rows a stage: one tile
+constexpr int kDwStages = 3;
+constexpr int kDwThreads = 256;  // two consumer warpgroups
+
+struct DwSmem {
+  // [stage][sub-tile of 64 columns][128 rows][64 columns], swizzled
+  alignas(1024) __nv_bfloat16 x[kDwStages][kDwRows * BM];
+  alignas(1024) __nv_bfloat16 dy[kDwStages][kDwRows * BN];
+  uint64_t full[kDwStages];
+};
+
+struct DwMaps {
+  CUtensorMap x, dy;
+};
+
+template <bool SCALED>
+__global__ void __launch_bounds__(kDwThreads, 1)
+    dw_kernel_sm90(const __grid_constant__ DwMaps mp, const Params p) {
+  using namespace ::sm90;
+  extern __shared__ uint8_t smem_raw[];
+  DwSmem& sm = smem_aligned<DwSmem>(smem_raw);
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, e = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
+  const int r_begin = p.gstart[e];
+  const int r_end = min(r_begin + (p.counts[e] + p.bm - 1) / p.bm * p.bm, p.P);
+  const int nk = r_end > r_begin ? (r_end - r_begin) / kDwRows : 0;
+  // the 64-column boxes that lie (partly) inside the matrices; a
+  // warpgroup whose rows lie past K multiplies stale shared memory and
+  // stores nothing
+  const int nx = m0 + 64 < p.K ? 2 : 1, ny = n0 + 64 < p.N ? 2 : 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < kDwStages; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto load = [&](int c, int s) {  // tile c into stage s (one thread)
+    const int r = r_begin + c * kDwRows;
+    mbar_expect_tx(&sm.full[s], (nx + ny) * kDwRows * 64 * 2);
+    for (int i = 0; i < nx; ++i)
+      tma_load_2d(sm.x[s] + i * kDwRows * 64, &mp.x, &sm.full[s], m0 + 64 * i, r);
+    for (int i = 0; i < ny; ++i)
+      tma_load_2d(sm.dy[s] + i * kDwRows * 64, &mp.dy, &sm.full[s], n0 + 64 * i, r);
+  };
+  if (tid == 0)
+    for (int c = 0; c < kDwStages && c < nk; ++c) load(c, c);
+
+  float acc[BN / 2], part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
+  // issue the products of the tile in stage s into a fresh partial
+  auto mma = [&](int s) {
+    const __nv_bfloat16* xa = sm.x[s] + wg * kDwRows * 64;
+    fence_regs(part);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDwRows / 16; ++kk)
+      wgmma_ss<BN, 1, 1>(part, desc_mnmajor<kDwRows>(xa, kk), desc_mnmajor<kDwRows>(sm.dy[s], kk),
+                         kk > 0);
+    wg_commit();
+  };
+  // wait for them, add the partial, and refill the stage with tile c + 3
+  auto finish = [&](int c, int s) {
+    wg_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    __syncthreads();  // every product on stage s is done (and, for proj, tile c + 1 scaled)
+    if (tid == 0 && c + kDwStages < nk) load(c + kDwStages, s);
+  };
+
+  if constexpr (SCALED) {
+    // proj's gate pass: thread t scales half-row t & 1 (a 64-column
+    // sub-tile) of row t / 2 of a landed dy tile in place, 128 bytes, and
+    // fences the async proxy; a barrier follows before the products read
+    // it. Tile c + 1 is scaled while the products of tile c run, with no
+    // branch between their issue and their wait.
+    const int gr = tid >> 1, gh = tid & 1;
+    auto scale_tile = [&](int s, float gate) {
+      uint4* hrow = reinterpret_cast<uint4*>(sm.dy[s] + gh * kDwRows * 64 + gr * 64);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int jj = (j + gr) & 7;  // rows start their walk on other banks
+        uint4 v = hrow[jj];
+        uint32_t* u = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+          u[i] = pack_bf16(f.x * gate, f.y * gate);
+        }
+        hrow[jj] = v;
+      }
+      fence_proxy_async();
+    };
+    if (nk > 0) {
+      mbar_wait(&sm.full[0], 0);
+      scale_tile(0, p.scale[r_begin + gr]);
+      __syncthreads();
+    }
+    float gate_next = nk > 1 ? p.scale[r_begin + kDwRows + gr] : 0.f;
+    for (int c = 0; c + 1 < nk; ++c) {
+      const int s = c % kDwStages, s1 = (c + 1) % kDwStages;
+      mma(s);
+      const float gate = gate_next;  // tile c + 1's; read tile c + 2's
+      gate_next = p.scale[r_begin + min(c + 2, nk - 1) * kDwRows + gr];
+      mbar_wait(&sm.full[s1], ((c + 1) / kDwStages) & 1);
+      scale_tile(s1, gate);
+      finish(c, s);
+    }
+    if (nk > 0) {
+      mma((nk - 1) % kDwStages);
+      finish(nk - 1, (nk - 1) % kDwStages);
+    }
+  } else {
+    for (int c = 0; c < nk; ++c) {
+      const int s = c % kDwStages;
+      mbar_wait(&sm.full[s], (c / kDwStages) & 1);
+      mma(s);
+      finish(c, s);
+    }
+  }
+
+  const int r0 = w * 16 + (lane >> 2);  // this thread's dW rows: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);        // and columns 8 j + c0 + {0, 1}
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int m = m0 + 64 * wg + r0 + 8 * ih;
+    if (m >= p.K) continue;
+    float* o = static_cast<float*>(p.out) + ((long long)e * p.K + m) * p.N + n0 + c0;
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj)
+      if (n0 + 8 * jj + c0 < p.N)
+        *reinterpret_cast<float2*>(o + 8 * jj) =
+            make_float2(acc[4 * jj + 2 * ih], acc[4 * jj + 2 * ih + 1]);
+  }
+}
+
+template <bool SCALED>
+int launch_dw(const Params& p, const DwMaps& mp, void* stream) {
+  static size_t cap[64] = {};
+  const size_t smem = sizeof(DwSmem) + 1024;  // + room to align the base to 1024
+  const int err = flash::set_smem(dw_kernel_sm90<SCALED>, smem, cap);
+  if (err) return err;
+  const dim3 grid((p.K + BM - 1) / BM, (p.N + BN - 1) / BN, p.E);
+  dw_kernel_sm90<SCALED><<<grid, kDwThreads, smem, (cudaStream_t)stream>>>(mp, p);
+  return (int)cudaGetLastError();
+}
+
+int launch_dw_sm90(const Params& p, void* stream) {
+  if (!shape_ok(p)) return (int)cudaErrorInvalidValue;
+  if (p.P == 0) {  // no rows: every expert's dW is zero
+    cudaMemsetAsync(p.out, 0, (size_t)p.E * p.K * p.N * sizeof(float), (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+  }
+  DwMaps mp;
+  if (!::sm90::mat_map(&mp.x, p.a, p.P, p.K, kDwRows) ||
+      !::sm90::mat_map(&mp.dy, p.b, p.P, p.N, kDwRows))
+    return (int)cudaErrorInvalidValue;
+  return p.scale != nullptr ? launch_dw<true>(p, mp, stream) : launch_dw<false>(p, mp, stream);
+}
+
+}  // namespace gmm
 
 // dtype: 0 = float32, 1 = bfloat16, for dy (P, N), w (E, K, N) and dx
 // (P, K), all contiguous; scale (P,) fp32 or null; tile_group (P / bm,)
@@ -44,7 +243,8 @@ extern "C" int grouped_mm_bwd_dx(int dtype, const void* dy, const void* w, const
   return gmm::dispatch<gmm::DX>(dtype, p, stream);
 }
 
-// dtype as above for x (P, K) and dy (P, N); scale (P,) fp32 or null;
+// dtype as above (0: the FMA kernel, 1: the wgmma kernel) for x (P, K)
+// and dy (P, N); scale (P,) fp32 or null;
 // counts and gstart (E,) int32: each expert's rows and its first padded
 // row (a multiple of bm); dw (E, K, N) fp32. Returns the launch's
 // cudaError_t (0 = success).
@@ -63,5 +263,7 @@ extern "C" int grouped_mm_bwd_dw(int dtype, const void* x, const void* dy, const
   p.N = N;
   p.E = E;
   p.bm = bm;
-  return gmm::dispatch<gmm::DW>(dtype, p, stream);
+  if (dtype == 0) return gmm::launch<float, gmm::DW>(p, stream);
+  if (dtype == 1) return gmm::launch_dw_sm90(p, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -16,7 +16,9 @@
 // against the card's ~295. dx and dW do the same FLOP each.
 //
 // Design (simple first; wgmma, TMA and a persistent schedule are later
-// work):
+// work), of the forward and dx in both dtypes and of the fp32 dW (the
+// bf16 dW runs `dw_kernel_sm90`, wgmma on TMA-fed shared memory, in
+// grouped_mm_bwd.cu):
 // * One CTA of 8 warps owns a 128 x 128 tile of the output, each warp a
 //   32 x 64 block (4 warps along M, 2 along N). The contraction streams in
 //   chunks of 32 through two shared-memory stages filled with 16-byte
@@ -33,7 +35,7 @@
 //   layout, so the epilogue is shared.
 //     forward: A = x rows [m][k], B = W_e [k][n]             (ldmatrix, .trans)
 //     dx:      A = dy rows [m][n], B = W_e [k][n] read as W_e^T (both ldmatrix)
-//     dW:      A = x rows [r][k] read as x^T, B = dy rows [r][n] (both .trans)
+//     dW:      A = x rows [r][k] read as x^T, B = dy rows [r][n] (fp32 only)
 // * The expert of a forward or dx CTA is tile_group[row0 / bm], read from
 //   device memory as the TPU's scalar prefetch read it (bm a multiple of
 //   128, so a CTA's rows lie in one tile). A dW CTA owns one (expert,
@@ -127,6 +129,7 @@ template <bool A_KM, bool B_KM>
 __device__ __forceinline__ void mma_chunk(float (&acc)[2][8][4], const __nv_bfloat16* As, int lda,
                                           const __nv_bfloat16* Bs, int ldb, int wm0, int wn0,
                                           int lane) {
+  static_assert(!A_KM, "the bf16 dW runs dw_kernel_sm90");
   const int l7 = lane & 7, b3 = (lane >> 3) & 1, b4 = lane >> 4;
 #pragma unroll
   for (int k = 0; k < BK; k += 16) {
@@ -134,12 +137,7 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[2][8][4], const __nv_bflo
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
       const int m0 = wm0 + mi * 16;
-      if constexpr (A_KM) {
-        // matrix i = lane / 8 covers rows m0 + 8 (i & 1), columns k + 8 (i >> 1)
-        ldsm_x4_t(a[mi], As + (k + l7 + 8 * b4) * lda + m0 + 8 * b3);
-      } else {
-        fce::ldsm_x4(a[mi], As + (m0 + l7 + 8 * b3) * lda + k + 8 * b4);
-      }
+      fce::ldsm_x4(a[mi], As + (m0 + l7 + 8 * b3) * lda + k + 8 * b4);
     }
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
@@ -350,13 +348,18 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(const Params p) {
     }
 }
 
+// The shapes every grouped kernel takes: widths whole 16-byte vectors of
+// bf16, bm a multiple of the 128-row tile dividing P.
+inline bool shape_ok(const Params& p) {
+  return p.P >= 0 && p.K > 0 && p.N > 0 && p.E > 0 && p.K % kAlign == 0 && p.N % kAlign == 0 &&
+         p.bm > 0 && p.bm % BM == 0 && p.P % p.bm == 0;
+}
+
 // Check the shape, raise the shared-memory cap once per device and
 // instantiation, launch on `stream`. Returns a cudaError_t.
 template <typename T, int MODE>
 int launch(const Params& p, void* stream) {
-  if (p.P < 0 || p.K <= 0 || p.N <= 0 || p.E <= 0 || p.K % kAlign || p.N % kAlign ||
-      p.bm <= 0 || p.bm % BM || p.P % p.bm)
-    return (int)cudaErrorInvalidValue;
+  if (!shape_ok(p)) return (int)cudaErrorInvalidValue;
   static size_t cap[64] = {};
   const size_t smem = Cfg<T, MODE>::kSmem;
   const int err = flash::set_smem(gmm_kernel<T, MODE>, smem, cap);

@@ -17,10 +17,10 @@ layout through (batch, time) strides, so they serve both:
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take (dtypes other than fp32/bf16, head sizes other than
 64 and 128). The dtype picks the design inside the C entry, by dtype and
-never as a fallback: bf16 forward and dkv run on tensor cores (wgmma on
-TMA-fed shared memory, csrc/flash_attn_sm90.cuh), fp32 and dq on the FMA
-design (csrc/flash_attn_common.cuh), since tensor cores take fp32 only as
-TF32. For CPU tensors a wrapper runs the plain version, which repeats the
+never as a fallback: bf16 runs on tensor cores (wgmma on TMA-fed shared
+memory, csrc/flash_attn_sm90.cuh and csrc/sm90_common.cuh), fp32 on the
+FMA design (csrc/flash_attn_common.cuh), since tensor cores take fp32
+only as TF32. For CPU tensors a wrapper runs the plain version, which repeats the
 kernel's arithmetic in one pass: fp32 scores, masked scores -1e30, the
 normalizer over the undropped p, p (and dS) rounded to the operand dtype
 before each product, lse = m + log(max(l, 1e-30)). Both kinds of call are

@@ -38,7 +38,9 @@ kernel does not take (dtypes other than fp32/bf16, mixed dtypes, widths
 that are not multiples of 8, a tile `bm` that is not a multiple of 128 or
 does not divide P, non-contiguous or misaligned operands); for CPU
 tensors it runs the plain version: per-tile products over the same
-metadata, fp32 accumulation, the same rounding points. `LAUNCHES[name]`
+metadata, fp32 accumulation, the same rounding points. Inside the C entry
+the dtype picks dW's design, never as a fallback: bf16 runs on tensor
+cores (wgmma on TMA-fed shared memory), fp32 on FMA loops. `LAUNCHES[name]`
 counts kernel launches, `PLAIN_CALLS[name]` plain-version calls, and
 `DEGRADED["dense"]` MoE layers that asked for 'grouped' and took 'dense'
 because `grouped_usable` refused (models/mlp.py).

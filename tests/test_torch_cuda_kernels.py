@@ -15,7 +15,8 @@ fp32 (1e-5, 1e-5: summation order); bf16 (4e-3, 2^-7: outputs round to
 bf16 on both sides, and p rounds against a running max in the forward
 kernel); lse, fp32 whatever the inputs, at the fp32 limits. Strided q/k/v
 views of a fused qkv (the bf16 TMA maps' time stride) equal contiguous
-copies bit for bit, and two bf16 dkv launches are bit-equal (no atomics).
+copies bit for bit, and two launches of the bf16 dq or dkv kernel are
+bit-equal (no atomics).
 And the autograd path against the naive attention's gradients in fp32. The fused
 cross-entropy kernels (forward, dx, dW) at ragged token counts and
 vocabularies, with ignored rows, each output element by element within
@@ -25,6 +26,8 @@ same steps on the CPU. The grouped-matmul kernels (forward, dx, dW;
 unscaled and scaled) over ragged groups with empty and singleton
 experts, every row on one expert, and widths that are not multiples of
 the 128-wide tiles, each output element by element within `GMM_TOL`;
+two bf16 dW launches bit-equal, and bf16 dW over 24576 rows of one
+expert within the fp32 limit;
 the grouped dispatch's autograd route against the plain route on the
 CPU, and an MoE layer through the kernels against its dense dispatch.
 
@@ -337,11 +340,12 @@ def test_flash_reads_strided_views(dev, dtype):
     assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
 
 
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
 @pytest.mark.parametrize("D,nh,nkv", [(64, 4, 2), (128, 8, 2)])
-def test_flash_dkv_bf16_is_deterministic(dev, D, nh, nkv):
-    """Two bf16 dkv launches on the same inputs are bit-equal: the GQA
-    group is summed in registers and each key row written once, with no
-    atomics."""
+def test_flash_bwd_bf16_is_deterministic(dev, D, nh, nkv, kernel):
+    """Two launches of a bf16 backward kernel on the same inputs are
+    bit-equal: dq writes each query row once, dkv sums the GQA group in
+    registers and writes each key row once, with no atomics."""
     B, T = 2, 200
     g = torch.Generator(device=dev)
     g.manual_seed(D)
@@ -353,9 +357,11 @@ def test_flash_dkv_bf16_is_deterministic(dev, D, nh, nkv):
     out, lse = fa.flash_attn_fwd(q, k, v, **kw)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
         .contiguous()
-    first = fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta, **kw)
-    second = fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    fn = fa.flash_attn_bwd_dq if kernel == "dq" else fa.flash_attn_bwd_dkv
+    first, second = (fn(q, k, v, dout, lse, delta, **kw) for _ in range(2))
     torch.cuda.synchronize()
+    if kernel == "dq":
+        first, second = (first,), (second,)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
@@ -598,6 +604,38 @@ def test_grouped_kernels(dev, dtype, K, N, counts):
             if c == 0:
                 assert torch.count_nonzero(dw[e]) == 0
     assert gm.LAUNCHES == {k: 2 for k in gm.LAUNCHES}
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["fc", "proj"])
+def test_grouped_dw_bf16_is_deterministic(dev, scaled):
+    """Two bf16 dW launches on the same ragged groups are bit-equal: each
+    CTA sums its expert's rows in a fixed order and writes its block
+    once, with no atomics."""
+    x, _, dy, s, cnt, pstart, _ = _gmm_inputs(dev, torch.bfloat16, 1024, 768,
+                                              [3000, 0, 1, 129, 2000])
+    sc = s if scaled else None
+    first, second = (gm.gmm_bwd_dw(x, dy, cnt, pstart, sc, bm=128)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["fc", "proj"])
+def test_grouped_dw_bf16_long_sum_on_one_expert(dev, scaled):
+    """Every row on one expert (24576, the length of a sum that a single
+    fp32 register accumulation read 3.6e-5 of max|dW| off the plain
+    version): bf16 dW within GMM_TOL[float32], the other experts exactly
+    0."""
+    counts = [0, 0, 24576, 0]
+    x, _, dy, s, cnt, pstart, _ = _gmm_inputs(dev, torch.bfloat16, 1024, 768,
+                                              counts)
+    sc = s if scaled else None
+    dw = gm.gmm_bwd_dw(x, dy, cnt, pstart, sc, bm=128)
+    _gmm_within(dw, gm.gmm_bwd_dw_plain(x, dy, cnt, pstart, sc, bm=128),
+                GMM_TOL[torch.float32])
+    for e, c in enumerate(counts):
+        if c == 0:
+            assert torch.count_nonzero(dw[e]) == 0
 
 
 def test_grouped_dispatch_autograd_matches_plain_route(dev):

@@ -178,3 +178,48 @@ def test_q8_wrappers_refuse_non_cpu_calls_they_cannot_launch(route,
                                    codes, bt, 0, **kw)
     assert fd.PLAIN_CALLS == dict.fromkeys(fd.PLAIN_CALLS, 0)
     assert fd.LAUNCHES == dict.fromkeys(fd.LAUNCHES, 0)
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# a phase 2 inventory as `cuobjdump -sass` names the kernels: the bf16
+# wgmma kernels (flash fwd, dq, dkv at D 64 and 128, grouped dW unscaled
+# and scaled) and some
+# of the others (fp32 flash, grouped forward and dx on mma.sync)
+SASS_SM90 = [
+    f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi{d}EEEvNS0_4MapsEN5flash"
+    "6ParamsE"
+    for k in ("fwd_kernel_sm90", "dq_kernel_sm90", "dkv_kernel_sm90")
+    for d in (64, 128)] + [
+    f"_ZN3gmm14dw_kernel_sm90ILb{b}EEEvNS_6DwMapsENS_6ParamsE" for b in (0, 1)]
+SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
+              "_ZN3gmm10gmm_kernelI13__nv_bfloat16Li0EEEvNS_6ParamsE",
+              "_ZN3gmm10gmm_kernelI13__nv_bfloat16Li1EEEvNS_6ParamsE",
+              "_ZN3gmm10gmm_kernelIfLi2EEEvNS_6ParamsE"]
+
+
+@pytest.mark.parametrize("broken", [False, True],
+                         ids=["complete", "dq_without_hgmma"])
+def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
+    """Phase 2's check passes an inventory in which every bf16 wgmma
+    kernel holds HGMMA and UTMALDG and no other kernel holds either, and
+    exits non-zero when the bf16 dq kernel has no HGMMA."""
+    cs = _chip_smoke()
+    inv = {fn: {"HGMMA": 8, "UTMALDG": 4} for fn in SASS_SM90}
+    inv.update({fn: {"HGMMA": 0, "UTMALDG": 0} for fn in SASS_OTHER})
+    assert len(SASS_SM90) == cs.SASS_WGMMA_KERNELS
+    if not broken:
+        cs.check_sass(inv)
+        return
+    inv[SASS_SM90[2]]["HGMMA"] = 0
+    with pytest.raises(SystemExit) as exc:
+        cs.check_sass(inv)
+    assert exc.value.code != 0
+    assert "dq_kernel_sm90" in capsys.readouterr().out
