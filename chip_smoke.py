@@ -13,18 +13,25 @@ Phases, each of which ends the run with a non-zero exit on failure:
 2. build   — compiles every CUDA source under
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took; counts each
-             flash and grouped kernel's HGMMA and UTMALDG instructions
-             (`cuobjdump -sass`): the bf16 flash forward, dq and dkv
-             kernels and the bf16 grouped dW kernel must hold both (wgmma
-             on TMA-fed shared memory), the others (fp32, and the grouped
-             forward and dx) neither.
+             flash, grouped and paged kernel's HGMMA, UTMALDG and LDGSTS
+             instructions (`cuobjdump -sass`): the 12 bf16 wgmma kernels
+             (flash forward, dq and dkv and the paged prefill at head
+             sizes 64 and 128, the grouped dx and dW unscaled and scaled)
+             must hold HGMMA and their loads (TMA; cp.async and no TMA in
+             the paged prefill, which gathers through the block table),
+             the others (fp32, int8, decode, the grouped forward) neither
+             HGMMA nor a TMA load.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's shapes (decode, prefill; over a bf16/fp32
              cache and over an int8 cache with fp32 row scales, the _q8
              kernels, whose yardstick is the path they replace: the
              gathered rows dequantized, then SDPA) and the training
              path's (flash forward, dq, dkv at B 8, T 1024, 12 heads x 64,
-             causal), in fp32 and bf16, with times (CUDA events), the
+             causal), in fp32 and bf16, with times (CUDA events; a
+             kernel's and its yardstick's are the median of 5 timed
+             windows, printed with their spread, beside their device
+             time under torch.profiler, which leaves out the host's time
+             between launches), the
              least time the card could take (bound), and one PyTorch
              library call for the same function as a yardstick
              (`scaled_dot_product_attention`; its backward for dq and dkv
@@ -298,6 +305,33 @@ def counts() -> tuple[dict, dict]:
             {k: v for m in mods for k, v in m.PLAIN_CALLS.items()})
 
 
+def time_windows(fn, iters: int = 20, warmup: int = 3,
+                 windows: int = 5) -> tuple[float, list]:
+    """(median, [least, largest]) of `windows` timed windows of `iters`
+    calls each (`time_ms`): a single window of SDPA's prefill read times
+    1.7x apart in two runs."""
+    ts = sorted(time_ms(fn, iters=iters, warmup=warmup if i == 0 else 0)
+                for i in range(windows))
+    return ts[len(ts) // 2], [ts[0], ts[-1]]
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of `fn` in ms: the self time of its device
+    events (kernels, copies, memsets) under torch.profiler, over `iters`
+    calls. The event-timed windows also hold the host's time between
+    launches, which sets them for calls shorter than their wrapper's host
+    work (the bf16 prefill and SDPA's prefill: tens of us)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return device_kernels(prof, iters)[1]
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
     for _ in range(warmup):
@@ -313,19 +347,29 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-SASS_OPS = ("HGMMA", "UTMALDG")
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
 # the libraries whose kernels phase 2 inventories (flash_attn_bwd_dq and
-# _dkv share one, as do grouped_mm_bwd_dx and _dw)
+# _dkv share one, as do grouped_mm_bwd_dx and _dw, and the bf16/fp32 and
+# int8 entries of the paged kernels)
 SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
-             "grouped_mm_bwd_dw")
-# the bf16 kernels on wgmma and TMA: fwd, dq and dkv at D 64 and 128, dW
-# unscaled (fc) and gate-scaled (proj)
-SASS_WGMMA_KERNELS = 8
+             "grouped_mm_bwd_dw", "paged_prefill_attn", "paged_decode_attn")
+# the bf16 kernels on wgmma: fwd, dq and dkv at D 64 and 128, the grouped
+# dx and dW unscaled (fc) and gate-scaled (proj), the paged prefill at hs
+# 64 and 128
+SASS_WGMMA_KERNELS = 12
+# what a wgmma kernel's SASS must hold and must not: TMA loads, except in
+# the paged prefill, which gathers its tiles through the block table with
+# cp.async (LDGSTS) and issues no TMA load
+SASS_EXPECT = {"prefill_kernel_sm90": ({"HGMMA", "LDGSTS"}, {"UTMALDG"})}
+SASS_EXPECT_SM90 = ({"HGMMA", "UTMALDG"}, set())
+# every other kernel (fp32, int8, decode, the grouped forward) holds
+# neither wgmma nor TMA loads
+SASS_EXPECT_OTHER = (set(), {"HGMMA", "UTMALDG"})
 
 
 def sass_inventory() -> dict:
-    """{kernel: {op: count}} of SASS_OPS in the built flash and grouped
-    libraries (`cuobjdump -sass`), kernels by their mangled names."""
+    """{kernel: {op: count}} of SASS_OPS in the built libraries of
+    SASS_LIBS (`cuobjdump -sass`), kernels by their mangled names."""
     import shutil
 
     from distributed_pytorch_tpu_torch.ops import cuda_build
@@ -348,23 +392,45 @@ def sass_inventory() -> dict:
     return counts
 
 
+def sass_expected(fn: str) -> tuple[set, set]:
+    """(instructions kernel `fn` must hold, instructions it must not)."""
+    if "kernel_sm90" not in fn:
+        return SASS_EXPECT_OTHER
+    for key, want in SASS_EXPECT.items():
+        if key in fn:
+            return want
+    return SASS_EXPECT_SM90
+
+
 def check_sass(counts: dict) -> None:
-    """The bf16 flash forward, dq and dkv and the bf16 grouped dW
-    (`*_kernel_sm90`) run wgmma on TMA loads; every other kernel (fp32,
-    the grouped forward and dx) holds neither instruction."""
+    """The bf16 wgmma kernels (`*_kernel_sm90`) hold HGMMA and their
+    loads (TMA, or cp.async in the paged prefill, which holds no TMA
+    load); every other kernel holds neither HGMMA nor a TMA load."""
     n_sm90 = sum("kernel_sm90" in fn for fn in counts)
     check(n_sm90 == SASS_WGMMA_KERNELS,
           f"expected {SASS_WGMMA_KERNELS} bf16 wgmma kernels, found "
           f"{n_sm90}: {sorted(counts)}")
     for fn, c in sorted(counts.items()):
-        short = fn.split("_17_", 1)[-1][:80]
+        # drop nvcc's anonymous-namespace prefix (_GLOBAL__N__<hash>_<n>_)
+        short = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_", "", fn)[:80]
         print(f"  {short}: " + ", ".join(f"{op} {n}" for op, n in c.items()),
               flush=True)
-        if "kernel_sm90" in fn:
-            check(all(c.values()), f"{short}: no {SASS_OPS} in its SASS")
-        else:
-            check(not any(c.values()),
-                  f"{short}: a kernel off wgmma and TMA with {c}")
+        need, ban = sass_expected(fn)
+        missing = sorted(op for op in need if not c.get(op))
+        found = sorted(op for op in ban if c.get(op))
+        check(not missing, f"{short}: no {missing} in its SASS")
+        check(not found, f"{short}: {found} in its SASS, which should have "
+                         f"none ({c})")
+
+
+def _timed(r: dict, key: str) -> str:
+    """'<median> ms [<least>-<largest>]' of result `r`'s kernel ('ms') or
+    library ('library') windows, and its device time where measured."""
+    pre = "" if key == "ms" else "library_"
+    lo, hi = r[("ms" if key == "ms" else "library") + "_spread"]
+    dev = r.get(pre + "device_ms")
+    return (f"{r[pre + 'ms']:.4f} ms [{lo:.4f}-{hi:.4f}]"
+            + ("" if dev is None else f" (device {dev:.4f} ms)"))
 
 
 def bound(n_bytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -607,16 +673,19 @@ def run_flash_kernels(torch, dev) -> dict:
                   f"beyond {atol} + {rtol} x |plain| ({e['frac']:.3f} of "
                   f"the limit)")
         b_ms, b_by = bound(n_bytes, flops, dn)
+        ms, spread = time_windows(fk, iters=10)
+        lib_ms, lib_spread = time_windows(fl, iters=10)
         results[(name, dn)] = dict(
             max_abs_err=max(e["err"] for o, e in errs.items() if o != "lse"),
             lse_max_abs_err=errs["lse"]["err"] if "lse" in errs else None,
-            tol=tols, ms=time_ms(fk, iters=10),
+            tol=tols, ms=ms, ms_spread=spread, device_ms=device_ms(fk),
             plain_ms=time_ms(fp, iters=3, warmup=1),
-            library_ms=time_ms(fl, iters=10), bound_ms=b_ms, bound_by=b_by,
-            bytes=n_bytes, flops=flops)
+            library_ms=lib_ms, library_spread=lib_spread,
+            library_device_ms=device_ms(fl), bound_ms=b_ms,
+            bound_by=b_by, bytes=n_bytes, flops=flops)
         r = results[(name, dn)]
-        print(f"  {'':18s} {'':9s} kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+        print(f"  {'':18s} {'':9s} kernel {_timed(r, 'ms')}, plain "
+              f"{r['plain_ms']:.4f} ms, library {_timed(r, 'library')}, "
               f"bound {r['bound_ms']:.4f} ms ({b_by})", flush=True)
     torch.cuda.empty_cache()
     return results
@@ -636,13 +705,16 @@ def run_kernels(torch, fd, dev) -> dict:
         check(ok, f"{case} {dn}: kernel differs from its plain version by "
                   f"{err} > {TOL[dn]}")
         b_ms, b_by = bound(n_bytes, flops, dn)
+        ms, spread = time_windows(fk)
+        lib_ms, lib_spread = time_windows(fl)
         results[(case, dn)] = dict(
-            max_abs_err=err, tol=TOL[dn], ms=time_ms(fk),
-            plain_ms=time_ms(fp), library_ms=time_ms(fl), bound_ms=b_ms,
-            bound_by=b_by, bytes=n_bytes, flops=flops)
+            max_abs_err=err, tol=TOL[dn], ms=ms, ms_spread=spread,
+            device_ms=device_ms(fk), plain_ms=time_ms(fp), library_ms=lib_ms,
+            library_spread=lib_spread, library_device_ms=device_ms(fl),
+            bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flops=flops)
         r = results[(case, dn)]
-        print(f"  {'':14s} {'':9s} kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+        print(f"  {'':14s} {'':9s} kernel {_timed(r, 'ms')}, plain "
+              f"{r['plain_ms']:.4f} ms, library {_timed(r, 'library')}, "
               f"bound {r['bound_ms']:.4f} ms ({b_by})", flush=True)
     return results
 
@@ -743,14 +815,15 @@ def run_ce_kernels(torch, dev) -> dict:
         del out, ref, outs, refs
         b_ms, b_by = bound(n_bytes, flops, dn)
         slow = dn == "float32"          # FMA loops: tens of ms a call
+        ms, spread = time_windows(fk, iters=2 if slow else 10,
+                                  warmup=1 if slow else 3)
         results[(name, dn)] = dict(
             max_abs_err=max(e["err"] for e in errs.values()), errs=errs,
-            tol=tols, ms=time_ms(fk, iters=2 if slow else 10,
-                                 warmup=1 if slow else 3),
+            tol=tols, ms=ms, ms_spread=spread,
             plain_ms=time_ms(fp, iters=2, warmup=1), bound_ms=b_ms,
             bound_by=b_by, bytes=n_bytes, flops=flops)
         r = results[(name, dn)]
-        print(f"  {'':18s} {dn:9s} kernel {r['ms']:.4f} ms, plain "
+        print(f"  {'':18s} {dn:9s} kernel {_timed(r, 'ms')}, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({b_by})", flush=True)
         torch.cuda.empty_cache()
@@ -820,8 +893,9 @@ def gmm_cases(torch, dev):
     """Yield (dtype, case, kernel, fn_kernel, fn_plain, fn_library,
     library_what, n_bytes, flops, counts, R) for the three grouped kernels
     at the training path's two products (GMM_SHAPES) over the seeded
-    routing, and with no timing (fn_library None) over an empty expert and
-    over every row on one expert. R is the rows the experts own (each
+    routing, bf16 dx also at proj's shape without the gate (what the gate
+    pass costs), and with no timing (fn_library None) over an empty expert
+    and over every row on one expert. R is the rows the experts own (each
     group padded to bm), over which every bound counts bytes and FLOPs."""
     from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
     for dtype in (torch.float32, torch.bfloat16):
@@ -872,6 +946,18 @@ def gmm_cases(torch, dev):
                                                 pstart, counts, bm)
                     yield (dn, case, kernel, fk, fp, fl, what, n_bytes,
                            flops, counts, R)
+                if scaled and dn == "bfloat16":
+                    # dx at proj's shape without the gate: what the gate
+                    # pass costs
+                    yield (dn, f"{case}_nogate", "grouped_mm_bwd_dx",
+                           lambda: gm.gmm_bwd_dx(dy, w, tg, None, bm=bm),
+                           lambda: gm.gmm_bwd_dx_plain(dy, w, tg, None,
+                                                       bm=bm),
+                           _library_gmm(torch, dn, "grouped_mm_bwd_dx", x,
+                                        w, dy, pstart, counts, bm)[0],
+                           "torch._grouped_mm (unscaled)",
+                           (R * N + E * K * N + R * K) * el + meta,
+                           2 * R * K * N, counts, R)
                 del x, w, dy, s
             torch.cuda.empty_cache()
 
@@ -904,16 +990,21 @@ def run_gmm_kernels(torch, dev) -> dict:
             continue
         b_ms, b_by = bound(n_bytes, flops, dn)
         slow = dn == "float32"
+        ms, spread = time_windows(fk, iters=3 if slow else 20,
+                                  warmup=1 if slow else 3)
+        lib_ms, lib_spread = time_windows(fl, iters=3 if slow else 20)
         results[(name, case, dn)] = dict(
             max_abs_err=e["err"], tol={"atol_of_max": rel, "rtol": rtol},
-            ms=time_ms(fk, iters=3 if slow else 20, warmup=1 if slow else 3),
+            ms=ms, ms_spread=spread,
+            device_ms=device_ms(fk, iters=2 if slow else 10),
             plain_ms=time_ms(fp, iters=3, warmup=1),
-            library_ms=time_ms(fl, iters=3 if slow else 20),
+            library_ms=lib_ms, library_spread=lib_spread,
+            library_device_ms=device_ms(fl, iters=2 if slow else 10),
             library_call=what, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
             flops=flops, bound_rows=R)
         r = results[(name, case, dn)]
-        print(f"  {'':18s} {'':12s} {dn:9s} kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+        print(f"  {'':18s} {'':12s} {dn:9s} kernel {_timed(r, 'ms')}, plain "
+              f"{r['plain_ms']:.4f} ms, library {_timed(r, 'library')} "
               f"({what}), bound {r['bound_ms']:.4f} ms ({b_by})", flush=True)
         torch.cuda.empty_cache()
     return results
@@ -1449,12 +1540,14 @@ GMM_MODES = {"0": "grouped_mm_fwd", "1": "grouped_mm_bwd_dx",
 
 def gmm_kernel_of(key: str):
     """The grouped kernel a profiler event's name belongs to, or None:
-    the bf16 dW `gmm::dw_kernel_sm90`, or `gmm::gmm_kernel<T, MODE>` by
-    its mode."""
+    the bf16 dx and dW `gmm::dx_kernel_sm90` / `gmm::dw_kernel_sm90`, or
+    `gmm::gmm_kernel<T, MODE>` by its mode."""
     if "gmm::" not in key:
         return None
     if "dw_kernel_sm90" in key:
         return "grouped_mm_bwd_dw"
+    if "dx_kernel_sm90" in key:
+        return "grouped_mm_bwd_dx"
     m = re.search(r"gmm_kernel<[^>]*?(\d)\s*>", key)
     return GMM_MODES.get(m.group(1)) if m else None
 
@@ -2557,7 +2650,10 @@ def main() -> None:
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "ms_spread": r["ms_spread"],
+            "library_spread": r["library_spread"],
+            "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"],
             "ms_fp32": r32["ms"], "plain_ms_fp32": r32["plain_ms"],
             "bound_ms_fp32": r32["bound_ms"],
             "library_ms_fp32": r32["library_ms"]})
@@ -2607,7 +2703,10 @@ def main() -> None:
             "lse_max_abs_err_fp32": r32["lse_max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "ms_spread": r["ms_spread"],
+            "library_spread": r["library_spread"],
+            "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"],
             "library_call": ("scaled_dot_product_attention"
                              if kname == "flash_attn_fwd" else
                              "scaled_dot_product_attention backward "
@@ -2662,7 +2761,10 @@ def main() -> None:
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "bound_rows": r["bound_rows"],
+            "bound_rows": r["bound_rows"], "ms_spread": r["ms_spread"],
+            "library_spread": r["library_spread"],
+            "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"] if one_call else None,
             "library_ms": r["library_ms"] if one_call else None,
             "library_call": r["library_call"],
             "library_loop_ms": None if one_call else r["library_ms"],
@@ -2672,6 +2774,13 @@ def main() -> None:
             "library_loop_ms_fp32": r32["library_ms"],
             "proj": {"case": "proj, gate-scaled: P 25600, K 1024, N 768",
                      "max_abs_err": p["max_abs_err"], "ms": p["ms"],
+                     "ms_spread": p["ms_spread"],
+                     "ms_without_gate": (
+                         gres[(kname, "proj_ragged_nogate", "bfloat16")]
+                         ["ms"] if kname == "grouped_mm_bwd_dx" else None),
+                     "library_spread": p["library_spread"],
+                     "device_ms": p["device_ms"],
+                     "library_device_ms": p["library_device_ms"],
                      "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
                      "bound_by": p["bound_by"],
                      "library_ms": p["library_ms"],

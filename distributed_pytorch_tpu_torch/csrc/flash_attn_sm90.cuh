@@ -5,7 +5,8 @@
 // special-function unit, and the row reductions of the softmax across the
 // four threads that hold one accumulator row (these two serve the
 // forward's online softmax). Used by the bf16 forward, dq and dkv kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu).
+// (flash_attn_fwd.cu, flash_attn_bwd.cu); the bf16 paged prefill
+// (paged_prefill_attn.cu) uses the quad reductions.
 
 #pragma once
 

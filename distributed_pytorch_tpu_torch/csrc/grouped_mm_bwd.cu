@@ -10,7 +10,9 @@
 // (pallas_call :199), and `_dw_kernel` :127 -> `_dw_call_impl` :208
 // (pallas_call :231) of distributed_pytorch_tpu/ops/grouped_matmul.py.
 // dx runs token-major as on the TPU: one CTA per (128-row tile, 128
-// columns of K). The TPU's dW sums over a sequential token-tile grid axis,
+// columns of K), the tile's expert read from tile_group; every row tile is
+// computed, trailing ones included (the plain version computes them too).
+// The TPU's dW sums over a sequential token-tile grid axis,
 // resetting its VMEM block at each expert's first tile; here one CTA per
 // (expert, 128 x 128 block of dW) loops over that expert's own rows and
 // writes its fp32 sum once — no atomics, deterministic, and zeros for an
@@ -21,10 +23,39 @@
 // Bound on the H100: operations — 2 P K N FLOP each (80.5 / 40.3 GFLOP,
 // 0.081 / 0.041 ms in bf16 for the flagship's fc / proj).
 //
-// The dtype picks dW's kernel; it is not a fallback:
-// * fp32 (`gmm_kernel<float, DW>`) and dx in both dtypes: the design of
-//   grouped_mm_common.cuh (fp32 runs FMA loops: tensor cores take fp32
-//   only as TF32).
+// The dtype picks each kernel before launch; it is not a fallback (a
+// launch that fails returns its error, and the wrapper raises):
+// * fp32 dx and dW (`gmm_kernel<float, DX / DW>`): the FMA design of
+//   grouped_mm_common.cuh (tensor cores take fp32 only as TF32).
+// * bf16 dx (`dx_kernel_sm90`): tensor cores. Both operands are K-major
+//   (dy rows [m][n], W_e [k][n] read as W_e^T), the plain wgmma case. One
+//   CTA of two consumer warpgroups and one producer warp (288 threads) per
+//   128 x 256 block of dx; warpgroup w owns rows m0 + 64 w .. m0 + 64 w +
+//   63, all 256 columns (m64n256k16 products, 128 accumulator registers a
+//   thread). The producer streams 64-column k-steps of the dy tile (a 2-D
+//   map) and of W_e (a 3-D map over (E, K, N), so a box running past K of
+//   expert e is zero-filled instead of reading expert e + 1's rows)
+//   through a 4-stage TMA ring of 48 KB stages (192 KB: one CTA an SM);
+//   `full` barriers count the bytes in, `empty` barriers (one arrival per
+//   consumer warp) hand a stage back once its products are done. Each
+//   warpgroup keeps one k-step's products in flight while it waits for the
+//   next (wgmma wait 1), with no C++ branch between a product's issue and
+//   its wait (mbarrier waits and the release are PTX): ptxas serializes
+//   wgmmas in flight across a branch. The tiles' traffic from L2 into
+//   shared memory is what the block size trades: a 256-column block reads
+//   each dy tile once for twice the columns (the fc product reads ~0.9 GB
+//   of tiles a call instead of ~1.2 GB at 128 x 128), and on the H100 it
+//   ran faster than a 128 x 128 block with two CTAs an SM. The grid runs
+//   the column blocks on its fastest axis, so the CTAs of one dy row tile
+//   run together and dy is read from device memory about once (the first
+//   design read it once per 128 columns: 6x for fc, 8x for proj) while
+//   the W stacks (<= 28 MB) stay in the 50 MB L2. The gate is a template
+//   parameter: proj's consumer threads scale
+//   each landed dy tile in place, bf16(dy * gate) as the reference rounds
+//   it; thread t takes one half-row of row t / 2, so each warpgroup scales
+//   exactly its own 64 rows (the swizzle only permutes 16-byte chunks
+//   within a row) and meets only its own 128 threads at a named barrier
+//   after fencing the async proxy.
 // * bf16 dW (`dw_kernel_sm90`): tensor cores. One CTA of two warpgroups
 //   (256 threads) per (K block, N block, expert), experts on the grid's
 //   slowest axis so that the shared expert (every token's row) starts
@@ -221,11 +252,142 @@ int launch_dw_sm90(const Params& p, void* stream) {
   return p.scale != nullptr ? launch_dw<true>(p, mp, stream) : launch_dw<false>(p, mp, stream);
 }
 
+// ---- bf16 dx: wgmma on a TMA ring fed by a producer warp ------------------
+
+constexpr int kDxBN = 256;                     // dx columns of a CTA
+constexpr int kDxBK = 64;                      // N columns a stage (one box)
+constexpr int kDxStages = 4;
+constexpr int kDxCtas = 1;                     // CTAs an SM
+constexpr int kDxConsumers = 256;              // two consumer warpgroups
+constexpr int kDxThreads = kDxConsumers + 32;  // + the producer warp
+
+struct DxSmem {
+  // [stage][128 rows][64 columns], swizzled
+  alignas(1024) __nv_bfloat16 dy[kDxStages][BM * kDxBK];
+  alignas(1024) __nv_bfloat16 w[kDxStages][kDxBN * kDxBK];
+  uint64_t full[kDxStages], empty[kDxStages];
+};
+
+struct DxMaps {
+  CUtensorMap dy, w;
+};
+
+template <bool SCALED>
+__global__ void __launch_bounds__(kDxThreads, kDxCtas)
+    dx_kernel_sm90(const __grid_constant__ DxMaps mp, const Params p) {
+  using namespace ::sm90;
+  extern __shared__ uint8_t smem_raw[];
+  DxSmem& sm = smem_aligned<DxSmem>(smem_raw);
+  const int n0 = blockIdx.x * kDxBN;  // dx columns (over K): the fastest axis
+  const int m0 = blockIdx.y * BM;  // dx rows (over P)
+  const int e = p.tile_group[m0 / p.bm];
+  const int nk = (p.N + kDxBK - 1) / kDxBK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < kDxStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kDxConsumers / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kDxConsumers / 32) {  // the producer warp: one lane issues
+    if (lane == 0)
+      for (int c = 0; c < nk; ++c) {
+        const int s = c % kDxStages;
+        if (c >= kDxStages) mbar_wait(&sm.empty[s], (c / kDxStages - 1) & 1);
+        mbar_expect_tx(&sm.full[s], (BM + kDxBN) * kDxBK * 2);
+        tma_load_2d(sm.dy[s], &mp.dy, &sm.full[s], c * kDxBK, m0);
+        tma_load_3d(sm.w[s], &mp.w, &sm.full[s], c * kDxBK, n0, e);
+      }
+    return;
+  }
+
+  const int wg = tid >> 7, w = warp & 3;
+  float acc[kDxBN / 2];
+#pragma unroll
+  for (int i = 0; i < kDxBN / 2; ++i) acc[i] = 0.f;
+  // proj: thread t scales 64 bytes (half of row t / 2) of each landed dy
+  // tile, so warpgroup wg scales its own rows 64 wg ..
+  const float gate = SCALED ? p.scale[m0 + (tid >> 1)] : 1.f;
+
+  for (int c = 0; c < nk; ++c) {
+    const int s = c % kDxStages;
+    mbar_wait(&sm.full[s], (c / kDxStages) & 1);
+    if constexpr (SCALED) {
+      uint4* half = reinterpret_cast<uint4*>(sm.dy[s] + (tid >> 1) * kDxBK) + 4 * (tid & 1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int jj = (j + (tid >> 1)) & 3;  // rows start their walk on other banks
+        uint4 v = half[jj];
+        uint32_t* u = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+          u[i] = pack_bf16(f.x * gate, f.y * gate);
+        }
+        half[jj] = v;
+      }
+      fence_proxy_async();
+      bar_sync(1 + wg, 128);  // this warpgroup's rows are scaled
+    }
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDxBK / 16; ++kk)
+      wgmma_ss<kDxBN, 0, 0>(acc, desc_kmajor<BM>(sm.dy[s] + wg * 64 * kDxBK, kk),
+                         desc_kmajor<kDxBN>(sm.w[s], kk), 1);
+    wg_commit();
+    wg_wait<1>();  // the products of k-step c - 1 are done: free its stage
+    fence_regs(acc);
+    mbar_arrive_if(&sm.empty[(c + kDxStages - 1) % kDxStages], lane == 0 && c > 0);
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+
+  const int r0 = w * 16 + (lane >> 2);  // this thread's dx rows: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);        // and columns 8 j + c0 + {0, 1}
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int m = m0 + 64 * wg + r0 + 8 * ih;
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.out) + (long long)m * p.K + n0 + c0;
+#pragma unroll
+    for (int jj = 0; jj < kDxBN / 8; ++jj)
+      if (n0 + 8 * jj + c0 < p.K)
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * jj) =
+            __floats2bfloat162_rn(acc[4 * jj + 2 * ih], acc[4 * jj + 2 * ih + 1]);
+  }
+}
+
+template <bool SCALED>
+int launch_dx(const Params& p, const DxMaps& mp, void* stream) {
+  static size_t cap[64] = {};
+  const size_t smem = sizeof(DxSmem) + 1024;  // + room to align the base to 1024
+  const int err = flash::set_smem(dx_kernel_sm90<SCALED>, smem, cap);
+  if (err) return err;
+  const dim3 grid((p.K + kDxBN - 1) / kDxBN, p.P / BM);
+  dx_kernel_sm90<SCALED><<<grid, kDxThreads, smem, (cudaStream_t)stream>>>(mp, p);
+  return (int)cudaGetLastError();
+}
+
+int launch_dx_sm90(const Params& p, void* stream) {
+  if (!shape_ok(p)) return (int)cudaErrorInvalidValue;
+  if (p.P == 0) return 0;
+  DxMaps mp;
+  if (!::sm90::mat_map(&mp.dy, p.a, p.P, p.N, BM) ||
+      !::sm90::experts_map(&mp.w, p.b, p.E, p.K, p.N, kDxBN))
+    return (int)cudaErrorInvalidValue;
+  return p.scale != nullptr ? launch_dx<true>(p, mp, stream) : launch_dx<false>(p, mp, stream);
+}
+
 }  // namespace gmm
 
-// dtype: 0 = float32, 1 = bfloat16, for dy (P, N), w (E, K, N) and dx
-// (P, K), all contiguous; scale (P,) fp32 or null; tile_group (P / bm,)
-// int32. Returns the launch's cudaError_t (0 = success).
+// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the wgmma kernel),
+// for dy (P, N), w (E, K, N) and dx (P, K), all contiguous and 16-byte
+// aligned; scale (P,) fp32 or null; tile_group (P / bm,) int32. Returns
+// the launch's cudaError_t (0 = success).
 extern "C" int grouped_mm_bwd_dx(int dtype, const void* dy, const void* w, const float* scale,
                                  const int* tile_group, void* dx, int P, int K, int N, int E,
                                  int bm, void* stream) {
@@ -240,7 +402,9 @@ extern "C" int grouped_mm_bwd_dx(int dtype, const void* dy, const void* w, const
   p.N = N;
   p.E = E;
   p.bm = bm;
-  return gmm::dispatch<gmm::DX>(dtype, p, stream);
+  if (dtype == 0) return gmm::launch<float, gmm::DX>(p, stream);
+  if (dtype == 1) return gmm::launch_dx_sm90(p, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dtype as above (0: the FMA kernel, 1: the wgmma kernel) for x (P, K)

@@ -16,9 +16,13 @@
 // against the card's ~295. dx and dW do the same FLOP each.
 //
 // Design (simple first; wgmma, TMA and a persistent schedule are later
-// work), of the forward and dx in both dtypes and of the fp32 dW (the
-// bf16 dW runs `dw_kernel_sm90`, wgmma on TMA-fed shared memory, in
-// grouped_mm_bwd.cu):
+// work), of the bf16 forward and of the fp32 forward, dx and dW. The bf16
+// dx and dW run `dx_kernel_sm90` and `dw_kernel_sm90` (wgmma on TMA-fed
+// shared memory, grouped_mm_bwd.cu); the dtype picks the kernel before
+// launch. What bounds this body on the H100: mma.sync fragments through
+// ldmatrix out of 2-stage rings of 32-column chunks, and a grid whose row
+// tiles vary fastest, so every column block re-reads the row operand from
+// device memory (3.4-3.6x PyTorch's grouped product in bf16, PERF.md).
 // * One CTA of 8 warps owns a 128 x 128 tile of the output, each warp a
 //   32 x 64 block (4 warps along M, 2 along N). The contraction streams in
 //   chunks of 32 through two shared-memory stages filled with 16-byte
@@ -34,7 +38,7 @@
 //   operands run FMA loops (full fp32, no TF32) on the same fragment
 //   layout, so the epilogue is shared.
 //     forward: A = x rows [m][k], B = W_e [k][n]             (ldmatrix, .trans)
-//     dx:      A = dy rows [m][n], B = W_e [k][n] read as W_e^T (both ldmatrix)
+//     dx:      A = dy rows [m][n], B = W_e [k][n] read as W_e^T (fp32 only)
 //     dW:      A = x rows [r][k] read as x^T, B = dy rows [r][n] (fp32 only)
 // * The expert of a forward or dx CTA is tile_group[row0 / bm], read from
 //   device memory as the TPU's scalar prefetch read it (bm a multiple of
@@ -129,7 +133,7 @@ template <bool A_KM, bool B_KM>
 __device__ __forceinline__ void mma_chunk(float (&acc)[2][8][4], const __nv_bfloat16* As, int lda,
                                           const __nv_bfloat16* Bs, int ldb, int wm0, int wn0,
                                           int lane) {
-  static_assert(!A_KM, "the bf16 dW runs dw_kernel_sm90");
+  static_assert(!A_KM && B_KM, "the bf16 dW and dx run dw_kernel_sm90 and dx_kernel_sm90");
   const int l7 = lane & 7, b3 = (lane >> 3) & 1, b4 = lane >> 4;
 #pragma unroll
   for (int k = 0; k < BK; k += 16) {
@@ -143,11 +147,7 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[2][8][4], const __nv_bflo
     for (int jj = 0; jj < 4; ++jj) {
       const int n0 = wn0 + jj * 16;  // n-tiles 2 jj and 2 jj + 1
       unsigned b[4];
-      if constexpr (B_KM) {
-        ldsm_x4_t(b, Bs + (k + l7 + 8 * b3) * ldb + n0 + 8 * b4);
-      } else {
-        fce::ldsm_x4(b, Bs + (n0 + l7 + 8 * b4) * ldb + k + 8 * b3);
-      }
+      ldsm_x4_t(b, Bs + (k + l7 + 8 * b3) * ldb + n0 + 8 * b4);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         fce::mma_bf16(acc[mi][2 * jj], a[mi], b[0], b[1]);

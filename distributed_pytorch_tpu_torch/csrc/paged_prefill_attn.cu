@@ -13,14 +13,48 @@
 // FLOPs on 2 * T * nh * hs query/output elements and 2 * (off + T) * nkv
 // * hs K/V elements. At the serving path's chunks (T = 512, hs = 64, MHA)
 // that is ~130 FLOP per bf16 byte, under the card's ~295 FLOP/byte
-// ridge, so bytes bound it; longer chunks cross over to operations. The
-// design packs the chunk's (t, rep) rows of each kv head into tiles of 64
-// rows, one CTA per (row tile, kv head), keeps each K/V tile in shared
-// memory for all 64 rows, and ends each CTA's key loop at its own last
-// row's position, so keys past a tile's causal edge are never read. The
-// products are FMA loops on CUDA cores, far from either bound: wgmma with
-// TMA-fed tiles is the later step.
+// ridge, so bytes bound it (~1 us); longer chunks cross over to
+// operations. Neither bound is what the kernels meet at that shape: a
+// chunk is 8 row tiles x 12 kv heads = 96 CTAs on 132 SMs, each walking
+// up to 12 key tiles in a chain of dependent steps, so its time is that
+// chain's latency.
+//
+// Every design packs the chunk's (t, rep) rows of each kv head into tiles
+// of 64 rows, one CTA per (row tile, kv head), keeps each K/V tile in
+// shared memory for all 64 rows, and ends each CTA's key loop at its own
+// last row's position, so keys past a tile's causal edge are never read.
+// The dtype and the head size pick the kernel before launch; it is not a
+// fallback (a launch that fails returns its error, and the wrapper
+// raises):
+// * bf16 at head size 64 or 128 (`prefill_kernel_sm90`): tensor cores.
+//   One warpgroup (128 threads) per (64-row tile, kv head); 40 KB of
+//   shared memory at head size 64, 80 KB at 128. Hopper's TMA cannot
+//   gather rows through a block table (and a box per page would tie the
+//   kernel to block sizes that divide 64), so all 128 threads gather
+//   each 64-key K and V tile with 16-byte cp.async copies, one table read
+//   per row, straight into the 128-byte-swizzled layout that wgmma reads
+//   (any block size, nkv and offset the wrapper accepts). The tiles come
+//   through a 2-stage ring: tile j + 2 is requested as soon as tile j's
+//   products are done, so one tile's copies are always in flight while
+//   the warpgroup computes; each copier fences the async proxy before the
+//   barrier that hands a landed tile to wgmma. The query tile is gathered
+//   once the same way. S = Q K^T is a wgmma with both operands in shared
+//   memory (K-major); the online softmax runs on the fp32 accumulator in
+//   registers (a row lives in the 4 threads of a quad); P, rounded to
+//   bf16, becomes the register A operand of O += P V, with V read MN-major.
+//   The arithmetic is the FMA kernel's: s = fp32(q.k) * scale, masked
+//   scores -1e30, p = expf(s - m) (not exp2 with the scale folded in: that
+//   moves served logits by an ulp), l sums the unrounded fp32 p, P V takes
+//   p rounded to bf16, out = acc / max(l, 1e-30). Row tiles launch
+//   longest first (the grid's slowest axis runs down the causal frontier),
+//   so the tiles with the most keys do not form the grid's tail.
+// * fp32, bf16 at other head sizes, and the int8 cache (`paged_prefill_
+//   kernel` over `attend_rows`, paged_attn_common.cuh): FMA loops on CUDA
+//   cores (tensor cores take fp32 only as TF32, which would break the fp32
+//   limits), far from either bound.
 
+#include "flash_attn_common.cuh"
+#include "flash_attn_sm90.cuh"
 #include "paged_attn_common.cuh"
 
 namespace {
@@ -58,18 +92,9 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
            void* stream) {
   const size_t smem = paged_attn::smem_bytes(kRows, hs,
                                              std::is_same<C, int8_t>::value);
-  // raise the kernel's shared-memory cap once per device, not per launch
-  static size_t smem_cap[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || smem > smem_cap[dev]) {
-    err = cudaFuncSetAttribute(paged_prefill_kernel<T, C>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) smem_cap[dev] = smem;
-  }
+  static size_t cap[64] = {};
+  const int err = flash::set_smem(paged_prefill_kernel<T, C>, smem, cap);
+  if (err) return err;
   const int rows = n_tok * (nh / nkv);
   const dim3 grid((rows + kRows - 1) / kRows, nkv);
   paged_prefill_kernel<T, C><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
@@ -79,11 +104,202 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 at head size 64 / 128: wgmma on cp.async-gathered tiles ---------
+
+namespace prefill_sm90 {
+
+using sm90::bf16;
+constexpr int kRows = 64;     // packed query rows per CTA: one warpgroup
+constexpr int kBK = 64;       // keys per stage
+constexpr int kStages = 2;
+constexpr int kThreads = 128;
+
+template <int HS>
+struct Smem {
+  alignas(1024) bf16 q[kRows * HS];
+  alignas(1024) bf16 k[kStages][kBK * HS];
+  alignas(1024) bf16 v[kStages][kBK * HS];
+};
+
+// Key tile j (keys k0 = 64 j ..) of kv head g into stage s, read through
+// the table: one commit group's worth of cp.async copies by each thread;
+// keys at or past n_keys arrive as zeros.
+template <int HS>
+__device__ __forceinline__ void gather_kv(Smem<HS>& sm, int s, const bf16* __restrict__ k,
+                                          const bf16* __restrict__ v,
+                                          const int* __restrict__ table, int k0, int n_keys,
+                                          int bs, int nkv, int g) {
+  constexpr int kChunks = HS / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = 0; i < kBK * kChunks / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int row = e / kChunks, c = e % kChunks;
+    const int kp = k0 + row;
+    const int ok = kp < n_keys;
+    long long src = 0;
+    if (ok) src = (((long long)table[kp / bs] * bs + kp % bs) * nkv + g) * HS + c * 8;
+    const int dst = sm90::swz<kBK>(row, c);
+    sm90::cp_async16(sm.k[s] + dst, k + src, ok);
+    sm90::cp_async16(sm.v[s] + dst, v + src, ok);
+  }
+}
+
+template <int HS>
+__global__ void __launch_bounds__(kThreads)
+    prefill_kernel_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const int* __restrict__ table,
+                        bf16* __restrict__ out, int n_tok, int nh, int nkv, int bs, int n_max,
+                        int off, float scale) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<HS>& sm = smem_aligned<Smem<HS>>(smem_raw);
+  const int g = blockIdx.x;
+  const int rep = nh / nkv;
+  const int n_packed = n_tok * rep;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest tiles first
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  // the last key any row of this tile may see, within the table's capacity
+  const int last_pos = off + (min(row0 + kRows, n_packed) - 1) / rep;
+  const int n_keys = min(last_pos + 1, n_max * bs);
+  const int n_kt = (n_keys + kBK - 1) / kBK;
+
+  // the query tile: packed row gi is head g * rep + gi % rep at position
+  // gi / rep of the chunk; rows past the chunk arrive as zeros
+  constexpr int kChunks = HS / 8;
+#pragma unroll
+  for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
+    const int e = tid + i * kThreads;
+    const int row = e / kChunks, c = e % kChunks, gi = row0 + row;
+    const int ok = gi < n_packed;
+    const long long src = ok ? ((long long)(gi / rep) * nh + g * rep + gi % rep) * HS + c * 8 : 0;
+    cp_async16(sm.q + swz<kRows>(row, c), q + src, ok);
+  }
+  // key tiles 0 .. kStages - 1, a commit group each (tile 0's also holds
+  // the query tile; a tile past the keys is an empty group)
+#pragma unroll
+  for (int t = 0; t < kStages; ++t) {
+    if (t < n_kt) gather_kv<HS>(sm, t, k, v, table, t * kBK, n_keys, bs, nkv, g);
+    cp_async_commit();
+  }
+
+  const int r0 = w * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+  const int c0 = 2 * (lane & 3);        // and columns 8 j + c0 + {0, 1}
+  int qpos[2];
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) qpos[ih] = off + (row0 + r0 + 8 * ih) / rep;
+
+  float o[HS / 2];
+#pragma unroll
+  for (int i = 0; i < HS / 2; ++i) o[i] = 0.f;
+  // m: the running max; l: this thread's part of the normalizer
+  float m[2] = {paged_attn::kNegInf, paged_attn::kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % kStages;
+    const int k0 = j * kBK;
+    cp_async_wait<kStages - 1>();  // tile j has landed (tiles j + 1 .. may fly)
+    fence_proxy_async();  // this thread's copies, before wgmma reads them
+    __syncthreads();
+
+    float sc[kBK / 2];
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HS / 16; ++kk)
+      wgmma_ss<kBK, 0, 0>(sc, desc_kmajor<kRows>(sm.q, kk), desc_kmajor<kBK>(sm.k[s], kk), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+
+    // scale, mask (causal on each row's global position, and the keys the
+    // tile holds), and the online softmax, as the FMA kernel forms them
+    float mx[2] = {paged_attn::kNegInf, paged_attn::kNegInf};
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int ih = (i >> 1) & 1;
+      const int kp = k0 + 8 * (i >> 2) + c0 + (i & 1);
+      float x = sc[i] * scale;
+      if (!(kp < n_keys && kp <= qpos[ih])) x = paged_attn::kNegInf;
+      sc[i] = x;
+      mx[ih] = fmaxf(mx[ih], x);
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ih = 0; ih < 2; ++ih) {
+      const float m_new = fmaxf(m[ih], quad_max(mx[ih]));
+      alpha[ih] = expf(m[ih] - m_new);
+      m[ih] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int ih = (i >> 1) & 1;
+      sc[i] = expf(sc[i] - m[ih]);
+      sum[ih] += sc[i];
+    }
+#pragma unroll
+    for (int ih = 0; ih < 2; ++ih) {
+      l[ih] = l[ih] * alpha[ih] + sum[ih];
+#pragma unroll
+      for (int jj = 0; jj < HS / 8; ++jj) {
+        o[4 * jj + 2 * ih] *= alpha[ih];
+        o[4 * jj + 2 * ih + 1] *= alpha[ih];
+      }
+    }
+    uint32_t pa[kBK / 16][4];  // p rounded to bf16: the A fragments of P V
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) acc_to_frag(sc, kk, pa[kk]);
+
+    fence_regs(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<HS, 1>(o, pa[kk], desc_mnmajor<kBK>(sm.v[s], kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    __syncthreads();  // every product on stage s is done: refill it
+    if (j + kStages < n_kt) gather_kv<HS>(sm, s, k, v, table, k0 + kStages * kBK, n_keys, bs, nkv, g);
+    cp_async_commit();
+  }
+
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int gi = row0 + r0 + 8 * ih;
+    const float ls = fmaxf(quad_sum(l[ih]), 1e-30f);
+    if (gi >= n_packed) continue;
+    bf16* orow = out + ((long long)(gi / rep) * nh + g * rep + gi % rep) * HS + c0;
+#pragma unroll
+    for (int jj = 0; jj < HS / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
+          __floats2bfloat162_rn(o[4 * jj + 2 * ih] / ls, o[4 * jj + 2 * ih + 1] / ls);
+  }
+}
+
+template <int HS>
+int launch(const void* q, const void* k, const void* v, const void* table, void* out, int n_tok,
+           int nh, int nkv, int bs, int n_max, int off, float scale, void* stream) {
+  static size_t cap[64] = {};
+  const size_t smem = sizeof(Smem<HS>) + 1024;  // + room to align the base to 1024
+  const int err = flash::set_smem(prefill_kernel_sm90<HS>, smem, cap);
+  if (err) return err;
+  const int rows = n_tok * (nh / nkv);
+  const dim3 grid(nkv, (rows + kRows - 1) / kRows);
+  prefill_kernel_sm90<HS><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)table, (bf16*)out, n_tok, nh,
+      nkv, bs, n_max, off, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace prefill_sm90
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/out (1, n_tok, nh, hs); k/v pools
-// (n_blocks, bs, nkv, hs) of the same dtype; table (n_max,) int32 of the
-// one sequence. Returns the launch's cudaError_t (0 = success).
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (the wgmma kernel at hs
+// 64 and 128, the FMA kernel otherwise). q/out (1, n_tok, nh, hs), 16-byte
+// aligned; k/v pools (n_blocks, bs, nkv, hs) of the same dtype; table
+// (n_max,) int32 of the one sequence. Returns the launch's cudaError_t
+// (0 = success).
 extern "C" int paged_prefill_attn(int dtype, const void* q, const void* k,
                                   const void* v, const void* table, void* out,
                                   int n_tok, int nh, int nkv, int hs, int bs,
@@ -92,6 +308,12 @@ extern "C" int paged_prefill_attn(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return launch<float, float>(q, k, nullptr, v, nullptr, table, out, n_tok,
                                 nh, nkv, hs, bs, n_max, off, scale, stream);
+  if (dtype == 1 && hs == 64)
+    return prefill_sm90::launch<64>(q, k, v, table, out, n_tok, nh, nkv, bs,
+                                    n_max, off, scale, stream);
+  if (dtype == 1 && hs == 128)
+    return prefill_sm90::launch<128>(q, k, v, table, out, n_tok, nh, nkv, bs,
+                                     n_max, off, scale, stream);
   if (dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(
         q, k, nullptr, v, nullptr, table, out, n_tok, nh, nkv, hs, bs, n_max,

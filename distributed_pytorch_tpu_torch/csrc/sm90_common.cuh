@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's bf16 tensor-core kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu, grouped_mm_bwd.cu): mbarriers,
-// TMA tile loads, the shared-memory matrix descriptors of a
+// (flash_attn_fwd.cu, flash_attn_bwd.cu, grouped_mm_bwd.cu,
+// paged_prefill_attn.cu): mbarriers, TMA tile loads, 16-byte cp.async
+// copies into the same swizzled layout (for tiles gathered row by row,
+// which TMA cannot do), the shared-memory matrix descriptors of a
 // 128-byte-swizzled tile, the `wgmma.mma_async` products (bf16 operands,
 // fp32 accumulators) and the conversion of an accumulator into the A
 // operand of the next product. Device code only, plus the host-side
@@ -10,6 +12,9 @@
 // Tiles. A tile of R rows x C bf16 columns (C a multiple of 64) is loaded
 // by TMA with the 128-byte swizzle, 64 columns (128 bytes) per box, as
 // C / 64 sub-tiles of R x 64, each R * 128 bytes and 1024-byte aligned.
+// A tile gathered with cp.async is laid out the same way: 16-byte chunk c
+// (columns 8 c .. 8 c + 7) of row r lands in sub-tile c / 8, at chunk
+// position (c % 8) ^ (r % 8) of the row (`swz`).
 // One tile is read two ways by wgmma:
 // * K-major (the contraction runs along the columns, as Q and K in
 //   S = Q K^T): the 16-column k-step kk starts kk % 4 * 32 bytes into
@@ -80,6 +85,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// One arrival on `bar` where `pred` is non-zero; the predicate is applied
+// inside the PTX, so the C++ code has no branch here
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, int pred) {
+  asm volatile(
+      "{\n.reg .pred P1;\nsetp.ne.b32 P1, %1, 0;\n"
+      "@P1 mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(pred)
+      : "memory");
+}
+
+// A barrier of `n` threads (a multiple of 32) on hardware barrier `id`
+// (1-15; __syncthreads uses 0)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // Order this thread's ordinary writes to shared memory before later reads
 // of the async proxy (wgmma operands, TMA): after writing a tile in place,
 // each writer fences, then the readers' barrier.
@@ -95,6 +116,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// box (c0 = column, c1 = row, c2 = matrix) of an `experts_map`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -115,6 +146,31 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
+}
+
+// ---- cp.async ------------------------------------------------------------
+
+// 16 bytes from `src` to shared `dst`, asynchronously; zeros where `ok`
+// is 0 (src is then not read, but must be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's newest commit groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Element offset of 16-byte chunk c of row r in an R-row tile with the
+// 128-byte swizzle (the layout TMA writes; see the note at the top)
+template <int R>
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 3) * R * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
 }
 
 // ---- wgmma ---------------------------------------------------------------
@@ -226,6 +282,55 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d (64 x 256) = A B + (scale_d ? d : 0), A and B from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // d (64 x 64) = A B + (scale_d ? d : 0), A from registers (`a`, the
 // m64k16 fragment), B from shared memory, K-major (TB 0) or MN-major (TB 1).
 template <int TB>
@@ -286,13 +391,16 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128, "SS products are 64 x 32, 64 or 128");
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256,
+                "SS products are 64 x 32, 64, 128 or 256");
   if constexpr (N == 32)
     wgmma_ss_n32<TA, TB>(d, da, db, scale_d);
   else if constexpr (N == 64)
     wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
-  else
+  else if constexpr (N == 128)
     wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
+  else
+    wgmma_ss_n256<TA, TB>(d, da, db, scale_d);
 }
 
 // d (64 x N) += A B over one k-step, A from registers
@@ -365,6 +473,23 @@ inline bool mat_map(CUtensorMap* map, const void* base, long long rows, long lon
   const cuuint32_t box[2] = {64, (cuuint32_t)R};
   const cuuint32_t estr[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a stack of E row-major (rows, cols) bf16 matrices: dims
+// (cols, rows, E), a 64 x R x 1 box, zeros past the ends of each matrix
+// (so a box running past `rows` never reads the next matrix). Returns
+// false when the driver refuses it.
+inline bool experts_map(CUtensorMap* map, const void* base, long long E, long long rows,
+                        long long cols, int R) {
+  const EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)(rows * cols * 2)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)R, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

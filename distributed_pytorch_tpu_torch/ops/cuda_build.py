@@ -32,8 +32,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
+# -fno-gnu-unique: a function-static of a template (the kernels' cached
+# shared-memory caps) stays private to its library, so two builds of one
+# source can be loaded side by side (an in-process A/B of two csrc trees)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xcompiler", "-fno-gnu-unique")
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 

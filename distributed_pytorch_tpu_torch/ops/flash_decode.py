@@ -12,6 +12,13 @@ Pallas bodies on the serving path map to four CUDA kernels here:
 * `paged_flash_prefill` (reference `_prefill_kernel`) ->
   `paged_prefill_attn` (csrc/paged_prefill_attn.cu). A T-row chunk of ONE
   sequence at a block-aligned offset, causal on global position off + t.
+  The dtype and head size pick the kernel inside the C entry, before
+  launch and never as a fallback: bf16 at head size 64 or 128 runs
+  `prefill_kernel_sm90` (tensor cores: K/V tiles gathered through the
+  block table by cp.async into a 2-stage ring, S and P V as wgmma; its
+  time is the latency of each CTA's chain of key tiles, not bytes); fp32
+  and bf16 at other head sizes run FMA loops (`attend_rows`,
+  csrc/paged_attn_common.cuh), as do the decode and int8 kernels.
 * The int8-cache variants (reference `_paged_body_q8`, `_kernel_q8`,
   `_prefill_kernel_q8`) -> `paged_decode_attn_q8` and
   `paged_prefill_attn_q8`, in the same two sources. Given `k_scale` /
@@ -324,6 +331,8 @@ def paged_flash_prefill(q, k, v, block_tables, q_offset: int, *, scale,
     if not paged_flash_prefill_usable(q, k, v, k_scale, v_scale):
         raise ValueError(f"{name} does not take {_describe(q, k, k_scale)}")
     q = q.contiguous()
+    if q.data_ptr() % 16:               # the 16-byte copies of the kernels
+        q = q.clone()
     table = block_tables.to(torch.int32).reshape(-1).contiguous()
     scales = () if k_scale is None else (k_scale, v_scale)
     _check(q, k, v, table, *scales)

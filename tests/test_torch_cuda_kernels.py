@@ -4,6 +4,10 @@ dead blocks poisoned), contiguous decode, and paged prefill at offset 0
 and at block-aligned offsets, in fp32 (atol 1e-4: summation order) and
 bf16 (atol 2e-2: outputs round to bf16, and p rounds to bf16 against a
 running max in the kernel but the global max in the plain version); the
+bf16 prefill's wgmma kernel at block sizes 8, 16 and 32, head sizes 64
+and 128, MHA, GQA and MQA, chunks off its 64-row tiles and offsets past
+256, other bf16 head sizes through the FMA kernel, and two wgmma launches
+bit-equal; the
 same three routes over an int8 cache with fp32 scale rows (the `_q8`
 kernels, head sizes 8 mod 16 included), at the same limits.
 The flash-attention kernels (forward, dq, dkv) over causal and full
@@ -26,8 +30,8 @@ same steps on the CPU. The grouped-matmul kernels (forward, dx, dW;
 unscaled and scaled) over ragged groups with empty and singleton
 experts, every row on one expert, and widths that are not multiples of
 the 128-wide tiles, each output element by element within `GMM_TOL`;
-two bf16 dW launches bit-equal, and bf16 dW over 24576 rows of one
-expert within the fp32 limit;
+two bf16 dx and two bf16 dW launches bit-equal, and bf16 dW over 24576
+rows of one expert within the fp32 limit;
 the grouped dispatch's autograd route against the plain route on the
 CPU, and an MoE layer through the kernels against its dense dispatch.
 
@@ -142,6 +146,61 @@ def test_paged_prefill(dev, dtype, T, off, nh, nkv):
     assert fd.LAUNCHES["paged_prefill_attn"] == 1
     _close(out, fd.paged_flash_prefill_plain(q, kp, vp, table, off,
                                              scale=hs ** -0.5), dtype)
+
+
+def _prefill_inputs(dev, T, off, nh, nkv, hs, bs, seed=0):
+    """Pools with room for the chunk and two spare blocks, a permuted
+    table, and a bf16 query chunk."""
+    n_max = (off + T + bs - 1) // bs + 2
+    kp, vp, g = _pools(dev, torch.bfloat16, 1 + n_max, bs, nkv, hs,
+                       seed=seed)
+    table = torch.from_numpy(np.random.default_rng(seed).permutation(
+        np.arange(1, 1 + n_max)).astype(np.int32)).to(dev)[None]
+    q = torch.randn(1, T, nh, hs, generator=g, device=dev).to(torch.bfloat16)
+    return q, kp, vp, table
+
+
+@pytest.mark.parametrize("T,off", [(100, 0), (200, 288), (16, 96)])
+@pytest.mark.parametrize("nh,nkv", [(12, 12), (8, 2), (4, 1)],
+                         ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("hs", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_prefill_bf16_wgmma(dev, bs, hs, nh, nkv, T, off):
+    """The bf16 prefill's wgmma kernel (head sizes 64 and 128) at the
+    block sizes, head groupings and offsets a chunked engine gives it:
+    chunks that are not whole 64-row tiles, offsets past 256, and a 16-row
+    MQA chunk that packs into one 64-row tile, against the plain version
+    at the bf16 limit."""
+    q, kp, vp, table = _prefill_inputs(dev, T, off, nh, nkv, hs, bs,
+                                       seed=T + bs)
+    fd.reset_counts()
+    out = fd.paged_flash_prefill(q, kp, vp, table, off, scale=hs ** -0.5)
+    assert fd.LAUNCHES["paged_prefill_attn"] == 1
+    _close(out, fd.paged_flash_prefill_plain(q, kp, vp, table, off,
+                                             scale=hs ** -0.5),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("hs", [96, 32])
+def test_paged_prefill_bf16_other_head_sizes(dev, hs):
+    """bf16 at a head size the wgmma kernel does not take runs the FMA
+    kernel (`attend_rows`), within the same limit."""
+    q, kp, vp, table = _prefill_inputs(dev, 100, 32, 8, 2, hs, 16)
+    out = fd.paged_flash_prefill(q, kp, vp, table, 32, scale=hs ** -0.5)
+    _close(out, fd.paged_flash_prefill_plain(q, kp, vp, table, 32,
+                                             scale=hs ** -0.5),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("hs", [64, 128])
+def test_paged_prefill_bf16_is_deterministic(dev, hs):
+    """Two launches of the bf16 wgmma prefill are bit-equal."""
+    q, kp, vp, table = _prefill_inputs(dev, 512, 256, 12, 12, hs, 16)
+    first, second = (fd.paged_flash_prefill(q, kp, vp, table, 256,
+                                            scale=hs ** -0.5)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -616,6 +675,18 @@ def test_grouped_dw_bf16_is_deterministic(dev, scaled):
     sc = s if scaled else None
     first, second = (gm.gmm_bwd_dw(x, dy, cnt, pstart, sc, bm=128)
                      for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["fc", "proj"])
+def test_grouped_dx_bf16_is_deterministic(dev, scaled):
+    """Two bf16 dx launches on the same ragged groups are bit-equal: each
+    CTA writes its block of dx once, with no atomics."""
+    _, w, dy, s, _, _, tg = _gmm_inputs(dev, torch.bfloat16, 768, 2048,
+                                        [3000, 0, 1, 129, 2000])
+    sc = s if scaled else None
+    first, second = (gm.gmm_bwd_dx(dy, w, tg, sc, bm=128) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(first, second)
 

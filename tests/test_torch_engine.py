@@ -12,7 +12,8 @@ a legitimate tie flip may diverge the rest of the sequence, so the
 comparison stops there. Inside the port: chunked prefill gives the wave
 engine's tokens exactly (fp32 and int8 caches), composes with prefix
 reuse and with mid-prefill preemption, and prefill forwards keep the
-model's own weights under `quantize_weights`."""
+model's own weights under `quantize_weights`. A float cache in another
+dtype than the model's is refused."""
 
 import jax
 import jax.numpy as jnp
@@ -278,6 +279,24 @@ def test_chunked_preemption_while_growing_a_chunk(models, n_blocks,
     for p, o in zip(prompts, outs):
         assert o == generate(tm, p, 16, temperature=0.0)[0].tolist()
     assert eng.block_pool.n_referenced == 0
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", torch.float16, "float32",
+                                         torch.float32],
+                         ids=["bf16", "torch_fp16", "fp32", "torch_fp32"])
+def test_engine_refuses_a_float_cache_dtype_other_than_the_models(
+        models, cache_dtype):
+    """A float KV cache in another dtype than the model's is refused with
+    ValueError (the reference engine takes it: a divergence by design,
+    ROADMAP Queue 3); the model's own dtype, by name or as a torch dtype,
+    is taken."""
+    _, _, tm, _ = models
+    if getattr(torch, str(cache_dtype).removeprefix("torch.")) != tm.dtype:
+        with pytest.raises(ValueError, match="differs from the model"):
+            DecodeEngine(tm, n_slots=2, cache_dtype=cache_dtype)
+        return
+    eng = DecodeEngine(tm, n_slots=2, cache_dtype=cache_dtype)
+    assert eng.cache_dtype == tm.dtype and not eng.kv_quantized
 
 
 @pytest.mark.parametrize("prefill_chunk", [0, 16], ids=["wave", "chunked"])

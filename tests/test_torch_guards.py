@@ -190,36 +190,83 @@ def _chip_smoke():
 
 
 # a phase 2 inventory as `cuobjdump -sass` names the kernels: the bf16
-# wgmma kernels (flash fwd, dq, dkv at D 64 and 128, grouped dW unscaled
-# and scaled) and some
-# of the others (fp32 flash, grouped forward and dx on mma.sync)
+# wgmma kernels (flash fwd, dq, dkv and the paged prefill at D 64 and 128,
+# grouped dx and dW unscaled and scaled) and some of the others (fp32
+# flash, grouped forward and fp32 dx/dW, the FMA prefill and decode)
 SASS_SM90 = [
     f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi{d}EEEvNS0_4MapsEN5flash"
     "6ParamsE"
     for k in ("fwd_kernel_sm90", "dq_kernel_sm90", "dkv_kernel_sm90")
     for d in (64, 128)] + [
-    f"_ZN3gmm14dw_kernel_sm90ILb{b}EEEvNS_6DwMapsENS_6ParamsE" for b in (0, 1)]
+    f"_ZN3gmm14{k}ILb{b}EEEvNS_6{m}ENS_6ParamsE"
+    for k, m in (("dw_kernel_sm90", "DwMaps"), ("dx_kernel_sm90", "DxMaps"))
+    for b in (0, 1)] + [
+    f"_ZN12_GLOBAL__N_112prefill_sm9019prefill_kernel_sm90ILi{d}EEEvPK13"
+    "__nv_bfloat16S4_S4_PKiPS2_iiiiiiif" for d in (64, 128)]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelI13__nv_bfloat16Li0EEEvNS_6ParamsE",
-              "_ZN3gmm10gmm_kernelI13__nv_bfloat16Li1EEEvNS_6ParamsE",
-              "_ZN3gmm10gmm_kernelIfLi2EEEvNS_6ParamsE"]
+              "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
+              "_ZN3gmm10gmm_kernelIfLi2EEEvNS_6ParamsE",
+              "_ZN12_GLOBAL__N_120paged_prefill_kernelI13__nv_bfloat16aEEvPKT_"
+              "PKT0_S7_PKfS9_PKiPS2_iiiiiiif",
+              "_ZN12_GLOBAL__N_119paged_decode_kernelIffEEvPKT_PKT0_S6_PKfS8_"
+              "PKiS8_PS1_iiiiiif"]
+# each broken inventory: (kernel, op, count), and the name the failure
+# must print
+BROKEN = {"complete": None,
+          "dq_without_hgmma": ((SASS_SM90[2], "HGMMA", 0), "dq_kernel_sm90"),
+          "prefill_without_hgmma": ((SASS_SM90[-2], "HGMMA", 0),
+                                    "prefill_kernel_sm90"),
+          "prefill_with_tma": ((SASS_SM90[-1], "UTMALDG", 2),
+                               "prefill_kernel_sm90"),
+          "dx_without_tma": ((SASS_SM90[8], "UTMALDG", 0), "dx_kernel_sm90"),
+          "fma_prefill_with_hgmma": ((SASS_OTHER[4], "HGMMA", 4),
+                                     "paged_prefill_kernel")}
 
 
-@pytest.mark.parametrize("broken", [False, True],
-                         ids=["complete", "dq_without_hgmma"])
+@pytest.mark.parametrize("broken", BROKEN)
 def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     """Phase 2's check passes an inventory in which every bf16 wgmma
-    kernel holds HGMMA and UTMALDG and no other kernel holds either, and
-    exits non-zero when the bf16 dq kernel has no HGMMA."""
+    kernel holds HGMMA and its loads (TMA; cp.async and no TMA in the
+    paged prefill) and no other kernel holds HGMMA or a TMA load, and
+    exits non-zero when one kernel breaks that: the bf16 dq or the
+    prefill without HGMMA, the prefill with a TMA load, the dx without
+    one, the FMA prefill with HGMMA."""
     cs = _chip_smoke()
-    inv = {fn: {"HGMMA": 8, "UTMALDG": 4} for fn in SASS_SM90}
-    inv.update({fn: {"HGMMA": 0, "UTMALDG": 0} for fn in SASS_OTHER})
+    inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
+    for fn in SASS_SM90[-2:]:
+        inv[fn] = {"HGMMA": 8, "UTMALDG": 0, "LDGSTS": 16}
+    inv.update({fn: {"HGMMA": 0, "UTMALDG": 0, "LDGSTS": 4}
+                for fn in SASS_OTHER})
     assert len(SASS_SM90) == cs.SASS_WGMMA_KERNELS
-    if not broken:
+    if BROKEN[broken] is None:
         cs.check_sass(inv)
         return
-    inv[SASS_SM90[2]]["HGMMA"] = 0
+    (fn, op, n), name = BROKEN[broken]
+    inv[fn][op] = n
     with pytest.raises(SystemExit) as exc:
         cs.check_sass(inv)
     assert exc.value.code != 0
-    assert "dq_kernel_sm90" in capsys.readouterr().out
+    assert name in capsys.readouterr().out
+
+
+# profiler event names (demangled) of the grouped kernels, and the kernel
+# each belongs to in the profile's per-kernel split
+PROFILE_NAMES = {
+    "void gmm::gmm_kernel<__nv_bfloat16, 0>(gmm::Params)": "grouped_mm_fwd",
+    "void gmm::gmm_kernel<float, 1>(gmm::Params)": "grouped_mm_bwd_dx",
+    "void gmm::gmm_kernel<float, 2>(gmm::Params)": "grouped_mm_bwd_dw",
+    "void gmm::dx_kernel_sm90<true>(gmm::DxMaps, gmm::Params)":
+        "grouped_mm_bwd_dx",
+    "void gmm::dw_kernel_sm90<false>(gmm::DwMaps, gmm::Params)":
+        "grouped_mm_bwd_dw",
+    "void (anonymous namespace)::flash_sm90::fwd_kernel_sm90<64>("
+    "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, flash::Params)": None}
+
+
+@pytest.mark.parametrize("key", PROFILE_NAMES)
+def test_profile_split_names_every_grouped_kernel(key):
+    """The training profile's grouped split (`gmm_kernel_of`) finds each
+    grouped kernel by its profiler name, the bf16 wgmma dx and dW among
+    them, and no other kernel."""
+    assert _chip_smoke().gmm_kernel_of(key) == PROFILE_NAMES[key]
