@@ -14,12 +14,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took; counts each
              flash, grouped and paged kernel's HGMMA, UTMALDG and LDGSTS
-             instructions (`cuobjdump -sass`): the 12 bf16 wgmma kernels
+             instructions (`cuobjdump -sass`): the 14 bf16 wgmma kernels
              (flash forward, dq and dkv and the paged prefill at head
-             sizes 64 and 128, the grouped dx and dW unscaled and scaled)
-             must hold HGMMA and their loads (TMA; cp.async and no TMA in
-             the paged prefill, which gathers through the block table),
-             the others (fp32, int8, decode, the grouped forward) neither
+             sizes 64 and 128, the grouped forward, dx and dW unscaled
+             and scaled) must hold HGMMA and their loads (TMA; cp.async
+             and no TMA in the paged prefill, which gathers through the
+             block table), the others (fp32, int8, the split-KV decode's
+             split and combine kernels, which must be there) neither
              HGMMA nor a TMA load.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's shapes (decode, prefill; over a bf16/fp32
@@ -315,21 +316,28 @@ def time_windows(fn, iters: int = 20, warmup: int = 3,
     return ts[len(ts) // 2], [ts[0], ts[-1]]
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 10, tries: int = 3):
     """Device time of one call of `fn` in ms: the self time of its device
     events (kernels, copies, memsets) under torch.profiler, over `iters`
     calls. The event-timed windows also hold the host's time between
     launches, which sets them for calls shorter than their wrapper's host
-    work (the bf16 prefill and SDPA's prefill: tens of us)."""
+    work (the bf16 prefill and SDPA's prefill: tens of us). A profile that
+    recorded fewer device events than calls lost some (on the H100 one
+    read 0 events, another a tenth of them) and is taken again; None if
+    every try lost some."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return device_kernels(prof, iters)[1]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev, ms = device_kernels(prof, iters)
+        if sum(e.count for e in ev) >= iters:
+            return ms
+    return None
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -354,17 +362,20 @@ SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
 SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
              "grouped_mm_bwd_dw", "paged_prefill_attn", "paged_decode_attn")
 # the bf16 kernels on wgmma: fwd, dq and dkv at D 64 and 128, the grouped
-# dx and dW unscaled (fc) and gate-scaled (proj), the paged prefill at hs
-# 64 and 128
-SASS_WGMMA_KERNELS = 12
+# forward, dx and dW unscaled (fc) and gate-scaled (proj), the paged
+# prefill at hs 64 and 128
+SASS_WGMMA_KERNELS = 14
 # what a wgmma kernel's SASS must hold and must not: TMA loads, except in
 # the paged prefill, which gathers its tiles through the block table with
 # cp.async (LDGSTS) and issues no TMA load
 SASS_EXPECT = {"prefill_kernel_sm90": ({"HGMMA", "LDGSTS"}, {"UTMALDG"})}
 SASS_EXPECT_SM90 = ({"HGMMA", "UTMALDG"}, set())
-# every other kernel (fp32, int8, decode, the grouped forward) holds
-# neither wgmma nor TMA loads
+# every other kernel (fp32, int8, the fp32/bf16 decode's split-KV pair)
+# holds neither wgmma nor TMA loads
 SASS_EXPECT_OTHER = (set(), {"HGMMA", "UTMALDG"})
+# kernels that must be in the inventory by name: the split-KV decode's two
+# (one query row per head makes no matrix product: CUDA cores)
+SASS_REQUIRED = ("decode_split_kernel", "decode_combine_kernel")
 
 
 def sass_inventory() -> dict:
@@ -405,11 +416,15 @@ def sass_expected(fn: str) -> tuple[set, set]:
 def check_sass(counts: dict) -> None:
     """The bf16 wgmma kernels (`*_kernel_sm90`) hold HGMMA and their
     loads (TMA, or cp.async in the paged prefill, which holds no TMA
-    load); every other kernel holds neither HGMMA nor a TMA load."""
+    load); the split-KV decode's kernels are there; every other kernel
+    holds neither HGMMA nor a TMA load."""
     n_sm90 = sum("kernel_sm90" in fn for fn in counts)
     check(n_sm90 == SASS_WGMMA_KERNELS,
           f"expected {SASS_WGMMA_KERNELS} bf16 wgmma kernels, found "
           f"{n_sm90}: {sorted(counts)}")
+    for name in SASS_REQUIRED:
+        check(any(name in fn for fn in counts),
+              f"no {name} in the inventory: {sorted(counts)}")
     for fn, c in sorted(counts.items()):
         # drop nvcc's anonymous-namespace prefix (_GLOBAL__N__<hash>_<n>_)
         short = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_", "", fn)[:80]
@@ -1494,19 +1509,19 @@ def profile_decode(torch, eng, prompts) -> dict:
     print_kernels(ev, n, 8)
     out = {"host_ms": wall_ms, "device_ms": dev_ms,
            "busy_pct": 100 * dev_ms / wall_ms,
-           "decode_kernel_ms": _per_launch(ev, "paged_decode_kernel")}
+           "decode_kernel_ms": decode_ms_per_launch(ev)}
+    line = (f"  decode kernel per launch (device): "
+            f"{out['decode_kernel_ms']:.4f} ms on plain steps (8 live slots)")
     if n_chunk:
         ev_c, _ = device_kernels(prof_c, n_chunk)
-        out.update(chunk_decode_kernel_ms=_per_launch(ev_c,
-                                                      "paged_decode_kernel"),
+        out.update(chunk_decode_kernel_ms=decode_ms_per_launch(ev_c),
                    chunk_steps=n_chunk,
                    parked_mean=sum(parked) / n_chunk)
-        print(f"  decode kernel per launch: {out['decode_kernel_ms']:.4f} ms "
-              f"on plain steps (8 live slots), "
-              f"{out['chunk_decode_kernel_ms']:.4f} ms on {n_chunk} chunk "
-              f"steps (mean {out['parked_mean']:.2f} parked slots walking "
-              f"{eng.table_width} table columns of the null block)",
-              flush=True)
+        line += (f", {out['chunk_decode_kernel_ms']:.4f} ms on {n_chunk} "
+                 f"chunk steps (mean {out['parked_mean']:.2f} parked slots "
+                 f"walking {eng.table_width} table columns of the null "
+                 f"block)")
+    print(line, flush=True)
     return out
 
 
@@ -1515,6 +1530,17 @@ def _per_launch(ev, name: str) -> float:
     hit = [e for e in ev if name in e.key]
     n = sum(e.count for e in hit)
     return sum(_dev_us(e) for e in hit) / n / 1e3 if n else float("nan")
+
+
+def decode_ms_per_launch(ev) -> float:
+    """Device ms per decode launch: the fp32/bf16 split-KV pair (split
+    plus combine kernel, over the split kernel's launches) where it ran,
+    else the int8 cache's `paged_decode_kernel`."""
+    split = [e for e in ev if "decode_split_kernel" in e.key]
+    if not split:
+        return _per_launch(ev, "paged_decode_kernel")
+    both = split + [e for e in ev if "decode_combine_kernel" in e.key]
+    return sum(_dev_us(e) for e in both) / sum(e.count for e in split) / 1e3
 
 
 # each flash kernel's own name in csrc/flash_attn_fwd.cu and
@@ -1540,10 +1566,12 @@ GMM_MODES = {"0": "grouped_mm_fwd", "1": "grouped_mm_bwd_dx",
 
 def gmm_kernel_of(key: str):
     """The grouped kernel a profiler event's name belongs to, or None:
-    the bf16 dx and dW `gmm::dx_kernel_sm90` / `gmm::dw_kernel_sm90`, or
-    `gmm::gmm_kernel<T, MODE>` by its mode."""
+    the bf16 `gmm::fwd_kernel_sm90` / `dx_kernel_sm90` / `dw_kernel_sm90`,
+    or the fp32 `gmm::gmm_kernel<float, MODE>` by its mode."""
     if "gmm::" not in key:
         return None
+    if "fwd_kernel_sm90" in key:
+        return "grouped_mm_fwd"
     if "dw_kernel_sm90" in key:
         return "grouped_mm_bwd_dw"
     if "dx_kernel_sm90" in key:

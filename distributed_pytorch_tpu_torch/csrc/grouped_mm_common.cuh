@@ -15,31 +15,26 @@
 // the bf16 tensor-core peak) over ~0.1 GB of operands, ~800 FLOP per byte
 // against the card's ~295. dx and dW do the same FLOP each.
 //
-// Design (simple first; wgmma, TMA and a persistent schedule are later
-// work), of the bf16 forward and of the fp32 forward, dx and dW. The bf16
-// dx and dW run `dx_kernel_sm90` and `dw_kernel_sm90` (wgmma on TMA-fed
-// shared memory, grouped_mm_bwd.cu); the dtype picks the kernel before
-// launch. What bounds this body on the H100: mma.sync fragments through
-// ldmatrix out of 2-stage rings of 32-column chunks, and a grid whose row
-// tiles vary fastest, so every column block re-reads the row operand from
-// device memory (3.4-3.6x PyTorch's grouped product in bf16, PERF.md).
+// `gmm_kernel` is the fp32 design of all three modes (forward, dx, dW):
+// FMA loops on CUDA cores, full fp32 (tensor cores take fp32 only as TF32,
+// which would break the fp32 limits). Every bf16 product runs on tensor
+// cores instead, wgmma on TMA-fed shared memory: `fwd_kernel_sm90`
+// (grouped_mm_fwd.cu), `dx_kernel_sm90` and `dw_kernel_sm90`
+// (grouped_mm_bwd.cu); the dtype picks the kernel before launch. What
+// bounds this body on the H100 is FMA issue out of shared memory, at
+// about twice its fp32 operation bound (PERF.md §6):
 // * One CTA of 8 warps owns a 128 x 128 tile of the output, each warp a
 //   32 x 64 block (4 warps along M, 2 along N). The contraction streams in
 //   chunks of 32 through two shared-memory stages filled with 16-byte
 //   cp.async copies (out-of-range vectors zero-filled), so the next
 //   chunk's loads fly while this chunk's products run.
 // * Every operand is copied as it lies in device memory, rows of 16-byte
-//   vectors; its orientation is handled at the fragment load instead:
-//   ldmatrix for a tile stored with the contraction contiguous, and
-//   ldmatrix.trans for one stored with the contraction outermost. Rows
-//   are padded by 16 bytes, so the 8 row addresses of one ldmatrix hit 32
-//   distinct banks. bf16 operands run mma.sync.m16n8k16 (fp32
-//   accumulate: the reference's preferred_element_type=float32); fp32
-//   operands run FMA loops (full fp32, no TF32) on the same fragment
-//   layout, so the epilogue is shared.
-//     forward: A = x rows [m][k], B = W_e [k][n]             (ldmatrix, .trans)
-//     dx:      A = dy rows [m][n], B = W_e [k][n] read as W_e^T (fp32 only)
-//     dW:      A = x rows [r][k] read as x^T, B = dy rows [r][n] (fp32 only)
+//   vectors padded by 16 bytes; its orientation is handled at the read
+//   instead, by the stored axis (`A_KM`, `B_KM`). Each thread accumulates
+//   the mma.sync C-fragment layout of its warp's block with fmaf:
+//     forward: A = x rows [m][k], B = W_e [k][n]
+//     dx:      A = dy rows [m][n], B = W_e [k][n] read as W_e^T
+//     dW:      A = x rows [r][k] read as x^T, B = dy rows [r][n]
 // * The expert of a forward or dx CTA is tile_group[row0 / bm], read from
 //   device memory as the TPU's scalar prefetch read it (bm a multiple of
 //   128, so a CTA's rows lie in one tile). A dW CTA owns one (expert,
@@ -50,10 +45,8 @@
 //   with no rows writes zeros. Experts are the grid's slowest axis, so the
 //   shared experts' CTAs (every token) start first. An expert's rows run
 //   to 24576 at the training shape: each 128-row tile is summed into a
-//   fresh partial and then added to the accumulator in fp32, as the plain
-//   version sums per tile, so the tensor cores' accumulation never runs
-//   over more than 128 rows (on the H100 one long register sum read
-//   3.6e-5 of the largest |dW| off the plain version at 24576 rows).
+//   fresh partial and then added to the accumulator, as the plain version
+//   sums per tile.
 // * Gates: the forward scales each fp32 row at the output write, then
 //   rounds once; dx and dW round dy * gate to the operand dtype in shared
 //   memory before the product, as the reference's `.astype` does.
@@ -120,43 +113,9 @@ __device__ __forceinline__ void load_tile(T* dst, int ldd, const T* base, long l
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(fce::smem_addr(p)));
-}
-
 // acc[mi][j][e] += sum over one BK chunk of A(m, kk) B(kk, n) for this
 // warp's rows m = wm0 + 16 mi + g (+8 for e >= 2) and columns n = wn0 +
 // 8 j + 2 q (+1 for odd e): the mma.sync C-fragment layout.
-template <bool A_KM, bool B_KM>
-__device__ __forceinline__ void mma_chunk(float (&acc)[2][8][4], const __nv_bfloat16* As, int lda,
-                                          const __nv_bfloat16* Bs, int ldb, int wm0, int wn0,
-                                          int lane) {
-  static_assert(!A_KM && B_KM, "the bf16 dW and dx run dw_kernel_sm90 and dx_kernel_sm90");
-  const int l7 = lane & 7, b3 = (lane >> 3) & 1, b4 = lane >> 4;
-#pragma unroll
-  for (int k = 0; k < BK; k += 16) {
-    unsigned a[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int m0 = wm0 + mi * 16;
-      fce::ldsm_x4(a[mi], As + (m0 + l7 + 8 * b3) * lda + k + 8 * b4);
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int n0 = wn0 + jj * 16;  // n-tiles 2 jj and 2 jj + 1
-      unsigned b[4];
-      ldsm_x4_t(b, Bs + (k + l7 + 8 * b3) * ldb + n0 + 8 * b4);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        fce::mma_bf16(acc[mi][2 * jj], a[mi], b[0], b[1]);
-        fce::mma_bf16(acc[mi][2 * jj + 1], a[mi], b[2], b[3]);
-      }
-    }
-  }
-}
-
 template <bool A_KM, bool B_KM>
 __device__ __forceinline__ void mma_chunk(float (&acc)[2][8][4], const float* As, int lda,
                                           const float* Bs, int ldb, int wm0, int wn0, int lane) {
@@ -194,19 +153,9 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[2][8][4], const float* As
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float x, float y);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads) gmm_kernel(const Params p) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs the *_kernel_sm90 kernels");
   using Cf = Cfg<T, MODE>;
   constexpr bool A_KM = Cf::A_KM, B_KM = Cf::B_KM;
   constexpr int LDA = Cf::LDA, LDB = Cf::LDB;
@@ -323,8 +272,7 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(const Params p) {
     __syncthreads();  // this stage is refilled two chunks on
   }
 
-  // epilogue: fwd and dx in the operand dtype (fwd scaled per row in fp32,
-  // then rounded once), dW in fp32
+  // epilogue in fp32, the forward's rows times their gates
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -337,13 +285,9 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(const Params p) {
         const int n = n0 + wn0 + j * 8 + 2 * q;
         if (n >= n_end) continue;
         const float x = acc[mi][j][2 * h] * gate, y = acc[mi][j][2 * h + 1] * gate;
-        if constexpr (MODE == DW) {
-          float* o = static_cast<float*>(p.out) + ((long long)e * p.K + m) * p.N + n;
-          store2<float>(o, x, y);
-        } else {
-          T* o = static_cast<T*>(p.out) + (long long)m * n_end + n;
-          store2<T>(o, x, y);
-        }
+        float* o = static_cast<float*>(p.out) +
+                   (MODE == DW ? ((long long)e * p.K + m) * p.N : (long long)m * n_end) + n;
+        *reinterpret_cast<float2*>(o) = make_float2(x, y);
       }
     }
 }
@@ -373,13 +317,6 @@ int launch(const Params& p, void* stream) {
   }
   gmm_kernel<T, MODE><<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-template <int MODE>
-int dispatch(int dtype, const Params& p, void* stream) {
-  if (dtype == 0) return launch<float, MODE>(p, stream);
-  if (dtype == 1) return launch<__nv_bfloat16, MODE>(p, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace gmm

@@ -15,15 +15,16 @@
 // from one grid step to the next; here one CTA owns a set of query rows and
 // walks the keys in an inner loop, so nothing has to carry across CTAs.
 //
-// Design (FMA loops on CUDA cores), run by the decode kernels in every
-// dtype, by the fp32 prefill, the bf16 prefill at head sizes other than
-// 64 and 128, and the int8-cache prefill; the bf16 prefill at head size 64
-// and 128 runs `prefill_kernel_sm90` (wgmma on cp.async-gathered tiles,
-// paged_prefill_attn.cu), picked by dtype and head size before launch.
-// What bounds this body on the H100 is the latency of its four passes a
-// key tile (gather, scores, softmax, P V, each behind a __syncthreads,
-// nothing overlapped) and FMA issue, not bytes (PERF.md: prefill ~250x,
-// decode ~22x its byte bound):
+// Design (FMA loops on CUDA cores), run by the int8-cache (_q8) decode,
+// the fp32 prefill, the bf16 prefill at head sizes other than 64 and 128,
+// and the int8-cache prefill. The bf16 prefill at head size 64 and 128
+// runs `prefill_kernel_sm90` (wgmma on cp.async-gathered tiles,
+// paged_prefill_attn.cu), and the fp32 and bf16 decode the split-KV
+// kernels of paged_decode_attn.cu, each picked by dtype (and head size)
+// before launch. What bounds this body on the H100 is the latency of its
+// four passes a key tile (gather, scores, softmax, P V, each behind a
+// __syncthreads, nothing overlapped) and FMA issue, not bytes (PERF.md
+// §6: tens of times its byte bound):
 // * The CTA loads its query rows once into shared memory (fp32), then for
 //   each tile of kTile logical key rows gathers K and V rows from the pool
 //   through the table (one table read per row: blocks may be any size, and

@@ -45,9 +45,10 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 KERNELS = {
     "paged_decode_attn": (
         "paged_decode_attn.cu",
-        # dtype, q, k, v, tables, cache_len, out, B, nh, nkv, hs, bs,
-        # n_max, scale, stream
-        (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
+        # dtype, q, k, v, tables, cache_len, out, ws, B, nh, nkv, hs, bs,
+        # n_max, n_split, scale, stream
+        (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+         _P)),
     "paged_prefill_attn": (
         "paged_prefill_attn.cu",
         # dtype, q, k, v, table, out, n_tok, nh, nkv, hs, bs, n_max, off,

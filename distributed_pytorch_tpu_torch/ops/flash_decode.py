@@ -8,7 +8,12 @@ Pallas bodies on the serving path map to four CUDA kernels here:
   (reference `_kernel`, contiguous cache) -> `paged_decode_attn`
   (csrc/paged_decode_attn.cu). One query row per sequence against its
   live cache rows [0, cache_len); a contiguous (B, S, nkv, hs) cache is a
-  pool of B blocks of S rows with the table arange(B)[:, None].
+  pool of B blocks of S rows with the table arange(B)[:, None]. Split-KV
+  on CUDA cores: a split kernel over (sequence, kv head, 128-key split
+  of the table's capacity) writes each split's unnormalized fp32
+  (acc, m, l) to a (B, nh, n_split, hs + 2) workspace that the wrapper
+  allocates (`decode_workspace`), and a combine kernel of the same C
+  entry merges the live splits in split order.
 * `paged_flash_prefill` (reference `_prefill_kernel`) ->
   `paged_prefill_attn` (csrc/paged_prefill_attn.cu). A T-row chunk of ONE
   sequence at a block-aligned offset, causal on global position off + t.
@@ -18,7 +23,7 @@ Pallas bodies on the serving path map to four CUDA kernels here:
   block table by cp.async into a 2-stage ring, S and P V as wgmma; its
   time is the latency of each CTA's chain of key tiles, not bytes); fp32
   and bf16 at other head sizes run FMA loops (`attend_rows`,
-  csrc/paged_attn_common.cuh), as do the decode and int8 kernels.
+  csrc/paged_attn_common.cuh), as do the int8 kernels.
 * The int8-cache variants (reference `_paged_body_q8`, `_kernel_q8`,
   `_prefill_kernel_q8`) -> `paged_decode_attn_q8` and
   `paged_prefill_attn_q8`, in the same two sources. Given `k_scale` /
@@ -38,7 +43,9 @@ show its main path went through the kernels.
 The `*_usable` gates say whether the kernels take a call's shapes and
 dtypes (fp32/bf16 activations over a same-dtype cache, or an int8 cache
 with fp32 scale rows; head size a multiple of 8, whole kv-head groups,
-16-byte aligned pools, tiles within the card's 227 KB of shared memory).
+16-byte aligned pools, tiles within the card's 227 KB of shared memory;
+the split-KV decode holds a row of at most 512 bytes in one warp's
+registers: head size <= 256 in bf16, <= 128 in fp32).
 A wrapper given CUDA tensors its gate declines raises:
 `ops/attention_core.py` routes by shape alone, so no cached call on the
 card falls quietly to a plain path.
@@ -63,6 +70,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024         # dynamic shared memory a block may use
 _TILE = 64                       # key rows per tile (csrc kTile)
 _PREFILL_ROWS = 64               # packed query rows per prefill CTA
+_SPAN = 128                      # keys a decode split owns (csrc kSpan)
+_SPLIT_WARPS = 4                 # warps of a decode split CTA (csrc kWarps)
+_SPLIT_ROWS = 8                  # query rows a split CTA holds (kMaxRows)
+_ROW_BYTES = 512                 # largest K/V row the split kernel holds
 
 
 def reset_counts() -> None:
@@ -77,6 +88,27 @@ def _smem_bytes(n_rows: int, hs: int, q8: bool = False) -> int:
     row statistics, and for an int8 cache the tile's K and V scales."""
     return 4 * (2 * n_rows * hs + _TILE * (hs + 1) + _TILE * hs
                 + n_rows * _TILE + 3 * n_rows + (2 * _TILE if q8 else 0))
+
+
+def decode_splits(n_keys: int) -> int:
+    """Splits of the decode kernel over a table of `n_keys` = n_max * bs
+    rows (its capacity, known on the host; cache_len stays on the card)."""
+    return -(-n_keys // _SPAN)
+
+
+def decode_workspace(B: int, nh: int, hs: int, n_keys: int, device):
+    """The decode kernel's fp32 workspace: per (sequence, head, split) the
+    split's unnormalized accumulator row, then its running max and sum."""
+    return torch.empty(B, nh, decode_splits(n_keys), hs + 2,
+                       dtype=torch.float32, device=device)
+
+
+def _split_smem_bytes(rep: int, hs: int) -> int:
+    """Shared memory of a decode split CTA: each warp's merged rows
+    (acc, m, l) for the query rows it holds (rep rounded up to a power of
+    two, at most _SPLIT_ROWS; more rows take further CTAs)."""
+    rows = min(_SPLIT_ROWS, 1 << (rep - 1).bit_length())
+    return 4 * _SPLIT_WARPS * rows * (hs + 2)
 
 
 def _kernel_operands_ok(q, k, v, k_scale=None, v_scale=None) -> bool:
@@ -107,8 +139,12 @@ def paged_flash_decode_usable(q, k, v, k_scale=None, v_scale=None) -> bool:
         return False
     nh, hs = q.shape[2], q.shape[3]
     nkv = k.shape[2]
-    return nh % nkv == 0 and \
-        _smem_bytes(nh // nkv, hs, k_scale is not None) <= _SMEM_LIMIT
+    if nh % nkv:
+        return False
+    if k_scale is not None:
+        return _smem_bytes(nh // nkv, hs, True) <= _SMEM_LIMIT
+    return hs * q.element_size() <= _ROW_BYTES and \
+        _split_smem_bytes(nh // nkv, hs) <= _SMEM_LIMIT
 
 
 def paged_flash_prefill_usable(q, k, v, k_scale=None,
@@ -260,6 +296,8 @@ def _launch_decode(q, k, v, tables, cache_len, scale, k_scale,
     if not paged_flash_decode_usable(q[:, None], k, v, k_scale, v_scale):
         raise ValueError(f"{name} does not take {_describe(q, k, k_scale)}")
     q = q.contiguous()
+    if q.data_ptr() % 16:               # the split kernel's 16-byte loads
+        q = q.clone()
     tables = tables.to(torch.int32).contiguous()
     cache_len = cache_len.to(device=q.device, dtype=torch.int32) \
         .reshape(-1).contiguous()
@@ -271,15 +309,22 @@ def _launch_decode(q, k, v, tables, cache_len, scale, k_scale,
                          f"for B={B}, got {tuple(tables.shape)} and "
                          f"{tuple(cache_len.shape)}")
     bs, nkv = k.shape[1], k.shape[2]
+    n_max = tables.shape[1]
     out = torch.empty_like(q)
     lib = cuda_build.load(name)
-    kv = (k.data_ptr(), v.data_ptr()) if k_scale is None else \
-        (k.data_ptr(), k_scale.data_ptr(), v.data_ptr(), v_scale.data_ptr())
+    if k_scale is None:
+        ws = decode_workspace(B, nh, hs, n_max * bs, q.device)
+        kv = (k.data_ptr(), v.data_ptr())
+        tail = (out.data_ptr(), ws.data_ptr(), B, nh, nkv, hs, bs, n_max,
+                ws.shape[2])
+    else:
+        kv = (k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
+              v_scale.data_ptr())
+        tail = (out.data_ptr(), B, nh, nkv, hs, bs, n_max)
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
             _DTYPE_CODE[q.dtype], q.data_ptr(), *kv, tables.data_ptr(),
-            cache_len.data_ptr(), out.data_ptr(), B, nh, nkv, hs, bs,
-            tables.shape[1], float(scale),
+            cache_len.data_ptr(), *tail, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -38,16 +38,14 @@ kernel does not take (dtypes other than fp32/bf16, mixed dtypes, widths
 that are not multiples of 8, a tile `bm` that is not a multiple of 128 or
 does not divide P, non-contiguous or misaligned operands); for CPU
 tensors it runs the plain version: per-tile products over the same
-metadata, fp32 accumulation, the same rounding points. Inside the C entries
-of dx and dW the dtype picks the design before launch, never as a
-fallback: bf16 runs on tensor cores (wgmma on TMA-fed shared memory; dx
-rasters its grid so the CTAs of one dy row tile run together and dy is
-read from device memory about once), fp32 on FMA loops; the forward runs
-mma.sync in bf16 and FMA loops in fp32, its row operand re-read from
-device memory by every column block. Each product is bound by operations
-(2 P K N FLOP: ~0.08 / 0.04 ms in bf16 for the flagship's fc / proj on an
-H100), which the wgmma designs approach and the others do not (PERF.md
-§6). `LAUNCHES[name]`
+metadata, fp32 accumulation, the same rounding points. Inside each C
+entry the dtype picks the design before launch, never as a fallback:
+bf16 runs on tensor cores (wgmma on TMA-fed shared memory; the forward
+and dx raster their grids so the CTAs of one row tile run together and
+the row operand is read from device memory about once), fp32 on FMA
+loops. Each product is bound by operations (2 P K N FLOP: ~0.08 / 0.04 ms
+in bf16 for the flagship's fc / proj on an H100), which the wgmma designs
+approach and the FMA loops do not (PERF.md §6). `LAUNCHES[name]`
 counts kernel launches, `PLAIN_CALLS[name]` plain-version calls, and
 `DEGRADED["dense"]` MoE layers that asked for 'grouped' and took 'dense'
 because `grouped_usable` refused (models/mlp.py).

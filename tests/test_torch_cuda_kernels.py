@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-paged decode (GQA ratios, ragged lengths including 1 and the full table,
-dead blocks poisoned), contiguous decode, and paged prefill at offset 0
+paged decode (GQA ratios, MQA at rep 12, ragged lengths including 1 and
+the full table, dead blocks poisoned; lengths at the split-KV kernel's
+128-key split boundaries and 0; two launches bit-equal), contiguous
+decode, and paged prefill at offset 0
 and at block-aligned offsets, in fp32 (atol 1e-4: summation order) and
 bf16 (atol 2e-2: outputs round to bf16, and p rounds to bf16 against a
 running max in the kernel but the global max in the plain version); the
@@ -30,8 +32,10 @@ same steps on the CPU. The grouped-matmul kernels (forward, dx, dW;
 unscaled and scaled) over ragged groups with empty and singleton
 experts, every row on one expert, and widths that are not multiples of
 the 128-wide tiles, each output element by element within `GMM_TOL`;
-two bf16 dx and two bf16 dW launches bit-equal, and bf16 dW over 24576
-rows of one expert within the fp32 limit;
+the forward at a serving batch (a few rows per expert, mostly padding
+tiles); two bf16 forward, two bf16 dx and two bf16 dW launches
+bit-equal, and bf16 dW over 24576 rows of one expert within the fp32
+limit;
 the grouped dispatch's autograd route against the plain route on the
 CPU, and an MoE layer through the kernels against its dense dispatch.
 
@@ -118,6 +122,71 @@ def test_paged_decode_never_reads_dead_blocks(dev, dtype):
     vp[3, 1:] = float("inf")
     out = fd.paged_flash_decode(q, kp, vp, tables, cl, scale=hs ** -0.5)
     _close(out, ref, dtype)
+
+
+def _decode_inputs(dev, dtype, B, nh, nkv, hs, bs, n_max, seed):
+    """Pools with a spare block, a permuted (B, n_max) table, a query."""
+    kp, vp, g = _pools(dev, dtype, 1 + B * n_max, bs, nkv, hs, seed=seed)
+    tables = torch.from_numpy(np.random.default_rng(seed).permutation(
+        np.arange(1, 1 + B * n_max)).reshape(B, n_max).astype(np.int32)) \
+        .to(dev)
+    q = torch.randn(B, nh, hs, generator=g, device=dev).to(dtype)
+    return q, kp, vp, tables
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("route", ["paged", "contiguous"])
+def test_paged_decode_split_boundaries(dev, dtype, route):
+    """Lengths one short of, at and one past a 128-key split, the whole
+    table (384 keys: three splits) and 0 (the row is zeros), paged and
+    contiguous."""
+    bs, n_max, nh, hs = 16, 24, 8, 64
+    span = fd._SPAN
+    cl = torch.tensor([span - 1, span, span + 1, n_max * bs, 0],
+                      dtype=torch.int32, device=dev)
+    B = cl.numel()
+    q, kp, vp, tables = _decode_inputs(dev, dtype, B, nh, nh, hs, bs, n_max,
+                                       seed=5)
+    fd.reset_counts()
+    if route == "paged":
+        out = fd.paged_flash_decode(q, kp, vp, tables, cl, scale=hs ** -0.5)
+        ref = fd.paged_flash_decode_plain(q, kp, vp, tables, cl,
+                                          scale=hs ** -0.5)
+    else:
+        kc, vc, _ = _pools(dev, dtype, B, n_max * bs, nh, hs, seed=6)
+        out = fd.flash_decode(q, kc, vc, cl, scale=hs ** -0.5)
+        ref = fd.flash_decode_plain(q, kc, vc, cl, scale=hs ** -0.5)
+    assert fd.LAUNCHES["paged_decode_attn"] == 1
+    _close(out, ref, dtype)
+    assert torch.count_nonzero(out[-1]) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("nkv,hs", [(1, 64), (1, 128), (2, 64)],
+                         ids=["mqa-64", "mqa-128", "gqa6-64"])
+def test_paged_decode_many_rows_a_kv_head(dev, dtype, nkv, hs):
+    """MQA at rep 12 (12 query rows on one kv head, two row chunks of the
+    split kernel) and GQA at rep 6, over ragged lengths."""
+    q, kp, vp, tables = _decode_inputs(dev, dtype, 4, 12, nkv, hs, 16, 20,
+                                       seed=hs + nkv)
+    cl = torch.tensor([1, 129, 200, 320], dtype=torch.int32, device=dev)
+    out = fd.paged_flash_decode(q, kp, vp, tables, cl, scale=hs ** -0.5)
+    _close(out, fd.paged_flash_decode_plain(q, kp, vp, tables, cl,
+                                            scale=hs ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_paged_decode_is_deterministic(dev, dtype):
+    """Two launches of the split-KV decode are bit-equal: the warps merge
+    in warp order and the combine merges the splits in split order."""
+    q, kp, vp, tables = _decode_inputs(dev, dtype, 8, 12, 12, 64, 16, 64,
+                                       seed=9)
+    cl = torch.tensor([1, 17, 300, 1024, 5, 64, 511, 900],
+                      dtype=torch.int32, device=dev)
+    first, second = (fd.paged_flash_decode(q, kp, vp, tables, cl,
+                                           scale=0.125) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -663,6 +732,33 @@ def test_grouped_kernels(dev, dtype, K, N, counts):
             if c == 0:
                 assert torch.count_nonzero(dw[e]) == 0
     assert gm.LAUNCHES == {k: 2 for k in gm.LAUNCHES}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("K,N", [(768, 2048), (1024, 768)],
+                         ids=["fc", "proj"])
+def test_grouped_fwd_at_a_serving_batch(dev, dtype, K, N):
+    """The forward as a decode step of the MoE server gives it: 8 tokens,
+    1 shared + top 2 of 7 routed experts, so each expert owns a few rows
+    of one 128-row tile and the buffer is mostly padding tiles."""
+    counts = [8, 3, 0, 5, 2, 0, 1, 5]
+    x, w, _, s, _, _, tg = _gmm_inputs(dev, dtype, K, N, counts, seed=4)
+    for sc in (None, s):
+        _gmm_within(gm.gmm_fwd(x, w, tg, sc, bm=128),
+                    gm.gmm_fwd_plain(x, w, tg, sc, bm=128), GMM_TOL[dtype])
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["fc", "proj"])
+def test_grouped_fwd_bf16_is_deterministic(dev, scaled):
+    """Two bf16 forward launches on the same ragged groups are bit-equal:
+    each CTA writes its block of y once, with no atomics."""
+    K, N = (1024, 768) if scaled else (768, 2048)
+    x, w, _, s, _, _, tg = _gmm_inputs(dev, torch.bfloat16, K, N,
+                                       [3000, 0, 1, 129, 2000])
+    sc = s if scaled else None
+    first, second = (gm.gmm_fwd(x, w, tg, sc, bm=128) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("scaled", [False, True], ids=["fc", "proj"])

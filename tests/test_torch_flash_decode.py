@@ -316,3 +316,23 @@ def test_q8_usable_gates():
                                              odd, sc, sc)
     # the scale tiles count against the shared-memory limit
     assert tfd._smem_bytes(64, 64, True) == tfd._smem_bytes(64, 64) + 512
+
+
+def test_split_decode_gate():
+    """The fp32/bf16 decode kernel holds a K/V row of at most 512 bytes in
+    one warp's registers (head size <= 256 in bf16, <= 128 in fp32) and
+    any number of query rows a kv head (MQA rep 12 included); the int8
+    cache's kernel keeps its own shared-memory gate."""
+    for hs, dtype, ok in ((256, torch.bfloat16, True),
+                          (264, torch.bfloat16, False),
+                          (128, torch.float32, True),
+                          (136, torch.float32, False)):
+        pool = torch.zeros(5, 16, 1, hs, dtype=dtype)
+        q1 = torch.zeros(2, 1, 12, hs, dtype=dtype)
+        assert tfd.paged_flash_decode_usable(q1, pool, pool) == ok, hs
+    codes = torch.zeros(5, 16, 1, 256, dtype=torch.int8)
+    sc = torch.zeros(5, 16, 1, 1)
+    assert tfd.paged_flash_decode_usable(torch.zeros(2, 1, 12, 256), codes,
+                                         codes, sc, sc)
+    assert tfd._split_smem_bytes(12, 64) == 4 * 4 * 8 * 66
+    assert tfd._split_smem_bytes(1, 64) == 4 * 4 * 1 * 66

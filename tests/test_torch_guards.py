@@ -191,28 +191,33 @@ def _chip_smoke():
 
 # a phase 2 inventory as `cuobjdump -sass` names the kernels: the bf16
 # wgmma kernels (flash fwd, dq, dkv and the paged prefill at D 64 and 128,
-# grouped dx and dW unscaled and scaled) and some of the others (fp32
-# flash, grouped forward and fp32 dx/dW, the FMA prefill and decode)
+# grouped fwd, dx and dW unscaled and scaled) and some of the others (fp32
+# flash, fp32 grouped forward, dx and dW, the FMA prefill, the int8 decode
+# and the split-KV decode's split and combine kernels)
 SASS_SM90 = [
     f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi{d}EEEvNS0_4MapsEN5flash"
     "6ParamsE"
     for k in ("fwd_kernel_sm90", "dq_kernel_sm90", "dkv_kernel_sm90")
     for d in (64, 128)] + [
-    f"_ZN3gmm14{k}ILb{b}EEEvNS_6{m}ENS_6ParamsE"
-    for k, m in (("dw_kernel_sm90", "DwMaps"), ("dx_kernel_sm90", "DxMaps"))
+    f"_ZN3gmm{len(k)}{k}ILb{b}EEEvNS_{len(m)}{m}ENS_6ParamsE"
+    for k, m in (("dw_kernel_sm90", "DwMaps"), ("dx_kernel_sm90", "DxMaps"),
+                 ("fwd_kernel_sm90", "FwdMaps"))
     for b in (0, 1)] + [
     f"_ZN12_GLOBAL__N_112prefill_sm9019prefill_kernel_sm90ILi{d}EEEvPK13"
     "__nv_bfloat16S4_S4_PKiPS2_iiiiiiif" for d in (64, 128)]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
-              "_ZN3gmm10gmm_kernelI13__nv_bfloat16Li0EEEvNS_6ParamsE",
+              "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi2EEEvNS_6ParamsE",
               "_ZN12_GLOBAL__N_120paged_prefill_kernelI13__nv_bfloat16aEEvPKT_"
               "PKT0_S7_PKfS9_PKiPS2_iiiiiiif",
-              "_ZN12_GLOBAL__N_119paged_decode_kernelIffEEvPKT_PKT0_S6_PKfS8_"
-              "PKiS8_PS1_iiiiiif"]
-# each broken inventory: (kernel, op, count), and the name the failure
-# must print
+              "_ZN12_GLOBAL__N_119paged_decode_kernelIfEEvPKT_PKaS5_PKfS7_"
+              "PKiS9_PS1_iiiiiif",
+              "_ZN12_GLOBAL__N_119decode_split_kernelI13__nv_bfloat16Li1EEEvPK"
+              "T_S5_S5_PKiS7_Pfiiiiiiif",
+              "_ZN12_GLOBAL__N_121decode_combine_kernelIfEEvPKfPKiPT_iiii"]
+# each broken inventory: (kernel, op, count; op None drops the kernel),
+# and the name the failure must print
 BROKEN = {"complete": None,
           "dq_without_hgmma": ((SASS_SM90[2], "HGMMA", 0), "dq_kernel_sm90"),
           "prefill_without_hgmma": ((SASS_SM90[-2], "HGMMA", 0),
@@ -221,17 +226,27 @@ BROKEN = {"complete": None,
                                "prefill_kernel_sm90"),
           "dx_without_tma": ((SASS_SM90[8], "UTMALDG", 0), "dx_kernel_sm90"),
           "fma_prefill_with_hgmma": ((SASS_OTHER[4], "HGMMA", 4),
-                                     "paged_prefill_kernel")}
+                                     "paged_prefill_kernel"),
+          "gmm_fwd_without_tma": ((SASS_SM90[10], "UTMALDG", 0),
+                                  "gmm15fwd_kernel_sm90"),
+          "gmm_fwd_without_hgmma": ((SASS_SM90[11], "HGMMA", 0),
+                                    "gmm15fwd_kernel_sm90"),
+          "decode_with_hgmma": ((SASS_OTHER[6], "HGMMA", 4),
+                                "decode_split_kernel"),
+          "decode_split_missing": ((SASS_OTHER[6], None, 0),
+                                   "decode_split_kernel")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
 def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     """Phase 2's check passes an inventory in which every bf16 wgmma
     kernel holds HGMMA and its loads (TMA; cp.async and no TMA in the
-    paged prefill) and no other kernel holds HGMMA or a TMA load, and
-    exits non-zero when one kernel breaks that: the bf16 dq or the
-    prefill without HGMMA, the prefill with a TMA load, the dx without
-    one, the FMA prefill with HGMMA."""
+    paged prefill), the split-KV decode's split and combine kernels are
+    there, and no other kernel holds HGMMA or a TMA load; and exits
+    non-zero when one kernel breaks that: the bf16 dq, the prefill or the
+    grouped forward without HGMMA, the prefill with a TMA load, the dx or
+    the grouped forward without one, the FMA prefill or the decode split
+    with HGMMA, the decode split missing."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
     for fn in SASS_SM90[-2:]:
@@ -243,7 +258,10 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
         cs.check_sass(inv)
         return
     (fn, op, n), name = BROKEN[broken]
-    inv[fn][op] = n
+    if op is None:
+        del inv[fn]
+    else:
+        inv[fn][op] = n
     with pytest.raises(SystemExit) as exc:
         cs.check_sass(inv)
     assert exc.value.code != 0
@@ -260,6 +278,9 @@ PROFILE_NAMES = {
         "grouped_mm_bwd_dx",
     "void gmm::dw_kernel_sm90<false>(gmm::DwMaps, gmm::Params)":
         "grouped_mm_bwd_dw",
+    "void gmm::fwd_kernel_sm90<true>(gmm::FwdMaps, gmm::Params)":
+        "grouped_mm_fwd",
+    "void gmm::gmm_kernel<float, 0>(gmm::Params)": "grouped_mm_fwd",
     "void (anonymous namespace)::flash_sm90::fwd_kernel_sm90<64>("
     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, flash::Params)": None}
 
@@ -267,6 +288,64 @@ PROFILE_NAMES = {
 @pytest.mark.parametrize("key", PROFILE_NAMES)
 def test_profile_split_names_every_grouped_kernel(key):
     """The training profile's grouped split (`gmm_kernel_of`) finds each
-    grouped kernel by its profiler name, the bf16 wgmma dx and dW among
-    them, and no other kernel."""
+    grouped kernel by its profiler name, the bf16 wgmma forward, dx and dW
+    among them, and no other kernel (the flash forward's name also ends
+    in `fwd_kernel_sm90`)."""
     assert _chip_smoke().gmm_kernel_of(key) == PROFILE_NAMES[key]
+
+
+def _events(*rows):
+    """Profiler key averages as `device_kernels` returns them: (name,
+    launches, device us in all)."""
+    from types import SimpleNamespace
+    return [SimpleNamespace(key=k, count=n, self_device_time_total=us)
+            for k, n, us in rows]
+
+
+SPLIT = ("void (anonymous namespace)::decode_split_kernel<__nv_bfloat16, 1>"
+         "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+         "int const*, int const*, float*, int, int, int, int, int, int, int, "
+         "float)")
+COMBINE = ("void (anonymous namespace)::decode_combine_kernel<__nv_bfloat16>"
+           "(float const*, int const*, __nv_bfloat16*, int, int, int, int)")
+Q8 = ("void (anonymous namespace)::paged_decode_kernel<__nv_bfloat16>("
+      "__nv_bfloat16 const*, signed char const*, signed char const*, "
+      "float const*, float const*, int const*, int const*, __nv_bfloat16*, "
+      "int, int, int, int, int, float)")
+# (events, device ms per decode launch)
+DECODE_EVENTS = {
+    "split_kv": (_events((SPLIT, 120, 720.0), (COMBINE, 120, 240.0),
+                         ("void gemv_kernel<float>()", 240, 999.0)), 0.008),
+    "int8": (_events((Q8, 120, 6000.0), (COMBINE, 3, 30.0)), 0.05),
+    "split_kv_two_rows": (_events((SPLIT, 60, 300.0),
+                                  (SPLIT.replace(", 1>", ", 2>"), 60, 420.0),
+                                  (COMBINE, 120, 120.0)), 0.007)}
+
+
+@pytest.mark.parametrize("case", DECODE_EVENTS)
+def test_decode_ms_per_launch_reads_split_and_combine(case):
+    """The serving profile's decode time per launch is split plus combine
+    over the split kernel's launches for the fp32/bf16 split-KV pair (its
+    row-count instantiations together), and the int8 cache's
+    `paged_decode_kernel` alone; other kernels do not count."""
+    ev, want = DECODE_EVENTS[case]
+    assert _chip_smoke().decode_ms_per_launch(ev) == pytest.approx(want)
+
+
+def test_decode_ms_per_launch_without_decode_events_is_nan():
+    import math
+    assert math.isnan(_chip_smoke().decode_ms_per_launch(
+        _events(("void gemv_kernel<float>()", 4, 10.0))))
+
+
+@pytest.mark.parametrize("n_max,bs,splits", [(64, 16, 8), (1, 1024, 8),
+                                             (1, 1, 1), (3, 43, 2),
+                                             (2, 64, 1), (2, 65, 2)])
+def test_decode_split_count_and_workspace_shape(n_max, bs, splits):
+    """The decode wrapper's split count comes from the table's capacity
+    (n_max * bs keys, 128 a split), and its workspace holds per (sequence,
+    head, split) an fp32 accumulator row and the split's max and sum."""
+    from distributed_pytorch_tpu_torch.ops import flash_decode as fd
+    assert fd.decode_splits(n_max * bs) == splits
+    ws = fd.decode_workspace(3, 12, 64, n_max * bs, "cpu")
+    assert ws.shape == (3, 12, splits, 66) and ws.dtype == torch.float32
