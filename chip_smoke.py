@@ -14,14 +14,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took; counts each
              flash, grouped and paged kernel's HGMMA, UTMALDG and LDGSTS
-             instructions (`cuobjdump -sass`): the 14 bf16 wgmma kernels
+             instructions (`cuobjdump -sass`): the 16 bf16 wgmma kernels
              (flash forward, dq and dkv and the paged prefill at head
              sizes 64 and 128, the grouped forward, dx and dW unscaled
-             and scaled) must hold HGMMA and their loads (TMA; cp.async
-             and no TMA in the paged prefill, which gathers through the
-             block table), the others (fp32, int8, the split-KV decode's
-             split and combine kernels, which must be there) neither
-             HGMMA nor a TMA load.
+             and scaled, the fused CE backward's dx and dW) must hold
+             HGMMA and their loads (TMA; cp.async and no TMA in the paged
+             prefill, which gathers through the block table), the others
+             (fp32, int8, the bf16 CE backward's mma.sync kernel for C
+             past 1024, the split-KV decode's split and combine kernels,
+             which must be there) neither HGMMA nor a TMA load.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's shapes (decode, prefill; over a bf16/fp32
              cache and over an int8 cache with fp32 row scales, the _q8
@@ -38,7 +39,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
              (`scaled_dot_product_attention`; its backward for dq and dkv
              together). The fused CE kernels (forward, dx, dW) at the
              training path's shape (n 8192, C 768, V 50304) beside the
-             chunked loss they replace and `torch.mm` of x W^T.
+             chunked loss they replace and `torch.mm` of x W^T, with
+             their device time; the backward's launched kernel (read
+             from the device-time profile) must be the one the C plan
+             (`fused_ce_bwd_plan`) names, and for the sm90 kernel the
+             floor of its design (the score product recomputed by each of
+             its output-column blocks) is printed.
 4. model   — flagship_gpt124m (12 x 768, vocab 50304) with seeded
              N(0, 0.02) weights: a 300-token paged prefill and 16 paged
              decode steps held against the uncached forward of the same
@@ -316,7 +322,7 @@ def time_windows(fn, iters: int = 20, warmup: int = 3,
     return ts[len(ts) // 2], [ts[0], ts[-1]]
 
 
-def device_ms(fn, iters: int = 10, tries: int = 3):
+def device_ms(fn, iters: int = 10, tries: int = 3, names=None):
     """Device time of one call of `fn` in ms: the self time of its device
     events (kernels, copies, memsets) under torch.profiler, over `iters`
     calls. The event-timed windows also hold the host's time between
@@ -324,7 +330,8 @@ def device_ms(fn, iters: int = 10, tries: int = 3):
     work (the bf16 prefill and SDPA's prefill: tens of us). A profile that
     recorded fewer device events than calls lost some (on the H100 one
     read 0 events, another a tenth of them) and is taken again; None if
-    every try lost some."""
+    every try lost some. The names of the kept profile's device events go
+    into the set `names` where one is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -336,6 +343,8 @@ def device_ms(fn, iters: int = 10, tries: int = 3):
             torch.cuda.synchronize()
         ev, ms = device_kernels(prof, iters)
         if sum(e.count for e in ev) >= iters:
+            if names is not None:
+                names.update(e.key for e in ev)
             return ms
     return None
 
@@ -360,11 +369,12 @@ SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
 # _dkv share one, as do grouped_mm_bwd_dx and _dw, and the bf16/fp32 and
 # int8 entries of the paged kernels)
 SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
-             "grouped_mm_bwd_dw", "paged_prefill_attn", "paged_decode_attn")
+             "grouped_mm_bwd_dw", "paged_prefill_attn", "paged_decode_attn",
+             "fused_ce_bwd_dx")
 # the bf16 kernels on wgmma: fwd, dq and dkv at D 64 and 128, the grouped
 # forward, dx and dW unscaled (fc) and gate-scaled (proj), the paged
-# prefill at hs 64 and 128
-SASS_WGMMA_KERNELS = 14
+# prefill at hs 64 and 128, the fused CE backward's dx and dW
+SASS_WGMMA_KERNELS = 16
 # what a wgmma kernel's SASS must hold and must not: TMA loads, except in
 # the paged prefill, which gathers its tiles through the block table with
 # cp.async (LDGSTS) and issues no TMA load
@@ -735,10 +745,10 @@ def run_kernels(torch, fd, dev) -> dict:
 
 
 def ce_cases(torch, dev):
-    """Yield (dtype, kernel, fn_kernel, fn_plain, n_bytes, flops) for the
-    three fused CE kernels at the training path's shape, and per dtype the
-    yardsticks {name: fn}: the chunked loss they replace (forward; forward
-    and backward) and torch.mm of x W^T alone."""
+    """Yield per dtype first the yardsticks {name: fn}: the chunked loss
+    the kernels replace (forward; forward and backward) and torch.mm of
+    x W^T alone; then (dtype, kernel, fn_kernel, fn_plain, n_bytes, flops)
+    for the three fused CE kernels at the training path's shape."""
     from distributed_pytorch_tpu_torch.ops import fused_ce as ce
     from distributed_pytorch_tpu_torch.ops.losses import (_mm_f32,
                                                           fused_cross_entropy)
@@ -762,18 +772,6 @@ def ce_cases(torch, dev):
         _, lse = ce.fused_ce_fwd_plain(x, w, t)
         rows = n * 4 * 3                             # t, lse, coef
         xw = (n + V) * C * el
-        yield (dn, "fused_ce_fwd", lambda: ce.fused_ce_fwd(x, w, t),
-               lambda: ce.fused_ce_fwd_plain(x, w, t),
-               xw + n * 4 * 3, 2 * n * V * C)
-        yield (dn, "fused_ce_bwd_dx",
-               lambda: ce.fused_ce_bwd_dx(x, w, t, lse, coef),
-               lambda: ce.fused_ce_bwd_dx_plain(x, w, t, lse, coef),
-               xw + rows + n * C * el, 4 * n * V * C)
-        yield (dn, "fused_ce_bwd_dw",
-               lambda: ce.fused_ce_bwd_dw(x, w, t, lse, coef),
-               lambda: ce.fused_ce_bwd_dw_plain(x, w, t, lse, coef),
-               xw + rows + V * C * el, 4 * n * V * C)
-
         tgt = torch.where(t >= 0, t, -1).long().reshape(B, T)
         xl = x.reshape(B, T, C).detach().requires_grad_()
         wl = w.detach().requires_grad_()
@@ -789,10 +787,39 @@ def ce_cases(torch, dev):
         yield (dn, "yardsticks", {
             "replaced_fwd": chunked_fwd, "replaced_fwd_bwd": chunked_fwd_bwd,
             "mm": lambda: _mm_f32(x, w.t())}, None, None, None)
+        yield (dn, "fused_ce_fwd", lambda: ce.fused_ce_fwd(x, w, t),
+               lambda: ce.fused_ce_fwd_plain(x, w, t),
+               xw + n * 4 * 3, 2 * n * V * C)
+        yield (dn, "fused_ce_bwd_dx",
+               lambda: ce.fused_ce_bwd_dx(x, w, t, lse, coef),
+               lambda: ce.fused_ce_bwd_dx_plain(x, w, t, lse, coef),
+               xw + rows + n * C * el, 4 * n * V * C)
+        yield (dn, "fused_ce_bwd_dw",
+               lambda: ce.fused_ce_bwd_dw(x, w, t, lse, coef),
+               lambda: ce.fused_ce_bwd_dw_plain(x, w, t, lse, coef),
+               xw + rows + V * C * el, 4 * n * V * C)
         del x, w, xl, wl, lse, coef
 
 
+# the kernel each route of `fused_ce_bwd_plan` launches, as the profiler
+# names it: 2 sm90, 1 mma.sync (bf16), 0 FMA (fp32)
+CE_BWD_KERNELS = {2: "ce_bwd_kernel_sm90", 1: "ce_kernel<", 0: "ce_kernel<"}
+
+
+def ce_bwd_plan(n: int, V: int, C: int, dtype: str) -> tuple:
+    """csrc/fused_ce_bwd.cu `fused_ce_bwd_plan` for n tokens of width C
+    over V vocab rows: (route, ring stages, output-column blocks)."""
+    import ctypes
+    from distributed_pytorch_tpu_torch.ops import cuda_build
+    stages, ny = ctypes.c_int(), ctypes.c_int()
+    route = cuda_build.load("fused_ce_bwd_dx").fused_ce_bwd_plan(
+        int(dtype == "bfloat16"), n, V, C, ctypes.byref(stages),
+        ctypes.byref(ny))
+    return route, stages.value, ny.value
+
+
 def run_ce_kernels(torch, dev) -> dict:
+    from distributed_pytorch_tpu_torch.ops import fused_ce as ce
     results = {}
     for dn, name, fk, fp, n_bytes, flops in ce_cases(torch, dev):
         if name == "yardsticks":
@@ -832,15 +859,33 @@ def run_ce_kernels(torch, dev) -> dict:
         slow = dn == "float32"          # FMA loops: tens of ms a call
         ms, spread = time_windows(fk, iters=2 if slow else 10,
                                   warmup=1 if slow else 3)
+        launched = set()
         results[(name, dn)] = dict(
             max_abs_err=max(e["err"] for e in errs.values()), errs=errs,
             tol=tols, ms=ms, ms_spread=spread,
+            device_ms=device_ms(fk, iters=2 if slow else 10,
+                                names=launched),
             plain_ms=time_ms(fp, iters=2, warmup=1), bound_ms=b_ms,
             bound_by=b_by, bytes=n_bytes, flops=flops)
         r = results[(name, dn)]
+        note = ""
+        if name != "fused_ce_fwd":
+            B, T, C, V = CE_SHAPE
+            plan, _, ny = ce_bwd_plan(B * T, V, C, dn)
+            kernels = sorted(k for k in launched if "fce::" in k)
+            check(r["device_ms"] is None or (kernels and all(
+                CE_BWD_KERNELS[plan] in k for k in kernels)),
+                f"{name} {dn}: the profile saw {kernels}, the C plan "
+                f"names {CE_BWD_KERNELS[plan]}")
+            # the sm90 kernel's floor: each of its ny output-column
+            # blocks recomputes the 2 n V C score FLOP
+            floor = (ny + 1) * flops / 2 / PEAK_FLOPS[dn] * 1e3
+            note = f", launched {CE_BWD_KERNELS[plan]}" + (
+                f", design floor {floor:.4f} ms" if plan == 2 else "")
         print(f"  {'':18s} {dn:9s} kernel {_timed(r, 'ms')}, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({b_by})", flush=True)
+              f"({b_by}){note}; torch.mm of x W^T "
+              f"{results[('yardsticks', dn)]['mm']:.4f} ms", flush=True)
         torch.cuda.empty_cache()
     return results
 
@@ -2760,6 +2805,7 @@ def main() -> None:
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "ms_spread": r["ms_spread"], "device_ms": r["device_ms"],
             "library_ms": None,
             "library_call": "none: no single PyTorch call computes a fused "
                             "lm-head + cross-entropy",
@@ -2770,6 +2816,7 @@ def main() -> None:
             "replaced_path_ms": y[rep], "mm_ms": y["mm"],
             "ms_fp32": r32["ms"], "plain_ms_fp32": r32["plain_ms"],
             "bound_ms_fp32": r32["bound_ms"], "library_ms_fp32": None,
+            "device_ms_fp32": r32["device_ms"],
             "replaced_path_ms_fp32": y32[rep], "mm_ms_fp32": y32["mm"]})
     for kname in GMM_SOURCE:
         r, r32 = gres[(kname, "fc_ragged", "bfloat16")], \

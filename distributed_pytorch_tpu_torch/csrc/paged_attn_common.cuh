@@ -16,7 +16,7 @@
 // walks the keys in an inner loop, so nothing has to carry across CTAs.
 //
 // Design (FMA loops on CUDA cores), run by the int8-cache (_q8) decode,
-// the fp32 prefill, the bf16 prefill at head sizes other than 64 and 128,
+// the fp32/bf16 decode at K/V rows over 512 bytes, the fp32 prefill, the bf16 prefill at head sizes other than 64 and 128,
 // and the int8-cache prefill. The bf16 prefill at head size 64 and 128
 // runs `prefill_kernel_sm90` (wgmma on cp.async-gathered tiles,
 // paged_prefill_attn.cu), and the fp32 and bf16 decode the split-KV

@@ -45,10 +45,14 @@
 //   masks, `expf`, l summing the unrounded p, p rounded to T before P V
 //   (the reference's `p.astype(v.dtype)`); the running max moves once a
 //   chunk of up to 8 passes (32 keys for bf16 at head size 64).
-// int8 cache (_q8): `paged_decode_kernel` — one CTA of 128 threads per
-// (sequence, kv head) running the FMA tile loop `attend_rows`
-// (paged_attn_common.cuh); 96 CTAs at B 8 x 12 kv heads, no split of the
-// KV length, four synchronized passes a 64-key tile.
+// int8 cache (_q8), and fp32/bf16 rows wider than the split kernel holds
+// (more than 512 bytes: head size > 128 in fp32, > 256 in bf16):
+// `paged_decode_kernel<T, C>` — one CTA of 128 threads per (sequence, kv
+// head) running the FMA tile loop `attend_rows` (paged_attn_common.cuh)
+// with K/V tiles in shared memory; 96 CTAs at B 8 x 12 kv heads, no split
+// of the KV length, four synchronized passes a 64-key tile. The C entry
+// picks it by row width before launch, as the reference's kernel takes
+// every head size whose tiles fit (ops/flash_decode.py gates both).
 
 #include "paged_attn_common.cuh"
 
@@ -242,16 +246,72 @@ int launch_split(const void* q, const void* k, const void* v, const void* tables
   return (int)cudaGetLastError();
 }
 
+// ---- int8 cache, and fp32/bf16 rows past 512 bytes: the FMA tile loop ------
+
+constexpr int kThreads = 128;
+
+template <typename T, typename C>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
+                    const C* __restrict__ v, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale, const int* __restrict__ tables,
+                    const int* __restrict__ cache_len, T* __restrict__ out, int nh, int nkv,
+                    int hs, int bs, int n_max, float scale) {
+  const int b = blockIdx.x, g = blockIdx.y;
+  const int rep = nh / nkv;
+  paged_attn::Rows r;
+  r.row0 = 0;
+  r.n_rows = rep;
+  r.rep = rep;
+  r.stride_t = 0;
+  r.pos0 = cache_len[b] - 1;  // keys [0, cache_len) are live
+  const long long base = ((long long)b * nh + (long long)g * rep) * hs;
+  paged_attn::attend_rows<T, C, kThreads>(q + base, out + base, r, k, v, k_scale, v_scale,
+                                               tables + (long long)b * n_max, n_max, bs, nkv, g,
+                                               hs, scale);
+}
+
+template <typename T, typename C>
+int launch_tile(const void* q, const void* k, const void* k_scale, const void* v,
+              const void* v_scale, const void* tables, const void* cache_len, void* out, int B,
+              int nh, int nkv, int hs, int bs, int n_max, float scale, void* stream) {
+  const size_t smem = paged_attn::smem_bytes(nh / nkv, hs, std::is_same<C, int8_t>::value);
+  // raise the kernel's shared-memory cap once per device, not per launch
+  static size_t smem_cap[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || smem > smem_cap[dev]) {
+    err = cudaFuncSetAttribute(paged_decode_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) smem_cap[dev] = smem;
+  }
+  const dim3 grid(B, nkv);
+  paged_decode_kernel<T, C><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const C*)k, (const C*)v, (const float*)k_scale,
+      (const float*)v_scale, (const int*)tables, (const int*)cache_len, (T*)out, nh, nkv, hs, bs,
+      n_max, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_decode(const void* q, const void* k, const void* v, const void* tables,
                   const void* cache_len, void* out, void* ws, int B, int nh, int nkv, int hs,
                   int bs, int n_max, int n_split, float scale, void* stream) {
   constexpr int kVec = paged_attn::RowVec<T>::n;
   const long long n_keys = (long long)n_max * bs;
-  if (B < 0 || nkv <= 0 || nh % nkv != 0 || hs <= 0 || hs % kVec != 0 || hs / kVec > 32 ||
-      bs <= 0 || n_max <= 0 || n_keys > (1 << 30) || n_split != (n_keys + kSpan - 1) / kSpan)
+  // a row wider than a warp's 16-byte vectors takes the tile kernel, which
+  // reads no workspace and no split count
+  const bool split = hs / kVec <= 32;
+  if (B < 0 || nkv <= 0 || nh % nkv != 0 || hs <= 0 || hs % kVec != 0 || bs <= 0 ||
+      n_max <= 0 || n_keys > (1 << 30) ||
+      (split && n_split != (n_keys + kSpan - 1) / kSpan))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  if (!split)
+    return launch_tile<T, T>(q, k, nullptr, v, nullptr, tables, cache_len, out, B, nh, nkv, hs,
+                             bs, n_max, scale, stream);
   const cudaStream_t st = (cudaStream_t)stream;
   float* w = static_cast<float*>(ws);
   const int rep = nh / nkv;
@@ -270,62 +330,14 @@ int launch_decode(const void* q, const void* k, const void* v, const void* table
   return (int)cudaGetLastError();
 }
 
-// ---- int8 cache: the FMA tile loop ----------------------------------------
-
-constexpr int kThreads = 128;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
-                    const int8_t* __restrict__ v, const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale, const int* __restrict__ tables,
-                    const int* __restrict__ cache_len, T* __restrict__ out, int nh, int nkv,
-                    int hs, int bs, int n_max, float scale) {
-  const int b = blockIdx.x, g = blockIdx.y;
-  const int rep = nh / nkv;
-  paged_attn::Rows r;
-  r.row0 = 0;
-  r.n_rows = rep;
-  r.rep = rep;
-  r.stride_t = 0;
-  r.pos0 = cache_len[b] - 1;  // keys [0, cache_len) are live
-  const long long base = ((long long)b * nh + (long long)g * rep) * hs;
-  paged_attn::attend_rows<T, int8_t, kThreads>(q + base, out + base, r, k, v, k_scale, v_scale,
-                                               tables + (long long)b * n_max, n_max, bs, nkv, g,
-                                               hs, scale);
-}
-
-template <typename T>
-int launch_q8(const void* q, const void* k, const void* k_scale, const void* v,
-              const void* v_scale, const void* tables, const void* cache_len, void* out, int B,
-              int nh, int nkv, int hs, int bs, int n_max, float scale, void* stream) {
-  const size_t smem = paged_attn::smem_bytes(nh / nkv, hs, true);
-  // raise the kernel's shared-memory cap once per device, not per launch
-  static size_t smem_cap[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || smem > smem_cap[dev]) {
-    err = cudaFuncSetAttribute(paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) smem_cap[dev] = smem;
-  }
-  const dim3 grid(B, nkv);
-  paged_decode_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const int8_t*)k, (const int8_t*)v, (const float*)k_scale,
-      (const float*)v_scale, (const int*)tables, (const int*)cache_len, (T*)out, nh, nkv, hs, bs,
-      n_max, scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/out (B, nh, hs), q 16-byte aligned;
 // k/v pools (n_blocks, bs, nkv, hs) of the same dtype, 16-byte aligned,
-// hs a multiple of 16 bytes' worth of elements and at most 512 bytes a
-// row; tables (B, n_max) int32; cache_len (B,) int32; ws the (B, nh,
-// n_split, hs + 2) fp32 workspace, n_split = ceil(n_max * bs / 128).
+// hs a multiple of 16 bytes' worth of elements (rows past 512 bytes take
+// the tile kernel, whose tiles must fit in shared memory); tables (B, n_max) int32; cache_len (B,) int32; ws the (B, nh,
+// n_split, hs + 2) fp32 workspace, n_split = ceil(n_max * bs / 128)
+// (both unread, and may be null and 0, for rows past 512 bytes).
 // Returns the launches' cudaError_t (0 = success).
 extern "C" int paged_decode_attn(int dtype, const void* q, const void* k, const void* v,
                                  const void* tables, const void* cache_len, void* out, void* ws,
@@ -347,10 +359,10 @@ extern "C" int paged_decode_attn_q8(int dtype, const void* q, const void* k, con
                                     const void* cache_len, void* out, int B, int nh, int nkv,
                                     int hs, int bs, int n_max, float scale, void* stream) {
   if (dtype == 0)
-    return launch_q8<float>(q, k, k_scale, v, v_scale, tables, cache_len, out, B, nh, nkv, hs, bs,
+    return launch_tile<float, int8_t>(q, k, k_scale, v, v_scale, tables, cache_len, out, B, nh, nkv, hs, bs,
                             n_max, scale, stream);
   if (dtype == 1)
-    return launch_q8<__nv_bfloat16>(q, k, k_scale, v, v_scale, tables, cache_len, out, B, nh, nkv,
+    return launch_tile<__nv_bfloat16, int8_t>(q, k, k_scale, v, v_scale, tables, cache_len, out, B, nh, nkv,
                                     hs, bs, n_max, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's bf16 tensor-core kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu, grouped_mm_bwd.cu,
-// paged_prefill_attn.cu): mbarriers, TMA tile loads, 16-byte cp.async
+// (flash_attn_fwd.cu, flash_attn_bwd.cu, grouped_mm_fwd.cu,
+// grouped_mm_bwd.cu, paged_prefill_attn.cu, fused_ce_sm90.cuh): mbarriers,
+// TMA tile loads, 16-byte cp.async
 // copies into the same swizzled layout (for tiles gathered row by row,
 // which TMA cannot do), the shared-memory matrix descriptors of a
 // 128-byte-swizzled tile, the `wgmma.mma_async` products (bf16 operands,

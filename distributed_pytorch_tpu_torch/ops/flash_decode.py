@@ -13,7 +13,11 @@ Pallas bodies on the serving path map to four CUDA kernels here:
   of the table's capacity) writes each split's unnormalized fp32
   (acc, m, l) to a (B, nh, n_split, hs + 2) workspace that the wrapper
   allocates (`decode_workspace`), and a combine kernel of the same C
-  entry merges the live splits in split order.
+  entry merges the live splits in split order. A K/V row wider than the
+  split kernel holds in one warp's registers (512 bytes: head size > 256
+  in bf16, > 128 in fp32; `takes_split`) takes the FMA tile kernel
+  (`attend_rows`) instead, picked by the C entry before launch; it needs
+  no workspace.
 * `paged_flash_prefill` (reference `_prefill_kernel`) ->
   `paged_prefill_attn` (csrc/paged_prefill_attn.cu). A T-row chunk of ONE
   sequence at a block-aligned offset, causal on global position off + t.
@@ -43,9 +47,9 @@ show its main path went through the kernels.
 The `*_usable` gates say whether the kernels take a call's shapes and
 dtypes (fp32/bf16 activations over a same-dtype cache, or an int8 cache
 with fp32 scale rows; head size a multiple of 8, whole kv-head groups,
-16-byte aligned pools, tiles within the card's 227 KB of shared memory;
-the split-KV decode holds a row of at most 512 bytes in one warp's
-registers: head size <= 256 in bf16, <= 128 in fp32).
+16-byte aligned pools, tiles within the card's 227 KB of shared memory:
+the split-KV decode's merge rows for a row of at most 512 bytes, the FMA
+tile kernel's K/V tiles for a wider one).
 A wrapper given CUDA tensors its gate declines raises:
 `ops/attention_core.py` routes by shape alone, so no cached call on the
 card falls quietly to a plain path.
@@ -73,7 +77,8 @@ _PREFILL_ROWS = 64               # packed query rows per prefill CTA
 _SPAN = 128                      # keys a decode split owns (csrc kSpan)
 _SPLIT_WARPS = 4                 # warps of a decode split CTA (csrc kWarps)
 _SPLIT_ROWS = 8                  # query rows a split CTA holds (kMaxRows)
-_ROW_BYTES = 512                 # largest K/V row the split kernel holds
+_ROW_BYTES = 512                 # widest K/V row of the split kernel; wider
+                                 # rows take the tile kernel
 
 
 def reset_counts() -> None:
@@ -101,6 +106,13 @@ def decode_workspace(B: int, nh: int, hs: int, n_keys: int, device):
     split's unnormalized accumulator row, then its running max and sum."""
     return torch.empty(B, nh, decode_splits(n_keys), hs + 2,
                        dtype=torch.float32, device=device)
+
+
+def takes_split(hs: int, dtype) -> bool:
+    """Whether fp32/bf16 K/V rows of head size `hs` take the split-KV
+    decode (rows of at most 512 bytes, a warp's 16-byte vectors) rather
+    than the tile kernel."""
+    return hs * dtype.itemsize <= _ROW_BYTES
 
 
 def _split_smem_bytes(rep: int, hs: int) -> int:
@@ -141,10 +153,9 @@ def paged_flash_decode_usable(q, k, v, k_scale=None, v_scale=None) -> bool:
     nkv = k.shape[2]
     if nh % nkv:
         return False
-    if k_scale is not None:
-        return _smem_bytes(nh // nkv, hs, True) <= _SMEM_LIMIT
-    return hs * q.element_size() <= _ROW_BYTES and \
-        _split_smem_bytes(nh // nkv, hs) <= _SMEM_LIMIT
+    if k_scale is None and takes_split(hs, q.dtype):
+        return _split_smem_bytes(nh // nkv, hs) <= _SMEM_LIMIT
+    return _smem_bytes(nh // nkv, hs, k_scale is not None) <= _SMEM_LIMIT
 
 
 def paged_flash_prefill_usable(q, k, v, k_scale=None,
@@ -296,7 +307,7 @@ def _launch_decode(q, k, v, tables, cache_len, scale, k_scale,
     if not paged_flash_decode_usable(q[:, None], k, v, k_scale, v_scale):
         raise ValueError(f"{name} does not take {_describe(q, k, k_scale)}")
     q = q.contiguous()
-    if q.data_ptr() % 16:               # the split kernel's 16-byte loads
+    if q.data_ptr() % 16:               # the kernels' 16-byte loads
         q = q.clone()
     tables = tables.to(torch.int32).contiguous()
     cache_len = cache_len.to(device=q.device, dtype=torch.int32) \
@@ -313,10 +324,11 @@ def _launch_decode(q, k, v, tables, cache_len, scale, k_scale,
     out = torch.empty_like(q)
     lib = cuda_build.load(name)
     if k_scale is None:
-        ws = decode_workspace(B, nh, hs, n_max * bs, q.device)
+        ws = decode_workspace(B, nh, hs, n_max * bs, q.device) \
+            if takes_split(hs, q.dtype) else None
         kv = (k.data_ptr(), v.data_ptr())
-        tail = (out.data_ptr(), ws.data_ptr(), B, nh, nkv, hs, bs, n_max,
-                ws.shape[2])
+        tail = (out.data_ptr(), None if ws is None else ws.data_ptr(), B, nh,
+                nkv, hs, bs, n_max, 0 if ws is None else ws.shape[2])
     else:
         kv = (k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
               v_scale.data_ptr())

@@ -272,6 +272,69 @@ def test_paged_prefill_bf16_is_deterministic(dev, hs):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("dtype,hs", [(torch.float32, 256),
+                                      (torch.bfloat16, 264)],
+                         ids=["fp32-256", "bf16-264"])
+@pytest.mark.parametrize("route", ["paged", "contiguous"])
+def test_decode_rows_wider_than_the_split_kernel(dev, dtype, hs, route):
+    """K/V rows past 512 bytes (fp32 head size 256, bf16 264) decode
+    through the FMA tile kernel the C entry picks for them, paged and
+    contiguous, GQA at rep 2, ragged lengths up to the whole table."""
+    bs, n_max, nh, nkv = 16, 12, 4, 2
+    cl = torch.tensor([1, 17, 130, n_max * bs], dtype=torch.int32,
+                      device=dev)
+    B = cl.numel()
+    q, kp, vp, tables = _decode_inputs(dev, dtype, B, nh, nkv, hs, bs,
+                                       n_max, seed=hs)
+    assert fd.paged_flash_decode_usable(q[:, None], kp, vp)
+    fd.reset_counts()
+    if route == "paged":
+        out = fd.paged_flash_decode(q, kp, vp, tables, cl, scale=hs ** -0.5)
+        ref = fd.paged_flash_decode_plain(q, kp, vp, tables, cl,
+                                          scale=hs ** -0.5)
+    else:
+        kc, vc, _ = _pools(dev, dtype, B, n_max * bs, nkv, hs, seed=hs + 1)
+        out = fd.flash_decode(q, kc, vc, cl, scale=hs ** -0.5)
+        ref = fd.flash_decode_plain(q, kc, vc, cl, scale=hs ** -0.5)
+    assert fd.LAUNCHES["paged_decode_attn"] == 1
+    assert fd.PLAIN_CALLS["paged_decode_attn"] == 1      # the reference
+    _close(out, ref, dtype)
+
+
+def test_fp32_head_136_layer_prefills_then_decodes_on_the_kernels(dev):
+    """An fp32 attention layer at head size 136 (K/V rows of 544 bytes)
+    over a paged cache: a 32-token prefill through paged_prefill_attn, then
+    4 decode steps through paged_decode_attn's tile kernel, each output
+    within 1e-4 of the same layer's uncached naive forward over all 36
+    tokens."""
+    from distributed_pytorch_tpu_torch.config import LLMConfig
+    from distributed_pytorch_tpu_torch.models.attention import (
+        GQA, init_paged_attn_cache)
+
+    cfg = LLMConfig(vocab_size=64, block_size=64, n_embd=272, n_head=2,
+                    n_kv_heads=2, attn="mha", n_layer=1, pos_emb="learn")
+    torch.manual_seed(0)
+    layer = GQA(cfg, device=dev, dtype=torch.float32)
+    x = torch.randn(1, 36, 272, device=dev)
+    layer.attn_impl = "naive"
+    with torch.no_grad():
+        ref = layer(x, None)
+    layer.attn_impl = "auto"
+    cache = init_paged_attn_cache(cfg, 5, 16, dtype=torch.float32,
+                                  device=dev)
+    tables = torch.tensor([[1, 2, 3]], dtype=torch.int32, device=dev)
+    fd.reset_counts()
+    with torch.no_grad():
+        outs = [layer(x[:, :32], None, cache, 0, block_tables=tables)]
+        for i in range(32, 36):
+            outs.append(layer(x[:, i:i + 1], None, cache, i,
+                              block_tables=tables))
+    assert fd.LAUNCHES["paged_prefill_attn"] == 1
+    assert fd.LAUNCHES["paged_decode_attn"] == 4
+    assert fd.PLAIN_CALLS == dict.fromkeys(fd.PLAIN_CALLS, 0)
+    _close(torch.cat(outs, dim=1), ref, torch.float32)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     q = torch.zeros(2, 4, 64, device=dev, dtype=torch.float16)
     pool = torch.zeros(3, 16, 4, 64, device=dev, dtype=torch.float16)
@@ -628,6 +691,127 @@ def test_pallas_loss_at_gpt2_medium_width_runs_the_kernels(dev):
     for k in gr:
         scale = gr[k].abs().max().item()
         assert (gk[k] - gr[k]).abs().max().item() <= 1e-4 * scale, k
+
+
+BWD = {"dx": (ce.fused_ce_bwd_dx, ce.fused_ce_bwd_dx_plain),
+       "dw": (ce.fused_ce_bwd_dw, ce.fused_ce_bwd_dw_plain)}
+# the kernel each route of `fused_ce_bwd_plan` launches, as the profiler
+# names it: 2 sm90, 1 mma.sync (bf16), 0 FMA (fp32)
+ROUTE_KERNEL = {2: "ce_bwd_kernel_sm90", 1: "ce_kernel<", 0: "ce_kernel<"}
+
+
+def _bwd_plan(n, V, C, dtype=torch.bfloat16):
+    """csrc/fused_ce_bwd.cu `fused_ce_bwd_plan`: (route, ring stages,
+    output-column blocks) of the backward for n tokens of width C."""
+    import ctypes
+
+    from distributed_pytorch_tpu_torch.ops import cuda_build
+    stages, ny = ctypes.c_int(), ctypes.c_int()
+    route = cuda_build.load("fused_ce_bwd_dx").fused_ce_bwd_plan(
+        int(dtype == torch.bfloat16), n, V, C, ctypes.byref(stages),
+        ctypes.byref(ny))
+    return route, stages.value, ny.value
+
+
+def _exact_ce_inputs(dev, n, C, V, seed):
+    """`_ce_inputs` in bf16 with x on a grid of 1/8 (|x| <= 4) and W on a
+    grid of 2^-10 (|W| <= 0.08): every partial sum of a score is a
+    multiple of 2^-13 below 2^11, exact in fp32 in any order, so the
+    kernel and the plain version round the same dlogits to bf16."""
+    x, w, t, coef = _ce_inputs(dev, torch.float32, n, C, V, seed=seed)
+    x = ((x * 8).round().clamp(-32, 32) / 8).to(torch.bfloat16)
+    w = ((w * 1024).round().clamp(-80, 80) / 1024).to(torch.bfloat16)
+    return x, w, t, coef
+
+
+def _bwd_against_plain(dev, n, C, V, seed=0, exact=False):
+    """bf16 dx and dW against their plain versions within CE_TOL; ignored
+    rows (the first 5) have dx exactly 0."""
+    x, w, t, coef = (_exact_ce_inputs(dev, n, C, V, seed) if exact else
+                     _ce_inputs(dev, torch.bfloat16, n, C, V, seed=seed))
+    _, lse = ce.fused_ce_fwd_plain(x, w, t)
+    ce.reset_counts()
+    for name, (fk, fp) in BWD.items():
+        out = fk(x, w, t, lse, coef)
+        _within(out, fp(x, w, t, lse, coef), CE_TOL[torch.bfloat16])
+        if name == "dx":
+            assert torch.count_nonzero(out[:5]) == 0
+        del out
+    assert ce.LAUNCHES["fused_ce_bwd_dx"] == ce.LAUNCHES["fused_ce_bwd_dw"] \
+        == 1
+
+
+@pytest.mark.parametrize("C,plan", [(128, (8, 1)), (384, (8, 1)),
+                                    (640, (8, 2)), (768, (7, 2)),
+                                    (896, (6, 3)), (1024, (5, 3)),
+                                    (1152, None), (1280, None)])
+def test_fused_ce_bwd_plan(dev, C, plan):
+    """The backward's route by dtype and width, every width the gate
+    accepts: bf16 runs the sm90 kernel up to C 1024, whose plan keeps the
+    64 x C resident tile, the dlogits tile and a ring of 5-8 16 KB stages
+    in 227 KB, and each warpgroup owns up to 3 output boxes of 64 columns
+    (C 768: 7 stages, 2 output blocks; C 1024: 5 and 3); past it, and
+    with no tokens or no vocabulary, the mma.sync kernel; fp32 the FMA
+    kernel."""
+    assert _bwd_plan(8192, 50304, C) == \
+        ((1, 0, 0) if plan is None else (2, *plan))
+    assert _bwd_plan(0, 50304, C) == (1, 0, 0)
+    assert _bwd_plan(8192, 0, C) == (1, 0, 0)
+    assert _bwd_plan(8192, 50304, C, torch.float32) == (0, 0, 0)
+
+
+def test_fused_ce_bwd_bf16_training_shape(dev):
+    """The training path's shape (n 8192, C 768, V 50304) on the sm90
+    kernel."""
+    assert _bwd_plan(8192, 50304, 768)[0] == 2
+    _bwd_against_plain(dev, 8192, 768, 50304)
+
+
+@pytest.mark.parametrize("C", [768, 1024, 1280])
+@pytest.mark.parametrize("V", [96, 100, 1000, 50304])
+def test_fused_ce_bwd_bf16_ragged(dev, C, V):
+    """300 tokens (not a multiple of the 64 resident rows or the 128-row
+    tiles) against vocabularies on and off the tiles; C 768 and 1024 run
+    the sm90 kernel (2 and 3 output-column blocks), C 1280 the mma.sync
+    kernel (its resident tile and ring do not fit). The scores are exact
+    (`_exact_ce_inputs`): from normal inputs at V 96 and 100, where p is
+    large, a dlogit on a bf16 rounding boundary rounds either way from
+    scores that differ only in summation order, which moves a dW row by
+    one bf16 step of dl times x, past CE_TOL at its small elements; the
+    H100 showed it for both kernels (0.0156 at |dW| ~ 0.5)."""
+    assert _bwd_plan(300, V, C)[0] == (2 if C <= 1024 else 1)
+    _bwd_against_plain(dev, 300, C, V, seed=C + V, exact=True)
+
+
+@pytest.mark.parametrize("C", [768, 1024, 1280])
+def test_fused_ce_bwd_runs_the_kernel_its_route_names(dev, C):
+    """Under the profiler, dx and dW launch the kernel the C plan names
+    and no other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w, t, coef = _ce_inputs(dev, torch.bfloat16, 300, C, 1000)
+    lse = torch.zeros(300, device=dev)
+    route = _bwd_plan(300, 1000, C)[0]
+    for fk, _ in BWD.values():
+        fk(x, w, t, lse, coef)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fk(x, w, t, lse, coef)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if "fce::" in e.key]
+        assert names and all(ROUTE_KERNEL[route] in k for k in names), names
+
+
+@pytest.mark.parametrize("kernel", ["dx", "dw"])
+def test_fused_ce_bwd_bf16_is_deterministic(dev, kernel):
+    """Two launches of the sm90 dx or dW are bit-equal: each CTA owns its
+    output rows and sums in a fixed order (no atomics)."""
+    x, w, t, coef = _ce_inputs(dev, torch.bfloat16, 1000, 768, 5000, seed=3)
+    _, lse = ce.fused_ce_fwd_plain(x, w, t)
+    fk = BWD[kernel][0]
+    first, second = (fk(x, w, t, lse, coef) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("optimizer,lr", [("lion", 1e-4), ("adafactor", 1e-2)])

@@ -318,18 +318,35 @@ def test_q8_usable_gates():
     assert tfd._smem_bytes(64, 64, True) == tfd._smem_bytes(64, 64) + 512
 
 
+@pytest.mark.parametrize("hs,dtype,split", [
+    (64, torch.bfloat16, True), (256, torch.bfloat16, True),
+    (264, torch.bfloat16, False), (128, torch.float32, True),
+    (136, torch.float32, False), (256, torch.float32, False)])
+def test_takes_split(hs, dtype, split):
+    """K/V rows of at most 512 bytes take the split-KV decode (and its
+    workspace); wider rows the tile kernel, which needs none."""
+    assert tfd.takes_split(hs, dtype) is split
+
+
 def test_split_decode_gate():
-    """The fp32/bf16 decode kernel holds a K/V row of at most 512 bytes in
-    one warp's registers (head size <= 256 in bf16, <= 128 in fp32) and
-    any number of query rows a kv head (MQA rep 12 included); the int8
-    cache's kernel keeps its own shared-memory gate."""
+    """The fp32/bf16 split-KV decode holds a K/V row of at most 512 bytes
+    in one warp's registers (head size <= 256 in bf16, <= 128 in fp32) and
+    any number of query rows a kv head (MQA rep 12 included); a wider row
+    takes the FMA tile kernel, gated by its shared-memory tiles (as the
+    reference's decode takes every head whose tiles fit), so fp32 136 and
+    bf16 264 are taken and a 1024-wide fp32 head at rep 12 is not; the
+    int8 cache's kernel keeps its own shared-memory gate."""
     for hs, dtype, ok in ((256, torch.bfloat16, True),
-                          (264, torch.bfloat16, False),
+                          (264, torch.bfloat16, True),
                           (128, torch.float32, True),
-                          (136, torch.float32, False)):
+                          (136, torch.float32, True),
+                          (256, torch.float32, True),
+                          (1024, torch.float32, False)):
         pool = torch.zeros(5, 16, 1, hs, dtype=dtype)
         q1 = torch.zeros(2, 1, 12, hs, dtype=dtype)
         assert tfd.paged_flash_decode_usable(q1, pool, pool) == ok, hs
+    assert tfd._smem_bytes(12, 1024) > tfd._SMEM_LIMIT >= tfd._smem_bytes(
+        12, 264)
     codes = torch.zeros(5, 16, 1, 256, dtype=torch.int8)
     sc = torch.zeros(5, 16, 1, 1)
     assert tfd.paged_flash_decode_usable(torch.zeros(2, 1, 12, 256), codes,

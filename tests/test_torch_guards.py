@@ -191,9 +191,10 @@ def _chip_smoke():
 
 # a phase 2 inventory as `cuobjdump -sass` names the kernels: the bf16
 # wgmma kernels (flash fwd, dq, dkv and the paged prefill at D 64 and 128,
-# grouped fwd, dx and dW unscaled and scaled) and some of the others (fp32
-# flash, fp32 grouped forward, dx and dW, the FMA prefill, the int8 decode
-# and the split-KV decode's split and combine kernels)
+# grouped fwd, dx and dW unscaled and scaled, the fused CE backward's dx
+# and dW) and some of the others (fp32 flash, fp32 grouped forward, dx and
+# dW, the FMA prefill, the int8 decode, the split-KV decode's split and
+# combine kernels, and the fused CE backward's mma.sync and fp32 kernels)
 SASS_SM90 = [
     f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi{d}EEEvNS0_4MapsEN5flash"
     "6ParamsE"
@@ -204,7 +205,9 @@ SASS_SM90 = [
                  ("fwd_kernel_sm90", "FwdMaps"))
     for b in (0, 1)] + [
     f"_ZN12_GLOBAL__N_112prefill_sm9019prefill_kernel_sm90ILi{d}EEEvPK13"
-    "__nv_bfloat16S4_S4_PKiPS2_iiiiiiif" for d in (64, 128)]
+    "__nv_bfloat16S4_S4_PKiPS2_iiiiiiif" for d in (64, 128)] + [
+    f"_ZN3fce18ce_bwd_kernel_sm90ILi{m}EEEvNS_3s904MapsENS_6ParamsEi"
+    for m in (1, 2)]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
@@ -215,14 +218,16 @@ SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "PKiS9_PS1_iiiiiif",
               "_ZN12_GLOBAL__N_119decode_split_kernelI13__nv_bfloat16Li1EEEvPK"
               "T_S5_S5_PKiS7_Pfiiiiiiif",
-              "_ZN12_GLOBAL__N_121decode_combine_kernelIfEEvPKfPKiPT_iiii"]
+              "_ZN12_GLOBAL__N_121decode_combine_kernelIfEEvPKfPKiPT_iiii",
+              "_ZN3fce9ce_kernelI13__nv_bfloat16Li1EEEvNS_6ParamsE",
+              "_ZN3fce9ce_kernelIfLi2EEEvNS_6ParamsE"]
 # each broken inventory: (kernel, op, count; op None drops the kernel),
 # and the name the failure must print
 BROKEN = {"complete": None,
           "dq_without_hgmma": ((SASS_SM90[2], "HGMMA", 0), "dq_kernel_sm90"),
-          "prefill_without_hgmma": ((SASS_SM90[-2], "HGMMA", 0),
+          "prefill_without_hgmma": ((SASS_SM90[12], "HGMMA", 0),
                                     "prefill_kernel_sm90"),
-          "prefill_with_tma": ((SASS_SM90[-1], "UTMALDG", 2),
+          "prefill_with_tma": ((SASS_SM90[13], "UTMALDG", 2),
                                "prefill_kernel_sm90"),
           "dx_without_tma": ((SASS_SM90[8], "UTMALDG", 0), "dx_kernel_sm90"),
           "fma_prefill_with_hgmma": ((SASS_OTHER[4], "HGMMA", 4),
@@ -234,7 +239,13 @@ BROKEN = {"complete": None,
           "decode_with_hgmma": ((SASS_OTHER[6], "HGMMA", 4),
                                 "decode_split_kernel"),
           "decode_split_missing": ((SASS_OTHER[6], None, 0),
-                                   "decode_split_kernel")}
+                                   "decode_split_kernel"),
+          "ce_bwd_without_hgmma": ((SASS_SM90[14], "HGMMA", 0),
+                                   "ce_bwd_kernel_sm90"),
+          "ce_bwd_without_tma": ((SASS_SM90[15], "UTMALDG", 0),
+                                 "ce_bwd_kernel_sm90"),
+          "ce_mma_sync_with_hgmma": ((SASS_OTHER[8], "HGMMA", 4),
+                                     "ce_kernel")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
@@ -243,13 +254,14 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     kernel holds HGMMA and its loads (TMA; cp.async and no TMA in the
     paged prefill), the split-KV decode's split and combine kernels are
     there, and no other kernel holds HGMMA or a TMA load; and exits
-    non-zero when one kernel breaks that: the bf16 dq, the prefill or the
-    grouped forward without HGMMA, the prefill with a TMA load, the dx or
-    the grouped forward without one, the FMA prefill or the decode split
+    non-zero when one kernel breaks that: the bf16 dq, the prefill, the
+    grouped forward or the CE backward without HGMMA, the prefill with a
+    TMA load, the dx, the grouped forward or the CE backward without one,
+    the FMA prefill, the decode split or the CE backward's mma.sync kernel
     with HGMMA, the decode split missing."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
-    for fn in SASS_SM90[-2:]:
+    for fn in SASS_SM90[12:14]:                 # the paged prefill
         inv[fn] = {"HGMMA": 8, "UTMALDG": 0, "LDGSTS": 16}
     inv.update({fn: {"HGMMA": 0, "UTMALDG": 0, "LDGSTS": 4}
                 for fn in SASS_OTHER})
