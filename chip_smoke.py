@@ -14,15 +14,16 @@ Phases, each of which ends the run with a non-zero exit on failure:
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took; counts each
              flash, grouped and paged kernel's HGMMA, UTMALDG and LDGSTS
-             instructions (`cuobjdump -sass`): the 16 bf16 wgmma kernels
+             instructions (`cuobjdump -sass`): the 17 bf16 wgmma kernels
              (flash forward, dq and dkv and the paged prefill at head
              sizes 64 and 128, the grouped forward, dx and dW unscaled
-             and scaled, the fused CE backward's dx and dW) must hold
+             and scaled, the fused CE forward, dx and dW) must hold
              HGMMA and their loads (TMA; cp.async and no TMA in the paged
              prefill, which gathers through the block table), the others
-             (fp32, int8, the bf16 CE backward's mma.sync kernel for C
-             past 1024, the split-KV decode's split and combine kernels,
-             which must be there) neither HGMMA nor a TMA load.
+             (fp32, int8, the bf16 CE kernels' mma.sync version for C
+             past 1024, the split-KV decode's split kernels over fp32,
+             bf16 and int8 caches and its combine kernels, which must be
+             there) neither HGMMA nor a TMA load.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's shapes (decode, prefill; over a bf16/fp32
              cache and over an int8 cache with fp32 row scales, the _q8
@@ -40,11 +41,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
              together). The fused CE kernels (forward, dx, dW) at the
              training path's shape (n 8192, C 768, V 50304) beside the
              chunked loss they replace and `torch.mm` of x W^T, with
-             their device time; the backward's launched kernel (read
-             from the device-time profile) must be the one the C plan
-             (`fused_ce_bwd_plan`) names, and for the sm90 kernel the
-             floor of its design (the score product recomputed by each of
-             its output-column blocks) is printed.
+             their device time; each one's launched kernel (read from the
+             device-time profile) must be the one its C plan
+             (`fused_ce_fwd_plan`, `fused_ce_bwd_plan`) names, the
+             forward's ring stages are printed, and for the backward's
+             sm90 kernel the floor of its design (the score product
+             recomputed by each of its output-column blocks). The decode
+             and prefill cases print the kernels their device-time
+             profile saw.
 4. model   — flagship_gpt124m (12 x 768, vocab 50304) with seeded
              N(0, 0.02) weights: a 300-token paged prefill and 16 paged
              decode steps held against the uncached forward of the same
@@ -370,18 +374,18 @@ SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
 # int8 entries of the paged kernels)
 SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
              "grouped_mm_bwd_dw", "paged_prefill_attn", "paged_decode_attn",
-             "fused_ce_bwd_dx")
+             "fused_ce_fwd", "fused_ce_bwd_dx")
 # the bf16 kernels on wgmma: fwd, dq and dkv at D 64 and 128, the grouped
 # forward, dx and dW unscaled (fc) and gate-scaled (proj), the paged
-# prefill at hs 64 and 128, the fused CE backward's dx and dW
-SASS_WGMMA_KERNELS = 16
+# prefill at hs 64 and 128, the fused CE forward, dx and dW
+SASS_WGMMA_KERNELS = 17
 # what a wgmma kernel's SASS must hold and must not: TMA loads, except in
 # the paged prefill, which gathers its tiles through the block table with
 # cp.async (LDGSTS) and issues no TMA load
 SASS_EXPECT = {"prefill_kernel_sm90": ({"HGMMA", "LDGSTS"}, {"UTMALDG"})}
 SASS_EXPECT_SM90 = ({"HGMMA", "UTMALDG"}, set())
-# every other kernel (fp32, int8, the fp32/bf16 decode's split-KV pair)
-# holds neither wgmma nor TMA loads
+# every other kernel (fp32, int8, the decode's split-KV pair over every
+# cache type) holds neither wgmma nor TMA loads
 SASS_EXPECT_OTHER = (set(), {"HGMMA", "UTMALDG"})
 # kernels that must be in the inventory by name: the split-KV decode's two
 # (one query row per head makes no matrix product: CUDA cores)
@@ -716,6 +720,13 @@ def run_flash_kernels(torch, dev) -> dict:
     return results
 
 
+def kernel_name(key: str) -> str:
+    """A profiler event's kernel name without its return type, namespace
+    and parameter list: 'decode_split_kernel<float, float, 1>'."""
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split(">(")[0] + ">" if ">(" in key else key
+
+
 def run_kernels(torch, fd, dev) -> dict:
     results = {}
     for dn, case, fk, fp, fl, n_bytes, flops in kernel_cases(torch, fd, dev):
@@ -732,15 +743,27 @@ def run_kernels(torch, fd, dev) -> dict:
         b_ms, b_by = bound(n_bytes, flops, dn)
         ms, spread = time_windows(fk)
         lib_ms, lib_spread = time_windows(fl)
+        launched = set()
         results[(case, dn)] = dict(
             max_abs_err=err, tol=TOL[dn], ms=ms, ms_spread=spread,
-            device_ms=device_ms(fk), plain_ms=time_ms(fp), library_ms=lib_ms,
-            library_spread=lib_spread, library_device_ms=device_ms(fl),
-            bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flops=flops)
+            device_ms=device_ms(fk, names=launched), plain_ms=time_ms(fp),
+            library_ms=lib_ms, library_spread=lib_spread,
+            library_device_ms=device_ms(fl), bound_ms=b_ms, bound_by=b_by,
+            bytes=n_bytes, flops=flops)
         r = results[(case, dn)]
+        kernels = sorted({kernel_name(k) for k in launched
+                          if "_kernel" in k})
+        if case in ("paged", "contiguous", "paged_q8", "contiguous_q8"):
+            # the split-KV pair at head size 64, over every cache type
+            check(r["device_ms"] is None or (
+                any("decode_split_kernel" in k for k in kernels)
+                and any("decode_combine_kernel" in k for k in kernels)),
+                f"{case} {dn}: the profile saw {kernels}, not the split-KV "
+                f"pair")
         print(f"  {'':14s} {'':9s} kernel {_timed(r, 'ms')}, plain "
               f"{r['plain_ms']:.4f} ms, library {_timed(r, 'library')}, "
-              f"bound {r['bound_ms']:.4f} ms ({b_by})", flush=True)
+              f"bound {r['bound_ms']:.4f} ms ({b_by}); launched "
+              f"{kernels}", flush=True)
     return results
 
 
@@ -801,20 +824,27 @@ def ce_cases(torch, dev):
         del x, w, xl, wl, lse, coef
 
 
-# the kernel each route of `fused_ce_bwd_plan` launches, as the profiler
-# names it: 2 sm90, 1 mma.sync (bf16), 0 FMA (fp32)
-CE_BWD_KERNELS = {2: "ce_bwd_kernel_sm90", 1: "ce_kernel<", 0: "ce_kernel<"}
+# the kernel each route of `fused_ce_fwd_plan` and `fused_ce_bwd_plan`
+# launches, as the profiler names it: 2 sm90, 1 mma.sync (bf16), 0 FMA
+# (fp32)
+CE_KERNELS = {2: "ce_kernel_sm90", 1: "ce_kernel<", 0: "ce_kernel<"}
 
 
-def ce_bwd_plan(n: int, V: int, C: int, dtype: str) -> tuple:
-    """csrc/fused_ce_bwd.cu `fused_ce_bwd_plan` for n tokens of width C
-    over V vocab rows: (route, ring stages, output-column blocks)."""
+def ce_plan(kernel: str, n: int, V: int, C: int, dtype: str) -> tuple:
+    """The C plan of `kernel` (csrc/fused_ce_fwd.cu `fused_ce_fwd_plan`,
+    csrc/fused_ce_bwd.cu `fused_ce_bwd_plan`) for n tokens of width C over
+    V vocab rows: (route, ring stages, output-column blocks; 1 for the
+    forward)."""
     import ctypes
     from distributed_pytorch_tpu_torch.ops import cuda_build
-    stages, ny = ctypes.c_int(), ctypes.c_int()
-    route = cuda_build.load("fused_ce_bwd_dx").fused_ce_bwd_plan(
-        int(dtype == "bfloat16"), n, V, C, ctypes.byref(stages),
-        ctypes.byref(ny))
+    stages, ny = ctypes.c_int(), ctypes.c_int(1)
+    code = int(dtype == "bfloat16")
+    if kernel == "fused_ce_fwd":
+        route = cuda_build.load(kernel).fused_ce_fwd_plan(
+            code, n, V, C, ctypes.byref(stages))
+    else:
+        route = cuda_build.load(kernel).fused_ce_bwd_plan(
+            code, n, V, C, ctypes.byref(stages), ctypes.byref(ny))
     return route, stages.value, ny.value
 
 
@@ -868,20 +898,21 @@ def run_ce_kernels(torch, dev) -> dict:
             plain_ms=time_ms(fp, iters=2, warmup=1), bound_ms=b_ms,
             bound_by=b_by, bytes=n_bytes, flops=flops)
         r = results[(name, dn)]
-        note = ""
-        if name != "fused_ce_fwd":
-            B, T, C, V = CE_SHAPE
-            plan, _, ny = ce_bwd_plan(B * T, V, C, dn)
-            kernels = sorted(k for k in launched if "fce::" in k)
-            check(r["device_ms"] is None or (kernels and all(
-                CE_BWD_KERNELS[plan] in k for k in kernels)),
-                f"{name} {dn}: the profile saw {kernels}, the C plan "
-                f"names {CE_BWD_KERNELS[plan]}")
-            # the sm90 kernel's floor: each of its ny output-column
-            # blocks recomputes the 2 n V C score FLOP
+        B, T, C, V = CE_SHAPE
+        plan, stages, ny = ce_plan(name, B * T, V, C, dn)
+        kernels = sorted(k for k in launched if "fce::" in k)
+        check(r["device_ms"] is None or (kernels and all(
+            CE_KERNELS[plan] in k for k in kernels)),
+            f"{name} {dn}: the profile saw {kernels}, the C plan "
+            f"names {CE_KERNELS[plan]}")
+        note = f", launched {CE_KERNELS[plan]}"
+        if plan == 2:
+            note += f" ({stages} ring stages)"
+        if plan == 2 and name != "fused_ce_fwd":
+            # the backward's floor: each of its ny output-column blocks
+            # recomputes the 2 n V C score FLOP
             floor = (ny + 1) * flops / 2 / PEAK_FLOPS[dn] * 1e3
-            note = f", launched {CE_BWD_KERNELS[plan]}" + (
-                f", design floor {floor:.4f} ms" if plan == 2 else "")
+            note += f", design floor {floor:.4f} ms"
         print(f"  {'':18s} {dn:9s} kernel {_timed(r, 'ms')}, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({b_by}){note}; torch.mm of x W^T "
@@ -1578,9 +1609,10 @@ def _per_launch(ev, name: str) -> float:
 
 
 def decode_ms_per_launch(ev) -> float:
-    """Device ms per decode launch: the fp32/bf16 split-KV pair (split
-    plus combine kernel, over the split kernel's launches) where it ran,
-    else the int8 cache's `paged_decode_kernel`."""
+    """Device ms per decode launch: the split-KV pair (split plus combine
+    kernel, over the split kernel's launches; fp32, bf16 and int8 caches)
+    where it ran, else the tile kernel `paged_decode_kernel` (rows past a
+    warp's 32 vectors)."""
     split = [e for e in ev if "decode_split_kernel" in e.key]
     if not split:
         return _per_launch(ev, "paged_decode_kernel")
@@ -2758,9 +2790,12 @@ def main() -> None:
             "replaced_path": "the gathered int8 rows dequantized to the "
                              "activations' dtype, then "
                              "scaled_dot_product_attention",
-            "replaced_path_ms": r["library_ms"],
+            "replaced_path_ms": r["library_ms"], "ms_spread": r["ms_spread"],
+            "device_ms": r["device_ms"],
+            "replaced_path_device_ms": r["library_device_ms"],
             "ms_fp32": r32["ms"], "plain_ms_fp32": r32["plain_ms"],
             "bound_ms_fp32": r32["bound_ms"], "library_ms_fp32": None,
+            "device_ms_fp32": r32["device_ms"],
             "replaced_path_ms_fp32": r32["library_ms"]})
     for kname in FLASH_SOURCE:
         r, r32 = fres[(kname, "bfloat16")], fres[(kname, "float32")]

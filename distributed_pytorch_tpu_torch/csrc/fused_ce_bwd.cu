@@ -18,7 +18,7 @@
 //
 // The dtype and C pick the kernel before launch (never as a fallback; a
 // launch that fails returns its error and the wrapper raises):
-// * bf16 with C <= 1024 (`ce_bwd_kernel_sm90<MODE>`, fused_ce_sm90.cuh):
+// * bf16 with C <= 1024 (`ce_kernel_sm90<MODE>`, fused_ce_sm90.cuh):
 //   wgmma on a TMA ring fed by a producer warp, 64 resident rows and two
 //   consumer warpgroups a CTA, dlogits through one bf16 shared tile, never
 //   device memory.
@@ -48,7 +48,9 @@ fce::Params bwd_params(const void* x, const void* w, const int* t, const float* 
   return p;
 }
 
-bool takes_sm90(int dtype, const fce::Params& p) { return dtype == 1 && fce::s90::takes(p); }
+bool takes_sm90(int dtype, const fce::Params& p) {
+  return dtype == 1 && fce::s90::takes(fce::DX, p);
+}
 
 template <int MODE>
 int bwd(int dtype, const fce::Params& p, void* stream) {
@@ -59,13 +61,13 @@ int bwd(int dtype, const fce::Params& p, void* stream) {
 }  // namespace
 
 // The kernel fused_ce_bwd_dx and fused_ce_bwd_dw launch for n tokens of
-// width C over V vocab rows: 2 = ce_bwd_kernel_sm90, with its ring stages
+// width C over V vocab rows: 2 = ce_kernel_sm90, with its ring stages
 // and output-column blocks (grid.y) in *stages and *ny; 1 = ce_kernel on
 // mma.sync (bf16); 0 = ce_kernel on FMA loops (fp32). *stages and *ny
 // are 0 but for 2.
 extern "C" int fused_ce_bwd_plan(int dtype, int n, int V, int C, int* stages, int* ny) {
   const fce::Params p = bwd_params(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, n, V, C);
-  const fce::s90::Plan pl = takes_sm90(dtype, p) ? fce::s90::plan(C) : fce::s90::Plan{0, 0, 0};
+  const fce::s90::Plan pl = takes_sm90(dtype, p) ? fce::s90::plan(fce::DX, C) : fce::s90::Plan{0, 0, 0};
   *stages = pl.stages;
   *ny = pl.ny;
   return pl.stages > 0 ? 2 : dtype == 1 ? 1 : 0;

@@ -2,9 +2,9 @@
 // fused_ce_bwd.cu): the weight-tied lm-head product and the softmax /
 // cross-entropy reduction in one pass, so the (n, V) logits never exist in
 // device memory. Built for sm_90a by ops/cuda_build.py; wrapped by
-// ops/fused_ce.py. `ce_kernel` runs the forward in both dtypes and the
-// backward in fp32 and, past C 1024, in bf16; the bf16 backward up to C
-// 1024 runs `ce_bwd_kernel_sm90` (fused_ce_sm90.cuh: wgmma on a TMA ring).
+// ops/fused_ce.py. `ce_kernel` runs all three (forward, dx, dW) in fp32
+// and, past C 1024, in bf16; bf16 up to C 1024 runs `ce_kernel_sm90`
+// (fused_ce_sm90.cuh: wgmma on a TMA ring).
 //
 // Replaces the tile math of the reference package's Pallas kernels
 // (distributed_pytorch_tpu/ops/fused_ce.py): `_score_tile` :71 and
@@ -17,8 +17,8 @@
 // bf16 tensor-core peak; each backward kernel recomputes the scores and
 // does 1.27 TFLOP (1.28 ms).
 //
-// Design of `ce_kernel` (the first design; the bf16 backward's Hopper
-// redesign is in fused_ce_sm90.cuh):
+// Design of `ce_kernel` (the first design; the bf16 Hopper redesign of
+// all three is in fused_ce_sm90.cuh):
 // * One CTA of 8 warps per tile of the RESIDENT operand, walking tiles of
 //   the STREAMED operand in an inner loop — the TPU's sequential
 //   ("arbitrary") grid axis becomes that loop, so nothing crosses CTAs: no
@@ -51,7 +51,7 @@
 //   the streamed tile it reads (2 x the resident rows, whole rows of C),
 //   and all three ran at ~125 TFLOP/s, ~2 TB/s of tile reads with the
 //   loads not overlapped with the products (one CTA per SM); the bf16
-//   backward's redesign takes 64 resident rows, a TMA ring and wgmma.
+//   redesign takes 64 resident rows, a TMA ring and wgmma.
 // * Forward: online max / normaliser per token row across vocab tiles
 //   (quad shuffles, then across warps through shared memory); the target
 //   logit is picked where the column equals the target.

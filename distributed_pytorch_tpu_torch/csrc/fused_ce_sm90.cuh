@@ -1,32 +1,37 @@
-// The bf16 fused cross-entropy backward on Hopper (sm_90a): dx and dW of
-// fused_ce_bwd.cu for bf16 operands with C <= 1024, as one template
-// `ce_bwd_kernel_sm90<MODE>` (MODE DX or DW). fp32 keeps the FMA kernel and
-// bf16 at C > 1024 the mma.sync kernel (`ce_kernel`, fused_ce_common.cuh):
-// the C entries pick by dtype and shape before launch, never as a fallback.
+// The bf16 fused cross-entropy kernels on Hopper (sm_90a): the forward of
+// fused_ce_fwd.cu and dx and dW of fused_ce_bwd.cu for bf16 operands with
+// C <= 1024, as one template `ce_kernel_sm90<MODE>` (MODE FWD, DX or DW)
+// that shares the resident load, the producer and the ring; the forward
+// has its own consumer loop. fp32 keeps the FMA kernel and bf16 at C >
+// 1024 the mma.sync kernel (`ce_kernel`, fused_ce_common.cuh): the C
+// entries pick by dtype and shape before launch, never as a fallback.
 //
-// Replaces: `_bwd_dx_kernel` :153 and `_bwd_dw_kernel` :171 -> `_bwd` :190
-// of distributed_pytorch_tpu/ops/fused_ce.py, as the mma.sync kernel did.
+// Replaces: `_fwd_kernel` :84 -> `_fwd` :112, `_bwd_dx_kernel` :153 and
+// `_bwd_dw_kernel` :171 -> `_bwd` :190 of
+// distributed_pytorch_tpu/ops/fused_ce.py, as the mma.sync kernel did.
 //
-// Bound on the H100: operations. At n 8192, C 768, V 50304 each kernel
-// needs 4 n V C = 1.27 TFLOP (1.28 ms at the bf16 peak). The first design
-// ran at ~129 TFLOP/s: 32 resident rows a CTA (~64 FLOP per byte of
+// Bound on the H100: operations. At n 8192, C 768, V 50304 the forward
+// needs 2 n V C = 633 GFLOP (0.64 ms at the bf16 peak), each backward
+// kernel 4 n V C = 1.27 TFLOP (1.28 ms). The first design ran all three at
+// ~125-129 TFLOP/s: 32-64 resident rows a CTA (~64 FLOP per byte of
 // streamed tile read from L2), mma.sync fed by ldmatrix, each tile's load
-// waited for before its products, dlogits through a padded shared tile.
+// waited for before its products, one CTA an SM.
 //
-// Design. Roles as before: one CTA owns 64 RESIDENT rows (dx: tokens of x;
-// dW: vocab rows of W) and one block of output columns (grid.y), and walks
-// every 128-row tile of the STREAMED operand (dx: W; dW: x). Each CTA owns
-// its output rows: no atomics, sums in a fixed order, so two calls are
-// bitwise equal.
+// Design. One CTA owns 64 RESIDENT rows (forward and dx: tokens of x; dW:
+// vocab rows of W) and, in the backward, one block of output columns
+// (grid.y), and walks every 128-row tile of the STREAMED operand (forward
+// and dx: W; dW: x). Each CTA owns its output rows: no atomics, sums in a
+// fixed order, so two calls are bitwise equal.
 // * The resident tile (64 rows x C, C / 64 TMA boxes of 64 x 64 with the
 //   128-byte swizzle: 128 KB at C 1024) is loaded once for the whole walk.
 // * A producer warp (of a warpgroup that gives its registers to the
 //   consumers with setmaxnreg: 232 a consumer thread, 40 a producer one)
 //   streams each tile as C / 64 k-chunks of 128 rows x 64
-//   columns (16 KB), then its output chunks again (below), through a ring
-//   of `stages` (5-8, as many as shared memory holds: 7 at C 768, 5 at C
-//   1024); `full` barriers count the bytes in, `empty` barriers (one
-//   arrival per consumer warp) hand a stage back. Waits are PTX-only
+//   columns (16 KB), in the backward then its output chunks again (below),
+//   through a ring of `stages` (5-8, as many as shared memory holds: the
+//   forward 8 at C 768 and 6 at C 1024, the backward 7 and 5); `full`
+//   barriers count the bytes in, `empty` barriers (one arrival per
+//   consumer warp) hand a stage back. Waits are PTX-only
 //   mbarrier loops, so ptxas sees no branch between a wgmma's issue and
 //   its wait. Each side steps its place in the ring (`Slot`: stage and
 //   phase parity) load by load: the stage count is known only at run time,
@@ -35,38 +40,57 @@
 // * Two consumer warpgroups. Warpgroup w forms its 64 x 64 block of the
 //   score tile, rows = the resident rows, columns = streamed rows
 //   [64 w, 64 w + 64) of the tile: s = R S^T, m64n64k16 SS wgmma with both
-//   operands K-major, fp32 accumulators, one chunk's products in flight
-//   while the next chunk is waited for.
-// * dlogits, as the reference (ops/fused_ce.py:99-127): columns past V
-//   (dx; only the last vocab tile has them, so only it is masked) set to
-//   -1e30 before the exp, p = exp(s - lse), dl = (p -
+//   operands K-major, fp32 accumulators.
+// * Forward (ops/fused_ce.py:71-109): each warpgroup keeps two score
+//   accumulators (2 x 32 fp32 registers a thread) and issues the first
+//   kAhead chunks of tile j + 1 into one before it folds tile j, in the
+//   other, into its running softmax, so the exp work runs beside tensor
+//   work; later chunks keep kAhead in flight, and each tile is waited for
+//   before the next begins (a product in flight across the tile loop
+//   made ptxas serialize them all, C7514). Each thread keeps, for its
+//   two rows over its own 16 columns of each tile, a running max m, sum l
+//   (l = l e^(m_old - m_new) + sum e^(s - m_new), `expf` as the first
+//   design) and the target logit, picked from the accumulator where the
+//   column equals the target: the value that entered the max and the sum.
+//   Only the last vocab tile can hold columns past V (TMA zero-fills
+//   those W rows, s = 0), and only its fold masks them to -1e30; it runs
+//   after the last wait, so no branch sits between a wgmma and its wait.
+//   At the end the 4 lanes of a row merge by quad shuffles, and the two
+//   warpgroups once through shared memory in a fixed order: lse = m +
+//   log(max(l, 1e-30)), nll = lse - s[t], written once per row (a target
+//   outside [0, V), as the -2 of an ignored row, gives nll = lse).
+// * Backward dlogits, as the reference (ops/fused_ce.py:99-127): columns
+//   past V (dx; only the last vocab tile has them, so only it is masked)
+//   set to -1e30 before the exp, p = exp(s - lse), dl = (p -
 //   onehot(t)) * coef, rounded to bf16. Each warpgroup writes its half once
 //   into a 64 x 128 bf16 tile in shared memory (swizzled as the A operand
 //   wants); the two halves meet behind a named barrier of the 256 consumer
 //   threads. dlogits never reach device memory.
-// * The second product acc(64 x 64 b) += dl(64 x 128) S(128 x 64 b) over
-//   the CTA's output boxes (64 columns each): warpgroup w owns `nu` of the
-//   CTA's 2 nu boxes (nu <= 3, 96 fp32 accumulator registers a thread),
-//   m64n64k16 SS wgmma with the streamed chunk read MN-major (the transpose
-//   bit). The producer loads the tile's output chunks a second time after
-//   the walk over C, so no stage is held for the second product and the
-//   whole ring keeps loading across the dlogits and the second product
-//   (holding them instead leaves one stage to load into at C 768); each
-//   box's stage goes back as soon as its products are done.
-// * Output columns: the CTA of grid.y = y owns 128-column units [y u / ny,
-//   (y + 1) u / ny) of u = C / 128, ny = ceil(u / 3): 2 at C 768, 3 at C
-//   1024. Each CTA recomputes the whole score product, so a kernel does
-//   (ny + 1) 2 n V C FLOP: 1.9 TFLOP at C 768 (1.92 ms at the peak).
-// * L2 traffic: every CTA reads the whole streamed operand, and its output
-//   columns twice: 64 FLOP per byte of it at C 768 (W is 77 MB, more than
-//   the 50 MB L2). Multicasting each chunk to a 2-CTA cluster along the
-//   resident axis halves the L2 reads but did not make the kernel faster on
-//   the H100 (PERF.md §6), so CTAs work alone.
-// * Ragged edges come from TMA's zero fill: a streamed row past V (dx) is
-//   masked to -1e30 before the exp (a zero row gives s = 0, and exp(0 -
-//   lse) is not 0); a token past n (dW) has coef 0 and target -2, lse 0,
-//   never read from past the end; a resident row past n or V is never
-//   written. An ignored row (target -2, coef 0) has dlogits exactly 0.
+// * The backward's second product acc(64 x 64 b) += dl(64 x 128) S(128 x
+//   64 b) over the CTA's output boxes (64 columns each): warpgroup w owns
+//   `nu` of the CTA's 2 nu boxes (nu <= 3, 96 fp32 accumulator registers a
+//   thread), m64n64k16 SS wgmma with the streamed chunk read MN-major (the
+//   transpose bit). The producer loads the tile's output chunks a second
+//   time after the walk over C, so no stage is held for the second product
+//   and the whole ring keeps loading across the dlogits and the second
+//   product (holding them instead leaves one stage to load into at C 768);
+//   each box's stage goes back as soon as its products are done.
+// * Backward output columns: the CTA of grid.y = y owns 128-column units
+//   [y u / ny, (y + 1) u / ny) of u = C / 128, ny = ceil(u / 3): 2 at C
+//   768, 3 at C 1024. Each CTA recomputes the whole score product, so a
+//   kernel does (ny + 1) 2 n V C FLOP: 1.9 TFLOP at C 768 (1.92 ms at the
+//   peak).
+// * L2 traffic: every CTA reads the whole streamed operand (and, in the
+//   backward, its output columns twice): 64 FLOP per byte of it (W is 77
+//   MB, more than the 50 MB L2). Multicasting each chunk to a 2-CTA
+//   cluster along the resident axis halves the L2 reads but did not make
+//   the backward faster on the H100 (PERF.md §6), so CTAs work alone.
+// * Ragged edges come from TMA's zero fill: a streamed row past V
+//   (forward, dx) is masked to -1e30 before the max or the exp (a zero row
+//   gives s = 0, and exp(0 - lse) is not 0); a token past n (dW) has coef 0
+//   and target -2, lse 0, never read from past the end; a resident row
+//   past n or V is never written. An ignored row (target -2, coef 0) has
+//   dlogits exactly 0.
 // * Limit: the resident tile and a ring of at least 5 stages fit the
 //   227 KB of shared memory up to C 1024 (`kMaxC`); past it the mma.sync
 //   kernel runs (it streams C in chunks of at most 768 columns).
@@ -88,6 +112,7 @@ constexpr int kMaxNu = 3;         // output boxes a warpgroup
 constexpr int kMaxStages = 8;
 constexpr int kMinStages = 5;
 constexpr int kMaxC = 1024;
+constexpr int kAhead = 2;         // forward: chunks in flight beside the fold
 constexpr int kConsumers = 256;   // two consumer warpgroups
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 // registers a thread after `setmaxnreg`: 2 x 128 x 232 + 128 x 40 <= 65536
@@ -107,24 +132,33 @@ struct Plan {
   size_t smem;
 };
 
-// shared memory besides the ring and the resident tile: the dlogits tile,
-// the barriers, the tile's per-token t, lse and coef (dW)
-constexpr size_t kSmemTail = kRows * kTile * 2 + 8 * (2 * kMaxStages + 1) + 3 * 4 * kTile;
+// the ring's full and empty barriers and the resident tile's
+constexpr size_t kBarBytes = 8 * (2 * kMaxStages + 1);
 
-inline Plan plan(int C) {
+// Shared memory besides the ring and the resident tile. Forward: the
+// barriers, then both warpgroups' (m, l, target) per row. Backward: the
+// dlogits tile, the barriers, the tile's per-token t, lse and coef (dW).
+constexpr size_t tail_bytes(int mode) {
+  return mode == FWD ? kBarBytes + 2 * kRows * 3 * 4
+                     : kRows * kTile * 2 + kBarBytes + 3 * 4 * kTile;
+}
+
+inline Plan plan(int mode, int C) {
   // + 1024 to align the base
-  const size_t fixed = 1024 + (size_t)kRows * C * 2 + kSmemTail;
+  const size_t fixed = 1024 + (size_t)kRows * C * 2 + tail_bytes(mode);
   Plan pl{0, 0, 0};
   if (C <= 0 || C % kUnit != 0 || C > kMaxC) return pl;
   pl.stages = (int)((kSmemMax - fixed) / kStageBytes);
   if (pl.stages > kMaxStages) pl.stages = kMaxStages;
   if (pl.stages < kMinStages) return Plan{0, 0, 0};
-  pl.ny = (C / kUnit + kMaxNu - 1) / kMaxNu;
+  pl.ny = mode == FWD ? 1 : (C / kUnit + kMaxNu - 1) / kMaxNu;
   pl.smem = fixed + (size_t)pl.stages * kStageBytes;
   return pl;
 }
-static_assert(1024 + kRows * kMaxC * 2 + kSmemTail + kMinStages * kStageBytes <= kSmemMax,
+static_assert(1024 + kRows * kMaxC * 2 + tail_bytes(DX) + kMinStages * kStageBytes <= kSmemMax,
               "C 1024 fits with the smallest ring");
+static_assert(kAhead < kMinStages && kAhead <= kUnit / kBK,
+              "the forward holds at most kAhead + 1 stages; every tile has kAhead chunks");
 
 // A load's place in the ring: its stage and the parity of that stage's
 // use, stepped load by load (no division by the runtime stage count)
@@ -141,6 +175,170 @@ struct Slot {
     return o;
   }
 };
+
+// ---- forward -------------------------------------------------------------
+
+// A forward consumer's view of the ring: the next load to consume (`cur`)
+// and the oldest one not yet handed back (`rel`)
+struct FwdRing {
+  const bf16* res;
+  const bf16* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, nck, wg, lane;
+  Slot cur, rel;
+};
+
+// The running softmax of this thread's rows ra, ra + 8 (h) over its own
+// columns: max m, sum l, target logit; t the target, -1 outside [0, V)
+struct FwdRows {
+  float m[2], l[2], tgt[2];
+  int t[2];
+};
+
+// Chunk kk of the score product into s: wait for its load, issue its four
+// k-steps (m64n64k16 SS, both operands K-major), commit them as one group.
+__device__ __forceinline__ void score_chunk(FwdRing& r, float (&s)[32], int kk) {
+  using namespace ::sm90;
+  const int st = r.cur.st;
+  mbar_wait(&r.full[st], r.cur.ph);
+  fence_regs(s);
+  wg_fence();
+#pragma unroll
+  for (int q = 0; q < kBK / 16; ++q)
+    wgmma_ss<64, 0, 0>(s, desc_kmajor<kRows>(r.res + kk * kRows * kBK, q),
+                       desc_kmajor<kRows>(r.ring + st * kStageElems + r.wg * 64 * kBK, q),
+                       kk > 0 || q > 0);
+  wg_commit();
+  r.cur.next(r.stages);
+}
+
+// one arrival of this warp on the oldest unreturned load's empty barrier
+__device__ __forceinline__ void release_one(FwdRing& r) {
+  ::sm90::mbar_arrive_if(&r.empty[r.rel.st], r.lane == 0);
+  r.rel.next(r.stages);
+}
+
+// Fold a finished score tile s (register 4 j + 2 h + e: row ra + 8 h,
+// column col0 + 8 j + e) into the running softmax. EDGE: the last vocab
+// tile, whose columns past V are masked.
+template <bool EDGE>
+__device__ __forceinline__ void fwd_fold(FwdRows& st, const float (&s)[32], int col0, int V) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v[16];
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        v[2 * j + e] = !EDGE || col0 + 8 * j + e < V ? s[4 * j + 2 * h + e] : kNegInf;
+        mx = fmaxf(mx, v[2 * j + e]);
+      }
+    const float m_new = fmaxf(st.m[h], mx);
+    const int d = st.t[h] - col0;  // the target's place among the columns
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      sum += expf(v[i] - m_new);
+      st.tgt[h] = d == 8 * (i >> 1) + (i & 1) ? v[i] : st.tgt[h];
+    }
+    st.l[h] = st.l[h] * expf(st.m[h] - m_new) + sum;
+    st.m[h] = m_new;
+  }
+}
+
+// Tile `it`'s score product into s. PREV: the previous tile's scores,
+// complete, are in ps; this tile's first kAhead chunks are issued, then
+// the previous tile is folded while they run. Later chunks keep kAhead in
+// flight; the tile is waited for and handed back before return, so no
+// product is in flight across the walk's loop (ptxas serializes the
+// products where one is, C7514).
+template <bool PREV>
+__device__ __forceinline__ void fwd_tile(FwdRing& r, FwdRows& st, float (&s)[32],
+                                         float (&ps)[32], int col0, int V) {
+  using namespace ::sm90;
+#pragma unroll
+  for (int kk = 0; kk < kAhead; ++kk) score_chunk(r, s, kk);
+  if constexpr (PREV) {
+    fence_regs(ps);
+    fwd_fold<false>(st, ps, col0 - kTile, V);
+  }
+  for (int kk = kAhead; kk < r.nck; ++kk) {
+    score_chunk(r, s, kk);
+    wg_wait<kAhead>();  // chunk kk - kAhead is done
+    release_one(r);
+  }
+  wg_wait<0>();
+  fence_regs(s);
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) release_one(r);
+}
+
+// The forward's consumer warpgroups: the walk over the vocab tiles, two
+// score accumulators in turn, then the merge and the per-row outputs.
+__device__ __forceinline__ void fwd_consumer(const Params& p, FwdRing& r, float* merge,
+                                             uint64_t* res_full, int n_tiles, int r0, int tid) {
+  using namespace ::sm90;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ra = 16 * (warp & 3) + (lane >> 2), q4 = lane & 3;  // rows ra, ra + 8
+  const int col = 64 * r.wg + 2 * q4;  // this thread's first column of a tile
+  FwdRows st;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int t;
+    float unused_lse, unused_coef;
+    row_inputs(p, r0 + ra + 8 * h, t, unused_lse, unused_coef, false);
+    st.t[h] = t >= 0 && t < p.V ? t : -1;
+    st.m[h] = kNegInf;
+    st.l[h] = 0.f;
+    st.tgt[h] = 0.f;
+  }
+  float s0[32], s1[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s0[i] = s1[i] = 0.f;
+  mbar_wait(res_full, 0);
+
+  fwd_tile<false>(r, st, s0, s1, col, p.V);
+  int it = 1;
+  for (; it + 1 < n_tiles; it += 2) {
+    fwd_tile<true>(r, st, s1, s0, it * kTile + col, p.V);
+    fwd_tile<true>(r, st, s0, s1, (it + 1) * kTile + col, p.V);
+  }
+  // the last tile (n_tiles - 1), the only one with columns past V
+  if (it < n_tiles) {
+    fwd_tile<true>(r, st, s1, s0, it * kTile + col, p.V);
+    fwd_fold<true>(st, s1, it * kTile + col, p.V);
+  } else {
+    fwd_fold<true>(st, s0, (it - 1) * kTile + col, p.V);
+  }
+
+  // the 4 lanes of a row, then the two warpgroups in order
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m = quad_max(st.m[h]);
+    const float l = quad_sum(st.l[h] * expf(st.m[h] - m));
+    const float tv = quad_sum(st.tgt[h]);
+    if (q4 == 0) {
+      float* dst = merge + (r.wg * kRows + ra + 8 * h) * 3;
+      dst[0] = m;
+      dst[1] = l;
+      dst[2] = tv;
+    }
+  }
+  bar_sync(1, kConsumers);
+  if (tid < kRows && r0 + tid < p.n) {
+    const float* a = merge + tid * 3;
+    const float* b = merge + (kRows + tid) * 3;
+    const float m = fmaxf(a[0], b[0]);
+    const float l = a[1] * expf(a[0] - m) + b[1] * expf(b[0] - m);
+    const float ls = m + logf(fmaxf(l, 1e-30f));
+    p.lse_out[r0 + tid] = ls;
+    p.nll[r0 + tid] = ls - (a[2] + b[2]);
+  }
+}
+
+// ---- backward ------------------------------------------------------------
 
 // dlogits of this thread's score elements s[4 j + 2 h + e] (rows ra + 8 h,
 // tile columns 64 wg + 8 j + 2 q4 + e) of tile `it`, rounded to bf16 into
@@ -222,7 +420,7 @@ __device__ __forceinline__ void second_product(float (&acc)[kMaxNu][32], const b
 
 template <int MODE>
 __global__ void __launch_bounds__(s90::kThreads, 1)
-    ce_bwd_kernel_sm90(const __grid_constant__ s90::Maps mp, const Params p, const int stages) {
+    ce_kernel_sm90(const __grid_constant__ s90::Maps mp, const Params p, const int stages) {
   using namespace ::sm90;
   using namespace s90;
   extern __shared__ uint8_t smem_raw[];
@@ -230,22 +428,25 @@ __global__ void __launch_bounds__(s90::kThreads, 1)
   const int C = p.C, nck = C / kBK;
   bf16* ring = reinterpret_cast<bf16*>(base);  // [stages][128 rows][64 columns]
   bf16* res = ring + stages * kStageElems;    // [C / 64][64 rows][64 columns]
-  bf16* dl = res + kRows * C;                 // [2][64 rows][64 columns]
-  uint64_t* full = reinterpret_cast<uint64_t*>(dl + kRows * kTile);
+  uint8_t* tail = reinterpret_cast<uint8_t*>(res + kRows * C);
+  bf16* dl = reinterpret_cast<bf16*>(tail);   // backward: [2][64 rows][64 columns]
+  uint64_t* full = reinterpret_cast<uint64_t*>(tail + (MODE == FWD ? 0 : kRows * kTile * 2));
   uint64_t* empty = full + kMaxStages;
   uint64_t* res_full = empty + kMaxStages;
-  int* vt = reinterpret_cast<int*>(res_full + 1);  // [128] the tile's tokens: t, lse, coef
+  float* merge = reinterpret_cast<float*>(res_full + 1);  // forward: [2][64 rows][m, l, t]
+  int* vt = reinterpret_cast<int*>(res_full + 1);  // dW: [128] the tile's tokens: t, lse, coef
   float* vl = reinterpret_cast<float*>(vt + kTile);
   float* vc = vl + kTile;
 
-  const int rows = MODE == DX ? p.n : p.V;  // resident rows
+  const int rows = MODE == DW ? p.V : p.n;  // resident rows
   const int r0 = blockIdx.x * kRows;
-  const int n_tiles = ((MODE == DX ? p.V : p.n) + kTile - 1) / kTile;
-  // output columns: 128-column units [ua, ub) of C, chunks [ofirst, ofirst
-  // + no), loaded again after each tile's walk over the C / 64 chunks
+  const int n_tiles = ((MODE == DW ? p.n : p.V) + kTile - 1) / kTile;
+  // backward output columns: 128-column units [ua, ub) of C, chunks
+  // [ofirst, ofirst + no), loaded again after each tile's walk over the
+  // C / 64 chunks
   const int u = C / kUnit;
   const int ua = blockIdx.y * u / gridDim.y, ub = (blockIdx.y + 1) * u / gridDim.y;
-  const int nu = ub - ua, no = 2 * nu, ofirst = 2 * ua;
+  const int nu = MODE == FWD ? 0 : ub - ua, no = 2 * nu, ofirst = 2 * ua;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   if (tid == 0) {
@@ -268,7 +469,7 @@ __global__ void __launch_bounds__(s90::kThreads, 1)
       int g = 0;
       for (int it = 0; it < n_tiles; ++it)
         for (int kk = 0; kk < nck + no; ++kk, ++g) {
-          // the score's walk over C, then the output chunks again
+          // the score's walk over C, then (backward) the output chunks again
           const int k = kk < nck ? kk : ofirst + kk - nck;
           // the stage's previous load is handed back (none on the first lap)
           if (g >= stages) mbar_wait(&empty[sl.st], sl.ph ^ 1);
@@ -277,6 +478,10 @@ __global__ void __launch_bounds__(s90::kThreads, 1)
           sl.next(stages);
         }
     }
+  } else if constexpr (MODE == FWD) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    FwdRing r{res, ring, full, empty, stages, nck, warp >> 2, lane, Slot{0, 0}, Slot{0, 0}};
+    fwd_consumer(p, r, merge, res_full, n_tiles, r0, tid);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int wg = warp >> 2;
@@ -398,25 +603,28 @@ __global__ void __launch_bounds__(s90::kThreads, 1)
 
 namespace s90 {
 
-// bf16, 0 < C <= kMaxC (a multiple of 128), n > 0: the kernel takes it
-inline bool takes(const Params& p) { return p.n > 0 && p.V > 0 && plan(p.C).stages > 0; }
+// bf16, 0 < C <= kMaxC (a multiple of 128), n > 0, V > 0: the kernel of
+// `mode` takes it
+inline bool takes(int mode, const Params& p) {
+  return p.n > 0 && p.V > 0 && plan(mode, p.C).stages > 0;
+}
 
 template <int MODE>
 int launch(const Params& p, void* stream) {
-  const Plan pl = plan(p.C);
+  const Plan pl = plan(MODE, p.C);
   if (pl.stages == 0 || p.n <= 0 || p.V <= 0) return (int)cudaErrorInvalidValue;
-  const void* res = MODE == DX ? p.x : p.w;
-  const void* str = MODE == DX ? p.w : p.x;
-  const int rows = MODE == DX ? p.n : p.V, srows = MODE == DX ? p.V : p.n;
+  const void* res = MODE == DW ? p.w : p.x;
+  const void* str = MODE == DW ? p.x : p.w;
+  const int rows = MODE == DW ? p.V : p.n, srows = MODE == DW ? p.n : p.V;
   Maps mp;
   if (!::sm90::mat_map(&mp.res, res, rows, p.C, kRows) ||
       !::sm90::mat_map(&mp.str, str, srows, p.C, kTile))
     return (int)cudaErrorInvalidValue;
   static size_t cap[64] = {};
-  const int err = flash::set_smem(ce_bwd_kernel_sm90<MODE>, pl.smem, cap);
+  const int err = flash::set_smem(ce_kernel_sm90<MODE>, pl.smem, cap);
   if (err) return err;
   const dim3 grid((rows + kRows - 1) / kRows, pl.ny);
-  ce_bwd_kernel_sm90<MODE><<<grid, kThreads, pl.smem, (cudaStream_t)stream>>>(mp, p, pl.stages);
+  ce_kernel_sm90<MODE><<<grid, kThreads, pl.smem, (cudaStream_t)stream>>>(mp, p, pl.stages);
   return (int)cudaGetLastError();
 }
 

@@ -15,13 +15,14 @@
 // from one grid step to the next; here one CTA owns a set of query rows and
 // walks the keys in an inner loop, so nothing has to carry across CTAs.
 //
-// Design (FMA loops on CUDA cores), run by the int8-cache (_q8) decode,
-// the fp32/bf16 decode at K/V rows over 512 bytes, the fp32 prefill, the bf16 prefill at head sizes other than 64 and 128,
-// and the int8-cache prefill. The bf16 prefill at head size 64 and 128
-// runs `prefill_kernel_sm90` (wgmma on cp.async-gathered tiles,
-// paged_prefill_attn.cu), and the fp32 and bf16 decode the split-KV
-// kernels of paged_decode_attn.cu, each picked by dtype (and head size)
-// before launch. What bounds this body on the H100 is the latency of its
+// Design (FMA loops on CUDA cores), run by the decode at rows wider than
+// a warp's 32 vectors (fp32/bf16 K/V rows over 512 bytes, int8 rows over
+// 256 codes), the fp32 prefill, the bf16 prefill at head sizes other than
+// 64 and 128, and the int8-cache prefill. The bf16 prefill at head size
+// 64 and 128 runs `prefill_kernel_sm90` (wgmma on cp.async-gathered
+// tiles, paged_prefill_attn.cu), and the fp32, bf16 and int8-cache decode
+// the split-KV kernels of paged_decode_attn.cu, each picked by dtype (and
+// head size) before launch. What bounds this body on the H100 is the latency of its
 // four passes a key tile (gather, scores, softmax, P V, each behind a
 // __syncthreads, nothing overlapped) and FMA issue, not bytes (PERF.md
 // §6: tens of times its byte bound):

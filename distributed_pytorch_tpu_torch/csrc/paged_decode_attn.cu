@@ -10,25 +10,28 @@
 // entry their int8 bodies `_paged_body_q8` and `_kernel_q8`.
 //
 // Bound on the H100: bytes. Each sequence's live K/V rows are read once
-// (2 * cache_len * nkv * hs elements) for ~4 * cache_len * nh * hs FLOPs,
-// about one FLOP per byte in bf16, far under the card's ~295 FLOP/byte
-// ridge. What a call takes is the latency of each CTA's chain of dependent
-// loads (table entry, then K/V rows), so the design is about how many
-// rows are in flight at once and how long the longest chain is.
+// (2 * cache_len * nkv * hs elements, int8 codes plus two fp32 scales a
+// row for the _q8 entry) for ~4 * cache_len * nh * hs FLOPs, about one
+// FLOP per byte in bf16, far under the card's ~295 FLOP/byte ridge. What a
+// call takes is the latency of each CTA's chain of dependent loads (table
+// entry, then K/V rows), so the design is about how many rows are in
+// flight at once and how long the longest chain is.
 //
-// fp32 and bf16 caches: split-KV (flash-decoding), on CUDA cores — one
+// Split-KV (flash-decoding), on CUDA cores, for every cache type — one
 // query row per head makes no matrix product, so there is no wgmma here.
-// * `decode_split_kernel<T, R>`: a grid of (sequence, kv head x row chunk,
+// * `decode_split_kernel<T, C, R>` (T the activations' type, C the
+//   cache's: T, or int8 codes): a grid of (sequence, kv head x row chunk,
 //   split); split s owns keys [128 s, 128 s + 128) of the table's
 //   capacity (n_max * bs), and a CTA whose span starts at or past
 //   min(cache_len, capacity) exits at once, so blocks past a sequence's
 //   length are never read. cache_len is read on the device only; the
 //   split count comes from the capacity. Each of the CTA's 4 warps owns 32
 //   of the span's keys. A key row moves from the pool, through the block
-//   table, straight into registers as 16-byte vectors (8 bf16 or 4 fp32):
-//   a group of G lanes (G the row's vectors, rounded up to a power of two)
-//   holds one key, so a warp reads 32 / G keys a pass and keeps up to 8
-//   passes of K and V in flight before it computes. Scores are the lanes'
+//   table, straight into registers as vectors (16 bytes: 8 bf16 or 4 fp32;
+//   8 bytes: 8 int8 codes): a group of G lanes (G the row's vectors,
+//   rounded up to a power of two) holds one key, so a warp reads 32 / G
+//   keys a pass and keeps up to 8 passes of K and V in flight before it
+//   computes. Scores are the lanes'
 //   fp32 dot products summed by shuffles within the group; each warp
 //   keeps its own running (m, l) and fp32 P V accumulator in registers
 //   (the groups' partial sums meet by shuffles once, at the end), and the
@@ -45,14 +48,21 @@
 //   masks, `expf`, l summing the unrounded p, p rounded to T before P V
 //   (the reference's `p.astype(v.dtype)`); the running max moves once a
 //   chunk of up to 8 passes (32 keys for bf16 at head size 64).
-// int8 cache (_q8), and fp32/bf16 rows wider than the split kernel holds
-// (more than 512 bytes: head size > 128 in fp32, > 256 in bf16):
+// * int8 cache: the codes become fp32 in registers (exactly); each lane
+//   of a key's group reads the key's K and V scales (one address, so one
+//   read a group). The score is the fp32 dot of q with the codes times
+//   (k_scale * scale); l sums the fp32 p; the P V operand is (p * v_scale)
+//   rounded to T against the codes — the reference's `(p * vs).astype`.
+//   A key past cache_len loads no code and no scale (they stay 0, its
+//   score -1e30), so NaN in a dead row never meets a product.
+// Rows wider than a warp's 32 vectors (more than 512 bytes of fp32/bf16:
+// head size > 128 in fp32, > 256 in bf16; int8 head size > 256):
 // `paged_decode_kernel<T, C>` — one CTA of 128 threads per (sequence, kv
 // head) running the FMA tile loop `attend_rows` (paged_attn_common.cuh)
-// with K/V tiles in shared memory; 96 CTAs at B 8 x 12 kv heads, no split
-// of the KV length, four synchronized passes a 64-key tile. The C entry
-// picks it by row width before launch, as the reference's kernel takes
-// every head size whose tiles fit (ops/flash_decode.py gates both).
+// with K/V tiles in shared memory; no split of the KV length, four
+// synchronized passes a 64-key tile. The C entries pick it by row width
+// before launch, as the reference's kernel takes every head size whose
+// tiles fit (ops/flash_decode.py gates both).
 
 #include "paged_attn_common.cuh"
 
@@ -60,23 +70,36 @@ namespace {
 
 using paged_attn::kNegInf;
 
-// ---- fp32 and bf16 caches: split-KV --------------------------------------
+// ---- split-KV ----------------------------------------------------------
 
 constexpr int kWarps = 4;                  // warps of a split CTA
 constexpr int kWarpKeys = 32;              // keys a warp owns
 constexpr int kSpan = kWarps * kWarpKeys;  // keys a split owns (ops/flash_decode.py _SPAN)
 constexpr int kMaxRows = 8;                // query rows a CTA holds
+constexpr int kMaxVecs = 32;               // row vectors a warp holds: one a lane
 constexpr int kCombineThreads = 128;
 
-template <typename T, int R>
+// kVec elements of a T row into fp32, as 16-byte vectors (one, or two for
+// the 8 fp32 values that meet an int8 vector)
+template <typename T, int kVec>
+__device__ __forceinline__ void load_q(const T* src, float* f) {
+  constexpr int per = 16 / sizeof(T);
+#pragma unroll
+  for (int i = 0; i < kVec / per; ++i)
+    paged_attn::unpack<T>(*reinterpret_cast<const uint4*>(src + i * per), f + i * per);
+}
+
+template <typename T, typename C, int R>
 __global__ void __launch_bounds__(kWarps * 32)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ tables,
+decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k,
+                    const C* __restrict__ v, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale, const int* __restrict__ tables,
                     const int* __restrict__ cache_len, float* __restrict__ ws,
                     int nh, int nkv, int hs, int bs, int n_max, int n_split,
                     float scale) {
-  using Vec = typename paged_attn::RowVec<T>::type;
-  constexpr int kVec = paged_attn::RowVec<T>::n;
+  constexpr bool kQ8 = std::is_same<C, int8_t>::value;
+  using Vec = typename paged_attn::RowVec<C>::type;
+  constexpr int kVec = paged_attn::RowVec<C>::n;
   constexpr int NP = R <= 2 ? 8 : 16 / R;  // key passes in flight: 8, 8, 4, 2
   const int b = blockIdx.x, split = blockIdx.z;
   const int rep = nh / nkv, n_rc = (rep + R - 1) / R;
@@ -101,29 +124,34 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[r] = 0.f;
 #pragma unroll
     for (int e = 0; e < kVec; ++e) qf[r][e] = acc[r][e] = 0.f;
-    if (has && r < n_rows) {
-      const Vec x = *reinterpret_cast<const Vec*>(
-          q + ((long long)b * nh + g * rep + row0 + r) * hs + lig * kVec);
-      paged_attn::unpack<T>(x, qf[r]);
-    }
+    if (has && r < n_rows)
+      load_q<T, kVec>(q + ((long long)b * nh + g * rep + row0 + r) * hs + lig * kVec, qf[r]);
   }
 
   const int* table = tables + (long long)b * n_max;
   const int w_end = min(span0 + (warp + 1) * kWarpKeys, n_live);
   for (int c0 = span0 + warp * kWarpKeys; c0 < w_end; c0 += NP * KP) {
-    // up to NP passes of K and V rows in flight: key c0 + i KP + grp
+    // up to NP passes of K and V rows in flight: key c0 + i KP + grp; an
+    // int8 key's scales too (0, like its codes, past the live keys)
     Vec kr[NP], vr[NP];
+    float ksc[NP], vsc[NP];
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       const int kp = c0 + i * KP + grp;
       kr[i] = Vec{};
       vr[i] = Vec{};
-      if (has && kp < w_end) {
-        const long long blk = table[kp / bs];
-        const long long off =
-            ((blk * bs + kp % bs) * nkv + g) * (long long)hs + lig * kVec;
-        kr[i] = __ldg(reinterpret_cast<const Vec*>(k + off));
-        vr[i] = __ldg(reinterpret_cast<const Vec*>(v + off));
+      ksc[i] = vsc[i] = 0.f;
+      if (kp < w_end) {
+        const long long row = ((long long)table[kp / bs] * bs + kp % bs) * nkv + g;
+        if (has) {
+          const long long off = row * hs + lig * kVec;
+          kr[i] = __ldg(reinterpret_cast<const Vec*>(k + off));
+          vr[i] = __ldg(reinterpret_cast<const Vec*>(v + off));
+        }
+        if constexpr (kQ8) {  // every lane of the group: one address
+          ksc[i] = __ldg(k_scale + row);
+          vsc[i] = __ldg(v_scale + row);
+        }
       }
     }
     // scores: each lane's share of the dot, summed within its group
@@ -131,18 +159,20 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       float kf[kVec];
-      paged_attn::unpack<T>(kr[i], kf);
+      paged_attn::unpack<C>(kr[i], kf);
       const bool live = c0 + i * KP + grp < w_end;
+      const float sc = kQ8 ? ksc[i] * scale : scale;  // dequantize k, then scale
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float dot = 0.f;
 #pragma unroll
         for (int e = 0; e < kVec; ++e) dot = fmaf(qf[r][e], kf[e], dot);
         for (int o = G >> 1; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        s[i][r] = live ? dot * scale : kNegInf;
+        s[i][r] = live ? dot * sc : kNegInf;
       }
     }
-    // the warp's running softmax; s becomes p rounded to T
+    // the warp's running softmax; s becomes the P V operand rounded to T
+    // (p, times the key's v_scale for an int8 cache)
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       float mx = s[0][r];
@@ -156,7 +186,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < NP; ++i) {
         const float p = expf(s[i][r] - m_new);
         sum += p;
-        s[i][r] = paged_attn::round_to<T>(p);
+        s[i][r] = paged_attn::round_to<T>(kQ8 ? p * vsc[i] : p);
       }
       for (int o = G; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
       l[r] = l[r] * alpha + sum;
@@ -168,7 +198,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       float vf[kVec];
-      paged_attn::unpack<T>(vr[i], vf);
+      paged_attn::unpack<C>(vr[i], vf);
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -233,20 +263,21 @@ decode_combine_kernel(const float* __restrict__ ws, const int* __restrict__ cach
   }
 }
 
-template <typename T, int R>
-int launch_split(const void* q, const void* k, const void* v, const void* tables,
-                 const void* cache_len, float* ws, int B, int nh, int nkv, int hs, int bs,
-                 int n_max, int n_split, float scale, cudaStream_t st) {
+template <typename T, typename C, int R>
+int launch_split(const void* q, const void* k, const void* k_scale, const void* v,
+                 const void* v_scale, const void* tables, const void* cache_len, float* ws,
+                 int B, int nh, int nkv, int hs, int bs, int n_max, int n_split, float scale,
+                 cudaStream_t st) {
   const int n_rc = (nh / nkv + R - 1) / R;
   const dim3 grid(B, nkv * n_rc, n_split);
   const size_t smem = sizeof(float) * kWarps * R * (hs + 2);
-  decode_split_kernel<T, R><<<grid, kWarps * 32, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)tables, (const int*)cache_len, ws, nh,
-      nkv, hs, bs, n_max, n_split, scale);
+  decode_split_kernel<T, C, R><<<grid, kWarps * 32, smem, st>>>(
+      (const T*)q, (const C*)k, (const C*)v, (const float*)k_scale, (const float*)v_scale,
+      (const int*)tables, (const int*)cache_len, ws, nh, nkv, hs, bs, n_max, n_split, scale);
   return (int)cudaGetLastError();
 }
 
-// ---- int8 cache, and fp32/bf16 rows past 512 bytes: the FMA tile loop ------
+// ---- rows past a warp's 32 vectors: the FMA tile loop ---------------------
 
 constexpr int kThreads = 128;
 
@@ -295,35 +326,38 @@ int launch_tile(const void* q, const void* k, const void* k_scale, const void* v
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_decode(const void* q, const void* k, const void* v, const void* tables,
-                  const void* cache_len, void* out, void* ws, int B, int nh, int nkv, int hs,
-                  int bs, int n_max, int n_split, float scale, void* stream) {
-  constexpr int kVec = paged_attn::RowVec<T>::n;
+// T activations over a cache of C (T, or int8 codes with k_scale/v_scale):
+// the split pair for rows of at most 32 vectors, else the tile kernel
+template <typename T, typename C>
+int launch_decode(const void* q, const void* k, const void* k_scale, const void* v,
+                  const void* v_scale, const void* tables, const void* cache_len, void* out,
+                  void* ws, int B, int nh, int nkv, int hs, int bs, int n_max, int n_split,
+                  float scale, void* stream) {
+  constexpr int kVec = paged_attn::RowVec<C>::n;
   const long long n_keys = (long long)n_max * bs;
-  // a row wider than a warp's 16-byte vectors takes the tile kernel, which
-  // reads no workspace and no split count
-  const bool split = hs / kVec <= 32;
+  // a row wider than a warp's vectors takes the tile kernel, which reads
+  // no workspace and no split count
+  const bool split = hs / kVec <= kMaxVecs;
   if (B < 0 || nkv <= 0 || nh % nkv != 0 || hs <= 0 || hs % kVec != 0 || bs <= 0 ||
       n_max <= 0 || n_keys > (1 << 30) ||
       (split && n_split != (n_keys + kSpan - 1) / kSpan))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   if (!split)
-    return launch_tile<T, T>(q, k, nullptr, v, nullptr, tables, cache_len, out, B, nh, nkv, hs,
+    return launch_tile<T, C>(q, k, k_scale, v, v_scale, tables, cache_len, out, B, nh, nkv, hs,
                              bs, n_max, scale, stream);
   const cudaStream_t st = (cudaStream_t)stream;
   float* w = static_cast<float*>(ws);
   const int rep = nh / nkv;
   const int err =
-      rep == 1   ? launch_split<T, 1>(q, k, v, tables, cache_len, w, B, nh, nkv, hs, bs, n_max,
-                                      n_split, scale, st)
-      : rep == 2 ? launch_split<T, 2>(q, k, v, tables, cache_len, w, B, nh, nkv, hs, bs, n_max,
-                                      n_split, scale, st)
-      : rep <= 4 ? launch_split<T, 4>(q, k, v, tables, cache_len, w, B, nh, nkv, hs, bs, n_max,
-                                      n_split, scale, st)
-                 : launch_split<T, kMaxRows>(q, k, v, tables, cache_len, w, B, nh, nkv, hs, bs,
-                                             n_max, n_split, scale, st);
+      rep == 1   ? launch_split<T, C, 1>(q, k, k_scale, v, v_scale, tables, cache_len, w, B, nh,
+                                         nkv, hs, bs, n_max, n_split, scale, st)
+      : rep == 2 ? launch_split<T, C, 2>(q, k, k_scale, v, v_scale, tables, cache_len, w, B, nh,
+                                         nkv, hs, bs, n_max, n_split, scale, st)
+      : rep <= 4 ? launch_split<T, C, 4>(q, k, k_scale, v, v_scale, tables, cache_len, w, B, nh,
+                                         nkv, hs, bs, n_max, n_split, scale, st)
+                 : launch_split<T, C, kMaxRows>(q, k, k_scale, v, v_scale, tables, cache_len, w,
+                                                B, nh, nkv, hs, bs, n_max, n_split, scale, st);
   if (err) return err;
   decode_combine_kernel<T><<<dim3(nh, B), kCombineThreads, 0, st>>>(
       w, (const int*)cache_len, (T*)out, nh, hs, (int)n_keys, n_split);
@@ -335,34 +369,40 @@ int launch_decode(const void* q, const void* k, const void* v, const void* table
 // dtype: 0 = float32, 1 = bfloat16. q/out (B, nh, hs), q 16-byte aligned;
 // k/v pools (n_blocks, bs, nkv, hs) of the same dtype, 16-byte aligned,
 // hs a multiple of 16 bytes' worth of elements (rows past 512 bytes take
-// the tile kernel, whose tiles must fit in shared memory); tables (B, n_max) int32; cache_len (B,) int32; ws the (B, nh,
-// n_split, hs + 2) fp32 workspace, n_split = ceil(n_max * bs / 128)
-// (both unread, and may be null and 0, for rows past 512 bytes).
-// Returns the launches' cudaError_t (0 = success).
+// the tile kernel, whose tiles must fit in shared memory); tables (B,
+// n_max) int32; cache_len (B,) int32; ws the (B, nh, n_split, hs + 2) fp32
+// workspace, n_split = ceil(n_max * bs / 128) (both unread, and may be
+// null and 0, for rows past 512 bytes). Returns the launches' cudaError_t
+// (0 = success).
 extern "C" int paged_decode_attn(int dtype, const void* q, const void* k, const void* v,
                                  const void* tables, const void* cache_len, void* out, void* ws,
                                  int B, int nh, int nkv, int hs, int bs, int n_max, int n_split,
                                  float scale, void* stream) {
   if (dtype == 0)
-    return launch_decode<float>(q, k, v, tables, cache_len, out, ws, B, nh, nkv, hs, bs, n_max,
-                                n_split, scale, stream);
+    return launch_decode<float, float>(q, k, nullptr, v, nullptr, tables, cache_len, out, ws, B,
+                                       nh, nkv, hs, bs, n_max, n_split, scale, stream);
   if (dtype == 1)
-    return launch_decode<__nv_bfloat16>(q, k, v, tables, cache_len, out, ws, B, nh, nkv, hs, bs,
-                                        n_max, n_split, scale, stream);
+    return launch_decode<__nv_bfloat16, __nv_bfloat16>(q, k, nullptr, v, nullptr, tables,
+                                                       cache_len, out, ws, B, nh, nkv, hs, bs,
+                                                       n_max, n_split, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// The int8 cache: k/v pools of int8 codes, k_scale/v_scale (n_blocks, bs,
-// nkv, 1) float32; q/out, tables and cache_len as paged_decode_attn.
+// The int8 cache: k/v pools of int8 codes (hs a multiple of 8; rows past
+// 256 codes take the tile kernel, which reads no workspace), k_scale/v_scale
+// (n_blocks, bs, nkv, 1) float32; q/out, tables, cache_len, ws and n_split
+// as paged_decode_attn.
 extern "C" int paged_decode_attn_q8(int dtype, const void* q, const void* k, const void* k_scale,
                                     const void* v, const void* v_scale, const void* tables,
-                                    const void* cache_len, void* out, int B, int nh, int nkv,
-                                    int hs, int bs, int n_max, float scale, void* stream) {
+                                    const void* cache_len, void* out, void* ws, int B, int nh,
+                                    int nkv, int hs, int bs, int n_max, int n_split, float scale,
+                                    void* stream) {
   if (dtype == 0)
-    return launch_tile<float, int8_t>(q, k, k_scale, v, v_scale, tables, cache_len, out, B, nh, nkv, hs, bs,
-                            n_max, scale, stream);
+    return launch_decode<float, int8_t>(q, k, k_scale, v, v_scale, tables, cache_len, out, ws, B,
+                                        nh, nkv, hs, bs, n_max, n_split, scale, stream);
   if (dtype == 1)
-    return launch_tile<__nv_bfloat16, int8_t>(q, k, k_scale, v, v_scale, tables, cache_len, out, B, nh, nkv,
-                                    hs, bs, n_max, scale, stream);
+    return launch_decode<__nv_bfloat16, int8_t>(q, k, k_scale, v, v_scale, tables, cache_len,
+                                                out, ws, B, nh, nkv, hs, bs, n_max, n_split,
+                                                scale, stream);
   return (int)cudaErrorInvalidValue;
 }

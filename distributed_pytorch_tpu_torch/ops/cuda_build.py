@@ -56,10 +56,10 @@ KERNELS = {
         (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)),
     "paged_decode_attn_q8": (
         "paged_decode_attn.cu",
-        # dtype, q, k, k_scale, v, v_scale, tables, cache_len, out, B, nh,
-        # nkv, hs, bs, n_max, scale, stream
-        (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-         _P)),
+        # dtype, q, k, k_scale, v, v_scale, tables, cache_len, out, ws, B,
+        # nh, nkv, hs, bs, n_max, n_split, scale, stream
+        (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+         _F, _P)),
     "paged_prefill_attn_q8": (
         "paged_prefill_attn.cu",
         # dtype, q, k, k_scale, v, v_scale, table, out, n_tok, nh, nkv, hs,

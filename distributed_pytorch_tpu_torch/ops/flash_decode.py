@@ -14,10 +14,10 @@ Pallas bodies on the serving path map to four CUDA kernels here:
   (acc, m, l) to a (B, nh, n_split, hs + 2) workspace that the wrapper
   allocates (`decode_workspace`), and a combine kernel of the same C
   entry merges the live splits in split order. A K/V row wider than the
-  split kernel holds in one warp's registers (512 bytes: head size > 256
-  in bf16, > 128 in fp32; `takes_split`) takes the FMA tile kernel
-  (`attend_rows`) instead, picked by the C entry before launch; it needs
-  no workspace.
+  split kernel holds in one warp's registers (32 vectors: 512 bytes of
+  fp32 or bf16, head size > 256 in bf16, > 128 in fp32; 256 int8 codes;
+  `takes_split`) takes the FMA tile kernel (`attend_rows`) instead,
+  picked by the C entry before launch; it needs no workspace.
 * `paged_flash_prefill` (reference `_prefill_kernel`) ->
   `paged_prefill_attn` (csrc/paged_prefill_attn.cu). A T-row chunk of ONE
   sequence at a block-aligned offset, causal on global position off + t.
@@ -35,6 +35,9 @@ Pallas bodies on the serving path map to four CUDA kernels here:
   k/v hold int8 codes: the score is the fp32 dot of q with the codes
   times (k_scale * scale), the normalizer sums the fp32 p, and the PV
   operand is (p * v_scale) rounded to the query dtype against the codes.
+  The int8 decode runs the same split-KV pair (codes as 8-byte vectors,
+  dequantized in registers; the same workspace), rows past 256 codes the
+  tile kernel; the int8 prefill runs `attend_rows`.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; for CPU tensors it runs the plain version, which
@@ -48,8 +51,8 @@ The `*_usable` gates say whether the kernels take a call's shapes and
 dtypes (fp32/bf16 activations over a same-dtype cache, or an int8 cache
 with fp32 scale rows; head size a multiple of 8, whole kv-head groups,
 16-byte aligned pools, tiles within the card's 227 KB of shared memory:
-the split-KV decode's merge rows for a row of at most 512 bytes, the FMA
-tile kernel's K/V tiles for a wider one).
+the split-KV decode's merge rows for a row of at most 32 vectors, the
+FMA tile kernel's K/V tiles for a wider one).
 A wrapper given CUDA tensors its gate declines raises:
 `ops/attention_core.py` routes by shape alone, so no cached call on the
 card falls quietly to a plain path.
@@ -77,8 +80,9 @@ _PREFILL_ROWS = 64               # packed query rows per prefill CTA
 _SPAN = 128                      # keys a decode split owns (csrc kSpan)
 _SPLIT_WARPS = 4                 # warps of a decode split CTA (csrc kWarps)
 _SPLIT_ROWS = 8                  # query rows a split CTA holds (kMaxRows)
-_ROW_BYTES = 512                 # widest K/V row of the split kernel; wider
-                                 # rows take the tile kernel
+_ROW_VECS = 32                   # widest K/V row of the split kernel, in
+                                 # vectors (16 bytes, 8 for int8 codes);
+                                 # wider rows take the tile kernel
 
 
 def reset_counts() -> None:
@@ -109,10 +113,23 @@ def decode_workspace(B: int, nh: int, hs: int, n_keys: int, device):
 
 
 def takes_split(hs: int, dtype) -> bool:
-    """Whether fp32/bf16 K/V rows of head size `hs` take the split-KV
-    decode (rows of at most 512 bytes, a warp's 16-byte vectors) rather
+    """Whether K/V rows of head size `hs` in the cache dtype `dtype` take
+    the split-KV decode (at most one vector a lane of a warp: 512 bytes of
+    fp32 or bf16 in 16-byte vectors, 256 int8 codes in 8-byte ones) rather
     than the tile kernel."""
-    return hs * dtype.itemsize <= _ROW_BYTES
+    vec = 8 if dtype == torch.int8 else 16
+    return hs * dtype.itemsize <= _ROW_VECS * vec
+
+
+def workspace_for(q, k, n_keys: int):
+    """The workspace a decode launch of q (B, nh, hs) over the pool `k`
+    (its dtype the cache's) hands its C entry: `decode_workspace` where the
+    rows take the split kernel, None (no split count) where they take the
+    tile kernel."""
+    B, nh, hs = q.shape
+    if not takes_split(hs, k.dtype):
+        return None
+    return decode_workspace(B, nh, hs, n_keys, q.device)
 
 
 def _split_smem_bytes(rep: int, hs: int) -> int:
@@ -153,7 +170,7 @@ def paged_flash_decode_usable(q, k, v, k_scale=None, v_scale=None) -> bool:
     nkv = k.shape[2]
     if nh % nkv:
         return False
-    if k_scale is None and takes_split(hs, q.dtype):
+    if takes_split(hs, k.dtype):
         return _split_smem_bytes(nh // nkv, hs) <= _SMEM_LIMIT
     return _smem_bytes(nh // nkv, hs, k_scale is not None) <= _SMEM_LIMIT
 
@@ -323,20 +340,15 @@ def _launch_decode(q, k, v, tables, cache_len, scale, k_scale,
     n_max = tables.shape[1]
     out = torch.empty_like(q)
     lib = cuda_build.load(name)
-    if k_scale is None:
-        ws = decode_workspace(B, nh, hs, n_max * bs, q.device) \
-            if takes_split(hs, q.dtype) else None
-        kv = (k.data_ptr(), v.data_ptr())
-        tail = (out.data_ptr(), None if ws is None else ws.data_ptr(), B, nh,
-                nkv, hs, bs, n_max, 0 if ws is None else ws.shape[2])
-    else:
-        kv = (k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
-              v_scale.data_ptr())
-        tail = (out.data_ptr(), B, nh, nkv, hs, bs, n_max)
+    ws = workspace_for(q, k, n_max * bs)
+    kv = (k.data_ptr(), v.data_ptr()) if k_scale is None else \
+        (k.data_ptr(), k_scale.data_ptr(), v.data_ptr(), v_scale.data_ptr())
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
             _DTYPE_CODE[q.dtype], q.data_ptr(), *kv, tables.data_ptr(),
-            cache_len.data_ptr(), *tail, float(scale),
+            cache_len.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), B, nh, nkv, hs, bs, n_max,
+            0 if ws is None else ws.shape[2], float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

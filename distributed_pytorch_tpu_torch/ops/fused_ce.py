@@ -22,12 +22,12 @@ before each product, fp32 accumulation. `LAUNCHES[name]` counts kernel
 launches, `PLAIN_CALLS[name]` plain-version calls; `DEGRADED` counts losses
 that asked for `loss_impl='pallas'` and took the chunked path because the
 reference's gate refused their shape or dtype (models/gpt.py). The kernels
-take every width that gate accepts. The backward's C entries pick a kernel
-by dtype and width before launch (the library's `fused_ce_bwd_plan` names
-it): bf16 at C <= 1024 runs the Hopper kernel `ce_bwd_kernel_sm90` (wgmma
-on a TMA ring, csrc/fused_ce_sm90.cuh); wider bf16 and fp32 run
-`ce_kernel`, which streams C in chunks of at most 768 columns
-(csrc/fused_ce_common.cuh).
+take every width that gate accepts. Each C entry picks a kernel by dtype
+and width before launch (the libraries' `fused_ce_fwd_plan` and
+`fused_ce_bwd_plan` name it): bf16 at C <= 1024 runs the Hopper kernel
+`ce_kernel_sm90` (wgmma on a TMA ring, csrc/fused_ce_sm90.cuh); wider bf16
+and fp32 run `ce_kernel`, which streams C in chunks of at most 768
+columns (csrc/fused_ce_common.cuh).
 
 The kernels take the vocabulary as it is: columns past V are masked, so W
 is never padded on the host (the reference's `_pad_vocab` :261). Only the

@@ -11,7 +11,11 @@ and 128, MHA, GQA and MQA, chunks off its 64-row tiles and offsets past
 256, other bf16 head sizes through the FMA kernel, and two wgmma launches
 bit-equal; the
 same three routes over an int8 cache with fp32 scale rows (the `_q8`
-kernels, head sizes 8 mod 16 included), at the same limits.
+kernels, head sizes 8 mod 16 included), at the same limits: the int8
+decode's split pair at head sizes 8-256, rep 1, 6 and 12 (two row
+chunks), lengths at its 128-key split boundaries, NaN scales in every
+dead row, two launches bit-equal, the kernels the profiler sees, and
+int8 rows past 256 codes on the tile kernel.
 The flash-attention kernels (forward, dq, dkv) over causal and full
 attention, MHA and GQA (rep 4 at head size 128), dropout 0 and 0.2, T and
 S off the bf16 kernels' tiles (T 1, 70, 130, 200) and S > T, head sizes 64
@@ -27,7 +31,9 @@ And the autograd path against the naive attention's gradients in fp32. The fused
 cross-entropy kernels (forward, dx, dW) at ragged token counts and
 vocabularies, with ignored rows, each output element by element within
 atol + rtol x |plain| (`CE_TOL`), and their autograd route against the
-plain route on the CPU. Lion and Adafactor steps on the card against the
+plain route on the CPU; the bf16 forward's and backward's routes by width
+(the C plans), the training shape, ragged vocabularies, two launches
+bit-equal, and the kernel the profiler sees against the plan's. Lion and Adafactor steps on the card against the
 same steps on the CPU. The grouped-matmul kernels (forward, dx, dW;
 unscaled and scaled) over ragged groups with empty and singleton
 experts, every row on one expert, and widths that are not multiples of
@@ -176,15 +182,21 @@ def test_paged_decode_many_rows_a_kv_head(dev, dtype, nkv, hs):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-def test_paged_decode_is_deterministic(dev, dtype):
-    """Two launches of the split-KV decode are bit-equal: the warps merge
-    in warp order and the combine merges the splits in split order."""
+@pytest.mark.parametrize("cache", ["native", "int8"])
+def test_paged_decode_is_deterministic(dev, dtype, cache):
+    """Two launches of the split-KV decode are bit-equal, over a cache of
+    the activations' dtype and over int8 codes: the warps merge in warp
+    order and the combine merges the splits in split order."""
     q, kp, vp, tables = _decode_inputs(dev, dtype, 8, 12, 12, 64, 16, 64,
                                        seed=9)
     cl = torch.tensor([1, 17, 300, 1024, 5, 64, 511, 900],
                       dtype=torch.int32, device=dev)
-    first, second = (fd.paged_flash_decode(q, kp, vp, tables, cl,
-                                           scale=0.125) for _ in range(2))
+    kw = dict(scale=0.125)
+    if cache == "int8":
+        (kp, ks), (vp, vs) = quantize_kv(kp.float()), quantize_kv(vp.float())
+        kw.update(k_scale=ks, v_scale=vs)
+    first, second = (fd.paged_flash_decode(q, kp, vp, tables, cl, **kw)
+                     for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(first, second)
 
@@ -369,29 +381,69 @@ def _q8_pools(dev, n_blocks, bs, nkv, hs, seed):
     return kc, ks, vc, vs, g
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("nh,nkv,hs", [(12, 12, 64), (8, 2, 40),
-                                       (4, 1, 24), (8, 1, 128)])
-def test_paged_decode_q8(dev, dtype, nh, nkv, hs):
-    """The int8 decode kernel against its plain version; blocks past each
-    sequence's length are poisoned (NaN scales) and never reach it."""
-    B, bs, n_max = 5, 16, 8
-    kc, ks, vc, vs, g = _q8_pools(dev, 2 + B * n_max, bs, nkv, hs, seed=nh)
-    tables = torch.from_numpy(np.random.default_rng(0).permutation(
+def _q8_decode_inputs(dev, dtype, B, nh, nkv, hs, bs, n_max, seed):
+    """int8 pools with two spare blocks, a permuted (B, n_max) table, a
+    query."""
+    kc, ks, vc, vs, g = _q8_pools(dev, 2 + B * n_max, bs, nkv, hs, seed)
+    tables = torch.from_numpy(np.random.default_rng(seed).permutation(
         np.arange(1, 1 + B * n_max)).reshape(B, n_max).astype(np.int32)) \
         .to(dev)
-    cl = torch.tensor([1, 16, 17, 100, 128], dtype=torch.int32, device=dev)
     q = torch.randn(B, nh, hs, generator=g, device=dev).to(dtype)
+    return q, kc, ks, vc, vs, tables
+
+
+def _poison_dead_rows(ks, vs, tables, cl, spare=True):
+    """NaN scales in every row at or past each sequence's cache_len and,
+    with `spare`, in the pool's last block (no table holds it); for a
+    contiguous cache `tables` is arange(B)[:, None]."""
+    if spare:
+        ks[-1] = float("nan")
+        vs[-1] = float("nan")
+    bs = ks.shape[1]
+    for b, n in enumerate(cl.tolist()):
+        for c, blk in enumerate(tables[b].tolist()):
+            first = max(0, n - c * bs)
+            ks[blk, first:] = float("nan")
+            vs[blk, first:] = float("nan")
+
+
+def _q8_decode_against_plain(dev, dtype, q, kc, ks, vc, vs, tables, cl,
+                             route="paged"):
+    """The int8 decode against its plain version (computed before the dead
+    rows are poisoned), one launch, no plain call on the card."""
+    hs = q.shape[-1]
     kw = dict(scale=hs ** -0.5, k_scale=ks, v_scale=vs)
-    ref = fd.paged_flash_decode_plain(q, kc, vc, tables, cl, **kw)
-    ks[-1] = float("nan")                    # a block no table holds
-    vs[-1] = float("nan")
-    ks[tables[0, 0], 1:] = float("nan")      # rows past cache_len = 1
-    vs[tables[0, 0], 1:] = float("nan")
+    if route == "paged":
+        ref = fd.paged_flash_decode_plain(q, kc, vc, tables, cl, **kw)
+        _poison_dead_rows(ks, vs, tables, cl)
+    else:
+        ref = fd.flash_decode_plain(q, kc, vc, cl, **kw)
+        _poison_dead_rows(ks, vs, torch.arange(
+            q.shape[0], device=dev)[:, None], cl, spare=False)
     fd.reset_counts()
-    out = fd.paged_flash_decode(q, kc, vc, tables, cl, **kw)
+    out = fd.paged_flash_decode(q, kc, vc, tables, cl, **kw) \
+        if route == "paged" else fd.flash_decode(q, kc, vc, cl, **kw)
     assert fd.LAUNCHES["paged_decode_attn_q8"] == 1
+    assert fd.PLAIN_CALLS == dict.fromkeys(fd.PLAIN_CALLS, 0)
     _close(out, ref, dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("nh,nkv,hs", [(12, 12, 64), (8, 2, 40),
+                                       (4, 1, 24), (8, 1, 128), (8, 2, 8),
+                                       (8, 2, 256)])
+def test_paged_decode_q8(dev, dtype, nh, nkv, hs):
+    """The int8 decode (its split pair: rows of 1-32 8-byte vectors, 8 mod
+    16 included) against its plain version; a block no table holds and
+    every row past each sequence's length are poisoned (NaN scales) and
+    never reach it."""
+    B, bs, n_max = 5, 16, 8
+    assert fd.takes_split(hs, torch.int8)
+    q, kc, ks, vc, vs, tables = _q8_decode_inputs(dev, dtype, B, nh, nkv,
+                                                  hs, bs, n_max, seed=nh)
+    cl = torch.tensor([1, 16, 17, 100, 128], dtype=torch.int32, device=dev)
+    _q8_decode_against_plain(dev, dtype, q, kc, ks, vc, vs, tables, cl)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -445,6 +497,83 @@ def test_q8_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                    k, vc, bt[:1], 0, scale=0.125,
                                    k_scale=ks, v_scale=vs)
     assert fd.PLAIN_CALLS == {k: 0 for k in fd.PLAIN_CALLS}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("route", ["paged", "contiguous"])
+def test_paged_decode_q8_split_boundaries(dev, dtype, route):
+    """Lengths 1, one short of, at and one past a 128-key split, and the
+    whole 1024-key table (eight splits), paged and contiguous."""
+    bs, n_max, nh, hs = 16, 64, 12, 64
+    cl = torch.tensor([1, 127, 128, 129, 1024], dtype=torch.int32,
+                      device=dev)
+    B = cl.numel()
+    q, kc, ks, vc, vs, tables = _q8_decode_inputs(dev, dtype, B, nh, nh, hs,
+                                                  bs, n_max, seed=7)
+    if route == "contiguous":
+        kc, ks, vc, vs, _ = _q8_pools(dev, B, n_max * bs, nh, hs, seed=8)
+    _q8_decode_against_plain(dev, dtype, q, kc, ks, vc, vs, tables, cl,
+                             route)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("nkv", [12, 2, 1], ids=["mha", "rep6", "rep12"])
+def test_paged_decode_q8_many_rows_a_kv_head(dev, dtype, nkv):
+    """12 query heads over 12, 2 or 1 kv heads: rep 1, 6 (one chunk of 8
+    rows) and 12 (two row chunks of the split kernel), ragged lengths."""
+    q, kc, ks, vc, vs, tables = _q8_decode_inputs(dev, dtype, 4, 12, nkv,
+                                                  64, 16, 20, seed=nkv)
+    cl = torch.tensor([1, 129, 200, 320], dtype=torch.int32, device=dev)
+    _q8_decode_against_plain(dev, dtype, q, kc, ks, vc, vs, tables, cl)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("hs", [264, 320])
+@pytest.mark.parametrize("route", ["paged", "contiguous"])
+def test_decode_q8_rows_wider_than_the_split_kernel(dev, dtype, hs, route):
+    """int8 rows past 256 codes (33 and 40 vectors) decode through the FMA
+    tile kernel the C entry picks for them (no workspace), paged and
+    contiguous, GQA at rep 2, ragged lengths up to the whole table."""
+    assert not fd.takes_split(hs, torch.int8)
+    bs, n_max = 16, 12
+    cl = torch.tensor([1, 17, 130, n_max * bs], dtype=torch.int32,
+                      device=dev)
+    B = cl.numel()
+    q, kc, ks, vc, vs, tables = _q8_decode_inputs(dev, dtype, B, 4, 2, hs,
+                                                  bs, n_max, seed=hs)
+    assert fd.paged_flash_decode_usable(q[:, None], kc, vc, ks, vs)
+    if route == "contiguous":
+        kc, ks, vc, vs, _ = _q8_pools(dev, B, n_max * bs, 2, hs, seed=hs + 1)
+    _q8_decode_against_plain(dev, dtype, q, kc, ks, vc, vs, tables, cl,
+                             route)
+
+
+@pytest.mark.parametrize("hs,kernels", [
+    (64, ("decode_split_kernel", "decode_combine_kernel")),
+    (264, ("paged_decode_kernel",))])
+def test_q8_decode_runs_the_kernels_its_row_width_names(dev, hs, kernels):
+    """Under the profiler, an int8 decode launches the split and combine
+    kernels (int8 instantiation) for rows of at most 256 codes, the tile
+    kernel past that, and nothing else of the decode."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, kc, ks, vc, vs, tables = _q8_decode_inputs(dev, torch.bfloat16, 4, 8,
+                                                  2, hs, 16, 8, seed=3)
+    cl = torch.tensor([1, 40, 128, 128], dtype=torch.int32, device=dev)
+    kw = dict(scale=hs ** -0.5, k_scale=ks, v_scale=vs)
+    fd.paged_flash_decode(q, kc, vc, tables, cl, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fd.paged_flash_decode(q, kc, vc, tables, cl, **kw)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "_kernel<" in e.key
+             and "decode" in e.key]
+    assert sorted({k for k in kernels for n in names if k in n}) == \
+        sorted(kernels), names
+    assert all(any(k in n for k in kernels) for n in names), names
+    if len(kernels) == 2:
+        assert all("signed char" in n for n in names
+                   if "split" in n), names
 
 
 FLASH_CASES = [  # B, T, S, nh, nkv, D, causal
@@ -695,9 +824,10 @@ def test_pallas_loss_at_gpt2_medium_width_runs_the_kernels(dev):
 
 BWD = {"dx": (ce.fused_ce_bwd_dx, ce.fused_ce_bwd_dx_plain),
        "dw": (ce.fused_ce_bwd_dw, ce.fused_ce_bwd_dw_plain)}
-# the kernel each route of `fused_ce_bwd_plan` launches, as the profiler
-# names it: 2 sm90, 1 mma.sync (bf16), 0 FMA (fp32)
-ROUTE_KERNEL = {2: "ce_bwd_kernel_sm90", 1: "ce_kernel<", 0: "ce_kernel<"}
+# the kernel each route of `fused_ce_fwd_plan` and `fused_ce_bwd_plan`
+# launches, as the profiler names it: 2 sm90, 1 mma.sync (bf16), 0 FMA
+# (fp32)
+ROUTE_KERNEL = {2: "ce_kernel_sm90", 1: "ce_kernel<", 0: "ce_kernel<"}
 
 
 def _bwd_plan(n, V, C, dtype=torch.bfloat16):
@@ -812,6 +942,92 @@ def test_fused_ce_bwd_bf16_is_deterministic(dev, kernel):
     first, second = (fk(x, w, t, lse, coef) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def _fwd_plan(n, V, C, dtype=torch.bfloat16):
+    """csrc/fused_ce_fwd.cu `fused_ce_fwd_plan`: (route, ring stages) of
+    the forward for n tokens of width C."""
+    import ctypes
+
+    from distributed_pytorch_tpu_torch.ops import cuda_build
+    stages = ctypes.c_int()
+    route = cuda_build.load("fused_ce_fwd").fused_ce_fwd_plan(
+        int(dtype == torch.bfloat16), n, V, C, ctypes.byref(stages))
+    return route, stages.value
+
+
+def _fwd_against_plain(dev, n, C, V, seed=0):
+    """bf16 nll and lse against the plain version within CE_TOL["lse"];
+    ignored rows (the first 5) have nll equal to lse."""
+    x, w, t, _ = _ce_inputs(dev, torch.bfloat16, n, C, V, seed=seed)
+    ce.reset_counts()
+    nll, lse = ce.fused_ce_fwd(x, w, t)
+    r_nll, r_lse = ce.fused_ce_fwd_plain(x, w, t)
+    _within(nll, r_nll, CE_TOL["lse"])
+    _within(lse, r_lse, CE_TOL["lse"])
+    assert torch.equal(nll[:5], lse[:5])
+    assert ce.LAUNCHES["fused_ce_fwd"] == 1
+    assert ce.PLAIN_CALLS["fused_ce_fwd"] == 1          # the reference
+
+
+@pytest.mark.parametrize("C,stages", [(128, 8), (640, 8), (768, 8),
+                                      (896, 7), (1024, 6), (1152, None),
+                                      (1280, None)])
+def test_fused_ce_fwd_plan(dev, C, stages):
+    """The forward's route by dtype and width: bf16 runs the sm90 kernel
+    up to C 1024, its ring as deep as the 64 x C resident tile leaves room
+    for (8 stages of 16 KB up to C 768, 6 at C 1024); past it, and with no
+    tokens or no vocabulary, the mma.sync kernel; fp32 the FMA kernel."""
+    assert _fwd_plan(8192, 50304, C) == \
+        ((1, 0) if stages is None else (2, stages))
+    assert _fwd_plan(0, 50304, C) == (1, 0)
+    assert _fwd_plan(8192, 0, C) == (1, 0)
+    assert _fwd_plan(8192, 50304, C, torch.float32) == (0, 0)
+
+
+def test_fused_ce_fwd_bf16_training_shape(dev):
+    """The training path's shape (n 8192, C 768, V 50304) on the sm90
+    forward."""
+    assert _fwd_plan(8192, 50304, 768) == (2, 8)
+    _fwd_against_plain(dev, 8192, 768, 50304)
+
+
+@pytest.mark.parametrize("C", [768, 1024, 1280])
+@pytest.mark.parametrize("V", [96, 100, 1000, 50304])
+def test_fused_ce_fwd_bf16_ragged(dev, C, V):
+    """300 tokens (not a multiple of the 64 resident rows) against
+    vocabularies on and off the 128-row tiles (V 96 and 100: one tile,
+    whose columns past V are masked; V 1000: the last of 8 tiles is
+    ragged; V 50304: none is) and an odd or even tile count; C 768 and 1024
+    run the sm90 kernel, C 1280 the mma.sync kernel."""
+    assert _fwd_plan(300, V, C)[0] == (2 if C <= 1024 else 1)
+    _fwd_against_plain(dev, 300, C, V, seed=C + V)
+
+
+def test_fused_ce_fwd_bf16_is_deterministic(dev):
+    """Two launches of the sm90 forward are bit-equal: each CTA owns its
+    rows and merges its lanes and warpgroups in a fixed order."""
+    x, w, t, _ = _ce_inputs(dev, torch.bfloat16, 1000, 768, 5000, seed=4)
+    (n1, l1), (n2, l2) = (ce.fused_ce_fwd(x, w, t) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(n1, n2) and torch.equal(l1, l2)
+
+
+@pytest.mark.parametrize("C", [768, 1024, 1280])
+def test_fused_ce_fwd_runs_the_kernel_its_route_names(dev, C):
+    """Under the profiler, the forward launches the kernel the C plan
+    names and no other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w, t, _ = _ce_inputs(dev, torch.bfloat16, 300, C, 1000)
+    route = _fwd_plan(300, 1000, C)[0]
+    ce.fused_ce_fwd(x, w, t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ce.fused_ce_fwd(x, w, t)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "fce::" in e.key]
+    assert names and all(ROUTE_KERNEL[route] in k for k in names), names
 
 
 @pytest.mark.parametrize("optimizer,lr", [("lion", 1e-4), ("adafactor", 1e-2)])

@@ -321,11 +321,33 @@ def test_q8_usable_gates():
 @pytest.mark.parametrize("hs,dtype,split", [
     (64, torch.bfloat16, True), (256, torch.bfloat16, True),
     (264, torch.bfloat16, False), (128, torch.float32, True),
-    (136, torch.float32, False), (256, torch.float32, False)])
+    (136, torch.float32, False), (256, torch.float32, False),
+    (8, torch.int8, True), (256, torch.int8, True),
+    (264, torch.int8, False)])
 def test_takes_split(hs, dtype, split):
-    """K/V rows of at most 512 bytes take the split-KV decode (and its
-    workspace); wider rows the tile kernel, which needs none."""
+    """K/V rows of at most 32 vectors (512 bytes of fp32 or bf16, 256 int8
+    codes) take the split-KV decode (and its workspace); wider rows the
+    tile kernel, which needs none."""
     assert tfd.takes_split(hs, dtype) is split
+
+
+@pytest.mark.parametrize("hs,dtype,splits", [
+    (64, torch.int8, 8), (8, torch.int8, 8), (256, torch.int8, 8),
+    (264, torch.int8, None), (64, torch.bfloat16, 8),
+    (264, torch.bfloat16, None)])
+def test_decode_workspace_follows_the_cache_rows(hs, dtype, splits):
+    """The workspace a decode launch hands its C entry: for int8 codes as
+    for bf16 rows, (B, nh, n_split, hs + 2) fp32 with n_split from the
+    table's capacity (1024 keys: 8 splits) where the rows take the split
+    kernel, none where they take the tile kernel."""
+    q = torch.zeros(3, 12, hs)
+    pool = torch.zeros(65, 16, 4, hs, dtype=dtype)
+    ws = tfd.workspace_for(q, pool, 64 * 16)
+    if splits is None:
+        assert ws is None
+    else:
+        assert ws.shape == (3, 12, splits, hs + 2)
+        assert ws.dtype == torch.float32
 
 
 def test_split_decode_gate():

@@ -191,10 +191,11 @@ def _chip_smoke():
 
 # a phase 2 inventory as `cuobjdump -sass` names the kernels: the bf16
 # wgmma kernels (flash fwd, dq, dkv and the paged prefill at D 64 and 128,
-# grouped fwd, dx and dW unscaled and scaled, the fused CE backward's dx
-# and dW) and some of the others (fp32 flash, fp32 grouped forward, dx and
-# dW, the FMA prefill, the int8 decode, the split-KV decode's split and
-# combine kernels, and the fused CE backward's mma.sync and fp32 kernels)
+# grouped fwd, dx and dW unscaled and scaled, the fused CE forward, dx and
+# dW) and some of the others (fp32 flash, fp32 grouped forward, dx and
+# dW, the FMA prefill, the tile decode, the split-KV decode's split (bf16
+# and int8 caches) and combine kernels, and the fused CE's mma.sync and
+# fp32 kernels)
 SASS_SM90 = [
     f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi{d}EEEvNS0_4MapsEN5flash"
     "6ParamsE"
@@ -206,8 +207,8 @@ SASS_SM90 = [
     for b in (0, 1)] + [
     f"_ZN12_GLOBAL__N_112prefill_sm9019prefill_kernel_sm90ILi{d}EEEvPK13"
     "__nv_bfloat16S4_S4_PKiPS2_iiiiiiif" for d in (64, 128)] + [
-    f"_ZN3fce18ce_bwd_kernel_sm90ILi{m}EEEvNS_3s904MapsENS_6ParamsEi"
-    for m in (1, 2)]
+    f"_ZN3fce14ce_kernel_sm90ILi{m}EEEvNS_3s904MapsENS_6ParamsEi"
+    for m in (0, 1, 2)]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
@@ -216,11 +217,14 @@ SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "PKT0_S7_PKfS9_PKiPS2_iiiiiiif",
               "_ZN12_GLOBAL__N_119paged_decode_kernelIfEEvPKT_PKaS5_PKfS7_"
               "PKiS9_PS1_iiiiiif",
-              "_ZN12_GLOBAL__N_119decode_split_kernelI13__nv_bfloat16Li1EEEvPK"
-              "T_S5_S5_PKiS7_Pfiiiiiiif",
+              "_ZN12_GLOBAL__N_119decode_split_kernelI13__nv_bfloat16S1_Li1EEEvP"
+              "KT_PKT0_S8_PKfSA_PKiSC_Pfiiiiiiif",
+              "_ZN12_GLOBAL__N_119decode_split_kernelI13__nv_bfloat16aLi4EEEvPKT_"
+              "PKT0_S7_PKfS9_PKiSB_Pfiiiiiiif",
               "_ZN12_GLOBAL__N_121decode_combine_kernelIfEEvPKfPKiPT_iiii",
               "_ZN3fce9ce_kernelI13__nv_bfloat16Li1EEEvNS_6ParamsE",
-              "_ZN3fce9ce_kernelIfLi2EEEvNS_6ParamsE"]
+              "_ZN3fce9ce_kernelIfLi2EEEvNS_6ParamsE",
+              "_ZN3fce9ce_kernelI13__nv_bfloat16Li0EEEvNS_6ParamsE"]
 # each broken inventory: (kernel, op, count; op None drops the kernel),
 # and the name the failure must print
 BROKEN = {"complete": None,
@@ -240,12 +244,20 @@ BROKEN = {"complete": None,
                                 "decode_split_kernel"),
           "decode_split_missing": ((SASS_OTHER[6], None, 0),
                                    "decode_split_kernel"),
-          "ce_bwd_without_hgmma": ((SASS_SM90[14], "HGMMA", 0),
-                                   "ce_bwd_kernel_sm90"),
-          "ce_bwd_without_tma": ((SASS_SM90[15], "UTMALDG", 0),
-                                 "ce_bwd_kernel_sm90"),
-          "ce_mma_sync_with_hgmma": ((SASS_OTHER[8], "HGMMA", 4),
-                                     "ce_kernel")}
+          "ce_bwd_without_hgmma": ((SASS_SM90[15], "HGMMA", 0),
+                                   "ce_kernel_sm90"),
+          "ce_bwd_without_tma": ((SASS_SM90[16], "UTMALDG", 0),
+                                 "ce_kernel_sm90"),
+          "ce_fwd_without_hgmma": ((SASS_SM90[14], "HGMMA", 0),
+                                   "ce_kernel_sm90"),
+          "ce_fwd_without_tma": ((SASS_SM90[14], "UTMALDG", 0),
+                                 "ce_kernel_sm90"),
+          "ce_mma_sync_with_hgmma": ((SASS_OTHER[9], "HGMMA", 4),
+                                     "ce_kernel"),
+          "ce_fwd_mma_sync_with_hgmma": ((SASS_OTHER[11], "HGMMA", 4),
+                                         "ce_kernel"),
+          "q8_decode_split_with_hgmma": ((SASS_OTHER[7], "HGMMA", 4),
+                                         "decode_split_kernel")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
@@ -257,8 +269,10 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     non-zero when one kernel breaks that: the bf16 dq, the prefill, the
     grouped forward or the CE backward without HGMMA, the prefill with a
     TMA load, the dx, the grouped forward or the CE backward without one,
-    the FMA prefill, the decode split or the CE backward's mma.sync kernel
-    with HGMMA, the decode split missing."""
+    the FMA prefill, the decode split (bf16 or int8 cache) or the CE
+    forward's or backward's mma.sync kernel with HGMMA, the decode split
+    missing; the CE forward (its sm90 kernel) without HGMMA or without a
+    TMA load."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
     for fn in SASS_SM90[12:14]:                 # the paged prefill
@@ -270,8 +284,9 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
         cs.check_sass(inv)
         return
     (fn, op, n), name = BROKEN[broken]
-    if op is None:
-        del inv[fn]
+    if op is None:                              # every instantiation
+        for f in [f for f in inv if name in f]:
+            del inv[f]
     else:
         inv[fn][op] = n
     with pytest.raises(SystemExit) as exc:
@@ -320,15 +335,21 @@ SPLIT = ("void (anonymous namespace)::decode_split_kernel<__nv_bfloat16, 1>"
          "float)")
 COMBINE = ("void (anonymous namespace)::decode_combine_kernel<__nv_bfloat16>"
            "(float const*, int const*, __nv_bfloat16*, int, int, int, int)")
-Q8 = ("void (anonymous namespace)::paged_decode_kernel<__nv_bfloat16>("
-      "__nv_bfloat16 const*, signed char const*, signed char const*, "
-      "float const*, float const*, int const*, int const*, __nv_bfloat16*, "
-      "int, int, int, int, int, float)")
+SPLIT_Q8 = SPLIT.replace("__nv_bfloat16, 1>", "__nv_bfloat16, signed char, 4>") \
+    .replace("__nv_bfloat16 const*, __nv_bfloat16 const*, int const*",
+             "signed char const*, signed char const*, float const*, float "
+             "const*, int const*")
+TILE = ("void (anonymous namespace)::paged_decode_kernel<__nv_bfloat16, "
+        "signed char>(__nv_bfloat16 const*, signed char const*, signed char "
+        "const*, float const*, float const*, int const*, int const*, "
+        "__nv_bfloat16*, int, int, int, int, int, int, float)")
 # (events, device ms per decode launch)
 DECODE_EVENTS = {
     "split_kv": (_events((SPLIT, 120, 720.0), (COMBINE, 120, 240.0),
                          ("void gemv_kernel<float>()", 240, 999.0)), 0.008),
-    "int8": (_events((Q8, 120, 6000.0), (COMBINE, 3, 30.0)), 0.05),
+    "int8": (_events((SPLIT_Q8, 120, 1200.0), (COMBINE, 120, 240.0),
+                     ("void gemv_kernel<float>()", 240, 999.0)), 0.012),
+    "tile": (_events((TILE, 120, 6000.0), (COMBINE, 3, 30.0)), 0.05),
     "split_kv_two_rows": (_events((SPLIT, 60, 300.0),
                                   (SPLIT.replace(", 1>", ", 2>"), 60, 420.0),
                                   (COMBINE, 120, 120.0)), 0.007)}
@@ -337,11 +358,25 @@ DECODE_EVENTS = {
 @pytest.mark.parametrize("case", DECODE_EVENTS)
 def test_decode_ms_per_launch_reads_split_and_combine(case):
     """The serving profile's decode time per launch is split plus combine
-    over the split kernel's launches for the fp32/bf16 split-KV pair (its
-    row-count instantiations together), and the int8 cache's
-    `paged_decode_kernel` alone; other kernels do not count."""
+    over the split kernel's launches for the split-KV pair (over a bf16 or
+    an int8 cache; its row-count instantiations together), and the tile
+    kernel `paged_decode_kernel` alone where no split kernel ran (rows
+    past a warp's 32 vectors); other kernels do not count."""
     ev, want = DECODE_EVENTS[case]
     assert _chip_smoke().decode_ms_per_launch(ev) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("key,name", [
+    (SPLIT, "decode_split_kernel<__nv_bfloat16, 1>"),
+    (SPLIT_Q8, "decode_split_kernel<__nv_bfloat16, signed char, 4>"),
+    ("void fce::ce_kernel_sm90<0>(fce::s90::Maps, fce::Params, int)",
+     "fce::ce_kernel_sm90<0>"),
+    ("Memset (Device)", "Memset (Device)")])
+def test_kernel_name_drops_the_signature(key, name):
+    """Phase 3 prints the kernels a case's device profile saw by name:
+    without the return type, the anonymous namespace and the parameters
+    (whose list opens with a parenthesis, as the namespace does)."""
+    assert _chip_smoke().kernel_name(key) == name
 
 
 def test_decode_ms_per_launch_without_decode_events_is_nan():
