@@ -377,19 +377,23 @@ SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
              "fused_ce_fwd", "fused_ce_bwd_dx")
 # the bf16 kernels on wgmma: fwd, dq and dkv at D 64 and 128, the grouped
 # forward, dx and dW unscaled (fc) and gate-scaled (proj), the paged
-# prefill at hs 64 and 128, the fused CE forward, dx and dW
-SASS_WGMMA_KERNELS = 17
+# prefill at hs 64 and 128 over a bf16 and over an int8 cache, the fused
+# CE forward, dx and dW
+SASS_WGMMA_KERNELS = 19
 # what a wgmma kernel's SASS must hold and must not: TMA loads, except in
-# the paged prefill, which gathers its tiles through the block table with
-# cp.async (LDGSTS) and issues no TMA load
-SASS_EXPECT = {"prefill_kernel_sm90": ({"HGMMA", "LDGSTS"}, {"UTMALDG"})}
+# the paged prefills (bf16 and int8 caches), which gather their tiles
+# through the block table with cp.async (LDGSTS) and issue no TMA load
+SASS_EXPECT = {"prefill_kernel_sm90_q8": ({"HGMMA", "LDGSTS"}, {"UTMALDG"}),
+               "prefill_kernel_sm90": ({"HGMMA", "LDGSTS"}, {"UTMALDG"})}
 SASS_EXPECT_SM90 = ({"HGMMA", "UTMALDG"}, set())
 # every other kernel (fp32, int8, the decode's split-KV pair over every
 # cache type) holds neither wgmma nor TMA loads
 SASS_EXPECT_OTHER = (set(), {"HGMMA", "UTMALDG"})
 # kernels that must be in the inventory by name: the split-KV decode's two
-# (one query row per head makes no matrix product: CUDA cores)
-SASS_REQUIRED = ("decode_split_kernel", "decode_combine_kernel")
+# (one query row per head makes no matrix product: CUDA cores), and the
+# int8-cache prefill on wgmma
+SASS_REQUIRED = ("decode_split_kernel", "decode_combine_kernel",
+                 "prefill_kernel_sm90_q8")
 
 
 def sass_inventory() -> dict:
@@ -428,17 +432,17 @@ def sass_expected(fn: str) -> tuple[set, set]:
 
 
 def check_sass(counts: dict) -> None:
-    """The bf16 wgmma kernels (`*_kernel_sm90`) hold HGMMA and their
-    loads (TMA, or cp.async in the paged prefill, which holds no TMA
-    load); the split-KV decode's kernels are there; every other kernel
-    holds neither HGMMA nor a TMA load."""
+    """The bf16 wgmma kernels (`*_kernel_sm90*`) hold HGMMA and their
+    loads (TMA, or cp.async in the paged prefills, which hold no TMA
+    load); the split-KV decode's kernels and the int8-cache prefill are
+    there; every other kernel holds neither HGMMA nor a TMA load."""
+    for name in SASS_REQUIRED:
+        check(any(name in fn for fn in counts),
+              f"no {name} in the inventory: {sorted(counts)}")
     n_sm90 = sum("kernel_sm90" in fn for fn in counts)
     check(n_sm90 == SASS_WGMMA_KERNELS,
           f"expected {SASS_WGMMA_KERNELS} bf16 wgmma kernels, found "
           f"{n_sm90}: {sorted(counts)}")
-    for name in SASS_REQUIRED:
-        check(any(name in fn for fn in counts),
-              f"no {name} in the inventory: {sorted(counts)}")
     for fn, c in sorted(counts.items()):
         # drop nvcc's anonymous-namespace prefix (_GLOBAL__N__<hash>_<n>_)
         short = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_", "", fn)[:80]
@@ -720,6 +724,15 @@ def run_flash_kernels(torch, dev) -> dict:
     return results
 
 
+# the kernel each phase 3 prefill row must run, by (case, dtype): the C
+# entries pick it by dtype and head size (64 here) before launch
+PREFILL_KERNELS = {
+    ("prefill", "bfloat16"): "prefill_kernel_sm90<",
+    ("prefill_q8", "bfloat16"): "prefill_kernel_sm90_q8<",
+    ("prefill", "float32"): "paged_prefill_kernel<float, float>",
+    ("prefill_q8", "float32"): "paged_prefill_kernel<float, signed char>"}
+
+
 def kernel_name(key: str) -> str:
     """A profiler event's kernel name without its return type, namespace
     and parameter list: 'decode_split_kernel<float, float, 1>'."""
@@ -751,8 +764,13 @@ def run_kernels(torch, fd, dev) -> dict:
             library_device_ms=device_ms(fl), bound_ms=b_ms, bound_by=b_by,
             bytes=n_bytes, flops=flops)
         r = results[(case, dn)]
-        kernels = sorted({kernel_name(k) for k in launched
-                          if "_kernel" in k})
+        kernels = r["kernels"] = sorted({kernel_name(k) for k in launched
+                                         if "_kernel" in k})
+        want = PREFILL_KERNELS.get((case.split("_off")[0], dn))
+        if want is not None:
+            check(r["device_ms"] is None or (
+                kernels and all(want in k for k in kernels)),
+                f"{case} {dn}: the profile saw {kernels}, not {want}")
         if case in ("paged", "contiguous", "paged_q8", "contiguous_q8"):
             # the split-KV pair at head size 64, over every cache type
             check(r["device_ms"] is None or (
@@ -1548,7 +1566,9 @@ def profile_decode(torch, eng, prompts) -> dict:
     read. A chunked engine first steps until every prompt is in, under
     the profiler too: there the parked slots make the decode kernel walk
     their whole table (the null block), so its device time per launch is
-    read on those chunk steps and on the plain steps apart."""
+    read on those chunk steps and on the plain steps apart, and the paged
+    prefill's device time per launch on the chunk steps beside it (the
+    bf16 and int8 prefill kernels, so the chunked legs compare there)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1591,12 +1611,18 @@ def profile_decode(torch, eng, prompts) -> dict:
     if n_chunk:
         ev_c, _ = device_kernels(prof_c, n_chunk)
         out.update(chunk_decode_kernel_ms=decode_ms_per_launch(ev_c),
+                   chunk_prefill_kernel_ms=_per_launch(ev_c, "prefill_kernel"),
+                   chunk_prefill_kernels=sorted({
+                       kernel_name(e.key) for e in ev_c
+                       if "prefill_kernel" in e.key}),
                    chunk_steps=n_chunk,
                    parked_mean=sum(parked) / n_chunk)
         line += (f", {out['chunk_decode_kernel_ms']:.4f} ms on {n_chunk} "
                  f"chunk steps (mean {out['parked_mean']:.2f} parked slots "
                  f"walking {eng.table_width} table columns of the null "
-                 f"block)")
+                 f"block); paged prefill per launch (device) on the chunk "
+                 f"steps {out['chunk_prefill_kernel_ms']:.4f} ms "
+                 f"({out['chunk_prefill_kernels']})")
     print(line, flush=True)
     return out
 
@@ -2750,6 +2776,7 @@ def main() -> None:
                          else launches[kname]),
             "launches_path": "generate" if case == "contiguous" else "serve",
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
+            "kernels": r["kernels"], "kernels_fp32": r32["kernels"],
             "launches_fp32": (contiguous["float32"] if case == "contiguous"
                               else None),
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],
@@ -2779,6 +2806,7 @@ def main() -> None:
             "launches_path": ("generate_int8" if contig
                               else "serve_int8_chunked"),
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
+            "kernels": r["kernels"], "kernels_fp32": r32["kernels"],
             "launches_fp32": contiguous_q8["float32"] if contig else None,
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],

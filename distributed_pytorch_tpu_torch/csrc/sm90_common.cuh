@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's bf16 tensor-core kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu, grouped_mm_fwd.cu,
 // grouped_mm_bwd.cu, paged_prefill_attn.cu, fused_ce_sm90.cuh): mbarriers,
-// TMA tile loads, 16-byte cp.async
-// copies into the same swizzled layout (for tiles gathered row by row,
-// which TMA cannot do), the shared-memory matrix descriptors of a
-// 128-byte-swizzled tile, the `wgmma.mma_async` products (bf16 operands,
+// TMA tile loads, 16-byte cp.async copies into the same swizzled layout
+// (for tiles gathered row by row, which TMA cannot do) and 4-byte ones
+// (scales), the shared-memory matrix descriptors of a 128-byte-swizzled
+// tile, the `wgmma.mma_async` products (bf16 operands,
 // fp32 accumulators) and the conversion of an accumulator into the A
 // operand of the next product. Device code only, plus the host-side
 // tensor-map encoding; no library. The flash kernels' own pieces (their
@@ -156,6 +156,14 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(ok ? 16 : 0)
+               : "memory");
+}
+// 4 bytes (one fp32 value) from `src` to shared `dst`, asynchronously,
+// through L1 (.ca: the only class that takes 4-byte copies); zeros where
+// `ok` is 0 (src is then not read, but must be a valid address)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

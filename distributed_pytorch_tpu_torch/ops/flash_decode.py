@@ -37,7 +37,11 @@ Pallas bodies on the serving path map to four CUDA kernels here:
   operand is (p * v_scale) rounded to the query dtype against the codes.
   The int8 decode runs the same split-KV pair (codes as 8-byte vectors,
   dequantized in registers; the same workspace), rows past 256 codes the
-  tile kernel; the int8 prefill runs `attend_rows`.
+  tile kernel. The int8 prefill takes the bf16 prefill's routes:
+  bf16 at head size 64 or 128 runs `prefill_kernel_sm90_q8` (the codes
+  gathered by cp.async and converted exactly to bf16 in shared memory,
+  the scales applied to the fp32 score and to p), fp32 and other head
+  sizes `attend_rows`.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; for CPU tensors it runs the plain version, which

@@ -15,7 +15,13 @@ kernels, head sizes 8 mod 16 included), at the same limits: the int8
 decode's split pair at head sizes 8-256, rep 1, 6 and 12 (two row
 chunks), lengths at its 128-key split boundaries, NaN scales in every
 dead row, two launches bit-equal, the kernels the profiler sees, and
-int8 rows past 256 codes on the tile kernel.
+int8 rows past 256 codes on the tile kernel; the int8 prefill's wgmma
+kernel (bf16 at head sizes 64 and 128) at block sizes 8, 16 and 32, MHA,
+GQA and MQA, chunks off its 64-row tiles and offsets past 256, with NaN
+scales in a spare block and every row past the chunk, codes at +-127
+with scales over several orders of magnitude, two launches bit-equal,
+and the kernel the profiler sees on each route (the FMA kernel for fp32
+and head size 40).
 The flash-attention kernels (forward, dq, dkv) over causal and full
 attention, MHA and GQA (rep 4 at head size 128), dropout 0 and 0.2, T and
 S off the bf16 kernels' tiles (T 1, 70, 130, 200) and S > T, head sizes 64
@@ -476,6 +482,114 @@ def test_paged_prefill_q8(dev, dtype, T, off, nh, nkv, hs):
     assert fd.LAUNCHES["paged_prefill_attn_q8"] == 1
     _close(out, fd.paged_flash_prefill_plain(q, kc, vc, table, off, **kw),
            dtype)
+
+
+def _q8_prefill_against_plain(dev, q, kc, ks, vc, vs, table, off):
+    """The int8 prefill against its plain version (computed before the
+    poisoning): NaN scales in the pool's spare last block (no table holds
+    it) and in every row at or past off + T, which no key tile may load;
+    one launch, no plain call on the card."""
+    T, hs = q.shape[1], q.shape[-1]
+    kw = dict(scale=hs ** -0.5, k_scale=ks, v_scale=vs)
+    ref = fd.paged_flash_prefill_plain(q, kc, vc, table, off, **kw)
+    _poison_dead_rows(ks, vs, table,
+                      torch.tensor([off + T], dtype=torch.int32))
+    fd.reset_counts()
+    out = fd.paged_flash_prefill(q, kc, vc, table, off, **kw)
+    assert fd.LAUNCHES["paged_prefill_attn_q8"] == 1
+    assert fd.PLAIN_CALLS == dict.fromkeys(fd.PLAIN_CALLS, 0)
+    _close(out, ref, q.dtype)
+    return out
+
+
+def _q8_prefill_inputs(dev, T, off, nh, nkv, hs, bs, seed=0):
+    """int8 pools with room for the chunk, a spare last block and one
+    more, a permuted table over all but the spare, a bf16 chunk."""
+    n_max = (off + T + bs - 1) // bs + 1
+    kc, ks, vc, vs, g = _q8_pools(dev, 2 + n_max, bs, nkv, hs, seed)
+    table = torch.from_numpy(np.random.default_rng(seed).permutation(
+        np.arange(1, 1 + n_max)).astype(np.int32)).to(dev)[None]
+    q = torch.randn(1, T, nh, hs, generator=g, device=dev).to(torch.bfloat16)
+    return q, kc, ks, vc, vs, table
+
+
+@pytest.mark.parametrize("T,off", [(100, 0), (200, 288), (16, 96)])
+@pytest.mark.parametrize("nh,nkv", [(12, 12), (8, 2), (4, 1)],
+                         ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("hs", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_prefill_q8_bf16_wgmma(dev, bs, hs, nh, nkv, T, off):
+    """The bf16 int8-cache prefill's wgmma kernel (codes gathered by
+    cp.async, converted to bf16 in shared memory) at the block sizes, head
+    groupings and offsets a chunked engine gives it: chunks that are not
+    whole 64-row tiles, offsets past 256, a 16-row MQA chunk packed into
+    one tile; NaN scales in every row it must not read; against the plain
+    version at the bf16 limit."""
+    _q8_prefill_against_plain(dev, *_q8_prefill_inputs(
+        dev, T, off, nh, nkv, hs, bs, seed=T + bs + hs), off)
+
+
+@pytest.mark.parametrize("hs", [64, 128])
+def test_paged_prefill_q8_extreme_codes_and_scales(dev, hs):
+    """Codes at +-127 (every K and V code at a bound, signs random) and
+    scales log-uniform over several orders of magnitude: K's over 1e-4 ..
+    1 (scores from flat to one-hot rows), V's over 1e-5 .. 1e-2 (values
+    up to 1.27, so the absolute bf16 limit still means what it means for
+    unit outputs). The conversion is exact and the scales act on fp32
+    values, so the kernel stays within the bf16 limit of the plain
+    version."""
+    T, off, nh, nkv, bs = 200, 64, 8, 2, 16
+    q, kc, ks, vc, vs, table = _q8_prefill_inputs(dev, T, off, nh, nkv, hs,
+                                                  bs, seed=hs)
+    g = torch.Generator(device=dev)
+    g.manual_seed(hs)
+    for c in (kc, vc):
+        c.copy_(torch.where(torch.rand(c.shape, generator=g, device=dev)
+                            < 0.5, 127, -127).to(torch.int8))
+    for s, lo, hi in ((ks, -4, 0), (vs, -5, -2)):
+        s.copy_(10.0 ** (lo + (hi - lo) * torch.rand(
+            s.shape, generator=g, device=dev)))
+    _q8_prefill_against_plain(dev, q, kc, ks, vc, vs, table, off)
+
+
+@pytest.mark.parametrize("hs", [64, 128])
+def test_paged_prefill_q8_bf16_is_deterministic(dev, hs):
+    """Two launches of the int8-cache wgmma prefill are bit-equal."""
+    q, kc, ks, vc, vs, table = _q8_prefill_inputs(dev, 512, 256, 12, 12, hs,
+                                                  16)
+    kw = dict(scale=hs ** -0.5, k_scale=ks, v_scale=vs)
+    first, second = (fd.paged_flash_prefill(q, kc, vc, table, 256, **kw)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype,hs,kernel", [
+    (torch.bfloat16, 64, "prefill_kernel_sm90_q8"),
+    (torch.bfloat16, 128, "prefill_kernel_sm90_q8"),
+    (torch.float32, 64, "paged_prefill_kernel"),
+    (torch.bfloat16, 40, "paged_prefill_kernel")],
+    ids=["bf16-64", "bf16-128", "fp32-64", "bf16-40"])
+def test_q8_prefill_runs_the_kernel_its_route_names(dev, dtype, hs, kernel):
+    """Under the profiler, an int8-cache prefill launches the wgmma kernel
+    for bf16 at head sizes 64 and 128 and the FMA kernel
+    (`paged_prefill_kernel<T, int8_t>`) for fp32 and other head sizes, and
+    no other prefill kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, kc, ks, vc, vs, table = _q8_prefill_inputs(dev, 100, 32, 8, 2, hs, 16,
+                                                  seed=4)
+    q = q.to(dtype)
+    kw = dict(scale=hs ** -0.5, k_scale=ks, v_scale=vs)
+    fd.paged_flash_prefill(q, kc, vc, table, 32, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fd.paged_flash_prefill(q, kc, vc, table, 32, **kw)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "prefill_kernel" in e.key]
+    assert names and all(kernel in n for n in names), names
+    if kernel == "paged_prefill_kernel":
+        assert all("signed char" in n for n in names), names
 
 
 def test_q8_wrappers_refuse_what_the_kernels_do_not_take(dev):

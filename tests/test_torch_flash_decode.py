@@ -6,7 +6,10 @@ and at a block-aligned offset. Same numpy inputs to both; fp32, atol 1e-5
 (the two sum in different orders: one-pass softmax vs an online one over
 8-row blocks). The int8-cache (`_q8`) plain versions against the
 reference's `_q8` bodies the same way, for nkv 1/2/4 and chunk offsets 0
-and 8, with poisoned scales in blocks no sequence owns. Also the
+and 8, with poisoned scales in blocks no sequence owns; the int8 prefill
+also with bf16 queries at the card kernel's head size 64 (GQA and MQA,
+chunks off its 64-row tiles, offsets past one tile) at a stated bf16
+limit (`Q8_BF16_TOL`). Also the
 dispatcher's kernel routes against its naive path (int8: against the naive
 path on the dequantized cache), the gates, and the launch/plain counters.
 """
@@ -141,25 +144,50 @@ def test_q8_contiguous_decode_matches_jax_kernel(nkv):
                                rtol=0)
 
 
-@pytest.mark.parametrize("nkv,off", [(4, 0), (2, 8), (1, 8), (1, 0)],
-                         ids=["nkv4-off0", "nkv2-off8", "nkv1-off8",
-                              "nkv1-off0"])
-def test_q8_paged_prefill_matches_jax_kernel(nkv, off):
-    T, n_max, bs, nh, hs = 16, 6, 8, 4, 16
+# bf16 limit of the int8-cache prefill against the reference: both round
+# the output to bf16 (half an ulp each: 2^-8 relative, rtol), and the P V
+# operand (p * v_scale) rounds to bf16 (2^-9 relative a term) against the
+# running max of 16-key blocks in the reference but the global max in
+# the plain version, an error relative to sum(p |v|), not to |out|: atol
+# 1e-2 against values |v| <= 127 * 0.04 = 5.1 (`_q8`'s scales)
+Q8_BF16_TOL = dict(atol=1e-2, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("dtype,T,off,nh,nkv,hs,bs", [
+    pytest.param("float32", 16, 0, 4, 4, 16, 8, id="nkv4-off0"),
+    pytest.param("float32", 16, 8, 4, 2, 16, 8, id="nkv2-off8"),
+    pytest.param("float32", 16, 8, 4, 1, 16, 8, id="nkv1-off8"),
+    pytest.param("float32", 16, 0, 4, 1, 16, 8, id="nkv1-off0"),
+    pytest.param("bfloat16", 64, 0, 8, 2, 64, 16, id="bf16-hs64-gqa-T64-off0"),
+    pytest.param("bfloat16", 100, 80, 8, 2, 64, 16,
+                 id="bf16-hs64-gqa-T100-off80"),
+    pytest.param("bfloat16", 40, 144, 8, 1, 64, 16,
+                 id="bf16-hs64-mqa-T40-off144")])
+def test_q8_paged_prefill_matches_jax_kernel(dtype, T, off, nh, nkv, hs, bs):
+    """The int8-cache prefill's plain version against the reference's
+    `_prefill_kernel_q8` in interpret mode: fp32 at head size 16 (atol
+    1e-5: summation order), and bf16 queries at the card kernel's head
+    size 64, block size 16, GQA and MQA, chunks that are not whole 64-row
+    tiles at offsets past one tile (Q8_BF16_TOL)."""
+    n_max = max(6, (off + T + bs - 1) // bs + 2)
     _, kp, _, bt = _paged(1, n_max, bs, nh, nkv, hs, seed=50 + off)
     kc, ks, vc, vs = _q8(kp.shape, seed=51 + nkv)
     q = np.random.default_rng(off).standard_normal((1, T, nh, hs)) \
         .astype(np.float32)
-    ref = jfd.paged_flash_prefill(*_j(q, kc, vc, bt), jnp.int32(off),
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = jfd.paged_flash_prefill(jnp.asarray(q).astype(jdt),
+                                  *_j(kc, vc, bt), jnp.int32(off),
                                   scale=hs ** -0.5, k_scale=jnp.asarray(ks),
                                   v_scale=jnp.asarray(vs), interpret=True)
     tq, tkc, tvc, tbt, tks, tvs = _t(q, kc, vc, bt, ks, vs)
     tfd.reset_counts()
-    out = tfd.paged_flash_prefill(tq, tkc, tvc, tbt, off, scale=hs ** -0.5,
-                                  k_scale=tks, v_scale=tvs)
+    out = tfd.paged_flash_prefill(tq.to(tdt), tkc, tvc, tbt, off,
+                                  scale=hs ** -0.5, k_scale=tks, v_scale=tvs)
     assert tfd.PLAIN_CALLS["paged_prefill_attn_q8"] == 1
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
-                               rtol=0)
+    assert out.dtype == tdt
+    tol = dict(atol=ATOL, rtol=0) if dtype == "float32" else Q8_BF16_TOL
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)), **tol)
 
 
 def test_q8_dead_blocks_never_reach_the_output():

@@ -192,7 +192,7 @@ def _chip_smoke():
 # a phase 2 inventory as `cuobjdump -sass` names the kernels: the bf16
 # wgmma kernels (flash fwd, dq, dkv and the paged prefill at D 64 and 128,
 # grouped fwd, dx and dW unscaled and scaled, the fused CE forward, dx and
-# dW) and some of the others (fp32 flash, fp32 grouped forward, dx and
+# dW, the int8-cache paged prefill at D 64 and 128) and some of the others (fp32 flash, fp32 grouped forward, dx and
 # dW, the FMA prefill, the tile decode, the split-KV decode's split (bf16
 # and int8 caches) and combine kernels, and the fused CE's mma.sync and
 # fp32 kernels)
@@ -208,7 +208,9 @@ SASS_SM90 = [
     f"_ZN12_GLOBAL__N_112prefill_sm9019prefill_kernel_sm90ILi{d}EEEvPK13"
     "__nv_bfloat16S4_S4_PKiPS2_iiiiiiif" for d in (64, 128)] + [
     f"_ZN3fce14ce_kernel_sm90ILi{m}EEEvNS_3s904MapsENS_6ParamsEi"
-    for m in (0, 1, 2)]
+    for m in (0, 1, 2)] + [
+    f"_ZN12_GLOBAL__N_112prefill_sm9022prefill_kernel_sm90_q8ILi{d}EEEvPK13"
+    "__nv_bfloat16PKaPKfS6_S8_PKiPS2_iiiiiif" for d in (64, 128)]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
@@ -257,25 +259,34 @@ BROKEN = {"complete": None,
           "ce_fwd_mma_sync_with_hgmma": ((SASS_OTHER[11], "HGMMA", 4),
                                          "ce_kernel"),
           "q8_decode_split_with_hgmma": ((SASS_OTHER[7], "HGMMA", 4),
-                                         "decode_split_kernel")}
+                                         "decode_split_kernel"),
+          "q8_prefill_without_hgmma": ((SASS_SM90[17], "HGMMA", 0),
+                                       "prefill_kernel_sm90_q8"),
+          "q8_prefill_with_tma": ((SASS_SM90[18], "UTMALDG", 2),
+                                  "prefill_kernel_sm90_q8"),
+          "q8_prefill_without_cp_async": ((SASS_SM90[17], "LDGSTS", 0),
+                                          "prefill_kernel_sm90_q8"),
+          "q8_prefill_missing": ((SASS_SM90[18], None, 0),
+                                 "prefill_kernel_sm90_q8")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
 def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     """Phase 2's check passes an inventory in which every bf16 wgmma
     kernel holds HGMMA and its loads (TMA; cp.async and no TMA in the
-    paged prefill), the split-KV decode's split and combine kernels are
-    there, and no other kernel holds HGMMA or a TMA load; and exits
-    non-zero when one kernel breaks that: the bf16 dq, the prefill, the
-    grouped forward or the CE backward without HGMMA, the prefill with a
-    TMA load, the dx, the grouped forward or the CE backward without one,
-    the FMA prefill, the decode split (bf16 or int8 cache) or the CE
-    forward's or backward's mma.sync kernel with HGMMA, the decode split
-    missing; the CE forward (its sm90 kernel) without HGMMA or without a
-    TMA load."""
+    paged prefills over bf16 and int8 caches), the split-KV decode's
+    split and combine kernels are there, and no other kernel holds HGMMA
+    or a TMA load; and exits non-zero when one kernel breaks that: the
+    bf16 dq, the prefill, the grouped forward or the CE backward without
+    HGMMA, the prefill with a TMA load, the dx, the grouped forward or the
+    CE backward without one, the FMA prefill, the decode split (bf16 or
+    int8 cache) or the CE forward's or backward's mma.sync kernel with
+    HGMMA, the decode split missing; the CE forward (its sm90 kernel)
+    without HGMMA or without a TMA load; the int8-cache prefill without
+    HGMMA, with a TMA load, without cp.async, or missing."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
-    for fn in SASS_SM90[12:14]:                 # the paged prefill
+    for fn in SASS_SM90[12:14] + SASS_SM90[17:]:  # the paged prefills
         inv[fn] = {"HGMMA": 8, "UTMALDG": 0, "LDGSTS": 16}
     inv.update({fn: {"HGMMA": 0, "UTMALDG": 0, "LDGSTS": 4}
                 for fn in SASS_OTHER})
