@@ -14,23 +14,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took; counts each
              flash, grouped and paged kernel's HGMMA, UTMALDG and LDGSTS
-             instructions (`cuobjdump -sass`): the 17 bf16 wgmma kernels
-             (flash forward, dq and dkv and the paged prefill at head
-             sizes 64 and 128, the grouped forward, dx and dW unscaled
-             and scaled, the fused CE forward, dx and dW) must hold
+             instructions (`cuobjdump -sass`): the 22 bf16 wgmma kernels
+             (flash forward, dq and dkv at head sizes 64, 128 and 256,
+             the paged prefill at 64 and 128 over bf16 and int8 caches,
+             the grouped forward, dx and dW unscaled and scaled, the
+             fused CE forward, dx and dW) must hold
              HGMMA and their loads (TMA; cp.async and no TMA in the paged
              prefill, which gathers through the block table), the others
              (fp32, int8, the bf16 CE kernels' mma.sync version for C
              past 1024, the split-KV decode's split kernels over fp32,
              bf16 and int8 caches and its combine kernels, which must be
-             there) neither HGMMA nor a TMA load.
+             there; the fp32 flash kernels at head size 256 too) neither
+             HGMMA nor a TMA load.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's shapes (decode, prefill; over a bf16/fp32
              cache and over an int8 cache with fp32 row scales, the _q8
              kernels, whose yardstick is the path they replace: the
              gathered rows dequantized, then SDPA) and the training
              path's (flash forward, dq, dkv at B 8, T 1024, 12 heads x 64,
-             causal), in fp32 and bf16, with times (CUDA events; a
+             causal, and at B 8, T 1024, 8 heads x 256, the launcher's
+             MLA), in fp32 and bf16, with times (CUDA events; a
              kernel's and its yardstick's are the median of 5 timed
              windows, printed with their spread, beside their device
              time under torch.profiler, which leaves out the host's time
@@ -122,6 +125,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
              fp32) and the serve CLI. Served tokens are held to the
              uncached naive-attention dense-dispatch forward at every
              position (NEAR_TOP), launches 2 x layers per forward.
+10. MLA    — the trainer's own `train()` on the launcher's model
+             (scripts/train.sh: 12 x 1024, MLA with 8 heads of 128,
+             latents 256 / 256, rope head 128, DeepSeekMoE 16 experts
+             through 'scatter', 'attn' recomputation; `--attn_impl
+             pallas`, bf16 over fp32 masters, phase 6's optimizer, data
+             and batch, 20 iterations, a checkpoint at the end): a
+             falling loss, the flash kernels at head size 256 launched
+             exactly (the forward twice a layer a micro-step, dq and dkv
+             once), no plain call, `moe_drop`, step time, tok/s, MFU (MLA
+             FLOP count), peak memory and a profile of two steps; an fp32
+             parity step at B 2 against `attn_impl='naive'`; then the
+             checkpoint through `sample.main` and `serve --ckpt`'s engine
+             with phase 5's traffic, wave, chunked 256 and chunked with
+             `--cache-dtype int8 --quant-weights` (MLA declines the int8
+             cache: bf16 latent pools, int8 weights): every stream on its
+             budget, no kernel launched (MLA attends over its latent
+             cache by absorption), tokens held by NEAR_TOP at every
+             position to the same absorbed arithmetic without the engine
+             (the parity step holds absorbed to materialized logits in
+             fp32); and the serve CLI answering one completion.
 
 Phase 3 also holds the three grouped-matmul kernels (fwd, dx, dW) against
 their plain versions at the MoE training shapes (P 25600; K 768 / N 2048
@@ -293,7 +316,7 @@ def check(cond: bool, msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def _counter_modules():
@@ -375,11 +398,11 @@ SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
 SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
              "grouped_mm_bwd_dw", "paged_prefill_attn", "paged_decode_attn",
              "fused_ce_fwd", "fused_ce_bwd_dx")
-# the bf16 kernels on wgmma: fwd, dq and dkv at D 64 and 128, the grouped
-# forward, dx and dW unscaled (fc) and gate-scaled (proj), the paged
-# prefill at hs 64 and 128 over a bf16 and over an int8 cache, the fused
-# CE forward, dx and dW
-SASS_WGMMA_KERNELS = 19
+# the bf16 kernels on wgmma: fwd, dq and dkv at D 64, 128 and 256, the
+# grouped forward, dx and dW unscaled (fc) and gate-scaled (proj), the
+# paged prefill at hs 64 and 128 over a bf16 and over an int8 cache, the
+# fused CE forward, dx and dW
+SASS_WGMMA_KERNELS = 22
 # what a wgmma kernel's SASS must hold and must not: TMA loads, except in
 # the paged prefills (bf16 and int8 caches), which gather their tiles
 # through the block table with cp.async (LDGSTS) and issue no TMA load
@@ -390,10 +413,15 @@ SASS_EXPECT_SM90 = ({"HGMMA", "UTMALDG"}, set())
 # cache type) holds neither wgmma nor TMA loads
 SASS_EXPECT_OTHER = (set(), {"HGMMA", "UTMALDG"})
 # kernels that must be in the inventory by name: the split-KV decode's two
-# (one query row per head makes no matrix product: CUDA cores), and the
-# int8-cache prefill on wgmma
+# (one query row per head makes no matrix product: CUDA cores), the
+# int8-cache prefill on wgmma, and the flash kernels at head size 256
+# (MLA's q_c | q_r): wgmma in bf16 (`..._sm90ILi256E`), FMA in fp32
+# (`...IfLi256E`)
 SASS_REQUIRED = ("decode_split_kernel", "decode_combine_kernel",
-                 "prefill_kernel_sm90_q8")
+                 "prefill_kernel_sm90_q8", "fwd_kernel_sm90ILi256E",
+                 "dq_kernel_sm90ILi256E", "dkv_kernel_sm90ILi256E",
+                 "fwd_kernelIfLi256E", "dq_kernelIfLi256E",
+                 "dkv_kernelIfLi256E")
 
 
 def sass_inventory() -> dict:
@@ -434,8 +462,9 @@ def sass_expected(fn: str) -> tuple[set, set]:
 def check_sass(counts: dict) -> None:
     """The bf16 wgmma kernels (`*_kernel_sm90*`) hold HGMMA and their
     loads (TMA, or cp.async in the paged prefills, which hold no TMA
-    load); the split-KV decode's kernels and the int8-cache prefill are
-    there; every other kernel holds neither HGMMA nor a TMA load."""
+    load); the split-KV decode's kernels, the int8-cache prefill and the
+    flash kernels at head size 256 are there; every other kernel holds
+    neither HGMMA nor a TMA load."""
     for name in SASS_REQUIRED:
         check(any(name in fn for fn in counts),
               f"no {name} in the inventory: {sorted(counts)}")
@@ -613,14 +642,25 @@ def kernel_cases(torch, fd, dev):
                    4 * keys * nh * hs)
 
 
+#: the flash kernels' shapes on the training paths: (B, T, heads, head
+#: size) of the flagship's attention (phase 6) and of the launcher's MLA
+#: model, whose q_c | q_r and k_c | k_r are 128 + 128 wide (phase 10)
+FLASH_SHAPES = {64: (8, 1024, 12, 64), 256: (8, 1024, 8, 256)}
+
+
 def flash_cases(torch, dev):
-    """Yield (dtype, kernel, fn_kernel, fn_plain, fn_library, n_bytes,
-    flops) for the three flash kernels at the training path's shape."""
+    """Yield (dtype, kernel, head size, fn_kernel, fn_plain, fn_library,
+    n_bytes, flops) for the three flash kernels at each FLASH_SHAPES
+    shape."""
+    for shape in FLASH_SHAPES.values():
+        yield from _flash_cases_at(torch, dev, *shape)
+
+
+def _flash_cases_at(torch, dev, B, T, nh, D):
     import torch.nn.functional as F
 
     from distributed_pytorch_tpu_torch.ops import flash_attention as fa
 
-    B, T, nh, D = 8, 1024, 12, 64
     scale = D ** -0.5
     pairs = B * nh * T * (T + 1) // 2          # causal (query, key) pairs
     g = torch.Generator(device=dev)
@@ -644,7 +684,7 @@ def flash_cases(torch, dev):
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                  scale=scale)
         lib_dout = dout.transpose(1, 2)
-        yield (dn, "flash_attn_fwd",
+        yield (dn, "flash_attn_fwd", D,
                lambda: fa.flash_attn_fwd(q, k, v, **kw),
                lambda: fa.flash_attn_fwd_plain(q, k, v, **kw),
                lambda: F.scaled_dot_product_attention(
@@ -656,12 +696,12 @@ def flash_cases(torch, dev):
             return torch.autograd.grad(lib_out, (qt, kt, vt), lib_dout,
                                        retain_graph=True)
 
-        yield (dn, "flash_attn_bwd_dq",
+        yield (dn, "flash_attn_bwd_dq", D,
                lambda: fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta, **kw),
                lambda: fa.flash_attn_bwd_dq_plain(q, k, v, dout, lse, delta,
                                                   **kw),
                lib_bwd, 5 * act + 2 * stat, 6 * pairs * D)
-        yield (dn, "flash_attn_bwd_dkv",
+        yield (dn, "flash_attn_bwd_dkv", D,
                lambda: fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta,
                                              **kw),
                lambda: fa.flash_attn_bwd_dkv_plain(q, k, v, dout, lse,
@@ -684,7 +724,7 @@ def _elementwise(out, ref, atol: float, rtol: float) -> dict:
 
 def run_flash_kernels(torch, dev) -> dict:
     results = {}
-    for dn, name, fk, fp, fl, n_bytes, flops in flash_cases(torch, dev):
+    for dn, name, D, fk, fp, fl, n_bytes, flops in flash_cases(torch, dev):
         out, ref = fk(), fp()
         torch.cuda.synchronize()
         outs = out if isinstance(out, tuple) else (out,)
@@ -696,19 +736,20 @@ def run_flash_kernels(torch, dev) -> dict:
             atol, rtol = FLASH_TOL["float32" if oname == "lse" else dn]
             e = errs[oname] = _elementwise(a, b, atol, rtol)
             tols[oname] = {"atol": atol, "rtol": rtol}
-            print(f"  {name:18s} {dn:9s} {oname:3s} max_abs_err "
+            print(f"  {name:18s} D {D:3d} {dn:9s} {oname:3s} max_abs_err "
                   f"{e['err']:.3e} (|ref| max {e['mag']:.3e}, rms "
                   f"{e['rms']:.3e}); worst {e['frac']:.3f} of its limit "
                   f"{atol:.0e} + {rtol:.2e} x |ref|; least atol at this "
                   f"rtol {e['need_atol']:.3e}", flush=True)
             check(e["frac"] <= 1.0,
-                  f"{name} {dn}: {oname} differs from its plain version "
-                  f"beyond {atol} + {rtol} x |plain| ({e['frac']:.3f} of "
+                  f"{name} D {D} {dn}: {oname} differs from its plain "
+                  f"version beyond {atol} + {rtol} x |plain| "
+                  f"({e['frac']:.3f} of "
                   f"the limit)")
         b_ms, b_by = bound(n_bytes, flops, dn)
         ms, spread = time_windows(fk, iters=10)
         lib_ms, lib_spread = time_windows(fl, iters=10)
-        results[(name, dn)] = dict(
+        results[(name, dn, D)] = dict(
             max_abs_err=max(e["err"] for o, e in errs.items() if o != "lse"),
             lse_max_abs_err=errs["lse"]["err"] if "lse" in errs else None,
             tol=tols, ms=ms, ms_spread=spread, device_ms=device_ms(fk),
@@ -716,8 +757,8 @@ def run_flash_kernels(torch, dev) -> dict:
             library_ms=lib_ms, library_spread=lib_spread,
             library_device_ms=device_ms(fl), bound_ms=b_ms,
             bound_by=b_by, bytes=n_bytes, flops=flops)
-        r = results[(name, dn)]
-        print(f"  {'':18s} {'':9s} kernel {_timed(r, 'ms')}, plain "
+        r = results[(name, dn, D)]
+        print(f"  {'':18s} {'':5s} {'':9s} kernel {_timed(r, 'ms')}, plain "
               f"{r['plain_ms']:.4f} ms, library {_timed(r, 'library')}, "
               f"bound {r['bound_ms']:.4f} ms ({b_by})", flush=True)
     torch.cuda.empty_cache()
@@ -1188,20 +1229,22 @@ def uncached_logits(torch, model, dev, prompt, tokens):
                              all_logits=True)[0, len(prompt) - 1:].float()
 
 
-def q8_mirror_logits(torch, model, dev, prompt, tokens, store=None):
-    """The int8 serving path's arithmetic without its kernels, teacher-
-    forced on `tokens`: `prompt` through the naive forward on the model's
-    own weights into a contiguous int8 cache (rows quantized as they are
-    written, read back dequantized), then `tokens` from the same cache
-    under the quantized-weight `store` when one is given (the engine runs
-    only its decode forwards on int8 weights). One fp32 logits row per
-    token of `tokens`."""
+def mirror_logits(torch, model, dev, prompt, tokens, store=None,
+                  cache_dtype=None):
+    """A serving path's arithmetic without the engine and its kernels,
+    teacher-forced on `tokens`: `prompt` through the naive forward on the
+    model's own weights into a contiguous cache of `cache_dtype` (default
+    int8: rows quantized as they are written, read back dequantized; MLA
+    passes the model's dtype), then `tokens` from the same cache under the
+    quantized-weight `store` when one is given (the engine runs only its
+    decode forwards on int8 weights). One fp32 logits row per token of
+    `tokens`."""
     from distributed_pytorch_tpu_torch.models.gpt import init_cache
     from distributed_pytorch_tpu_torch.ops import quant
 
     P = len(prompt)
-    caches = init_cache(model.config, 1, P + len(tokens), dtype=torch.int8,
-                        device=dev)
+    caches = init_cache(model.config, 1, P + len(tokens),
+                        dtype=cache_dtype or torch.int8, device=dev)
     with torch.no_grad():
         first = naive_forward(model, torch.tensor([list(prompt)], device=dev),
                               caches=caches, pos=0)[0, -1:]
@@ -1350,8 +1393,8 @@ def run_model(torch, fd, dev) -> tuple[dict, dict]:
             {"paged_decode_attn_q8": L * (n_steps - 1), "flash_attn_fwd": L},
             f"generate int8 {dn}")["paged_decode_attn_q8"]
         agree8 = held_per_position(
-            torch, q8_mirror_logits(torch, model, dev, prompt,
-                                    out8[prompt_len:]),
+            torch, mirror_logits(torch, model, dev, prompt,
+                                 out8[prompt_len:]),
             out8[prompt_len:], LOGIT_TOL[dn], MIN_CHECKED[dn] * n_steps,
             f"generate int8 {dn} vs the dequantized-cache forward")
         print(f"  generate int8 cache {dn}: {agree8}/{n_steps} tokens "
@@ -1606,6 +1649,10 @@ def profile_decode(torch, eng, prompts) -> dict:
     out = {"host_ms": wall_ms, "device_ms": dev_ms,
            "busy_pct": 100 * dev_ms / wall_ms,
            "decode_kernel_ms": decode_ms_per_launch(ev)}
+    if np.isnan(out["decode_kernel_ms"]):
+        print("  no paged attention kernel on these steps (MLA attends "
+              "over its latent cache by absorption)", flush=True)
+        return out
     line = (f"  decode kernel per launch (device): "
             f"{out['decode_kernel_ms']:.4f} ms on plain steps (8 live slots)")
     if n_chunk:
@@ -1870,8 +1917,8 @@ def run_int8_chunked(torch, dev, card: str, wave: dict, root: str) -> dict:
             # quantization is on both sides, so the kernels' rounding is
             # all that differs, as for leg a against the uncached forward
             held = [held_per_position(
-                torch, q8_mirror_logits(torch, eng.model, dev, p, t,
-                                        eng._qparams), t, lim, n,
+                torch, mirror_logits(torch, eng.model, dev, p, t,
+                                     eng._qparams), t, lim, n,
                 f"leg b stream {i} vs the dequantized-cache forward")
                 for i, (p, t, n) in enumerate(zip(prompts, toks["b"],
                                                   least))]
@@ -2684,6 +2731,317 @@ def run_serve_moe(torch, dev, card: str, root: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: MLA (the launcher's model)
+# ---------------------------------------------------------------------------
+
+# scripts/train.sh's Model configuration as it stands (12 x 1024, MLA with
+# 8 heads of 128, latents 256 / 256, rope head 128, DeepSeekMoE 16 experts
+# through the scatter dispatch, attention recomputation) with phase 6's
+# optimizer, data and batch flags; one checkpoint, the final one (phase 6
+# checks an interval save and its restore)
+MLA_ARGV = ["--n_layer", "12", "--n_embd", "1024", "--vocab_size", "50304",
+            "--block_size", "1024", "--dropout", "0.0", "--pos_emb", "rope",
+            "--up_dim", "768", "--non_linearity", "swiglu", "--attn", "mla",
+            "--n_head", "8", "--n_kv_heads", "4", "--q_latent_dim", "256",
+            "--kv_latent_dim", "256", "--rope_head_dim", "128", "--moe",
+            "--moe_impl", "scatter", "--n_exp", "16", "--n_shared", "1",
+            "--n_act", "4", "--aux_free", "--alpha", "0.0001", "--gamma",
+            "0.001", "--coeff", "0.01", "--act_recomp", "--act_recomp_policy",
+            "attn", "--attn_impl", "pallas", "--compute_dtype", "bfloat16",
+            "--dataset", "synthetic", "--batch_size", "8",
+            "--total_batch_size_str", "2**14", "--max_iters", "19",
+            "--warmup_steps", "5", "--learning_rate", "1e-3",
+            "--save_model", "--file_name", "chip_smoke_mla", "--seed", "0"]
+
+
+def _flash_launches_mla(cfg, micro: int) -> dict:
+    """The flash kernels' launches in `micro` training micro-steps of the
+    MLA model: one forward, dq and dkv per layer, and the forward again
+    where 'attn' recomputation re-runs the sublayer in the backward."""
+    L = cfg.n_layer
+    again = cfg.act_recomp and cfg.act_recomp_policy == "attn"
+    return {"flash_attn_fwd": (2 if again else 1) * L * micro,
+            "flash_attn_bwd_dq": L * micro, "flash_attn_bwd_dkv": L * micro}
+
+
+def run_train_mla(torch, dev, card: str, tmp: str) -> dict:
+    """The trainer's own train() on the launcher's MLA model, in `tmp`
+    (the checkpoint stays there for serving). FullMLA's training forward
+    sends q_c | q_r, k_c | k_r and v padded by the rope head through the
+    flash kernels at head size 256. Returns the flash launches and the
+    run's numbers."""
+    from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
+    from distributed_pytorch_tpu_torch.train.loop import train
+
+    model_cfg, train_cfg = parse_train_argv(
+        MLA_ARGV + ["--data_dir", os.path.join(tmp, "data")])
+    check(model_cfg.head_size + model_cfg.rope_head_dim == 256,
+          f"train mla: flash head size "
+          f"{model_cfg.head_size + model_cfg.rope_head_dim}")
+    accum = train_cfg.total_batch_size // (
+        train_cfg.batch_size * model_cfg.block_size)
+    iters = train_cfg.max_iters + 1
+    reset_counts()
+    stats = train(model_cfg, train_cfg,
+                  log=lambda line: print(f"  {line}", flush=True))
+    launches = _counted(_flash_launches_mla(model_cfg, accum * iters),
+                        "train mla")
+    losses = stats["train_losses"]
+    check(len(losses) == iters and all(np.isfinite(losses)),
+          f"train mla: losses {losses}")
+    last = float(np.mean(losses[-3:]))
+    check(last <= losses[0] - TRAIN_DROP,
+          f"train mla: loss fell from {losses[0]:.4f} to {last:.4f}, less "
+          f"than {TRAIN_DROP}")
+    state = stats["state"]
+    check(type(state.model.blocks[0].attn).__name__ == "FullMLA",
+          f"train mla: attention {type(state.model.blocks[0].attn)}")
+    split = profile_train(torch, state, train_cfg, model_cfg)
+    drops = stats["moe_dropped_frac"]
+    out = dict(launches={k: launches[k] for k in FLASH_SOURCE},
+               loss0=losses[0], loss_last3=last,
+               step_ms=stats["median_step_time"] * 1e3,
+               tok_s=stats["median_tokens_per_sec"],
+               mfu=stats["median_mfu"], peak_gb=stats["peak_mem_gb"],
+               params=(stats["params_total"], stats["params_active"]),
+               moe_drop=(float(np.mean(drops)), float(np.max(drops))),
+               split=split)
+    print(f"  {iters} iterations x {accum} micro-steps of "
+          f"{train_cfg.batch_size} x {model_cfg.block_size}, "
+          f"{out['params'][0] / 1e6:.2f}M params ({out['params'][1] / 1e6:.2f}M "
+          f"active): loss {losses[0]:.4f} -> {last:.4f} (mean of the last "
+          f"3); step ms p50 {out['step_ms']:.3f}, tok/s {out['tok_s']:.1f}, "
+          f"MFU {out['mfu']:.4f} (MLA FLOP count), peak memory "
+          f"{out['peak_gb']:.3f} GB; moe_drop mean "
+          f"{100 * out['moe_drop'][0]:.2f}%, max "
+          f"{100 * out['moe_drop'][1]:.2f}%; launches {out['launches']} "
+          f"(the forward twice a layer: 'attn' recomputation), plain calls "
+          f"0; card {card}", flush=True)
+    del stats, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_parity_mla(torch, dev) -> None:
+    """One fp32 forward and backward of the launcher's MLA model at B 2:
+    through the flash kernels at head size 256 against
+    `attn_impl='naive'`; the loss and every gradient, per parameter."""
+    from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
+    from distributed_pytorch_tpu_torch.config import TrainConfig
+    from distributed_pytorch_tpu_torch.train.state import build_model
+
+    cfg, _ = parse_train_argv(MLA_ARGV)
+    rng = np.random.default_rng(14)
+    shape = (2, cfg.block_size)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    y = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    res = {}
+    for impl in ("pallas", "naive"):
+        model = build_model(cfg, TrainConfig(compute_dtype="float32",
+                                             attn_impl=impl), dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        model.init_weights(g)
+        model.train()
+        reset_counts()
+        _, loss = model(x, y)
+        loss.backward()
+        launches, plain = counts()
+        check(not any(plain.values()), f"parity mla {impl}: plain {plain}")
+        res[impl] = (loss.item(), {n: p.grad for n, p in
+                                   model.named_parameters()}, launches)
+        if impl == "naive":
+            absorbed_gap = absorbed_vs_materialized(torch, model, dev, x[:1])
+        del model
+    (l_k, g_k, n_k), (l_n, g_n, n_n) = res["pallas"], res["naive"]
+    want = _flash_launches_mla(cfg, 1)
+    check({k: n_k[k] for k in want} == want
+          and all(n_n[k] == 0 for k in want),
+          f"parity mla: kernel routes {n_k}, naive routes {n_n}")
+    rel = {}
+    for name, b in g_n.items():
+        err = (g_k[name] - b).abs().max().item()
+        mag = b.abs().max().item()
+        rel[name] = err / mag if mag > 0 else (0.0 if err == 0 else np.inf)
+    worst = max(rel, key=rel.get)
+    mla = {k: max((n for n in rel if n.endswith(k)), key=rel.get)
+           for k in ("W_uq", "W_qr", "W_uk", "W_uv", "W_kr")}
+    print(f"  fp32 parity, B 2 x T {cfg.block_size}: loss {l_k:.6f} (flash "
+          f"kernels, D 256) vs {l_n:.6f} (naive), |diff| "
+          f"{abs(l_k - l_n):.3e} (tol {PARITY_TOL['loss']:.0e}); max |grad "
+          f"diff| / max |grad| per parameter: worst {rel[worst]:.3e} "
+          f"({worst}); worst " + ", ".join(f"{k} {rel[n]:.3e}"
+                                          for k, n in mla.items())
+          + f" (tol {PARITY_TOL['grad']:.0e}); absorbed (cached) against "
+          f"materialized logits, fp32: max |diff| {absorbed_gap:.3e} (tol "
+          f"{LOGIT_TOL['float32']:.0e})", flush=True)
+    check(abs(l_k - l_n) <= PARITY_TOL["loss"], "parity mla: losses differ")
+    check(absorbed_gap <= LOGIT_TOL["float32"],
+          f"parity mla: absorbed logits differ from the materialized by "
+          f"{absorbed_gap:.3e}")
+    check(rel[worst] <= PARITY_TOL["grad"],
+          f"parity mla: gradients of {worst} differ by {rel[worst]:.3e} of "
+          f"their largest")
+    del res, g_k, g_n
+    torch.cuda.empty_cache()
+
+
+def absorbed_vs_materialized(torch, model, dev, idx) -> float:
+    """The largest |logit| difference, fp32, between `model`'s uncached
+    forward over `idx` (1, T) (materialized K and V, naive attention) and
+    its cached one (a 300-token prompt into a contiguous latent cache,
+    then the rest one forward at a time: MLA's absorbed attention), every
+    position. Both kernel-free and dropless (`naive_forward`)."""
+    from distributed_pytorch_tpu_torch.models.gpt import init_cache
+
+    model.eval()
+    T, P = idx.shape[1], 300
+    with torch.no_grad():
+        full = naive_forward(model, idx, all_logits=True)[0]
+        caches = init_cache(model.config, 1, T, dtype=model.dtype, device=dev)
+        rows = [naive_forward(model, idx[:, :P], caches=caches, pos=0,
+                              all_logits=True)[0]]
+        rows += [naive_forward(model, idx[:, t:t + 1], caches=caches,
+                               pos=torch.tensor(t, device=dev))[0]
+                 for t in range(P, P + 16)]
+        rows.append(naive_forward(model, idx[:, P + 16:], caches=caches,
+                                  pos=P + 16, all_logits=True)[0])
+    model.train()
+    return (torch.cat(rows) - full).abs().max().item()
+
+
+def dropless(model) -> None:
+    """Switch `model`'s MoE layers to the dense dispatch: the same weights
+    and routing with no capacity (models/mlp.py). The scatter dispatch's
+    capacity is set by each forward's token count, so an engine's 8-row
+    decode step and a one-sequence forward drop different assignments, and
+    no kernel-free forward of one sequence could hold a scatter engine's
+    tokens; wherever scatter drops nothing, the two dispatches agree."""
+    import dataclasses
+    for m in model.moe_layers():
+        m.config = dataclasses.replace(m.config, moe_impl="dense")
+
+
+def run_serve_mla(torch, dev, card: str, root: str) -> dict:
+    """Serve phase 10's checkpoint. MLA attends over its latent cache by
+    weight absorption (einsums; the reference runs no Pallas kernel
+    there), so no kernel launches on these paths: `sample.main` (greedy,
+    `generate`), then the `serve --ckpt` engine with phase 5's traffic,
+    (w) the bf16 wave, (a) prefill_chunk CHUNK, (b) chunked with
+    `--cache-dtype int8 --quant-weights`, whose int8 cache request MLA
+    declines (the engine keeps a bf16 latent cache and int8 weights), and
+    the serve CLI answering one completion. Tokens are held at every
+    position by NEAR_TOP, as in phase 9: the checkpoint is 20 steps into
+    training and its bf16 leaders tie along whole streams, where phase 8's
+    margin share would check too few positions. The reference is the
+    served arithmetic without the engine and without a kernel
+    (`mirror_logits`: the prompt into a contiguous latent cache, then the
+    tokens teacher-forced, absorbed, on the engine's weights), not the
+    uncached materialized forward: in bf16 the two attention forms round
+    at different points (the absorbed query q W_uk against the
+    materialized keys c_kv W_uk): on the H100 leg (a) served two tokens
+    whose materialized-forward logits lay 0.0938 below that forward's
+    largest, 1.5 bf16 steps at |logit| 8-16. Phase 10's
+    parity step holds the two forms to each other in fp32 at full width
+    (`absorbed_vs_materialized`). The engines serve with the dropless
+    dispatch (`dropless`); sample's 1-token prompt makes every forward of
+    its scatter model carry one token, which drops nothing."""
+    from distributed_pytorch_tpu_torch import sample
+    from distributed_pytorch_tpu_torch.serve.__main__ import (build_args,
+                                                              build_engine)
+    from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
+
+    step_dir = ckpt.latest_step_dir(root)
+    version = ckpt.weights_version(step_dir)
+    lim = LOGIT_TOL["bfloat16"]
+    prompt = [int(np.random.default_rng(15).integers(0, 50304))]
+    n_new = 16
+    reset_counts()
+    outs = sample.main(["--ckpt", root, "--prompt", str(prompt[0]),
+                        "--temperature", "0", "--max_new_tokens",
+                        str(n_new)])
+    check(len(outs) == 1 and len(outs[0]) == len(prompt) + n_new
+          and outs[0][:len(prompt)] == prompt, f"sample mla: {outs}")
+    _counted({}, "sample mla")
+    s_model = sample.load_for_inference(root)[0]
+    lg = mirror_logits(torch, s_model, dev, prompt, outs[0][len(prompt):],
+                       cache_dtype=s_model.dtype)
+    n_s, gap_s = held_near_top(torch, lg, outs[0][len(prompt):], lim, 0,
+                               "sample mla")
+    del s_model
+    print(f"  checkpoint {step_dir} [{version}]: sample.main greedy "
+          f"{outs[0][len(prompt):]} (held at all {n_new} positions within "
+          f"{lim} of the engine-free forward's largest logit (largest gap "
+          f"{gap_s:.4g}), its argmax at {n_s}); launches 0, plain calls 0; "
+          f"card {card}", flush=True)
+
+    base = ["--ckpt", root, "--slots", "8", "--kv-block", "16",
+            "--temperature", "0", "--seed", "0", "--port", "0", "--dtype",
+            "bfloat16"]
+    chunked = ["--prefill-chunk", str(CHUNK)]
+    out = {"sample_checked": n_s, "legs": {}}
+    for leg, extra in (("w", []), ("a", chunked),
+                       ("b", chunked + ["--cache-dtype", "int8",
+                                        "--quant-weights"])):
+        eng, _, wv, _ = build_engine(build_args(base + extra))
+        q8 = leg == "b"
+        check(wv == version and eng.prefill_chunk == (0 if leg == "w"
+                                                      else CHUNK)
+              and eng.cache_dtype == torch.bfloat16 and not eng.kv_quantized
+              and eng.weights_quantized == q8
+              and set(eng.caches[0]) == {"c_kv", "k_r"},
+              f"mla leg {leg}: weights_version {wv}, engine "
+              f"{eng.cache_dtype}, quant_w {eng.weights_quantized}, chunk "
+              f"{eng.prefill_chunk}, cache {sorted(eng.caches[0])}")
+        dropless(eng.model)
+        prompts, budgets = serve_traffic(eng.cfg.vocab_size)
+        r = serve_leg(torch, eng, prompts, budgets, f"serve mla {leg}")
+        check(r["launches"] == {k: 0 for k in r["launches"]},
+              f"serve mla {leg}: launches {r['launches']} (MLA's decode "
+              f"and prefill attend by absorption)")
+        if leg != "w":
+            info = [ln for ln in r["metrics"].splitlines()
+                    if ln.startswith("serve_build_info{")]
+            labels = [f'prefill_chunk="{CHUNK}"', 'cache_dtype="bfloat16"',
+                      f'quant_weights="{q8}"']
+            check(info and all(lb in info[0] for lb in labels),
+                  f"mla leg {leg}: /metrics lacks {labels}: {info}")
+        checked, gap = [], 0.0
+        for i, (x, p) in enumerate(zip(r["res"], prompts)):
+            t = x["tokens"]
+            lg = mirror_logits(torch, eng.model, dev, p, t, eng._qparams,
+                               cache_dtype=eng.model.dtype)
+            n, g = held_near_top(torch, lg, t, lim, 0,
+                                 f"serve mla {leg} stream {i}")
+            checked.append(n)
+            gap = max(gap, g)
+        prof = profile_decode(torch, eng, prompts)
+        out["legs"][leg] = dict(numbers=r["numbers"], profile=prof,
+                                steps=r["steps"],
+                                chunk_steps=r["chunk_steps"],
+                                checked=checked, gap=gap)
+        what = {"w": "bf16, wave", "a": f"bf16, prefill_chunk {CHUNK}",
+                "b": f"int8 requested: bf16 latent cache + int8 weights, "
+                     f"prefill_chunk {CHUNK}"}
+        print(f"  mla leg {leg} ({what[leg]}): 8/8 streams on budget; "
+              f"{_numbers_line(r['numbers'], prof)}; {r['steps']} steps, "
+              f"{r['chunk_steps']} with a chunk; launches 0, plain calls 0; "
+              f"tokens held at all {budgets} positions within {lim} of the "
+              f"engine-free forward's largest logit "
+              f"(largest gap {gap:.4g}), its argmax at {checked}; card "
+              f"{card}", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    run_serve_cli(torch, ["--ckpt", root, "--slots", "8", "--kv-block", "16",
+                          "--temperature", "0", "--port", "0",
+                          "--cache-dtype", "int8", "--quant-weights",
+                          "--prefill-chunk", str(CHUNK)],
+                  startup=("slots=8", "cache=native", "quant_w=True",
+                           f"prefill_chunk={CHUNK}"))
+    return out
+
+
 T0 = time.perf_counter()
 
 
@@ -2760,6 +3118,18 @@ def main() -> None:
         finally:
             os.chdir(cwd)
 
+    phase("10 train the launcher's MLA model through the flash kernels at "
+          "head size 256, then serve it")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            mla_run = run_train_mla(torch, dev, card, tmp)
+            run_parity_mla(torch, dev)
+            run_serve_mla(torch, dev, card,
+                          os.path.join(tmp, "checkpoints", "chip_smoke_mla"))
+        finally:
+            os.chdir(cwd)
+
 
     rows = []
     for case, kname in (("paged", "paged_decode_attn"),
@@ -2825,14 +3195,17 @@ def main() -> None:
             "bound_ms_fp32": r32["bound_ms"], "library_ms_fp32": None,
             "device_ms_fp32": r32["device_ms"],
             "replaced_path_ms_fp32": r32["library_ms"]})
-    for kname in FLASH_SOURCE:
-        r, r32 = fres[(kname, "bfloat16")], fres[(kname, "float32")]
+    for kname, D in ((k, D) for D in FLASH_SHAPES for k in FLASH_SOURCE):
+        r, r32 = fres[(kname, "bfloat16", D)], fres[(kname, "float32", D)]
+        B, T, nh, _ = FLASH_SHAPES[D]
         rows.append({
-            "name": kname, "case": "B8_T1024_H12x64_causal",
+            "name": kname, "case": f"B{B}_T{T}_H{nh}x{D}_causal",
             "dtype": "bfloat16", "route": "cuda",
             "source": SOURCE.format(FLASH_SOURCE[kname]),
             "replaces": REPLACES[kname],
-            "launches": train_launches[kname], "launches_path": "train",
+            "launches": (train_launches if D == 64
+                         else mla_run["launches"])[kname],
+            "launches_path": "train" if D == 64 else "train_mla",
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "lse_max_abs_err": r["lse_max_abs_err"], "launches_fp32": None,
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],

@@ -6,8 +6,9 @@ weights.
 works, and so does anything else with the same keys — and returns a
 `state_dict` for `models.gpt.LLM` (fp32 torch tensors; `load_state_dict`
 casts to the model's dtypes). Flax dense kernels are (in, out) while
-`nn.Linear` stores (out, in), so `c_attn`/`c_proj` kernels transpose; the
-MLP's bare (in, out) matrices, the MoE layer's stacked (n_exp, in, out)
+`nn.Linear` stores (out, in), so `c_attn`/`c_proj` kernels transpose; MLA's
+bare (in, out) projections (`W_dq` ... `W_kr`), the MLP's bare (in, out)
+matrices, the MoE layer's stacked (n_exp, in, out)
 expert weights and (C, n_routed) router, and the (V, C) embedding carry
 over as they are. The fused qkv keeps its [q | k | v] column order. The
 MoE routing state (the reference's `moe_state` collection: `expert_bias`
@@ -30,12 +31,10 @@ def _t(a) -> torch.Tensor:
 def params_from_jax(params: dict, cfg: LLMConfig,
                     moe_state: dict | None = None) -> dict:
     """Map the flax tree {tkn_emb, [pos_emb], block_i/{ln1, ln2, attn/
-    {c_attn, c_proj}, mlp/{c_fc, c_proj} or moe/{experts_fc,
-    experts_proj, gate}}, ln_f} and the optional `moe_state` tree
-    {block_i/moe/{expert_bias, dropped_frac}} onto `LLM`'s names."""
-    if cfg.attn not in ("mha", "mqa", "gqa"):
-        raise NotImplementedError("MLA comes with a later slice: the port "
-                                  "converts the mha/mqa/gqa family")
+    {c_attn, c_proj} or attn/{W_dq, W_uq, W_dkv, W_uk, W_uv, W_o[, W_qr,
+    W_kr]}, mlp/{c_fc, c_proj} or moe/{experts_fc, experts_proj, gate}},
+    ln_f} and the optional `moe_state` tree {block_i/moe/{expert_bias,
+    dropped_frac}} onto `LLM`'s names."""
     sd = {"tkn_emb.weight": _t(params["tkn_emb"]["embedding"]),
           "ln_f.weight": _t(params["ln_f"]["scale"]),
           "ln_f.bias": _t(params["ln_f"]["bias"])}
@@ -47,10 +46,14 @@ def params_from_jax(params: dict, cfg: LLMConfig,
         for ln in ("ln1", "ln2"):
             sd[pre + ln + ".weight"] = _t(b[ln]["scale"])
             sd[pre + ln + ".bias"] = _t(b[ln]["bias"])
-        for lin in ("c_attn", "c_proj"):
-            sd[pre + f"attn.{lin}.weight"] = _t(b["attn"][lin]["kernel"]).t() \
-                .contiguous()
-            sd[pre + f"attn.{lin}.bias"] = _t(b["attn"][lin]["bias"])
+        if cfg.attn == "mla":
+            for name, w in b["attn"].items():
+                sd[pre + f"attn.{name}"] = _t(w)
+        else:
+            for lin in ("c_attn", "c_proj"):
+                sd[pre + f"attn.{lin}.weight"] = \
+                    _t(b["attn"][lin]["kernel"]).t().contiguous()
+                sd[pre + f"attn.{lin}.bias"] = _t(b["attn"][lin]["bias"])
         if not cfg.moe:
             sd[pre + "mlp.c_fc"] = _t(b["mlp"]["c_fc"])
             sd[pre + "mlp.c_proj"] = _t(b["mlp"]["c_proj"])

@@ -1,6 +1,6 @@
 // flash_attn_bwd_dq / flash_attn_bwd_dkv: the FlashAttention-2 backward of
-// flash_attn_fwd.cu over BTNH tensors (sm_90a, fp32 and bf16, head size 64
-// or 128). Both recompute p = exp(s - lse) from the forward's logsumexp
+// flash_attn_fwd.cu over BTNH tensors (sm_90a, fp32 and bf16, head size 64,
+// 128 or 256). Both recompute p = exp(s - lse) from the forward's logsumexp
 // instead of storing probabilities; delta = rowsum(dout * out) - dlse comes
 // in precomputed (fp32, (B, nh, T)), which is how a gradient flowing into
 // lse folds in. Built and bound by ops/cuda_build.py; wrapped by
@@ -25,7 +25,11 @@
 //   (tensor cores take fp32 only as TF32). One CTA per (64-row query
 //   tile, head, batch), walking key tiles up to the causal frontier:
 //   S = Q K^T and dP = dO V^T, dS = p * (dP * mask - delta) rounded to the
-//   key dtype, dQ += dS K; dq carries * scale at the write.
+//   key dtype, dQ += dS K; dq carries * scale at the write. At head size
+//   256 K^T and V^T come in two halves of D's columns (S and dP summed
+//   over both), and K's row-major copy for dQ += dS K then takes their
+//   space: 226,304 bytes of shared memory where loading all at once would
+//   need 362,496.
 // * dq, bf16 (`dq_kernel_sm90`): tensor cores. One CTA of one warpgroup
 //   (128 threads) per (64-row query tile, head, batch), the causal
 //   heaviest tiles first (the grid's slowest axis runs down the frontier,
@@ -44,12 +48,16 @@
 //   of dQ += dS K, which reads the same K stage MN-major (the transpose
 //   bit). Only tiles on the diagonal or at the ragged ends are masked (TMA
 //   zero-fills rows past T and S). Each query row is written once,
-//   dq * scale.
+//   dq * scale. At head size 256 the stages hold 32 keys (128 KB of shared
+//   memory): the 64 x 256 fp32 dQ accumulator is 128 registers a thread,
+//   and 32-key S and dP keep the rest under the 255 a thread may hold.
 // * dkv, fp32 (`dkv_kernel`): the FMA design, unchanged (tensor cores take
 //   fp32 only as TF32, which would break the fp32 limits of the kernel
 //   checks and the training parity). One CTA per (64-key tile, kv head,
-//   batch); Q and dO are loaded in both orientations; head size 128 uses
-//   32-row query tiles to fit shared memory.
+//   batch); Q and dO are loaded in both orientations; head sizes 128 and
+//   256 use 32-row query tiles to fit shared memory, and at 256 the
+//   row-major Q and dO take the space of their transposed copies once S^T
+//   and dP^T are formed (230,656 bytes instead of 297,216).
 // * dkv, bf16 (`dkv_kernel_sm90`): tensor cores. One CTA of one warpgroup
 //   (128 threads) per (64-key tile, kv head, batch) keeps its K and V
 //   tiles resident and walks the query tiles of every head of its GQA
@@ -70,7 +78,13 @@
 //   of dO and Q MN-major (the transpose bit). The group sum stays in the
 //   fp32 accumulators and each key row is written once, dk * scale. Only
 //   tiles on the diagonal or at the ragged ends are masked. Key tiles
-//   launch in order, the causal heaviest first.
+//   launch in order, the causal heaviest first. At head size 256 two CTAs
+//   share each key tile, each owning 128 of D's columns of dK and dV and
+//   each forming S^T and dP^T over all of D (`dkv_dn`): the two 64 x 256
+//   fp32 accumulators would be 256 registers a thread, while a half keeps
+//   the D 128 kernel's footprint, with no hand-over between warpgroups.
+//   The price is S^T and dP^T formed twice: 6 products of a key tile's
+//   work where 4 would do.
 
 #include "flash_attn_common.cuh"
 #include "flash_attn_sm90.cuh"
@@ -79,10 +93,24 @@ namespace {
 
 using flash::Params;
 
+// The K^T / V^T columns the fp32 dq loads at once: all of D up to 128; at
+// 256 two halves, so that Q^T, dO^T, K^T, V^T and K fit shared memory, and
+// K's row-major copy then takes the space of the halves (kAlias).
+template <int D>
+__host__ __device__ constexpr int dq_dc() {
+  return D > 128 ? D / 2 : D;
+}
+
+template <int D>
+__host__ __device__ constexpr size_t dq_kv_floats() {
+  constexpr int DC = dq_dc<D>(), LD = flash::kBQ + flash::kPad, LDV = D + flash::kPad;
+  return DC < D ? (2 * DC * LD > flash::kBK * LDV ? 2 * DC * LD : flash::kBK * LDV)
+                : 2 * DC * LD + flash::kBK * LDV;
+}
+
 template <int D>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * D * (flash::kBQ + flash::kPad) +
-                          flash::kBK * (D + flash::kPad) +
+  return sizeof(float) * (2 * D * (flash::kBQ + flash::kPad) + dq_kv_floats<D>() +
                           flash::kBK * (flash::kBQ + flash::kPad));
 }
 
@@ -92,13 +120,15 @@ __global__ void __launch_bounds__(flash::kThreads) dq_kernel(const Params p) {
   constexpr int LD = kBQ + kPad;
   constexpr int LDV = D + kPad;
   constexpr int RN = D / 16;
+  constexpr int DC = dq_dc<D>();
+  constexpr bool kAlias = DC < D;
   extern __shared__ __align__(16) float sm[];
-  float* Qt = sm;                  // [D][LD]
-  float* dOt = Qt + D * LD;        // [D][LD]
-  float* Kt = dOt + D * LD;        // [D][LD]
-  float* Vt = Kt + D * LD;         // [D][LD]
-  float* Ks = Vt + D * LD;         // [kBK][LDV]
-  float* dSt = Ks + kBK * LDV;     // [kBK][LD] dS transposed (key-major)
+  float* Qt = sm;                                  // [D][LD]
+  float* dOt = Qt + D * LD;                        // [D][LD]
+  float* Kt = dOt + D * LD;                        // [DC][LD]
+  float* Vt = Kt + DC * LD;                        // [DC][LD]
+  float* Ks = kAlias ? Kt : Vt + DC * LD;          // [kBK][LDV]
+  float* dSt = Kt + dq_kv_floats<D>();             // [kBK][LD] dS transposed (key-major)
 
   const int i0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (p.nh / p.nkv);
@@ -134,15 +164,17 @@ __global__ void __launch_bounds__(flash::kThreads) dq_kernel(const Params p) {
   const int n_keys = p.causal ? min(p.S, i0 + kBQ) : p.S;
   for (int k0 = 0; k0 < n_keys; k0 += kBK) {
     const int nk = min(kBK, p.S - k0);
-    __syncthreads();
-    load_tile<T, D, kBK, true>(Kt, LD, k + k0 * p.k_st, p.k_st, nk);
-    load_tile<T, D, kBK, true>(Vt, LD, v + k0 * p.v_st, p.v_st, nk);
-    load_tile<T, D, kBK, false>(Ks, LDV, k + k0 * p.k_st, p.k_st, nk);
-    __syncthreads();
-
     float s[4][4] = {}, dp[4][4] = {};
-    mma_tile<4, D>(s, Qt, LD, Kt, LD, ty, tx);
-    mma_tile<4, D>(dp, dOt, LD, Vt, LD, ty, tx);
+#pragma unroll 1
+    for (int c = 0; c < D; c += DC) {
+      __syncthreads();
+      load_tile<T, DC, kBK, true>(Kt, LD, k + k0 * p.k_st + c, p.k_st, nk);
+      load_tile<T, DC, kBK, true>(Vt, LD, v + k0 * p.v_st + c, p.v_st, nk);
+      if (!kAlias) load_tile<T, D, kBK, false>(Ks, LDV, k + k0 * p.k_st, p.k_st, nk);
+      __syncthreads();
+      mma_tile<4, DC>(s, Qt + c * LD, LD, Kt, LD, ty, tx);
+      mma_tile<4, DC>(dp, dOt + c * LD, LD, Vt, LD, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = i0 + ty * 4 + i;
@@ -155,6 +187,10 @@ __global__ void __launch_bounds__(flash::kThreads) dq_kernel(const Params p) {
         if (p.dropout) d *= keep(p, s0, s1, row, qp, kp);
         s[i][j] = round_to<T>(pv * (d - dl_r[i]));  // dS in the key dtype
       }
+    }
+    if (kAlias) {
+      __syncthreads();  // K^T and V^T are read: K's row-major copy takes their place
+      load_tile<T, D, kBK, false>(Ks, LDV, k + k0 * p.k_st, p.k_st, nk);
     }
     store_t<4>(dSt, LD, s, ty, tx);
     __syncthreads();
@@ -177,12 +213,21 @@ __host__ __device__ constexpr int dkv_bq() {
   return D == 64 ? 64 : 32;  // query rows per dkv tile
 }
 
+// At head size 256 the fp32 dkv's row-major Q and dO take the space of
+// their transposed copies once S^T and dP^T are formed (kAlias), which
+// brings shared memory from 297,216 to 230,656 bytes.
+template <int D>
+__host__ __device__ constexpr size_t dkv_q_floats() {
+  constexpr int BQ = dkv_bq<D>(), LDQ = BQ + flash::kPad, LDV = D + flash::kPad;
+  return D > 128 ? (2 * D * LDQ > 2 * BQ * LDV ? 2 * D * LDQ : 2 * BQ * LDV)
+                 : 2 * D * LDQ + 2 * BQ * LDV;
+}
+
 template <int D>
 constexpr size_t dkv_smem() {
   constexpr int BQ = dkv_bq<D>();
-  return sizeof(float) * (2 * D * (flash::kBK + flash::kPad) + 2 * D * (BQ + flash::kPad) +
-                          2 * BQ * (D + flash::kPad) + 2 * BQ * (flash::kBK + flash::kPad) +
-                          2 * BQ);
+  return sizeof(float) * (2 * D * (flash::kBK + flash::kPad) + dkv_q_floats<D>() +
+                          2 * BQ * (flash::kBK + flash::kPad) + 2 * BQ);
 }
 
 template <typename T, int D>
@@ -194,17 +239,18 @@ __global__ void __launch_bounds__(flash::kThreads) dkv_kernel(const Params p) {
   constexpr int LDQ = BQ + kPad;
   constexpr int LDV = D + kPad;
   constexpr int RN = D / 16;
+  constexpr bool kAlias = D > 128;
   extern __shared__ __align__(16) float sm[];
-  float* Kt = sm;                  // [D][LDK]
-  float* Vt = Kt + D * LDK;        // [D][LDK]
-  float* Qt = Vt + D * LDK;        // [D][LDQ]
-  float* dOt = Qt + D * LDQ;       // [D][LDQ]
-  float* Qs = dOt + D * LDQ;       // [BQ][LDV]
-  float* dOs = Qs + BQ * LDV;      // [BQ][LDV]
-  float* Ps = dOs + BQ * LDV;      // [BQ][LDK] (p * mask), query-major
-  float* dSs = Ps + BQ * LDK;      // [BQ][LDK] dS, query-major
-  float* lse_s = dSs + BQ * LDK;   // [BQ]
-  float* dl_s = lse_s + BQ;        // [BQ]
+  float* Kt = sm;                                 // [D][LDK]
+  float* Vt = Kt + D * LDK;                       // [D][LDK]
+  float* Qt = Vt + D * LDK;                       // [D][LDQ]
+  float* dOt = Qt + D * LDQ;                      // [D][LDQ]
+  float* Qs = kAlias ? Qt : dOt + D * LDQ;        // [BQ][LDV]
+  float* dOs = Qs + BQ * LDV;                     // [BQ][LDV]
+  float* Ps = Qt + dkv_q_floats<D>();             // [BQ][LDK] (p * mask), query-major
+  float* dSs = Ps + BQ * LDK;                     // [BQ][LDK] dS, query-major
+  float* lse_s = dSs + BQ * LDK;                  // [BQ]
+  float* dl_s = lse_s + BQ;                       // [BQ]
 
   const int j0 = blockIdx.x * kBK, g = blockIdx.y, b = blockIdx.z;
   const int rep = p.nh / p.nkv;
@@ -240,9 +286,11 @@ __global__ void __launch_bounds__(flash::kThreads) dkv_kernel(const Params p) {
       const int nq = min(BQ, p.T - i0);
       __syncthreads();
       load_tile<T, D, BQ, true>(Qt, LDQ, q + i0 * p.q_st, p.q_st, nq);
-      load_tile<T, D, BQ, false>(Qs, LDV, q + i0 * p.q_st, p.q_st, nq);
       load_tile<T, D, BQ, true>(dOt, LDQ, dout + i0 * p.do_st, p.do_st, nq);
-      load_tile<T, D, BQ, false>(dOs, LDV, dout + i0 * p.do_st, p.do_st, nq);
+      if (!kAlias) {
+        load_tile<T, D, BQ, false>(Qs, LDV, q + i0 * p.q_st, p.q_st, nq);
+        load_tile<T, D, BQ, false>(dOs, LDV, dout + i0 * p.do_st, p.do_st, nq);
+      }
       if (threadIdx.x < BQ) {
         const int e = threadIdx.x;
         lse_s[e] = e < nq ? p.lse_in[stat + i0 + e] : 0.f;
@@ -272,6 +320,11 @@ __global__ void __launch_bounds__(flash::kThreads) dkv_kernel(const Params p) {
           pd[i][j] = round_to<T>(pm);                     // in dout's dtype
           st[i][j] = round_to<T>(pv * (d - dl_s[qi]));    // dS in q's dtype
         }
+      }
+      if (kAlias) {
+        __syncthreads();  // Q^T and dO^T are read: the row-major copies take their place
+        load_tile<T, D, BQ, false>(Qs, LDV, q + i0 * p.q_st, p.q_st, nq);
+        load_tile<T, D, BQ, false>(dOs, LDV, dout + i0 * p.do_st, p.do_st, nq);
       }
       store_t<RNQ>(Ps, LDK, pd, ty, tx);
       store_t<RNQ>(dSs, LDK, st, ty, tx);
@@ -337,6 +390,16 @@ __host__ __device__ constexpr int bq() {
   return D == 64 ? 64 : 32;  // query rows per tile
 }
 
+// dK and dV columns a CTA owns: all of D up to 128. At 256 two CTAs share
+// a key tile, each owning half of the columns of both and each forming S^T
+// and dP^T over all of D: 64 x 256 fp32 of dK and of dV would be 256
+// registers a thread in one warpgroup, while a half keeps the D 128
+// kernel's footprint.
+template <int D>
+__host__ __device__ constexpr int dkv_dn() {
+  return D > 128 ? 128 : D;
+}
+
 template <int D>
 struct Smem {
   static constexpr int BQ = bq<D>();
@@ -387,9 +450,12 @@ __global__ void __launch_bounds__(kThreads)
     dkv_kernel_sm90(const __grid_constant__ Maps mp, const Params p) {
   using namespace sm90;
   constexpr int BQ = bq<D>();
+  constexpr int DN = dkv_dn<D>(), NP = D / DN;
   extern __shared__ uint8_t smem_raw[];
   Smem<D>& sm = smem_aligned<Smem<D>>(smem_raw);
-  const int g = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * kBK;
+  // kv head, and the part of D's columns this CTA owns
+  const int g = blockIdx.x / NP, part = blockIdx.x % NP;
+  const int b = blockIdx.y, j0 = blockIdx.z * kBK;
   const int rep = p.nh / p.nkv;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   // the first query row that sees this key tile (j0 is a multiple of BQ)
@@ -419,9 +485,9 @@ __global__ void __launch_bounds__(kThreads)
   const int r0 = w * 16 + (lane >> 2);  // this thread's key rows: r0, r0 + 8
   const int c0 = 2 * (lane & 3);        // and query columns 8 j + c0 + {0, 1}
 
-  float dk[D / 2], dv[D / 2];
+  float dk[DN / 2], dv[DN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
+  for (int i = 0; i < DN / 2; ++i) {
     dk[i] = 0.f;
     dv[i] = 0.f;
   }
@@ -485,10 +551,13 @@ __global__ void __launch_bounds__(kThreads)
     fence_regs(dv);
     fence_regs(dk);
     wg_fence();
+    // this CTA's columns of dO and Q: 64-column sub-tiles part * DN / 64 on
+    const bf16* dout_n = sm.dout[s] + part * DN * BQ;
+    const bf16* q_n = sm.q[s] + part * DN * BQ;
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D, 1>(dv, pa[kk], desc_mnmajor<BQ>(sm.dout[s], kk));
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<DN, 1>(dv, pa[kk], desc_mnmajor<BQ>(dout_n, kk));
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D, 1>(dk, da[kk], desc_mnmajor<BQ>(sm.q[s], kk));
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<DN, 1>(dk, da[kk], desc_mnmajor<BQ>(q_n, kk));
     wg_commit();
     wg_wait<0>();
     fence_regs(dv);
@@ -497,7 +566,7 @@ __global__ void __launch_bounds__(kThreads)
     if (tid == 0 && it + kStages < n_it) load_q<D>(sm, mp, p, it + kStages, s, n_qt, t_begin, g, b);
   }
 
-  const long long base = (long long)b * p.S * p.nkv * D + (long long)g * D;
+  const long long base = (long long)b * p.S * p.nkv * D + (long long)g * D + part * DN;
   bf16* dk_out = static_cast<bf16*>(p.out0) + base;
   bf16* dv_out = static_cast<bf16*>(p.out1) + base;
 #pragma unroll
@@ -506,7 +575,7 @@ __global__ void __launch_bounds__(kThreads)
     if (kp >= p.S) continue;
     const long long off = (long long)kp * p.nkv * D + c0;
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) {
+    for (int jj = 0; jj < DN / 8; ++jj) {
       *reinterpret_cast<__nv_bfloat162*>(dk_out + off + 8 * jj) = __floats2bfloat162_rn(
           dk[4 * jj + 2 * ih] * p.scale, dk[4 * jj + 2 * ih + 1] * p.scale);
       *reinterpret_cast<__nv_bfloat162*>(dv_out + off + 8 * jj) =
@@ -538,7 +607,7 @@ int launch_dkv(const Params& p, void* stream) {
       !sm90::vec_map(&mp.lse, p.lse_in, n_stat, BQ + 4) ||
       !sm90::vec_map(&mp.delta, p.delta, n_stat, BQ + 4))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(p.nkv, p.B, (p.S + kBK - 1) / kBK);
+  const dim3 grid(p.nkv * (D / dkv_dn<D>()), p.B, (p.S + kBK - 1) / kBK);
   dkv_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
   return (int)cudaGetLastError();
 }
@@ -547,12 +616,20 @@ int launch_dkv(const Params& p, void* stream) {
 
 constexpr int kBQ = 64;  // query rows per dq CTA: one warpgroup
 
+// keys per dq stage: 64, and 32 at head size 256, where the 64 x 256 fp32
+// dQ accumulator takes 128 registers a thread beside S and dP
+template <int D>
+__host__ __device__ constexpr int dq_bk() {
+  return D > 128 ? 32 : kBK;
+}
+
 template <int D>
 struct DqSmem {
+  static constexpr int KB = dq_bk<D>();
   alignas(1024) bf16 q[kBQ * D];
   alignas(1024) bf16 dout[kBQ * D];
-  alignas(1024) bf16 k[kStages][kBK * D];
-  alignas(1024) bf16 v[kStages][kBK * D];
+  alignas(1024) bf16 k[kStages][KB * D];
+  alignas(1024) bf16 v[kStages][KB * D];
   uint64_t qbar, full[kStages];
 };
 
@@ -564,15 +641,17 @@ struct DqMaps {
 template <int D>
 __device__ __forceinline__ void load_kv(DqSmem<D>& sm, const DqMaps& mp, int j, int s, int g,
                                         int b) {
-  sm90::mbar_expect_tx(&sm.full[s], 2 * kBK * D * 2);
-  sm90::tma_rows<D, kBK>(sm.k[s], &mp.k, &sm.full[s], g, j * kBK, b);
-  sm90::tma_rows<D, kBK>(sm.v[s], &mp.v, &sm.full[s], g, j * kBK, b);
+  constexpr int KB = dq_bk<D>();
+  sm90::mbar_expect_tx(&sm.full[s], 2 * KB * D * 2);
+  sm90::tma_rows<D, KB>(sm.k[s], &mp.k, &sm.full[s], g, j * KB, b);
+  sm90::tma_rows<D, KB>(sm.v[s], &mp.v, &sm.full[s], g, j * KB, b);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel_sm90(const __grid_constant__ DqMaps mp, const Params p) {
   using namespace sm90;
+  constexpr int KB = dq_bk<D>();
   extern __shared__ uint8_t smem_raw[];
   DqSmem<D>& sm = smem_aligned<DqSmem<D>>(smem_raw);
   const int h = blockIdx.x, b = blockIdx.y;
@@ -581,7 +660,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   // the keys any row of this tile may see
   const int n_keys = p.causal ? min(p.S, i0 + kBQ) : p.S;
-  const int n_kt = (n_keys + kBK - 1) / kBK;
+  const int n_kt = (n_keys + KB - 1) / KB;
 
   if (tid == 0) {
     mbar_init(&sm.qbar, 1);
@@ -620,10 +699,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < n_kt; ++j) {
     const int s = j % kStages;
     const uint32_t ph = (j / kStages) & 1;
-    const int k0 = j * kBK;
-    float sc[kBK / 2], dp[kBK / 2];
+    const int k0 = j * KB;
+    float sc[KB / 2], dp[KB / 2];
 #pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) {
+    for (int i = 0; i < KB / 2; ++i) {
       sc[i] = 0.f;
       dp[i] = 0.f;
     }
@@ -633,19 +712,19 @@ __global__ void __launch_bounds__(kThreads)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<kBK, 0, 0>(sc, desc_kmajor<kBQ>(sm.q, kk), desc_kmajor<kBK>(sm.k[s], kk), 1);
+      wgmma_ss<KB, 0, 0>(sc, desc_kmajor<kBQ>(sm.q, kk), desc_kmajor<KB>(sm.k[s], kk), 1);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<kBK, 0, 0>(dp, desc_kmajor<kBQ>(sm.dout, kk), desc_kmajor<kBK>(sm.v[s], kk), 1);
+      wgmma_ss<KB, 0, 0>(dp, desc_kmajor<kBQ>(sm.dout, kk), desc_kmajor<KB>(sm.v[s], kk), 1);
     wg_commit();
     wg_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
 
     // mask only tiles on the diagonal or at the ragged ends
-    const bool edge = (p.causal && k0 + kBK - 1 > i0) || i0 + kBQ > p.T || k0 + kBK > p.S;
+    const bool edge = (p.causal && k0 + KB - 1 > i0) || i0 + kBQ > p.T || k0 + KB > p.S;
 #pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) {
+    for (int i = 0; i < KB / 2; ++i) {
       const int ih = (i >> 1) & 1;
       const int qp = i0 + r0 + 8 * ih, kp = k0 + 8 * (i >> 2) + c0 + (i & 1);
       bool ok = true;
@@ -657,13 +736,13 @@ __global__ void __launch_bounds__(kThreads)
       if (p.dropout) d *= flash::keep(p, s0, s1, row, qp, kp);
       sc[i] = pv * (d - dl[ih]);  // dS, rounded to bf16 below
     }
-    uint32_t da[kBK / 16][4];
+    uint32_t da[KB / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) acc_to_frag(sc, kk, da[kk]);
+    for (int kk = 0; kk < KB / 16; ++kk) acc_to_frag(sc, kk, da[kk]);
     fence_regs(dq);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<D, 1>(dq, da[kk], desc_mnmajor<kBK>(sm.k[s], kk));
+    for (int kk = 0; kk < KB / 16; ++kk) wgmma_rs<D, 1>(dq, da[kk], desc_mnmajor<KB>(sm.k[s], kk));
     wg_commit();
     wg_wait<0>();
     fence_regs(dq);
@@ -699,8 +778,8 @@ int launch_dq(const Params& p, void* stream) {
   DqMaps mp;
   if (!sm90::rows_map(&mp.q, p.q, D, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
       !sm90::rows_map(&mp.dout, p.dout, D, p.nh, p.T, p.B, p.do_st, p.do_sb, kBQ) ||
-      !sm90::rows_map(&mp.k, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
-      !sm90::rows_map(&mp.v, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK))
+      !sm90::rows_map(&mp.k, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, dq_bk<D>()) ||
+      !sm90::rows_map(&mp.v, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, dq_bk<D>()))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(p.nh, p.B, (p.T + kBQ - 1) / kBQ);
   dq_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
@@ -712,7 +791,7 @@ int launch_dq(const Params& p, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the wgmma kernel);
-// D: 64 or 128. lse and delta (B, nh, T) fp32; dq (B, T, nh, D)
+// D: 64, 128 or 256. lse and delta (B, nh, T) fp32; dq (B, T, nh, D)
 // contiguous. Returns the launch's cudaError_t.
 extern "C" int flash_attn_bwd_dq(int dtype, int D, const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse, const float* delta,
@@ -723,8 +802,10 @@ extern "C" int flash_attn_bwd_dq(int dtype, int D, const void* q, const void* k,
                                       dims, strides, scale, thresh, keep_scale);
   if (dtype == 0 && D == 64) return launch_dq<float, 64>(p, stream);
   if (dtype == 0 && D == 128) return launch_dq<float, 128>(p, stream);
+  if (dtype == 0 && D == 256) return launch_dq<float, 256>(p, stream);
   if (dtype == 1 && D == 64) return flash_sm90::launch_dq<64>(p, stream);
   if (dtype == 1 && D == 128) return flash_sm90::launch_dq<128>(p, stream);
+  if (dtype == 1 && D == 256) return flash_sm90::launch_dq<256>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -739,7 +820,9 @@ extern "C" int flash_attn_bwd_dkv(int dtype, int D, const void* q, const void* k
                                       strides, scale, thresh, keep_scale);
   if (dtype == 0 && D == 64) return launch_dkv<float, 64>(p, stream);
   if (dtype == 0 && D == 128) return launch_dkv<float, 128>(p, stream);
+  if (dtype == 0 && D == 256) return launch_dkv<float, 256>(p, stream);
   if (dtype == 1 && D == 64) return flash_sm90::launch_dkv<64>(p, stream);
   if (dtype == 1 && D == 128) return flash_sm90::launch_dkv<128>(p, stream);
+  if (dtype == 1 && D == 256) return flash_sm90::launch_dkv<256>(p, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 // flash_attn_fwd: online-softmax attention over BTNH tensors (sm_90a, fp32
-// and bf16, head size 64 or 128), returning out and the fp32 logsumexp of
-// the scaled scores. Causal or full; GQA reads kv head h / (nh / nkv);
-// attention-weight dropout from a counter hash. Built and bound by
-// ops/cuda_build.py; wrapped by ops/flash_attention.py.
+// and bf16, head size 64, 128 or 256), returning out and the fp32
+// logsumexp of the scaled scores. Causal or full; GQA reads kv head
+// h / (nh / nkv); attention-weight dropout from a counter hash. Built and
+// bound by ops/cuda_build.py; wrapped by ops/flash_attention.py.
 //
 // Replaces: `_fwd_kernel` -> `_fwd` (rows face, pallas_call :378) and
 // `_slab_fwd_kernel` -> `_slab_fwd` (slab face, :678) of
@@ -24,12 +24,14 @@
 // The dtype picks the kernel; it is not a fallback:
 // * bf16 (`fwd_kernel_sm90`): tensor cores. One CTA of one warpgroup (128
 //   threads) per (64-row query tile, head, batch); 42 KB of shared memory
-//   at head size 64 (five CTAs an SM), 82 KB at 128 (two). TMA brings the
-//   query tile, then 64-key K and V tiles into a 2-stage ring (128-byte
-//   swizzle, mbarrier completion); the tile after next is requested as
-//   soon as a stage is free, so one tile is always in flight while the
-//   warpgroup computes. S = Q K^T is a wgmma with both operands in
-//   shared memory (K-major); the online softmax runs on the fp32
+//   at head size 64 (five CTAs an SM), 82 KB at 128 (two), 162 KB at 256
+//   (one: MLA's concatenated content and rotary features, where the O
+//   accumulator alone is 128 registers a thread and P V is one m64n256k16
+//   a k-step). TMA brings the query tile, then 64-key K and V tiles into
+//   a 2-stage ring (128-byte swizzle, mbarrier completion); the tile after
+//   next is requested as soon as a stage is free, so one tile is always in
+//   flight while the warpgroup computes. S = Q K^T is a wgmma with both
+//   operands in shared memory (K-major); the online softmax runs on the fp32
 //   accumulator in registers (a row lives in the 4 threads of a quad,
 //   exp2 on the special-function unit); P is rounded to bf16 and becomes
 //   the register A operand of O += P V, with V read MN-major through the
@@ -43,8 +45,10 @@
 //   heaviest first (the grid's slowest axis runs down the causal
 //   frontier), so long tiles do not form the grid's tail.
 // * fp32 (`fwd_kernel`): the FMA design of flash_attn_common.cuh,
-//   unchanged. Tensor cores take fp32 only as TF32, which would break the
-//   fp32 limits of the kernel-vs-plain checks and of the training parity.
+//   unchanged (223,232 bytes of shared memory at head size 256, under the
+//   227 KB a block may opt into). Tensor cores take fp32 only as TF32,
+//   which would break the fp32 limits of the kernel-vs-plain checks and of
+//   the training parity.
 
 #include "flash_attn_common.cuh"
 #include "flash_attn_sm90.cuh"
@@ -361,9 +365,9 @@ int launch(const Params& p, void* stream) {
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel); D: 64 or
-// 128. out (B, T, nh, D) and lse (B, nh, T) fp32, both contiguous. dims
-// and strides as in flash::make_params. Returns the launch's cudaError_t
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel); D: 64,
+// 128 or 256. out (B, T, nh, D) and lse (B, nh, T) fp32, both contiguous.
+// dims and strides as in flash::make_params. Returns the launch's cudaError_t
 // (0 = success).
 extern "C" int flash_attn_fwd(int dtype, int D, const void* q, const void* k, const void* v,
                               void* out, float* lse, const int* seed, const int* dims,
@@ -373,7 +377,9 @@ extern "C" int flash_attn_fwd(int dtype, int D, const void* q, const void* k, co
                                       seed, dims, strides, scale, thresh, keep_scale);
   if (dtype == 0 && D == 64) return launch<float, 64>(p, stream);
   if (dtype == 0 && D == 128) return launch<float, 128>(p, stream);
+  if (dtype == 0 && D == 256) return launch<float, 256>(p, stream);
   if (dtype == 1 && D == 64) return flash_sm90::launch<64>(p, stream);
   if (dtype == 1 && D == 128) return flash_sm90::launch<128>(p, stream);
+  if (dtype == 1 && D == 256) return flash_sm90::launch<256>(p, stream);
   return (int)cudaErrorInvalidValue;
 }

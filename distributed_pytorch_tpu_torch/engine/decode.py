@@ -48,6 +48,10 @@ of jitted programs:
   the DECODE forwards under the store — wave prefill and chunk forwards
   keep the model's own weights, as in the reference. MLA's latent cache
   declines int8 and keeps the model's dtype (`quant.quant_kv_usable`).
+* **MLA** models page their latent cache (`c_kv` (n_blocks, bs, nlkv)
+  and `k_r` (n_blocks, bs, 1, dhr) pools) through the same tables; their
+  prefill, chunks and decode steps attend by weight absorption over the
+  gathered logical view, with no paged kernel.
 
 Not ported yet (later slices): speculative decoding, the host-RAM KV tier,
 the AOT program store, meshes. `trace_guards` and `admit_traces` are

@@ -1,47 +1,71 @@
-"""Grouped-query attention (MHA / MQA / GQA) with contiguous or paged KV
-caches.
+"""Attention flavors: grouped-query attention (MHA / MQA / GQA) and
+Multi-head Latent Attention (MLA), with contiguous or paged KV caches.
 
-Counterpart of the reference package's `models/attention.py` `GQA`,
-`init_attn_cache` and `init_paged_attn_cache`: one fused qkv projection
-`c_attn` of width C + 2*n_kv_heads*head_size with a bias, split
-[q | k | v] at [C, C + nkv*hs], RoPE on q and k, the attention dispatch
-(ops/attention_core.py), the `c_proj` output projection and residual
-dropout after it. MLA waits for its slice.
+Counterpart of the reference package's `models/attention.py` (`GQA`,
+`NaiveMLA`, `FullMLA`, the `Attention` factory, `init_attn_cache` and
+`init_paged_attn_cache`):
+
+* `GQA`: one fused qkv projection `c_attn` of width C + 2*n_kv_heads*
+  head_size with a bias, split [q | k | v] at [C, C + nkv*hs], RoPE on q
+  and k, the attention dispatch (ops/attention_core.py), the `c_proj`
+  output projection and residual dropout after it.
+* `NaiveMLA` (MLA without RoPE) and `FullMLA` (DeepSeek-V2 MLA with
+  decoupled RoPE): bias-free projections held as bare (in, out)
+  `nn.Parameter`s under the reference's names (`W_dq`, `W_uq`, `W_dkv`,
+  `W_uk`, `W_uv`, `W_o`; FullMLA adds `W_qr` (q latent -> nh*dhr) and
+  `W_kr` (C -> dhr), one rotary key head shared by every head). The
+  training forward materializes per-head K and V from the kv latent and
+  makes one `sdpa` call; FullMLA concatenates q_c | q_r and k_c | k_r,
+  zero-pads v by dhr so one head size (hs + dhr) runs through q, k, v and
+  out, scales by 1/sqrt(hs + dhr), and keeps out[..., :hs]. Cached calls
+  attend over the latent cache by exact weight absorption
+  (`_absorbed_decode`, einsums; the reference runs no Pallas kernel
+  there either): the cache holds `c_kv` (rows, nlkv) and, for FullMLA,
+  `k_r` (rows, 1, dhr), never per-head K/V.
+* `Attention` picks the flavor: mha/mqa/gqa -> GQA; mla -> FullMLA when
+  pos_emb == 'rope', else NaiveMLA.
 
 Weights may be held in fp32 while the activations run in bf16 (the
-training model's fp32 masters): each projection casts its weight and bias
-to the activations' dtype at use, as flax's Dense with `param_dtype=float32,
-dtype=bfloat16` does. In training mode (`nn.Module.train()`) with
-`config.dropout > 0`, attention-weight dropout runs inside the attention
-kernels and residual dropout after `c_proj`, both keyed on `dropout_seed`
-(ops/dropout.py).
+training model's fp32 masters): each projection casts its weight (and
+bias) to the activations' dtype at use, as flax's Dense with
+`param_dtype=float32, dtype=bfloat16` does. In training mode
+(`nn.Module.train()`) with `config.dropout > 0`, attention-weight dropout
+runs inside the attention kernels and residual dropout after the output
+projection, both keyed on `dropout_seed` (ops/dropout.py).
 
-Caches are dicts {'k', 'v'} of tensors updated IN PLACE (the reference
-returns new buffers; the port saves the copy). A contiguous cache is
-(B, S, nkv, hs); a paged one is an (n_blocks, bs, nkv, hs) pool addressed
-through `block_tables` (ops/block_pool.py). An int8 cache adds fp32
-'k_scale'/'v_scale' of the same leading shape with a last dim of 1: each
-write quantizes its rows (ops/quant.py `quantize_kv`) and lands codes and
-scales through the same row writes.
+Caches are dicts of tensors updated IN PLACE (the reference returns new
+buffers; the port saves the copy): GQA {'k', 'v'}, MLA {'c_kv'[, 'k_r']}.
+A contiguous cache is (B, S, ...); a paged one is an (n_blocks, bs, ...)
+pool addressed through `block_tables` (ops/block_pool.py). A GQA int8
+cache adds fp32 'k_scale'/'v_scale' of the same leading shape with a last
+dim of 1: each write quantizes its rows (ops/quant.py `quantize_kv`) and
+lands codes and scales through the same row writes. MLA's latent cache
+has no int8 form: asking for one raises ValueError, as in the reference
+(the engine's int8 request keeps the model's dtype, `quant_kv_usable`).
 
 Under an active quantized-weight store (the engine's decode forwards,
-ops/quant.py) `c_attn` and `c_proj` read int8 codes; the store knows them
-by the name `LLM` gives each module (`qname`).
+ops/quant.py) the projections read int8 codes; the store knows them by
+the name `LLM` gives each module (`qname`). The absorbed W_uk / W_uv are
+read dequantized (`maybe_dequantized_param`), as the reference does.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from distributed_pytorch_tpu_torch.config import LLMConfig
 from distributed_pytorch_tpu_torch.ops.attention_core import sdpa
-from distributed_pytorch_tpu_torch.ops.block_pool import paged_update
+from distributed_pytorch_tpu_torch.ops.block_pool import (paged_gather,
+                                                          paged_update)
 from distributed_pytorch_tpu_torch.ops.dropout import (dropout, seed_pair,
                                                       subseed)
-from distributed_pytorch_tpu_torch.ops.quant import (maybe_quantized_matmul,
+from distributed_pytorch_tpu_torch.ops.quant import (maybe_dequantized_param,
+                                                    maybe_quantized_matmul,
                                                     quantize_kv)
 from distributed_pytorch_tpu_torch.ops.rope import apply_rotary_emb, slice_rows
 
@@ -144,17 +168,199 @@ def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
                                       lin.bias.to(x.dtype))
 
 
-def _check_family(config: LLMConfig) -> None:
+def _qmm(mod: nn.Module, x: torch.Tensor, name: str) -> torch.Tensor:
+    """`x @ W` for the module's bare (in, out) weight `name`, cast to x's
+    dtype at use; from the active quantized store's codes when it holds
+    this weight."""
+    qn = getattr(mod, "qname", None)
+    y = maybe_quantized_matmul(x, qn and f"{qn}.{name}")
+    return y if y is not None else x @ getattr(mod, name).to(x.dtype)
+
+
+def _causal_cache_mask(pos, T: int, S: int, device) -> torch.Tensor:
+    """(B|1, T, S) bool: the query at global position pos + i attends
+    cache slots j <= pos + i; `pos` an int, a 0-d or a per-sequence (B,)
+    tensor. Under a wrapped ring cache every slot is valid."""
+    qpos = torch.as_tensor(pos, device=device).long().reshape(-1, 1, 1) \
+        + torch.arange(T, device=device)[None, :, None]
+    return qpos >= torch.arange(S, device=device)[None, None, :]
+
+
+def _absorbed_decode(q_c, c_kv, kuk, kuv, pos, scale, extra_scores=None):
+    """Attention over the latent cache by exact weight absorption: q_c
+    (B, T, nh, hs) content queries, c_kv (B, S, nlkv) the cache's logical
+    view, kuk / kuv (nlkv, C) the up-projections, `extra_scores` (B, nh,
+    T, S) FullMLA's rotary scores. Returns the (B, T, nh*hs) input of
+    W_o."""
+    B, T, nh, hs = q_c.shape
+    S = c_kv.shape[1]
+    dt = q_c.dtype
+    nlkv = kuk.shape[0]
+    kuk_h = kuk.reshape(nlkv, nh, hs).to(dt)
+    kuv_h = kuv.reshape(nlkv, nh, hs).to(dt)
+    c_kv = c_kv.to(dt)
+    # q_abs[b,t,n,l] = q . W_uk_h^T: attend in the latent space
+    q_abs = torch.einsum("btnh,lnh->btnl", q_c, kuk_h)
+    attn = torch.einsum("btnl,bsl->bnts", q_abs, c_kv)
+    if extra_scores is not None:
+        attn = attn + extra_scores
+    attn = attn * scale
+    mask = _causal_cache_mask(pos, T, S, q_c.device)[:, None]
+    attn = attn.masked_fill(~mask, float("-inf"))
+    attn = torch.softmax(attn.float(), dim=-1).to(dt)
+    out_lat = torch.einsum("bnts,bsl->btnl", attn, c_kv)
+    return torch.einsum("btnl,lnh->btnh", out_lat, kuv_h) \
+        .reshape(B, T, nh * hs)
+
+
+class _MLA(nn.Module):
+    """The projections, cache writes and absorbed weights both MLA
+    flavors share."""
+
+    rope = False
+
+    def __init__(self, config: LLMConfig, *, device=None, dtype=None,
+                 attn_impl: str = "auto"):
+        super().__init__()
+        self.config = config
+        self.attn_impl = attn_impl
+        # (in, out) shapes, by the reference's names (`_mla_kernels`)
+        C, nlq, nlkv = config.n_embd, config.q_latent_dim, \
+            config.kv_latent_dim
+        shapes = {"W_dq": (C, nlq), "W_uq": (nlq, C), "W_dkv": (C, nlkv),
+                  "W_uk": (nlkv, C), "W_uv": (nlkv, C), "W_o": (C, C)}
+        if self.rope:
+            dhr = config.rope_head_dim
+            shapes.update(W_qr=(nlq, config.n_head * dhr), W_kr=(C, dhr))
+        for name, shape in shapes.items():
+            setattr(self, name, nn.Parameter(torch.empty(
+                shape, device=device, dtype=dtype)))
+
+    def _write(self, cache: Cache, name: str, rows: torch.Tensor, pos,
+               block_tables) -> torch.Tensor:
+        """Write `rows` into cache[name] in place; returns the (B, S, ...)
+        view the absorbed attention reads (a paged pool's gathered logical
+        view: rows past a sequence's extent are causally masked)."""
+        if block_tables is not None:
+            paged_update(cache[name], rows, pos, block_tables)
+            return paged_gather(cache[name], block_tables)
+        _update_cache(cache[name], rows, pos)
+        return cache[name]
+
+    def _absorbed_weights(self):
+        qn = getattr(self, "qname", None)
+        return tuple(maybe_dequantized_param(qn and f"{qn}.{n}",
+                                             getattr(self, n))
+                     for n in ("W_uk", "W_uv"))
+
+    def _attend(self, q, k, v, dropout_seed, x, scale=None):
+        drop = self.training and self.config.dropout > 0.0
+        return sdpa(q, k, v, scale=scale, impl=self.attn_impl,
+                    dropout_rate=self.config.dropout if drop else 0.0,
+                    dropout_seed=seed_pair(subseed(dropout_seed, 0),
+                                           x.device) if drop else None)
+
+    def _out(self, y, dropout_seed):
+        y = _qmm(self, y, "W_o")
+        if self.training and self.config.dropout > 0.0:
+            y = dropout(y, self.config.dropout, subseed(dropout_seed, 1))
+        return y
+
+
+class NaiveMLA(_MLA):
+    """MLA without RoPE (reference `NaiveMLA`): q = x W_dq W_uq; the cache
+    holds c_kv = x W_dkv; K and V are c_kv W_uk and c_kv W_uv."""
+
+    def forward(self, x, freqs, cache: Optional[Cache] = None, pos=0, *,
+                block_tables=None, dropout_seed: Optional[int] = None):
+        cfg = self.config
+        B, T, C = x.shape
+        nh, hs = cfg.n_head, cfg.head_size
+        dt = x.dtype
+        q = _qmm(self, _qmm(self, x, "W_dq"), "W_uq").reshape(B, T, nh, hs)
+        new_c_kv = _qmm(self, x, "W_dkv")                      # (B, T, nlkv)
+        if cache is None:
+            k = (new_c_kv @ self.W_uk.to(dt)).reshape(B, T, nh, hs)
+            v = (new_c_kv @ self.W_uv.to(dt)).reshape(B, T, nh, hs)
+            y = self._attend(q, k, v, dropout_seed, x).reshape(B, T, C)
+        else:
+            c_kv = self._write(cache, "c_kv", new_c_kv, pos, block_tables)
+            y = _absorbed_decode(q, c_kv, *self._absorbed_weights(), pos,
+                                 1.0 / math.sqrt(hs))
+        return self._out(y, dropout_seed)
+
+
+class FullMLA(_MLA):
+    """DeepSeek-V2 MLA with decoupled RoPE (reference `FullMLA`): the
+    content path as NaiveMLA's, plus per-head rotary queries c_q W_qr and
+    one shared rotary key head x W_kr; scores q_c.k_c + q_r.k_r scaled by
+    1/sqrt(hs + dhr)."""
+
+    rope = True
+
+    def forward(self, x, freqs, cache: Optional[Cache] = None, pos=0, *,
+                block_tables=None, dropout_seed: Optional[int] = None):
+        cfg = self.config
+        B, T, C = x.shape
+        nh, hs, dhr = cfg.n_head, cfg.head_size, cfg.rope_head_dim
+        dt = x.dtype
+        f = slice_rows(freqs, pos, T)
+        c_q = _qmm(self, x, "W_dq")                             # (B, T, nlq)
+        q_c = _qmm(self, c_q, "W_uq").reshape(B, T, nh, hs)
+        q_r = apply_rotary_emb(
+            _qmm(self, c_q, "W_qr").reshape(B, T, nh, dhr), f)
+        new_c_kv = _qmm(self, x, "W_dkv")                      # (B, T, nlkv)
+        new_k_r = apply_rotary_emb(_qmm(self, x, "W_kr")[:, :, None, :], f)
+        scale = 1.0 / math.sqrt(hs + dhr)
+        if cache is None:
+            k_c = (new_c_kv @ self.W_uk.to(dt)).reshape(B, T, nh, hs)
+            v = (new_c_kv @ self.W_uv.to(dt)).reshape(B, T, nh, hs)
+            # one attention call over the concatenated content and rotary
+            # features; v padded by dhr zeros (the padded half of the
+            # output is exactly zero and is dropped)
+            q_cat = torch.cat([q_c, q_r], dim=-1)
+            k_cat = torch.cat([k_c, new_k_r.expand(B, T, nh, dhr)], dim=-1)
+            v_pad = F.pad(v, (0, dhr))
+            y = self._attend(q_cat, k_cat, v_pad, dropout_seed, x,
+                             scale=scale)
+            y = y[..., :hs].reshape(B, T, C)
+        else:
+            c_kv = self._write(cache, "c_kv", new_c_kv, pos, block_tables)
+            k_r = self._write(cache, "k_r", new_k_r, pos, block_tables)
+            # the rotary scores; the one key head broadcasts over heads
+            attn_r = torch.einsum("btnh,bskh->bnts", q_r, k_r.to(dt))
+            y = _absorbed_decode(q_c, c_kv, *self._absorbed_weights(), pos,
+                                 scale, extra_scores=attn_r)
+        return self._out(y, dropout_seed)
+
+
+def Attention(config: LLMConfig, *, device=None, dtype=None,
+              attn_impl: str = "auto") -> nn.Module:
+    """The flavor of `config` (reference `Attention`): mha/mqa/gqa ->
+    GQA; mla -> FullMLA when pos_emb == 'rope', else NaiveMLA."""
+    if config.attn in ("mha", "mqa", "gqa"):
+        cls = GQA
+    else:
+        cls = FullMLA if config.pos_emb == "rope" else NaiveMLA
+    return cls(config, device=device, dtype=dtype, attn_impl=attn_impl)
+
+
+def _cache_buffers(config: LLMConfig, rows: tuple, dtype, device) -> Cache:
+    """GQA: k/v buffers of shape rows + (nkv, hs); for `torch.int8`, int8
+    code buffers and fp32 'k_scale'/'v_scale' of shape rows + (nkv, 1).
+    MLA: c_kv of shape rows + (nlkv,) and, with RoPE, k_r rows + (1, dhr);
+    an int8 MLA cache raises ValueError."""
     if config.attn not in ("mha", "mqa", "gqa"):
-        raise NotImplementedError(
-            f"attn={config.attn!r}: the port runs the mha/mqa/gqa family; "
-            "MLA comes with a later slice")
-
-
-def _kv_buffers(config: LLMConfig, rows: tuple, dtype, device) -> Cache:
-    """k/v buffers of shape rows + (nkv, hs); for `torch.int8`, int8 code
-    buffers and fp32 'k_scale'/'v_scale' of shape rows + (nkv, 1)."""
-    _check_family(config)
+        if dtype == torch.int8:
+            raise ValueError(
+                "int8 KV cache supports the GQA family only (quant_kv_usable "
+                "gates this; MLA latent caches stay in the compute dtype)")
+        cache = {"c_kv": torch.zeros(rows + (config.kv_latent_dim,),
+                                     dtype=dtype, device=device)}
+        if config.pos_emb == "rope":
+            cache["k_r"] = torch.zeros(rows + (1, config.rope_head_dim),
+                                       dtype=dtype, device=device)
+        return cache
     shape = rows + (config.n_kv_heads, config.head_size)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -169,14 +375,14 @@ def _kv_buffers(config: LLMConfig, rows: tuple, dtype, device) -> Cache:
 
 def init_attn_cache(config: LLMConfig, batch_size: int, max_len: int,
                     dtype=torch.float32, device=None) -> Cache:
-    """Per-layer contiguous (B, S, nkv, hs) KV buffers (int8 with scale
+    """Per-layer contiguous (B, S, ...) cache buffers (GQA int8 with scale
     sidecars for `dtype=torch.int8`)."""
-    return _kv_buffers(config, (batch_size, max_len), dtype, device)
+    return _cache_buffers(config, (batch_size, max_len), dtype, device)
 
 
 def init_paged_attn_cache(config: LLMConfig, n_blocks: int, block_size: int,
                           dtype=torch.float32, device=None) -> Cache:
-    """Per-layer paged KV POOL buffers (n_blocks, block_size, nkv, hs)
-    (int8 with scale sidecars for `dtype=torch.int8`). Block 0 is the null
-    block (ops/block_pool.py)."""
-    return _kv_buffers(config, (n_blocks, block_size), dtype, device)
+    """Per-layer paged POOL buffers (n_blocks, block_size, ...), the same
+    leaves as `init_attn_cache` (GQA int8 with scale sidecars for
+    `dtype=torch.int8`). Block 0 is the null block (ops/block_pool.py)."""
+    return _cache_buffers(config, (n_blocks, block_size), dtype, device)

@@ -34,8 +34,11 @@ Counterpart of the reference package's `models/gpt.py` (`LLM`, `Block`,
   writes the routing state of the last training forward (models/mlp.py).
 * `logits_idx` (B,) picks each sequence's true last row of a right-padded
   (bucketed) prefill; `all_logits` returns every position.
+* Attention is GQA (mha/mqa/gqa) or MLA (`NaiveMLA`, `FullMLA`), by
+  `config.attn` (models/attention.py `Attention`); MLA's RoPE table is
+  built at `rope_head_dim`.
 * Caches are updated in place; `dtype=torch.int8` caches hold int8 codes
-  with fp32 scale sidecars (models/attention.py).
+  with fp32 scale sidecars (GQA only; models/attention.py).
 * Weight-only int8: every module carries its dotted name (`qname`), the
   key of its weights in a quantized store (ops/quant.py); under an active
   store the attention and MLP products and the tied LM head read int8
@@ -54,7 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from distributed_pytorch_tpu_torch import resolve_device
 from distributed_pytorch_tpu_torch.config import LLMConfig
 from distributed_pytorch_tpu_torch.models.attention import (
-    GQA, init_attn_cache, init_paged_attn_cache)
+    Attention, init_attn_cache, init_paged_attn_cache)
 from distributed_pytorch_tpu_torch.models.mlp import MLP, MoE
 from distributed_pytorch_tpu_torch.ops import fused_ce
 from distributed_pytorch_tpu_torch.ops.dropout import dropout, subseed
@@ -95,8 +98,8 @@ class Block(nn.Module):
         super().__init__()
         self.remat_attn = remat_attn
         self.ln1 = LayerNorm(config.n_embd, device=device)
-        self.attn = GQA(config, device=device, dtype=dtype,
-                        attn_impl=attn_impl)
+        self.attn = Attention(config, device=device, dtype=dtype,
+                              attn_impl=attn_impl)
         self.ln2 = LayerNorm(config.n_embd, device=device)
         if config.moe:
             self.moe = MoE(config, device=device, dtype=dtype)
@@ -157,9 +160,10 @@ class LLM(nn.Module):
         self.tkn_emb = nn.Embedding(cfg.vocab_size, cfg.n_embd,
                                     device=device, dtype=dtype)
         if cfg.pos_emb == "rope":
+            # MLA rotates only its decoupled rotary features
+            d = cfg.rope_head_dim if cfg.attn == "mla" else cfg.head_size
             self.register_buffer("freqs", precompute_rope_freqs(
-                cfg.head_size, cfg.block_size, device=device),
-                persistent=False)
+                d, cfg.block_size, device=device), persistent=False)
         elif cfg.pos_emb == "learn":
             self.pos_emb = nn.Parameter(torch.empty(
                 cfg.block_size, cfg.n_embd, device=device, dtype=dtype))

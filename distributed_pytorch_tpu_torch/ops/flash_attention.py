@@ -16,8 +16,9 @@ layout through (batch, time) strides, so they serve both:
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take (dtypes other than fp32/bf16, head sizes other than
-64 and 128). The dtype picks the design inside the C entry, by dtype and
-never as a fallback: bf16 runs on tensor cores (wgmma on TMA-fed shared
+64, 128 and 256; 256 is MLA's concatenated content and rotary features at
+the launcher's widths). The dtype picks the design inside the C entry, by
+dtype and never as a fallback: bf16 runs on tensor cores (wgmma on TMA-fed shared
 memory, csrc/flash_attn_sm90.cuh and csrc/sm90_common.cuh), fp32 on the
 FMA design (csrc/flash_attn_common.cuh), since tensor cores take fp32
 only as TF32. For CPU tensors a wrapper runs the plain version, which repeats the
@@ -59,7 +60,7 @@ PLAIN_CALLS = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
                "flash_attn_bwd_dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_SIZES = (64, 128)  # the kernels' templated head sizes
+HEAD_SIZES = (64, 128, 256)  # the kernels' templated head sizes
 
 
 def reset_counts() -> None:
@@ -216,7 +217,7 @@ def flash_attn_bwd_dkv_plain(q, k, v, dout, lse, delta, seed=None, *, scale,
 
 def flash_attention_usable(q, k, v) -> bool:
     """Whether the kernels take these operands: fp32/bf16 q, k, v of one
-    dtype, head size 64 or 128, whole kv-head groups."""
+    dtype, head size 64, 128 or 256, whole kv-head groups."""
     return (q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
             and q.dtype in _DTYPE_CODE and k.dtype == q.dtype
             and v.dtype == q.dtype and q.shape[-1] in HEAD_SIZES

@@ -16,12 +16,15 @@ kept exactly (the CPU tests hold the codes bit for bit):
   scales into the scores and probabilities (ops/flash_decode.py); every
   other cached path dequantizes up front (ops/attention_core.py).
 * **weight-only int8**: `quantize_params` maps each matmul weight of the
-  blocks (attention `c_attn`/`c_proj`, the MLP's fused `c_fc` and its
-  `c_proj`) and the tied (V, C) embedding to int8 codes with one fp32
-  scale per output channel, keyed by the parameter's name in the model.
-  The engine enters `use_quantized_params(store)` around its DECODE
-  forwards only; there the call sites ask `maybe_quantized_matmul` first
-  and compute `(x @ codes) * scale` (prefill keeps the original weights).
+  blocks (attention `c_attn`/`c_proj`, MLA's eight bare (in, out)
+  matrices `W_dq, W_uq, W_dkv, W_uk, W_uv, W_o, W_qr, W_kr`, the MLP's
+  fused `c_fc` and its `c_proj`) and the tied (V, C) embedding to int8
+  codes with one fp32 scale per output channel, keyed by the parameter's
+  name in the model. The engine enters `use_quantized_params(store)`
+  around its DECODE forwards only; there the call sites ask
+  `maybe_quantized_matmul` first and compute `(x @ codes) * scale`
+  (prefill keeps the original weights); MLA's absorbed decode reads
+  W_uk / W_uv reshaped per head, so it asks `maybe_dequantized_param`.
 
 Both are chosen by the caller alone (the engine's `cache_dtype=` and
 `quantize_weights=`). `quant_kv_usable` declines MLA's latent cache, which
@@ -77,11 +80,15 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 # weight-only int8
 # ---------------------------------------------------------------------------
 
+#: MLA's bare (in, out) projections (reference `_KERNEL_NAMES`)
+MLA_WEIGHTS = frozenset(("W_dq", "W_uq", "W_dkv", "W_uk", "W_uv", "W_o",
+                         "W_qr", "W_kr"))
+
 def _quant_dim(name: str, t: torch.Tensor) -> Optional[int]:
     """The reduced dim of one parameter, or None when it stays as it is.
     `nn.Linear` weights (out, in) and the (V, C) embedding reduce over
-    dim 1 (a scale per output row / vocab row); the MLP's bare (in, out)
-    matrices over dim 0 (a scale per output column)."""
+    dim 1 (a scale per output row / vocab row); the MLP's and MLA's bare
+    (in, out) matrices over dim 0 (a scale per output column)."""
     if t.dim() != 2:
         return None
     parts = name.split(".")
@@ -93,6 +100,8 @@ def _quant_dim(name: str, t: torch.Tensor) -> Optional[int]:
             and parts[-1] == "weight":
         return 1
     if parts[-2] == "mlp" and parts[-1] in ("c_fc", "c_proj"):
+        return 0
+    if parts[-2] == "attn" and parts[-1] in MLA_WEIGHTS:
         return 0
     return None
 
@@ -147,3 +156,18 @@ def maybe_quantized_matmul(x: torch.Tensor, name: Optional[str], *,
     w = entry["q8"].to(x.dtype)
     y = x @ (w.t() if transpose_b else w)
     return (y.float() * entry["scale"].reshape(-1)).to(x.dtype)
+
+
+def maybe_dequantized_param(name: Optional[str], fallback: torch.Tensor,
+                            dtype=None) -> torch.Tensor:
+    """The active store's weight `name` dequantized (to `dtype`, default
+    the fallback's), else `fallback` as it is: for call sites that
+    contract a weight in a reshaped form (MLA's absorbed W_uk / W_uv),
+    where the scale does not fold into the product's output."""
+    if _ACTIVE is None or name is None:
+        return fallback
+    entry = _ACTIVE.get(name)
+    if entry is None:
+        return fallback
+    return dequantize_int8(entry["q8"], entry["scale"],
+                           dtype or fallback.dtype)

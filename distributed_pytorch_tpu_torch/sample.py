@@ -13,7 +13,9 @@ card unless `--cpu` is given. Decoding runs `models/generate.py:generate`
 step); `--cache-dtype`, `--quant-weights` and `--prefill-chunk N` route it
 through the `DecodeEngine` instead (paged kernels; an int8 cache through
 the `_q8` kernels; weight-only int8 decode; chunked prefill), one slot per
-sample, as in the reference. Refused, naming the slice that brings it:
+sample, as in the reference. An MLA checkpoint takes the same paths, with
+no kernel: its cached attention is the absorbed einsums over the latent
+cache (models/attention.py). Refused, naming the slice that brings it:
 `--shard` (slice 6).
 """
 

@@ -24,7 +24,11 @@ MoE models (slice 5) log `moe_drop`, the share of routed assignments the
 `stats["moe_degraded_dense"]` counts the layer forwards of the run that
 asked for 'grouped' and took 'dense' (`grouped_matmul.DEGRADED`).
 
-Not here yet, and refused where a config asks for them: MLA; the parallel
+MLA models (`--attn mla`) train through the same path; FullMLA's
+training forward reaches the flash kernels at head size hs +
+rope_head_dim.
+
+Not here yet, and refused where a config asks for them: the parallel
 recipes and ZeRO-Offload (slice 6); the profiler and the live metrics
 endpoint (slice 7). The reference's telemetry flight recorder, memory
 planner, AOT program store and multi-host bring-up also come with slices
@@ -70,9 +74,6 @@ def check_slice(model_cfg: LLMConfig, train_cfg: TrainConfig) -> None:
     if train_cfg.attn_impl in LATER_IMPLS:
         later.append(f"attn_impl={train_cfg.attn_impl!r}: "
                      f"{LATER_IMPLS[train_cfg.attn_impl]}")
-    if model_cfg.attn == "mla":
-        later.append("MLA models come with a later slice (after the MoE "
-                     "slice 5)")
     if train_cfg.offload == "on":
         later.append("offload comes with slice 6 (parallel recipes)")
     if train_cfg.profile or train_cfg.metrics_port >= 0:

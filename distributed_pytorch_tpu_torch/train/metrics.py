@@ -2,8 +2,8 @@
 
 Counterpart of the reference package's `train/metrics.py`
 (`matmul_params_per_token`, `attn_matmul_params_per_token`, `step_flops`,
-`moe_overcompute_factor`, `mfu`; metrics.py:121-238) for the
-mha/mqa/gqa family, dense and MoE, with a table of NVIDIA peaks in place
+`moe_overcompute_factor`, `mfu`; metrics.py:121-238) for GQA and MLA,
+dense and MoE, with a table of NVIDIA peaks in place
 of the TPU one. An MoE token counts its active experts (the shared ones
 and n_act_routed routed ones) and the router, whatever the dispatch
 computes. Model FLOPs: every matmul a token touches
@@ -41,9 +41,17 @@ def peak_flops_per_chip(device=None) -> float | None:
 
 
 def attn_matmul_params_per_token(cfg: LLMConfig) -> int:
-    """Matmul parameters of the attention sublayers per token."""
+    """Matmul parameters of the attention sublayers per token: GQA's
+    c_attn and c_proj; MLA's W_dq, W_uq, W_dkv, W_uk, W_uv and W_o, plus
+    W_qr and W_kr with RoPE."""
     C, hs, nkvh = cfg.n_embd, cfg.head_size, cfg.n_kv_heads
-    return cfg.n_layer * (C * (C + 2 * nkvh * hs) + C * C)
+    if cfg.attn != "mla":
+        return cfg.n_layer * (C * (C + 2 * nkvh * hs) + C * C)
+    nlq, nlkv = cfg.q_latent_dim, cfg.kv_latent_dim
+    attn = C * nlq + nlq * C + C * nlkv + 2 * nlkv * C + C * C
+    if cfg.pos_emb == "rope":
+        attn += nlq * cfg.n_head * cfg.rope_head_dim + C * cfg.rope_head_dim
+    return cfg.n_layer * attn
 
 
 def matmul_params_per_token(cfg: LLMConfig) -> int:

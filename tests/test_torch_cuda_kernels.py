@@ -698,7 +698,12 @@ FLASH_CASES = [  # B, T, S, nh, nkv, D, causal
     (1, 200, 200, 4, 2, 64, True), (2, 1, 1, 4, 4, 64, True),
     (2, 1, 70, 2, 1, 64, False),
     # D 128 with GQA rep 4 (dkv sums four query heads per kv head)
-    (1, 200, 200, 8, 2, 128, True), (2, 130, 70, 8, 2, 128, False)]
+    (1, 200, 200, 8, 2, 128, True), (2, 130, 70, 8, 2, 128, False),
+    # D 256 (MLA's q_c | q_r): MHA and GQA, causal and full, T and S off
+    # the tiles (dq's 32-key stages, dkv's 32-row query tiles and its two
+    # column halves a key tile)
+    (2, 128, 128, 4, 4, 256, True), (1, 200, 200, 4, 2, 256, True),
+    (2, 130, 70, 8, 2, 256, False), (1, 100, 100, 2, 2, 256, False)]
 
 
 #: (atol, rtol) of the flash kernels, element by element:
@@ -758,24 +763,45 @@ def test_flash_kernels_bf16_training_shape(dev, rate):
     _flash_case(dev, torch.bfloat16, 8, 1024, 1024, 12, 12, 64, True, rate)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_flash_kernels_bf16_mla_training_shape(dev, rate):
+    """The bf16 kernels at the MLA training path's shape: B 8, T 1024,
+    8 heads x 256 (the launcher's q_c | q_r), causal."""
+    _flash_case(dev, torch.bfloat16, 8, 1024, 1024, 8, 8, 256, True, rate)
+
+
+@pytest.mark.parametrize("D", [192, 80, 96])
+def test_flash_refuses_other_head_sizes(dev, D):
+    """Head sizes the kernels are not built for (MLA's 192 and 80) raise
+    on the card; nothing falls back."""
+    q = torch.zeros(1, 64, 2, D, device=dev, dtype=torch.bfloat16)
+    stat = torch.zeros(1, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="head size"):
+        fa.flash_attn_fwd(q, q, q, scale=0.1)
+    for fn in (fa.flash_attn_bwd_dq, fa.flash_attn_bwd_dkv):
+        with pytest.raises(ValueError, match="head size"):
+            fn(q, q, q, q, stat, stat, scale=0.1)
+
+
+@pytest.mark.parametrize("D", [64, 256])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-def test_flash_reads_strided_views(dev, dtype):
+def test_flash_reads_strided_views(dev, dtype, D):
     """q, k, v as views of one fused qkv projection (row stride 3*C), as
     the model hands them over, equal contiguous copies (bf16: through the
     TMA maps' time stride)."""
-    B, T, nh, D = 2, 130, 4, 64
+    B, T, nh = 2, 130, 4
     qkv = torch.randn(B, T, 3 * nh * D, device=dev).to(dtype)
     q, k, v = (t.reshape(B, T, nh, D) for t in qkv.split(nh * D, dim=-1))
     assert q.stride(1) == 3 * nh * D
-    out, lse = fa.flash_attn_fwd(q, k, v, scale=0.125)
+    out, lse = fa.flash_attn_fwd(q, k, v, scale=D ** -0.5)
     ref, ref_lse = fa.flash_attn_fwd(q.contiguous(), k.contiguous(),
-                                     v.contiguous(), scale=0.125)
+                                     v.contiguous(), scale=D ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
 
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
-@pytest.mark.parametrize("D,nh,nkv", [(64, 4, 2), (128, 8, 2)])
+@pytest.mark.parametrize("D,nh,nkv", [(64, 4, 2), (128, 8, 2), (256, 8, 2)])
 def test_flash_bwd_bf16_is_deterministic(dev, D, nh, nkv, kernel):
     """Two launches of a bf16 backward kernel on the same inputs are
     bit-equal: dq writes each query row once, dkv sums the GQA group in

@@ -78,6 +78,49 @@ def test_matches_reference_kernel(causal, nh, nkv, rate):
                                    rtol=0, err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_matches_reference_kernel_at_head_size(causal, D):
+    """The kernels' head sizes (256: MLA's q_c | q_r at the launcher's
+    widths) against the reference's `_flash_lse` in interpret mode, GQA
+    (rep 2) with dropout 0.2, T 32 (the reference's 16-row tiles): out,
+    lse and dq/dk/dv through `jax.vjp` with a nonzero dlse, fp32, atol
+    1e-5."""
+    B, T, nh, nkv, rate = 1, 32, 4, 2, 0.2
+    scale = D ** -0.5
+    q, k, v, dout, dlse = _inputs(B, T, nh, nkv, D, seed=D)
+    (ref_o, ref_l), vjp = jax.vjp(
+        lambda a, b, c: _jax_flash(a, b, c, scale, causal, rate),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_g = vjp((jnp.asarray(dout), jnp.asarray(dlse)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out, lse = fa.flash_attention_lse(tq, tk, tv, scale=scale, causal=causal,
+                                      dropout_rate=rate,
+                                      seed=torch.from_numpy(SEED))
+    grads = torch.autograd.grad((out, lse), (tq, tk, tv),
+                                (torch.from_numpy(dout),
+                                 torch.from_numpy(dlse)))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_o),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(ref_l),
+                               atol=ATOL, rtol=0)
+    for name, g, r in zip("qkv", grads, ref_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+def test_gate_takes_head_size_256_and_no_other_mla_size():
+    """The kernels' gate takes head sizes 64, 128 and 256 (the launcher's
+    MLA: 128 + 128) and refuses MLA's other sizes (192: the flagship with
+    the launcher's latents; 80: the flagship's own 64 + 16), which the
+    reference's gate takes; on the card the wrappers raise on them
+    (tests/test_torch_cuda_kernels.py)."""
+    for D, ok in ((64, True), (128, True), (256, True), (192, False),
+                  (80, False)):
+        z = torch.zeros(1, 8, 4, D)
+        assert fa.flash_attention_usable(z, z, z) is ok, D
+
+
 def test_dropout_bits_match_mix_bits():
     """Bit for bit on a grid that covers uint32 wrap-around, with seeds of
     both signs."""

@@ -192,10 +192,11 @@ def _chip_smoke():
 # a phase 2 inventory as `cuobjdump -sass` names the kernels: the bf16
 # wgmma kernels (flash fwd, dq, dkv and the paged prefill at D 64 and 128,
 # grouped fwd, dx and dW unscaled and scaled, the fused CE forward, dx and
-# dW, the int8-cache paged prefill at D 64 and 128) and some of the others (fp32 flash, fp32 grouped forward, dx and
+# dW, the int8-cache paged prefill at D 64 and 128, flash fwd, dq, dkv at
+# D 256) and some of the others (fp32 flash, fp32 grouped forward, dx and
 # dW, the FMA prefill, the tile decode, the split-KV decode's split (bf16
-# and int8 caches) and combine kernels, and the fused CE's mma.sync and
-# fp32 kernels)
+# and int8 caches) and combine kernels, the fused CE's mma.sync and fp32
+# kernels, and the fp32 flash kernels at D 256)
 SASS_SM90 = [
     f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi{d}EEEvNS0_4MapsEN5flash"
     "6ParamsE"
@@ -210,7 +211,10 @@ SASS_SM90 = [
     f"_ZN3fce14ce_kernel_sm90ILi{m}EEEvNS_3s904MapsENS_6ParamsEi"
     for m in (0, 1, 2)] + [
     f"_ZN12_GLOBAL__N_112prefill_sm9022prefill_kernel_sm90_q8ILi{d}EEEvPK13"
-    "__nv_bfloat16PKaPKfS6_S8_PKiPS2_iiiiiif" for d in (64, 128)]
+    "__nv_bfloat16PKaPKfS6_S8_PKiPS2_iiiiiif" for d in (64, 128)] + [
+    f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi256EEEvNS0_4MapsEN5flash"
+    "6ParamsE"
+    for k in ("fwd_kernel_sm90", "dq_kernel_sm90", "dkv_kernel_sm90")]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
@@ -226,7 +230,9 @@ SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN12_GLOBAL__N_121decode_combine_kernelIfEEvPKfPKiPT_iiii",
               "_ZN3fce9ce_kernelI13__nv_bfloat16Li1EEEvNS_6ParamsE",
               "_ZN3fce9ce_kernelIfLi2EEEvNS_6ParamsE",
-              "_ZN3fce9ce_kernelI13__nv_bfloat16Li0EEEvNS_6ParamsE"]
+              "_ZN3fce9ce_kernelI13__nv_bfloat16Li0EEEvNS_6ParamsE"] + [
+    f"_ZN12_GLOBAL__N_1{len(k)}{k}IfLi256EEEvN5flash6ParamsE"
+    for k in ("fwd_kernel", "dq_kernel", "dkv_kernel")]
 # each broken inventory: (kernel, op, count; op None drops the kernel),
 # and the name the failure must print
 BROKEN = {"complete": None,
@@ -267,7 +273,17 @@ BROKEN = {"complete": None,
           "q8_prefill_without_cp_async": ((SASS_SM90[17], "LDGSTS", 0),
                                           "prefill_kernel_sm90_q8"),
           "q8_prefill_missing": ((SASS_SM90[18], None, 0),
-                                 "prefill_kernel_sm90_q8")}
+                                 "prefill_kernel_sm90_q8"),
+          "fwd_256_without_hgmma": ((SASS_SM90[19], "HGMMA", 0),
+                                    "fwd_kernel_sm90"),
+          "dkv_256_without_tma": ((SASS_SM90[21], "UTMALDG", 0),
+                                  "dkv_kernel_sm90"),
+          "dq_256_missing": ((SASS_SM90[20], None, 0),
+                             "dq_kernel_sm90ILi256E"),
+          "fp32_dkv_256_missing": ((SASS_OTHER[14], None, 0),
+                                   "dkv_kernelIfLi256E"),
+          "fp32_fwd_256_with_hgmma": ((SASS_OTHER[12], "HGMMA", 4),
+                                      "fwd_kernelIfLi256E")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
@@ -283,10 +299,13 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     int8 cache) or the CE forward's or backward's mma.sync kernel with
     HGMMA, the decode split missing; the CE forward (its sm90 kernel)
     without HGMMA or without a TMA load; the int8-cache prefill without
-    HGMMA, with a TMA load, without cp.async, or missing."""
+    HGMMA, with a TMA load, without cp.async, or missing; the flash
+    kernels at D 256: the bf16 forward without HGMMA, the bf16 dkv without
+    a TMA load, the bf16 dq or the fp32 dkv missing, the fp32 forward with
+    HGMMA."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
-    for fn in SASS_SM90[12:14] + SASS_SM90[17:]:  # the paged prefills
+    for fn in SASS_SM90[12:14] + SASS_SM90[17:19]:  # the paged prefills
         inv[fn] = {"HGMMA": 8, "UTMALDG": 0, "LDGSTS": 16}
     inv.update({fn: {"HGMMA": 0, "UTMALDG": 0, "LDGSTS": 4}
                 for fn in SASS_OTHER})

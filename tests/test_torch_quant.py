@@ -168,13 +168,14 @@ def test_engine_follows_the_request(pair, cache_dtype, quantize_weights):
 
 def test_int8_declines_mla(pair):
     """MLA's latent cache declines int8 (`quant_kv_usable`), as in the
-    reference; an int8 MLA cache is refused, and a cache dtype other than
-    int8 must be the model's own."""
+    reference; an int8 MLA cache is refused with the reference's
+    ValueError, and a cache dtype other than int8 must be the model's
+    own."""
     for cfg in (JConfig(**{**KW, "attn": "mla"}),
                 LLMConfig(**{**KW, "attn": "mla"})):
         assert not tq.quant_kv_usable(cfg) and not jq.quant_kv_usable(cfg)
     assert tq.quant_kv_usable(LLMConfig(**KW))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="GQA family only"):
         init_attn_cache(LLMConfig(**{**KW, "attn": "mla"}), 1, 16,
                         dtype=torch.int8)
     with pytest.raises(ValueError):          # the model is fp32
