@@ -58,9 +58,9 @@
 //   256 use 32-row query tiles to fit shared memory, and at 256 the
 //   row-major Q and dO take the space of their transposed copies once S^T
 //   and dP^T are formed (230,656 bytes instead of 297,216).
-// * dkv, bf16 (`dkv_kernel_sm90`): tensor cores. One CTA of one warpgroup
-//   (128 threads) per (64-key tile, kv head, batch) keeps its K and V
-//   tiles resident and walks the query tiles of every head of its GQA
+// * dkv, bf16 at head size 64 and 128 (`flash_sm90::dkv_kernel_sm90`):
+//   tensor cores. One CTA of one warpgroup (128 threads) per (64-key
+//   tile, kv head, batch) keeps its K and V tiles resident and walks the query tiles of every head of its GQA
 //   group from the causal frontier on: 64 rows at head size 64, 32 at 128,
 //   so that the dK and dV accumulators (64 x D fp32 each) and the two
 //   score accumulators fit the thread's registers without spills (~200 a
@@ -78,13 +78,35 @@
 //   of dO and Q MN-major (the transpose bit). The group sum stays in the
 //   fp32 accumulators and each key row is written once, dk * scale. Only
 //   tiles on the diagonal or at the ragged ends are masked. Key tiles
-//   launch in order, the causal heaviest first. At head size 256 two CTAs
-//   share each key tile, each owning 128 of D's columns of dK and dV and
-//   each forming S^T and dP^T over all of D (`dkv_dn`): the two 64 x 256
-//   fp32 accumulators would be 256 registers a thread, while a half keeps
-//   the D 128 kernel's footprint, with no hand-over between warpgroups.
-//   The price is S^T and dP^T formed twice: 6 products of a key tile's
-//   work where 4 would do.
+//   launch in order, the causal heaviest first.
+// * dkv, bf16 at head size 256 (`flash_ws::dkv_kernel_sm90`):
+//   warp-specialized, one CTA of 384 threads per (64-key tile, kv head,
+//   batch), 210 KB of shared memory (K and V 64 KB, a 2-stage ring of
+//   64-row Q and dO tiles with their lse and delta 128 KB, P^T and dS^T
+//   16 KB). The 64 x 256 fp32 dK and dV would be 256 registers a thread
+//   in one warpgroup; the first design had two CTAs share a key tile, each
+//   forming S^T and dP^T over all of D for its 128 columns: 6 products a
+//   tile where 4 do, Q and dO read twice (0.6409 ms at the MLA shape).
+//   - A producer warpgroup (24 registers after setmaxnreg): one lane loads
+//     K and V once, then each query tile (every head of the GQA group,
+//     from the causal frontier on) into the ring; full barriers count the
+//     bytes in, empty ones take one arrival per consumer warp.
+//   - Two consumer warpgroups (240 registers: dK 64, dV 64, S^T 16, dP^T
+//     16). Consumer w forms S^T = K Q^T and dP^T = V dO^T for all 64 keys
+//     x its 32 queries of the tile (m64n32k16 SS over D, both K-major),
+//     P^T * mask and dS^T in registers with the arithmetic above, and
+//     stores them as bf16 into the shared P^T / dS^T tiles in the
+//     swizzled layout wgmma reads as a K-major A operand; fence.proxy.async
+//     and a named barrier later, it adds P^T dO and dS^T Q over the tile's
+//     64 queries into its 128 columns of dV and dK (m64n128k16 SS, dO and Q
+//     MN-major). A second barrier before the stores keeps one tile's
+//     P^T / dS^T from overwriting the last one's while the other consumer
+//     still reads it. 4 products a tile; Q and dO cross from L2 once.
+//   Key tiles run on the grid's fastest axis, so the CTAs of one (kv
+//   head, batch) run together and share its Q and dO in L2 (faster on the
+//   H100 than kv heads first). Issuing the next tile's S^T and dP^T before
+//   this tile's dV and dK, to form P^T and dS^T beside those products,
+//   was slower: its consumers spilled.
 
 #include "flash_attn_common.cuh"
 #include "flash_attn_sm90.cuh"
@@ -390,16 +412,6 @@ __host__ __device__ constexpr int bq() {
   return D == 64 ? 64 : 32;  // query rows per tile
 }
 
-// dK and dV columns a CTA owns: all of D up to 128. At 256 two CTAs share
-// a key tile, each owning half of the columns of both and each forming S^T
-// and dP^T over all of D: 64 x 256 fp32 of dK and of dV would be 256
-// registers a thread in one warpgroup, while a half keeps the D 128
-// kernel's footprint.
-template <int D>
-__host__ __device__ constexpr int dkv_dn() {
-  return D > 128 ? 128 : D;
-}
-
 template <int D>
 struct Smem {
   static constexpr int BQ = bq<D>();
@@ -450,12 +462,9 @@ __global__ void __launch_bounds__(kThreads)
     dkv_kernel_sm90(const __grid_constant__ Maps mp, const Params p) {
   using namespace sm90;
   constexpr int BQ = bq<D>();
-  constexpr int DN = dkv_dn<D>(), NP = D / DN;
   extern __shared__ uint8_t smem_raw[];
   Smem<D>& sm = smem_aligned<Smem<D>>(smem_raw);
-  // kv head, and the part of D's columns this CTA owns
-  const int g = blockIdx.x / NP, part = blockIdx.x % NP;
-  const int b = blockIdx.y, j0 = blockIdx.z * kBK;
+  const int g = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * kBK;
   const int rep = p.nh / p.nkv;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   // the first query row that sees this key tile (j0 is a multiple of BQ)
@@ -485,9 +494,9 @@ __global__ void __launch_bounds__(kThreads)
   const int r0 = w * 16 + (lane >> 2);  // this thread's key rows: r0, r0 + 8
   const int c0 = 2 * (lane & 3);        // and query columns 8 j + c0 + {0, 1}
 
-  float dk[DN / 2], dv[DN / 2];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int i = 0; i < DN / 2; ++i) {
+  for (int i = 0; i < D / 2; ++i) {
     dk[i] = 0.f;
     dv[i] = 0.f;
   }
@@ -551,13 +560,10 @@ __global__ void __launch_bounds__(kThreads)
     fence_regs(dv);
     fence_regs(dk);
     wg_fence();
-    // this CTA's columns of dO and Q: 64-column sub-tiles part * DN / 64 on
-    const bf16* dout_n = sm.dout[s] + part * DN * BQ;
-    const bf16* q_n = sm.q[s] + part * DN * BQ;
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<DN, 1>(dv, pa[kk], desc_mnmajor<BQ>(dout_n, kk));
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D, 1>(dv, pa[kk], desc_mnmajor<BQ>(sm.dout[s], kk));
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<DN, 1>(dk, da[kk], desc_mnmajor<BQ>(q_n, kk));
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D, 1>(dk, da[kk], desc_mnmajor<BQ>(sm.q[s], kk));
     wg_commit();
     wg_wait<0>();
     fence_regs(dv);
@@ -566,7 +572,7 @@ __global__ void __launch_bounds__(kThreads)
     if (tid == 0 && it + kStages < n_it) load_q<D>(sm, mp, p, it + kStages, s, n_qt, t_begin, g, b);
   }
 
-  const long long base = (long long)b * p.S * p.nkv * D + (long long)g * D + part * DN;
+  const long long base = (long long)b * p.S * p.nkv * D + (long long)g * D;
   bf16* dk_out = static_cast<bf16*>(p.out0) + base;
   bf16* dv_out = static_cast<bf16*>(p.out1) + base;
 #pragma unroll
@@ -575,7 +581,7 @@ __global__ void __launch_bounds__(kThreads)
     if (kp >= p.S) continue;
     const long long off = (long long)kp * p.nkv * D + c0;
 #pragma unroll
-    for (int jj = 0; jj < DN / 8; ++jj) {
+    for (int jj = 0; jj < D / 8; ++jj) {
       *reinterpret_cast<__nv_bfloat162*>(dk_out + off + 8 * jj) = __floats2bfloat162_rn(
           dk[4 * jj + 2 * ih] * p.scale, dk[4 * jj + 2 * ih + 1] * p.scale);
       *reinterpret_cast<__nv_bfloat162*>(dv_out + off + 8 * jj) =
@@ -607,7 +613,7 @@ int launch_dkv(const Params& p, void* stream) {
       !sm90::vec_map(&mp.lse, p.lse_in, n_stat, BQ + 4) ||
       !sm90::vec_map(&mp.delta, p.delta, n_stat, BQ + 4))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(p.nkv * (D / dkv_dn<D>()), p.B, (p.S + kBK - 1) / kBK);
+  const dim3 grid(p.nkv, p.B, (p.S + kBK - 1) / kBK);
   dkv_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
   return (int)cudaGetLastError();
 }
@@ -788,6 +794,268 @@ int launch_dq(const Params& p, void* stream) {
 
 }  // namespace flash_sm90
 
+// ---- bf16 dkv at head size 256: warp-specialized wgmma --------------------
+
+namespace flash_ws {
+
+using flash_sm90::Maps;
+using sm90::bf16;
+constexpr int kBK = 64;              // key rows a CTA
+constexpr int kBQ = 64;              // query rows a tile; each consumer forms 32 of them
+constexpr int kHalf = kBQ / 2;
+constexpr int kStages = 2;
+constexpr int kConsumers = 256;      // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+// registers a thread after setmaxnreg, out of the 168 x 384 the launch
+// gives the CTA: 2 x 128 x 240 + 128 x 24 = 64512
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  alignas(1024) bf16 k[kBK * D];
+  alignas(1024) bf16 v[kBK * D];
+  alignas(1024) bf16 q[kStages][kBQ * D];
+  alignas(1024) bf16 dout[kStages][kBQ * D];
+  // P^T * mask and dS^T of the tile, bf16, 64 keys x 64 queries, laid out
+  // as a TMA tile (128-byte swizzle): the K-major A operand of dV and dK
+  alignas(1024) bf16 pt[kBK * kBQ];
+  alignas(1024) bf16 dst[kBK * kBQ];
+  // kBQ + 4 values from a 16-byte aligned start, each stage 128-byte aligned
+  static constexpr int LS = (kBQ + 4 + 31) / 32 * 32;
+  alignas(128) float lse[kStages][LS];
+  alignas(128) float delta[kStages][LS];
+  uint64_t kvbar, full[kStages], empty[kStages];
+};
+
+// query tile `it` (head r of the group, then time) into stage s (one thread)
+template <int D>
+__device__ __forceinline__ void load_q(Smem<D>& sm, const Maps& mp, const Params& p, int it,
+                                       int s, int n_qt, int t_begin, int g, int b) {
+  const int h = g * (p.nh / p.nkv) + it / n_qt;
+  const int i0 = t_begin + (it % n_qt) * kBQ;
+  sm90::mbar_expect_tx(&sm.full[s], 2 * kBQ * D * 2 + 2 * (kBQ + 4) * 4);
+  sm90::tma_rows<D, kBQ>(sm.q[s], &mp.q, &sm.full[s], h, i0, b);
+  sm90::tma_rows<D, kBQ>(sm.dout[s], &mp.dout, &sm.full[s], h, i0, b);
+  const int stat = (b * p.nh + h) * p.T + i0;
+  sm90::tma_load_1d(sm.lse[s], &mp.lse, &sm.full[s], stat & ~3);
+  sm90::tma_load_1d(sm.delta[s], &mp.delta, &sm.full[s], stat & ~3);
+}
+
+// A consumer's walk over the query tiles (every head of the GQA group,
+// from the causal frontier on) of the key tile at j0: S^T and dP^T, then
+// P^T and dS^T in registers, to shared memory as bf16, then the tile's dV
+// and dK products. r0, c0: this thread's key rows r0, r0 + 8 and query
+// columns 8 j + c0 + {0, 1} in the accumulator layout.
+template <bool DROP, int D>
+__device__ __forceinline__ void dkv_walk(Smem<D>& sm, const Params& p, int j0, int g, int b,
+                                         int n_qt, int t_begin, int n_it, int w, int r0, int c0,
+                                         uint32_t s0, uint32_t s1, float (&dk)[D / 4],
+                                         float (&dv)[D / 4]) {
+  using namespace sm90;
+  constexpr int DN = D / 2;
+  const int rep = p.nh / p.nkv, lane = threadIdx.x & 31;
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const int h = g * rep + it / n_qt;
+    const int i0 = t_begin + (it % n_qt) * kBQ;
+    // S^T = K Q^T and dP^T = V dO^T over this consumer's 32 queries:
+    // m64n32k16, both operands K-major, the queries from row 32 w of the
+    // stage's tiles (an 8-row group boundary of the swizzle)
+    float st[kHalf / 2], dpt[kHalf / 2];
+    mbar_wait(&sm.full[s], (it / kStages) & 1);
+    fence_regs(st);
+    fence_regs(dpt);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kHalf, 0, 0>(st, desc_kmajor<kBK>(sm.k, kk),
+                            desc_kmajor<kBQ>(sm.q[s] + kHalf * w * 64, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kHalf, 0, 0>(dpt, desc_kmajor<kBK>(sm.v, kk),
+                            desc_kmajor<kBQ>(sm.dout[s] + kHalf * w * 64, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // mask only tiles on the diagonal or at the ragged ends
+    const bool edge = (p.causal && j0 + kBK - 1 > i0) || i0 + kBQ > p.T || j0 + kBK > p.S;
+    const uint32_t row = (uint32_t)(b * p.nh + h);
+    const float* lse_s = sm.lse[s] + flash_sm90::stat_skew(p, h, i0, b);
+    const float* dl_s = sm.delta[s] + flash_sm90::stat_skew(p, h, i0, b);
+#pragma unroll
+    for (int i = 0; i < kHalf / 2; ++i) {
+      const int ih = (i >> 1) & 1;
+      const int qi = kHalf * w + 8 * (i >> 2) + c0 + (i & 1);
+      const int kp = j0 + r0 + 8 * ih, qp = i0 + qi;
+      bool ok = true;
+      if (edge) ok = qp < p.T && kp < p.S && (!p.causal || kp <= qp);
+      // the fp32 score q.k * scale, then exp(score - lse)
+      const float pv = ok ? exp2_ftz((st[i] * p.scale - lse_s[qi]) * kLog2e) : 0.f;
+      float d = dpt[i], pm = pv;
+      if constexpr (DROP) {
+        const float mk = flash::keep(p, s0, s1, row, qp, kp);
+        pm = pv * mk;
+        d *= mk;
+      }
+      st[i] = pm;                    // P^T * mask
+      dpt[i] = pv * (d - dl_s[qi]);  // dS^T
+    }
+    bar_sync(1, kConsumers);  // the last tile's products have read P^T / dS^T
+    // this thread's values, rounded to bf16, at key rows r0 (+ 8), query
+    // columns 32 w + 8 j + c0 (16-byte chunk 4 w + j)
+#pragma unroll
+    for (int j = 0; j < kHalf / 8; ++j)
+#pragma unroll
+      for (int ih = 0; ih < 2; ++ih) {
+        const int off = swz<kBK>(r0 + 8 * ih, (kHalf / 8) * w + j) + c0;
+        *reinterpret_cast<__nv_bfloat162*>(sm.pt + off) =
+            __floats2bfloat162_rn(st[4 * j + 2 * ih], st[4 * j + 2 * ih + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(sm.dst + off) =
+            __floats2bfloat162_rn(dpt[4 * j + 2 * ih], dpt[4 * j + 2 * ih + 1]);
+      }
+    fence_proxy_async();
+    bar_sync(1, kConsumers);  // both halves are written
+
+    // dV[:, cols] += (P^T * mask) dO[:, cols] and dK[:, cols] += dS^T Q[:,
+    // cols] over the tile's 64 queries: m64n128k16, A K-major from the
+    // shared P^T / dS^T tiles, dO and Q read MN-major from 64-column
+    // sub-tile 2 w on
+    fence_regs(dv);
+    fence_regs(dk);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      wgmma_ss<DN, 0, 1>(dv, desc_kmajor<kBK>(sm.pt, kk),
+                         desc_mnmajor<kBQ>(sm.dout[s] + w * DN * kBQ, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      wgmma_ss<DN, 0, 1>(dk, desc_kmajor<kBK>(sm.dst, kk),
+                         desc_mnmajor<kBQ>(sm.q[s] + w * DN * kBQ, kk), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive_if(&sm.empty[s], lane == 0);  // this warp is done with stage s
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkv_kernel_sm90(const __grid_constant__ Maps mp, const Params p) {
+  using namespace sm90;
+  constexpr int DN = D / 2;  // dK and dV columns a consumer owns
+  extern __shared__ uint8_t smem_raw[];
+  Smem<D>& sm = smem_aligned<Smem<D>>(smem_raw);
+  // key tiles on the grid's fastest axis, the causal heaviest first: the
+  // CTAs of one (kv head, batch) run together and share its Q and dO in L2
+  const int j0 = blockIdx.x * kBK, g = blockIdx.y, b = blockIdx.z;
+  const int rep = p.nh / p.nkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the first query row that sees this key tile (j0 is a multiple of kBQ)
+  const int t_begin = p.causal ? j0 : 0;
+  const int n_qt = p.T > t_begin ? (p.T - t_begin + kBQ - 1) / kBQ : 0;
+  const int n_it = rep * n_qt;
+
+  if (tid == 0) {
+    mbar_init(&sm.kvbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers / 32);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {  // the producer warpgroup: one lane issues
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumers / 32 && lane == 0 && n_it > 0) {
+      mbar_expect_tx(&sm.kvbar, 2 * kBK * D * 2);
+      tma_rows<D, kBK>(sm.k, &mp.k, &sm.kvbar, g, j0, b);
+      tma_rows<D, kBK>(sm.v, &mp.v, &sm.kvbar, g, j0, b);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        // the stage's previous tile is handed back (none on the first lap)
+        if (it >= kStages) mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+        flash_ws::load_q<D>(sm, mp, p, it, s, n_qt, t_begin, g, b);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int w = warp >> 2;  // consumer: queries 32 w .. of each tile, columns DN w .. of dK, dV
+  uint32_t s0 = 0, s1 = 0;
+  if (p.dropout) {
+    s0 = (uint32_t)p.seed[0];
+    s1 = (uint32_t)p.seed[1];
+  }
+  const int r0 = (warp & 3) * 16 + (lane >> 2);  // this thread's key rows: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);                 // and query columns 8 j + c0 + {0, 1}
+
+  float dk[DN / 2], dv[DN / 2];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) {
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
+  if (n_it > 0) mbar_wait(&sm.kvbar, 0);
+  // the walk over the query tiles, with dropout picked once, outside it
+  // (a test of p.dropout inside it ran slower on the H100)
+  if (p.dropout)
+    dkv_walk<true, D>(sm, p, j0, g, b, n_qt, t_begin, n_it, w, r0, c0, s0, s1, dk, dv);
+  else
+    dkv_walk<false, D>(sm, p, j0, g, b, n_qt, t_begin, n_it, w, r0, c0, s0, s1, dk, dv);
+
+  const long long base = (long long)b * p.S * p.nkv * D + (long long)g * D + w * DN;
+  bf16* dk_out = static_cast<bf16*>(p.out0) + base;
+  bf16* dv_out = static_cast<bf16*>(p.out1) + base;
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int kp = j0 + r0 + 8 * ih;
+    if (kp >= p.S) continue;
+    const long long off = (long long)kp * p.nkv * D + c0;
+#pragma unroll
+    for (int jj = 0; jj < DN / 8; ++jj) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_out + off + 8 * jj) = __floats2bfloat162_rn(
+          dk[4 * jj + 2 * ih] * p.scale, dk[4 * jj + 2 * ih + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv_out + off + 8 * jj) =
+          __floats2bfloat162_rn(dv[4 * jj + 2 * ih], dv[4 * jj + 2 * ih + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv(const Params& p, void* stream) {
+  static size_t cap[64] = {};
+  const size_t smem = sizeof(Smem<D>) + 1024;  // + room to align the base to 1024
+  const int err = flash::set_smem(dkv_kernel_sm90<D>, smem, cap);
+  if (err) return err;
+  if (p.S == 0 || p.B == 0 || p.nkv == 0) return 0;
+  if (p.T == 0) {  // no query sees a key: zero gradients, as the FMA kernel writes
+    const size_t n = (size_t)p.B * p.S * p.nkv * D * sizeof(bf16);
+    cudaMemsetAsync(p.out0, 0, n, (cudaStream_t)stream);
+    cudaMemsetAsync(p.out1, 0, n, (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+  }
+  Maps mp;
+  const long long n_stat = (long long)p.B * p.nh * p.T;
+  if (!sm90::rows_map(&mp.q, p.q, D, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
+      !sm90::rows_map(&mp.dout, p.dout, D, p.nh, p.T, p.B, p.do_st, p.do_sb, kBQ) ||
+      !sm90::rows_map(&mp.k, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
+      !sm90::rows_map(&mp.v, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK) ||
+      !sm90::vec_map(&mp.lse, p.lse_in, n_stat, kBQ + 4) ||
+      !sm90::vec_map(&mp.delta, p.delta, n_stat, kBQ + 4))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((p.S + kBK - 1) / kBK, p.nkv, p.B);
+  // qualified: Maps would also bring flash_sm90's kernel in by argument lookup
+  flash_ws::dkv_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash_ws
+
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the wgmma kernel);
@@ -823,6 +1091,6 @@ extern "C" int flash_attn_bwd_dkv(int dtype, int D, const void* q, const void* k
   if (dtype == 0 && D == 256) return launch_dkv<float, 256>(p, stream);
   if (dtype == 1 && D == 64) return flash_sm90::launch_dkv<64>(p, stream);
   if (dtype == 1 && D == 128) return flash_sm90::launch_dkv<128>(p, stream);
-  if (dtype == 1 && D == 256) return flash_sm90::launch_dkv<256>(p, stream);
+  if (dtype == 1 && D == 256) return flash_ws::launch_dkv<256>(p, stream);
   return (int)cudaErrorInvalidValue;
 }

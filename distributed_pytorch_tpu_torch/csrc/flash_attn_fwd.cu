@@ -22,13 +22,11 @@
 // tensor-core path here, by FMA issue.
 //
 // The dtype picks the kernel; it is not a fallback:
-// * bf16 (`fwd_kernel_sm90`): tensor cores. One CTA of one warpgroup (128
-//   threads) per (64-row query tile, head, batch); 42 KB of shared memory
-//   at head size 64 (five CTAs an SM), 82 KB at 128 (two), 162 KB at 256
-//   (one: MLA's concatenated content and rotary features, where the O
-//   accumulator alone is 128 registers a thread and P V is one m64n256k16
-//   a k-step). TMA brings the query tile, then 64-key K and V tiles into
-//   a 2-stage ring (128-byte swizzle, mbarrier completion); the tile after
+// * bf16 at head size 64 and 128 (`flash_sm90::fwd_kernel_sm90`): tensor
+//   cores. One CTA of one warpgroup (128 threads) per (64-row query tile,
+//   head, batch); 42 KB of shared memory at head size 64 (five CTAs an
+//   SM), 82 KB at 128 (two). TMA brings the query tile, then 64-key K and
+//   V tiles into a 2-stage ring (128-byte swizzle, mbarrier completion); the tile after
 //   next is requested as soon as a stage is free, so one tile is always in
 //   flight while the warpgroup computes. S = Q K^T is a wgmma with both
 //   operands in shared memory (K-major); the online softmax runs on the fp32
@@ -44,6 +42,41 @@
 //   are masked (TMA zero-fills rows past T and S). Query tiles launch
 //   heaviest first (the grid's slowest axis runs down the causal
 //   frontier), so long tiles do not form the grid's tail.
+// * bf16 at head size 256 (`flash_ws::fwd_kernel_sm90`; MLA's
+//   concatenated content and rotary features): warp-specialized. The O
+//   accumulator alone is 128 registers a thread and 64 x 256 K and V
+//   tiles take 64 KB a stage, so one CTA fills an SM; a lone warpgroup
+//   (the first design, 0.1990 ms at the MLA shape) left the tensor cores
+//   idle through every softmax and load. One CTA of 384 threads per
+//   (128-row query tile, head, batch), heaviest first, 194 KB of shared
+//   memory (Q 64 KB, a 2-stage K/V ring 128 KB):
+//   - a producer warpgroup (24 registers after setmaxnreg) whose one lane
+//     loads Q, then streams 64-key K and V tiles up to the last live row's
+//     frontier. Full barriers count the bytes in; a stage's K goes back
+//     once both consumers' S on it has retired and its V once their P V
+//     has, a turn later (empty barriers, one arrival per consumer warp),
+//     so the next K load starts a turn before the V one;
+//   - two consumer warpgroups (240 registers: O 128, S 32, P 16), each
+//     owning 64 query rows and stopping at its own causal frontier. A
+//     turn issues S of tile j (SS, m64n64k16), then P V of tile j - 1
+//     (RS, m64n256k16); as soon as S is done, the softmax of tile j (the
+//     arithmetic above, with no branch: the mask by selects on every
+//     tile) runs beside that P V; once it is done, O is rescaled and the
+//     new P dropped and packed. The two consumers take turns (named
+//     barriers 1 and 2), so that one's products run while the other
+//     forms its softmax. Both take the same number of turns (a consumer
+//     past its frontier takes a turn with no work), so every bar.arrive
+//     meets its bar.sync; a CTA whose second consumer has no row below T
+//     runs the first alone.
+//   Measured on the H100 at the MLA shape, each faster than what it
+//   replaced: the softmax beside P V (the turns alone left it in series
+//   with the products), K and V handed back apart, query tiles heaviest
+//   first across the grid (not head by head, for L2), 64-key stages (80
+//   spilled and ran slower).
+//   What bounds it: shared memory feeds the products at about the tensor
+//   rate (S reads Q and K, P V reads V, and TMA writes K and V: 256 KB a
+//   128 x 64 tile, 2048 cycles at 128 bytes a cycle, as long as the
+//   products' 2048).
 // * fp32 (`fwd_kernel`): the FMA design of flash_attn_common.cuh,
 //   unchanged (223,232 bytes of shared memory at head size 256, under the
 //   227 KB a block may opt into). Tensor cores take fp32 only as TF32,
@@ -363,6 +396,298 @@ int launch(const Params& p, void* stream) {
 
 }  // namespace flash_sm90
 
+// ---- bf16 at head size 256: warp-specialized wgmma ------------------------
+
+namespace flash_ws {
+
+using sm90::bf16;
+constexpr int kRows = 64;            // query rows a consumer warpgroup
+constexpr int kBQ = 2 * kRows;       // query rows a CTA
+constexpr int kBK = 64;              // keys a stage
+constexpr int kStages = 2;
+constexpr int kConsumers = 256;      // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+// registers a thread after setmaxnreg, out of the 168 x 384 the launch
+// gives the CTA: 2 x 128 x 240 + 128 x 24 = 64512 (at 232 the consumers
+// spilled a few descriptor words)
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  alignas(1024) bf16 q[2][kRows * D];  // each consumer's 64 rows
+  alignas(1024) bf16 k[kStages][kBK * D];
+  alignas(1024) bf16 v[kStages][kBK * D];
+  // K and V go back separately: K once both consumers' S on it is done,
+  // V once their P V is, a turn later
+  uint64_t qbar, kfull[kStages], vfull[kStages], kempty[kStages], vempty[kStages];
+};
+
+// What a consumer needs besides its accumulators: its first query row q0
+// and this thread's rows r0, r0 + 8 and columns 8 j + c0 + {0, 1} of the
+// accumulator layout; the dropout seed and row
+struct Rows {
+  int q0, r0, c0;
+  uint32_t s0, s1, row;
+};
+
+// Key tile j's scores in sc (64 x 64, accumulator layout) -> p in sc
+// (fp32, not yet dropped), this thread's rows' running max m and sum l
+// (of the undropped p), and the factor alpha by which O is to be
+// rescaled: the arithmetic of flash_sm90::fwd_kernel_sm90. It runs while
+// this consumer's P V of the tile before is in flight, so it has no
+// branch: every tile is masked by selects against each row's last key (a
+// no-op off the diagonal and the ragged end).
+__device__ __forceinline__ void softmax_p(const Params& p, const Rows& rw, float (&sc)[kBK / 2],
+                                          float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                          int j) {
+  using namespace sm90;
+  const int k0 = j * kBK;
+  int kend[2];  // keys k0 + c < kend[ih] are seen by row r0 + 8 ih
+  float mx[2] = {flash::kNegInf, flash::kNegInf};
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih)
+    kend[ih] = min(p.S, p.causal ? rw.q0 + rw.r0 + 8 * ih + 1 : p.S) - k0;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    const int ih = (i >> 1) & 1;
+    const int c = 8 * (i >> 2) + rw.c0 + (i & 1);
+    const float x = c < kend[ih] ? sc[i] * p.scale : flash::kNegInf;
+    sc[i] = x;
+    mx[ih] = fmaxf(mx[ih], x);
+  }
+  float ml[2];
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const float m_new = fmaxf(m[ih], quad_max(mx[ih]));
+    alpha[ih] = exp2_ftz((m[ih] - m_new) * kLog2e);
+    m[ih] = m_new;
+    ml[ih] = m_new * kLog2e;
+    l[ih] *= alpha[ih];
+  }
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    const int ih = (i >> 1) & 1;
+    const float pr = exp2_ftz(fmaf(sc[i], kLog2e, -ml[ih]));
+    l[ih] += pr;  // the undropped p
+    sc[i] = pr;
+  }
+}
+
+// Once P V of the tile before is done: O *= alpha, and p of key tile j,
+// dropped after the normalizer took it, rounded to bf16 into the A
+// fragments of O += P V
+template <int D>
+__device__ __forceinline__ void rescale_pack(const Params& p, const Rows& rw,
+                                             float (&sc)[kBK / 2], float (&o)[D / 2],
+                                             const float (&alpha)[2],
+                                             uint32_t (&pa)[kBK / 16][4], int j) {
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj)
+#pragma unroll
+    for (int ih = 0; ih < 2; ++ih) {
+      o[4 * jj + 2 * ih] *= alpha[ih];
+      o[4 * jj + 2 * ih + 1] *= alpha[ih];
+    }
+  if (p.dropout) {
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int ih = (i >> 1) & 1;
+      const int qp = rw.q0 + rw.r0 + 8 * ih, kp = j * kBK + 8 * (i >> 2) + rw.c0 + (i & 1);
+      sc[i] *= flash::keep(p, rw.s0, rw.s1, rw.row, qp, kp);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) sm90::acc_to_frag(sc, kk, pa[kk]);
+}
+
+// S = Q K^T over key tile j (stage s), both operands K-major
+template <int D>
+__device__ __forceinline__ void issue_s(Smem<D>& sm, float (&sc)[kBK / 2], int w, int s) {
+  using namespace sm90;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kBK, 0, 0>(sc, desc_kmajor<kRows>(sm.q[w], kk), desc_kmajor<kBK>(sm.k[s], kk), kk > 0);
+}
+
+// O += P V over the key tile in stage s, V read MN-major
+template <int D>
+__device__ __forceinline__ void issue_pv(Smem<D>& sm, float (&o)[D / 2],
+                                         const uint32_t (&pa)[kBK / 16][4], int s) {
+  using namespace sm90;
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<D, 1>(o, pa[kk], desc_mnmajor<kBK>(sm.v[s], kk));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Params p) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<D>& sm = smem_aligned<Smem<D>>(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest tiles first
+  const int g = h / (p.nh / p.nkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // consumers with a live row: the second has none where T ends in the
+  // first's 64 rows
+  const int n_live = i0 + kRows < p.T ? 2 : 1;
+  // key tiles the rows before q_end may see (each side computes its own,
+  // so that little stays live across setmaxnreg)
+  auto tiles_to = [&](int q_end) { return (min(p.S, p.causal ? q_end : p.S) + kBK - 1) / kBK; };
+
+  if (tid == 0) {
+    mbar_init(&sm.qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.kfull[s], 1);
+      mbar_init(&sm.vfull[s], 1);
+      mbar_init(&sm.kempty[s], 4 * n_live);  // one arrival per consumer warp
+      mbar_init(&sm.vempty[s], 4 * n_live);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {  // the producer warpgroup: one lane issues
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      const int n_kt = tiles_to(i0 + kRows * n_live);  // the last live consumer's
+      mbar_expect_tx(&sm.qbar, n_live * kRows * D * 2);
+      for (int w = 0; w < n_live; ++w) tma_rows<D, kRows>(sm.q[w], &tq, &sm.qbar, h, i0 + kRows * w, b);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages;
+        const uint32_t ph = ((j / kStages) & 1) ^ 1;
+        // the stage's previous K, then V, is handed back (none on the first lap)
+        if (j >= kStages) mbar_wait(&sm.kempty[s], ph);
+        mbar_expect_tx(&sm.kfull[s], kBK * D * 2);
+        tma_rows<D, kBK>(sm.k[s], &tk, &sm.kfull[s], g, j * kBK, b);
+        if (j >= kStages) mbar_wait(&sm.vempty[s], ph);
+        mbar_expect_tx(&sm.vfull[s], kBK * D * 2);
+        tma_rows<D, kBK>(sm.v[s], &tv, &sm.vfull[s], g, j * kBK, b);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int w = warp >> 2;  // consumer warpgroup: query rows i0 + 64 w ..
+  if (w >= n_live) return;
+  Rows rw{i0 + kRows * w, (warp & 3) * 16 + (lane >> 2), 2 * (lane & 3), 0u, 0u,
+          (uint32_t)(b * p.nh + h)};
+  const int nw = tiles_to(rw.q0 + kRows);  // its key tiles
+  const int two = n_live == 2;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {flash::kNegInf, flash::kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's part
+  if (p.dropout) {
+    rw.s0 = (uint32_t)p.seed[0];
+    rw.s1 = (uint32_t)p.seed[1];
+  }
+  mbar_wait(&sm.qbar, 0);
+  // The walk over the nw key tiles. Ping-pong: each consumer issues its
+  // products in turns (named barrier 1 + w is "w's turn", `two` where both
+  // consumers run), so that one's products run while the other forms its
+  // softmax. Both take the CTA's n_kt + 1 turns: consumer 1 sees all n_kt
+  // tiles, consumer 0 n_kt or, causal, n_kt - 1, and then takes one turn
+  // with no work (`extra`); consumer 1's last turn hands on nothing, so
+  // every arrival meets its wait. A turn issues S of tile j, then P V of
+  // tile j - 1, and forms tile j's softmax as soon as S is done, beside
+  // that P V; O is rescaled and the new P packed once P V is done.
+  if (nw > 0) {
+    const int extra = tiles_to(i0 + kRows * n_live) - nw;
+    const int mine = 1 + w, other = 2 - w;
+    bar_arrive_if(1, kConsumers, two && w == 1);  // the first turn is consumer 0's
+    float sc[kBK / 2], alpha[2];
+    uint32_t pa[kBK / 16][4];
+    // turn 0: S of tile 0
+    bar_sync_if(mine, kConsumers, two);
+    mbar_wait(&sm.kfull[0], 0);
+    fence_regs(sc);
+    wg_fence();
+    issue_s<D>(sm, sc, w, 0);
+    wg_commit();
+    bar_arrive_if(other, kConsumers, two);
+    wg_wait<0>();
+    fence_regs(sc);
+    mbar_arrive_if(&sm.kempty[0], lane == 0);
+    softmax_p(p, rw, sc, m, l, alpha, 0);
+    rescale_pack<D>(p, rw, sc, o, alpha, pa, 0);
+    // turns 1 .. nw - 1: S of tile j, P V of tile j - 1
+    for (int j = 1; j < nw; ++j) {
+      const int s = j % kStages, sp = (j - 1) % kStages;
+      bar_sync_if(mine, kConsumers, two);
+      mbar_wait(&sm.kfull[s], (j / kStages) & 1);
+      mbar_wait(&sm.vfull[sp], ((j - 1) / kStages) & 1);
+      fence_regs(sc);
+      fence_regs(o);
+      wg_fence();
+      issue_s<D>(sm, sc, w, s);
+      wg_commit();
+      issue_pv<D>(sm, o, pa, sp);
+      wg_commit();
+      bar_arrive_if(other, kConsumers, two);
+      wg_wait<1>();  // S of tile j
+      fence_regs(sc);
+      mbar_arrive_if(&sm.kempty[s], lane == 0);
+      softmax_p(p, rw, sc, m, l, alpha, j);
+      wg_wait<0>();  // P V of tile j - 1
+      fence_regs(o);
+      mbar_arrive_if(&sm.vempty[sp], lane == 0);
+      rescale_pack<D>(p, rw, sc, o, alpha, pa, j);
+    }
+    // turn nw: P V of the last tile
+    const int sp = (nw - 1) % kStages;
+    bar_sync_if(mine, kConsumers, two);
+    mbar_wait(&sm.vfull[sp], ((nw - 1) / kStages) & 1);
+    fence_regs(o);
+    wg_fence();
+    issue_pv<D>(sm, o, pa, sp);
+    wg_commit();
+    bar_arrive_if(other, kConsumers, two && w == 0);
+    wg_wait<0>();
+    fence_regs(o);
+    mbar_arrive_if(&sm.vempty[sp], lane == 0);
+    bar_sync_if(mine, kConsumers, two && extra);
+    bar_arrive_if(other, kConsumers, two && extra);
+  }
+
+  float* lse = p.lse_out + (long long)(b * p.nh + h) * p.T;
+  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * D + (long long)h * D;
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int qp = rw.q0 + rw.r0 + 8 * ih;
+    const float ls = fmaxf(quad_sum(l[ih]), 1e-30f);
+    if (qp >= p.T) continue;
+    bf16* orow = out + (long long)qp * p.nh * D + rw.c0;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
+          __floats2bfloat162_rn(o[4 * jj + 2 * ih] / ls, o[4 * jj + 2 * ih + 1] / ls);
+    if ((lane & 3) == 0) lse[qp] = m[ih] + logf(ls);
+  }
+}
+
+template <int D>
+int launch(const Params& p, void* stream) {
+  static size_t cap[64] = {};
+  const size_t smem = sizeof(Smem<D>) + 1024;  // + room to align the base to 1024
+  const int err = flash::set_smem(fwd_kernel_sm90<D>, smem, cap);
+  if (err) return err;
+  if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
+  CUtensorMap tq, tk, tv;
+  if (!sm90::rows_map(&tq, p.q, D, p.nh, p.T, p.B, p.q_st, p.q_sb, kRows) ||
+      !sm90::rows_map(&tk, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
+      !sm90::rows_map(&tv, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.nh, p.B, (p.T + kBQ - 1) / kBQ);
+  fwd_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash_ws
+
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel); D: 64,
@@ -380,6 +705,6 @@ extern "C" int flash_attn_fwd(int dtype, int D, const void* q, const void* k, co
   if (dtype == 0 && D == 256) return launch<float, 256>(p, stream);
   if (dtype == 1 && D == 64) return flash_sm90::launch<64>(p, stream);
   if (dtype == 1 && D == 128) return flash_sm90::launch<128>(p, stream);
-  if (dtype == 1 && D == 256) return flash_sm90::launch<256>(p, stream);
+  if (dtype == 1 && D == 256) return flash_ws::launch<256>(p, stream);
   return (int)cudaErrorInvalidValue;
 }

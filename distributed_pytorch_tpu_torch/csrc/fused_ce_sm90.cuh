@@ -460,7 +460,7 @@ __global__ void __launch_bounds__(s90::kThreads, 1)
   __syncthreads();
 
   if (warp >= kConsumers / 32) {  // the producer warpgroup: one lane issues
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    setmaxnreg_dec<kProducerRegs>();
     if (warp == kConsumers / 32 && lane == 0) {
       mbar_expect_tx(res_full, kRows * C * 2);
       for (int k = 0; k < nck; ++k)
@@ -479,11 +479,11 @@ __global__ void __launch_bounds__(s90::kThreads, 1)
         }
     }
   } else if constexpr (MODE == FWD) {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    setmaxnreg_inc<kConsumerRegs>();
     FwdRing r{res, ring, full, empty, stages, nck, warp >> 2, lane, Slot{0, 0}, Slot{0, 0}};
     fwd_consumer(p, r, merge, res_full, n_tiles, r0, tid);
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    setmaxnreg_inc<kConsumerRegs>();
     const int wg = warp >> 2;
     const int ra = 16 * (warp & 3) + (lane >> 2), q4 = lane & 3;  // rows ra, ra + 8
     int tr[2] = {-2, -2};

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's bf16 tensor-core kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu, grouped_mm_fwd.cu,
 // grouped_mm_bwd.cu, paged_prefill_attn.cu, fused_ce_sm90.cuh): mbarriers,
-// TMA tile loads, 16-byte cp.async copies into the same swizzled layout
+// named barriers and setmaxnreg (the warp-specialized kernels), TMA tile
+// loads, 16-byte cp.async copies into the same swizzled layout
 // (for tiles gathered row by row, which TMA cannot do) and 4-byte ones
 // (scales), the shared-memory matrix descriptors of a 128-byte-swizzled
 // tile, the `wgmma.mma_async` products (bf16 operands,
@@ -100,6 +101,34 @@ __device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, int pred) {
 // (1-15; __syncthreads uses 0)
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// bar_sync where `pred` is non-zero, and an arrival on the barrier that
+// does not wait (the other side of a bar_sync, counted among its `n`);
+// the predicate is applied inside the PTX, so the C++ code has no branch
+__device__ __forceinline__ void bar_sync_if(int id, int n, int pred) {
+  asm volatile(
+      "{\n.reg .pred P1;\nsetp.ne.b32 P1, %2, 0;\n"
+      "@P1 bar.sync %0, %1;\n}\n" ::"r"(id), "r"(n), "r"(pred)
+      : "memory");
+}
+__device__ __forceinline__ void bar_arrive_if(int id, int n, int pred) {
+  asm volatile(
+      "{\n.reg .pred P1;\nsetp.ne.b32 P1, %2, 0;\n"
+      "@P1 bar.arrive %0, %1;\n}\n" ::"r"(id), "r"(n), "r"(pred)
+      : "memory");
+}
+
+// Hand registers between the warpgroups of a warp-specialized CTA: a
+// producer gives its own back to the pool (dec), a consumer takes up to
+// N a thread (inc). Every thread of the warpgroup runs it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Order this thread's ordinary writes to shared memory before later reads

@@ -700,10 +700,13 @@ FLASH_CASES = [  # B, T, S, nh, nkv, D, causal
     # D 128 with GQA rep 4 (dkv sums four query heads per kv head)
     (1, 200, 200, 8, 2, 128, True), (2, 130, 70, 8, 2, 128, False),
     # D 256 (MLA's q_c | q_r): MHA and GQA, causal and full, T and S off
-    # the tiles (dq's 32-key stages, dkv's 32-row query tiles and its two
-    # column halves a key tile)
+    # the tiles (dq's 32-key stages; the forward's 128-row CTA, whose
+    # second consumer has no live row at T 65 and 130 and some at 200; the
+    # dkv's 64-row query tiles, each consumer's 32 queries of them)
     (2, 128, 128, 4, 4, 256, True), (1, 200, 200, 4, 2, 256, True),
-    (2, 130, 70, 8, 2, 256, False), (1, 100, 100, 2, 2, 256, False)]
+    (2, 130, 70, 8, 2, 256, False), (1, 100, 100, 2, 2, 256, False),
+    (1, 65, 65, 2, 2, 256, True), (2, 130, 130, 4, 1, 256, True),
+    (1, 200, 200, 8, 2, 256, False), (1, 65, 130, 2, 2, 256, False)]
 
 
 #: (atol, rtol) of the flash kernels, element by element:

@@ -212,9 +212,13 @@ SASS_SM90 = [
     for m in (0, 1, 2)] + [
     f"_ZN12_GLOBAL__N_112prefill_sm9022prefill_kernel_sm90_q8ILi{d}EEEvPK13"
     "__nv_bfloat16PKaPKfS6_S8_PKiPS2_iiiiiif" for d in (64, 128)] + [
-    f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi256EEEvNS0_4MapsEN5flash"
-    "6ParamsE"
-    for k in ("fwd_kernel_sm90", "dq_kernel_sm90", "dkv_kernel_sm90")]
+    # the forward and dkv warp-specialized (their own namespace), dq not
+    "_ZN12_GLOBAL__N_18flash_ws15fwd_kernel_sm90ILi256EEEv14CUtensorMap_stS2_"
+    "S2_N5flash6ParamsE",
+    "_ZN12_GLOBAL__N_110flash_sm9014dq_kernel_sm90ILi256EEEvNS0_6DqMapsEN5flash"
+    "6ParamsE",
+    "_ZN12_GLOBAL__N_18flash_ws15dkv_kernel_sm90ILi256EEEvNS_10flash_sm904Maps"
+    "EN5flash6ParamsE"]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
@@ -283,7 +287,13 @@ BROKEN = {"complete": None,
           "fp32_dkv_256_missing": ((SASS_OTHER[14], None, 0),
                                    "dkv_kernelIfLi256E"),
           "fp32_fwd_256_with_hgmma": ((SASS_OTHER[12], "HGMMA", 4),
-                                      "fwd_kernelIfLi256E")}
+                                      "fwd_kernelIfLi256E"),
+          "fwd_256_without_setmaxnreg": ((SASS_SM90[19], "USETMAXREG", 0),
+                                         "fwd_kernel_sm90"),
+          "dkv_256_without_setmaxnreg": ((SASS_SM90[21], "USETMAXREG", 0),
+                                         "dkv_kernel_sm90"),
+          "fwd_256_with_spill": ((SASS_SM90[19], "STL", 6), "fwd_kernel_sm90"),
+          "dkv_256_with_spill": ((SASS_SM90[21], "STL", 6), "dkv_kernel_sm90")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
@@ -302,13 +312,16 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     HGMMA, with a TMA load, without cp.async, or missing; the flash
     kernels at D 256: the bf16 forward without HGMMA, the bf16 dkv without
     a TMA load, the bf16 dq or the fp32 dkv missing, the fp32 forward with
-    HGMMA."""
+    HGMMA, the bf16 forward or dkv (warp-specialized) without setmaxnreg or
+    with a register spill (local-memory stores)."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
     for fn in SASS_SM90[12:14] + SASS_SM90[17:19]:  # the paged prefills
         inv[fn] = {"HGMMA": 8, "UTMALDG": 0, "LDGSTS": 16}
     inv.update({fn: {"HGMMA": 0, "UTMALDG": 0, "LDGSTS": 4}
                 for fn in SASS_OTHER})
+    for fn in (SASS_SM90[19], SASS_SM90[21]):   # warp-specialized at D 256
+        inv[fn].update(USETMAXREG=2, STL=0)
     assert len(SASS_SM90) == cs.SASS_WGMMA_KERNELS
     if BROKEN[broken] is None:
         cs.check_sass(inv)
