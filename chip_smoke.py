@@ -14,8 +14,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took; counts each
              flash, grouped and paged kernel's HGMMA, UTMALDG and LDGSTS
-             instructions (`cuobjdump -sass`): the 22 bf16 wgmma kernels
-             (flash forward, dq and dkv at head sizes 64, 128 and 256,
+             instructions (`cuobjdump -sass`): the 33 bf16 wgmma kernels
+             (flash forward, dq and dkv at widths 64, 128 and 256 and dq
+             at 192, each for head sizes equal to and under the width,
              the paged prefill at 64 and 128 over bf16 and int8 caches,
              the grouped forward, dx and dW unscaled and scaled, the
              fused CE forward, dx and dW) must hold
@@ -31,9 +32,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
              cache and over an int8 cache with fp32 row scales, the _q8
              kernels, whose yardstick is the path they replace: the
              gathered rows dequantized, then SDPA) and the training
-             path's (flash forward, dq, dkv at B 8, T 1024, 12 heads x 64,
-             causal, and at B 8, T 1024, 8 heads x 256, the launcher's
-             MLA), in fp32 and bf16, with times (CUDA events; a
+             path's (flash forward, dq, dkv at B 8, T 1024, causal: 12
+             heads x 64, the flagship; 8 heads x 256, the launcher's MLA;
+             8 / 4 kv heads x 32, the default config; 12 heads x 80, the
+             flagship with MLA; and, held but not timed, 8 x 48 and 12 x
+             192, under their built widths as 32 and 80 are), in fp32 and
+             bf16, then bf16 device times of head size 192 at widths 192
+             and 256 and of 80 at 128 beside 128 at 128, with times (CUDA
+             events; a
              kernel's and its yardstick's are the median of 5 timed
              windows, printed with their spread, beside their device
              time under torch.profiler, which leaves out the host's time
@@ -145,6 +151,21 @@ Phases, each of which ends the run with a non-zero exit on failure:
              position to the same absorbed arithmetic without the engine
              (the parity step holds absorbed to materialized logits in
              fp32); and the serve CLI answering one completion.
+11. small head sizes — the trainer's own `train()` with phase 6's batch,
+             optimizer and data flags and the default attention route
+             ('auto') on (a) the default LLMConfig as the CLI builds it
+             with no preset (6 x 256, GQA 8 / 4 heads of 32, swiglu 384)
+             and (b) `--preset gpt2_124m --attn mla` with the CLI's
+             latents (12 heads of 64 + rope 16 = 80): each a falling loss,
+             the flash kernels launched exactly layers x micro-steps each
+             at head size 32 or 80 (run at the kernels' built widths 64
+             and 128), no plain call, and an fp32 parity step at B 2
+             against `attn_impl='naive'`; then (a)'s checkpoint through
+             `sample.main` (its prompt pass through flash_attn_fwd at head
+             size 32) and `serve --ckpt`'s engine with phase 5's traffic
+             in bf16 and fp32 (paged decode and prefill at head size 32),
+             every stream on its budget, tokens held by NEAR_TOP at every
+             position to the uncached naive forward.
 
 Phase 3 also holds the three grouped-matmul kernels (fwd, dx, dW) against
 their plain versions at the MoE training shapes (P 25600; K 768 / N 2048
@@ -401,11 +422,13 @@ SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "USETMAXREG", "STL")
 SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
              "grouped_mm_bwd_dw", "paged_prefill_attn", "paged_decode_attn",
              "fused_ce_fwd", "fused_ce_bwd_dx")
-# the bf16 kernels on wgmma: fwd, dq and dkv at D 64, 128 and 256, the
+# the bf16 kernels on wgmma: fwd, dq and dkv at D 64, 128 and 256, and dq
+# at D 192 (width 192's forward and dkv run the 256-wide ones), each built
+# twice, for d == D and for d < D (masked stores, `kPartial`), the
 # grouped forward, dx and dW unscaled (fc) and gate-scaled (proj), the
 # paged prefill at hs 64 and 128 over a bf16 and over an int8 cache, the
 # fused CE forward, dx and dW
-SASS_WGMMA_KERNELS = 22
+SASS_WGMMA_KERNELS = 33
 # what a wgmma kernel's SASS must hold and must not: TMA loads, except in
 # the paged prefills (bf16 and int8 caches), which gather their tiles
 # through the block table with cp.async (LDGSTS) and issue no TMA load;
@@ -427,7 +450,8 @@ SASS_EXPECT_OTHER = (set(), {"HGMMA", "UTMALDG"})
 # (MLA's q_c | q_r): wgmma in bf16 (`..._sm90ILi256E`), FMA in fp32
 # (`...IfLi256E`)
 SASS_REQUIRED = ("decode_split_kernel", "decode_combine_kernel",
-                 "prefill_kernel_sm90_q8", "fwd_kernel_sm90ILi256E",
+                 "prefill_kernel_sm90_q8", "dq_kernel_sm90ILi192E",
+                 "fwd_kernel_sm90ILi256E",
                  "dq_kernel_sm90ILi256E", "dkv_kernel_sm90ILi256E",
                  "fwd_kernelIfLi256E", "dq_kernelIfLi256E",
                  "dkv_kernelIfLi256E")
@@ -652,21 +676,29 @@ def kernel_cases(torch, fd, dev):
                    4 * keys * nh * hs)
 
 
-#: the flash kernels' shapes on the training paths: (B, T, heads, head
-#: size) of the flagship's attention (phase 6) and of the launcher's MLA
-#: model, whose q_c | q_r and k_c | k_r are 128 + 128 wide (phase 10)
-FLASH_SHAPES = {64: (8, 1024, 12, 64), 256: (8, 1024, 8, 256)}
+#: the flash kernels' shapes on the training paths, by head size: (B, T,
+#: heads, kv heads) of the flagship's attention (64, phase 6), the
+#: launcher's MLA model, whose q_c | q_r and k_c | k_r are 128 + 128 wide
+#: (256, phase 10), the default LLMConfig (32, GQA 8 / 4, phase 11) and
+#: the flagship with `--attn mla` (80 = 64 + 16, phase 11). Timed.
+FLASH_SHAPES = {64: (8, 1024, 12, 12), 256: (8, 1024, 8, 8),
+                32: (8, 1024, 8, 4), 80: (8, 1024, 12, 12)}
+#: head sizes held against their plain versions but not timed: MLA on the
+#: default config (48 = 32 + 16) and the flagship with the launcher's rope
+#: head (192 = 64 + 128)
+FLASH_CHECKED = {48: (8, 1024, 8, 8), 192: (8, 1024, 12, 12)}
 
 
 def flash_cases(torch, dev):
     """Yield (dtype, kernel, head size, fn_kernel, fn_plain, fn_library,
-    n_bytes, flops) for the three flash kernels at each FLASH_SHAPES
-    shape."""
-    for shape in FLASH_SHAPES.values():
-        yield from _flash_cases_at(torch, dev, *shape)
+    n_bytes, flops) for the three flash kernels at each FLASH_SHAPES and
+    FLASH_CHECKED shape. Bytes and operations count the true head size,
+    not the width the kernels run it at."""
+    for D, shape in {**FLASH_SHAPES, **FLASH_CHECKED}.items():
+        yield from _flash_cases_at(torch, dev, *shape, D)
 
 
-def _flash_cases_at(torch, dev, B, T, nh, D):
+def _flash_cases_at(torch, dev, B, T, nh, nkv, D):
     import torch.nn.functional as F
 
     from distributed_pytorch_tpu_torch.ops import flash_attention as fa
@@ -679,28 +711,30 @@ def _flash_cases_at(torch, dev, B, T, nh, D):
         dn = str(dtype).removeprefix("torch.")
         el = torch.finfo(dtype).bits // 8
 
-        def rnd():
-            return torch.randn(B, T, nh, D, generator=g, device=dev).to(dtype)
+        def rnd(n):
+            return torch.randn(B, T, n, D, generator=g, device=dev).to(dtype)
 
-        q, k, v, dout = rnd(), rnd(), rnd(), rnd()
+        q, k, v, dout = rnd(nh), rnd(nkv), rnd(nkv), rnd(nh)
         out, lse = fa.flash_attn_fwd_plain(q, k, v, scale=scale)
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
             .contiguous()
         kw = dict(scale=scale, causal=True)
-        act = B * T * nh * D * el                # one activation tensor
+        act = B * T * nh * D * el                # a query-head activation
+        kv = B * T * nkv * D * el                # a kv-head one (k, v, dk, dv)
         stat = B * nh * T * 4                    # lse or delta (fp32)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
+        gqa = dict(enable_gqa=True) if nkv != nh else {}
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                 scale=scale)
+                                                 scale=scale, **gqa)
         lib_dout = dout.transpose(1, 2)
         yield (dn, "flash_attn_fwd", D,
                lambda: fa.flash_attn_fwd(q, k, v, **kw),
                lambda: fa.flash_attn_fwd_plain(q, k, v, **kw),
                lambda: F.scaled_dot_product_attention(
                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                   is_causal=True, scale=scale),
-               4 * act + stat, 4 * pairs * D)
+                   is_causal=True, scale=scale, **gqa),
+               2 * act + 2 * kv + stat, 4 * pairs * D)
 
         def lib_bwd():
             return torch.autograd.grad(lib_out, (qt, kt, vt), lib_dout,
@@ -710,13 +744,13 @@ def _flash_cases_at(torch, dev, B, T, nh, D):
                lambda: fa.flash_attn_bwd_dq(q, k, v, dout, lse, delta, **kw),
                lambda: fa.flash_attn_bwd_dq_plain(q, k, v, dout, lse, delta,
                                                   **kw),
-               lib_bwd, 5 * act + 2 * stat, 6 * pairs * D)
+               lib_bwd, 3 * act + 2 * kv + 2 * stat, 6 * pairs * D)
         yield (dn, "flash_attn_bwd_dkv", D,
                lambda: fa.flash_attn_bwd_dkv(q, k, v, dout, lse, delta,
                                              **kw),
                lambda: fa.flash_attn_bwd_dkv_plain(q, k, v, dout, lse,
                                                    delta, **kw),
-               lib_bwd, 6 * act + 2 * stat, 8 * pairs * D)
+               lib_bwd, 2 * act + 4 * kv + 2 * stat, 8 * pairs * D)
 
 
 def _elementwise(out, ref, atol: float, rtol: float) -> dict:
@@ -757,6 +791,11 @@ def run_flash_kernels(torch, dev) -> dict:
                   f"({e['frac']:.3f} of "
                   f"the limit)")
         b_ms, b_by = bound(n_bytes, flops, dn)
+        if D not in FLASH_SHAPES:       # checked only
+            results[(name, dn, D)] = dict(
+                max_abs_err=max(e["err"] for o, e in errs.items()
+                                if o != "lse"), tol=tols)
+            continue
         ms, spread = time_windows(fk, iters=10)
         lib_ms, lib_spread = time_windows(fl, iters=10)
         results[(name, dn, D)] = dict(
@@ -773,6 +812,53 @@ def run_flash_kernels(torch, dev) -> dict:
               f"bound {r['bound_ms']:.4f} ms ({b_by})", flush=True)
     torch.cuda.empty_cache()
     return results
+
+
+#: phase 3's width comparison, bf16 at B 8, T 1024, 12 heads, causal:
+#: (head size, the built width it runs at). 192 at 192 (the 192-wide
+#: single-warpgroup dq; the forward and dkv take the 256-wide
+#: warp-specialized kernels at width 192 too) against 256 (the 256-wide dq);
+#: 80 at 128 against 128 at 128, the padded columns' cost.
+FLASH_WIDTHS = ((192, 192), (192, 256), (80, 128), (128, 128))
+
+
+def run_flash_widths(torch, dev) -> dict:
+    """Device ms of the bf16 flash kernels at head size d run at each
+    FLASH_WIDTHS width (`padded_width` pinned to it), each held to its
+    plain version under FLASH_TOL first. Returns {(kernel, d, width):
+    device ms}."""
+    from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+
+    chosen = fa.padded_width
+    res = {}
+    for d, w in FLASH_WIDTHS:
+        for dn, name, _, fk, fp, _, n_bytes, flops in _flash_cases_at(
+                torch, dev, 8, 1024, 12, 12, d):
+            if dn != "bfloat16":
+                continue
+            fa.padded_width = lambda _d, w=w: w
+            try:
+                outs = fk()
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                refs = fp()
+                refs = refs if isinstance(refs, tuple) else (refs,)
+                for oname, a, b in zip(FLASH_OUTPUTS[name], outs, refs):
+                    atol, rtol = FLASH_TOL["float32" if oname == "lse"
+                                           else dn]
+                    e = _elementwise(a, b, atol, rtol)
+                    check(e["frac"] <= 1.0,
+                          f"{name} d {d} at width {w}: {oname} beyond its "
+                          f"limit ({e['frac']:.3f})")
+                ms = res[(name, d, w)] = device_ms(fk)
+            finally:
+                fa.padded_width = chosen
+            b_ms, b_by = bound(n_bytes, flops, dn)
+            print(f"  {name:18s} d {d:3d} at width {w:3d} (bf16, 12 heads): "
+                  f"device {ms if ms is None else round(ms, 4)} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}); the width the wrapper picks: "
+                  f"{chosen(d)}", flush=True)
+    torch.cuda.empty_cache()
+    return res
 
 
 # the kernel each phase 3 prefill row must run, by (case, dtype): the C
@@ -2244,14 +2330,15 @@ def profile_train(torch, state, train_cfg, model_cfg) -> dict:
             **{k: v / n / 1e3 for k, v in grouped.items()}}
 
 
-def run_parity(torch, dev) -> None:
+def run_parity(torch, dev, cfg=None, what: str = "parity") -> None:
     """One train step's loss and gradients at full width in fp32, B 2:
-    through the flash kernels against attn_impl='naive'."""
+    through the flash kernels against attn_impl='naive'; `cfg` defaults to
+    the flagship (phase 6)."""
     from distributed_pytorch_tpu_torch.config import (TrainConfig,
                                                       flagship_gpt124m)
     from distributed_pytorch_tpu_torch.train.state import build_model
 
-    cfg = flagship_gpt124m()
+    cfg = cfg or flagship_gpt124m()
     rng = np.random.default_rng(5)
     shape = (2, cfg.block_size)
     x = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
@@ -2274,7 +2361,7 @@ def run_parity(torch, dev) -> None:
     (l_k, g_k, n_k), (l_n, g_n, n_n) = res["pallas"], res["naive"]
     check(all(n_k[k] == cfg.n_layer for k in FLASH_SOURCE)
           and all(n_n[k] == 0 for k in FLASH_SOURCE),
-          f"parity: kernel routes {n_k}, naive routes {n_n}")
+          f"{what}: kernel routes {n_k}, naive routes {n_n}")
     # per parameter: max |grad diff| / max |grad| (0 / 0 counts as 0)
     rel = {}
     for name, b in g_n.items():
@@ -2282,16 +2369,17 @@ def run_parity(torch, dev) -> None:
         mag = b.abs().max().item()
         rel[name] = err / mag if mag > 0 else (0.0 if err == 0 else np.inf)
     worst = max(rel, key=rel.get)
-    attn = max((n for n in rel if "c_attn" in n), key=rel.get)
-    print(f"  fp32 parity, B 2 x T {cfg.block_size}: loss {l_k:.6f} (kernels) "
-          f"vs {l_n:.6f} (naive), |diff| {abs(l_k - l_n):.3e} (tol "
+    attn = max((n for n in rel if ".attn." in n), key=rel.get)
+    print(f"  fp32 {what}, B 2 x T {cfg.block_size}: loss {l_k:.6f} "
+          f"(kernels, head size {flash_head_size(cfg)}) vs {l_n:.6f} "
+          f"(naive), |diff| {abs(l_k - l_n):.3e} (tol "
           f"{PARITY_TOL['loss']:.0e}); max |grad diff| / max |grad| per "
-          f"parameter: worst {rel[worst]:.3e} ({worst}), worst c_attn "
+          f"parameter: worst {rel[worst]:.3e} ({worst}), worst attention "
           f"{rel[attn]:.3e} ({attn}) (tol {PARITY_TOL['grad']:.0e})",
           flush=True)
-    check(abs(l_k - l_n) <= PARITY_TOL["loss"], "parity: losses differ")
+    check(abs(l_k - l_n) <= PARITY_TOL["loss"], f"{what}: losses differ")
     check(rel[worst] <= PARITY_TOL["grad"],
-          f"parity: gradients of {worst} differ by {rel[worst]:.3e} of "
+          f"{what}: gradients of {worst} differ by {rel[worst]:.3e} of "
           f"their largest")
     del res, g_k, g_n
     torch.cuda.empty_cache()
@@ -2765,10 +2853,11 @@ MLA_ARGV = ["--n_layer", "12", "--n_embd", "1024", "--vocab_size", "50304",
             "--save_model", "--file_name", "chip_smoke_mla", "--seed", "0"]
 
 
-def _flash_launches_mla(cfg, micro: int) -> dict:
-    """The flash kernels' launches in `micro` training micro-steps of the
-    MLA model: one forward, dq and dkv per layer, and the forward again
-    where 'attn' recomputation re-runs the sublayer in the backward."""
+def flash_launches(cfg, micro: int) -> dict:
+    """The flash kernels' launches in `micro` training micro-steps of a
+    model of `cfg`: one forward, dq and dkv per layer, and the forward
+    again where 'attn' recomputation re-runs the sublayer in the
+    backward."""
     L = cfg.n_layer
     again = cfg.act_recomp and cfg.act_recomp_policy == "attn"
     return {"flash_attn_fwd": (2 if again else 1) * L * micro,
@@ -2795,7 +2884,7 @@ def run_train_mla(torch, dev, card: str, tmp: str) -> dict:
     reset_counts()
     stats = train(model_cfg, train_cfg,
                   log=lambda line: print(f"  {line}", flush=True))
-    launches = _counted(_flash_launches_mla(model_cfg, accum * iters),
+    launches = _counted(flash_launches(model_cfg, accum * iters),
                         "train mla")
     losses = stats["train_losses"]
     check(len(losses) == iters and all(np.isfinite(losses)),
@@ -2865,7 +2954,7 @@ def run_parity_mla(torch, dev) -> None:
             absorbed_gap = absorbed_vs_materialized(torch, model, dev, x[:1])
         del model
     (l_k, g_k, n_k), (l_n, g_n, n_n) = res["pallas"], res["naive"]
-    want = _flash_launches_mla(cfg, 1)
+    want = flash_launches(cfg, 1)
     check({k: n_k[k] for k in want} == want
           and all(n_n[k] == 0 for k in want),
           f"parity mla: kernel routes {n_k}, naive routes {n_n}")
@@ -3062,6 +3151,194 @@ def run_serve_mla(torch, dev, card: str, root: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the default config and the flagship with MLA (head sizes 32, 80)
+# ---------------------------------------------------------------------------
+
+# phase 6's batch, optimizer and data flags, with the trainer's default
+# attention route ('auto', which sends every uncached T > 1 call on the
+# card to the flash kernels)
+SMALL_D_FLAGS = ["--compute_dtype", "bfloat16", "--dataset", "synthetic",
+                 "--batch_size", "8", "--total_batch_size_str", "2**14",
+                 "--max_iters", "19", "--warmup_steps", "5",
+                 "--learning_rate", "1e-3", "--seed", "0"]
+# (a) the default LLMConfig as the CLI builds it with no preset: 6 x 256,
+# GQA 8 / 4 heads of 32, swiglu 384, vocab 50304, block 1024; a final
+# checkpoint, which is sampled and served
+DEFAULT_ARGV = SMALL_D_FLAGS + ["--save_model", "--file_name",
+                                "chip_smoke_default"]
+# (b) the flagship with `--attn mla` and the CLI's latents (32 / 32, rope
+# 16): FullMLA's q_c | q_r at 12 heads of 64 + 16 = 80, MHA
+FLAGSHIP_MLA_ARGV = (["--preset", "gpt2_124m", "--attn", "mla"]
+                     + SMALL_D_FLAGS + ["--file_name",
+                                        "chip_smoke_flagship_mla"])
+#: the flash head size each phase 11 run trains at
+SMALL_D = {"default": 32, "flagship_mla": 80}
+
+
+def flash_head_size(cfg) -> int:
+    """The head size of the flash kernels' q, k, v in a model of `cfg`:
+    FullMLA (RoPE) concatenates its rotary features to each head."""
+    if cfg.attn == "mla" and cfg.pos_emb == "rope":
+        return cfg.head_size + cfg.rope_head_dim
+    return cfg.head_size
+
+
+def run_train_small(torch, dev, card: str, argv: list, what: str,
+                    tmp: str) -> dict:
+    """The trainer's own train() on `argv` in `tmp`, at full width: the
+    loss finite and falling by TRAIN_DROP, the flash kernels launched
+    exactly (forward, dq and dkv once a layer a micro-step) at head size
+    SMALL_D[what], no plain call. Returns the launches and the run's
+    numbers."""
+    from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
+    from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_pytorch_tpu_torch.train.loop import train
+
+    model_cfg, train_cfg = parse_train_argv(
+        argv + ["--data_dir", os.path.join(tmp, "data")])
+    d = flash_head_size(model_cfg)
+    check(d == SMALL_D[what] and train_cfg.attn_impl == "auto"
+          and not model_cfg.act_recomp,
+          f"train {what}: head size {d}, attn_impl {train_cfg.attn_impl}")
+    accum = train_cfg.total_batch_size // (
+        train_cfg.batch_size * model_cfg.block_size)
+    iters = train_cfg.max_iters + 1
+    reset_counts()
+    stats = train(model_cfg, train_cfg,
+                  log=lambda line: print(f"  {line}", flush=True))
+    launches = _counted(flash_launches(model_cfg, accum * iters),
+                        f"train {what}")
+    losses = stats["train_losses"]
+    check(len(losses) == iters and all(np.isfinite(losses)),
+          f"train {what}: losses {losses}")
+    last = float(np.mean(losses[-3:]))
+    check(last <= losses[0] - TRAIN_DROP,
+          f"train {what}: loss fell from {losses[0]:.4f} to {last:.4f}, "
+          f"less than {TRAIN_DROP}")
+    out = dict(launches={k: launches[k] for k in FLASH_SOURCE}, head_size=d,
+               width=fa.padded_width(d), loss0=losses[0], loss_last3=last,
+               step_ms=stats["median_step_time"] * 1e3,
+               tok_s=stats["median_tokens_per_sec"],
+               mfu=stats["median_mfu"], peak_gb=stats["peak_mem_gb"])
+    print(f"  {what}: {model_cfg.n_layer} x {model_cfg.n_embd}, "
+          f"{model_cfg.attn} {model_cfg.n_head} / {model_cfg.n_kv_heads} "
+          f"heads, flash head size {d} (run at width {out['width']}); "
+          f"{iters} iterations x {accum} micro-steps of "
+          f"{train_cfg.batch_size} x {model_cfg.block_size}: loss "
+          f"{losses[0]:.4f} -> {last:.4f} (mean of the last 3; drop >= "
+          f"{TRAIN_DROP}); step ms p50 {out['step_ms']:.3f}, tok/s "
+          f"{out['tok_s']:.1f}, MFU {out['mfu']:.4f}, peak memory "
+          f"{out['peak_gb']:.3f} GB; launches {out['launches']}, plain "
+          f"calls 0; card {card}", flush=True)
+    del stats
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_serve_default(torch, dev, card: str, root: str) -> dict:
+    """Phase 11 (a)'s checkpoint through `sample.main` (greedy; its prompt
+    pass is `flash_attn_fwd` at head size 32) and `serve --ckpt`'s engine
+    with phase 5's traffic in bf16 and fp32 (the paged decode and prefill
+    at head size 32): every stream on its budget, exact launches, no plain
+    call, tokens held at every position within LOGIT_TOL of the uncached
+    naive forward's largest logit (NEAR_TOP, as in phase 9: a checkpoint
+    20 steps into training has near-ties along whole streams)."""
+    from distributed_pytorch_tpu_torch import sample
+    from distributed_pytorch_tpu_torch.serve.__main__ import (build_args,
+                                                              build_engine)
+    from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
+
+    step_dir = ckpt.latest_step_dir(root)
+    version = ckpt.weights_version(step_dir)
+    L = ckpt.load_configs(step_dir)[0].n_layer
+    prompt = [int(t) for t in np.random.default_rng(17).integers(0, 50304, 9)]
+    n_new = 16
+    reset_counts()
+    outs = sample.main(["--ckpt", root, "--prompt",
+                        ",".join(map(str, prompt)), "--temperature", "0",
+                        "--max_new_tokens", str(n_new)])
+    check(len(outs) == 1 and len(outs[0]) == len(prompt) + n_new
+          and outs[0][:len(prompt)] == prompt, f"sample default: {outs}")
+    s_launch = _counted({"paged_decode_attn": L * (n_new - 1),
+                         "flash_attn_fwd": L}, "sample default")
+    s_model = sample.load_for_inference(root)[0]
+    lg = uncached_logits(torch, s_model, dev, prompt, outs[0][len(prompt):])
+    n_s, gap_s = held_near_top(torch, lg, outs[0][len(prompt):],
+                               LOGIT_TOL["bfloat16"], 0, "sample default")
+    del s_model
+    print(f"  checkpoint {step_dir} [{version}]: sample.main greedy "
+          f"{outs[0][len(prompt):]} (held at all {n_new} positions within "
+          f"{LOGIT_TOL['bfloat16']} of the naive forward's largest logit "
+          f"(largest gap {gap_s:.4g}), its argmax at {n_s}); launches "
+          f"{s_launch['flash_attn_fwd']} flash_attn_fwd (head size 32), "
+          f"{s_launch['paged_decode_attn']} paged_decode_attn; card {card}",
+          flush=True)
+    out = {"sample_launches": s_launch, "legs": {}}
+    for dn in ("bfloat16", "float32"):
+        eng, _, wv, _ = build_engine(build_args(
+            ["--ckpt", root, "--slots", "8", "--kv-block", "16",
+             "--temperature", "0", "--port", "0", "--dtype", dn]))
+        check(wv == version and version and eng.cfg.head_size == 32,
+              f"serve default: weights_version {wv}, head size "
+              f"{eng.cfg.head_size}")
+        prompts, budgets = serve_traffic(eng.cfg.vocab_size)
+        r = serve_leg(torch, eng, prompts, budgets, f"serve default {dn}")
+        launches, steps, admits = r["launches"], r["steps"], r["admits"]
+        want = {"paged_decode_attn": L * steps,
+                "paged_prefill_attn": L * admits}
+        check(launches == {k: want.get(k, 0) for k in launches},
+              f"serve default {dn}: launches {launches} for {steps} steps, "
+              f"{admits} admissions x {L} layers")
+        checked, gap = [], 0.0
+        for i, (x, p, b) in enumerate(zip(r["res"], prompts, budgets)):
+            lg = uncached_logits(torch, eng.model, dev, p, x["tokens"])
+            least = int(MIN_CHECKED[dn] * b) if dn == "float32" else 0
+            n, g = held_near_top(torch, lg, x["tokens"], LOGIT_TOL[dn],
+                                 least, f"serve default {dn} stream {i}")
+            checked.append(n)
+            gap = max(gap, g)
+        out["legs"][dn] = dict(launches=launches, steps=steps,
+                               admits=admits, checked=checked, gap=gap,
+                               numbers=r["numbers"])
+        n = r["numbers"]
+        print(f"  serve --ckpt {dn} (wave, 8 streams, head size 32): "
+              f"{n['tokens']} tokens in {n['wall_s']:.3f} s = "
+              f"{n['tok_s']:.1f} tok/s; tokens held to the naive forward at "
+              f"all {budgets} positions within {LOGIT_TOL[dn]} of its "
+              f"largest logit (largest gap {gap:.4g}), its argmax at "
+              f"{checked}; {steps} steps, {admits} admissions; launches "
+              f"{launches}; card {card}", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_small_head_sizes(torch, dev, card: str) -> dict:
+    """Phase 11: (a) the default config trained, its parity step, then
+    sampled and served; (b) the flagship with MLA trained and its parity
+    step. Each in a temp dir of its own."""
+    from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
+    cwd = os.getcwd()
+    out = {}
+    for what, argv in (("default", DEFAULT_ARGV),
+                       ("flagship_mla", FLAGSHIP_MLA_ARGV)):
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                out[what] = run_train_small(torch, dev, card, argv, what,
+                                            tmp)
+                run_parity(torch, dev, parse_train_argv(argv)[0],
+                           f"parity {what}")
+                if what == "default":
+                    out[what]["serve"] = run_serve_default(
+                        torch, dev, card, os.path.join(
+                            tmp, "checkpoints", "chip_smoke_default"))
+            finally:
+                os.chdir(cwd)
+    return out
+
+
 T0 = time.perf_counter()
 
 
@@ -3097,6 +3374,7 @@ def main() -> None:
     phase("3 kernels vs plain versions")
     kres = run_kernels(torch, fd, dev)
     fres = run_flash_kernels(torch, dev)
+    run_flash_widths(torch, dev)
     cres = run_ce_kernels(torch, dev)
     gres = run_gmm_kernels(torch, dev)
 
@@ -3150,6 +3428,9 @@ def main() -> None:
         finally:
             os.chdir(cwd)
 
+    phase("11 train the default config and the flagship with MLA at head "
+          "sizes 32 and 80, then sample and serve the default")
+    small = run_small_head_sizes(torch, dev, card)
 
     rows = []
     for case, kname in (("paged", "paged_decode_attn"),
@@ -3215,17 +3496,23 @@ def main() -> None:
             "bound_ms_fp32": r32["bound_ms"], "library_ms_fp32": None,
             "device_ms_fp32": r32["device_ms"],
             "replaced_path_ms_fp32": r32["library_ms"]})
+    from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+    flash_runs = {64: ("train", train_launches),
+                  256: ("train_mla", mla_run["launches"]),
+                  32: ("train_default", small["default"]["launches"]),
+                  80: ("train_flagship_mla",
+                       small["flagship_mla"]["launches"])}
     for kname, D in ((k, D) for D in FLASH_SHAPES for k in FLASH_SOURCE):
         r, r32 = fres[(kname, "bfloat16", D)], fres[(kname, "float32", D)]
-        B, T, nh, _ = FLASH_SHAPES[D]
+        B, T, nh, nkv = FLASH_SHAPES[D]
+        path, path_launches = flash_runs[D]
         rows.append({
-            "name": kname, "case": f"B{B}_T{T}_H{nh}x{D}_causal",
+            "name": kname, "case": f"B{B}_T{T}_H{nh}/{nkv}x{D}_causal",
             "dtype": "bfloat16", "route": "cuda",
             "source": SOURCE.format(FLASH_SOURCE[kname]),
-            "replaces": REPLACES[kname],
-            "launches": (train_launches if D == 64
-                         else mla_run["launches"])[kname],
-            "launches_path": "train" if D == 64 else "train_mla",
+            "replaces": REPLACES[kname], "head_size": D,
+            "built_width": fa.padded_width(D),
+            "launches": path_launches[kname], "launches_path": path,
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "lse_max_abs_err": r["lse_max_abs_err"], "launches_fp32": None,
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],

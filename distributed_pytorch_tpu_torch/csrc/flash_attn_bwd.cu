@@ -1,6 +1,9 @@
 // flash_attn_bwd_dq / flash_attn_bwd_dkv: the FlashAttention-2 backward of
-// flash_attn_fwd.cu over BTNH tensors (sm_90a, fp32 and bf16, head size 64,
-// 128 or 256). Both recompute p = exp(s - lse) from the forward's logsumexp
+// flash_attn_fwd.cu over BTNH tensors (sm_90a, fp32 and bf16, any head
+// size d with d % 8 == 0 up to 256, run at a built width as the forward
+// runs it: Q, K, V and dO zero past d, so S, dP, dS K, dS^T Q and P^T dO
+// take nothing from the padded columns, and dq, dk, dv are stored up to d
+// only). Both recompute p = exp(s - lse) from the forward's logsumexp
 // instead of storing probabilities; delta = rowsum(dout * out) - dlse comes
 // in precomputed (fp32, (B, nh, T)), which is how a gradient flowing into
 // lse folds in. Built and bound by ops/cuda_build.py; wrapped by
@@ -50,7 +53,10 @@
 //   zero-fills rows past T and S). Each query row is written once,
 //   dq * scale. At head size 256 the stages hold 32 keys (128 KB of shared
 //   memory): the 64 x 256 fp32 dQ accumulator is 128 registers a thread,
-//   and 32-key S and dP keep the rest under the 255 a thread may hold.
+//   and 32-key S and dP keep the rest under the 255 a thread may hold. At
+//   width 192 (head sizes 136-192) likewise, in 96 KB: two CTAs an SM, 1.8x
+//   faster at d 192 than the 256-wide kernel with a zero fourth sub-tile
+//   (phase 3 of chip_smoke.py, `run_flash_widths`).
 // * dkv, fp32 (`dkv_kernel`): the FMA design, unchanged (tensor cores take
 //   fp32 only as TF32, which would break the fp32 limits of the kernel
 //   checks and the training parity). One CTA per (64-key tile, kv head,
@@ -136,8 +142,9 @@ constexpr size_t dq_smem() {
                           flash::kBK * (flash::kBQ + flash::kPad));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPartial>
 __global__ void __launch_bounds__(flash::kThreads) dq_kernel(const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
   using namespace flash;
   constexpr int LD = kBQ + kPad;
   constexpr int LDV = D + kPad;
@@ -155,10 +162,10 @@ __global__ void __launch_bounds__(flash::kThreads) dq_kernel(const Params p) {
   const int i0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (p.nh / p.nkv);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (long long)h * D;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + (long long)h * D;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + (long long)g * D;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + (long long)g * D;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (long long)h * dh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + (long long)h * dh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + (long long)g * dh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + (long long)g * dh;
   uint32_t s0 = 0, s1 = 0;
   if (p.dropout) {
     s0 = (uint32_t)p.seed[0];
@@ -168,8 +175,8 @@ __global__ void __launch_bounds__(flash::kThreads) dq_kernel(const Params p) {
   const long long stat = (long long)(b * p.nh + h) * p.T;
 
   const int nq = min(kBQ, p.T - i0);
-  load_tile<T, D, kBQ, true>(Qt, LD, q + i0 * p.q_st, p.q_st, nq);
-  load_tile<T, D, kBQ, true>(dOt, LD, dout + i0 * p.do_st, p.do_st, nq);
+  load_tile<T, D, kBQ, true>(Qt, LD, q + i0 * p.q_st, p.q_st, nq, dh);
+  load_tile<T, D, kBQ, true>(dOt, LD, dout + i0 * p.do_st, p.do_st, nq, dh);
   float lse_r[4], dl_r[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -190,9 +197,9 @@ __global__ void __launch_bounds__(flash::kThreads) dq_kernel(const Params p) {
 #pragma unroll 1
     for (int c = 0; c < D; c += DC) {
       __syncthreads();
-      load_tile<T, DC, kBK, true>(Kt, LD, k + k0 * p.k_st + c, p.k_st, nk);
-      load_tile<T, DC, kBK, true>(Vt, LD, v + k0 * p.v_st + c, p.v_st, nk);
-      if (!kAlias) load_tile<T, D, kBK, false>(Ks, LDV, k + k0 * p.k_st, p.k_st, nk);
+      load_tile<T, DC, kBK, true>(Kt, LD, k + k0 * p.k_st + c, p.k_st, nk, kPartial ? dh - c : DC);
+      load_tile<T, DC, kBK, true>(Vt, LD, v + k0 * p.v_st + c, p.v_st, nk, kPartial ? dh - c : DC);
+      if (!kAlias) load_tile<T, D, kBK, false>(Ks, LDV, k + k0 * p.k_st, p.k_st, nk, dh);
       __syncthreads();
       mma_tile<4, DC>(s, Qt + c * LD, LD, Kt, LD, ty, tx);
       mma_tile<4, DC>(dp, dOt + c * LD, LD, Vt, LD, ty, tx);
@@ -212,21 +219,22 @@ __global__ void __launch_bounds__(flash::kThreads) dq_kernel(const Params p) {
     }
     if (kAlias) {
       __syncthreads();  // K^T and V^T are read: K's row-major copy takes their place
-      load_tile<T, D, kBK, false>(Ks, LDV, k + k0 * p.k_st, p.k_st, nk);
+      load_tile<T, D, kBK, false>(Ks, LDV, k + k0 * p.k_st, p.k_st, nk, dh);
     }
     store_t<4>(dSt, LD, s, ty, tx);
     __syncthreads();
     mma_tile<RN, kBK>(dq, dSt, LD, Ks, LDV, ty, tx);
   }
 
-  T* out = static_cast<T*>(p.out0) + (long long)b * p.T * p.nh * D + (long long)h * D;
+  T* out = static_cast<T*>(p.out0) + (long long)b * p.T * p.nh * dh + (long long)h * dh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = i0 + ty * 4 + i;
     if (qp >= p.T) continue;
-    T* orow = out + (long long)qp * p.nh * D + tx * RN;
+    T* orow = out + (long long)qp * p.nh * dh + tx * RN;
 #pragma unroll
-    for (int j = 0; j < RN; ++j) orow[j] = from_f<T>(dq[i][j] * p.scale);
+    for (int j = 0; j < RN; ++j)
+      if (!kPartial || tx * RN + j < dh) orow[j] = from_f<T>(dq[i][j] * p.scale);
   }
 }
 
@@ -252,8 +260,9 @@ constexpr size_t dkv_smem() {
                           2 * BQ * (flash::kBK + flash::kPad) + 2 * BQ);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPartial>
 __global__ void __launch_bounds__(flash::kThreads) dkv_kernel(const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
   using namespace flash;
   constexpr int BQ = dkv_bq<D>();
   constexpr int RNQ = BQ / 16;    // query columns per thread in S^T, dP^T
@@ -277,16 +286,16 @@ __global__ void __launch_bounds__(flash::kThreads) dkv_kernel(const Params p) {
   const int j0 = blockIdx.x * kBK, g = blockIdx.y, b = blockIdx.z;
   const int rep = p.nh / p.nkv;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + (long long)g * D;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + (long long)g * D;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + (long long)g * dh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + (long long)g * dh;
   uint32_t s0 = 0, s1 = 0;
   if (p.dropout) {
     s0 = (uint32_t)p.seed[0];
     s1 = (uint32_t)p.seed[1];
   }
   const int nk = min(kBK, p.S - j0);
-  load_tile<T, D, kBK, true>(Kt, LDK, k + j0 * p.k_st, p.k_st, nk);
-  load_tile<T, D, kBK, true>(Vt, LDK, v + j0 * p.v_st, p.v_st, nk);
+  load_tile<T, D, kBK, true>(Kt, LDK, k + j0 * p.k_st, p.k_st, nk, dh);
+  load_tile<T, D, kBK, true>(Vt, LDK, v + j0 * p.v_st, p.v_st, nk, dh);
 
   float dk[4][RN], dv[4][RN];
 #pragma unroll
@@ -301,17 +310,17 @@ __global__ void __launch_bounds__(flash::kThreads) dkv_kernel(const Params p) {
   for (int r = 0; r < rep; ++r) {
     const int h = g * rep + r;
     const uint32_t row = (uint32_t)(b * p.nh + h);
-    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (long long)h * D;
-    const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + (long long)h * D;
+    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (long long)h * dh;
+    const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + (long long)h * dh;
     const long long stat = (long long)(b * p.nh + h) * p.T;
     for (int i0 = t_begin; i0 < p.T; i0 += BQ) {
       const int nq = min(BQ, p.T - i0);
       __syncthreads();
-      load_tile<T, D, BQ, true>(Qt, LDQ, q + i0 * p.q_st, p.q_st, nq);
-      load_tile<T, D, BQ, true>(dOt, LDQ, dout + i0 * p.do_st, p.do_st, nq);
+      load_tile<T, D, BQ, true>(Qt, LDQ, q + i0 * p.q_st, p.q_st, nq, dh);
+      load_tile<T, D, BQ, true>(dOt, LDQ, dout + i0 * p.do_st, p.do_st, nq, dh);
       if (!kAlias) {
-        load_tile<T, D, BQ, false>(Qs, LDV, q + i0 * p.q_st, p.q_st, nq);
-        load_tile<T, D, BQ, false>(dOs, LDV, dout + i0 * p.do_st, p.do_st, nq);
+        load_tile<T, D, BQ, false>(Qs, LDV, q + i0 * p.q_st, p.q_st, nq, dh);
+        load_tile<T, D, BQ, false>(dOs, LDV, dout + i0 * p.do_st, p.do_st, nq, dh);
       }
       if (threadIdx.x < BQ) {
         const int e = threadIdx.x;
@@ -345,8 +354,8 @@ __global__ void __launch_bounds__(flash::kThreads) dkv_kernel(const Params p) {
       }
       if (kAlias) {
         __syncthreads();  // Q^T and dO^T are read: the row-major copies take their place
-        load_tile<T, D, BQ, false>(Qs, LDV, q + i0 * p.q_st, p.q_st, nq);
-        load_tile<T, D, BQ, false>(dOs, LDV, dout + i0 * p.do_st, p.do_st, nq);
+        load_tile<T, D, BQ, false>(Qs, LDV, q + i0 * p.q_st, p.q_st, nq, dh);
+        load_tile<T, D, BQ, false>(dOs, LDV, dout + i0 * p.do_st, p.do_st, nq, dh);
       }
       store_t<RNQ>(Ps, LDK, pd, ty, tx);
       store_t<RNQ>(dSs, LDK, st, ty, tx);
@@ -356,43 +365,44 @@ __global__ void __launch_bounds__(flash::kThreads) dkv_kernel(const Params p) {
     }
   }
 
-  const long long base = (long long)b * p.S * p.nkv * D + (long long)g * D;
+  const long long base = (long long)b * p.S * p.nkv * dh + (long long)g * dh;
   T* dk_out = static_cast<T*>(p.out0) + base;
   T* dv_out = static_cast<T*>(p.out1) + base;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kp = j0 + ty * 4 + i;
     if (kp >= p.S) continue;
-    const long long off = (long long)kp * p.nkv * D + tx * RN;
+    const long long off = (long long)kp * p.nkv * dh + tx * RN;
 #pragma unroll
     for (int j = 0; j < RN; ++j) {
+      if (kPartial && tx * RN + j >= dh) continue;
       dk_out[off + j] = from_f<T>(dk[i][j] * p.scale);
       dv_out[off + j] = from_f<T>(dv[i][j]);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPartial>
 int launch_dq(const Params& p, void* stream) {
   static size_t cap[64] = {};
   const size_t smem = dq_smem<D>();
-  const int err = flash::set_smem(dq_kernel<T, D>, smem, cap);
+  const int err = flash::set_smem(dq_kernel<T, D, kPartial>, smem, cap);
   if (err) return err;
   if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
   const dim3 grid((p.T + flash::kBQ - 1) / flash::kBQ, p.nh, p.B);
-  dq_kernel<T, D><<<grid, flash::kThreads, smem, (cudaStream_t)stream>>>(p);
+  dq_kernel<T, D, kPartial><<<grid, flash::kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPartial>
 int launch_dkv(const Params& p, void* stream) {
   static size_t cap[64] = {};
   const size_t smem = dkv_smem<D>();
-  const int err = flash::set_smem(dkv_kernel<T, D>, smem, cap);
+  const int err = flash::set_smem(dkv_kernel<T, D, kPartial>, smem, cap);
   if (err) return err;
   if (p.S == 0 || p.B == 0 || p.nkv == 0) return 0;
   const dim3 grid((p.S + flash::kBK - 1) / flash::kBK, p.nkv, p.B);
-  dkv_kernel<T, D><<<grid, flash::kThreads, smem, (cudaStream_t)stream>>>(p);
+  dkv_kernel<T, D, kPartial><<<grid, flash::kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -457,9 +467,10 @@ __device__ __forceinline__ void load_q(Smem<D>& sm, const Maps& mp, const Params
   sm90::tma_load_1d(sm.delta[s], &mp.delta, &sm.full[s], stat & ~3);
 }
 
-template <int D>
+template <int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel_sm90(const __grid_constant__ Maps mp, const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
   using namespace sm90;
   constexpr int BQ = bq<D>();
   extern __shared__ uint8_t smem_raw[];
@@ -572,16 +583,17 @@ __global__ void __launch_bounds__(kThreads)
     if (tid == 0 && it + kStages < n_it) load_q<D>(sm, mp, p, it + kStages, s, n_qt, t_begin, g, b);
   }
 
-  const long long base = (long long)b * p.S * p.nkv * D + (long long)g * D;
+  const long long base = (long long)b * p.S * p.nkv * dh + (long long)g * dh;
   bf16* dk_out = static_cast<bf16*>(p.out0) + base;
   bf16* dv_out = static_cast<bf16*>(p.out1) + base;
 #pragma unroll
   for (int ih = 0; ih < 2; ++ih) {
     const int kp = j0 + r0 + 8 * ih;
     if (kp >= p.S) continue;
-    const long long off = (long long)kp * p.nkv * D + c0;
+    const long long off = (long long)kp * p.nkv * dh + c0;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
+      if (kPartial && 8 * jj >= dh) continue;  // columns 8 jj + c0 + {0, 1} lie past d
       *reinterpret_cast<__nv_bfloat162*>(dk_out + off + 8 * jj) = __floats2bfloat162_rn(
           dk[4 * jj + 2 * ih] * p.scale, dk[4 * jj + 2 * ih + 1] * p.scale);
       *reinterpret_cast<__nv_bfloat162*>(dv_out + off + 8 * jj) =
@@ -590,31 +602,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, bool kPartial>
 int launch_dkv(const Params& p, void* stream) {
   constexpr int BQ = bq<D>();
   static size_t cap[64] = {};
   const size_t smem = smem_bytes<D>();
-  const int err = flash::set_smem(dkv_kernel_sm90<D>, smem, cap);
+  const int err = flash::set_smem(dkv_kernel_sm90<D, kPartial>, smem, cap);
   if (err) return err;
   if (p.S == 0 || p.B == 0 || p.nkv == 0) return 0;
   if (p.T == 0) {  // no query sees a key: zero gradients, as the FMA kernel writes
-    const size_t n = (size_t)p.B * p.S * p.nkv * D * sizeof(bf16);
+    const size_t n = (size_t)p.B * p.S * p.nkv * p.d * sizeof(bf16);
     cudaMemsetAsync(p.out0, 0, n, (cudaStream_t)stream);
     cudaMemsetAsync(p.out1, 0, n, (cudaStream_t)stream);
     return (int)cudaGetLastError();
   }
   Maps mp;
   const long long n_stat = (long long)p.B * p.nh * p.T;
-  if (!sm90::rows_map(&mp.q, p.q, D, p.nh, p.T, p.B, p.q_st, p.q_sb, BQ) ||
-      !sm90::rows_map(&mp.dout, p.dout, D, p.nh, p.T, p.B, p.do_st, p.do_sb, BQ) ||
-      !sm90::rows_map(&mp.k, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
-      !sm90::rows_map(&mp.v, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK) ||
+  if (!sm90::rows_map(&mp.q, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, BQ) ||
+      !sm90::rows_map(&mp.dout, p.dout, p.d, p.nh, p.T, p.B, p.do_st, p.do_sb, BQ) ||
+      !sm90::rows_map(&mp.k, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
+      !sm90::rows_map(&mp.v, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK) ||
       !sm90::vec_map(&mp.lse, p.lse_in, n_stat, BQ + 4) ||
       !sm90::vec_map(&mp.delta, p.delta, n_stat, BQ + 4))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(p.nkv, p.B, (p.S + kBK - 1) / kBK);
-  dkv_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
+  dkv_kernel_sm90<D, kPartial><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
   return (int)cudaGetLastError();
 }
 
@@ -622,8 +634,8 @@ int launch_dkv(const Params& p, void* stream) {
 
 constexpr int kBQ = 64;  // query rows per dq CTA: one warpgroup
 
-// keys per dq stage: 64, and 32 at head size 256, where the 64 x 256 fp32
-// dQ accumulator takes 128 registers a thread beside S and dP
+// keys per dq stage: 64, and 32 at widths 192 and 256, where the 64 x D
+// fp32 dQ accumulator takes 96 or 128 registers a thread beside S and dP
 template <int D>
 __host__ __device__ constexpr int dq_bk() {
   return D > 128 ? 32 : kBK;
@@ -653,9 +665,10 @@ __device__ __forceinline__ void load_kv(DqSmem<D>& sm, const DqMaps& mp, int j, 
   sm90::tma_rows<D, KB>(sm.v[s], &mp.v, &sm.full[s], g, j * KB, b);
 }
 
-template <int D>
+template <int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel_sm90(const __grid_constant__ DqMaps mp, const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
   using namespace sm90;
   constexpr int KB = dq_bk<D>();
   extern __shared__ uint8_t smem_raw[];
@@ -756,39 +769,40 @@ __global__ void __launch_bounds__(kThreads)
     if (tid == 0 && j + kStages < n_kt) load_kv<D>(sm, mp, j + kStages, s, g, b);
   }
 
-  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * D + (long long)h * D;
+  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * dh + (long long)h * dh;
 #pragma unroll
   for (int ih = 0; ih < 2; ++ih) {
     const int qp = i0 + r0 + 8 * ih;
     if (qp >= p.T) continue;
-    bf16* orow = out + (long long)qp * p.nh * D + c0;
+    bf16* orow = out + (long long)qp * p.nh * dh + c0;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) = __floats2bfloat162_rn(
+      if (!kPartial || 8 * jj < dh)  // columns 8 jj + c0 + {0, 1}: below d exactly when 8 jj is
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) = __floats2bfloat162_rn(
           dq[4 * jj + 2 * ih] * p.scale, dq[4 * jj + 2 * ih + 1] * p.scale);
   }
 }
 
-template <int D>
+template <int D, bool kPartial>
 int launch_dq(const Params& p, void* stream) {
   static size_t cap[64] = {};
   const size_t smem = sizeof(DqSmem<D>) + 1024;  // + room to align the base to 1024
-  const int err = flash::set_smem(dq_kernel_sm90<D>, smem, cap);
+  const int err = flash::set_smem(dq_kernel_sm90<D, kPartial>, smem, cap);
   if (err) return err;
   if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
   if (p.S == 0) {  // no key to attend to: zero gradients, as the FMA kernel writes
-    cudaMemsetAsync(p.out0, 0, (size_t)p.B * p.T * p.nh * D * sizeof(bf16),
+    cudaMemsetAsync(p.out0, 0, (size_t)p.B * p.T * p.nh * p.d * sizeof(bf16),
                     (cudaStream_t)stream);
     return (int)cudaGetLastError();
   }
   DqMaps mp;
-  if (!sm90::rows_map(&mp.q, p.q, D, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
-      !sm90::rows_map(&mp.dout, p.dout, D, p.nh, p.T, p.B, p.do_st, p.do_sb, kBQ) ||
-      !sm90::rows_map(&mp.k, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, dq_bk<D>()) ||
-      !sm90::rows_map(&mp.v, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, dq_bk<D>()))
+  if (!sm90::rows_map(&mp.q, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
+      !sm90::rows_map(&mp.dout, p.dout, p.d, p.nh, p.T, p.B, p.do_st, p.do_sb, kBQ) ||
+      !sm90::rows_map(&mp.k, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, dq_bk<D>()) ||
+      !sm90::rows_map(&mp.v, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, dq_bk<D>()))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(p.nh, p.B, (p.T + kBQ - 1) / kBQ);
-  dq_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
+  dq_kernel_sm90<D, kPartial><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
   return (int)cudaGetLastError();
 }
 
@@ -942,9 +956,10 @@ __device__ __forceinline__ void dkv_walk(Smem<D>& sm, const Params& p, int j0, i
   }
 }
 
-template <int D>
+template <int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel_sm90(const __grid_constant__ Maps mp, const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
   using namespace sm90;
   constexpr int DN = D / 2;  // dK and dV columns a consumer owns
   extern __shared__ uint8_t smem_raw[];
@@ -1008,16 +1023,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   else
     dkv_walk<false, D>(sm, p, j0, g, b, n_qt, t_begin, n_it, w, r0, c0, s0, s1, dk, dv);
 
-  const long long base = (long long)b * p.S * p.nkv * D + (long long)g * D + w * DN;
+  const long long base = (long long)b * p.S * p.nkv * dh + (long long)g * dh + w * DN;
   bf16* dk_out = static_cast<bf16*>(p.out0) + base;
   bf16* dv_out = static_cast<bf16*>(p.out1) + base;
 #pragma unroll
   for (int ih = 0; ih < 2; ++ih) {
     const int kp = j0 + r0 + 8 * ih;
     if (kp >= p.S) continue;
-    const long long off = (long long)kp * p.nkv * D + c0;
+    const long long off = (long long)kp * p.nkv * dh + c0;
 #pragma unroll
     for (int jj = 0; jj < DN / 8; ++jj) {
+      if (kPartial && w * DN + 8 * jj >= dh) continue;  // columns past d
       *reinterpret_cast<__nv_bfloat162*>(dk_out + off + 8 * jj) = __floats2bfloat162_rn(
           dk[4 * jj + 2 * ih] * p.scale, dk[4 * jj + 2 * ih + 1] * p.scale);
       *reinterpret_cast<__nv_bfloat162*>(dv_out + off + 8 * jj) =
@@ -1026,31 +1042,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
+template <int D, bool kPartial>
 int launch_dkv(const Params& p, void* stream) {
   static size_t cap[64] = {};
   const size_t smem = sizeof(Smem<D>) + 1024;  // + room to align the base to 1024
-  const int err = flash::set_smem(dkv_kernel_sm90<D>, smem, cap);
+  const int err = flash::set_smem(dkv_kernel_sm90<D, kPartial>, smem, cap);
   if (err) return err;
   if (p.S == 0 || p.B == 0 || p.nkv == 0) return 0;
   if (p.T == 0) {  // no query sees a key: zero gradients, as the FMA kernel writes
-    const size_t n = (size_t)p.B * p.S * p.nkv * D * sizeof(bf16);
+    const size_t n = (size_t)p.B * p.S * p.nkv * p.d * sizeof(bf16);
     cudaMemsetAsync(p.out0, 0, n, (cudaStream_t)stream);
     cudaMemsetAsync(p.out1, 0, n, (cudaStream_t)stream);
     return (int)cudaGetLastError();
   }
   Maps mp;
   const long long n_stat = (long long)p.B * p.nh * p.T;
-  if (!sm90::rows_map(&mp.q, p.q, D, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
-      !sm90::rows_map(&mp.dout, p.dout, D, p.nh, p.T, p.B, p.do_st, p.do_sb, kBQ) ||
-      !sm90::rows_map(&mp.k, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
-      !sm90::rows_map(&mp.v, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK) ||
+  if (!sm90::rows_map(&mp.q, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
+      !sm90::rows_map(&mp.dout, p.dout, p.d, p.nh, p.T, p.B, p.do_st, p.do_sb, kBQ) ||
+      !sm90::rows_map(&mp.k, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
+      !sm90::rows_map(&mp.v, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK) ||
       !sm90::vec_map(&mp.lse, p.lse_in, n_stat, kBQ + 4) ||
       !sm90::vec_map(&mp.delta, p.delta, n_stat, kBQ + 4))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((p.S + kBK - 1) / kBK, p.nkv, p.B);
   // qualified: Maps would also bring flash_sm90's kernel in by argument lookup
-  flash_ws::dkv_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
+  flash_ws::dkv_kernel_sm90<D, kPartial><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
   return (int)cudaGetLastError();
 }
 
@@ -1059,38 +1075,62 @@ int launch_dkv(const Params& p, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the wgmma kernel);
-// D: 64, 128 or 256. lse and delta (B, nh, T) fp32; dq (B, T, nh, D)
-// contiguous. Returns the launch's cudaError_t.
-extern "C" int flash_attn_bwd_dq(int dtype, int D, const void* q, const void* k, const void* v,
-                                 const void* dout, const float* lse, const float* delta,
-                                 void* dq, const int* seed, const int* dims,
+// D: the built width it runs at, 64, 128 or 256; d: the head size, d % 8
+// == 0, 8 <= d <= D (flash_attn_common.cuh). lse and delta (B, nh, T)
+// fp32; dq (B, T, nh, d) contiguous. Returns the launch's cudaError_t.
+extern "C" int flash_attn_bwd_dq(int dtype, int D, int d, const void* q, const void* k,
+                                 const void* v, const void* dout, const float* lse,
+                                 const float* delta, void* dq, const int* seed, const int* dims,
                                  const long long* strides, float scale, unsigned thresh,
                                  float keep_scale, void* stream) {
-  const Params p = flash::make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr, seed,
+  if (!flash::runs_head_size(D, d)) return (int)cudaErrorInvalidValue;
+  const Params p = flash::make_params(d, q, k, v, dout, lse, delta, dq, nullptr, nullptr, seed,
                                       dims, strides, scale, thresh, keep_scale);
-  if (dtype == 0 && D == 64) return launch_dq<float, 64>(p, stream);
-  if (dtype == 0 && D == 128) return launch_dq<float, 128>(p, stream);
-  if (dtype == 0 && D == 256) return launch_dq<float, 256>(p, stream);
-  if (dtype == 1 && D == 64) return flash_sm90::launch_dq<64>(p, stream);
-  if (dtype == 1 && D == 128) return flash_sm90::launch_dq<128>(p, stream);
-  if (dtype == 1 && D == 256) return flash_sm90::launch_dq<256>(p, stream);
+  // d == D: the instance built for its head size; d < D: the masked one
+  const bool full = d == D;
+  if (dtype == 0 && D == 64) return full ? launch_dq<float, 64, false>(p, stream)
+                                         : launch_dq<float, 64, true>(p, stream);
+  if (dtype == 0 && D == 128) return full ? launch_dq<float, 128, false>(p, stream)
+                                          : launch_dq<float, 128, true>(p, stream);
+  if (dtype == 0 && D == 192) return launch_dq<float, 256, true>(p, stream);
+  if (dtype == 0 && D == 256) return full ? launch_dq<float, 256, false>(p, stream)
+                                          : launch_dq<float, 256, true>(p, stream);
+  if (dtype == 1 && D == 64) return full ? flash_sm90::launch_dq<64, false>(p, stream)
+                                         : flash_sm90::launch_dq<64, true>(p, stream);
+  if (dtype == 1 && D == 128) return full ? flash_sm90::launch_dq<128, false>(p, stream)
+                                          : flash_sm90::launch_dq<128, true>(p, stream);
+  if (dtype == 1 && D == 192) return full ? flash_sm90::launch_dq<192, false>(p, stream)
+                                          : flash_sm90::launch_dq<192, true>(p, stream);
+  if (dtype == 1 && D == 256) return full ? flash_sm90::launch_dq<256, false>(p, stream)
+                                          : flash_sm90::launch_dq<256, true>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// As flash_attn_bwd_dq; dk
-// and dv (B, S, nkv, D) contiguous.
-extern "C" int flash_attn_bwd_dkv(int dtype, int D, const void* q, const void* k,
+// As flash_attn_bwd_dq; dk and dv (B, S, nkv, d) contiguous.
+extern "C" int flash_attn_bwd_dkv(int dtype, int D, int d, const void* q, const void* k,
                                   const void* v, const void* dout, const float* lse,
                                   const float* delta, void* dk, void* dv, const int* seed,
                                   const int* dims, const long long* strides, float scale,
                                   unsigned thresh, float keep_scale, void* stream) {
-  const Params p = flash::make_params(q, k, v, dout, lse, delta, dk, dv, nullptr, seed, dims,
+  if (!flash::runs_head_size(D, d)) return (int)cudaErrorInvalidValue;
+  const Params p = flash::make_params(d, q, k, v, dout, lse, delta, dk, dv, nullptr, seed, dims,
                                       strides, scale, thresh, keep_scale);
-  if (dtype == 0 && D == 64) return launch_dkv<float, 64>(p, stream);
-  if (dtype == 0 && D == 128) return launch_dkv<float, 128>(p, stream);
-  if (dtype == 0 && D == 256) return launch_dkv<float, 256>(p, stream);
-  if (dtype == 1 && D == 64) return flash_sm90::launch_dkv<64>(p, stream);
-  if (dtype == 1 && D == 128) return flash_sm90::launch_dkv<128>(p, stream);
-  if (dtype == 1 && D == 256) return flash_ws::launch_dkv<256>(p, stream);
+  const bool full = d == D;
+  if (dtype == 0 && D == 64) return full ? launch_dkv<float, 64, false>(p, stream)
+                                         : launch_dkv<float, 64, true>(p, stream);
+  if (dtype == 0 && D == 128) return full ? launch_dkv<float, 128, false>(p, stream)
+                                          : launch_dkv<float, 128, true>(p, stream);
+  if (dtype == 0 && D == 192) return launch_dkv<float, 256, true>(p, stream);
+  if (dtype == 0 && D == 256) return full ? launch_dkv<float, 256, false>(p, stream)
+                                          : launch_dkv<float, 256, true>(p, stream);
+  if (dtype == 1 && D == 64) return full ? flash_sm90::launch_dkv<64, false>(p, stream)
+                                         : flash_sm90::launch_dkv<64, true>(p, stream);
+  if (dtype == 1 && D == 128) return full ? flash_sm90::launch_dkv<128, false>(p, stream)
+                                          : flash_sm90::launch_dkv<128, true>(p, stream);
+  // width 192: the 256-wide warp-specialized kernel (a single warpgroup
+  // would hold 2 x 96 accumulator registers a thread for dK and dV alone)
+  if (dtype == 1 && D == 192) return flash_ws::launch_dkv<256, true>(p, stream);
+  if (dtype == 1 && D == 256) return full ? flash_ws::launch_dkv<256, false>(p, stream)
+                                          : flash_ws::launch_dkv<256, true>(p, stream);
   return (int)cudaErrorInvalidValue;
 }

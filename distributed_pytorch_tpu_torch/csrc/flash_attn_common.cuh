@@ -43,10 +43,15 @@ constexpr int kBK = 64;            // key rows per tile
 constexpr int kBQ = 64;            // query rows per forward / dq tile
 constexpr int kPad = 4;            // floats of padding per shared-memory row
 
+// Head sizes: a kernel is built at a width D of 64, 128 or 256 and runs
+// any head size d with d % 8 == 0 and D / 2 < d <= D (8 .. 64 at D 64).
+// Columns d .. D - 1 of every q, k, v and dout row load as zeros, which add
+// exactly 0 to each product, and no output column past d is written.
+//
 // Everything a kernel reads, passed by value. Element strides: q/k/v/dout
-// rows of head h of batch b at time t sit at base + b*sb + t*st + h*D.
-// lse and delta are (B, nh, T) fp32; out/dq are (B, T, nh, D) and dk/dv
-// (B, S, nkv, D), contiguous.
+// rows of head h of batch b at time t sit at base + b*sb + t*st + h*d.
+// lse and delta are (B, nh, T) fp32; out/dq are (B, T, nh, d) and dk/dv
+// (B, S, nkv, d), contiguous.
 struct Params {
   const void* q;
   const void* k;
@@ -59,6 +64,7 @@ struct Params {
   float* lse_out;      // fwd: lse
   const int* seed;     // (2,) int32 on the device
   int B, T, S, nh, nkv;
+  int d;               // the head size (the kernel's width D or less)
   int causal, dropout;
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st;
   float scale;
@@ -140,14 +146,17 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// Load R rows of D elements (rows >= n_valid read as zeros) from `src`
-// (row stride `stride` elements, 16-byte aligned rows) into shared memory
-// as fp32: row-major dst[r*ld + d], or transposed dst[d*ld + r]. Every
-// thread issues all its 16-byte loads before it stores any.
+// Load R rows of D elements (rows >= n_valid and columns >= n_cols read as
+// zeros; n_cols is a multiple of the vector, and n_cols >= D, a constant
+// in a kernel built for its head size, compiles the column test away)
+// from `src` (row stride
+// `stride` elements, 16-byte aligned rows) into shared memory as fp32:
+// row-major dst[r*ld + c], or transposed dst[c*ld + r]. Every thread
+// issues all its 16-byte loads before it stores any.
 template <typename T, int D, int R, bool kTrans>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, int ld,
                                           const T* __restrict__ src, long long stride,
-                                          int n_valid) {
+                                          int n_valid, int n_cols) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kVpr = D / kVec;                 // vectors per row
   constexpr int kIters = R * kVpr / kThreads;    // R * kVpr is a multiple of 256
@@ -158,7 +167,7 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, int ld,
     const int e = it * kThreads + threadIdx.x;
     const int r = e / kVpr, c = (e - r * kVpr) * kVec;
     u[it] = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid) u[it] = *reinterpret_cast<const uint4*>(src + r * stride + c);
+    if (r < n_valid && (n_cols >= D || c < n_cols)) u[it] = *reinterpret_cast<const uint4*>(src + r * stride + c);
   }
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
@@ -242,9 +251,12 @@ inline int set_smem(Kernel kernel, size_t smem, size_t (&cap)[64]) {
   return 0;
 }
 
+// Whether a kernel built at width D runs head size d
+inline bool runs_head_size(int D, int d) { return d % 8 == 0 && d >= 8 && d <= D; }
+
 // Fill Params from the C entry's arguments. dims = (B, T, S, nh, nkv, causal,
 // dropout); strides = (q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st).
-inline Params make_params(const void* q, const void* k, const void* v, const void* dout,
+inline Params make_params(int d, const void* q, const void* k, const void* v, const void* dout,
                           const float* lse_in, const float* delta, void* out0, void* out1,
                           float* lse_out, const int* seed, const int* dims,
                           const long long* strides, float scale, unsigned thresh,
@@ -265,6 +277,7 @@ inline Params make_params(const void* q, const void* k, const void* v, const voi
   p.S = dims[2];
   p.nh = dims[3];
   p.nkv = dims[4];
+  p.d = d;
   p.causal = dims[5];
   p.dropout = dims[6];
   p.q_sb = strides[0];

@@ -1,8 +1,20 @@
 // flash_attn_fwd: online-softmax attention over BTNH tensors (sm_90a, fp32
-// and bf16, head size 64, 128 or 256), returning out and the fp32
-// logsumexp of the scaled scores. Causal or full; GQA reads kv head
-// h / (nh / nkv); attention-weight dropout from a counter hash. Built and
-// bound by ops/cuda_build.py; wrapped by ops/flash_attention.py.
+// and bf16, any head size d with d % 8 == 0 up to 256), returning out and
+// the fp32 logsumexp of the scaled scores. Causal or full; GQA reads kv
+// head h / (nh / nkv); attention-weight dropout from a counter hash. Built
+// and bound by ops/cuda_build.py; wrapped by ops/flash_attention.py.
+//
+// Head sizes: the C entry takes the width D the wrapper picks
+// (`padded_width`: the least of 64, 128, 192 and 256 that holds d) and runs
+// d on the instance built for D, or at D < 256 on the masked instance
+// (kPartial), whose stores stop at d; width 192 runs the 256-wide kernel (the
+// dq has a 192-wide one, flash_attn_bwd.cu). The TMA maps' row is d wide (their head stride d
+// * 2 bytes, a multiple of 16 exactly when d % 8 == 0), so each 64-column
+// box past d arrives as zeros and still counts its whole bytes on the
+// barrier; the FMA loads zero-fill past d. The zero columns add exactly 0
+// to Q K^T, and the output columns past d, P V over zero columns of V, are
+// never stored: the stores stop at d and step rows by nh * d. No padded
+// copy is made on the host.
 //
 // Replaces: `_fwd_kernel` -> `_fwd` (rows face, pallas_call :378) and
 // `_slab_fwd_kernel` -> `_slab_fwd` (slab face, :678) of
@@ -99,8 +111,9 @@ constexpr size_t fwd_smem() {
                           flash::kBK * (flash::kBQ + flash::kPad));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPartial>
 __global__ void __launch_bounds__(flash::kThreads) fwd_kernel(const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
   using namespace flash;
   constexpr int LD = kBQ + kPad;  // Qt, Kt, Pt rows (64 wide)
   constexpr int LDV = D + kPad;   // Vs rows
@@ -114,9 +127,9 @@ __global__ void __launch_bounds__(flash::kThreads) fwd_kernel(const Params p) {
   const int i0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (p.nh / p.nkv);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (long long)h * D;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + (long long)g * D;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + (long long)g * D;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (long long)h * dh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + (long long)g * dh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + (long long)g * dh;
   uint32_t s0 = 0, s1 = 0;
   if (p.dropout) {
     s0 = (uint32_t)p.seed[0];
@@ -124,7 +137,7 @@ __global__ void __launch_bounds__(flash::kThreads) fwd_kernel(const Params p) {
   }
   const uint32_t row = (uint32_t)(b * p.nh + h);
 
-  load_tile<T, D, kBQ, true>(Qt, LD, q + i0 * p.q_st, p.q_st, min(kBQ, p.T - i0));
+  load_tile<T, D, kBQ, true>(Qt, LD, q + i0 * p.q_st, p.q_st, min(kBQ, p.T - i0), dh);
 
   float o[4][RN], m[4], l[4];
 #pragma unroll
@@ -139,8 +152,8 @@ __global__ void __launch_bounds__(flash::kThreads) fwd_kernel(const Params p) {
   for (int k0 = 0; k0 < n_keys; k0 += kBK) {
     const int nk = min(kBK, p.S - k0);
     __syncthreads();  // the previous tile's products are done
-    load_tile<T, D, kBK, true>(Kt, LD, k + k0 * p.k_st, p.k_st, nk);
-    load_tile<T, D, kBK, false>(Vs, LDV, v + k0 * p.v_st, p.v_st, nk);
+    load_tile<T, D, kBK, true>(Kt, LD, k + k0 * p.k_st, p.k_st, nk, dh);
+    load_tile<T, D, kBK, false>(Vs, LDV, v + k0 * p.v_st, p.v_st, nk, dh);
     __syncthreads();
 
     float s[4][4] = {};
@@ -184,28 +197,29 @@ __global__ void __launch_bounds__(flash::kThreads) fwd_kernel(const Params p) {
   }
 
   float* lse = p.lse_out + (long long)(b * p.nh + h) * p.T;
-  T* out = static_cast<T*>(p.out0) + (long long)b * p.T * p.nh * D + (long long)h * D;
+  T* out = static_cast<T*>(p.out0) + (long long)b * p.T * p.nh * dh + (long long)h * dh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = i0 + ty * 4 + i;
     if (qp >= p.T) continue;
     const float ls = fmaxf(l[i], 1e-30f);
-    T* orow = out + (long long)qp * p.nh * D + tx * RN;
+    T* orow = out + (long long)qp * p.nh * dh + tx * RN;
 #pragma unroll
-    for (int j = 0; j < RN; ++j) orow[j] = from_f<T>(o[i][j] / ls);
+    for (int j = 0; j < RN; ++j)
+      if (!kPartial || tx * RN + j < dh) orow[j] = from_f<T>(o[i][j] / ls);
     if (tx == 0) lse[qp] = m[i] + logf(ls);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPartial>
 int launch(const Params& p, void* stream) {
   static size_t cap[64] = {};
   const size_t smem = fwd_smem<D>();
-  const int err = flash::set_smem(fwd_kernel<T, D>, smem, cap);
+  const int err = flash::set_smem(fwd_kernel<T, D, kPartial>, smem, cap);
   if (err) return err;
   if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
   const dim3 grid((p.T + flash::kBQ - 1) / flash::kBQ, p.nh, p.B);
-  fwd_kernel<T, D><<<grid, flash::kThreads, smem, (cudaStream_t)stream>>>(p);
+  fwd_kernel<T, D, kPartial><<<grid, flash::kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -244,10 +258,11 @@ __device__ __forceinline__ void load_kv(Smem<D>& sm, const CUtensorMap* tk, cons
   sm90::tma_rows<D, kBK>(sm.v[s], tv, &sm.vbar[s], g, j * kBK, b);
 }
 
-template <int D>
+template <int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
   using namespace sm90;
   extern __shared__ uint8_t smem_raw[];
   Smem<D>& sm = smem_aligned<Smem<D>>(smem_raw);
@@ -362,35 +377,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   float* lse = p.lse_out + (long long)(b * p.nh + h) * p.T;
-  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * D + (long long)h * D;
+  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * dh + (long long)h * dh;
 #pragma unroll
   for (int ih = 0; ih < 2; ++ih) {
     const int qp = i0 + r0 + 8 * ih;
     const float ls = fmaxf(quad_sum(l[ih]), 1e-30f);
     if (qp >= p.T) continue;
-    bf16* orow = out + (long long)qp * p.nh * D + c0;
+    bf16* orow = out + (long long)qp * p.nh * dh + c0;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
-          __floats2bfloat162_rn(o[4 * jj + 2 * ih] / ls, o[4 * jj + 2 * ih + 1] / ls);
+      if (!kPartial || 8 * jj < dh)  // columns 8 jj + c0 + {0, 1}: below d exactly when 8 jj is
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
+            __floats2bfloat162_rn(o[4 * jj + 2 * ih] / ls, o[4 * jj + 2 * ih + 1] / ls);
     if ((lane & 3) == 0) lse[qp] = m[ih] + logf(ls);
   }
 }
 
-template <int D>
+template <int D, bool kPartial>
 int launch(const Params& p, void* stream) {
   static size_t cap[64] = {};
   const size_t smem = smem_bytes<D>();
-  const int err = flash::set_smem(fwd_kernel_sm90<D>, smem, cap);
+  const int err = flash::set_smem(fwd_kernel_sm90<D, kPartial>, smem, cap);
   if (err) return err;
   if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
   CUtensorMap tq, tk, tv;
-  if (!sm90::rows_map(&tq, p.q, D, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
-      !sm90::rows_map(&tk, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
-      !sm90::rows_map(&tv, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK))
+  if (!sm90::rows_map(&tq, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
+      !sm90::rows_map(&tk, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
+      !sm90::rows_map(&tv, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(p.nh, p.B, (p.T + kBQ - 1) / kBQ);
-  fwd_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(tq, tk, tv, p);
+  fwd_kernel_sm90<D, kPartial><<<grid, kThreads, smem, (cudaStream_t)stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -519,10 +535,11 @@ __device__ __forceinline__ void issue_pv(Smem<D>& sm, float (&o)[D / 2],
   for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<D, 1>(o, pa[kk], desc_mnmajor<kBK>(sm.v[s], kk));
 }
 
-template <int D>
+template <int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
   using namespace sm90;
   extern __shared__ uint8_t smem_raw[];
   Smem<D>& sm = smem_aligned<Smem<D>>(smem_raw);
@@ -654,35 +671,36 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   float* lse = p.lse_out + (long long)(b * p.nh + h) * p.T;
-  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * D + (long long)h * D;
+  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * dh + (long long)h * dh;
 #pragma unroll
   for (int ih = 0; ih < 2; ++ih) {
     const int qp = rw.q0 + rw.r0 + 8 * ih;
     const float ls = fmaxf(quad_sum(l[ih]), 1e-30f);
     if (qp >= p.T) continue;
-    bf16* orow = out + (long long)qp * p.nh * D + rw.c0;
+    bf16* orow = out + (long long)qp * p.nh * dh + rw.c0;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
-          __floats2bfloat162_rn(o[4 * jj + 2 * ih] / ls, o[4 * jj + 2 * ih + 1] / ls);
+      if (!kPartial || 8 * jj < dh)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
+            __floats2bfloat162_rn(o[4 * jj + 2 * ih] / ls, o[4 * jj + 2 * ih + 1] / ls);
     if ((lane & 3) == 0) lse[qp] = m[ih] + logf(ls);
   }
 }
 
-template <int D>
+template <int D, bool kPartial>
 int launch(const Params& p, void* stream) {
   static size_t cap[64] = {};
   const size_t smem = sizeof(Smem<D>) + 1024;  // + room to align the base to 1024
-  const int err = flash::set_smem(fwd_kernel_sm90<D>, smem, cap);
+  const int err = flash::set_smem(fwd_kernel_sm90<D, kPartial>, smem, cap);
   if (err) return err;
   if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
   CUtensorMap tq, tk, tv;
-  if (!sm90::rows_map(&tq, p.q, D, p.nh, p.T, p.B, p.q_st, p.q_sb, kRows) ||
-      !sm90::rows_map(&tk, p.k, D, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
-      !sm90::rows_map(&tv, p.v, D, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK))
+  if (!sm90::rows_map(&tq, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kRows) ||
+      !sm90::rows_map(&tk, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
+      !sm90::rows_map(&tv, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(p.nh, p.B, (p.T + kBQ - 1) / kBQ);
-  fwd_kernel_sm90<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(tq, tk, tv, p);
+  fwd_kernel_sm90<D, kPartial><<<grid, kThreads, smem, (cudaStream_t)stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -690,21 +708,35 @@ int launch(const Params& p, void* stream) {
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel); D: 64,
-// 128 or 256. out (B, T, nh, D) and lse (B, nh, T) fp32, both contiguous.
-// dims and strides as in flash::make_params. Returns the launch's cudaError_t
-// (0 = success).
-extern "C" int flash_attn_fwd(int dtype, int D, const void* q, const void* k, const void* v,
-                              void* out, float* lse, const int* seed, const int* dims,
-                              const long long* strides, float scale, unsigned thresh,
-                              float keep_scale, void* stream) {
-  const Params p = flash::make_params(q, k, v, nullptr, nullptr, nullptr, out, nullptr, lse,
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel); D: the
+// built width it runs at, 64, 128 or 256; d: the head size, d % 8 == 0,
+// 8 <= d <= D (flash_attn_common.cuh). out (B, T, nh, d) and lse (B, nh,
+// T) fp32, both contiguous. dims and strides as in flash::make_params.
+// Returns the launch's cudaError_t (0 = success).
+extern "C" int flash_attn_fwd(int dtype, int D, int d, const void* q, const void* k,
+                              const void* v, void* out, float* lse, const int* seed,
+                              const int* dims, const long long* strides, float scale,
+                              unsigned thresh, float keep_scale, void* stream) {
+  if (!flash::runs_head_size(D, d)) return (int)cudaErrorInvalidValue;
+  const Params p = flash::make_params(d, q, k, v, nullptr, nullptr, nullptr, out, nullptr, lse,
                                       seed, dims, strides, scale, thresh, keep_scale);
-  if (dtype == 0 && D == 64) return launch<float, 64>(p, stream);
-  if (dtype == 0 && D == 128) return launch<float, 128>(p, stream);
-  if (dtype == 0 && D == 256) return launch<float, 256>(p, stream);
-  if (dtype == 1 && D == 64) return flash_sm90::launch<64>(p, stream);
-  if (dtype == 1 && D == 128) return flash_sm90::launch<128>(p, stream);
-  if (dtype == 1 && D == 256) return flash_ws::launch<256>(p, stream);
+  // d == D: the instance built for its head size; d < D: the masked one
+  const bool full = d == D;
+  if (dtype == 0 && D == 64) return full ? launch<float, 64, false>(p, stream)
+                                         : launch<float, 64, true>(p, stream);
+  if (dtype == 0 && D == 128) return full ? launch<float, 128, false>(p, stream)
+                                          : launch<float, 128, true>(p, stream);
+  if (dtype == 0 && D == 192) return launch<float, 256, true>(p, stream);
+  if (dtype == 0 && D == 256) return full ? launch<float, 256, false>(p, stream)
+                                          : launch<float, 256, true>(p, stream);
+  if (dtype == 1 && D == 64) return full ? flash_sm90::launch<64, false>(p, stream)
+                                         : flash_sm90::launch<64, true>(p, stream);
+  if (dtype == 1 && D == 128) return full ? flash_sm90::launch<128, false>(p, stream)
+                                          : flash_sm90::launch<128, true>(p, stream);
+  // width 192: the 256-wide warp-specialized kernel, 1.8x faster at d 192
+  // than a single warpgroup at 192, which holds one CTA an SM (PERF.md)
+  if (dtype == 1 && D == 192) return flash_ws::launch<256, true>(p, stream);
+  if (dtype == 1 && D == 256) return full ? flash_ws::launch<256, false>(p, stream)
+                                          : flash_ws::launch<256, true>(p, stream);
   return (int)cudaErrorInvalidValue;
 }

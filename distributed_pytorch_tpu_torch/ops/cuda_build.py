@@ -70,20 +70,21 @@ KERNELS = {
     # int64[8]) = q, k, v, dout (batch, time) element strides
     "flash_attn_fwd": (
         "flash_attn_fwd.cu",
-        # dtype, D, q, k, v, out, lse, seed, dims, strides, scale, thresh,
-        # keep_scale, stream
-        (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U, _F, _P)),
+        # dtype, built width, head size, q, k, v, out, lse, seed, dims,
+        # strides, scale, thresh, keep_scale, stream
+        (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U, _F, _P)),
     "flash_attn_bwd_dq": (
         "flash_attn_bwd.cu",
-        # dtype, D, q, k, v, dout, lse, delta, dq, seed, dims, strides,
-        # scale, thresh, keep_scale, stream
-        (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U, _F, _P)),
+        # dtype, built width, head size, q, k, v, dout, lse, delta, dq,
+        # seed, dims, strides, scale, thresh, keep_scale, stream
+        (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U, _F,
+         _P)),
     "flash_attn_bwd_dkv": (
         "flash_attn_bwd.cu",
-        # dtype, D, q, k, v, dout, lse, delta, dk, dv, seed, dims, strides,
-        # scale, thresh, keep_scale, stream
-        (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U, _F,
-         _P)),
+        # dtype, built width, head size, q, k, v, dout, lse, delta, dk, dv,
+        # seed, dims, strides, scale, thresh, keep_scale, stream
+        (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U,
+         _F, _P)),
     "fused_ce_fwd": (
         "fused_ce_fwd.cu",
         # dtype, x, w, t, nll, lse, n, V, C, stream

@@ -15,10 +15,16 @@ layout through (batch, time) strides, so they serve both:
   `_slab_bwd_dkv_kernel`), the GQA group summed in the kernel.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
-kernel does not take (dtypes other than fp32/bf16, head sizes other than
-64, 128 and 256; 256 is MLA's concatenated content and rotary features at
-the launcher's widths). The dtype picks the design inside the C entry, by
-dtype and never as a fallback: bf16 runs on tensor cores (wgmma on TMA-fed shared
+kernel does not take (dtypes other than fp32/bf16, head sizes that are not
+a multiple of 8 from 8 to 256). A head size d runs at `padded_width(d)`,
+the least of the widths `HEAD_SIZES` (64, 128, 192, 256) that holds it:
+columns d .. width - 1 load as zeros, which add exactly 0 to every
+product, and no output column past d is written, so the wrappers hand the
+kernels the caller's own tensors (no padded copy) and get outputs of head
+size d. The C entries run each width on an instance built for it (d equal
+to the width) or on a masked one (d under it); width 192 is the dq's own,
+and the forward and dkv run it on their 256-wide kernels. The dtype picks
+the design inside the C entry, by dtype and never as a fallback: bf16 runs on tensor cores (wgmma on TMA-fed shared
 memory, csrc/flash_attn_sm90.cuh and csrc/sm90_common.cuh), fp32 on the
 FMA design (csrc/flash_attn_common.cuh), since tensor cores take fp32
 only as TF32. For CPU tensors a wrapper runs the plain version, which repeats the
@@ -60,7 +66,24 @@ PLAIN_CALLS = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
                "flash_attn_bwd_dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_SIZES = (64, 128, 256)  # the kernels' templated head sizes
+HEAD_SIZES = (64, 128, 192, 256)  # the widths a head size runs at
+MAX_HEAD_SIZE = HEAD_SIZES[-1]
+
+
+def head_size_ok(d: int) -> bool:
+    """Whether the kernels run head size `d`: a multiple of 8 (16-byte
+    rows in bf16, as the TMA maps' head stride needs; the reference's gate
+    asks the same) from 8 to MAX_HEAD_SIZE."""
+    return d % 8 == 0 and 8 <= d <= MAX_HEAD_SIZE
+
+
+def padded_width(d: int) -> int:
+    """The built width head size `d` runs at: the least of HEAD_SIZES
+    that holds it."""
+    if not head_size_ok(d):
+        raise ValueError(f"the flash kernels take head sizes that are "
+                         f"multiples of 8 from 8 to {MAX_HEAD_SIZE}, not {d}")
+    return next(w for w in HEAD_SIZES if d <= w)
 
 
 def reset_counts() -> None:
@@ -217,10 +240,10 @@ def flash_attn_bwd_dkv_plain(q, k, v, dout, lse, delta, seed=None, *, scale,
 
 def flash_attention_usable(q, k, v) -> bool:
     """Whether the kernels take these operands: fp32/bf16 q, k, v of one
-    dtype, head size 64, 128 or 256, whole kv-head groups."""
+    dtype, a head size `head_size_ok` takes, whole kv-head groups."""
     return (q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
             and q.dtype in _DTYPE_CODE and k.dtype == q.dtype
-            and v.dtype == q.dtype and q.shape[-1] in HEAD_SIZES
+            and v.dtype == q.dtype and head_size_ok(q.shape[-1])
             and k.shape[-1] == q.shape[-1] and k.shape[0] == q.shape[0]
             and q.shape[2] % k.shape[2] == 0)
 
@@ -254,8 +277,8 @@ def _prepare(name, q, k, v, seed, rate, *more):
     if not flash_attention_usable(q, k, v):
         raise ValueError(
             f"{name} does not take q {tuple(q.shape)} {q.dtype} with k/v "
-            f"{tuple(k.shape)} {k.dtype} (fp32/bf16, head size in "
-            f"{HEAD_SIZES}, nh a multiple of nkv)")
+            f"{tuple(k.shape)} {k.dtype} (fp32/bf16, head size a multiple "
+            f"of 8 from 8 to {MAX_HEAD_SIZE}, nh a multiple of nkv)")
     for t in (k, v, *more):
         if t.device != q.device:
             raise ValueError("kernel operands must share one device")
@@ -279,7 +302,8 @@ def _launch(name, fn_args, q, dims, strides, seed, scale, causal, rate):
     lib = cuda_build.load(name)
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
-            _DTYPE_CODE[q.dtype], q.shape[3], *fn_args,
+            _DTYPE_CODE[q.dtype], padded_width(q.shape[3]), q.shape[3],
+            *fn_args,
             None if seed is None else seed.data_ptr(), dims,
             (ctypes.c_longlong * 8)(*strides), float(scale),
             dropout_threshold(rate) if rate > 0.0 else 0,

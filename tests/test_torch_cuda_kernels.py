@@ -24,14 +24,18 @@ and the kernel the profiler sees on each route (the FMA kernel for fp32
 and head size 40).
 The flash-attention kernels (forward, dq, dkv) over causal and full
 attention, MHA and GQA (rep 4 at head size 128), dropout 0 and 0.2, T and
-S off the bf16 kernels' tiles (T 1, 70, 130, 200) and S > T, head sizes 64
-and 128, and bf16 at the training shape (B 8, T 1024, 12 x 64), each
+S off the bf16 kernels' tiles (T 1, 70, 130, 200) and S > T, at their
+built widths 64, 128 and 256 and at head sizes under them (8, 32, 40, 48,
+80, 96, 136, 192, 248), with no output column stored past the head size
+(outputs allocated in front of NaN sentinels), and bf16 at the training
+shapes (B 8, T 1024, 12 x 64 and 8 x 256), each
 output element by element within atol + rtol x |plain|:
 fp32 (1e-5, 1e-5: summation order); bf16 (4e-3, 2^-7: outputs round to
 bf16 on both sides, and p rounds against a running max in the forward
 kernel); lse, fp32 whatever the inputs, at the fp32 limits. Strided q/k/v
-views of a fused qkv (the bf16 TMA maps' time stride) equal contiguous
-copies bit for bit, and two launches of the bf16 dq or dkv kernel are
+views of a fused qkv (the bf16 TMA maps' time stride; head sizes 64, 80
+and 256) reach the kernels uncopied and equal contiguous copies bit for
+bit, head sizes off the grid (36) or past 256 (264) raise, and two launches of the bf16 dq or dkv kernel are
 bit-equal (no atomics).
 And the autograd path against the naive attention's gradients in fp32. The fused
 cross-entropy kernels (forward, dx, dW) at ragged token counts and
@@ -706,7 +710,18 @@ FLASH_CASES = [  # B, T, S, nh, nkv, D, causal
     (2, 128, 128, 4, 4, 256, True), (1, 200, 200, 4, 2, 256, True),
     (2, 130, 70, 8, 2, 256, False), (1, 100, 100, 2, 2, 256, False),
     (1, 65, 65, 2, 2, 256, True), (2, 130, 130, 4, 1, 256, True),
-    (1, 200, 200, 8, 2, 256, False), (1, 65, 130, 2, 2, 256, False)]
+    (1, 200, 200, 8, 2, 256, False), (1, 65, 130, 2, 2, 256, False),
+    # head sizes under a built width (64, 128, 256), run at that width with
+    # zero columns past d: 8, 32 (the default config), 40, 48 (MLA on the
+    # default config), 80 (MLA on the flagship), 96 (768 / 8 heads), 136,
+    # 192 (the flagship with the launcher's rope head) and 248; causal and
+    # full, GQA, ragged T (130) and S != T, several heads a row
+    (2, 130, 130, 4, 2, 8, True), (2, 130, 130, 8, 4, 32, True),
+    (1, 130, 70, 8, 4, 32, False), (2, 130, 130, 3, 3, 40, False),
+    (1, 130, 130, 8, 8, 48, True), (2, 130, 130, 12, 12, 80, True),
+    (1, 130, 200, 4, 2, 80, False), (2, 130, 130, 8, 2, 96, True),
+    (1, 130, 130, 4, 4, 136, True), (2, 130, 130, 4, 2, 192, True),
+    (1, 130, 70, 4, 4, 192, False), (1, 130, 130, 4, 1, 248, True)]
 
 
 #: (atol, rtol) of the flash kernels, element by element:
@@ -773,10 +788,48 @@ def test_flash_kernels_bf16_mla_training_shape(dev, rate):
     _flash_case(dev, torch.bfloat16, 8, 1024, 1024, 8, 8, 256, True, rate)
 
 
-@pytest.mark.parametrize("D", [192, 80, 96])
+class _Torch:
+    """`torch` with `empty` handing out the front of a larger buffer
+    filled with NaN, whose tail shows any write past a tensor's end."""
+
+    def __init__(self):
+        self.tails = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, *shape, dtype=None, device=None):
+        shape = tuple(shape[0]) if len(shape) == 1 and not isinstance(
+            shape[0], int) else shape
+        n = int(np.prod(shape))
+        buf = torch.full((n + 4096,), float("nan"), dtype=dtype,
+                         device=device)
+        self.tails.append(buf[n:])
+        return buf[:n].view(shape)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("D", [8, 40, 80, 136, 248])
+def test_flash_writes_no_column_past_the_head_size(dev, monkeypatch, dtype,
+                                                   D):
+    """The kernels run D at a wider built width, whose columns past D
+    they compute and must not store: row t's last head ends where row t +
+    1's first head begins, and the last row's last head ends the tensor.
+    Every output (out, lse, dq, dk, dv) is allocated as the front of a NaN
+    buffer; after the three launches the tails are still NaN and each
+    output, every head of it, equals its plain version."""
+    shim = _Torch()
+    monkeypatch.setattr(fa, "torch", shim)
+    _flash_case(dev, dtype, 2, 130, 130, 4, 2, D, True, 0.0)
+    assert len(shim.tails) == 5
+    assert all(bool(t.isnan().all()) for t in shim.tails)
+
+
+@pytest.mark.parametrize("D", [36, 264])
 def test_flash_refuses_other_head_sizes(dev, D):
-    """Head sizes the kernels are not built for (MLA's 192 and 80) raise
-    on the card; nothing falls back."""
+    """Head sizes off the kernels' grid (36: not a multiple of 8) or past
+    their widest built width (264 = 136 + 128, MLA with the launcher's rope
+    head on 136-wide heads) raise on the card; nothing falls back."""
     q = torch.zeros(1, 64, 2, D, device=dev, dtype=torch.bfloat16)
     stat = torch.zeros(1, 2, 64, device=dev)
     with pytest.raises(ValueError, match="head size"):
@@ -786,16 +839,19 @@ def test_flash_refuses_other_head_sizes(dev, D):
             fn(q, q, q, q, stat, stat, scale=0.1)
 
 
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D,nh", [(64, 4), (256, 4), (80, 12)])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-def test_flash_reads_strided_views(dev, dtype, D):
+def test_flash_reads_strided_views(dev, dtype, D, nh):
     """q, k, v as views of one fused qkv projection (row stride 3*C), as
     the model hands them over, equal contiguous copies (bf16: through the
-    TMA maps' time stride)."""
-    B, T, nh = 2, 130, 4
+    TMA maps' time stride), and reach the kernels without a copy: at D 80
+    (MLA on the flagship, run at width 128) too, whose rows are not padded
+    on the host."""
+    B, T = 2, 130
     qkv = torch.randn(B, T, 3 * nh * D, device=dev).to(dtype)
     q, k, v = (t.reshape(B, T, nh, D) for t in qkv.split(nh * D, dim=-1))
     assert q.stride(1) == 3 * nh * D
+    assert all(fa._strided(t).data_ptr() == t.data_ptr() for t in (q, k, v))
     out, lse = fa.flash_attn_fwd(q, k, v, scale=D ** -0.5)
     ref, ref_lse = fa.flash_attn_fwd(q.contiguous(), k.contiguous(),
                                      v.contiguous(), scale=D ** -0.5)

@@ -193,12 +193,13 @@ def _chip_smoke():
 # wgmma kernels (flash fwd, dq, dkv and the paged prefill at D 64 and 128,
 # grouped fwd, dx and dW unscaled and scaled, the fused CE forward, dx and
 # dW, the int8-cache paged prefill at D 64 and 128, flash fwd, dq, dkv at
-# D 256) and some of the others (fp32 flash, fp32 grouped forward, dx and
+# D 256, the flash dq at D 192, and every flash kernel's instance for head
+# sizes under its width) and some of the others (fp32 flash, fp32 grouped forward, dx and
 # dW, the FMA prefill, the tile decode, the split-KV decode's split (bf16
 # and int8 caches) and combine kernels, the fused CE's mma.sync and fp32
 # kernels, and the fp32 flash kernels at D 256)
 SASS_SM90 = [
-    f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi{d}EEEvNS0_4MapsEN5flash"
+    f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi{d}ELb0EEEvNS0_4MapsEN5flash"
     "6ParamsE"
     for k in ("fwd_kernel_sm90", "dq_kernel_sm90", "dkv_kernel_sm90")
     for d in (64, 128)] + [
@@ -213,12 +214,26 @@ SASS_SM90 = [
     f"_ZN12_GLOBAL__N_112prefill_sm9022prefill_kernel_sm90_q8ILi{d}EEEvPK13"
     "__nv_bfloat16PKaPKfS6_S8_PKiPS2_iiiiiif" for d in (64, 128)] + [
     # the forward and dkv warp-specialized (their own namespace), dq not
-    "_ZN12_GLOBAL__N_18flash_ws15fwd_kernel_sm90ILi256EEEv14CUtensorMap_stS2_"
-    "S2_N5flash6ParamsE",
-    "_ZN12_GLOBAL__N_110flash_sm9014dq_kernel_sm90ILi256EEEvNS0_6DqMapsEN5flash"
-    "6ParamsE",
-    "_ZN12_GLOBAL__N_18flash_ws15dkv_kernel_sm90ILi256EEEvNS_10flash_sm904Maps"
-    "EN5flash6ParamsE"]
+    "_ZN12_GLOBAL__N_18flash_ws15fwd_kernel_sm90ILi256ELb0EEEv14CUtensorMap_st"
+    "S2_S2_N5flash6ParamsE",
+    "_ZN12_GLOBAL__N_110flash_sm9014dq_kernel_sm90ILi256ELb0EEEvNS0_6DqMapsEN5"
+    "flash6ParamsE",
+    "_ZN12_GLOBAL__N_18flash_ws15dkv_kernel_sm90ILi256ELb0EEEvNS_10flash_sm904"
+    "MapsEN5flash6ParamsE",
+    # the dq at D 192
+    "_ZN12_GLOBAL__N_110flash_sm9014dq_kernel_sm90ILi192ELb0EEEvNS0_6DqMapsEN5"
+    "flash6ParamsE"] + [
+    # each flash kernel's instance for head sizes under its width (masked)
+    f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi{d}ELb1EEEvNS0_4MapsEN5flash"
+    "6ParamsE"
+    for k in ("fwd_kernel_sm90", "dq_kernel_sm90", "dkv_kernel_sm90")
+    for d in (64, 128)] + [
+    "_ZN12_GLOBAL__N_18flash_ws15fwd_kernel_sm90ILi256ELb1EEEv14CUtensorMap_st"
+    "S2_S2_N5flash6ParamsE",
+    "_ZN12_GLOBAL__N_18flash_ws15dkv_kernel_sm90ILi256ELb1EEEvNS_10flash_sm904"
+    "MapsEN5flash6ParamsE"] + [
+    f"_ZN12_GLOBAL__N_110flash_sm9014dq_kernel_sm90ILi{d}ELb1EEEvNS0_6DqMaps"
+    "EN5flash6ParamsE" for d in (192, 256)]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
@@ -293,7 +308,15 @@ BROKEN = {"complete": None,
           "dkv_256_without_setmaxnreg": ((SASS_SM90[21], "USETMAXREG", 0),
                                          "dkv_kernel_sm90"),
           "fwd_256_with_spill": ((SASS_SM90[19], "STL", 6), "fwd_kernel_sm90"),
-          "dkv_256_with_spill": ((SASS_SM90[21], "STL", 6), "dkv_kernel_sm90")}
+          "dkv_256_with_spill": ((SASS_SM90[21], "STL", 6), "dkv_kernel_sm90"),
+          "dq_192_missing": ((SASS_SM90[22], None, 0),
+                             "dq_kernel_sm90ILi192E"),
+          "dq_192_without_hgmma": ((SASS_SM90[22], "HGMMA", 0),
+                                   "dq_kernel_sm90"),
+          "masked_fwd_without_tma": ((SASS_SM90[23], "UTMALDG", 0),
+                                     "fwd_kernel_sm90"),
+          "masked_ws_dkv_without_setmaxnreg": ((SASS_SM90[30], "USETMAXREG",
+                                                0), "dkv_kernel_sm90")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
@@ -313,14 +336,18 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     kernels at D 256: the bf16 forward without HGMMA, the bf16 dkv without
     a TMA load, the bf16 dq or the fp32 dkv missing, the fp32 forward with
     HGMMA, the bf16 forward or dkv (warp-specialized) without setmaxnreg or
-    with a register spill (local-memory stores)."""
+    with a register spill (local-memory stores); the bf16 dq at D 192
+    missing or without HGMMA; the masked forward (head sizes under 64)
+    without a TMA load; the masked warp-specialized dkv without
+    setmaxnreg."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
     for fn in SASS_SM90[12:14] + SASS_SM90[17:19]:  # the paged prefills
         inv[fn] = {"HGMMA": 8, "UTMALDG": 0, "LDGSTS": 16}
     inv.update({fn: {"HGMMA": 0, "UTMALDG": 0, "LDGSTS": 4}
                 for fn in SASS_OTHER})
-    for fn in (SASS_SM90[19], SASS_SM90[21]):   # warp-specialized at D 256
+    # warp-specialized at D 256, for d == 256 and d < 256
+    for fn in (SASS_SM90[19], SASS_SM90[21], SASS_SM90[29], SASS_SM90[30]):
         inv[fn].update(USETMAXREG=2, STL=0)
     assert len(SASS_SM90) == cs.SASS_WGMMA_KERNELS
     if BROKEN[broken] is None:

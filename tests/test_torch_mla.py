@@ -57,6 +57,11 @@ BASE = dict(vocab_size=97, block_size=64, n_embd=64, n_head=4, attn="mla",
 FLAVORS = {"full": dict(BASE, pos_emb="rope"),
            "naive": dict(BASE, pos_emb="learn")}
 MOE = dict(moe=True, n_exp=6, n_shared=1, n_act=3, moe_impl="dense")
+# the flagship's head split under `--attn mla` (64 content + 16 rotary
+# features a head, the CLI's latents): the flash route sees q_c | q_r at
+# head size 80, which the kernels run at their width 128
+SPLITS = dict(FLAVORS, flagship=dict(BASE, pos_emb="rope", n_embd=256,
+                                     q_latent_dim=32, kv_latent_dim=32))
 
 
 def _t(a):
@@ -204,15 +209,16 @@ def test_absorbed_decode_matches_materialized(pair):
 
 @pytest.mark.parametrize("impl", ["pallas", "naive"])
 @pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
-@pytest.mark.parametrize("flavor", list(FLAVORS))
+@pytest.mark.parametrize("flavor", list(SPLITS))
 def test_logits_loss_and_grads_match_reference(flavor, moe, impl):
     """A 2-layer MLA model (with a 6-expert MoE where asked) from the
     reference's weights: every position's logits, the loss and every
     parameter's gradient against `jax.grad` of the reference's loss, in
     eval mode, fp32 atol 1e-4. 'pallas' sends FullMLA's q_c | q_r
-    (head size 32) and NaiveMLA's q (16) through the flash wrappers: one
-    forward and one dq, dkv per layer."""
-    kw = dict(FLAVORS[flavor], **(MOE if moe else {}))
+    (head size 32; 80 in the flagship's split, 4 heads of 64 + 16) and
+    NaiveMLA's q (16) through the flash wrappers: one forward and one dq,
+    dkv per layer."""
+    kw = dict(SPLITS[flavor], **(MOE if moe else {}))
     jm, var, _ = _pair(kw, seed=1)
     cfg = LLMConfig(**kw)
     tm = LLM(cfg, device="cpu", attn_impl=impl)
@@ -502,7 +508,7 @@ def test_launcher_model_counts():
     attn = sum(p.numel() for n, p in tm.named_parameters() if ".attn." in n)
     assert round(total / 1e6, 2) == 537.76 and active < total
     assert round(attn / 1e6, 2) == 33.03
-    assert cfg.head_size + cfg.rope_head_dim == 256 in fa.HEAD_SIZES
+    assert cfg.head_size + cfg.rope_head_dim == 256 == fa.padded_width(256)
     assert metrics.step_flops(cfg, 2 ** 14, 1024) == jmetrics.step_flops(
         JConfig(**LAUNCHER, act_recomp=True, act_recomp_policy="attn"),
         2 ** 14, 1024)
