@@ -21,7 +21,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
              the grouped forward, dx and dW unscaled and scaled, the
              fused CE forward, dx and dW) must hold
              HGMMA and their loads (TMA; cp.async and no TMA in the paged
-             prefill, which gathers through the block table), the others
+             prefill, which gathers through the block table; the
+             warp-specialized flash forward, dq and dkv at 256 and dq at
+             192 also setmaxnreg and no local-memory store), the others
              (fp32, int8, the bf16 CE kernels' mma.sync version for C
              past 1024, the split-KV decode's split kernels over fp32,
              bf16 and int8 caches and its combine kernels, which must be
@@ -432,14 +434,14 @@ SASS_WGMMA_KERNELS = 33
 # what a wgmma kernel's SASS must hold and must not: TMA loads, except in
 # the paged prefills (bf16 and int8 caches), which gather their tiles
 # through the block table with cp.async (LDGSTS) and issue no TMA load;
-# the warp-specialized flash forward and dkv at head size 256 also hand
-# registers to their consumers (setmaxnreg) and spill none
+# the warp-specialized flash kernels (forward, dq and dkv at head size
+# 256, dq at 192) also hand registers to their consumers (setmaxnreg) and
+# spill none
+_WS = ({"HGMMA", "UTMALDG", "USETMAXREG"}, {"STL"})
 SASS_EXPECT = {"prefill_kernel_sm90_q8": ({"HGMMA", "LDGSTS"}, {"UTMALDG"}),
                "prefill_kernel_sm90": ({"HGMMA", "LDGSTS"}, {"UTMALDG"}),
-               "fwd_kernel_sm90ILi256E": ({"HGMMA", "UTMALDG", "USETMAXREG"},
-                                          {"STL"}),
-               "dkv_kernel_sm90ILi256E": ({"HGMMA", "UTMALDG", "USETMAXREG"},
-                                          {"STL"})}
+               "fwd_kernel_sm90ILi256E": _WS, "dkv_kernel_sm90ILi256E": _WS,
+               "dq_kernel_sm90ILi256E": _WS, "dq_kernel_sm90ILi192E": _WS}
 SASS_EXPECT_SM90 = ({"HGMMA", "UTMALDG"}, set())
 # every other kernel (fp32, int8, the decode's split-KV pair over every
 # cache type) holds neither wgmma nor TMA loads
@@ -447,12 +449,13 @@ SASS_EXPECT_OTHER = (set(), {"HGMMA", "UTMALDG"})
 # kernels that must be in the inventory by name: the split-KV decode's two
 # (one query row per head makes no matrix product: CUDA cores), the
 # int8-cache prefill on wgmma, and the flash kernels at head size 256
-# (MLA's q_c | q_r): wgmma in bf16 (`..._sm90ILi256E`), FMA in fp32
-# (`...IfLi256E`)
+# (MLA's q_c | q_r): wgmma in bf16 (`..._sm90ILi256E`; the dq, like the
+# dq at 192, warp-specialized in `flash_ws`), FMA in fp32 (`...IfLi256E`)
 SASS_REQUIRED = ("decode_split_kernel", "decode_combine_kernel",
-                 "prefill_kernel_sm90_q8", "dq_kernel_sm90ILi192E",
+                 "prefill_kernel_sm90_q8",
+                 "flash_ws14dq_kernel_sm90ILi192E",
                  "fwd_kernel_sm90ILi256E",
-                 "dq_kernel_sm90ILi256E", "dkv_kernel_sm90ILi256E",
+                 "flash_ws14dq_kernel_sm90ILi256E", "dkv_kernel_sm90ILi256E",
                  "fwd_kernelIfLi256E", "dq_kernelIfLi256E",
                  "dkv_kernelIfLi256E")
 
@@ -495,10 +498,11 @@ def sass_expected(fn: str) -> tuple[set, set]:
 def check_sass(counts: dict) -> None:
     """The bf16 wgmma kernels (`*_kernel_sm90*`) hold HGMMA and their
     loads (TMA, or cp.async in the paged prefills, which hold no TMA
-    load); the flash forward and dkv at head size 256 hold setmaxnreg and
-    no local-memory store; the split-KV decode's kernels, the int8-cache
-    prefill and the flash kernels at head size 256 are there; every other
-    kernel holds neither HGMMA nor a TMA load."""
+    load); the flash forward, dq and dkv at head size 256 and the dq at
+    192 hold setmaxnreg and no local-memory store; the split-KV decode's
+    kernels, the int8-cache prefill and the flash kernels at head size
+    256 are there; every other kernel holds neither HGMMA nor a TMA
+    load."""
     for name in SASS_REQUIRED:
         check(any(name in fn for fn in counts),
               f"no {name} in the inventory: {sorted(counts)}")
@@ -816,7 +820,7 @@ def run_flash_kernels(torch, dev) -> dict:
 
 #: phase 3's width comparison, bf16 at B 8, T 1024, 12 heads, causal:
 #: (head size, the built width it runs at). 192 at 192 (the 192-wide
-#: single-warpgroup dq; the forward and dkv take the 256-wide
+#: warp-specialized dq; the forward and dkv take the 256-wide
 #: warp-specialized kernels at width 192 too) against 256 (the 256-wide dq);
 #: 80 at 128 against 128 at 128, the padded columns' cost.
 FLASH_WIDTHS = ((192, 192), (192, 256), (80, 128), (128, 128))

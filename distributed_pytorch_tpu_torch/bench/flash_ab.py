@@ -10,14 +10,17 @@ A by default, so that a drift of the card over the call shows.
 
 A shape is `head size:B,T,heads,kv heads`, causal. For each turn, dtype
 (bf16, fp32), shape and kernel it prints the median of 5 CUDA-event
-windows of 10 calls, their spread, and the device time of one call
-(torch.profiler: the self time of the device events); then per tree the
-mean of its turns' device times.
+windows of 10 calls, their spread, the device time of one call
+(torch.profiler: the self time of the device events, the median of 3
+profiles of 10 calls) and a checksum of each output's bytes (sha256,
+first 16 hex digits); then per tree the mean of its turns' device times,
+and whether every turn of both trees wrote the same bytes.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -44,25 +47,41 @@ def _windows(torch, fn, iters=10, windows=5):
     return ts[len(ts) // 2], [ts[0], ts[-1]]
 
 
-def _device_ms(torch, fn, iters=10):
+def _device_ms(torch, fn, iters=10, profiles=3):
+    """The device ms of one call: the median over `profiles` profiles of
+    `iters` calls (one profile of 10 spread by several percent between
+    turns of one tree), of those that recorded an event a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    n = 0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if e.device_type != DeviceType.CPU and t > 0 and \
-                not getattr(e, "is_user_annotation", False):
-            us += t
-            n += e.count
-    return us / iters / 1e3 if n >= iters else None
+    got = []
+    for _ in range(profiles):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        n = 0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            if e.device_type != DeviceType.CPU and t > 0 and \
+                    not getattr(e, "is_user_annotation", False):
+                us += t
+                n += e.count
+        if n >= iters:
+            got.append(us / iters / 1e3)
+    got.sort()
+    return got[len(got) // 2] if got else None
+
+
+def _checksums(torch, out) -> list:
+    """sha256 (first 16 hex digits) of each output tensor's bytes."""
+    outs = out if isinstance(out, tuple) else (out,)
+    torch.cuda.synchronize()
+    return [hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                           .tobytes()).hexdigest()[:16] for t in outs]
 
 
 def worker(shapes) -> None:
@@ -99,7 +118,8 @@ def worker(shapes) -> None:
                     "dtype": str(dtype).removeprefix("torch."), "d": d,
                     "shape": [B, T, nh, nkv], "kernel": name, "ms": ms,
                     "spread": spread,
-                    "device_ms": _device_ms(torch, fns[name])}), flush=True)
+                    "device_ms": _device_ms(torch, fns[name]),
+                    "sha256": _checksums(torch, fns[name]())}), flush=True)
 
 
 def _shape(s: str):
@@ -144,8 +164,8 @@ def main(argv=None) -> None:
                 print(f"turn {turn} {label:8s} {r['dtype']:9s} d {r['d']:3d} "
                       f"{r['kernel']:18s} {r['ms']:.4f} ms "
                       f"[{r['spread'][0]:.4f}-{r['spread'][1]:.4f}], device "
-                      f"{'n/a' if dev is None else f'{dev:.4f}'} ms",
-                      flush=True)
+                      f"{'n/a' if dev is None else f'{dev:.4f}'} ms, "
+                      f"sha256 {' '.join(r['sha256'])}", flush=True)
     print("mean device ms of each tree's turns:")
     keys = sorted({(r["dtype"], r["d"], r["kernel"]) for r in rows})
     for key in keys:
@@ -156,7 +176,11 @@ def main(argv=None) -> None:
                   and r["device_ms"] is not None]
             cells.append(f"{label} {sum(ts) / len(ts):.4f}" if ts
                          else f"{label} n/a")
-        print(f"  {key[0]:9s} d {key[1]:3d} {key[2]:18s} " + ", ".join(cells))
+        sums = {tuple(r["sha256"]) for r in rows
+                if (r["dtype"], r["d"], r["kernel"]) == key}
+        same = "same bytes" if len(sums) == 1 else "bytes differ"
+        print(f"  {key[0]:9s} d {key[1]:3d} {key[2]:18s} " + ", ".join(cells)
+              + f"; {same}")
 
 
 if __name__ == "__main__":

@@ -33,7 +33,8 @@
 //   over both), and K's row-major copy for dQ += dS K then takes their
 //   space: 226,304 bytes of shared memory where loading all at once would
 //   need 362,496.
-// * dq, bf16 (`dq_kernel_sm90`): tensor cores. One CTA of one warpgroup
+// * dq, bf16 at widths 64 and 128 (`flash_sm90::dq_kernel_sm90`): tensor
+//   cores. One CTA of one warpgroup
 //   (128 threads) per (64-row query tile, head, batch), the causal
 //   heaviest tiles first (the grid's slowest axis runs down the frontier,
 //   as in the forward). TMA brings the Q and dO tiles once and streams the
@@ -51,12 +52,43 @@
 //   of dQ += dS K, which reads the same K stage MN-major (the transpose
 //   bit). Only tiles on the diagonal or at the ragged ends are masked (TMA
 //   zero-fills rows past T and S). Each query row is written once,
-//   dq * scale. At head size 256 the stages hold 32 keys (128 KB of shared
-//   memory): the 64 x 256 fp32 dQ accumulator is 128 registers a thread,
-//   and 32-key S and dP keep the rest under the 255 a thread may hold. At
-//   width 192 (head sizes 136-192) likewise, in 96 KB: two CTAs an SM, 1.8x
-//   faster at d 192 than the 256-wide kernel with a zero fourth sub-tile
-//   (phase 3 of chip_smoke.py, `run_flash_widths`).
+//   dq * scale.
+// * dq, bf16 at widths 192 and 256 (`flash_ws::dq_kernel_sm90`: head
+//   sizes 136-256, MLA's q_c | q_r): warp-specialized, the forward's
+//   skeleton at 256 with the dkv's producer handshake. The 64 x 256 fp32
+//   dQ accumulator is 128 registers a thread, so one warpgroup of a first
+//   design walked 32-key stages in strict series (S and dP, wait, dS on
+//   the CUDA cores, dQ += dS K, wait, refill) at 0.3259 ms, 6.2x its bound
+//   at the MLA shape. Now one CTA of 384 threads per (128-row query tile,
+//   head, batch), the causal heaviest first; 224 KB of shared memory at
+//   256 (Q and dO of 128 rows 128 KB, a 3-stage ring of 32-key K and V
+//   tiles 96 KB; 64-key stages would need 256 KB), 192 KB at 192 (4
+//   stages).
+//   - A producer warpgroup (24 registers after setmaxnreg): one lane loads
+//     each consumer's Q and dO rows once, then streams the kv head's K and
+//     V tiles up to the later consumer's causal frontier; full barriers
+//     count the bytes in, empty ones take one arrival per consumer warp.
+//     V goes back once both consumers' dP on it is done, K once their dQ
+//     += dS K is, a turn later.
+//   - Two consumer warpgroups (240 registers: dQ 128, S 16, dP 16, the dS
+//     fragments 8), each owning 64 query rows and its own frontier, take
+//     turns on named barriers: a turn issues S and dP of key tile j
+//     (m64n32k16 SS) and dQ += dS K of tile j - 1 (m64nDk16 RS, K
+//     MN-major), forms tile j's dS (the arithmetic above, branch-free,
+//     masked by selects) beside that product and packs it once the
+//     product is done, while the other consumer's products run. A
+//     consumer with no row below T does not run (T ending in the first
+//     64 rows), and the earlier consumer takes empty turns past its
+//     frontier.
+//   Each row sums its k-steps in the first design's order, so dq is the
+//   same bit for bit (the dropout product rounded on its own, as that
+//   design's branch rounded it). Shared memory bounds it: per 32-key
+//   stage the two consumers read about 224 KB of operands against about
+//   1,536 cycles of tensor work. Slower on the H100 (in-process A/Bs): 2
+//   stages (K of the tile after next waits for dQ's release, a turn
+//   late), 2 stages of 64 keys at 192, and descriptors the compiler
+//   hoisted out of the walk (32 registers: the consumers spilled). Free-
+//   running consumers (no turns) and 5 stages at 192 were within 2%.
 // * dkv, fp32 (`dkv_kernel`): the FMA design, unchanged (tensor cores take
 //   fp32 only as TF32, which would break the fp32 limits of the kernel
 //   checks and the training parity). One CTA per (64-key tile, kv head,
@@ -630,24 +662,16 @@ int launch_dkv(const Params& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ---- bf16 dq: wgmma on TMA-fed shared memory ------------------------------
+// ---- bf16 dq at widths 64 and 128: wgmma on TMA-fed shared memory ----------
 
 constexpr int kBQ = 64;  // query rows per dq CTA: one warpgroup
 
-// keys per dq stage: 64, and 32 at widths 192 and 256, where the 64 x D
-// fp32 dQ accumulator takes 96 or 128 registers a thread beside S and dP
-template <int D>
-__host__ __device__ constexpr int dq_bk() {
-  return D > 128 ? 32 : kBK;
-}
-
 template <int D>
 struct DqSmem {
-  static constexpr int KB = dq_bk<D>();
   alignas(1024) bf16 q[kBQ * D];
   alignas(1024) bf16 dout[kBQ * D];
-  alignas(1024) bf16 k[kStages][KB * D];
-  alignas(1024) bf16 v[kStages][KB * D];
+  alignas(1024) bf16 k[kStages][kBK * D];
+  alignas(1024) bf16 v[kStages][kBK * D];
   uint64_t qbar, full[kStages];
 };
 
@@ -659,10 +683,9 @@ struct DqMaps {
 template <int D>
 __device__ __forceinline__ void load_kv(DqSmem<D>& sm, const DqMaps& mp, int j, int s, int g,
                                         int b) {
-  constexpr int KB = dq_bk<D>();
-  sm90::mbar_expect_tx(&sm.full[s], 2 * KB * D * 2);
-  sm90::tma_rows<D, KB>(sm.k[s], &mp.k, &sm.full[s], g, j * KB, b);
-  sm90::tma_rows<D, KB>(sm.v[s], &mp.v, &sm.full[s], g, j * KB, b);
+  sm90::mbar_expect_tx(&sm.full[s], 2 * kBK * D * 2);
+  sm90::tma_rows<D, kBK>(sm.k[s], &mp.k, &sm.full[s], g, j * kBK, b);
+  sm90::tma_rows<D, kBK>(sm.v[s], &mp.v, &sm.full[s], g, j * kBK, b);
 }
 
 template <int D, bool kPartial>
@@ -670,7 +693,6 @@ __global__ void __launch_bounds__(kThreads)
     dq_kernel_sm90(const __grid_constant__ DqMaps mp, const Params p) {
   const int dh = kPartial ? p.d : D;  // the head size
   using namespace sm90;
-  constexpr int KB = dq_bk<D>();
   extern __shared__ uint8_t smem_raw[];
   DqSmem<D>& sm = smem_aligned<DqSmem<D>>(smem_raw);
   const int h = blockIdx.x, b = blockIdx.y;
@@ -679,7 +701,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   // the keys any row of this tile may see
   const int n_keys = p.causal ? min(p.S, i0 + kBQ) : p.S;
-  const int n_kt = (n_keys + KB - 1) / KB;
+  const int n_kt = (n_keys + kBK - 1) / kBK;
 
   if (tid == 0) {
     mbar_init(&sm.qbar, 1);
@@ -718,10 +740,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < n_kt; ++j) {
     const int s = j % kStages;
     const uint32_t ph = (j / kStages) & 1;
-    const int k0 = j * KB;
-    float sc[KB / 2], dp[KB / 2];
+    const int k0 = j * kBK;
+    float sc[kBK / 2], dp[kBK / 2];
 #pragma unroll
-    for (int i = 0; i < KB / 2; ++i) {
+    for (int i = 0; i < kBK / 2; ++i) {
       sc[i] = 0.f;
       dp[i] = 0.f;
     }
@@ -731,19 +753,19 @@ __global__ void __launch_bounds__(kThreads)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<KB, 0, 0>(sc, desc_kmajor<kBQ>(sm.q, kk), desc_kmajor<KB>(sm.k[s], kk), 1);
+      wgmma_ss<kBK, 0, 0>(sc, desc_kmajor<kBQ>(sm.q, kk), desc_kmajor<kBK>(sm.k[s], kk), 1);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<KB, 0, 0>(dp, desc_kmajor<kBQ>(sm.dout, kk), desc_kmajor<KB>(sm.v[s], kk), 1);
+      wgmma_ss<kBK, 0, 0>(dp, desc_kmajor<kBQ>(sm.dout, kk), desc_kmajor<kBK>(sm.v[s], kk), 1);
     wg_commit();
     wg_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
 
     // mask only tiles on the diagonal or at the ragged ends
-    const bool edge = (p.causal && k0 + KB - 1 > i0) || i0 + kBQ > p.T || k0 + KB > p.S;
+    const bool edge = (p.causal && k0 + kBK - 1 > i0) || i0 + kBQ > p.T || k0 + kBK > p.S;
 #pragma unroll
-    for (int i = 0; i < KB / 2; ++i) {
+    for (int i = 0; i < kBK / 2; ++i) {
       const int ih = (i >> 1) & 1;
       const int qp = i0 + r0 + 8 * ih, kp = k0 + 8 * (i >> 2) + c0 + (i & 1);
       bool ok = true;
@@ -755,13 +777,14 @@ __global__ void __launch_bounds__(kThreads)
       if (p.dropout) d *= flash::keep(p, s0, s1, row, qp, kp);
       sc[i] = pv * (d - dl[ih]);  // dS, rounded to bf16 below
     }
-    uint32_t da[KB / 16][4];
+    uint32_t da[kBK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < KB / 16; ++kk) acc_to_frag(sc, kk, da[kk]);
+    for (int kk = 0; kk < kBK / 16; ++kk) acc_to_frag(sc, kk, da[kk]);
     fence_regs(dq);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < KB / 16; ++kk) wgmma_rs<D, 1>(dq, da[kk], desc_mnmajor<KB>(sm.k[s], kk));
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs<D, 1>(dq, da[kk], desc_mnmajor<kBK>(sm.k[s], kk));
     wg_commit();
     wg_wait<0>();
     fence_regs(dq);
@@ -798,8 +821,8 @@ int launch_dq(const Params& p, void* stream) {
   DqMaps mp;
   if (!sm90::rows_map(&mp.q, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
       !sm90::rows_map(&mp.dout, p.dout, p.d, p.nh, p.T, p.B, p.do_st, p.do_sb, kBQ) ||
-      !sm90::rows_map(&mp.k, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, dq_bk<D>()) ||
-      !sm90::rows_map(&mp.v, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, dq_bk<D>()))
+      !sm90::rows_map(&mp.k, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
+      !sm90::rows_map(&mp.v, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(p.nh, p.B, (p.T + kBQ - 1) / kBQ);
   dq_kernel_sm90<D, kPartial><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
@@ -1070,6 +1093,328 @@ int launch_dkv(const Params& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 dq at widths 192 and 256: warp-specialized wgmma ----------------
+
+using flash_sm90::DqMaps;
+constexpr int kDqRows = 64;             // query rows a consumer warpgroup
+constexpr int kDqBQ = 2 * kDqRows;      // query rows a CTA
+
+// keys a stage (at width 256, Q and dO of 128 rows take 128 KB, and
+// 64-key stages would need 256 KB)
+constexpr int kDqBK = 32;
+
+// stages of the K / V ring: 3 at width 256 (224 KB in all), 4 at 192
+// (192 KB). A stage's K is handed back only once both consumers' dQ +=
+// dS K on it is done, a turn after its S; with 2 stages the producer could
+// only then start the load of the tile after next, and the consumers
+// waited for it (B 8, T 1024, causal, on an H100 in one process: 8 x 256
+// 0.2212 ms at 2 stages, 0.1723 at 3; 12 x 192 0.2216 at 2 stages of 64
+// keys, 0.2093 at 4 of 32)
+template <int D>
+__host__ __device__ constexpr int dq_stages() {
+  return D > 192 ? 3 : 4;
+}
+
+template <int D>
+struct DqSmem {
+  static constexpr int NS = dq_stages<D>();
+  alignas(1024) bf16 q[2][kDqRows * D];     // each consumer's 64 rows
+  alignas(1024) bf16 dout[2][kDqRows * D];
+  alignas(1024) bf16 k[NS][kDqBK * D];
+  alignas(1024) bf16 v[NS][kDqBK * D];
+  // K and V go back separately: V once both consumers' dP on it is done,
+  // K once their dQ += dS K is, a turn later
+  uint64_t qbar, kfull[NS], vfull[NS], kempty[NS], vempty[NS];
+};
+
+// A descriptor made opaque to the compiler, so that the ones derived from
+// it for each k-step are formed where they are used: hoisted out of the
+// walk, the 32 k-step descriptors of Q and dO would hold 32 registers
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// k-step kk's descriptor from k-step 0's (an R-row tile read K-major, as
+// desc_kmajor<R>): + kk % 4 * 32 bytes, + R * 128 bytes every 4 k-steps
+template <int R>
+__device__ __forceinline__ uint64_t kstep(uint64_t d0, int kk) {
+  return d0 + ((((kk >> 2) * R * 128) + (kk & 3) * 32) >> 4);
+}
+
+// What a dq consumer needs besides its accumulators: its first query row
+// q0, this thread's rows r0, r0 + 8 and columns 8 j + c0 + {0, 1} of the
+// accumulator layout, the lse and delta of its two rows, the key each row
+// stops before (0 for a row past T), and the dropout seed and row
+struct DqRows {
+  int q0, r0, c0;
+  float lse[2], dl[2];
+  int kend[2];
+  uint32_t s0, s1, row;
+};
+
+// S = Q K^T and dP = dO V^T over key tile stage s, this consumer's 64 rows
+// (m64n32k16, both operands K-major), summed from zero as the
+// single-warpgroup design summed them
+template <int D>
+__device__ __forceinline__ void issue_sdp(DqSmem<D>& sm, float (&sc)[kDqBK / 2],
+                                          float (&dp)[kDqBK / 2], int w, int s) {
+  using namespace sm90;
+  const uint64_t dq0 = opaque(desc_kmajor<kDqRows>(sm.q[w], 0));
+  const uint64_t ddo0 = opaque(desc_kmajor<kDqRows>(sm.dout[w], 0));
+  const uint64_t dk0 = desc_kmajor<kDqBK>(sm.k[s], 0), dv0 = desc_kmajor<kDqBK>(sm.v[s], 0);
+#pragma unroll
+  for (int i = 0; i < kDqBK / 2; ++i) {
+    sc[i] = 0.f;
+    dp[i] = 0.f;
+  }
+  fence_regs(sc);
+  fence_regs(dp);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kDqBK, 0, 0>(sc, kstep<kDqRows>(dq0, kk), kstep<kDqBK>(dk0, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kDqBK, 0, 0>(dp, kstep<kDqRows>(ddo0, kk), kstep<kDqBK>(dv0, kk), 1);
+  wg_commit();
+}
+
+// dQ += dS K over the key tile in stage s, K read MN-major
+template <int D>
+__device__ __forceinline__ void issue_dq(DqSmem<D>& sm, float (&dq)[D / 2],
+                                         const uint32_t (&da)[kDqBK / 16][4], int s) {
+  using namespace sm90;
+  fence_regs(dq);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kDqBK / 16; ++kk)
+    wgmma_rs<D, 1>(dq, da[kk], desc_mnmajor<kDqBK>(sm.k[s], kk));
+  wg_commit();
+}
+
+// Key tile j's S and dP -> dS = p (dP * mask - delta) in sc (fp32), p =
+// exp(s * scale - lse) of the fp32 score, as the FMA dq kernel and the
+// plain version form it. It runs while this consumer's dQ += dS K of the
+// tile before is in flight, so it has no branch: every tile is masked by
+// selects against each row's kend (a no-op off the diagonal and the
+// ragged ends), the dropout mask picked at compile time.
+template <bool DROP>
+__device__ __forceinline__ void form_ds(const Params& p, const DqRows& rw, float (&sc)[kDqBK / 2],
+                                        const float (&dp)[kDqBK / 2], int j) {
+  const int k0 = j * kDqBK;
+#pragma unroll
+  for (int i = 0; i < kDqBK / 2; ++i) {
+    const int ih = (i >> 1) & 1;
+    const int kp = k0 + 8 * (i >> 2) + rw.c0 + (i & 1);
+    const float pv = kp < rw.kend[ih] ? expf(sc[i] * p.scale - rw.lse[ih]) : 0.f;
+    float d = dp[i];
+    // rounded before the subtraction (no FMA), as the single-warpgroup
+    // design, whose mask was a run-time branch, rounded it
+    if constexpr (DROP)
+      d = __fmul_rn(d, flash::keep(p, rw.s0, rw.s1, rw.row, rw.q0 + rw.r0 + 8 * ih, kp));
+    sc[i] = pv * (d - rw.dl[ih]);  // dS, rounded to bf16 when packed
+  }
+}
+
+// A consumer's walk over its nw key tiles. Ping-pong, as in the forward:
+// each consumer issues its products in turns (named barrier 1 + w is "w's
+// turn", `two` where both consumers run), so that one's products run
+// while the other forms dS. Both take the CTA's n_kt + 1 turns: consumer
+// 1 sees all n_kt tiles, consumer 0 n_kt or, causal, up to 64 / 32 = 2
+// fewer, and takes that many turns with no work (`extra`) at the end;
+// consumer 1's last turn hands on nothing, so every arrival meets its
+// wait. The producer waits only for the release of tiles up to n_kt - 1
+// - NS, which consumer 0 sees (2 <= NS). A turn issues S and dP of tile
+// j, then dQ += dS K of tile j - 1, and forms tile j's dS as soon as S
+// and dP are done, beside that product; dS is packed into the A
+// fragments once the product is done.
+template <bool DROP, int D>
+__device__ __forceinline__ void dq_walk(DqSmem<D>& sm, const Params& p, const DqRows& rw, int w,
+                                        int nw, int extra, int two, float (&dq)[D / 2]) {
+  using namespace sm90;
+  constexpr int NS = dq_stages<D>();
+  static_assert(kDqRows / kDqBK <= NS, "consumer 0 must release every tile the producer awaits");
+  const int lane = threadIdx.x & 31;
+  const int mine = 1 + w, other = 2 - w;
+  float sc[kDqBK / 2], dp[kDqBK / 2];
+  uint32_t da[kDqBK / 16][4];
+  bar_arrive_if(1, kConsumers, two && w == 1);  // the first turn is consumer 0's
+  // turn 0: S and dP of tile 0
+  bar_sync_if(mine, kConsumers, two);
+  mbar_wait(&sm.kfull[0], 0);
+  mbar_wait(&sm.vfull[0], 0);
+  issue_sdp<D>(sm, sc, dp, w, 0);
+  bar_arrive_if(other, kConsumers, two);
+  wg_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+  mbar_arrive_if(&sm.vempty[0], lane == 0);
+  form_ds<DROP>(p, rw, sc, dp, 0);
+#pragma unroll
+  for (int kk = 0; kk < kDqBK / 16; ++kk) acc_to_frag(sc, kk, da[kk]);
+  // turns 1 .. nw - 1: S and dP of tile j, dQ += dS K of tile j - 1
+  for (int j = 1; j < nw; ++j) {
+    const int s = j % NS, sp = (j - 1) % NS;
+    bar_sync_if(mine, kConsumers, two);
+    mbar_wait(&sm.kfull[s], (j / NS) & 1);
+    mbar_wait(&sm.vfull[s], (j / NS) & 1);
+    issue_sdp<D>(sm, sc, dp, w, s);
+    issue_dq<D>(sm, dq, da, sp);
+    bar_arrive_if(other, kConsumers, two);
+    wg_wait<1>();  // S and dP of tile j
+    fence_regs(sc);
+    fence_regs(dp);
+    mbar_arrive_if(&sm.vempty[s], lane == 0);
+    form_ds<DROP>(p, rw, sc, dp, j);
+    wg_wait<0>();  // dQ += dS K of tile j - 1
+    fence_regs(dq);
+    mbar_arrive_if(&sm.kempty[sp], lane == 0);
+#pragma unroll
+    for (int kk = 0; kk < kDqBK / 16; ++kk) acc_to_frag(sc, kk, da[kk]);
+  }
+  // turn nw: dQ += dS K of the last tile
+  const int sp = (nw - 1) % NS;
+  bar_sync_if(mine, kConsumers, two);
+  issue_dq<D>(sm, dq, da, sp);
+  bar_arrive_if(other, kConsumers, two && w == 0);
+  wg_wait<0>();
+  fence_regs(dq);
+  mbar_arrive_if(&sm.kempty[sp], lane == 0);
+  for (int e = 0; e < extra; ++e) {
+    bar_sync_if(mine, kConsumers, two);
+    bar_arrive_if(other, kConsumers, two);
+  }
+}
+
+template <int D, bool kPartial>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_kernel_sm90(const __grid_constant__ DqMaps mp, const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
+  using namespace sm90;
+  constexpr int NS = dq_stages<D>();
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem<D>& sm = smem_aligned<DqSmem<D>>(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kDqBQ;  // heaviest tiles first
+  const int g = h / (p.nh / p.nkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // consumers with a live row: the second has none where T ends in the
+  // first's 64 rows
+  const int n_live = i0 + kDqRows < p.T ? 2 : 1;
+  // key tiles the rows before q_end may see (at least one: S > 0)
+  auto tiles_to = [&](int q_end) {
+    return (min(p.S, p.causal ? q_end : p.S) + kDqBK - 1) / kDqBK;
+  };
+
+  if (tid == 0) {
+    mbar_init(&sm.qbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&sm.kfull[s], 1);
+      mbar_init(&sm.vfull[s], 1);
+      mbar_init(&sm.kempty[s], 4 * n_live);  // one arrival per consumer warp
+      mbar_init(&sm.vempty[s], 4 * n_live);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {  // the producer warpgroup: one lane issues
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      const int n_kt = tiles_to(i0 + kDqRows * n_live);  // the last live consumer's
+      mbar_expect_tx(&sm.qbar, 2 * n_live * kDqRows * D * 2);
+      for (int w = 0; w < n_live; ++w) {
+        tma_rows<D, kDqRows>(sm.q[w], &mp.q, &sm.qbar, h, i0 + kDqRows * w, b);
+        tma_rows<D, kDqRows>(sm.dout[w], &mp.dout, &sm.qbar, h, i0 + kDqRows * w, b);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % NS;
+        const uint32_t ph = ((j / NS) & 1) ^ 1;
+        // the stage's previous V, then K, is handed back (none on the first lap)
+        if (j >= NS) mbar_wait(&sm.vempty[s], ph);
+        mbar_expect_tx(&sm.vfull[s], kDqBK * D * 2);
+        tma_rows<D, kDqBK>(sm.v[s], &mp.v, &sm.vfull[s], g, j * kDqBK, b);
+        if (j >= NS) mbar_wait(&sm.kempty[s], ph);
+        mbar_expect_tx(&sm.kfull[s], kDqBK * D * 2);
+        tma_rows<D, kDqBK>(sm.k[s], &mp.k, &sm.kfull[s], g, j * kDqBK, b);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int w = warp >> 2;  // consumer warpgroup: query rows i0 + 64 w ..
+  if (w >= n_live) return;
+  DqRows rw;
+  rw.q0 = i0 + kDqRows * w;
+  rw.r0 = (warp & 3) * 16 + (lane >> 2);
+  rw.c0 = 2 * (lane & 3);
+  rw.s0 = rw.s1 = 0u;
+  if (p.dropout) {
+    rw.s0 = (uint32_t)p.seed[0];
+    rw.s1 = (uint32_t)p.seed[1];
+  }
+  rw.row = (uint32_t)(b * p.nh + h);
+  const long long stat = (long long)(b * p.nh + h) * p.T;
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int qp = rw.q0 + rw.r0 + 8 * ih;
+    rw.lse[ih] = qp < p.T ? p.lse_in[stat + qp] : 0.f;
+    rw.dl[ih] = qp < p.T ? p.delta[stat + qp] : 0.f;
+    rw.kend[ih] = qp < p.T ? min(p.S, p.causal ? qp + 1 : p.S) : 0;
+  }
+  const int nw = tiles_to(rw.q0 + kDqRows);  // its key tiles
+  const int extra = tiles_to(i0 + kDqRows * n_live) - nw;
+  const int two = n_live == 2;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(&sm.qbar, 0);
+  // dropout picked once, outside the walk
+  if (p.dropout)
+    dq_walk<true, D>(sm, p, rw, w, nw, extra, two, dq);
+  else
+    dq_walk<false, D>(sm, p, rw, w, nw, extra, two, dq);
+
+  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * dh + (long long)h * dh;
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int qp = rw.q0 + rw.r0 + 8 * ih;
+    if (qp >= p.T) continue;
+    bf16* orow = out + (long long)qp * p.nh * dh + rw.c0;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      if (!kPartial || 8 * jj < dh)  // columns 8 jj + c0 + {0, 1}: below d exactly when 8 jj is
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) = __floats2bfloat162_rn(
+            dq[4 * jj + 2 * ih] * p.scale, dq[4 * jj + 2 * ih + 1] * p.scale);
+  }
+}
+
+template <int D, bool kPartial>
+int launch_dq(const Params& p, void* stream) {
+  static size_t cap[64] = {};
+  const size_t smem = sizeof(DqSmem<D>) + 1024;  // + room to align the base to 1024
+  const int err = flash::set_smem(dq_kernel_sm90<D, kPartial>, smem, cap);
+  if (err) return err;
+  if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
+  if (p.S == 0) {  // no key to attend to: zero gradients, as the FMA kernel writes
+    cudaMemsetAsync(p.out0, 0, (size_t)p.B * p.T * p.nh * p.d * sizeof(bf16),
+                    (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+  }
+  DqMaps mp;
+  if (!sm90::rows_map(&mp.q, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kDqRows) ||
+      !sm90::rows_map(&mp.dout, p.dout, p.d, p.nh, p.T, p.B, p.do_st, p.do_sb, kDqRows) ||
+      !sm90::rows_map(&mp.k, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kDqBK) ||
+      !sm90::rows_map(&mp.v, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, kDqBK))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.nh, p.B, (p.T + kDqBQ - 1) / kDqBQ);
+  // qualified: DqMaps would also bring flash_sm90's kernel in by argument lookup
+  flash_ws::dq_kernel_sm90<D, kPartial><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace flash_ws
 
 }  // namespace
@@ -1099,10 +1444,10 @@ extern "C" int flash_attn_bwd_dq(int dtype, int D, int d, const void* q, const v
                                          : flash_sm90::launch_dq<64, true>(p, stream);
   if (dtype == 1 && D == 128) return full ? flash_sm90::launch_dq<128, false>(p, stream)
                                           : flash_sm90::launch_dq<128, true>(p, stream);
-  if (dtype == 1 && D == 192) return full ? flash_sm90::launch_dq<192, false>(p, stream)
-                                          : flash_sm90::launch_dq<192, true>(p, stream);
-  if (dtype == 1 && D == 256) return full ? flash_sm90::launch_dq<256, false>(p, stream)
-                                          : flash_sm90::launch_dq<256, true>(p, stream);
+  if (dtype == 1 && D == 192) return full ? flash_ws::launch_dq<192, false>(p, stream)
+                                          : flash_ws::launch_dq<192, true>(p, stream);
+  if (dtype == 1 && D == 256) return full ? flash_ws::launch_dq<256, false>(p, stream)
+                                          : flash_ws::launch_dq<256, true>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 

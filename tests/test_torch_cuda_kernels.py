@@ -26,7 +26,9 @@ The flash-attention kernels (forward, dq, dkv) over causal and full
 attention, MHA and GQA (rep 4 at head size 128), dropout 0 and 0.2, T and
 S off the bf16 kernels' tiles (T 1, 70, 130, 200) and S > T, at their
 built widths 64, 128 and 256 and at head sizes under them (8, 32, 40, 48,
-80, 96, 136, 192, 248), with no output column stored past the head size
+80, 96, 136, 192, 200, 248), the warp-specialized dq's last 128-row tile
+with no, some or all rows for its second consumer (T 900, 1000, 1088),
+with no output column stored past the head size
 (outputs allocated in front of NaN sentinels), and bf16 at the training
 shapes (B 8, T 1024, 12 x 64 and 8 x 256), each
 output element by element within atol + rtol x |plain|:
@@ -721,7 +723,17 @@ FLASH_CASES = [  # B, T, S, nh, nkv, D, causal
     (1, 130, 130, 8, 8, 48, True), (2, 130, 130, 12, 12, 80, True),
     (1, 130, 200, 4, 2, 80, False), (2, 130, 130, 8, 2, 96, True),
     (1, 130, 130, 4, 4, 136, True), (2, 130, 130, 4, 2, 192, True),
-    (1, 130, 70, 4, 4, 192, False), (1, 130, 130, 4, 1, 248, True)]
+    (1, 130, 70, 4, 4, 192, False), (1, 130, 130, 4, 1, 248, True),
+    # the warp-specialized bf16 dq at widths 192 and 256 (128-row CTAs, a
+    # consumer of 64 rows each): T = S 900 leaves the last CTA 4 rows, all
+    # the first consumer's; 1000 gives the second consumer 40 of its 64;
+    # 1088 is 128-aligned plus 64, the first consumer's rows only; GQA 8 /
+    # 2, causal and full, at 256 and 192 and masked at 256 (200, 248)
+    (1, 900, 900, 8, 2, 256, True), (1, 1000, 1000, 8, 2, 256, False),
+    (1, 1088, 1088, 8, 2, 256, True), (1, 900, 900, 8, 2, 192, False),
+    (1, 1000, 1000, 8, 2, 192, True), (1, 1088, 1088, 8, 2, 192, False),
+    (1, 1000, 1000, 8, 2, 200, True), (1, 1088, 1088, 8, 2, 200, False),
+    (1, 900, 900, 8, 2, 248, True), (1, 1000, 1000, 8, 2, 248, False)]
 
 
 #: (atol, rtol) of the flash kernels, element by element:
@@ -809,7 +821,7 @@ class _Torch:
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("D", [8, 40, 80, 136, 248])
+@pytest.mark.parametrize("D", [8, 40, 80, 136, 200, 248])
 def test_flash_writes_no_column_past_the_head_size(dev, monkeypatch, dtype,
                                                    D):
     """The kernels run D at a wider built width, whose columns past D
@@ -860,7 +872,8 @@ def test_flash_reads_strided_views(dev, dtype, D, nh):
 
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
-@pytest.mark.parametrize("D,nh,nkv", [(64, 4, 2), (128, 8, 2), (256, 8, 2)])
+@pytest.mark.parametrize("D,nh,nkv", [(64, 4, 2), (128, 8, 2), (256, 8, 2),
+                                      (200, 8, 2)])
 def test_flash_bwd_bf16_is_deterministic(dev, D, nh, nkv, kernel):
     """Two launches of a bf16 backward kernel on the same inputs are
     bit-equal: dq writes each query row once, dkv sums the GQA group in

@@ -213,16 +213,16 @@ SASS_SM90 = [
     for m in (0, 1, 2)] + [
     f"_ZN12_GLOBAL__N_112prefill_sm9022prefill_kernel_sm90_q8ILi{d}EEEvPK13"
     "__nv_bfloat16PKaPKfS6_S8_PKiPS2_iiiiiif" for d in (64, 128)] + [
-    # the forward and dkv warp-specialized (their own namespace), dq not
+    # the forward, dq and dkv at D 256, warp-specialized (their own namespace)
     "_ZN12_GLOBAL__N_18flash_ws15fwd_kernel_sm90ILi256ELb0EEEv14CUtensorMap_st"
     "S2_S2_N5flash6ParamsE",
-    "_ZN12_GLOBAL__N_110flash_sm9014dq_kernel_sm90ILi256ELb0EEEvNS0_6DqMapsEN5"
-    "flash6ParamsE",
+    "_ZN12_GLOBAL__N_18flash_ws14dq_kernel_sm90ILi256ELb0EEEvNS_10flash_sm906"
+    "DqMapsEN5flash6ParamsE",
     "_ZN12_GLOBAL__N_18flash_ws15dkv_kernel_sm90ILi256ELb0EEEvNS_10flash_sm904"
     "MapsEN5flash6ParamsE",
-    # the dq at D 192
-    "_ZN12_GLOBAL__N_110flash_sm9014dq_kernel_sm90ILi192ELb0EEEvNS0_6DqMapsEN5"
-    "flash6ParamsE"] + [
+    # the dq at D 192, warp-specialized too
+    "_ZN12_GLOBAL__N_18flash_ws14dq_kernel_sm90ILi192ELb0EEEvNS_10flash_sm906"
+    "DqMapsEN5flash6ParamsE"] + [
     # each flash kernel's instance for head sizes under its width (masked)
     f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi{d}ELb1EEEvNS0_4MapsEN5flash"
     "6ParamsE"
@@ -232,8 +232,8 @@ SASS_SM90 = [
     "S2_S2_N5flash6ParamsE",
     "_ZN12_GLOBAL__N_18flash_ws15dkv_kernel_sm90ILi256ELb1EEEvNS_10flash_sm904"
     "MapsEN5flash6ParamsE"] + [
-    f"_ZN12_GLOBAL__N_110flash_sm9014dq_kernel_sm90ILi{d}ELb1EEEvNS0_6DqMaps"
-    "EN5flash6ParamsE" for d in (192, 256)]
+    f"_ZN12_GLOBAL__N_18flash_ws14dq_kernel_sm90ILi{d}ELb1EEEvNS_10flash_sm906"
+    "DqMapsEN5flash6ParamsE" for d in (192, 256)]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
@@ -316,7 +316,12 @@ BROKEN = {"complete": None,
           "masked_fwd_without_tma": ((SASS_SM90[23], "UTMALDG", 0),
                                      "fwd_kernel_sm90"),
           "masked_ws_dkv_without_setmaxnreg": ((SASS_SM90[30], "USETMAXREG",
-                                                0), "dkv_kernel_sm90")}
+                                                0), "dkv_kernel_sm90"),
+          "dq_256_without_setmaxnreg": ((SASS_SM90[20], "USETMAXREG", 0),
+                                        "dq_kernel_sm90"),
+          "dq_256_spills": ((SASS_SM90[20], "STL", 6), "dq_kernel_sm90"),
+          "masked_dq_192_without_setmaxnreg": ((SASS_SM90[31], "USETMAXREG",
+                                                0), "dq_kernel_sm90")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
@@ -335,19 +340,20 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     HGMMA, with a TMA load, without cp.async, or missing; the flash
     kernels at D 256: the bf16 forward without HGMMA, the bf16 dkv without
     a TMA load, the bf16 dq or the fp32 dkv missing, the fp32 forward with
-    HGMMA, the bf16 forward or dkv (warp-specialized) without setmaxnreg or
-    with a register spill (local-memory stores); the bf16 dq at D 192
-    missing or without HGMMA; the masked forward (head sizes under 64)
-    without a TMA load; the masked warp-specialized dkv without
-    setmaxnreg."""
+    HGMMA, the bf16 forward, dq or dkv (warp-specialized) without
+    setmaxnreg or with a register spill (local-memory stores); the bf16 dq
+    at D 192 missing, without HGMMA or (masked) without setmaxnreg; the
+    masked forward (head sizes under 64) without a TMA load; the masked
+    warp-specialized dkv without setmaxnreg."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
     for fn in SASS_SM90[12:14] + SASS_SM90[17:19]:  # the paged prefills
         inv[fn] = {"HGMMA": 8, "UTMALDG": 0, "LDGSTS": 16}
     inv.update({fn: {"HGMMA": 0, "UTMALDG": 0, "LDGSTS": 4}
                 for fn in SASS_OTHER})
-    # warp-specialized at D 256, for d == 256 and d < 256
-    for fn in (SASS_SM90[19], SASS_SM90[21], SASS_SM90[29], SASS_SM90[30]):
+    # warp-specialized: the forward and dkv at D 256 and the dq at D 192
+    # and 256, each for d == D and d < D
+    for fn in [f for f in SASS_SM90 if "flash_ws" in f]:
         inv[fn].update(USETMAXREG=2, STL=0)
     assert len(SASS_SM90) == cs.SASS_WGMMA_KERNELS
     if BROKEN[broken] is None:
