@@ -14,16 +14,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took; counts each
              flash, grouped and paged kernel's HGMMA, UTMALDG and LDGSTS
-             instructions (`cuobjdump -sass`): the 33 bf16 wgmma kernels
-             (flash forward, dq and dkv at widths 64, 128 and 256 and dq
-             at 192, each for head sizes equal to and under the width,
+             instructions (`cuobjdump -sass`): the 37 bf16 wgmma kernels
+             (flash forward, dq and dkv at widths 64, 128 and 256, dq
+             at 192 and forward and dkv at 80, each for head sizes equal
+             to and under the width,
              the paged prefill at 64 and 128 over bf16 and int8 caches,
              the grouped forward, dx and dW unscaled and scaled, the
              fused CE forward, dx and dW) must hold
              HGMMA and their loads (TMA; cp.async and no TMA in the paged
              prefill, which gathers through the block table; the
              warp-specialized flash forward, dq and dkv at 256 and dq at
-             192 also setmaxnreg and no local-memory store), the others
+             192 also setmaxnreg and no local-memory store, the forward and
+             dkv at 80 no local-memory store), the others
              (fp32, int8, the bf16 CE kernels' mma.sync version for C
              past 1024, the split-KV decode's split kernels over fp32,
              bf16 and int8 caches and its combine kernels, which must be
@@ -37,10 +39,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
              path's (flash forward, dq, dkv at B 8, T 1024, causal: 12
              heads x 64, the flagship; 8 heads x 256, the launcher's MLA;
              8 / 4 kv heads x 32, the default config; 12 heads x 80, the
-             flagship with MLA; and, held but not timed, 8 x 48 and 12 x
-             192, under their built widths as 32 and 80 are), in fp32 and
-             bf16, then bf16 device times of head size 192 at widths 192
-             and 256 and of 80 at 128 beside 128 at 128, with times (CUDA
+             flagship with MLA, at its own width 80; and, held but not
+             timed, 8 x 48 and 12 x 192, under their built widths as 32
+             is), in fp32 and bf16, then bf16 device times of head size
+             192 at widths 192 and 256 and of 80 at 80 and at 128 beside
+             128 at 128, with times (CUDA
              events; a
              kernel's and its yardstick's are the median of 5 timed
              windows, printed with their spread, beside their device
@@ -161,8 +164,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
              latents (12 heads of 64 + rope 16 = 80): each a falling loss,
              the flash kernels launched exactly layers x micro-steps each
              at head size 32 or 80 (run at the kernels' built widths 64
-             and 128), no plain call, and an fp32 parity step at B 2
-             against `attn_impl='naive'`; then (a)'s checkpoint through
+             and 80; the dq at 128), no plain call, and an fp32 parity step
+             at B 2 against `attn_impl='naive'`; (b) also a profile of two
+             steps, its flash time split per kernel; then (a)'s checkpoint
+             through
              `sample.main` (its prompt pass through flash_attn_fwd at head
              size 32) and `serve --ckpt`'s engine with phase 5's traffic
              in bf16 and fp32 (paged decode and prefill at head size 32),
@@ -424,35 +429,40 @@ SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "USETMAXREG", "STL")
 SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
              "grouped_mm_bwd_dw", "paged_prefill_attn", "paged_decode_attn",
              "fused_ce_fwd", "fused_ce_bwd_dx")
-# the bf16 kernels on wgmma: fwd, dq and dkv at D 64, 128 and 256, and dq
-# at D 192 (width 192's forward and dkv run the 256-wide ones), each built
-# twice, for d == D and for d < D (masked stores, `kPartial`), the
+# the bf16 kernels on wgmma: fwd, dq and dkv at D 64, 128 and 256, dq at D
+# 192 (width 192's forward and dkv run the 256-wide ones) and fwd and dkv
+# at D 80 (its dq runs the 128-wide one), each built twice, for d == D and
+# for d < D (masked stores, `kPartial`), the
 # grouped forward, dx and dW unscaled (fc) and gate-scaled (proj), the
 # paged prefill at hs 64 and 128 over a bf16 and over an int8 cache, the
 # fused CE forward, dx and dW
-SASS_WGMMA_KERNELS = 33
+SASS_WGMMA_KERNELS = 37
 # what a wgmma kernel's SASS must hold and must not: TMA loads, except in
 # the paged prefills (bf16 and int8 caches), which gather their tiles
 # through the block table with cp.async (LDGSTS) and issue no TMA load;
 # the warp-specialized flash kernels (forward, dq and dkv at head size
 # 256, dq at 192) also hand registers to their consumers (setmaxnreg) and
-# spill none
+# spill none; the forward and dkv at width 80 spill none
 _WS = ({"HGMMA", "UTMALDG", "USETMAXREG"}, {"STL"})
+_W80 = ({"HGMMA", "UTMALDG"}, {"STL"})
 SASS_EXPECT = {"prefill_kernel_sm90_q8": ({"HGMMA", "LDGSTS"}, {"UTMALDG"}),
                "prefill_kernel_sm90": ({"HGMMA", "LDGSTS"}, {"UTMALDG"}),
                "fwd_kernel_sm90ILi256E": _WS, "dkv_kernel_sm90ILi256E": _WS,
-               "dq_kernel_sm90ILi256E": _WS, "dq_kernel_sm90ILi192E": _WS}
+               "dq_kernel_sm90ILi256E": _WS, "dq_kernel_sm90ILi192E": _WS,
+               "fwd_kernel_sm90ILi80E": _W80, "dkv_kernel_sm90ILi80E": _W80}
 SASS_EXPECT_SM90 = ({"HGMMA", "UTMALDG"}, set())
 # every other kernel (fp32, int8, the decode's split-KV pair over every
 # cache type) holds neither wgmma nor TMA loads
 SASS_EXPECT_OTHER = (set(), {"HGMMA", "UTMALDG"})
 # kernels that must be in the inventory by name: the split-KV decode's two
 # (one query row per head makes no matrix product: CUDA cores), the
-# int8-cache prefill on wgmma, and the flash kernels at head size 256
+# int8-cache prefill on wgmma, the flash kernels at head size 256
 # (MLA's q_c | q_r): wgmma in bf16 (`..._sm90ILi256E`; the dq, like the
-# dq at 192, warp-specialized in `flash_ws`), FMA in fp32 (`...IfLi256E`)
+# dq at 192, warp-specialized in `flash_ws`), FMA in fp32 (`...IfLi256E`),
+# and the bf16 forward and dkv at width 80 (the flagship with MLA)
 SASS_REQUIRED = ("decode_split_kernel", "decode_combine_kernel",
                  "prefill_kernel_sm90_q8",
+                 "fwd_kernel_sm90ILi80E", "dkv_kernel_sm90ILi80E",
                  "flash_ws14dq_kernel_sm90ILi192E",
                  "fwd_kernel_sm90ILi256E",
                  "flash_ws14dq_kernel_sm90ILi256E", "dkv_kernel_sm90ILi256E",
@@ -499,10 +509,11 @@ def check_sass(counts: dict) -> None:
     """The bf16 wgmma kernels (`*_kernel_sm90*`) hold HGMMA and their
     loads (TMA, or cp.async in the paged prefills, which hold no TMA
     load); the flash forward, dq and dkv at head size 256 and the dq at
-    192 hold setmaxnreg and no local-memory store; the split-KV decode's
-    kernels, the int8-cache prefill and the flash kernels at head size
-    256 are there; every other kernel holds neither HGMMA nor a TMA
-    load."""
+    192 hold setmaxnreg and no local-memory store, the forward and dkv at
+    width 80 no local-memory store; the split-KV decode's kernels, the
+    int8-cache prefill, the flash kernels at head size 256 and the
+    forward and dkv at width 80 are there; every other kernel holds
+    neither HGMMA nor a TMA load."""
     for name in SASS_REQUIRED:
         check(any(name in fn for fn in counts),
               f"no {name} in the inventory: {sorted(counts)}")
@@ -822,8 +833,9 @@ def run_flash_kernels(torch, dev) -> dict:
 #: (head size, the built width it runs at). 192 at 192 (the 192-wide
 #: warp-specialized dq; the forward and dkv take the 256-wide
 #: warp-specialized kernels at width 192 too) against 256 (the 256-wide dq);
-#: 80 at 128 against 128 at 128, the padded columns' cost.
-FLASH_WIDTHS = ((192, 192), (192, 256), (80, 128), (128, 128))
+#: 80 at its own width 80 (the forward and dkv; the dq runs 128 either way)
+#: against 80 at 128, masked, and 128 at 128: the padded columns' cost.
+FLASH_WIDTHS = ((192, 192), (192, 256), (80, 80), (80, 128), (128, 128))
 
 
 def run_flash_widths(torch, dev) -> dict:
@@ -3193,8 +3205,9 @@ def run_train_small(torch, dev, card: str, argv: list, what: str,
     """The trainer's own train() on `argv` in `tmp`, at full width: the
     loss finite and falling by TRAIN_DROP, the flash kernels launched
     exactly (forward, dq and dkv once a layer a micro-step) at head size
-    SMALL_D[what], no plain call. Returns the launches and the run's
-    numbers."""
+    SMALL_D[what], no plain call; the flagship with MLA also profiled
+    (`profile_train`: two steady steps, flash ms a step per kernel).
+    Returns the launches and the run's numbers."""
     from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
     from distributed_pytorch_tpu_torch.ops import flash_attention as fa
     from distributed_pytorch_tpu_torch.train.loop import train
@@ -3225,6 +3238,9 @@ def run_train_small(torch, dev, card: str, argv: list, what: str,
                step_ms=stats["median_step_time"] * 1e3,
                tok_s=stats["median_tokens_per_sec"],
                mfu=stats["median_mfu"], peak_gb=stats["peak_mem_gb"])
+    if what == "flagship_mla":     # the flash kernels at width 80
+        out["split"] = profile_train(torch, stats["state"], train_cfg,
+                                     model_cfg)
     print(f"  {what}: {model_cfg.n_layer} x {model_cfg.n_embd}, "
           f"{model_cfg.attn} {model_cfg.n_head} / {model_cfg.n_kv_heads} "
           f"heads, flash head size {d} (run at width {out['width']}); "

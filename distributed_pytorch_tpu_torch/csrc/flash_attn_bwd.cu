@@ -3,11 +3,12 @@
 // size d with d % 8 == 0 up to 256, run at a built width as the forward
 // runs it: Q, K, V and dO zero past d, so S, dP, dS K, dS^T Q and P^T dO
 // take nothing from the padded columns, and dq, dk, dv are stored up to d
-// only). Both recompute p = exp(s - lse) from the forward's logsumexp
-// instead of storing probabilities; delta = rowsum(dout * out) - dlse comes
-// in precomputed (fp32, (B, nh, T)), which is how a gradient flowing into
-// lse folds in. Built and bound by ops/cuda_build.py; wrapped by
-// ops/flash_attention.py.
+// only). Width 80 has a bf16 dkv of its own; the dq, and fp32, run it on
+// their 128-wide instances, masked. Both recompute p = exp(s - lse) from
+// the forward's logsumexp instead of storing probabilities; delta =
+// rowsum(dout * out) - dlse comes in precomputed (fp32, (B, nh, T)), which
+// is how a gradient flowing into lse folds in. Built and bound by
+// ops/cuda_build.py; wrapped by ops/flash_attention.py.
 //
 // Replaces: `_bwd_dq_kernel` (pallas_call :482) and `_bwd_dkv_kernel`
 // (:516) -> `_bwd_impl` (rows face) and `_slab_bwd_dq_kernel` (:727) /
@@ -117,6 +118,15 @@
 //   fp32 accumulators and each key row is written once, dk * scale. Only
 //   tiles on the diagonal or at the ragged ends are masked. Key tiles
 //   launch in order, the causal heaviest first.
+// * dkv, bf16 at width 80 (`flash_sm90::dkv_kernel_sm90<80>`: head sizes
+//   72 and 80): the same kernel on tiles of exactly 80 columns (the
+//   forward's layout, `sm90::Map80`), walking 64-row query tiles as at
+//   64: S^T and dP^T in 5 k-steps each, dV += P^T dO and dK += dS^T Q as
+//   m64n64k16 + m64n16k16. dK and dV take 40 registers each, S^T and dP^T
+//   32 each; 210 registers a thread, no spill, 64 KB of shared memory.
+//   The 128-wide instance it replaces for these head sizes walked 32-row
+//   tiles (twice the turns) with 8 k-steps and N 128, 48 columns zero. The
+//   layout of five 16-column sub-tiles ran slower here too (PERF.md).
 // * dkv, bf16 at head size 256 (`flash_ws::dkv_kernel_sm90`):
 //   warp-specialized, one CTA of 384 threads per (64-key tile, kv head,
 //   batch), 210 KB of shared memory (K and V 64 KB, a 2-stage ring of
@@ -449,9 +459,11 @@ constexpr int kStages = 2;
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// query rows per tile: 64, and 32 at width 128, where 64-row tiles would
+// leave dK and dV (64 x 128 fp32 each) and S^T, dP^T no room to fit
 template <int D>
 __host__ __device__ constexpr int bq() {
-  return D == 64 ? 64 : 32;  // query rows per tile
+  return D == 128 ? 32 : 64;
 }
 
 template <int D>
@@ -473,9 +485,16 @@ constexpr size_t smem_bytes() {
   return sizeof(Smem<D>) + 1024;
 }
 
-struct Maps {
-  CUtensorMap q, k, v, dout, lse, delta;
+// the maps of the dkv: Q, K, V and dO at built width D (MapsOf<CUtensorMap>
+// at the widths that are multiples of 64), lse and delta
+template <typename M>
+struct MapsOf {
+  M q, k, v, dout;
+  CUtensorMap lse, delta;
 };
+using Maps = MapsOf<CUtensorMap>;
+template <int D>
+using DkvMaps = MapsOf<sm90::RowMap<D>>;
 
 // where the lse and delta rows of (h, i0, b) start in their stage
 __device__ __forceinline__ int stat_skew(const Params& p, int h, int i0, int b) {
@@ -484,7 +503,7 @@ __device__ __forceinline__ int stat_skew(const Params& p, int h, int i0, int b) 
 
 // query tile `it` (head r of the group, then time) into stage s (one thread)
 template <int D>
-__device__ __forceinline__ void load_q(Smem<D>& sm, const Maps& mp, const Params& p, int it,
+__device__ __forceinline__ void load_q(Smem<D>& sm, const DkvMaps<D>& mp, const Params& p, int it,
                                        int s, int n_qt, int t_begin, int g, int b) {
   constexpr int BQ = bq<D>();
   const int h = g * (p.nh / p.nkv) + it / n_qt;
@@ -501,7 +520,7 @@ __device__ __forceinline__ void load_q(Smem<D>& sm, const Maps& mp, const Params
 
 template <int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
-    dkv_kernel_sm90(const __grid_constant__ Maps mp, const Params p) {
+    dkv_kernel_sm90(const __grid_constant__ DkvMaps<D> mp, const Params p) {
   const int dh = kPartial ? p.d : D;  // the head size
   using namespace sm90;
   constexpr int BQ = bq<D>();
@@ -561,10 +580,10 @@ __global__ void __launch_bounds__(kThreads)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BQ, 0, 0>(st, desc_kmajor<kBK>(sm.k, kk), desc_kmajor<BQ>(sm.q[s], kk), 1);
+      wgmma_ss<BQ, 0, 0>(st, kdesc<D, kBK>(sm.k, kk), kdesc<D, BQ>(sm.q[s], kk), 1);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BQ, 0, 0>(dpt, desc_kmajor<kBK>(sm.v, kk), desc_kmajor<BQ>(sm.dout[s], kk), 1);
+      wgmma_ss<BQ, 0, 0>(dpt, kdesc<D, kBK>(sm.v, kk), kdesc<D, BQ>(sm.dout[s], kk), 1);
     wg_commit();
     wg_wait<0>();
     fence_regs(st);
@@ -604,9 +623,9 @@ __global__ void __launch_bounds__(kThreads)
     fence_regs(dk);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D, 1>(dv, pa[kk], desc_mnmajor<BQ>(sm.dout[s], kk));
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs_mn<D, BQ>(dv, pa[kk], sm.dout[s], kk);
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D, 1>(dk, da[kk], desc_mnmajor<BQ>(sm.q[s], kk));
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs_mn<D, BQ>(dk, da[kk], sm.q[s], kk);
     wg_commit();
     wg_wait<0>();
     fence_regs(dv);
@@ -648,7 +667,7 @@ int launch_dkv(const Params& p, void* stream) {
     cudaMemsetAsync(p.out1, 0, n, (cudaStream_t)stream);
     return (int)cudaGetLastError();
   }
-  Maps mp;
+  DkvMaps<D> mp;
   const long long n_stat = (long long)p.B * p.nh * p.T;
   if (!sm90::rows_map(&mp.q, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, BQ) ||
       !sm90::rows_map(&mp.dout, p.dout, p.d, p.nh, p.T, p.B, p.do_st, p.do_sb, BQ) ||
@@ -1420,9 +1439,10 @@ int launch_dq(const Params& p, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the wgmma kernel);
-// D: the built width it runs at, 64, 128 or 256; d: the head size, d % 8
-// == 0, 8 <= d <= D (flash_attn_common.cuh). lse and delta (B, nh, T)
-// fp32; dq (B, T, nh, d) contiguous. Returns the launch's cudaError_t.
+// D: the built width it runs at, 64, 80, 128, 192 or 256; d: the head
+// size, d % 8 == 0, 8 <= d <= D (flash_attn_common.cuh). lse and delta
+// (B, nh, T) fp32; dq (B, T, nh, d) contiguous. Returns the launch's
+// cudaError_t.
 extern "C" int flash_attn_bwd_dq(int dtype, int D, int d, const void* q, const void* k,
                                  const void* v, const void* dout, const float* lse,
                                  const float* delta, void* dq, const int* seed, const int* dims,
@@ -1435,6 +1455,8 @@ extern "C" int flash_attn_bwd_dq(int dtype, int D, int d, const void* q, const v
   const bool full = d == D;
   if (dtype == 0 && D == 64) return full ? launch_dq<float, 64, false>(p, stream)
                                          : launch_dq<float, 64, true>(p, stream);
+  // width 80: the 128-wide instances, masked past d (fp32 and bf16)
+  if (dtype == 0 && D == 80) return launch_dq<float, 128, true>(p, stream);
   if (dtype == 0 && D == 128) return full ? launch_dq<float, 128, false>(p, stream)
                                           : launch_dq<float, 128, true>(p, stream);
   if (dtype == 0 && D == 192) return launch_dq<float, 256, true>(p, stream);
@@ -1442,6 +1464,7 @@ extern "C" int flash_attn_bwd_dq(int dtype, int D, int d, const void* q, const v
                                           : launch_dq<float, 256, true>(p, stream);
   if (dtype == 1 && D == 64) return full ? flash_sm90::launch_dq<64, false>(p, stream)
                                          : flash_sm90::launch_dq<64, true>(p, stream);
+  if (dtype == 1 && D == 80) return flash_sm90::launch_dq<128, true>(p, stream);
   if (dtype == 1 && D == 128) return full ? flash_sm90::launch_dq<128, false>(p, stream)
                                           : flash_sm90::launch_dq<128, true>(p, stream);
   if (dtype == 1 && D == 192) return full ? flash_ws::launch_dq<192, false>(p, stream)
@@ -1463,6 +1486,8 @@ extern "C" int flash_attn_bwd_dkv(int dtype, int D, int d, const void* q, const 
   const bool full = d == D;
   if (dtype == 0 && D == 64) return full ? launch_dkv<float, 64, false>(p, stream)
                                          : launch_dkv<float, 64, true>(p, stream);
+  // width 80 in fp32: the 128-wide FMA kernel, masked past d
+  if (dtype == 0 && D == 80) return launch_dkv<float, 128, true>(p, stream);
   if (dtype == 0 && D == 128) return full ? launch_dkv<float, 128, false>(p, stream)
                                           : launch_dkv<float, 128, true>(p, stream);
   if (dtype == 0 && D == 192) return launch_dkv<float, 256, true>(p, stream);
@@ -1470,6 +1495,8 @@ extern "C" int flash_attn_bwd_dkv(int dtype, int D, int d, const void* q, const 
                                           : launch_dkv<float, 256, true>(p, stream);
   if (dtype == 1 && D == 64) return full ? flash_sm90::launch_dkv<64, false>(p, stream)
                                          : flash_sm90::launch_dkv<64, true>(p, stream);
+  if (dtype == 1 && D == 80) return full ? flash_sm90::launch_dkv<80, false>(p, stream)
+                                         : flash_sm90::launch_dkv<80, true>(p, stream);
   if (dtype == 1 && D == 128) return full ? flash_sm90::launch_dkv<128, false>(p, stream)
                                           : flash_sm90::launch_dkv<128, true>(p, stream);
   // width 192: the 256-wide warp-specialized kernel (a single warpgroup

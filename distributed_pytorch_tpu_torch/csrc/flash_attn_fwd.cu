@@ -5,16 +5,17 @@
 // and bound by ops/cuda_build.py; wrapped by ops/flash_attention.py.
 //
 // Head sizes: the C entry takes the width D the wrapper picks
-// (`padded_width`: the least of 64, 128, 192 and 256 that holds d) and runs
-// d on the instance built for D, or at D < 256 on the masked instance
+// (`padded_width`: the least of 64, 80, 128, 192 and 256 that holds d) and
+// runs d on the instance built for D, or at D < 256 on the masked instance
 // (kPartial), whose stores stop at d; width 192 runs the 256-wide kernel (the
-// dq has a 192-wide one, flash_attn_bwd.cu). The TMA maps' row is d wide (their head stride d
-// * 2 bytes, a multiple of 16 exactly when d % 8 == 0), so each 64-column
-// box past d arrives as zeros and still counts its whole bytes on the
-// barrier; the FMA loads zero-fill past d. The zero columns add exactly 0
-// to Q K^T, and the output columns past d, P V over zero columns of V, are
-// never stored: the stores stop at d and step rows by nh * d. No padded
-// copy is made on the host.
+// dq has a 192-wide one, flash_attn_bwd.cu), and width 80 has a bf16
+// instance of its own (fp32 runs it on the 128-wide FMA kernel, masked).
+// The TMA maps' row is d wide (their head stride d * 2 bytes, a multiple
+// of 16 exactly when d % 8 == 0), so each box past d arrives as zeros and
+// still counts its whole bytes on the barrier; the FMA loads zero-fill
+// past d. The zero columns add exactly 0 to Q K^T, and the output columns
+// past d, P V over zero columns of V, are never stored: the stores stop at
+// d and step rows by nh * d. No padded copy is made on the host.
 //
 // Replaces: `_fwd_kernel` -> `_fwd` (rows face, pallas_call :378) and
 // `_slab_fwd_kernel` -> `_slab_fwd` (slab face, :678) of
@@ -54,6 +55,19 @@
 //   are masked (TMA zero-fills rows past T and S). Query tiles launch
 //   heaviest first (the grid's slowest axis runs down the causal
 //   frontier), so long tiles do not form the grid's tail.
+// * bf16 at width 80 (`flash_sm90::fwd_kernel_sm90<80>`: head sizes 72
+//   and 80, the flagship with MLA, 64 + 16): the same kernel on tiles of
+//   exactly 80 columns (`sm90::Map80`, flash_attn_sm90.cuh): columns
+//   0-63 a 128-byte-swizzled sub-tile, 64-79 a 16-column one at the
+//   32-byte swizzle, so S = Q K^T takes 5 k-steps and P V is m64n64k16 +
+//   m64n16k16 into O's 40 registers. 52 KB of shared memory and 104
+//   registers a thread: four CTAs an SM. Run on the 128-wide instance
+//   instead (masked, as head size 80 ran before), S took 8 k-steps and P V
+//   N 128, 48 of each 128 columns zero, at 82 KB and two CTAs an SM. A
+//   third stage (72 KB) would leave three CTAs an SM, so none is built.
+//   The other layout, five 16-column sub-tiles at the 32-byte swizzle (P V
+//   one m64n80k16), issues five TMA boxes a tile for this one's two and
+//   ran slower on the H100 (bench/flash_ab.py; PERF.md).
 // * bf16 at head size 256 (`flash_ws::fwd_kernel_sm90`; MLA's
 //   concatenated content and rotary features): warp-specialized. The O
 //   accumulator alone is 128 registers a thread and 64 x 256 K and V
@@ -250,8 +264,8 @@ constexpr size_t smem_bytes() {
 
 // K and V tile j into stage s (one thread)
 template <int D>
-__device__ __forceinline__ void load_kv(Smem<D>& sm, const CUtensorMap* tk, const CUtensorMap* tv,
-                                        int j, int s, int g, int b) {
+__device__ __forceinline__ void load_kv(Smem<D>& sm, const sm90::RowMap<D>* tk,
+                                        const sm90::RowMap<D>* tv, int j, int s, int g, int b) {
   sm90::mbar_expect_tx(&sm.kbar[s], kBK * D * 2);
   sm90::tma_rows<D, kBK>(sm.k[s], tk, &sm.kbar[s], g, j * kBK, b);
   sm90::mbar_expect_tx(&sm.vbar[s], kBK * D * 2);
@@ -260,8 +274,9 @@ __device__ __forceinline__ void load_kv(Smem<D>& sm, const CUtensorMap* tk, cons
 
 template <int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
-    fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, const Params p) {
+    fwd_kernel_sm90(const __grid_constant__ sm90::RowMap<D> tq,
+                    const __grid_constant__ sm90::RowMap<D> tk,
+                    const __grid_constant__ sm90::RowMap<D> tv, const Params p) {
   const int dh = kPartial ? p.d : D;  // the head size
   using namespace sm90;
   extern __shared__ uint8_t smem_raw[];
@@ -316,7 +331,7 @@ __global__ void __launch_bounds__(kThreads)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<kBK, 0, 0>(sc, desc_kmajor<kBQ>(sm.q, kk), desc_kmajor<kBK>(sm.k[s], kk), 1);
+      wgmma_ss<kBK, 0, 0>(sc, kdesc<D, kBQ>(sm.q, kk), kdesc<D, kBK>(sm.k[s], kk), 1);
     wg_commit();
     wg_wait<0>();
     fence_regs(sc);
@@ -368,7 +383,7 @@ __global__ void __launch_bounds__(kThreads)
     fence_regs(o);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<D, 1>(o, pa[kk], desc_mnmajor<kBK>(sm.v[s], kk));
+    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs_mn<D, kBK>(o, pa[kk], sm.v[s], kk);
     wg_commit();
     wg_wait<0>();
     fence_regs(o);
@@ -400,7 +415,7 @@ int launch(const Params& p, void* stream) {
   const int err = flash::set_smem(fwd_kernel_sm90<D, kPartial>, smem, cap);
   if (err) return err;
   if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
-  CUtensorMap tq, tk, tv;
+  sm90::RowMap<D> tq, tk, tv;
   if (!sm90::rows_map(&tq, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
       !sm90::rows_map(&tk, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
       !sm90::rows_map(&tv, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, kBK))
@@ -709,9 +724,10 @@ int launch(const Params& p, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel); D: the
-// built width it runs at, 64, 128 or 256; d: the head size, d % 8 == 0,
-// 8 <= d <= D (flash_attn_common.cuh). out (B, T, nh, d) and lse (B, nh,
-// T) fp32, both contiguous. dims and strides as in flash::make_params.
+// built width it runs at, 64, 80, 128, 192 or 256; d: the head size, d % 8
+// == 0, 8 <= d <= D (flash_attn_common.cuh). out (B, T, nh, d) and lse
+// (B, nh, T) fp32, both contiguous. dims and strides as in
+// flash::make_params.
 // Returns the launch's cudaError_t (0 = success).
 extern "C" int flash_attn_fwd(int dtype, int D, int d, const void* q, const void* k,
                               const void* v, void* out, float* lse, const int* seed,
@@ -724,6 +740,8 @@ extern "C" int flash_attn_fwd(int dtype, int D, int d, const void* q, const void
   const bool full = d == D;
   if (dtype == 0 && D == 64) return full ? launch<float, 64, false>(p, stream)
                                          : launch<float, 64, true>(p, stream);
+  // width 80 in fp32: the 128-wide FMA kernel, masked past d
+  if (dtype == 0 && D == 80) return launch<float, 128, true>(p, stream);
   if (dtype == 0 && D == 128) return full ? launch<float, 128, false>(p, stream)
                                           : launch<float, 128, true>(p, stream);
   if (dtype == 0 && D == 192) return launch<float, 256, true>(p, stream);
@@ -731,6 +749,8 @@ extern "C" int flash_attn_fwd(int dtype, int D, int d, const void* q, const void
                                           : launch<float, 256, true>(p, stream);
   if (dtype == 1 && D == 64) return full ? flash_sm90::launch<64, false>(p, stream)
                                          : flash_sm90::launch<64, true>(p, stream);
+  if (dtype == 1 && D == 80) return full ? flash_sm90::launch<80, false>(p, stream)
+                                         : flash_sm90::launch<80, true>(p, stream);
   if (dtype == 1 && D == 128) return full ? flash_sm90::launch<128, false>(p, stream)
                                           : flash_sm90::launch<128, true>(p, stream);
   // width 192: the 256-wide warp-specialized kernel, 1.8x faster at d 192

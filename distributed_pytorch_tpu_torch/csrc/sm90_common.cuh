@@ -4,8 +4,8 @@
 // named barriers and setmaxnreg (the warp-specialized kernels), TMA tile
 // loads, 16-byte cp.async copies into the same swizzled layout
 // (for tiles gathered row by row, which TMA cannot do) and 4-byte ones
-// (scales), the shared-memory matrix descriptors of a 128-byte-swizzled
-// tile, the `wgmma.mma_async` products (bf16 operands,
+// (scales), the shared-memory matrix descriptors of a swizzled tile
+// (128-, 64- or 32-byte spans), the `wgmma.mma_async` products (bf16 operands,
 // fp32 accumulators) and the conversion of an accumulator into the A
 // operand of the next product. Device code only, plus the host-side
 // tensor-map encoding; no library. The flash kernels' own pieces (their
@@ -14,6 +14,11 @@
 // Tiles. A tile of R rows x C bf16 columns (C a multiple of 64) is loaded
 // by TMA with the 128-byte swizzle, 64 columns (128 bytes) per box, as
 // C / 64 sub-tiles of R x 64, each R * 128 bytes and 1024-byte aligned.
+// A width that is not a multiple of 64 (80) takes narrower sub-tiles as
+// well: a box of W columns (W * 2 = 32 or 64 bytes) is written at the
+// swizzle of that span (`swizzle_for`), and its sub-tile is R x W, each
+// row W * 2 bytes; `desc_kmajor_sw` / `desc_mnmajor_sw` read a sub-tile of
+// any of the three spans (the layout field and the strides follow it).
 // A tile gathered with cp.async is laid out the same way: 16-byte chunk c
 // (columns 8 c .. 8 c + 7) of row r lands in sub-tile c / 8, at chunk
 // position (c % 8) ^ (r % 8) of the row (`swz`).
@@ -213,22 +218,44 @@ __device__ __forceinline__ int swz(int r, int c) {
 
 // ---- wgmma ---------------------------------------------------------------
 
-// Descriptor of a 128-byte-swizzled operand at shared address `addr`.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// Descriptor of an operand at shared address `addr` whose rows are SW
+// bytes swizzled over SW bytes (128, 64 or 32): the layout field is 1, 2
+// or 3.
+template <int SW>
+__device__ __forceinline__ uint64_t desc_swz(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(SW == 128 || SW == 64 || SW == 32, "swizzle spans are 128, 64 or 32 bytes");
+  constexpr uint64_t mode = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
 }
 
-// k-step kk of an R x C tile read K-major (see the note at the top)
+// k-step kk (16 columns, 32 bytes) of a sub-tile of SW-byte rows (SW / 2
+// columns) read K-major: 8-row groups are 8 * SW bytes apart (SBO).
+template <int SW>
+__device__ __forceinline__ uint64_t desc_kmajor_sw(const bf16* sub, int kk) {
+  return desc_swz<SW>(smem_u32(sub) + kk * 32, 16, 8 * SW);
+}
+
+// k-step kk (16 rows) of R-row sub-tiles of SW-byte rows read MN-major:
+// the k-step starts kk * 16 * SW bytes in, 8-row groups are 8 * SW bytes
+// apart (SBO), and the next SW / 2 columns (N) lie in the next sub-tile,
+// R * SW bytes on (LBO).
+template <int R, int SW>
+__device__ __forceinline__ uint64_t desc_mnmajor_sw(const bf16* sub, int kk) {
+  return desc_swz<SW>(smem_u32(sub) + kk * 16 * SW, R * SW, 8 * SW);
+}
+
+// k-step kk of an R x C tile read K-major (see the note at the top):
+// k-step kk % 4 of 64-column sub-tile kk / 4
 template <int R>
 __device__ __forceinline__ uint64_t desc_kmajor(const bf16* tile, int kk) {
-  return desc_sw128(smem_u32(tile) + (kk >> 2) * R * 128 + (kk & 3) * 32, 16, 1024);
+  return desc_kmajor_sw<128>(tile + (kk >> 2) * R * 64, kk & 3);
 }
 
 // k-step kk of an R x C tile read MN-major
 template <int R>
 __device__ __forceinline__ uint64_t desc_mnmajor(const bf16* tile, int kk) {
-  return desc_sw128(smem_u32(tile) + kk * 2048, R * 128, 1024);
+  return desc_mnmajor_sw<R, 128>(tile, kk);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -388,6 +415,21 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
         "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
         "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x 16) = A B + (scale_d ? d : 0), A from registers (`a`, the
+// m64k16 fragment), B from shared memory, K-major (TB 0) or MN-major (TB 1).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
@@ -592,6 +634,14 @@ inline EncodeTiledFn encode_fn() {
     if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
   }
   return fn;
+}
+
+// The swizzle TMA writes a box with rows of `bytes` (128, 64 or 32) at:
+// the span the descriptors' SW names
+inline CUtensorMapSwizzle swizzle_for(int bytes) {
+  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
 // The map of a row-major (rows, cols) bf16 matrix: dims (cols, rows), a

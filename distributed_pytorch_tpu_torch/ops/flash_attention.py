@@ -17,13 +17,15 @@ layout through (batch, time) strides, so they serve both:
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take (dtypes other than fp32/bf16, head sizes that are not
 a multiple of 8 from 8 to 256). A head size d runs at `padded_width(d)`,
-the least of the widths `HEAD_SIZES` (64, 128, 192, 256) that holds it:
-columns d .. width - 1 load as zeros, which add exactly 0 to every
+the least of the widths `HEAD_SIZES` (64, 80, 128, 192, 256) that holds
+it: columns d .. width - 1 load as zeros, which add exactly 0 to every
 product, and no output column past d is written, so the wrappers hand the
 kernels the caller's own tensors (no padded copy) and get outputs of head
 size d. The C entries run each width on an instance built for it (d equal
-to the width) or on a masked one (d under it); width 192 is the dq's own,
-and the forward and dkv run it on their 256-wide kernels. The dtype picks
+to the width) or on a masked one (d under it); width 80 (the flagship
+with MLA, 64 + 16) is the bf16 forward's and dkv's own, and the dq and
+the fp32 kernels run it on their 128-wide instances; width 192 is the
+dq's own, and the forward and dkv run it on their 256-wide kernels. The dtype picks
 the design inside the C entry, by dtype and never as a fallback: bf16 runs on tensor cores (wgmma on TMA-fed shared
 memory, csrc/flash_attn_sm90.cuh and csrc/sm90_common.cuh), fp32 on the
 FMA design (csrc/flash_attn_common.cuh), since tensor cores take fp32
@@ -66,7 +68,7 @@ PLAIN_CALLS = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
                "flash_attn_bwd_dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_SIZES = (64, 128, 192, 256)  # the widths a head size runs at
+HEAD_SIZES = (64, 80, 128, 192, 256)  # the widths a head size runs at
 MAX_HEAD_SIZE = HEAD_SIZES[-1]
 
 

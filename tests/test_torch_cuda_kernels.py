@@ -25,9 +25,13 @@ and head size 40).
 The flash-attention kernels (forward, dq, dkv) over causal and full
 attention, MHA and GQA (rep 4 at head size 128), dropout 0 and 0.2, T and
 S off the bf16 kernels' tiles (T 1, 70, 130, 200) and S > T, at their
-built widths 64, 128 and 256 and at head sizes under them (8, 32, 40, 48,
-80, 96, 136, 192, 200, 248), the warp-specialized dq's last 128-row tile
-with no, some or all rows for its second consumer (T 900, 1000, 1088),
+built widths 64, 80, 128 and 256 and at head sizes under them (8, 32, 40,
+48, 72, 96, 136, 192, 200, 248), the warp-specialized dq's last 128-row
+tile with no, some or all rows for its second consumer (T 900, 1000,
+1088), the bf16 forward and dkv at width 80 (head sizes 72 and 80; T 65,
+900 and 1088, MHA 12 / 12 and GQA 12 / 4, causal and full, dropout 0 and
+0.2) and the kernels the profiler sees there (the dq on its 128-wide
+masked instance),
 with no output column stored past the head size
 (outputs allocated in front of NaN sentinels), and bf16 at the training
 shapes (B 8, T 1024, 12 x 64 and 8 x 256), each
@@ -715,9 +719,10 @@ FLASH_CASES = [  # B, T, S, nh, nkv, D, causal
     (1, 200, 200, 8, 2, 256, False), (1, 65, 130, 2, 2, 256, False),
     # head sizes under a built width (64, 128, 256), run at that width with
     # zero columns past d: 8, 32 (the default config), 40, 48 (MLA on the
-    # default config), 80 (MLA on the flagship), 96 (768 / 8 heads), 136,
-    # 192 (the flagship with the launcher's rope head) and 248; causal and
-    # full, GQA, ragged T (130) and S != T, several heads a row
+    # default config), 96 (768 / 8 heads), 136, 192 (the flagship with the
+    # launcher's rope head) and 248; and 80 (MLA on the flagship) at its
+    # own width 80; causal and full, GQA, ragged T (130) and S != T, several
+    # heads a row
     (2, 130, 130, 4, 2, 8, True), (2, 130, 130, 8, 4, 32, True),
     (1, 130, 70, 8, 4, 32, False), (2, 130, 130, 3, 3, 40, False),
     (1, 130, 130, 8, 8, 48, True), (2, 130, 130, 12, 12, 80, True),
@@ -800,6 +805,42 @@ def test_flash_kernels_bf16_mla_training_shape(dev, rate):
     _flash_case(dev, torch.bfloat16, 8, 1024, 1024, 8, 8, 256, True, rate)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("nh,nkv", [(12, 12), (12, 4)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("T", [65, 900, 1088])
+@pytest.mark.parametrize("D", [72, 80])
+def test_flash_kernels_bf16_width_80(dev, D, T, nh, nkv, causal, rate):
+    """Head sizes 72 and 80 at width 80 (the bf16 forward and dkv built
+    for it; 72 on the masked instance) against the plain versions: T 65
+    (one full 64-row tile and one row), 900 and 1088 (ragged and
+    64-aligned), MHA and GQA (the dkv sums 3 query heads a kv head)."""
+    _flash_case(dev, torch.bfloat16, 2 if T == 65 else 1, T, T, nh, nkv, D,
+                causal, rate)
+
+
+@pytest.mark.parametrize("D", [72, 80])
+def test_flash_width_80_runs_its_own_instances(dev, D):
+    """Under the profiler, head sizes 72 and 80 in bf16 launch the forward
+    and dkv built for width 80 (`<80, true>` masked for 72, `<80, false>`
+    for 80), never a 128-wide one, and the dq's 128-wide masked instance;
+    each output equals its plain version within FLASH_TOL."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _flash_case(dev, torch.bfloat16, 2, 200, 200, 12, 4, D, True, 0.0)
+    names = {e.key for e in prof.key_averages() if "kernel_sm90<" in e.key}
+    part = "true" if D < 80 else "false"
+    want = {"fwd": f"fwd_kernel_sm90<80, {part}>",
+            "dkv": f"dkv_kernel_sm90<80, {part}>",
+            "dq": "dq_kernel_sm90<128, true>"}
+    for kind, name in want.items():
+        got = [n for n in names if re.search(rf"\b{kind}_kernel_sm90<", n)]
+        assert got and all(name in n for n in got), (kind, names)
+
+
 class _Torch:
     """`torch` with `empty` handing out the front of a larger buffer
     filled with NaN, whose tail shows any write past a tensor's end."""
@@ -821,7 +862,7 @@ class _Torch:
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("D", [8, 40, 80, 136, 200, 248])
+@pytest.mark.parametrize("D", [8, 40, 72, 80, 136, 200, 248])
 def test_flash_writes_no_column_past_the_head_size(dev, monkeypatch, dtype,
                                                    D):
     """The kernels run D at a wider built width, whose columns past D
@@ -857,8 +898,8 @@ def test_flash_reads_strided_views(dev, dtype, D, nh):
     """q, k, v as views of one fused qkv projection (row stride 3*C), as
     the model hands them over, equal contiguous copies (bf16: through the
     TMA maps' time stride), and reach the kernels without a copy: at D 80
-    (MLA on the flagship, run at width 128) too, whose rows are not padded
-    on the host."""
+    (MLA on the flagship, at width 80 through a 64-column and a 16-column
+    map of each operand) too."""
     B, T = 2, 130
     qkv = torch.randn(B, T, 3 * nh * D, device=dev).to(dtype)
     q, k, v = (t.reshape(B, T, nh, D) for t in qkv.split(nh * D, dim=-1))
@@ -873,7 +914,7 @@ def test_flash_reads_strided_views(dev, dtype, D, nh):
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
 @pytest.mark.parametrize("D,nh,nkv", [(64, 4, 2), (128, 8, 2), (256, 8, 2),
-                                      (200, 8, 2)])
+                                      (200, 8, 2), (80, 12, 4)])
 def test_flash_bwd_bf16_is_deterministic(dev, D, nh, nkv, kernel):
     """Two launches of a bf16 backward kernel on the same inputs are
     bit-equal: dq writes each query row once, dkv sums the GQA group in

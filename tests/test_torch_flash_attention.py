@@ -78,15 +78,16 @@ def test_matches_reference_kernel(causal, nh, nkv, rate):
                                    rtol=0, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("D", [32, 48, 64, 80, 128, 192, 256])
+@pytest.mark.parametrize("D", [32, 48, 64, 72, 80, 128, 192, 256])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_matches_reference_kernel_at_head_size(causal, D):
     """Head sizes the configurations reach against the reference's
     `_flash_lse` in interpret mode: 32 (the default LLMConfig, 256 / 8
-    heads), 48 (MLA on it, 32 + 16), 64, 80 (`--attn mla` on the 124M
-    flagship, 64 + 16), 128, 192 (the flagship with the launcher's rope
-    head, 64 + 128) and 256 (the launcher's MLA, 128 + 128); the kernels
-    run 32 and 48 at their built width 64 and 80 at 128. GQA
+    heads), 48 (MLA on it, 32 + 16), 64, 72 (MLA with a rope head of 8 on
+    64-wide heads), 80 (`--attn mla` on the 124M flagship, 64 + 16), 128,
+    192 (the flagship with the launcher's rope head, 64 + 128) and 256 (the
+    launcher's MLA, 128 + 128); the kernels run 32 and 48 at their built
+    width 64, and 72 at 80 (masked). GQA
     (rep 2) with dropout 0.2, T 32 (the reference's 16-row tiles): out,
     lse and dq/dk/dv through `jax.vjp` with a nonzero dlse, fp32, atol
     1e-5."""
@@ -116,7 +117,8 @@ def test_matches_reference_kernel_at_head_size(causal, D):
 def test_gate_takes_head_size_256_and_no_other_mla_size():
     """The kernels' gate takes every head size that is a multiple of 8
     from 8 to 256 (the launcher's MLA, 128 + 128, is the widest), each at
-    the least built width that holds it (`padded_width`), and refuses MLA
+    the least built width that holds it (`padded_width`: 72 and 80 at 80,
+    88 at 128), and refuses MLA
     sizes past it or off the 8-element grid (36 = 20 + 16; 260, 264 = 136
     + 128), which the reference's gate may take; on the card the wrappers
     raise on them (tests/test_torch_cuda_kernels.py)."""
@@ -127,12 +129,15 @@ def test_gate_takes_head_size_256_and_no_other_mla_size():
         assert fa.head_size_ok(D) is ok, D
         if ok:
             assert fa.padded_width(D) == (64 if D <= 64 else
+                                          80 if D <= 80 else
                                           128 if D <= 128 else
                                           192 if D <= 192 else 256), D
         else:
             with pytest.raises(ValueError, match="multiples of 8"):
                 fa.padded_width(D)
-    assert fa.HEAD_SIZES == (64, 128, 192, 256)
+    assert fa.HEAD_SIZES == (64, 80, 128, 192, 256)
+    assert fa.padded_width(72) == fa.padded_width(80) == 80
+    assert fa.padded_width(88) == 128
     for D in (36, 260, 264):
         z = torch.zeros(1, 8, 4, D)
         assert not fa.flash_attention_usable(z, z, z), D

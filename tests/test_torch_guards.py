@@ -193,8 +193,9 @@ def _chip_smoke():
 # wgmma kernels (flash fwd, dq, dkv and the paged prefill at D 64 and 128,
 # grouped fwd, dx and dW unscaled and scaled, the fused CE forward, dx and
 # dW, the int8-cache paged prefill at D 64 and 128, flash fwd, dq, dkv at
-# D 256, the flash dq at D 192, and every flash kernel's instance for head
-# sizes under its width) and some of the others (fp32 flash, fp32 grouped forward, dx and
+# D 256, the flash dq at D 192, the flash forward and dkv at width 80, and
+# every flash kernel's instance for head sizes under its width) and some of
+# the others (fp32 flash, fp32 grouped forward, dx and
 # dW, the FMA prefill, the tile decode, the split-KV decode's split (bf16
 # and int8 caches) and combine kernels, the fused CE's mma.sync and fp32
 # kernels, and the fp32 flash kernels at D 256)
@@ -233,7 +234,16 @@ SASS_SM90 = [
     "_ZN12_GLOBAL__N_18flash_ws15dkv_kernel_sm90ILi256ELb1EEEvNS_10flash_sm904"
     "MapsEN5flash6ParamsE"] + [
     f"_ZN12_GLOBAL__N_18flash_ws14dq_kernel_sm90ILi{d}ELb1EEEvNS_10flash_sm906"
-    "DqMapsEN5flash6ParamsE" for d in (192, 256)]
+    "DqMapsEN5flash6ParamsE" for d in (192, 256)] + [
+    # the forward and dkv at width 80, for d == 80 and d < 80
+    "_ZN12_GLOBAL__N_110flash_sm9015fwd_kernel_sm90ILi80ELb0EEEvN4sm905Map80ES3_"
+    "S3_N5flash6ParamsE",
+    "_ZN12_GLOBAL__N_110flash_sm9015dkv_kernel_sm90ILi80ELb0EEEvNS0_6MapsOfIN4sm9"
+    "05Map80EEEN5flash6ParamsE",
+    "_ZN12_GLOBAL__N_110flash_sm9015fwd_kernel_sm90ILi80ELb1EEEvN4sm905Map80ES3_"
+    "S3_N5flash6ParamsE",
+    "_ZN12_GLOBAL__N_110flash_sm9015dkv_kernel_sm90ILi80ELb1EEEvNS0_6MapsOfIN4sm9"
+    "05Map80EEEN5flash6ParamsE"]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
@@ -321,7 +331,18 @@ BROKEN = {"complete": None,
                                         "dq_kernel_sm90"),
           "dq_256_spills": ((SASS_SM90[20], "STL", 6), "dq_kernel_sm90"),
           "masked_dq_192_without_setmaxnreg": ((SASS_SM90[31], "USETMAXREG",
-                                                0), "dq_kernel_sm90")}
+                                                0), "dq_kernel_sm90"),
+          "fwd_80_missing": ((SASS_SM90[33], None, 0),
+                             "fwd_kernel_sm90ILi80E"),
+          "dkv_80_missing": ((SASS_SM90[34], None, 0),
+                             "dkv_kernel_sm90ILi80E"),
+          "fwd_80_with_spill": ((SASS_SM90[33], "STL", 6), "fwd_kernel_sm90"),
+          "masked_dkv_80_with_spill": ((SASS_SM90[36], "STL", 6),
+                                       "dkv_kernel_sm90"),
+          "masked_fwd_80_without_tma": ((SASS_SM90[35], "UTMALDG", 0),
+                                        "fwd_kernel_sm90"),
+          "dkv_80_without_hgmma": ((SASS_SM90[34], "HGMMA", 0),
+                                   "dkv_kernel_sm90")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
@@ -344,7 +365,9 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     setmaxnreg or with a register spill (local-memory stores); the bf16 dq
     at D 192 missing, without HGMMA or (masked) without setmaxnreg; the
     masked forward (head sizes under 64) without a TMA load; the masked
-    warp-specialized dkv without setmaxnreg."""
+    warp-specialized dkv without setmaxnreg; the forward or dkv at width
+    80 missing, with a register spill or without HGMMA, and its masked
+    forward without a TMA load."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
     for fn in SASS_SM90[12:14] + SASS_SM90[17:19]:  # the paged prefills
