@@ -14,18 +14,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took; counts each
              flash, grouped and paged kernel's HGMMA, UTMALDG and LDGSTS
-             instructions (`cuobjdump -sass`): the 37 bf16 wgmma kernels
-             (flash forward, dq and dkv at widths 64, 128 and 256, dq
-             at 192 and forward and dkv at 80, each for head sizes equal
-             to and under the width,
+             instructions (`cuobjdump -sass`): the 39 bf16 wgmma kernels
+             (flash forward, dq and dkv at widths 64, 80, 128 and 256, dq
+             at 192, each for head sizes equal to and under the width,
              the paged prefill at 64 and 128 over bf16 and int8 caches,
              the grouped forward, dx and dW unscaled and scaled, the
              fused CE forward, dx and dW) must hold
              HGMMA and their loads (TMA; cp.async and no TMA in the paged
              prefill, which gathers through the block table; the
              warp-specialized flash forward, dq and dkv at 256 and dq at
-             192 also setmaxnreg and no local-memory store, the forward and
-             dkv at 80 no local-memory store), the others
+             192 also setmaxnreg and no local-memory store, the forward,
+             dq and dkv at 80 no local-memory store), the others
              (fp32, int8, the bf16 CE kernels' mma.sync version for C
              past 1024, the split-KV decode's split kernels over fp32,
              bf16 and int8 caches and its combine kernels, which must be
@@ -39,7 +38,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
              path's (flash forward, dq, dkv at B 8, T 1024, causal: 12
              heads x 64, the flagship; 8 heads x 256, the launcher's MLA;
              8 / 4 kv heads x 32, the default config; 12 heads x 80, the
-             flagship with MLA, at its own width 80; and, held but not
+             flagship with MLA, at its own width 80 (forward, dq and
+             dkv); and, held but not
              timed, 8 x 48 and 12 x 192, under their built widths as 32
              is), in fp32 and bf16, then bf16 device times of head size
              192 at widths 192 and 256 and of 80 at 80 and at 128 beside
@@ -164,7 +164,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
              latents (12 heads of 64 + rope 16 = 80): each a falling loss,
              the flash kernels launched exactly layers x micro-steps each
              at head size 32 or 80 (run at the kernels' built widths 64
-             and 80; the dq at 128), no plain call, and an fp32 parity step
+             and 80), no plain call, and an fp32 parity step
              at B 2 against `attn_impl='naive'`; (b) also a profile of two
              steps, its flash time split per kernel; then (a)'s checkpoint
              through
@@ -331,10 +331,16 @@ REPLACES.update({
 })
 SOURCE = "distributed_pytorch_tpu_torch/csrc/{}.cu"
 DEVICE = "cuda"
+PHASE = ["0 start"]                       # the phase running, for fail()
 
 
 def fail(msg: str) -> None:
-    print(f"chip_smoke FAILED: {msg}", flush=True)
+    """End the run with exit 1, naming the phase and the failed check on
+    stdout and on stderr (whose end is what a caller that keeps only the
+    tail of stderr sees)."""
+    line = f"chip_smoke FAILED in phase {PHASE[0]}: {msg}"
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -344,6 +350,7 @@ def check(cond: bool, msg: str) -> None:
 
 
 def phase(name: str) -> None:
+    PHASE[0] = name
     print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
@@ -429,27 +436,27 @@ SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "USETMAXREG", "STL")
 SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
              "grouped_mm_bwd_dw", "paged_prefill_attn", "paged_decode_attn",
              "fused_ce_fwd", "fused_ce_bwd_dx")
-# the bf16 kernels on wgmma: fwd, dq and dkv at D 64, 128 and 256, dq at D
-# 192 (width 192's forward and dkv run the 256-wide ones) and fwd and dkv
-# at D 80 (its dq runs the 128-wide one), each built twice, for d == D and
-# for d < D (masked stores, `kPartial`), the
+# the bf16 kernels on wgmma: fwd, dq and dkv at D 64, 80, 128 and 256 and
+# dq at D 192 (the forward and dkv run head sizes 136-192 at 256), each
+# built twice, for d == D and for d < D (masked stores, `kPartial`), the
 # grouped forward, dx and dW unscaled (fc) and gate-scaled (proj), the
 # paged prefill at hs 64 and 128 over a bf16 and over an int8 cache, the
 # fused CE forward, dx and dW
-SASS_WGMMA_KERNELS = 37
+SASS_WGMMA_KERNELS = 39
 # what a wgmma kernel's SASS must hold and must not: TMA loads, except in
 # the paged prefills (bf16 and int8 caches), which gather their tiles
 # through the block table with cp.async (LDGSTS) and issue no TMA load;
 # the warp-specialized flash kernels (forward, dq and dkv at head size
 # 256, dq at 192) also hand registers to their consumers (setmaxnreg) and
-# spill none; the forward and dkv at width 80 spill none
+# spill none; the forward, dq and dkv at width 80 spill none
 _WS = ({"HGMMA", "UTMALDG", "USETMAXREG"}, {"STL"})
 _W80 = ({"HGMMA", "UTMALDG"}, {"STL"})
 SASS_EXPECT = {"prefill_kernel_sm90_q8": ({"HGMMA", "LDGSTS"}, {"UTMALDG"}),
                "prefill_kernel_sm90": ({"HGMMA", "LDGSTS"}, {"UTMALDG"}),
                "fwd_kernel_sm90ILi256E": _WS, "dkv_kernel_sm90ILi256E": _WS,
                "dq_kernel_sm90ILi256E": _WS, "dq_kernel_sm90ILi192E": _WS,
-               "fwd_kernel_sm90ILi80E": _W80, "dkv_kernel_sm90ILi80E": _W80}
+               "fwd_kernel_sm90ILi80E": _W80, "dkv_kernel_sm90ILi80E": _W80,
+               "dq_kernel_sm90ILi80E": _W80}
 SASS_EXPECT_SM90 = ({"HGMMA", "UTMALDG"}, set())
 # every other kernel (fp32, int8, the decode's split-KV pair over every
 # cache type) holds neither wgmma nor TMA loads
@@ -459,10 +466,11 @@ SASS_EXPECT_OTHER = (set(), {"HGMMA", "UTMALDG"})
 # int8-cache prefill on wgmma, the flash kernels at head size 256
 # (MLA's q_c | q_r): wgmma in bf16 (`..._sm90ILi256E`; the dq, like the
 # dq at 192, warp-specialized in `flash_ws`), FMA in fp32 (`...IfLi256E`),
-# and the bf16 forward and dkv at width 80 (the flagship with MLA)
+# and the bf16 forward, dq and dkv at width 80 (the flagship with MLA)
 SASS_REQUIRED = ("decode_split_kernel", "decode_combine_kernel",
                  "prefill_kernel_sm90_q8",
                  "fwd_kernel_sm90ILi80E", "dkv_kernel_sm90ILi80E",
+                 "flash_sm9014dq_kernel_sm90ILi80E",
                  "flash_ws14dq_kernel_sm90ILi192E",
                  "fwd_kernel_sm90ILi256E",
                  "flash_ws14dq_kernel_sm90ILi256E", "dkv_kernel_sm90ILi256E",
@@ -509,10 +517,10 @@ def check_sass(counts: dict) -> None:
     """The bf16 wgmma kernels (`*_kernel_sm90*`) hold HGMMA and their
     loads (TMA, or cp.async in the paged prefills, which hold no TMA
     load); the flash forward, dq and dkv at head size 256 and the dq at
-    192 hold setmaxnreg and no local-memory store, the forward and dkv at
-    width 80 no local-memory store; the split-KV decode's kernels, the
-    int8-cache prefill, the flash kernels at head size 256 and the
-    forward and dkv at width 80 are there; every other kernel holds
+    192 hold setmaxnreg and no local-memory store, the forward, dq and
+    dkv at width 80 no local-memory store; the split-KV decode's kernels,
+    the int8-cache prefill, the flash kernels at head size 256 and the
+    forward, dq and dkv at width 80 are there; every other kernel holds
     neither HGMMA nor a TMA load."""
     for name in SASS_REQUIRED:
         check(any(name in fn for fn in counts),
@@ -830,17 +838,18 @@ def run_flash_kernels(torch, dev) -> dict:
 
 
 #: phase 3's width comparison, bf16 at B 8, T 1024, 12 heads, causal:
-#: (head size, the built width it runs at). 192 at 192 (the 192-wide
-#: warp-specialized dq; the forward and dkv take the 256-wide
-#: warp-specialized kernels at width 192 too) against 256 (the 256-wide dq);
-#: 80 at its own width 80 (the forward and dkv; the dq runs 128 either way)
-#: against 80 at 128, masked, and 128 at 128: the padded columns' cost.
+#: (head size, the built width it runs at, where the kernel is built at
+#: it). 192 at 192 (the 192-wide warp-specialized dq; the forward and dkv
+#: have no width 192 and run 256 in both rows) against 256 (the 256-wide
+#: dq); 80 at its own width 80 (forward, dq, dkv) against 80 at 128,
+#: masked, and 128 at 128: the padded columns' cost.
 FLASH_WIDTHS = ((192, 192), (192, 256), (80, 80), (80, 128), (128, 128))
 
 
 def run_flash_widths(torch, dev) -> dict:
     """Device ms of the bf16 flash kernels at head size d run at each
-    FLASH_WIDTHS width (`padded_width` pinned to it), each held to its
+    FLASH_WIDTHS width (`padded_width` pinned to it where the kernel is
+    built at it, else the width the wrapper picks), each held to its
     plain version under FLASH_TOL first. Returns {(kernel, d, width):
     device ms}."""
     from distributed_pytorch_tpu_torch.ops import flash_attention as fa
@@ -852,7 +861,10 @@ def run_flash_widths(torch, dev) -> dict:
                 torch, dev, 8, 1024, 12, 12, d):
             if dn != "bfloat16":
                 continue
-            fa.padded_width = lambda _d, w=w: w
+            fa.padded_width = lambda d_, kernel, dtype, w=w: (
+                w if w in fa.WIDTHS[kernel][dtype]
+                else chosen(d_, kernel, dtype))
+            ran = fa.padded_width(d, name, torch.bfloat16)
             try:
                 outs = fk()
                 outs = outs if isinstance(outs, tuple) else (outs,)
@@ -863,16 +875,16 @@ def run_flash_widths(torch, dev) -> dict:
                                            else dn]
                     e = _elementwise(a, b, atol, rtol)
                     check(e["frac"] <= 1.0,
-                          f"{name} d {d} at width {w}: {oname} beyond its "
+                          f"{name} d {d} at width {ran}: {oname} beyond its "
                           f"limit ({e['frac']:.3f})")
                 ms = res[(name, d, w)] = device_ms(fk)
             finally:
                 fa.padded_width = chosen
             b_ms, b_by = bound(n_bytes, flops, dn)
-            print(f"  {name:18s} d {d:3d} at width {w:3d} (bf16, 12 heads): "
+            print(f"  {name:18s} d {d:3d} at width {ran:3d} (bf16, 12 heads): "
                   f"device {ms if ms is None else round(ms, 4)} ms, bound "
                   f"{b_ms:.4f} ms ({b_by}); the width the wrapper picks: "
-                  f"{chosen(d)}", flush=True)
+                  f"{chosen(d, name, torch.bfloat16)}", flush=True)
     torch.cuda.empty_cache()
     return res
 
@@ -3233,8 +3245,10 @@ def run_train_small(torch, dev, card: str, argv: list, what: str,
     check(last <= losses[0] - TRAIN_DROP,
           f"train {what}: loss fell from {losses[0]:.4f} to {last:.4f}, "
           f"less than {TRAIN_DROP}")
+    dtype = getattr(torch, train_cfg.compute_dtype)
     out = dict(launches={k: launches[k] for k in FLASH_SOURCE}, head_size=d,
-               width=fa.padded_width(d), loss0=losses[0], loss_last3=last,
+               width={k: fa.padded_width(d, k, dtype) for k in FLASH_SOURCE},
+               loss0=losses[0], loss_last3=last,
                step_ms=stats["median_step_time"] * 1e3,
                tok_s=stats["median_tokens_per_sec"],
                mfu=stats["median_mfu"], peak_gb=stats["peak_mem_gb"])
@@ -3531,7 +3545,7 @@ def main() -> None:
             "dtype": "bfloat16", "route": "cuda",
             "source": SOURCE.format(FLASH_SOURCE[kname]),
             "replaces": REPLACES[kname], "head_size": D,
-            "built_width": fa.padded_width(D),
+            "built_width": fa.padded_width(D, kname, torch.bfloat16),
             "launches": path_launches[kname], "launches_path": path,
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "lse_max_abs_err": r["lse_max_abs_err"], "launches_fp32": None,

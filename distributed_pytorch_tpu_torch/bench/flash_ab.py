@@ -13,8 +13,9 @@ A shape is `head size:B,T,heads,kv heads`, causal. For each turn, dtype
 windows of 10 calls, their spread, the device time of one call
 (torch.profiler: the self time of the device events, the median of 3
 profiles of 10 calls) and a checksum of each output's bytes (sha256,
-first 16 hex digits); then per tree the mean of its turns' device times,
-and whether every turn of both trees wrote the same bytes.
+first 16 hex digits); then, for each dtype, shape and kernel, per tree
+the mean of its turns' device times, and whether every turn of both trees
+wrote the same bytes.
 """
 
 from __future__ import annotations
@@ -162,25 +163,28 @@ def main(argv=None) -> None:
                 rows.append(r)
                 dev = r["device_ms"]
                 print(f"turn {turn} {label:8s} {r['dtype']:9s} d {r['d']:3d} "
+                      f"{','.join(map(str, r['shape'])):14s} "
                       f"{r['kernel']:18s} {r['ms']:.4f} ms "
                       f"[{r['spread'][0]:.4f}-{r['spread'][1]:.4f}], device "
                       f"{'n/a' if dev is None else f'{dev:.4f}'} ms, "
                       f"sha256 {' '.join(r['sha256'])}", flush=True)
     print("mean device ms of each tree's turns:")
-    keys = sorted({(r["dtype"], r["d"], r["kernel"]) for r in rows})
-    for key in keys:
+
+    def key_of(r):
+        return r["dtype"], r["d"], tuple(r["shape"]), r["kernel"]
+
+    for key in sorted({key_of(r) for r in rows}):
         cells = []
         for label, _ in trees:
             ts = [r["device_ms"] for r in rows if r["tree"] == label
-                  and (r["dtype"], r["d"], r["kernel"]) == key
-                  and r["device_ms"] is not None]
+                  and key_of(r) == key and r["device_ms"] is not None]
             cells.append(f"{label} {sum(ts) / len(ts):.4f}" if ts
                          else f"{label} n/a")
-        sums = {tuple(r["sha256"]) for r in rows
-                if (r["dtype"], r["d"], r["kernel"]) == key}
+        sums = {tuple(r["sha256"]) for r in rows if key_of(r) == key}
         same = "same bytes" if len(sums) == 1 else "bytes differ"
-        print(f"  {key[0]:9s} d {key[1]:3d} {key[2]:18s} " + ", ".join(cells)
-              + f"; {same}")
+        shape = ",".join(map(str, key[2]))
+        print(f"  {key[0]:9s} d {key[1]:3d} {shape:14s} {key[3]:18s} "
+              + ", ".join(cells) + f"; {same}")
 
 
 if __name__ == "__main__":

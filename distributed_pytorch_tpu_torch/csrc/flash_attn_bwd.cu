@@ -3,8 +3,9 @@
 // size d with d % 8 == 0 up to 256, run at a built width as the forward
 // runs it: Q, K, V and dO zero past d, so S, dP, dS K, dS^T Q and P^T dO
 // take nothing from the padded columns, and dq, dk, dv are stored up to d
-// only). Width 80 has a bf16 dkv of its own; the dq, and fp32, run it on
-// their 128-wide instances, masked. Both recompute p = exp(s - lse) from
+// only). In bf16 both have width 80 and the dq also 192; fp32 runs those
+// head sizes at 128 and 256 (ops/flash_attention.py's `WIDTHS` is the one
+// table of the built widths). Both recompute p = exp(s - lse) from
 // the forward's logsumexp instead of storing probabilities; delta =
 // rowsum(dout * out) - dlse comes in precomputed (fp32, (B, nh, T)), which
 // is how a gradient flowing into lse folds in. Built and bound by
@@ -34,14 +35,15 @@
 //   over both), and K's row-major copy for dQ += dS K then takes their
 //   space: 226,304 bytes of shared memory where loading all at once would
 //   need 362,496.
-// * dq, bf16 at widths 64 and 128 (`flash_sm90::dq_kernel_sm90`): tensor
-//   cores. One CTA of one warpgroup
+// * dq, bf16 at widths 64, 80 and 128 (`flash_sm90::dq_kernel_sm90`):
+//   tensor cores. One CTA of one warpgroup
 //   (128 threads) per (64-row query tile, head, batch), the causal
 //   heaviest tiles first (the grid's slowest axis runs down the frontier,
 //   as in the forward). TMA brings the Q and dO tiles once and streams the
 //   kv head's 64-key K and V tiles through a 2-stage ring (mbarrier
 //   completion), the tile after next requested as soon as a stage is
-//   free; 48 KB of shared memory at head size 64, 96 KB at 128. Each
+//   free; 48 KB of shared memory at head size 64, 60 KB at 80, 96 KB at
+//   128. Each
 //   thread reads the lse and delta of its own two rows from device memory
 //   once. Per key tile up to the frontier: S = Q K^T and dP = dO V^T are
 //   wgmmas with both operands in shared memory (K-major); p = exp(s *
@@ -54,6 +56,17 @@
 //   bit). Only tiles on the diagonal or at the ragged ends are masked (TMA
 //   zero-fills rows past T and S). Each query row is written once,
 //   dq * scale.
+//   At width 80 (head sizes 72 and 80, the flagship with MLA) the tiles
+//   hold exactly 80 columns (`sm90::Map80`, flash_attn_sm90.cuh): S and
+//   dP take 5 k-steps, dQ += dS K is m64n64k16 + m64n16k16 into dQ's 40
+//   registers; 130 registers a thread and 60 KB, three CTAs an SM. The
+//   128-wide instance it replaces for these head sizes (0.1837 ms at B 8,
+//   T 1024, 12 x 80, causal, on an H100) ran 8 k-steps and N 128, 48
+//   columns zero. The warp-specialized design below, built at 80 on
+//   64-key stages (4 of them, 120 KB; one CTA an SM at 168 registers),
+//   ran slower there: 0.1350 against this one's 0.1307 ms
+//   (bench/flash_ab.py, 12 / 12 and 12 / 4 heads): its two consumers an
+//   SM overlap less than three one-warpgroup CTAs do.
 // * dq, bf16 at widths 192 and 256 (`flash_ws::dq_kernel_sm90`: head
 //   sizes 136-256, MLA's q_c | q_r): warp-specialized, the forward's
 //   skeleton at 256 with the dkv's producer handshake. The 64 x 256 fp32
@@ -694,13 +707,15 @@ struct DqSmem {
   uint64_t qbar, full[kStages];
 };
 
+// the maps of the dq: Q, K, V and dO at built width D
+template <int D>
 struct DqMaps {
-  CUtensorMap q, k, v, dout;
+  sm90::RowMap<D> q, k, v, dout;
 };
 
 // K and V tile j of kv head g into stage s (one thread)
 template <int D>
-__device__ __forceinline__ void load_kv(DqSmem<D>& sm, const DqMaps& mp, int j, int s, int g,
+__device__ __forceinline__ void load_kv(DqSmem<D>& sm, const DqMaps<D>& mp, int j, int s, int g,
                                         int b) {
   sm90::mbar_expect_tx(&sm.full[s], 2 * kBK * D * 2);
   sm90::tma_rows<D, kBK>(sm.k[s], &mp.k, &sm.full[s], g, j * kBK, b);
@@ -709,7 +724,7 @@ __device__ __forceinline__ void load_kv(DqSmem<D>& sm, const DqMaps& mp, int j, 
 
 template <int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
-    dq_kernel_sm90(const __grid_constant__ DqMaps mp, const Params p) {
+    dq_kernel_sm90(const __grid_constant__ DqMaps<D> mp, const Params p) {
   const int dh = kPartial ? p.d : D;  // the head size
   using namespace sm90;
   extern __shared__ uint8_t smem_raw[];
@@ -772,10 +787,10 @@ __global__ void __launch_bounds__(kThreads)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<kBK, 0, 0>(sc, desc_kmajor<kBQ>(sm.q, kk), desc_kmajor<kBK>(sm.k[s], kk), 1);
+      wgmma_ss<kBK, 0, 0>(sc, kdesc<D, kBQ>(sm.q, kk), kdesc<D, kBK>(sm.k[s], kk), 1);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<kBK, 0, 0>(dp, desc_kmajor<kBQ>(sm.dout, kk), desc_kmajor<kBK>(sm.v[s], kk), 1);
+      wgmma_ss<kBK, 0, 0>(dp, kdesc<D, kBQ>(sm.dout, kk), kdesc<D, kBK>(sm.v[s], kk), 1);
     wg_commit();
     wg_wait<0>();
     fence_regs(sc);
@@ -802,8 +817,7 @@ __global__ void __launch_bounds__(kThreads)
     fence_regs(dq);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_rs<D, 1>(dq, da[kk], desc_mnmajor<kBK>(sm.k[s], kk));
+    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs_mn<D, kBK>(dq, da[kk], sm.k[s], kk);
     wg_commit();
     wg_wait<0>();
     fence_regs(dq);
@@ -837,7 +851,7 @@ int launch_dq(const Params& p, void* stream) {
                     (cudaStream_t)stream);
     return (int)cudaGetLastError();
   }
-  DqMaps mp;
+  DqMaps<D> mp;
   if (!sm90::rows_map(&mp.q, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kBQ) ||
       !sm90::rows_map(&mp.dout, p.dout, p.d, p.nh, p.T, p.B, p.do_st, p.do_sb, kBQ) ||
       !sm90::rows_map(&mp.k, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kBK) ||
@@ -1308,7 +1322,7 @@ __device__ __forceinline__ void dq_walk(DqSmem<D>& sm, const Params& p, const Dq
 
 template <int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads, 1)
-    dq_kernel_sm90(const __grid_constant__ DqMaps mp, const Params p) {
+    dq_kernel_sm90(const __grid_constant__ DqMaps<D> mp, const Params p) {
   const int dh = kPartial ? p.d : D;  // the head size
   using namespace sm90;
   constexpr int NS = dq_stages<D>();
@@ -1422,7 +1436,7 @@ int launch_dq(const Params& p, void* stream) {
                     (cudaStream_t)stream);
     return (int)cudaGetLastError();
   }
-  DqMaps mp;
+  DqMaps<D> mp;
   if (!sm90::rows_map(&mp.q, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kDqRows) ||
       !sm90::rows_map(&mp.dout, p.dout, p.d, p.nh, p.T, p.B, p.do_st, p.do_sb, kDqRows) ||
       !sm90::rows_map(&mp.k, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kDqBK) ||
@@ -1439,10 +1453,10 @@ int launch_dq(const Params& p, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the wgmma kernel);
-// D: the built width it runs at, 64, 80, 128, 192 or 256; d: the head
-// size, d % 8 == 0, 8 <= d <= D (flash_attn_common.cuh). lse and delta
-// (B, nh, T) fp32; dq (B, T, nh, d) contiguous. Returns the launch's
-// cudaError_t.
+// D: the built width it runs at (fp32 64, 128 or 256; bf16 also 80 and
+// 192); d: the head size, d % 8 == 0, 8 <= d <= D (flash_attn_common.cuh).
+// lse and delta (B, nh, T) fp32; dq (B, T, nh, d) contiguous. Returns the
+// launch's cudaError_t.
 extern "C" int flash_attn_bwd_dq(int dtype, int D, int d, const void* q, const void* k,
                                  const void* v, const void* dout, const float* lse,
                                  const float* delta, void* dq, const int* seed, const int* dims,
@@ -1451,20 +1465,21 @@ extern "C" int flash_attn_bwd_dq(int dtype, int D, int d, const void* q, const v
   if (!flash::runs_head_size(D, d)) return (int)cudaErrorInvalidValue;
   const Params p = flash::make_params(d, q, k, v, dout, lse, delta, dq, nullptr, nullptr, seed,
                                       dims, strides, scale, thresh, keep_scale);
-  // d == D: the instance built for its head size; d < D: the masked one
+  // The widths built for each dtype are `WIDTHS` of ops/flash_attention.py,
+  // whose wrapper picks D; each runs on its own instances only: d == D the
+  // one built for its head size, d < D the masked one. Any other D is
+  // refused.
   const bool full = d == D;
   if (dtype == 0 && D == 64) return full ? launch_dq<float, 64, false>(p, stream)
                                          : launch_dq<float, 64, true>(p, stream);
-  // width 80: the 128-wide instances, masked past d (fp32 and bf16)
-  if (dtype == 0 && D == 80) return launch_dq<float, 128, true>(p, stream);
   if (dtype == 0 && D == 128) return full ? launch_dq<float, 128, false>(p, stream)
                                           : launch_dq<float, 128, true>(p, stream);
-  if (dtype == 0 && D == 192) return launch_dq<float, 256, true>(p, stream);
   if (dtype == 0 && D == 256) return full ? launch_dq<float, 256, false>(p, stream)
                                           : launch_dq<float, 256, true>(p, stream);
   if (dtype == 1 && D == 64) return full ? flash_sm90::launch_dq<64, false>(p, stream)
                                          : flash_sm90::launch_dq<64, true>(p, stream);
-  if (dtype == 1 && D == 80) return flash_sm90::launch_dq<128, true>(p, stream);
+  if (dtype == 1 && D == 80) return full ? flash_sm90::launch_dq<80, false>(p, stream)
+                                         : flash_sm90::launch_dq<80, true>(p, stream);
   if (dtype == 1 && D == 128) return full ? flash_sm90::launch_dq<128, false>(p, stream)
                                           : flash_sm90::launch_dq<128, true>(p, stream);
   if (dtype == 1 && D == 192) return full ? flash_ws::launch_dq<192, false>(p, stream)
@@ -1474,7 +1489,8 @@ extern "C" int flash_attn_bwd_dq(int dtype, int D, int d, const void* q, const v
   return (int)cudaErrorInvalidValue;
 }
 
-// As flash_attn_bwd_dq; dk and dv (B, S, nkv, d) contiguous.
+// As flash_attn_bwd_dq (widths: fp32 64, 128 or 256, bf16 also 80); dk
+// and dv (B, S, nkv, d) contiguous.
 extern "C" int flash_attn_bwd_dkv(int dtype, int D, int d, const void* q, const void* k,
                                   const void* v, const void* dout, const float* lse,
                                   const float* delta, void* dk, void* dv, const int* seed,
@@ -1483,14 +1499,11 @@ extern "C" int flash_attn_bwd_dkv(int dtype, int D, int d, const void* q, const 
   if (!flash::runs_head_size(D, d)) return (int)cudaErrorInvalidValue;
   const Params p = flash::make_params(d, q, k, v, dout, lse, delta, dk, dv, nullptr, seed, dims,
                                       strides, scale, thresh, keep_scale);
-  const bool full = d == D;
+  const bool full = d == D;  // as in flash_attn_bwd_dq
   if (dtype == 0 && D == 64) return full ? launch_dkv<float, 64, false>(p, stream)
                                          : launch_dkv<float, 64, true>(p, stream);
-  // width 80 in fp32: the 128-wide FMA kernel, masked past d
-  if (dtype == 0 && D == 80) return launch_dkv<float, 128, true>(p, stream);
   if (dtype == 0 && D == 128) return full ? launch_dkv<float, 128, false>(p, stream)
                                           : launch_dkv<float, 128, true>(p, stream);
-  if (dtype == 0 && D == 192) return launch_dkv<float, 256, true>(p, stream);
   if (dtype == 0 && D == 256) return full ? launch_dkv<float, 256, false>(p, stream)
                                           : launch_dkv<float, 256, true>(p, stream);
   if (dtype == 1 && D == 64) return full ? flash_sm90::launch_dkv<64, false>(p, stream)
@@ -1499,9 +1512,6 @@ extern "C" int flash_attn_bwd_dkv(int dtype, int D, int d, const void* q, const 
                                          : flash_sm90::launch_dkv<80, true>(p, stream);
   if (dtype == 1 && D == 128) return full ? flash_sm90::launch_dkv<128, false>(p, stream)
                                           : flash_sm90::launch_dkv<128, true>(p, stream);
-  // width 192: the 256-wide warp-specialized kernel (a single warpgroup
-  // would hold 2 x 96 accumulator registers a thread for dK and dV alone)
-  if (dtype == 1 && D == 192) return flash_ws::launch_dkv<256, true>(p, stream);
   if (dtype == 1 && D == 256) return full ? flash_ws::launch_dkv<256, false>(p, stream)
                                           : flash_ws::launch_dkv<256, true>(p, stream);
   return (int)cudaErrorInvalidValue;

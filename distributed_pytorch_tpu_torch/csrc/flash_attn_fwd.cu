@@ -5,11 +5,10 @@
 // and bound by ops/cuda_build.py; wrapped by ops/flash_attention.py.
 //
 // Head sizes: the C entry takes the width D the wrapper picks
-// (`padded_width`: the least of 64, 80, 128, 192 and 256 that holds d) and
-// runs d on the instance built for D, or at D < 256 on the masked instance
-// (kPartial), whose stores stop at d; width 192 runs the 256-wide kernel (the
-// dq has a 192-wide one, flash_attn_bwd.cu), and width 80 has a bf16
-// instance of its own (fp32 runs it on the 128-wide FMA kernel, masked).
+// (`padded_width`: the least of the forward's built widths in the dtype
+// that holds d, ops/flash_attention.py's `WIDTHS`: 64, 128 and 256, and
+// 80 in bf16) and runs d on the instance built for D, or on its masked
+// instance (kPartial), whose stores stop at d.
 // The TMA maps' row is d wide (their head stride d * 2 bytes, a multiple
 // of 16 exactly when d % 8 == 0), so each box past d arrives as zeros and
 // still counts its whole bytes on the barrier; the FMA loads zero-fill
@@ -724,8 +723,8 @@ int launch(const Params& p, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel); D: the
-// built width it runs at, 64, 80, 128, 192 or 256; d: the head size, d % 8
-// == 0, 8 <= d <= D (flash_attn_common.cuh). out (B, T, nh, d) and lse
+// built width it runs at (fp32 64, 128 or 256; bf16 also 80); d: the head
+// size, d % 8 == 0, 8 <= d <= D (flash_attn_common.cuh). out (B, T, nh, d) and lse
 // (B, nh, T) fp32, both contiguous. dims and strides as in
 // flash::make_params.
 // Returns the launch's cudaError_t (0 = success).
@@ -736,15 +735,15 @@ extern "C" int flash_attn_fwd(int dtype, int D, int d, const void* q, const void
   if (!flash::runs_head_size(D, d)) return (int)cudaErrorInvalidValue;
   const Params p = flash::make_params(d, q, k, v, nullptr, nullptr, nullptr, out, nullptr, lse,
                                       seed, dims, strides, scale, thresh, keep_scale);
-  // d == D: the instance built for its head size; d < D: the masked one
+  // The widths built for each dtype are `WIDTHS` of ops/flash_attention.py,
+  // whose wrapper picks D; each runs on its own instances only: d == D the
+  // one built for its head size, d < D the masked one. Any other D is
+  // refused.
   const bool full = d == D;
   if (dtype == 0 && D == 64) return full ? launch<float, 64, false>(p, stream)
                                          : launch<float, 64, true>(p, stream);
-  // width 80 in fp32: the 128-wide FMA kernel, masked past d
-  if (dtype == 0 && D == 80) return launch<float, 128, true>(p, stream);
   if (dtype == 0 && D == 128) return full ? launch<float, 128, false>(p, stream)
                                           : launch<float, 128, true>(p, stream);
-  if (dtype == 0 && D == 192) return launch<float, 256, true>(p, stream);
   if (dtype == 0 && D == 256) return full ? launch<float, 256, false>(p, stream)
                                           : launch<float, 256, true>(p, stream);
   if (dtype == 1 && D == 64) return full ? flash_sm90::launch<64, false>(p, stream)
@@ -753,9 +752,6 @@ extern "C" int flash_attn_fwd(int dtype, int D, int d, const void* q, const void
                                          : flash_sm90::launch<80, true>(p, stream);
   if (dtype == 1 && D == 128) return full ? flash_sm90::launch<128, false>(p, stream)
                                           : flash_sm90::launch<128, true>(p, stream);
-  // width 192: the 256-wide warp-specialized kernel, 1.8x faster at d 192
-  // than a single warpgroup at 192, which holds one CTA an SM (PERF.md)
-  if (dtype == 1 && D == 192) return flash_ws::launch<256, true>(p, stream);
   if (dtype == 1 && D == 256) return full ? flash_ws::launch<256, false>(p, stream)
                                           : flash_ws::launch<256, true>(p, stream);
   return (int)cudaErrorInvalidValue;

@@ -16,16 +16,16 @@ layout through (batch, time) strides, so they serve both:
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take (dtypes other than fp32/bf16, head sizes that are not
-a multiple of 8 from 8 to 256). A head size d runs at `padded_width(d)`,
-the least of the widths `HEAD_SIZES` (64, 80, 128, 192, 256) that holds
-it: columns d .. width - 1 load as zeros, which add exactly 0 to every
-product, and no output column past d is written, so the wrappers hand the
-kernels the caller's own tensors (no padded copy) and get outputs of head
-size d. The C entries run each width on an instance built for it (d equal
-to the width) or on a masked one (d under it); width 80 (the flagship
-with MLA, 64 + 16) is the bf16 forward's and dkv's own, and the dq and
-the fp32 kernels run it on their 128-wide instances; width 192 is the
-dq's own, and the forward and dkv run it on their 256-wide kernels. The dtype picks
+a multiple of 8 from 8 to 256). A head size d runs at `padded_width(d,
+kernel, dtype)`, the least of the kernel's built widths in that dtype
+(`WIDTHS`, the one table of them) that holds it: columns d .. width - 1
+load as zeros, which add exactly 0 to every product, and no output column
+past d is written, so the wrappers hand the kernels the caller's own
+tensors (no padded copy) and get outputs of head size d. The C entries
+run each width on the instance built for it (d equal to the width) or on
+its masked one (d under it), and refuse any width not in the table. In
+bf16 every kernel has width 80 (the flagship with MLA, 64 + 16) and the
+dq also 192; fp32 runs those head sizes at 128 and 256. The dtype picks
 the design inside the C entry, by dtype and never as a fallback: bf16 runs on tensor cores (wgmma on TMA-fed shared
 memory, csrc/flash_attn_sm90.cuh and csrc/sm90_common.cuh), fp32 on the
 FMA design (csrc/flash_attn_common.cuh), since tensor cores take fp32
@@ -68,8 +68,18 @@ PLAIN_CALLS = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
                "flash_attn_bwd_dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_SIZES = (64, 80, 128, 192, 256)  # the widths a head size runs at
-MAX_HEAD_SIZE = HEAD_SIZES[-1]
+#: the widths each kernel is built at, by dtype; its C entry dispatches
+#: these and refuses any other
+WIDTHS = {
+    "flash_attn_fwd": {torch.float32: (64, 128, 256),
+                       torch.bfloat16: (64, 80, 128, 256)},
+    "flash_attn_bwd_dq": {torch.float32: (64, 128, 256),
+                          torch.bfloat16: (64, 80, 128, 192, 256)},
+    "flash_attn_bwd_dkv": {torch.float32: (64, 128, 256),
+                           torch.bfloat16: (64, 80, 128, 256)}}
+#: the largest head size every kernel takes in every dtype
+MAX_HEAD_SIZE = min(ws[-1] for by_dtype in WIDTHS.values()
+                    for ws in by_dtype.values())
 
 
 def head_size_ok(d: int) -> bool:
@@ -79,13 +89,13 @@ def head_size_ok(d: int) -> bool:
     return d % 8 == 0 and 8 <= d <= MAX_HEAD_SIZE
 
 
-def padded_width(d: int) -> int:
-    """The built width head size `d` runs at: the least of HEAD_SIZES
-    that holds it."""
+def padded_width(d: int, kernel: str, dtype: torch.dtype) -> int:
+    """The built width `kernel` runs head size `d` at in `dtype`: the
+    least of its WIDTHS that holds it."""
     if not head_size_ok(d):
         raise ValueError(f"the flash kernels take head sizes that are "
                          f"multiples of 8 from 8 to {MAX_HEAD_SIZE}, not {d}")
-    return next(w for w in HEAD_SIZES if d <= w)
+    return next(w for w in WIDTHS[kernel][dtype] if d <= w)
 
 
 def reset_counts() -> None:
@@ -304,7 +314,8 @@ def _launch(name, fn_args, q, dims, strides, seed, scale, causal, rate):
     lib = cuda_build.load(name)
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
-            _DTYPE_CODE[q.dtype], padded_width(q.shape[3]), q.shape[3],
+            _DTYPE_CODE[q.dtype], padded_width(q.shape[3], name, q.dtype),
+            q.shape[3],
             *fn_args,
             None if seed is None else seed.data_ptr(), dims,
             (ctypes.c_longlong * 8)(*strides), float(scale),

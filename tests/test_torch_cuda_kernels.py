@@ -28,10 +28,9 @@ S off the bf16 kernels' tiles (T 1, 70, 130, 200) and S > T, at their
 built widths 64, 80, 128 and 256 and at head sizes under them (8, 32, 40,
 48, 72, 96, 136, 192, 200, 248), the warp-specialized dq's last 128-row
 tile with no, some or all rows for its second consumer (T 900, 1000,
-1088), the bf16 forward and dkv at width 80 (head sizes 72 and 80; T 65,
-900 and 1088, MHA 12 / 12 and GQA 12 / 4, causal and full, dropout 0 and
-0.2) and the kernels the profiler sees there (the dq on its 128-wide
-masked instance),
+1088), the bf16 forward, dq and dkv at width 80 (head sizes 72 and 80; T
+65, 900 and 1088, MHA 12 / 12 and GQA 12 / 4, causal and full, dropout 0
+and 0.2) and the kernels the profiler sees there (each built at 80),
 with no output column stored past the head size
 (outputs allocated in front of NaN sentinels), and bf16 at the training
 shapes (B 8, T 1024, 12 x 64 and 8 x 256), each
@@ -811,8 +810,8 @@ def test_flash_kernels_bf16_mla_training_shape(dev, rate):
 @pytest.mark.parametrize("T", [65, 900, 1088])
 @pytest.mark.parametrize("D", [72, 80])
 def test_flash_kernels_bf16_width_80(dev, D, T, nh, nkv, causal, rate):
-    """Head sizes 72 and 80 at width 80 (the bf16 forward and dkv built
-    for it; 72 on the masked instance) against the plain versions: T 65
+    """Head sizes 72 and 80 at width 80 (the bf16 forward, dq and dkv
+    built for it; 72 on the masked instances) against the plain versions: T 65
     (one full 64-row tile and one row), 900 and 1088 (ragged and
     64-aligned), MHA and GQA (the dkv sums 3 query heads a kv head)."""
     _flash_case(dev, torch.bfloat16, 2 if T == 65 else 1, T, T, nh, nkv, D,
@@ -821,10 +820,10 @@ def test_flash_kernels_bf16_width_80(dev, D, T, nh, nkv, causal, rate):
 
 @pytest.mark.parametrize("D", [72, 80])
 def test_flash_width_80_runs_its_own_instances(dev, D):
-    """Under the profiler, head sizes 72 and 80 in bf16 launch the forward
-    and dkv built for width 80 (`<80, true>` masked for 72, `<80, false>`
-    for 80), never a 128-wide one, and the dq's 128-wide masked instance;
-    each output equals its plain version within FLASH_TOL."""
+    """Under the profiler, head sizes 72 and 80 in bf16 launch the
+    forward, dq and dkv built for width 80 (`<80, true>` masked for 72,
+    `<80, false>` for 80), never a 128-wide one; each output equals its
+    plain version within FLASH_TOL."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -835,7 +834,7 @@ def test_flash_width_80_runs_its_own_instances(dev, D):
     part = "true" if D < 80 else "false"
     want = {"fwd": f"fwd_kernel_sm90<80, {part}>",
             "dkv": f"dkv_kernel_sm90<80, {part}>",
-            "dq": "dq_kernel_sm90<128, true>"}
+            "dq": f"dq_kernel_sm90<80, {part}>"}
     for kind, name in want.items():
         got = [n for n in names if re.search(rf"\b{kind}_kernel_sm90<", n)]
         assert got and all(name in n for n in got), (kind, names)

@@ -117,30 +117,80 @@ def test_matches_reference_kernel_at_head_size(causal, D):
 def test_gate_takes_head_size_256_and_no_other_mla_size():
     """The kernels' gate takes every head size that is a multiple of 8
     from 8 to 256 (the launcher's MLA, 128 + 128, is the widest), each at
-    the least built width that holds it (`padded_width`: 72 and 80 at 80,
-    88 at 128), and refuses MLA
+    the least width its kernel is built at in its dtype that holds it
+    (`padded_width`; bf16: 72 and 80 at 80 for all three kernels, 136-192
+    at 192 for the dq and at 256 for the forward and dkv; fp32: 72 and 80
+    at 128, 136-192 at 256; 88 at 128 everywhere), and refuses MLA
     sizes past it or off the 8-element grid (36 = 20 + 16; 260, 264 = 136
     + 128), which the reference's gate may take; on the card the wrappers
     raise on them (tests/test_torch_cuda_kernels.py)."""
+    bf16, fp32 = torch.bfloat16, torch.float32
     for D in range(1, 300):
         z = torch.zeros(1, 8, 4, D)
         ok = D % 8 == 0 and 8 <= D <= 256
         assert fa.flash_attention_usable(z, z, z) is ok, D
         assert fa.head_size_ok(D) is ok, D
-        if ok:
-            assert fa.padded_width(D) == (64 if D <= 64 else
-                                          80 if D <= 80 else
-                                          128 if D <= 128 else
-                                          192 if D <= 192 else 256), D
-        else:
-            with pytest.raises(ValueError, match="multiples of 8"):
-                fa.padded_width(D)
-    assert fa.HEAD_SIZES == (64, 80, 128, 192, 256)
-    assert fa.padded_width(72) == fa.padded_width(80) == 80
-    assert fa.padded_width(88) == 128
+        for kernel in fa.WIDTHS:
+            if ok:
+                assert fa.padded_width(D, kernel, bf16) == (
+                    64 if D <= 64 else 80 if D <= 80 else
+                    128 if D <= 128 else
+                    192 if D <= 192 and kernel == "flash_attn_bwd_dq"
+                    else 256), (D, kernel)
+                assert fa.padded_width(D, kernel, fp32) == (
+                    64 if D <= 64 else 128 if D <= 128 else 256), (D, kernel)
+            else:
+                with pytest.raises(ValueError, match="multiples of 8"):
+                    fa.padded_width(D, kernel, bf16)
+    assert fa.WIDTHS == {
+        "flash_attn_fwd": {fp32: (64, 128, 256), bf16: (64, 80, 128, 256)},
+        "flash_attn_bwd_dq": {fp32: (64, 128, 256),
+                              bf16: (64, 80, 128, 192, 256)},
+        "flash_attn_bwd_dkv": {fp32: (64, 128, 256),
+                               bf16: (64, 80, 128, 256)}}
+    assert fa.MAX_HEAD_SIZE == 256
+    for kernel in fa.WIDTHS:
+        assert fa.padded_width(72, kernel, bf16) == \
+            fa.padded_width(80, kernel, bf16) == 80
+        assert fa.padded_width(80, kernel, fp32) == 128
+        assert fa.padded_width(88, kernel, bf16) == 128
     for D in (36, 260, 264):
         z = torch.zeros(1, 8, 4, D)
         assert not fa.flash_attention_usable(z, z, z), D
+
+
+# the C entry of each flash kernel and its source
+ENTRY_SOURCE = {"flash_attn_fwd": "flash_attn_fwd.cu",
+                "flash_attn_bwd_dq": "flash_attn_bwd.cu",
+                "flash_attn_bwd_dkv": "flash_attn_bwd.cu"}
+
+
+@pytest.mark.parametrize("kernel", sorted(ENTRY_SOURCE))
+def test_widths_table_is_what_the_c_entry_dispatches(kernel):
+    """`WIDTHS` and the C entry, read from its source, name the same
+    (dtype, width) pairs, and the entry runs each width D on the two
+    instances built at D (full for d == D, masked for d < D), never on a
+    wider one, and refuses every other width."""
+    import re
+    from pathlib import Path
+    src = (Path(fa.__file__).resolve().parent.parent / "csrc"
+           / ENTRY_SOURCE[kernel]).read_text()
+    start = src.index(f'extern "C" int {kernel}(')
+    body = src[start:src.index("\n}\n", start)]
+    cases = re.findall(r"if \(dtype == (\d) && D == (\d+)\) return (.*?);",
+                       body, re.S)
+    assert cases and body.count("return") == len(cases) + 2, body
+    assert body.rstrip().endswith("return (int)cudaErrorInvalidValue;")
+    for dtype, D, call in cases:
+        inst = re.findall(r"<(?:float, )?(\d+), (true|false)>\(p, stream\)",
+                          call)
+        assert call.startswith("full ? ") and inst == [
+            (D, "false"), (D, "true")], (dtype, D, call)
+    code = {0: torch.float32, 1: torch.bfloat16}
+    got = {}
+    for dtype, D, _ in cases:
+        got.setdefault(code[int(dtype)], []).append(int(D))
+    assert {k: tuple(v) for k, v in got.items()} == fa.WIDTHS[kernel]
 
 
 def test_dropout_bits_match_mix_bits():

@@ -193,8 +193,8 @@ def _chip_smoke():
 # wgmma kernels (flash fwd, dq, dkv and the paged prefill at D 64 and 128,
 # grouped fwd, dx and dW unscaled and scaled, the fused CE forward, dx and
 # dW, the int8-cache paged prefill at D 64 and 128, flash fwd, dq, dkv at
-# D 256, the flash dq at D 192, the flash forward and dkv at width 80, and
-# every flash kernel's instance for head sizes under its width) and some of
+# D 256, the flash dq at D 192, the flash forward, dq and dkv at width 80,
+# and every flash kernel's instance for head sizes under its width) and some of
 # the others (fp32 flash, fp32 grouped forward, dx and
 # dW, the FMA prefill, the tile decode, the split-KV decode's split (bf16
 # and int8 caches) and combine kernels, the fused CE's mma.sync and fp32
@@ -243,7 +243,10 @@ SASS_SM90 = [
     "_ZN12_GLOBAL__N_110flash_sm9015fwd_kernel_sm90ILi80ELb1EEEvN4sm905Map80ES3_"
     "S3_N5flash6ParamsE",
     "_ZN12_GLOBAL__N_110flash_sm9015dkv_kernel_sm90ILi80ELb1EEEvNS0_6MapsOfIN4sm9"
-    "05Map80EEEN5flash6ParamsE"]
+    "05Map80EEEN5flash6ParamsE"] + [
+    # the dq at width 80, for d == 80 and d < 80
+    f"_ZN12_GLOBAL__N_110flash_sm9014dq_kernel_sm90ILi80ELb{b}EEEvNS0_6DqMaps"
+    "IXT_EEEN5flash6ParamsE" for b in (0, 1)]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
@@ -342,7 +345,13 @@ BROKEN = {"complete": None,
           "masked_fwd_80_without_tma": ((SASS_SM90[35], "UTMALDG", 0),
                                         "fwd_kernel_sm90"),
           "dkv_80_without_hgmma": ((SASS_SM90[34], "HGMMA", 0),
-                                   "dkv_kernel_sm90")}
+                                   "dkv_kernel_sm90"),
+          "dq_80_missing": ((SASS_SM90[37], None, 0),
+                            "dq_kernel_sm90ILi80E"),
+          "dq_80_without_hgmma": ((SASS_SM90[37], "HGMMA", 0),
+                                  "dq_kernel_sm90"),
+          "masked_dq_80_with_spill": ((SASS_SM90[38], "STL", 6),
+                                      "dq_kernel_sm90")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
@@ -367,7 +376,8 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     masked forward (head sizes under 64) without a TMA load; the masked
     warp-specialized dkv without setmaxnreg; the forward or dkv at width
     80 missing, with a register spill or without HGMMA, and its masked
-    forward without a TMA load."""
+    forward without a TMA load; the dq at width 80 missing, without HGMMA,
+    or (masked) with a register spill."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
     for fn in SASS_SM90[12:14] + SASS_SM90[17:19]:  # the paged prefills

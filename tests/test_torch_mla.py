@@ -508,7 +508,8 @@ def test_launcher_model_counts():
     attn = sum(p.numel() for n, p in tm.named_parameters() if ".attn." in n)
     assert round(total / 1e6, 2) == 537.76 and active < total
     assert round(attn / 1e6, 2) == 33.03
-    assert cfg.head_size + cfg.rope_head_dim == 256 == fa.padded_width(256)
+    assert cfg.head_size + cfg.rope_head_dim == 256 == fa.padded_width(
+        256, "flash_attn_fwd", torch.bfloat16)
     assert metrics.step_flops(cfg, 2 ** 14, 1024) == jmetrics.step_flops(
         JConfig(**LAUNCHER, act_recomp=True, act_recomp_policy="attn"),
         2 ** 14, 1024)
