@@ -436,27 +436,32 @@ SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "USETMAXREG", "STL")
 SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
              "grouped_mm_bwd_dw", "paged_prefill_attn", "paged_decode_attn",
              "fused_ce_fwd", "fused_ce_bwd_dx")
-# the bf16 kernels on wgmma: fwd, dq and dkv at D 64, 80, 128 and 256 and
-# dq at D 192 (the forward and dkv run head sizes 136-192 at 256), each
+# the bf16 kernels on wgmma: fwd, dq and dkv at D 64, 80, 128 and 256,
+# dq at D 192 (the forward and dkv run head sizes 136-192 at 256) and dq
+# and dkv at D 32 (the forward runs head sizes 8-32 at 64), each
 # built twice, for d == D and for d < D (masked stores, `kPartial`), the
 # grouped forward, dx and dW unscaled (fc) and gate-scaled (proj), the
 # paged prefill at hs 64 and 128 over a bf16 and over an int8 cache, the
 # fused CE forward, dx and dW
-SASS_WGMMA_KERNELS = 39
+SASS_WGMMA_KERNELS = 43
 # what a wgmma kernel's SASS must hold and must not: TMA loads, except in
 # the paged prefills (bf16 and int8 caches), which gather their tiles
 # through the block table with cp.async (LDGSTS) and issue no TMA load;
 # the warp-specialized flash kernels (forward, dq and dkv at head size
 # 256, dq at 192) also hand registers to their consumers (setmaxnreg) and
-# spill none; the forward, dq and dkv at width 80 spill none
+# spill none; the forward, dq and dkv at width 80 and the dq and dkv at
+# width 32 spill none
 _WS = ({"HGMMA", "UTMALDG", "USETMAXREG"}, {"STL"})
-_W80 = ({"HGMMA", "UTMALDG"}, {"STL"})
+_NO_SPILL = ({"HGMMA", "UTMALDG"}, {"STL"})
 SASS_EXPECT = {"prefill_kernel_sm90_q8": ({"HGMMA", "LDGSTS"}, {"UTMALDG"}),
                "prefill_kernel_sm90": ({"HGMMA", "LDGSTS"}, {"UTMALDG"}),
                "fwd_kernel_sm90ILi256E": _WS, "dkv_kernel_sm90ILi256E": _WS,
                "dq_kernel_sm90ILi256E": _WS, "dq_kernel_sm90ILi192E": _WS,
-               "fwd_kernel_sm90ILi80E": _W80, "dkv_kernel_sm90ILi80E": _W80,
-               "dq_kernel_sm90ILi80E": _W80}
+               "fwd_kernel_sm90ILi80E": _NO_SPILL,
+               "dkv_kernel_sm90ILi80E": _NO_SPILL,
+               "dq_kernel_sm90ILi80E": _NO_SPILL,
+               "dkv_kernel_sm90ILi32E": _NO_SPILL,
+               "dq_kernel_sm90ILi32E": _NO_SPILL}
 SASS_EXPECT_SM90 = ({"HGMMA", "UTMALDG"}, set())
 # every other kernel (fp32, int8, the decode's split-KV pair over every
 # cache type) holds neither wgmma nor TMA loads
@@ -466,11 +471,14 @@ SASS_EXPECT_OTHER = (set(), {"HGMMA", "UTMALDG"})
 # int8-cache prefill on wgmma, the flash kernels at head size 256
 # (MLA's q_c | q_r): wgmma in bf16 (`..._sm90ILi256E`; the dq, like the
 # dq at 192, warp-specialized in `flash_ws`), FMA in fp32 (`...IfLi256E`),
-# and the bf16 forward, dq and dkv at width 80 (the flagship with MLA)
+# the bf16 forward, dq and dkv at width 80 (the flagship with MLA) and the
+# bf16 dq and dkv at width 32 (the default config; pipelined, `flash_pipe`)
 SASS_REQUIRED = ("decode_split_kernel", "decode_combine_kernel",
                  "prefill_kernel_sm90_q8",
                  "fwd_kernel_sm90ILi80E", "dkv_kernel_sm90ILi80E",
                  "flash_sm9014dq_kernel_sm90ILi80E",
+                 "flash_pipe15dkv_kernel_sm90ILi32E",
+                 "flash_pipe14dq_kernel_sm90ILi32E",
                  "flash_ws14dq_kernel_sm90ILi192E",
                  "fwd_kernel_sm90ILi256E",
                  "flash_ws14dq_kernel_sm90ILi256E", "dkv_kernel_sm90ILi256E",
@@ -518,9 +526,10 @@ def check_sass(counts: dict) -> None:
     loads (TMA, or cp.async in the paged prefills, which hold no TMA
     load); the flash forward, dq and dkv at head size 256 and the dq at
     192 hold setmaxnreg and no local-memory store, the forward, dq and
-    dkv at width 80 no local-memory store; the split-KV decode's kernels,
-    the int8-cache prefill, the flash kernels at head size 256 and the
-    forward, dq and dkv at width 80 are there; every other kernel holds
+    dkv at width 80 and the dq and dkv at width 32 no local-memory store;
+    the split-KV decode's kernels, the int8-cache prefill, the flash
+    kernels at head size 256, the forward, dq and dkv at width 80 and the
+    dq and dkv at width 32 are there; every other kernel holds
     neither HGMMA nor a TMA load."""
     for name in SASS_REQUIRED:
         check(any(name in fn for fn in counts),
@@ -707,9 +716,11 @@ def kernel_cases(torch, fd, dev):
 FLASH_SHAPES = {64: (8, 1024, 12, 12), 256: (8, 1024, 8, 8),
                 32: (8, 1024, 8, 4), 80: (8, 1024, 12, 12)}
 #: head sizes held against their plain versions but not timed: MLA on the
-#: default config (48 = 32 + 16) and the flagship with the launcher's rope
-#: head (192 = 64 + 128)
-FLASH_CHECKED = {48: (8, 1024, 8, 8), 192: (8, 1024, 12, 12)}
+#: default config (48 = 32 + 16), the flagship with the launcher's rope
+#: head (192 = 64 + 128) and 24 (the bf16 dq and dkv on their masked
+#: width-32 instances)
+FLASH_CHECKED = {48: (8, 1024, 8, 8), 192: (8, 1024, 12, 12),
+                 24: (8, 1024, 8, 4)}
 
 
 def flash_cases(torch, dev):
@@ -837,13 +848,17 @@ def run_flash_kernels(torch, dev) -> dict:
     return results
 
 
-#: phase 3's width comparison, bf16 at B 8, T 1024, 12 heads, causal:
-#: (head size, the built width it runs at, where the kernel is built at
-#: it). 192 at 192 (the 192-wide warp-specialized dq; the forward and dkv
-#: have no width 192 and run 256 in both rows) against 256 (the 256-wide
-#: dq); 80 at its own width 80 (forward, dq, dkv) against 80 at 128,
-#: masked, and 128 at 128: the padded columns' cost.
-FLASH_WIDTHS = ((192, 192), (192, 256), (80, 80), (80, 128), (128, 128))
+#: phase 3's width comparison, bf16 at B 8, T 1024, causal: (head size,
+#: the built width it runs at, where the kernel is built at it, heads, kv
+#: heads). 192 at 192 (the 192-wide warp-specialized dq; the forward and
+#: dkv have no width 192 and run 256 in both rows) against 256 (the
+#: 256-wide dq); 80 at its own width 80 (forward, dq, dkv) against 80 at
+#: 128, masked, and 128 at 128; 32 at 32 (dq, dkv; the forward has no
+#: width 32 and runs 64 in both rows) against 32 at 64, masked, at the
+#: default config's GQA 8 / 4 heads: the padded columns' cost.
+FLASH_WIDTHS = ((192, 192, 12, 12), (192, 256, 12, 12), (80, 80, 12, 12),
+                (80, 128, 12, 12), (128, 128, 12, 12), (32, 32, 8, 4),
+                (32, 64, 8, 4))
 
 
 def run_flash_widths(torch, dev) -> dict:
@@ -856,9 +871,9 @@ def run_flash_widths(torch, dev) -> dict:
 
     chosen = fa.padded_width
     res = {}
-    for d, w in FLASH_WIDTHS:
+    for d, w, nh, nkv in FLASH_WIDTHS:
         for dn, name, _, fk, fp, _, n_bytes, flops in _flash_cases_at(
-                torch, dev, 8, 1024, 12, 12, d):
+                torch, dev, 8, 1024, nh, nkv, d):
             if dn != "bfloat16":
                 continue
             fa.padded_width = lambda d_, kernel, dtype, w=w: (
@@ -881,7 +896,8 @@ def run_flash_widths(torch, dev) -> dict:
             finally:
                 fa.padded_width = chosen
             b_ms, b_by = bound(n_bytes, flops, dn)
-            print(f"  {name:18s} d {d:3d} at width {ran:3d} (bf16, 12 heads): "
+            print(f"  {name:18s} d {d:3d} at width {ran:3d} (bf16, {nh} / "
+                  f"{nkv} heads): "
                   f"device {ms if ms is None else round(ms, 4)} ms, bound "
                   f"{b_ms:.4f} ms ({b_by}); the width the wrapper picks: "
                   f"{chosen(d, name, torch.bfloat16)}", flush=True)
@@ -3217,9 +3233,9 @@ def run_train_small(torch, dev, card: str, argv: list, what: str,
     """The trainer's own train() on `argv` in `tmp`, at full width: the
     loss finite and falling by TRAIN_DROP, the flash kernels launched
     exactly (forward, dq and dkv once a layer a micro-step) at head size
-    SMALL_D[what], no plain call; the flagship with MLA also profiled
-    (`profile_train`: two steady steps, flash ms a step per kernel).
-    Returns the launches and the run's numbers."""
+    SMALL_D[what], no plain call; then profiled (`profile_train`: two
+    steady steps, flash ms a step per kernel). Returns the launches and
+    the run's numbers."""
     from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
     from distributed_pytorch_tpu_torch.ops import flash_attention as fa
     from distributed_pytorch_tpu_torch.train.loop import train
@@ -3252,9 +3268,13 @@ def run_train_small(torch, dev, card: str, argv: list, what: str,
                step_ms=stats["median_step_time"] * 1e3,
                tok_s=stats["median_tokens_per_sec"],
                mfu=stats["median_mfu"], peak_gb=stats["peak_mem_gb"])
-    if what == "flagship_mla":     # the flash kernels at width 80
-        out["split"] = profile_train(torch, stats["state"], train_cfg,
-                                     model_cfg)
+    out["split"] = profile_train(torch, stats["state"], train_cfg,
+                                 model_cfg)
+    print(f"  {what}: flash dq {out['split']['flash_attn_bwd_dq']:.3f} ms + "
+          f"dkv {out['split']['flash_attn_bwd_dkv']:.3f} ms a step (device, "
+          f"at widths {out['width']['flash_attn_bwd_dq']} and "
+          f"{out['width']['flash_attn_bwd_dkv']}); step p50 "
+          f"{stats['median_step_time'] * 1e3:.3f} ms", flush=True)
     print(f"  {what}: {model_cfg.n_layer} x {model_cfg.n_embd}, "
           f"{model_cfg.attn} {model_cfg.n_head} / {model_cfg.n_kv_heads} "
           f"heads, flash head size {d} (run at width {out['width']}); "

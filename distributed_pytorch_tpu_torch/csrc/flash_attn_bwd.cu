@@ -3,9 +3,9 @@
 // size d with d % 8 == 0 up to 256, run at a built width as the forward
 // runs it: Q, K, V and dO zero past d, so S, dP, dS K, dS^T Q and P^T dO
 // take nothing from the padded columns, and dq, dk, dv are stored up to d
-// only). In bf16 both have width 80 and the dq also 192; fp32 runs those
-// head sizes at 128 and 256 (ops/flash_attention.py's `WIDTHS` is the one
-// table of the built widths). Both recompute p = exp(s - lse) from
+// only). In bf16 both have widths 32 and 80 and the dq also 192; fp32 runs
+// those head sizes at 64, 128 and 256 (ops/flash_attention.py's `WIDTHS`
+// is the one table of the built widths). Both recompute p = exp(s - lse) from
 // the forward's logsumexp instead of storing probabilities; delta =
 // rowsum(dout * out) - dlse comes in precomputed (fp32, (B, nh, T)), which
 // is how a gradient flowing into lse folds in. Built and bound by
@@ -140,6 +140,31 @@
 //   The 128-wide instance it replaces for these head sizes walked 32-row
 //   tiles (twice the turns) with 8 k-steps and N 128, 48 columns zero. The
 //   layout of five 16-column sub-tiles ran slower here too (PERF.md).
+// * dq and dkv, bf16 at width 32 (`flash_pipe::dq_kernel_sm90<32>`,
+//   `flash_pipe::dkv_kernel_sm90<32>`: head sizes 8-32, the default
+//   config's heads of 32): one warpgroup a CTA, as above (a dq CTA 64
+//   query rows on 64-key stages, a dkv CTA 64 keys on 64-row query tiles
+//   of every head of its group), on tiles of exactly 32 columns (one box
+//   at the 64-byte swizzle, flash_attn_sm90.cuh): S and dP (S^T and dP^T)
+//   in 2 k-steps, the MN-major products m64n32k16. At 32 the products
+//   halve while the exponentials and the CUDA-core work per score stay
+//   those of 64, and one warpgroup taking them in series ran as slowly
+//   as the 64-wide instance. So the turns are pipelined, as in the
+//   warp-specialized dq's consumers: a turn issues tile j's S and dP and
+//   tile j - 1's dQ += dS K (dV and dK), forms tile j's dS (P^T and dS^T)
+//   beside that product, branch-free (masked by selects, the dropout
+//   products rounded on their own), then hands stage j - 1 back to a
+//   4-stage ring and packs the fragments. Each sum keeps its order, so
+//   dq, dk and dv are the bytes of the 64-wide masked instances. The dq
+//   holds 127 registers (four CTAs an SM), the dkv at most 168 (three).
+//   On the H100 (B 8, T 1024, 8 / 4 heads, causal, bench/flash_ab.py):
+//   dq 0.0688 -> 0.046, dkv 0.1058 -> 0.047 ms. Slower there: the
+//   templates above compiled at 32 (dq 0.0627, dkv 0.0935; 128-row dkv
+//   query tiles 0.1048 at 254 registers; 4- and 6-stage rings no faster),
+//   the warp-specialized dq at 32 (0.0793 on 64-key stages, one CTA an
+//   SM; 0.0510 on 32-key stages, two), a dkv of two consumer warpgroups on
+//   two 64-key tiles over one Q / dO ring (0.1646), and this dkv at 172
+//   registers (two CTAs an SM: 0.0520) (PERF.md).
 // * dkv, bf16 at head size 256 (`flash_ws::dkv_kernel_sm90`):
 //   warp-specialized, one CTA of 384 threads per (64-key tile, kv head,
 //   batch), 210 KB of shared memory (K and V 64 KB, a 2-stage ring of
@@ -1232,12 +1257,12 @@ __device__ __forceinline__ void issue_dq(DqSmem<D>& sm, float (&dq)[D / 2],
 // tile before is in flight, so it has no branch: every tile is masked by
 // selects against each row's kend (a no-op off the diagonal and the
 // ragged ends), the dropout mask picked at compile time.
-template <bool DROP>
-__device__ __forceinline__ void form_ds(const Params& p, const DqRows& rw, float (&sc)[kDqBK / 2],
-                                        const float (&dp)[kDqBK / 2], int j) {
-  const int k0 = j * kDqBK;
+template <bool DROP, int BK = kDqBK>
+__device__ __forceinline__ void form_ds(const Params& p, const DqRows& rw, float (&sc)[BK / 2],
+                                        const float (&dp)[BK / 2], int j) {
+  const int k0 = j * BK;
 #pragma unroll
-  for (int i = 0; i < kDqBK / 2; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     const int ih = (i >> 1) & 1;
     const int kp = k0 + 8 * (i >> 2) + rw.c0 + (i & 1);
     const float pv = kp < rw.kend[ih] ? expf(sc[i] * p.scale - rw.lse[ih]) : 0.f;
@@ -1450,11 +1475,453 @@ int launch_dq(const Params& p, void* stream) {
 
 }  // namespace flash_ws
 
+// ---- bf16 dq and dkv at width 32: one warpgroup, products pipelined --------
+
+namespace flash_pipe {
+
+using flash_sm90::DkvMaps;
+using flash_sm90::DqMaps;
+using flash_sm90::kLog2e;
+using flash_sm90::kThreads;  // one warpgroup
+using sm90::bf16;
+constexpr int kB = 64;  // dq: query rows a CTA, keys a stage; dkv: keys a CTA, query rows a tile
+constexpr int kStages = 4;
+
+template <int D>
+struct DqSmem {
+  alignas(1024) bf16 q[kB * D];
+  alignas(1024) bf16 dout[kB * D];
+  alignas(1024) bf16 k[kStages][kB * D];
+  alignas(1024) bf16 v[kStages][kB * D];
+  uint64_t qbar, full[kStages];
+};
+
+template <int D>
+__device__ __forceinline__ void load_kv(DqSmem<D>& sm, const DqMaps<D>& mp, int j, int s, int g,
+                                        int b) {
+  sm90::mbar_expect_tx(&sm.full[s], 2 * kB * D * 2);
+  sm90::tma_rows<D, kB>(sm.k[s], &mp.k, &sm.full[s], g, j * kB, b);
+  sm90::tma_rows<D, kB>(sm.v[s], &mp.v, &sm.full[s], g, j * kB, b);
+}
+
+// S = Q K^T and dP = dO V^T over the key tile in stage s, from zero
+template <int D>
+__device__ __forceinline__ void issue_sdp(DqSmem<D>& sm, float (&sc)[kB / 2], float (&dp)[kB / 2],
+                                          int s) {
+  using namespace sm90;
+#pragma unroll
+  for (int i = 0; i < kB / 2; ++i) {
+    sc[i] = 0.f;
+    dp[i] = 0.f;
+  }
+  fence_regs(sc);
+  fence_regs(dp);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kB, 0, 0>(sc, kdesc<D, kB>(sm.q, kk), kdesc<D, kB>(sm.k[s], kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kB, 0, 0>(dp, kdesc<D, kB>(sm.dout, kk), kdesc<D, kB>(sm.v[s], kk), 1);
+  wg_commit();
+}
+
+// dQ += dS K over the key tile in stage s, K read MN-major
+template <int D>
+__device__ __forceinline__ void issue_dq(DqSmem<D>& sm, float (&dq)[D / 2],
+                                         const uint32_t (&da)[kB / 16][4], int s) {
+  using namespace sm90;
+  fence_regs(dq);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kB / 16; ++kk) wgmma_rs_mn<D, kB>(dq, da[kk], sm.k[s], kk);
+  wg_commit();
+}
+
+// The walk over the n_kt key tiles: a turn issues S and dP of tile j and
+// dQ += dS K of tile j - 1, forms tile j's dS (flash_ws::form_ds,
+// branch-free) beside that product, then hands stage j - 1 back to the
+// ring and packs dS into the A fragments.
+template <bool DROP, int D>
+__device__ __forceinline__ void dq_walk(DqSmem<D>& sm, const DqMaps<D>& mp, const Params& p,
+                                        const flash_ws::DqRows& rw, int n_kt, int g, int b,
+                                        float (&dq)[D / 2]) {
+  using namespace sm90;
+  const int tid = threadIdx.x;
+  float sc[kB / 2], dp[kB / 2];
+  uint32_t da[kB / 16][4];
+  mbar_wait(&sm.full[0], 0);
+  issue_sdp<D>(sm, sc, dp, 0);
+  wg_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+  flash_ws::form_ds<DROP, kB>(p, rw, sc, dp, 0);
+#pragma unroll
+  for (int kk = 0; kk < kB / 16; ++kk) acc_to_frag(sc, kk, da[kk]);
+  for (int j = 1; j < n_kt; ++j) {
+    const int s = j % kStages, sp = (j - 1) % kStages;
+    mbar_wait(&sm.full[s], (j / kStages) & 1);
+    issue_sdp<D>(sm, sc, dp, s);
+    issue_dq<D>(sm, dq, da, sp);
+    wg_wait<1>();  // S and dP of tile j
+    fence_regs(sc);
+    fence_regs(dp);
+    flash_ws::form_ds<DROP, kB>(p, rw, sc, dp, j);
+    wg_wait<0>();  // dQ += dS K of tile j - 1
+    fence_regs(dq);
+    __syncthreads();  // every warp is done with stage sp: refill it
+    if (tid == 0 && j - 1 + kStages < n_kt) load_kv<D>(sm, mp, j - 1 + kStages, sp, g, b);
+#pragma unroll
+    for (int kk = 0; kk < kB / 16; ++kk) acc_to_frag(sc, kk, da[kk]);
+  }
+  issue_dq<D>(sm, dq, da, (n_kt - 1) % kStages);
+  wg_wait<0>();
+  fence_regs(dq);
+}
+
+template <int D, bool kPartial>
+__global__ void __launch_bounds__(kThreads)
+    dq_kernel_sm90(const __grid_constant__ DqMaps<D> mp, const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem<D>& sm = smem_aligned<DqSmem<D>>(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kB;  // heaviest tiles first
+  const int g = h / (p.nh / p.nkv);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int n_keys = p.causal ? min(p.S, i0 + kB) : p.S;
+  const int n_kt = (n_keys + kB - 1) / kB;
+
+  if (tid == 0) {
+    mbar_init(&sm.qbar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&sm.qbar, 2 * kB * D * 2);
+    tma_rows<D, kB>(sm.q, &mp.q, &sm.qbar, h, i0, b);
+    tma_rows<D, kB>(sm.dout, &mp.dout, &sm.qbar, h, i0, b);
+    for (int j = 0; j < kStages && j < n_kt; ++j) load_kv<D>(sm, mp, j, j, g, b);
+  }
+
+  flash_ws::DqRows rw;
+  rw.q0 = i0;
+  rw.r0 = w * 16 + (lane >> 2);
+  rw.c0 = 2 * (lane & 3);
+  rw.s0 = rw.s1 = 0u;
+  if (p.dropout) {
+    rw.s0 = (uint32_t)p.seed[0];
+    rw.s1 = (uint32_t)p.seed[1];
+  }
+  rw.row = (uint32_t)(b * p.nh + h);
+  const long long stat = (long long)(b * p.nh + h) * p.T;
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int qp = i0 + rw.r0 + 8 * ih;
+    rw.lse[ih] = qp < p.T ? p.lse_in[stat + qp] : 0.f;
+    rw.dl[ih] = qp < p.T ? p.delta[stat + qp] : 0.f;
+    rw.kend[ih] = qp < p.T ? min(p.S, p.causal ? qp + 1 : p.S) : 0;
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(&sm.qbar, 0);
+  if (p.dropout)
+    dq_walk<true, D>(sm, mp, p, rw, n_kt, g, b, dq);
+  else
+    dq_walk<false, D>(sm, mp, p, rw, n_kt, g, b, dq);
+
+  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * dh + (long long)h * dh;
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int qp = i0 + rw.r0 + 8 * ih;
+    if (qp >= p.T) continue;
+    bf16* orow = out + (long long)qp * p.nh * dh + rw.c0;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      if (!kPartial || 8 * jj < dh)  // columns 8 jj + c0 + {0, 1}: below d exactly when 8 jj is
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) = __floats2bfloat162_rn(
+            dq[4 * jj + 2 * ih] * p.scale, dq[4 * jj + 2 * ih + 1] * p.scale);
+  }
+}
+
+template <int D, bool kPartial>
+int launch_dq(const Params& p, void* stream) {
+  static size_t cap[64] = {};
+  const size_t smem = sizeof(DqSmem<D>) + 1024;  // + room to align the base to 1024
+  const int err = flash::set_smem(dq_kernel_sm90<D, kPartial>, smem, cap);
+  if (err) return err;
+  if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
+  if (p.S == 0) {  // no key to attend to: zero gradients, as the FMA kernel writes
+    cudaMemsetAsync(p.out0, 0, (size_t)p.B * p.T * p.nh * p.d * sizeof(bf16),
+                    (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+  }
+  DqMaps<D> mp;
+  if (!sm90::width_map<D>(&mp.q, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kB) ||
+      !sm90::width_map<D>(&mp.dout, p.dout, p.d, p.nh, p.T, p.B, p.do_st, p.do_sb, kB) ||
+      !sm90::width_map<D>(&mp.k, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kB) ||
+      !sm90::width_map<D>(&mp.v, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, kB))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.nh, p.B, (p.T + kB - 1) / kB);
+  // qualified: DqMaps would also bring flash_sm90's kernel in by argument lookup
+  flash_pipe::dq_kernel_sm90<D, kPartial><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+struct Smem {
+  alignas(1024) bf16 k[kB * D];
+  alignas(1024) bf16 v[kB * D];
+  alignas(1024) bf16 q[kStages][kB * D];
+  alignas(1024) bf16 dout[kStages][kB * D];
+  // kB + 4 values from a 16-byte aligned start, each stage 128-byte aligned
+  static constexpr int LS = (kB + 4 + 31) / 32 * 32;
+  alignas(128) float lse[kStages][LS];
+  alignas(128) float delta[kStages][LS];
+  uint64_t kvbar, full[kStages];
+};
+
+// query tile `it` (head r of the group, then time) into stage s (one thread)
+template <int D>
+__device__ __forceinline__ void load_q(Smem<D>& sm, const DkvMaps<D>& mp, const Params& p, int it,
+                                       int s, int n_qt, int t_begin, int g, int b) {
+  const int h = g * (p.nh / p.nkv) + it / n_qt;
+  const int i0 = t_begin + (it % n_qt) * kB;
+  sm90::mbar_expect_tx(&sm.full[s], 2 * kB * D * 2 + 2 * (kB + 4) * 4);
+  sm90::tma_rows<D, kB>(sm.q[s], &mp.q, &sm.full[s], h, i0, b);
+  sm90::tma_rows<D, kB>(sm.dout[s], &mp.dout, &sm.full[s], h, i0, b);
+  const int stat = (b * p.nh + h) * p.T + i0;
+  sm90::tma_load_1d(sm.lse[s], &mp.lse, &sm.full[s], stat & ~3);
+  sm90::tma_load_1d(sm.delta[s], &mp.delta, &sm.full[s], stat & ~3);
+}
+
+// S^T = K Q^T and dP^T = V dO^T over the query tile in stage s, from zero
+template <int D>
+__device__ __forceinline__ void issue_st(Smem<D>& sm, float (&st)[kB / 2], float (&dpt)[kB / 2],
+                                         int s) {
+  using namespace sm90;
+#pragma unroll
+  for (int i = 0; i < kB / 2; ++i) {
+    st[i] = 0.f;
+    dpt[i] = 0.f;
+  }
+  fence_regs(st);
+  fence_regs(dpt);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kB, 0, 0>(st, kdesc<D, kB>(sm.k, kk), kdesc<D, kB>(sm.q[s], kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kB, 0, 0>(dpt, kdesc<D, kB>(sm.v, kk), kdesc<D, kB>(sm.dout[s], kk), 1);
+  wg_commit();
+}
+
+// dV += (P^T * mask) dO and dK += dS^T Q over the query tile in stage s,
+// dO and Q read MN-major
+template <int D>
+__device__ __forceinline__ void issue_dvdk(Smem<D>& sm, float (&dv)[D / 2], float (&dk)[D / 2],
+                                           const uint32_t (&pa)[kB / 16][4],
+                                           const uint32_t (&da)[kB / 16][4], int s) {
+  using namespace sm90;
+  fence_regs(dv);
+  fence_regs(dk);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kB / 16; ++kk) wgmma_rs_mn<D, kB>(dv, pa[kk], sm.dout[s], kk);
+#pragma unroll
+  for (int kk = 0; kk < kB / 16; ++kk) wgmma_rs_mn<D, kB>(dk, da[kk], sm.q[s], kk);
+  wg_commit();
+}
+
+// Query tile it's S^T and dP^T -> P^T * mask in st and dS^T in dpt (fp32),
+// the arithmetic of flash_sm90::dkv_kernel_sm90 without a branch: every
+// tile is masked by selects, the dropout products rounded on their own
+// (no FMA), as that kernel's branch rounded them.
+template <bool DROP, int D>
+__device__ __forceinline__ void form_pds(Smem<D>& sm, const Params& p, float (&st)[kB / 2],
+                                         float (&dpt)[kB / 2], int it, int s, int n_qt,
+                                         int t_begin, int g, int j0, int b, int r0, int c0) {
+  // the seed read each turn, not held in two registers across the walk
+  const uint32_t s0 = DROP ? (uint32_t)p.seed[0] : 0u, s1 = DROP ? (uint32_t)p.seed[1] : 0u;
+  const int h = g * (p.nh / p.nkv) + it / n_qt;
+  const int i0 = t_begin + (it % n_qt) * kB;
+  const uint32_t row = (uint32_t)(b * p.nh + h);
+  const float* lse_s = sm.lse[s] + flash_sm90::stat_skew(p, h, i0, b);
+  const float* dl_s = sm.delta[s] + flash_sm90::stat_skew(p, h, i0, b);
+#pragma unroll
+  for (int i = 0; i < kB / 2; ++i) {
+    const int ih = (i >> 1) & 1;
+    const int qi = 8 * (i >> 2) + c0 + (i & 1);
+    const int kp = j0 + r0 + 8 * ih, qp = i0 + qi;
+    const bool ok = (qp < p.T) & (kp < p.S) & (!p.causal | (kp <= qp));
+    // the fp32 score q.k * scale, then exp(score - lse)
+    const float pv = ok ? sm90::exp2_ftz((st[i] * p.scale - lse_s[qi]) * kLog2e) : 0.f;
+    float d = dpt[i], pm = pv;
+    if constexpr (DROP) {
+      const float mk = flash::keep(p, s0, s1, row, qp, kp);
+      pm = __fmul_rn(pv, mk);
+      d = __fmul_rn(d, mk);
+    }
+    st[i] = pm;                     // P^T * mask, rounded to bf16 when packed
+    dpt[i] = pv * (d - dl_s[qi]);   // dS^T
+  }
+}
+
+// The walk over the n_it query tiles: a turn issues S^T and dP^T of tile
+// it and dV, dK of tile it - 1, forms tile it's P^T and dS^T beside those
+// products, then hands stage it - 1 back to the ring and packs.
+template <bool DROP, int D>
+__device__ __forceinline__ void dkv_walk(Smem<D>& sm, const DkvMaps<D>& mp, const Params& p,
+                                         int n_it, int n_qt, int t_begin, int g, int j0, int b,
+                                         int r0, int c0, float (&dk)[D / 2], float (&dv)[D / 2]) {
+  using namespace sm90;
+  const int tid = threadIdx.x;
+  float st[kB / 2], dpt[kB / 2];
+  uint32_t pa[kB / 16][4], da[kB / 16][4];
+  mbar_wait(&sm.full[0], 0);
+  issue_st<D>(sm, st, dpt, 0);
+  wg_wait<0>();
+  fence_regs(st);
+  fence_regs(dpt);
+  form_pds<DROP, D>(sm, p, st, dpt, 0, 0, n_qt, t_begin, g, j0, b, r0, c0);
+#pragma unroll
+  for (int kk = 0; kk < kB / 16; ++kk) {
+    acc_to_frag(st, kk, pa[kk]);
+    acc_to_frag(dpt, kk, da[kk]);
+  }
+  for (int it = 1; it < n_it; ++it) {
+    const int s = it % kStages, sp = (it - 1) % kStages;
+    mbar_wait(&sm.full[s], (it / kStages) & 1);
+    issue_st<D>(sm, st, dpt, s);
+    issue_dvdk<D>(sm, dv, dk, pa, da, sp);
+    wg_wait<1>();  // S^T and dP^T of tile it
+    fence_regs(st);
+    fence_regs(dpt);
+    form_pds<DROP, D>(sm, p, st, dpt, it, s, n_qt, t_begin, g, j0, b, r0, c0);
+    wg_wait<0>();  // dV and dK of tile it - 1
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncthreads();  // every warp is done with stage sp: refill it
+    if (tid == 0 && it - 1 + kStages < n_it)
+      load_q<D>(sm, mp, p, it - 1 + kStages, sp, n_qt, t_begin, g, b);
+#pragma unroll
+    for (int kk = 0; kk < kB / 16; ++kk) {
+      acc_to_frag(st, kk, pa[kk]);
+      acc_to_frag(dpt, kk, da[kk]);
+    }
+  }
+  issue_dvdk<D>(sm, dv, dk, pa, da, (n_it - 1) % kStages);
+  wg_wait<0>();
+  fence_regs(dv);
+  fence_regs(dk);
+}
+
+// three CTAs an SM (168 registers; at its own 172, two CTAs an SM ran it
+// 10-25% slower on the H100)
+template <int D, bool kPartial>
+__global__ void __launch_bounds__(kThreads, 3)
+    dkv_kernel_sm90(const __grid_constant__ DkvMaps<D> mp, const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<D>& sm = smem_aligned<Smem<D>>(smem_raw);
+  const int g = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * kB;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  // the first query row that sees this key tile
+  const int t_begin = p.causal ? j0 : 0;
+  const int n_qt = p.T > t_begin ? (p.T - t_begin + kB - 1) / kB : 0;
+  const int n_it = (p.nh / p.nkv) * n_qt;
+
+  if (tid == 0) {
+    mbar_init(&sm.kvbar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && n_it > 0) {
+    mbar_expect_tx(&sm.kvbar, 2 * kB * D * 2);
+    tma_rows<D, kB>(sm.k, &mp.k, &sm.kvbar, g, j0, b);
+    tma_rows<D, kB>(sm.v, &mp.v, &sm.kvbar, g, j0, b);
+    for (int it = 0; it < kStages && it < n_it; ++it)
+      load_q<D>(sm, mp, p, it, it, n_qt, t_begin, g, b);
+  }
+
+  const int r0 = w * 16 + (lane >> 2);  // this thread's key rows: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);        // and query columns 8 j + c0 + {0, 1}
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
+  if (n_it > 0) {
+    mbar_wait(&sm.kvbar, 0);
+    if (p.dropout)
+      dkv_walk<true, D>(sm, mp, p, n_it, n_qt, t_begin, g, j0, b, r0, c0, dk, dv);
+    else
+      dkv_walk<false, D>(sm, mp, p, n_it, n_qt, t_begin, g, j0, b, r0, c0, dk, dv);
+  }
+
+  const long long base = (long long)b * p.S * p.nkv * dh + (long long)g * dh;
+  bf16* dk_out = static_cast<bf16*>(p.out0) + base;
+  bf16* dv_out = static_cast<bf16*>(p.out1) + base;
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int kp = j0 + r0 + 8 * ih;
+    if (kp >= p.S) continue;
+    const long long off = (long long)kp * p.nkv * dh + c0;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      if (kPartial && 8 * jj >= dh) continue;  // columns 8 jj + c0 + {0, 1} lie past d
+      *reinterpret_cast<__nv_bfloat162*>(dk_out + off + 8 * jj) = __floats2bfloat162_rn(
+          dk[4 * jj + 2 * ih] * p.scale, dk[4 * jj + 2 * ih + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv_out + off + 8 * jj) =
+          __floats2bfloat162_rn(dv[4 * jj + 2 * ih], dv[4 * jj + 2 * ih + 1]);
+    }
+  }
+}
+
+template <int D, bool kPartial>
+int launch_dkv(const Params& p, void* stream) {
+  static size_t cap[64] = {};
+  const size_t smem = sizeof(Smem<D>) + 1024;  // + room to align the base to 1024
+  const int err = flash::set_smem(dkv_kernel_sm90<D, kPartial>, smem, cap);
+  if (err) return err;
+  if (p.S == 0 || p.B == 0 || p.nkv == 0) return 0;
+  if (p.T == 0) {  // no query sees a key: zero gradients, as the FMA kernel writes
+    const size_t n = (size_t)p.B * p.S * p.nkv * p.d * sizeof(bf16);
+    cudaMemsetAsync(p.out0, 0, n, (cudaStream_t)stream);
+    cudaMemsetAsync(p.out1, 0, n, (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+  }
+  DkvMaps<D> mp;
+  const long long n_stat = (long long)p.B * p.nh * p.T;
+  if (!sm90::width_map<D>(&mp.q, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kB) ||
+      !sm90::width_map<D>(&mp.dout, p.dout, p.d, p.nh, p.T, p.B, p.do_st, p.do_sb, kB) ||
+      !sm90::width_map<D>(&mp.k, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kB) ||
+      !sm90::width_map<D>(&mp.v, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, kB) ||
+      !sm90::vec_map(&mp.lse, p.lse_in, n_stat, kB + 4) ||
+      !sm90::vec_map(&mp.delta, p.delta, n_stat, kB + 4))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.nkv, p.B, (p.S + kB - 1) / kB);
+  // qualified: DkvMaps would also bring flash_sm90's kernel in by argument lookup
+  flash_pipe::dkv_kernel_sm90<D, kPartial><<<grid, kThreads, smem, (cudaStream_t)stream>>>(mp, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash_pipe
+
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the wgmma kernel);
-// D: the built width it runs at (fp32 64, 128 or 256; bf16 also 80 and
-// 192); d: the head size, d % 8 == 0, 8 <= d <= D (flash_attn_common.cuh).
+// D: the built width it runs at (fp32 64, 128 or 256; bf16 also 32, 80
+// and 192); d: the head size, d % 8 == 0, 8 <= d <= D (flash_attn_common.cuh).
 // lse and delta (B, nh, T) fp32; dq (B, T, nh, d) contiguous. Returns the
 // launch's cudaError_t.
 extern "C" int flash_attn_bwd_dq(int dtype, int D, int d, const void* q, const void* k,
@@ -1476,6 +1943,8 @@ extern "C" int flash_attn_bwd_dq(int dtype, int D, int d, const void* q, const v
                                           : launch_dq<float, 128, true>(p, stream);
   if (dtype == 0 && D == 256) return full ? launch_dq<float, 256, false>(p, stream)
                                           : launch_dq<float, 256, true>(p, stream);
+  if (dtype == 1 && D == 32) return full ? flash_pipe::launch_dq<32, false>(p, stream)
+                                         : flash_pipe::launch_dq<32, true>(p, stream);
   if (dtype == 1 && D == 64) return full ? flash_sm90::launch_dq<64, false>(p, stream)
                                          : flash_sm90::launch_dq<64, true>(p, stream);
   if (dtype == 1 && D == 80) return full ? flash_sm90::launch_dq<80, false>(p, stream)
@@ -1489,7 +1958,7 @@ extern "C" int flash_attn_bwd_dq(int dtype, int D, int d, const void* q, const v
   return (int)cudaErrorInvalidValue;
 }
 
-// As flash_attn_bwd_dq (widths: fp32 64, 128 or 256, bf16 also 80); dk
+// As flash_attn_bwd_dq (widths: fp32 64, 128 or 256, bf16 also 32 and 80); dk
 // and dv (B, S, nkv, d) contiguous.
 extern "C" int flash_attn_bwd_dkv(int dtype, int D, int d, const void* q, const void* k,
                                   const void* v, const void* dout, const float* lse,
@@ -1506,6 +1975,8 @@ extern "C" int flash_attn_bwd_dkv(int dtype, int D, int d, const void* q, const 
                                           : launch_dkv<float, 128, true>(p, stream);
   if (dtype == 0 && D == 256) return full ? launch_dkv<float, 256, false>(p, stream)
                                           : launch_dkv<float, 256, true>(p, stream);
+  if (dtype == 1 && D == 32) return full ? flash_pipe::launch_dkv<32, false>(p, stream)
+                                         : flash_pipe::launch_dkv<32, true>(p, stream);
   if (dtype == 1 && D == 64) return full ? flash_sm90::launch_dkv<64, false>(p, stream)
                                          : flash_sm90::launch_dkv<64, true>(p, stream);
   if (dtype == 1 && D == 80) return full ? flash_sm90::launch_dkv<80, false>(p, stream)

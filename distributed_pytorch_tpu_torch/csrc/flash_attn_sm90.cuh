@@ -6,10 +6,10 @@
 // four threads that hold one accumulator row (these two serve the
 // forward's online softmax). Used by the bf16 forward, dq and dkv kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu); the bf16 paged prefill
-// (paged_prefill_attn.cu) uses the quad reductions. Also the layout of a
-// tile of width 80 (below) and the pieces that read a tile of any built
-// width: its maps (`RowMap`), loads (`tma_rows`), K-major k-steps
-// (`kdesc`) and MN-major products (`wgmma_rs_mn`).
+// (paged_prefill_attn.cu) uses the quad reductions. Also the layouts of
+// tiles of widths 32 and 80 (below) and the pieces that read a tile of any
+// built width: its maps (`RowMap`, `width_map`), loads (`tma_rows`),
+// K-major k-steps (`kdesc`) and MN-major products (`wgmma_rs_mn`).
 
 #pragma once
 
@@ -18,6 +18,18 @@
 #include "sm90_common.cuh"
 
 namespace sm90 {
+
+// ---- width 32 --------------------------------------------------------------
+//
+// Head sizes 8-32 (the default config's 256 / 8 heads) run the bf16 dq
+// and dkv at width 32: a row of 32 bf16 is 64 bytes, so a tile is one
+// R x 32 box at the 64-byte swizzle (one `CUtensorMap` with a 32-column
+// box). K-major reads take k-steps 0 and 1 of it, 32 bytes apart; an
+// MN-major product (N the head size) is one m64n32k16 into 16 accumulator
+// registers a thread, in the layout of sm90_common.cuh. The bf16 dq and
+// dkv at width 32 (`flash_pipe`, flash_attn_bwd.cu) read their tiles so;
+// the 64-wide instances these head sizes ran on before read 4 k-steps (2
+// of zeros) and took products at N 64 (32 columns of zeros).
 
 // ---- width 80 --------------------------------------------------------------
 //
@@ -51,14 +63,20 @@ template <int D>
 using RowMap = std::conditional_t<D == 80, Map80, CUtensorMap>;
 
 // Rows t0 .. t0 + R - 1 of head `head` of batch `b` (a 4-D map over
-// (D, heads, time, batch) with a 64 x 1 x R x 1 box) into the R x C tile
-// at `dst`, one box per 64-column sub-tile. Rows past the tensor's end
-// arrive as zeros. Counted on `bar` (R * C * 2 bytes).
+// (D, heads, time, batch) with a 64 x 1 x R x 1 box, 32 x 1 x R x 1 at
+// width 32) into the R x C tile at `dst`, one box per 64-column sub-tile
+// (at width 32 the one 32-column box). Rows past the tensor's end arrive
+// as zeros. Counted on `bar` (R * C * 2 bytes).
 template <int C, int R>
 __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map, uint64_t* bar,
                                          int head, int t0, int b) {
+  static_assert(C == 32 || C % 64 == 0, "tiles are 32 or a multiple of 64 columns wide");
+  if constexpr (C == 32) {
+    tma_load_4d(dst, map, bar, 0, head, t0, b);
+  } else {
 #pragma unroll
-  for (int s = 0; s < C / 64; ++s) tma_load_4d(dst + s * R * 64, map, bar, s * 64, head, t0, b);
+    for (int s = 0; s < C / 64; ++s) tma_load_4d(dst + s * R * 64, map, bar, s * 64, head, t0, b);
+  }
 }
 
 // The same at width 80 (R * 160 bytes on `bar`)
@@ -74,10 +92,12 @@ __device__ __forceinline__ void tma_rows(bf16* dst, const Map80* map, uint64_t* 
 // the k-step loop is unrolled, so the choice of sub-tile folds away)
 template <int D, int R>
 __device__ __forceinline__ uint64_t kdesc(const bf16* tile, int kk) {
-  if constexpr (D != 80)
-    return desc_kmajor<R>(tile, kk);
-  else
+  if constexpr (D == 32)
+    return desc_kmajor_sw<64>(tile, kk);
+  else if constexpr (D == 80)
     return kk < 4 ? desc_kmajor_sw<128>(tile, kk) : desc_kmajor_sw<32>(tile + R * 64, 0);
+  else
+    return desc_kmajor<R>(tile, kk);
 }
 
 // d (64 x D) += A B over k-step kk, A from registers, B an R-row tile of
@@ -85,7 +105,9 @@ __device__ __forceinline__ uint64_t kdesc(const bf16* tile, int kk) {
 template <int D, int R>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[D / 2], const uint32_t (&a)[4],
                                             const bf16* tile, int kk) {
-  if constexpr (D != 80) {
+  if constexpr (D == 32) {
+    wgmma_rs<32, 1>(d, a, desc_mnmajor_sw<R, 64>(tile, kk));
+  } else if constexpr (D != 80) {
     wgmma_rs<D, 1>(d, a, desc_mnmajor<R>(tile, kk));
   } else {
     wgmma_rs_n64<1>(*reinterpret_cast<float(*)[32]>(&d[0]), a, desc_mnmajor_sw<R, 128>(tile, kk),
@@ -137,6 +159,18 @@ inline bool rows_map(Map80* map, const void* base, int C, int heads, int time, i
                      long long st, long long sb, int R) {
   return rows_map(&map->box64, base, C, heads, time, batch, st, sb, R, 64) &&
          rows_map(&map->box16, base, C, heads, time, batch, st, sb, R, 16);
+}
+
+// The map(s) of the same tensor read at built width D: one 32-column box
+// at 32, the two boxes of Map80 at 80, 64-column boxes at the multiples
+// of 64
+template <int D>
+inline bool width_map(RowMap<D>* map, const void* base, int C, int heads, int time, int batch,
+                      long long st, long long sb, int R) {
+  if constexpr (D == 80)
+    return rows_map(map, base, C, heads, time, batch, st, sb, R);
+  else
+    return rows_map(map, base, C, heads, time, batch, st, sb, R, D == 32 ? 32 : 64);
 }
 
 }  // namespace sm90

@@ -14,11 +14,12 @@
 // Tiles. A tile of R rows x C bf16 columns (C a multiple of 64) is loaded
 // by TMA with the 128-byte swizzle, 64 columns (128 bytes) per box, as
 // C / 64 sub-tiles of R x 64, each R * 128 bytes and 1024-byte aligned.
-// A width that is not a multiple of 64 (80) takes narrower sub-tiles as
-// well: a box of W columns (W * 2 = 32 or 64 bytes) is written at the
-// swizzle of that span (`swizzle_for`), and its sub-tile is R x W, each
-// row W * 2 bytes; `desc_kmajor_sw` / `desc_mnmajor_sw` read a sub-tile of
-// any of the three spans (the layout field and the strides follow it).
+// A width that is not a multiple of 64 (32, 80) takes narrower sub-tiles:
+// a box of W columns (W * 2 = 32 or 64 bytes) is written at the swizzle of
+// that span (`swizzle_for`), and its sub-tile is R x W, each row W * 2
+// bytes (width 32 is one R x 32 sub-tile at the 64-byte swizzle);
+// `desc_kmajor_sw` / `desc_mnmajor_sw` read a sub-tile of any of the
+// three spans (the layout field and the strides follow it).
 // A tile gathered with cp.async is laid out the same way: 16-byte chunk c
 // (columns 8 c .. 8 c + 7) of row r lands in sub-tile c / 8, at chunk
 // position (c % 8) ^ (r % 8) of the row (`swz`).
@@ -418,6 +419,23 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// d (64 x 32) = A B + (scale_d ? d : 0), A from registers (`a`, the
+// m64k16 fragment), B from shared memory, K-major (TB 0) or MN-major (TB 1).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // d (64 x 16) = A B + (scale_d ? d : 0), A from registers (`a`, the
 // m64k16 fragment), B from shared memory, K-major (TB 0) or MN-major (TB 1).
 template <int TB>
@@ -576,9 +594,11 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 // d (64 x N) += A B over one k-step, A from registers
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 64 || N == 128 || N == 192 || N == 256,
-                "RS products are 64 x 64, 128, 192 or 256");
-  if constexpr (N == 64)
+  static_assert(N == 32 || N == 64 || N == 128 || N == 192 || N == 256,
+                "RS products are 64 x 32, 64, 128, 192 or 256");
+  if constexpr (N == 32)
+    wgmma_rs_n32<TB>(d, a, db, 1);
+  else if constexpr (N == 64)
     wgmma_rs_n64<TB>(d, a, db, 1);
   else if constexpr (N == 128)
     wgmma_rs_n128<TB>(d, a, db, 1);

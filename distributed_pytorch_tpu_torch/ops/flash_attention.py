@@ -24,9 +24,10 @@ past d is written, so the wrappers hand the kernels the caller's own
 tensors (no padded copy) and get outputs of head size d. The C entries
 run each width on the instance built for it (d equal to the width) or on
 its masked one (d under it), and refuse any width not in the table. In
-bf16 every kernel has width 80 (the flagship with MLA, 64 + 16) and the
-dq also 192; fp32 runs those head sizes at 128 and 256. The dtype picks
-the design inside the C entry, by dtype and never as a fallback: bf16 runs on tensor cores (wgmma on TMA-fed shared
+bf16 every kernel has width 80 (the flagship with MLA, 64 + 16), the dq
+and dkv also 32 (the default config's heads of 32; the forward runs them
+at 64) and the dq 192; fp32 runs those head sizes at 64, 128 and 256.
+The dtype picks the design inside the C entry, by dtype and never as a fallback: bf16 runs on tensor cores (wgmma on TMA-fed shared
 memory, csrc/flash_attn_sm90.cuh and csrc/sm90_common.cuh), fp32 on the
 FMA design (csrc/flash_attn_common.cuh), since tensor cores take fp32
 only as TF32. For CPU tensors a wrapper runs the plain version, which repeats the
@@ -74,9 +75,9 @@ WIDTHS = {
     "flash_attn_fwd": {torch.float32: (64, 128, 256),
                        torch.bfloat16: (64, 80, 128, 256)},
     "flash_attn_bwd_dq": {torch.float32: (64, 128, 256),
-                          torch.bfloat16: (64, 80, 128, 192, 256)},
+                          torch.bfloat16: (32, 64, 80, 128, 192, 256)},
     "flash_attn_bwd_dkv": {torch.float32: (64, 128, 256),
-                           torch.bfloat16: (64, 80, 128, 256)}}
+                           torch.bfloat16: (32, 64, 80, 128, 256)}}
 #: the largest head size every kernel takes in every dtype
 MAX_HEAD_SIZE = min(ws[-1] for by_dtype in WIDTHS.values()
                     for ws in by_dtype.values())

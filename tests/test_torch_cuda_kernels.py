@@ -840,6 +840,42 @@ def test_flash_width_80_runs_its_own_instances(dev, D):
         assert got and all(name in n for n in got), (kind, names)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("T,S,nh,nkv", [(130, 130, 8, 4), (130, 70, 8, 8),
+                                        (65, 200, 8, 2)],
+                         ids=["gqa", "mha-s70", "gqa4-s200"])
+@pytest.mark.parametrize("D", [8, 16, 24, 32])
+def test_flash_kernels_bf16_width_32(dev, D, T, S, nh, nkv, causal, rate):
+    """Head sizes 8-32 at width 32 (the bf16 dq and dkv built for it; 8,
+    16 and 24 on the masked instances; the forward runs them at 64)
+    against the plain versions: ragged T 130 and 65, S != T (70, 200),
+    MHA and GQA (the dkv sums 2 and 4 query heads a kv head)."""
+    _flash_case(dev, torch.bfloat16, 2, T, S, nh, nkv, D, causal, rate)
+
+
+@pytest.mark.parametrize("D", [24, 32])
+def test_flash_width_32_runs_its_own_instances(dev, D):
+    """Under the profiler, head sizes 24 and 32 in bf16 launch the dq and
+    dkv built for width 32 (`<32, true>` masked for 24, `<32, false>` for
+    32), never a 64-wide one, and the forward at 64; each output equals
+    its plain version within FLASH_TOL."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _flash_case(dev, torch.bfloat16, 2, 200, 200, 8, 4, D, True, 0.0)
+    names = {e.key for e in prof.key_averages() if "kernel_sm90<" in e.key}
+    part = "true" if D < 32 else "false"
+    want = {"fwd": "fwd_kernel_sm90<64, true>",
+            "dkv": f"dkv_kernel_sm90<32, {part}>",
+            "dq": f"dq_kernel_sm90<32, {part}>"}
+    for kind, name in want.items():
+        got = [n for n in names if re.search(rf"\b{kind}_kernel_sm90<", n)]
+        assert got and all(name in n for n in got), (kind, names)
+
+
 class _Torch:
     """`torch` with `empty` handing out the front of a larger buffer
     filled with NaN, whose tail shows any write past a tensor's end."""
@@ -861,7 +897,7 @@ class _Torch:
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("D", [8, 40, 72, 80, 136, 200, 248])
+@pytest.mark.parametrize("D", [8, 24, 40, 72, 80, 136, 200, 248])
 def test_flash_writes_no_column_past_the_head_size(dev, monkeypatch, dtype,
                                                    D):
     """The kernels run D at a wider built width, whose columns past D
@@ -913,7 +949,8 @@ def test_flash_reads_strided_views(dev, dtype, D, nh):
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
 @pytest.mark.parametrize("D,nh,nkv", [(64, 4, 2), (128, 8, 2), (256, 8, 2),
-                                      (200, 8, 2), (80, 12, 4)])
+                                      (200, 8, 2), (80, 12, 4), (32, 8, 4),
+                                      (24, 8, 4)])
 def test_flash_bwd_bf16_is_deterministic(dev, D, nh, nkv, kernel):
     """Two launches of a bf16 backward kernel on the same inputs are
     bit-equal: dq writes each query row once, dkv sums the GQA group in

@@ -78,16 +78,18 @@ def test_matches_reference_kernel(causal, nh, nkv, rate):
                                    rtol=0, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("D", [32, 48, 64, 72, 80, 128, 192, 256])
+@pytest.mark.parametrize("D", [16, 24, 32, 48, 64, 72, 80, 128, 192, 256])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_matches_reference_kernel_at_head_size(causal, D):
     """Head sizes the configurations reach against the reference's
-    `_flash_lse` in interpret mode: 32 (the default LLMConfig, 256 / 8
-    heads), 48 (MLA on it, 32 + 16), 64, 72 (MLA with a rope head of 8 on
-    64-wide heads), 80 (`--attn mla` on the 124M flagship, 64 + 16), 128,
-    192 (the flagship with the launcher's rope head, 64 + 128) and 256 (the
-    launcher's MLA, 128 + 128); the kernels run 32 and 48 at their built
-    width 64, and 72 at 80 (masked). GQA
+    `_flash_lse` in interpret mode: 16 and 24 (heads under 32, which the
+    bf16 dq and dkv run on their masked width-32 instances), 32 (the
+    default LLMConfig, 256 / 8 heads), 48 (MLA on it, 32 + 16), 64, 72
+    (MLA with a rope head of 8 on 64-wide heads), 80 (`--attn mla` on the
+    124M flagship, 64 + 16), 128, 192 (the flagship with the launcher's
+    rope head, 64 + 128) and 256 (the launcher's MLA, 128 + 128); in bf16
+    the dq and dkv run 16-32 at their built width 32 and the forward at
+    64, 48 runs at 64, and 72 at 80 (masked). GQA
     (rep 2) with dropout 0.2, T 32 (the reference's 16-row tiles): out,
     lse and dq/dk/dv through `jax.vjp` with a nonzero dlse, fp32, atol
     1e-5."""
@@ -118,9 +120,10 @@ def test_gate_takes_head_size_256_and_no_other_mla_size():
     """The kernels' gate takes every head size that is a multiple of 8
     from 8 to 256 (the launcher's MLA, 128 + 128, is the widest), each at
     the least width its kernel is built at in its dtype that holds it
-    (`padded_width`; bf16: 72 and 80 at 80 for all three kernels, 136-192
-    at 192 for the dq and at 256 for the forward and dkv; fp32: 72 and 80
-    at 128, 136-192 at 256; 88 at 128 everywhere), and refuses MLA
+    (`padded_width`; bf16: 8-32 at 32 for the dq and dkv and at 64 for the
+    forward, 72 and 80 at 80 for all three kernels, 136-192 at 192 for the
+    dq and at 256 for the forward and dkv; fp32: 8-64 at 64, 72 and 80 at
+    128, 136-192 at 256; 88 at 128 everywhere), and refuses MLA
     sizes past it or off the 8-element grid (36 = 20 + 16; 260, 264 = 136
     + 128), which the reference's gate may take; on the card the wrappers
     raise on them (tests/test_torch_cuda_kernels.py)."""
@@ -133,6 +136,7 @@ def test_gate_takes_head_size_256_and_no_other_mla_size():
         for kernel in fa.WIDTHS:
             if ok:
                 assert fa.padded_width(D, kernel, bf16) == (
+                    32 if D <= 32 and kernel != "flash_attn_fwd" else
                     64 if D <= 64 else 80 if D <= 80 else
                     128 if D <= 128 else
                     192 if D <= 192 and kernel == "flash_attn_bwd_dq"
@@ -145,9 +149,9 @@ def test_gate_takes_head_size_256_and_no_other_mla_size():
     assert fa.WIDTHS == {
         "flash_attn_fwd": {fp32: (64, 128, 256), bf16: (64, 80, 128, 256)},
         "flash_attn_bwd_dq": {fp32: (64, 128, 256),
-                              bf16: (64, 80, 128, 192, 256)},
+                              bf16: (32, 64, 80, 128, 192, 256)},
         "flash_attn_bwd_dkv": {fp32: (64, 128, 256),
-                               bf16: (64, 80, 128, 256)}}
+                               bf16: (32, 64, 80, 128, 256)}}
     assert fa.MAX_HEAD_SIZE == 256
     for kernel in fa.WIDTHS:
         assert fa.padded_width(72, kernel, bf16) == \
@@ -157,6 +161,23 @@ def test_gate_takes_head_size_256_and_no_other_mla_size():
     for D in (36, 260, 264):
         z = torch.zeros(1, 8, 4, D)
         assert not fa.flash_attention_usable(z, z, z), D
+
+
+@pytest.mark.parametrize("d,kernel,dtype,width", [
+    (d, kernel, torch.bfloat16, 32) for d in (8, 16, 24, 32)
+    for kernel in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")] + [
+    (40, "flash_attn_bwd_dq", torch.bfloat16, 64),
+    (40, "flash_attn_bwd_dkv", torch.bfloat16, 64),
+    (32, "flash_attn_fwd", torch.bfloat16, 64),
+    (8, "flash_attn_fwd", torch.bfloat16, 64)] + [
+    (d, kernel, torch.float32, 64) for d in (8, 32)
+    for kernel in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                   "flash_attn_bwd_dkv")])
+def test_padded_width_of_small_heads(d, kernel, dtype, width):
+    """Head sizes 8-32 (the default config's 32 and the heads under it)
+    run the bf16 dq and dkv at their width-32 instances; 40 stays at 64,
+    as do the bf16 forward (not built at 32) and every fp32 kernel."""
+    assert fa.padded_width(d, kernel, dtype) == width
 
 
 # the C entry of each flash kernel and its source

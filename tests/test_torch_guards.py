@@ -194,7 +194,8 @@ def _chip_smoke():
 # grouped fwd, dx and dW unscaled and scaled, the fused CE forward, dx and
 # dW, the int8-cache paged prefill at D 64 and 128, flash fwd, dq, dkv at
 # D 256, the flash dq at D 192, the flash forward, dq and dkv at width 80,
-# and every flash kernel's instance for head sizes under its width) and some of
+# the flash dq and dkv at width 32 (pipelined, `flash_pipe`), and every
+# flash kernel's instance for head sizes under its width) and some of
 # the others (fp32 flash, fp32 grouped forward, dx and
 # dW, the FMA prefill, the tile decode, the split-KV decode's split (bf16
 # and int8 caches) and combine kernels, the fused CE's mma.sync and fp32
@@ -246,7 +247,13 @@ SASS_SM90 = [
     "05Map80EEEN5flash6ParamsE"] + [
     # the dq at width 80, for d == 80 and d < 80
     f"_ZN12_GLOBAL__N_110flash_sm9014dq_kernel_sm90ILi80ELb{b}EEEvNS0_6DqMaps"
-    "IXT_EEEN5flash6ParamsE" for b in (0, 1)]
+    "IXT_EEEN5flash6ParamsE" for b in (0, 1)] + [
+    # the dq and dkv at width 32, for d == 32 and d < 32
+    f"_ZN12_GLOBAL__N_110flash_pipe14dq_kernel_sm90ILi32ELb{b}EEEvNS_10flash_"
+    "sm906DqMapsIXT_EEEN5flash6ParamsE" for b in (0, 1)] + [
+    f"_ZN12_GLOBAL__N_110flash_pipe15dkv_kernel_sm90ILi32ELb{b}EEEvNS_10flash_"
+    "sm906MapsOfINSt11conditionalIXeqT_Li80EEN4sm905Map80E14CUtensorMap_stE4"
+    "typeEEEN5flash6ParamsE" for b in (0, 1)]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
@@ -351,7 +358,17 @@ BROKEN = {"complete": None,
           "dq_80_without_hgmma": ((SASS_SM90[37], "HGMMA", 0),
                                   "dq_kernel_sm90"),
           "masked_dq_80_with_spill": ((SASS_SM90[38], "STL", 6),
-                                      "dq_kernel_sm90")}
+                                      "dq_kernel_sm90"),
+          "dq_32_missing": ((SASS_SM90[39], None, 0),
+                            "dq_kernel_sm90ILi32E"),
+          "dkv_32_missing": ((SASS_SM90[41], None, 0),
+                             "dkv_kernel_sm90ILi32E"),
+          "dq_32_without_hgmma": ((SASS_SM90[39], "HGMMA", 0),
+                                  "dq_kernel_sm90"),
+          "dkv_32_without_tma": ((SASS_SM90[41], "UTMALDG", 0),
+                                 "dkv_kernel_sm90"),
+          "masked_dkv_32_with_spill": ((SASS_SM90[42], "STL", 6),
+                                       "dkv_kernel_sm90")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
@@ -377,7 +394,9 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     warp-specialized dkv without setmaxnreg; the forward or dkv at width
     80 missing, with a register spill or without HGMMA, and its masked
     forward without a TMA load; the dq at width 80 missing, without HGMMA,
-    or (masked) with a register spill."""
+    or (masked) with a register spill; the dq or dkv at width 32 missing,
+    the dq without HGMMA, the dkv without a TMA load, or the masked dkv
+    with a register spill."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
     for fn in SASS_SM90[12:14] + SASS_SM90[17:19]:  # the paged prefills
