@@ -118,7 +118,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
              the engine's own admit/step path teacher-forced on (a)'s
              tokens (staged admissions that hit the shared prefix, a pool
              small enough to preempt): bf16 within LOGIT_TOL of the
-             uncached forward, int8 within Q8_LOGIT_TOL of bf16. An fp32
+             uncached forward, int8 within Q8_LOGIT_TOL of bf16. The spec
+             leg (`run_spec_legs`): greedy bf16, wave and chunked 256,
+             speculative decoding off and on (`SPEC_DECODE`, `SPEC_K` 4,
+             read by the serve CLI's `build_engine`), SPEC_RUNS runs of
+             each on fresh engines: every on-run's tokens held to the
+             uncached argmax at every position whose margin clears the
+             limit, the first's equal the off-run's up to the first small
+             margin; no plain version; the decode kernel launches layers
+             x the steps that did not speculate (an 8-slot verify reads
+             the gathered cache by the naive path); tok/s, TTFT and ITL
+             p50 / p99, tokens_per_step and accepted_token_rate printed
+             as the median and range of the runs. An fp32
              chunked run is held to an fp32 wave run and the uncached
              forward the same way. Then the serve CLI itself with
              `--cache-dtype int8 --quant-weights --prefill-chunk 256`, in
@@ -130,7 +141,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
              10 and 20): a falling loss, the expert bias moved, no dropped
              rows, no degraded layer, the grouped kernels launched exactly
              3/2/2 x layers x micro-steps (fwd/dx/dW), a profile of two
-             steps; an fp32 parity step at B 2 against
+             steps, two bf16 forward + backward calls of MoE layer 0 that
+             must give the same bytes (`moe_repeats`; the saved weights'
+             sha256 printed beside, to compare runs); an fp32
+             parity step at B 2 against
              `moe_impl='dense'`; then the checkpoint through `sample.main`,
              `serve --ckpt`'s engine with phase 5's traffic (bf16 and
              fp32) and the serve CLI. Served tokens are held to the
@@ -145,7 +159,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
              falling loss, the flash kernels at head size 256 launched
              exactly (the forward twice a layer a micro-step, dq and dkv
              once), no plain call, `moe_drop`, step time, tok/s, MFU (MLA
-             FLOP count), peak memory and a profile of two steps; an fp32
+             FLOP count), peak memory and a profile of two steps (its top
+             kernels a step printed again before the last lines), the
+             bitwise repeat of MoE layer 0 as in phase 9; an fp32
              parity step at B 2 against `attn_impl='naive'`; then the
              checkpoint through `sample.main` and `serve --ckpt`'s engine
              with phase 5's traffic, wave, chunked 256 and chunked with
@@ -1682,11 +1698,13 @@ def serve_leg(torch, eng, prompts, budgets, what: str) -> dict:
     return dict(res=res, metrics=metrics, launches=launches, steps=steps,
                 admits=eng.n_admitted - admits0,
                 chunk_steps=sum(e["prefill_tokens"] > 0 for e in flight),
+                spec_steps=sum(e["drafted"] > 0 for e in flight),
                 chunk_tokens=sum(e["prefill_tokens"] for e in flight),
                 prefilled=prefilled,
                 numbers=dict(tok_s=n_tok / wall, wall_s=wall, tokens=n_tok,
                              ttft_p50_ms=_pct(ttft, 50) * 1e3,
                              ttft_p99_ms=_pct(ttft, 99) * 1e3,
+                             itl_p50_ms=_pct(itl, 50) * 1e3,
                              itl_p99_ms=_pct(itl, 99) * 1e3,
                              step_ms_p50=step_ms[len(step_ms) // 2],
                              step_ms_max=step_ms[-1], peak_gb=peak,
@@ -1886,10 +1904,14 @@ def device_kernels(prof, n: int) -> tuple[list, float]:
     return ev, sum(_dev_us(e) for e in ev) / n / 1e3
 
 
-def print_kernels(ev, n: int, top: int) -> None:
-    for e in sorted(ev, key=_dev_us, reverse=True)[:top]:
-        print(f"    {_dev_us(e) / n / 1e3:8.4f} ms/step  {e.count // n:4d}x  "
-              f"{e.key[:90]}", flush=True)
+def print_kernels(ev, n: int, top: int) -> list:
+    """Print the `top` kernels by device time a step; returns the lines."""
+    lines = [f"    {_dev_us(e) / n / 1e3:8.4f} ms/step  {e.count // n:4d}x  "
+             f"{e.key[:90]}"
+             for e in sorted(ev, key=_dev_us, reverse=True)[:top]]
+    for line in lines:
+        print(line, flush=True)
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -2133,8 +2155,145 @@ def run_int8_chunked(torch, dev, card: str, wave: dict, root: str) -> dict:
     out["teacher_forced"] = diff
     del model, tf, ref
     torch.cuda.empty_cache()
+    out["spec"] = run_spec_legs(torch, dev, card, prompts, budgets, root)
     out["held_fp32"] = run_chunked_fp32(torch, dev, prompts, budgets, root)
     run_serve_cli(torch)
+    return out
+
+
+SPEC_K = 4
+SPEC_RUNS = 3
+
+
+def _spread(xs) -> str:
+    xs = sorted(xs)
+    return f"{xs[len(xs) // 2]:.2f} [{xs[0]:.2f}-{xs[-1]:.2f}]"
+
+
+def run_spec_legs(torch, dev, card: str, prompts, budgets,
+                  root: str) -> dict:
+    """The spec leg: phase 5's traffic from phase 7's checkpoint, greedy
+    bf16, wave and prefill_chunk CHUNK, each with speculative decoding
+    off and on (`SPEC_DECODE` off / on, `SPEC_K` SPEC_K, read by the serve
+    CLI's `build_engine`), SPEC_RUNS runs of each, off and on in turn,
+    each on a fresh engine (the first of each from the checkpoint, the
+    others on its model). Every on-run's tokens are the uncached
+    forward's argmax at every position whose top-2 margin clears the bf16
+    limit, and the first's equal the off-run's up to the first margin
+    within it; no plain version runs; the paged decode kernel launches
+    once a layer on each step that did not speculate (a verify of 8 slots
+    reads the gathered cache by the naive path), the prefill kernel as in
+    legs w and a. Returns each setting's runs."""
+    from distributed_pytorch_tpu_torch.engine import DecodeEngine
+    from distributed_pytorch_tpu_torch.serve.__main__ import (build_args,
+                                                              build_engine)
+
+    base = ["--ckpt", root, "--slots", "8", "--kv-block", "16",
+            "--temperature", "0", "--seed", "0", "--port", "0", "--dtype",
+            "bfloat16"]
+    lim = LOGIT_TOL["bfloat16"]
+    least = [int(MIN_CHECKED["bfloat16"] * b) for b in budgets]
+    env0 = {k: os.environ.get(k) for k in ("SPEC_DECODE", "SPEC_K")}
+    out = {}
+    model = None
+    try:
+        for mode, extra in (("wave", []),
+                            ("chunked", ["--prefill-chunk", str(CHUNK)])):
+            first = {}
+            for run in range(SPEC_RUNS):
+                for spec in ("off", "on"):
+                    os.environ.update(SPEC_DECODE=spec, SPEC_K=str(SPEC_K))
+                    if (mode, spec) not in first:
+                        eng, _, _, _ = build_engine(build_args(base + extra))
+                        first[(mode, spec)] = dict(
+                            n_slots=eng.n_slots, max_len=eng.max_len,
+                            temperature=0.0, seed=0,
+                            block_size=eng.block_size,
+                            n_blocks=eng.n_blocks,
+                            prefill_chunk=eng.prefill_chunk)
+                    else:
+                        eng = DecodeEngine(model, **first[(mode, spec)])
+                    model, L = eng.model, eng.cfg.n_layer
+                    what = f"spec leg ({mode}, spec {spec}, run {run})"
+                    check(eng.spec_decode == (spec == "on")
+                          and eng.spec_k == SPEC_K,
+                          f"{what}: engine spec_decode {eng.spec_decode}, "
+                          f"spec_k {eng.spec_k}")
+                    r = serve_leg(torch, eng, prompts, budgets, what)
+                    plain_steps = r["steps"] - r["spec_steps"]
+                    want = {"paged_prefill_attn":
+                            L * (r["chunk_steps"] if eng.prefill_chunk
+                                 else r["admits"]),
+                            "paged_decode_attn": L * plain_steps}
+                    check(r["launches"] == {k: want.get(k, 0)
+                                            for k in r["launches"]},
+                          f"{what}: launches {r['launches']}, expected "
+                          f"{want} ({r['spec_steps']} of {r['steps']} "
+                          f"steps speculated)")
+                    toks = [x["tokens"] for x in r["res"]]
+                    held = None
+                    if spec == "on":
+                        check(eng.spec_drafted_tokens > 0,
+                              f"{what}: the drafter never proposed a token")
+                        held = [held_per_position(
+                            torch, uncached_logits(torch, model, dev, p, t),
+                            t, lim, n, f"{what} stream {i} vs the uncached "
+                            f"forward") for i, (p, t, n) in
+                            enumerate(zip(prompts, toks, least))]
+                        if run == 0:
+                            held = (held, [_agree_upto_margin(
+                                torch, model, dev, p, t, u, lim,
+                                f"{what} stream {i} vs spec off")
+                                for i, (p, t, u) in enumerate(
+                                    zip(prompts, toks, off_toks))])
+                    else:
+                        off_toks = toks
+                    rec = dict(
+                        r["numbers"], steps=r["steps"],
+                        spec_steps=r["spec_steps"],
+                        tokens_per_step=eng.tokens_per_step,
+                        accepted_token_rate=eng.accepted_token_rate,
+                        drafted=eng.spec_drafted_tokens,
+                        accepted=eng.spec_accepted_tokens, held=held)
+                    if mode == "wave" and run == 0:
+                        # where a step's time goes, spec off and on
+                        rec["profile"] = profile_decode(torch, eng, prompts)
+                        rec["profile"]["speculated"] = sum(
+                            e["drafted"] > 0 for e in eng.flight.entries(10))
+                    out.setdefault((mode, spec), []).append(rec)
+                    del eng
+                    torch.cuda.empty_cache()
+    finally:
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for (mode, spec), runs in out.items():
+        def col(key, runs=runs):
+            return _spread([x[key] for x in runs])
+        print(f"  spec leg ({mode}, spec {spec}, {len(runs)} runs, median "
+              f"[min-max]): tok/s {col('tok_s')}; TTFT p50 "
+              f"{col('ttft_p50_ms')} ms, p99 {col('ttft_p99_ms')} ms; ITL "
+              f"p50 {col('itl_p50_ms')} ms, p99 {col('itl_p99_ms')} ms; step "
+              f"ms p50 {col('step_ms_p50')}; steps "
+              f"{[x['steps'] for x in runs]}, speculated "
+              f"{[x['spec_steps'] for x in runs]}; tokens_per_step "
+              f"{col('tokens_per_step')}; accepted_token_rate "
+              f"{col('accepted_token_rate')} (drafted "
+              f"{[x['drafted'] for x in runs]}, accepted "
+              f"{[x['accepted'] for x in runs]}); positions held to the "
+              f"uncached argmax (margin > {lim}) and, run 0, tokens equal "
+              f"to spec off up to the first margin <= {lim}: "
+              f"{[x['held'] for x in runs]}; plain calls 0; card {card}",
+              flush=True)
+        prof = runs[0].get("profile")
+        if prof:
+            print(f"  spec leg ({mode}, spec {spec}) profile: "
+                  f"{prof['speculated']} of 10 steps speculated; host wall "
+                  f"{prof['host_ms']:.3f} ms, kernels "
+                  f"{prof['device_ms']:.3f} ms a step, busy "
+                  f"{prof['busy_pct']:.1f}%", flush=True)
     return out
 
 
@@ -2361,14 +2520,22 @@ def profile_train(torch, state, train_cfg, model_cfg) -> dict:
             split["everything else"] += _dev_us(e)
     print("  split: " + ", ".join(f"{k} {v / n / 1e3:.3f} ms"
                                   for k, v in split.items()), flush=True)
+    # an upper bound on the MoE token gathers and combines: the embedding
+    # and MLA's concatenations run these kernels too
+    gathers = sum(_dev_us(e) for e in ev
+                  if "indexSelect" in e.key or "CatArrayBatchedCopy" in e.key)
+    print(f"  index_select and cat kernels (the MoE gathers and combines, "
+          f"the embedding, concatenations): {gathers / n / 1e3:.3f} ms a "
+          f"step", flush=True)
     print("  flash a step: " + ", ".join(
         f"{k} {v / n / 1e3:.3f} ms" for k, v in flash.items()), flush=True)
     if split["grouped-mm kernels"]:
         print("  grouped a step: " + ", ".join(
             f"{k} {v / n / 1e3:.3f} ms" for k, v in grouped.items()),
             flush=True)
-    print_kernels(ev, n, 12)
-    return {"host_wall_ms": wall_ms, "device_ms": dev_ms,
+    top = print_kernels(ev, n, 12)
+    return {"host_wall_ms": wall_ms, "device_ms": dev_ms, "top": top,
+            "gathers_ms": gathers / n / 1e3,
             **{k: v / n / 1e3 for k, v in split.items()},
             **{k: v / n / 1e3 for k, v in flash.items()},
             **{k: v / n / 1e3 for k, v in grouped.items()}}
@@ -2653,6 +2820,56 @@ MOE_ARGV = ["--preset", "gpt2_124m", "--moe", "--n_exp", "8", "--n_shared",
             "chip_smoke_moe", "--seed", "0"]
 
 
+def weights_sha(torch, model) -> str:
+    """sha256 (first 16 hex digits) of the model's parameters and buffers,
+    taken as the trainer saved them, to compare runs."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in list(model.parameters()) + list(model.buffers()):
+        h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def moe_repeats(torch, model, what: str, digest: str) -> None:
+    """Two bf16 forward + backward calls of the trained model's first MoE
+    layer on one seeded (8, block_size, n_embd) input must give the same
+    bytes: the output, the input's gradient and every parameter's (the
+    token gather and combine sum each token's rows in a fixed order).
+    Runs after the main path's counts were read and leaves the layer's
+    gradients and routing state as they were; prints `digest`, the
+    saved weights' sha256, beside."""
+    layer = model.moe_layers()[0]
+    cfg = model.config
+    g = torch.Generator(device=model.device).manual_seed(5)
+    shape = (8, cfg.block_size, cfg.n_embd)
+    x = torch.randn(shape, generator=g, device=model.device).bfloat16()
+    dy = torch.randn(shape, generator=g, device=model.device).bfloat16()
+    params = list(layer.parameters())
+    saved = [p.grad for p in params]
+    res = []
+    for _ in range(2):
+        for p in params:
+            p.grad = None
+        xs = x.clone().requires_grad_()
+        y, aux = layer(xs)
+        (y.float() * dy.float()).sum().add(aux).backward()
+        res.append([y.detach(), xs.grad] + [p.grad for p in params])
+    layer.pending_state = None
+    for p, gr in zip(params, saved):
+        p.grad = gr
+    torch.cuda.synchronize()
+    names = ["y", "dx"] + [n for n, _ in layer.named_parameters()]
+    differ = [n for n, a, b in zip(names, *res) if not torch.equal(a, b)]
+    check(not differ, f"{what}: two forward + backward calls of MoE layer 0 "
+          f"({cfg.moe_impl}) differ in {differ}")
+    print(f"  {what}: MoE layer 0 ({cfg.moe_impl}, bf16, B 8 x T "
+          f"{cfg.block_size}): two forward + backward calls give the same "
+          f"bytes (output, dx and {len(params)} parameter gradients); "
+          f"saved weights sha256 {digest}", flush=True)
+
+
 def run_train_moe(torch, dev, card: str, tmp: str) -> dict:
     """The trainer's own train() on the flagship MoE with the grouped
     dispatch, in `tmp` (the checkpoint stays there for serving). Returns
@@ -2695,8 +2912,10 @@ def run_train_moe(torch, dev, card: str, tmp: str) -> dict:
     bias = torch.stack([m.expert_bias for m in state.model.moe_layers()])
     check(bool(torch.isfinite(bias).all()) and float(bias.abs().max()) > 0,
           f"train moe: expert_bias {bias.tolist()}")
+    digest = weights_sha(torch, state.model)
     split = profile_train(torch, state, train_cfg, model_cfg)
-    out = dict(launches={k: launches[k] for k in GMM_SOURCE},
+    moe_repeats(torch, state.model, "train moe", digest)
+    out = dict(launches={k: launches[k] for k in GMM_SOURCE}, sha=digest,
                loss0=losses[0], loss_last3=last,
                step_ms=stats["median_step_time"] * 1e3,
                tok_s=stats["median_tokens_per_sec"],
@@ -2940,9 +3159,11 @@ def run_train_mla(torch, dev, card: str, tmp: str) -> dict:
     state = stats["state"]
     check(type(state.model.blocks[0].attn).__name__ == "FullMLA",
           f"train mla: attention {type(state.model.blocks[0].attn)}")
+    digest = weights_sha(torch, state.model)
     split = profile_train(torch, state, train_cfg, model_cfg)
+    moe_repeats(torch, state.model, "train mla", digest)
     drops = stats["moe_dropped_frac"]
-    out = dict(launches={k: launches[k] for k in FLASH_SOURCE},
+    out = dict(launches={k: launches[k] for k in FLASH_SOURCE}, sha=digest,
                loss0=losses[0], loss_last3=last,
                step_ms=stats["median_step_time"] * 1e3,
                tok_s=stats["median_tokens_per_sec"],
@@ -3661,6 +3882,10 @@ def main() -> None:
                      "ms_fp32": p32["ms"], "plain_ms_fp32": p32["plain_ms"],
                      "bound_ms_fp32": p32["bound_ms"],
                      "library_loop_ms_fp32": p32["library_ms"]}})
+    print("  phase 10's top kernels a step (two steady steps, "
+          "torch.profiler):", flush=True)
+    for line in mla_run["split"]["top"]:
+        print(line, flush=True)
     print(f"  total {time.perf_counter() - T0:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

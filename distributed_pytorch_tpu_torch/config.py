@@ -57,6 +57,22 @@ def knob(name: str) -> Any:
     return ENV_KNOBS[name].read()
 
 
+def _onoff(s: str) -> str:
+    v = s.strip().lower() or "auto"
+    if v not in ("auto", "on", "off"):
+        raise ValueError(f"expected auto|on|off, got {s!r}")
+    return v
+
+
+def resolve_gate(mode: str, requested: bool) -> bool:
+    """The auto|on|off contract of a feature knob: 'auto' follows the
+    caller's explicit request, 'on' and 'off' force it (a bench leg's
+    env)."""
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"gate mode must be auto|on|off, got {mode!r}")
+    return requested if mode == "auto" else mode == "on"
+
+
 def knobs_table() -> str:
     """Human-readable registry dump (the --knobs CLI payload): name,
     default, current value (* when the env overrides), doc."""
@@ -111,6 +127,14 @@ register_knob("TRAIN_KEEP_CKPTS", "0", int,
               "checkpoint retention: keep the newest K verified step dirs, "
               "prune older ones after each save; 0 = keep everything "
               "(TrainConfig.keep_ckpts overrides when > 0)")
+
+# --- serving (engine/decode.py) ---
+register_knob("SPEC_DECODE", "auto", _onoff,
+              "self-speculative decoding gate (engine/decode.py; greedy "
+              "engines only — temperature>0 falls back to the plain step)")
+register_knob("SPEC_K", "4", lambda s: int(s) if s.strip() else 4,
+              "speculative draft length: tokens the n-gram drafter "
+              "proposes per step (verify runs K+1 positions)")
 
 # --- kernels (ops/fused_ce.py) ---
 register_knob("CE_BLOCK_N", "512", int,

@@ -52,11 +52,26 @@ of jitted programs:
   and `k_r` (n_blocks, bs, 1, dhr) pools) through the same tables; their
   prefill, chunks and decode steps attend by weight absorption over the
   gathered logical view, with no paged kernel.
+* **Self-speculative decoding** (`SPEC_DECODE=auto|on|off`, `SPEC_K`;
+  the reference's :64-80): a host-side n-gram / prompt-lookup drafter
+  (`ngram_propose`) proposes up to K tokens per live slot from the slot's
+  own tokens, and ONE verify forward (`_spec_step`) runs the committed
+  token + K drafts of every slot at its own position — a (n_slots, K+1)
+  cached forward with every position's logits, `paged_update`'s multi-row
+  write, then `paged_gather` and the naive attention with a per-slot
+  offset (one slot: the paged prefill kernel) — accepts the longest draft
+  prefix that matches the model's own greedy tokens and emits one
+  correction token past it. Rejected rows sit past the new position,
+  causally masked until later writes overwrite them. A step that runs a
+  chunk never speculates, and a slot within K + 1 rows of `max_len`
+  sends the whole step to the plain path (the position table's slice
+  would clamp). Greedy only: at temperature > 0 the engine keeps the
+  plain step.
 
-Not ported yet (later slices): speculative decoding, the host-RAM KV tier,
-the AOT program store, meshes. `trace_guards` and `admit_traces` are
-empty dicts, `fused_step_traces` 0 and `aot_store` None — eager PyTorch
-compiles no programs — so the scheduler's trace and store gauges read 0.
+Not ported yet (later slices): the host-RAM KV tier, the AOT program
+store, meshes. `trace_guards` and `admit_traces` are empty dicts,
+`fused_step_traces` 0 and `aot_store` None — eager PyTorch compiles no
+programs — so the scheduler's trace and store gauges read 0.
 """
 
 from __future__ import annotations
@@ -68,6 +83,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from distributed_pytorch_tpu_torch.config import knob, resolve_gate
 from distributed_pytorch_tpu_torch.models.generate import sample_token
 from distributed_pytorch_tpu_torch.models.gpt import init_paged_cache
 from distributed_pytorch_tpu_torch.obs.flight import FlightRecorder
@@ -91,6 +107,28 @@ def prefill_bucket_for(prompt_len: int, min_bucket: int, block_size: int,
     while b < prompt_len:
         b *= 2
     return min(b, max_len)
+
+
+def ngram_propose(tokens, k: int, *, min_match: int = 2,
+                  max_match: int = 4) -> list:
+    """Host-side n-gram / prompt-lookup drafter (reference :243-263): find
+    the most recent earlier occurrence of the sequence's current suffix
+    n-gram (longest match first, n in [min_match, max_match]) and propose
+    the up-to-k tokens that followed it. Returns [] on a miss (the slot
+    rides the verify step with draft length 0, emitting exactly the plain
+    step's token)."""
+    L = len(tokens)
+    if k <= 0 or L < min_match + 1:
+        return []
+    for n in range(min(max_match, L - 1), min_match - 1, -1):
+        pattern = tokens[L - n:]
+        for i in range(L - n - 1, -1, -1):
+            if tokens[i:i + n] == pattern:
+                cont = tokens[i + n:i + n + k]
+                if cont:
+                    return [int(t) for t in cont]
+                break  # suffix-adjacent match with nothing after it
+    return []
 
 
 @dataclasses.dataclass
@@ -123,12 +161,13 @@ class Admission:
 @dataclasses.dataclass
 class StepResult:
     """One step's host-visible output: `emitted` maps every sequence that
-    advanced to the LIST of tokens it emitted (one per plain step);
-    `retired` holds the sequences that finished, including any preempted
-    BEFORE the step ran (those emit no token). `prefill_tokens` counts
-    the chunk's prompt tokens on a chunked step; `drafted` and `accepted`
-    keep the reference's surface for the scheduler and stay 0 until
-    speculative decoding is ported."""
+    advanced to the LIST of tokens it emitted, in stream order (one on a
+    plain step; on a speculative step the accepted drafts and the
+    correction token, cut after an EOS); `retired` holds the sequences
+    that finished, including any preempted BEFORE the step ran (those
+    emit no token). `prefill_tokens` counts the chunk's prompt tokens on a
+    chunked step; `drafted` and `accepted` count this step's draft tokens
+    and how many of them the verify accepted (0 on other steps)."""
 
     emitted: dict
     retired: dict
@@ -176,7 +215,10 @@ class DecodeEngine:
     disables content-addressed reuse. `prefill_chunk=N` (a multiple of
     `block_size`; pick N >= n_slots + block_size) fuses chunked prefill
     into the step; 0 keeps the wave prefill. `seed` seeds the sampling
-    generator (on the model's device).
+    generator (on the model's device). `spec_decode` asks for speculative
+    decoding with `spec_k` drafts (default the `SPEC_K` knob); the
+    `SPEC_DECODE` knob overrides the request with 'on' / 'off', and a
+    temperature above 0 or `spec_k` 0 keeps it off.
 
     The stable accounting surface a scheduler reads: `n_free`/`occupancy`
     /`retire_counts` plus `block_utilization`/`block_fragmentation`/
@@ -190,7 +232,9 @@ class DecodeEngine:
                  eos_id: Optional[int] = None, seed: int = 0,
                  min_bucket: int = 16, block_size: Optional[int] = None,
                  n_blocks: Optional[int] = None, prefix_cache: bool = True,
-                 prefill_chunk: int = 0):
+                 prefill_chunk: int = 0,
+                 spec_decode: Optional[bool] = None,
+                 spec_k: Optional[int] = None):
         cfg = model.config
         self.model = model
         self.cfg = cfg
@@ -216,6 +260,12 @@ class DecodeEngine:
         self.top_k = top_k
         self.eos_id = eos_id
         self.min_bucket = min_bucket
+        # greedy only: the verify compares argmax targets
+        k = spec_k if spec_k is not None else knob("SPEC_K")
+        self.spec_k = max(int(k), 0)
+        self.spec_decode = (resolve_gate(knob("SPEC_DECODE"),
+                                         bool(spec_decode))
+                            and self.spec_k > 0 and temperature == 0.0)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
 
@@ -289,6 +339,9 @@ class DecodeEngine:
         self.prompt_tokens = 0        # prompt tokens across admissions
         self.prefix_hit_tokens = 0    # of those, served from cached blocks
         self.prefilled_tokens = 0     # suffix tokens actually prefilled
+        self.emitted_tokens = 0       # tokens emitted across all steps
+        self.spec_drafted_tokens = 0  # drafter proposals sent to verify
+        self.spec_accepted_tokens = 0  # of those, accepted by the verify
         # step-level flight recorder (obs/flight.py)
         self.flight = FlightRecorder(capacity=4096)
 
@@ -340,6 +393,35 @@ class DecodeEngine:
         nxt = self._sample(logits[:, -1, :])
         self.tok = torch.where(self.live, nxt, self.tok)
         self.pos = self.pos + self.live.long()
+
+    @torch.no_grad()
+    def _spec_step(self, draft: torch.Tensor,
+                   dlen: torch.Tensor) -> torch.Tensor:
+        """The speculative verify (reference `make_spec_step_fn`): ONE
+        cached forward of every slot's committed token and its K drafts
+        (n_slots, K+1) at the slot's own position, on the int8 weights
+        when the engine quantized them; greedy targets at every position
+        through `_sample`; the accept length is the longest draft prefix
+        (within the slot's `dlen`) equal to the targets, and the correction
+        token is the target right past it. Dead slots freeze their token
+        and position and accept 0 (their zeroed table rows send the K+1
+        writes to the null block). Returns the accept lengths (n_slots,)."""
+        K = self.spec_k
+        seq = torch.cat([self.tok[:, None], draft], dim=1)
+        with quant.use_quantized_params(self._qparams):
+            logits = self.model(seq, caches=self.caches, pos=self.pos,
+                                block_tables=self.block_tables,
+                                all_logits=True)           # (B, K+1, V)
+        B = seq.shape[0]
+        g = self._sample(logits.reshape(B * (K + 1), -1)).reshape(B, K + 1)
+        valid = torch.arange(K, device=self.device)[None, :] < dlen[:, None]
+        match = (draft == g[:, :K]) & valid
+        acc = torch.cumprod(match.long(), dim=1).sum(dim=1)
+        nxt = torch.gather(g, 1, acc[:, None])[:, 0]
+        self.tok = torch.where(self.live, nxt, self.tok)
+        acc = torch.where(self.live, acc, 0)
+        self.pos = self.pos + torch.where(self.live, acc + 1, 0)
+        return acc
 
     @torch.no_grad()
     def _chunk_forward(self, slot: int, chunk: list, off: int) -> None:
@@ -421,6 +503,18 @@ class DecodeEngine:
     def n_steps(self) -> int:
         """Decode steps executed so far."""
         return self._t
+
+    @property
+    def accepted_token_rate(self) -> float:
+        """Lifetime fraction of drafted tokens the verify accepted."""
+        return (self.spec_accepted_tokens / self.spec_drafted_tokens
+                if self.spec_drafted_tokens else 0.0)
+
+    @property
+    def tokens_per_step(self) -> float:
+        """Lifetime mean tokens emitted per step — the speculative
+        multiplier on step throughput (1.0 when spec is off)."""
+        return self.emitted_tokens / self._t if self._t else 0.0
 
     def prefill_bucket(self, prompt_len: int) -> int:
         """See `prefill_bucket_for`."""
@@ -669,10 +763,50 @@ class DecodeEngine:
             self._rebuild_live()
         return preempted
 
+    def _spec_drafts(self) -> Optional[tuple]:
+        """Host-side drafting for one speculative step (reference
+        :1388-1430): an (n_slots, K) draft buffer and per-slot draft
+        lengths, or None when this step runs the plain path. Each slot's
+        draft is clamped so that the emitted run (accepted + correction)
+        cannot overshoot its budget or the cache (`n <= max_new - n_new -
+        1`, `n <= max_len - pos - 1`); block lists grow to cover the
+        deepest acceptable row, and a dry pool SHRINKS the draft instead
+        of preempting (speculation never evicts live work). Any live slot
+        within K + 1 rows of `max_len` sends the whole step to the plain
+        path: `slice_rows` clamps a (B,) start near the table's end, which
+        would mis-rotate all K+1 rows of that slot."""
+        K = self.spec_k
+        draft = np.zeros((self.n_slots, K), np.int64)
+        dlen = np.zeros((self.n_slots,), np.int64)
+        for slot in self._live_slots():
+            seq = self._slots[slot]
+            if seq.pos + K + 1 > self.max_len:
+                return None              # position-table clamp hazard
+            prop = ngram_propose(seq.tokens, K)
+            n = min(len(prop), seq.max_new - seq.n_new - 1,
+                    self.max_len - seq.pos - 1)
+            while n > 0 and \
+                    seq.pos + n >= len(seq.blocks) * self.block_size:
+                blk = self.block_pool.alloc()
+                if blk is None:
+                    n = len(seq.blocks) * self.block_size - seq.pos - 1
+                    break
+                self._tables_h[slot, len(seq.blocks)] = blk
+                seq.blocks.append(blk)
+                self._tables_dirty = True
+            if n > 0:
+                draft[slot, :n] = prop[:n]
+                dlen[slot] = n
+        if not dlen.any():
+            return None                  # nothing to verify: plain step
+        return draft, dlen
+
     def step(self) -> StepResult:
-        """Advance every live slot one token, running one prefill chunk of
-        the oldest partial prompt first when `prefill_chunk` is set.
-        Returns a `StepResult`: {seq_id: [token]} emitted this step
+        """Advance every live slot one token — or, on a speculative step
+        (`spec_decode` on, drafts available), up to `spec_k` + 1 tokens —
+        running one prefill chunk of the oldest partial prompt first when
+        `prefill_chunk` is set (such a step never speculates). Returns a
+        `StepResult`: {seq_id: [tokens]} emitted this step in stream order
         (including the first token of a prompt whose LAST chunk ran), plus
         {seq_id: Retired} for the sequences that finished (eos | budget |
         cache_full | preempted; preempted ones yielded their blocks BEFORE
@@ -685,6 +819,10 @@ class DecodeEngine:
         if not self._slots or (chunk is None and not self._live_slots()):
             return StepResult({}, preempted)
         n_live_in = len(self._live_slots())    # decoding slots this step
+        # drafting may grow block lists, so it comes before the table sync
+        spec = None
+        if self.spec_decode and chunk is None:
+            spec = self._spec_drafts()
         self._sync_tables()
         chunk_done = False
         if chunk is not None:
@@ -695,7 +833,13 @@ class DecodeEngine:
             self._chunk_forward(
                 slot_c, seq_c.suffix[seq_c.suffix_done:seq_c.suffix_done
                                      + take], off)
-        self._decode_step()
+        if spec is not None:
+            draft_h, dlen_h = spec
+            acc = self._spec_step(
+                torch.from_numpy(draft_h).to(self.device),
+                torch.from_numpy(dlen_h).to(self.device))
+        else:
+            self._decode_step()
         if chunk_done:
             # the prompt is in: the slot goes live with its first token,
             # where a wave admit would have left it
@@ -703,11 +847,16 @@ class DecodeEngine:
             self.live[slot_c] = True
         self._t += 1
         # THE step sync boundary: every slot's sampled token drains to the
-        # host once per step
-        sampled = self.tok.tolist()
+        # host once per step (with the accept lengths on a speculative
+        # step: one transfer, not two)
+        if spec is not None:
+            sampled, accepted_h = torch.stack([self.tok, acc]).tolist()
+        else:
+            sampled = self.tok.tolist()
         emitted: dict[int, list] = {}
         retired: dict[int, Retired] = dict(preempted)
         prefill_tokens = 0
+        drafted = accepted = 0
         if chunk is not None:
             # host mirror of the chunk: progress the partial and publish
             # the blocks that just became full (first-writer-wins, so
@@ -724,28 +873,47 @@ class DecodeEngine:
             if self._is_partial(seq):
                 continue                       # still parked: no token
             nxt = int(sampled[slot])
-            seq.tokens.append(nxt)
-            seq.n_new += 1
-            if not (chunk_done and slot == slot_c):
-                seq.pos += 1                   # the first token is unwritten
-            emitted[seq.seq_id] = [nxt]
-            reason = self._retire_reason(slot, nxt)
+            if spec is not None:
+                # the accepted drafts, then the correction token; an EOS
+                # inside the span ends the stream at it (the device
+                # position runs ahead, but the slot retires this step and
+                # its zeroed table row makes the overshoot unreachable)
+                acc_s = int(accepted_h[slot])
+                toks = [int(t) for t in draft_h[slot, :acc_s]] + [nxt]
+                if self.eos_id is not None and self.eos_id in toks:
+                    toks = toks[:toks.index(self.eos_id) + 1]
+                seq.pos += len(toks)
+                accepted += acc_s
+            else:
+                toks = [nxt]
+                if not (chunk_done and slot == slot_c):
+                    seq.pos += 1               # the first token is unwritten
+            seq.tokens.extend(toks)
+            seq.n_new += len(toks)
+            emitted[seq.seq_id] = toks
+            reason = self._retire_reason(slot, toks[-1])
             if reason is not None:
                 retired[seq.seq_id] = self._retire(slot, reason)
         # drop retired slots from the live mask (their table rows are
         # zeroed, so any residual write lands in the null block)
         if len(retired) > len(preempted):
             self._rebuild_live()
-        n_emitted = len(emitted)
+        n_emitted = sum(len(v) for v in emitted.values())
+        self.emitted_tokens += n_emitted
+        if spec is not None:
+            drafted = int(dlen_h.sum())
+            self.spec_drafted_tokens += drafted
+            self.spec_accepted_tokens += accepted
         self.flight.record(
             step=self._t,
             step_ms=round((time.perf_counter() - t_step0) * 1e3, 3),
             n_live=n_live_in, prefill_tokens=prefill_tokens,
             emitted=n_emitted, retired=len(retired) - len(preempted),
             blocks_in_use=self.block_pool.n_referenced,
-            preemptions=len(preempted), drafted=0, accepted=0)
+            preemptions=len(preempted), drafted=drafted, accepted=accepted)
         return StepResult(emitted=emitted, retired=retired,
-                          prefill_tokens=prefill_tokens)
+                          prefill_tokens=prefill_tokens, drafted=drafted,
+                          accepted=accepted)
 
     def run(self, prompts, max_new_tokens,
             progress=None) -> list[list]:

@@ -27,7 +27,11 @@ Counterpart of the reference package's `models/mlp.py`:
   (`scatter_dispatch`) packs each expert's first `capacity` assignments
   and drops the rest, surfaced as the `dropped_frac` buffer; 'grouped'
   runs the dropless grouped-matmul kernels (ops/grouped_matmul.py), shared
-  experts included, and degrades to 'dense' where `grouped_usable`
+  experts included. Both move tokens into their packed buffers and back
+  with `gather_rows` / `combine_rows` (ops/grouped_matmul.py): no
+  scatter-add in either direction, so both repeat bit for bit from run to
+  run, and unfilled slots feed no token. 'grouped' degrades to 'dense'
+  where `grouped_usable`
   refuses: counted in `grouped_matmul.DEGRADED` (the trainer's
   `moe_degraded_dense` stat) and warned once per layer, since 'dense'
   runs n_routed / n_act_routed times the routed experts' FLOPs.
@@ -137,35 +141,32 @@ def scatter_dispatch(x_flat: torch.Tensor, topk_idx: torch.Tensor,
     :193). x_flat (N, C); topk_idx/topk_gates (N, k) over the E routed
     experts whose stacked weights are experts_fc (E, C, fc_out) /
     experts_proj (E, up, C), in x's dtype. Returns (N, C). Assignments
-    past an expert's `capacity` are dropped (earlier tokens win)."""
+    past an expert's `capacity` are dropped (earlier tokens win). The
+    tokens and gates reach the (E, capacity) grid through `gather_rows`
+    and come back through `combine_rows` (ops/grouped_matmul.py): unfilled
+    slots are zero and feed no token, and no direction scatter-adds."""
     N, k = topk_idx.shape
     E = experts_fc.shape[0]
+    R = E * capacity
     dev = x_flat.device
 
     flat_e = topk_idx.reshape(-1)
-    flat_g = topk_gates.reshape(-1).float()
     flat_t = torch.arange(N * k, device=dev) // k          # owning token
     order = torch.argsort(flat_e, stable=True)             # group by expert
-    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
-
-    counts = torch.zeros(E, dtype=torch.long, device=dev).index_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    starts = torch.cumsum(counts, 0) - counts
+    se = flat_e[order]
+    starts = torch.searchsorted(se, torch.arange(E, device=dev))
     pos = torch.arange(N * k, device=dev) - starts[se]     # rank in expert
-    # dropped assignments land in one overflow cell that is sliced away
-    slot = torch.where(pos < capacity, se * capacity + pos,
-                       torch.full_like(pos, E * capacity))
-    buf_tok = torch.zeros(E * capacity + 1, dtype=torch.long,
-                          device=dev).index_put((slot,), st)
-    buf_gate = torch.zeros(E * capacity + 1, device=dev).index_put(
-        (slot,), sg)
-    tok_grid = buf_tok[:-1].reshape(E, capacity)
-    gate_grid = buf_gate[:-1].reshape(E, capacity)
-    # unfilled slots keep token 0 with gate 0: computed, then zeroed
-    y = mlp_apply(x_flat[tok_grid], experts_fc, experts_proj, non_linearity)
-    y = y * gate_grid[..., None].to(x_flat.dtype)          # (E, cap, C)
-    return torch.zeros_like(x_flat).index_add(
-        0, tok_grid.reshape(-1), y.reshape(E * capacity, -1))
+    # dropped assignments point at row R: a row of zeros
+    slot = torch.where(pos < capacity, se * capacity + pos, R)
+    pk = gm.pack(order, slot, flat_t, R)
+    slot_of = pk.slot.reshape(N, k)
+    gate = gm.gather_rows(topk_gates.reshape(-1, 1).float(), pk.row_asg,
+                          pk.filled, pk.slot[:, None])
+    xg = gm.gather_rows(x_flat, pk.row_tok, pk.filled, slot_of)
+    y = mlp_apply(xg.reshape(E, capacity, -1), experts_fc, experts_proj,
+                  non_linearity)
+    y = y * gate.reshape(E, capacity, 1).to(x_flat.dtype)  # (E, cap, C)
+    return gm.combine_rows(y.reshape(R, -1), slot_of, pk.row_tok, pk.filled)
 
 
 class MoE(nn.Module):
@@ -246,7 +247,8 @@ class MoE(nn.Module):
             topk_vals, topk_idx = logits.topk(k, dim=1)
             topk_gates = torch.softmax(topk_vals, dim=1)
         one_hot = F.one_hot(topk_idx, n_routed).float()
-        fi = one_hot.sum(dim=(0, 1)).detach() / n_tokens
+        load = one_hot.sum(dim=(0, 1)).detach()             # per expert
+        fi = load / n_tokens
         pi = torch.softmax(logits, dim=1).mean(dim=0)
         coef = cfg.alpha if cfg.aux_free else cfg.coeff
         aux_loss = coef * n_routed * (pi * fi).sum()
@@ -259,9 +261,6 @@ class MoE(nn.Module):
             routed_out = scatter_dispatch(
                 x_flat, topk_idx, topk_gates, fc[n_shared:], proj[n_shared:],
                 non_linearity=cfg.non_linearity, capacity=capacity)
-            load = torch.zeros(n_routed, device=x.device).index_add_(
-                0, topk_idx.reshape(-1),
-                torch.ones(topk_idx.numel(), device=x.device))
             dropped_frac = (load - capacity).clamp_min(0).sum() \
                 / float(n_tokens * k)
         elif use_grouped:

@@ -53,8 +53,10 @@ def paged_update(pool: torch.Tensor, new: torch.Tensor, pos,
     `block_tables` (B, max_blocks) int32. Updates `pool` in place and
     returns it.
 
-    * T == 1 (decode step): `pos` is per-sequence (B,) (or a scalar); one
-      2-index scatter writes every slot's row. A row whose logical block
+    * T == 1 (decode step), or a (B,) tensor `pos` with a small T (the
+      speculative verify's K+1 rows, reference :103-114): `pos` is
+      per-sequence (B,) (or a scalar at T == 1); one 2-index scatter
+      writes every slot's rows [pos, pos+T). A row whose logical block
       lies past the table lands in the null block.
     * T > 1 (bucketed prefill): B == 1, `pos` an int, block-aligned (the
       reused-prefix length), T a multiple of the block size; whole blocks
@@ -65,14 +67,13 @@ def paged_update(pool: torch.Tensor, new: torch.Tensor, pos,
     B, T = new.shape[:2]
     bs = pool.shape[1]
     W = block_tables.shape[1]
-    if T == 1:
+    if T == 1 or (torch.is_tensor(pos) and pos.dim() >= 1):
         p = torch.as_tensor(pos, device=pool.device).long().reshape(-1)
-        p = p.expand(B)
-        q = p // bs
-        blk = torch.gather(block_tables.long(), 1,
-                           q.clamp(max=W - 1)[:, None])[:, 0]
+        p = p.expand(B)[:, None] + torch.arange(T, device=pool.device)
+        q = p // bs                                        # (B, T)
+        blk = torch.gather(block_tables.long(), 1, q.clamp(max=W - 1))
         blk = torch.where(q < W, blk, torch.full_like(blk, NULL_BLOCK))
-        pool[blk, p % bs] = new[:, 0]
+        pool[blk, p % bs] = new
         return pool
     assert B == 1, "paged prefill writes one sequence at a time"
     assert isinstance(pos, int), "paged prefill takes a host int offset"

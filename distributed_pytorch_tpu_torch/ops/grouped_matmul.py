@@ -11,7 +11,16 @@ Counterpart of the reference package's `ops/grouped_matmul.py`:
   dropless by construction. `tile_group` maps each tile to its expert;
   empty experts own no tiles; the buffer has P = (ceil(A / bm) + E) bm
   rows, known on the host, so the dispatch is static-shape and never
-  syncs. Unfilled rows keep token 0 with gate 0.
+  syncs. Unfilled rows read zero, with gate 0, and feed no token.
+* `gather_rows` / `combine_rows`: the token gather into a packed buffer
+  and the combine back, two `torch.autograd.Function`s, each one's
+  backward the other's forward. Both run on two maps built once per
+  forward: for each buffer row its token (or assignment) and whether it
+  is filled, and for each token its at most `n_shared + k` rows. A token
+  sums its own rows in a fixed order, so neither direction scatter-adds
+  (no `index_add`, no `index_put(accumulate=True)`, no atomic) and both
+  give the same bits on every run. The reference computes the same
+  gather and scatter-add under XLA (:338, :399).
 * `gmm_fwd` (reference `_fwd_kernel(_scaled)` :105-113 -> `_fwd_call`
   :148): y[r] = x_pad[r] @ W[tile_group[r // bm]], times the fp32 gate of
   the row at the output write in the scaled form.
@@ -30,7 +39,7 @@ Counterpart of the reference package's `ops/grouped_matmul.py`:
 * `grouped_dispatch` (:436, one device: `_local_grouped_dispatch` :354
   without the 'expert' mesh axis, which comes with slice 6): the shared
   experts ride the same two products as always-on groups with gate 1.0,
-  and one index_add combines every expert's rows. The caller passes the
+  and `combine_rows` sums every token's rows. The caller passes the
   nonlinearity between the two products (`act`).
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
@@ -56,9 +65,9 @@ and the kernels' own 128 rows on the card.
 
 from __future__ import annotations
 
-import torch
+from typing import Callable, NamedTuple
 
-from typing import Callable
+import torch
 
 CPU_BLOCK_M = 8         # the reference's interpret bm
 KERNEL_BLOCK_M = 128    # the kernels' CTA rows: the card's bm
@@ -329,28 +338,106 @@ def _gmm_metadata(flat_e, n_groups: int, n_tiles: int, bm: int):
             tile_group.to(torch.int32))
 
 
-def _pack_rows(x_flat, flat_e, flat_t, flat_g, n_groups: int, bm: int):
+class Packing(NamedTuple):
+    """Where each assignment sits in a packed buffer of R rows. Row r
+    holds assignment `row_asg[r]` of token `row_tok[r]` when `filled[r]`
+    (else it is zero and its token and assignment read 0); assignment a
+    sits in row `slot[a]`, in the assignment's own order, or in R (a row
+    of zeros) when it was dropped."""
+
+    row_asg: torch.Tensor
+    row_tok: torch.Tensor
+    filled: torch.Tensor
+    slot: torch.Tensor
+
+
+def pack(order, slot_sorted, flat_t, n_rows: int) -> Packing:
+    """The `Packing` of assignments stable-sorted by `order`, the i-th of
+    which goes to row `slot_sorted[i]` (n_rows for a dropped one). Every
+    write has a unique target but the dropped ones', which share a cell
+    that is cut away."""
+    dev = order.device
+    row_asg = torch.zeros(n_rows + 1, dtype=torch.long, device=dev) \
+        .index_put_((slot_sorted,), order)[:-1]
+    filled = torch.zeros(n_rows + 1, dtype=torch.bool, device=dev) \
+        .index_put_((slot_sorted,), torch.ones_like(order, dtype=torch.bool))
+    filled = filled[:-1]
+    row_tok = torch.where(filled, flat_t[row_asg], 0)
+    slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
+    return Packing(row_asg, row_tok, filled, slot)
+
+
+def _gather_filled(src, rows, filled):
+    """src[rows], zero on the rows that are not `filled`."""
+    return src.index_select(0, rows).masked_fill_(~filled[:, None], 0)
+
+
+def _sum_slots(src, slot_of):
+    """out[n] = sum over j, in the order of j, of src[slot_of[n, j]]; a
+    slot equal to len(src) reads a row of zeros."""
+    ext = torch.cat([src, src.new_zeros((1,) + src.shape[1:])])
+    out = ext.index_select(0, slot_of[:, 0])
+    for j in range(1, slot_of.shape[1]):
+        out += ext.index_select(0, slot_of[:, j])
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rows, filled, slot_of):
+        ctx.save_for_backward(slot_of)
+        return _gather_filled(x, rows, filled)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (slot_of,) = ctx.saved_tensors
+        return _sum_slots(dout, slot_of), None, None, None
+
+
+class _CombineRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, slot_of, rows, filled):
+        ctx.save_for_backward(rows, filled)
+        return _sum_slots(y, slot_of)
+
+    @staticmethod
+    def backward(ctx, dout):
+        rows, filled = ctx.saved_tensors
+        return _gather_filled(dout, rows, filled), None, None, None
+
+
+def gather_rows(x, rows, filled, slot_of):
+    """Packed buffer row r = x[rows[r]] where `filled[r]`, else zero. x
+    (N, ...); rows, filled (R,); slot_of (N, J): the rows that row n of x
+    feeds (R where it feeds none), which must be exactly those r with
+    rows[r] == n and filled[r]. The backward sums each source row's
+    gradient rows in the order of j."""
+    return _GatherRows.apply(x, rows, filled, slot_of)
+
+
+def combine_rows(y, slot_of, rows, filled):
+    """out[n] = sum over j, in the order of j, of y[slot_of[n, j]] (a slot
+    of R adds nothing): the transpose of `gather_rows` with the same maps.
+    The backward gathers dout[rows[r]], zero on the unfilled rows."""
+    return _CombineRows.apply(y, slot_of, rows, filled)
+
+
+def _pack_rows(flat_e, flat_t, n_groups: int, bm: int):
     """Sort assignments by expert into the tile-aligned buffer. Returns
-    (x_pad, row_tok, row_gate, counts, pstart, tile_group). Unfilled rows
-    keep token 0 with gate 0: computed, then zeroed."""
+    (Packing, counts, pstart, tile_group). The buffer's rows past each
+    group's assignments are unfilled."""
     A = flat_e.shape[0]
     n_tiles = -(-A // bm) + n_groups
     P = n_tiles * bm
-    dev = x_flat.device
+    dev = flat_e.device
 
     order = torch.argsort(flat_e, stable=True)
-    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+    se = flat_e[order]
     counts, pstart, starts, tile_group = _gmm_metadata(
         flat_e, n_groups, n_tiles, bm)
     pos = torch.arange(A, device=dev) - starts[se]         # rank in group
     slot = pstart.long()[se] + pos                         # unique, < P
-
-    row_tok = torch.zeros(P, dtype=torch.long, device=dev).index_put(
-        (slot,), st)
-    row_gate = torch.zeros(P, dtype=torch.float32, device=dev).index_put(
-        (slot,), sg)
-    x_pad = x_flat[row_tok]
-    return x_pad, row_tok, row_gate[:, None], counts, pstart, tile_group
+    return pack(order, slot, flat_t, P), counts, pstart, tile_group
 
 
 def grouped_usable(cfg, dtype, device) -> bool:
@@ -384,19 +471,22 @@ def grouped_dispatch(x_flat, topk_idx, topk_gates, experts_fc, experts_proj,
     dev = x_flat.device
     bm = block_m(dev)
 
-    tok = torch.arange(N, device=dev)
+    # assignments token-major: token n's shared experts, then its routed
+    # ones; within a group the stable sort keeps token order either way
+    J = n_shared + k
     flat_e = torch.cat(
-        [torch.full((N,), e, dtype=torch.long, device=dev)
-         for e in range(n_shared)]
-        + [(topk_idx.long() + n_shared).reshape(-1)])
+        [torch.arange(n_shared, device=dev).expand(N, n_shared),
+         topk_idx.long() + n_shared], dim=1).reshape(-1)
     flat_g = torch.cat(
-        [torch.ones(N, device=dev) for _ in range(n_shared)]
-        + [topk_gates.float().reshape(-1)])
-    flat_t = torch.cat([tok] * n_shared + [tok.repeat_interleave(k)])
+        [torch.ones(N, n_shared, device=dev), topk_gates.float()],
+        dim=1).reshape(-1, 1)
+    flat_t = torch.arange(N, device=dev).repeat_interleave(J)
 
-    x_pad, row_tok, row_gate, counts, pstart, tile_group = _pack_rows(
-        x_flat, flat_e, flat_t, flat_g, E, bm)
+    pk, counts, pstart, tile_group = _pack_rows(flat_e, flat_t, E, bm)
+    slot_of = pk.slot.reshape(N, J)
+    x_pad = gather_rows(x_flat, pk.row_tok, pk.filled, slot_of)
+    row_gate = gather_rows(flat_g, pk.row_asg, pk.filled, pk.slot[:, None])
     h = act(gmm(x_pad, experts_fc, tile_group, counts, pstart, bm=bm))
     y = gmm(h.contiguous(), experts_proj, tile_group, counts, pstart,
             scales=row_gate, bm=bm)
-    return torch.zeros_like(x_flat).index_add(0, row_tok, y)
+    return combine_rows(y, slot_of, pk.row_tok, pk.filled)

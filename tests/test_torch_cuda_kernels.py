@@ -256,7 +256,8 @@ def _prefill_inputs(dev, T, off, nh, nkv, hs, bs, seed=0):
     return q, kp, vp, table
 
 
-@pytest.mark.parametrize("T,off", [(100, 0), (200, 288), (16, 96)])
+@pytest.mark.parametrize("T,off",
+                         [(100, 0), (200, 288), (16, 96), (5, 101)])
 @pytest.mark.parametrize("nh,nkv", [(12, 12), (8, 2), (4, 1)],
                          ids=["mha", "gqa", "mqa"])
 @pytest.mark.parametrize("hs", [64, 128])
@@ -264,8 +265,9 @@ def _prefill_inputs(dev, T, off, nh, nkv, hs, bs, seed=0):
 def test_paged_prefill_bf16_wgmma(dev, bs, hs, nh, nkv, T, off):
     """The bf16 prefill's wgmma kernel (head sizes 64 and 128) at the
     block sizes, head groupings and offsets a chunked engine gives it:
-    chunks that are not whole 64-row tiles, offsets past 256, and a 16-row
-    MQA chunk that packs into one 64-row tile, against the plain version
+    chunks that are not whole 64-row tiles, offsets past 256, a 16-row
+    MQA chunk that packs into one 64-row tile, and a one-slot speculative
+    verify's 5 rows at an offset inside a block, against the plain version
     at the bf16 limit."""
     q, kp, vp, table = _prefill_inputs(dev, T, off, nh, nkv, hs, bs,
                                        seed=T + bs)
@@ -1563,6 +1565,42 @@ def test_moe_layer_grouped_matches_dense_on_card(dev):
                                             layer.parameters()])
     for a, b in zip(*res):
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("impl", ["scatter", "grouped"])
+def test_moe_dispatch_repeats_bit_for_bit(dev, impl):
+    """Two bf16 forward + backward calls of an MoE layer (1 shared + 15
+    routed experts, top 4, capacity factor 2.0 for 'scatter', so that its
+    grid has unfilled slots, over 2048 tokens) give the same bytes: the
+    output, the input's gradient and every parameter's. The token gather
+    and combine sum each token's rows in a fixed order (no scatter-add)."""
+    import dataclasses
+
+    from distributed_pytorch_tpu_torch.config import LLMConfig
+    from distributed_pytorch_tpu_torch.models.mlp import MoE
+
+    cfg = LLMConfig(n_embd=256, up_dim=384, moe=True, n_exp=16, n_shared=1,
+                    n_act=4, aux_free=True, capacity_factor=2.0)
+    torch.manual_seed(0)
+    layer = MoE(dataclasses.replace(cfg, moe_impl=impl), device=dev,
+                dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, 0.05)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(4, 512, 256, generator=g, device=dev).bfloat16()
+    dy = torch.randn(4, 512, 256, generator=g, device=dev).bfloat16()
+    res = []
+    for _ in range(2):
+        layer.zero_grad(set_to_none=True)
+        xs = x.clone().requires_grad_()
+        y, aux = layer(xs)
+        (y.float() * dy.float()).sum().add(aux).backward()
+        res.append([y.detach().clone(), xs.grad.clone()]
+                   + [p.grad.clone() for p in layer.parameters()])
+    torch.cuda.synchronize()
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
 
 
 def test_grouped_wrappers_refuse_what_the_kernels_do_not_take(dev):

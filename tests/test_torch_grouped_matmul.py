@@ -62,7 +62,10 @@ def _buffer(sizes, seed=1):
 @pytest.mark.parametrize("sizes", SIZES.values(), ids=SIZES.keys())
 def test_metadata_and_packing_match_reference(sizes):
     """`_gmm_metadata` and `_pack_rows` equal the reference's exactly (but
-    for `tile_first`, which the port does not keep)."""
+    for `tile_first`, which the port does not keep); the packed rows and
+    gates that `gather_rows` reads through the packing are the
+    reference's on the filled rows and zero on the others (the reference
+    leaves token 0's row there, times gate 0)."""
     b = _buffer(sizes)
     got = gm._gmm_metadata(_t(b["flat_e"]).long(), E, b["n_tiles"], BM)
     for name, g, r in zip(("counts", "pstart", "starts", "tile_group"),
@@ -77,10 +80,18 @@ def test_metadata_and_packing_match_reference(sizes):
     flat_g = rng.standard_normal(A).astype(np.float32)
     ref = jgm._pack_rows(jnp.asarray(x_flat), jnp.asarray(b["flat_e"]),
                          jnp.asarray(flat_t), jnp.asarray(flat_g), E, BM)
-    x_pad, row_tok, row_gate, counts, pstart, tile_group = gm._pack_rows(
-        _t(x_flat), _t(b["flat_e"]).long(), _t(flat_t).long(), _t(flat_g),
-        E, BM)
-    for name, g, r in (("x_pad", x_pad, ref[0]), ("row_tok", row_tok, ref[1]),
+    pk, counts, pstart, tile_group = gm._pack_rows(
+        _t(b["flat_e"]).long(), _t(flat_t).long(), E, BM)
+    np.testing.assert_array_equal(pk.filled.numpy(), b["filled"])
+    # each assignment's slot holds it
+    np.testing.assert_array_equal(pk.row_asg[pk.slot].numpy(), np.arange(A))
+    fill = b["filled"][:, None]
+    x_pad = gm.gather_rows(_t(x_flat), pk.row_tok, pk.filled,
+                           pk.slot[:, None])
+    row_gate = gm.gather_rows(_t(flat_g)[:, None], pk.row_asg, pk.filled,
+                              pk.slot[:, None])
+    for name, g, r in (("x_pad", x_pad, np.where(fill, ref[0], 0)),
+                       ("row_tok", pk.row_tok, ref[1]),
                        ("row_gate", row_gate, ref[2]),
                        ("counts", counts, ref[3]),
                        ("tile_group", tile_group, ref[4])):

@@ -5,7 +5,13 @@ tiny MoE model's logits and loss from converted weights, a 5-step AdamW
 trajectory with the aux-free bias moving, and greedy engine tokens. Then
 the port's own guarantees: recomputing blocks leaves the trajectory and
 the bias exactly as they are, a skipped step restores the bias, and
-restore_for_inference brings it back. The reference's grouped dispatch
+restore_for_inference brings it back. The token gather and combine of
+'scatter' and 'grouped' (`gather_rows` / `combine_rows`): outputs and the
+gradients of x, the gates and both expert stacks against the reference's
+dispatch and against the autograd-native formulation (an index gather and
+an `index_add` combine), with unfilled slots, dropped assignments and
+shared experts, and each token's gradient summed over its own slots
+only. The reference's grouped dispatch
 runs its Pallas kernels in interpret mode (bm 8), as its own tests do.
 Each test states its tolerance."""
 
@@ -23,13 +29,18 @@ from distributed_pytorch_tpu.config import TrainConfig as JTrainConfig
 from distributed_pytorch_tpu.engine import DecodeEngine as JEngine
 from distributed_pytorch_tpu.models.gpt import LLM as JLLM
 from distributed_pytorch_tpu.models.mlp import MoE as JMoE
+from distributed_pytorch_tpu.models.mlp import \
+    scatter_dispatch as jscatter_dispatch
+from distributed_pytorch_tpu.ops import grouped_matmul as jgm
 from distributed_pytorch_tpu.train.state import create_train_state as jstate
 from distributed_pytorch_tpu.train.step import make_train_step as jstep
 from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
 from distributed_pytorch_tpu_torch.convert import params_from_jax
 from distributed_pytorch_tpu_torch.engine import DecodeEngine
 from distributed_pytorch_tpu_torch.models.gpt import LLM
-from distributed_pytorch_tpu_torch.models.mlp import MoE
+from distributed_pytorch_tpu_torch.models.mlp import (MoE, activate,
+                                                     mlp_apply,
+                                                     scatter_dispatch)
 from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
 from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
 from distributed_pytorch_tpu_torch.train.state import (TrainState,
@@ -296,6 +307,212 @@ def test_restore_for_inference_brings_the_bias_back(tmp_path):
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# the token gather and combine of 'scatter' and 'grouped'
+# ---------------------------------------------------------------------------
+
+def _native_scatter(x_flat, topk_idx, topk_gates, fc, proj, capacity):
+    """The autograd-native scatter dispatch: x_flat[tok_grid] with unfilled
+    slots on token 0 and gate 0, and an index_add combine."""
+    N, k = topk_idx.shape
+    E = fc.shape[0]
+    flat_e = topk_idx.reshape(-1)
+    flat_g = topk_gates.reshape(-1)
+    flat_t = torch.arange(N * k) // k
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+    counts = torch.zeros(E, dtype=torch.long).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    pos = torch.arange(N * k) - (torch.cumsum(counts, 0) - counts)[se]
+    slot = torch.where(pos < capacity, se * capacity + pos,
+                       torch.full_like(pos, E * capacity))
+    tok = torch.zeros(E * capacity + 1, dtype=torch.long).index_put(
+        (slot,), st)[:-1].reshape(E, capacity)
+    gate = torch.zeros(E * capacity + 1).index_put(
+        (slot,), sg)[:-1].reshape(E, capacity)
+    y = mlp_apply(x_flat[tok], fc, proj, "swiglu") * gate[..., None]
+    return torch.zeros_like(x_flat).index_add(
+        0, tok.reshape(-1), y.reshape(E * capacity, -1))
+
+
+def _native_grouped(x_flat, topk_idx, topk_gates, fc, proj, n_shared):
+    """The autograd-native grouped dispatch: the same packing, x_flat[row]
+    with unfilled rows on token 0 and gate 0, and an index_add combine."""
+    N, k = topk_idx.shape
+    E = fc.shape[0]
+    bm = gm.block_m(x_flat.device)
+    flat_e = torch.cat([torch.full((N,), e) for e in range(n_shared)]
+                       + [(topk_idx + n_shared).reshape(-1)])
+    flat_g = torch.cat([torch.ones(N) for _ in range(n_shared)]
+                       + [topk_gates.reshape(-1)])
+    flat_t = torch.cat([torch.arange(N)] * n_shared
+                       + [torch.arange(N).repeat_interleave(k)])
+    A = flat_e.shape[0]
+    n_tiles = -(-A // bm) + E
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+    counts, pstart, starts, tile_group = gm._gmm_metadata(flat_e, E,
+                                                          n_tiles, bm)
+    slot = pstart.long()[se] + torch.arange(A) - starts[se]
+    row_tok = torch.zeros(n_tiles * bm, dtype=torch.long).index_put(
+        (slot,), st)
+    row_gate = torch.zeros(n_tiles * bm).index_put((slot,), sg)[:, None]
+    h = activate(gm.gmm(x_flat[row_tok], fc, tile_group, counts, pstart,
+                        bm=bm), "swiglu")
+    y = gm.gmm(h.contiguous(), proj, tile_group, counts, pstart,
+               scales=row_gate, bm=bm)
+    return torch.zeros_like(x_flat).index_add(0, row_tok, y)
+
+
+#: (dispatch, n_shared, capacity factor): unfilled slots (capacity twice
+#: the mean load), dropped assignments (half of it), shared experts
+DISPATCH_CASES = {"scatter-unfilled": ("scatter", 0, 2.0),
+                  "scatter-dropped": ("scatter", 0, 0.5),
+                  "grouped-unfilled": ("grouped", 0, None),
+                  "grouped-shared": ("grouped", 2, None)}
+
+
+def _dispatch_inputs(n_shared, seed=7):
+    Nt, C, up, n_exp, k = 24, 32, 16, 6, 2
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((Nt, C)).astype(np.float32)
+    fc = (0.2 * rng.standard_normal((n_exp, C, 2 * up))).astype(np.float32)
+    proj = (0.2 * rng.standard_normal((n_exp, up, C))).astype(np.float32)
+    logits = rng.standard_normal((Nt, n_exp - n_shared)).astype(np.float32)
+    # a skewed router, so that some experts overflow and some sit idle
+    logits[:, 0] += 1.5
+    idx = np.argsort(-logits, axis=1)[:, :k].astype(np.int32)
+    vals = np.take_along_axis(logits, idx, axis=1)
+    gates = (np.exp(vals) / np.exp(vals).sum(1, keepdims=True)) \
+        .astype(np.float32)
+    dy = rng.standard_normal((Nt, C)).astype(np.float32)
+    return x, idx, gates, fc, proj, dy
+
+
+def _capacity(cf, Nt, k, E):
+    return max(k, int(np.ceil(cf * Nt * k / E)))
+
+
+@pytest.mark.parametrize("case", DISPATCH_CASES.values(),
+                         ids=DISPATCH_CASES.keys())
+def test_dispatch_matches_reference_and_native(case):
+    """The port's dispatch against the reference's (`jax.vjp`; the grouped
+    one in interpret mode), fp32, atol 1e-5, and against the
+    autograd-native formulation, atol 1e-6: the output and the gradients
+    of x, the gates and both expert stacks. The case's packed buffer has
+    unfilled slots, and the dropped case drops assignments."""
+    impl, n_shared, cf = case
+    x, idx, gates, fc, proj, dy = _dispatch_inputs(n_shared)
+    Nt, k = idx.shape
+    E = fc.shape[0] - n_shared
+    if impl == "scatter":
+        cap = _capacity(cf, Nt, k, E)
+        load = np.bincount(idx.reshape(-1), minlength=E)
+        assert (load > cap).any() if cf < 1 else (load < cap).any()
+
+        def jf(x, g, a, b):
+            return jscatter_dispatch(x, jnp.asarray(idx), g, a, b,
+                                     non_linearity="swiglu", capacity=cap)
+
+        def tf(x, g, a, b):
+            return scatter_dispatch(x, _t(idx).long(), g, a, b,
+                                    non_linearity="swiglu", capacity=cap)
+
+        def nf(x, g, a, b):
+            return _native_scatter(x, _t(idx).long(), g, a, b, cap)
+    else:
+        def jf(x, g, a, b):
+            return jgm.grouped_dispatch(x, jnp.asarray(idx), g, a, b,
+                                        non_linearity="swiglu",
+                                        n_shared=n_shared, interpret=True)
+
+        def tf(x, g, a, b):
+            return gm.grouped_dispatch(x, _t(idx).long(), g, a, b,
+                                       act=lambda h: activate(h, "swiglu"),
+                                       n_shared=n_shared)
+
+        def nf(x, g, a, b):
+            return _native_grouped(x, _t(idx).long(), g, a, b, n_shared)
+
+    y_ref, vjp = jax.vjp(jf, *(jnp.asarray(a) for a in (x, gates, fc, proj)))
+    g_ref = vjp(jnp.asarray(dy))
+    outs = []
+    for f in (tf, nf):
+        leaves = [_t(a).requires_grad_() for a in (x, gates, fc, proj)]
+        y = f(*leaves)
+        y.backward(_t(dy))
+        outs.append([y.detach()] + [t.grad for t in leaves])
+    for name, got, ref, native in zip(("y", "x", "gates", "fc", "proj"),
+                                      outs[0], [y_ref, *g_ref], outs[1]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                                   rtol=0, err_msg=name)
+        np.testing.assert_allclose(got.numpy(), native.numpy(), atol=1e-6,
+                                   rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("impl", ["scatter", "grouped"])
+def test_token_zero_gradient_is_its_own_assignments_only(impl):
+    """Token 0's gradient is the sum over its own kept assignments of the
+    expert's gate-weighted vector-Jacobian product at token 0 (fp32, atol
+    1e-6), with unfilled slots in the buffer; and the gather's backward
+    reads no unfilled row: a NaN cotangent there leaves every token's
+    gradient finite."""
+    n_shared = 1 if impl == "grouped" else 0
+    x, idx, gates, fc, proj, dy = _dispatch_inputs(n_shared, seed=9)
+    Nt, k = idx.shape
+    E = fc.shape[0] - n_shared
+    cap = _capacity(2.0, Nt, k, E)
+    xs = _t(x).requires_grad_()
+    if impl == "scatter":
+        y = scatter_dispatch(xs, _t(idx).long(), _t(gates), _t(fc),
+                             _t(proj), non_linearity="swiglu", capacity=cap)
+        keep = []
+        for e in idx[0]:     # token 0 is first in every expert's queue
+            keep.append((int(e), float(gates[0][list(idx[0]).index(e)])))
+    else:
+        y = gm.grouped_dispatch(xs, _t(idx).long(), _t(gates), _t(fc),
+                                _t(proj), act=lambda h: activate(h, "swiglu"),
+                                n_shared=n_shared)
+        keep = [(e, 1.0) for e in range(n_shared)] + [
+            (int(e) + n_shared, float(g)) for e, g in zip(idx[0], gates[0])]
+    y.backward(_t(dy))
+
+    x0 = _t(x[:1]).requires_grad_()
+    own = sum(g * mlp_apply(x0, _t(fc[e]), _t(proj[e]), "swiglu")
+              for e, g in keep)
+    (want,) = torch.autograd.grad((own * _t(dy[:1])).sum(), x0)
+    np.testing.assert_allclose(xs.grad[:1].numpy(), want.numpy(), atol=1e-6,
+                               rtol=0)
+
+    # the packed buffer's unfilled rows carry a NaN cotangent
+    flat_e = np.concatenate([np.repeat(np.arange(n_shared)[None], Nt, 0),
+                             idx + n_shared], axis=1).reshape(-1) \
+        if impl == "grouped" else idx.reshape(-1)
+    flat_e = torch.from_numpy(flat_e.astype(np.int64))
+    J = flat_e.shape[0] // Nt
+    flat_t = torch.arange(Nt).repeat_interleave(J)
+    if impl == "grouped":
+        pk = gm._pack_rows(flat_e, flat_t, E + n_shared, gm.CPU_BLOCK_M)[0]
+    else:
+        order = torch.argsort(flat_e, stable=True)
+        se = flat_e[order]
+        pos = torch.arange(flat_e.shape[0]) - torch.searchsorted(
+            se, torch.arange(E))[se]
+        pk = gm.pack(order, torch.where(pos < cap, se * cap + pos, E * cap),
+                     flat_t, E * cap)
+    assert not pk.filled.all()
+    xs = _t(x).requires_grad_()
+    rows = gm.gather_rows(xs, pk.row_tok, pk.filled, pk.slot.reshape(Nt, J))
+    cot = torch.ones_like(rows).masked_fill(~pk.filled[:, None],
+                                            float("nan"))
+    rows.backward(cot)
+    assert torch.isfinite(xs.grad).all()
+    kept = (pk.slot.reshape(Nt, J) < pk.filled.shape[0]).sum(1)
+    np.testing.assert_array_equal(
+        xs.grad.numpy(), np.broadcast_to(kept.numpy()[:, None], x.shape)
+        .astype(np.float32))
+
 
 ENGINE_KW = dict(TINY, block_size=64)
 
