@@ -14,17 +14,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
              distributed_pytorch_tpu_torch/csrc/ (one nvcc each, in
              parallel) and prints the seconds it took; counts each
              flash, grouped and paged kernel's HGMMA, UTMALDG and LDGSTS
-             instructions (`cuobjdump -sass`): the 39 bf16 wgmma kernels
-             (flash forward, dq and dkv at widths 64, 80, 128 and 256, dq
-             at 192, each for head sizes equal to and under the width,
-             the paged prefill at 64 and 128 over bf16 and int8 caches,
+             instructions (`cuobjdump -sass`): the 46 bf16 wgmma kernels
+             (flash forward, dq and dkv at widths 32, 64, 80, 128 and 256,
+             dq at 192, each for head sizes equal to and under the width,
+             the paged prefill at 32, 64 and 128 over a bf16 cache and at
+             64 and 128 over an int8 one,
              the grouped forward, dx and dW unscaled and scaled, the
              fused CE forward, dx and dW) must hold
              HGMMA and their loads (TMA; cp.async and no TMA in the paged
              prefill, which gathers through the block table; the
              warp-specialized flash forward, dq and dkv at 256 and dq at
              192 also setmaxnreg and no local-memory store, the forward,
-             dq and dkv at 80 no local-memory store), the others
+             dq and dkv at 80 and at 32 and the prefill at 32 no
+             local-memory store), the others
              (fp32, int8, the bf16 CE kernels' mma.sync version for C
              past 1024, the split-KV decode's split kernels over fp32,
              bf16 and int8 caches and its combine kernels, which must be
@@ -34,16 +36,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
              the serving path's shapes (decode, prefill; over a bf16/fp32
              cache and over an int8 cache with fp32 row scales, the _q8
              kernels, whose yardstick is the path they replace: the
-             gathered rows dequantized, then SDPA) and the training
+             gathered rows dequantized, then SDPA; and the bf16 prefill
+             at the default config's head size 32, 8 / 4 heads, on its
+             wgmma kernel) and the training
              path's (flash forward, dq, dkv at B 8, T 1024, causal: 12
              heads x 64, the flagship; 8 heads x 256, the launcher's MLA;
-             8 / 4 kv heads x 32, the default config; 12 heads x 80, the
-             flagship with MLA, at its own width 80 (forward, dq and
-             dkv); and, held but not
+             8 / 4 kv heads x 32, the default config, at its own width
+             32; 12 heads x 80, the flagship with MLA, at its own width 80
+             (forward, dq and dkv); and, held but not
              timed, 8 x 48 and 12 x 192, under their built widths as 32
              is), in fp32 and bf16, then bf16 device times of head size
-             192 at widths 192 and 256 and of 80 at 80 and at 128 beside
-             128 at 128, with times (CUDA
+             192 at widths 192 and 256, of 80 at 80 and at 128 beside
+             128 at 128, and of 32 at 32 and at 64, with times (CUDA
              events; a
              kernel's and its yardstick's are the median of 5 timed
              windows, printed with their spread, beside their device
@@ -179,16 +183,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
              and (b) `--preset gpt2_124m --attn mla` with the CLI's
              latents (12 heads of 64 + rope 16 = 80): each a falling loss,
              the flash kernels launched exactly layers x micro-steps each
-             at head size 32 or 80 (run at the kernels' built widths 64
-             and 80), no plain call, and an fp32 parity step
-             at B 2 against `attn_impl='naive'`; (b) also a profile of two
-             steps, its flash time split per kernel; then (a)'s checkpoint
-             through
+             at head size 32 or 80, no plain call, a profile of two steps
+             whose flash kernels must be the instances built at widths 32
+             and 80 (`flash_pipe::*_kernel_sm90<32, false>`,
+             `flash_sm90::*_kernel_sm90<80, false>`), its flash time split
+             per kernel, and an fp32 parity step at B 2 against
+             `attn_impl='naive'`; then (a)'s checkpoint through
              `sample.main` (its prompt pass through flash_attn_fwd at head
              size 32) and `serve --ckpt`'s engine with phase 5's traffic
              in bf16 and fp32 (paged decode and prefill at head size 32),
              every stream on its budget, tokens held by NEAR_TOP at every
-             position to the uncached naive forward.
+             position to the uncached naive forward; then two fresh
+             prompts through the bf16 engine under torch.profiler, whose
+             paged prefills must all be `prefill_kernel_sm90<32>`.
 
 Phase 3 also holds the three grouped-matmul kernels (fwd, dx, dW) against
 their plain versions at the MoE training shapes (P 25600; K 768 / N 2048
@@ -452,30 +459,32 @@ SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "USETMAXREG", "STL")
 SASS_LIBS = ("flash_attn_fwd", "flash_attn_bwd_dq", "grouped_mm_fwd",
              "grouped_mm_bwd_dw", "paged_prefill_attn", "paged_decode_attn",
              "fused_ce_fwd", "fused_ce_bwd_dx")
-# the bf16 kernels on wgmma: fwd, dq and dkv at D 64, 80, 128 and 256,
-# dq at D 192 (the forward and dkv run head sizes 136-192 at 256) and dq
-# and dkv at D 32 (the forward runs head sizes 8-32 at 64), each
-# built twice, for d == D and for d < D (masked stores, `kPartial`), the
-# grouped forward, dx and dW unscaled (fc) and gate-scaled (proj), the
-# paged prefill at hs 64 and 128 over a bf16 and over an int8 cache, the
-# fused CE forward, dx and dW
-SASS_WGMMA_KERNELS = 43
+# the bf16 kernels on wgmma: fwd, dq and dkv at D 32, 64, 80, 128 and
+# 256 and dq at D 192 (the forward and dkv run head sizes 136-192 at 256),
+# each built twice, for d == D and for d < D (masked stores, `kPartial`),
+# the grouped forward, dx and dW unscaled (fc) and gate-scaled (proj), the
+# paged prefill at hs 32, 64 and 128 over a bf16 cache and at 64 and 128
+# over an int8 one, the fused CE forward, dx and dW
+SASS_WGMMA_KERNELS = 46
 # what a wgmma kernel's SASS must hold and must not: TMA loads, except in
 # the paged prefills (bf16 and int8 caches), which gather their tiles
 # through the block table with cp.async (LDGSTS) and issue no TMA load;
 # the warp-specialized flash kernels (forward, dq and dkv at head size
 # 256, dq at 192) also hand registers to their consumers (setmaxnreg) and
-# spill none; the forward, dq and dkv at width 80 and the dq and dkv at
-# width 32 spill none
+# spill none; the forward, dq and dkv at widths 80 and 32 and the bf16
+# prefill at hs 32 spill none
 _WS = ({"HGMMA", "UTMALDG", "USETMAXREG"}, {"STL"})
 _NO_SPILL = ({"HGMMA", "UTMALDG"}, {"STL"})
 SASS_EXPECT = {"prefill_kernel_sm90_q8": ({"HGMMA", "LDGSTS"}, {"UTMALDG"}),
+               "prefill_kernel_sm90ILi32E": ({"HGMMA", "LDGSTS"},
+                                             {"UTMALDG", "STL"}),
                "prefill_kernel_sm90": ({"HGMMA", "LDGSTS"}, {"UTMALDG"}),
                "fwd_kernel_sm90ILi256E": _WS, "dkv_kernel_sm90ILi256E": _WS,
                "dq_kernel_sm90ILi256E": _WS, "dq_kernel_sm90ILi192E": _WS,
                "fwd_kernel_sm90ILi80E": _NO_SPILL,
                "dkv_kernel_sm90ILi80E": _NO_SPILL,
                "dq_kernel_sm90ILi80E": _NO_SPILL,
+               "fwd_kernel_sm90ILi32E": _NO_SPILL,
                "dkv_kernel_sm90ILi32E": _NO_SPILL,
                "dq_kernel_sm90ILi32E": _NO_SPILL}
 SASS_EXPECT_SM90 = ({"HGMMA", "UTMALDG"}, set())
@@ -487,10 +496,14 @@ SASS_EXPECT_OTHER = (set(), {"HGMMA", "UTMALDG"})
 # int8-cache prefill on wgmma, the flash kernels at head size 256
 # (MLA's q_c | q_r): wgmma in bf16 (`..._sm90ILi256E`; the dq, like the
 # dq at 192, warp-specialized in `flash_ws`), FMA in fp32 (`...IfLi256E`),
-# the bf16 forward, dq and dkv at width 80 (the flagship with MLA) and the
-# bf16 dq and dkv at width 32 (the default config; pipelined, `flash_pipe`)
+# the bf16 forward, dq and dkv at width 80 (the flagship with MLA) and at
+# width 32 (the default config; pipelined, `flash_pipe`), and the bf16
+# prefill at hs 32 (the default config's serving) with the merge of its
+# split launches (`prefill_combine`, on CUDA cores)
 SASS_REQUIRED = ("decode_split_kernel", "decode_combine_kernel",
-                 "prefill_kernel_sm90_q8",
+                 "prefill_kernel_sm90_q8", "prefill_kernel_sm90ILi32E",
+                 "prefill_combineILi32E",
+                 "flash_pipe15fwd_kernel_sm90ILi32E",
                  "fwd_kernel_sm90ILi80E", "dkv_kernel_sm90ILi80E",
                  "flash_sm9014dq_kernel_sm90ILi80E",
                  "flash_pipe15dkv_kernel_sm90ILi32E",
@@ -542,11 +555,11 @@ def check_sass(counts: dict) -> None:
     loads (TMA, or cp.async in the paged prefills, which hold no TMA
     load); the flash forward, dq and dkv at head size 256 and the dq at
     192 hold setmaxnreg and no local-memory store, the forward, dq and
-    dkv at width 80 and the dq and dkv at width 32 no local-memory store;
-    the split-KV decode's kernels, the int8-cache prefill, the flash
-    kernels at head size 256, the forward, dq and dkv at width 80 and the
-    dq and dkv at width 32 are there; every other kernel holds
-    neither HGMMA nor a TMA load."""
+    dkv at widths 80 and 32 and the bf16 prefill at hs 32 no local-memory
+    store; the split-KV decode's kernels, the int8-cache prefill, the
+    bf16 prefill at hs 32 and its split's merge, the flash kernels at
+    head size 256 and the forward, dq and dkv at widths 80 and 32 are
+    there; every other kernel holds neither HGMMA nor a TMA load."""
     for name in SASS_REQUIRED:
         check(any(name in fn for fn in counts),
               f"no {name} in the inventory: {sorted(counts)}")
@@ -667,6 +680,13 @@ def kernel_cases(torch, fd, dev):
                    + n_max * 4,
                    4 * keys * nh * hs)
 
+        # the bf16 prefill at the default config's head size 32 (GQA 8 / 4,
+        # its own wgmma kernel), same chunk, table and offsets; its own
+        # generator, so that the cases after it draw what they drew before
+        if dtype == torch.bfloat16:
+            yield from _prefill_hs32_cases(torch, fd, dev, dn, table, T,
+                                           n_blocks, bs, n_max)
+
         # the same calls over an int8 cache with fp32 row scales (the _q8
         # kernels). No PyTorch call takes int8 codes with row scales: the
         # yardstick is the path they replace, the gathered rows
@@ -722,6 +742,42 @@ def kernel_cases(torch, fd, dev):
                        scale=scale),
                    2 * T * nh * hs * el + (off + T) * q8_row + n_max * 4,
                    4 * keys * nh * hs)
+
+
+def _prefill_hs32_cases(torch, fd, dev, dn, table, T, n_blocks, bs, n_max):
+    """The paged prefill at head size 32, 8 / 4 heads (the default
+    config's serving): a T-row bf16 chunk at offsets 0 and 256 through
+    `table`, beside SDPA over the gathered rows (GQA)."""
+    import torch.nn.functional as F
+
+    from distributed_pytorch_tpu_torch.ops.block_pool import paged_gather
+
+    hs, nh, nkv, el = 32, 8, 4, 2
+    scale = hs ** -0.5
+    g = torch.Generator(device=dev)
+    g.manual_seed(32)
+    kp, vp = (torch.randn(n_blocks, bs, nkv, hs, generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    qp = torch.randn(1, T, nh, hs, generator=g, device=dev) \
+        .to(torch.bfloat16)
+    for off in (0, 256):
+        kpre = paged_gather(kp, table)[:, :off + T].transpose(1, 2)
+        vpre = paged_gather(vp, table)[:, :off + T].transpose(1, 2)
+        pmask = (torch.arange(off + T, device=dev)[None, :]
+                 <= off + torch.arange(T, device=dev)[:, None])
+        keys = T * off + T * (T + 1) // 2
+        yield (dn, f"prefill_hs32_off{off}",
+               lambda off=off: fd.paged_flash_prefill(
+                   qp, kp, vp, table, off, scale=scale),
+               lambda off=off: fd.paged_flash_prefill_plain(
+                   qp, kp, vp, table, off, scale=scale),
+               lambda kpre=kpre, vpre=vpre, pmask=pmask:
+               F.scaled_dot_product_attention(
+                   qp.transpose(1, 2), kpre, vpre, attn_mask=pmask,
+                   scale=scale, enable_gqa=True),
+               (2 * T * nh * hs + 2 * (off + T) * nkv * hs) * el
+               + n_max * 4,
+               4 * keys * nh * hs)
 
 
 #: the flash kernels' shapes on the training paths, by head size: (B, T,
@@ -869,9 +925,10 @@ def run_flash_kernels(torch, dev) -> dict:
 #: heads). 192 at 192 (the 192-wide warp-specialized dq; the forward and
 #: dkv have no width 192 and run 256 in both rows) against 256 (the
 #: 256-wide dq); 80 at its own width 80 (forward, dq, dkv) against 80 at
-#: 128, masked, and 128 at 128; 32 at 32 (dq, dkv; the forward has no
-#: width 32 and runs 64 in both rows) against 32 at 64, masked, at the
-#: default config's GQA 8 / 4 heads: the padded columns' cost.
+#: 128, masked, and 128 at 128; 32 at its own width 32 (forward, dq,
+#: dkv) against 32 at 64, masked (the instances these head sizes ran
+#: before), at the default config's GQA 8 / 4 heads: the padded columns'
+#: cost.
 FLASH_WIDTHS = ((192, 192, 12, 12), (192, 256, 12, 12), (80, 80, 12, 12),
                 (80, 128, 12, 12), (128, 128, 12, 12), (32, 32, 8, 4),
                 (32, 64, 8, 4))
@@ -922,10 +979,13 @@ def run_flash_widths(torch, dev) -> dict:
 
 
 # the kernel each phase 3 prefill row must run, by (case, dtype): the C
-# entries pick it by dtype and head size (64 here) before launch
+# entries pick it by dtype and head size (64, and 32 in "prefill_hs32",
+# whose split launches also merge the halves, `prefill_combine<32>`)
+# before launch
 PREFILL_KERNELS = {
-    ("prefill", "bfloat16"): "prefill_kernel_sm90<",
-    ("prefill_q8", "bfloat16"): "prefill_kernel_sm90_q8<",
+    ("prefill", "bfloat16"): "prefill_kernel_sm90<64>",
+    ("prefill_hs32", "bfloat16"): "prefill_kernel_sm90<32>",
+    ("prefill_q8", "bfloat16"): "prefill_kernel_sm90_q8<64>",
     ("prefill", "float32"): "paged_prefill_kernel<float, float>",
     ("prefill_q8", "float32"): "paged_prefill_kernel<float, signed char>"}
 
@@ -962,12 +1022,16 @@ def run_kernels(torch, fd, dev) -> dict:
             bytes=n_bytes, flops=flops)
         r = results[(case, dn)]
         kernels = r["kernels"] = sorted({kernel_name(k) for k in launched
-                                         if "_kernel" in k})
+                                         if "_kernel" in k or "combine" in k})
         want = PREFILL_KERNELS.get((case.split("_off")[0], dn))
         if want is not None:
+            # the route's kernel, and (hs 32, split) the merge of its halves
+            names = (want,) + (("prefill_combine<32>",)
+                               if case.startswith("prefill_hs32") else ())
             check(r["device_ms"] is None or (
-                kernels and all(want in k for k in kernels)),
-                f"{case} {dn}: the profile saw {kernels}, not {want}")
+                any(want in k for k in kernels)
+                and all(any(n in k for n in names) for k in kernels)),
+                f"{case} {dn}: the profile saw {kernels}, not {names}")
         if case in ("paged", "contiguous", "paged_q8", "contiguous_q8"):
             # the split-KV pair at head size 64, over every cache type
             check(r["device_ms"] is None or (
@@ -2535,6 +2599,8 @@ def profile_train(torch, state, train_cfg, model_cfg) -> dict:
             flush=True)
     top = print_kernels(ev, n, 12)
     return {"host_wall_ms": wall_ms, "device_ms": dev_ms, "top": top,
+            "flash_kernels": sorted({kernel_name(e.key) for e in ev
+                                     if flash_kernel_of(e.key)}),
             "gathers_ms": gathers / n / 1e3,
             **{k: v / n / 1e3 for k, v in split.items()},
             **{k: v / n / 1e3 for k, v in flash.items()},
@@ -3491,10 +3557,17 @@ def run_train_small(torch, dev, card: str, argv: list, what: str,
                mfu=stats["median_mfu"], peak_gb=stats["peak_mem_gb"])
     out["split"] = profile_train(torch, stats["state"], train_cfg,
                                  model_cfg)
-    print(f"  {what}: flash dq {out['split']['flash_attn_bwd_dq']:.3f} ms + "
-          f"dkv {out['split']['flash_attn_bwd_dkv']:.3f} ms a step (device, "
-          f"at widths {out['width']['flash_attn_bwd_dq']} and "
-          f"{out['width']['flash_attn_bwd_dkv']}); step p50 "
+    # each kernel ran the instance built at its width for this head size
+    names = out["split"]["flash_kernels"]
+    for kname, w in out["width"].items():
+        inst = f"_kernel_sm90<{w}, {'false' if d == w else 'true'}>"
+        mine = [k for k in names if flash_kernel_of("::" + k) == kname]
+        check(mine and all(inst in k for k in mine),
+              f"train {what}: {kname} ran {mine}, not *{inst}")
+    print(f"  {what}: flash fwd {out['split']['flash_attn_fwd']:.3f} ms, dq "
+          f"{out['split']['flash_attn_bwd_dq']:.3f} ms, dkv "
+          f"{out['split']['flash_attn_bwd_dkv']:.3f} ms a step (device, "
+          f"at widths {out['width']}: {names}); step p50 "
           f"{stats['median_step_time'] * 1e3:.3f} ms", flush=True)
     print(f"  {what}: {model_cfg.n_layer} x {model_cfg.n_embd}, "
           f"{model_cfg.attn} {model_cfg.n_head} / {model_cfg.n_kv_heads} "
@@ -3518,7 +3591,8 @@ def run_serve_default(torch, dev, card: str, root: str) -> dict:
     at head size 32): every stream on its budget, exact launches, no plain
     call, tokens held at every position within LOGIT_TOL of the uncached
     naive forward's largest logit (NEAR_TOP, as in phase 9: a checkpoint
-    20 steps into training has near-ties along whole streams)."""
+    20 steps into training has near-ties along whole streams); the bf16
+    engine's prefill kernel read by `prefill_route`."""
     from distributed_pytorch_tpu_torch import sample
     from distributed_pytorch_tpu_torch.serve.__main__ import (build_args,
                                                               build_engine)
@@ -3576,6 +3650,8 @@ def run_serve_default(torch, dev, card: str, root: str) -> dict:
         out["legs"][dn] = dict(launches=launches, steps=steps,
                                admits=admits, checked=checked, gap=gap,
                                numbers=r["numbers"])
+        if dn == "bfloat16":
+            out["legs"][dn]["route"] = prefill_route(torch, eng, L, card)
         n = r["numbers"]
         print(f"  serve --ckpt {dn} (wave, 8 streams, head size 32): "
               f"{n['tokens']} tokens in {n['wall_s']:.3f} s = "
@@ -3587,6 +3663,39 @@ def run_serve_default(torch, dev, card: str, root: str) -> dict:
         del eng
         torch.cuda.empty_cache()
     return out
+
+
+def prefill_route(torch, eng, L: int, card: str) -> dict:
+    """Two fresh prompts (no prefix hit) through the bf16 engine `eng`
+    of phase 11 (a), under torch.profiler (device events only): every
+    paged prefill its admissions launch must be the wgmma kernel built
+    at head size 32 (`prefill_kernel_sm90<32>`, with `prefill_combine<32>`
+    where its key tiles split), layers x admissions of them by the
+    counters. Returns the kernel names, the profiled launches and the
+    prefill's device ms a launch (both kernels of a split one)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n).tolist()
+               for n in (300, 520)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = serve_leg(torch, eng, prompts, [4, 4], "prefill route")
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if "prefill_kernel" in e.key]
+    merge = [e for e in prof.key_averages() if "prefill_combine" in e.key]
+    names = sorted({kernel_name(e.key) for e in ev + merge})
+    n = sum(e.count for e in ev)
+    want = L * r["admits"]
+    check(r["launches"]["paged_prefill_attn"] == want and 0 < n <= want
+          and all("prefill_kernel_sm90<32>" in k
+                  or "prefill_combine<32>" in k for k in names),
+          f"prefill route: {names} x {n} in the profile, counters "
+          f"{r['launches']}, {r['admits']} admissions x {L} layers")
+    ms = sum(_dev_us(e) for e in ev + merge) / n / 1e3
+    print(f"  serve --ckpt bfloat16, two fresh prompts (300, 520 tokens): "
+          f"the paged prefill ran {names} ({n} launches profiled, "
+          f"{sum(e.count for e in merge)} of them split, {want} counted), "
+          f"{ms:.4f} ms of device time a launch; card {card}", flush=True)
+    return dict(kernels=names, launches=want, device_ms=ms)
 
 
 def run_small_head_sizes(torch, dev, card: str) -> dict:
@@ -3771,6 +3880,27 @@ def main() -> None:
             "bound_ms_fp32": r32["bound_ms"], "library_ms_fp32": None,
             "device_ms_fp32": r32["device_ms"],
             "replaced_path_ms_fp32": r32["library_ms"]})
+    serve32 = small["default"]["serve"]["legs"]["bfloat16"]
+    for case in ("prefill_hs32_off0", "prefill_hs32_off256"):
+        r = kres[(case, "bfloat16")]
+        rows.append({
+            "name": "paged_prefill_attn", "case": case, "dtype": "bfloat16",
+            "route": "cuda", "source": SOURCE.format("paged_prefill_attn"),
+            "replaces": REPLACES["prefill"], "head_size": 32,
+            "launches": serve32["launches"]["paged_prefill_attn"],
+            "launches_path": "serve_default",
+            "kernels_path": serve32["route"]["kernels"],
+            "device_ms_path": serve32["route"]["device_ms"],
+            "max_abs_err": r["max_abs_err"], "tol": r["tol"],
+            "kernels": r["kernels"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_call": "scaled_dot_product_attention over the "
+                            "gathered rows (enable_gqa)",
+            "ms_spread": r["ms_spread"],
+            "library_spread": r["library_spread"],
+            "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"]})
     from distributed_pytorch_tpu_torch.ops import flash_attention as fa
     flash_runs = {64: ("train", train_launches),
                   256: ("train_mla", mla_run["launches"]),

@@ -7,8 +7,8 @@
 // Head sizes: the C entry takes the width D the wrapper picks
 // (`padded_width`: the least of the forward's built widths in the dtype
 // that holds d, ops/flash_attention.py's `WIDTHS`: 64, 128 and 256, and
-// 80 in bf16) and runs d on the instance built for D, or on its masked
-// instance (kPartial), whose stores stop at d.
+// 32 and 80 in bf16) and runs d on the instance built for D, or on its
+// masked instance (kPartial), whose stores stop at d.
 // The TMA maps' row is d wide (their head stride d * 2 bytes, a multiple
 // of 16 exactly when d % 8 == 0), so each box past d arrives as zeros and
 // still counts its whole bytes on the barrier; the FMA loads zero-fill
@@ -67,6 +67,30 @@
 //   The other layout, five 16-column sub-tiles at the 32-byte swizzle (P V
 //   one m64n80k16), issues five TMA boxes a tile for this one's two and
 //   ran slower on the H100 (bench/flash_ab.py; PERF.md).
+// * bf16 at width 32 (`flash_pipe::fwd_kernel_sm90<32>`: head sizes 8-32,
+//   the default config's heads of 32): one warpgroup a CTA of 64 query
+//   rows, on tiles of exactly 32 columns (one box at the 64-byte swizzle,
+//   flash_attn_sm90.cuh), so S = Q K^T takes 2 k-steps and P V is one
+//   m64n32k16 into O's 16 registers. On the 64-wide masked instance these
+//   head sizes ran on before, half of every k-step, P V column and TMA
+//   box was zeros, and the products halve at 32 while the exponentials
+//   and the CUDA-core work per score stay those of 64 (their floor at B 8,
+//   T 1024, 8 heads, causal: 33.6 M ex2 on 132 SMs x 16 a clock, about
+//   0.009 ms). So the softmax must overlap the products: the turns are
+//   pipelined as in the width-32 dq and dkv (flash_attn_bwd.cu), a turn
+//   issuing S of tile j and P V of tile j - 1 and forming tile j's
+//   softmax beside that product, branch-free (`flash_ws::softmax_p`: the
+//   mask by selects; `rescale_pack`: the dropout after the normalizer
+//   update, once P V is done). K and V come through a 4-stage TMA ring of
+//   64-key stages (8 KB each), the stage a turn released refilled at once.
+//   96 registers a thread and 38 KB of shared memory: five CTAs an SM. At
+//   width 64 the next tile's S beside P V was slower (see above); at 32 O
+//   is 16 registers a thread, not 32. On the H100 at B 8, T 1024, 8 / 4
+//   heads, causal: 0.0270 ms of device time against the 64-wide masked
+//   instance's 0.0426 and SDPA's 0.0329 (bench/flash_ab.py, PERF.md). The
+//   tiles and the arithmetic are that instance's, but out and lse are not
+//   its bytes (they differ within the bf16 limits; not traced to one
+//   instruction).
 // * bf16 at head size 256 (`flash_ws::fwd_kernel_sm90`; MLA's
 //   concatenated content and rotary features): warp-specialized. The O
 //   accumulator alone is 128 registers a thread and 64 x 256 K and V
@@ -720,10 +744,181 @@ int launch(const Params& p, void* stream) {
 
 }  // namespace flash_ws
 
+// ---- bf16 at width 32: one warpgroup, products pipelined ------------------
+
+namespace flash_pipe {
+
+using flash_ws::Rows;
+using sm90::bf16;
+constexpr int kB = 64;  // query rows a CTA, keys a stage
+constexpr int kStages = 4;
+constexpr int kThreads = 128;  // one warpgroup
+static_assert(kB == flash_ws::kBK, "flash_ws's softmax forms 64-key tiles");
+
+template <int D>
+struct Smem {
+  alignas(1024) bf16 q[kB * D];
+  alignas(1024) bf16 k[kStages][kB * D];
+  alignas(1024) bf16 v[kStages][kB * D];
+  uint64_t qbar, full[kStages];
+};
+
+// K and V tile j into stage s, one barrier for both (one thread)
+template <int D>
+__device__ __forceinline__ void load_kv(Smem<D>& sm, const sm90::RowMap<D>& tk,
+                                        const sm90::RowMap<D>& tv, int j, int s, int g, int b) {
+  sm90::mbar_expect_tx(&sm.full[s], 2 * kB * D * 2);
+  sm90::tma_rows<D, kB>(sm.k[s], &tk, &sm.full[s], g, j * kB, b);
+  sm90::tma_rows<D, kB>(sm.v[s], &tv, &sm.full[s], g, j * kB, b);
+}
+
+// S = Q K^T over the key tile in stage s, both operands K-major, summed
+// onto zeros as the 64-wide instance sums it
+template <int D>
+__device__ __forceinline__ void issue_s(Smem<D>& sm, float (&sc)[kB / 2], int s) {
+  using namespace sm90;
+#pragma unroll
+  for (int i = 0; i < kB / 2; ++i) sc[i] = 0.f;
+  fence_regs(sc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kB, 0, 0>(sc, kdesc<D, kB>(sm.q, kk), kdesc<D, kB>(sm.k[s], kk), 1);
+  wg_commit();
+}
+
+// O += P V over the key tile in stage s, V read MN-major
+template <int D>
+__device__ __forceinline__ void issue_pv(Smem<D>& sm, float (&o)[D / 2],
+                                         const uint32_t (&pa)[kB / 16][4], int s) {
+  using namespace sm90;
+  fence_regs(o);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kB / 16; ++kk) wgmma_rs_mn<D, kB>(o, pa[kk], sm.v[s], kk);
+  wg_commit();
+}
+
+// The walk over the n_kt key tiles: a turn issues S of tile j and P V of
+// tile j - 1, forms tile j's softmax (flash_ws::softmax_p, branch-free)
+// beside that product, then hands stage j - 1 back to the ring, rescales
+// O and packs tile j's p into the A fragments (flash_ws::rescale_pack).
+template <int D>
+__device__ __forceinline__ void fwd_walk(Smem<D>& sm, const sm90::RowMap<D>& tk,
+                                         const sm90::RowMap<D>& tv, const Params& p,
+                                         const Rows& rw, int n_kt, int g, int b,
+                                         float (&o)[D / 2], float (&m)[2], float (&l)[2]) {
+  using namespace sm90;
+  const int tid = threadIdx.x;
+  float sc[kB / 2], alpha[2];
+  uint32_t pa[kB / 16][4];
+  mbar_wait(&sm.full[0], 0);
+  issue_s<D>(sm, sc, 0);
+  wg_wait<0>();
+  fence_regs(sc);
+  flash_ws::softmax_p(p, rw, sc, m, l, alpha, 0);
+  flash_ws::rescale_pack<D>(p, rw, sc, o, alpha, pa, 0);
+  for (int j = 1; j < n_kt; ++j) {
+    const int s = j % kStages, sp = (j - 1) % kStages;
+    mbar_wait(&sm.full[s], (j / kStages) & 1);
+    issue_s<D>(sm, sc, s);
+    issue_pv<D>(sm, o, pa, sp);
+    wg_wait<1>();  // S of tile j
+    fence_regs(sc);
+    flash_ws::softmax_p(p, rw, sc, m, l, alpha, j);
+    wg_wait<0>();  // P V of tile j - 1
+    fence_regs(o);
+    __syncthreads();  // every warp is done with stage sp: refill it
+    if (tid == 0 && j - 1 + kStages < n_kt) load_kv<D>(sm, tk, tv, j - 1 + kStages, sp, g, b);
+    flash_ws::rescale_pack<D>(p, rw, sc, o, alpha, pa, j);
+  }
+  issue_pv<D>(sm, o, pa, (n_kt - 1) % kStages);
+  wg_wait<0>();
+  fence_regs(o);
+}
+
+template <int D, bool kPartial>
+__global__ void __launch_bounds__(kThreads)
+    fwd_kernel_sm90(const __grid_constant__ sm90::RowMap<D> tq,
+                    const __grid_constant__ sm90::RowMap<D> tk,
+                    const __grid_constant__ sm90::RowMap<D> tv, const Params p) {
+  const int dh = kPartial ? p.d : D;  // the head size
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<D>& sm = smem_aligned<Smem<D>>(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kB;  // heaviest tiles first
+  const int g = h / (p.nh / p.nkv);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  // the keys any row of this tile may see
+  const int n_keys = p.causal ? min(p.S, i0 + kB) : p.S;
+  const int n_kt = (n_keys + kB - 1) / kB;
+
+  if (tid == 0) {
+    mbar_init(&sm.qbar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&sm.qbar, kB * D * 2);
+    tma_rows<D, kB>(sm.q, &tq, &sm.qbar, h, i0, b);
+    for (int j = 0; j < kStages && j < n_kt; ++j) load_kv<D>(sm, tk, tv, j, j, g, b);
+  }
+
+  Rows rw{i0, w * 16 + (lane >> 2), 2 * (lane & 3), 0u, 0u, (uint32_t)(b * p.nh + h)};
+  if (p.dropout) {
+    rw.s0 = (uint32_t)p.seed[0];
+    rw.s1 = (uint32_t)p.seed[1];
+  }
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {flash::kNegInf, flash::kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's part
+  mbar_wait(&sm.qbar, 0);
+  if (n_kt > 0) fwd_walk<D>(sm, tk, tv, p, rw, n_kt, g, b, o, m, l);
+
+  float* lse = p.lse_out + (long long)(b * p.nh + h) * p.T;
+  bf16* out = static_cast<bf16*>(p.out0) + (long long)b * p.T * p.nh * dh + (long long)h * dh;
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int qp = i0 + rw.r0 + 8 * ih;
+    const float ls = fmaxf(quad_sum(l[ih]), 1e-30f);
+    if (qp >= p.T) continue;
+    bf16* orow = out + (long long)qp * p.nh * dh + rw.c0;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      if (!kPartial || 8 * jj < dh)  // columns 8 jj + c0 + {0, 1}: below d exactly when 8 jj is
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
+            __floats2bfloat162_rn(o[4 * jj + 2 * ih] / ls, o[4 * jj + 2 * ih + 1] / ls);
+    if ((lane & 3) == 0) lse[qp] = m[ih] + logf(ls);
+  }
+}
+
+template <int D, bool kPartial>
+int launch(const Params& p, void* stream) {
+  static size_t cap[64] = {};
+  const size_t smem = sizeof(Smem<D>) + 1024;  // + room to align the base to 1024
+  const int err = flash::set_smem(fwd_kernel_sm90<D, kPartial>, smem, cap);
+  if (err) return err;
+  if (p.T == 0 || p.B == 0 || p.nh == 0) return 0;
+  sm90::RowMap<D> tq, tk, tv;
+  if (!sm90::width_map<D>(&tq, p.q, p.d, p.nh, p.T, p.B, p.q_st, p.q_sb, kB) ||
+      !sm90::width_map<D>(&tk, p.k, p.d, p.nkv, p.S, p.B, p.k_st, p.k_sb, kB) ||
+      !sm90::width_map<D>(&tv, p.v, p.d, p.nkv, p.S, p.B, p.v_st, p.v_sb, kB))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.nh, p.B, (p.T + kB - 1) / kB);
+  flash_pipe::fwd_kernel_sm90<D, kPartial><<<grid, kThreads, smem, (cudaStream_t)stream>>>(tq, tk,
+                                                                                        tv, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash_pipe
+
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel); D: the
-// built width it runs at (fp32 64, 128 or 256; bf16 also 80); d: the head
+// built width it runs at (fp32 64, 128 or 256; bf16 also 32 and 80); d: the head
 // size, d % 8 == 0, 8 <= d <= D (flash_attn_common.cuh). out (B, T, nh, d) and lse
 // (B, nh, T) fp32, both contiguous. dims and strides as in
 // flash::make_params.
@@ -746,6 +941,8 @@ extern "C" int flash_attn_fwd(int dtype, int D, int d, const void* q, const void
                                           : launch<float, 128, true>(p, stream);
   if (dtype == 0 && D == 256) return full ? launch<float, 256, false>(p, stream)
                                           : launch<float, 256, true>(p, stream);
+  if (dtype == 1 && D == 32) return full ? flash_pipe::launch<32, false>(p, stream)
+                                         : flash_pipe::launch<32, true>(p, stream);
   if (dtype == 1 && D == 64) return full ? flash_sm90::launch<64, false>(p, stream)
                                          : flash_sm90::launch<64, true>(p, stream);
   if (dtype == 1 && D == 80) return full ? flash_sm90::launch<80, false>(p, stream)

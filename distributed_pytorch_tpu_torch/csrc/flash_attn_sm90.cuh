@@ -6,10 +6,12 @@
 // four threads that hold one accumulator row (these two serve the
 // forward's online softmax). Used by the bf16 forward, dq and dkv kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu); the bf16 paged prefill
-// (paged_prefill_attn.cu) uses the quad reductions. Also the layouts of
-// tiles of widths 32 and 80 (below) and the pieces that read a tile of any
-// built width: its maps (`RowMap`, `width_map`), loads (`tma_rows`),
-// K-major k-steps (`kdesc`) and MN-major products (`wgmma_rs_mn`).
+// (paged_prefill_attn.cu) uses the quad reductions and the width pieces
+// below. Also the layouts of tiles of widths 32 and 80 (below) and the
+// pieces that read a tile of any built width: its maps (`RowMap`,
+// `width_map`), loads (`tma_rows`), K-major k-steps (`kdesc`), MN-major
+// products (`wgmma_rs_mn`), and where a tile gathered with cp.async puts
+// each 16-byte chunk (`chunk_at`).
 
 #pragma once
 
@@ -21,15 +23,19 @@ namespace sm90 {
 
 // ---- width 32 --------------------------------------------------------------
 //
-// Head sizes 8-32 (the default config's 256 / 8 heads) run the bf16 dq
-// and dkv at width 32: a row of 32 bf16 is 64 bytes, so a tile is one
-// R x 32 box at the 64-byte swizzle (one `CUtensorMap` with a 32-column
-// box). K-major reads take k-steps 0 and 1 of it, 32 bytes apart; an
-// MN-major product (N the head size) is one m64n32k16 into 16 accumulator
-// registers a thread, in the layout of sm90_common.cuh. The bf16 dq and
-// dkv at width 32 (`flash_pipe`, flash_attn_bwd.cu) read their tiles so;
-// the 64-wide instances these head sizes ran on before read 4 k-steps (2
-// of zeros) and took products at N 64 (32 columns of zeros).
+// Head sizes 8-32 (the default config's 256 / 8 heads) run the bf16
+// forward, dq and dkv at width 32: a row of 32 bf16 is 64 bytes, so a
+// tile is one R x 32 box at the 64-byte swizzle (one `CUtensorMap` with a
+// 32-column box): 16-byte chunk c of row r sits at position c ^ ((r / 2)
+// % 4) of the row (`chunk_at`). K-major reads take k-steps 0 and 1 of it,
+// 32 bytes apart; an MN-major product (N the head size) is one m64n32k16
+// into 16 accumulator registers a thread, in the layout of
+// sm90_common.cuh. The bf16 forward, dq and dkv at width 32 (`flash_pipe`,
+// flash_attn_fwd.cu and flash_attn_bwd.cu) and the bf16 paged prefill at
+// head size 32 (its tiles gathered with cp.async, paged_prefill_attn.cu)
+// read their tiles so; the 64-wide instances these head sizes ran on
+// before read 4 k-steps (2 of zeros) and took products at N 64 (32
+// columns of zeros).
 
 // ---- width 80 --------------------------------------------------------------
 //
@@ -115,6 +121,20 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[D / 2], const uint32_t (&
     wgmma_rs_n16<1>(*reinterpret_cast<float(*)[8]>(&d[32]), a,
                     desc_mnmajor_sw<R, 32>(tile + R * 64, kk), 1);
   }
+}
+
+// Element offset of 16-byte chunk c of row r in an R-row tile of built
+// width D as TMA writes it, for a tile gathered row by row with cp.async:
+// at width 32 one R x 32 tile at the 64-byte swizzle (chunk position c ^
+// ((r / 2) % 4), the bits 7-8 of the row's offset), at the multiples of 64
+// the 128-byte-swizzled R x 64 sub-tiles (`swz`)
+template <int D, int R>
+__device__ __forceinline__ int chunk_at(int r, int c) {
+  static_assert(D == 32 || D % 64 == 0, "gathered tiles are 32 or a multiple of 64 columns wide");
+  if constexpr (D == 32)
+    return r * 32 + ((c ^ ((r >> 1) & 3)) << 3);
+  else
+    return swz<R>(r, c);
 }
 
 // 2^x on the special-function unit (one MUFU.EX2); results below 2^-126

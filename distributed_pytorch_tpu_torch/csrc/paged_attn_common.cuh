@@ -17,10 +17,11 @@
 //
 // Design (FMA loops on CUDA cores), run by the decode at rows wider than
 // a warp's 32 vectors (fp32/bf16 K/V rows over 512 bytes, int8 rows over
-// 256 codes), the fp32 prefill (either cache), and the bf16 prefill
-// (either cache) at head sizes other than 64 and 128. The bf16 prefill at
-// head size 64 and 128 runs `prefill_kernel_sm90` over a bf16 cache and
-// `prefill_kernel_sm90_q8` over an int8 one (wgmma on cp.async-gathered
+// 256 codes), the fp32 prefill (either cache), and the bf16 prefill at
+// head sizes other than 32, 64 and 128 over a bf16 cache, other than 64
+// and 128 over an int8 one. The bf16 prefill at those head sizes runs
+// `prefill_kernel_sm90` over a bf16 cache (32, 64, 128) and
+// `prefill_kernel_sm90_q8` over an int8 one (64, 128; wgmma on cp.async-gathered
 // tiles, paged_prefill_attn.cu), and the fp32, bf16 and int8-cache decode
 // the split-KV kernels of paged_decode_attn.cu, each picked by dtype (and
 // head size) before launch. What bounds this body on the H100 is the latency of its

@@ -17,7 +17,10 @@
 // operations. Neither bound is what the kernels meet at that shape: a
 // chunk is 8 row tiles x 12 kv heads = 96 CTAs on 132 SMs, each walking
 // up to 12 key tiles in a chain of dependent steps, so its time is that
-// chain's latency.
+// chain's latency. At the default config's head size 32 (GQA 8 / 4) a
+// 512-row chunk packs 1024 rows a kv head: 16 row tiles x 4 kv heads = 64
+// CTAs, chains of up to 8 key tiles at offset 0 and 12 at offset 256,
+// each step half the products of head size 64's (bound ~0.2 us, bytes).
 //
 // Every design packs the chunk's (t, rep) rows of each kv head into tiles
 // of 64 rows, one CTA per (row tile, kv head), keeps each K/V tile in
@@ -26,28 +29,43 @@
 // The dtype and the head size pick the kernel before launch; it is not a
 // fallback (a launch that fails returns its error, and the wrapper
 // raises):
-// * bf16 at head size 64 or 128 (`prefill_kernel_sm90`): tensor cores.
-//   One warpgroup (128 threads) per (64-row tile, kv head); 40 KB of
-//   shared memory at head size 64, 80 KB at 128. Hopper's TMA cannot
-//   gather rows through a block table (and a box per page would tie the
-//   kernel to block sizes that divide 64), so all 128 threads gather
-//   each 64-key K and V tile with 16-byte cp.async copies, one table read
-//   per row, straight into the 128-byte-swizzled layout that wgmma reads
-//   (any block size, nkv and offset the wrapper accepts). The tiles come
-//   through a 2-stage ring: tile j + 2 is requested as soon as tile j's
-//   products are done, so one tile's copies are always in flight while
-//   the warpgroup computes; each copier fences the async proxy before the
-//   barrier that hands a landed tile to wgmma. The query tile is gathered
-//   once the same way. S = Q K^T is a wgmma with both operands in shared
-//   memory (K-major); the online softmax runs on the fp32 accumulator in
-//   registers (a row lives in the 4 threads of a quad); P, rounded to
-//   bf16, becomes the register A operand of O += P V, with V read MN-major.
-//   The arithmetic is the FMA kernel's: s = fp32(q.k) * scale, masked
-//   scores -1e30, p = expf(s - m) (not exp2 with the scale folded in: that
-//   moves served logits by an ulp), l sums the unrounded fp32 p, P V takes
-//   p rounded to bf16, out = acc / max(l, 1e-30). Row tiles launch
-//   longest first (the grid's slowest axis runs down the causal frontier),
-//   so the tiles with the most keys do not form the grid's tail.
+// * bf16 at head size 32, 64 or 128 (`prefill_kernel_sm90`): tensor cores. One
+//   warpgroup (128 threads) per (64-row tile, kv head); 28 KB of shared memory
+//   at head size 32, 56 KB at 64, 112 KB at 128. Hopper's TMA cannot gather
+//   rows through a block table (and a box per page would tie the kernel to
+//   block sizes that divide 64), so all 128 threads gather each 64-key K and V
+//   tile with 16-byte cp.async copies, one table read per row, straight into
+//   the swizzled layout that wgmma reads (the 128-byte swizzle at 64 and 128;
+//   at 32, a row of 64 bytes, the 64-byte swizzle that TMA writes for a
+//   32-column box: `chunk_at`, flash_attn_sm90.cuh), for any block size, nkv
+//   and offset the wrapper accepts. At 32, S = Q K^T takes 2 k-steps and P V
+//   is one m64n32k16 (`kdesc`, `wgmma_rs_mn`); before, this head size ran the
+//   FMA kernel below. The tiles come through a 3-stage ring: tile j + 3 is
+//   requested as soon as tile j's products are done, so two tiles' copies are
+//   in flight while the warpgroup computes (a third stage ran 4-5% faster than
+//   two at hs 32, 2% at 64, on the H100; PERF.md); each copier fences the
+//   async proxy before the barrier that hands a landed tile to wgmma. The
+//   query tile is gathered once the same way. S = Q K^T is a wgmma with both
+//   operands in shared memory (K-major); the online softmax runs on the fp32
+//   accumulator in registers (a row lives in the 4 threads of a quad); P,
+//   rounded to bf16, becomes the register A operand of O += P V, with V read
+//   MN-major. The arithmetic is the FMA kernel's: s = fp32(q.k) * scale,
+//   masked scores -1e30, p = expf(s - m) (not exp2 with the scale folded in:
+//   that moves served logits by an ulp), l sums the unrounded fp32 p, P V
+//   takes p rounded to bf16, out = acc / max(l, 1e-30). Row tiles launch
+//   longest first (the grid's slowest axis runs down the causal frontier), so
+//   the tiles with the most keys do not form the grid's tail.
+//   At hs 32 a chunk makes few CTAs (a 512-row chunk at 8 / 4 heads: 64 on
+//   132 SMs), each a chain of dependent key tiles. Where two CTAs a (row
+//   tile, kv head) still fit on the SMs at once, the wrapper asks for a
+//   split (`prefill_splits`, ops/flash_decode.py): each CTA of the pair
+//   walks half of the key tiles and writes its unnormalized o with its m
+//   and l to a workspace, and `prefill_combine` merges the halves (the
+//   decode's split-KV scheme). On the H100 that took the 512-row chunk
+//   from 0.0134 to 0.0119 ms at offset 0 and from 0.0191 to 0.0145 at
+//   offset 256 (SDPA: 0.0166, 0.0208), while a probe that split hs 64 (96
+//   CTAs, 192 split) ran 0.0210 -> 0.0234 (bench/flash_ab.py, PERF.md), so
+//   hs 64 and 128 never split.
 // * The int8 cache with bf16 activations at head size 64 or 128
 //   (`prefill_kernel_sm90_q8`, the same body templated on the cache type):
 //   the K/V codes come through the table by 16-byte cp.async into a
@@ -64,8 +82,8 @@
 //   Rounding code * scale to bf16 first would add a rounding that neither
 //   the reference nor the plain version has. 41 KB of shared memory at
 //   head size 64, 82 KB at 128.
-// * fp32, bf16 at other head sizes (either cache): FMA loops on CUDA
-//   cores (`paged_prefill_kernel` over `attend_rows`,
+// * fp32, bf16 at other head sizes, and the int8 cache at head size 32:
+//   FMA loops on CUDA cores (`paged_prefill_kernel` over `attend_rows`,
 //   paged_attn_common.cuh; tensor cores take fp32 only as TF32, which
 //   would break the fp32 limits), far from either bound.
 
@@ -120,14 +138,17 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
   return (int)cudaGetLastError();
 }
 
-// ---- bf16 at head size 64 / 128: wgmma on cp.async-gathered tiles ---------
+// ---- bf16 at head size 32 / 64 / 128: wgmma on cp.async-gathered tiles ----
 
 namespace prefill_sm90 {
 
 using sm90::bf16;
 constexpr int kRows = 64;     // packed query rows per CTA: one warpgroup
 constexpr int kBK = 64;       // keys per stage
-constexpr int kStages = 2;    // ring stages (bf16 K/V tiles, or int8 code tiles)
+// ring stages: bf16 K/V tiles (3: on the H100 a third stage ran the
+// chunk 2-5% faster than 2 at hs 32 and 64, PERF.md), or int8 code tiles
+template <typename C>
+constexpr int kStages = std::is_same<C, int8_t>::value ? 2 : 3;
 constexpr int kThreads = 128;
 static_assert(kThreads == 2 * kBK, "one scale copy a thread: K's, then V's");
 
@@ -136,8 +157,8 @@ static_assert(kThreads == 2 * kBK, "one scale copy a thread: K's, then V's");
 template <int HS, typename C>
 struct Smem {
   alignas(1024) bf16 q[kRows * HS];
-  alignas(1024) bf16 k[kStages][kBK * HS];
-  alignas(1024) bf16 v[kStages][kBK * HS];
+  alignas(1024) bf16 k[kStages<C>][kBK * HS];
+  alignas(1024) bf16 v[kStages<C>][kBK * HS];
   __device__ __forceinline__ bf16* k_tile(int s) { return k[s]; }
   __device__ __forceinline__ bf16* v_tile(int s) { return v[s]; }
 };
@@ -153,9 +174,9 @@ struct Smem<HS, int8_t> {
   alignas(1024) bf16 q[kRows * HS];
   alignas(1024) bf16 k[kBK * HS];
   alignas(1024) bf16 v[kBK * HS];
-  alignas(16) int8_t kc[kStages][kBK * HS];
-  alignas(16) int8_t vc[kStages][kBK * HS];
-  float sc[kStages][2 * kBK];
+  alignas(16) int8_t kc[kStages<int8_t>][kBK * HS];
+  alignas(16) int8_t vc[kStages<int8_t>][kBK * HS];
+  float sc[kStages<int8_t>][2 * kBK];
   float sc_t[2 * kBK];
   __device__ __forceinline__ bf16* k_tile(int) { return k; }
   __device__ __forceinline__ bf16* v_tile(int) { return v; }
@@ -189,7 +210,7 @@ __device__ __forceinline__ void gather_kv(Smem<HS, bf16>& sm, int s, const bf16*
     const int kp = k0 + row;
     const int ok = kp < n_keys;
     const long long src = ok ? pool_row(table, kp, bs, nkv, g) * HS + c * 8 : 0;
-    const int dst = sm90::swz<kBK>(row, c);
+    const int dst = sm90::chunk_at<HS, kBK>(row, c);
     sm90::cp_async16(sm.k[s] + dst, k + src, ok);
     sm90::cp_async16(sm.v[s] + dst, v + src, ok);
   }
@@ -278,9 +299,11 @@ __device__ __forceinline__ void prefill_body(const bf16* __restrict__ q, const C
                                              const float* __restrict__ v_scale,
                                              const int* __restrict__ table,
                                              bf16* __restrict__ out, int n_tok, int nh, int nkv,
-                                             int bs, int n_max, int off, float scale) {
+                                             int bs, int n_max, int off, float scale,
+                                             float* __restrict__ ws) {
   using namespace sm90;
   constexpr bool kQ8 = std::is_same<C, int8_t>::value;
+  constexpr int kS = kStages<C>;
   extern __shared__ uint8_t smem_raw[];
   Smem<HS, C>& sm = smem_aligned<Smem<HS, C>>(smem_raw);
   const int g = blockIdx.x;
@@ -291,7 +314,11 @@ __device__ __forceinline__ void prefill_body(const bf16* __restrict__ q, const C
   // the last key any row of this tile may see, within the table's capacity
   const int last_pos = off + (min(row0 + kRows, n_packed) - 1) / rep;
   const int n_keys = min(last_pos + 1, n_max * bs);
-  const int n_kt = (n_keys + kBK - 1) / kBK;
+  // split (ws set): CTA z of the pair walks the first (z 0) or the last
+  // (z 1) half of the key tiles and writes its partial to ws
+  const int n_all = (n_keys + kBK - 1) / kBK;
+  const int t_lo = ws != nullptr && blockIdx.z == 1 ? (n_all + 1) / 2 : 0;
+  const int n_kt = (ws != nullptr && blockIdx.z == 0 ? (n_all + 1) / 2 : n_all) - t_lo;
 
   // the query tile: packed row gi is head g * rep + gi % rep at position
   // gi / rep of the chunk; rows past the chunk arrive as zeros
@@ -302,13 +329,14 @@ __device__ __forceinline__ void prefill_body(const bf16* __restrict__ q, const C
     const int row = e / kChunks, c = e % kChunks, gi = row0 + row;
     const int ok = gi < n_packed;
     const long long src = ok ? ((long long)(gi / rep) * nh + g * rep + gi % rep) * HS + c * 8 : 0;
-    cp_async16(sm.q + swz<kRows>(row, c), q + src, ok);
+    cp_async16(sm.q + chunk_at<HS, kRows>(row, c), q + src, ok);
   }
-  // key tiles 0 .. kStages - 1, a commit group each (tile 0's also holds
+  // key tiles 0 .. kS - 1, a commit group each (tile 0's also holds
   // the query tile; a tile past the keys is an empty group)
 #pragma unroll
-  for (int t = 0; t < kStages; ++t) {
-    if (t < n_kt) gather_kv<HS>(sm, t, k, k_scale, v, v_scale, table, t * kBK, n_keys, bs, nkv, g);
+  for (int t = 0; t < kS; ++t) {
+    if (t < n_kt)
+      gather_kv<HS>(sm, t, k, k_scale, v, v_scale, table, (t_lo + t) * kBK, n_keys, bs, nkv, g);
     cp_async_commit();
   }
 
@@ -325,17 +353,17 @@ __device__ __forceinline__ void prefill_body(const bf16* __restrict__ q, const C
   float m[2] = {paged_attn::kNegInf, paged_attn::kNegInf}, l[2] = {0.f, 0.f};
 
   for (int j = 0; j < n_kt; ++j) {
-    const int s = j % kStages;
-    const int k0 = j * kBK;
-    cp_async_wait<kStages - 1>();  // tile j has landed (tiles j + 1 .. may fly)
+    const int s = j % kS;
+    const int k0 = (t_lo + j) * kBK;
+    cp_async_wait<kS - 1>();  // tile j has landed (tiles j + 1 .. may fly)
     convert_kv<HS>(sm, s);         // int8: this thread's codes -> bf16
     fence_proxy_async();  // this thread's writes, before wgmma reads them
     __syncthreads();
     if constexpr (kQ8) {
-      // stage s is converted: refill it with tile j + kStages now, so two
+      // stage s is converted: refill it with tile j + kS now, so two
       // tiles' codes fly while this one computes
-      if (j + kStages < n_kt)
-        gather_kv<HS>(sm, s, k, k_scale, v, v_scale, table, k0 + kStages * kBK, n_keys, bs, nkv,
+      if (j + kS < n_kt)
+        gather_kv<HS>(sm, s, k, k_scale, v, v_scale, table, k0 + kS * kBK, n_keys, bs, nkv,
                       g);
       cp_async_commit();
     }
@@ -347,7 +375,7 @@ __device__ __forceinline__ void prefill_body(const bf16* __restrict__ q, const C
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HS / 16; ++kk)
-      wgmma_ss<kBK, 0, 0>(sc, desc_kmajor<kRows>(sm.q, kk), desc_kmajor<kBK>(sm.k_tile(s), kk), 1);
+      wgmma_ss<kBK, 0, 0>(sc, kdesc<HS, kRows>(sm.q, kk), kdesc<HS, kBK>(sm.k_tile(s), kk), 1);
     wg_commit();
     wg_wait<0>();
     fence_regs(sc);
@@ -402,20 +430,34 @@ __device__ __forceinline__ void prefill_body(const bf16* __restrict__ q, const C
     fence_regs(o);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_rs<HS, 1>(o, pa[kk], desc_mnmajor<kBK>(sm.v_tile(s), kk));
+    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs_mn<HS, kBK>(o, pa[kk], sm.v_tile(s), kk);
     wg_commit();
     wg_wait<0>();
     fence_regs(o);
     __syncthreads();  // every product on the tile is done: refill or rewrite it
     if constexpr (!kQ8) {
-      if (j + kStages < n_kt)
-        gather_kv<HS>(sm, s, k, k_scale, v, v_scale, table, k0 + kStages * kBK, n_keys, bs, nkv,
+      if (j + kS < n_kt)
+        gather_kv<HS>(sm, s, k, k_scale, v, v_scale, table, k0 + kS * kBK, n_keys, bs, nkv,
                       g);
       cp_async_commit();
     }
   }
 
+  if (ws != nullptr) {  // this half's partial: o, m and l of each row
+    cp_async_wait<0>();  // a half with no key tile leaves its groups open
+    float* part = ws + ((size_t)(g * gridDim.y + row0 / kRows) * 2 + blockIdx.z) * kRows * (HS + 2);
+#pragma unroll
+    for (int ih = 0; ih < 2; ++ih) {
+      const float lsum = quad_sum(l[ih]);
+      float* prow = part + (r0 + 8 * ih) * (HS + 2);
+#pragma unroll
+      for (int jj = 0; jj < HS / 8; ++jj)
+        *reinterpret_cast<float2*>(prow + 8 * jj + c0) =
+            make_float2(o[4 * jj + 2 * ih], o[4 * jj + 2 * ih + 1]);
+      if ((lane & 3) == 0) *reinterpret_cast<float2*>(prow + HS) = make_float2(m[ih], lsum);
+    }
+    return;
+  }
 #pragma unroll
   for (int ih = 0; ih < 2; ++ih) {
     const int gi = row0 + r0 + 8 * ih;
@@ -434,9 +476,36 @@ __global__ void __launch_bounds__(kThreads)
     prefill_kernel_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const int* __restrict__ table,
                         bf16* __restrict__ out, int n_tok, int nh, int nkv, int bs, int n_max,
-                        int off, float scale) {
+                        int off, float scale, float* __restrict__ ws) {
   prefill_body<HS, bf16>(q, k, nullptr, v, nullptr, table, out, n_tok, nh, nkv, bs, n_max, off,
-                         scale);
+                         scale, ws);
+}
+
+// The two halves' partials of a (row tile, kv head) merged, in half order:
+// out = (o0 a0 + o1 a1) / (l0 a0 + l1 a1), a_z = exp(m_z - max(m0, m1)).
+// A half that saw no live key of a row (every score masked) has the
+// -1e30 max, so its a_z is 0.
+template <int HS>
+__global__ void __launch_bounds__(kThreads)
+    prefill_combine(const float* __restrict__ ws, bf16* __restrict__ out, int n_tok, int nh,
+                    int nkv) {
+  const int g = blockIdx.x, tile = blockIdx.y;
+  const int rep = nh / nkv, n_packed = n_tok * rep;
+  const float* p0 = ws + (size_t)(g * gridDim.y + tile) * 2 * kRows * (HS + 2);
+  const float* p1 = p0 + kRows * (HS + 2);
+  for (int e = threadIdx.x; e < kRows * HS / 2; e += kThreads) {
+    const int r = e / (HS / 2), c = 2 * (e % (HS / 2));
+    const int gi = tile * kRows + r;
+    if (gi >= n_packed) continue;
+    const float* a = p0 + r * (HS + 2);
+    const float* b = p1 + r * (HS + 2);
+    const float mx = fmaxf(a[HS], b[HS]);
+    const float ea = expf(a[HS] - mx), eb = expf(b[HS] - mx);
+    const float ls = fmaxf(a[HS + 1] * ea + b[HS + 1] * eb, 1e-30f);
+    bf16* orow = out + ((long long)(gi / rep) * nh + g * rep + gi % rep) * HS + c;
+    *reinterpret_cast<__nv_bfloat162*>(orow) = __floats2bfloat162_rn(
+        (a[c] * ea + b[c] * eb) / ls, (a[c + 1] * ea + b[c + 1] * eb) / ls);
+  }
 }
 
 template <int HS>
@@ -447,14 +516,16 @@ __global__ void __launch_bounds__(kThreads)
                            bf16* __restrict__ out, int n_tok, int nh, int nkv, int bs, int n_max,
                            int off, float scale) {
   prefill_body<HS, int8_t>(q, k, k_scale, v, v_scale, table, out, n_tok, nh, nkv, bs, n_max, off,
-                           scale);
+                           scale, nullptr);
 }
 
-// C: the cache's element type (bf16, or int8 codes with k_scale/v_scale)
+// C: the cache's element type (bf16, or int8 codes with k_scale/v_scale);
+// ws: null, or (bf16) the workspace of a split launch: (nkv, row tiles, 2,
+// 64, HS + 2) fp32
 template <int HS, typename C>
 int launch(const void* q, const void* k, const void* k_scale, const void* v,
            const void* v_scale, const void* table, void* out, int n_tok, int nh, int nkv, int bs,
-           int n_max, int off, float scale, void* stream) {
+           int n_max, int off, float scale, float* ws, void* stream) {
   static size_t cap[64] = {};
   const size_t smem = sizeof(Smem<HS, C>) + 1024;  // + room to align the base to 1024
   const int rows = n_tok * (nh / nkv);
@@ -469,9 +540,15 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
   } else {
     const int err = flash::set_smem(prefill_kernel_sm90<HS>, smem, cap);
     if (err) return err;
-    prefill_kernel_sm90<HS><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+    const dim3 halves(grid.x, grid.y, ws != nullptr ? 2 : 1);
+    prefill_kernel_sm90<HS><<<halves, kThreads, smem, (cudaStream_t)stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)table, (bf16*)out, n_tok, nh,
-        nkv, bs, n_max, off, scale);
+        nkv, bs, n_max, off, scale, ws);
+    if constexpr (HS == 32) {  // the C entry hands the other widths no ws
+      if (ws != nullptr)
+        prefill_combine<HS><<<grid, kThreads, 0, (cudaStream_t)stream>>>(ws, (bf16*)out, n_tok,
+                                                                        nh, nkv);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -481,28 +558,41 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (the wgmma kernel at hs
-// 64 and 128, the FMA kernel otherwise), picked before launch. q/out (1, n_tok, nh, hs), 16-byte
+// 32, 64 and 128, the FMA kernel otherwise), picked before launch. q/out
+// (1, n_tok, nh, hs), 16-byte
 // aligned; k/v pools (n_blocks, bs, nkv, hs) of the same dtype; table
-// (n_max,) int32 of the one sequence. Returns the launch's cudaError_t
-// (0 = success).
+// (n_max,) int32 of the one sequence. n_split 2 (the wrapper's
+// `prefill_splits`, ops/flash_decode.py) splits the key tiles of each of the
+// bf16 hs-32 kernel's (row tile, kv head) over two CTAs that write their
+// partials to ws ((nkv, row tiles, 2, 64, 34) fp32), merged by
+// `prefill_combine`; every other call takes n_split 1 (ws unused).
+// Returns the launch's cudaError_t (0 = success).
 extern "C" int paged_prefill_attn(int dtype, const void* q, const void* k,
                                   const void* v, const void* table, void* out,
                                   int n_tok, int nh, int nkv, int hs, int bs,
-                                  int n_max, int off, float scale,
-                                  void* stream) {
+                                  int n_max, int off, float scale, float* ws,
+                                  int n_split, void* stream) {
+  if (n_split != 1 && !(n_split == 2 && ws != nullptr && dtype == 1 && hs == 32))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float, float>(q, k, nullptr, v, nullptr, table, out, n_tok,
                                 nh, nkv, hs, bs, n_max, off, scale, stream);
+  if (dtype == 1 && hs == 32)
+    return prefill_sm90::launch<32, __nv_bfloat16>(q, k, nullptr, v, nullptr,
+                                                   table, out, n_tok, nh, nkv,
+                                                   bs, n_max, off, scale,
+                                                   n_split == 2 ? ws : nullptr,
+                                                   stream);
   if (dtype == 1 && hs == 64)
     return prefill_sm90::launch<64, __nv_bfloat16>(q, k, nullptr, v, nullptr,
                                                    table, out, n_tok, nh, nkv,
                                                    bs, n_max, off, scale,
-                                                   stream);
+                                                   nullptr, stream);
   if (dtype == 1 && hs == 128)
     return prefill_sm90::launch<128, __nv_bfloat16>(q, k, nullptr, v, nullptr,
                                                     table, out, n_tok, nh,
                                                     nkv, bs, n_max, off,
-                                                    scale, stream);
+                                                    scale, nullptr, stream);
   if (dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(
         q, k, nullptr, v, nullptr, table, out, n_tok, nh, nkv, hs, bs, n_max,
@@ -511,9 +601,10 @@ extern "C" int paged_prefill_attn(int dtype, const void* q, const void* k,
 }
 
 // The int8 cache: k/v pools of int8 codes, k_scale/v_scale (n_blocks, bs,
-// nkv, 1) float32; everything else as paged_prefill_attn. The same routes:
-// bf16 at hs 64 and 128 runs the wgmma kernel (`prefill_kernel_sm90_q8`),
-// fp32 and other bf16 head sizes the FMA kernel.
+// nkv, 1) float32; everything else as paged_prefill_attn. bf16 at hs 64
+// and 128 runs the wgmma kernel (`prefill_kernel_sm90_q8`), fp32 and other
+// bf16 head sizes (32 included: no served path reaches an int8 cache at
+// head size 32) the FMA kernel.
 extern "C" int paged_prefill_attn_q8(int dtype, const void* q, const void* k,
                                      const void* k_scale, const void* v,
                                      const void* v_scale, const void* table,
@@ -526,11 +617,11 @@ extern "C" int paged_prefill_attn_q8(int dtype, const void* q, const void* k,
   if (dtype == 1 && hs == 64)
     return prefill_sm90::launch<64, int8_t>(q, k, k_scale, v, v_scale, table,
                                             out, n_tok, nh, nkv, bs, n_max,
-                                            off, scale, stream);
+                                            off, scale, nullptr, stream);
   if (dtype == 1 && hs == 128)
     return prefill_sm90::launch<128, int8_t>(q, k, k_scale, v, v_scale, table,
                                              out, n_tok, nh, nkv, bs, n_max,
-                                             off, scale, stream);
+                                             off, scale, nullptr, stream);
   if (dtype == 1)
     return launch<__nv_bfloat16, int8_t>(q, k, k_scale, v, v_scale, table,
                                          out, n_tok, nh, nkv, hs, bs, n_max,

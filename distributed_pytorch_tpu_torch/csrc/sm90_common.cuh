@@ -22,7 +22,8 @@
 // three spans (the layout field and the strides follow it).
 // A tile gathered with cp.async is laid out the same way: 16-byte chunk c
 // (columns 8 c .. 8 c + 7) of row r lands in sub-tile c / 8, at chunk
-// position (c % 8) ^ (r % 8) of the row (`swz`).
+// position (c % 8) ^ (r % 8) of the row (`swz`); at width 32, at position
+// c ^ ((r / 2) % 4) of a 64-byte row (`chunk_at`, flash_attn_sm90.cuh).
 // One tile is read two ways by wgmma:
 // * K-major (the contraction runs along the columns, as Q and K in
 //   S = Q K^T): the 16-column k-step kk starts kk % 4 * 32 bytes into

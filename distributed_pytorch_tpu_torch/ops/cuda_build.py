@@ -52,8 +52,9 @@ KERNELS = {
     "paged_prefill_attn": (
         "paged_prefill_attn.cu",
         # dtype, q, k, v, table, out, n_tok, nh, nkv, hs, bs, n_max, off,
-        # scale, stream
-        (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)),
+        # scale, ws, n_split, stream
+        (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I,
+         _P)),
     "paged_decode_attn_q8": (
         "paged_decode_attn.cu",
         # dtype, q, k, k_scale, v, v_scale, tables, cache_len, out, ws, B,

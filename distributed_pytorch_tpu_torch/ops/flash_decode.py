@@ -22,12 +22,14 @@ Pallas bodies on the serving path map to four CUDA kernels here:
   `paged_prefill_attn` (csrc/paged_prefill_attn.cu). A T-row chunk of ONE
   sequence at a block-aligned offset, causal on global position off + t.
   The dtype and head size pick the kernel inside the C entry, before
-  launch and never as a fallback: bf16 at head size 64 or 128 runs
+  launch and never as a fallback: bf16 at head size 32, 64 or 128 runs
   `prefill_kernel_sm90` (tensor cores: K/V tiles gathered through the
-  block table by cp.async into a 2-stage ring, S and P V as wgmma; its
-  time is the latency of each CTA's chain of key tiles, not bytes); fp32
-  and bf16 at other head sizes run FMA loops (`attend_rows`,
-  csrc/paged_attn_common.cuh), as do the int8 kernels.
+  block table by cp.async into a 3-stage ring, S and P V as wgmma; its
+  time is the latency of each CTA's chain of key tiles, not bytes; at 32,
+  where a chunk makes few CTAs, the key tiles of each row tile split over
+  two CTAs, `prefill_splits`, into a workspace the wrapper allocates,
+  merged by `prefill_combine`); fp32 and bf16 at other head sizes run FMA
+  loops (`attend_rows`, csrc/paged_attn_common.cuh).
 * The int8-cache variants (reference `_paged_body_q8`, `_kernel_q8`,
   `_prefill_kernel_q8`) -> `paged_decode_attn_q8` and
   `paged_prefill_attn_q8`, in the same two sources. Given `k_scale` /
@@ -37,11 +39,10 @@ Pallas bodies on the serving path map to four CUDA kernels here:
   operand is (p * v_scale) rounded to the query dtype against the codes.
   The int8 decode runs the same split-KV pair (codes as 8-byte vectors,
   dequantized in registers; the same workspace), rows past 256 codes the
-  tile kernel. The int8 prefill takes the bf16 prefill's routes:
-  bf16 at head size 64 or 128 runs `prefill_kernel_sm90_q8` (the codes
-  gathered by cp.async and converted exactly to bf16 in shared memory,
-  the scales applied to the fp32 score and to p), fp32 and other head
-  sizes `attend_rows`.
+  tile kernel. The int8 prefill: bf16 at head size 64 or 128 runs
+  `prefill_kernel_sm90_q8` (the codes gathered by cp.async and converted
+  exactly to bf16 in shared memory, the scales applied to the fp32 score
+  and to p), fp32 and other head sizes (32 included) `attend_rows`.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; for CPU tensors it runs the plain version, which
@@ -101,6 +102,26 @@ def _smem_bytes(n_rows: int, hs: int, q8: bool = False) -> int:
     row statistics, and for an int8 cache the tile's K and V scales."""
     return 4 * (2 * n_rows * hs + _TILE * (hs + 1) + _TILE * hs
                 + n_rows * _TILE + 3 * n_rows + (2 * _TILE if q8 else 0))
+
+
+def prefill_splits(n_tok: int, nh: int, nkv: int, hs: int, dtype,
+                   n_sm: int) -> int:
+    """CTAs a (64-row tile, kv head) of the prefill shares its key tiles
+    between: 2 for the bf16 wgmma kernel at head size 32 where the pairs
+    of such a T-row chunk's CTAs all fit on the card's `n_sm` SMs at once
+    (each walks half the keys, `prefill_combine` merges them), else 1."""
+    ctas = nkv * -(-n_tok * (nh // nkv) // _PREFILL_ROWS)
+    return 2 if dtype == torch.bfloat16 and hs == 32 and 2 * ctas <= n_sm \
+        else 1
+
+
+def prefill_workspace(n_tok: int, nh: int, nkv: int, hs: int, device):
+    """The split prefill's fp32 workspace: per (kv head, row tile, half)
+    each packed row's unnormalized accumulator, then its running max and
+    sum."""
+    tiles = -(-n_tok * (nh // nkv) // _PREFILL_ROWS)
+    return torch.empty(nkv, tiles, 2, _PREFILL_ROWS, hs + 2,
+                       dtype=torch.float32, device=device)
 
 
 def decode_splits(n_keys: int) -> int:
@@ -413,13 +434,23 @@ def paged_flash_prefill(q, k, v, block_tables, q_offset: int, *, scale,
     bs, nkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lib = cuda_build.load(name)
-    kv = (k.data_ptr(), v.data_ptr()) if k_scale is None else \
-        (k.data_ptr(), k_scale.data_ptr(), v.data_ptr(), v_scale.data_ptr())
+    if k_scale is None:
+        kv = (k.data_ptr(), v.data_ptr())
+        n_split = prefill_splits(T, nh, nkv, hs, q.dtype, torch.cuda
+                                 .get_device_properties(q.device)
+                                 .multi_processor_count)
+        ws = prefill_workspace(T, nh, nkv, hs, q.device) if n_split == 2 \
+            else None
+        split = (None if ws is None else ws.data_ptr(), n_split)
+    else:
+        kv = (k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
+              v_scale.data_ptr())
+        split = ()
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
             _DTYPE_CODE[q.dtype], q.data_ptr(), *kv, table.data_ptr(),
             out.data_ptr(), T, nh, nkv, hs, bs, table.shape[0],
-            int(q_offset), float(scale),
+            int(q_offset), float(scale), *split,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -6,10 +6,10 @@ decode, and paged prefill at offset 0
 and at block-aligned offsets, in fp32 (atol 1e-4: summation order) and
 bf16 (atol 2e-2: outputs round to bf16, and p rounds to bf16 against a
 running max in the kernel but the global max in the plain version); the
-bf16 prefill's wgmma kernel at block sizes 8, 16 and 32, head sizes 64
-and 128, MHA, GQA and MQA, chunks off its 64-row tiles and offsets past
-256, other bf16 head sizes through the FMA kernel, and two wgmma launches
-bit-equal; the
+bf16 prefill's wgmma kernel at block sizes 8, 16 and 32, head sizes 32,
+64 and 128, MHA, GQA and MQA, chunks off its 64-row tiles and offsets past
+256, other bf16 head sizes through the FMA kernel, two wgmma launches
+bit-equal, and the kernel the profiler sees on each route; the
 same three routes over an int8 cache with fp32 scale rows (the `_q8`
 kernels, head sizes 8 mod 16 included), at the same limits: the int8
 decode's split pair at head sizes 8-256, rep 1, 6 and 12 (two row
@@ -25,7 +25,7 @@ and head size 40).
 The flash-attention kernels (forward, dq, dkv) over causal and full
 attention, MHA and GQA (rep 4 at head size 128), dropout 0 and 0.2, T and
 S off the bf16 kernels' tiles (T 1, 70, 130, 200) and S > T, at their
-built widths 64, 80, 128 and 256 and at head sizes under them (8, 32, 40,
+built widths 32, 64, 80, 128 and 256 and at head sizes under them (8, 32, 40,
 48, 72, 96, 136, 192, 200, 248), the warp-specialized dq's last 128-row
 tile with no, some or all rows for its second consumer (T 900, 1000,
 1088), the bf16 forward, dq and dkv at width 80 (head sizes 72 and 80; T
@@ -260,10 +260,10 @@ def _prefill_inputs(dev, T, off, nh, nkv, hs, bs, seed=0):
                          [(100, 0), (200, 288), (16, 96), (5, 101)])
 @pytest.mark.parametrize("nh,nkv", [(12, 12), (8, 2), (4, 1)],
                          ids=["mha", "gqa", "mqa"])
-@pytest.mark.parametrize("hs", [64, 128])
+@pytest.mark.parametrize("hs", [32, 64, 128])
 @pytest.mark.parametrize("bs", [8, 16, 32])
 def test_paged_prefill_bf16_wgmma(dev, bs, hs, nh, nkv, T, off):
-    """The bf16 prefill's wgmma kernel (head sizes 64 and 128) at the
+    """The bf16 prefill's wgmma kernel (head sizes 32, 64 and 128) at the
     block sizes, head groupings and offsets a chunked engine gives it:
     chunks that are not whole 64-row tiles, offsets past 256, a 16-row
     MQA chunk that packs into one 64-row tile, and a one-slot speculative
@@ -279,7 +279,7 @@ def test_paged_prefill_bf16_wgmma(dev, bs, hs, nh, nkv, T, off):
            torch.bfloat16)
 
 
-@pytest.mark.parametrize("hs", [96, 32])
+@pytest.mark.parametrize("hs", [96, 48])
 def test_paged_prefill_bf16_other_head_sizes(dev, hs):
     """bf16 at a head size the wgmma kernel does not take runs the FMA
     kernel (`attend_rows`), within the same limit."""
@@ -290,7 +290,7 @@ def test_paged_prefill_bf16_other_head_sizes(dev, hs):
            torch.bfloat16)
 
 
-@pytest.mark.parametrize("hs", [64, 128])
+@pytest.mark.parametrize("hs", [32, 64, 128])
 def test_paged_prefill_bf16_is_deterministic(dev, hs):
     """Two launches of the bf16 wgmma prefill are bit-equal."""
     q, kp, vp, table = _prefill_inputs(dev, 512, 256, 12, 12, hs, 16)
@@ -299,6 +299,55 @@ def test_paged_prefill_bf16_is_deterministic(dev, hs):
                      for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("T,off,nh,nkv", [(512, 0, 8, 4), (512, 256, 8, 4),
+                                          (100, 32, 12, 12), (5, 101, 8, 4),
+                                          (40, 0, 4, 1)])
+def test_paged_prefill_hs32_split_and_whole(dev, monkeypatch, split, T, off,
+                                            nh, nkv):
+    """The bf16 prefill at head size 32 with the key tiles of each row
+    tile split over two CTAs (a workspace and `prefill_combine`) and
+    whole, whichever `prefill_splits` would pick for the shape: the
+    default config's 512-row chunk at offsets 0 and 256, MHA, a one-slot
+    verify's 5 rows inside a block, MQA in one row tile; against the plain
+    version at the bf16 limit, and two launches bit-equal."""
+    monkeypatch.setattr(fd, "prefill_splits", lambda *a: split)
+    q, kp, vp, table = _prefill_inputs(dev, T, off, nh, nkv, 32, 16,
+                                       seed=T + off)
+    first, second = (fd.paged_flash_prefill(q, kp, vp, table, off,
+                                            scale=32 ** -0.5)
+                     for _ in range(2))
+    _close(first, fd.paged_flash_prefill_plain(q, kp, vp, table, off,
+                                               scale=32 ** -0.5),
+           torch.bfloat16)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("hs,kernel", [
+    (32, "prefill_kernel_sm90<32>"), (64, "prefill_kernel_sm90<64>"),
+    (128, "prefill_kernel_sm90<128>"),
+    (48, "paged_prefill_kernel<__nv_bfloat16, __nv_bfloat16>")])
+def test_prefill_runs_the_kernel_its_route_names(dev, hs, kernel):
+    """Under the profiler, a bf16 prefill over a bf16 cache launches the
+    wgmma kernel built for its head size (32, the default config's, 64 and
+    128) and the FMA kernel at other head sizes, and no other prefill
+    kernel; its output equals the plain version's within the bf16
+    limit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, kp, vp, table = _prefill_inputs(dev, 512, 256, 8, 4, hs, 16, seed=6)
+    fd.paged_flash_prefill(q, kp, vp, table, 256, scale=hs ** -0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fd.paged_flash_prefill(q, kp, vp, table, 256, scale=hs ** -0.5)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "prefill_kernel" in e.key]
+    assert names and all(kernel in n for n in names), names
+    _close(out, fd.paged_flash_prefill_plain(q, kp, vp, table, 256,
+                                             scale=hs ** -0.5),
+           torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype,hs", [(torch.float32, 256),
@@ -849,19 +898,19 @@ def test_flash_width_80_runs_its_own_instances(dev, D):
                          ids=["gqa", "mha-s70", "gqa4-s200"])
 @pytest.mark.parametrize("D", [8, 16, 24, 32])
 def test_flash_kernels_bf16_width_32(dev, D, T, S, nh, nkv, causal, rate):
-    """Head sizes 8-32 at width 32 (the bf16 dq and dkv built for it; 8,
-    16 and 24 on the masked instances; the forward runs them at 64)
-    against the plain versions: ragged T 130 and 65, S != T (70, 200),
-    MHA and GQA (the dkv sums 2 and 4 query heads a kv head)."""
+    """Head sizes 8-32 at width 32 (the bf16 forward, dq and dkv built
+    for it; 8, 16 and 24 on the masked instances) against the plain
+    versions: ragged T 130 and 65, S != T (70, 200), MHA and GQA (the dkv
+    sums 2 and 4 query heads a kv head)."""
     _flash_case(dev, torch.bfloat16, 2, T, S, nh, nkv, D, causal, rate)
 
 
 @pytest.mark.parametrize("D", [24, 32])
 def test_flash_width_32_runs_its_own_instances(dev, D):
-    """Under the profiler, head sizes 24 and 32 in bf16 launch the dq and
-    dkv built for width 32 (`<32, true>` masked for 24, `<32, false>` for
-    32), never a 64-wide one, and the forward at 64; each output equals
-    its plain version within FLASH_TOL."""
+    """Under the profiler, head sizes 24 and 32 in bf16 launch the
+    forward, dq and dkv built for width 32 (`<32, true>` masked for 24,
+    `<32, false>` for 32), never a 64-wide one; each output equals its
+    plain version within FLASH_TOL."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -870,7 +919,7 @@ def test_flash_width_32_runs_its_own_instances(dev, D):
         _flash_case(dev, torch.bfloat16, 2, 200, 200, 8, 4, D, True, 0.0)
     names = {e.key for e in prof.key_averages() if "kernel_sm90<" in e.key}
     part = "true" if D < 32 else "false"
-    want = {"fwd": "fwd_kernel_sm90<64, true>",
+    want = {"fwd": f"fwd_kernel_sm90<32, {part}>",
             "dkv": f"dkv_kernel_sm90<32, {part}>",
             "dq": f"dq_kernel_sm90<32, {part}>"}
     for kind, name in want.items():
@@ -929,14 +978,14 @@ def test_flash_refuses_other_head_sizes(dev, D):
             fn(q, q, q, q, stat, stat, scale=0.1)
 
 
-@pytest.mark.parametrize("D,nh", [(64, 4), (256, 4), (80, 12)])
+@pytest.mark.parametrize("D,nh", [(64, 4), (256, 4), (80, 12), (32, 8)])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_flash_reads_strided_views(dev, dtype, D, nh):
     """q, k, v as views of one fused qkv projection (row stride 3*C), as
     the model hands them over, equal contiguous copies (bf16: through the
     TMA maps' time stride), and reach the kernels without a copy: at D 80
     (MLA on the flagship, at width 80 through a 64-column and a 16-column
-    map of each operand) too."""
+    map of each operand) and D 32 (one 32-column map) too."""
     B, T = 2, 130
     qkv = torch.randn(B, T, 3 * nh * D, device=dev).to(dtype)
     q, k, v = (t.reshape(B, T, nh, D) for t in qkv.split(nh * D, dim=-1))

@@ -90,12 +90,20 @@ def test_contiguous_decode_matches_jax_kernel(nkv):
                                rtol=0)
 
 
-@pytest.mark.parametrize("nkv,off", [(4, 0), (2, 16), (1, 8)],
-                         ids=["nkv4-off0", "nkv2-off16", "nkv1-off8"])
-def test_paged_prefill_matches_jax_kernel(nkv, off):
+@pytest.mark.parametrize("nkv,off,nh,hs,T", [
+    pytest.param(4, 0, 4, 16, 16, id="nkv4-off0"),
+    pytest.param(2, 16, 4, 16, 16, id="nkv2-off16"),
+    pytest.param(1, 8, 4, 16, 16, id="nkv1-off8"),
+    pytest.param(4, 0, 8, 32, 16, id="hs32-gqa-off0"),
+    pytest.param(4, 16, 8, 32, 16, id="hs32-gqa-off16"),
+    pytest.param(4, 13, 8, 32, 5, id="hs32-gqa-verify-T5-off13")])
+def test_paged_prefill_matches_jax_kernel(nkv, off, nh, hs, T):
     """A 16-row chunk at offset 0 and at block-aligned offsets attends the
-    sequence's own prior blocks plus its causal in-chunk prefix."""
-    T, n_max, bs, nh, hs = 16, 6, 8, 4, 16
+    sequence's own prior blocks plus its causal in-chunk prefix; also at
+    the default config's head size 32 with 8 / 4 heads (the card runs it
+    on the wgmma kernel), and a one-slot speculative verify's 5 rows at an
+    offset inside a block."""
+    n_max, bs = 6, 8
     q, kp, vp, bt = _paged(1, n_max, bs, nh, nkv, hs, seed=20 + off)
     rng = np.random.default_rng(off)
     q = rng.standard_normal((1, T, nh, hs)).astype(np.float32)
@@ -188,6 +196,73 @@ def test_q8_paged_prefill_matches_jax_kernel(dtype, T, off, nh, nkv, hs, bs):
     tol = dict(atol=ATOL, rtol=0) if dtype == "float32" else Q8_BF16_TOL
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref.astype(jnp.float32)), **tol)
+
+
+# the C entries of csrc/paged_prefill_attn.cu and the head sizes whose
+# bf16 calls each sends to its wgmma body (`prefill_sm90::launch<HS, C>`)
+PREFILL_WGMMA = {"paged_prefill_attn": ("__nv_bfloat16", (32, 64, 128)),
+                 "paged_prefill_attn_q8": ("int8_t", (64, 128))}
+
+
+@pytest.mark.parametrize("entry", sorted(PREFILL_WGMMA))
+def test_prefill_c_entry_routes(entry):
+    """Read from the source: the C entry sends fp32 to the FMA kernel,
+    bf16 at exactly the head sizes of PREFILL_WGMMA to the wgmma body
+    built at that head size over its cache type (hs 32 over a bf16 cache
+    only), and bf16 at every other head size to the FMA kernel; the bf16
+    entry refuses a split count other than 1 except 2 at hs 32, and hands
+    its workspace to the hs-32 body only."""
+    import re
+    from pathlib import Path
+    src = (Path(tfd.__file__).resolve().parent.parent / "csrc"
+           / "paged_prefill_attn.cu").read_text()
+    start = src.index(f'extern "C" int {entry}(')
+    body = src[start:src.index("\n}\n", start)]
+    cases = re.findall(r"if \((.*?)\)\s*return (.*?);", body, re.S)
+    if entry == "paged_prefill_attn":
+        guard, *cases = cases
+        assert re.sub(r"\s+", " ", guard[0]) == (
+            "n_split != 1 && !(n_split == 2 && ws != nullptr && dtype == 1 "
+            "&& hs == 32)"), guard
+        for cond, call in cases[1:-1]:
+            want = "n_split == 2 ? ws : nullptr" if cond.endswith(
+                "hs == 32") else "nullptr, stream"
+            assert want in re.sub(r"\s+", " ", call), (cond, call)
+    cache, sizes = PREFILL_WGMMA[entry]
+    fma = "float" if cache == "__nv_bfloat16" else "int8_t"
+    assert cases[0][0] == "dtype == 0" and re.match(
+        rf"launch<float, {fma}>\(", cases[0][1]), cases[0]
+    wgmma = [(cond, call) for cond, call in cases[1:-1]]
+    assert [c for c, _ in wgmma] == [f"dtype == 1 && hs == {hs}"
+                                     for hs in sizes], wgmma
+    for hs, (_, call) in zip(sizes, wgmma):
+        assert re.match(rf"prefill_sm90::launch<{hs}, {cache}>\(", call), call
+    cond, call = cases[-1]
+    assert cond == "dtype == 1" and re.match(
+        rf"launch<__nv_bfloat16, {'__nv_bfloat16' if fma == 'float' else fma}>\(",
+        call), (cond, call)
+    assert body.rstrip().endswith("return (int)cudaErrorInvalidValue;")
+    assert body.count("return") == len(cases) + 1 + (
+        entry == "paged_prefill_attn")
+
+
+@pytest.mark.parametrize("n_tok,nh,nkv,hs,dtype,n_sm,want", [
+    (512, 8, 4, 32, torch.bfloat16, 132, 2),    # 64 CTAs: 128 fit
+    (520, 8, 4, 32, torch.bfloat16, 132, 1),    # 68 CTAs: 136 do not
+    (512, 12, 12, 32, torch.bfloat16, 132, 1),  # 96
+    (5, 8, 4, 32, torch.bfloat16, 132, 2),      # a verify's 4 CTAs
+    (512, 8, 4, 32, torch.float32, 132, 1),     # the FMA kernel
+    (512, 8, 4, 64, torch.bfloat16, 132, 1),    # hs 64 never splits
+    (256, 8, 4, 32, torch.bfloat16, 64, 2),
+    (256, 8, 4, 32, torch.bfloat16, 63, 1)])
+def test_prefill_splits(n_tok, nh, nkv, hs, dtype, n_sm, want):
+    """The bf16 hs-32 prefill splits its key tiles over two CTAs a (row
+    tile, kv head) exactly where both CTAs of every pair fit on the SMs at
+    once; the workspace holds each half's (64, hs + 2) partial a tile."""
+    assert tfd.prefill_splits(n_tok, nh, nkv, hs, dtype, n_sm) == want
+    ws = tfd.prefill_workspace(n_tok, nh, nkv, hs, "cpu")
+    assert ws.shape == (nkv, -(-n_tok * (nh // nkv) // 64), 2, 64, hs + 2)
+    assert ws.dtype == torch.float32
 
 
 def test_q8_dead_blocks_never_reach_the_output():

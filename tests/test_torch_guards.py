@@ -194,12 +194,14 @@ def _chip_smoke():
 # grouped fwd, dx and dW unscaled and scaled, the fused CE forward, dx and
 # dW, the int8-cache paged prefill at D 64 and 128, flash fwd, dq, dkv at
 # D 256, the flash dq at D 192, the flash forward, dq and dkv at width 80,
-# the flash dq and dkv at width 32 (pipelined, `flash_pipe`), and every
-# flash kernel's instance for head sizes under its width) and some of
+# the flash dq and dkv at width 32 (pipelined, `flash_pipe`), every flash
+# kernel's instance for head sizes under its width, then the flash forward
+# at width 32 (`flash_pipe`) and the paged prefill at D 32) and some of
 # the others (fp32 flash, fp32 grouped forward, dx and
 # dW, the FMA prefill, the tile decode, the split-KV decode's split (bf16
 # and int8 caches) and combine kernels, the fused CE's mma.sync and fp32
-# kernels, and the fp32 flash kernels at D 256)
+# kernels, the fp32 flash kernels at D 256, and the merge of the bf16
+# prefill's split halves at D 32)
 SASS_SM90 = [
     f"_ZN12_GLOBAL__N_110flash_sm90{len(k)}{k}ILi{d}ELb0EEEvNS0_4MapsEN5flash"
     "6ParamsE"
@@ -253,7 +255,14 @@ SASS_SM90 = [
     "sm906DqMapsIXT_EEEN5flash6ParamsE" for b in (0, 1)] + [
     f"_ZN12_GLOBAL__N_110flash_pipe15dkv_kernel_sm90ILi32ELb{b}EEEvNS_10flash_"
     "sm906MapsOfINSt11conditionalIXeqT_Li80EEN4sm905Map80E14CUtensorMap_stE4"
-    "typeEEEN5flash6ParamsE" for b in (0, 1)]
+    "typeEEEN5flash6ParamsE" for b in (0, 1)] + [
+    # the forward at width 32, for d == 32 and d < 32
+    f"_ZN12_GLOBAL__N_110flash_pipe15fwd_kernel_sm90ILi32ELb{b}EEEvNSt11"
+    "conditionalIXeqT_Li80EEN4sm905Map80E14CUtensorMap_stE4typeES7_S7_N5flash"
+    "6ParamsE" for b in (0, 1)] + [
+    # the paged prefill at D 32 over a bf16 cache
+    "_ZN12_GLOBAL__N_112prefill_sm9019prefill_kernel_sm90ILi32EEEvPK13"
+    "__nv_bfloat16S4_S4_PKiPS2_iiiiiiif"]
 SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi0EEEvNS_6ParamsE",
               "_ZN3gmm10gmm_kernelIfLi1EEEvNS_6ParamsE",
@@ -271,7 +280,10 @@ SASS_OTHER = ["_ZN12_GLOBAL__N_19dq_kernelIfLi64EEEvN5flash6ParamsE",
               "_ZN3fce9ce_kernelIfLi2EEEvNS_6ParamsE",
               "_ZN3fce9ce_kernelI13__nv_bfloat16Li0EEEvNS_6ParamsE"] + [
     f"_ZN12_GLOBAL__N_1{len(k)}{k}IfLi256EEEvN5flash6ParamsE"
-    for k in ("fwd_kernel", "dq_kernel", "dkv_kernel")]
+    for k in ("fwd_kernel", "dq_kernel", "dkv_kernel")] + [
+    # the merge of the bf16 prefill's split halves at D 32 (CUDA cores)
+    "_ZN12_GLOBAL__N_112prefill_sm9015prefill_combineILi32EEEvPKfP13"
+    "__nv_bfloat16iii"]
 # each broken inventory: (kernel, op, count; op None drops the kernel),
 # and the name the failure must print
 BROKEN = {"complete": None,
@@ -368,7 +380,29 @@ BROKEN = {"complete": None,
           "dkv_32_without_tma": ((SASS_SM90[41], "UTMALDG", 0),
                                  "dkv_kernel_sm90"),
           "masked_dkv_32_with_spill": ((SASS_SM90[42], "STL", 6),
-                                       "dkv_kernel_sm90")}
+                                       "dkv_kernel_sm90"),
+          "fwd_32_missing": ((SASS_SM90[43], None, 0),
+                             "fwd_kernel_sm90ILi32E"),
+          "fwd_32_without_hgmma": ((SASS_SM90[43], "HGMMA", 0),
+                                   "fwd_kernel_sm90"),
+          "fwd_32_without_tma": ((SASS_SM90[43], "UTMALDG", 0),
+                                 "fwd_kernel_sm90"),
+          "masked_fwd_32_with_spill": ((SASS_SM90[44], "STL", 6),
+                                       "fwd_kernel_sm90"),
+          "prefill_32_missing": ((SASS_SM90[45], None, 0),
+                                 "prefill_kernel_sm90ILi32E"),
+          "prefill_32_without_hgmma": ((SASS_SM90[45], "HGMMA", 0),
+                                       "prefill_kernel_sm90"),
+          "prefill_32_with_tma": ((SASS_SM90[45], "UTMALDG", 2),
+                                  "prefill_kernel_sm90"),
+          "prefill_32_without_cp_async": ((SASS_SM90[45], "LDGSTS", 0),
+                                          "prefill_kernel_sm90"),
+          "prefill_32_with_spill": ((SASS_SM90[45], "STL", 6),
+                                    "prefill_kernel_sm90"),
+          "prefill_combine_32_missing": ((SASS_OTHER[15], None, 0),
+                                         "prefill_combineILi32E"),
+          "prefill_combine_32_with_hgmma": ((SASS_OTHER[15], "HGMMA", 4),
+                                            "prefill_combine")}
 
 
 @pytest.mark.parametrize("broken", BROKEN)
@@ -396,10 +430,15 @@ def test_check_sass_reads_a_synthetic_inventory(broken, capsys):
     forward without a TMA load; the dq at width 80 missing, without HGMMA,
     or (masked) with a register spill; the dq or dkv at width 32 missing,
     the dq without HGMMA, the dkv without a TMA load, or the masked dkv
-    with a register spill."""
+    with a register spill; the forward at width 32 missing, without HGMMA
+    or a TMA load, or (masked) with a register spill; the bf16 prefill at
+    D 32 missing, without HGMMA or cp.async, with a TMA load or with a
+    register spill; the merge of its split halves missing or with
+    HGMMA."""
     cs = _chip_smoke()
     inv = {fn: {"HGMMA": 8, "UTMALDG": 4, "LDGSTS": 0} for fn in SASS_SM90}
-    for fn in SASS_SM90[12:14] + SASS_SM90[17:19]:  # the paged prefills
+    for fn in SASS_SM90[12:14] + SASS_SM90[17:19] + SASS_SM90[45:]:
+        # the paged prefills
         inv[fn] = {"HGMMA": 8, "UTMALDG": 0, "LDGSTS": 16}
     inv.update({fn: {"HGMMA": 0, "UTMALDG": 0, "LDGSTS": 4}
                 for fn in SASS_OTHER})
