@@ -196,6 +196,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
              position to the uncached naive forward; then two fresh
              prompts through the bf16 engine under torch.profiler, whose
              paged prefills must all be `prefill_kernel_sm90<32>`.
+12. data-parallel recipes — at world size 1 over NCCL (one card), with
+             phase 7's flags (`--attn_impl pallas --loss_impl pallas`, B 8,
+             2**14 tokens a step, accum 2): (1) the trainer's own
+             `train()` under `single`, `dp`, `zero1`, `zero2` and `fsdp`,
+             6 iterations each, in this process with torchrun's
+             environment set for one rank: every recipe's loss at every
+             iteration within RECIPE_RTOL of `single`'s (bit-equality
+             printed), the flash and CE kernels launched exactly layers x
+             micro-steps / micro-steps times, no plain call, step ms p50,
+             tok/s, MFU and peak memory per recipe; (2) `fsdp` through
+             `python -m torch.distributed.run --standalone
+             --nproc_per_node 1 -m distributed_pytorch_tpu_torch`, which
+             must exit 0 and log recipe=fsdp, world 1, nccl on cuda:0;
+             (3) phase 9's MoE under `fsdp`, 4 iterations: the grouped
+             kernels launched exactly, the expert bias moved, the final
+             checkpoint (whole tensors gathered from the shards) verified.
 
 Phase 3 also holds the three grouped-matmul kernels (fwd, dx, dW) against
 their plain versions at the MoE training shapes (P 25600; K 768 / N 2048
@@ -3483,6 +3499,192 @@ def run_serve_mla(torch, dev, card: str, root: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the data-parallel recipes at world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+RECIPE_ARGV = ["--preset", "gpt2_124m", "--attn_impl", "pallas",
+               "--loss_impl", "pallas", "--compute_dtype", "bfloat16",
+               "--dataset", "synthetic", "--batch_size", "8",
+               "--total_batch_size_str", "2**14", "--max_iters", "5",
+               "--warmup_steps", "5", "--learning_rate", "1e-3",
+               "--no-save_stats", "--file_name", "chip_smoke_recipes",
+               "--seed", "0"]
+RECIPES = ("single", "dp", "zero1", "zero2", "fsdp")
+# every recipe's loss against single's at each iteration: one card runs
+# the same arithmetic under every recipe, but for the collectives of one
+# rank and the zero / fsdp update's order of operations
+RECIPE_RTOL = 1e-3
+MOE_RECIPE_ARGV = MOE_ARGV + ["--parallelism", "fsdp", "--max_iters", "3",
+                              "--ckpt_interval", "0", "--no-save_stats",
+                              "--file_name", "chip_smoke_moe_fsdp"]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def train_one_rank(model_cfg, train_cfg):
+    """train() with torchrun's environment set for a world of one rank
+    (restored afterwards)."""
+    from distributed_pytorch_tpu_torch.train.loop import train
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return train(model_cfg, train_cfg,
+                     log=lambda line: print(f"  {line}", flush=True))
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_recipe(torch, tmp: str, recipe: str, card: str) -> dict:
+    from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
+
+    model_cfg, train_cfg = parse_train_argv(
+        RECIPE_ARGV + ["--parallelism", recipe,
+                       "--data_dir", os.path.join(tmp, "data")])
+    L = model_cfg.n_layer
+    micro = train_cfg.total_batch_size // (
+        train_cfg.batch_size * model_cfg.block_size) * (
+        train_cfg.max_iters + 1)
+    reset_counts()
+    stats = train_one_rank(model_cfg, train_cfg)
+    launches = _counted(
+        {"fused_ce_fwd": micro, "fused_ce_bwd_dx": micro,
+         "fused_ce_bwd_dw": micro, "flash_attn_fwd": L * micro,
+         "flash_attn_bwd_dq": L * micro, "flash_attn_bwd_dkv": L * micro},
+        f"train under {recipe}")
+    want = ("none", 1) if recipe == "single" else ("nccl", 1)
+    check((stats["backend"], stats["world"]) == want
+          and stats["recipe"] == recipe,
+          f"{recipe}: ran as {stats['recipe']} over {stats['backend']}, "
+          f"world {stats['world']}")
+    losses = stats["train_losses"]
+    check(len(losses) == train_cfg.max_iters + 1
+          and all(np.isfinite(losses)), f"{recipe}: losses {losses}")
+    out = dict(losses=losses, launches=launches,
+               step_ms=stats["median_step_time"] * 1e3,
+               tok_s=stats["median_tokens_per_sec"],
+               mfu=stats["median_mfu"], peak_gb=stats["peak_mem_gb"])
+    print(f"  {recipe}: world 1 over {stats['backend']}; step ms p50 "
+          f"{out['step_ms']:.3f}, tok/s {out['tok_s']:.1f}, MFU "
+          f"{out['mfu']:.4f}, peak memory {out['peak_gb']:.3f} GB; losses "
+          f"{[round(x, 6) for x in losses]}; card {card}", flush=True)
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_recipe_cli(tmp: str) -> None:
+    """fsdp through torch.distributed.run, one process on the card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1", "-m", "distributed_pytorch_tpu_torch"] \
+        + RECIPE_ARGV + ["--parallelism", "fsdp", "--max_iters", "2",
+                         "--data_dir", os.path.join(tmp, "data")]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=tmp, env=env, capture_output=True,
+                       text=True, timeout=400)
+    out = r.stdout + r.stderr
+    check(r.returncode == 0,
+          f"torch.distributed.run fsdp exited {r.returncode}: {out[-3000:]}")
+    check("recipe=fsdp world=1 backend=nccl" in r.stdout
+          and "device cuda:0" in r.stdout,
+          f"torch.distributed.run fsdp: no recipe line: {r.stdout[-2000:]}")
+    iters = [line for line in r.stdout.splitlines()
+             if line.startswith("iter ") and "| loss" in line]
+    check(len(iters) == 3, f"torch.distributed.run fsdp: {iters}")
+    head = next(line for line in r.stdout.splitlines()
+                if "recipe=fsdp" in line)
+    print(f"  torch.distributed.run --nproc_per_node 1 ... --parallelism "
+          f"fsdp: exit 0 in {time.perf_counter() - t0:.1f} s; {head}; "
+          f"{iters[-1]}", flush=True)
+
+
+def run_recipe_moe(torch, tmp: str, card: str) -> dict:
+    from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
+    from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
+
+    model_cfg, train_cfg = parse_train_argv(
+        MOE_RECIPE_ARGV + ["--data_dir", os.path.join(tmp, "data")])
+    L = model_cfg.n_layer
+    micro = train_cfg.total_batch_size // (
+        train_cfg.batch_size * model_cfg.block_size) * (
+        train_cfg.max_iters + 1)
+    reset_counts()
+    stats = train_one_rank(model_cfg, train_cfg)
+    launches = _counted(
+        {"grouped_mm_fwd": 3 * L * micro, "grouped_mm_bwd_dx": 2 * L * micro,
+         "grouped_mm_bwd_dw": 2 * L * micro, "flash_attn_fwd": L * micro,
+         "flash_attn_bwd_dq": L * micro, "flash_attn_bwd_dkv": L * micro},
+        "train the MoE under fsdp")
+    losses = stats["train_losses"]
+    check(len(losses) == train_cfg.max_iters + 1
+          and all(np.isfinite(losses)), f"moe fsdp: losses {losses}")
+    bias = torch.stack([m.expert_bias for m in
+                        stats["state"].model.moe_layers()])
+    check(bool(torch.isfinite(bias).all()) and float(bias.abs().max()) > 0,
+          f"moe fsdp: expert_bias {bias.tolist()}")
+    step_dir = os.path.join("checkpoints", train_cfg.file_name,
+                            f"step_{train_cfg.max_iters + 1}")
+    check(ckpt.verify_manifest(step_dir) == [],
+          f"moe fsdp: checkpoint {step_dir} does not verify")
+    out = dict(launches={k: launches[k] for k in GMM_SOURCE},
+               losses=losses, bias_absmax=float(bias.abs().max()),
+               step_ms=stats["median_step_time"] * 1e3,
+               peak_gb=stats["peak_mem_gb"])
+    print(f"  MoE under fsdp: losses {[round(x, 4) for x in losses]}; "
+          f"expert_bias |max| {out['bias_absmax']:.4f}; step ms p50 "
+          f"{out['step_ms']:.3f}, peak memory {out['peak_gb']:.3f} GB; "
+          f"checkpoint {step_dir} verified; launches {out['launches']}, "
+          f"plain calls 0; card {card}", flush=True)
+    del stats, bias
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_recipes(torch, card: str) -> dict:
+    cwd = os.getcwd()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for recipe in RECIPES:
+                runs[recipe] = run_recipe(torch, tmp, recipe, card)
+            base = np.asarray(runs["single"]["losses"])
+            for recipe in RECIPES[1:]:
+                got = np.asarray(runs[recipe]["losses"])
+                rel = float(np.max(np.abs(got - base) / np.abs(base)))
+                check(rel <= RECIPE_RTOL,
+                      f"{recipe}: losses {got.tolist()} differ from "
+                      f"single's {base.tolist()} by {rel:.3e} relative")
+                print(f"  {recipe} vs single: max relative loss difference "
+                      f"{rel:.3e} (tol {RECIPE_RTOL:.0e}); bit-equal "
+                      f"{bool((got == base).all())}", flush=True)
+            run_recipe_cli(tmp)
+            runs["moe_fsdp"] = run_recipe_moe(torch, tmp, card)
+        finally:
+            os.chdir(cwd)
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the default config and the flagship with MLA (head sizes 32, 80)
 # ---------------------------------------------------------------------------
 
@@ -3816,6 +4018,9 @@ def main() -> None:
           "sizes 32 and 80, then sample and serve the default")
     small = run_small_head_sizes(torch, dev, card)
 
+    phase("12 data-parallel recipes at world size 1 over NCCL")
+    recipes = run_recipes(torch, card)
+
     rows = []
     for case, kname in (("paged", "paged_decode_attn"),
                         ("contiguous", "paged_decode_attn"),
@@ -3918,6 +4123,8 @@ def main() -> None:
             "replaces": REPLACES[kname], "head_size": D,
             "built_width": fa.padded_width(D, kname, torch.bfloat16),
             "launches": path_launches[kname], "launches_path": path,
+            "launches_recipes": ({k: recipes[k]["launches"][kname]
+                                  for k in RECIPES} if D == 64 else None),
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "lse_max_abs_err": r["lse_max_abs_err"], "launches_fp32": None,
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],
@@ -3947,6 +4154,8 @@ def main() -> None:
             "replaces": REPLACES[kname],
             "launches": ce_run["launches"][kname],
             "launches_path": "train_ce",
+            "launches_recipes": {k: recipes[k]["launches"][kname]
+                                 for k in RECIPES},
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "errs": {o: e["err"] for o, e in r["errs"].items()},
             "launches_fp32": None,
@@ -3979,6 +4188,8 @@ def main() -> None:
             "replaces": REPLACES[kname],
             "launches": moe_run["launches"][kname],
             "launches_path": "train_moe",
+            "launches_recipes": {"fsdp": recipes["moe_fsdp"]["launches"]
+                                 [kname]},
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "launches_fp32": None,
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],

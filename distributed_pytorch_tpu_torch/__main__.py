@@ -10,6 +10,12 @@ with no card and no such request it exits with an error. For example:
     python -m distributed_pytorch_tpu_torch --preset gpt2_124m \\
         --attn_impl pallas --dataset synthetic --data_dir /tmp/data \\
         --batch_size 8 --total_batch_size_str "2**14" --max_iters 20
+
+A data-parallel recipe runs one process per card under torchrun, with
+`--batch_size` per process:
+
+    python -m torch.distributed.run --nproc_per_node 8 \\
+        -m distributed_pytorch_tpu_torch --parallelism fsdp ...
 """
 
 from distributed_pytorch_tpu_torch.config import (PRESETS, build_parser,

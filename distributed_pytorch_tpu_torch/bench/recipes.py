@@ -1,0 +1,127 @@
+"""The data-parallel recipes across the cards of one machine.
+
+Each recipe trains the flagship with chip_smoke phase 7's flags
+(`--attn_impl pallas --loss_impl pallas`, bf16 over fp32 masters, B 8 x
+T 1024 a card, `--tokens_per_card` 2**14 a step, so accum 2) through
+`python -m torch.distributed.run --standalone --nproc_per_node N`, and
+`single` trains the same global batch on one card (accum 2 N; the ranks'
+rows of a step are single's rows, data/loader.py). Every run's losses are
+held to single's within `--rtol`; its step p50, tok/s, tok/s and MFU per
+card and rank 0's peak memory come from the trainer's stats.json.
+
+    python -m distributed_pytorch_tpu_torch.bench.recipes --nproc 4 \\
+        [--recipes dp,zero1,zero2,fsdp] [--iters 6] [--rtol 1e-3] \\
+        [-- extra trainer flags]
+
+A rehearsal on the CPU (gloo, the kernels' plain versions) passes
+`--platform cpu`, a tiny model and its `--tokens_per_card` after `--`.
+Exits 1 when a run fails or leaves `--rtol`; the last line is one JSON
+object of every run's numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+FLAGS = ["--preset", "gpt2_124m", "--attn_impl", "pallas", "--loss_impl",
+         "pallas", "--compute_dtype", "bfloat16", "--dataset", "synthetic",
+         "--batch_size", "8", "--warmup_steps", "5", "--learning_rate",
+         "1e-3", "--seed", "0"]
+
+
+def run(recipe: str, nproc: int, tokens: int, iters: int, extra: list,
+        tmp: str, timeout: float) -> dict:
+    """One trainer run under torch.distributed.run; its numbers."""
+    name = f"recipes_{recipe}_{nproc}"
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), "-m",
+            "distributed_pytorch_tpu_torch", *FLAGS, "--parallelism",
+            recipe, "--total_batch_size_str", str(tokens), "--max_iters",
+            str(iters - 1), "--data_dir", os.path.join(tmp, "data"),
+            "--file_name", name, *extra]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=tmp, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"{recipe} x {nproc} exited {r.returncode}:\n"
+                           f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    with open(os.path.join(tmp, "checkpoints", name, "stats.json")) as f:
+        st = json.load(f)
+    head = next(line for line in r.stdout.splitlines() if "recipe=" in line)
+    return {"recipe": recipe, "nproc": nproc, "wall_s": wall, "log": head,
+            "losses": st["train_losses"],
+            "step_ms": st["median_step_time"] * 1e3,
+            "tok_s": st["median_tokens_per_sec"],
+            "tok_s_per_card": st["median_tokens_per_sec"] / nproc,
+            "mfu_per_card": st.get("median_mfu"),
+            "peak_gb_rank0": st["peak_mem_gb"], "device": st["device"],
+            "backend": st["backend"], "world": st["world"]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--nproc", type=int, default=4)
+    ap.add_argument("--recipes", default="dp,zero1,zero2,fsdp")
+    ap.add_argument("--iters", type=int, default=6)
+    ap.add_argument("--tokens_per_card", type=int, default=2 ** 14)
+    ap.add_argument("--rtol", type=float, default=1e-3)
+    ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("extra", nargs="*")
+    args = ap.parse_args(argv)
+    extra = args.extra
+    if "cpu" not in extra:
+        from distributed_pytorch_tpu_torch.ops import cuda_build
+        t0 = time.perf_counter()
+        cuda_build.build()
+        print(f"kernels built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True)
+        print(smi.stdout.strip(), flush=True)
+    tokens = args.tokens_per_card * args.nproc
+    runs, ok = [], True
+    with tempfile.TemporaryDirectory() as tmp:
+        base = run("single", 1, tokens, args.iters, extra, tmp,
+                   args.timeout)
+        runs.append(base)
+        for recipe in args.recipes.split(","):
+            runs.append(run(recipe, args.nproc, tokens, args.iters, extra,
+                            tmp, args.timeout))
+    ref = np.asarray(base["losses"])
+    for r in runs:
+        got = np.asarray(r["losses"])
+        r["max_rel_loss_diff"] = float(np.max(np.abs(got - ref)
+                                              / np.abs(ref)))
+        r["bit_equal"] = bool((got == ref).all())
+        r["ok"] = r["max_rel_loss_diff"] <= args.rtol \
+            and (r["recipe"] == "single" or r["world"] == args.nproc)
+        ok &= r["ok"]
+        mfu = r["mfu_per_card"]
+        print(f"{r['recipe']:>6} x {r['nproc']} over {r['backend']}: step "
+              f"ms p50 {r['step_ms']:.3f}, tok/s {r['tok_s']:.1f} "
+              f"({r['tok_s_per_card']:.1f} a card), MFU a card "
+              f"{'-' if mfu is None else f'{mfu:.4f}'}, rank 0 peak "
+              f"{r['peak_gb_rank0'] or 0:.3f} GB, wall {r['wall_s']:.1f} s; "
+              f"losses vs single max rel {r['max_rel_loss_diff']:.3e} "
+              f"(tol {args.rtol:.0e}), bit-equal {r['bit_equal']}; "
+              f"{'ok' if r['ok'] else 'FAILED'}", flush=True)
+    print(json.dumps({"ok": ok, "runs": runs}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

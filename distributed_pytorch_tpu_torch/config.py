@@ -343,9 +343,10 @@ PRESETS = {
 @dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters, field-for-field the reference package's
-    `TrainConfig`. The port's training slice runs `parallelism='single'`
-    on one card (or the CPU with `platform='cpu'`); the loop refuses the
-    fields of later slices."""
+    `TrainConfig`. The port trains `parallelism` 'single', 'dp', 'zero1',
+    'zero2' and 'fsdp' (parallel/sharding.py) on CUDA cards, one process
+    each, or on the CPU with `platform='cpu'` over gloo; the loop refuses
+    the fields of later slices (train/loop.py `check_slice`)."""
 
     dataset: str = "tinystories"  # shakespeare | tinystories | fineweb | synthetic
     data_dir: str = "data"

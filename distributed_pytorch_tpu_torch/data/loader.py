@@ -9,6 +9,11 @@ shifted by one. The stream is the reference's, so both packages see the
 same batches for the same (seed, step), and a resumed run continues the
 exact stream. `next_batch` returns the whole optimizer step, (A, B, T)
 int64 tensors on the loader's device.
+
+Under a data-parallel recipe rank r of W takes exactly the rows of the
+reference's global batch that its data shard gets (the reference's
+loader.py:101-131 under `batch_pspec`): B is per rank, the global
+micro-batch is B x W, and micro-step a's rows are a*B*W + r*B + (0..B-1).
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ class DataLoader:
     """Random-offset batch sampler over a uint16 token memmap."""
 
     def __init__(self, file_path: str, batch_size: int, block_size: int, *,
-                 grad_accum: int = 1, seed: int = 1729, device=None):
+                 grad_accum: int = 1, seed: int = 1729, device=None,
+                 rank: int = 0, world: int = 1):
         self.tokens = np.memmap(file_path, dtype=np.uint16, mode="r")
         assert len(self.tokens) > block_size + 1, (
             f"dataset {file_path} too small: {len(self.tokens)} tokens "
@@ -53,6 +59,8 @@ class DataLoader:
         self.seed = seed
         self.step = 0
         self.device = device
+        assert 0 <= rank < world, f"rank {rank} outside a world of {world}"
+        self.rank, self.world = rank, world
 
     def _sample(self, step: int, rows: np.ndarray):
         """(len(rows), T) x/y int32 pairs for global batch-row ids `rows`
@@ -63,11 +71,18 @@ class DataLoader:
         seqs = self.tokens[idx].astype(np.int32)
         return seqs[:, :-1], seqs[:, 1:]
 
+    def rows(self) -> np.ndarray:
+        """This rank's global batch-row ids, micro-step by micro-step."""
+        B, W = self.B, self.world
+        return (np.arange(self.A)[:, None] * B * W + self.rank * B
+                + np.arange(B)[None, :]).reshape(-1)
+
     def next_batch(self, step: Optional[int] = None):
-        """(x, y), each (A, B, T) int64 on the loader's device."""
+        """(x, y), each (A, B, T) int64 on the loader's device: this
+        rank's rows of the step's global batch."""
         step = self.step if step is None else step
         self.step = step + 1
-        x, y = self._sample(step, np.arange(self.A * self.B))
+        x, y = self._sample(step, self.rows())
         shp = (self.A, self.B, self.T)
         return (torch.from_numpy(x.reshape(shp)).long().to(self.device),
                 torch.from_numpy(y.reshape(shp)).long().to(self.device))

@@ -42,7 +42,18 @@ Counterpart of the reference package's `models/mlp.py`:
   micro-step after its backward. A forward recomputed in the backward
   (`act_recomp`) therefore routes with the bias the micro-step started
   with, as the reference's remat does, and the bias moves once.
-  `_expert_constraint` (a mesh constraint) comes with slice 6.
+* Under a data-parallel recipe (parallel/context.py) the statistics are
+  the global batch's, as the reference's under pjit (:54-58): each rank's
+  per-expert assignment counts are all-gathered (E floats per layer and
+  forward), so the load `fi`, the bias update, the aux loss and
+  `dropped_frac` match the reference's on every rank. `pi` needs no
+  collective: with equal token counts per rank, the gradient mean over
+  the ranks gives the global term. 'scatter' takes its capacity from the
+  global token count, rounded up to a multiple of W as the reference does
+  (:335-343), and drops by global position: rank r's assignment at local
+  position p of expert e sits at p + (rank r's offset of e, the counts of
+  the ranks before it). `_expert_constraint` (a mesh constraint of the
+  'ep' recipe) comes with slice 6.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from distributed_pytorch_tpu_torch.config import LLMConfig
 from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
 from distributed_pytorch_tpu_torch.ops.dropout import dropout
 from distributed_pytorch_tpu_torch.ops.quant import maybe_quantized_matmul
+from distributed_pytorch_tpu_torch.parallel import context
 
 
 def _activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -136,18 +148,21 @@ class MLP(nn.Module):
 def scatter_dispatch(x_flat: torch.Tensor, topk_idx: torch.Tensor,
                      topk_gates: torch.Tensor, experts_fc: torch.Tensor,
                      experts_proj: torch.Tensor, *, non_linearity: str,
-                     capacity: int) -> torch.Tensor:
+                     capacity: int, offset=None) -> torch.Tensor:
     """Capacity-bounded sort-based routed-expert dispatch (reference
     :193). x_flat (N, C); topk_idx/topk_gates (N, k) over the E routed
     experts whose stacked weights are experts_fc (E, C, fc_out) /
     experts_proj (E, up, C), in x's dtype. Returns (N, C). Assignments
-    past an expert's `capacity` are dropped (earlier tokens win). The
-    tokens and gates reach the (E, capacity) grid through `gather_rows`
+    past an expert's `capacity` are dropped (earlier tokens win); with
+    `offset` (E,) the assignments of expert e start at global position
+    offset[e] (the earlier ranks' count). The tokens and gates reach the
+    (E, slots) grid, slots = min(capacity, N k), through `gather_rows`
     and come back through `combine_rows` (ops/grouped_matmul.py): unfilled
     slots are zero and feed no token, and no direction scatter-adds."""
     N, k = topk_idx.shape
     E = experts_fc.shape[0]
-    R = E * capacity
+    slots = min(capacity, N * k)
+    R = E * slots
     dev = x_flat.device
 
     flat_e = topk_idx.reshape(-1)
@@ -156,16 +171,18 @@ def scatter_dispatch(x_flat: torch.Tensor, topk_idx: torch.Tensor,
     se = flat_e[order]
     starts = torch.searchsorted(se, torch.arange(E, device=dev))
     pos = torch.arange(N * k, device=dev) - starts[se]     # rank in expert
+    keep = pos < capacity if offset is None \
+        else pos + offset.to(pos.dtype)[se] < capacity
     # dropped assignments point at row R: a row of zeros
-    slot = torch.where(pos < capacity, se * capacity + pos, R)
+    slot = torch.where(keep, se * slots + pos, R)
     pk = gm.pack(order, slot, flat_t, R)
     slot_of = pk.slot.reshape(N, k)
     gate = gm.gather_rows(topk_gates.reshape(-1, 1).float(), pk.row_asg,
                           pk.filled, pk.slot[:, None])
     xg = gm.gather_rows(x_flat, pk.row_tok, pk.filled, slot_of)
-    y = mlp_apply(xg.reshape(E, capacity, -1), experts_fc, experts_proj,
+    y = mlp_apply(xg.reshape(E, slots, -1), experts_fc, experts_proj,
                   non_linearity)
-    y = y * gate.reshape(E, capacity, 1).to(x_flat.dtype)  # (E, cap, C)
+    y = y * gate.reshape(E, slots, 1).to(x_flat.dtype)  # (E, slots, C)
     return gm.combine_rows(y.reshape(R, -1), slot_of, pk.row_tok, pk.filled)
 
 
@@ -248,7 +265,14 @@ class MoE(nn.Module):
             topk_gates = torch.softmax(topk_vals, dim=1)
         one_hot = F.one_hot(topk_idx, n_routed).float()
         load = one_hot.sum(dim=(0, 1)).detach()             # per expert
-        fi = load / n_tokens
+        # the global batch's counts under a data-parallel recipe
+        counts = context.all_gather_stack(load)             # (W, E) | None
+        W, offset = 1, None
+        if counts is not None:
+            W, r = counts.shape[0], context.data_rank()
+            load, offset = counts.sum(dim=0), counts[:r].sum(dim=0)
+        n_glob = n_tokens * W
+        fi = load / n_glob
         pi = torch.softmax(logits, dim=1).mean(dim=0)
         coef = cfg.alpha if cfg.aux_free else cfg.coeff
         aux_loss = coef * n_routed * (pi * fi).sum()
@@ -257,12 +281,14 @@ class MoE(nn.Module):
         dropped_frac = torch.zeros((), device=x.device)
         if cfg.moe_impl == "scatter":
             capacity = max(k, math.ceil(
-                cfg.capacity_factor * n_tokens * k / n_routed))
+                cfg.capacity_factor * n_glob * k / n_routed))
+            capacity = -(-capacity // W) * W
             routed_out = scatter_dispatch(
                 x_flat, topk_idx, topk_gates, fc[n_shared:], proj[n_shared:],
-                non_linearity=cfg.non_linearity, capacity=capacity)
+                non_linearity=cfg.non_linearity, capacity=capacity,
+                offset=offset)
             dropped_frac = (load - capacity).clamp_min(0).sum() \
-                / float(n_tokens * k)
+                / float(n_glob * k)
         elif use_grouped:
             routed_out = gm.grouped_dispatch(
                 x_flat, topk_idx, topk_gates, fc, proj,

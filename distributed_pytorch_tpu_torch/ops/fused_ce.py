@@ -30,9 +30,11 @@ and fp32 run `ce_kernel`, which streams C in chunks of at most 768
 columns (csrc/fused_ce_common.cuh).
 
 The kernels take the vocabulary as it is: columns past V are masked, so W
-is never padded on the host (the reference's `_pad_vocab` :261). Only the
-single-device path is here; the reference's `shard_map` over the 'data'
-mesh axis (:322-332) comes with slice 6 (parallel recipes).
+is never padded on the host (the reference's `_pad_vocab` :261). Under a
+data-parallel recipe each rank runs the kernels over its own rows, as the
+reference's `shard_map` over the 'data' mesh axis does (:322-332), and the
+mean's denominator is the global valid count (ops/losses.py
+`mean_denominator`).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from distributed_pytorch_tpu_torch import config
+from distributed_pytorch_tpu_torch.ops.losses import mean_denominator
 
 DEFAULT_BLOCK_N = config.knob("CE_BLOCK_N")     # tokens, for the gate
 
@@ -253,5 +256,5 @@ def pallas_cross_entropy(x: torch.Tensor, embedding: torch.Tensor,
     nll = _CENll.apply(x.reshape(n, C).contiguous(), embedding.contiguous(),
                        safe_t.reshape(n).to(torch.int32).contiguous())
     nll = nll.reshape(B, T)
-    denom = mask.sum().clamp_min(1)
+    denom = mean_denominator(mask.sum())
     return torch.where(mask, nll, torch.zeros_like(nll)).sum() / denom

@@ -14,14 +14,34 @@ Logits are fp32 whatever the compute dtype, as the reference's
 accumulates and returns in fp32 (`torch.mm(..., out_dtype=float32)` on the
 card), and its backward takes the fp32 gradient back to bf16 products.
 ignore_index is -1 throughout. The sequence-parallel variant
-(`sp_fused_cross_entropy`) comes with slice 5; the streaming-kernel loss
-(`loss_impl='pallas'`) is ops/fused_ce.py.
+(`sp_fused_cross_entropy`) comes with slice 6's 'sp' recipe; the
+streaming-kernel loss (`loss_impl='pallas'`) is ops/fused_ce.py.
+
+Under a data-parallel recipe each rank computes its own rows' loss, as
+the reference's shard_map over 'data' does (fused_ce.py:322-332), and the
+mean's denominator is the global batch's valid count over W
+(`mean_denominator`): the ranks' losses then average, and their gradients
+mean, to the global mean over valid targets even where the ranks hold
+different numbers of ignored targets (the reference's `mask.sum()` over
+the global batch, fused_ce.py:336).
 """
 
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from distributed_pytorch_tpu_torch.parallel import context
+
+
+def mean_denominator(count: torch.Tensor) -> torch.Tensor:
+    """The denominator of a mean over valid targets from this rank's valid
+    `count`: max(count, 1) on one process; under a data-parallel recipe
+    max(global count, 1) / W (one all-reduce of a scalar)."""
+    if not context.distributed():
+        return count.clamp_min(1)
+    return context.all_reduce_sum(count.clone()).clamp_min(1) \
+        / context.data_size()
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -68,7 +88,7 @@ def unchunked_cross_entropy(x: torch.Tensor, embedding: torch.Tensor,
     safe = torch.where(mask, targets, torch.zeros_like(targets))
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
-    denom = mask.sum().clamp_min(1)
+    denom = mean_denominator(mask.sum())
     return torch.where(mask, nll, torch.zeros_like(nll)).sum() / denom
 
 
@@ -129,4 +149,4 @@ def fused_cross_entropy(x: torch.Tensor, embedding: torch.Tensor,
                                        ignore_index=ignore_index)
     total, count = _nll_sum_chunked(x, embedding, targets, ignore_index,
                                     chunk)
-    return total / count.clamp_min(1)
+    return total / mean_denominator(count)

@@ -1,0 +1,165 @@
+"""Axis plans and the process world.
+
+Counterpart of the reference package's `parallel/mesh.py`: `MeshPlan`,
+`resolve_plan` and `rung_down` (mesh.py:41-95) are pure Python and copied
+as they are, so a recipe resolves to the same axis sizes in both packages.
+The reference lays its devices out as a `jax.sharding.Mesh`; here the
+'data' axis is a `torch.distributed` process group of one process per
+card, and `World` describes this process's place in it:
+
+* under `torch.distributed.run` the group comes from its environment
+  (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`);
+* NCCL on `cuda:LOCAL_RANK`, or gloo on the CPU (`platform='cpu'`);
+* with no such environment a non-single recipe runs as a group of one
+  rank, so every collective still runs;
+* a group the caller initialized is used as it is and left standing.
+
+`init_world` makes the group and `close_world` tears down the one it made.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Mapping, Optional
+
+import torch
+import torch.distributed as dist
+
+from distributed_pytorch_tpu_torch import resolve_device
+
+AXES = ("data", "seq", "expert", "model", "pipe")
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """Resolved axis sizes for a recipe on a concrete device count."""
+
+    data: int = 1
+    seq: int = 1
+    expert: int = 1
+    model: int = 1
+    pipe: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.seq * self.expert * self.model * self.pipe
+
+    def axis_sizes(self) -> tuple[int, int, int, int, int]:
+        return (self.data, self.seq, self.expert, self.model, self.pipe)
+
+
+def resolve_plan(recipe: str, n_devices: int, *, tp_size: int = 1,
+                 ep_size: int = 1, sp_size: int = 1, pp_size: int = 1,
+                 dp_size: int = -1) -> MeshPlan:
+    """Axis sizes for `recipe` over `n_devices`: the explicit axis sizes
+    carve the device grid and the remaining devices land on 'data'."""
+    if recipe == "single":
+        return MeshPlan(1, 1, 1, 1, 1)
+    tp, ep, sp = tp_size, ep_size, sp_size
+    pp = pp_size
+    denom = tp * ep * sp * pp
+    assert n_devices % denom == 0, (
+        f"recipe {recipe!r} needs tp*ep*sp*pp={denom} dividing device count "
+        f"{n_devices}")
+    dp = n_devices // denom if dp_size == -1 else dp_size
+    assert dp * denom == n_devices, (
+        f"dp_size {dp} * tp*ep*sp*pp {denom} != {n_devices} devices")
+    return MeshPlan(data=dp, seq=sp, expert=ep, model=tp, pipe=pp)
+
+
+def rung_down(n: int) -> int:
+    """Next power-of-two data-parallel rung strictly below `n` (2->1, 3->2,
+    4->2, 5->4, 8->4)."""
+    assert n >= 2, f"no dp rung below {n}"
+    return 1 << ((n - 1).bit_length() - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class World:
+    """This process's place on the 'data' axis. `backend` is 'nccl',
+    'gloo', or 'none' for the single recipe, which makes no group."""
+
+    rank: int = 0
+    size: int = 1
+    local_rank: int = 0
+    backend: str = "none"
+    device: torch.device = torch.device("cpu")
+    owns_group: bool = False
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def distributed(self) -> bool:
+        return self.backend != "none"
+
+
+def torchrun_env(environ: Optional[Mapping[str, str]] = None
+                 ) -> Optional[dict[str, str]]:
+    """torchrun's variables when all of them are set, else None."""
+    env = os.environ if environ is None else environ
+    if not all(k in env for k in TORCHRUN_ENV):
+        return None
+    return {k: env[k] for k in TORCHRUN_ENV}
+
+
+def init_world(recipe: str, platform: str = "auto",
+               dp_size: int = -1) -> World:
+    """The world of a training run. 'single' makes no group and refuses a
+    torchrun launch of more than one process; the other recipes join (or
+    make) a group, whose size `dp_size` must equal unless it is -1."""
+    env = torchrun_env()
+    cpu = platform == "cpu"
+    if recipe == "single":
+        if env is not None and int(env["WORLD_SIZE"]) > 1:
+            raise ValueError(
+                f"parallelism='single' trains on one process; "
+                f"WORLD_SIZE={env['WORLD_SIZE']} asks for a data-parallel "
+                "recipe (--parallelism dp|zero1|zero2|fsdp)")
+        return World(device=resolve_device("cpu" if cpu else None))
+    local = int(env["LOCAL_RANK"]) if env else 0
+    owns = not dist.is_initialized()
+    if owns:
+        backend = "gloo" if cpu else "nccl"
+        if not cpu:
+            resolve_device(None)
+            torch.cuda.set_device(local)
+        if env is not None:
+            dist.init_process_group(backend, init_method="env://",
+                                    rank=int(env["RANK"]),
+                                    world_size=int(env["WORLD_SIZE"]))
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+    else:
+        backend = dist.get_backend()
+        if env is None:
+            local = dist.get_rank() % max(1, torch.cuda.device_count()) \
+                if backend == "nccl" else 0
+    rank, size = dist.get_rank(), dist.get_world_size()
+    try:
+        if dp_size not in (-1, size):
+            raise ValueError(
+                f"dp_size={dp_size} but the data-parallel world has {size} "
+                "process(es): launch dp_size processes or pass -1")
+        if backend == "nccl":
+            torch.cuda.set_device(local)
+            device = torch.device("cuda", local)
+        else:
+            device = torch.device("cpu")
+    except BaseException:
+        if owns:
+            dist.destroy_process_group()
+        raise
+    return World(rank=rank, size=size, local_rank=local, backend=backend,
+                 device=device, owns_group=owns)
+
+
+def close_world(world: World) -> None:
+    """Tear down the group `init_world` made (a caller's group stays)."""
+    if world.owns_group and dist.is_initialized():
+        dist.destroy_process_group()

@@ -1,0 +1,435 @@
+"""The data-parallel recipes: what each rank holds whole and what it holds
+1/W of.
+
+Counterpart of the reference package's `parallel/sharding.py`, whose
+PartitionSpec tables (`_PARAM_SHARDED`, `_OPT_SHARDED`, `_GRAD_SHARDED`,
+sharding.py:38-42) let GSPMD derive every collective. Here the same tables
+pick a wrapper that issues them by hand over the 'data' group
+(parallel/mesh.py):
+
+| recipe | params | moments | grad accum | wrapper |
+|--------|--------|---------|------------|---------|
+| single | whole  | whole   | whole      | none |
+| dp     | whole  | whole   | whole      | DistributedDataParallel |
+| zero1  | whole  | 1/W     | whole      | `ZeroOptimizer`, all-reduce |
+| zero2  | whole  | 1/W     | 1/W        | `ZeroOptimizer`, reduce-scatter |
+| fsdp   | 1/W    | 1/W     | 1/W        | FSDP2, each Block, then the root |
+
+* `dp`: `broadcast_buffers=False`, since the MoE's `expert_bias` is kept
+  equal on every rank by its global statistics (models/mlp.py) and must
+  not be overwritten from rank 0; `no_sync()` on all but the last
+  micro-step, so gradients all-reduce once per optimizer step.
+* `zero1` / `zero2`: every tensor is cut into W contiguous pieces of
+  ceil(n/W) elements of its flattened view (the last one short, padded in
+  the collectives), the counterpart of the reference's
+  `_largest_divisible_axis` split (:87) that needs no divisible axis. The
+  inner optimizer steps this rank's pieces, which are views of the
+  parameters, with the per-tensor groups (and so the weight-decay mask) of
+  the optimizer it replaces; the updated pieces are then all-gathered
+  into every rank's parameters. zero1 all-reduces the accumulated
+  gradients once per step; zero2 reduce-scatters each micro-step's
+  gradients into this rank's piece and frees the rest.
+* `fsdp`: each `Block` is one FSDP2 unit and the root holds the rest,
+  among it the tied `tkn_emb` / LM head, where the fused CE's dW and the
+  embedding's gradient meet. Parameters are dim-0 shards (DTensors) outside
+  forward and backward; FSDP2 gathers a unit's whole fp32 parameters before
+  its forward and again before its backward (custom autograd Functions
+  that saved them read the gathered storage), and reduce-scatters its
+  gradients after every micro-step's backward.
+* Adafactor factors its second moments over whole tensors, so it runs
+  under `single` and `dp` and raises under the sharded recipes.
+
+Every recipe steps a rank's data rows only (data/loader.py); the gradient
+is the mean over the global batch, as the reference's. Checkpoints hold
+whole tensors whatever the recipe (`full_state_dicts`,
+`load_full_state`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from distributed_pytorch_tpu_torch.parallel.mesh import World
+from distributed_pytorch_tpu_torch.train.state import global_norm
+
+# Recipes whose *parameters* are sharded over 'data' (ZeRO-3 family).
+PARAM_SHARDED = ("fsdp", "fsdp_tp", "sp")
+# Recipes whose *optimizer state* is sharded over 'data' (ZeRO-1 and up).
+OPT_SHARDED = ("zero1", "zero2") + PARAM_SHARDED
+# Recipes whose *gradient accumulator* is sharded over 'data' (ZeRO-2 and
+# up).
+GRAD_SHARDED = ("zero2",) + PARAM_SHARDED
+# The recipes the port trains.
+PORTED = ("single", "dp", "zero1", "zero2", "fsdp")
+# What the rest of slice 6 brings (ROADMAP, Queue 1 item 6).
+SLICE6_LEFT = ("tp and fsdp_tp with the tensor-parallel table, ep, sp with "
+               "ring attention and the sequence-parallel loss, pp, offload, "
+               "the collective-matmul overlap, and Adafactor under the "
+               "sharded recipes")
+
+
+def holds(recipe: str) -> dict[str, bool]:
+    """Which tensor classes the recipe holds 1/W of on each rank."""
+    return {"params": recipe in PARAM_SHARDED,
+            "moments": recipe in OPT_SHARDED,
+            "grads": recipe in GRAD_SHARDED}
+
+
+def check_recipe(recipe: str, optimizer: str) -> None:
+    """Refuse a recipe the port does not train, or Adafactor (whole-tensor
+    row and column statistics) under a recipe that shards the moments."""
+    if recipe not in PORTED:
+        raise NotImplementedError(
+            f"parallelism={recipe!r} comes with the rest of slice 6: "
+            f"{SLICE6_LEFT}")
+    if optimizer == "adafactor" and recipe in OPT_SHARDED:
+        raise NotImplementedError(
+            f"optimizer='adafactor' under parallelism={recipe!r}: Adafactor "
+            "factors its moments over whole tensors; under a sharded recipe "
+            "it comes with slice 6 (ROADMAP, Queue 1 item 6); use 'dp'")
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _pad(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t flattened and zero-padded to n elements (a collective's equal
+    shares)."""
+    flat = t.reshape(-1)
+    if flat.numel() == n:
+        return flat
+    return torch.cat([flat, flat.new_zeros(n - flat.numel())])
+
+
+def _piece(n: int, world: World) -> tuple[int, int, int]:
+    """(lo, hi, chunk) of this rank's piece of n flattened elements."""
+    c = -(-n // world.size)
+    lo = min(world.rank * c, n)
+    return lo, min(lo + c, n), c
+
+
+def _dim0_chunk(full: torch.Tensor, world: World) -> torch.Tensor:
+    """This rank's dim-0 shard of `full` (torch.chunk's split, which is
+    DTensor's Shard(0) and FSDP2's)."""
+    lo, hi, _ = _piece(full.shape[0], world)
+    return full[lo:hi]
+
+
+def _rebuild(optimizer: torch.optim.Optimizer,
+             params_of) -> torch.optim.Optimizer:
+    """A fresh optimizer of the same class over `params_of(group)` for
+    each group, keeping every group's settings (lr, betas, weight decay)."""
+    groups = [{**{k: v for k, v in g.items() if k != "params"},
+               "params": params_of(g)} for g in optimizer.param_groups]
+    return type(optimizer)(groups, lr=optimizer.defaults["lr"])
+
+
+# ---------------------------------------------------------------------------
+# the recipes
+# ---------------------------------------------------------------------------
+
+class Recipe:
+    """'single', and what every recipe provides to the train step:
+    `module` (what the forward runs through), `micro_step(last)` (the
+    context of one micro-step's forward and backward), `after_backward`,
+    `grads` (the local tensors the norm, clip and step read), `grad_norm`
+    and `zero_grad`."""
+
+    sharded_grads = False
+
+    def __init__(self, model, optimizer, world: Optional[World] = None):
+        self.model = model
+        self.optimizer = optimizer
+        self.world = world
+        self.module = model
+
+    def params(self) -> list:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def micro_step(self, last: bool):
+        return contextlib.nullcontext()
+
+    def after_backward(self) -> None:
+        pass
+
+    def grads(self) -> list:
+        return [_local(p.grad) for p in self.params()]
+
+    def grad_norm(self, grads: list) -> torch.Tensor:
+        return global_norm(grads, sharded=self.sharded_grads)
+
+    def zero_grad(self) -> None:
+        for p in self.params():
+            p.grad = None
+
+    def held_bytes(self) -> dict[str, int]:
+        """Bytes this rank holds of parameters, optimizer moments and
+        gradients."""
+        def nbytes(ts):
+            return sum(_local(t).numel() * t.element_size() for t in ts)
+        moments = [v for st in self.optimizer.state.values()
+                   for v in st.values()
+                   if torch.is_tensor(v) and v.dim() > 0]
+        return {"params": nbytes(self.model.parameters()),
+                "moments": nbytes(moments),
+                "grads": nbytes(g for g in self.grad_tensors()
+                                if g is not None)}
+
+    def grad_tensors(self) -> list:
+        return [p.grad for p in self.model.parameters()]
+
+
+class DDPRecipe(Recipe):
+
+    def __init__(self, model, optimizer, world: World):
+        super().__init__(model, optimizer, world)
+        from torch.nn.parallel import DistributedDataParallel
+        ids = [world.device.index] if world.device.type == "cuda" else None
+        self.module = DistributedDataParallel(
+            model, device_ids=ids, broadcast_buffers=False)
+
+    def micro_step(self, last: bool):
+        return contextlib.nullcontext() if last else self.module.no_sync()
+
+
+class ZeroOptimizer:
+    """ZeRO-1/2's optimizer: the wrapped optimizer's rule over this rank's
+    piece of every parameter (see the module docstring). `state_dict` and
+    `load_state_dict` speak whole tensors, in the wrapped optimizer's
+    layout, so a checkpoint does not depend on the world."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, world: World,
+                 stage: int):
+        self.world, self.stage = world, stage
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.span = {}
+        pieces = {}
+        for p in self.params:
+            lo, hi, c = _piece(p.numel(), world)
+            self.span[p] = (lo, hi, c)
+            pieces[p] = p.detach().view(-1)[lo:hi]
+        self.pieces = [pieces[p] for p in self.params]
+        self.inner = _rebuild(optimizer,
+                              lambda g: [pieces[p] for p in g["params"]])
+        self.param_groups = self.inner.param_groups
+        self.state = self.inner.state
+
+    def reduce_scatter_grads(self) -> None:
+        """zero2, after a micro-step's backward: sum every gradient over
+        the ranks into this rank's piece (accumulated) and free it."""
+        outs, works = [], []
+        for p in self.params:
+            c = self.span[p][2]
+            out = p.grad.new_empty(c)
+            works.append(dist.reduce_scatter_tensor(
+                out, _pad(p.grad, c * self.world.size), async_op=True))
+            outs.append(out)
+        for w in works:
+            w.wait()
+        for p, piece, out in zip(self.params, self.pieces, outs):
+            g = out[:piece.numel()]
+            piece.grad = g if piece.grad is None else piece.grad.add_(g)
+            p.grad = None
+
+    def all_reduce_grads(self) -> None:
+        """zero1, once per step: sum the accumulated gradients over the
+        ranks and hand this rank's piece to the inner optimizer."""
+        works = [dist.all_reduce(p.grad, async_op=True) for p in self.params]
+        for w in works:
+            w.wait()
+        for p, piece in zip(self.params, self.pieces):
+            lo, hi, _ = self.span[p]
+            piece.grad = p.grad.reshape(-1)[lo:hi]
+
+    def _gather(self, vs: list) -> list:
+        """Every parameter's whole flattened tensor from the ranks' pieces
+        (`vs`: this rank's piece of each, in `self.params` order)."""
+        fulls, works = [], []
+        for p, v in zip(self.params, vs):
+            c = self.span[p][2]
+            full = v.new_empty(c * self.world.size)
+            works.append(dist.all_gather_into_tensor(full, _pad(v, c),
+                                                     async_op=True))
+            fulls.append(full)
+        for w in works:
+            w.wait()
+        return [f[:p.numel()] for p, f in zip(self.params, fulls)]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.inner.step()
+        for p, full in zip(self.params, self._gather(self.pieces)):
+            p.view(-1).copy_(full)
+
+    def state_dict(self) -> dict:
+        """The wrapped optimizer's state dict with whole tensors (a
+        collective: every rank calls it)."""
+        sd = self.inner.state_dict()
+        state = {i: dict(st) for i, st in sd["state"].items()}
+        if state:
+            assert len(state) == len(self.params), "partial optimizer state"
+            for k, v in state[0].items():
+                if torch.is_tensor(v) and v.dim() == 1:   # per element
+                    wholes = self._gather([state[i][k] for i in
+                                           range(len(self.params))])
+                    for i, w in enumerate(wholes):
+                        state[i][k] = w.view(self.params[i].shape)
+        return {"state": state, "param_groups": sd["param_groups"]}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load a whole-tensor state dict (any recipe's, any world's)."""
+        state = {}
+        for idx, st in sd["state"].items():
+            p = self.params[int(idx)]
+            lo, hi, _ = self.span[p]
+            state[idx] = {k: v.reshape(-1)[lo:hi].clone()
+                          if torch.is_tensor(v) and v.shape == p.shape
+                          and v.dim() > 0 else v for k, v in st.items()}
+        self.inner.load_state_dict({"state": state,
+                                    "param_groups": sd["param_groups"]})
+        self.param_groups = self.inner.param_groups
+        self.state = self.inner.state
+
+
+class ZeroRecipe(Recipe):
+    sharded_grads = True
+
+    def __init__(self, model, optimizer, world: World, stage: int):
+        super().__init__(model, ZeroOptimizer(optimizer, world, stage),
+                         world)
+
+    def params(self) -> list:
+        return self.optimizer.params
+
+    def after_backward(self) -> None:
+        if self.optimizer.stage == 2:
+            self.optimizer.reduce_scatter_grads()
+
+    def grads(self) -> list:
+        opt = self.optimizer
+        if opt.stage == 1:
+            opt.all_reduce_grads()
+        g = [piece.grad for piece in opt.pieces]
+        torch._foreach_div_(g, float(self.world.size))
+        return g
+
+    def zero_grad(self) -> None:
+        super().zero_grad()
+        for piece in self.optimizer.pieces:
+            piece.grad = None
+
+    def grad_tensors(self) -> list:
+        if self.optimizer.stage == 1:
+            return super().grad_tensors()
+        return [piece.grad for piece in self.optimizer.pieces]
+
+
+class FSDPRecipe(Recipe):
+    sharded_grads = True
+
+    def __init__(self, model, optimizer, world: World):
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.fsdp import fully_shard
+        names = {p: n for n, p in model.named_parameters()}
+        mesh = init_device_mesh(world.device.type, (world.size,),
+                                mesh_dim_names=("data",))
+        for blk in model.blocks:
+            fully_shard(blk, mesh=mesh)
+        fully_shard(model, mesh=mesh)
+        # fully_shard swaps in DTensor parameters: the optimizer is rebuilt
+        # over them, group by group
+        now = dict(model.named_parameters())
+        optimizer = _rebuild(optimizer,
+                             lambda g: [now[names[p]] for p in g["params"]])
+        super().__init__(model, optimizer, world)
+
+
+def _broadcast_params(model) -> None:
+    """Rank 0's parameters and buffers on every rank."""
+    for t in list(model.parameters()) + list(model.buffers()):
+        dist.broadcast(t.data, src=0)
+
+
+def wrap(model, optimizer, recipe: str, world: Optional[World]) -> Recipe:
+    """Apply `recipe`'s rules to a freshly built model and its optimizer
+    (every rank builds the same ones); returns the `Recipe` the train step
+    drives. The model is rank 0's afterwards on every rank."""
+    check_recipe(recipe, type(optimizer).__name__.lower())
+    if recipe == "single":
+        return Recipe(model, optimizer, world)
+    if recipe == "dp":
+        return DDPRecipe(model, optimizer, world)
+    _broadcast_params(model)
+    if recipe in ("zero1", "zero2"):
+        return ZeroRecipe(model, optimizer, world, int(recipe[-1]))
+    return FSDPRecipe(model, optimizer, world)
+
+
+# ---------------------------------------------------------------------------
+# whole-tensor state, whatever the recipe
+# ---------------------------------------------------------------------------
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def full_model_state_dict(model) -> dict:
+    """The model's state dict of whole tensors (a collective under
+    'fsdp')."""
+    return {k: _full(v) for k, v in model.state_dict().items()}
+
+
+def full_state_dicts(model, optimizer) -> tuple[dict, dict]:
+    """(model, optimizer) state dicts of whole tensors in the single
+    recipe's layout. A collective under the sharded recipes: every rank
+    calls it."""
+    model_sd = full_model_state_dict(model)
+    sd = optimizer.state_dict()
+    opt_sd = {"state": {i: {k: _full(v) for k, v in st.items()}
+                        for i, st in sd["state"].items()},
+              "param_groups": sd["param_groups"]}
+    return model_sd, opt_sd
+
+
+def _shard_like(v: torch.Tensor, ref: torch.Tensor, world: World):
+    """`v` (whole) as `ref` holds it: a dim-0 DTensor shard for a DTensor
+    `ref`, else as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(ref, DTensor):
+        return v
+    piece = _dim0_chunk(v.to(device=ref.device, dtype=ref.dtype), world)
+    return DTensor.from_local(piece.contiguous(), ref.device_mesh,
+                              ref.placements, run_check=False,
+                              shape=v.shape, stride=v.stride())
+
+
+def load_full_state(model, optimizer, model_sd: dict, opt_sd: dict,
+                    world: Optional[World] = None) -> None:
+    """Load whole-tensor state dicts (`full_state_dicts`' or the single
+    recipe's) under any recipe."""
+    params = dict(model.named_parameters())
+    if world is not None and world.distributed:
+        model_sd = {k: _shard_like(v, params[k], world) if k in params
+                    else v for k, v in model_sd.items()}
+    model.load_state_dict(model_sd)
+    if isinstance(optimizer, ZeroOptimizer) or world is None \
+            or not world.distributed:
+        optimizer.load_state_dict(opt_sd)
+        return
+    plist = [p for g in optimizer.param_groups for p in g["params"]]
+    state = {}
+    for idx, st in opt_sd["state"].items():
+        p = plist[int(idx)]
+        state[idx] = {k: _shard_like(v, p, world)
+                      if torch.is_tensor(v) and v.shape == p.shape
+                      and v.dim() > 0 else v for k, v in st.items()}
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": opt_sd["param_groups"]})

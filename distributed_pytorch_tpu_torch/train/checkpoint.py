@@ -18,6 +18,16 @@ completed.
 * `restore_for_inference` loads the model's weights alone (the optimizer
   moments are never copied into memory); `weights_version` names them
   `step_N-<blake2b(manifest)[:8]>` for the serving front-end.
+
+One format for every data-parallel recipe and world size: `state.pt`
+holds whole tensors in the single recipe's layout, gathered from the
+ranks' shards (parallel/sharding.py `full_state_dicts`, a collective every
+rank joins) and written by rank 0 alone, which also writes the manifest;
+the ranks meet at a barrier before a save returns. A restore reads and
+verifies the files on rank 0, broadcasts them (or the failure) to every
+rank, and each rank takes its own shards (`load_full_state`), so a
+checkpoint restores under any recipe and world, as the reference's orbax
+restores onto any sharding.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ import torch
 
 from distributed_pytorch_tpu_torch import config as cfg_mod
 from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
+from distributed_pytorch_tpu_torch.parallel import context
+from distributed_pytorch_tpu_torch.parallel import sharding
 from distributed_pytorch_tpu_torch.train.state import TrainState
 
 MANIFEST = "manifest.json"
@@ -50,6 +62,10 @@ class CheckpointCorrupt(RuntimeError):
                          + (" …" if len(violations) > 4 else ""))
         self.path = path
         self.violations = violations
+
+    def __reduce__(self):
+        # rebuilt from (path, violations) when broadcast to the other ranks
+        return type(self), (self.path, self.violations)
 
 
 def _abs(path: str) -> str:
@@ -156,19 +172,31 @@ def save_checkpoint(path: str, state: TrainState,
                     model_cfg: Optional[LLMConfig] = None,
                     train_cfg: Optional[TrainConfig] = None) -> str:
     """Write `state` (and the configs) under `path`; blocks until the
-    files are on disk, then writes the manifest."""
+    files are on disk, then writes the manifest. Every rank calls it."""
     path = _abs(path)
+    model_sd, opt_sd = sharding.full_state_dicts(state.model,
+                                                 state.optimizer)
+    world = context.get_world()
+    if world is None or world.is_main:
+        _write_step_dir(path, {"model": model_sd, "optimizer": opt_sd,
+                               "step": state.step,
+                               "updates": state.updates},
+                        state.step, model_cfg, train_cfg)
+    context.barrier()
+    return path
+
+
+def _write_step_dir(path: str, payload: dict, step: int,
+                    model_cfg: Optional[LLMConfig],
+                    train_cfg: Optional[TrainConfig]) -> None:
     os.makedirs(path, exist_ok=True)
-    payload = {"model": state.model.state_dict(),
-               "optimizer": state.optimizer.state_dict(),
-               "step": state.step, "updates": state.updates}
     _atomic_write(os.path.join(path, STATE),
                   lambda tmp: torch.save(payload, tmp))
     if model_cfg is not None:
         meta = {"model_config": dataclasses.asdict(model_cfg),
                 "train_config": dataclasses.asdict(train_cfg)
                 if train_cfg else {},
-                "step": state.step}
+                "step": step}
 
         def write(tmp):
             with open(tmp, "w") as f:
@@ -176,7 +204,6 @@ def save_checkpoint(path: str, state: TrainState,
 
         _atomic_write(os.path.join(path, "config.json"), write)
     write_manifest(path)
-    return path
 
 
 def load_configs(path: str) -> tuple[LLMConfig, TrainConfig, int]:
@@ -186,19 +213,47 @@ def load_configs(path: str) -> tuple[LLMConfig, TrainConfig, int]:
             TrainConfig(**meta["train_config"]), meta.get("step", 0))
 
 
-def restore_checkpoint(path: str, state: TrainState) -> TrainState:
-    """Load a step dir into `state` (in place; returned). With a manifest
-    and CKPT_VERIFY on, a failed deep verification raises
-    `CheckpointCorrupt` before anything is loaded."""
-    path = _abs(path)
+def _load_payload(path: str) -> dict:
+    """A step dir's verified payload, on the CPU."""
     _verify(path)
-    payload = torch.load(os.path.join(path, STATE),
-                         map_location=state.model.device, weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    return torch.load(os.path.join(path, STATE), map_location="cpu",
+                      weights_only=True)
+
+
+def _on_main(fn):
+    """fn() run on rank 0 and its result, or the exception it raised,
+    broadcast to every rank (fn() itself with no group)."""
+    if not context.distributed():
+        return fn()
+    if context.get_world().is_main:
+        try:
+            out = ("ok", fn())
+        except Exception as e:  # noqa: BLE001 — re-raised on every rank
+            out = ("err", e)
+    else:
+        out = None
+    kind, val = context.broadcast_object(out)
+    if kind == "err":
+        raise val
+    return val
+
+
+def _apply(payload: dict, state: TrainState) -> TrainState:
+    sharding.load_full_state(state.model, state.optimizer,
+                             payload["model"], payload["optimizer"],
+                             context.get_world())
     state.step = int(payload["step"])
     state.updates = int(payload["updates"])
     return state
+
+
+def restore_checkpoint(path: str, state: TrainState) -> TrainState:
+    """Load a step dir into `state` (in place; returned), whatever the
+    recipe it was written under. With a manifest and CKPT_VERIFY on, a
+    failed deep verification raises `CheckpointCorrupt` before anything
+    is loaded. Every rank calls it."""
+    path = _abs(path)
+    return _apply(_on_main(lambda: _load_payload(path)), state)
 
 
 def restore_for_inference(path: str, model: torch.nn.Module
@@ -247,18 +302,25 @@ def latest_step_dir(root: str) -> Optional[str]:
 def restore_latest(root: str, state: TrainState
                    ) -> Optional[tuple[TrainState, str, list[str]]]:
     """Restore the newest good checkpoint under root into `state`, walking
-    back past torn or corrupt dirs. Returns (state, path, skipped) or None
-    when nothing restores."""
-    skipped: list[str] = []
-    for _, path in reversed(_step_dirs(root)):
-        if not _complete_step_dir(path):
-            skipped.append(path)
-            continue
-        try:
-            return restore_checkpoint(path, state), path, skipped
-        except Exception as e:  # noqa: BLE001 — the next older dir may do
-            skipped.append(f"{path} ({type(e).__name__})")
-    return None
+    back past torn or corrupt dirs (on rank 0). Returns (state, path,
+    skipped) or None when nothing restores. Every rank calls it."""
+    def find():
+        skipped: list[str] = []
+        for _, path in reversed(_step_dirs(root)):
+            if not _complete_step_dir(path):
+                skipped.append(path)
+                continue
+            try:
+                return _load_payload(path), path, skipped
+            except Exception as e:  # noqa: BLE001 — an older dir may do
+                skipped.append(f"{path} ({type(e).__name__})")
+        return None
+
+    found = _on_main(find)
+    if found is None:
+        return None
+    payload, path, skipped = found
+    return _apply(payload, state), path, skipped
 
 
 def prune_checkpoints(root: str, keep: int) -> list[str]:

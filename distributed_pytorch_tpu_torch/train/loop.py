@@ -1,13 +1,28 @@
-"""The training loop on one device.
+"""The training loop, on one card or over a data-parallel world.
 
 Counterpart of the reference package's `train/loop.py` (`_data_paths`
-:147-180, `estimate_loss` :290-306, `train` :309-832) for the 'single'
-recipe. Per optimizer step one `train_step` call runs the micro-batch
+:147-180, `_agree_stop` :221-235, `estimate_loss` :290-306, `train`
+:309-832) for the 'single', 'dp', 'zero1', 'zero2' and 'fsdp' recipes.
+Per optimizer step one `train_step` call runs the micro-batch
 accumulation, clip and AdamW update (train/step.py) while the host
 prefetches the next batch; the host syncs on the step metrics only at
 log, eval and checkpoint boundaries, so the step time is a window
-average. Log lines carry loss, step ms, tok/s, MFU against the card's
-peak (train/metrics.py) and peak device memory.
+average. Log lines carry loss, step ms, tok/s, MFU per card against the
+card's peak (train/metrics.py) and peak device memory.
+
+Data parallelism (parallel/): `train` joins or makes the process group
+(parallel/mesh.py `init_world`: torchrun's environment, NCCL on
+`cuda:LOCAL_RANK` or gloo with `platform='cpu'`, a group of one rank
+without torchrun), publishes it for the run (parallel/context.py) and
+tears it down at the end, also when the run raises. `--batch_size` is
+per rank: grad_accum = total_batch_size / (B W T), as the reference's
+(:346-351), and rank r reads its rows of each global batch
+(data/loader.py). The log and stats.json come from rank 0; the logged
+loss and the eval means are all-reduced; checkpoints are whole tensors
+written by rank 0 (train/checkpoint.py). Launch with
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m distributed_pytorch_tpu_torch --parallelism fsdp ...
 
 Checkpoints (train/checkpoint.py): `ckpt_interval` saves verified step
 dirs under checkpoints/<file_name>/, `resume` restores the newest good
@@ -16,8 +31,10 @@ TRAIN_KEEP_CKPTS knob) prunes old ones; `save_model` writes a final one.
 stats.json (loss curves, throughput, peak memory) lands beside them.
 Preemption (`_graceful_stop`, reference :183-219, :589-612): on SIGTERM or
 SIGINT the loop, at its next log or eval boundary, drains the pending
-metrics, saves `step_<k>` and stops (`stats["stopped_early"]`); a later
-`--resume` continues the same step-keyed data stream.
+metrics, saves `step_<k>` and stops (`stats["stopped_early"]`); the flag
+is a max over the ranks there (`_agree_stop`), so a signal to one rank
+stops every rank at the same step. A later `--resume` continues the same
+step-keyed data stream.
 
 MoE models (slice 5) log `moe_drop`, the share of routed assignments the
 'scatter' dispatch dropped, and keep it as `stats["moe_dropped_frac"]`;
@@ -28,11 +45,13 @@ MLA models (`--attn mla`) train through the same path; FullMLA's
 training forward reaches the flash kernels at head size hs +
 rope_head_dim.
 
-Not here yet, and refused where a config asks for them: the parallel
-recipes and ZeRO-Offload (slice 6); the profiler and the live metrics
-endpoint (slice 7). The reference's telemetry flight recorder, memory
-planner, AOT program store and multi-host bring-up also come with slices
-6-7; `telemetry` is accepted and records nothing.
+Not here yet, and refused where a config asks for them: the rest of slice
+6 (parallel/sharding.py `SLICE6_LEFT`: tp, fsdp_tp, ep, sp, pp, offload,
+the collective-matmul overlap, Adafactor under a sharded recipe); the
+profiler and the live metrics endpoint (slice 7). The reference's
+telemetry flight recorder, memory planner, AOT program store and
+multi-host bring-up also come with slices 6-7; `telemetry` is accepted
+and records nothing.
 """
 
 from __future__ import annotations
@@ -50,13 +69,17 @@ import numpy as np
 import torch
 
 from distributed_pytorch_tpu_torch import config as cfg_mod
-from distributed_pytorch_tpu_torch import resolve_device
 from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
 from distributed_pytorch_tpu_torch.data.loader import (DataLoader,
                                                        make_synthetic_bin)
 from distributed_pytorch_tpu_torch.models.gpt import count_params
 from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
 from distributed_pytorch_tpu_torch.ops.attention_core import LATER_IMPLS
+from distributed_pytorch_tpu_torch.parallel import context
+from distributed_pytorch_tpu_torch.parallel import sharding
+from distributed_pytorch_tpu_torch.parallel.mesh import (World, close_world,
+                                                         init_world,
+                                                         resolve_plan)
 from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
 from distributed_pytorch_tpu_torch.train import metrics as M
 from distributed_pytorch_tpu_torch.train.state import create_train_state
@@ -68,25 +91,30 @@ def check_slice(model_cfg: LLMConfig, train_cfg: TrainConfig) -> None:
     """Refuse, naming the slice that brings it, what the port's training
     slice does not run."""
     later = []
-    if train_cfg.parallelism != "single":
-        later.append(f"parallelism={train_cfg.parallelism!r}: the parallel "
-                     "recipes come with slice 6")
+    if train_cfg.parallelism not in sharding.PORTED:
+        later.append(f"parallelism={train_cfg.parallelism!r}")
+    for axis in ("tp", "ep", "sp", "pp"):
+        if getattr(train_cfg, f"{axis}_size") > 1:
+            later.append(f"{axis}_size={getattr(train_cfg, axis + '_size')}")
+    if train_cfg.offload == "on":
+        later.append("offload='on'")
+    if train_cfg.overlap == "on":
+        later.append("overlap='on' (the collective-matmul overlap)")
+    if train_cfg.optimizer == "adafactor" \
+            and train_cfg.parallelism in sharding.OPT_SHARDED:
+        later.append(f"optimizer='adafactor' under "
+                     f"parallelism={train_cfg.parallelism!r}")
+    if later:
+        later = [", ".join(later) + " come with the rest of slice 6: "
+                 + sharding.SLICE6_LEFT]
     if train_cfg.attn_impl in LATER_IMPLS:
         later.append(f"attn_impl={train_cfg.attn_impl!r}: "
                      f"{LATER_IMPLS[train_cfg.attn_impl]}")
-    if train_cfg.offload == "on":
-        later.append("offload comes with slice 6 (parallel recipes)")
     if train_cfg.profile or train_cfg.metrics_port >= 0:
         later.append("the profiler and the metrics endpoint come with "
                      "slice 7 (operations tooling)")
     if later:
         raise NotImplementedError("; ".join(later))
-
-
-def train_device(train_cfg: TrainConfig) -> torch.device:
-    """The card unless `platform='cpu'`; with no card and no such request
-    this raises (resolve_device)."""
-    return resolve_device("cpu" if train_cfg.platform == "cpu" else None)
 
 
 def data_paths(train_cfg: TrainConfig, vocab_size: int) -> tuple[str, str]:
@@ -121,12 +149,13 @@ def data_paths(train_cfg: TrainConfig, vocab_size: int) -> tuple[str, str]:
 
 def estimate_loss(eval_step, state, loaders: dict, eval_iters: int) -> dict:
     """Mean eval loss over `eval_iters` batches per split, keyed on the
-    eval iteration k (the same batches at every eval), micro-batch 0."""
+    eval iteration k (the same batches at every eval), micro-batch 0;
+    averaged over the ranks, whose rows make up the global batch."""
     out = {}
     for split, loader in loaders.items():
         losses = [eval_step(state, *(t[0] for t in loader.next_batch(step=k)))
                   for k in range(eval_iters)]
-        out[split] = float(torch.stack(losses).mean())
+        out[split] = float(context.all_reduce_mean(torch.stack(losses).mean()))
     return out
 
 
@@ -167,9 +196,11 @@ def _graceful_stop():
 
 
 def _agree_stop(local_flag: bool) -> bool:
-    """Whether every process stops. One process here; the reference's
-    cross-process agreement (a max over processes) comes with slice 6."""
-    return local_flag
+    """Whether every process stops: the preemption flag is seen by the
+    signalled process alone, but the save (a collective) and the stop
+    must happen on every rank in the same iteration, so the flag is a max
+    over the ranks (reference :221-235). One process: the flag itself."""
+    return context.any_rank(local_flag)
 
 
 def _prune(ckpt_root: str, train_cfg: TrainConfig, say) -> None:
@@ -182,9 +213,23 @@ def _prune(ckpt_root: str, train_cfg: TrainConfig, say) -> None:
 def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
           log: Callable[[str], None] = print) -> dict[str, Any]:
     """Run the training job; returns the stats dict (loss curves, step
-    times, tok/s, MFU, peak memory) with the final state under 'state'."""
+    times, tok/s, MFU, peak memory) with the final state under 'state'.
+    Every rank of a data-parallel run calls it and gets its own stats
+    (the same losses); rank 0 logs and writes the files."""
     check_slice(model_cfg, train_cfg)
-    say = log
+    world = init_world(train_cfg.parallelism, train_cfg.platform,
+                       train_cfg.dp_size)
+    try:
+        with context.use_world(world):
+            return _train(model_cfg, train_cfg, world,
+                          log if world.is_main else (lambda s: None))
+    finally:
+        close_world(world)
+
+
+def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
+           say: Callable[[str], None]) -> dict[str, Any]:
+    main = world.is_main
     if model_cfg.moe:
         # moe_impl lives in both configs (the CLI routes the flag to both);
         # for programmatic callers a non-default TrainConfig value wins,
@@ -195,25 +240,34 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
         if want != model_cfg.moe_impl:
             say(f"moe_impl: TrainConfig overrides model config -> {want}")
             model_cfg = dataclasses.replace(model_cfg, moe_impl=want)
-    device = train_device(train_cfg)
+    device = world.device
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    say(f"device {device} ({name}); recipe=single")
+    W = world.size
+    plan = resolve_plan(train_cfg.parallelism, W, dp_size=train_cfg.dp_size)
+    say(f"device {device} ({name}); recipe={train_cfg.parallelism} "
+        f"world={W} backend={world.backend} data={plan.data}")
 
+    # grad accumulation arithmetic (reference loop.py:346-351)
     B, T = train_cfg.batch_size, model_cfg.block_size
-    assert train_cfg.total_batch_size % (B * T) == 0, (
+    b_glob = B * W
+    assert train_cfg.total_batch_size % (b_glob * T) == 0, (
         f"total_batch_size {train_cfg.total_batch_size} not divisible by "
-        f"B*T = {B * T}")
-    grad_accum = train_cfg.total_batch_size // (B * T)
+        f"B*T*dp = {b_glob * T}")
+    grad_accum = train_cfg.total_batch_size // (b_glob * T)
     tokens_per_step = train_cfg.total_batch_size
-    say(f"grad_accum={grad_accum} micro-steps of {B}x{T} tokens "
+    say(f"grad_accum={grad_accum} micro-steps of {b_glob}x{T} tokens "
         f"-> {tokens_per_step} tokens/step")
 
-    train_bin, val_bin = data_paths(train_cfg, model_cfg.vocab_size)
+    if main:
+        train_bin, val_bin = data_paths(train_cfg, model_cfg.vocab_size)
+    context.barrier()       # rank 0 writes a missing synthetic dataset
+    if not main:
+        train_bin, val_bin = data_paths(train_cfg, model_cfg.vocab_size)
 
     def mk(path, seed):
         return DataLoader(path, B, T, grad_accum=grad_accum, seed=seed,
-                          device=device)
+                          device=device, rank=world.rank, world=W)
 
     train_loader = mk(train_bin, train_cfg.seed)
     # eval streams of their own: the training batches do not depend on the
@@ -221,7 +275,7 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
     val_loader = mk(val_bin, train_cfg.seed + 1)
     eval_train_loader = mk(train_bin, train_cfg.seed + 2)
 
-    state = create_train_state(model_cfg, train_cfg, device)
+    state = create_train_state(model_cfg, train_cfg, device, world)
     total, active = count_params(state.model, model_cfg)
     say(f"params: {total / 1e6:.2f}M total, {active / 1e6:.2f}M active")
 
@@ -264,10 +318,11 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
                 stats["train_losses"].extend(float(g["loss"])
                                              for g in pending)
                 pending.clear()
+                stop["signame"] = stop["signame"] or "a peer's SIGTERM"
                 path = ckpt.save_checkpoint(
                     os.path.join(ckpt_root, f"step_{state.step}"), state,
                     model_cfg, train_cfg)
-                say(f"[signal] {stop['signame'] or 'SIGTERM'}: checkpoint "
+                say(f"[signal] {stop['signame']}: checkpoint "
                     f"-> {path}; stopping at iter {it} (resume with "
                     "--resume)")
                 stopped_early = True
@@ -298,7 +353,8 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
                 t_now = time.perf_counter()
                 dt = (t_now - win_t0) / len(got)
                 win_t0 = t_now
-                mfu = M.mfu(model_cfg, tokens_per_step, T, dt, device=device)
+                mfu = M.mfu(model_cfg, tokens_per_step, T, dt, n_chips=W,
+                            device=device)
                 first_window = not stats["train_losses"]
                 for k, g in enumerate(got):
                     it_k = it - len(got) + 1 + k
@@ -339,10 +395,11 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
                     os.path.join(ckpt_root, f"step_{it}"), state, model_cfg,
                     train_cfg)
                 say(f"checkpoint -> {path}")
-                if train_cfg.save_stats:
+                if train_cfg.save_stats and main:
                     _write_stats(os.path.join(ckpt_root, "stats.json"), stats,
                                  model_cfg, train_cfg)
-                _prune(ckpt_root, train_cfg, say)
+                if main:
+                    _prune(ckpt_root, train_cfg, say)
                 win_t0 = time.perf_counter()   # not step time
 
     if train_cfg.save_model and not stopped_early:
@@ -350,7 +407,8 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
             os.path.join(ckpt_root, f"step_{state.step}"), state, model_cfg,
             train_cfg)
         say(f"final checkpoint -> {path}")
-    _prune(ckpt_root, train_cfg, say)
+    if main:
+        _prune(ckpt_root, train_cfg, say)
 
     stats["final_loss"] = stats["train_losses"][-1] \
         if stats["train_losses"] else None
@@ -360,7 +418,7 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
         stats["median_step_time"] = med
         stats["median_tokens_per_sec"] = tokens_per_step / med
         stats["median_mfu"] = M.mfu(model_cfg, tokens_per_step, T, med,
-                                    device=device)
+                                    n_chips=W, device=device)
     stats["params_total"], stats["params_active"] = int(total), int(active)
     if stats.get("moe_dropped_frac"):
         stats["final_moe_dropped_frac"] = stats["moe_dropped_frac"][-1]
@@ -368,9 +426,12 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
         stats["moe_degraded_dense"] = gm.DEGRADED["dense"] - degraded0
     stats["stopped_early"] = stopped_early
     stats["device"] = name
+    stats["recipe"] = train_cfg.parallelism
+    stats["world"] = W
+    stats["backend"] = world.backend
     if stats.get("anomalies"):
         stats["n_anomalies"] = len(stats["anomalies"])
-    if train_cfg.save_stats:
+    if train_cfg.save_stats and main:
         path = os.path.join(ckpt_root, "stats.json")
         _write_stats(path, stats, model_cfg, train_cfg)
         say(f"stats -> {path}")

@@ -103,6 +103,9 @@ def step_flops(cfg: LLMConfig, tokens_per_step: int, seq_len: int) -> float:
 
 def mfu(cfg: LLMConfig, tokens_per_step: int, seq_len: int,
         step_time_s: float, n_chips: int = 1, device=None) -> float | None:
+    """Model FLOP utilization per card: the step's FLOPs over the global
+    `tokens_per_step`, spread over `n_chips` cards (a data-parallel
+    world's size), against one card's peak. None off the card."""
     peak = peak_flops_per_chip(device)
     if peak is None or step_time_s <= 0:
         return None

@@ -19,15 +19,18 @@ Counterpart of the reference package's `train/state.py`:
   scales, which moves the trajectory.)
 
 The state is mutable: the model's fp32 master weights, the optimizer, the
-iteration count `step` (advances every iteration) and `updates` (the
-updates applied; an anomaly-skipped step applies none).
+iteration count `step` (advances every iteration), `updates` (the
+updates applied; an anomaly-skipped step applies none) and the data-parallel
+`recipe` (parallel/sharding.py) that the train step drives. Under `fsdp`
+the model's parameters are DTensor shards; under `zero1` / `zero2` the
+optimizer is the recipe's `ZeroOptimizer`.
 """
 
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -42,6 +45,7 @@ class TrainState:
     model: LLM
     optimizer: torch.optim.Optimizer
     updates: int = 0
+    recipe: Any = None
 
 
 def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
@@ -211,9 +215,25 @@ def make_optimizer(model: torch.nn.Module,
                              betas=(0.9, 0.999), eps=1e-8)
 
 
-def global_norm(grads: list) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient element (fp32)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def _locals(ts: list) -> list:
+    """The local shards of DTensors (FSDP2's gradients); other tensors as
+    they are."""
+    from torch.distributed.tensor import DTensor
+    return [t.to_local() if isinstance(t, DTensor) else t for t in ts]
+
+
+def global_norm(grads: list, sharded: bool = False) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient element (fp32). With
+    `sharded`, each rank holds a disjoint piece of the gradients (zero2's
+    pieces, FSDP2's shards) and the squares are summed over the ranks of
+    the ambient world (parallel/context.py)."""
+    grads = _locals(grads)
+    if not sharded:
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+    from distributed_pytorch_tpu_torch.parallel import context
+    sq = torch.stack(torch._foreach_norm(grads)).square().sum()
+    return context.all_reduce_sum(sq).sqrt()
 
 
 def clip_by_global_norm(grads: list, norm: torch.Tensor,
@@ -222,7 +242,7 @@ def clip_by_global_norm(grads: list, norm: torch.Tensor,
     else g unchanged. No host sync."""
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
-    torch._foreach_mul_(grads, factor)
+    torch._foreach_mul_(_locals(grads), factor)
 
 
 def build_model(model_cfg: LLMConfig, train_cfg: TrainConfig,
@@ -234,12 +254,21 @@ def build_model(model_cfg: LLMConfig, train_cfg: TrainConfig,
 
 
 def create_train_state(model_cfg: LLMConfig, train_cfg: TrainConfig,
-                       device=None) -> TrainState:
-    """A fresh state: N(0, 0.02) weights drawn from `train_cfg.seed` on
-    the model's device, and a new optimizer."""
+                       device=None, world=None, init=None) -> TrainState:
+    """A fresh state under `train_cfg.parallelism`: N(0, 0.02) weights
+    drawn from `train_cfg.seed` on the model's device (or the state dict
+    `init`), a new optimizer, and the recipe's wrappers over both
+    (parallel/sharding.py `wrap`; `world` is the run's
+    parallel/mesh.World, None for one process)."""
+    from distributed_pytorch_tpu_torch.parallel import sharding
     model = build_model(model_cfg, train_cfg, device)
-    g = torch.Generator(device=model.device)
-    g.manual_seed(train_cfg.seed)
-    model.init_weights(g)
-    return TrainState(step=0, model=model,
-                      optimizer=make_optimizer(model, train_cfg))
+    if init is None:
+        g = torch.Generator(device=model.device)
+        g.manual_seed(train_cfg.seed)
+        model.init_weights(g)
+    else:
+        model.load_state_dict(init)
+    recipe = sharding.wrap(model, make_optimizer(model, train_cfg),
+                           train_cfg.parallelism, world)
+    return TrainState(step=0, model=recipe.model,
+                      optimizer=recipe.optimizer, recipe=recipe)

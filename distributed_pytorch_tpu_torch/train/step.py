@@ -3,9 +3,20 @@
 Counterpart of the reference package's `train/step.py` (`make_grads_fn`
 :60-160, `make_train_step` :163-253, `make_eval_step` :300-322), run
 eagerly: one call of `train_step(state, x, y)` takes x, y (A, B, T) — the
-whole optimizer step — runs A micro-batches forward and backward
-(gradients accumulate in `.grad`), divides the gradients by A, clips them
-by global norm and applies AdamW at the schedule's learning rate.
+whole optimizer step, this rank's rows of it — runs A micro-batches
+forward and backward (gradients accumulate in `.grad`), divides the
+gradients by A, clips them by global norm and applies AdamW at the
+schedule's learning rate.
+
+* Data-parallel recipes (parallel/sharding.py): the forward runs through
+  `state.recipe.module`, each micro-step inside `recipe.micro_step(last)`
+  (DDP's `no_sync` on all but the last), followed by
+  `recipe.after_backward()` (zero2's reduce-scatter); `recipe.grads()`
+  hands back the local gradients, already averaged over the ranks, and
+  `recipe.grad_norm` sums their squares over the ranks where they are
+  sharded. The logged loss is all-reduced, so the `nonfinite` and
+  `update_skipped` decisions read the same values on every rank and every
+  rank steps or skips together.
 
 * Dropout: micro-batch `m` of step `s` uses the seed `subseed(seed, s, m)`
   (ops/dropout.py), drawn here, outside every recomputed region, so
@@ -39,9 +50,10 @@ import torch
 from distributed_pytorch_tpu_torch import config as cfg_mod
 from distributed_pytorch_tpu_torch.config import TrainConfig
 from distributed_pytorch_tpu_torch.ops.dropout import subseed
+from distributed_pytorch_tpu_torch.parallel import context
+from distributed_pytorch_tpu_torch.parallel import sharding
 from distributed_pytorch_tpu_torch.train.state import (TrainState,
                                                        clip_by_global_norm,
-                                                       global_norm,
                                                        lr_schedule)
 
 
@@ -54,29 +66,31 @@ def make_train_step(train_cfg: TrainConfig):
     def train_step(state: TrainState, x: torch.Tensor,
                    y: torch.Tensor) -> dict:
         model, opt = state.model, state.optimizer
+        rec = state.recipe or sharding.Recipe(model, opt)
         model.train()
-        params = [p for g in opt.param_groups for p in g["params"]]
-        for p in params:
-            p.grad = None
+        rec.zero_grad()
         accum = x.shape[0]
         moe = model.moe_layers()
         moe_start = [b.clone() for layer in moe for b in layer.buffers()] \
             if anomaly == "skip" else []
         losses = []
         for m in range(accum):
-            _, loss = model(x[m], y[m], dropout_seed=subseed(
-                train_cfg.seed, state.step, m))
-            loss.backward()
+            with rec.micro_step(last=m == accum - 1):
+                _, loss = rec.module(x[m], y[m], dropout_seed=subseed(
+                    train_cfg.seed, state.step, m))
+                loss.backward()
+            rec.after_backward()
             model.commit_moe_state()
             losses.append(loss.detach())
-        grads = [p.grad for p in params]
+        grads = rec.grads()
         torch._foreach_div_(grads, float(accum))
         losses = torch.stack(losses)
         if 0 <= poison_it == state.step:
             losses = losses * float("nan")
             torch._foreach_mul_(grads, float("nan"))
-        gnorm = global_norm(grads)
-        metrics = {"loss": losses.mean(), "grad_norm": gnorm}
+        gnorm = rec.grad_norm(grads)
+        metrics = {"loss": context.all_reduce_mean(losses.mean()),
+                   "grad_norm": gnorm}
         apply = True
         if anomaly != "off":
             finite = torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm)

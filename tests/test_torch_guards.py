@@ -68,6 +68,17 @@ def test_kernel_sources_include_no_library(path):
                          re.IGNORECASE), path.name
 
 
+def test_parallel_modules_are_guarded():
+    """The data-parallel layer's modules (parallel/__init__, mesh, context,
+    sharding) are sources of the import guard above, and the module the
+    multi-process tests spawn as ranks imports no JAX either."""
+    par = ROOT / "distributed_pytorch_tpu_torch" / "parallel"
+    for name in ("__init__.py", "mesh.py", "context.py", "sharding.py"):
+        assert par / name in SOURCES, name
+    ranks = ROOT / "tests" / "torch_parallel_ranks.py"
+    assert not BANNED.intersection(_imported_tops(ranks))
+
+
 def test_grouped_kernels_have_sources_and_guarded_module():
     """The grouped-matmul module and its kernels are among the guarded
     files: the module is a source of the import guard above, and each of

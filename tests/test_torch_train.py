@@ -362,7 +362,8 @@ def test_recompute_and_dropout_keep_the_gradients(policy):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("parallelism", "fsdp"), ("attn_impl", "xla"), ("attn_impl", "ring")])
+    ("parallelism", "tp"), ("parallelism", "sp"), ("parallelism", "pp"),
+    ("parallelism", "ep"), ("attn_impl", "xla"), ("attn_impl", "ring")])
 def test_later_slices_raise(field, value):
     mc, tc = LLMConfig(**TINY), TrainConfig(platform="cpu")
     tc = dataclasses.replace(tc, **{field: value})

@@ -1,0 +1,212 @@
+"""One rank of a data-parallel run of the port, for the multi-process
+tests (tests/test_torch_parallel*.py). Imports no JAX: the tests compute
+the reference's side in their own process and hand this module a spec.
+
+    PYTHONPATH=. python tests/torch_parallel_ranks.py SPEC RANK
+
+SPEC is a `torch.save`d dict: `world` (W), `store` (a file for the gloo
+group's `file://` rendezvous, unique per test), `out` (a directory) and
+`cases`, run in order in one group so that the ranks start once per
+test. Each case is a dict with a `kind`:
+
+* 'steps': build the state under `tc['parallelism']` from the whole state
+  dict `init`, then run `make_train_step` over the global batches
+  `batches` ((A, B W, T) arrays), this rank taking rows r B .. r B + B - 1
+  of each micro-step. Records each step's metrics, the whole parameters,
+  the MoE buffers, and at the end the bytes held (`held_bytes`). With
+  `poison` = (rank, step), that rank alone NaN-bombs that step
+  (TRAIN_POISON_IT).
+* 'train': `train()` through the trainer loop in the directory `cwd`; with
+  `sigterm` = (rank, step), that rank signals itself when its loader
+  prefetches that step. Records the stats (the state as whole tensors).
+* 'raises': `create_train_state` must raise NotImplementedError.
+* 'restore': build the state under `tc['parallelism']` and restore the
+  step dir `path` into it; records the whole state.
+* 'ce': the fused CE (`pallas_cross_entropy`, its plain versions on the
+  CPU) over this rank's rows of `x` / `t` against the whole `w`; records
+  the loss and dW averaged over the ranks and this rank's dx.
+
+Rank r writes its records to `out/rank<r>.pt`. `spawn` starts the W
+ranks from a test and returns their records.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+
+from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
+from distributed_pytorch_tpu_torch.data import loader as loader_mod
+from distributed_pytorch_tpu_torch.ops import fused_ce
+from distributed_pytorch_tpu_torch.parallel import context, sharding
+from distributed_pytorch_tpu_torch.parallel.mesh import init_world
+from distributed_pytorch_tpu_torch.train import checkpoint
+from distributed_pytorch_tpu_torch.train.loop import train
+from distributed_pytorch_tpu_torch.train.state import create_train_state
+from distributed_pytorch_tpu_torch.train.step import make_train_step
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _clone(sd: dict) -> dict:
+    return {k: v.detach().clone() for k, v in sd.items()}
+
+
+def run_steps(case: dict, rank: int, W: int) -> dict:
+    cfg, tc = LLMConfig(**case["cfg"]), TrainConfig(**case["tc"])
+    world = init_world(tc.parallelism, "cpu", tc.dp_size)
+    poison = case.get("poison")
+    if poison is not None and poison[0] == rank:
+        os.environ["TRAIN_POISON_IT"] = str(poison[1])
+    with context.use_world(world):
+        state = create_train_state(cfg, tc, "cpu", world, init=case["init"])
+        step = make_train_step(tc)
+        os.environ.pop("TRAIN_POISON_IT", None)
+        out = {"steps": []}
+        for x, y in case["batches"]:
+            B = x.shape[1] // W
+            rows = slice(rank * B, (rank + 1) * B)
+            m = step(state, torch.from_numpy(x[:, rows]).long(),
+                     torch.from_numpy(y[:, rows]).long())
+            rec = {k: float(v) for k, v in m.items()}
+            rec["params"] = _clone(sharding.full_model_state_dict(
+                state.model))
+            rec["moe"] = [{k: b.clone() for k, b in layer.named_buffers()}
+                          for layer in state.model.moe_layers()]
+            out["steps"].append(rec)
+        out["held"] = state.recipe.held_bytes()
+    return out
+
+
+def run_train(case: dict, rank: int, W: int) -> dict:
+    cfg, tc = LLMConfig(**case["cfg"]), TrainConfig(**case["tc"])
+    os.makedirs(case["cwd"], exist_ok=True)
+    os.chdir(case["cwd"])
+    sig = case.get("sigterm")
+    orig = loader_mod.DataLoader.next_batch
+    if sig is not None and sig[0] == rank:
+        def next_batch(self, step=None):
+            if step == sig[1]:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return orig(self, step)
+        loader_mod.DataLoader.next_batch = next_batch
+    lines: list[str] = []
+    try:
+        stats = train(cfg, tc, log=lines.append)
+    finally:
+        loader_mod.DataLoader.next_batch = orig
+    state = stats.pop("state")
+    model_sd, opt_sd = sharding.full_state_dicts(state.model,
+                                                 state.optimizer)
+    stats["model"], stats["optimizer"] = _clone(model_sd), opt_sd
+    stats["step"], stats["updates"] = state.step, state.updates
+    stats["log"] = lines
+    return stats
+
+
+def run_restore(case: dict, rank: int, W: int) -> dict:
+    cfg, tc = LLMConfig(**case["cfg"]), TrainConfig(**case["tc"])
+    world = init_world(tc.parallelism, "cpu", tc.dp_size)
+    with context.use_world(world):
+        state = create_train_state(cfg, tc, "cpu", world)
+        checkpoint.restore_checkpoint(case["path"], state)
+        model_sd, opt_sd = sharding.full_state_dicts(state.model,
+                                                     state.optimizer)
+    return {"model": _clone(model_sd), "optimizer": opt_sd,
+            "step": state.step, "updates": state.updates}
+
+
+def run_raises(case: dict, rank: int, W: int) -> dict:
+    cfg, tc = LLMConfig(**case["cfg"]), TrainConfig(**case["tc"])
+    world = init_world(tc.parallelism, "cpu", tc.dp_size)
+    try:
+        create_train_state(cfg, tc, "cpu", world)
+    except NotImplementedError as e:
+        return {"raised": str(e)}
+    return {"raised": None}
+
+
+def run_ce(case: dict, rank: int, W: int) -> dict:
+    world = init_world("dp", "cpu")
+    B = case["x"].shape[0] // W
+    rows = slice(rank * B, (rank + 1) * B)
+    x = torch.from_numpy(case["x"][rows]).requires_grad_()
+    w = torch.from_numpy(case["w"]).requires_grad_()
+    fused_ce.reset_counts()
+    with context.use_world(world):
+        loss = fused_ce.pallas_cross_entropy(
+            x, w, torch.from_numpy(case["t"][rows]).long())
+        loss.backward()
+        return {"loss": float(context.all_reduce_mean(loss.detach())),
+                "dw": context.all_reduce_mean(w.grad.clone()),
+                "dx": x.grad.clone(), "plain": dict(fused_ce.PLAIN_CALLS)}
+
+
+KINDS = {"steps": run_steps, "train": run_train, "raises": run_raises,
+         "ce": run_ce, "restore": run_restore}
+
+
+def spawn(tmp, world: int, cases: list, timeout: float = 240.0) -> list:
+    """Run `cases` on `world` gloo ranks started as processes of this
+    module (rendezvous through a file under `tmp`); returns each rank's
+    records. A rank that fails, or a run past `timeout` seconds, fails
+    the calling test with the ranks' output."""
+    tmp = str(tmp)
+    os.makedirs(tmp, exist_ok=True)
+    spec = os.path.join(tmp, "spec.pt")
+    torch.save({"world": world, "store": os.path.join(tmp, "store"),
+                "out": tmp, "cases": cases}, spec)
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               spec, str(r)], env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    rcs = [p.returncode for p in procs]
+    if any(rc != 0 for rc in rcs):
+        tails = "\n".join(
+            f"--- rank {r} (rc {rc}):\n"
+            + open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:]
+            for r, rc in enumerate(rcs))
+        raise AssertionError(f"ranks failed or timed out after "
+                             f"{timeout:.0f}s: {rcs}\n{tails}")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def main(spec_path: str, rank: int) -> None:
+    torch.set_num_threads(2)
+    spec = torch.load(spec_path, weights_only=False)
+    W = spec["world"]
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}",
+                            rank=rank, world_size=W)
+    try:
+        results = [KINDS[c["kind"]](c, rank, W) for c in spec["cases"]]
+        torch.save(results, os.path.join(spec["out"], f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]))
