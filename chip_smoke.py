@@ -196,13 +196,16 @@ Phases, each of which ends the run with a non-zero exit on failure:
              position to the uncached naive forward; then two fresh
              prompts through the bf16 engine under torch.profiler, whose
              paged prefills must all be `prefill_kernel_sm90<32>`.
-12. data-parallel recipes — at world size 1 over NCCL (one card), with
+12. parallel recipes — at world size 1 over NCCL (one card), with
              phase 7's flags (`--attn_impl pallas --loss_impl pallas`, B 8,
              2**14 tokens a step, accum 2): (1) the trainer's own
-             `train()` under `single`, `dp`, `zero1`, `zero2` and `fsdp`,
-             6 iterations each, in this process with torchrun's
-             environment set for one rank: every recipe's loss at every
-             iteration within RECIPE_RTOL of `single`'s (bit-equality
+             `train()` under `single`, `dp`, `zero1`, `zero2`, `fsdp`,
+             `tp` and `fsdp_tp` (a 'model' axis of one rank: the
+             tensor-parallel recipes' wiring over NCCL; the cut itself
+             runs on four cards, bench/recipes.py), 6 iterations each, in
+             this process with torchrun's environment set for one rank:
+             every recipe's loss at every iteration within RECIPE_RTOL of
+             `single`'s (tp and fsdp_tp within TP_RTOL; bit-equality
              printed), the flash and CE kernels launched exactly layers x
              micro-steps / micro-steps times, no plain call, step ms p50,
              tok/s, MFU and peak memory per recipe; (2) `fsdp` through
@@ -213,7 +216,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
              kernels launched exactly, the expert bias moved, the final
              checkpoint (whole tensors gathered from the shards) verified.
 
-Phase 3 also holds the three grouped-matmul kernels (fwd, dx, dW) against
+Phase 3 also holds the three flash kernels over a tensor-parallel rank's
+slice of the heads (`head_offset`, `total_heads`) at dropout 0.2 against
+their plain versions and against the whole call's bytes
+(`run_flash_offsets`), and the three grouped-matmul kernels (fwd, dx, dW) against
 their plain versions at the MoE training shapes (P 25600; K 768 / N 2048
 unscaled, K 1024 / N 768 gate-scaled), with an empty expert and with every
 row on one expert, beside `torch._grouped_mm` (or a loop of `torch.mm`).
@@ -934,6 +940,103 @@ def run_flash_kernels(torch, dev) -> dict:
               f"bound {r['bound_ms']:.4f} ms ({b_by})", flush=True)
     torch.cuda.empty_cache()
     return results
+
+
+#: phase 3's head-offset check: (head size, B, T, heads, kv heads, tp) of a
+#: tensor-parallel rank's flash calls, the flagship at tp 4 (3 of 12
+#: heads of 64 a rank) and the default config at tp 2 (4 of 8 query and 2
+#: of 4 kv heads of 32 a rank)
+FLASH_OFFSETS = ((64, 4, 512, 12, 12, 4), (32, 4, 512, 8, 4, 2))
+FLASH_OFFSET_RATE = 0.2
+
+
+def run_flash_offsets(torch, dev) -> dict:
+    """The three flash kernels over a slice of the heads (`head_offset`,
+    `total_heads`, as a tensor-parallel rank calls them) at dropout 0.2,
+    fp32 and bf16, at FLASH_OFFSETS: each rank's outputs held against the
+    plain version with the same offset under FLASH_TOL, and equal, byte for
+    byte, to that slice of the whole call's; the whole call with offset 0
+    and its own head count given explicitly equal, byte for byte, to the
+    call without them. Returns {(kernel, dtype, D): max_abs_err}."""
+    from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+
+    res = {}
+    for D, B, T, nh, nkv, tp in FLASH_OFFSETS:
+        g = torch.Generator(device=dev)
+        g.manual_seed(4)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).removeprefix("torch.")
+
+            def rnd(n):
+                return torch.randn(B, T, n, D, generator=g,
+                                   device=dev).to(dtype)
+
+            q, k, v, dout = rnd(nh), rnd(nkv), rnd(nkv), rnd(nh)
+            seed = torch.tensor([977, -31], dtype=torch.int32, device=dev)
+            kw = dict(scale=D ** -0.5, causal=True,
+                      dropout_rate=FLASH_OFFSET_RATE)
+            out, lse = fa.flash_attn_fwd(q, k, v, seed, **kw)
+            delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            whole = {
+                "flash_attn_fwd": (out, lse),
+                "flash_attn_bwd_dq": (fa.flash_attn_bwd_dq(
+                    q, k, v, dout, lse, delta, seed, **kw),),
+                "flash_attn_bwd_dkv": fa.flash_attn_bwd_dkv(
+                    q, k, v, dout, lse, delta, seed, **kw)}
+            explicit = dict(kw, head_offset=0, total_heads=nh)
+            again = fa.flash_attn_fwd(q, k, v, seed, **explicit)
+            check(all(torch.equal(a, b) for a, b in zip(again, (out, lse))),
+                  f"flash_attn_fwd {dn} D {D}: offset 0 over its own heads "
+                  "wrote other bytes than the call without them")
+            for r in range(tp):
+                hq = slice(r * nh // tp, (r + 1) * nh // tp)
+                hk = slice(r * nkv // tp, (r + 1) * nkv // tp)
+                part = dict(kw, head_offset=hq.start, total_heads=nh)
+                args = (q[:, :, hq], k[:, :, hk], v[:, :, hk])
+                bw = (*args, dout[:, :, hq], lse[:, hq].contiguous(),
+                      delta[:, hq].contiguous(), seed)
+                calls = {
+                    "flash_attn_fwd": (
+                        lambda: fa.flash_attn_fwd(*args, seed, **part),
+                        lambda: fa.flash_attn_fwd_plain(*args, seed, **part),
+                        lambda t: (t[0][:, :, hq], t[1][:, hq])),
+                    "flash_attn_bwd_dq": (
+                        lambda: (fa.flash_attn_bwd_dq(*bw, **part),),
+                        lambda: (fa.flash_attn_bwd_dq_plain(*bw, **part),),
+                        lambda t: (t[0][:, :, hq],)),
+                    "flash_attn_bwd_dkv": (
+                        lambda: fa.flash_attn_bwd_dkv(*bw, **part),
+                        lambda: fa.flash_attn_bwd_dkv_plain(*bw, **part),
+                        lambda t: (t[0][:, :, hk], t[1][:, :, hk]))}
+                for name, (fk, fp, sl) in calls.items():
+                    outs, refs = fk(), fp()
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in
+                              zip(outs, sl(whole[name]))),
+                          f"{name} {dn} D {D}: heads {hq.start} .. of "
+                          f"{nh} differ from the whole call's bytes")
+                    onames = FLASH_OUTPUTS[name]
+                    for oname, a, b in zip(onames, outs, refs):
+                        atol, rtol = FLASH_TOL["float32" if oname == "lse"
+                                               else dn]
+                        e = _elementwise(a, b, atol, rtol)
+                        check(e["frac"] <= 1.0,
+                              f"{name} {dn} D {D} heads {hq.start} ..: "
+                              f"{oname} beyond its limit "
+                              f"({e['frac']:.3f})")
+                        if oname != "lse":
+                            res[(name, dn, D)] = max(
+                                res.get((name, dn, D), 0.0), e["err"])
+            print(f"  head offset, dropout {FLASH_OFFSET_RATE}, {dn} D {D} "
+                  f"({nh} / {nkv} heads over tp {tp}): every rank's heads "
+                  f"equal the whole call's bytes; against the plain "
+                  f"version max_abs_err "
+                  + ", ".join(f"{n.removeprefix('flash_attn_')} "
+                              f"{res[(n, dn, D)]:.3e}" for n in FLASH_SOURCE),
+                  flush=True)
+    torch.cuda.empty_cache()
+    return res
 
 
 #: phase 3's width comparison, bf16 at B 8, T 1024, causal: (head size,
@@ -3499,7 +3602,7 @@ def run_serve_mla(torch, dev, card: str, root: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the data-parallel recipes at world size 1 over NCCL
+# phase 12: the parallel recipes at world size 1 over NCCL
 # ---------------------------------------------------------------------------
 
 RECIPE_ARGV = ["--preset", "gpt2_124m", "--attn_impl", "pallas",
@@ -3509,11 +3612,14 @@ RECIPE_ARGV = ["--preset", "gpt2_124m", "--attn_impl", "pallas",
                "--warmup_steps", "5", "--learning_rate", "1e-3",
                "--no-save_stats", "--file_name", "chip_smoke_recipes",
                "--seed", "0"]
-RECIPES = ("single", "dp", "zero1", "zero2", "fsdp")
+RECIPES = ("single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp")
 # every recipe's loss against single's at each iteration: one card runs
 # the same arithmetic under every recipe, but for the collectives of one
 # rank and the zero / fsdp update's order of operations
 RECIPE_RTOL = 1e-3
+# tp and fsdp_tp at world 1 (a 'model' axis of one rank, the 'data' axis
+# of one) against single
+TP_RTOL = 1e-5
 MOE_RECIPE_ARGV = MOE_ARGV + ["--parallelism", "fsdp", "--max_iters", "3",
                               "--ckpt_interval", "0", "--no-save_stats",
                               "--file_name", "chip_smoke_moe_fsdp"]
@@ -3563,11 +3669,11 @@ def run_recipe(torch, tmp: str, recipe: str, card: str) -> dict:
          "fused_ce_bwd_dw": micro, "flash_attn_fwd": L * micro,
          "flash_attn_bwd_dq": L * micro, "flash_attn_bwd_dkv": L * micro},
         f"train under {recipe}")
-    want = ("none", 1) if recipe == "single" else ("nccl", 1)
-    check((stats["backend"], stats["world"]) == want
+    want = ("none", 1, 1) if recipe == "single" else ("nccl", 1, 1)
+    check((stats["backend"], stats["world"], stats["tp"]) == want
           and stats["recipe"] == recipe,
           f"{recipe}: ran as {stats['recipe']} over {stats['backend']}, "
-          f"world {stats['world']}")
+          f"world {stats['world']}, tp {stats['tp']}")
     losses = stats["train_losses"]
     check(len(losses) == train_cfg.max_iters + 1
           and all(np.isfinite(losses)), f"{recipe}: losses {losses}")
@@ -3671,11 +3777,13 @@ def run_recipes(torch, card: str) -> dict:
             for recipe in RECIPES[1:]:
                 got = np.asarray(runs[recipe]["losses"])
                 rel = float(np.max(np.abs(got - base) / np.abs(base)))
-                check(rel <= RECIPE_RTOL,
+                tol = TP_RTOL if recipe in ("tp", "fsdp_tp") \
+                    else RECIPE_RTOL
+                check(rel <= tol,
                       f"{recipe}: losses {got.tolist()} differ from "
                       f"single's {base.tolist()} by {rel:.3e} relative")
                 print(f"  {recipe} vs single: max relative loss difference "
-                      f"{rel:.3e} (tol {RECIPE_RTOL:.0e}); bit-equal "
+                      f"{rel:.3e} (tol {tol:.0e}); bit-equal "
                       f"{bool((got == base).all())}", flush=True)
             run_recipe_cli(tmp)
             runs["moe_fsdp"] = run_recipe_moe(torch, tmp, card)
@@ -3960,6 +4068,7 @@ def main() -> None:
     phase("3 kernels vs plain versions")
     kres = run_kernels(torch, fd, dev)
     fres = run_flash_kernels(torch, dev)
+    offsets = run_flash_offsets(torch, dev)
     run_flash_widths(torch, dev)
     cres = run_ce_kernels(torch, dev)
     gres = run_gmm_kernels(torch, dev)
@@ -4018,7 +4127,7 @@ def main() -> None:
           "sizes 32 and 80, then sample and serve the default")
     small = run_small_head_sizes(torch, dev, card)
 
-    phase("12 data-parallel recipes at world size 1 over NCCL")
+    phase("12 parallel recipes at world size 1 over NCCL")
     recipes = run_recipes(torch, card)
 
     rows = []
@@ -4125,6 +4234,10 @@ def main() -> None:
             "launches": path_launches[kname], "launches_path": path,
             "launches_recipes": ({k: recipes[k]["launches"][kname]
                                   for k in RECIPES} if D == 64 else None),
+            "head_offset_max_abs_err": (
+                {dn: offsets[(kname, dn, D)] for dn in ("bfloat16",
+                                                         "float32")}
+                if any(o[0] == D for o in FLASH_OFFSETS) else None),
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "lse_max_abs_err": r["lse_max_abs_err"], "launches_fp32": None,
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],

@@ -16,6 +16,13 @@ A data-parallel recipe runs one process per card under torchrun, with
 
     python -m torch.distributed.run --nproc_per_node 8 \\
         -m distributed_pytorch_tpu_torch --parallelism fsdp ...
+
+and a tensor-parallel one cuts the model over `--tp_size` adjacent
+processes, the rest of the world on 'data' (here 2 x 4):
+
+    python -m torch.distributed.run --nproc_per_node 8 \\
+        -m distributed_pytorch_tpu_torch --parallelism fsdp_tp \\
+        --tp_size 4 ...
 """
 
 from distributed_pytorch_tpu_torch.config import (PRESETS, build_parser,

@@ -8,7 +8,7 @@ so that a drift of the card over the call shows.
     python distributed_pytorch_tpu_torch/bench/flash_ab.py \\
         --tree parent=/path/to/parent/checkout --tree change=. \\
         [--shape 64:8,1024,12,12 --shape 256:8,1024,8,8] \\
-        [--prefill 32:512,8,4,256] [--order ABBA]
+        [--prefill 32:512,8,4,256] [--order ABBA] [--dropout 0.2]
 
 A shape is `head size:B,T,heads,kv heads`, causal; a prefill is `head
 size:T,heads,kv heads,offset`: one sequence's T-row bf16 chunk at that
@@ -23,7 +23,8 @@ forward and the prefill also the device time of the same function by
 cache for the prefill), and a checksum of each output's bytes (sha256,
 first 16 hex digits); then, for each dtype, shape and kernel, per tree
 the mean of its turns' device times, and whether every turn of both trees
-wrote the same bytes.
+wrote the same bytes. `--dropout RATE` runs the flash kernels with
+attention-weight dropout at that rate, from one fixed seed.
 """
 
 from __future__ import annotations
@@ -142,7 +143,7 @@ def prefill_worker(torch, prefills) -> None:
                  enable_gqa=nkv != nh))
 
 
-def worker(shapes, prefills) -> None:
+def worker(shapes, prefills, rate: float = 0.0) -> None:
     """Time this process's tree (the `distributed_pytorch_tpu_torch` first
     on sys.path); one JSON line per (dtype, shape, kernel)."""
     import torch
@@ -166,6 +167,9 @@ def worker(shapes, prefills) -> None:
 
             q, k, v, dout = rnd(nh), rnd(nkv), rnd(nkv), rnd(nh)
             kw = dict(scale=d ** -0.5, causal=True)
+            if rate > 0.0:
+                kw.update(dropout_rate=rate, seed=torch.tensor(
+                    [20240601, -7], dtype=torch.int32, device=dev))
             out, lse = fa.flash_attn_fwd(q, k, v, **kw)
             delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
                 .contiguous()
@@ -202,13 +206,14 @@ def main(argv=None) -> None:
     p.add_argument("--prefill", action="append", type=_shape,
                    help="head size:T,heads,kv heads,offset (bf16)")
     p.add_argument("--order", default="ABBA")
+    p.add_argument("--dropout", type=float, default=0.0)
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     prefills = args.prefill or []
     shapes = args.shape or ([] if prefills else
                             [(64, (8, 1024, 12, 12)), (256, (8, 1024, 8, 8))])
     if args.worker:
-        worker(shapes, prefills)
+        worker(shapes, prefills, args.dropout)
         return
     trees = [t.split("=", 1) for t in args.tree]
     if len(trees) != 2:
@@ -223,7 +228,8 @@ def main(argv=None) -> None:
         env = dict(os.environ, PYTHONPATH=os.path.abspath(path))
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker",
-             "--tree", "x=.", "--tree", "y=.", *shape_args],
+             "--tree", "x=.", "--tree", "y=.", "--dropout",
+             str(args.dropout), *shape_args],
             cwd=os.path.abspath(path), env=env, capture_output=True,
             text=True, timeout=900)
         if out.returncode != 0:

@@ -1,4 +1,4 @@
-"""The data-parallel recipes across the cards of one machine.
+"""The parallel recipes across the cards of one machine.
 
 Each recipe trains the flagship with chip_smoke phase 7's flags
 (`--attn_impl pallas --loss_impl pallas`, bf16 over fp32 masters, B 8 x
@@ -9,9 +9,14 @@ rows of a step are single's rows, data/loader.py). Every run's losses are
 held to single's within `--rtol`; its step p50, tok/s, tok/s and MFU per
 card and rank 0's peak memory come from the trainer's stats.json.
 
+A recipe is `name` or `name:tp`, tp the `--tp_size` of a tensor-parallel
+run ('model' groups of tp adjacent cards, the rest of the cards on
+'data'): `tp` alone gives the rows tp:N (all cards on 'model') and tp:2
+(2 x N/2), `fsdp_tp` alone fsdp_tp:2.
+
     python -m distributed_pytorch_tpu_torch.bench.recipes --nproc 4 \\
-        [--recipes dp,zero1,zero2,fsdp] [--iters 6] [--rtol 1e-3] \\
-        [-- extra trainer flags]
+        [--recipes dp,zero1,zero2,fsdp,tp,fsdp_tp] [--iters 6] \\
+        [--rtol 1e-3] [-- extra trainer flags]
 
 A rehearsal on the CPU (gloo, the kernels' plain versions) passes
 `--platform cpu`, a tiny model and its `--tokens_per_card` after `--`.
@@ -39,16 +44,32 @@ FLAGS = ["--preset", "gpt2_124m", "--attn_impl", "pallas", "--loss_impl",
          "1e-3", "--seed", "0"]
 
 
+def rows(spec: str, nproc: int) -> list:
+    """(recipe, tp) of each `--recipes` entry."""
+    out = []
+    for item in spec.split(","):
+        name, _, tp = item.partition(":")
+        if tp:
+            out.append((name, int(tp)))
+        elif name == "tp":
+            out += [("tp", nproc)] + ([("tp", 2)] if nproc > 2 else [])
+        elif name == "fsdp_tp":
+            out.append(("fsdp_tp", 2))
+        else:
+            out.append((name, 1))
+    return out
+
+
 def run(recipe: str, nproc: int, tokens: int, iters: int, extra: list,
-        tmp: str, timeout: float) -> dict:
+        tmp: str, timeout: float, tp: int = 1) -> dict:
     """One trainer run under torch.distributed.run; its numbers."""
-    name = f"recipes_{recipe}_{nproc}"
+    name = f"recipes_{recipe}_{nproc}_tp{tp}"
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node", str(nproc), "-m",
             "distributed_pytorch_tpu_torch", *FLAGS, "--parallelism",
-            recipe, "--total_batch_size_str", str(tokens), "--max_iters",
-            str(iters - 1), "--data_dir", os.path.join(tmp, "data"),
-            "--file_name", name, *extra]
+            recipe, "--tp_size", str(tp), "--total_batch_size_str",
+            str(tokens), "--max_iters", str(iters - 1), "--data_dir",
+            os.path.join(tmp, "data"), "--file_name", name, *extra]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     t0 = time.perf_counter()
@@ -61,7 +82,8 @@ def run(recipe: str, nproc: int, tokens: int, iters: int, extra: list,
     with open(os.path.join(tmp, "checkpoints", name, "stats.json")) as f:
         st = json.load(f)
     head = next(line for line in r.stdout.splitlines() if "recipe=" in line)
-    return {"recipe": recipe, "nproc": nproc, "wall_s": wall, "log": head,
+    return {"recipe": recipe, "nproc": nproc, "tp": tp,
+            "data": nproc // tp, "wall_s": wall, "log": head,
             "losses": st["train_losses"],
             "step_ms": st["median_step_time"] * 1e3,
             "tok_s": st["median_tokens_per_sec"],
@@ -74,7 +96,7 @@ def run(recipe: str, nproc: int, tokens: int, iters: int, extra: list,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nproc", type=int, default=4)
-    ap.add_argument("--recipes", default="dp,zero1,zero2,fsdp")
+    ap.add_argument("--recipes", default="dp,zero1,zero2,fsdp,tp,fsdp_tp")
     ap.add_argument("--iters", type=int, default=6)
     ap.add_argument("--tokens_per_card", type=int, default=2 ** 14)
     ap.add_argument("--rtol", type=float, default=1e-3)
@@ -98,9 +120,9 @@ def main(argv=None) -> int:
         base = run("single", 1, tokens, args.iters, extra, tmp,
                    args.timeout)
         runs.append(base)
-        for recipe in args.recipes.split(","):
+        for recipe, tp in rows(args.recipes, args.nproc):
             runs.append(run(recipe, args.nproc, tokens, args.iters, extra,
-                            tmp, args.timeout))
+                            tmp, args.timeout, tp))
     ref = np.asarray(base["losses"])
     for r in runs:
         got = np.asarray(r["losses"])
@@ -111,7 +133,8 @@ def main(argv=None) -> int:
             and (r["recipe"] == "single" or r["world"] == args.nproc)
         ok &= r["ok"]
         mfu = r["mfu_per_card"]
-        print(f"{r['recipe']:>6} x {r['nproc']} over {r['backend']}: step "
+        print(f"{r['recipe']:>7} x {r['nproc']} (data {r['data']} x model "
+              f"{r['tp']}) over {r['backend']}: step "
               f"ms p50 {r['step_ms']:.3f}, tok/s {r['tok_s']:.1f} "
               f"({r['tok_s_per_card']:.1f} a card), MFU a card "
               f"{'-' if mfu is None else f'{mfu:.4f}'}, rank 0 peak "

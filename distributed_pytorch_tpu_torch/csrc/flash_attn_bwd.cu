@@ -23,7 +23,7 @@
 //
 // No atomics: dq and dkv are two kernels, each writing its rows once, so
 // the results are deterministic. The dropout mask is regenerated from the
-// forward's coordinates (row b*nh + h, query position, key position), not
+// forward's coordinates (row b*nh_all + h0 + h, query position, key position), not
 // from a kernel's loop order.
 //
 // * dq, fp32 (`dq_kernel`): the FMA design of flash_attn_common.cuh
@@ -251,7 +251,7 @@ __global__ void __launch_bounds__(flash::kThreads) dq_kernel(const Params p) {
     s0 = (uint32_t)p.seed[0];
     s1 = (uint32_t)p.seed[1];
   }
-  const uint32_t row = (uint32_t)(b * p.nh + h);
+  const uint32_t row = flash::drop_row(p, b, h);
   const long long stat = (long long)(b * p.nh + h) * p.T;
 
   const int nq = min(kBQ, p.T - i0);
@@ -389,7 +389,7 @@ __global__ void __launch_bounds__(flash::kThreads) dkv_kernel(const Params p) {
   const int t_begin = p.causal ? (j0 / BQ) * BQ : 0;
   for (int r = 0; r < rep; ++r) {
     const int h = g * rep + r;
-    const uint32_t row = (uint32_t)(b * p.nh + h);
+    const uint32_t row = flash::drop_row(p, b, h);
     const T* q = static_cast<const T*>(p.q) + b * p.q_sb + (long long)h * dh;
     const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + (long long)h * dh;
     const long long stat = (long long)(b * p.nh + h) * p.T;
@@ -629,7 +629,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // mask only tiles on the diagonal or at the ragged ends
     const bool edge = (p.causal && j0 + kBK - 1 > i0) || i0 + BQ > p.T || j0 + kBK > p.S;
-    const uint32_t row = (uint32_t)(b * p.nh + h);
+    const uint32_t row = flash::drop_row(p, b, h);
     const float* lse_s = sm.lse[s] + stat_skew(p, h, i0, b);
     const float* dl_s = sm.delta[s] + stat_skew(p, h, i0, b);
 #pragma unroll
@@ -780,7 +780,7 @@ __global__ void __launch_bounds__(kThreads)
     s0 = (uint32_t)p.seed[0];
     s1 = (uint32_t)p.seed[1];
   }
-  const uint32_t row = (uint32_t)(b * p.nh + h);
+  const uint32_t row = flash::drop_row(p, b, h);
   const int r0 = w * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
   const int c0 = 2 * (lane & 3);        // and columns 8 j + c0 + {0, 1}
   const long long stat = (long long)(b * p.nh + h) * p.T;
@@ -977,7 +977,7 @@ __device__ __forceinline__ void dkv_walk(Smem<D>& sm, const Params& p, int j0, i
 
     // mask only tiles on the diagonal or at the ragged ends
     const bool edge = (p.causal && j0 + kBK - 1 > i0) || i0 + kBQ > p.T || j0 + kBK > p.S;
-    const uint32_t row = (uint32_t)(b * p.nh + h);
+    const uint32_t row = flash::drop_row(p, b, h);
     const float* lse_s = sm.lse[s] + flash_sm90::stat_skew(p, h, i0, b);
     const float* dl_s = sm.delta[s] + flash_sm90::stat_skew(p, h, i0, b);
 #pragma unroll
@@ -1412,7 +1412,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     rw.s0 = (uint32_t)p.seed[0];
     rw.s1 = (uint32_t)p.seed[1];
   }
-  rw.row = (uint32_t)(b * p.nh + h);
+  rw.row = flash::drop_row(p, b, h);
   const long long stat = (long long)(b * p.nh + h) * p.T;
 #pragma unroll
   for (int ih = 0; ih < 2; ++ih) {
@@ -1615,7 +1615,7 @@ __global__ void __launch_bounds__(kThreads)
     rw.s0 = (uint32_t)p.seed[0];
     rw.s1 = (uint32_t)p.seed[1];
   }
-  rw.row = (uint32_t)(b * p.nh + h);
+  rw.row = flash::drop_row(p, b, h);
   const long long stat = (long long)(b * p.nh + h) * p.T;
 #pragma unroll
   for (int ih = 0; ih < 2; ++ih) {
@@ -1750,7 +1750,12 @@ __device__ __forceinline__ void form_pds(Smem<D>& sm, const Params& p, float (&s
   const uint32_t s0 = DROP ? (uint32_t)p.seed[0] : 0u, s1 = DROP ? (uint32_t)p.seed[1] : 0u;
   const int h = g * (p.nh / p.nkv) + it / n_qt;
   const int i0 = t_begin + (it % n_qt) * kB;
-  const uint32_t row = (uint32_t)(b * p.nh + h);
+  // the dropout row formed each turn from an opaque copy of b: its batch
+  // part, hoisted out of the walk, held a register and spilled the masked
+  // instance
+  int bb = b;
+  if constexpr (DROP) asm volatile("" : "+r"(bb));
+  const uint32_t row = flash::drop_row(p, bb, h);
   const float* lse_s = sm.lse[s] + flash_sm90::stat_skew(p, h, i0, b);
   const float* dl_s = sm.delta[s] + flash_sm90::stat_skew(p, h, i0, b);
 #pragma unroll

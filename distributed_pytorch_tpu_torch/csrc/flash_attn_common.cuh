@@ -64,6 +64,7 @@ struct Params {
   float* lse_out;      // fwd: lse
   const int* seed;     // (2,) int32 on the device
   int B, T, S, nh, nkv;
+  int nh_all, h0;      // the heads of the whole call, this call's first
   int d;               // the head size (the kernel's width D or less)
   int causal, dropout;
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st;
@@ -110,7 +111,7 @@ template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& x
 }
 
 // `_mix_bits` (flash_attention.py:118-136) in uint32 arithmetic: the hash of
-// (attention row b*nh + h, query position, key position) and the seed.
+// (attention row b*nh_all + h0 + h, query position, key position) and the seed.
 // Keyed on absolute coordinates, so every kernel regenerates the same mask
 // whatever its tile order.
 __device__ __forceinline__ uint32_t mix_bits(uint32_t s0, uint32_t s1, uint32_t row,
@@ -126,6 +127,14 @@ __device__ __forceinline__ uint32_t mix_bits(uint32_t s0, uint32_t s1, uint32_t 
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x;
+}
+
+// The dropout row of local head h of batch b: the row the whole call's mask
+// gives that head (b * nh_all + h0 + h), so a call over a slice of the heads
+// (a tensor-parallel rank's) draws the slice of the whole mask. At h0 0 and
+// nh_all nh it is b * nh + h.
+__device__ __forceinline__ uint32_t drop_row(const Params& p, int b, int h) {
+  return (uint32_t)(b * p.nh_all + p.h0 + h);
 }
 
 // The scaled keep-mask value of one element: 1/(1-rate) or 0.
@@ -255,7 +264,7 @@ inline int set_smem(Kernel kernel, size_t smem, size_t (&cap)[64]) {
 inline bool runs_head_size(int D, int d) { return d % 8 == 0 && d >= 8 && d <= D; }
 
 // Fill Params from the C entry's arguments. dims = (B, T, S, nh, nkv, causal,
-// dropout); strides = (q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st).
+// dropout, nh_all, h0); strides = (q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st).
 inline Params make_params(int d, const void* q, const void* k, const void* v, const void* dout,
                           const float* lse_in, const float* delta, void* out0, void* out1,
                           float* lse_out, const int* seed, const int* dims,
@@ -280,6 +289,8 @@ inline Params make_params(int d, const void* q, const void* k, const void* v, co
   p.d = d;
   p.causal = dims[5];
   p.dropout = dims[6];
+  p.nh_all = dims[7];
+  p.h0 = dims[8];
   p.q_sb = strides[0];
   p.q_st = strides[1];
   p.k_sb = strides[2];

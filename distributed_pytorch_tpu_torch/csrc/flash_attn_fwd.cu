@@ -172,7 +172,7 @@ __global__ void __launch_bounds__(flash::kThreads) fwd_kernel(const Params p) {
     s0 = (uint32_t)p.seed[0];
     s1 = (uint32_t)p.seed[1];
   }
-  const uint32_t row = (uint32_t)(b * p.nh + h);
+  const uint32_t row = flash::drop_row(p, b, h);
 
   load_tile<T, D, kBQ, true>(Qt, LD, q + i0 * p.q_st, p.q_st, min(kBQ, p.T - i0), dh);
 
@@ -332,7 +332,7 @@ __global__ void __launch_bounds__(kThreads)
     s0 = (uint32_t)p.seed[0];
     s1 = (uint32_t)p.seed[1];
   }
-  const uint32_t row = (uint32_t)(b * p.nh + h);
+  const uint32_t row = flash::drop_row(p, b, h);
   const int r0 = w * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
   const int c0 = 2 * (lane & 3);        // and columns 8 j + c0 + {0, 1}
 
@@ -628,7 +628,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int w = warp >> 2;  // consumer warpgroup: query rows i0 + 64 w ..
   if (w >= n_live) return;
   Rows rw{i0 + kRows * w, (warp & 3) * 16 + (lane >> 2), 2 * (lane & 3), 0u, 0u,
-          (uint32_t)(b * p.nh + h)};
+          flash::drop_row(p, b, h)};
   const int nw = tiles_to(rw.q0 + kRows);  // its key tiles
   const int two = n_live == 2;
 
@@ -866,7 +866,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kStages && j < n_kt; ++j) load_kv<D>(sm, tk, tv, j, j, g, b);
   }
 
-  Rows rw{i0, w * 16 + (lane >> 2), 2 * (lane & 3), 0u, 0u, (uint32_t)(b * p.nh + h)};
+  Rows rw{i0, w * 16 + (lane >> 2), 2 * (lane & 3), 0u, 0u, flash::drop_row(p, b, h)};
   if (p.dropout) {
     rw.s0 = (uint32_t)p.seed[0];
     rw.s1 = (uint32_t)p.seed[1];

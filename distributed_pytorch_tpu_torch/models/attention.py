@@ -47,6 +47,19 @@ Under an active quantized-weight store (the engine's decode forwards,
 ops/quant.py) the projections read int8 codes; the store knows them by
 the name `LLM` gives each module (`qname`). The absorbed W_uk / W_uv are
 read dequantized (`maybe_dequantized_param`), as the reference does.
+
+Tensor parallelism (parallel/tensor.py sets `tp` = (rank, tp) and cuts
+the weights): a rank runs its nh / tp query heads (GQA: and nkv / tp kv
+heads) through the same kernels, with the dropout mask of those heads of
+the whole layer (`head_offset`, `total_heads`). GQA: `c_attn` is
+column-parallel in the per-rank [q_r | k_r | v_r] layout, its input goes
+through `copy_to_model`; `c_proj` is row-parallel, its partial products
+summed by `reduce_from_model` and its bias added once after the sum.
+MLA: W_uq, W_uk, W_uv and W_qr are column-parallel per head, W_o
+row-parallel; the down-projections W_dq, W_dkv and the shared rotary key
+W_kr stay whole, and their outputs enter the per-head products through
+`copy_to_model`, so their gradients are the sums over the ranks' heads.
+Only the uncached (training) forward runs under a 'model' axis.
 """
 
 from __future__ import annotations
@@ -68,6 +81,7 @@ from distributed_pytorch_tpu_torch.ops.quant import (maybe_dequantized_param,
                                                     maybe_quantized_matmul,
                                                     quantize_kv)
 from distributed_pytorch_tpu_torch.ops.rope import apply_rotary_emb, slice_rows
+from distributed_pytorch_tpu_torch.parallel import context
 
 Cache = dict
 
@@ -92,8 +106,21 @@ def _update_cache(cache_arr: torch.Tensor, new: torch.Tensor, pos) -> None:
     cache_arr[torch.arange(B, device=cache_arr.device)[:, None], rows] = new
 
 
+def _tp_uncached(mod: nn.Module, cache) -> tuple[int, int]:
+    """The module's (rank, tp); a cached call under a 'model' axis
+    raises."""
+    rank, tp = mod.tp
+    if tp > 1 and cache is not None:
+        raise NotImplementedError(
+            "cached attention under tensor parallelism comes with --shard "
+            "serving (ROADMAP, Queue 1 item 6)")
+    return rank, tp
+
+
 class GQA(nn.Module):
     """Grouped-query attention; n_kv_heads == n_head gives MHA, == 1 MQA."""
+
+    tp = (0, 1)
 
     def __init__(self, config: LLMConfig, *, device=None, dtype=None,
                  attn_impl: str = "auto"):
@@ -111,9 +138,10 @@ class GQA(nn.Module):
         mode (ops/dropout.py); unused otherwise."""
         cfg = self.config
         B, T, C = x.shape
-        nh, nkv, hs = cfg.n_head, cfg.n_kv_heads, cfg.head_size
-        qkv = _linear(x, self.c_attn)
-        q, k, v = qkv.split([C, nkv * hs, nkv * hs], dim=-1)
+        rank, tp = _tp_uncached(self, cache)
+        nh, nkv, hs = cfg.n_head // tp, cfg.n_kv_heads // tp, cfg.head_size
+        qkv = _linear(context.copy_to_model(x), self.c_attn)
+        q, k, v = qkv.split([nh * hs, nkv * hs, nkv * hs], dim=-1)
         q = q.reshape(B, T, nh, hs)
         k = k.reshape(B, T, nkv, hs)
         v = v.reshape(B, T, nkv, hs)
@@ -149,8 +177,16 @@ class GQA(nn.Module):
                  block_tables=block_tables, impl=self.attn_impl,
                  dropout_rate=cfg.dropout if drop else 0.0,
                  dropout_seed=seed_pair(subseed(dropout_seed, 0), x.device)
-                 if drop else None, **scales)
-        y = _linear(y.reshape(B, T, C), self.c_proj)
+                 if drop else None, head_offset=rank * nh,
+                 total_heads=cfg.n_head, **scales)
+        if tp > 1:
+            # row-parallel: the ranks' partial products summed, the bias
+            # added once
+            y = context.reduce_from_model(F.linear(
+                y.reshape(B, T, nh * hs), self.c_proj.weight.to(x.dtype)))
+            y = y + self.c_proj.bias.to(x.dtype)
+        else:
+            y = _linear(y.reshape(B, T, C), self.c_proj)
         if drop:
             y = dropout(y, cfg.dropout, subseed(dropout_seed, 1))
         return y
@@ -218,6 +254,7 @@ class _MLA(nn.Module):
     flavors share."""
 
     rope = False
+    tp = (0, 1)
 
     def __init__(self, config: LLMConfig, *, device=None, dtype=None,
                  attn_impl: str = "auto"):
@@ -258,10 +295,12 @@ class _MLA(nn.Module):
         return sdpa(q, k, v, scale=scale, impl=self.attn_impl,
                     dropout_rate=self.config.dropout if drop else 0.0,
                     dropout_seed=seed_pair(subseed(dropout_seed, 0),
-                                           x.device) if drop else None)
+                                           x.device) if drop else None,
+                    head_offset=self.tp[0] * q.shape[2],
+                    total_heads=self.config.n_head)
 
     def _out(self, y, dropout_seed):
-        y = _qmm(self, y, "W_o")
+        y = context.reduce_from_model(_qmm(self, y, "W_o"))
         if self.training and self.config.dropout > 0.0:
             y = dropout(y, self.config.dropout, subseed(dropout_seed, 1))
         return y
@@ -275,14 +314,17 @@ class NaiveMLA(_MLA):
                 block_tables=None, dropout_seed: Optional[int] = None):
         cfg = self.config
         B, T, C = x.shape
-        nh, hs = cfg.n_head, cfg.head_size
+        _, tp = _tp_uncached(self, cache)
+        nh, hs = cfg.n_head // tp, cfg.head_size
         dt = x.dtype
-        q = _qmm(self, _qmm(self, x, "W_dq"), "W_uq").reshape(B, T, nh, hs)
+        q = _qmm(self, context.copy_to_model(_qmm(self, x, "W_dq")),
+                 "W_uq").reshape(B, T, nh, hs)
         new_c_kv = _qmm(self, x, "W_dkv")                      # (B, T, nlkv)
         if cache is None:
-            k = (new_c_kv @ self.W_uk.to(dt)).reshape(B, T, nh, hs)
-            v = (new_c_kv @ self.W_uv.to(dt)).reshape(B, T, nh, hs)
-            y = self._attend(q, k, v, dropout_seed, x).reshape(B, T, C)
+            c_kv = context.copy_to_model(new_c_kv)
+            k = (c_kv @ self.W_uk.to(dt)).reshape(B, T, nh, hs)
+            v = (c_kv @ self.W_uv.to(dt)).reshape(B, T, nh, hs)
+            y = self._attend(q, k, v, dropout_seed, x).reshape(B, T, nh * hs)
         else:
             c_kv = self._write(cache, "c_kv", new_c_kv, pos, block_tables)
             y = _absorbed_decode(q, c_kv, *self._absorbed_weights(), pos,
@@ -302,10 +344,11 @@ class FullMLA(_MLA):
                 block_tables=None, dropout_seed: Optional[int] = None):
         cfg = self.config
         B, T, C = x.shape
-        nh, hs, dhr = cfg.n_head, cfg.head_size, cfg.rope_head_dim
+        _, tp = _tp_uncached(self, cache)
+        nh, hs, dhr = cfg.n_head // tp, cfg.head_size, cfg.rope_head_dim
         dt = x.dtype
         f = slice_rows(freqs, pos, T)
-        c_q = _qmm(self, x, "W_dq")                             # (B, T, nlq)
+        c_q = context.copy_to_model(_qmm(self, x, "W_dq"))     # (B, T, nlq)
         q_c = _qmm(self, c_q, "W_uq").reshape(B, T, nh, hs)
         q_r = apply_rotary_emb(
             _qmm(self, c_q, "W_qr").reshape(B, T, nh, dhr), f)
@@ -313,17 +356,19 @@ class FullMLA(_MLA):
         new_k_r = apply_rotary_emb(_qmm(self, x, "W_kr")[:, :, None, :], f)
         scale = 1.0 / math.sqrt(hs + dhr)
         if cache is None:
-            k_c = (new_c_kv @ self.W_uk.to(dt)).reshape(B, T, nh, hs)
-            v = (new_c_kv @ self.W_uv.to(dt)).reshape(B, T, nh, hs)
+            c_kv = context.copy_to_model(new_c_kv)
+            k_c = (c_kv @ self.W_uk.to(dt)).reshape(B, T, nh, hs)
+            v = (c_kv @ self.W_uv.to(dt)).reshape(B, T, nh, hs)
             # one attention call over the concatenated content and rotary
             # features; v padded by dhr zeros (the padded half of the
             # output is exactly zero and is dropped)
             q_cat = torch.cat([q_c, q_r], dim=-1)
-            k_cat = torch.cat([k_c, new_k_r.expand(B, T, nh, dhr)], dim=-1)
+            k_r = context.copy_to_model(new_k_r)
+            k_cat = torch.cat([k_c, k_r.expand(B, T, nh, dhr)], dim=-1)
             v_pad = F.pad(v, (0, dhr))
             y = self._attend(q_cat, k_cat, v_pad, dropout_seed, x,
                              scale=scale)
-            y = y[..., :hs].reshape(B, T, C)
+            y = y[..., :hs].reshape(B, T, nh * hs)
         else:
             c_kv = self._write(cache, "c_kv", new_c_kv, pos, block_tables)
             k_r = self._write(cache, "k_r", new_k_r, pos, block_tables)

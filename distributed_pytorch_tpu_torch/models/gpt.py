@@ -43,6 +43,15 @@ Counterpart of the reference package's `models/gpt.py` (`LLM`, `Block`,
   key of its weights in a quantized store (ops/quant.py); under an active
   store the attention and MLP products and the tied LM head read int8
   codes.
+* Tensor parallelism (parallel/tensor.py `shard_model` sets `tp` and
+  `vocab_cut`): the tied `tkn_emb` is vocab-parallel, V / tp rows a rank
+  (the reference's rule `("tkn_emb", "embedding"), 0`). The lookup is a
+  masked gather of the rank's rows, summed over 'model'; the loss is
+  `vocab_parallel_cross_entropy` (ops/losses.py) whatever `loss_impl`
+  asks, since the reference's gate keeps its pallas loss off under tp
+  (gpt.py:219-235): `loss_impl='pallas'` counts that in
+  `fused_ce.DEGRADED["vocab_parallel"]`, as the port's other gate refusals
+  are counted. Returned logits are gathered over 'model'.
 """
 
 from __future__ import annotations
@@ -61,11 +70,13 @@ from distributed_pytorch_tpu_torch.models.attention import (
 from distributed_pytorch_tpu_torch.models.mlp import MLP, MoE
 from distributed_pytorch_tpu_torch.ops import fused_ce
 from distributed_pytorch_tpu_torch.ops.dropout import dropout, subseed
-from distributed_pytorch_tpu_torch.ops.losses import (fused_cross_entropy,
-                                                     unchunked_cross_entropy)
+from distributed_pytorch_tpu_torch.ops.losses import (
+    fused_cross_entropy, unchunked_cross_entropy,
+    vocab_parallel_cross_entropy)
 from distributed_pytorch_tpu_torch.ops.quant import maybe_quantized_matmul
 from distributed_pytorch_tpu_torch.ops.rope import (precompute_rope_freqs,
                                                    slice_rows)
+from distributed_pytorch_tpu_torch.parallel import context
 
 LN_EPS = 1e-6
 
@@ -143,6 +154,9 @@ class LLM(nn.Module):
     (ops/attention_core.py); `init_weights(generator)` draws the
     reference's N(0, 0.02) init. `self.dtype` is the compute dtype."""
 
+    tp = (0, 1)
+    vocab_cut = False
+
     def __init__(self, config: LLMConfig, *, device=None,
                  dtype=torch.float32, compute_dtype=None,
                  attn_impl: str = "auto"):
@@ -212,7 +226,11 @@ class LLM(nn.Module):
         drop = self.training and cfg.dropout > 0.0
         if drop and dropout_seed is None:
             raise ValueError("training with dropout > 0 needs a dropout_seed")
-        x = F.embedding(idx, self.tkn_emb.weight.to(dt))
+        if self.tp[1] != context.model_size():
+            raise RuntimeError(
+                f"a model cut for tp={self.tp[1]} runs under a world whose "
+                f"'model' axis has {context.model_size()} rank(s)")
+        x = self._embed(idx, dt)
         freqs = None
         if cfg.pos_emb == "rope":
             freqs = self.freqs
@@ -242,7 +260,7 @@ class LLM(nn.Module):
             if total_aux is not None:
                 loss = loss + total_aux / cfg.n_layer
             sel = x if all_logits else x[:, -1:, :]
-            return sel @ self.tkn_emb.weight.to(dt).t(), loss
+            return self._head(sel), loss
         if all_logits:
             sel = x
         elif logits_idx is None:
@@ -256,7 +274,29 @@ class LLM(nn.Module):
                                         transpose_b=True)
         if logits is not None:
             return logits
-        return sel @ self.tkn_emb.weight.to(dt).t()
+        return self._head(sel)
+
+    def _embed(self, idx: torch.Tensor, dt) -> torch.Tensor:
+        """Token embeddings; vocab-parallel: this rank's rows looked up,
+        the others' zero, summed over 'model'."""
+        w = self.tkn_emb.weight.to(dt)
+        if not self.vocab_cut:
+            return F.embedding(idx, w)
+        Vl = w.shape[0]
+        local = idx - self.tp[0] * Vl
+        inside = (local >= 0) & (local < Vl)
+        x = F.embedding(torch.where(inside, local, torch.zeros_like(local)),
+                        w)
+        return context.reduce_from_model(
+            torch.where(inside[..., None], x, torch.zeros((), dtype=dt,
+                                                          device=x.device)))
+
+    def _head(self, sel: torch.Tensor) -> torch.Tensor:
+        """Logits of the tied head; vocab-parallel: gathered over
+        'model'."""
+        logits = sel @ self.tkn_emb.weight.to(self.dtype).t()
+        return context.gather_from_model(logits) if self.vocab_cut \
+            else logits
 
     def moe_layers(self) -> list:
         """The MoE layers, in block order (empty for dense models)."""
@@ -273,6 +313,18 @@ class LLM(nn.Module):
         through `config.loss_impl`."""
         cfg = self.config
         emb = self.tkn_emb.weight.to(self.dtype)
+        if self.tp[1] > 1:
+            if cfg.loss_impl == "pallas":
+                # the reference's gate: no pallas loss under tp
+                fused_ce.DEGRADED["vocab_parallel"] += 1
+            if self.vocab_cut:
+                return vocab_parallel_cross_entropy(
+                    x, emb, targets, self.tp[0] * emb.shape[0],
+                    chunk=x.shape[1] if cfg.loss_impl == "unchunked"
+                    else cfg.loss_chunk)
+            if cfg.loss_impl == "unchunked":
+                return unchunked_cross_entropy(x, emb, targets)
+            return fused_cross_entropy(x, emb, targets, chunk=cfg.loss_chunk)
         if cfg.loss_impl == "pallas":
             # the reference's gate (models/gpt.py:218-236): shapes the
             # kernels tile, else degrade to the chunked path. CUDA tensors

@@ -54,6 +54,17 @@ Counterpart of the reference package's `models/mlp.py`:
   position p of expert e sits at p + (rank r's offset of e, the counts of
   the ranks before it). `_expert_constraint` (a mesh constraint of the
   'ep' recipe) comes with slice 6.
+* Tensor parallelism (parallel/tensor.py sets `tp` = (rank, tp) and cuts
+  the weights): `c_fc` / `experts_fc` are column-parallel in the per-rank
+  [gate_r | up_r] layout and `c_proj` / `experts_proj` row-parallel, so a
+  rank runs the MLP, and the grouped kernels, on its up_dim / tp local
+  widths; the input enters through `copy_to_model` and the ranks' partial
+  outputs are summed by `reduce_from_model`. The router `gate` and
+  `expert_bias` stay whole: every model rank routes its (identical) tokens
+  alike, and the gates enter the rank-local expert products through
+  `copy_to_model`, so the router's gradient is the sum over the ranks'
+  pieces. The routing statistics reduce over the 'data' group only: the
+  model ranks of one data rank see the same tokens.
 """
 
 from __future__ import annotations
@@ -124,6 +135,8 @@ def mlp_apply(x: torch.Tensor, w_fc: torch.Tensor, w_proj: torch.Tensor,
 class MLP(nn.Module):
     """Dense feed-forward block; weights in the model's compute dtype."""
 
+    tp = (0, 1)
+
     def __init__(self, config: LLMConfig, *, device=None, dtype=None):
         super().__init__()
         C, up = config.n_embd, config.up_dim
@@ -137,9 +150,10 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, dropout_seed=None) -> torch.Tensor:
         name = getattr(self, "qname", None)
-        y = mlp_apply(x, self.c_fc.to(x.dtype), self.c_proj.to(x.dtype),
-                      self.non_linearity,
+        y = mlp_apply(context.copy_to_model(x), self.c_fc.to(x.dtype),
+                      self.c_proj.to(x.dtype), self.non_linearity,
                       name and (name + ".c_fc", name + ".c_proj"))
+        y = context.reduce_from_model(y)
         if self.training and self.dropout > 0.0:
             y = dropout(y, self.dropout, dropout_seed)
         return y
@@ -191,6 +205,8 @@ class MoE(nn.Module):
     aux_loss). Expert e's weights are slice [e] of the stacks; the first
     n_shared are the shared experts."""
 
+    tp = (0, 1)
+
     def __init__(self, config: LLMConfig, *, device=None, dtype=None):
         super().__init__()
         cfg = config
@@ -232,10 +248,13 @@ class MoE(nn.Module):
         n_tokens = x_flat.shape[0]
         fc = self.experts_fc.to(dt)
         proj = self.experts_proj.to(dt)
+        # the experts' input: its gradient summed over the model ranks
+        x_exp = context.copy_to_model(x_flat)
 
         use_grouped = False
         if cfg.moe_impl == "grouped":
-            use_grouped = gm.grouped_usable(cfg, dt, x.device)
+            use_grouped = gm.grouped_usable(cfg, dt, x.device,
+                                            tp=self.tp[1])
             if not use_grouped:
                 gm.DEGRADED["dense"] += 1
                 if not self.warned_dense:
@@ -251,7 +270,7 @@ class MoE(nn.Module):
         # in its kernels as always-on groups
         shared_out = None
         if n_shared > 0 and not use_grouped:
-            shared_out = mlp_apply(x_flat, fc[:n_shared], proj[:n_shared],
+            shared_out = mlp_apply(x_exp, fc[:n_shared], proj[:n_shared],
                                    cfg.non_linearity).sum(dim=0)
 
         # router in fp32 (reference :299-329)
@@ -263,6 +282,9 @@ class MoE(nn.Module):
         else:
             topk_vals, topk_idx = logits.topk(k, dim=1)
             topk_gates = torch.softmax(topk_vals, dim=1)
+        # the rank-local expert products' gates: their gradient summed over
+        # the model ranks
+        topk_gates = context.copy_to_model(topk_gates)
         one_hot = F.one_hot(topk_idx, n_routed).float()
         load = one_hot.sum(dim=(0, 1)).detach()             # per expert
         # the global batch's counts under a data-parallel recipe
@@ -284,20 +306,20 @@ class MoE(nn.Module):
                 cfg.capacity_factor * n_glob * k / n_routed))
             capacity = -(-capacity // W) * W
             routed_out = scatter_dispatch(
-                x_flat, topk_idx, topk_gates, fc[n_shared:], proj[n_shared:],
+                x_exp, topk_idx, topk_gates, fc[n_shared:], proj[n_shared:],
                 non_linearity=cfg.non_linearity, capacity=capacity,
                 offset=offset)
             dropped_frac = (load - capacity).clamp_min(0).sum() \
                 / float(n_glob * k)
         elif use_grouped:
             routed_out = gm.grouped_dispatch(
-                x_flat, topk_idx, topk_gates, fc, proj,
+                x_exp, topk_idx, topk_gates, fc, proj,
                 act=functools.partial(activate,
                                       non_linearity=cfg.non_linearity),
                 n_shared=n_shared)
         else:
             combine = (one_hot * topk_gates[..., None]).sum(dim=1)  # (N, E)
-            all_routed = mlp_apply(x_flat, fc[n_shared:], proj[n_shared:],
+            all_routed = mlp_apply(x_exp, fc[n_shared:], proj[n_shared:],
                                    cfg.non_linearity)       # (E, N, C)
             routed_out = torch.einsum("enc,ne->nc", all_routed,
                                       combine.to(dt))
@@ -309,4 +331,5 @@ class MoE(nn.Module):
             self.pending_state = (bias, dropped_frac.detach())
 
         y = routed_out if shared_out is None else shared_out + routed_out
+        y = context.reduce_from_model(y)
         return y.reshape(B, T, C), aux_loss.float()

@@ -59,12 +59,13 @@ LATER_IMPLS = {
 
 
 def _naive_sdpa(q, k, v, *, scale, q_offset=0, causal=True,
-                dropout_rate=0.0, dropout_seed=None):
+                dropout_rate=0.0, dropout_seed=None, heads=(0, None)):
     """Reference-semantics einsum attention with a cache-offset causal
     mask: query at global position q_offset + i attends keys j <=
     q_offset + i. `q_offset` may be an int, a 0-d tensor or a
     per-sequence (B,) tensor. Dropout multiplies the normalized weights by
-    the kernels' keep-mask (`flash_attention.keep_mask`)."""
+    the kernels' keep-mask (`flash_attention.keep_mask`) of `heads` =
+    (head offset, total heads)."""
     B, T, nh, hs = q.shape
     S, nkv = k.shape[1], k.shape[2]
     if nkv != nh:
@@ -82,7 +83,7 @@ def _naive_sdpa(q, k, v, *, scale, q_offset=0, causal=True,
     attn = torch.softmax(attn, dim=-1)
     if dropout_rate > 0.0:
         attn = attn * fa.keep_mask(dropout_seed, dropout_rate, B, nh, T, S,
-                                   q.device)
+                                   q.device, *heads)
     return torch.einsum("bnts,bsnh->btnh", attn.to(v.dtype), v)
 
 
@@ -93,7 +94,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          decode: bool = False,
          block_tables: Optional[torch.Tensor] = None,
          k_scale: Optional[torch.Tensor] = None,
-         v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+         v_scale: Optional[torch.Tensor] = None, head_offset: int = 0,
+         total_heads: Optional[int] = None) -> torch.Tensor:
     """Scaled dot-product attention over (B, T, N, H) tensors.
 
     `q_offset` is the global position of q[:, 0]: an int, a 0-d tensor or
@@ -102,7 +104,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (ops/block_pool.py). `k_scale`/`v_scale` (k's shape with a last dim of
     1, fp32) mark k/v as int8 codes (ops/quant.py). `dropout_rate` > 0
     with a (2,) int32 `dropout_seed` drops attention weights (training); a
-    rate > 0 without a seed raises."""
+    rate > 0 without a seed raises. Under tensor parallelism q holds heads
+    `head_offset` .. of the `total_heads` of the whole layer, and the
+    dropout mask is that slice of the whole layer's."""
     if impl in LATER_IMPLS:
         raise NotImplementedError(f"attn_impl={impl!r}: {LATER_IMPLS[impl]}")
     if impl not in ("auto", "pallas", "naive"):
@@ -148,8 +152,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             and isinstance(q_offset, int) and q_offset == 0):
         return fa.flash_attention(q, k, v, scale=scale, causal=causal,
                                   dropout_rate=dropout_rate,
-                                  seed=dropout_seed)
+                                  seed=dropout_seed, head_offset=head_offset,
+                                  total_heads=total_heads)
 
     return _naive_sdpa(q, k, v, scale=scale, q_offset=q_offset,
                        causal=causal, dropout_rate=dropout_rate,
-                       dropout_seed=dropout_seed)
+                       dropout_seed=dropout_seed,
+                       heads=(head_offset, total_heads))

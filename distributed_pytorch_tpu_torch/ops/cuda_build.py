@@ -67,8 +67,8 @@ KERNELS = {
         # bs, n_max, off, scale, stream
         (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
          _P)),
-    # dims (host int[7]) = B, T, S, nh, nkv, causal, dropout; strides (host
-    # int64[8]) = q, k, v, dout (batch, time) element strides
+    # dims (host int[9]) = B, T, S, nh, nkv, causal, dropout, nh_all, h0;
+    # strides (host int64[8]) = q, k, v, dout (batch, time) element strides
     "flash_attn_fwd": (
         "flash_attn_fwd.cu",
         # dtype, built width, head size, q, k, v, out, lse, seed, dims,

@@ -41,7 +41,12 @@ Dropout: `seed` is an explicit (2,) int32 tensor drawn by the caller, and
 the keep-mask of element (row b*nh + h, query position, key position) is
 `dropout_bits(...) >= dropout_threshold(rate)` — the reference's
 `_mix_bits` bit for bit, so both packages draw the same mask from the same
-seed, and the backward regenerates it without storing it. The mask is
+seed, and the backward regenerates it without storing it. A call over a
+slice of the heads (a tensor-parallel rank's nh / tp heads) passes
+`head_offset` (its first head) and `total_heads` (the whole call's nh):
+its row is then b * total_heads + head_offset + h, so it draws the slice
+of the whole call's mask and the mask does not change with the tensor-
+parallel size. The mask is
 keyed on absolute coordinates, so tile sizes do not change it; the
 reference's TPU tile knobs (FLASH_BLOCK_Q/K/H, FLASH_LAYOUT, the VMEM
 budget) have no counterpart.
@@ -144,11 +149,15 @@ def _keep_scale(rate: float) -> float:
 
 
 def keep_mask(seed, rate: float, B: int, nh: int, T: int, S: int,
-              device=None) -> torch.Tensor:
+              device=None, head_offset: int = 0,
+              total_heads=None) -> torch.Tensor:
     """The scaled keep-mask (B, nh, T, S) fp32: 1/(1 - rate) where
-    `dropout_bits` of (b*nh + h, t, s) reaches the threshold, else 0."""
+    `dropout_bits` of (b*total_heads + head_offset + h, t, s) reaches the
+    threshold, else 0 (`total_heads` defaults to nh)."""
     seed = torch.as_tensor(seed, device=device).long()
-    row = torch.arange(B * nh, device=device).reshape(B, nh, 1, 1)
+    row = (torch.arange(B, device=device).reshape(B, 1, 1, 1)
+           * (nh if total_heads is None else total_heads) + head_offset
+           + torch.arange(nh, device=device).reshape(1, nh, 1, 1))
     bits = dropout_bits(seed[0], seed[1], row,
                         torch.arange(T, device=device)[:, None],
                         torch.arange(S, device=device))
@@ -179,14 +188,14 @@ def _group(x, nkv):
     return x.reshape(B, nkv, nh // nkv, T, 1)
 
 
-def _mask_g(seed, rate, q, nkv, S):
+def _mask_g(seed, rate, q, nkv, S, heads):
     B, T, nh, _ = q.shape
-    return keep_mask(seed, rate, B, nh, T, S, q.device) \
+    return keep_mask(seed, rate, B, nh, T, S, q.device, *heads) \
         .reshape(B, nkv, nh // nkv, T, S)
 
 
 def flash_attn_fwd_plain(q, k, v, seed=None, *, scale, causal=True,
-                         dropout_rate=0.0):
+                         dropout_rate=0.0, head_offset=0, total_heads=None):
     """Plain version of `flash_attn_fwd`: (out (B, T, nh, D), lse
     (B, nh, T) fp32)."""
     PLAIN_CALLS["flash_attn_fwd"] += 1
@@ -197,14 +206,16 @@ def flash_attn_fwd_plain(q, k, v, seed=None, *, scale, causal=True,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     if dropout_rate > 0.0:
-        p = p * _mask_g(seed, dropout_rate, q, nkv, k.shape[1])
+        p = p * _mask_g(seed, dropout_rate, q, nkv, k.shape[1],
+                        (head_offset, total_heads))
     pv = torch.einsum("bgrts,bsgd->bgrtd", p.to(v.dtype).float(), v.float())
     out = (pv / l).permute(0, 3, 1, 2, 4).reshape(B, T, nh, D)
     lse = (m + torch.log(l)).reshape(B, nh, T)
     return out.to(q.dtype), lse
 
 
-def _bwd_plain(q, k, v, dout, lse, delta, seed, scale, causal, rate):
+def _bwd_plain(q, k, v, dout, lse, delta, seed, scale, causal, rate,
+               heads):
     """(p * mask, dS) (B, nkv, rep, T, S) fp32, as both backward kernels
     form them."""
     nkv = k.shape[2]
@@ -214,30 +225,32 @@ def _bwd_plain(q, k, v, dout, lse, delta, seed, scale, causal, rate):
     dp = torch.einsum("btgrd,bsgd->bgrts", dog, v.float())
     pm = p
     if rate > 0.0:
-        mask = _mask_g(seed, rate, q, nkv, k.shape[1])
+        mask = _mask_g(seed, rate, q, nkv, k.shape[1], heads)
         pm = p * mask
         dp = dp * mask
     return pm, p * (dp - _group(delta, nkv))
 
 
 def flash_attn_bwd_dq_plain(q, k, v, dout, lse, delta, seed=None, *, scale,
-                            causal=True, dropout_rate=0.0):
+                            causal=True, dropout_rate=0.0, head_offset=0,
+                            total_heads=None):
     """Plain version of `flash_attn_bwd_dq`: dq (B, T, nh, D)."""
     PLAIN_CALLS["flash_attn_bwd_dq"] += 1
     _, ds = _bwd_plain(q, k, v, dout, lse, delta, seed, scale, causal,
-                       dropout_rate)
+                       dropout_rate, (head_offset, total_heads))
     dq = torch.einsum("bgrts,bsgd->btgrd", ds.to(k.dtype).float(),
                       k.float()) * scale
     return dq.reshape(q.shape).to(q.dtype)
 
 
 def flash_attn_bwd_dkv_plain(q, k, v, dout, lse, delta, seed=None, *, scale,
-                             causal=True, dropout_rate=0.0):
+                             causal=True, dropout_rate=0.0, head_offset=0,
+                             total_heads=None):
     """Plain version of `flash_attn_bwd_dkv`: (dk, dv) (B, S, nkv, D), the
     GQA group summed in fp32."""
     PLAIN_CALLS["flash_attn_bwd_dkv"] += 1
     pm, ds = _bwd_plain(q, k, v, dout, lse, delta, seed, scale, causal,
-                        dropout_rate)
+                        dropout_rate, (head_offset, total_heads))
     B, T, nh, D = q.shape
     nkv = k.shape[2]
     qg = q.float().reshape(B, T, nkv, nh // nkv, D)
@@ -281,9 +294,11 @@ def _strided(x: torch.Tensor) -> torch.Tensor:
     return _aligned(x)
 
 
-def _prepare(name, q, k, v, seed, rate, *more):
+def _prepare(name, q, k, v, seed, rate, heads, *more):
     """Check the operands of kernel `name`; returns the strided views, the
-    device seed and the dims array."""
+    device seed and the dims array. `heads` = (head_offset, total_heads):
+    q's heads are heads head_offset .. of a call over total_heads (None:
+    q's own nh)."""
     if not q.is_cuda:
         raise ValueError(f"the CUDA kernels take CUDA tensors, got "
                          f"{q.device}")
@@ -304,8 +319,12 @@ def _prepare(name, q, k, v, seed, rate, *more):
     else:
         seed = None
     B, T, nh, _ = q.shape
-    dims = (ctypes.c_int * 7)(B, T, k.shape[1], nh, k.shape[2], 0, int(
-        rate > 0.0))
+    h0, n_all = heads[0], nh if heads[1] is None else heads[1]
+    if not 0 <= h0 <= n_all - nh:
+        raise ValueError(f"{name}: heads {h0} .. {h0 + nh - 1} are not "
+                         f"heads of a call over {n_all}")
+    dims = (ctypes.c_int * 9)(B, T, k.shape[1], nh, k.shape[2], 0, int(
+        rate > 0.0), n_all, h0)
     return _strided(q), _strided(k), _strided(v), seed, dims
 
 
@@ -329,14 +348,18 @@ def _launch(name, fn_args, q, dims, strides, seed, scale, causal, rate):
 
 
 def flash_attn_fwd(q, k, v, seed=None, *, scale, causal=True,
-                   dropout_rate=0.0):
+                   dropout_rate=0.0, head_offset=0, total_heads=None):
     """Attention forward: (out (B, T, nh, D) in q's dtype, lse (B, nh, T)
-    fp32). `seed` (2,) int32 feeds the dropout mask (ignored at rate 0)."""
+    fp32). `seed` (2,) int32 feeds the dropout mask (ignored at rate 0);
+    `head_offset` / `total_heads` place q's heads in a call over more
+    (module docstring)."""
     if q.device.type == "cpu":
         return flash_attn_fwd_plain(q, k, v, seed, scale=scale,
-                                    causal=causal, dropout_rate=dropout_rate)
+                                    causal=causal, dropout_rate=dropout_rate,
+                                    head_offset=head_offset,
+                                    total_heads=total_heads)
     q, k, v, seed, dims = _prepare("flash_attn_fwd", q, k, v, seed,
-                                   dropout_rate)
+                                   dropout_rate, (head_offset, total_heads))
     B, T, nh, D = q.shape
     out = torch.empty(B, T, nh, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, nh, T, dtype=torch.float32, device=q.device)
@@ -349,9 +372,9 @@ def flash_attn_fwd(q, k, v, seed=None, *, scale, causal=True,
     return out, lse
 
 
-def _bwd_operands(name, q, k, v, dout, lse, delta, seed, rate):
-    q, k, v, seed, dims = _prepare(name, q, k, v, seed, rate, dout, lse,
-                                   delta)
+def _bwd_operands(name, q, k, v, dout, lse, delta, seed, rate, heads):
+    q, k, v, seed, dims = _prepare(name, q, k, v, seed, rate, heads, dout,
+                                   lse, delta)
     B, T, nh, _ = q.shape
     if dout.shape != q.shape or lse.shape != (B, nh, T) \
             or delta.shape != (B, nh, T):
@@ -367,15 +390,19 @@ def _bwd_operands(name, q, k, v, dout, lse, delta, seed, rate):
 
 
 def flash_attn_bwd_dq(q, k, v, dout, lse, delta, seed=None, *, scale,
-                      causal=True, dropout_rate=0.0):
+                      causal=True, dropout_rate=0.0, head_offset=0,
+                      total_heads=None):
     """dq (B, T, nh, D) from the forward's lse and delta = rowsum(dout *
     out) - dlse, both (B, nh, T) fp32."""
     if q.device.type == "cpu":
         return flash_attn_bwd_dq_plain(q, k, v, dout, lse, delta, seed,
                                        scale=scale, causal=causal,
-                                       dropout_rate=dropout_rate)
+                                       dropout_rate=dropout_rate,
+                                       head_offset=head_offset,
+                                       total_heads=total_heads)
     q, k, v, dout, lse, delta, seed, dims, strides = _bwd_operands(
-        "flash_attn_bwd_dq", q, k, v, dout, lse, delta, seed, dropout_rate)
+        "flash_attn_bwd_dq", q, k, v, dout, lse, delta, seed, dropout_rate,
+        (head_offset, total_heads))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("flash_attn_bwd_dq",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -385,14 +412,18 @@ def flash_attn_bwd_dq(q, k, v, dout, lse, delta, seed=None, *, scale,
 
 
 def flash_attn_bwd_dkv(q, k, v, dout, lse, delta, seed=None, *, scale,
-                       causal=True, dropout_rate=0.0):
+                       causal=True, dropout_rate=0.0, head_offset=0,
+                       total_heads=None):
     """(dk, dv) (B, S, nkv, D), each kv head's query group summed."""
     if q.device.type == "cpu":
         return flash_attn_bwd_dkv_plain(q, k, v, dout, lse, delta, seed,
                                         scale=scale, causal=causal,
-                                        dropout_rate=dropout_rate)
+                                        dropout_rate=dropout_rate,
+                                        head_offset=head_offset,
+                                        total_heads=total_heads)
     q, k, v, dout, lse, delta, seed, dims, strides = _bwd_operands(
-        "flash_attn_bwd_dkv", q, k, v, dout, lse, delta, seed, dropout_rate)
+        "flash_attn_bwd_dkv", q, k, v, dout, lse, delta, seed, dropout_rate,
+        (head_offset, total_heads))
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     _launch("flash_attn_bwd_dkv",
@@ -412,11 +443,13 @@ class _FlashAttention(torch.autograd.Function):
     attentions through lse (ring attention) gets the exact gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, scale, causal, rate):
+    def forward(ctx, q, k, v, seed, scale, causal, rate, heads):
         out, lse = flash_attn_fwd(q, k, v, seed, scale=scale, causal=causal,
-                                  dropout_rate=rate)
+                                  dropout_rate=rate, head_offset=heads[0],
+                                  total_heads=heads[1])
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.seed, ctx.scale, ctx.causal, ctx.rate = seed, scale, causal, rate
+        ctx.heads = heads
         return out, lse
 
     @staticmethod
@@ -425,35 +458,42 @@ class _FlashAttention(torch.autograd.Function):
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
         if dlse is not None:
             delta = delta - dlse.float()
-        kw = dict(scale=ctx.scale, causal=ctx.causal, dropout_rate=ctx.rate)
+        kw = dict(scale=ctx.scale, causal=ctx.causal, dropout_rate=ctx.rate,
+                  head_offset=ctx.heads[0], total_heads=ctx.heads[1])
         dq = flash_attn_bwd_dq(q, k, v, dout, lse, delta, ctx.seed, **kw)
         dk, dv = flash_attn_bwd_dkv(q, k, v, dout, lse, delta, ctx.seed, **kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_lse(q, k, v, *, scale: float, causal: bool = True,
-                        dropout_rate: float = 0.0, seed=None):
+                        dropout_rate: float = 0.0, seed=None,
+                        head_offset: int = 0, total_heads=None):
     """Flash attention returning (out (B, T, nh, D), lse (B, T, nh) fp32);
     both outputs are differentiable. `causal=False` is full attention.
     `dropout_rate` > 0 drops attention weights inside the kernels with the
-    mask of `seed` (a (2,) int32 tensor); lse is the true logsumexp of the
-    undropped scores."""
+    mask of `seed` (a (2,) int32 tensor), q's heads being heads
+    `head_offset` .. of a call over `total_heads` (default: q's own); lse
+    is the true logsumexp of the undropped scores."""
     rate = float(dropout_rate)
     if rate > 0.0 and seed is None:
         raise ValueError("dropout_rate > 0 needs a (2,) int32 seed")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
     out, lse = _FlashAttention.apply(q, k, v, seed, float(scale),
-                                     bool(causal), rate)
+                                     bool(causal), rate,
+                                     (int(head_offset), total_heads))
     return out, lse.transpose(1, 2)
 
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
-                    q_offset=0, dropout_rate: float = 0.0, seed=None):
+                    q_offset=0, dropout_rate: float = 0.0, seed=None,
+                    head_offset: int = 0, total_heads=None):
     """Flash attention over BTNH tensors; `q_offset` must be a static 0
     (cached offsets take the decode kernels or the naive path)."""
     if not (isinstance(q_offset, int) and q_offset == 0):
         raise ValueError("the flash kernels take a static q_offset == 0")
     out, _ = flash_attention_lse(q, k, v, scale=scale, causal=causal,
-                                 dropout_rate=dropout_rate, seed=seed)
+                                 dropout_rate=dropout_rate, seed=seed,
+                                 head_offset=head_offset,
+                                 total_heads=total_heads)
     return out

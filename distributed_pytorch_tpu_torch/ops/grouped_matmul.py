@@ -440,15 +440,16 @@ def _pack_rows(flat_e, flat_t, n_groups: int, bm: int):
     return pack(order, slot, flat_t, P), counts, pstart, tile_group
 
 
-def grouped_usable(cfg, dtype, device) -> bool:
+def grouped_usable(cfg, dtype, device, tp: int = 1) -> bool:
     """Static gate for the grouped path. False -> callers fall back to the
     'dense' combine (identical dropless semantics, E/k x the FLOPs), as the
     reference does. Widths must be multiples of 8 (the reference's non-TPU
-    rule, and the 16-byte vectors the kernels copy); on the card the dtype
-    must be fp32 or bf16."""
-    fc_out = 2 * cfg.up_dim \
-        if cfg.non_linearity.lower() in ("swiglu", "glu") else cfg.up_dim
-    if any(d % ALIGN for d in (cfg.n_embd, cfg.up_dim, fc_out)):
+    rule, and the 16-byte vectors the kernels copy) — under a 'model' axis
+    of tp the rank's local widths up_dim / tp; on the card the dtype must
+    be fp32 or bf16."""
+    up = cfg.up_dim // tp
+    fc_out = 2 * up if cfg.non_linearity.lower() in ("swiglu", "glu") else up
+    if any(d % ALIGN for d in (cfg.n_embd, up, fc_out)):
         return False
     if torch.device(device).type == "cpu":
         return True

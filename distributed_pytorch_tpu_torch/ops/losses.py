@@ -24,11 +24,18 @@ mean's denominator is the global batch's valid count over W
 mean, to the global mean over valid targets even where the ranks hold
 different numbers of ignored targets (the reference's `mask.sum()` over
 the global batch, fused_ce.py:336).
+
+Under tensor parallelism the tied embedding is vocab-parallel (parallel/
+tensor.py) and `vocab_parallel_cross_entropy` computes the loss from the
+local vocabulary rows with three all-reduces over 'model' per chunk (the
+max, the sum of exponentials, the target's logit); its backward sums dx
+over 'model' and keeps dW local.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from distributed_pytorch_tpu_torch.parallel import context
@@ -149,4 +156,96 @@ def fused_cross_entropy(x: torch.Tensor, embedding: torch.Tensor,
                                        ignore_index=ignore_index)
     total, count = _nll_sum_chunked(x, embedding, targets, ignore_index,
                                     chunk)
+    return total / mean_denominator(count)
+
+
+# ---------------------------------------------------------------------------
+# vocab-parallel cross-entropy (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """(sum of nll over valid targets, valid count) of x (B, T, C) against
+    this model rank's rows v0 .. v0 + Vl of the tied (V, C) embedding,
+    `emb` (Vl, C). Per T-chunk: fp32 logits of the local rows, their max,
+    sum of exponentials and the target's logit (zero where the target
+    lies on another rank) all-reduced over 'model', nll = log(sum) + max -
+    target logit. The per-row logsumexp is kept and the chunk's logits are
+    recomputed in the backward: dlogits = softmax - onehot on the local
+    rows, dx = dlogits @ emb summed over 'model', dW = dlogits^T x of the
+    local rows."""
+
+    @staticmethod
+    def forward(ctx, x, emb, targets, v0, chunk, ignore_index):
+        B, T, C = x.shape
+        Vl = emb.shape[0]
+        mask = targets != ignore_index
+        local = targets - v0
+        inside = mask & (local >= 0) & (local < Vl)
+        safe = torch.where(inside, local, torch.zeros_like(local))
+        lses, total = [], x.new_zeros((), dtype=torch.float32)
+        for c0 in range(0, T, chunk):
+            xc = x[:, c0:c0 + chunk].reshape(-1, C)
+            logits = _mm_f32(xc, emb.t())                   # (n, Vl) fp32
+            m = context.model_all_reduce(logits.amax(dim=-1),
+                                         dist.ReduceOp.MAX)
+            se = context.model_all_reduce(
+                torch.exp(logits - m[:, None]).sum(dim=-1))
+            lse = m + torch.log(se)
+            ins = inside[:, c0:c0 + chunk].reshape(-1)
+            tgt = logits.gather(-1, safe[:, c0:c0 + chunk].reshape(-1, 1))
+            tgt = context.model_all_reduce(
+                torch.where(ins, tgt[:, 0], torch.zeros_like(lse)))
+            nll = lse - tgt
+            total = total + torch.where(
+                mask[:, c0:c0 + chunk].reshape(-1), nll,
+                torch.zeros_like(nll)).sum()
+            lses.append(lse)
+        ctx.save_for_backward(x, emb, mask, inside, safe, torch.cat(lses))
+        ctx.chunk = chunk
+        return total, mask.sum()
+
+    @staticmethod
+    def backward(ctx, g, _):
+        x, emb, mask, inside, safe, lse = ctx.saved_tensors
+        B, T, C = x.shape
+        chunk = ctx.chunk
+        dx = torch.empty(B, T, C, dtype=torch.float32, device=x.device)
+        demb = torch.zeros(emb.shape, dtype=torch.float32, device=x.device)
+        n0 = 0
+        for c0 in range(0, T, chunk):
+            xc = x[:, c0:c0 + chunk].reshape(-1, C)
+            n = xc.shape[0]
+            p = torch.exp(_mm_f32(xc, emb.t()) - lse[n0:n0 + n, None])
+            ins = inside[:, c0:c0 + chunk].reshape(-1, 1)
+            # - onehot of the targets on this rank's rows (no host sync)
+            p.scatter_add_(1, safe[:, c0:c0 + chunk].reshape(-1, 1),
+                           -ins.to(p.dtype))
+            p = p * (mask[:, c0:c0 + chunk].reshape(-1, 1) * g)
+            p = p.to(x.dtype)
+            dx[:, c0:c0 + chunk] = _mm_f32(p, emb).reshape(B, -1, C)
+            demb += _mm_f32(p.t(), xc)
+            n0 += n
+        dx = context.model_all_reduce(dx)
+        return dx.to(x.dtype), demb.to(emb.dtype), None, None, None, None
+
+
+def vocab_parallel_cross_entropy(x: torch.Tensor, embedding: torch.Tensor,
+                                 targets: torch.Tensor, v0: int, *,
+                                 ignore_index: int = -1,
+                                 chunk: int = 0) -> torch.Tensor:
+    """Mean weight-tied CE over valid targets with the vocabulary cut over
+    'model' (the counterpart of the reference's chunked loss under a
+    vocab-parallel `tkn_emb`, as GSPMD derives it, losses.py:79-120):
+    `embedding` (V / tp, C) holds rows v0 .. of the whole (V, C). `chunk`
+    as `fused_cross_entropy` picks it (0: a divisor of T, or one block).
+    Every model rank returns the same loss; each gets dx whole and the
+    gradient of its own rows."""
+    T = x.shape[1]
+    V = embedding.shape[0] * context.model_size()
+    if chunk <= 0:
+        chunk = _chunk_for(T, V)
+    if chunk <= 0 or T % chunk != 0:
+        chunk = T
+    total, count = _VocabParallelNLL.apply(x, embedding, targets, v0, chunk,
+                                           ignore_index)
     return total / mean_denominator(count)

@@ -3,9 +3,17 @@
 Counterpart of the reference package's `parallel/mesh.py`: `MeshPlan`,
 `resolve_plan` and `rung_down` (mesh.py:41-95) are pure Python and copied
 as they are, so a recipe resolves to the same axis sizes in both packages.
-The reference lays its devices out as a `jax.sharding.Mesh`; here the
-'data' axis is a `torch.distributed` process group of one process per
-card, and `World` describes this process's place in it:
+The reference lays its devices out as a `jax.sharding.Mesh` (`build_mesh`,
+mesh.py:96-106); here the world is a `torch.distributed` process group of
+one process per card, and `World` describes this process's place in it.
+With a 'model' axis (tensor parallelism, `tp` > 1) the ranks form a 2-D
+`DeviceMesh` of ("data", "model") with 'model' innermost, as the
+reference's axis order puts it: global rank = data rank x tp + model
+rank, so the ranks of one model group sit on adjacent cards. The mesh's
+'data' group (the ranks holding the same model pieces) carries the
+data-parallel collectives and its 'model' group (one data rank's tp
+pieces) the tensor-parallel ones; without a 'model' axis the data group
+is the whole world. The world itself is set up so:
 
 * under `torch.distributed.run` the group comes from its environment
   (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`);
@@ -21,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Mapping, Optional
+from typing import Any, Mapping, Optional
 
 import torch
 import torch.distributed as dist
@@ -79,8 +87,12 @@ def rung_down(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class World:
-    """This process's place on the 'data' axis. `backend` is 'nccl',
-    'gloo', or 'none' for the single recipe, which makes no group."""
+    """This process's place in the world. `backend` is 'nccl', 'gloo', or
+    'none' for the single recipe, which makes no group. `tp` ranks form
+    the 'model' axis; with `tp` > 1, `mesh` is the ("data", "model")
+    `DeviceMesh` and `data_group` / `model_group` its two groups of this
+    rank (with `tp` 1 both are None: the data group is the default
+    group)."""
 
     rank: int = 0
     size: int = 1
@@ -88,6 +100,10 @@ class World:
     backend: str = "none"
     device: torch.device = torch.device("cpu")
     owns_group: bool = False
+    tp: int = 1
+    mesh: Any = None
+    data_group: Any = None
+    model_group: Any = None
 
     @property
     def is_main(self) -> bool:
@@ -96,6 +112,19 @@ class World:
     @property
     def distributed(self) -> bool:
         return self.backend != "none"
+
+    @property
+    def dp(self) -> int:
+        """Ranks on the 'data' axis."""
+        return self.size // self.tp
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.tp
 
 
 def torchrun_env(environ: Optional[Mapping[str, str]] = None
@@ -108,10 +137,12 @@ def torchrun_env(environ: Optional[Mapping[str, str]] = None
 
 
 def init_world(recipe: str, platform: str = "auto",
-               dp_size: int = -1) -> World:
+               dp_size: int = -1, tp_size: int = 1) -> World:
     """The world of a training run. 'single' makes no group and refuses a
     torchrun launch of more than one process; the other recipes join (or
-    make) a group, whose size `dp_size` must equal unless it is -1."""
+    make) a group of dp_size x tp_size ranks (`dp_size` -1: the world
+    over tp_size), and with tp_size > 1 lay it out as the ("data",
+    "model") mesh."""
     env = torchrun_env()
     cpu = platform == "cpu"
     if recipe == "single":
@@ -119,7 +150,7 @@ def init_world(recipe: str, platform: str = "auto",
             raise ValueError(
                 f"parallelism='single' trains on one process; "
                 f"WORLD_SIZE={env['WORLD_SIZE']} asks for a data-parallel "
-                "recipe (--parallelism dp|zero1|zero2|fsdp)")
+                "recipe (--parallelism dp|zero1|zero2|fsdp|tp|fsdp_tp)")
         return World(device=resolve_device("cpu" if cpu else None))
     local = int(env["LOCAL_RANK"]) if env else 0
     owns = not dist.is_initialized()
@@ -142,21 +173,35 @@ def init_world(recipe: str, platform: str = "auto",
                 if backend == "nccl" else 0
     rank, size = dist.get_rank(), dist.get_world_size()
     try:
-        if dp_size not in (-1, size):
+        if size % tp_size:
             raise ValueError(
-                f"dp_size={dp_size} but the data-parallel world has {size} "
-                "process(es): launch dp_size processes or pass -1")
+                f"tp_size={tp_size} does not divide the world's {size} "
+                "process(es)")
+        if dp_size not in (-1, size // tp_size):
+            raise ValueError(
+                f"dp_size={dp_size} but the data-parallel world has "
+                f"{size // tp_size} rank(s) ({size} process(es) over "
+                f"tp_size {tp_size}): launch dp_size x tp_size processes "
+                "or pass -1")
         if backend == "nccl":
             torch.cuda.set_device(local)
             device = torch.device("cuda", local)
         else:
             device = torch.device("cpu")
+        mesh = groups = None
+        if tp_size > 1:
+            from torch.distributed.device_mesh import init_device_mesh
+            mesh = init_device_mesh(device.type, (size // tp_size, tp_size),
+                                    mesh_dim_names=("data", "model"))
+            groups = (mesh.get_group("data"), mesh.get_group("model"))
     except BaseException:
         if owns:
             dist.destroy_process_group()
         raise
     return World(rank=rank, size=size, local_rank=local, backend=backend,
-                 device=device, owns_group=owns)
+                 device=device, owns_group=owns, tp=tp_size, mesh=mesh,
+                 data_group=groups and groups[0],
+                 model_group=groups and groups[1])
 
 
 def close_world(world: World) -> None:

@@ -1,5 +1,5 @@
-"""The data-parallel recipes: what each rank holds whole and what it holds
-1/W of.
+"""The parallel recipes: what each rank holds whole, what it holds 1/W of
+over the 'data' axis, and what it holds 1/tp of over the 'model' axis.
 
 Counterpart of the reference package's `parallel/sharding.py`, whose
 PartitionSpec tables (`_PARAM_SHARDED`, `_OPT_SHARDED`, `_GRAD_SHARDED`,
@@ -14,6 +14,25 @@ pick a wrapper that issues them by hand over the 'data' group
 | zero1  | whole  | 1/W     | whole      | `ZeroOptimizer`, all-reduce |
 | zero2  | whole  | 1/W     | 1/W        | `ZeroOptimizer`, reduce-scatter |
 | fsdp   | 1/W    | 1/W     | 1/W        | FSDP2, each Block, then the root |
+| tp     | 1/tp   | 1/tp    | 1/tp       | cut layers, DDP on 'data' |
+| fsdp_tp| 1/(tpW)| 1/(tpW) | 1/(tpW)    | cut layers, FSDP2 on 'data' |
+
+With a 'model' axis (`tp_size` > 1) W is the 'data' axis's size: the world
+is dp x tp ranks (parallel/mesh.py), the leftover ranks landing on 'data'
+as the reference's `resolve_plan` puts them. So `tp` is dp x model and
+`fsdp_tp` is fsdp x model, and `dp` / `fsdp` with `tp_size` > 1 mean the
+same two recipes. The tensor-parallel table (`_TP_RULES`, the reference's
+sharding.py:44-71 in the port's names) picks each parameter's 'model'
+axis: column-parallel outputs (the fused qkv and its bias, the MLP's up
+projection, MLA's per-head up-projections, the experts' up projections),
+row-parallel inputs (the attention and MLP output projections, MLA's W_o,
+the experts' down projections) and the vocab-parallel tied embedding;
+every other parameter (LayerNorms, the row-parallel biases, MLA's
+down-projections and shared rotary key, the router) is whole on every
+model rank. `spec_for_param` gives the axis; parallel/tensor.py cuts the
+model into each rank's pieces (per-rank layouts of the fused tensors) and
+the layers issue the 'model' collectives. Under zero1 / zero2 a 'model'
+axis is refused (ROADMAP, Queue 1 item 6).
 
 * `dp`: `broadcast_buffers=False`, since the MoE's `expert_bias` is kept
   equal on every rank by its global statistics (models/mlp.py) and must
@@ -36,12 +55,21 @@ pick a wrapper that issues them by hand over the 'data' group
   its forward and again before its backward (custom autograd Functions
   that saved them read the gathered storage), and reduce-scatters its
   gradients after every micro-step's backward.
+* `tp` / `fsdp_tp`: the model is cut (parallel/tensor.py `shard_model`)
+  before the data-parallel wrapper sees it, so DDP and FSDP2 run over the
+  mesh's 'data' group on plain tensors that are already this rank's
+  pieces: FSDP2 shards each piece dim 0 over 'data' (the 2-D recipe with
+  the 'model' cut done by the layers rather than by DTensor), and the
+  kernels always receive plain tensors.
 * Adafactor factors its second moments over whole tensors, so it runs
   under `single` and `dp` and raises under the sharded recipes.
 
-Every recipe steps a rank's data rows only (data/loader.py); the gradient
-is the mean over the global batch, as the reference's. Checkpoints hold
-whole tensors whatever the recipe (`full_state_dicts`,
+Every recipe steps a rank's data rows only (data/loader.py; the model
+ranks of one data rank take the same rows); the gradient is the mean over
+the global batch, as the reference's. The gradient norm sums the squares
+of the cut pieces over 'model' and counts a whole gradient once
+(train/state.py `global_norm`). Checkpoints hold whole tensors in the
+reference's layout whatever the recipe (`full_state_dicts`,
 `load_full_state`).
 """
 
@@ -64,29 +92,88 @@ OPT_SHARDED = ("zero1", "zero2") + PARAM_SHARDED
 # up).
 GRAD_SHARDED = ("zero2",) + PARAM_SHARDED
 # The recipes the port trains.
-PORTED = ("single", "dp", "zero1", "zero2", "fsdp")
+PORTED = ("single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp")
 # What the rest of slice 6 brings (ROADMAP, Queue 1 item 6).
-SLICE6_LEFT = ("tp and fsdp_tp with the tensor-parallel table, ep, sp with "
-               "ring attention and the sequence-parallel loss, pp, offload, "
-               "the collective-matmul overlap, and Adafactor under the "
-               "sharded recipes")
+SLICE6_LEFT = ("ep, sp with ring attention and the sequence-parallel loss, "
+               "pp, offload, the collective-matmul overlap, a 'model' axis "
+               "under zero1 / zero2, and Adafactor under the sharded "
+               "recipes (ROADMAP, Queue 1 item 6)")
+
+# Tensor-parallel table, the reference's `_TP_RULES` (sharding.py:44-71) in
+# the port's names: (suffix of the dotted name) -> the axis cut over
+# 'model'. nn.Linear stores (out, in), so its weights' axes are the
+# reference kernels' transposed; bare parameters keep (in, out).
+_TP_RULES: tuple[tuple[tuple[str, ...], int], ...] = (
+    (("tkn_emb", "weight"), 0),      # vocab-parallel tied embedding / head
+    (("c_attn", "weight"), 0),       # qkv: the reference's kernel axis 1
+    (("c_attn", "bias"), 0),
+    (("c_proj", "weight"), 1),       # attention out: kernel axis 0
+    (("c_fc",), 1),                  # mlp up (bare (in, out))
+    (("c_proj",), 0),                # mlp down (bare (in, out))
+    (("W_uq",), 1),                  # MLA: per-head dims are outputs
+    (("W_uk",), 1),
+    (("W_uv",), 1),
+    (("W_qr",), 1),
+    (("W_o",), 0),
+    (("experts_fc",), 2),
+    (("experts_proj",), 1),
+)
+
+
+def tp_axis(name: str) -> Optional[int]:
+    """The axis `_TP_RULES` cuts over 'model' for the parameter `name`
+    (a dotted state-dict key), or None: whole on every model rank."""
+    names = tuple(name.split("."))
+    for suffix, axis in _TP_RULES:
+        if names[-len(suffix):] == suffix:
+            return axis
+    return None
+
+
+def spec_for_param(name: str, shape: tuple, tp: int) -> tuple:
+    """The parameter's placement over the 'model' axis, one entry per dim:
+    'model' where it is cut, None where whole (the counterpart of the
+    reference's `spec_for_param`'s 'model' entries). As there, an axis is
+    cut only where tp divides it."""
+    axes = [None] * len(shape)
+    ax = tp_axis(name)
+    if tp > 1 and ax is not None and ax < len(shape) \
+            and shape[ax] % tp == 0:
+        axes[ax] = "model"
+    return tuple(axes)
 
 
 def holds(recipe: str) -> dict[str, bool]:
-    """Which tensor classes the recipe holds 1/W of on each rank."""
+    """Which tensor classes the recipe holds 1/W of over 'data' on each
+    rank (the 'model' cut, 1/tp of the cut parameters and of their
+    moments and gradients, comes on top under tp_size > 1)."""
     return {"params": recipe in PARAM_SHARDED,
             "moments": recipe in OPT_SHARDED,
             "grads": recipe in GRAD_SHARDED}
 
 
-def check_recipe(recipe: str, optimizer: str) -> None:
-    """Refuse a recipe the port does not train, or Adafactor (whole-tensor
-    row and column statistics) under a recipe that shards the moments."""
+def tp_recipe(recipe: str, tp_size: int) -> str:
+    """The recipe a 'model' axis of `tp_size` makes of `recipe`: dp ->
+    tp, fsdp -> fsdp_tp (the same two things, as in the reference)."""
+    if tp_size > 1:
+        return {"dp": "tp", "fsdp": "fsdp_tp"}.get(recipe, recipe)
+    return recipe
+
+
+def check_recipe(recipe: str, optimizer: str, tp_size: int = 1) -> None:
+    """Refuse a recipe the port does not train, a 'model' axis where the
+    port does not run one, or Adafactor (whole-tensor row and column
+    statistics) under a recipe that shards the moments or a 'model'
+    axis."""
     if recipe not in PORTED:
         raise NotImplementedError(
             f"parallelism={recipe!r} comes with the rest of slice 6: "
             f"{SLICE6_LEFT}")
-    if optimizer == "adafactor" and recipe in OPT_SHARDED:
+    if tp_size > 1 and recipe in ("zero1", "zero2"):
+        raise NotImplementedError(
+            f"tp_size={tp_size} under parallelism={recipe!r} comes with "
+            f"the rest of slice 6: {SLICE6_LEFT}")
+    if optimizer == "adafactor" and (recipe in OPT_SHARDED or tp_size > 1):
         raise NotImplementedError(
             f"optimizer='adafactor' under parallelism={recipe!r}: Adafactor "
             "factors its moments over whole tensors; under a sharded recipe "
@@ -109,9 +196,10 @@ def _pad(t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _piece(n: int, world: World) -> tuple[int, int, int]:
-    """(lo, hi, chunk) of this rank's piece of n flattened elements."""
-    c = -(-n // world.size)
-    lo = min(world.rank * c, n)
+    """(lo, hi, chunk) of this data rank's piece of n flattened
+    elements."""
+    c = -(-n // world.dp)
+    lo = min(world.data_rank * c, n)
     return lo, min(lo + c, n), c
 
 
@@ -149,6 +237,11 @@ class Recipe:
         self.optimizer = optimizer
         self.world = world
         self.module = model
+        # which of params() the 'model' axis cuts (their norms sum over it)
+        cuts = getattr(model, "tp_cuts", {})
+        names = {p: n for n, p in model.named_parameters()}
+        self.cut = [names.get(p) in cuts for p in self.params()] \
+            if cuts else None
 
     def params(self) -> list:
         return [p for g in self.optimizer.param_groups for p in g["params"]]
@@ -163,7 +256,7 @@ class Recipe:
         return [_local(p.grad) for p in self.params()]
 
     def grad_norm(self, grads: list) -> torch.Tensor:
-        return global_norm(grads, sharded=self.sharded_grads)
+        return global_norm(grads, sharded=self.sharded_grads, cut=self.cut)
 
     def zero_grad(self) -> None:
         for p in self.params():
@@ -193,7 +286,8 @@ class DDPRecipe(Recipe):
         from torch.nn.parallel import DistributedDataParallel
         ids = [world.device.index] if world.device.type == "cuda" else None
         self.module = DistributedDataParallel(
-            model, device_ids=ids, broadcast_buffers=False)
+            model, device_ids=ids, broadcast_buffers=False,
+            process_group=world.data_group)
 
     def micro_step(self, last: bool):
         return contextlib.nullcontext() if last else self.module.no_sync()
@@ -338,8 +432,9 @@ class FSDPRecipe(Recipe):
         from torch.distributed.device_mesh import init_device_mesh
         from torch.distributed.fsdp import fully_shard
         names = {p: n for n, p in model.named_parameters()}
-        mesh = init_device_mesh(world.device.type, (world.size,),
-                                mesh_dim_names=("data",))
+        mesh = world.mesh["data"] if world.mesh is not None else \
+            init_device_mesh(world.device.type, (world.size,),
+                             mesh_dim_names=("data",))
         for blk in model.blocks:
             fully_shard(blk, mesh=mesh)
         fully_shard(model, mesh=mesh)
@@ -351,22 +446,28 @@ class FSDPRecipe(Recipe):
         super().__init__(model, optimizer, world)
 
 
-def _broadcast_params(model) -> None:
-    """Rank 0's parameters and buffers on every rank."""
+def _broadcast_params(model, world: World) -> None:
+    """Data rank 0's parameters and buffers on every rank of its data
+    group (the model ranks hold different pieces)."""
+    g = world.data_group
+    src = 0 if g is None else dist.get_global_rank(g, 0)
     for t in list(model.parameters()) + list(model.buffers()):
-        dist.broadcast(t.data, src=0)
+        dist.broadcast(t.data, src=src, group=g)
 
 
 def wrap(model, optimizer, recipe: str, world: Optional[World]) -> Recipe:
-    """Apply `recipe`'s rules to a freshly built model and its optimizer
-    (every rank builds the same ones); returns the `Recipe` the train step
-    drives. The model is rank 0's afterwards on every rank."""
-    check_recipe(recipe, type(optimizer).__name__.lower())
+    """Apply `recipe`'s rules to a freshly built model (cut into this
+    rank's pieces under a 'model' axis, parallel/tensor.py) and its
+    optimizer (every rank builds the same ones); returns the `Recipe` the
+    train step drives. The model is data rank 0's afterwards on every
+    rank."""
+    check_recipe(recipe, type(optimizer).__name__.lower(),
+                 world.tp if world is not None else 1)
     if recipe == "single":
         return Recipe(model, optimizer, world)
-    if recipe == "dp":
+    if recipe in ("dp", "tp"):
         return DDPRecipe(model, optimizer, world)
-    _broadcast_params(model)
+    _broadcast_params(model, world)
     if recipe in ("zero1", "zero2"):
         return ZeroRecipe(model, optimizer, world, int(recipe[-1]))
     return FSDPRecipe(model, optimizer, world)
@@ -381,19 +482,41 @@ def _full(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+def _tp_whole(name: str, v: torch.Tensor, model) -> torch.Tensor:
+    """`v`, this model rank's piece of the parameter `name` (or a tensor of
+    its shape), whole again from every model rank's (a collective over
+    'model'); anything the 'model' axis does not cut as it is."""
+    cut = getattr(model, "tp_cuts", {}).get(name)
+    if cut is None:
+        return v
+    from distributed_pytorch_tpu_torch.parallel import context, tensor
+    return tensor.join(context.model_all_gather(v), cut)
+
+
+def _opt_names(model, optimizer) -> list:
+    """The parameter name of each optimizer state index."""
+    names = {p: n for n, p in model.named_parameters()}
+    return [names[p] for g in optimizer.param_groups for p in g["params"]]
+
+
 def full_model_state_dict(model) -> dict:
-    """The model's state dict of whole tensors (a collective under
-    'fsdp')."""
-    return {k: _full(v) for k, v in model.state_dict().items()}
+    """The model's state dict of whole tensors in the reference's layout
+    (a collective under 'fsdp' and under a 'model' axis)."""
+    return {k: _tp_whole(k, _full(v), model)
+            for k, v in model.state_dict().items()}
 
 
 def full_state_dicts(model, optimizer) -> tuple[dict, dict]:
     """(model, optimizer) state dicts of whole tensors in the single
-    recipe's layout. A collective under the sharded recipes: every rank
-    calls it."""
+    recipe's layout. A collective under the sharded recipes and under a
+    'model' axis: every rank calls it."""
     model_sd = full_model_state_dict(model)
     sd = optimizer.state_dict()
-    opt_sd = {"state": {i: {k: _full(v) for k, v in st.items()}
+    names = _opt_names(model, optimizer) \
+        if getattr(model, "tp_cuts", None) else None
+    opt_sd = {"state": {i: {k: _tp_whole(names[i], _full(v), model)
+                            if names and torch.is_tensor(v) and v.dim() > 0
+                            else _full(v) for k, v in st.items()}
                         for i, st in sd["state"].items()},
               "param_groups": sd["param_groups"]}
     return model_sd, opt_sd
@@ -414,7 +537,21 @@ def _shard_like(v: torch.Tensor, ref: torch.Tensor, world: World):
 def load_full_state(model, optimizer, model_sd: dict, opt_sd: dict,
                     world: Optional[World] = None) -> None:
     """Load whole-tensor state dicts (`full_state_dicts`' or the single
-    recipe's) under any recipe."""
+    recipe's) under any recipe: under a 'model' axis each rank first takes
+    its pieces (parallel/tensor.py `split`)."""
+    cuts = getattr(model, "tp_cuts", None)
+    if cuts:
+        from distributed_pytorch_tpu_torch.parallel import tensor
+        rank, tp = model.tp
+        model_sd = {k: tensor.split(v, cuts[k], rank, tp) if k in cuts
+                    else v for k, v in model_sd.items()}
+        names = _opt_names(model, optimizer)
+        opt_sd = {"state": {
+            i: {k: tensor.split(v, cuts[names[int(i)]], rank, tp)
+                if names[int(i)] in cuts and torch.is_tensor(v)
+                and v.dim() > 0 else v for k, v in st.items()}
+            for i, st in opt_sd["state"].items()},
+            "param_groups": opt_sd["param_groups"]}
     params = dict(model.named_parameters())
     if world is not None and world.distributed:
         model_sd = {k: _shard_like(v, params[k], world) if k in params

@@ -1,8 +1,9 @@
-"""The training loop, on one card or over a data-parallel world.
+"""The training loop, on one card or over a parallel world.
 
 Counterpart of the reference package's `train/loop.py` (`_data_paths`
 :147-180, `_agree_stop` :221-235, `estimate_loss` :290-306, `train`
-:309-832) for the 'single', 'dp', 'zero1', 'zero2' and 'fsdp' recipes.
+:309-832) for the 'single', 'dp', 'zero1', 'zero2', 'fsdp', 'tp' and
+'fsdp_tp' recipes.
 Per optimizer step one `train_step` call runs the micro-batch
 accumulation, clip and AdamW update (train/step.py) while the host
 prefetches the next batch; the host syncs on the step metrics only at
@@ -15,11 +16,19 @@ Data parallelism (parallel/): `train` joins or makes the process group
 `cuda:LOCAL_RANK` or gloo with `platform='cpu'`, a group of one rank
 without torchrun), publishes it for the run (parallel/context.py) and
 tears it down at the end, also when the run raises. `--batch_size` is
-per rank: grad_accum = total_batch_size / (B W T), as the reference's
-(:346-351), and rank r reads its rows of each global batch
-(data/loader.py). The log and stats.json come from rank 0; the logged
-loss and the eval means are all-reduced; checkpoints are whole tensors
-written by rank 0 (train/checkpoint.py). Launch with
+per data rank: grad_accum = total_batch_size / (B W T) with W the 'data'
+axis's size, as the reference's (:346-351), and data rank r reads its rows
+of each global batch (data/loader.py).
+
+Tensor parallelism (`--parallelism tp|fsdp_tp --tp_size N`, or dp / fsdp
+with `--tp_size N`, the same two recipes): the world is W x N ranks, the
+model groups of N adjacent ranks (parallel/mesh.py), every rank of one
+model group reading the same rows; the model is cut into each rank's
+pieces (parallel/tensor.py) and the log names `tp=`.
+
+The log and stats.json come from rank 0; the logged loss and the eval
+means are all-reduced; checkpoints are whole tensors written by rank 0
+(train/checkpoint.py). Launch with
 
     python -m torch.distributed.run --nproc_per_node N \
         -m distributed_pytorch_tpu_torch --parallelism fsdp ...
@@ -46,8 +55,9 @@ training forward reaches the flash kernels at head size hs +
 rope_head_dim.
 
 Not here yet, and refused where a config asks for them: the rest of slice
-6 (parallel/sharding.py `SLICE6_LEFT`: tp, fsdp_tp, ep, sp, pp, offload,
-the collective-matmul overlap, Adafactor under a sharded recipe); the
+6 (parallel/sharding.py `SLICE6_LEFT`: ep, sp, pp, offload, the
+collective-matmul overlap, a 'model' axis under zero1 / zero2, Adafactor
+under a sharded recipe); the
 profiler and the live metrics endpoint (slice 7). The reference's
 telemetry flight recorder, memory planner, AOT program store and
 multi-host bring-up also come with slices 6-7; `telemetry` is accepted
@@ -72,7 +82,6 @@ from distributed_pytorch_tpu_torch import config as cfg_mod
 from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
 from distributed_pytorch_tpu_torch.data.loader import (DataLoader,
                                                        make_synthetic_bin)
-from distributed_pytorch_tpu_torch.models.gpt import count_params
 from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
 from distributed_pytorch_tpu_torch.ops.attention_core import LATER_IMPLS
 from distributed_pytorch_tpu_torch.parallel import context
@@ -91,17 +100,21 @@ def check_slice(model_cfg: LLMConfig, train_cfg: TrainConfig) -> None:
     """Refuse, naming the slice that brings it, what the port's training
     slice does not run."""
     later = []
-    if train_cfg.parallelism not in sharding.PORTED:
+    recipe = sharding.tp_recipe(train_cfg.parallelism, train_cfg.tp_size)
+    if recipe not in sharding.PORTED:
         later.append(f"parallelism={train_cfg.parallelism!r}")
-    for axis in ("tp", "ep", "sp", "pp"):
+    for axis in ("ep", "sp", "pp"):
         if getattr(train_cfg, f"{axis}_size") > 1:
             later.append(f"{axis}_size={getattr(train_cfg, axis + '_size')}")
+    if train_cfg.tp_size > 1 and recipe in ("zero1", "zero2"):
+        later.append(f"tp_size={train_cfg.tp_size} under "
+                     f"parallelism={recipe!r}")
     if train_cfg.offload == "on":
         later.append("offload='on'")
     if train_cfg.overlap == "on":
         later.append("overlap='on' (the collective-matmul overlap)")
     if train_cfg.optimizer == "adafactor" \
-            and train_cfg.parallelism in sharding.OPT_SHARDED:
+            and (recipe in sharding.OPT_SHARDED or train_cfg.tp_size > 1):
         later.append(f"optimizer='adafactor' under "
                      f"parallelism={train_cfg.parallelism!r}")
     if later:
@@ -217,8 +230,13 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
     Every rank of a data-parallel run calls it and gets its own stats
     (the same losses); rank 0 logs and writes the files."""
     check_slice(model_cfg, train_cfg)
+    if train_cfg.tp_size > 1 and train_cfg.parallelism == "single":
+        raise ValueError(f"tp_size={train_cfg.tp_size} under "
+                         "parallelism='single': use 'tp' or 'fsdp_tp'")
+    train_cfg = dataclasses.replace(train_cfg, parallelism=sharding.tp_recipe(
+        train_cfg.parallelism, train_cfg.tp_size))
     world = init_world(train_cfg.parallelism, train_cfg.platform,
-                       train_cfg.dp_size)
+                       train_cfg.dp_size, train_cfg.tp_size)
     try:
         with context.use_world(world):
             return _train(model_cfg, train_cfg, world,
@@ -243,10 +261,12 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
     device = world.device
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    W = world.size
-    plan = resolve_plan(train_cfg.parallelism, W, dp_size=train_cfg.dp_size)
-    say(f"device {device} ({name}); recipe={train_cfg.parallelism} "
-        f"world={W} backend={world.backend} data={plan.data}")
+    W = world.dp                                  # ranks on 'data'
+    plan = resolve_plan(train_cfg.parallelism, world.size,
+                        tp_size=world.tp, dp_size=train_cfg.dp_size)
+    say(f"device {device} ({name}); tp={world.tp} "
+        f"recipe={train_cfg.parallelism} world={world.size} "
+        f"backend={world.backend} data={plan.data} model={plan.model}")
 
     # grad accumulation arithmetic (reference loop.py:346-351)
     B, T = train_cfg.batch_size, model_cfg.block_size
@@ -267,7 +287,7 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
 
     def mk(path, seed):
         return DataLoader(path, B, T, grad_accum=grad_accum, seed=seed,
-                          device=device, rank=world.rank, world=W)
+                          device=device, rank=world.data_rank, world=W)
 
     train_loader = mk(train_bin, train_cfg.seed)
     # eval streams of their own: the training batches do not depend on the
@@ -276,7 +296,7 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
     eval_train_loader = mk(train_bin, train_cfg.seed + 2)
 
     state = create_train_state(model_cfg, train_cfg, device, world)
-    total, active = count_params(state.model, model_cfg)
+    total, active = state.param_counts
     say(f"params: {total / 1e6:.2f}M total, {active / 1e6:.2f}M active")
 
     ckpt_root = os.path.join("checkpoints", train_cfg.file_name)
@@ -353,7 +373,8 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
                 t_now = time.perf_counter()
                 dt = (t_now - win_t0) / len(got)
                 win_t0 = t_now
-                mfu = M.mfu(model_cfg, tokens_per_step, T, dt, n_chips=W,
+                mfu = M.mfu(model_cfg, tokens_per_step, T, dt,
+                            n_chips=world.size,
                             device=device)
                 first_window = not stats["train_losses"]
                 for k, g in enumerate(got):
@@ -418,7 +439,7 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
         stats["median_step_time"] = med
         stats["median_tokens_per_sec"] = tokens_per_step / med
         stats["median_mfu"] = M.mfu(model_cfg, tokens_per_step, T, med,
-                                    n_chips=W, device=device)
+                                    n_chips=world.size, device=device)
     stats["params_total"], stats["params_active"] = int(total), int(active)
     if stats.get("moe_dropped_frac"):
         stats["final_moe_dropped_frac"] = stats["moe_dropped_frac"][-1]
@@ -427,7 +448,8 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
     stats["stopped_early"] = stopped_early
     stats["device"] = name
     stats["recipe"] = train_cfg.parallelism
-    stats["world"] = W
+    stats["world"] = world.size
+    stats["tp"] = world.tp
     stats["backend"] = world.backend
     if stats.get("anomalies"):
         stats["n_anomalies"] = len(stats["anomalies"])

@@ -20,10 +20,11 @@ Counterpart of the reference package's `train/state.py`:
 
 The state is mutable: the model's fp32 master weights, the optimizer, the
 iteration count `step` (advances every iteration), `updates` (the
-updates applied; an anomaly-skipped step applies none) and the data-parallel
+updates applied; an anomaly-skipped step applies none) and the parallel
 `recipe` (parallel/sharding.py) that the train step drives. Under `fsdp`
 the model's parameters are DTensor shards; under `zero1` / `zero2` the
-optimizer is the recipe's `ZeroOptimizer`.
+optimizer is the recipe's `ZeroOptimizer`; under a 'model' axis the cut
+parameters are this rank's pieces (parallel/tensor.py).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     updates: int = 0
     recipe: Any = None
+    param_counts: Any = None
 
 
 def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
@@ -222,18 +224,38 @@ def _locals(ts: list) -> list:
     return [t.to_local() if isinstance(t, DTensor) else t for t in ts]
 
 
-def global_norm(grads: list, sharded: bool = False) -> torch.Tensor:
+def global_norm(grads: list, sharded: bool = False,
+                cut=None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient element (fp32). With
-    `sharded`, each rank holds a disjoint piece of the gradients (zero2's
-    pieces, FSDP2's shards) and the squares are summed over the ranks of
-    the ambient world (parallel/context.py)."""
+    `sharded`, each rank holds a disjoint piece of the gradients over the
+    'data' group (zero2's pieces, FSDP2's shards) and the squares are
+    summed over it (parallel/context.py). `cut` (one flag a gradient)
+    marks the gradients a 'model' axis cuts into disjoint pieces: their
+    squares are summed over 'model' too, while a gradient that is whole
+    on every model rank (a LayerNorm's, the router's, a row-parallel
+    bias) is counted once."""
     grads = _locals(grads)
-    if not sharded:
-        return torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+    if not cut or not any(cut):
+        if not sharded:
+            return torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+        from distributed_pytorch_tpu_torch.parallel import context
+        sq = torch.stack(torch._foreach_norm(grads)).square().sum()
+        return context.all_reduce_sum(sq).sqrt()
     from distributed_pytorch_tpu_torch.parallel import context
-    sq = torch.stack(torch._foreach_norm(grads)).square().sum()
-    return context.all_reduce_sum(sq).sqrt()
+
+    def sq_sum(gs):
+        return torch.stack(torch._foreach_norm(gs)).square().sum() if gs \
+            else torch.zeros((), device=grads[0].device)
+
+    s_cut = sq_sum([g for g, c in zip(grads, cut) if c])
+    s_whole = sq_sum([g for g, c in zip(grads, cut) if not c])
+    if sharded:
+        s_cut = context.world_all_reduce_sum(s_cut)
+        s_whole = context.all_reduce_sum(s_whole)
+    else:
+        s_cut = context.model_all_reduce(s_cut)
+    return (s_cut + s_whole).sqrt()
 
 
 def clip_by_global_norm(grads: list, norm: torch.Tensor,
@@ -256,11 +278,14 @@ def build_model(model_cfg: LLMConfig, train_cfg: TrainConfig,
 def create_train_state(model_cfg: LLMConfig, train_cfg: TrainConfig,
                        device=None, world=None, init=None) -> TrainState:
     """A fresh state under `train_cfg.parallelism`: N(0, 0.02) weights
-    drawn from `train_cfg.seed` on the model's device (or the state dict
-    `init`), a new optimizer, and the recipe's wrappers over both
-    (parallel/sharding.py `wrap`; `world` is the run's
-    parallel/mesh.World, None for one process)."""
-    from distributed_pytorch_tpu_torch.parallel import sharding
+    drawn from `train_cfg.seed` on the model's device (or the whole state
+    dict `init`), under a 'model' axis cut into this rank's pieces
+    (parallel/tensor.py `shard_model`), a new optimizer, and the recipe's
+    wrappers over both (parallel/sharding.py `wrap`; `world` is the run's
+    parallel/mesh.World, None for one process). `param_counts` holds the
+    whole model's (total, active) counts."""
+    from distributed_pytorch_tpu_torch.models.gpt import count_params
+    from distributed_pytorch_tpu_torch.parallel import sharding, tensor
     model = build_model(model_cfg, train_cfg, device)
     if init is None:
         g = torch.Generator(device=model.device)
@@ -268,7 +293,11 @@ def create_train_state(model_cfg: LLMConfig, train_cfg: TrainConfig,
         model.init_weights(g)
     else:
         model.load_state_dict(init)
+    counts = count_params(model, model_cfg)
+    if world is not None and world.tp > 1:
+        tensor.shard_model(model, world.model_rank, world.tp)
     recipe = sharding.wrap(model, make_optimizer(model, train_cfg),
                            train_cfg.parallelism, world)
     return TrainState(step=0, model=recipe.model,
-                      optimizer=recipe.optimizer, recipe=recipe)
+                      optimizer=recipe.optimizer, recipe=recipe,
+                      param_counts=counts)

@@ -50,11 +50,11 @@ def global_batches(n, W, V, seed=0):
 
 
 def reference_run(mdict, kw, recipe, W, batches):
-    """The reference's `recipe` on W devices: (init state dict in the
-    port's layout, [per step: loss, grad_norm, moe_dropped_frac, the
+    """The reference's `recipe` on W devices (a 'model' axis of
+    kw['tp_size'] where given): (init state dict in the port's layout, [per step: loss, grad_norm, moe_dropped_frac, the
     state dict after the step])."""
     mc, jtc = JConfig(**mdict), JTrainConfig(**kw, parallelism=recipe)
-    mesh = build_mesh(jplan(recipe, W))
+    mesh = build_mesh(jplan(recipe, W, tp_size=kw.get("tp_size", 1)))
     jmodel, tx, js, sh = jstate(mc, jtc, mesh)
     cfg = LLMConfig(**mdict)
 

@@ -1,5 +1,5 @@
-"""One rank of a data-parallel run of the port, for the multi-process
-tests (tests/test_torch_parallel*.py). Imports no JAX: the tests compute
+"""One rank of a parallel run of the port, for the multi-process tests
+(tests/test_torch_parallel*.py). Imports no JAX: the tests compute
 the reference's side in their own process and hand this module a spec.
 
     PYTHONPATH=. python tests/torch_parallel_ranks.py SPEC RANK
@@ -9,11 +9,13 @@ group's `file://` rendezvous, unique per test), `out` (a directory) and
 `cases`, run in order in one group so that the ranks start once per
 test. Each case is a dict with a `kind`:
 
-* 'steps': build the state under `tc['parallelism']` from the whole state
-  dict `init`, then run `make_train_step` over the global batches
-  `batches` ((A, B W, T) arrays), this rank taking rows r B .. r B + B - 1
-  of each micro-step. Records each step's metrics, the whole parameters,
-  the MoE buffers, and at the end the bytes held (`held_bytes`). With
+* 'steps': build the state under `tc['parallelism']` (and `tc['tp_size']`)
+  from the whole state dict `init`, then run `make_train_step` over the
+  global batches `batches` ((A, B W, T) arrays, W the 'data' axis's size),
+  this rank taking its data rank r's rows r B .. r B + B - 1 of each
+  micro-step. Records each step's metrics, the whole parameters,
+  the MoE buffers, and at the end the bytes held (`held_bytes`) and the
+  fused CE's `DEGRADED` counts. With
   `poison` = (rank, step), that rank alone NaN-bombs that step
   (TRAIN_POISON_IT).
 * 'train': `train()` through the trainer loop in the directory `cwd`; with
@@ -25,6 +27,11 @@ test. Each case is a dict with a `kind`:
 * 'ce': the fused CE (`pallas_cross_entropy`, its plain versions on the
   CPU) over this rank's rows of `x` / `t` against the whole `w`; records
   the loss and dW averaged over the ranks and this rank's dx.
+* 'vp_ce': the vocab-parallel CE (`vocab_parallel_cross_entropy`) over a
+  world of `tp`-rank model groups: this data rank's rows of `x` / `t`
+  against this model rank's rows of `w`, chunk `chunk`; records the loss,
+  this rank's dx and the whole dW (averaged over 'data', joined over
+  'model').
 
 Rank r writes its records to `out/rank<r>.pt`. `spawn` starts the W
 ranks from a test and returns their records.
@@ -58,10 +65,16 @@ def _clone(sd: dict) -> dict:
     return {k: v.detach().clone() for k, v in sd.items()}
 
 
+def _world(tc: TrainConfig):
+    return init_world(sharding.tp_recipe(tc.parallelism, tc.tp_size), "cpu",
+                      tc.dp_size, tc.tp_size)
+
+
 def run_steps(case: dict, rank: int, W: int) -> dict:
     cfg, tc = LLMConfig(**case["cfg"]), TrainConfig(**case["tc"])
-    world = init_world(tc.parallelism, "cpu", tc.dp_size)
+    world = _world(tc)
     poison = case.get("poison")
+    fused_ce.reset_counts()
     if poison is not None and poison[0] == rank:
         os.environ["TRAIN_POISON_IT"] = str(poison[1])
     with context.use_world(world):
@@ -70,8 +83,8 @@ def run_steps(case: dict, rank: int, W: int) -> dict:
         os.environ.pop("TRAIN_POISON_IT", None)
         out = {"steps": []}
         for x, y in case["batches"]:
-            B = x.shape[1] // W
-            rows = slice(rank * B, (rank + 1) * B)
+            B = x.shape[1] // world.dp
+            rows = slice(world.data_rank * B, (world.data_rank + 1) * B)
             m = step(state, torch.from_numpy(x[:, rows]).long(),
                      torch.from_numpy(y[:, rows]).long())
             rec = {k: float(v) for k, v in m.items()}
@@ -81,6 +94,7 @@ def run_steps(case: dict, rank: int, W: int) -> dict:
                           for layer in state.model.moe_layers()]
             out["steps"].append(rec)
         out["held"] = state.recipe.held_bytes()
+    out["ce_degraded"] = dict(fused_ce.DEGRADED)
     return out
 
 
@@ -102,8 +116,9 @@ def run_train(case: dict, rank: int, W: int) -> dict:
     finally:
         loader_mod.DataLoader.next_batch = orig
     state = stats.pop("state")
-    model_sd, opt_sd = sharding.full_state_dicts(state.model,
-                                                 state.optimizer)
+    with context.use_world(state.recipe.world):
+        model_sd, opt_sd = sharding.full_state_dicts(state.model,
+                                                     state.optimizer)
     stats["model"], stats["optimizer"] = _clone(model_sd), opt_sd
     stats["step"], stats["updates"] = state.step, state.updates
     stats["log"] = lines
@@ -112,7 +127,7 @@ def run_train(case: dict, rank: int, W: int) -> dict:
 
 def run_restore(case: dict, rank: int, W: int) -> dict:
     cfg, tc = LLMConfig(**case["cfg"]), TrainConfig(**case["tc"])
-    world = init_world(tc.parallelism, "cpu", tc.dp_size)
+    world = _world(tc)
     with context.use_world(world):
         state = create_train_state(cfg, tc, "cpu", world)
         checkpoint.restore_checkpoint(case["path"], state)
@@ -124,7 +139,7 @@ def run_restore(case: dict, rank: int, W: int) -> dict:
 
 def run_raises(case: dict, rank: int, W: int) -> dict:
     cfg, tc = LLMConfig(**case["cfg"]), TrainConfig(**case["tc"])
-    world = init_world(tc.parallelism, "cpu", tc.dp_size)
+    world = _world(tc)
     try:
         create_train_state(cfg, tc, "cpu", world)
     except NotImplementedError as e:
@@ -148,8 +163,32 @@ def run_ce(case: dict, rank: int, W: int) -> dict:
                 "dx": x.grad.clone(), "plain": dict(fused_ce.PLAIN_CALLS)}
 
 
+def run_vp_ce(case: dict, rank: int, W: int) -> dict:
+    from distributed_pytorch_tpu_torch.ops.losses import \
+        vocab_parallel_cross_entropy
+    from distributed_pytorch_tpu_torch.parallel import tensor
+    tp = case["tp"]
+    world = init_world("tp", "cpu", -1, tp)
+    B = case["x"].shape[0] // world.dp
+    rows = slice(world.data_rank * B, (world.data_rank + 1) * B)
+    V = case["w"].shape[0]
+    cut = (0, (V,))
+    x = torch.from_numpy(case["x"][rows]).requires_grad_()
+    w = tensor.split(torch.from_numpy(case["w"]), cut, world.model_rank,
+                     tp).requires_grad_()
+    with context.use_world(world):
+        loss = vocab_parallel_cross_entropy(
+            x, w, torch.from_numpy(case["t"][rows]).long(),
+            world.model_rank * w.shape[0], chunk=case["chunk"])
+        loss.backward()
+        dw = tensor.join(context.model_all_gather(
+            context.all_reduce_mean(w.grad.clone())), cut)
+        return {"loss": float(loss.detach()), "dx": x.grad.clone(),
+                "dw": dw, "data_rank": world.data_rank}
+
+
 KINDS = {"steps": run_steps, "train": run_train, "raises": run_raises,
-         "ce": run_ce, "restore": run_restore}
+         "ce": run_ce, "restore": run_restore, "vp_ce": run_vp_ce}
 
 
 def spawn(tmp, world: int, cases: list, timeout: float = 240.0) -> list:
