@@ -202,11 +202,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
              `train()` under `single`, `dp`, `zero1`, `zero2`, `fsdp`,
              `tp` and `fsdp_tp` (a 'model' axis of one rank: the
              tensor-parallel recipes' wiring over NCCL; the cut itself
-             runs on four cards, bench/recipes.py), 6 iterations each, in
-             this process with torchrun's environment set for one rank:
+             runs on four cards, bench/recipes.py), `sp` and `fsdp
+             --sp_size 1` (a 'seq' axis of one rank), 6 iterations each,
+             in this process with torchrun's environment set for one rank:
              every recipe's loss at every iteration within RECIPE_RTOL of
-             `single`'s (tp and fsdp_tp within TP_RTOL; bit-equality
-             printed), the flash and CE kernels launched exactly layers x
+             `single`'s (tp and fsdp_tp within TP_RTOL, the sp legs bit
+             for bit; bit-equality printed), the flash and CE kernels
+             launched exactly layers x
              micro-steps / micro-steps times, no plain call, step ms p50,
              tok/s, MFU and peak memory per recipe; (2) `fsdp` through
              `python -m torch.distributed.run --standalone
@@ -214,12 +216,21 @@ Phases, each of which ends the run with a non-zero exit on failure:
              must exit 0 and log recipe=fsdp, world 1, nccl on cuda:0;
              (3) phase 9's MoE under `fsdp`, 4 iterations: the grouped
              kernels launched exactly, the expert bias moved, the final
-             checkpoint (whole tensors gathered from the shards) verified.
+             checkpoint (whole tensors gathered from the shards) verified;
+             (4) ring attention's hops and merge in one process
+             (`run_ring_hops`): 4 chunks of one sequence, contiguous and
+             zig-zag, through `ring_fwd` / `ring_bwd` with a list rotation
+             in place of the permute, held against one whole flash call's
+             plain version at head sizes 64 and 32, causal, dropout 0 and
+             0.2.
 
 Phase 3 also holds the three flash kernels over a tensor-parallel rank's
 slice of the heads (`head_offset`, `total_heads`) at dropout 0.2 against
 their plain versions and against the whole call's bytes
-(`run_flash_offsets`), and the three grouped-matmul kernels (fwd, dx, dW) against
+(`run_flash_offsets`), over a block of a longer sequence (`q_pos0`,
+`k_pos0`, as a ring attention hop calls them) at dropout 0.2 against their
+plain versions and against those rows of the whole call's bytes
+(`run_flash_positions`), and the three grouped-matmul kernels (fwd, dx, dW) against
 their plain versions at the MoE training shapes (P 25600; K 768 / N 2048
 unscaled, K 1024 / N 768 gate-scaled), with an empty expert and with every
 row on one expert, beside `torch._grouped_mm` (or a loop of `torch.mm`).
@@ -1031,6 +1042,94 @@ def run_flash_offsets(torch, dev) -> dict:
             print(f"  head offset, dropout {FLASH_OFFSET_RATE}, {dn} D {D} "
                   f"({nh} / {nkv} heads over tp {tp}): every rank's heads "
                   f"equal the whole call's bytes; against the plain "
+                  f"version max_abs_err "
+                  + ", ".join(f"{n.removeprefix('flash_attn_')} "
+                              f"{res[(n, dn, D)]:.3e}" for n in FLASH_SOURCE),
+                  flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+#: phase 3's position-offset check: (head size, B, T, heads, kv heads) of
+#: a ring attention hop's flash calls (the flagship's 12 heads of 64, the
+#: default config's 8 / 4 heads of 32), and the row at which the block
+#: starts (a multiple of every kernel's 128-row tile)
+FLASH_POSITIONS = ((64, 2, 1024, 12, 12), (32, 2, 1024, 8, 4))
+FLASH_POSITION_START = 512
+
+
+def run_flash_positions(torch, dev) -> dict:
+    """The three flash kernels over a block of a longer sequence (`q_pos0`
+    / `k_pos0`, as a ring attention hop calls them) at dropout 0.2, fp32
+    and bf16, full (non-causal) attention as an off-diagonal hop runs: the
+    forward and dq over query rows FLASH_POSITION_START .. at q_pos0 =
+    that row, and dkv over the key rows from there at k_pos0, each held
+    against its plain version at the same offsets under FLASH_TOL and
+    equal, byte for byte, to those rows of the whole call's outputs (the
+    mask keyed on global positions). Returns {(kernel, dtype, D):
+    max_abs_err}."""
+    from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+
+    res = {}
+    s0 = FLASH_POSITION_START
+    for D, B, T, nh, nkv in FLASH_POSITIONS:
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).removeprefix("torch.")
+
+            def rnd(n):
+                return torch.randn(B, T, n, D, generator=g,
+                                   device=dev).to(dtype)
+
+            q, k, v, dout = rnd(nh), rnd(nkv), rnd(nkv), rnd(nh)
+            seed = torch.tensor([-5, 1229], dtype=torch.int32, device=dev)
+            kw = dict(scale=D ** -0.5, causal=False,
+                      dropout_rate=FLASH_OFFSET_RATE)
+            out, lse = fa.flash_attn_fwd(q, k, v, seed, **kw)
+            delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            bw = (q, k, v, dout, lse, delta, seed)
+            dq = fa.flash_attn_bwd_dq(*bw, **kw)
+            dk, dv = fa.flash_attn_bwd_dkv(*bw, **kw)
+            r = slice(s0, T)
+            qb = (q[:, r], k, v)
+            qbw = (*qb, dout[:, r], lse[:, :, r].contiguous(),
+                   delta[:, :, r].contiguous(), seed)
+            kbw = (q, k[:, r], v[:, r], dout, lse, delta, seed)
+            at_q, at_k = dict(kw, q_pos0=s0), dict(kw, k_pos0=s0)
+            calls = {
+                "flash_attn_fwd": (
+                    lambda: fa.flash_attn_fwd(*qb, seed, **at_q),
+                    lambda: fa.flash_attn_fwd_plain(*qb, seed, **at_q),
+                    (out[:, r], lse[:, :, r])),
+                "flash_attn_bwd_dq": (
+                    lambda: (fa.flash_attn_bwd_dq(*qbw, **at_q),),
+                    lambda: (fa.flash_attn_bwd_dq_plain(*qbw, **at_q),),
+                    (dq[:, r],)),
+                "flash_attn_bwd_dkv": (
+                    lambda: fa.flash_attn_bwd_dkv(*kbw, **at_k),
+                    lambda: fa.flash_attn_bwd_dkv_plain(*kbw, **at_k),
+                    (dk[:, r], dv[:, r]))}
+            for name, (fk, fp, whole) in calls.items():
+                outs, refs = fk(), fp()
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(outs, whole)),
+                      f"{name} {dn} D {D}: the block at position {s0} "
+                      "differs from those rows of the whole call")
+                for oname, a, b in zip(FLASH_OUTPUTS[name], outs, refs):
+                    atol, rtol = FLASH_TOL["float32" if oname == "lse"
+                                           else dn]
+                    e = _elementwise(a, b, atol, rtol)
+                    check(e["frac"] <= 1.0,
+                          f"{name} {dn} D {D} at position {s0}: {oname} "
+                          f"beyond its limit ({e['frac']:.3f})")
+                    if oname != "lse":
+                        res[(name, dn, D)] = max(res.get((name, dn, D), 0.0),
+                                                 e["err"])
+            print(f"  positions from {s0}, dropout {FLASH_OFFSET_RATE}, {dn} "
+                  f"D {D} ({nh} / {nkv} heads, T {T}): every block equals "
+                  f"the whole call's rows byte for byte; against the plain "
                   f"version max_abs_err "
                   + ", ".join(f"{n.removeprefix('flash_attn_')} "
                               f"{res[(n, dn, D)]:.3e}" for n in FLASH_SOURCE),
@@ -3612,7 +3711,12 @@ RECIPE_ARGV = ["--preset", "gpt2_124m", "--attn_impl", "pallas",
                "--warmup_steps", "5", "--learning_rate", "1e-3",
                "--no-save_stats", "--file_name", "chip_smoke_recipes",
                "--seed", "0"]
-RECIPES = ("single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp")
+RECIPES = ("single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp", "sp",
+           "fsdp_sp1")
+#: the trainer flags of a phase 12 leg that is not a recipe's name alone
+RECIPE_FLAGS = {"fsdp_sp1": ["--parallelism", "fsdp", "--sp_size", "1"]}
+#: the legs held bit for bit to single (a 'seq' axis of one rank)
+RECIPES_EXACT = ("sp", "fsdp_sp1")
 # every recipe's loss against single's at each iteration: one card runs
 # the same arithmetic under every recipe, but for the collectives of one
 # rank and the zero / fsdp update's order of operations
@@ -3656,8 +3760,8 @@ def run_recipe(torch, tmp: str, recipe: str, card: str) -> dict:
     from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
 
     model_cfg, train_cfg = parse_train_argv(
-        RECIPE_ARGV + ["--parallelism", recipe,
-                       "--data_dir", os.path.join(tmp, "data")])
+        RECIPE_ARGV + RECIPE_FLAGS.get(recipe, ["--parallelism", recipe])
+        + ["--data_dir", os.path.join(tmp, "data")])
     L = model_cfg.n_layer
     micro = train_cfg.total_batch_size // (
         train_cfg.batch_size * model_cfg.block_size) * (
@@ -3669,11 +3773,11 @@ def run_recipe(torch, tmp: str, recipe: str, card: str) -> dict:
          "fused_ce_bwd_dw": micro, "flash_attn_fwd": L * micro,
          "flash_attn_bwd_dq": L * micro, "flash_attn_bwd_dkv": L * micro},
         f"train under {recipe}")
-    want = ("none", 1, 1) if recipe == "single" else ("nccl", 1, 1)
-    check((stats["backend"], stats["world"], stats["tp"]) == want
-          and stats["recipe"] == recipe,
+    want = ("none", 1, 1, 1) if recipe == "single" else ("nccl", 1, 1, 1)
+    check((stats["backend"], stats["world"], stats["tp"], stats["sp"])
+          == want and stats["recipe"] == train_cfg.parallelism,
           f"{recipe}: ran as {stats['recipe']} over {stats['backend']}, "
-          f"world {stats['world']}, tp {stats['tp']}")
+          f"world {stats['world']}, tp {stats['tp']}, sp {stats['sp']}")
     losses = stats["train_losses"]
     check(len(losses) == train_cfg.max_iters + 1
           and all(np.isfinite(losses)), f"{recipe}: losses {losses}")
@@ -3777,8 +3881,8 @@ def run_recipes(torch, card: str) -> dict:
             for recipe in RECIPES[1:]:
                 got = np.asarray(runs[recipe]["losses"])
                 rel = float(np.max(np.abs(got - base) / np.abs(base)))
-                tol = TP_RTOL if recipe in ("tp", "fsdp_tp") \
-                    else RECIPE_RTOL
+                tol = 0.0 if recipe in RECIPES_EXACT else TP_RTOL \
+                    if recipe in ("tp", "fsdp_tp") else RECIPE_RTOL
                 check(rel <= tol,
                       f"{recipe}: losses {got.tolist()} differ from "
                       f"single's {base.tolist()} by {rel:.3e} relative")
@@ -3789,7 +3893,91 @@ def run_recipes(torch, card: str) -> dict:
             runs["moe_fsdp"] = run_recipe_moe(torch, tmp, card)
         finally:
             os.chdir(cwd)
+    runs["hops"] = run_ring_hops(torch, card)
     return runs
+
+
+#: the one-process ring check: (head size, B, T, heads, kv heads) of the
+#: flagship's and the default config's attention, cut over RING_SP ranks
+RING_HOPS = ((64, 2, 2048, 12, 12), (32, 2, 2048, 8, 4))
+RING_SP = 4
+
+
+def run_ring_hops(torch, card: str) -> dict:
+    """Ring attention's hops and merge on the card in one process: RING_SP
+    chunks of one sequence (contiguous and zig-zag) through
+    `ring_attention.ring_fwd` / `ring_bwd` over a `LocalRing` (a list
+    rotation in place of the permute), bf16, causal, at dropout 0 and
+    0.2: out, dq, dk and dv held against the plain versions of one whole
+    flash call under FLASH_TOL's bf16 limit with its atol times RING_SP:
+    each hop's out, dq, dk and dv leave the kernels rounded to bf16 and a
+    row sums up to RING_SP of them, where the whole call rounds once.
+    Returns {(kernel, D): max_abs_err}."""
+    from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+    from distributed_pytorch_tpu_torch.ops import ring_attention as ra
+
+    dev = torch.device(DEVICE)
+    res = {}
+    atol, rtol = FLASH_TOL["bfloat16"]
+    atol *= RING_SP
+    for D, B, T, nh, nkv in RING_HOPS:
+        g = torch.Generator(device=dev)
+        g.manual_seed(6)
+
+        def rnd(n):
+            return torch.randn(B, T, n, D, generator=g,
+                               device=dev).to(torch.bfloat16)
+
+        q, k, v, dout = rnd(nh), rnd(nkv), rnd(nkv), rnd(nh)
+        seed = torch.tensor([31, -7], dtype=torch.int32, device=dev)
+        for rate in (0.0, 0.2):
+            kw = dict(scale=D ** -0.5, causal=True, dropout_rate=rate)
+            out, lse = fa.flash_attn_fwd_plain(q, k, v, seed, **kw)
+            delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+            bw = (q, k, v, dout, lse, delta, seed)
+            want = {"flash_attn_fwd": out,
+                    "flash_attn_bwd_dq": fa.flash_attn_bwd_dq_plain(*bw, **kw)}
+            want["dk"], want["dv"] = fa.flash_attn_bwd_dkv_plain(*bw, **kw)
+            for layout in ("contiguous", "zigzag"):
+                cols = [torch.as_tensor(ra.local_positions(
+                    T, RING_SP, r, layout), device=dev)
+                    for r in range(RING_SP)]
+                kvs = [torch.stack([k[:, c], v[:, c]]) for c in cols]
+                accs, got = {}, {}
+                hk = dict(scale=D ** -0.5, layout=layout, rate=rate,
+                          seed=seed)
+                for r, c in enumerate(cols):
+                    o, l_ = ra.ring_fwd(q[:, c], kvs[r],
+                                        ra.LocalRing(kvs, r, accs), **hk)
+                    got.setdefault("flash_attn_fwd", []).append((c, o))
+                    got.setdefault("flash_attn_bwd_dq", []).append(
+                        (c, ra.ring_bwd(q[:, c], kvs[r], o, l_,
+                                        dout[:, c].contiguous(),
+                                        ra.LocalRing(kvs, r, accs), **hk)))
+                got["dk"] = [(c, accs[r][0]) for r, c in enumerate(cols)]
+                got["dv"] = [(c, accs[r][1]) for r, c in enumerate(cols)]
+                torch.cuda.synchronize()
+                errs = {}
+                for name, parts in got.items():
+                    for c, a in parts:
+                        e = _elementwise(a, want[name][:, c], atol, rtol)
+                        check(e["frac"] <= 1.0,
+                              f"ring hops D {D} {layout} rate {rate}: "
+                              f"{name} beyond its limit ({e['frac']:.3f})")
+                        errs[name] = max(errs.get(name, 0.0), e["err"])
+                kn = {"dk": "flash_attn_bwd_dkv", "dv": "flash_attn_bwd_dkv"}
+                for name, e in errs.items():
+                    key = (kn.get(name, name), D)
+                    res[key] = max(res.get(key, 0.0), e)
+                print(f"  ring hops, sp {RING_SP}, {layout}, D {D} ({nh} / "
+                      f"{nkv} heads, B {B}, T {T}), bf16, causal, dropout "
+                      f"{rate}: against one whole call's plain version "
+                      f"max_abs_err " + ", ".join(
+                          f"{n} {e:.3e}" for n, e in errs.items())
+                      + f"; card {card}", flush=True)
+            del want, out, lse, delta
+        torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4069,6 +4257,7 @@ def main() -> None:
     kres = run_kernels(torch, fd, dev)
     fres = run_flash_kernels(torch, dev)
     offsets = run_flash_offsets(torch, dev)
+    positions = run_flash_positions(torch, dev)
     run_flash_widths(torch, dev)
     cres = run_ce_kernels(torch, dev)
     gres = run_gmm_kernels(torch, dev)
@@ -4238,6 +4427,11 @@ def main() -> None:
                 {dn: offsets[(kname, dn, D)] for dn in ("bfloat16",
                                                          "float32")}
                 if any(o[0] == D for o in FLASH_OFFSETS) else None),
+            "positions_max_abs_err": (
+                {dn: positions[(kname, dn, D)] for dn in ("bfloat16",
+                                                          "float32")}
+                if any(o[0] == D for o in FLASH_POSITIONS) else None),
+            "ring_hops_max_abs_err": recipes["hops"].get((kname, D)),
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "lse_max_abs_err": r["lse_max_abs_err"], "launches_fp32": None,
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],

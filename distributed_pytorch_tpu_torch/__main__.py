@@ -23,6 +23,13 @@ processes, the rest of the world on 'data' (here 2 x 4):
     python -m torch.distributed.run --nproc_per_node 8 \\
         -m distributed_pytorch_tpu_torch --parallelism fsdp_tp \\
         --tp_size 4 ...
+
+and a sequence-parallel one cuts each row's positions over `--sp_size`
+adjacent processes (ring, zig-zag or Ulysses attention, `--attn_impl`),
+under `sp` or dp / zero1 / zero2 / fsdp (here 4 x 2):
+
+    python -m torch.distributed.run --nproc_per_node 8 \\
+        -m distributed_pytorch_tpu_torch --parallelism fsdp --sp_size 2 ...
 """
 
 from distributed_pytorch_tpu_torch.config import (PRESETS, build_parser,

@@ -9,14 +9,22 @@ rows of a step are single's rows, data/loader.py). Every run's losses are
 held to single's within `--rtol`; its step p50, tok/s, tok/s and MFU per
 card and rank 0's peak memory come from the trainer's stats.json.
 
-A recipe is `name` or `name:tp`, tp the `--tp_size` of a tensor-parallel
-run ('model' groups of tp adjacent cards, the rest of the cards on
-'data'): `tp` alone gives the rows tp:N (all cards on 'model') and tp:2
-(2 x N/2), `fsdp_tp` alone fsdp_tp:2.
+A recipe is `name`, `name:tp` or `name:spS[@attn]`: tp the `--tp_size`
+of a tensor-parallel run ('model' groups of tp adjacent cards, the rest of
+the cards on 'data'), S the `--sp_size` of a sequence-parallel one ('seq'
+groups of S adjacent cards; `@attn` its `--attn_impl`, ring, zigzag or
+ulysses, for phase 7's pallas, which zig-zag takes). `tp` alone gives the
+rows tp:N (all cards on 'model') and tp:2 (2 x N/2), `fsdp_tp` alone
+fsdp_tp:2, `sp` alone sp:spN (zig-zag), sp:spN@ring, sp:spN@ulysses and
+sp:sp2 (2 x N/2).
 
     python -m distributed_pytorch_tpu_torch.bench.recipes --nproc 4 \\
-        [--recipes dp,zero1,zero2,fsdp,tp,fsdp_tp] [--iters 6] \\
-        [--rtol 1e-3] [-- extra trainer flags]
+        [--recipes dp,zero1,zero2,fsdp,tp,fsdp_tp,sp,fsdp:sp2] \\
+        [--iters 6] [--rtol 1e-3] [-- extra trainer flags]
+
+A long context runs with `-- --block_size 8192 --batch_size 1` and a
+`--tokens_per_card` of 8192: single trains the same global batch on one
+card in accum 4 x 8192 tokens.
 
 A rehearsal on the CPU (gloo, the kernels' plain versions) passes
 `--platform cpu`, a tiny model and its `--tokens_per_card` after `--`.
@@ -45,31 +53,42 @@ FLAGS = ["--preset", "gpt2_124m", "--attn_impl", "pallas", "--loss_impl",
 
 
 def rows(spec: str, nproc: int) -> list:
-    """(recipe, tp) of each `--recipes` entry."""
+    """(recipe, tp, sp, attn_impl or None) of each `--recipes` entry."""
     out = []
     for item in spec.split(","):
-        name, _, tp = item.partition(":")
-        if tp:
-            out.append((name, int(tp)))
+        item, _, attn = item.partition("@")
+        name, _, axis = item.partition(":")
+        if axis.startswith("sp"):
+            out.append((name, 1, int(axis[2:]), attn or None))
+        elif axis:
+            out.append((name, int(axis), 1, None))
         elif name == "tp":
-            out += [("tp", nproc)] + ([("tp", 2)] if nproc > 2 else [])
+            out += [("tp", nproc, 1, None)] + (
+                [("tp", 2, 1, None)] if nproc > 2 else [])
         elif name == "fsdp_tp":
-            out.append(("fsdp_tp", 2))
+            out.append(("fsdp_tp", 2, 1, None))
+        elif name == "sp":
+            out += [("sp", 1, nproc, None), ("sp", 1, nproc, "ring"),
+                    ("sp", 1, nproc, "ulysses")] + (
+                [("sp", 1, 2, None)] if nproc > 2 else [])
         else:
-            out.append((name, 1))
+            out.append((name, 1, 1, None))
     return out
 
 
 def run(recipe: str, nproc: int, tokens: int, iters: int, extra: list,
-        tmp: str, timeout: float, tp: int = 1) -> dict:
+        tmp: str, timeout: float, tp: int = 1, sp: int = 1,
+        attn=None) -> dict:
     """One trainer run under torch.distributed.run; its numbers."""
-    name = f"recipes_{recipe}_{nproc}_tp{tp}"
+    name = f"recipes_{recipe}_{nproc}_tp{tp}_sp{sp}_{attn}"
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node", str(nproc), "-m",
             "distributed_pytorch_tpu_torch", *FLAGS, "--parallelism",
-            recipe, "--tp_size", str(tp), "--total_batch_size_str",
-            str(tokens), "--max_iters", str(iters - 1), "--data_dir",
-            os.path.join(tmp, "data"), "--file_name", name, *extra]
+            recipe, "--tp_size", str(tp), "--sp_size", str(sp),
+            "--total_batch_size_str", str(tokens), "--max_iters",
+            str(iters - 1), "--data_dir", os.path.join(tmp, "data"),
+            "--file_name", name, *extra] + (
+                ["--attn_impl", attn] if attn else [])
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     t0 = time.perf_counter()
@@ -82,8 +101,9 @@ def run(recipe: str, nproc: int, tokens: int, iters: int, extra: list,
     with open(os.path.join(tmp, "checkpoints", name, "stats.json")) as f:
         st = json.load(f)
     head = next(line for line in r.stdout.splitlines() if "recipe=" in line)
-    return {"recipe": recipe, "nproc": nproc, "tp": tp,
-            "data": nproc // tp, "wall_s": wall, "log": head,
+    return {"recipe": recipe, "nproc": nproc, "tp": tp, "sp": sp,
+            "attn": attn, "data": nproc // (tp * sp), "wall_s": wall,
+            "log": head,
             "losses": st["train_losses"],
             "step_ms": st["median_step_time"] * 1e3,
             "tok_s": st["median_tokens_per_sec"],
@@ -120,9 +140,9 @@ def main(argv=None) -> int:
         base = run("single", 1, tokens, args.iters, extra, tmp,
                    args.timeout)
         runs.append(base)
-        for recipe, tp in rows(args.recipes, args.nproc):
+        for recipe, tp, sp, attn in rows(args.recipes, args.nproc):
             runs.append(run(recipe, args.nproc, tokens, args.iters, extra,
-                            tmp, args.timeout, tp))
+                            tmp, args.timeout, tp, sp, attn))
     ref = np.asarray(base["losses"])
     for r in runs:
         got = np.asarray(r["losses"])
@@ -133,8 +153,10 @@ def main(argv=None) -> int:
             and (r["recipe"] == "single" or r["world"] == args.nproc)
         ok &= r["ok"]
         mfu = r["mfu_per_card"]
-        print(f"{r['recipe']:>7} x {r['nproc']} (data {r['data']} x model "
-              f"{r['tp']}) over {r['backend']}: step "
+        print(f"{r['recipe']:>7} x {r['nproc']} (data {r['data']} x seq "
+              f"{r['sp']} x model {r['tp']}"
+              f"{', ' + r['attn'] if r['attn'] else ''}) over "
+              f"{r['backend']}: step "
               f"ms p50 {r['step_ms']:.3f}, tok/s {r['tok_s']:.1f} "
               f"({r['tok_s_per_card']:.1f} a card), MFU a card "
               f"{'-' if mfu is None else f'{mfu:.4f}'}, rank 0 peak "

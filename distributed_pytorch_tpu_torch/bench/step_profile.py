@@ -1,7 +1,8 @@
 """Where a parallel train step's time goes, on every rank.
 
 Run under torch.distributed.run with the trainer's flags: each rank builds
-the state of `--parallelism` (and `--tp_size`) as the trainer does, takes
+the state of `--parallelism` (and `--tp_size`, `--sp_size`: its rows and
+positions are the trainer's loader's) as the trainer does, takes
 2 steps to warm up, times 3 steps by the host clock (ending in a
 synchronize), then profiles 2 steps with torch.profiler and prints one
 JSON line: host wall and device kernel time a step, the device busy
@@ -56,16 +57,16 @@ def main(argv=None) -> None:
     from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
     from distributed_pytorch_tpu_torch.data.loader import DataLoader
     from distributed_pytorch_tpu_torch.parallel import context, sharding
-    from distributed_pytorch_tpu_torch.parallel.mesh import (close_world,
-                                                             init_world)
-    from distributed_pytorch_tpu_torch.train.loop import data_paths
+    from distributed_pytorch_tpu_torch.parallel.mesh import close_world
+    from distributed_pytorch_tpu_torch.train.loop import (data_paths,
+                                                          make_world)
     from distributed_pytorch_tpu_torch.train.state import create_train_state
     from distributed_pytorch_tpu_torch.train.step import make_train_step
 
     model_cfg, tc = parse_train_argv(sys.argv[1:] if argv is None else argv)
     tc = dataclasses.replace(tc, parallelism=sharding.tp_recipe(
         tc.parallelism, tc.tp_size))
-    world = init_world(tc.parallelism, tc.platform, tc.dp_size, tc.tp_size)
+    world = make_world(model_cfg, tc)
     try:
         with context.use_world(world):
             B, T = tc.batch_size, model_cfg.block_size
@@ -76,7 +77,8 @@ def main(argv=None) -> None:
                 data_paths(tc, model_cfg.vocab_size)[0], B, T,
                 grad_accum=tc.total_batch_size // (B * world.dp * T),
                 seed=tc.seed, device=world.device, rank=world.data_rank,
-                world=world.dp)
+                world=world.dp, seq_rank=world.seq_rank, sp=world.sp,
+                layout=world.seq_layout)
             state = create_train_state(model_cfg, tc, world.device, world)
             step = make_train_step(tc)
             cuda = world.device.type == "cuda"
@@ -100,7 +102,7 @@ def main(argv=None) -> None:
             dev = s["nccl"] + s["flash"] + s["matmul"] + s["other"]
             print(json.dumps({
                 "rank": world.rank, "recipe": tc.parallelism, "tp": world.tp,
-                "data": world.dp, "micro_steps": x.shape[0],
+                "sp": world.sp, "data": world.dp, "micro_steps": x.shape[0],
                 "host_wall_ms": wall, "device_ms": dev,
                 "busy": dev / wall, **s,
                 "device": torch.cuda.get_device_name(world.device)

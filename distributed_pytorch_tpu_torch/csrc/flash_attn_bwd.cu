@@ -23,8 +23,8 @@
 //
 // No atomics: dq and dkv are two kernels, each writing its rows once, so
 // the results are deterministic. The dropout mask is regenerated from the
-// forward's coordinates (row b*nh_all + h0 + h, query position, key position), not
-// from a kernel's loop order.
+// forward's coordinates (row b*nh_all + h0 + h, q0 + query position, k0 + key
+// position), not from a kernel's loop order.
 //
 // * dq, fp32 (`dq_kernel`): the FMA design of flash_attn_common.cuh
 //   (tensor cores take fp32 only as TF32). One CTA per (64-row query

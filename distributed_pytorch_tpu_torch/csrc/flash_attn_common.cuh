@@ -65,6 +65,7 @@ struct Params {
   const int* seed;     // (2,) int32 on the device
   int B, T, S, nh, nkv;
   int nh_all, h0;      // the heads of the whole call, this call's first
+  uint32_t q_mix, k_mix;  // the position offsets' terms of the dropout hash
   int d;               // the head size (the kernel's width D or less)
   int causal, dropout;
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st;
@@ -113,12 +114,17 @@ template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& x
 // `_mix_bits` (flash_attention.py:118-136) in uint32 arithmetic: the hash of
 // (attention row b*nh_all + h0 + h, query position, key position) and the seed.
 // Keyed on absolute coordinates, so every kernel regenerates the same mask
-// whatever its tile order.
+// whatever its tile order. A call over a block of a longer sequence (a ring
+// attention hop) has its first query and key at global positions q0 and k0;
+// (q0 + qp) * c == qp * c + q0 * c mod 2^32, so the offsets enter as the
+// addends q_mix = q0 * 0x85EBCA6B and k_mix = k0 * 0xC2B2AE35, folded on the
+// host (0 at offsets 0).
 __device__ __forceinline__ uint32_t mix_bits(uint32_t s0, uint32_t s1, uint32_t row,
-                                             uint32_t qp, uint32_t kp) {
+                                             uint32_t qp, uint32_t kp, uint32_t q_mix,
+                                             uint32_t k_mix) {
   uint32_t x = row * 0x9E3779B1u;
-  x ^= qp * 0x85EBCA6Bu;
-  x ^= kp * 0xC2B2AE35u;
+  x ^= qp * 0x85EBCA6Bu + q_mix;
+  x ^= kp * 0xC2B2AE35u + k_mix;
   x ^= s0;
   x += s1 * 0x27D4EB2Fu;
   x ^= x >> 16;
@@ -140,7 +146,9 @@ __device__ __forceinline__ uint32_t drop_row(const Params& p, int b, int h) {
 // The scaled keep-mask value of one element: 1/(1-rate) or 0.
 __device__ __forceinline__ float keep(const Params& p, uint32_t s0, uint32_t s1,
                                       uint32_t row, int qp, int kp) {
-  return mix_bits(s0, s1, row, (uint32_t)qp, (uint32_t)kp) >= p.thresh ? p.keep_scale : 0.f;
+  return mix_bits(s0, s1, row, (uint32_t)qp, (uint32_t)kp, p.q_mix, p.k_mix) >= p.thresh
+             ? p.keep_scale
+             : 0.f;
 }
 
 __device__ __forceinline__ float half_warp_max(float v) {
@@ -264,7 +272,7 @@ inline int set_smem(Kernel kernel, size_t smem, size_t (&cap)[64]) {
 inline bool runs_head_size(int D, int d) { return d % 8 == 0 && d >= 8 && d <= D; }
 
 // Fill Params from the C entry's arguments. dims = (B, T, S, nh, nkv, causal,
-// dropout, nh_all, h0); strides = (q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st).
+// dropout, nh_all, h0, q0, k0); strides = (q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st).
 inline Params make_params(int d, const void* q, const void* k, const void* v, const void* dout,
                           const float* lse_in, const float* delta, void* out0, void* out1,
                           float* lse_out, const int* seed, const int* dims,
@@ -291,6 +299,8 @@ inline Params make_params(int d, const void* q, const void* k, const void* v, co
   p.dropout = dims[6];
   p.nh_all = dims[7];
   p.h0 = dims[8];
+  p.q_mix = (uint32_t)dims[9] * 0x85EBCA6Bu;
+  p.k_mix = (uint32_t)dims[10] * 0xC2B2AE35u;
   p.q_sb = strides[0];
   p.q_st = strides[1];
   p.k_sb = strides[2];

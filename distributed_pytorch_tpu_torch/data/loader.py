@@ -13,7 +13,12 @@ int64 tensors on the loader's device.
 Under a data-parallel recipe rank r of W takes exactly the rows of the
 reference's global batch that its data shard gets (the reference's
 loader.py:101-131 under `batch_pspec`): B is per rank, the global
-micro-batch is B x W, and micro-step a's rows are a*B*W + r*B + (0..B-1).
+micro-batch is B x W, and micro-step a's rows are a*B*W + r*B + (0..B-1). Under a 'seq' axis of sp
+ranks (sequence parallelism) seq rank s of data rank r takes r's rows and
+its T / sp positions of each (ops/ring_attention.py `local_positions`:
+[s T/sp, (s+1) T/sp) in the contiguous layout, stripes s and 2 sp - 1 - s
+of length T / (2 sp) in the zig-zag one), x and y cut from the same whole
+row, so the targets' shift is the reference's.
 """
 
 from __future__ import annotations
@@ -50,7 +55,8 @@ class DataLoader:
 
     def __init__(self, file_path: str, batch_size: int, block_size: int, *,
                  grad_accum: int = 1, seed: int = 1729, device=None,
-                 rank: int = 0, world: int = 1):
+                 rank: int = 0, world: int = 1, seq_rank: int = 0,
+                 sp: int = 1, layout: str = "contiguous"):
         self.tokens = np.memmap(file_path, dtype=np.uint16, mode="r")
         assert len(self.tokens) > block_size + 1, (
             f"dataset {file_path} too small: {len(self.tokens)} tokens "
@@ -61,6 +67,13 @@ class DataLoader:
         self.device = device
         assert 0 <= rank < world, f"rank {rank} outside a world of {world}"
         self.rank, self.world = rank, world
+        self.cols = None
+        if sp > 1:
+            from distributed_pytorch_tpu_torch.ops.ring_attention import \
+                local_positions
+            assert block_size % sp == 0, (
+                f"sp={sp} does not divide block_size {block_size}")
+            self.cols = local_positions(block_size, sp, seq_rank, layout)
 
     def _sample(self, step: int, rows: np.ndarray):
         """(len(rows), T) x/y int32 pairs for global batch-row ids `rows`
@@ -79,10 +92,13 @@ class DataLoader:
 
     def next_batch(self, step: Optional[int] = None):
         """(x, y), each (A, B, T) int64 on the loader's device: this
-        rank's rows of the step's global batch."""
+        rank's rows of the step's global batch (T / sp positions of each
+        under a 'seq' axis)."""
         step = self.step if step is None else step
         self.step = step + 1
         x, y = self._sample(step, self.rows())
-        shp = (self.A, self.B, self.T)
+        if self.cols is not None:
+            x, y = x[:, self.cols], y[:, self.cols]
+        shp = (self.A, self.B, x.shape[1])
         return (torch.from_numpy(x.reshape(shp)).long().to(self.device),
                 torch.from_numpy(y.reshape(shp)).long().to(self.device))

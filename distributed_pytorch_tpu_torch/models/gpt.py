@@ -52,6 +52,17 @@ Counterpart of the reference package's `models/gpt.py` (`LLM`, `Block`,
   (gpt.py:219-235): `loss_impl='pallas'` counts that in
   `fused_ce.DEGRADED["vocab_parallel"]`, as the port's other gate refusals
   are counted. Returned logits are gathered over 'model'.
+* Sequence parallelism (a published 'seq' axis, parallel/context.py): a
+  training or eval forward holds this rank's T / sp positions of each row
+  (data/loader.py), so RoPE and the learned and sinusoidal position
+  embeddings are taken at those global positions
+  (ops/ring_attention.py `seq_positions`), the element dropout masks are
+  the whole rows' at them (ops/dropout.py),
+  attention runs ring, zig-zag or Ulysses attention (ops/attention_core.py)
+  and the loss is `sp_fused_cross_entropy` (the unchunked loss under
+  'unchunked'); `loss_impl='pallas'` takes it too, as the reference's gate
+  does (gpt.py:219-250), counted in
+  `fused_ce.DEGRADED["sequence_parallel"]`.
 """
 
 from __future__ import annotations
@@ -71,9 +82,10 @@ from distributed_pytorch_tpu_torch.models.mlp import MLP, MoE
 from distributed_pytorch_tpu_torch.ops import fused_ce
 from distributed_pytorch_tpu_torch.ops.dropout import dropout, subseed
 from distributed_pytorch_tpu_torch.ops.losses import (
-    fused_cross_entropy, unchunked_cross_entropy,
+    fused_cross_entropy, sp_fused_cross_entropy, unchunked_cross_entropy,
     vocab_parallel_cross_entropy)
 from distributed_pytorch_tpu_torch.ops.quant import maybe_quantized_matmul
+from distributed_pytorch_tpu_torch.ops.ring_attention import seq_positions
 from distributed_pytorch_tpu_torch.ops.rope import (precompute_rope_freqs,
                                                    slice_rows)
 from distributed_pytorch_tpu_torch.parallel import context
@@ -232,11 +244,15 @@ class LLM(nn.Module):
                 f"'model' axis has {context.model_size()} rank(s)")
         x = self._embed(idx, dt)
         freqs = None
+        rows = seq_positions(T, x.device) if caches is None else None
         if cfg.pos_emb == "rope":
-            freqs = self.freqs
+            # under sp the table's rows at this rank's positions, which the
+            # attention layers then read from row 0
+            freqs = self.freqs if rows is None else self.freqs[rows]
         else:
             tab = self.pos_emb if cfg.pos_emb == "learn" else self.sin_tab
-            p = slice_rows(tab, pos, T).to(dt)
+            p = (slice_rows(tab, pos, T) if rows is None else tab[rows]) \
+                .to(dt)
             x = x + (p if p.dim() == 3 else p[None])
         if drop:
             x = dropout(x, cfg.dropout, subseed(dropout_seed, 0))
@@ -313,6 +329,14 @@ class LLM(nn.Module):
         through `config.loss_impl`."""
         cfg = self.config
         emb = self.tkn_emb.weight.to(self.dtype)
+        if context.seq_size() > 1:
+            if cfg.loss_impl == "pallas":
+                # the reference's gate: no pallas loss under a 'seq' axis
+                fused_ce.DEGRADED["sequence_parallel"] += 1
+            if cfg.loss_impl == "unchunked":
+                return unchunked_cross_entropy(x, emb, targets)
+            return sp_fused_cross_entropy(x, emb, targets,
+                                          chunk=cfg.loss_chunk)
         if self.tp[1] > 1:
             if cfg.loss_impl == "pallas":
                 # the reference's gate: no pallas loss under tp

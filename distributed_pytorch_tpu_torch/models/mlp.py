@@ -44,16 +44,19 @@ Counterpart of the reference package's `models/mlp.py`:
   with, as the reference's remat does, and the bias moves once.
 * Under a data-parallel recipe (parallel/context.py) the statistics are
   the global batch's, as the reference's under pjit (:54-58): each rank's
-  per-expert assignment counts are all-gathered (E floats per layer and
-  forward), so the load `fi`, the bias update, the aux loss and
-  `dropped_frac` match the reference's on every rank. `pi` needs no
-  collective: with equal token counts per rank, the gradient mean over
-  the ranks gives the global term. 'scatter' takes its capacity from the
-  global token count, rounded up to a multiple of W as the reference does
-  (:335-343), and drops by global position: rank r's assignment at local
-  position p of expert e sits at p + (rank r's offset of e, the counts of
-  the ranks before it). `_expert_constraint` (a mesh constraint of the
-  'ep' recipe) comes with slice 6.
+  per-expert assignment counts are all-gathered over the ranks holding
+  different tokens (data x seq; E floats per layer and forward), so the
+  load `fi`, the bias update, the aux loss and `dropped_frac` match the
+  reference's on every rank. `pi` needs no collective: with equal token
+  counts per rank, the gradient mean over the ranks gives the global
+  term. 'scatter' takes its capacity from the global token count, rounded
+  up to a multiple of W as the reference does (:335-343), and drops by
+  global position: rank r's assignment at local position p of expert e
+  sits at p + (rank r's offset of e, the counts of the ranks before it).
+  Under a 'seq' axis a rank's tokens are not one run of global positions,
+  so 'scatter' raises there (ROADMAP, Queue 1 item 6) rather than drop
+  other assignments than the reference. `_expert_constraint` (a mesh
+  constraint of the 'ep' recipe) comes with slice 6.
 * Tensor parallelism (parallel/tensor.py sets `tp` = (rank, tp) and cuts
   the weights): `c_fc` / `experts_fc` are column-parallel in the per-rank
   [gate_r | up_r] layout and `c_proj` / `experts_proj` row-parallel, so a
@@ -241,6 +244,12 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor):
         cfg = self.config
+        if cfg.moe_impl == "scatter" and context.seq_size() > 1:
+            raise NotImplementedError(
+                "moe_impl='scatter' under a 'seq' axis: its capacity drops "
+                "by global token position, which a rank's sequence slice is "
+                "not one run of (ROADMAP, Queue 1 item 6); use 'grouped' or "
+                "'dense'")
         B, T, C = x.shape
         dt = x.dtype
         n_shared, n_routed, k = cfg.n_shared, cfg.n_routed, cfg.n_act_routed
@@ -288,10 +297,10 @@ class MoE(nn.Module):
         one_hot = F.one_hot(topk_idx, n_routed).float()
         load = one_hot.sum(dim=(0, 1)).detach()             # per expert
         # the global batch's counts under a data-parallel recipe
-        counts = context.all_gather_stack(load)             # (W, E) | None
+        counts = context.batch_all_gather_stack(load)       # (W, E) | None
         W, offset = 1, None
         if counts is not None:
-            W, r = counts.shape[0], context.data_rank()
+            W, r = counts.shape[0], context.batch_rank()
             load, offset = counts.sum(dim=0), counts[:r].sum(dim=0)
         n_glob = n_tokens * W
         fi = load / n_glob

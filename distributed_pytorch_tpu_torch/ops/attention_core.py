@@ -28,8 +28,19 @@ k, v (B, S, nkv, hs) ("BTNH"), or (n_blocks, bs, nkv, hs) pools with
   paged multi-sequence chunk -> `_naive_sdpa`, the explicit einsum path
   (the paged route first gathers the logical view), with the same
   dropout mask as the kernels.
-* 'xla', 'ring', 'zigzag' and 'ulysses' raise NotImplementedError naming
-  the slice that brings them.
+* Under a live 'seq' axis (parallel/context.py; the trainer's sequence
+  parallelism), a training-shaped call — causal, no cache, a static
+  `q_offset == 0`, q and k of one length — with `impl` 'auto', 'pallas',
+  'ring', 'zigzag' or 'ulysses' -> `ring_attention.sp_sdpa`: this rank's
+  T / sp rows attend the whole sequence by ring, zig-zag or Ulysses
+  attention on the flash kernels, whichever the world resolved once from
+  the run's config with the reference's gates (attention_core.py:242-300,
+  `World.seq_impl`). 'naive' there raises: it has no
+  sequence-parallel form. An explicit 'ring' / 'zigzag' / 'ulysses' on a
+  training-shaped call with no live 'seq' axis raises ValueError, as the
+  reference's does; on any other call (decode, prefill) it means 'auto':
+  cached calls never route to the 'seq' path.
+* 'xla' raises NotImplementedError: the port has no XLA.
 
 The kernel routes are chosen by shape alone. On the card a wrapper
 launches its kernel or raises on operands the kernel does not take, so no
@@ -47,15 +58,14 @@ from distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from distributed_pytorch_tpu_torch.ops import flash_decode as fd
 from distributed_pytorch_tpu_torch.ops.block_pool import paged_gather
 from distributed_pytorch_tpu_torch.ops.quant import dequantize_int8
+from distributed_pytorch_tpu_torch.parallel import context
 
-#: impls the reference offers that come with a later slice of the port
+#: impls the reference offers that the port does not run
 LATER_IMPLS = {
     "xla": "the port has no XLA; use 'auto' or 'pallas' (the flash "
            "kernels) or 'naive'",
-    "ring": "sequence parallelism comes with slice 6 (parallel recipes)",
-    "zigzag": "sequence parallelism comes with slice 6 (parallel recipes)",
-    "ulysses": "sequence parallelism comes with slice 6 (parallel recipes)",
 }
+SP_IMPLS = ("ring", "zigzag", "ulysses")
 
 
 def _naive_sdpa(q, k, v, *, scale, q_offset=0, causal=True,
@@ -109,14 +119,38 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dropout mask is that slice of the whole layer's."""
     if impl in LATER_IMPLS:
         raise NotImplementedError(f"attn_impl={impl!r}: {LATER_IMPLS[impl]}")
-    if impl not in ("auto", "pallas", "naive"):
+    if impl not in ("auto", "pallas", "naive") + SP_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; expected "
-                         "'auto' | 'pallas' | 'naive'")
+                         "'auto' | 'pallas' | 'naive' | 'ring' | 'zigzag' | "
+                         "'ulysses'")
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 needs a (2,) int32 dropout_seed")
     B, T, _, hs = q.shape
     scale = (1.0 / hs ** 0.5) if scale is None else scale
     kv_scales = dict(k_scale=k_scale, v_scale=v_scale)
+
+    training_like = (causal and not decode and block_tables is None
+                     and k_scale is None and T > 1 and k.shape[1] == T
+                     and isinstance(q_offset, int) and q_offset == 0)
+    sp_live = context.seq_size() > 1 and not context.in_sp_region()
+    if training_like and sp_live:
+        if impl == "naive":
+            raise ValueError("attn_impl='naive' under a 'seq' axis: the naive "
+                             "path has no sequence-parallel form; use "
+                             "'auto', 'pallas', 'ring', 'zigzag' or "
+                             "'ulysses'")
+        from distributed_pytorch_tpu_torch.ops.ring_attention import sp_sdpa
+        return sp_sdpa(q, k, v, scale=scale, dropout_rate=dropout_rate,
+                       dropout_seed=dropout_seed)
+    if impl in SP_IMPLS:
+        if training_like and not context.in_sp_region():
+            raise ValueError(
+                f"attn_impl={impl!r} on a full causal sequence with no live "
+                "'seq' axis: publish a world with sp_size > 1 "
+                "(parallel/context.py, as the trainer does under "
+                "--sp_size) or use 'auto'; a silent fallback would lose "
+                "sequence parallelism without a signal")
+        impl = "auto"
 
     if block_tables is not None:
         if decode and T == 1:

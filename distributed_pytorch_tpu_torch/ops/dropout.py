@@ -9,11 +9,20 @@ builds its mask from its own seed alone, so a region recomputed under
 `torch.Generator` streams differ from `jax.random`, so the packages agree
 on dropout masks only where both use the attention kernels' counter hash
 (`ops/flash_attention.dropout_bits`).
+
+Under a published 'seq' axis (sequence parallelism) a site's `x` holds
+this rank's T / sp positions of each row along dim 1: the mask is drawn
+over the whole rows and taken at this rank's positions
+(ops/ring_attention.py `seq_positions`), so the seq ranks together draw
+the one mask a process holding the whole rows draws.
 """
 
 from __future__ import annotations
 
 import torch
+
+from distributed_pytorch_tpu_torch.ops.ring_attention import seq_positions
+from distributed_pytorch_tpu_torch.parallel import context
 
 _M64 = (1 << 64) - 1
 
@@ -46,8 +55,12 @@ def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     elements are scaled by 1 / (1 - rate), as flax's nn.Dropout does."""
     if rate <= 0.0:
         return x
+    rows = seq_positions(x.shape[1], x.device) if x.dim() > 1 else None
+    shape = x.shape if rows is None else \
+        (x.shape[0], x.shape[1] * context.seq_size(), *x.shape[2:])
     g = torch.Generator(device=x.device)
     g.manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    keep = torch.rand(shape, generator=g, device=x.device)
+    keep = (keep if rows is None else keep[:, rows]) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))

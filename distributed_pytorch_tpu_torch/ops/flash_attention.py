@@ -46,7 +46,11 @@ slice of the heads (a tensor-parallel rank's nh / tp heads) passes
 `head_offset` (its first head) and `total_heads` (the whole call's nh):
 its row is then b * total_heads + head_offset + h, so it draws the slice
 of the whole call's mask and the mask does not change with the tensor-
-parallel size. The mask is
+parallel size. A call over a block of a longer sequence (a ring
+attention hop, ops/ring_attention.py) passes `q_pos0` and `k_pos0`, the
+global positions of its first query and first key: element (i, j) is then
+keyed on (q_pos0 + i, k_pos0 + j), so the hops together draw the whole
+sequence's mask (the reference's `_hop_dropout_mask`). The mask is
 keyed on absolute coordinates, so tile sizes do not change it; the
 reference's TPU tile knobs (FLASH_BLOCK_Q/K/H, FLASH_LAYOUT, the VMEM
 budget) have no counterpart.
@@ -149,18 +153,19 @@ def _keep_scale(rate: float) -> float:
 
 
 def keep_mask(seed, rate: float, B: int, nh: int, T: int, S: int,
-              device=None, head_offset: int = 0,
-              total_heads=None) -> torch.Tensor:
+              device=None, head_offset: int = 0, total_heads=None,
+              q_pos0: int = 0, k_pos0: int = 0) -> torch.Tensor:
     """The scaled keep-mask (B, nh, T, S) fp32: 1/(1 - rate) where
-    `dropout_bits` of (b*total_heads + head_offset + h, t, s) reaches the
-    threshold, else 0 (`total_heads` defaults to nh)."""
+    `dropout_bits` of (b*total_heads + head_offset + h, q_pos0 + t,
+    k_pos0 + s) reaches the threshold, else 0 (`total_heads` defaults to
+    nh)."""
     seed = torch.as_tensor(seed, device=device).long()
     row = (torch.arange(B, device=device).reshape(B, 1, 1, 1)
            * (nh if total_heads is None else total_heads) + head_offset
            + torch.arange(nh, device=device).reshape(1, nh, 1, 1))
     bits = dropout_bits(seed[0], seed[1], row,
-                        torch.arange(T, device=device)[:, None],
-                        torch.arange(S, device=device))
+                        q_pos0 + torch.arange(T, device=device)[:, None],
+                        k_pos0 + torch.arange(S, device=device))
     return (bits >= dropout_threshold(rate)).float() * _keep_scale(rate)
 
 
@@ -188,14 +193,17 @@ def _group(x, nkv):
     return x.reshape(B, nkv, nh // nkv, T, 1)
 
 
-def _mask_g(seed, rate, q, nkv, S, heads):
+def _mask_g(seed, rate, q, nkv, S, coords):
+    """The keep-mask grouped as the scores; `coords` = (head_offset,
+    total_heads, q_pos0, k_pos0)."""
     B, T, nh, _ = q.shape
-    return keep_mask(seed, rate, B, nh, T, S, q.device, *heads) \
+    return keep_mask(seed, rate, B, nh, T, S, q.device, *coords) \
         .reshape(B, nkv, nh // nkv, T, S)
 
 
 def flash_attn_fwd_plain(q, k, v, seed=None, *, scale, causal=True,
-                         dropout_rate=0.0, head_offset=0, total_heads=None):
+                         dropout_rate=0.0, head_offset=0, total_heads=None,
+                         q_pos0=0, k_pos0=0):
     """Plain version of `flash_attn_fwd`: (out (B, T, nh, D), lse
     (B, nh, T) fp32)."""
     PLAIN_CALLS["flash_attn_fwd"] += 1
@@ -207,7 +215,7 @@ def flash_attn_fwd_plain(q, k, v, seed=None, *, scale, causal=True,
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     if dropout_rate > 0.0:
         p = p * _mask_g(seed, dropout_rate, q, nkv, k.shape[1],
-                        (head_offset, total_heads))
+                        (head_offset, total_heads, q_pos0, k_pos0))
     pv = torch.einsum("bgrts,bsgd->bgrtd", p.to(v.dtype).float(), v.float())
     out = (pv / l).permute(0, 3, 1, 2, 4).reshape(B, T, nh, D)
     lse = (m + torch.log(l)).reshape(B, nh, T)
@@ -215,7 +223,7 @@ def flash_attn_fwd_plain(q, k, v, seed=None, *, scale, causal=True,
 
 
 def _bwd_plain(q, k, v, dout, lse, delta, seed, scale, causal, rate,
-               heads):
+               coords):
     """(p * mask, dS) (B, nkv, rep, T, S) fp32, as both backward kernels
     form them."""
     nkv = k.shape[2]
@@ -225,7 +233,7 @@ def _bwd_plain(q, k, v, dout, lse, delta, seed, scale, causal, rate,
     dp = torch.einsum("btgrd,bsgd->bgrts", dog, v.float())
     pm = p
     if rate > 0.0:
-        mask = _mask_g(seed, rate, q, nkv, k.shape[1], heads)
+        mask = _mask_g(seed, rate, q, nkv, k.shape[1], coords)
         pm = p * mask
         dp = dp * mask
     return pm, p * (dp - _group(delta, nkv))
@@ -233,11 +241,12 @@ def _bwd_plain(q, k, v, dout, lse, delta, seed, scale, causal, rate,
 
 def flash_attn_bwd_dq_plain(q, k, v, dout, lse, delta, seed=None, *, scale,
                             causal=True, dropout_rate=0.0, head_offset=0,
-                            total_heads=None):
+                            total_heads=None, q_pos0=0, k_pos0=0):
     """Plain version of `flash_attn_bwd_dq`: dq (B, T, nh, D)."""
     PLAIN_CALLS["flash_attn_bwd_dq"] += 1
     _, ds = _bwd_plain(q, k, v, dout, lse, delta, seed, scale, causal,
-                       dropout_rate, (head_offset, total_heads))
+                       dropout_rate, (head_offset, total_heads, q_pos0,
+                                      k_pos0))
     dq = torch.einsum("bgrts,bsgd->btgrd", ds.to(k.dtype).float(),
                       k.float()) * scale
     return dq.reshape(q.shape).to(q.dtype)
@@ -245,12 +254,13 @@ def flash_attn_bwd_dq_plain(q, k, v, dout, lse, delta, seed=None, *, scale,
 
 def flash_attn_bwd_dkv_plain(q, k, v, dout, lse, delta, seed=None, *, scale,
                              causal=True, dropout_rate=0.0, head_offset=0,
-                             total_heads=None):
+                             total_heads=None, q_pos0=0, k_pos0=0):
     """Plain version of `flash_attn_bwd_dkv`: (dk, dv) (B, S, nkv, D), the
     GQA group summed in fp32."""
     PLAIN_CALLS["flash_attn_bwd_dkv"] += 1
     pm, ds = _bwd_plain(q, k, v, dout, lse, delta, seed, scale, causal,
-                        dropout_rate, (head_offset, total_heads))
+                        dropout_rate, (head_offset, total_heads, q_pos0,
+                                       k_pos0))
     B, T, nh, D = q.shape
     nkv = k.shape[2]
     qg = q.float().reshape(B, T, nkv, nh // nkv, D)
@@ -294,11 +304,12 @@ def _strided(x: torch.Tensor) -> torch.Tensor:
     return _aligned(x)
 
 
-def _prepare(name, q, k, v, seed, rate, heads, *more):
+def _prepare(name, q, k, v, seed, rate, coords, *more):
     """Check the operands of kernel `name`; returns the strided views, the
-    device seed and the dims array. `heads` = (head_offset, total_heads):
-    q's heads are heads head_offset .. of a call over total_heads (None:
-    q's own nh)."""
+    device seed and the dims array. `coords` = (head_offset, total_heads,
+    q_pos0, k_pos0): q's heads are heads head_offset .. of a call over
+    total_heads (None: q's own nh), its first query and key the global
+    positions q_pos0 and k_pos0 of the dropout mask."""
     if not q.is_cuda:
         raise ValueError(f"the CUDA kernels take CUDA tensors, got "
                          f"{q.device}")
@@ -319,12 +330,15 @@ def _prepare(name, q, k, v, seed, rate, heads, *more):
     else:
         seed = None
     B, T, nh, _ = q.shape
-    h0, n_all = heads[0], nh if heads[1] is None else heads[1]
+    h0, n_all = coords[0], nh if coords[1] is None else coords[1]
     if not 0 <= h0 <= n_all - nh:
         raise ValueError(f"{name}: heads {h0} .. {h0 + nh - 1} are not "
                          f"heads of a call over {n_all}")
-    dims = (ctypes.c_int * 9)(B, T, k.shape[1], nh, k.shape[2], 0, int(
-        rate > 0.0), n_all, h0)
+    if coords[2] < 0 or coords[3] < 0:
+        raise ValueError(f"{name}: position offsets {coords[2:]} must not "
+                         "be negative")
+    dims = (ctypes.c_int * 11)(B, T, k.shape[1], nh, k.shape[2], 0, int(
+        rate > 0.0), n_all, h0, coords[2], coords[3])
     return _strided(q), _strided(k), _strided(v), seed, dims
 
 
@@ -348,18 +362,22 @@ def _launch(name, fn_args, q, dims, strides, seed, scale, causal, rate):
 
 
 def flash_attn_fwd(q, k, v, seed=None, *, scale, causal=True,
-                   dropout_rate=0.0, head_offset=0, total_heads=None):
+                   dropout_rate=0.0, head_offset=0, total_heads=None,
+                   q_pos0=0, k_pos0=0):
     """Attention forward: (out (B, T, nh, D) in q's dtype, lse (B, nh, T)
     fp32). `seed` (2,) int32 feeds the dropout mask (ignored at rate 0);
-    `head_offset` / `total_heads` place q's heads in a call over more
+    `head_offset` / `total_heads` place q's heads in a call over more,
+    `q_pos0` / `k_pos0` its queries and keys in a longer sequence
     (module docstring)."""
     if q.device.type == "cpu":
         return flash_attn_fwd_plain(q, k, v, seed, scale=scale,
                                     causal=causal, dropout_rate=dropout_rate,
                                     head_offset=head_offset,
-                                    total_heads=total_heads)
+                                    total_heads=total_heads, q_pos0=q_pos0,
+                                    k_pos0=k_pos0)
     q, k, v, seed, dims = _prepare("flash_attn_fwd", q, k, v, seed,
-                                   dropout_rate, (head_offset, total_heads))
+                                   dropout_rate, (head_offset, total_heads,
+                                                  q_pos0, k_pos0))
     B, T, nh, D = q.shape
     out = torch.empty(B, T, nh, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, nh, T, dtype=torch.float32, device=q.device)
@@ -372,8 +390,8 @@ def flash_attn_fwd(q, k, v, seed=None, *, scale, causal=True,
     return out, lse
 
 
-def _bwd_operands(name, q, k, v, dout, lse, delta, seed, rate, heads):
-    q, k, v, seed, dims = _prepare(name, q, k, v, seed, rate, heads, dout,
+def _bwd_operands(name, q, k, v, dout, lse, delta, seed, rate, coords):
+    q, k, v, seed, dims = _prepare(name, q, k, v, seed, rate, coords, dout,
                                    lse, delta)
     B, T, nh, _ = q.shape
     if dout.shape != q.shape or lse.shape != (B, nh, T) \
@@ -391,7 +409,7 @@ def _bwd_operands(name, q, k, v, dout, lse, delta, seed, rate, heads):
 
 def flash_attn_bwd_dq(q, k, v, dout, lse, delta, seed=None, *, scale,
                       causal=True, dropout_rate=0.0, head_offset=0,
-                      total_heads=None):
+                      total_heads=None, q_pos0=0, k_pos0=0):
     """dq (B, T, nh, D) from the forward's lse and delta = rowsum(dout *
     out) - dlse, both (B, nh, T) fp32."""
     if q.device.type == "cpu":
@@ -399,10 +417,11 @@ def flash_attn_bwd_dq(q, k, v, dout, lse, delta, seed=None, *, scale,
                                        scale=scale, causal=causal,
                                        dropout_rate=dropout_rate,
                                        head_offset=head_offset,
-                                       total_heads=total_heads)
+                                       total_heads=total_heads, q_pos0=q_pos0,
+                                       k_pos0=k_pos0)
     q, k, v, dout, lse, delta, seed, dims, strides = _bwd_operands(
         "flash_attn_bwd_dq", q, k, v, dout, lse, delta, seed, dropout_rate,
-        (head_offset, total_heads))
+        (head_offset, total_heads, q_pos0, k_pos0))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("flash_attn_bwd_dq",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -413,17 +432,18 @@ def flash_attn_bwd_dq(q, k, v, dout, lse, delta, seed=None, *, scale,
 
 def flash_attn_bwd_dkv(q, k, v, dout, lse, delta, seed=None, *, scale,
                        causal=True, dropout_rate=0.0, head_offset=0,
-                       total_heads=None):
+                       total_heads=None, q_pos0=0, k_pos0=0):
     """(dk, dv) (B, S, nkv, D), each kv head's query group summed."""
     if q.device.type == "cpu":
         return flash_attn_bwd_dkv_plain(q, k, v, dout, lse, delta, seed,
                                         scale=scale, causal=causal,
                                         dropout_rate=dropout_rate,
                                         head_offset=head_offset,
-                                        total_heads=total_heads)
+                                        total_heads=total_heads, q_pos0=q_pos0,
+                                        k_pos0=k_pos0)
     q, k, v, dout, lse, delta, seed, dims, strides = _bwd_operands(
         "flash_attn_bwd_dkv", q, k, v, dout, lse, delta, seed, dropout_rate,
-        (head_offset, total_heads))
+        (head_offset, total_heads, q_pos0, k_pos0))
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     _launch("flash_attn_bwd_dkv",
@@ -437,19 +457,26 @@ def flash_attn_bwd_dkv(q, k, v, dout, lse, delta, seed=None, *, scale,
 # autograd
 # ---------------------------------------------------------------------------
 
+def coords_kw(coords) -> dict:
+    """The wrappers' keywords of `coords` = (head_offset, total_heads,
+    q_pos0, k_pos0)."""
+    return dict(zip(("head_offset", "total_heads", "q_pos0", "k_pos0"),
+                    coords))
+
+
 class _FlashAttention(torch.autograd.Function):
     """(out, lse) with lse differentiable: its gradient folds into delta
     (flash_attention.py:460-476), so a caller that merges partial
     attentions through lse (ring attention) gets the exact gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, scale, causal, rate, heads):
+    def forward(ctx, q, k, v, seed, scale, causal, rate, coords):
+        kw = coords_kw(coords)
         out, lse = flash_attn_fwd(q, k, v, seed, scale=scale, causal=causal,
-                                  dropout_rate=rate, head_offset=heads[0],
-                                  total_heads=heads[1])
+                                  dropout_rate=rate, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.seed, ctx.scale, ctx.causal, ctx.rate = seed, scale, causal, rate
-        ctx.heads = heads
+        ctx.kw = kw
         return out, lse
 
     @staticmethod
@@ -459,7 +486,7 @@ class _FlashAttention(torch.autograd.Function):
         if dlse is not None:
             delta = delta - dlse.float()
         kw = dict(scale=ctx.scale, causal=ctx.causal, dropout_rate=ctx.rate,
-                  head_offset=ctx.heads[0], total_heads=ctx.heads[1])
+                  **ctx.kw)
         dq = flash_attn_bwd_dq(q, k, v, dout, lse, delta, ctx.seed, **kw)
         dk, dv = flash_attn_bwd_dkv(q, k, v, dout, lse, delta, ctx.seed, **kw)
         return dq, dk, dv, None, None, None, None, None
@@ -467,13 +494,15 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention_lse(q, k, v, *, scale: float, causal: bool = True,
                         dropout_rate: float = 0.0, seed=None,
-                        head_offset: int = 0, total_heads=None):
+                        head_offset: int = 0, total_heads=None,
+                        q_pos0: int = 0, k_pos0: int = 0):
     """Flash attention returning (out (B, T, nh, D), lse (B, T, nh) fp32);
     both outputs are differentiable. `causal=False` is full attention.
     `dropout_rate` > 0 drops attention weights inside the kernels with the
     mask of `seed` (a (2,) int32 tensor), q's heads being heads
     `head_offset` .. of a call over `total_heads` (default: q's own); lse
-    is the true logsumexp of the undropped scores."""
+    is the true logsumexp of the undropped scores. `q_pos0` / `k_pos0`
+    place the queries and keys in a longer sequence for the mask."""
     rate = float(dropout_rate)
     if rate > 0.0 and seed is None:
         raise ValueError("dropout_rate > 0 needs a (2,) int32 seed")
@@ -481,7 +510,8 @@ def flash_attention_lse(q, k, v, *, scale: float, causal: bool = True,
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
     out, lse = _FlashAttention.apply(q, k, v, seed, float(scale),
                                      bool(causal), rate,
-                                     (int(head_offset), total_heads))
+                                     (int(head_offset), total_heads,
+                                      int(q_pos0), int(k_pos0)))
     return out, lse.transpose(1, 2)
 
 

@@ -21,9 +21,9 @@ values, lse = m + log(max(l, 1e-30)), dl rounded to the operand dtype
 before each product, fp32 accumulation. `LAUNCHES[name]` counts kernel
 launches, `PLAIN_CALLS[name]` plain-version calls; `DEGRADED` counts losses
 that asked for `loss_impl='pallas'` and took the chunked path because the
-reference's gate refused their shape or dtype, or the vocab-parallel loss
-under a 'model' axis, which the same gate sends off the kernels
-(models/gpt.py). The kernels
+reference's gate refused their shape or dtype, the vocab-parallel loss
+under a 'model' axis or the sequence-parallel loss under a 'seq' axis,
+which the same gate sends off the kernels (models/gpt.py). The kernels
 take every width that gate accepts. Each C entry picks a kernel by dtype
 and width before launch (the libraries' `fused_ce_fwd_plan` and
 `fused_ce_bwd_plan` name it): bf16 at C <= 1024 runs the Hopper kernel
@@ -55,7 +55,7 @@ PLAIN_CALLS = {"fused_ce_fwd": 0, "fused_ce_bwd_dx": 0, "fused_ce_bwd_dw": 0}
 #: losses degraded from loss_impl='pallas': to the chunked path by the
 #: shape and dtype gate, to the vocab-parallel loss under tensor
 #: parallelism (the reference's gate, models/gpt.py)
-DEGRADED = {"chunked": 0, "vocab_parallel": 0}
+DEGRADED = {"chunked": 0, "vocab_parallel": 0, "sequence_parallel": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

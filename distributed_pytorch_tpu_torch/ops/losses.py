@@ -13,17 +13,19 @@ Logits are fp32 whatever the compute dtype, as the reference's
 `preferred_element_type=float32` gives them: a bf16 lm-head product
 accumulates and returns in fp32 (`torch.mm(..., out_dtype=float32)` on the
 card), and its backward takes the fp32 gradient back to bf16 products.
-ignore_index is -1 throughout. The sequence-parallel variant
-(`sp_fused_cross_entropy`) comes with slice 6's 'sp' recipe; the
-streaming-kernel loss (`loss_impl='pallas'`) is ops/fused_ce.py.
+ignore_index is -1 throughout. The streaming-kernel loss
+(`loss_impl='pallas'`) is ops/fused_ce.py.
 
-Under a data-parallel recipe each rank computes its own rows' loss, as
+Under a data-parallel recipe each rank computes its own tokens' loss, as
 the reference's shard_map over 'data' does (fused_ce.py:322-332), and the
-mean's denominator is the global batch's valid count over W
-(`mean_denominator`): the ranks' losses then average, and their gradients
-mean, to the global mean over valid targets even where the ranks hold
-different numbers of ignored targets (the reference's `mask.sum()` over
-the global batch, fused_ce.py:336).
+mean's denominator is the global batch's valid count over W, the number
+of ranks holding different tokens (data x seq, `mean_denominator`): the
+ranks' losses then average, and their gradients mean, to the global mean
+over valid targets even where the ranks hold different numbers of ignored
+targets (the reference's `mask.sum()` over the global batch,
+fused_ce.py:336). Under sequence parallelism `sp_fused_cross_entropy` is
+the reference's (losses.py:122-166): each rank chunk-scans its (B, T/sp)
+tokens, the chunk re-derived for the local length.
 
 Under tensor parallelism the tied embedding is vocab-parallel (parallel/
 tensor.py) and `vocab_parallel_cross_entropy` computes the loss from the
@@ -44,11 +46,12 @@ from distributed_pytorch_tpu_torch.parallel import context
 def mean_denominator(count: torch.Tensor) -> torch.Tensor:
     """The denominator of a mean over valid targets from this rank's valid
     `count`: max(count, 1) on one process; under a data-parallel recipe
-    max(global count, 1) / W (one all-reduce of a scalar)."""
+    max(global count, 1) / W, W the data x seq ranks (one all-reduce of a
+    scalar)."""
     if not context.distributed():
         return count.clamp_min(1)
-    return context.all_reduce_sum(count.clone()).clamp_min(1) \
-        / context.data_size()
+    return context.batch_all_reduce_sum(count.clone()).clamp_min(1) \
+        / context.batch_size()
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -156,6 +159,21 @@ def fused_cross_entropy(x: torch.Tensor, embedding: torch.Tensor,
                                        ignore_index=ignore_index)
     total, count = _nll_sum_chunked(x, embedding, targets, ignore_index,
                                     chunk)
+    return total / mean_denominator(count)
+
+
+def sp_fused_cross_entropy(x: torch.Tensor, embedding: torch.Tensor,
+                           targets: torch.Tensor, *, ignore_index: int = -1,
+                           chunk: int = 0) -> torch.Tensor:
+    """Sequence-parallel chunked CE (reference losses.py:122-166): x
+    (B, T/sp, C) this rank's tokens. `chunk` is sized for the whole T: one
+    that does not divide the local length into more than one piece is
+    re-derived for it (`_chunk_for`, or one block), and the sum and count
+    reduce over data x seq (`mean_denominator`)."""
+    t_local = x.shape[1]
+    c = chunk if (chunk > 0 and t_local % chunk == 0
+                  and t_local // chunk > 1) else 0
+    total, count = _nll_sum_chunked(x, embedding, targets, ignore_index, c)
     return total / mean_denominator(count)
 
 

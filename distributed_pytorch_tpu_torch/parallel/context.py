@@ -1,15 +1,29 @@
-"""The ambient world: its data group, its model group and the whole of it.
+"""The ambient world: its data, seq and model groups and the whole of it.
 
-Counterpart of the reference package's `parallel/context.py` (:20-30),
+Counterpart of the reference package's `parallel/context.py` (:20-52),
 which publishes the trainer's mesh so that code inside the model can issue
 collectives over it. The trainer publishes its `World` (parallel/mesh.py)
-here for the length of a run, and three kinds of reduction stay apart:
+here for the length of a run, and these kinds of reduction stay apart:
 
 * over the 'data' group (the ranks that hold the same model pieces and
-  different rows): the loss's valid count and the logged loss
-  (ops/losses.py, train/step.py), the MoE's routing statistics
-  (models/mlp.py) — `all_reduce_sum`, `all_reduce_mean`,
-  `all_gather_stack`, `data_size`, `data_rank`;
+  different rows): the sharded gradients' norm (train/state.py) —
+  `all_reduce_sum`, `all_reduce_mean`, `all_gather_stack`, `data_size`,
+  `data_rank`;
+* over the batch ranks, data x seq (the ranks that hold different tokens:
+  the 'data' group when there is no 'seq' axis): the loss's valid count
+  and the logged loss (ops/losses.py, train/step.py), the eval means, the
+  MoE's routing statistics (models/mlp.py) — `batch_size`, `batch_rank`,
+  `batch_all_reduce_sum`, `batch_all_reduce_mean`,
+  `batch_all_gather_stack`;
+* over the 'seq' group (the sp ranks of one data rank, which hold
+  different positions of the same rows): ring and Ulysses attention
+  (ops/ring_attention.py) — `seq_size`, `seq_rank`, `seq_impl`,
+  `seq_layout`, the neighbour permute `seq_permute` (the reference's
+  `ppermute`; its gradient goes the other way) with its asynchronous form
+  `seq_permute_start`, and the tiled `seq_all_to_all` (the reference's
+  `all_to_all`; its gradient is the inverse all-to-all), and
+  `sp_region`, inside which attention does not route to the 'seq' path
+  again (the reference's `sp_region`, :29-52);
 * over the 'model' group (the tp ranks of one data rank, which hold the
   same rows and different pieces of the model): the tensor-parallel
   layers' collectives — `model_size`, `model_rank`, `model_all_reduce`,
@@ -20,15 +34,15 @@ here for the length of a run, and three kinds of reduction stay apart:
   gradient norm's cut pieces — `any_rank`, `broadcast_object`, `barrier`,
   `world_all_reduce_sum`.
 
-With no 'model' axis the data group is the whole world and every model
-helper is the identity. With no world published, or the single recipe's,
-every helper is the identity and nothing communicates: serving and
-one-device training never see a collective.
+With no 'seq' axis the batch ranks are the data ranks; with no 'model'
+axis every model helper is the identity. With no world published, or the
+single recipe's, every helper is the identity and nothing communicates:
+serving and one-device training never see a collective.
 
 The world is a module global rather than a context variable: the autograd
 engine recomputes checkpointed blocks on its own threads, which do not see
-the caller's context variables. The 'seq', expert and overlap contexts come
-with their recipes.
+the caller's context variables. The expert and overlap contexts come with
+their recipes.
 """
 
 from __future__ import annotations
@@ -96,6 +110,61 @@ def use_world(world: Optional[World]):
         _WORLD = prev
 
 
+def seq_size() -> int:
+    """Ranks on the 'seq' axis (1 with no group)."""
+    w = _live()
+    return w.sp if w is not None else 1
+
+
+def seq_rank() -> int:
+    w = _live()
+    return w.seq_rank if w is not None else 0
+
+
+def seq_impl() -> str:
+    """The world's sequence-parallel attention: 'ring', 'zigzag' or
+    'ulysses' (ops/ring_attention.py)."""
+    w = _live()
+    return w.seq_impl if w is not None else "ring"
+
+
+def seq_layout() -> str:
+    """How a row's positions are cut over 'seq': 'contiguous' or
+    'zigzag' (ops/ring_attention.py)."""
+    w = _live()
+    return w.seq_layout if w is not None else "contiguous"
+
+
+def batch_size() -> int:
+    """Ranks holding different tokens, data x seq (1 with no group)."""
+    w = _live()
+    return w.dp * w.sp if w is not None else 1
+
+
+def batch_rank() -> int:
+    w = _live()
+    return w.batch_rank if w is not None else 0
+
+
+_SP_DEPTH = 0
+
+
+def in_sp_region() -> bool:
+    """Whether a sequence-parallel attention call is running: attention
+    inside it does not route to the 'seq' path again."""
+    return _SP_DEPTH > 0
+
+
+@contextlib.contextmanager
+def sp_region():
+    global _SP_DEPTH
+    _SP_DEPTH += 1
+    try:
+        yield
+    finally:
+        _SP_DEPTH -= 1
+
+
 # ---------------------------------------------------------------------------
 # the 'data' group
 # ---------------------------------------------------------------------------
@@ -127,6 +196,120 @@ def all_gather_stack(t: torch.Tensor) -> Optional[torch.Tensor]:
     dist.all_gather_into_tensor(out, t.contiguous().reshape(-1),
                                 group=w.data_group)
     return out.view((w.dp,) + tuple(t.shape))
+
+
+# ---------------------------------------------------------------------------
+# the batch ranks, data x seq
+# ---------------------------------------------------------------------------
+
+def batch_all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """t summed over the data x seq ranks (in place; returned)."""
+    w = _live()
+    if w is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=w.batch_group)
+    return t
+
+
+def batch_all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
+    """t averaged over the data x seq ranks (in place; returned)."""
+    w = _live()
+    if w is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=w.batch_group)
+        t.div_(w.dp * w.sp)
+    return t
+
+
+def batch_all_gather_stack(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """(dp sp, *t.shape): every data x seq rank's t in batch-rank order,
+    or None with no group."""
+    w = _live()
+    if w is None:
+        return None
+    n = w.dp * w.sp
+    out = torch.empty(n * t.numel(), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous().reshape(-1),
+                                group=w.batch_group)
+    return out.view((n,) + tuple(t.shape))
+
+
+# ---------------------------------------------------------------------------
+# the 'seq' group
+# ---------------------------------------------------------------------------
+
+def _seq() -> World:
+    w = _live()
+    if w is None or w.sp == 1:
+        raise RuntimeError("a 'seq' collective needs a published world "
+                           "with a 'seq' axis of more than one rank")
+    return w
+
+
+def seq_permute_start(t: torch.Tensor, shift: int = 1):
+    """Start sending t to seq rank (r + shift) mod sp and receiving the
+    t of rank (r - shift) mod sp; returns a function that waits and gives
+    the received tensor. No autograd (`seq_permute` has it)."""
+    w = _seq()
+    g, sp, r = w.seq_group, w.sp, w.seq_rank
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(
+               g, (r + shift) % sp), g),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(
+               g, (r - shift) % sp), g)]
+    reqs = dist.batch_isend_irecv(ops)
+
+    def wait() -> torch.Tensor:
+        for q in reqs:
+            q.wait()
+        return out
+    return wait
+
+
+class _SeqPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shift):
+        ctx.shift = shift
+        return seq_permute_start(x, shift)()
+
+    @staticmethod
+    def backward(ctx, g):
+        return seq_permute_start(g, -ctx.shift)(), None
+
+
+def seq_permute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """The t of seq rank (r - shift) mod sp, received while this rank's
+    goes to (r + shift) mod sp (the reference's `ppermute` over 'seq');
+    the gradient goes the other way."""
+    return _SeqPermute.apply(x, shift)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int):
+    w = _seq()
+    parts = torch.stack(x.chunk(w.sp, dim=split_dim)).contiguous()
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out, parts, group=w.seq_group)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _SeqAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim):
+        ctx.dims = (split_dim, concat_dim)
+        return _all_to_all(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(g, concat_dim, split_dim), None, None
+
+
+def seq_all_to_all(x: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+    """The reference's tiled `all_to_all` over 'seq': x cut into sp
+    pieces along `split_dim`, piece i sent to seq rank i, and the pieces
+    received from ranks 0 .. sp-1 joined along `concat_dim`; the gradient
+    takes the inverse all-to-all."""
+    return _SeqAllToAll.apply(x, split_dim % x.dim(), concat_dim % x.dim())
 
 
 # ---------------------------------------------------------------------------

@@ -6,14 +6,21 @@ as they are, so a recipe resolves to the same axis sizes in both packages.
 The reference lays its devices out as a `jax.sharding.Mesh` (`build_mesh`,
 mesh.py:96-106); here the world is a `torch.distributed` process group of
 one process per card, and `World` describes this process's place in it.
-With a 'model' axis (tensor parallelism, `tp` > 1) the ranks form a 2-D
-`DeviceMesh` of ("data", "model") with 'model' innermost, as the
-reference's axis order puts it: global rank = data rank x tp + model
-rank, so the ranks of one model group sit on adjacent cards. The mesh's
-'data' group (the ranks holding the same model pieces) carries the
-data-parallel collectives and its 'model' group (one data rank's tp
-pieces) the tensor-parallel ones; without a 'model' axis the data group
-is the whole world. The world itself is set up so:
+With a 'seq' axis (sequence parallelism, `sp` > 1) or a 'model' axis
+(tensor parallelism, `tp` > 1) the ranks form a 2-D `DeviceMesh` in the
+reference's axis order (`AXES`: 'data' outermost, then 'seq', then
+'model'): global rank = (data rank x sp + seq rank) x tp + model rank, so
+the ranks of one seq or model group sit on adjacent cards. The mesh's
+'data' group (the ranks holding the same model pieces and the same
+positions of different rows) carries the parameter and optimizer
+sharding's collectives, its 'seq' group (one data rank's sp ranks, which
+hold different positions of the same rows) ring and Ulysses attention,
+its 'model' group (one data rank's tp pieces) the tensor-parallel ones;
+the 'batch' ranks, data x seq, hold different tokens, and the loss, the
+MoE's statistics and the gradient reduce over them. Without a 'seq' or
+'model' axis the data group is the whole world. A 'seq' axis beside a
+'model' axis is refused (ROADMAP, Queue 1 item 6). The world itself is set
+up so:
 
 * under `torch.distributed.run` the group comes from its environment
   (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`);
@@ -88,11 +95,16 @@ def rung_down(n: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class World:
     """This process's place in the world. `backend` is 'nccl', 'gloo', or
-    'none' for the single recipe, which makes no group. `tp` ranks form
-    the 'model' axis; with `tp` > 1, `mesh` is the ("data", "model")
-    `DeviceMesh` and `data_group` / `model_group` its two groups of this
-    rank (with `tp` 1 both are None: the data group is the default
-    group)."""
+    'none' for the single recipe, which makes no group. `sp` ranks form
+    the 'seq' axis and `tp` ranks the 'model' axis; with either over 1,
+    `mesh` is the ("data", "seq") or ("data", "model") `DeviceMesh` and
+    `data_group`, `seq_group` / `model_group` its groups of this rank
+    (None where the axis is 1, and the data group None where it is the
+    whole world). `batch_group` holds the ranks of different tokens,
+    data x seq (None: the whole world). `seq_impl` is the sequence-parallel
+    attention the run resolved once from its config (ops/ring_attention.py
+    `config_impl`): 'ring', 'zigzag' or 'ulysses'; `seq_layout` follows
+    from it."""
 
     rank: int = 0
     size: int = 1
@@ -101,9 +113,13 @@ class World:
     device: torch.device = torch.device("cpu")
     owns_group: bool = False
     tp: int = 1
+    sp: int = 1
     mesh: Any = None
     data_group: Any = None
     model_group: Any = None
+    seq_group: Any = None
+    batch_group: Any = None
+    seq_impl: str = "ring"
 
     @property
     def is_main(self) -> bool:
@@ -116,15 +132,30 @@ class World:
     @property
     def dp(self) -> int:
         """Ranks on the 'data' axis."""
-        return self.size // self.tp
+        return self.size // (self.tp * self.sp)
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.tp
+        return self.rank // (self.tp * self.sp)
+
+    @property
+    def seq_rank(self) -> int:
+        return (self.rank // self.tp) % self.sp
 
     @property
     def model_rank(self) -> int:
         return self.rank % self.tp
+
+    @property
+    def seq_layout(self) -> str:
+        """How a row's positions are cut over 'seq': 'zigzag' under
+        zig-zag attention, else 'contiguous'."""
+        return "zigzag" if self.seq_impl == "zigzag" else "contiguous"
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's place among the data x seq ranks."""
+        return self.rank // self.tp
 
 
 def torchrun_env(environ: Optional[Mapping[str, str]] = None
@@ -137,12 +168,14 @@ def torchrun_env(environ: Optional[Mapping[str, str]] = None
 
 
 def init_world(recipe: str, platform: str = "auto",
-               dp_size: int = -1, tp_size: int = 1) -> World:
+               dp_size: int = -1, tp_size: int = 1,
+               sp_size: int = 1) -> World:
     """The world of a training run. 'single' makes no group and refuses a
     torchrun launch of more than one process; the other recipes join (or
-    make) a group of dp_size x tp_size ranks (`dp_size` -1: the world
-    over tp_size), and with tp_size > 1 lay it out as the ("data",
-    "model") mesh."""
+    make) a group of dp_size x sp_size x tp_size ranks (`dp_size` -1:
+    the world over sp_size x tp_size), checked as the reference's
+    `resolve_plan` checks its plan, and with sp_size or tp_size > 1 lay it
+    out as the ("data", "seq") or ("data", "model") mesh."""
     env = torchrun_env()
     cpu = platform == "cpu"
     if recipe == "single":
@@ -150,8 +183,12 @@ def init_world(recipe: str, platform: str = "auto",
             raise ValueError(
                 f"parallelism='single' trains on one process; "
                 f"WORLD_SIZE={env['WORLD_SIZE']} asks for a data-parallel "
-                "recipe (--parallelism dp|zero1|zero2|fsdp|tp|fsdp_tp)")
+                "recipe (--parallelism dp|zero1|zero2|fsdp|tp|fsdp_tp|sp)")
         return World(device=resolve_device("cpu" if cpu else None))
+    if sp_size > 1 and tp_size > 1:
+        raise NotImplementedError(
+            f"sp_size={sp_size} beside tp_size={tp_size}: the 'seq' x "
+            "'model' composition comes with ROADMAP Queue 1 item 6")
     local = int(env["LOCAL_RANK"]) if env else 0
     owns = not dist.is_initialized()
     if owns:
@@ -173,35 +210,36 @@ def init_world(recipe: str, platform: str = "auto",
                 if backend == "nccl" else 0
     rank, size = dist.get_rank(), dist.get_world_size()
     try:
-        if size % tp_size:
-            raise ValueError(
-                f"tp_size={tp_size} does not divide the world's {size} "
-                "process(es)")
-        if dp_size not in (-1, size // tp_size):
-            raise ValueError(
-                f"dp_size={dp_size} but the data-parallel world has "
-                f"{size // tp_size} rank(s) ({size} process(es) over "
-                f"tp_size {tp_size}): launch dp_size x tp_size processes "
-                "or pass -1")
+        try:
+            resolve_plan(recipe, size, tp_size=tp_size, sp_size=sp_size,
+                         dp_size=dp_size)
+        except AssertionError as e:
+            raise ValueError(str(e)) from None
         if backend == "nccl":
             torch.cuda.set_device(local)
             device = torch.device("cuda", local)
         else:
             device = torch.device("cpu")
-        mesh = groups = None
-        if tp_size > 1:
+        mesh = None
+        groups = {}
+        inner = "seq" if sp_size > 1 else "model" if tp_size > 1 else None
+        if inner is not None:
             from torch.distributed.device_mesh import init_device_mesh
-            mesh = init_device_mesh(device.type, (size // tp_size, tp_size),
-                                    mesh_dim_names=("data", "model"))
-            groups = (mesh.get_group("data"), mesh.get_group("model"))
+            n = max(sp_size, tp_size)
+            mesh = init_device_mesh(device.type, (size // n, n),
+                                    mesh_dim_names=("data", inner))
+            groups = {"data": mesh.get_group("data"),
+                      inner: mesh.get_group(inner)}
     except BaseException:
         if owns:
             dist.destroy_process_group()
         raise
     return World(rank=rank, size=size, local_rank=local, backend=backend,
-                 device=device, owns_group=owns, tp=tp_size, mesh=mesh,
-                 data_group=groups and groups[0],
-                 model_group=groups and groups[1])
+                 device=device, owns_group=owns, tp=tp_size, sp=sp_size,
+                 mesh=mesh, data_group=groups.get("data"),
+                 model_group=groups.get("model"),
+                 seq_group=groups.get("seq"),
+                 batch_group=groups.get("data") if tp_size > 1 else None)
 
 
 def close_world(world: World) -> None:

@@ -16,6 +16,7 @@ pick a wrapper that issues them by hand over the 'data' group
 | fsdp   | 1/W    | 1/W     | 1/W        | FSDP2, each Block, then the root |
 | tp     | 1/tp   | 1/tp    | 1/tp       | cut layers, DDP on 'data' |
 | fsdp_tp| 1/(tpW)| 1/(tpW) | 1/(tpW)    | cut layers, FSDP2 on 'data' |
+| sp     | 1/W    | 1/W     | 1/W        | FSDP2 on ('seq', 'data') |
 
 With a 'model' axis (`tp_size` > 1) W is the 'data' axis's size: the world
 is dp x tp ranks (parallel/mesh.py), the leftover ranks landing on 'data'
@@ -34,6 +35,19 @@ model into each rank's pieces (per-rank layouts of the fused tensors) and
 the layers issue the 'model' collectives. Under zero1 / zero2 a 'model'
 axis is refused (ROADMAP, Queue 1 item 6).
 
+With a 'seq' axis (`sp_size` > 1, sequence parallelism) W is again the
+'data' axis's size: the world is dp x sp ranks, a rank holds T / sp
+positions of its data rank's rows (data/loader.py), and every tensor is
+held over 'data' as the table says and replicated over 'seq', as the
+reference's specs hold it (`sp` is `fsdp`'s row, sharding.py:16-42). A
+rank's gradient is then a part of the sum over the data x seq ranks:
+`dp` runs DDP over all of them; zero1 all-reduces over them; zero2
+reduce-scatters over 'data' and all-reduces its piece over 'seq'; `fsdp`
+and `sp` run FSDP2 on a ('seq', 'data') mesh that replicates over 'seq'
+and shards over 'data' (HSDP: reduce-scatter over 'data', all-reduce over
+'seq'). A 'seq' axis beside a 'model' axis is refused (ROADMAP, Queue 1
+item 6).
+
 * `dp`: `broadcast_buffers=False`, since the MoE's `expert_bias` is kept
   equal on every rank by its global statistics (models/mlp.py) and must
   not be overwritten from rank 0; `no_sync()` on all but the last
@@ -50,8 +64,12 @@ axis is refused (ROADMAP, Queue 1 item 6).
   gradients into this rank's piece and frees the rest.
 * `fsdp`: each `Block` is one FSDP2 unit and the root holds the rest,
   among it the tied `tkn_emb` / LM head, where the fused CE's dW and the
-  embedding's gradient meet. Parameters are dim-0 shards (DTensors) outside
-  forward and backward; FSDP2 gathers a unit's whole fp32 parameters before
+  embedding's gradient meet. Parameters are shards (DTensors) outside
+  forward and backward, on every mesh by one rule: on dim 0 where the
+  'data' size divides it, else on the axis the reference's
+  `_largest_divisible_axis` (:87) picks, so a rank holds the bytes the
+  reference's specs give a device (FSDP2's padded dim 0 where no axis
+  divides); FSDP2 gathers a unit's whole fp32 parameters before
   its forward and again before its backward (custom autograd Functions
   that saved them read the gathered storage), and reduce-scatters its
   gradients after every micro-step's backward.
@@ -92,12 +110,12 @@ OPT_SHARDED = ("zero1", "zero2") + PARAM_SHARDED
 # up).
 GRAD_SHARDED = ("zero2",) + PARAM_SHARDED
 # The recipes the port trains.
-PORTED = ("single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp")
+PORTED = ("single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp", "sp")
 # What the rest of slice 6 brings (ROADMAP, Queue 1 item 6).
-SLICE6_LEFT = ("ep, sp with ring attention and the sequence-parallel loss, "
-               "pp, offload, the collective-matmul overlap, a 'model' axis "
-               "under zero1 / zero2, and Adafactor under the sharded "
-               "recipes (ROADMAP, Queue 1 item 6)")
+SLICE6_LEFT = ("ep, pp, offload, the collective-matmul overlap, a 'model' "
+               "axis under zero1 / zero2, a 'seq' axis beside a 'model' "
+               "axis, and Adafactor under the sharded recipes (ROADMAP, "
+               "Queue 1 item 6)")
 
 # Tensor-parallel table, the reference's `_TP_RULES` (sharding.py:44-71) in
 # the port's names: (suffix of the dotted name) -> the axis cut over
@@ -160,19 +178,21 @@ def tp_recipe(recipe: str, tp_size: int) -> str:
     return recipe
 
 
-def check_recipe(recipe: str, optimizer: str, tp_size: int = 1) -> None:
+def check_recipe(recipe: str, optimizer: str, tp_size: int = 1,
+                 sp_size: int = 1) -> None:
     """Refuse a recipe the port does not train, a 'model' axis where the
-    port does not run one, or Adafactor (whole-tensor row and column
-    statistics) under a recipe that shards the moments or a 'model'
-    axis."""
+    port does not run one (under zero1 / zero2, beside a 'seq' axis), or
+    Adafactor (whole-tensor row and column statistics) under a recipe
+    that shards the moments or a 'model' axis."""
     if recipe not in PORTED:
         raise NotImplementedError(
             f"parallelism={recipe!r} comes with the rest of slice 6: "
             f"{SLICE6_LEFT}")
-    if tp_size > 1 and recipe in ("zero1", "zero2"):
+    if tp_size > 1 and (recipe in ("zero1", "zero2", "sp") or sp_size > 1):
         raise NotImplementedError(
-            f"tp_size={tp_size} under parallelism={recipe!r} comes with "
-            f"the rest of slice 6: {SLICE6_LEFT}")
+            f"tp_size={tp_size} under parallelism={recipe!r} with "
+            f"sp_size={sp_size} comes with the rest of slice 6: "
+            f"{SLICE6_LEFT}")
     if optimizer == "adafactor" and (recipe in OPT_SHARDED or tp_size > 1):
         raise NotImplementedError(
             f"optimizer='adafactor' under parallelism={recipe!r}: Adafactor "
@@ -203,11 +223,12 @@ def _piece(n: int, world: World) -> tuple[int, int, int]:
     return lo, min(lo + c, n), c
 
 
-def _dim0_chunk(full: torch.Tensor, world: World) -> torch.Tensor:
-    """This rank's dim-0 shard of `full` (torch.chunk's split, which is
-    DTensor's Shard(0) and FSDP2's)."""
-    lo, hi, _ = _piece(full.shape[0], world)
-    return full[lo:hi]
+def _data_chunk(full: torch.Tensor, world: World,
+                dim: int = 0) -> torch.Tensor:
+    """This rank's 'data' shard of `full` along `dim` (torch.chunk's
+    split, which is DTensor's Shard(dim) and FSDP2's)."""
+    lo, hi, _ = _piece(full.shape[dim], world)
+    return full.narrow(dim, lo, hi - lo)
 
 
 def _rebuild(optimizer: torch.optim.Optimizer,
@@ -287,7 +308,7 @@ class DDPRecipe(Recipe):
         ids = [world.device.index] if world.device.type == "cuda" else None
         self.module = DistributedDataParallel(
             model, device_ids=ids, broadcast_buffers=False,
-            process_group=world.data_group)
+            process_group=world.batch_group)
 
     def micro_step(self, last: bool):
         return contextlib.nullcontext() if last else self.module.no_sync()
@@ -317,16 +338,24 @@ class ZeroOptimizer:
 
     def reduce_scatter_grads(self) -> None:
         """zero2, after a micro-step's backward: sum every gradient over
-        the ranks into this rank's piece (accumulated) and free it."""
+        the data ranks into this rank's piece, and that over the seq
+        ranks (accumulated), and free it."""
+        w0 = self.world
         outs, works = [], []
         for p in self.params:
             c = self.span[p][2]
             out = p.grad.new_empty(c)
             works.append(dist.reduce_scatter_tensor(
-                out, _pad(p.grad, c * self.world.size), async_op=True))
+                out, _pad(p.grad, c * w0.dp), group=w0.data_group,
+                async_op=True))
             outs.append(out)
         for w in works:
             w.wait()
+        if w0.sp > 1:
+            works = [dist.all_reduce(out, group=w0.seq_group, async_op=True)
+                     for out in outs]
+            for w in works:
+                w.wait()
         for p, piece, out in zip(self.params, self.pieces, outs):
             g = out[:piece.numel()]
             piece.grad = g if piece.grad is None else piece.grad.add_(g)
@@ -334,8 +363,10 @@ class ZeroOptimizer:
 
     def all_reduce_grads(self) -> None:
         """zero1, once per step: sum the accumulated gradients over the
-        ranks and hand this rank's piece to the inner optimizer."""
-        works = [dist.all_reduce(p.grad, async_op=True) for p in self.params]
+        data x seq ranks and hand this rank's piece to the inner
+        optimizer."""
+        works = [dist.all_reduce(p.grad, group=self.world.batch_group,
+                                 async_op=True) for p in self.params]
         for w in works:
             w.wait()
         for p, piece in zip(self.params, self.pieces):
@@ -343,14 +374,16 @@ class ZeroOptimizer:
             piece.grad = p.grad.reshape(-1)[lo:hi]
 
     def _gather(self, vs: list) -> list:
-        """Every parameter's whole flattened tensor from the ranks' pieces
-        (`vs`: this rank's piece of each, in `self.params` order)."""
+        """Every parameter's whole flattened tensor from the data ranks'
+        pieces (`vs`: this rank's piece of each, in `self.params`
+        order)."""
         fulls, works = [], []
         for p, v in zip(self.params, vs):
             c = self.span[p][2]
-            full = v.new_empty(c * self.world.size)
-            works.append(dist.all_gather_into_tensor(full, _pad(v, c),
-                                                     async_op=True))
+            full = v.new_empty(c * self.world.dp)
+            works.append(dist.all_gather_into_tensor(
+                full, _pad(v, c), group=self.world.data_group,
+                async_op=True))
             fulls.append(full)
         for w in works:
             w.wait()
@@ -411,7 +444,7 @@ class ZeroRecipe(Recipe):
         if opt.stage == 1:
             opt.all_reduce_grads()
         g = [piece.grad for piece in opt.pieces]
-        torch._foreach_div_(g, float(self.world.size))
+        torch._foreach_div_(g, float(self.world.dp * self.world.sp))
         return g
 
     def zero_grad(self) -> None:
@@ -432,12 +465,34 @@ class FSDPRecipe(Recipe):
         from torch.distributed.device_mesh import init_device_mesh
         from torch.distributed.fsdp import fully_shard
         names = {p: n for n, p in model.named_parameters()}
-        mesh = world.mesh["data"] if world.mesh is not None else \
-            init_device_mesh(world.device.type, (world.size,),
-                             mesh_dim_names=("data",))
+        from torch.distributed.tensor import Shard
+        if world.sp > 1:
+            # HSDP: replicated over 'seq' (dim 0), sharded over 'data';
+            # entry [s, d] is the rank (d, s) of the world's mesh
+            from torch.distributed.device_mesh import DeviceMesh
+            mesh = DeviceMesh(world.device.type,
+                              torch.arange(world.size).view(world.dp,
+                                                            world.sp).t(),
+                              mesh_dim_names=("seq", "data"))
+        elif world.mesh is not None:
+            mesh = world.mesh["data"]
+        else:
+            mesh = init_device_mesh(world.device.type, (world.size,),
+                                    mesh_dim_names=("data",))
+
+        def place(p):
+            # dim 0 where 'data' divides it (FSDP2's default), else the
+            # reference's `_largest_divisible_axis`: either holds the bytes
+            # the reference's specs give a device; with no divisible axis,
+            # FSDP2's padded dim 0
+            dims = [i for i, n in enumerate(p.shape) if n % world.dp == 0]
+            if not dims or dims[0] == 0:
+                return None
+            return Shard(max(dims, key=lambda i: (p.shape[i], -i)))
+
         for blk in model.blocks:
-            fully_shard(blk, mesh=mesh)
-        fully_shard(model, mesh=mesh)
+            fully_shard(blk, mesh=mesh, shard_placement_fn=place)
+        fully_shard(model, mesh=mesh, shard_placement_fn=place)
         # fully_shard swaps in DTensor parameters: the optimizer is rebuilt
         # over them, group by group
         now = dict(model.named_parameters())
@@ -447,9 +502,9 @@ class FSDPRecipe(Recipe):
 
 
 def _broadcast_params(model, world: World) -> None:
-    """Data rank 0's parameters and buffers on every rank of its data
-    group (the model ranks hold different pieces)."""
-    g = world.data_group
+    """Batch rank 0's parameters and buffers on every rank of its data x
+    seq ranks (the model ranks hold different pieces)."""
+    g = world.batch_group
     src = 0 if g is None else dist.get_global_rank(g, 0)
     for t in list(model.parameters()) + list(model.buffers()):
         dist.broadcast(t.data, src=src, group=g)
@@ -462,7 +517,8 @@ def wrap(model, optimizer, recipe: str, world: Optional[World]) -> Recipe:
     train step drives. The model is data rank 0's afterwards on every
     rank."""
     check_recipe(recipe, type(optimizer).__name__.lower(),
-                 world.tp if world is not None else 1)
+                 world.tp if world is not None else 1,
+                 world.sp if world is not None else 1)
     if recipe == "single":
         return Recipe(model, optimizer, world)
     if recipe in ("dp", "tp"):
@@ -523,12 +579,13 @@ def full_state_dicts(model, optimizer) -> tuple[dict, dict]:
 
 
 def _shard_like(v: torch.Tensor, ref: torch.Tensor, world: World):
-    """`v` (whole) as `ref` holds it: a dim-0 DTensor shard for a DTensor
-    `ref`, else as it is."""
+    """`v` (whole) as `ref` holds it: this rank's 'data' shard, on the
+    axis `ref`'s placements shard, for a DTensor `ref`, else as it is."""
     from torch.distributed.tensor import DTensor
     if not isinstance(ref, DTensor):
         return v
-    piece = _dim0_chunk(v.to(device=ref.device, dtype=ref.dtype), world)
+    dim = next(p.dim for p in ref.placements if p.is_shard())
+    piece = _data_chunk(v.to(device=ref.device, dtype=ref.dtype), world, dim)
     return DTensor.from_local(piece.contiguous(), ref.device_mesh,
                               ref.placements, run_check=False,
                               shape=v.shape, stride=v.stride())

@@ -54,10 +54,19 @@ MLA models (`--attn mla`) train through the same path; FullMLA's
 training forward reaches the flash kernels at head size hs +
 rope_head_dim.
 
+Sequence parallelism (`--parallelism sp`, or `--sp_size N` under dp /
+zero1 / zero2 / fsdp): the world is dp x sp ranks, and the loaders give
+each rank its data rank's rows and its seq rank's positions of them, cut
+as the attention the config resolves to once wants them
+(ops/ring_attention.py `config_impl`, kept as `World.seq_impl`: zig-zag
+stripes, or contiguous for ring and Ulysses); the grad-accum arithmetic
+counts the 'data' axis only, as the reference's does, and tok/s and MFU
+a step's global tokens over the world.
+
 Not here yet, and refused where a config asks for them: the rest of slice
-6 (parallel/sharding.py `SLICE6_LEFT`: ep, sp, pp, offload, the
-collective-matmul overlap, a 'model' axis under zero1 / zero2, Adafactor
-under a sharded recipe); the
+6 (parallel/sharding.py `SLICE6_LEFT`: ep, pp, offload, the
+collective-matmul overlap, a 'model' axis under zero1 / zero2 or beside a
+'seq' axis, Adafactor under a sharded recipe); the
 profiler and the live metrics endpoint (slice 7). The reference's
 telemetry flight recorder, memory planner, AOT program store and
 multi-host bring-up also come with slices 6-7; `telemetry` is accepted
@@ -103,12 +112,16 @@ def check_slice(model_cfg: LLMConfig, train_cfg: TrainConfig) -> None:
     recipe = sharding.tp_recipe(train_cfg.parallelism, train_cfg.tp_size)
     if recipe not in sharding.PORTED:
         later.append(f"parallelism={train_cfg.parallelism!r}")
-    for axis in ("ep", "sp", "pp"):
+    for axis in ("ep", "pp"):
         if getattr(train_cfg, f"{axis}_size") > 1:
             later.append(f"{axis}_size={getattr(train_cfg, axis + '_size')}")
     if train_cfg.tp_size > 1 and recipe in ("zero1", "zero2"):
         later.append(f"tp_size={train_cfg.tp_size} under "
                      f"parallelism={recipe!r}")
+    if train_cfg.tp_size > 1 and (recipe == "sp" or train_cfg.sp_size > 1):
+        later.append(f"tp_size={train_cfg.tp_size} beside a 'seq' axis "
+                     f"(parallelism={recipe!r}, sp_size="
+                     f"{train_cfg.sp_size})")
     if train_cfg.offload == "on":
         later.append("offload='on'")
     if train_cfg.overlap == "on":
@@ -163,12 +176,13 @@ def data_paths(train_cfg: TrainConfig, vocab_size: int) -> tuple[str, str]:
 def estimate_loss(eval_step, state, loaders: dict, eval_iters: int) -> dict:
     """Mean eval loss over `eval_iters` batches per split, keyed on the
     eval iteration k (the same batches at every eval), micro-batch 0;
-    averaged over the ranks, whose rows make up the global batch."""
+    averaged over the ranks, whose tokens make up the global batch."""
     out = {}
     for split, loader in loaders.items():
         losses = [eval_step(state, *(t[0] for t in loader.next_batch(step=k)))
                   for k in range(eval_iters)]
-        out[split] = float(context.all_reduce_mean(torch.stack(losses).mean()))
+        out[split] = float(context.batch_all_reduce_mean(
+            torch.stack(losses).mean()))
     return out
 
 
@@ -233,16 +247,36 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
     if train_cfg.tp_size > 1 and train_cfg.parallelism == "single":
         raise ValueError(f"tp_size={train_cfg.tp_size} under "
                          "parallelism='single': use 'tp' or 'fsdp_tp'")
+    if train_cfg.sp_size > 1 and train_cfg.parallelism == "single":
+        raise ValueError(f"sp_size={train_cfg.sp_size} under "
+                         "parallelism='single': use 'sp', or --sp_size "
+                         "under dp, zero1, zero2 or fsdp")
+    if model_cfg.block_size % train_cfg.sp_size:
+        raise ValueError(f"sp_size={train_cfg.sp_size} does not divide "
+                         f"block_size {model_cfg.block_size}")
     train_cfg = dataclasses.replace(train_cfg, parallelism=sharding.tp_recipe(
         train_cfg.parallelism, train_cfg.tp_size))
-    world = init_world(train_cfg.parallelism, train_cfg.platform,
-                       train_cfg.dp_size, train_cfg.tp_size)
+    world = make_world(model_cfg, train_cfg)
     try:
         with context.use_world(world):
             return _train(model_cfg, train_cfg, world,
                           log if world.is_main else (lambda s: None))
     finally:
         close_world(world)
+
+
+def make_world(model_cfg: LLMConfig, train_cfg: TrainConfig) -> World:
+    """The run's world (parallel/mesh.py `init_world`) with the attention
+    of its 'seq' axis (ops/ring_attention.py `config_impl`)."""
+    world = init_world(train_cfg.parallelism, train_cfg.platform,
+                       train_cfg.dp_size, train_cfg.tp_size,
+                       train_cfg.sp_size)
+    if world.sp == 1:
+        return world
+    from distributed_pytorch_tpu_torch.ops.ring_attention import \
+        config_impl
+    return dataclasses.replace(world, seq_impl=config_impl(
+        model_cfg, train_cfg.attn_impl, world.sp))
 
 
 def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
@@ -263,10 +297,13 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
         else "cpu"
     W = world.dp                                  # ranks on 'data'
     plan = resolve_plan(train_cfg.parallelism, world.size,
-                        tp_size=world.tp, dp_size=train_cfg.dp_size)
+                        tp_size=world.tp, sp_size=world.sp,
+                        dp_size=train_cfg.dp_size)
+    seq = f" seq={plan.seq} ({world.seq_impl})" if world.sp > 1 else ""
     say(f"device {device} ({name}); tp={world.tp} "
         f"recipe={train_cfg.parallelism} world={world.size} "
-        f"backend={world.backend} data={plan.data} model={plan.model}")
+        f"backend={world.backend} data={plan.data} model={plan.model}"
+        f"{seq}")
 
     # grad accumulation arithmetic (reference loop.py:346-351)
     B, T = train_cfg.batch_size, model_cfg.block_size
@@ -287,7 +324,9 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
 
     def mk(path, seed):
         return DataLoader(path, B, T, grad_accum=grad_accum, seed=seed,
-                          device=device, rank=world.data_rank, world=W)
+                          device=device, rank=world.data_rank, world=W,
+                          seq_rank=world.seq_rank, sp=world.sp,
+                          layout=world.seq_layout)
 
     train_loader = mk(train_bin, train_cfg.seed)
     # eval streams of their own: the training batches do not depend on the
@@ -450,6 +489,7 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
     stats["recipe"] = train_cfg.parallelism
     stats["world"] = world.size
     stats["tp"] = world.tp
+    stats["sp"] = world.sp
     stats["backend"] = world.backend
     if stats.get("anomalies"):
         stats["n_anomalies"] = len(stats["anomalies"])

@@ -14,7 +14,8 @@ schedule's learning rate.
   `recipe.after_backward()` (zero2's reduce-scatter); `recipe.grads()`
   hands back the local gradients, already averaged over the ranks, and
   `recipe.grad_norm` sums their squares over the ranks where they are
-  sharded. The logged loss is all-reduced, so the `nonfinite` and
+  sharded. The logged loss is all-reduced over the ranks holding
+  different tokens (data x seq), so the `nonfinite` and
   `update_skipped` decisions read the same values on every rank and every
   rank steps or skips together.
 
@@ -89,7 +90,7 @@ def make_train_step(train_cfg: TrainConfig):
             losses = losses * float("nan")
             torch._foreach_mul_(grads, float("nan"))
         gnorm = rec.grad_norm(grads)
-        metrics = {"loss": context.all_reduce_mean(losses.mean()),
+        metrics = {"loss": context.batch_all_reduce_mean(losses.mean()),
                    "grad_norm": gnorm}
         apply = True
         if anomaly != "off":

@@ -238,7 +238,9 @@ def test_dropout_bits_match_mix_bits():
 def test_sdpa_routes():
     """Uncached T > 1 at a static offset 0 takes the flash wrappers (their
     plain versions on the CPU); 'naive' takes the einsum path with the
-    same dropout mask; the reference's impls of later slices raise."""
+    same dropout mask; 'xla' raises NotImplementedError, and 'ring',
+    'zigzag' and 'ulysses' on a full causal call with no live 'seq' axis
+    raise ValueError, as the reference's do."""
     q, k, v, _, _ = _inputs(1, 24, 4, 2, 16, seed=3)
     q, k, v = (torch.from_numpy(a) for a in (q, k, v))
     seed = torch.from_numpy(SEED)
@@ -250,8 +252,10 @@ def test_sdpa_routes():
     torch.testing.assert_close(flash, naive, atol=ATOL, rtol=0)
     sdpa(q, k, v, q_offset=torch.tensor(0))         # traced offset: naive
     assert fa.PLAIN_CALLS["flash_attn_fwd"] == 1
-    for impl in ("xla", "ring", "zigzag", "ulysses"):
-        with pytest.raises(NotImplementedError, match="slice|XLA"):
+    with pytest.raises(NotImplementedError, match="XLA"):
+        sdpa(q, k, v, impl="xla")
+    for impl in ("ring", "zigzag", "ulysses"):
+        with pytest.raises(ValueError, match="no live 'seq' axis"):
             sdpa(q, k, v, impl=impl)
     for impl in ("auto", "naive"):      # dropout never drops out quietly
         with pytest.raises(ValueError, match="dropout_seed"):

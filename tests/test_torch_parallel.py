@@ -174,15 +174,18 @@ def test_rest_of_slice_6_is_refused(field, value):
     """What the recipes of this slice do not cover raises
     NotImplementedError, naming what is left of slice 6. tp and fsdp_tp
     (and fsdp with tp_size 2, which is fsdp_tp) run since tensor
-    parallelism came (tests/test_torch_parallel_tp.py): beside ep_size 2
-    they are refused so."""
+    parallelism came (tests/test_torch_parallel_tp.py), sp (and fsdp with
+    sp_size 2) since sequence parallelism came
+    (tests/test_torch_parallel_sp.py): beside ep_size 2 they are refused
+    so."""
     tc = dataclasses.replace(TrainConfig(platform="cpu", parallelism="fsdp"),
                              **{field: value})
     if (field, value) in (("parallelism", "tp"), ("parallelism", "fsdp_tp"),
-                          ("tp_size", 2)):
+                          ("tp_size", 2), ("parallelism", "sp"),
+                          ("sp_size", 2)):
         check_slice(LLMConfig(**TINY), tc)
         tc = dataclasses.replace(tc, ep_size=2)
-    with pytest.raises(NotImplementedError, match="rest of slice 6: ep, sp"):
+    with pytest.raises(NotImplementedError, match="rest of slice 6: ep, pp"):
         check_slice(LLMConfig(**TINY), tc)
 
 

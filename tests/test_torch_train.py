@@ -366,11 +366,14 @@ def test_recompute_and_dropout_keep_the_gradients(policy):
     ("parallelism", "ep"), ("attn_impl", "xla"), ("attn_impl", "ring")])
 def test_later_slices_raise(field, value):
     """What later slices bring raises NotImplementedError; 'tp' runs since
-    tensor parallelism came (tests/test_torch_parallel_tp.py), and beside
-    ep_size 2 it raises so."""
+    tensor parallelism came (tests/test_torch_parallel_tp.py), 'sp' and
+    attn_impl 'ring' since sequence parallelism came
+    (tests/test_torch_parallel_sp.py), and beside ep_size 2 they raise
+    so."""
     mc, tc = LLMConfig(**TINY), TrainConfig(platform="cpu")
     tc = dataclasses.replace(tc, **{field: value})
-    if (field, value) == ("parallelism", "tp"):
+    if (field, value) in (("parallelism", "tp"), ("parallelism", "sp"),
+                          ("attn_impl", "ring")):
         check_slice(mc, tc)
         tc = dataclasses.replace(tc, ep_size=2)
     with pytest.raises(NotImplementedError, match="slice|XLA"):

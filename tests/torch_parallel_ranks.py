@@ -9,11 +9,12 @@ group's `file://` rendezvous, unique per test), `out` (a directory) and
 `cases`, run in order in one group so that the ranks start once per
 test. Each case is a dict with a `kind`:
 
-* 'steps': build the state under `tc['parallelism']` (and `tc['tp_size']`)
-  from the whole state dict `init`, then run `make_train_step` over the
-  global batches `batches` ((A, B W, T) arrays, W the 'data' axis's size),
-  this rank taking its data rank r's rows r B .. r B + B - 1 of each
-  micro-step. Records each step's metrics, the whole parameters,
+* 'steps': build the state under `tc['parallelism']` (and `tc['tp_size']`,
+  `tc['sp_size']`) from the whole state dict `init`, then run
+  `make_train_step` over the global batches `batches` ((A, B W, T) arrays,
+  W the 'data' axis's size), this rank taking its data rank r's rows
+  r B .. r B + B - 1 of each micro-step, and under a 'seq' axis its seq
+  rank's positions of them (the loader's cut). Records each step's metrics, the whole parameters,
   the MoE buffers, and at the end the bytes held (`held_bytes`) and the
   fused CE's `DEGRADED` counts. With
   `poison` = (rank, step), that rank alone NaN-bombs that step
@@ -32,6 +33,11 @@ test. Each case is a dict with a `kind`:
   against this model rank's rows of `w`, chunk `chunk`; records the loss,
   this rank's dx and the whole dW (averaged over 'data', joined over
   'model').
+* 'sp_attn': `ring_attention.sp_sdpa` under a world of one 'seq' axis over
+  every rank whose attention is `impl` (resolved): this rank's positions
+  of the whole `q`, `k`, `v` (natural order) in that attention's layout
+  forward with `rate` and `seed`, then backward from its rows of `dout`;
+  records out, dq, dk, dv and the positions.
 
 Rank r writes its records to `out/rank<r>.pt`. `spawn` starts the W
 ranks from a test and returns their records.
@@ -39,6 +45,7 @@ ranks from a test and returns their records.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import signal
 import subprocess
@@ -52,9 +59,10 @@ from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
 from distributed_pytorch_tpu_torch.data import loader as loader_mod
 from distributed_pytorch_tpu_torch.ops import fused_ce
 from distributed_pytorch_tpu_torch.parallel import context, sharding
+from distributed_pytorch_tpu_torch.ops import ring_attention
 from distributed_pytorch_tpu_torch.parallel.mesh import init_world
 from distributed_pytorch_tpu_torch.train import checkpoint
-from distributed_pytorch_tpu_torch.train.loop import train
+from distributed_pytorch_tpu_torch.train.loop import make_world, train
 from distributed_pytorch_tpu_torch.train.state import create_train_state
 from distributed_pytorch_tpu_torch.train.step import make_train_step
 
@@ -65,14 +73,14 @@ def _clone(sd: dict) -> dict:
     return {k: v.detach().clone() for k, v in sd.items()}
 
 
-def _world(tc: TrainConfig):
-    return init_world(sharding.tp_recipe(tc.parallelism, tc.tp_size), "cpu",
-                      tc.dp_size, tc.tp_size)
+def _world(cfg: LLMConfig, tc: TrainConfig):
+    return make_world(cfg, dataclasses.replace(
+        tc, parallelism=sharding.tp_recipe(tc.parallelism, tc.tp_size)))
 
 
 def run_steps(case: dict, rank: int, W: int) -> dict:
     cfg, tc = LLMConfig(**case["cfg"]), TrainConfig(**case["tc"])
-    world = _world(tc)
+    world = _world(cfg, tc)
     poison = case.get("poison")
     fused_ce.reset_counts()
     if poison is not None and poison[0] == rank:
@@ -85,8 +93,13 @@ def run_steps(case: dict, rank: int, W: int) -> dict:
         for x, y in case["batches"]:
             B = x.shape[1] // world.dp
             rows = slice(world.data_rank * B, (world.data_rank + 1) * B)
-            m = step(state, torch.from_numpy(x[:, rows]).long(),
-                     torch.from_numpy(y[:, rows]).long())
+            x, y = x[:, rows], y[:, rows]
+            if world.sp > 1:
+                cols = ring_attention.local_positions(
+                    x.shape[2], world.sp, world.seq_rank, world.seq_layout)
+                x, y = x[:, :, cols], y[:, :, cols]
+            m = step(state, torch.from_numpy(x).long(),
+                     torch.from_numpy(y).long())
             rec = {k: float(v) for k, v in m.items()}
             rec["params"] = _clone(sharding.full_model_state_dict(
                 state.model))
@@ -127,7 +140,7 @@ def run_train(case: dict, rank: int, W: int) -> dict:
 
 def run_restore(case: dict, rank: int, W: int) -> dict:
     cfg, tc = LLMConfig(**case["cfg"]), TrainConfig(**case["tc"])
-    world = _world(tc)
+    world = _world(cfg, tc)
     with context.use_world(world):
         state = create_train_state(cfg, tc, "cpu", world)
         checkpoint.restore_checkpoint(case["path"], state)
@@ -139,7 +152,7 @@ def run_restore(case: dict, rank: int, W: int) -> dict:
 
 def run_raises(case: dict, rank: int, W: int) -> dict:
     cfg, tc = LLMConfig(**case["cfg"]), TrainConfig(**case["tc"])
-    world = _world(tc)
+    world = _world(cfg, tc)
     try:
         create_train_state(cfg, tc, "cpu", world)
     except NotImplementedError as e:
@@ -187,8 +200,26 @@ def run_vp_ce(case: dict, rank: int, W: int) -> dict:
                 "dw": dw, "data_rank": world.data_rank}
 
 
+def run_sp_attn(case: dict, rank: int, W: int) -> dict:
+    world = dataclasses.replace(init_world("sp", "cpu", sp_size=W),
+                                seq_impl=case["impl"])
+    T = case["q"].shape[1]
+    cols = ring_attention.local_positions(T, W, rank, world.seq_layout)
+    q, k, v = (torch.from_numpy(case[n][:, cols]).requires_grad_()
+               for n in ("q", "k", "v"))
+    seed = torch.tensor(case["seed"], dtype=torch.int32)
+    with context.use_world(world):
+        out = ring_attention.sp_sdpa(q, k, v, scale=case["scale"],
+                                     dropout_rate=case["rate"],
+                                     dropout_seed=seed)
+        out.backward(torch.from_numpy(case["dout"][:, cols]))
+    return {"cols": cols, "out": out.detach(), "dq": q.grad, "dk": k.grad,
+            "dv": v.grad}
+
+
 KINDS = {"steps": run_steps, "train": run_train, "raises": run_raises,
-         "ce": run_ce, "restore": run_restore, "vp_ce": run_vp_ce}
+         "ce": run_ce, "restore": run_restore, "vp_ce": run_vp_ce,
+         "sp_attn": run_sp_attn}
 
 
 def spawn(tmp, world: int, cases: list, timeout: float = 240.0) -> list:
