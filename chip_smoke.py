@@ -2581,39 +2581,30 @@ def run_spec_legs(torch, dev, card: str, prompts, budgets,
 
 def run_chunked_fp32(torch, dev, prompts, budgets, root: str) -> list:
     """Leg (a) in fp32, offline, from the same checkpoint: the chunked
-    engine's tokens equal the wave engine's up to the first top-2 margin
-    at the fp32 limit, and the uncached argmax at every position whose
-    margin exceeds it."""
+    engine's tokens equal the uncached argmax at every position whose
+    margin exceeds the fp32 limit. (An fp32 wave engine and the agreement
+    with it up to the first near-tie were cut to hold the run near 900 s;
+    leg (a) holds the bf16 chunked engine to the wave's.)"""
     from distributed_pytorch_tpu_torch.serve.__main__ import (build_args,
                                                               build_engine)
 
-    outs = {}
-    for name, extra in (("wave", []), ("chunked", ["--prefill-chunk",
-                                                   str(CHUNK)])):
-        eng, _, _, _ = build_engine(build_args(
-            ["--ckpt", root, "--slots", "8", "--kv-block", "16",
-             "--temperature", "0", "--port", "0", "--dtype", "float32"]
-            + extra))
-        outs[name] = [t[len(p):] for t, p in
-                      zip(eng.run(prompts, budgets), prompts)]
-        model = eng.model
-        del eng
+    eng, _, _, _ = build_engine(build_args(
+        ["--ckpt", root, "--slots", "8", "--kv-block", "16",
+         "--temperature", "0", "--port", "0", "--dtype", "float32",
+         "--prefill-chunk", str(CHUNK)]))
+    chunked = [t[len(p):] for t, p in
+               zip(eng.run(prompts, budgets), prompts)]
+    model = eng.model
+    del eng
     lim = LOGIT_TOL["float32"]
-    agree = [_agree_upto_margin(torch, model, dev, p, c, w, lim,
-                                f"fp32 chunked stream {i} vs the wave")
-             for i, (p, c, w) in enumerate(zip(prompts, outs["chunked"],
-                                               outs["wave"]))]
     held = [held_per_position(
         torch, uncached_logits(torch, model, dev, p, c), c, lim,
         int(MIN_CHECKED["float32"] * b),
         f"fp32 chunked stream {i} vs the uncached forward")
-        for i, (p, c, b) in enumerate(zip(prompts, outs["chunked"],
-                                          budgets))]
-    print(f"  fp32, prefill_chunk {CHUNK} vs wave: tokens equal for {agree} "
-          f"of {budgets} (up to the first top-2 margin <= {lim}); the "
-          f"uncached argmax at every position with a margin > {lim}: "
-          f"{held} checked, all equal; all equal to the wave's: "
-          f"{outs['chunked'] == outs['wave']}", flush=True)
+        for i, (p, c, b) in enumerate(zip(prompts, chunked, budgets))]
+    print(f"  fp32, prefill_chunk {CHUNK}: the uncached argmax at every "
+          f"position with a margin > {lim}: {held} checked, all equal",
+          flush=True)
     del model
     torch.cuda.empty_cache()
     return held
@@ -3727,6 +3718,20 @@ TP_RTOL = 1e-5
 MOE_RECIPE_ARGV = MOE_ARGV + ["--parallelism", "fsdp", "--max_iters", "3",
                               "--ckpt_interval", "0", "--no-save_stats",
                               "--file_name", "chip_smoke_moe_fsdp"]
+#: phase 9's MoE under single and the recipes of an 'expert' axis of one
+#: rank: `ep` and fsdp --ep_size 1, held bit for bit to single
+MOE_RECIPE_FLAGS = {
+    "fsdp": [],
+    "single": ["--parallelism", "single", "--file_name",
+               "chip_smoke_moe_single"],
+    "ep": ["--parallelism", "ep", "--ep_size", "1", "--file_name",
+           "chip_smoke_moe_ep"],
+    "fsdp_ep1": ["--parallelism", "fsdp", "--ep_size", "1", "--file_name",
+                 "chip_smoke_moe_fsdp_ep1"]}
+#: the leg that writes and verifies its final checkpoint (3.5 GB of
+#: weights and moments a save)
+MOE_RECIPE_SAVES = "fsdp"
+MOE_RECIPES_EXACT = ("ep", "fsdp_ep1")
 
 
 def _free_port() -> int:
@@ -3826,43 +3831,59 @@ def run_recipe_cli(tmp: str) -> None:
           f"{iters[-1]}", flush=True)
 
 
-def run_recipe_moe(torch, tmp: str, card: str) -> dict:
+def run_recipe_moe(torch, tmp: str, card: str, leg: str = "fsdp") -> dict:
+    import dataclasses
+
     from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
     from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
 
     model_cfg, train_cfg = parse_train_argv(
-        MOE_RECIPE_ARGV + ["--data_dir", os.path.join(tmp, "data")])
+        MOE_RECIPE_ARGV + MOE_RECIPE_FLAGS[leg]
+        + ["--data_dir", os.path.join(tmp, "data")])
+    train_cfg = dataclasses.replace(train_cfg,
+                                    save_model=leg == MOE_RECIPE_SAVES)
     L = model_cfg.n_layer
     micro = train_cfg.total_batch_size // (
         train_cfg.batch_size * model_cfg.block_size) * (
         train_cfg.max_iters + 1)
     reset_counts()
+    t0 = time.perf_counter()
     stats = train_one_rank(model_cfg, train_cfg)
     launches = _counted(
         {"grouped_mm_fwd": 3 * L * micro, "grouped_mm_bwd_dx": 2 * L * micro,
          "grouped_mm_bwd_dw": 2 * L * micro, "flash_attn_fwd": L * micro,
          "flash_attn_bwd_dq": L * micro, "flash_attn_bwd_dkv": L * micro},
-        "train the MoE under fsdp")
+        f"train the MoE under {leg}")
+    want = ("none" if leg == "single" else "nccl", 1, 1, 1)
+    check((stats["backend"], stats["world"], stats["ep"], stats["tp"])
+          == want and stats["recipe"] == train_cfg.parallelism
+          and stats["moe_degraded_dense"] == 0,
+          f"moe {leg}: ran as {stats['recipe']} over {stats['backend']}, "
+          f"world {stats['world']}, ep {stats['ep']}, degraded "
+          f"{stats['moe_degraded_dense']}")
     losses = stats["train_losses"]
     check(len(losses) == train_cfg.max_iters + 1
-          and all(np.isfinite(losses)), f"moe fsdp: losses {losses}")
+          and all(np.isfinite(losses)), f"moe {leg}: losses {losses}")
     bias = torch.stack([m.expert_bias for m in
                         stats["state"].model.moe_layers()])
     check(bool(torch.isfinite(bias).all()) and float(bias.abs().max()) > 0,
-          f"moe fsdp: expert_bias {bias.tolist()}")
-    step_dir = os.path.join("checkpoints", train_cfg.file_name,
-                            f"step_{train_cfg.max_iters + 1}")
-    check(ckpt.verify_manifest(step_dir) == [],
-          f"moe fsdp: checkpoint {step_dir} does not verify")
+          f"moe {leg}: expert_bias {bias.tolist()}")
+    saved = ""
+    if train_cfg.save_model:
+        step_dir = os.path.join("checkpoints", train_cfg.file_name,
+                                f"step_{train_cfg.max_iters + 1}")
+        check(ckpt.verify_manifest(step_dir) == [],
+              f"moe {leg}: checkpoint {step_dir} does not verify")
+        saved = f"checkpoint {step_dir} verified; "
     out = dict(launches={k: launches[k] for k in GMM_SOURCE},
                losses=losses, bias_absmax=float(bias.abs().max()),
                step_ms=stats["median_step_time"] * 1e3,
                peak_gb=stats["peak_mem_gb"])
-    print(f"  MoE under fsdp: losses {[round(x, 4) for x in losses]}; "
+    print(f"  MoE under {leg}: losses {[round(x, 4) for x in losses]}; "
           f"expert_bias |max| {out['bias_absmax']:.4f}; step ms p50 "
           f"{out['step_ms']:.3f}, peak memory {out['peak_gb']:.3f} GB; "
-          f"checkpoint {step_dir} verified; launches {out['launches']}, "
-          f"plain calls 0; card {card}", flush=True)
+          f"{saved}launches {out['launches']}, plain calls 0; leg "
+          f"{time.perf_counter() - t0:.1f} s; card {card}", flush=True)
     del stats, bias
     gc.collect()
     torch.cuda.empty_cache()
@@ -3890,11 +3911,142 @@ def run_recipes(torch, card: str) -> dict:
                       f"{rel:.3e} (tol {tol:.0e}); bit-equal "
                       f"{bool((got == base).all())}", flush=True)
             run_recipe_cli(tmp)
-            runs["moe_fsdp"] = run_recipe_moe(torch, tmp, card)
+            for leg in MOE_RECIPE_FLAGS:
+                runs[f"moe_{leg}"] = run_recipe_moe(torch, tmp, card, leg)
+            base = runs["moe_single"]["losses"]
+            for leg in MOE_RECIPES_EXACT:
+                got = runs[f"moe_{leg}"]["losses"]
+                check(got == base, f"moe {leg}: losses {got} are not "
+                      f"single's {base} bit for bit")
+                print(f"  MoE {leg} vs single: losses bit-equal", flush=True)
         finally:
             os.chdir(cwd)
     runs["hops"] = run_ring_hops(torch, card)
+    runs["expert_cut"] = run_expert_cut(torch, card)
     return runs
+
+
+#: the one-process expert cut: |sum of the slices - whole| <= atol x the
+#: whole's largest magnitude. Every packed row's products are the whole
+#: dispatch's bit for bit (the same row against the same expert), so dW and
+#: the gates' gradient sum the same terms in the same order; the output
+#: and dx sum a token's n_shared + k rows in bf16, in one sum on the whole
+#: and in a sum a slice then an fp32 sum over the slices: two bf16
+#: roundings of partial sums of up to three rows on each side, each half
+#: an ulp (2^-9) of a partial at most 3 x the largest row
+EXPERT_CUT_ATOL = 2 ** -6
+EXPERT_CUT_EP = (2, 4)
+
+
+def run_expert_cut(torch, card: str) -> dict:
+    """Phase 9's MoE layer's grouped dispatch at its training shape (B 8 x
+    T 1024, bf16, seeded weights and tokens, the router's top-k) whole and
+    cut into EXPERT_CUT_EP expert slices in one process: each slice's
+    local dispatch (ops/grouped_matmul.py, `ep` = (rank, ep)) forward and
+    backward on the three grouped kernels (launches exact, no plain call);
+    the slices' outputs, input and gate gradients summed, and each slice's
+    dW, held to the whole's (EXPERT_CUT_ATOL). A slice whose experts get
+    no row (routing restricted to the other slices' experts) launches and
+    gives zeros. Returns {(kernel, 'ep<ep>'): launches a slice}."""
+    import functools
+
+    from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
+    from distributed_pytorch_tpu_torch.models.mlp import activate
+    from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
+
+    cfg, _ = parse_train_argv(MOE_ARGV)
+    dev, bf16 = torch.device(DEVICE), torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    N, C, up = 8 * cfg.block_size, cfg.n_embd, cfg.up_dim
+    E, n_sh, k = cfg.n_exp, cfg.n_shared, cfg.n_act_routed
+    fc_out = 2 * up if cfg.non_linearity.lower() in ("swiglu", "glu") \
+        else up
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device=dev)).to(bf16)
+
+    x, dy = rnd(N, C), rnd(N, C)
+    fc, proj = rnd(E, C, fc_out, scale=0.02), rnd(E, up, C, scale=0.02)
+    gate = 0.02 * torch.randn(C, E - n_sh, generator=g, device=dev)
+    act = functools.partial(activate, non_linearity=cfg.non_linearity)
+
+    def route(logits):
+        vals, idx = logits.topk(k, dim=1)
+        return idx, torch.softmax(vals, dim=1)
+
+    def dispatch(idx, gts, rank, ep, what):
+        n = E // ep
+        xs, gs = x.clone().requires_grad_(), gts.clone().requires_grad_()
+        a = fc[rank * n:(rank + 1) * n].clone().requires_grad_()
+        b = proj[rank * n:(rank + 1) * n].clone().requires_grad_()
+        reset_counts()
+        y = gm.grouped_dispatch(xs, idx, gs, a, b, act=act, n_shared=n_sh,
+                                ep=(rank, ep))
+        y.backward(dy)
+        torch.cuda.synchronize()
+        launches = _counted({"grouped_mm_fwd": 3, "grouped_mm_bwd_dx": 2,
+                             "grouped_mm_bwd_dw": 2}, what)
+        return dict(y=y.detach(), dx=xs.grad, dg=gs.grad, dfc=a.grad,
+                    dproj=b.grad, launches=launches)
+
+    def limit(name, got, want, what):
+        d = (got.float() - want.float()).abs().max().item()
+        mag = want.float().abs().max().item()
+        check(d <= EXPERT_CUT_ATOL * mag,
+              f"expert cut {what}: {name} differs by {d:.3e} (limit "
+              f"{EXPERT_CUT_ATOL * mag:.3e})")
+        return d
+
+    idx, gts = route(x.float() @ gate)
+    whole = dispatch(idx, gts, 0, 1, "whole dispatch")
+    out = {}
+    for ep in EXPERT_CUT_EP:
+        n = E // ep
+        parts = [dispatch(idx, gts, r, ep, f"ep {ep} slice {r}")
+                 for r in range(ep)]
+        errs, exact = {}, True
+        for name in ("y", "dx", "dg"):
+            got = sum(p[name].float() for p in parts)
+            errs[name] = limit(name, got, whole[name], f"ep {ep}")
+        for name in ("dfc", "dproj"):
+            for r, p in enumerate(parts):
+                want = whole[name][r * n:(r + 1) * n]
+                errs[name] = max(errs.get(name, 0.0), limit(
+                    name, p[name], want, f"ep {ep} slice {r}"))
+                exact &= torch.equal(p[name], want)
+        rows = [int((idx + n_sh >= r * n).logical_and(
+            idx + n_sh < (r + 1) * n).sum()) + N * max(
+            0, min(n_sh, (r + 1) * n) - r * n) for r in range(ep)]
+        for kname in GMM_SOURCE:
+            out[(kname, f"ep{ep}")] = parts[0]["launches"][kname]
+        print(f"  expert cut, ep {ep} (bf16, {N} tokens, {E} experts, "
+              f"{n} a slice; rows a slice {rows}): sum of the slices vs "
+              f"the whole, max |diff| " + ", ".join(
+                  f"{nm} {e:.3e}" for nm, e in errs.items())
+              + f" (limit {EXPERT_CUT_ATOL:.4g} x the whole's largest); "
+              f"dW bit-equal {exact}; launches a slice "
+              f"{ {k: parts[0]['launches'][k] for k in GMM_SOURCE} }; "
+              f"card {card}", flush=True)
+        del parts
+    # the last slice of 4 holds routed ids E - n_sh - 2 .. : route to the
+    # others only
+    ep = EXPERT_CUT_EP[-1]
+    n_other = E - n_sh - E // ep
+    idx, gts = route((x.float() @ gate)[:, :n_other])
+    empty = dispatch(idx, gts, ep - 1, ep, "empty slice")
+    check(all(not t.any() for t in (empty["y"], empty["dx"], empty["dg"],
+                                    empty["dfc"], empty["dproj"])),
+          "expert cut: a slice with no rows gave nonzero output or "
+          "gradients")
+    print(f"  expert cut, an empty slice (ep {ep}, slice {ep - 1}, no "
+          f"row): launches "
+          f"{ {k: empty['launches'][k] for k in GMM_SOURCE} }, zero "
+          f"output and "
+          f"gradients; card {card}", flush=True)
+    del whole, empty
+    torch.cuda.empty_cache()
+    return out
 
 
 #: the one-process ring check: (head size, B, T, heads, kv heads) of the
@@ -4495,8 +4647,11 @@ def main() -> None:
             "replaces": REPLACES[kname],
             "launches": moe_run["launches"][kname],
             "launches_path": "train_moe",
-            "launches_recipes": {"fsdp": recipes["moe_fsdp"]["launches"]
-                                 [kname]},
+            "launches_recipes": dict(
+                {leg: recipes[f"moe_{leg}"]["launches"][kname]
+                 for leg in MOE_RECIPE_FLAGS},
+                **{cut: recipes["expert_cut"][(kname, cut)]
+                   for cut in (f"ep{e}" for e in EXPERT_CUT_EP)}),
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "launches_fp32": None,
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],

@@ -30,6 +30,13 @@ under `sp` or dp / zero1 / zero2 / fsdp (here 4 x 2):
 
     python -m torch.distributed.run --nproc_per_node 8 \\
         -m distributed_pytorch_tpu_torch --parallelism fsdp --sp_size 2 ...
+
+and an expert-parallel one cuts an MoE's experts over `--ep_size`
+adjacent processes, under `ep` (dp) or fsdp (here 4 x 2):
+
+    python -m torch.distributed.run --nproc_per_node 8 \\
+        -m distributed_pytorch_tpu_torch --moe ... --parallelism fsdp \\
+        --ep_size 2 ...
 """
 
 from distributed_pytorch_tpu_torch.config import (PRESETS, build_parser,

@@ -9,11 +9,13 @@ rows of a step are single's rows, data/loader.py). Every run's losses are
 held to single's within `--rtol`; its step p50, tok/s, tok/s and MFU per
 card and rank 0's peak memory come from the trainer's stats.json.
 
-A recipe is `name`, `name:tp` or `name:spS[@attn]`: tp the `--tp_size`
-of a tensor-parallel run ('model' groups of tp adjacent cards, the rest of
-the cards on 'data'), S the `--sp_size` of a sequence-parallel one ('seq'
-groups of S adjacent cards; `@attn` its `--attn_impl`, ring, zigzag or
-ulysses, for phase 7's pallas, which zig-zag takes). `tp` alone gives the
+A recipe is `name`, `name:tp`, `name:spS[@attn]` or `name:epE`: tp the
+`--tp_size` of a tensor-parallel run ('model' groups of tp adjacent cards,
+the rest of the cards on 'data'), S the `--sp_size` of a sequence-parallel
+one ('seq' groups of S adjacent cards; `@attn` its `--attn_impl`, ring,
+zigzag or ulysses, for phase 7's pallas, which zig-zag takes), E the
+`--ep_size` of an expert-parallel one ('expert' groups of E adjacent
+cards). `tp` alone gives the
 rows tp:N (all cards on 'model') and tp:2 (2 x N/2), `fsdp_tp` alone
 fsdp_tp:2, `sp` alone sp:spN (zig-zag), sp:spN@ring, sp:spN@ulysses and
 sp:sp2 (2 x N/2).
@@ -25,6 +27,16 @@ sp:sp2 (2 x N/2).
 A long context runs with `-- --block_size 8192 --batch_size 1` and a
 `--tokens_per_card` of 8192: single trains the same global batch on one
 card in accum 4 x 8192 tokens.
+
+`--moe` trains chip_smoke phase 9's MoE instead (the flagship with 8
+experts, 1 shared, 3 active, up_dim 1024, `--moe_impl grouped`, B 8 x T
+1024 a card); its rows are the expert-parallel ones, and a trailing `--
+--moe_impl scatter` puts single and every row on 'scatter':
+
+    python -m distributed_pytorch_tpu_torch.bench.recipes --nproc 4 --moe \\
+        --recipes ep:ep4,ep:ep2,fsdp:ep2
+    python -m distributed_pytorch_tpu_torch.bench.recipes --nproc 4 --moe \\
+        --recipes fsdp:sp2 -- --moe_impl scatter
 
 A rehearsal on the CPU (gloo, the kernels' plain versions) passes
 `--platform cpu`, a tiny model and its `--tokens_per_card` after `--`.
@@ -50,41 +62,51 @@ FLAGS = ["--preset", "gpt2_124m", "--attn_impl", "pallas", "--loss_impl",
          "pallas", "--compute_dtype", "bfloat16", "--dataset", "synthetic",
          "--batch_size", "8", "--warmup_steps", "5", "--learning_rate",
          "1e-3", "--seed", "0"]
+# chip_smoke's MOE_ARGV without its run length, checkpoints and file name
+MOE_FLAGS = ["--preset", "gpt2_124m", "--moe", "--n_exp", "8", "--n_shared",
+             "1", "--n_act", "3", "--up_dim", "1024", "--moe_impl",
+             "grouped", "--attn_impl", "pallas", "--compute_dtype",
+             "bfloat16", "--dataset", "synthetic", "--batch_size", "8",
+             "--warmup_steps", "5", "--learning_rate", "1e-3", "--seed", "0"]
 
 
 def rows(spec: str, nproc: int) -> list:
-    """(recipe, tp, sp, attn_impl or None) of each `--recipes` entry."""
+    """(recipe, tp, sp, ep, attn_impl or None) of each `--recipes`
+    entry."""
     out = []
     for item in spec.split(","):
         item, _, attn = item.partition("@")
         name, _, axis = item.partition(":")
         if axis.startswith("sp"):
-            out.append((name, 1, int(axis[2:]), attn or None))
+            out.append((name, 1, int(axis[2:]), 1, attn or None))
+        elif axis.startswith("ep"):
+            out.append((name, 1, 1, int(axis[2:]), None))
         elif axis:
-            out.append((name, int(axis), 1, None))
+            out.append((name, int(axis), 1, 1, None))
         elif name == "tp":
-            out += [("tp", nproc, 1, None)] + (
-                [("tp", 2, 1, None)] if nproc > 2 else [])
+            out += [("tp", nproc, 1, 1, None)] + (
+                [("tp", 2, 1, 1, None)] if nproc > 2 else [])
         elif name == "fsdp_tp":
-            out.append(("fsdp_tp", 2, 1, None))
+            out.append(("fsdp_tp", 2, 1, 1, None))
         elif name == "sp":
-            out += [("sp", 1, nproc, None), ("sp", 1, nproc, "ring"),
-                    ("sp", 1, nproc, "ulysses")] + (
-                [("sp", 1, 2, None)] if nproc > 2 else [])
+            out += [("sp", 1, nproc, 1, None), ("sp", 1, nproc, 1, "ring"),
+                    ("sp", 1, nproc, 1, "ulysses")] + (
+                [("sp", 1, 2, 1, None)] if nproc > 2 else [])
         else:
-            out.append((name, 1, 1, None))
+            out.append((name, 1, 1, 1, None))
     return out
 
 
 def run(recipe: str, nproc: int, tokens: int, iters: int, extra: list,
-        tmp: str, timeout: float, tp: int = 1, sp: int = 1,
-        attn=None) -> dict:
+        tmp: str, timeout: float, tp: int = 1, sp: int = 1, ep: int = 1,
+        attn=None, flags=FLAGS) -> dict:
     """One trainer run under torch.distributed.run; its numbers."""
-    name = f"recipes_{recipe}_{nproc}_tp{tp}_sp{sp}_{attn}"
+    name = f"recipes_{recipe}_{nproc}_tp{tp}_sp{sp}_ep{ep}_{attn}"
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node", str(nproc), "-m",
-            "distributed_pytorch_tpu_torch", *FLAGS, "--parallelism",
+            "distributed_pytorch_tpu_torch", *flags, "--parallelism",
             recipe, "--tp_size", str(tp), "--sp_size", str(sp),
+            "--ep_size", str(ep),
             "--total_batch_size_str", str(tokens), "--max_iters",
             str(iters - 1), "--data_dir", os.path.join(tmp, "data"),
             "--file_name", name, *extra] + (
@@ -101,8 +123,8 @@ def run(recipe: str, nproc: int, tokens: int, iters: int, extra: list,
     with open(os.path.join(tmp, "checkpoints", name, "stats.json")) as f:
         st = json.load(f)
     head = next(line for line in r.stdout.splitlines() if "recipe=" in line)
-    return {"recipe": recipe, "nproc": nproc, "tp": tp, "sp": sp,
-            "attn": attn, "data": nproc // (tp * sp), "wall_s": wall,
+    return {"recipe": recipe, "nproc": nproc, "tp": tp, "sp": sp, "ep": ep,
+            "attn": attn, "data": nproc // (tp * sp * ep), "wall_s": wall,
             "log": head,
             "losses": st["train_losses"],
             "step_ms": st["median_step_time"] * 1e3,
@@ -110,7 +132,9 @@ def run(recipe: str, nproc: int, tokens: int, iters: int, extra: list,
             "tok_s_per_card": st["median_tokens_per_sec"] / nproc,
             "mfu_per_card": st.get("median_mfu"),
             "peak_gb_rank0": st["peak_mem_gb"], "device": st["device"],
-            "backend": st["backend"], "world": st["world"]}
+            "backend": st["backend"], "world": st["world"],
+            "moe_dropped_frac": st.get("moe_dropped_frac"),
+            "moe_degraded_dense": st.get("moe_degraded_dense")}
 
 
 def main(argv=None) -> int:
@@ -121,9 +145,12 @@ def main(argv=None) -> int:
     ap.add_argument("--tokens_per_card", type=int, default=2 ** 14)
     ap.add_argument("--rtol", type=float, default=1e-3)
     ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--moe", action="store_true",
+                    help="train chip_smoke phase 9's MoE")
     ap.add_argument("extra", nargs="*")
     args = ap.parse_args(argv)
     extra = args.extra
+    flags = MOE_FLAGS if args.moe else FLAGS
     if "cpu" not in extra:
         from distributed_pytorch_tpu_torch.ops import cuda_build
         t0 = time.perf_counter()
@@ -138,11 +165,11 @@ def main(argv=None) -> int:
     runs, ok = [], True
     with tempfile.TemporaryDirectory() as tmp:
         base = run("single", 1, tokens, args.iters, extra, tmp,
-                   args.timeout)
+                   args.timeout, flags=flags)
         runs.append(base)
-        for recipe, tp, sp, attn in rows(args.recipes, args.nproc):
+        for recipe, tp, sp, ep, attn in rows(args.recipes, args.nproc):
             runs.append(run(recipe, args.nproc, tokens, args.iters, extra,
-                            tmp, args.timeout, tp, sp, attn))
+                            tmp, args.timeout, tp, sp, ep, attn, flags))
     ref = np.asarray(base["losses"])
     for r in runs:
         got = np.asarray(r["losses"])
@@ -153,8 +180,12 @@ def main(argv=None) -> int:
             and (r["recipe"] == "single" or r["world"] == args.nproc)
         ok &= r["ok"]
         mfu = r["mfu_per_card"]
+        drop = r["moe_dropped_frac"]
+        moe = "" if not drop else (
+            f"; moe_drop {max(drop):.4%} at most, degraded layers "
+            f"{r['moe_degraded_dense']}")
         print(f"{r['recipe']:>7} x {r['nproc']} (data {r['data']} x seq "
-              f"{r['sp']} x model {r['tp']}"
+              f"{r['sp']} x expert {r['ep']} x model {r['tp']}"
               f"{', ' + r['attn'] if r['attn'] else ''}) over "
               f"{r['backend']}: step "
               f"ms p50 {r['step_ms']:.3f}, tok/s {r['tok_s']:.1f} "
@@ -162,7 +193,7 @@ def main(argv=None) -> int:
               f"{'-' if mfu is None else f'{mfu:.4f}'}, rank 0 peak "
               f"{r['peak_gb_rank0'] or 0:.3f} GB, wall {r['wall_s']:.1f} s; "
               f"losses vs single max rel {r['max_rel_loss_diff']:.3e} "
-              f"(tol {args.rtol:.0e}), bit-equal {r['bit_equal']}; "
+              f"(tol {args.rtol:.0e}), bit-equal {r['bit_equal']}{moe}; "
               f"{'ok' if r['ok'] else 'FAILED'}", flush=True)
     print(json.dumps({"ok": ok, "runs": runs}), flush=True)
     return 0 if ok else 1

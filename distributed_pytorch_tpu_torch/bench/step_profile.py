@@ -65,7 +65,7 @@ def main(argv=None) -> None:
 
     model_cfg, tc = parse_train_argv(sys.argv[1:] if argv is None else argv)
     tc = dataclasses.replace(tc, parallelism=sharding.tp_recipe(
-        tc.parallelism, tc.tp_size))
+        tc.parallelism, tc.tp_size, tc.ep_size))
     world = make_world(model_cfg, tc)
     try:
         with context.use_world(world):

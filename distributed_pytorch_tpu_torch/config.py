@@ -346,7 +346,8 @@ class TrainConfig:
     `TrainConfig`. The port trains `parallelism` 'single', 'dp', 'zero1',
     'zero2', 'fsdp', 'tp', 'fsdp_tp' (`tp_size` ranks on 'model') and
     'sp' (`sp_size` ranks on 'seq', which dp / zero1 / zero2 / fsdp take
-    too; parallel/sharding.py) on CUDA cards, one process each, or on the
+    too) and 'ep' (`ep_size` ranks on 'expert', which fsdp takes too;
+    parallel/sharding.py) on CUDA cards, one process each, or on the
     CPU with `platform='cpu'` over gloo; the loop refuses the fields of later
     slices (train/loop.py `check_slice`)."""
 

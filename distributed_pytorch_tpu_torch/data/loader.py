@@ -13,7 +13,8 @@ int64 tensors on the loader's device.
 Under a data-parallel recipe rank r of W takes exactly the rows of the
 reference's global batch that its data shard gets (the reference's
 loader.py:101-131 under `batch_pspec`): B is per rank, the global
-micro-batch is B x W, and micro-step a's rows are a*B*W + r*B + (0..B-1). Under a 'seq' axis of sp
+micro-batch is B x W, and micro-step a's rows are a*B*W + r*B + (0..B-1); the model and expert
+ranks of data rank r take r's rows too. Under a 'seq' axis of sp
 ranks (sequence parallelism) seq rank s of data rank r takes r's rows and
 its T / sp positions of each (ops/ring_attention.py `local_positions`:
 [s T/sp, (s+1) T/sp) in the contiguous layout, stripes s and 2 sp - 1 - s

@@ -167,6 +167,7 @@ class LLM(nn.Module):
     reference's N(0, 0.02) init. `self.dtype` is the compute dtype."""
 
     tp = (0, 1)
+    ep = (0, 1)
     vocab_cut = False
 
     def __init__(self, config: LLMConfig, *, device=None,

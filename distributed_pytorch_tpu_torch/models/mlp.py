@@ -50,13 +50,30 @@ Counterpart of the reference package's `models/mlp.py`:
   reference's on every rank. `pi` needs no collective: with equal token
   counts per rank, the gradient mean over the ranks gives the global
   term. 'scatter' takes its capacity from the global token count, rounded
-  up to a multiple of W as the reference does (:335-343), and drops by
-  global position: rank r's assignment at local position p of expert e
-  sits at p + (rank r's offset of e, the counts of the ranks before it).
-  Under a 'seq' axis a rank's tokens are not one run of global positions,
-  so 'scatter' raises there (ROADMAP, Queue 1 item 6) rather than drop
-  other assignments than the reference. `_expert_constraint` (a mesh
-  constraint of the 'ep' recipe) comes with slice 6.
+  up to a multiple of the 'data' axis's size as the reference does
+  (:335-343), and drops by global position in the flattened (B, T) order
+  (`scatter_positions`): an assignment's place in its expert's queue is
+  the count of that expert's assignments in the data ranks before this
+  one, in this data rank's rows before its row, and in its row before its
+  position. Under a 'seq' axis a rank holds one run of each row's
+  positions (contiguous) or two (zig-zag stripes), so the per-row,
+  per-run counts are gathered over 'seq' (`context.seq_all_gather_stack`).
+* Expert parallelism (an 'expert' axis of ep; parallel/tensor.py cuts the
+  stacks and sets `ep` = (rank, ep)): a rank holds experts rank n_exp / ep
+  .. (rank + 1) n_exp / ep - 1 of the global ids (the shared ones first),
+  and its expert ranks hold the same rows, as the reference's specs put
+  them (its `_expert_constraint` lets GSPMD place 'dense' and 'scatter',
+  and its grouped dispatch runs in a `shard_map`). Each dispatch runs the
+  rank's local experts only — 'dense' its routed ones on every token,
+  'scatter' its routed ones' slots (the capacity and the positions are
+  the global ones above), 'grouped' their assignments
+  (ops/grouped_matmul.py), and the shared experts on the rank that holds
+  them — and the ranks' partial outputs are summed by
+  `context.reduce_from_expert`. The input and the gates enter through
+  `context.copy_to_expert`, so their gradients are the sums over the
+  expert ranks, as the reference's `shard_map` transposes them. The
+  router, the statistics and the bias are whole and equal on every
+  expert rank; the statistics reduce over the batch ranks only.
 * Tensor parallelism (parallel/tensor.py sets `tp` = (rank, tp) and cuts
   the weights): `c_fc` / `experts_fc` are column-parallel in the per-rank
   [gate_r | up_r] layout and `c_proj` / `experts_proj` row-parallel, so a
@@ -162,20 +179,60 @@ class MLP(nn.Module):
         return y
 
 
+def scatter_positions(one_hot: torch.Tensor, topk_idx: torch.Tensor,
+                      B: int, before=None) -> torch.Tensor:
+    """(N, k): each assignment's place in its expert's queue in the global
+    flattened (B, T) order. one_hot (N, k, E) of topk_idx (N, k), N = B x
+    the rank's positions of a row; `before` (E,): the assignments of the
+    data ranks before this one (None: none). Under a 'seq' axis a row's
+    positions are this rank's runs of them (ops/ring_attention.py
+    `local_positions`: one run contiguous, two zig-zag stripes), and the
+    other seq ranks' counts of each run are gathered."""
+    N, _, E = one_hot.shape
+    sp, layout = context.seq_size(), context.seq_layout()
+    runs = 2 if sp > 1 and layout == "zigzag" else 1
+    hits = one_hot.sum(dim=1).view(B, runs, N // (B * runs), E)
+    inside = hits.cumsum(dim=2) - hits               # within the run
+    cnt = hits.sum(dim=2)                            # (B, runs, E)
+    s = context.seq_rank()
+    if sp > 1:
+        cnt = context.seq_all_gather_stack(cnt)      # (sp, B, runs, E)
+        # run i of seq rank r is stripe r (contiguous, or zig-zag's first)
+        # or 2 sp - 1 - r (zig-zag's second) of the row's runs x sp
+        stripe = [[r, 2 * sp - 1 - r][:runs] for r in range(sp)]
+        order = torch.empty(runs * sp, dtype=torch.long, device=cnt.device)
+        for r in range(sp):
+            for i in range(runs):
+                order[stripe[r][i]] = r * runs + i
+        cnt = cnt.permute(1, 0, 2, 3).reshape(B, sp * runs, E)[:, order]
+        mine = [stripe[s][i] for i in range(runs)]
+    else:
+        mine = list(range(runs))
+    prev = cnt.cumsum(dim=1) - cnt                   # runs before, in a row
+    row = cnt.sum(dim=1)
+    rows_before = row.cumsum(dim=0) - row            # (B, E)
+    pos = inside + (rows_before[:, None] + prev[:, mine])[:, :, None]
+    if before is not None:
+        pos = pos + before
+    return pos.reshape(N, E).gather(1, topk_idx.long())
+
+
 def scatter_dispatch(x_flat: torch.Tensor, topk_idx: torch.Tensor,
                      topk_gates: torch.Tensor, experts_fc: torch.Tensor,
                      experts_proj: torch.Tensor, *, non_linearity: str,
-                     capacity: int, offset=None) -> torch.Tensor:
+                     capacity: int, gpos=None) -> torch.Tensor:
     """Capacity-bounded sort-based routed-expert dispatch (reference
     :193). x_flat (N, C); topk_idx/topk_gates (N, k) over the E routed
     experts whose stacked weights are experts_fc (E, C, fc_out) /
-    experts_proj (E, up, C), in x's dtype. Returns (N, C). Assignments
-    past an expert's `capacity` are dropped (earlier tokens win); with
-    `offset` (E,) the assignments of expert e start at global position
-    offset[e] (the earlier ranks' count). The tokens and gates reach the
-    (E, slots) grid, slots = min(capacity, N k), through `gather_rows`
-    and come back through `combine_rows` (ops/grouped_matmul.py): unfilled
-    slots are zero and feed no token, and no direction scatter-adds."""
+    experts_proj (E, up, C), in x's dtype; ids outside [0, E) are other
+    ranks' experts and dispatch nothing here. Returns (N, C). Assignments
+    past an expert's `capacity` are dropped (earlier tokens win); `gpos`
+    (N, k), where given, is each assignment's global place in its
+    expert's queue (`scatter_positions`), else its place among these N
+    tokens. The tokens and gates reach the (E, slots) grid, slots =
+    min(capacity, N k), through `gather_rows` and come back through
+    `combine_rows` (ops/grouped_matmul.py): unfilled slots are zero and
+    feed no token, and no direction scatter-adds."""
     N, k = topk_idx.shape
     E = experts_fc.shape[0]
     slots = min(capacity, N * k)
@@ -183,13 +240,15 @@ def scatter_dispatch(x_flat: torch.Tensor, topk_idx: torch.Tensor,
     dev = x_flat.device
 
     flat_e = topk_idx.reshape(-1)
+    local = (flat_e >= 0) & (flat_e < E)
+    flat_e = torch.where(local, flat_e, E)
     flat_t = torch.arange(N * k, device=dev) // k          # owning token
     order = torch.argsort(flat_e, stable=True)             # group by expert
     se = flat_e[order]
-    starts = torch.searchsorted(se, torch.arange(E, device=dev))
+    starts = torch.searchsorted(se, torch.arange(E + 1, device=dev))
     pos = torch.arange(N * k, device=dev) - starts[se]     # rank in expert
-    keep = pos < capacity if offset is None \
-        else pos + offset.to(pos.dtype)[se] < capacity
+    glob = pos if gpos is None else gpos.reshape(-1)[order]
+    keep = (se < E) & (glob < capacity)
     # dropped assignments point at row R: a row of zeros
     slot = torch.where(keep, se * slots + pos, R)
     pk = gm.pack(order, slot, flat_t, R)
@@ -197,18 +256,21 @@ def scatter_dispatch(x_flat: torch.Tensor, topk_idx: torch.Tensor,
     gate = gm.gather_rows(topk_gates.reshape(-1, 1).float(), pk.row_asg,
                           pk.filled, pk.slot[:, None])
     xg = gm.gather_rows(x_flat, pk.row_tok, pk.filled, slot_of)
-    y = mlp_apply(xg.reshape(E, slots, -1), experts_fc, experts_proj,
+    C = x_flat.shape[1]          # explicit: a rank may hold E = 0 routed
+    y = mlp_apply(xg.reshape(E, slots, C), experts_fc, experts_proj,
                   non_linearity)
     y = y * gate.reshape(E, slots, 1).to(x_flat.dtype)  # (E, slots, C)
-    return gm.combine_rows(y.reshape(R, -1), slot_of, pk.row_tok, pk.filled)
+    return gm.combine_rows(y.reshape(R, C), slot_of, pk.row_tok, pk.filled)
 
 
 class MoE(nn.Module):
     """DeepSeekMoE layer (reference :244-384); `forward` returns (y,
     aux_loss). Expert e's weights are slice [e] of the stacks; the first
-    n_shared are the shared experts."""
+    n_shared are the shared experts. Under an 'expert' axis (`ep`) the
+    stacks hold the rank's slice of the experts."""
 
     tp = (0, 1)
+    ep = (0, 1)
 
     def __init__(self, config: LLMConfig, *, device=None, dtype=None):
         super().__init__()
@@ -244,26 +306,31 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor):
         cfg = self.config
-        if cfg.moe_impl == "scatter" and context.seq_size() > 1:
-            raise NotImplementedError(
-                "moe_impl='scatter' under a 'seq' axis: its capacity drops "
-                "by global token position, which a rank's sequence slice is "
-                "not one run of (ROADMAP, Queue 1 item 6); use 'grouped' or "
-                "'dense'")
         B, T, C = x.shape
         dt = x.dtype
         n_shared, n_routed, k = cfg.n_shared, cfg.n_routed, cfg.n_act_routed
+        if self.ep[1] != context.expert_size():
+            raise RuntimeError(
+                f"an MoE cut for ep={self.ep[1]} runs under a world whose "
+                f"'expert' axis has {context.expert_size()} rank(s)")
+        # this rank's experts: global ids [lo, lo + E); n_sh of them shared,
+        # then the routed ids [r_lo, r_lo + E - n_sh)
+        E = self.experts_fc.shape[0]
+        lo = self.ep[0] * E
+        n_sh = max(0, min(n_shared, lo + E) - lo)
+        r_lo = lo + n_sh - n_shared
         x_flat = x.reshape(-1, C)
         n_tokens = x_flat.shape[0]
         fc = self.experts_fc.to(dt)
         proj = self.experts_proj.to(dt)
-        # the experts' input: its gradient summed over the model ranks
-        x_exp = context.copy_to_model(x_flat)
+        # the experts' input: its gradient summed over the model and expert
+        # ranks
+        x_exp = context.copy_to_expert(context.copy_to_model(x_flat))
 
         use_grouped = False
         if cfg.moe_impl == "grouped":
             use_grouped = gm.grouped_usable(cfg, dt, x.device,
-                                            tp=self.tp[1])
+                                            tp=self.tp[1], ep=self.ep[1])
             if not use_grouped:
                 gm.DEGRADED["dense"] += 1
                 if not self.warned_dense:
@@ -278,8 +345,8 @@ class MoE(nn.Module):
         # shared experts (reference :286-297); the grouped path runs them
         # in its kernels as always-on groups
         shared_out = None
-        if n_shared > 0 and not use_grouped:
-            shared_out = mlp_apply(x_exp, fc[:n_shared], proj[:n_shared],
+        if n_sh > 0 and not use_grouped:
+            shared_out = mlp_apply(x_exp, fc[:n_sh], proj[:n_sh],
                                    cfg.non_linearity).sum(dim=0)
 
         # router in fp32 (reference :299-329)
@@ -292,16 +359,18 @@ class MoE(nn.Module):
             topk_vals, topk_idx = logits.topk(k, dim=1)
             topk_gates = torch.softmax(topk_vals, dim=1)
         # the rank-local expert products' gates: their gradient summed over
-        # the model ranks
-        topk_gates = context.copy_to_model(topk_gates)
+        # the model and expert ranks
+        topk_gates = context.copy_to_expert(context.copy_to_model(topk_gates))
         one_hot = F.one_hot(topk_idx, n_routed).float()
         load = one_hot.sum(dim=(0, 1)).detach()             # per expert
         # the global batch's counts under a data-parallel recipe
         counts = context.batch_all_gather_stack(load)       # (W, E) | None
-        W, offset = 1, None
+        W, before = 1, None
         if counts is not None:
-            W, r = counts.shape[0], context.batch_rank()
-            load, offset = counts.sum(dim=0), counts[:r].sum(dim=0)
+            W, d = counts.shape[0], context.data_rank()
+            load = counts.sum(dim=0)
+            before = counts.view(context.data_size(), -1, n_routed)[:d] \
+                .sum(dim=(0, 1))
         n_glob = n_tokens * W
         fi = load / n_glob
         pi = torch.softmax(logits, dim=1).mean(dim=0)
@@ -313,11 +382,16 @@ class MoE(nn.Module):
         if cfg.moe_impl == "scatter":
             capacity = max(k, math.ceil(
                 cfg.capacity_factor * n_glob * k / n_routed))
-            capacity = -(-capacity // W) * W
+            dp = context.data_size()
+            capacity = -(-capacity // dp) * dp
+            gpos = None
+            if W > 1:
+                gpos = scatter_positions(one_hot.detach(), topk_idx, B,
+                                         before)
             routed_out = scatter_dispatch(
-                x_exp, topk_idx, topk_gates, fc[n_shared:], proj[n_shared:],
+                x_exp, topk_idx - r_lo, topk_gates, fc[n_sh:], proj[n_sh:],
                 non_linearity=cfg.non_linearity, capacity=capacity,
-                offset=offset)
+                gpos=gpos)
             dropped_frac = (load - capacity).clamp_min(0).sum() \
                 / float(n_glob * k)
         elif use_grouped:
@@ -325,10 +399,11 @@ class MoE(nn.Module):
                 x_exp, topk_idx, topk_gates, fc, proj,
                 act=functools.partial(activate,
                                       non_linearity=cfg.non_linearity),
-                n_shared=n_shared)
+                n_shared=n_shared, ep=self.ep)
         else:
             combine = (one_hot * topk_gates[..., None]).sum(dim=1)  # (N, E)
-            all_routed = mlp_apply(x_exp, fc[n_shared:], proj[n_shared:],
+            combine = combine[:, r_lo:r_lo + E - n_sh]
+            all_routed = mlp_apply(x_exp, fc[n_sh:], proj[n_sh:],
                                    cfg.non_linearity)       # (E, N, C)
             routed_out = torch.einsum("enc,ne->nc", all_routed,
                                       combine.to(dt))
@@ -340,5 +415,5 @@ class MoE(nn.Module):
             self.pending_state = (bias, dropped_frac.detach())
 
         y = routed_out if shared_out is None else shared_out + routed_out
-        y = context.reduce_from_model(y)
+        y = context.reduce_from_expert(context.reduce_from_model(y))
         return y.reshape(B, T, C), aux_loss.float()

@@ -14,7 +14,9 @@ Under a published 'seq' axis (sequence parallelism) a site's `x` holds
 this rank's T / sp positions of each row along dim 1: the mask is drawn
 over the whole rows and taken at this rank's positions
 (ops/ring_attention.py `seq_positions`), so the seq ranks together draw
-the one mask a process holding the whole rows draws.
+the one mask a process holding the whole rows draws. No seed depends on
+a rank, so the model and expert ranks of one data rank, which hold the
+same rows, draw the same masks.
 """
 
 from __future__ import annotations

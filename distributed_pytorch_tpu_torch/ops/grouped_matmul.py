@@ -36,11 +36,19 @@ Counterpart of the reference package's `ops/grouped_matmul.py`:
   `_gmm_bwd` :261): the gate cotangent sum_n dy * y_unscaled comes from a
   recomputed unscaled forward, not a stored one. dW of an expert with no
   rows is zero as both the kernel and the plain version compute it.
-* `grouped_dispatch` (:436, one device: `_local_grouped_dispatch` :354
-  without the 'expert' mesh axis, which comes with slice 6): the shared
+* `grouped_dispatch` (:436, `_local_grouped_dispatch` :354): the shared
   experts ride the same two products as always-on groups with gate 1.0,
   and `combine_rows` sums every token's rows. The caller passes the
-  nonlinearity between the two products (`act`).
+  nonlinearity between the two products (`act`). Under an 'expert' axis
+  (`ep` = (rank, ep), parallel/tensor.py) the weights are the rank's
+  n_exp / ep experts, global ids lo = rank n_exp / ep onwards, and the
+  rank packs only the assignments of those ids, the shared experts'
+  included where it holds them; the reference instead keeps the other
+  assignments in its buffer re-tagged to the last local group with gate 0
+  (:386-388), which adds rows and no sum. The buffer's rows are bounded on
+  the host without a sync: a token has one assignment per local shared
+  expert and at most min(k, local routed experts) routed ones. The caller
+  sums the ranks' outputs over 'expert' (models/mlp.py).
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take (dtypes other than fp32/bf16, mixed dtypes, widths
@@ -322,12 +330,14 @@ def _gmm_metadata(flat_e, n_groups: int, n_tiles: int, bm: int):
     """(counts, pstart, starts, tile_group) for a flat expert-id vector:
     rows per group, each group's padded and packed offsets, and each tile's
     group (trailing unused tiles resolve to the last group). Groups are
-    padded to the next bm multiple; empty groups own no tiles. The
+    padded to the next bm multiple; empty groups own no tiles. An id of
+    n_groups is no group's (an assignment that is not packed). The
     reference's `tile_first` is not kept: the dW kernel walks each
     expert's own rows instead of resetting on a group's first tile."""
     dev = flat_e.device
-    counts = torch.zeros(n_groups, dtype=torch.long, device=dev).index_add_(
-        0, flat_e.long(), torch.ones_like(flat_e, dtype=torch.long))
+    counts = torch.zeros(n_groups + 1, dtype=torch.long,
+                         device=dev).index_add_(
+        0, flat_e.long(), torch.ones_like(flat_e, dtype=torch.long))[:-1]
     padded = (counts + bm - 1) // bm * bm
     pstart = torch.cumsum(padded, 0) - padded
     tile_start = pstart // bm
@@ -422,34 +432,44 @@ def combine_rows(y, slot_of, rows, filled):
     return _CombineRows.apply(y, slot_of, rows, filled)
 
 
-def _pack_rows(flat_e, flat_t, n_groups: int, bm: int):
+def _pack_rows(flat_e, flat_t, n_groups: int, bm: int, n_asg=None):
     """Sort assignments by expert into the tile-aligned buffer. Returns
     (Packing, counts, pstart, tile_group). The buffer's rows past each
-    group's assignments are unfilled."""
+    group's assignments are unfilled. Assignments whose id is outside [0,
+    n_groups) are not packed (their slot is P, a row of zeros); `n_asg`
+    bounds the count of those that are (default: all of them)."""
     A = flat_e.shape[0]
-    n_tiles = -(-A // bm) + n_groups
+    n_tiles = -(-(A if n_asg is None else n_asg) // bm) + n_groups
     P = n_tiles * bm
     dev = flat_e.device
 
-    order = torch.argsort(flat_e, stable=True)
-    se = flat_e[order]
+    local = (flat_e >= 0) & (flat_e < n_groups)
+    key = torch.where(local, flat_e, n_groups)
+    order = torch.argsort(key, stable=True)
+    se = key[order]
     counts, pstart, starts, tile_group = _gmm_metadata(
-        flat_e, n_groups, n_tiles, bm)
+        key, n_groups, n_tiles, bm)
+    starts = torch.cat([starts, starts.new_zeros(1)])
     pos = torch.arange(A, device=dev) - starts[se]         # rank in group
-    slot = pstart.long()[se] + pos                         # unique, < P
+    slot = torch.where(se < n_groups,                      # unique, < P
+                       torch.cat([pstart.long(), pstart.new_zeros(
+                           1, dtype=torch.long)])[se] + pos, P)
     return pack(order, slot, flat_t, P), counts, pstart, tile_group
 
 
-def grouped_usable(cfg, dtype, device, tp: int = 1) -> bool:
+def grouped_usable(cfg, dtype, device, tp: int = 1, ep: int = 1) -> bool:
     """Static gate for the grouped path. False -> callers fall back to the
     'dense' combine (identical dropless semantics, E/k x the FLOPs), as the
     reference does. Widths must be multiples of 8 (the reference's non-TPU
     rule, and the 16-byte vectors the kernels copy) — under a 'model' axis
-    of tp the rank's local widths up_dim / tp; on the card the dtype must
+    of tp the rank's local widths up_dim / tp; an 'expert' axis of ep must
+    divide n_exp (the reference's rule, :431); on the card the dtype must
     be fp32 or bf16."""
     up = cfg.up_dim // tp
     fc_out = 2 * up if cfg.non_linearity.lower() in ("swiglu", "glu") else up
     if any(d % ALIGN for d in (cfg.n_embd, up, fc_out)):
+        return False
+    if cfg.n_exp % ep:
         return False
     if torch.device(device).type == "cpu":
         return True
@@ -458,32 +478,39 @@ def grouped_usable(cfg, dtype, device, tp: int = 1) -> bool:
 
 def grouped_dispatch(x_flat, topk_idx, topk_gates, experts_fc, experts_proj,
                      *, act: Callable[[torch.Tensor], torch.Tensor],
-                     n_shared: int = 0):
-    """Dropless grouped-matmul MoE dispatch on one device.
+                     n_shared: int = 0, ep: tuple = (0, 1)):
+    """Dropless grouped-matmul MoE dispatch of one device's experts.
 
     x_flat (N, C); topk_idx/topk_gates (N, k) over the ROUTED experts;
-    experts_fc/experts_proj (n_exp, ...) stacked weights INCLUDING the
-    n_shared leading shared experts, in x's dtype; `act` maps the fc
-    product to the proj input. Returns shared + routed outputs combined,
-    (N, C). Gate with `grouped_usable` first."""
+    experts_fc/experts_proj (E, ...) stacked weights in x's dtype: the
+    whole n_exp INCLUDING the n_shared leading shared experts, or under
+    `ep` = (rank, ep) the rank's E = n_exp / ep of them (global ids rank E
+    .. rank E + E - 1); `act` maps the fc product to the proj input.
+    Returns the shared + routed outputs of these experts combined, (N, C):
+    under ep > 1 a part of the sum over the expert ranks. Gate with
+    `grouped_usable` first."""
     N = x_flat.shape[0]
     k = topk_idx.shape[1]
     E = experts_fc.shape[0]
     dev = x_flat.device
     bm = block_m(dev)
+    lo = ep[0] * E
+    n_sh = max(0, min(n_shared, lo + E) - lo)      # local shared experts
+    n_asg = None if ep[1] == 1 else N * (n_sh + min(k, E - n_sh))
 
     # assignments token-major: token n's shared experts, then its routed
-    # ones; within a group the stable sort keeps token order either way
+    # ones; within a group the stable sort keeps token order either way;
+    # ids are local (outside [0, E): another rank's expert)
     J = n_shared + k
     flat_e = torch.cat(
         [torch.arange(n_shared, device=dev).expand(N, n_shared),
-         topk_idx.long() + n_shared], dim=1).reshape(-1)
+         topk_idx.long() + n_shared], dim=1).reshape(-1) - lo
     flat_g = torch.cat(
         [torch.ones(N, n_shared, device=dev), topk_gates.float()],
         dim=1).reshape(-1, 1)
     flat_t = torch.arange(N, device=dev).repeat_interleave(J)
 
-    pk, counts, pstart, tile_group = _pack_rows(flat_e, flat_t, E, bm)
+    pk, counts, pstart, tile_group = _pack_rows(flat_e, flat_t, E, bm, n_asg)
     slot_of = pk.slot.reshape(N, J)
     x_pad = gather_rows(x_flat, pk.row_tok, pk.filled, slot_of)
     row_gate = gather_rows(flat_g, pk.row_asg, pk.filled, pk.slot[:, None])

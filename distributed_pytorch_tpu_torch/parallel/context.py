@@ -1,4 +1,5 @@
-"""The ambient world: its data, seq and model groups and the whole of it.
+"""The ambient world: its data, seq, expert and model groups and the whole
+of it.
 
 Counterpart of the reference package's `parallel/context.py` (:20-52),
 which publishes the trainer's mesh so that code inside the model can issue
@@ -20,10 +21,19 @@ here for the length of a run, and these kinds of reduction stay apart:
   (ops/ring_attention.py) — `seq_size`, `seq_rank`, `seq_impl`,
   `seq_layout`, the neighbour permute `seq_permute` (the reference's
   `ppermute`; its gradient goes the other way) with its asynchronous form
-  `seq_permute_start`, and the tiled `seq_all_to_all` (the reference's
-  `all_to_all`; its gradient is the inverse all-to-all), and
-  `sp_region`, inside which attention does not route to the 'seq' path
-  again (the reference's `sp_region`, :29-52);
+  `seq_permute_start`, the tiled `seq_all_to_all` (the reference's
+  `all_to_all`; its gradient is the inverse all-to-all), the MoE's
+  'scatter' counts `seq_all_gather_stack`, and `sp_region`, inside which
+  attention does not route to the 'seq' path again (the reference's
+  `sp_region`, :29-52);
+* over the 'expert' group (the ep ranks of one data rank, which hold the
+  same rows and different experts): the MoE's expert-parallel dispatch
+  (models/mlp.py, ops/grouped_matmul.py) — `expert_size`, `expert_rank`,
+  `expert_all_reduce`, `expert_all_gather`, and the autograd pair
+  `copy_to_expert` (identity forward, sum over the group backward: the
+  experts' input and gates) / `reduce_from_expert` (sum forward, identity
+  backward: the ranks' partial outputs), the counterparts of the
+  reference's `shard_map` in and out of its 'expert' axis;
 * over the 'model' group (the tp ranks of one data rank, which hold the
   same rows and different pieces of the model): the tensor-parallel
   layers' collectives — `model_size`, `model_rank`, `model_all_reduce`,
@@ -34,15 +44,16 @@ here for the length of a run, and these kinds of reduction stay apart:
   gradient norm's cut pieces — `any_rank`, `broadcast_object`, `barrier`,
   `world_all_reduce_sum`.
 
-With no 'seq' axis the batch ranks are the data ranks; with no 'model'
-axis every model helper is the identity. With no world published, or the
+With no 'seq' axis the batch ranks are the data ranks (the expert ranks
+of one data rank hold its rows, so they count as one); with no 'expert'
+or 'model' axis every expert or model helper is the identity. With no world published, or the
 single recipe's, every helper is the identity and nothing communicates:
 serving and one-device training never see a collective.
 
 The world is a module global rather than a context variable: the autograd
 engine recomputes checkpointed blocks on its own threads, which do not see
-the caller's context variables. The expert and overlap contexts come with
-their recipes.
+the caller's context variables. The overlap context comes with its
+recipe.
 """
 
 from __future__ import annotations
@@ -73,6 +84,13 @@ def _model() -> Optional[World]:
     return w if w is not None and w.tp > 1 else None
 
 
+def _expert() -> Optional[World]:
+    """The live world when it has an 'expert' axis of more than one
+    rank."""
+    w = _live()
+    return w if w is not None and w.ep > 1 else None
+
+
 def distributed() -> bool:
     """Whether a world with a group is published."""
     return _live() is not None
@@ -98,6 +116,17 @@ def model_size() -> int:
 def model_rank() -> int:
     w = _live()
     return w.model_rank if w is not None else 0
+
+
+def expert_size() -> int:
+    """Ranks on the 'expert' axis (1 with no group)."""
+    w = _live()
+    return w.ep if w is not None else 1
+
+
+def expert_rank() -> int:
+    w = _live()
+    return w.expert_rank if w is not None else 0
 
 
 @contextlib.contextmanager
@@ -244,6 +273,16 @@ def _seq() -> World:
     return w
 
 
+def seq_all_gather_stack(t: torch.Tensor) -> torch.Tensor:
+    """(sp, *t.shape): every seq rank's t (same shape on each) in
+    seq-rank order. No autograd."""
+    w = _seq()
+    t = t.contiguous()
+    out = torch.empty(w.sp * t.numel(), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.reshape(-1), group=w.seq_group)
+    return out.view((w.sp,) + tuple(t.shape))
+
+
 def seq_permute_start(t: torch.Tensor, shift: int = 1):
     """Start sending t to seq rank (r + shift) mod sp and receiving the
     t of rank (r - shift) mod sp; returns a function that waits and gives
@@ -324,37 +363,44 @@ def model_all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return t
 
 
-def model_all_gather(t: torch.Tensor) -> list:
-    """Every model rank's t (same shape on each), in model-rank order."""
-    w = _model()
-    if w is None:
-        return [t]
+def _gather_list(t: torch.Tensor, n: int, group) -> list:
+    """Every rank's t (same shape on each) of a group of n, in rank
+    order."""
     t = t.contiguous()
-    out = torch.empty((w.tp,) + tuple(t.shape), dtype=t.dtype,
-                      device=t.device)
-    dist.all_gather_into_tensor(out.view(-1), t.view(-1),
-                                group=w.model_group)
+    out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out.view(-1), t.view(-1), group=group)
     return list(out.unbind(0))
 
 
-class _CopyToModel(torch.autograd.Function):
+def model_all_gather(t: torch.Tensor) -> list:
+    """Every model rank's t (same shape on each), in model-rank order."""
+    w = _model()
+    return [t] if w is None else _gather_list(t, w.tp, w.model_group)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the gradient summed by `reduce` (in place)."""
+
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, reduce):
+        ctx.reduce = reduce
         return x
 
     @staticmethod
     def backward(ctx, g):
-        return model_all_reduce(g.contiguous().clone())
+        return ctx.reduce(g.contiguous().clone()), None
 
 
-class _ReduceFromModel(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
+    """x summed by `reduce` forward; the gradient as it is."""
+
     @staticmethod
-    def forward(ctx, x):
-        return model_all_reduce(x.contiguous().clone())
+    def forward(ctx, x, reduce):
+        return reduce(x.contiguous().clone())
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -373,13 +419,14 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     """x as it is, its gradient summed over the model ranks: the input of
     a column-parallel product, whose every rank adds its piece's part of
     the gradient."""
-    return _CopyToModel.apply(x) if _model() is not None else x
+    return _CopyTo.apply(x, model_all_reduce) if _model() is not None else x
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     """x summed over the model ranks (the output of a row-parallel
     product, each rank's partial sum); its gradient passes as it is."""
-    return _ReduceFromModel.apply(x) if _model() is not None else x
+    return _ReduceFrom.apply(x, model_all_reduce) if _model() is not None \
+        else x
 
 
 def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -388,6 +435,38 @@ def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     if _model() is None:
         return x
     return _GatherFromModel.apply(x, dim % x.dim())
+
+
+# ---------------------------------------------------------------------------
+# the 'expert' group
+# ---------------------------------------------------------------------------
+
+def expert_all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """t summed over the expert ranks (in place; returned)."""
+    w = _expert()
+    if w is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=w.expert_group)
+    return t
+
+
+def expert_all_gather(t: torch.Tensor) -> list:
+    """Every expert rank's t (same shape on each), in expert-rank order."""
+    w = _expert()
+    return [t] if w is None else _gather_list(t, w.ep, w.expert_group)
+
+
+def copy_to_expert(x: torch.Tensor) -> torch.Tensor:
+    """x as it is, its gradient summed over the expert ranks: the MoE's
+    input and gates, of which every rank's local experts take a part."""
+    return _CopyTo.apply(x, expert_all_reduce) if _expert() is not None \
+        else x
+
+
+def reduce_from_expert(x: torch.Tensor) -> torch.Tensor:
+    """x summed over the expert ranks (each rank's local experts'
+    partial output); its gradient passes as it is."""
+    return _ReduceFrom.apply(x, expert_all_reduce) \
+        if _expert() is not None else x
 
 
 # ---------------------------------------------------------------------------

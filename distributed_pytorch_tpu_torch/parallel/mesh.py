@@ -6,21 +6,24 @@ as they are, so a recipe resolves to the same axis sizes in both packages.
 The reference lays its devices out as a `jax.sharding.Mesh` (`build_mesh`,
 mesh.py:96-106); here the world is a `torch.distributed` process group of
 one process per card, and `World` describes this process's place in it.
-With a 'seq' axis (sequence parallelism, `sp` > 1) or a 'model' axis
-(tensor parallelism, `tp` > 1) the ranks form a 2-D `DeviceMesh` in the
-reference's axis order (`AXES`: 'data' outermost, then 'seq', then
-'model'): global rank = (data rank x sp + seq rank) x tp + model rank, so
-the ranks of one seq or model group sit on adjacent cards. The mesh's
+With a 'seq' axis (sequence parallelism, `sp` > 1), an 'expert' axis
+(expert parallelism, `ep` > 1) or a 'model' axis (tensor parallelism,
+`tp` > 1) the ranks form a 2-D `DeviceMesh` in the reference's axis order
+(`AXES`: 'data' outermost, then 'seq', 'expert', 'model'): global rank =
+((data rank x sp + seq rank) x ep + expert rank) x tp + model rank, so the
+ranks of one seq, expert or model group sit on adjacent cards. The mesh's
 'data' group (the ranks holding the same model pieces and the same
 positions of different rows) carries the parameter and optimizer
 sharding's collectives, its 'seq' group (one data rank's sp ranks, which
 hold different positions of the same rows) ring and Ulysses attention,
-its 'model' group (one data rank's tp pieces) the tensor-parallel ones;
-the 'batch' ranks, data x seq, hold different tokens, and the loss, the
-MoE's statistics and the gradient reduce over them. Without a 'seq' or
-'model' axis the data group is the whole world. A 'seq' axis beside a
-'model' axis is refused (ROADMAP, Queue 1 item 6). The world itself is set
-up so:
+its 'expert' group (one data rank's ep ranks, which hold the same rows
+and different experts) the MoE's sum over the experts, its 'model' group
+(one data rank's tp pieces) the tensor-parallel ones; the 'batch' ranks,
+data x seq, hold different tokens, and the loss, the MoE's statistics
+and the gradient reduce over them. Without a 'seq', 'expert' or 'model'
+axis the data group is the whole world. Two of these axes beside each
+other are refused (ROADMAP, Queue 1 item 4). The world itself is set up
+so:
 
 * under `torch.distributed.run` the group comes from its environment
   (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`);
@@ -96,11 +99,12 @@ def rung_down(n: int) -> int:
 class World:
     """This process's place in the world. `backend` is 'nccl', 'gloo', or
     'none' for the single recipe, which makes no group. `sp` ranks form
-    the 'seq' axis and `tp` ranks the 'model' axis; with either over 1,
-    `mesh` is the ("data", "seq") or ("data", "model") `DeviceMesh` and
-    `data_group`, `seq_group` / `model_group` its groups of this rank
-    (None where the axis is 1, and the data group None where it is the
-    whole world). `batch_group` holds the ranks of different tokens,
+    the 'seq' axis, `ep` ranks the 'expert' axis and `tp` ranks the
+    'model' axis; with one of them over 1, `mesh` is the ("data", "seq"),
+    ("data", "expert") or ("data", "model") `DeviceMesh` and
+    `data_group`, `seq_group` / `expert_group` / `model_group` its groups
+    of this rank (None where the axis is 1, and the data group None where
+    it is the whole world). `batch_group` holds the ranks of different tokens,
     data x seq (None: the whole world). `seq_impl` is the sequence-parallel
     attention the run resolved once from its config (ops/ring_attention.py
     `config_impl`): 'ring', 'zigzag' or 'ulysses'; `seq_layout` follows
@@ -114,10 +118,12 @@ class World:
     owns_group: bool = False
     tp: int = 1
     sp: int = 1
+    ep: int = 1
     mesh: Any = None
     data_group: Any = None
     model_group: Any = None
     seq_group: Any = None
+    expert_group: Any = None
     batch_group: Any = None
     seq_impl: str = "ring"
 
@@ -132,15 +138,19 @@ class World:
     @property
     def dp(self) -> int:
         """Ranks on the 'data' axis."""
-        return self.size // (self.tp * self.sp)
+        return self.size // (self.tp * self.ep * self.sp)
 
     @property
     def data_rank(self) -> int:
-        return self.rank // (self.tp * self.sp)
+        return self.rank // (self.tp * self.ep * self.sp)
 
     @property
     def seq_rank(self) -> int:
-        return (self.rank // self.tp) % self.sp
+        return (self.rank // (self.tp * self.ep)) % self.sp
+
+    @property
+    def expert_rank(self) -> int:
+        return (self.rank // self.tp) % self.ep
 
     @property
     def model_rank(self) -> int:
@@ -155,7 +165,7 @@ class World:
     @property
     def batch_rank(self) -> int:
         """This rank's place among the data x seq ranks."""
-        return self.rank // self.tp
+        return self.rank // (self.tp * self.ep)
 
 
 def torchrun_env(environ: Optional[Mapping[str, str]] = None
@@ -169,13 +179,14 @@ def torchrun_env(environ: Optional[Mapping[str, str]] = None
 
 def init_world(recipe: str, platform: str = "auto",
                dp_size: int = -1, tp_size: int = 1,
-               sp_size: int = 1) -> World:
+               sp_size: int = 1, ep_size: int = 1) -> World:
     """The world of a training run. 'single' makes no group and refuses a
     torchrun launch of more than one process; the other recipes join (or
-    make) a group of dp_size x sp_size x tp_size ranks (`dp_size` -1:
-    the world over sp_size x tp_size), checked as the reference's
-    `resolve_plan` checks its plan, and with sp_size or tp_size > 1 lay it
-    out as the ("data", "seq") or ("data", "model") mesh."""
+    make) a group of dp_size x sp_size x ep_size x tp_size ranks
+    (`dp_size` -1: the world over the others), checked as the reference's
+    `resolve_plan` checks its plan, and with sp_size, ep_size or tp_size >
+    1 lay it out as the ("data", "seq"), ("data", "expert") or ("data",
+    "model") mesh."""
     env = torchrun_env()
     cpu = platform == "cpu"
     if recipe == "single":
@@ -183,12 +194,14 @@ def init_world(recipe: str, platform: str = "auto",
             raise ValueError(
                 f"parallelism='single' trains on one process; "
                 f"WORLD_SIZE={env['WORLD_SIZE']} asks for a data-parallel "
-                "recipe (--parallelism dp|zero1|zero2|fsdp|tp|fsdp_tp|sp)")
+                "recipe (--parallelism dp|zero1|zero2|fsdp|tp|fsdp_tp|sp|ep)")
         return World(device=resolve_device("cpu" if cpu else None))
-    if sp_size > 1 and tp_size > 1:
+    inner = [(n, a) for n, a in (("seq", sp_size), ("expert", ep_size),
+                                 ("model", tp_size)) if a > 1]
+    if len(inner) > 1:
         raise NotImplementedError(
-            f"sp_size={sp_size} beside tp_size={tp_size}: the 'seq' x "
-            "'model' composition comes with ROADMAP Queue 1 item 6")
+            " beside ".join(f"{n} axis of {a}" for n, a in inner)
+            + ": the composition comes with ROADMAP Queue 1 item 4")
     local = int(env["LOCAL_RANK"]) if env else 0
     owns = not dist.is_initialized()
     if owns:
@@ -212,7 +225,7 @@ def init_world(recipe: str, platform: str = "auto",
     try:
         try:
             resolve_plan(recipe, size, tp_size=tp_size, sp_size=sp_size,
-                         dp_size=dp_size)
+                         ep_size=ep_size, dp_size=dp_size)
         except AssertionError as e:
             raise ValueError(str(e)) from None
         if backend == "nccl":
@@ -222,24 +235,24 @@ def init_world(recipe: str, platform: str = "auto",
             device = torch.device("cpu")
         mesh = None
         groups = {}
-        inner = "seq" if sp_size > 1 else "model" if tp_size > 1 else None
-        if inner is not None:
+        if inner:
             from torch.distributed.device_mesh import init_device_mesh
-            n = max(sp_size, tp_size)
+            name, n = inner[0]
             mesh = init_device_mesh(device.type, (size // n, n),
-                                    mesh_dim_names=("data", inner))
+                                    mesh_dim_names=("data", name))
             groups = {"data": mesh.get_group("data"),
-                      inner: mesh.get_group(inner)}
+                      name: mesh.get_group(name)}
     except BaseException:
         if owns:
             dist.destroy_process_group()
         raise
     return World(rank=rank, size=size, local_rank=local, backend=backend,
                  device=device, owns_group=owns, tp=tp_size, sp=sp_size,
-                 mesh=mesh, data_group=groups.get("data"),
+                 ep=ep_size, mesh=mesh, data_group=groups.get("data"),
                  model_group=groups.get("model"),
                  seq_group=groups.get("seq"),
-                 batch_group=groups.get("data") if tp_size > 1 else None)
+                 expert_group=groups.get("expert"),
+                 batch_group=groups.get("data") if sp_size == 1 else None)
 
 
 def close_world(world: World) -> None:

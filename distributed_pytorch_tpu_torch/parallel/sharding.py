@@ -1,5 +1,6 @@
 """The parallel recipes: what each rank holds whole, what it holds 1/W of
-over the 'data' axis, and what it holds 1/tp of over the 'model' axis.
+over the 'data' axis, and what it holds 1/tp of over the 'model' axis or
+1/ep of over the 'expert' axis.
 
 Counterpart of the reference package's `parallel/sharding.py`, whose
 PartitionSpec tables (`_PARAM_SHARDED`, `_OPT_SHARDED`, `_GRAD_SHARDED`,
@@ -17,6 +18,8 @@ pick a wrapper that issues them by hand over the 'data' group
 | tp     | 1/tp   | 1/tp    | 1/tp       | cut layers, DDP on 'data' |
 | fsdp_tp| 1/(tpW)| 1/(tpW) | 1/(tpW)    | cut layers, FSDP2 on 'data' |
 | sp     | 1/W    | 1/W     | 1/W        | FSDP2 on ('seq', 'data') |
+| ep     | experts 1/ep | experts 1/ep | experts 1/ep | cut experts, DDP on 'data' |
+| fsdp, ep_size | 1/(epW) experts, 1/W the rest | the same | the same | cut experts, FSDP2 on 'data' |
 
 With a 'model' axis (`tp_size` > 1) W is the 'data' axis's size: the world
 is dp x tp ranks (parallel/mesh.py), the leftover ranks landing on 'data'
@@ -33,7 +36,7 @@ down-projections and shared rotary key, the router) is whole on every
 model rank. `spec_for_param` gives the axis; parallel/tensor.py cuts the
 model into each rank's pieces (per-rank layouts of the fused tensors) and
 the layers issue the 'model' collectives. Under zero1 / zero2 a 'model'
-axis is refused (ROADMAP, Queue 1 item 6).
+axis is refused (ROADMAP, Queue 1 item 4).
 
 With a 'seq' axis (`sp_size` > 1, sequence parallelism) W is again the
 'data' axis's size: the world is dp x sp ranks, a rank holds T / sp
@@ -46,7 +49,27 @@ reduce-scatters over 'data' and all-reduces its piece over 'seq'; `fsdp`
 and `sp` run FSDP2 on a ('seq', 'data') mesh that replicates over 'seq'
 and shards over 'data' (HSDP: reduce-scatter over 'data', all-reduce over
 'seq'). A 'seq' axis beside a 'model' axis is refused (ROADMAP, Queue 1
-item 6).
+item 4).
+
+With an 'expert' axis (`ep_size` > 1, expert parallelism) W is again the
+'data' axis's size: the world is dp x ep ranks, and the expert ranks of
+one data rank hold the same rows (data/loader.py) and different experts.
+As the reference's `spec_for_param` puts the leading axis of every
+`experts_*` stack over 'expert' and replicates everything else over it,
+`shard_experts` (parallel/tensor.py) cuts `experts_fc` / `experts_proj`
+on dim 0 into a rank's n_exp / ep experts before the wrapper sees the
+model, and the MoE layer runs its dispatch on them (models/mlp.py).
+`ep` (dp with `ep_size` > 1, the reference's `ep` row) runs DDP over the
+'data' group, and `fsdp` with `ep_size` FSDP2 over the 'data' group on
+the plain pieces, as `fsdp_tp` does. The input's and the gates' gradients
+are summed over 'expert' inside the layer (`context.copy_to_expert`), so
+every gradient that is whole on the expert ranks is equal on them, and no
+gradient is reduced over 'expert'. The reference's table leaves the `ep`
+recipe's optimizer moments replicated (`shard_like_params`: `ep` shards
+no moments), which holds every expert's moments on every device; the
+port holds a rank's experts' only (ROADMAP lists the difference). An
+'expert' axis beside a 'seq' or 'model' axis, and under zero1 / zero2, is
+refused (ROADMAP, Queue 1 item 4).
 
 * `dp`: `broadcast_buffers=False`, since the MoE's `expert_bias` is kept
   equal on every rank by its global statistics (models/mlp.py) and must
@@ -83,10 +106,10 @@ item 6).
   under `single` and `dp` and raises under the sharded recipes.
 
 Every recipe steps a rank's data rows only (data/loader.py; the model
-ranks of one data rank take the same rows); the gradient is the mean over
-the global batch, as the reference's. The gradient norm sums the squares
-of the cut pieces over 'model' and counts a whole gradient once
-(train/state.py `global_norm`). Checkpoints hold whole tensors in the
+and expert ranks of one data rank take the same rows); the gradient is
+the mean over the global batch, as the reference's. The gradient norm sums
+the squares of the cut pieces over 'model' or 'expert' and counts a whole
+gradient once (train/state.py `global_norm`). Checkpoints hold whole tensors in the
 reference's layout whatever the recipe (`full_state_dicts`,
 `load_full_state`).
 """
@@ -110,12 +133,14 @@ OPT_SHARDED = ("zero1", "zero2") + PARAM_SHARDED
 # up).
 GRAD_SHARDED = ("zero2",) + PARAM_SHARDED
 # The recipes the port trains.
-PORTED = ("single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp", "sp")
-# What the rest of slice 6 brings (ROADMAP, Queue 1 item 6).
-SLICE6_LEFT = ("ep, pp, offload, the collective-matmul overlap, a 'model' "
-               "axis under zero1 / zero2, a 'seq' axis beside a 'model' "
-               "axis, and Adafactor under the sharded recipes (ROADMAP, "
-               "Queue 1 item 6)")
+PORTED = ("single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp", "sp",
+          "ep")
+# What the rest of slice 6 brings (ROADMAP, Queue 1 items 3-6).
+SLICE6_LEFT = ("pp, offload, the collective-matmul overlap, ep beside a "
+               "'seq' or 'model' axis, a 'seq' axis beside a 'model' axis, "
+               "zero1 / zero2 with a 'model' or 'expert' axis, and "
+               "Adafactor under the sharded recipes (ROADMAP, Queue 1 "
+               "items 3-6)")
 
 # Tensor-parallel table, the reference's `_TP_RULES` (sharding.py:44-71) in
 # the port's names: (suffix of the dotted name) -> the axis cut over
@@ -148,15 +173,26 @@ def tp_axis(name: str) -> Optional[int]:
     return None
 
 
-def spec_for_param(name: str, shape: tuple, tp: int) -> tuple:
-    """The parameter's placement over the 'model' axis, one entry per dim:
-    'model' where it is cut, None where whole (the counterpart of the
-    reference's `spec_for_param`'s 'model' entries). As there, an axis is
-    cut only where tp divides it."""
+def expert_cut(name: str) -> bool:
+    """Whether the parameter `name` is an expert stack, whose leading axis
+    the 'expert' axis cuts (the reference's `spec_for_param`: a leaf whose
+    name starts with 'experts_')."""
+    return name.rsplit(".", 1)[-1].startswith("experts_")
+
+
+def spec_for_param(name: str, shape: tuple, tp: int, ep: int = 1) -> tuple:
+    """The parameter's placement over the 'expert' and 'model' axes, one
+    entry per dim: 'expert' or 'model' where it is cut, None where whole
+    (the counterpart of the reference's `spec_for_param`'s 'expert' and
+    'model' entries). As there, an expert stack's leading axis goes to
+    'expert', and an axis is cut over 'model' only where tp divides it
+    and 'expert' has not taken it."""
     axes = [None] * len(shape)
+    if ep > 1 and expert_cut(name):
+        axes[0] = "expert"
     ax = tp_axis(name)
     if tp > 1 and ax is not None and ax < len(shape) \
-            and shape[ax] % tp == 0:
+            and shape[ax] % tp == 0 and axes[ax] is None:
         axes[ax] = "model"
     return tuple(axes)
 
@@ -170,20 +206,24 @@ def holds(recipe: str) -> dict[str, bool]:
             "grads": recipe in GRAD_SHARDED}
 
 
-def tp_recipe(recipe: str, tp_size: int) -> str:
-    """The recipe a 'model' axis of `tp_size` makes of `recipe`: dp ->
-    tp, fsdp -> fsdp_tp (the same two things, as in the reference)."""
+def tp_recipe(recipe: str, tp_size: int, ep_size: int = 1) -> str:
+    """The recipe a 'model' axis of `tp_size` or an 'expert' axis of
+    `ep_size` makes of `recipe`: dp -> tp, fsdp -> fsdp_tp, dp -> ep (the
+    same things, as in the reference)."""
     if tp_size > 1:
         return {"dp": "tp", "fsdp": "fsdp_tp"}.get(recipe, recipe)
+    if ep_size > 1 and recipe == "dp":
+        return "ep"
     return recipe
 
 
 def check_recipe(recipe: str, optimizer: str, tp_size: int = 1,
-                 sp_size: int = 1) -> None:
-    """Refuse a recipe the port does not train, a 'model' axis where the
-    port does not run one (under zero1 / zero2, beside a 'seq' axis), or
-    Adafactor (whole-tensor row and column statistics) under a recipe
-    that shards the moments or a 'model' axis."""
+                 sp_size: int = 1, ep_size: int = 1) -> None:
+    """Refuse a recipe the port does not train, a 'model' or 'expert' axis
+    where the port does not run one (under zero1 / zero2, beside a 'seq'
+    axis or each other), or Adafactor (whole-tensor row and column
+    statistics) under a recipe that shards the moments or a 'model'
+    axis."""
     if recipe not in PORTED:
         raise NotImplementedError(
             f"parallelism={recipe!r} comes with the rest of slice 6: "
@@ -193,11 +233,18 @@ def check_recipe(recipe: str, optimizer: str, tp_size: int = 1,
             f"tp_size={tp_size} under parallelism={recipe!r} with "
             f"sp_size={sp_size} comes with the rest of slice 6: "
             f"{SLICE6_LEFT}")
+    if (ep_size > 1 or recipe == "ep") and (
+            recipe in ("zero1", "zero2", "sp") or sp_size > 1
+            or tp_size > 1):
+        raise NotImplementedError(
+            f"ep_size={ep_size} under parallelism={recipe!r} with "
+            f"sp_size={sp_size}, tp_size={tp_size} comes with the rest of "
+            f"slice 6: {SLICE6_LEFT}")
     if optimizer == "adafactor" and (recipe in OPT_SHARDED or tp_size > 1):
         raise NotImplementedError(
             f"optimizer='adafactor' under parallelism={recipe!r}: Adafactor "
             "factors its moments over whole tensors; under a sharded recipe "
-            "it comes with slice 6 (ROADMAP, Queue 1 item 6); use 'dp'")
+            "it comes with slice 6 (ROADMAP, Queue 1 item 4); use 'dp'")
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -258,8 +305,10 @@ class Recipe:
         self.optimizer = optimizer
         self.world = world
         self.module = model
-        # which of params() the 'model' axis cuts (their norms sum over it)
-        cuts = getattr(model, "tp_cuts", {})
+        # which of params() the 'model' or 'expert' axis cuts (their norms
+        # sum over it)
+        cuts = set(getattr(model, "tp_cuts", {})) \
+            | set(getattr(model, "expert_cuts", ()))
         names = {p: n for n, p in model.named_parameters()}
         self.cut = [names.get(p) in cuts for p in self.params()] \
             if cuts else None
@@ -518,10 +567,11 @@ def wrap(model, optimizer, recipe: str, world: Optional[World]) -> Recipe:
     rank."""
     check_recipe(recipe, type(optimizer).__name__.lower(),
                  world.tp if world is not None else 1,
-                 world.sp if world is not None else 1)
+                 world.sp if world is not None else 1,
+                 world.ep if world is not None else 1)
     if recipe == "single":
         return Recipe(model, optimizer, world)
-    if recipe in ("dp", "tp"):
+    if recipe in ("dp", "tp", "ep"):
         return DDPRecipe(model, optimizer, world)
     _broadcast_params(model, world)
     if recipe in ("zero1", "zero2"):
@@ -539,13 +589,16 @@ def _full(t):
 
 
 def _tp_whole(name: str, v: torch.Tensor, model) -> torch.Tensor:
-    """`v`, this model rank's piece of the parameter `name` (or a tensor of
-    its shape), whole again from every model rank's (a collective over
-    'model'); anything the 'model' axis does not cut as it is."""
+    """`v`, this model or expert rank's piece of the parameter `name` (or
+    a tensor of its shape), whole again from every model or expert rank's
+    (a collective over 'model' or 'expert'); anything neither axis cuts as
+    it is."""
+    from distributed_pytorch_tpu_torch.parallel import context, tensor
+    if name in getattr(model, "expert_cuts", ()):
+        return torch.cat(context.expert_all_gather(v), dim=0)
     cut = getattr(model, "tp_cuts", {}).get(name)
     if cut is None:
         return v
-    from distributed_pytorch_tpu_torch.parallel import context, tensor
     return tensor.join(context.model_all_gather(v), cut)
 
 
@@ -557,7 +610,7 @@ def _opt_names(model, optimizer) -> list:
 
 def full_model_state_dict(model) -> dict:
     """The model's state dict of whole tensors in the reference's layout
-    (a collective under 'fsdp' and under a 'model' axis)."""
+    (a collective under 'fsdp' and under a 'model' or 'expert' axis)."""
     return {k: _tp_whole(k, _full(v), model)
             for k, v in model.state_dict().items()}
 
@@ -565,11 +618,12 @@ def full_model_state_dict(model) -> dict:
 def full_state_dicts(model, optimizer) -> tuple[dict, dict]:
     """(model, optimizer) state dicts of whole tensors in the single
     recipe's layout. A collective under the sharded recipes and under a
-    'model' axis: every rank calls it."""
+    'model' or 'expert' axis: every rank calls it."""
     model_sd = full_model_state_dict(model)
     sd = optimizer.state_dict()
     names = _opt_names(model, optimizer) \
-        if getattr(model, "tp_cuts", None) else None
+        if getattr(model, "tp_cuts", None) \
+        or getattr(model, "expert_cuts", None) else None
     opt_sd = {"state": {i: {k: _tp_whole(names[i], _full(v), model)
                             if names and torch.is_tensor(v) and v.dim() > 0
                             else _full(v) for k, v in st.items()}
@@ -594,19 +648,24 @@ def _shard_like(v: torch.Tensor, ref: torch.Tensor, world: World):
 def load_full_state(model, optimizer, model_sd: dict, opt_sd: dict,
                     world: Optional[World] = None) -> None:
     """Load whole-tensor state dicts (`full_state_dicts`' or the single
-    recipe's) under any recipe: under a 'model' axis each rank first takes
-    its pieces (parallel/tensor.py `split`)."""
-    cuts = getattr(model, "tp_cuts", None)
-    if cuts:
-        from distributed_pytorch_tpu_torch.parallel import tensor
-        rank, tp = model.tp
-        model_sd = {k: tensor.split(v, cuts[k], rank, tp) if k in cuts
-                    else v for k, v in model_sd.items()}
+    recipe's) under any recipe: under a 'model' or 'expert' axis each rank
+    first takes its pieces (parallel/tensor.py `split`, `expert_piece`)."""
+    from distributed_pytorch_tpu_torch.parallel import tensor
+    cuts = getattr(model, "tp_cuts", None) or {}
+    experts = getattr(model, "expert_cuts", None) or ()
+    if cuts or experts:
+        def piece(name, v):
+            if name in experts:
+                return tensor.expert_piece(v, *model.ep)
+            return tensor.split(v, cuts[name], *model.tp)
+        model_sd = {k: piece(k, v) if k in cuts or k in experts else v
+                    for k, v in model_sd.items()}
         names = _opt_names(model, optimizer)
         opt_sd = {"state": {
-            i: {k: tensor.split(v, cuts[names[int(i)]], rank, tp)
-                if names[int(i)] in cuts and torch.is_tensor(v)
-                and v.dim() > 0 else v for k, v in st.items()}
+            i: {k: piece(names[int(i)], v)
+                if (names[int(i)] in cuts or names[int(i)] in experts)
+                and torch.is_tensor(v) and v.dim() > 0 else v
+                for k, v in st.items()}
             for i, st in opt_sd["state"].items()},
             "param_groups": opt_sd["param_groups"]}
     params = dict(model.named_parameters())

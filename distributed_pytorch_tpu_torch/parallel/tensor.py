@@ -1,4 +1,5 @@
-"""Tensor parallelism: each rank's pieces of the model and back.
+"""Tensor and expert parallelism: each rank's pieces of the model and
+back.
 
 The reference cuts its parameters over 'model' by a PartitionSpec
 (parallel/sharding.py `_TP_RULES`) and lets GSPMD derive the layers'
@@ -27,6 +28,16 @@ does not divide (the reference runs it under GSPMD with a cut through a
 head; ROADMAP lists the divergence) and an MLP or expert width that tp
 does not divide; the vocab is cut where tp divides it and stays whole
 otherwise, as the reference's table does.
+
+Expert parallelism (an 'expert' axis of ep, parallel/sharding.py): the
+reference's `spec_for_param` puts the leading axis of every `experts_*`
+stack over 'expert'. `shard_experts` replaces `experts_fc` and
+`experts_proj` by rank r's contiguous n_exp / ep experts (global ids r
+n_exp / ep .. (r + 1) n_exp / ep - 1, the shared experts first as in the
+whole stack), tells each MoE layer its (rank, ep) and keeps the cut names
+as `model.expert_cuts`; `expert_piece` is the same cut of a whole tensor,
+and `check_ep` refuses an expert count that ep does not divide (the
+reference's `grouped_usable` rule, `n_exp % ep`).
 """
 
 from __future__ import annotations
@@ -37,7 +48,8 @@ import torch
 from torch import nn
 
 from distributed_pytorch_tpu_torch.config import LLMConfig
-from distributed_pytorch_tpu_torch.parallel.sharding import tp_axis
+from distributed_pytorch_tpu_torch.parallel.sharding import (expert_cut,
+                                                             tp_axis)
 
 
 def _gated(cfg: LLMConfig) -> bool:
@@ -171,3 +183,42 @@ def shard_model(model: nn.Module, rank: int, tp: int) -> dict:
     model.tp_cuts = cuts
     model.vocab_cut = "tkn_emb.weight" in cuts
     return cuts
+
+
+def check_ep(cfg: LLMConfig, ep: int) -> None:
+    """Raise ValueError where ep does not cut the experts into whole,
+    equal slices."""
+    if ep > 1 and (not cfg.moe or cfg.n_exp % ep):
+        raise ValueError(
+            f"ep_size={ep} does not divide n_exp {cfg.n_exp if cfg.moe else 0}"
+            ": the port cuts whole experts, n_exp / ep a rank, over "
+            "'expert' (the reference's grouped dispatch takes the same "
+            "rule)")
+
+
+def expert_piece(whole: torch.Tensor, rank: int, ep: int) -> torch.Tensor:
+    """Expert rank `rank`'s experts of a whole expert stack (a copy)."""
+    n = whole.shape[0] // ep
+    return whole.narrow(0, rank * n, n).contiguous()
+
+
+def shard_experts(model: nn.Module, rank: int, ep: int) -> list:
+    """Cut a whole `LLM` in place into expert rank `rank`'s experts of an
+    'expert' axis of ep and tell every MoE layer its (rank, ep). Returns
+    the names of the cut parameters (also kept as `model.expert_cuts`).
+    Build the optimizer after this: the cut parameters are new tensors."""
+    check_ep(model.config, ep)
+    names = [n for n, _ in model.named_parameters() if expert_cut(n)]
+    with torch.no_grad():
+        for name in names:
+            mod_name, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(mod_name)
+            old = getattr(mod, leaf)
+            setattr(mod, leaf, nn.Parameter(
+                expert_piece(old.data, rank, ep),
+                requires_grad=old.requires_grad))
+    for mod in model.modules():
+        if hasattr(type(mod), "ep"):
+            mod.ep = (rank, ep)
+    model.expert_cuts = names
+    return names

@@ -2,8 +2,8 @@
 
 Counterpart of the reference package's `train/loop.py` (`_data_paths`
 :147-180, `_agree_stop` :221-235, `estimate_loss` :290-306, `train`
-:309-832) for the 'single', 'dp', 'zero1', 'zero2', 'fsdp', 'tp' and
-'fsdp_tp' recipes.
+:309-832) for the 'single', 'dp', 'zero1', 'zero2', 'fsdp', 'tp',
+'fsdp_tp', 'sp' and 'ep' recipes.
 Per optimizer step one `train_step` call runs the micro-batch
 accumulation, clip and AdamW update (train/step.py) while the host
 prefetches the next batch; the host syncs on the step metrics only at
@@ -63,10 +63,19 @@ stripes, or contiguous for ring and Ulysses); the grad-accum arithmetic
 counts the 'data' axis only, as the reference's does, and tok/s and MFU
 a step's global tokens over the world.
 
+Expert parallelism (`--parallelism ep --ep_size N`, or dp / fsdp with
+`--ep_size N`; dp with it is `ep`): the world is dp x N ranks, the expert
+groups of N adjacent ranks (parallel/mesh.py), every rank of one expert
+group reading its data rank's rows; the MoE stacks are cut into each
+rank's n_exp / N experts (parallel/tensor.py `shard_experts`) and the log
+names `expert=`. 'scatter' runs under every recipe, under a 'seq' axis
+too (models/mlp.py `scatter_positions`).
+
 Not here yet, and refused where a config asks for them: the rest of slice
-6 (parallel/sharding.py `SLICE6_LEFT`: ep, pp, offload, the
-collective-matmul overlap, a 'model' axis under zero1 / zero2 or beside a
-'seq' axis, Adafactor under a sharded recipe); the
+6 (parallel/sharding.py `SLICE6_LEFT`: pp, offload, the collective-matmul
+overlap, ep beside a 'seq' or 'model' axis, a 'seq' axis beside a 'model'
+axis, zero1 / zero2 with a 'model' or 'expert' axis, Adafactor under a
+sharded recipe); the
 profiler and the live metrics endpoint (slice 7). The reference's
 telemetry flight recorder, memory planner, AOT program store and
 multi-host bring-up also come with slices 6-7; `telemetry` is accepted
@@ -109,25 +118,28 @@ def check_slice(model_cfg: LLMConfig, train_cfg: TrainConfig) -> None:
     """Refuse, naming the slice that brings it, what the port's training
     slice does not run."""
     later = []
-    recipe = sharding.tp_recipe(train_cfg.parallelism, train_cfg.tp_size)
+    tp, ep, sp = train_cfg.tp_size, train_cfg.ep_size, train_cfg.sp_size
+    recipe = sharding.tp_recipe(train_cfg.parallelism, tp, ep)
     if recipe not in sharding.PORTED:
         later.append(f"parallelism={train_cfg.parallelism!r}")
-    for axis in ("ep", "pp"):
-        if getattr(train_cfg, f"{axis}_size") > 1:
-            later.append(f"{axis}_size={getattr(train_cfg, axis + '_size')}")
-    if train_cfg.tp_size > 1 and recipe in ("zero1", "zero2"):
-        later.append(f"tp_size={train_cfg.tp_size} under "
-                     f"parallelism={recipe!r}")
-    if train_cfg.tp_size > 1 and (recipe == "sp" or train_cfg.sp_size > 1):
-        later.append(f"tp_size={train_cfg.tp_size} beside a 'seq' axis "
-                     f"(parallelism={recipe!r}, sp_size="
-                     f"{train_cfg.sp_size})")
+    if train_cfg.pp_size > 1:
+        later.append(f"pp_size={train_cfg.pp_size}")
+    if tp > 1 and recipe in ("zero1", "zero2"):
+        later.append(f"tp_size={tp} under parallelism={recipe!r}")
+    if tp > 1 and (recipe == "sp" or sp > 1):
+        later.append(f"tp_size={tp} beside a 'seq' axis "
+                     f"(parallelism={recipe!r}, sp_size={sp})")
+    if ep > 1 and recipe in ("zero1", "zero2"):
+        later.append(f"ep_size={ep} under parallelism={recipe!r}")
+    if (ep > 1 or recipe == "ep") and (recipe == "sp" or sp > 1 or tp > 1):
+        later.append(f"ep (parallelism={recipe!r}, ep_size={ep}) beside a "
+                     f"'seq' or 'model' axis (sp_size={sp}, tp_size={tp})")
     if train_cfg.offload == "on":
         later.append("offload='on'")
     if train_cfg.overlap == "on":
         later.append("overlap='on' (the collective-matmul overlap)")
     if train_cfg.optimizer == "adafactor" \
-            and (recipe in sharding.OPT_SHARDED or train_cfg.tp_size > 1):
+            and (recipe in sharding.OPT_SHARDED or tp > 1):
         later.append(f"optimizer='adafactor' under "
                      f"parallelism={train_cfg.parallelism!r}")
     if later:
@@ -251,11 +263,15 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
         raise ValueError(f"sp_size={train_cfg.sp_size} under "
                          "parallelism='single': use 'sp', or --sp_size "
                          "under dp, zero1, zero2 or fsdp")
+    if train_cfg.ep_size > 1 and train_cfg.parallelism == "single":
+        raise ValueError(f"ep_size={train_cfg.ep_size} under "
+                         "parallelism='single': use 'ep', or --ep_size "
+                         "under dp or fsdp")
     if model_cfg.block_size % train_cfg.sp_size:
         raise ValueError(f"sp_size={train_cfg.sp_size} does not divide "
                          f"block_size {model_cfg.block_size}")
     train_cfg = dataclasses.replace(train_cfg, parallelism=sharding.tp_recipe(
-        train_cfg.parallelism, train_cfg.tp_size))
+        train_cfg.parallelism, train_cfg.tp_size, train_cfg.ep_size))
     world = make_world(model_cfg, train_cfg)
     try:
         with context.use_world(world):
@@ -270,7 +286,7 @@ def make_world(model_cfg: LLMConfig, train_cfg: TrainConfig) -> World:
     of its 'seq' axis (ops/ring_attention.py `config_impl`)."""
     world = init_world(train_cfg.parallelism, train_cfg.platform,
                        train_cfg.dp_size, train_cfg.tp_size,
-                       train_cfg.sp_size)
+                       train_cfg.sp_size, train_cfg.ep_size)
     if world.sp == 1:
         return world
     from distributed_pytorch_tpu_torch.ops.ring_attention import \
@@ -298,12 +314,12 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
     W = world.dp                                  # ranks on 'data'
     plan = resolve_plan(train_cfg.parallelism, world.size,
                         tp_size=world.tp, sp_size=world.sp,
-                        dp_size=train_cfg.dp_size)
+                        ep_size=world.ep, dp_size=train_cfg.dp_size)
     seq = f" seq={plan.seq} ({world.seq_impl})" if world.sp > 1 else ""
     say(f"device {device} ({name}); tp={world.tp} "
         f"recipe={train_cfg.parallelism} world={world.size} "
         f"backend={world.backend} data={plan.data} model={plan.model}"
-        f"{seq}")
+        f"{seq} expert={plan.expert}")
 
     # grad accumulation arithmetic (reference loop.py:346-351)
     B, T = train_cfg.batch_size, model_cfg.block_size
@@ -490,6 +506,7 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
     stats["world"] = world.size
     stats["tp"] = world.tp
     stats["sp"] = world.sp
+    stats["ep"] = world.ep
     stats["backend"] = world.backend
     if stats.get("anomalies"):
         stats["n_anomalies"] = len(stats["anomalies"])

@@ -24,7 +24,8 @@ updates applied; an anomaly-skipped step applies none) and the parallel
 `recipe` (parallel/sharding.py) that the train step drives. Under `fsdp`
 the model's parameters are DTensor shards; under `zero1` / `zero2` the
 optimizer is the recipe's `ZeroOptimizer`; under a 'model' axis the cut
-parameters are this rank's pieces (parallel/tensor.py).
+parameters are this rank's pieces, and under an 'expert' axis the expert
+stacks this rank's experts (parallel/tensor.py).
 """
 
 from __future__ import annotations
@@ -135,8 +136,12 @@ class Adafactor(torch.optim.Optimizer):
     RMS 1, scaled by lr and by max(RMS(p), 1e-3), plus weight_decay p
     (a constant rate), subtracted."""
 
-    def __init__(self, params, lr: float, weight_decay: float = 0.0):
+    def __init__(self, params, lr: float, weight_decay: float = 0.0,
+                 cut=()):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+        # parameters an 'expert' axis cuts: their block RMS is the whole
+        # tensor's, summed over the expert ranks
+        self.cut = {id(p) for p in cut}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -144,6 +149,13 @@ class Adafactor(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is not None:
                     self._update(p, p.grad, group)
+
+    def _rms(self, p, x):
+        if id(p) not in self.cut:
+            return _rms(x)
+        from distributed_pytorch_tpu_torch.parallel import context
+        sq = context.expert_all_reduce(x.square().sum())
+        return (sq / (x.numel() * context.expert_size())).sqrt()
 
     def _update(self, p, g, group):
         st = self.state[p]
@@ -174,9 +186,9 @@ class Adafactor(torch.optim.Optimizer):
             row = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)
                    ).pow(-0.5)
             u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
-        u = u / torch.clamp_min(_rms(u), 1.0)       # clip_by_block_rms(1.0)
+        u = u / torch.clamp_min(self._rms(p, u), 1.0)  # clip_by_block_rms
         u = u * group["lr"]
-        rms = _rms(p)
+        rms = self._rms(p, p)
         u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
         if group["weight_decay"]:
             u = u + group["weight_decay"] * p
@@ -208,11 +220,23 @@ def make_optimizer(model: torch.nn.Module,
                 RuntimeWarning, stacklevel=2)
         return Lion(groups(cfg.weight_decay), lr=lr0, b1=0.9, b2=0.99)
     if cfg.optimizer == "adafactor":
+        # an expert stack cut over 'expert' factors as the whole one only
+        # where its expert axis is not factored
+        cut = [p for n, p in model.named_parameters()
+               if n in getattr(model, "expert_cuts", ())]
+        for p in cut:
+            whole = (p.shape[0] * model.ep[1],) + tuple(p.shape[1:])
+            if 0 in (_factored_dims(whole) or ()):
+                raise NotImplementedError(
+                    f"optimizer='adafactor' under an 'expert' axis with an "
+                    f"expert stack of {whole}: Adafactor would factor its "
+                    "expert axis, which the ranks cut; it comes with slice 6 "
+                    "(ROADMAP, Queue 1 item 4)")
         # optax's weight_decay_rate is a raw per-step multiplier; the
         # reference matches AdamW's magnitude at peak LR with a constant
         # weight_decay * learning_rate
         return Adafactor(groups(cfg.weight_decay * cfg.learning_rate),
-                         lr=lr0)
+                         lr=lr0, cut=cut)
     return torch.optim.AdamW(groups(cfg.weight_decay), lr=lr0,
                              betas=(0.9, 0.999), eps=1e-8)
 
@@ -233,7 +257,8 @@ def global_norm(grads: list, sharded: bool = False,
     marks the gradients a 'model' axis cuts into disjoint pieces: their
     squares are summed over 'model' too, while a gradient that is whole
     on every model rank (a LayerNorm's, the router's, a row-parallel
-    bias) is counted once."""
+    bias) is counted once; so are the expert stacks an 'expert' axis
+    cuts, summed over 'expert'."""
     grads = _locals(grads)
     if not cut or not any(cut):
         if not sharded:
@@ -254,7 +279,7 @@ def global_norm(grads: list, sharded: bool = False,
         s_cut = context.world_all_reduce_sum(s_cut)
         s_whole = context.all_reduce_sum(s_whole)
     else:
-        s_cut = context.model_all_reduce(s_cut)
+        s_cut = context.expert_all_reduce(context.model_all_reduce(s_cut))
     return (s_cut + s_whole).sqrt()
 
 
@@ -280,7 +305,8 @@ def create_train_state(model_cfg: LLMConfig, train_cfg: TrainConfig,
     """A fresh state under `train_cfg.parallelism`: N(0, 0.02) weights
     drawn from `train_cfg.seed` on the model's device (or the whole state
     dict `init`), under a 'model' axis cut into this rank's pieces
-    (parallel/tensor.py `shard_model`), a new optimizer, and the recipe's
+    (parallel/tensor.py `shard_model`) and under an 'expert' axis into its
+    experts (`shard_experts`), a new optimizer, and the recipe's
     wrappers over both (parallel/sharding.py `wrap`; `world` is the run's
     parallel/mesh.World, None for one process). `param_counts` holds the
     whole model's (total, active) counts."""
@@ -296,6 +322,8 @@ def create_train_state(model_cfg: LLMConfig, train_cfg: TrainConfig,
     counts = count_params(model, model_cfg)
     if world is not None and world.tp > 1:
         tensor.shard_model(model, world.model_rank, world.tp)
+    if world is not None and world.ep > 1:
+        tensor.shard_experts(model, world.expert_rank, world.ep)
     recipe = sharding.wrap(model, make_optimizer(model, train_cfg),
                            train_cfg.parallelism, world)
     return TrainState(step=0, model=recipe.model,

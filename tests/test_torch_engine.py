@@ -30,6 +30,7 @@ from distributed_pytorch_tpu_torch.engine import DecodeEngine
 from distributed_pytorch_tpu_torch.models.generate import generate
 from distributed_pytorch_tpu_torch.models.gpt import LLM
 from distributed_pytorch_tpu_torch.ops import flash_decode as tfd
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-4
 KW = dict(vocab_size=97, block_size=64, n_embd=64, n_head=4, n_kv_heads=2,

@@ -49,6 +49,7 @@ from distributed_pytorch_tpu_torch.train.state import (TrainState,
                                                        build_model,
                                                        make_optimizer)
 from distributed_pytorch_tpu_torch.train.step import make_train_step
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-4
 BASE = dict(vocab_size=97, block_size=64, n_embd=64, n_head=4, attn="mla",
@@ -333,11 +334,18 @@ def test_attn_recompute_keeps_the_trajectory(flavor, moe):
 # serving
 # ---------------------------------------------------------------------------
 
-def _margins(jm, var, seq, prompt_len):
-    logits, _, _ = jm.apply(var, jnp.asarray([seq[:-1]], jnp.int32),
-                            all_logits=True)
-    top2 = np.sort(np.asarray(logits)[0, prompt_len - 1:], axis=-1)[:, -2:]
-    return top2[:, 1] - top2[:, 0]
+def _margins(jm, var, seqs, prompt_lens):
+    """The reference's top-2 logit margin at each generated position of
+    each sequence, from one causal forward over the sequences padded on
+    the right (a position's logits do not see the positions after it)."""
+    L = max(len(s) for s in seqs) - 1
+    x = np.zeros((len(seqs), L), np.int32)
+    for i, s in enumerate(seqs):
+        x[i, :len(s) - 1] = s[:-1]
+    logits, _, _ = jm.apply(var, jnp.asarray(x), all_logits=True)
+    top2 = np.sort(np.asarray(logits), axis=-1)[..., -2:]
+    return [top2[i, p - 1:len(s) - 1, 1] - top2[i, p - 1:len(s) - 1, 0]
+            for i, (s, p) in enumerate(zip(seqs, prompt_lens))]
 
 
 def _assert_greedy_agree(ref, out, prompt_len, margins, tol=ATOL):
@@ -366,9 +374,10 @@ def test_generate_greedy_matches_reference(pair):
     tfd.reset_counts()
     out = generate(tm, torch.from_numpy(prompt), 12, temperature=0.0)
     assert sum(fa.PLAIN_CALLS.values()) + sum(tfd.PLAIN_CALLS.values()) == 0
+    margins = _margins(jm, var, ref.tolist(), [7, 7])
     for b in range(2):
         _assert_greedy_agree(ref[b].tolist(), out[b].tolist(), 7,
-                             _margins(jm, var, ref[b].tolist(), 7))
+                             margins[b])
 
 
 def _prompts():
@@ -380,13 +389,34 @@ def _prompts():
                      for n in (5, 17, 2)]
 
 
+# (n_blocks, n_slots, max_new) of each pool
+POOLS = {
+    "prefix": (None, 2, 8),       # roomy pool: shared-prefix reuse, 2 slots
+    "preemption": (9, 3, 20),     # 8 usable blocks for 3 slots: preemption
+}
+
+
+def _engine_kw(n_blocks, n_slots):
+    return dict(n_slots=n_slots, temperature=0.0, min_bucket=8, block_size=8,
+                n_blocks=n_blocks)
+
+
+@pytest.fixture(scope="module")
+def engine_refs(pair):
+    """{pool: (the reference engine's tokens, its top-2 margins)} of this
+    flavor, computed once for the wave and chunked cases."""
+    _, jm, var, _ = pair
+    prompts, out = _prompts(), {}
+    for name, (n_blocks, n_slots, max_new) in POOLS.items():
+        ref = JEngine(jm, var, **_engine_kw(n_blocks, n_slots)).run(
+            prompts, max_new)
+        out[name] = ref, _margins(jm, var, ref, [len(p) for p in prompts])
+    return out
+
+
 @pytest.mark.parametrize("chunk", [0, 16], ids=["wave", "chunked"])
-@pytest.mark.parametrize("n_blocks,n_slots,max_new", [
-    (None, 2, 8),      # roomy pool: shared-prefix reuse through 2 slots
-    (9, 3, 20),        # 8 usable blocks for 3 slots: forced preemption
-], ids=["prefix", "preemption"])
-def test_engine_matches_reference_engine(pair, n_blocks, n_slots, max_new,
-                                         chunk):
+@pytest.mark.parametrize("pool", list(POOLS))
+def test_engine_matches_reference_engine(pair, engine_refs, pool, chunk):
     """The port's engine over paged latent pools (absorbed decode, no
     paged attention kernel: their plain versions never run) against the
     reference's engine, wave or chunked (16-token chunks), with radix
@@ -395,9 +425,9 @@ def test_engine_matches_reference_engine(pair, n_blocks, n_slots, max_new,
     the chunked port equals the port's wave engine exactly."""
     _, jm, var, tm = pair
     prompts = _prompts()
-    kw = dict(n_slots=n_slots, temperature=0.0, min_bucket=8, block_size=8,
-              n_blocks=n_blocks)
-    ref = JEngine(jm, var, **kw).run(prompts, max_new)
+    n_blocks, n_slots, max_new = POOLS[pool]
+    kw = _engine_kw(n_blocks, n_slots)
+    ref, margins = engine_refs[pool]
     tfd.reset_counts()
     eng = DecodeEngine(tm, prefill_chunk=chunk, **kw)
     out = eng.run(prompts, max_new)
@@ -405,8 +435,8 @@ def test_engine_matches_reference_engine(pair, n_blocks, n_slots, max_new,
     assert eng.prefix_hit_rate > 0
     if n_blocks is not None:
         assert eng.retire_counts["preempted"] > 0
-    for p, r, o in zip(prompts, ref, out):
-        _assert_greedy_agree(r, o, len(p), _margins(jm, var, r, len(p)))
+    for p, r, o, m in zip(prompts, ref, out, margins):
+        _assert_greedy_agree(r, o, len(p), m)
     if chunk:
         assert out == DecodeEngine(tm, **kw).run(prompts, max_new)
 

@@ -47,6 +47,7 @@ from distributed_pytorch_tpu_torch.train.state import (TrainState,
                                                        build_model,
                                                        make_optimizer)
 from distributed_pytorch_tpu_torch.train.step import make_train_step
+from torch_threads import one_thread  # noqa: F401
 
 TINY = dict(vocab_size=97, block_size=32, n_embd=32, n_head=4, n_kv_heads=2,
             attn="gqa", n_layer=2, up_dim=48, non_linearity="swiglu",
@@ -547,17 +548,36 @@ def _margins(japply, var, seq, prompt_len):
     return top2[:, 1] - top2[:, 0]
 
 
+ENGINE_RUN = dict(n_slots=2, temperature=0.0, min_bucket=8, block_size=8)
+
+
+def _engine_prompts():
+    rng = np.random.default_rng(1)
+    return [[int(t) for t in rng.integers(1, 97, n)] for n in (5, 17, 2)]
+
+
+@pytest.fixture(scope="module")
+def engine_ref(engine_models):
+    """The reference engine's tokens for `_engine_prompts` and their top-2
+    margins, computed once for the wave and chunked cases."""
+    jm, var, _, japply = engine_models
+    prompts = _engine_prompts()
+    ref = JEngine(jm, var, **ENGINE_RUN).run(prompts, 6)
+    return ref, [_margins(japply, var, r, len(p))
+                 for p, r in zip(prompts, ref)]
+
+
 @pytest.mark.parametrize("chunk", [0, 16], ids=["wave", "chunked"])
-def test_engine_tokens_match_reference_engine(engine_models, chunk):
+def test_engine_tokens_match_reference_engine(engine_models, engine_ref,
+                                              chunk):
     """Greedy tokens of the port's engine (the grouped dispatch, plain
     versions at bm 8: 2 forward calls per layer per decode step and per
     prefill forward) against the reference's engine, compared where the
     reference's top-2 margin exceeds 1e-4; the bias is read, never moved."""
     jm, var, tm, japply = engine_models
-    rng = np.random.default_rng(1)
-    prompts = [[int(t) for t in rng.integers(1, 97, n)] for n in (5, 17, 2)]
-    kw = dict(n_slots=2, temperature=0.0, min_bucket=8, block_size=8)
-    ref = JEngine(jm, var, **kw).run(prompts, 6)
+    prompts = _engine_prompts()
+    kw = ENGINE_RUN
+    ref, ref_margins = engine_ref
     bias = [m.expert_bias.clone() for m in tm.moe_layers()]
     forwards = []
     hook = tm.moe_layers()[0].register_forward_hook(
@@ -574,8 +594,7 @@ def test_engine_tokens_match_reference_engine(engine_models, chunk):
     assert gm.DEGRADED["dense"] == 0
     for b, m in zip(bias, tm.moe_layers()):
         assert torch.equal(b, m.expert_bias)
-    for p, r, o in zip(prompts, ref, out):
-        margins = _margins(japply, var, r, len(p))
+    for p, r, o, margins in zip(prompts, ref, out, ref_margins):
         assert o[:len(p)] == r[:len(p)]
         for i, mg in enumerate(margins):
             if mg <= 1e-4:

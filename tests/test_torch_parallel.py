@@ -176,16 +176,18 @@ def test_rest_of_slice_6_is_refused(field, value):
     (and fsdp with tp_size 2, which is fsdp_tp) run since tensor
     parallelism came (tests/test_torch_parallel_tp.py), sp (and fsdp with
     sp_size 2) since sequence parallelism came
-    (tests/test_torch_parallel_sp.py): beside ep_size 2 they are refused
-    so."""
+    (tests/test_torch_parallel_sp.py), ep (and fsdp with ep_size 2) since
+    expert parallelism came (tests/test_torch_parallel_ep.py): beside
+    pp_size 2 they are refused so."""
     tc = dataclasses.replace(TrainConfig(platform="cpu", parallelism="fsdp"),
                              **{field: value})
     if (field, value) in (("parallelism", "tp"), ("parallelism", "fsdp_tp"),
                           ("tp_size", 2), ("parallelism", "sp"),
-                          ("sp_size", 2)):
+                          ("sp_size", 2), ("parallelism", "ep"),
+                          ("ep_size", 2)):
         check_slice(LLMConfig(**TINY), tc)
-        tc = dataclasses.replace(tc, ep_size=2)
-    with pytest.raises(NotImplementedError, match="rest of slice 6: ep, pp"):
+        tc = dataclasses.replace(tc, pp_size=2)
+    with pytest.raises(NotImplementedError, match="rest of slice 6: pp"):
         check_slice(LLMConfig(**TINY), tc)
 
 

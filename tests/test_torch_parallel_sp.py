@@ -35,9 +35,6 @@ from distributed_pytorch_tpu.train.state import create_train_state as jstate
 from distributed_pytorch_tpu.train.step import make_train_step as jstep
 from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
 from distributed_pytorch_tpu_torch.convert import params_from_jax
-from distributed_pytorch_tpu_torch.models.mlp import MoE
-from distributed_pytorch_tpu_torch.parallel import context
-from distributed_pytorch_tpu_torch.parallel.mesh import World
 from distributed_pytorch_tpu_torch.train import checkpoint as ckpt
 from distributed_pytorch_tpu_torch.train.loop import check_slice
 from distributed_pytorch_tpu_torch.train.state import create_train_state
@@ -326,15 +323,3 @@ def test_sp_beside_tp_ep_pp_is_refused(field, value):
         check_slice(LLMConfig(**TINY), dataclasses.replace(
             tc, **{field: value}))
 
-
-def test_scatter_moe_under_a_seq_axis_is_refused():
-    """'scatter' drops by global token position, which a rank's sequence
-    slice is not one run of: under a 'seq' axis the MoE forward raises
-    NotImplementedError naming ROADMAP instead of dropping other
-    assignments than the reference."""
-    cfg = LLMConfig(**dict(MOE_GROUPED, moe_impl="scatter"))
-    moe = MoE(cfg, device="cpu")
-    world = World(backend="gloo", size=2, sp=2)
-    with context.use_world(world), pytest.raises(NotImplementedError,
-                                                 match="ROADMAP"):
-        moe(torch.zeros(1, 16, cfg.n_embd))

@@ -471,8 +471,8 @@ def test_ep_sp_pp_still_raise_under_tp(field, value):
     tc = dataclasses.replace(
         TrainConfig(platform="cpu", parallelism="tp", tp_size=2),
         **{field: value})
-    what = "'model' axis under zero1 / zero2" if value in ("zero1", "zero2") \
-        else "rest of slice 6: ep"
+    what = "zero1 / zero2 with a 'model'" if value in ("zero1", "zero2") \
+        else "rest of slice 6: pp"
     with pytest.raises(NotImplementedError, match=what):
         check_slice(LLMConfig(**TINY), tc)
 

@@ -41,6 +41,7 @@ from distributed_pytorch_tpu_torch.models.gpt import LLM
 from distributed_pytorch_tpu_torch.ops import block_pool as bp
 from distributed_pytorch_tpu_torch.ops import grouped_matmul as gm
 from distributed_pytorch_tpu_torch.serve.scheduler import Scheduler
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-4
 INT8_LIMIT = 2e-2

@@ -39,6 +39,7 @@ from distributed_pytorch_tpu_torch.train.state import (TrainState,
                                                        lr_schedule,
                                                        make_optimizer)
 from distributed_pytorch_tpu_torch.train.step import make_train_step
+from torch_threads import one_thread  # noqa: F401
 
 TINY = dict(vocab_size=97, block_size=32, n_embd=64, n_head=4, n_kv_heads=2,
             attn="gqa", n_layer=2, up_dim=96, non_linearity="swiglu",
@@ -368,14 +369,15 @@ def test_later_slices_raise(field, value):
     """What later slices bring raises NotImplementedError; 'tp' runs since
     tensor parallelism came (tests/test_torch_parallel_tp.py), 'sp' and
     attn_impl 'ring' since sequence parallelism came
-    (tests/test_torch_parallel_sp.py), and beside ep_size 2 they raise
+    (tests/test_torch_parallel_sp.py), 'ep' since expert parallelism came
+    (tests/test_torch_parallel_ep.py), and beside pp_size 2 they raise
     so."""
     mc, tc = LLMConfig(**TINY), TrainConfig(platform="cpu")
     tc = dataclasses.replace(tc, **{field: value})
     if (field, value) in (("parallelism", "tp"), ("parallelism", "sp"),
-                          ("attn_impl", "ring")):
+                          ("parallelism", "ep"), ("attn_impl", "ring")):
         check_slice(mc, tc)
-        tc = dataclasses.replace(tc, ep_size=2)
+        tc = dataclasses.replace(tc, pp_size=2)
     with pytest.raises(NotImplementedError, match="slice|XLA"):
         check_slice(mc, tc)
 

@@ -10,7 +10,7 @@ group's `file://` rendezvous, unique per test), `out` (a directory) and
 test. Each case is a dict with a `kind`:
 
 * 'steps': build the state under `tc['parallelism']` (and `tc['tp_size']`,
-  `tc['sp_size']`) from the whole state dict `init`, then run
+  `tc['sp_size']`, `tc['ep_size']`) from the whole state dict `init`, then run
   `make_train_step` over the global batches `batches` ((A, B W, T) arrays,
   W the 'data' axis's size), this rank taking its data rank r's rows
   r B .. r B + B - 1 of each micro-step, and under a 'seq' axis its seq
@@ -75,7 +75,8 @@ def _clone(sd: dict) -> dict:
 
 def _world(cfg: LLMConfig, tc: TrainConfig):
     return make_world(cfg, dataclasses.replace(
-        tc, parallelism=sharding.tp_recipe(tc.parallelism, tc.tp_size)))
+        tc, parallelism=sharding.tp_recipe(tc.parallelism, tc.tp_size,
+                                           tc.ep_size)))
 
 
 def run_steps(case: dict, rank: int, W: int) -> dict:
