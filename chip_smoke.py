@@ -203,7 +203,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
              `tp` and `fsdp_tp` (a 'model' axis of one rank: the
              tensor-parallel recipes' wiring over NCCL; the cut itself
              runs on four cards, bench/recipes.py), `sp` and `fsdp
-             --sp_size 1` (a 'seq' axis of one rank), 6 iterations each,
+             --sp_size 1` (a 'seq' axis of one rank) and `pp` (a 'pipe'
+             axis of one rank, which is dp), 6 iterations each,
              in this process with torchrun's environment set for one rank:
              every recipe's loss at every iteration within RECIPE_RTOL of
              `single`'s (tp and fsdp_tp within TP_RTOL, the sp legs bit
@@ -222,7 +223,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
              zig-zag, through `ring_fwd` / `ring_bwd` with a list rotation
              in place of the permute, held against one whole flash call's
              plain version at head sizes 64 and 32, causal, dropout 0 and
-             0.2.
+             0.2; (5) pipeline parallelism in one process
+             (`run_pipelines`): the flagship with phase 7's flags at S 4
+             stages over the in-process transport, M 8 microbatches of
+             one row, under '1f1b' at vpp 3 and under 'carry', and phase
+             9's MoE under 'carry' with 'grouped', PP_ITERS steps each
+             on the synthetic dataset's batches, weight decay 0: every
+             step's loss within RECIPE_RTOL and gradient norm within
+             PP_NORM_RTOL (a tighter limit at step 0; the MoE's wider,
+             its statistics being a microbatch's) of the single model's
+             on the same batches from
+             the same init (single's loss falling by PP_LEARNS times the
+             loss limit), the flash kernels
+             launched layers x M x micro-steps times, the CE kernels once
+             a micro-step (one call over the concatenated exits) and the
+             grouped kernels 3 / 2 / 2 x layers x M x micro-steps, no
+             plain call, the tied embedding's two copies and their
+             moments equal bit for bit, step ms p50, tok/s and peak
+             memory; then the flash kernels at a microbatch's b 1 x T
+             1024 x 12 heads of 64, bf16, held to their plain versions
+             and timed beside phase 3's B 8.
 
 Phase 3 also holds the three flash kernels over a tensor-parallel rank's
 slice of the heads (`head_offset`, `total_heads`) at dropout 0.2 against
@@ -3703,7 +3723,7 @@ RECIPE_ARGV = ["--preset", "gpt2_124m", "--attn_impl", "pallas",
                "--no-save_stats", "--file_name", "chip_smoke_recipes",
                "--seed", "0"]
 RECIPES = ("single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp", "sp",
-           "fsdp_sp1")
+           "fsdp_sp1", "pp")
 #: the trainer flags of a phase 12 leg that is not a recipe's name alone
 RECIPE_FLAGS = {"fsdp_sp1": ["--parallelism", "fsdp", "--sp_size", "1"]}
 #: the legs held bit for bit to single (a 'seq' axis of one rank)
@@ -4376,6 +4396,214 @@ def run_small_head_sizes(torch, dev, card: str) -> dict:
 T0 = time.perf_counter()
 
 
+# ---------------------------------------------------------------------------
+# phase 12 (5): pipeline stages on one card
+# ---------------------------------------------------------------------------
+
+#: the flagship at full width with phase 7's flags (RECIPE_ARGV) and phase
+#: 9's MoE, through the pipeline executor: S stages in this process over
+#: the in-process transport, M microbatches of one row a micro-step, on
+#: the synthetic dataset's batches (which the model learns, so that a
+#: wrong gradient or update moves the loss), weight decay 0 (the stages
+#: decay every block parameter, as the reference's rank rule does on its
+#: stacked blocks, and single does not)
+PP_STAGES = 4
+PP_MICRO = 8
+PP_ITERS = 4
+PP_FLAGS = ["--weight_decay", "0"]
+PP_LEGS = {
+    "1f1b_vpp3": (RECIPE_ARGV, ["--pp_schedule", "1f1b", "--pp_vpp", "3"],
+                  "1f1b"),
+    "carry": (RECIPE_ARGV, ["--pp_schedule", "carry"], "carry"),
+    "moe_carry": (MOE_ARGV, ["--pp_schedule", "carry"], "carry"),
+}
+#: the gradient norm (before clipping) against single's, (at step 0, at
+#: every step): the dense legs' gaps measured on an H100 were 6.6e-6 and
+#: 2.2e-4 (bf16 activations, rounding that drifts with the updates); the
+#: MoE's 1.4e-4 and 2.6e-3, since its routing statistics are a
+#: microbatch's and its bias moves once a (layer, microbatch), so it is
+#: not single's arithmetic even at step 0
+PP_NORM_RTOL = {"dense": (1e-4, 1e-3), "moe": (1e-3, 1e-2)}
+#: single's loss must fall over the PP_ITERS steps by this many times the
+#: loss limit, so that the loss check can see a wrong update
+PP_LEARNS = 10
+#: the flash kernels at a pipeline microbatch's shape (b 1 x T 1024 x 12
+#: heads of 64), bf16, beside phase 3's B 8
+PP_FLASH_B1 = (1, 1024, 12, 12, 64)
+
+
+def _pp_batches(torch, dev, model_cfg, train_cfg, accum: int, B: int):
+    """PP_ITERS steps' (x, y), each (accum, B, T), of the synthetic
+    dataset's loader."""
+    from distributed_pytorch_tpu_torch.data.loader import DataLoader
+    from distributed_pytorch_tpu_torch.train.loop import data_paths
+
+    loader = DataLoader(data_paths(train_cfg, model_cfg.vocab_size)[0], B,
+                        model_cfg.block_size, grad_accum=accum,
+                        seed=train_cfg.seed, device=dev)
+    return [loader.next_batch(step=i) for i in range(PP_ITERS)]
+
+
+def _pp_run(torch, step, state, batches) -> tuple[list, list, list]:
+    """(losses, gradient norms, step ms) of `state` (a TrainState or an
+    in-process pipeline's list of them) over `batches`."""
+    losses, norms, times = [], [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, x, y)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return losses, norms, times
+
+
+def run_pipeline_leg(torch, dev, card: str, tmp: str, leg: str) -> dict:
+    """One leg of phase 12 (5): the single model, then its S in-process
+    stages (train/state.py `create_pipeline_states`) from the same seeded
+    init, PP_ITERS steps each on the same batches of the synthetic
+    dataset under `tmp`. Holds each step's loss to single's within
+    RECIPE_RTOL and its gradient norm within PP_NORM_RTOL (single's loss
+    falling by PP_LEARNS times the loss limit), the kernels' launches to
+    the counts the schedule implies, and the tied embedding's two copies
+    (and their moments) to each other bit for bit."""
+    import dataclasses
+
+    from distributed_pytorch_tpu_torch.__main__ import parse_train_argv
+    from distributed_pytorch_tpu_torch.models import pipeline as pipe_mod
+    from distributed_pytorch_tpu_torch.train.state import (
+        create_pipeline_states, create_train_state)
+    from distributed_pytorch_tpu_torch.train.step import make_train_step
+
+    base, flags, want_sched = PP_LEGS[leg]
+    model_cfg, train_cfg = parse_train_argv(
+        base + flags + PP_FLAGS + [
+            "--pp_stages", str(PP_STAGES), "--pp_microbatches",
+            str(PP_MICRO), "--data_dir", os.path.join(tmp, "data")])
+    L, B, T = model_cfg.n_layer, train_cfg.batch_size, model_cfg.block_size
+    accum = train_cfg.total_batch_size // (B * T)
+    step = make_train_step(train_cfg)
+    batches = _pp_batches(torch, dev, model_cfg, train_cfg, accum, B)
+    single = create_train_state(dataclasses.replace(model_cfg, pp_stages=1),
+                                train_cfg, dev)
+    base_losses, base_norms, _ = _pp_run(torch, step, single, batches)
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    states = create_pipeline_states(model_cfg, train_cfg, dev)
+    sched = pipe_mod.resolve_schedule(model_cfg)
+    vpp = pipe_mod.chunk_vpp(model_cfg)
+    check(sched == want_sched, f"pipeline {leg}: schedule {sched}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    losses, norms, times = _pp_run(torch, step, states, batches)
+    n = L * PP_MICRO * accum * PP_ITERS       # (layer, microbatch) passes
+    want = {"flash_attn_fwd": n, "flash_attn_bwd_dq": n,
+            "flash_attn_bwd_dkv": n}
+    if model_cfg.moe:
+        want.update(grouped_mm_fwd=3 * n, grouped_mm_bwd_dx=2 * n,
+                    grouped_mm_bwd_dw=2 * n)
+    else:
+        c = accum * PP_ITERS                  # one loss call a micro-step
+        want.update(fused_ce_fwd=c, fused_ce_bwd_dx=c, fused_ce_bwd_dw=c)
+    launches = _counted(want, f"pipeline {leg}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    rel = float(np.max(np.abs(np.asarray(losses) - base_losses)
+                       / np.abs(base_losses)))
+    norm_rels = np.abs(np.asarray(norms) - base_norms) / np.abs(base_norms)
+    norm_rel = float(np.max(norm_rels))
+    lim0, lim = PP_NORM_RTOL["moe" if model_cfg.moe else "dense"]
+    fall = base_losses[0] - base_losses[-1]
+    check(fall > PP_LEARNS * RECIPE_RTOL * base_losses[0],
+          f"pipeline {leg}: single's loss fell by {fall:.4f} only, too "
+          f"little to hold the pipeline's update")
+    check(all(np.isfinite(losses)) and rel <= RECIPE_RTOL,
+          f"pipeline {leg}: losses {losses} against single's {base_losses}"
+          f" ({rel:.3e} relative)")
+    check(all(np.isfinite(norms)) and norm_rels[0] <= lim0
+          and norm_rel <= lim,
+          f"pipeline {leg}: gradient norms {norms} against single's "
+          f"{base_norms} ({norm_rels.tolist()} relative, limits {lim0:.0e}"
+          f" at step 0, {lim:.0e})")
+    first, last = states[0], states[-1]
+    w0, w1 = first.model.tkn_emb.weight, last.model.tkn_emb.weight
+    tied = torch.equal(w0, w1) and all(
+        torch.equal(first.optimizer.state[w0][k],
+                    last.optimizer.state[w1][k])
+        for k in ("exp_avg", "exp_avg_sq"))
+    check(tied, f"pipeline {leg}: the tied embedding's copies differ")
+    p50 = float(np.median(times))
+    tokens = accum * B * T
+    out = dict(schedule=sched, vpp=vpp, losses=losses,
+               single_losses=base_losses, max_rel=rel, grad_norms=norms,
+               single_grad_norms=base_norms, norm_max_rel=norm_rel,
+               launches=launches,
+               step_ms=p50, tok_s=tokens / p50 * 1e3, peak_gb=peak,
+               stage_layers=[pipe_mod.stage_layers(model_cfg, s)
+                             for s in range(PP_STAGES)])
+    print(f"  pipeline {leg}: {sched} S {PP_STAGES} vpp {vpp} M {PP_MICRO}, "
+          f"{accum} micro-steps of {B} x {T}; losses "
+          f"{[round(x, 5) for x in losses]} vs single's "
+          f"{[round(x, 5) for x in base_losses]} (max rel {rel:.3e}, tol "
+          f"{RECIPE_RTOL:.0e}); grad norms {[round(x, 5) for x in norms]} "
+          f"vs single's {[round(x, 5) for x in base_norms]} (rel "
+          f"{norm_rels[0]:.3e} at step 0, tol {lim0:.0e}; max "
+          f"{norm_rel:.3e}, tol {lim:.0e}); tied copies equal; "
+          f"step ms p50 {p50:.3f}, "
+          f"tok/s {out['tok_s']:.1f}, peak memory {peak:.3f} GB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }, plain calls 0; "
+          f"card {card}", flush=True)
+    del states, first, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_flash_b1(torch, dev, card: str) -> dict:
+    """The flash kernels at a pipeline microbatch's shape (PP_FLASH_B1,
+    bf16), held to their plain versions (FLASH_TOL) and timed beside
+    phase 3's B 8."""
+    res = {}
+    for dn, name, D, fk, fp, fl, n_bytes, flops in _flash_cases_at(
+            torch, dev, *PP_FLASH_B1):
+        if dn != "bfloat16":
+            continue
+        out, ref = fk(), fp()
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        errs = []
+        for oname, a, b in zip(FLASH_OUTPUTS[name], outs, refs):
+            atol, rtol = FLASH_TOL["float32" if oname == "lse" else dn]
+            e = _elementwise(a, b, atol, rtol)
+            check(e["frac"] <= 1.0, f"{name} at b 1: {oname} beyond its "
+                  f"limit ({e['frac']:.3f})")
+            if oname != "lse":
+                errs.append(e["err"])
+        b_ms, b_by = bound(n_bytes, flops, dn)
+        ms, spread = time_windows(fk, iters=10)
+        res[name] = dict(shape="B1_T1024_H12/12x64_causal",
+                         max_abs_err=max(errs), ms=ms, ms_spread=spread,
+                         device_ms=device_ms(fk),
+                         library_device_ms=device_ms(fl), bound_ms=b_ms,
+                         bound_by=b_by)
+        r = res[name]
+        print(f"  {name} at b 1: kernel {_timed(r, 'ms')}, library device "
+              f"{r['library_device_ms']} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"max_abs_err {r['max_abs_err']:.3e}; card {card}",
+              flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_pipelines(torch, dev, card: str) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {leg: run_pipeline_leg(torch, dev, card, tmp, leg)
+               for leg in PP_LEGS}
+    out["flash_b1"] = run_flash_b1(torch, dev, card)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4470,6 +4698,9 @@ def main() -> None:
 
     phase("12 parallel recipes at world size 1 over NCCL")
     recipes = run_recipes(torch, card)
+    print(f"  (5) pipeline stages in one process at full width "
+          f"(at {time.perf_counter() - T0:.1f} s)", flush=True)
+    pipes = run_pipelines(torch, dev, card)
 
     rows = []
     for case, kname in (("paged", "paged_decode_attn"),
@@ -4575,6 +4806,9 @@ def main() -> None:
             "launches": path_launches[kname], "launches_path": path,
             "launches_recipes": ({k: recipes[k]["launches"][kname]
                                   for k in RECIPES} if D == 64 else None),
+            "launches_pipeline": ({leg: pipes[leg]["launches"][kname]
+                                   for leg in PP_LEGS} if D == 64 else None),
+            "pipeline_b1": pipes["flash_b1"][kname] if D == 64 else None,
             "head_offset_max_abs_err": (
                 {dn: offsets[(kname, dn, D)] for dn in ("bfloat16",
                                                          "float32")}
@@ -4615,6 +4849,8 @@ def main() -> None:
             "launches_path": "train_ce",
             "launches_recipes": {k: recipes[k]["launches"][kname]
                                  for k in RECIPES},
+            "launches_pipeline": {leg: pipes[leg]["launches"][kname]
+                                  for leg in PP_LEGS},
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "errs": {o: e["err"] for o, e in r["errs"].items()},
             "launches_fp32": None,
@@ -4652,6 +4888,8 @@ def main() -> None:
                  for leg in MOE_RECIPE_FLAGS},
                 **{cut: recipes["expert_cut"][(kname, cut)]
                    for cut in (f"ep{e}" for e in EXPERT_CUT_EP)}),
+            "launches_pipeline": {leg: pipes[leg]["launches"][kname]
+                                  for leg in PP_LEGS},
             "max_abs_err": r["max_abs_err"], "tol": r["tol"],
             "launches_fp32": None,
             "max_abs_err_fp32": r32["max_abs_err"], "tol_fp32": r32["tol"],

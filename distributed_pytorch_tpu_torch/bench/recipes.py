@@ -9,13 +9,15 @@ rows of a step are single's rows, data/loader.py). Every run's losses are
 held to single's within `--rtol`; its step p50, tok/s, tok/s and MFU per
 card and rank 0's peak memory come from the trainer's stats.json.
 
-A recipe is `name`, `name:tp`, `name:spS[@attn]` or `name:epE`: tp the
+A recipe is `name`, `name:tp`, `name:spS[@attn]`, `name:epE` or
+`name:ppS[vV]`: tp the
 `--tp_size` of a tensor-parallel run ('model' groups of tp adjacent cards,
 the rest of the cards on 'data'), S the `--sp_size` of a sequence-parallel
 one ('seq' groups of S adjacent cards; `@attn` its `--attn_impl`, ring,
 zigzag or ulysses, for phase 7's pallas, which zig-zag takes), E the
 `--ep_size` of an expert-parallel one ('expert' groups of E adjacent
-cards). `tp` alone gives the
+cards), S the `--pp_size` of a pipeline-parallel one ('pipe' groups of S
+adjacent cards; V its `--pp_vpp`). `tp` alone gives the
 rows tp:N (all cards on 'model') and tp:2 (2 x N/2), `fsdp_tp` alone
 fsdp_tp:2, `sp` alone sp:spN (zig-zag), sp:spN@ring, sp:spN@ulysses and
 sp:sp2 (2 x N/2).
@@ -23,6 +25,13 @@ sp:sp2 (2 x N/2).
     python -m distributed_pytorch_tpu_torch.bench.recipes --nproc 4 \\
         [--recipes dp,zero1,zero2,fsdp,tp,fsdp_tp,sp,fsdp:sp2] \\
         [--iters 6] [--rtol 1e-3] [-- extra trainer flags]
+
+Pipeline rows take the schedule and the microbatches from the trailing
+flags (`-- --pp_schedule carry --pp_microbatches 8`), which single and
+every row get alike (single ignores them):
+
+    python -m distributed_pytorch_tpu_torch.bench.recipes --nproc 4 \\
+        --recipes dp,pp:pp4v3,pp:pp2 -- --pp_microbatches 8
 
 A long context runs with `-- --block_size 8192 --batch_size 1` and a
 `--tokens_per_card` of 8192: single trains the same global batch on one
@@ -71,42 +80,49 @@ MOE_FLAGS = ["--preset", "gpt2_124m", "--moe", "--n_exp", "8", "--n_shared",
 
 
 def rows(spec: str, nproc: int) -> list:
-    """(recipe, tp, sp, ep, attn_impl or None) of each `--recipes`
-    entry."""
+    """(recipe, tp, sp, ep, attn_impl or None, (pp, vpp)) of each
+    `--recipes` entry."""
     out = []
     for item in spec.split(","):
         item, _, attn = item.partition("@")
         name, _, axis = item.partition(":")
         if axis.startswith("sp"):
-            out.append((name, 1, int(axis[2:]), 1, attn or None))
+            out.append((name, 1, int(axis[2:]), 1, attn or None, (1, 0)))
         elif axis.startswith("ep"):
-            out.append((name, 1, 1, int(axis[2:]), None))
+            out.append((name, 1, 1, int(axis[2:]), None, (1, 0)))
+        elif axis.startswith("pp"):
+            pp, _, vpp = axis[2:].partition("v")
+            out.append((name, 1, 1, 1, None, (int(pp), int(vpp or 0))))
         elif axis:
-            out.append((name, int(axis), 1, 1, None))
+            out.append((name, int(axis), 1, 1, None, (1, 0)))
         elif name == "tp":
-            out += [("tp", nproc, 1, 1, None)] + (
-                [("tp", 2, 1, 1, None)] if nproc > 2 else [])
+            out += [("tp", nproc, 1, 1, None, (1, 0))] + (
+                [("tp", 2, 1, 1, None, (1, 0))] if nproc > 2 else [])
         elif name == "fsdp_tp":
-            out.append(("fsdp_tp", 2, 1, 1, None))
+            out.append(("fsdp_tp", 2, 1, 1, None, (1, 0)))
         elif name == "sp":
-            out += [("sp", 1, nproc, 1, None), ("sp", 1, nproc, 1, "ring"),
-                    ("sp", 1, nproc, 1, "ulysses")] + (
-                [("sp", 1, 2, 1, None)] if nproc > 2 else [])
+            out += [("sp", 1, nproc, 1, None, (1, 0)),
+                    ("sp", 1, nproc, 1, "ring", (1, 0)),
+                    ("sp", 1, nproc, 1, "ulysses", (1, 0))] + (
+                [("sp", 1, 2, 1, None, (1, 0))] if nproc > 2 else [])
         else:
-            out.append((name, 1, 1, 1, None))
+            out.append((name, 1, 1, 1, None, (1, 0)))
     return out
 
 
 def run(recipe: str, nproc: int, tokens: int, iters: int, extra: list,
         tmp: str, timeout: float, tp: int = 1, sp: int = 1, ep: int = 1,
-        attn=None, flags=FLAGS) -> dict:
+        attn=None, pipe=(1, 0), flags=FLAGS) -> dict:
     """One trainer run under torch.distributed.run; its numbers."""
-    name = f"recipes_{recipe}_{nproc}_tp{tp}_sp{sp}_ep{ep}_{attn}"
+    pp, vpp = pipe
+    name = (f"recipes_{recipe}_{nproc}_tp{tp}_sp{sp}_ep{ep}_pp{pp}v{vpp}_"
+            f"{attn}")
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node", str(nproc), "-m",
             "distributed_pytorch_tpu_torch", *flags, "--parallelism",
             recipe, "--tp_size", str(tp), "--sp_size", str(sp),
-            "--ep_size", str(ep),
+            "--ep_size", str(ep), "--pp_size", str(pp), "--pp_vpp",
+            str(vpp),
             "--total_batch_size_str", str(tokens), "--max_iters",
             str(iters - 1), "--data_dir", os.path.join(tmp, "data"),
             "--file_name", name, *extra] + (
@@ -123,9 +139,12 @@ def run(recipe: str, nproc: int, tokens: int, iters: int, extra: list,
     with open(os.path.join(tmp, "checkpoints", name, "stats.json")) as f:
         st = json.load(f)
     head = next(line for line in r.stdout.splitlines() if "recipe=" in line)
+    sched = next((line for line in r.stdout.splitlines()
+                  if line.startswith("pp schedule:")), None)
     return {"recipe": recipe, "nproc": nproc, "tp": tp, "sp": sp, "ep": ep,
-            "attn": attn, "data": nproc // (tp * sp * ep), "wall_s": wall,
-            "log": head,
+            "pp": pp, "vpp": vpp, "attn": attn,
+            "data": nproc // (tp * sp * ep * pp), "wall_s": wall,
+            "log": head, "pp_schedule": sched,
             "losses": st["train_losses"],
             "step_ms": st["median_step_time"] * 1e3,
             "tok_s": st["median_tokens_per_sec"],
@@ -167,9 +186,11 @@ def main(argv=None) -> int:
         base = run("single", 1, tokens, args.iters, extra, tmp,
                    args.timeout, flags=flags)
         runs.append(base)
-        for recipe, tp, sp, ep, attn in rows(args.recipes, args.nproc):
+        for recipe, tp, sp, ep, attn, pipe in rows(args.recipes,
+                                                   args.nproc):
             runs.append(run(recipe, args.nproc, tokens, args.iters, extra,
-                            tmp, args.timeout, tp, sp, ep, attn, flags))
+                            tmp, args.timeout, tp, sp, ep, attn, pipe,
+                            flags))
     ref = np.asarray(base["losses"])
     for r in runs:
         got = np.asarray(r["losses"])
@@ -184,8 +205,9 @@ def main(argv=None) -> int:
         moe = "" if not drop else (
             f"; moe_drop {max(drop):.4%} at most, degraded layers "
             f"{r['moe_degraded_dense']}")
+        pipe = f" x pipe {r['pp']}" if r["pp"] > 1 else ""
         print(f"{r['recipe']:>7} x {r['nproc']} (data {r['data']} x seq "
-              f"{r['sp']} x expert {r['ep']} x model {r['tp']}"
+              f"{r['sp']} x expert {r['ep']} x model {r['tp']}{pipe}"
               f"{', ' + r['attn'] if r['attn'] else ''}) over "
               f"{r['backend']}: step "
               f"ms p50 {r['step_ms']:.3f}, tok/s {r['tok_s']:.1f} "
@@ -195,6 +217,8 @@ def main(argv=None) -> int:
               f"losses vs single max rel {r['max_rel_loss_diff']:.3e} "
               f"(tol {args.rtol:.0e}), bit-equal {r['bit_equal']}{moe}; "
               f"{'ok' if r['ok'] else 'FAILED'}", flush=True)
+        if r["pp_schedule"]:
+            print(f"        {r['pp_schedule']}", flush=True)
     print(json.dumps({"ok": ok, "runs": runs}), flush=True)
     return 0 if ok else 1
 

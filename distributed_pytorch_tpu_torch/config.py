@@ -128,6 +128,15 @@ register_knob("TRAIN_KEEP_CKPTS", "0", int,
               "prune older ones after each save; 0 = keep everything "
               "(TrainConfig.keep_ckpts overrides when > 0)")
 
+# --- pipeline schedule (models/pipeline.py) ---
+register_knob("PP_SCHEDULE", "", lambda s: s.strip().lower(),
+              "pipeline schedule override: carry | 1f1b | auto; empty "
+              "defers to LLMConfig.pp_schedule (models/pipeline.py)")
+register_knob("PP_VPP", "0", lambda s: int(s) if s.strip() else 0,
+              "virtual chunks per pipeline stage for the 1f1b schedule; "
+              "0 defers to LLMConfig.pp_vpp (0 = auto: n_layer/pp_stages, "
+              "i.e. one-layer chunks, the maximally interleaved schedule)")
+
 # --- serving (engine/decode.py) ---
 register_knob("SPEC_DECODE", "auto", _onoff,
               "self-speculative decoding gate (engine/decode.py; greedy "

@@ -13,7 +13,11 @@ expert weights and (C, n_routed) router, and the (V, C) embedding carry
 over as they are. The fused qkv keeps its [q | k | v] column order. The
 MoE routing state (the reference's `moe_state` collection: `expert_bias`
 and `dropped_frac` per layer) maps onto the MoE layers' buffers; without
-it they keep their zero initial values.
+it they keep their zero initial values. A pipeline-parallel tree (the
+reference's pp init, blocks stacked as {'blocks': {'stack': ...}} in the
+params and in `moe_state`) is unstacked first, so a pp run's state maps
+onto the single model's names; a pipeline stage takes its slice of that
+(models/pipeline.py `stage_state_dict`).
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import numpy as np
 import torch
 
 from distributed_pytorch_tpu_torch.config import LLMConfig
+from distributed_pytorch_tpu_torch.models.pipeline import \
+    unstack_block_params
 
 
 def _t(a) -> torch.Tensor:
@@ -34,7 +40,11 @@ def params_from_jax(params: dict, cfg: LLMConfig,
     {c_attn, c_proj} or attn/{W_dq, W_uq, W_dkv, W_uk, W_uv, W_o[, W_qr,
     W_kr]}, mlp/{c_fc, c_proj} or moe/{experts_fc, experts_proj, gate}},
     ln_f} and the optional `moe_state` tree {block_i/moe/{expert_bias,
-    dropped_frac}} onto `LLM`'s names."""
+    dropped_frac}} onto `LLM`'s names; stacked pipeline trees too."""
+    if "blocks" in params:
+        params = unstack_block_params(params, cfg.n_layer)
+    if moe_state and "blocks" in moe_state:
+        moe_state = unstack_block_params(moe_state, cfg.n_layer)
     sd = {"tkn_emb.weight": _t(params["tkn_emb"]["embedding"]),
           "ln_f.weight": _t(params["ln_f"]["scale"]),
           "ln_f.bias": _t(params["ln_f"]["bias"])}

@@ -14,7 +14,12 @@ Under a data-parallel recipe rank r of W takes exactly the rows of the
 reference's global batch that its data shard gets (the reference's
 loader.py:101-131 under `batch_pspec`): B is per rank, the global
 micro-batch is B x W, and micro-step a's rows are a*B*W + r*B + (0..B-1); the model and expert
-ranks of data rank r take r's rows too. Under a 'seq' axis of sp
+ranks of data rank r take r's rows too. Under a 'pipe' axis whose
+micro-steps run M pipeline microbatches, rank r's m-th microbatch of B / M
+rows is its share of the reference's m-th, rows [m B W / M, (m + 1) B W /
+M) of the global micro-batch (`data_rows`), so the data ranks' m-th
+microbatches together are the reference's (an MoE's routing statistics
+are a microbatch's). Under a 'seq' axis of sp
 ranks (sequence parallelism) seq rank s of data rank r takes r's rows and
 its T / sp positions of each (ops/ring_attention.py `local_positions`:
 [s T/sp, (s+1) T/sp) in the contiguous layout, stripes s and 2 sp - 1 - s
@@ -51,13 +56,24 @@ def make_synthetic_bin(path: str, n_tokens: int = 2 ** 20,
     return path
 
 
+def data_rows(B: int, W: int, rank: int, microbatches: int = 1
+              ) -> np.ndarray:
+    """Data rank `rank`'s B rows of a global micro-batch of B W rows, in
+    the order it runs them: r B .. r B + B - 1, or under `microbatches` M
+    its B / M rows of each of the M global microbatches of B W / M."""
+    b = B // microbatches
+    i = np.arange(B)
+    return i // b * b * W + rank * b + i % b
+
+
 class DataLoader:
     """Random-offset batch sampler over a uint16 token memmap."""
 
     def __init__(self, file_path: str, batch_size: int, block_size: int, *,
                  grad_accum: int = 1, seed: int = 1729, device=None,
                  rank: int = 0, world: int = 1, seq_rank: int = 0,
-                 sp: int = 1, layout: str = "contiguous"):
+                 sp: int = 1, layout: str = "contiguous",
+                 microbatches: int = 1):
         self.tokens = np.memmap(file_path, dtype=np.uint16, mode="r")
         assert len(self.tokens) > block_size + 1, (
             f"dataset {file_path} too small: {len(self.tokens)} tokens "
@@ -68,6 +84,7 @@ class DataLoader:
         self.device = device
         assert 0 <= rank < world, f"rank {rank} outside a world of {world}"
         self.rank, self.world = rank, world
+        self.microbatches = microbatches
         self.cols = None
         if sp > 1:
             from distributed_pytorch_tpu_torch.ops.ring_attention import \
@@ -88,8 +105,9 @@ class DataLoader:
     def rows(self) -> np.ndarray:
         """This rank's global batch-row ids, micro-step by micro-step."""
         B, W = self.B, self.world
-        return (np.arange(self.A)[:, None] * B * W + self.rank * B
-                + np.arange(B)[None, :]).reshape(-1)
+        return (np.arange(self.A)[:, None] * B * W
+                + data_rows(B, W, self.rank, self.microbatches)[None, :]
+                ).reshape(-1)
 
     def next_batch(self, step: Optional[int] = None):
         """(x, y), each (A, B, T) int64 on the loader's device: this

@@ -63,11 +63,20 @@ Counterpart of the reference package's `models/gpt.py` (`LLM`, `Block`,
   'unchunked'); `loss_impl='pallas'` takes it too, as the reference's gate
   does (gpt.py:219-250), counted in
   `fused_ce.DEGRADED["sequence_parallel"]`.
+* Pipeline parallelism (`config.pp_stages` S > 1): `LLM(cfg, stage=s)`
+  is one stage, built with its own blocks only (models/pipeline.py
+  `stage_layers`) under the whole model's names (`StageBlocks`: layer 7
+  is `blocks.7.…` on whichever stage holds it); stage 0 holds the
+  embedding and `pos_emb` / the sinusoidal table, the last stage `ln_f`
+  and the tied head, so `tkn_emb` is on both. `embed`, `run_layers` and
+  `head_loss` are the pieces `Pipeline.run` drives; `forward` refuses a
+  stage (KV-cached decoding with the reference's message).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -130,7 +139,7 @@ class Block(nn.Module):
             self.mlp = MLP(config, device=device, dtype=dtype)
 
     def forward(self, x, freqs, cache=None, pos=0, block_tables=None,
-                dropout_seed=None):
+                dropout_seed=None, stats_weight=1.0, moe_bias=None):
         drop = self.training and dropout_seed is not None
         a_seed = subseed(dropout_seed, 0) if drop else None
         h = self.ln1(x)
@@ -141,7 +150,8 @@ class Block(nn.Module):
                           dropout_seed=a_seed)
         x = x + y
         if hasattr(self, "moe"):
-            y, aux = self.moe(self.ln2(x))
+            y, aux = self.moe(self.ln2(x), stats_weight=stats_weight,
+                              bias=moe_bias)
             return x + y, aux
         return x + self.mlp(self.ln2(x),
                             subseed(dropout_seed, 1) if drop else None), None
@@ -159,6 +169,18 @@ def _sin_table(block_size: int, n_embd: int) -> torch.Tensor:
     return tab
 
 
+class StageBlocks(nn.ModuleDict):
+    """A pipeline stage's blocks under their layer ids, so their names are
+    the whole model's (`blocks.7.…`): iterates the blocks in layer order,
+    and `[i]` is layer i."""
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __getitem__(self, i):
+        return self._modules[str(i)]
+
+
 class LLM(nn.Module):
     """The full model. Build with `device` (the card unless "cpu" is asked
     for; see `resolve_device`), `dtype` (the weights' dtype),
@@ -172,43 +194,58 @@ class LLM(nn.Module):
 
     def __init__(self, config: LLMConfig, *, device=None,
                  dtype=torch.float32, compute_dtype=None,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", stage: Optional[int] = None):
         super().__init__()
         cfg = config
         device = resolve_device(device)
-        if cfg.pp_stages > 1:
-            raise NotImplementedError("pipeline-parallel models come with "
-                                      "slice 6 (parallel recipes)")
+        S = cfg.pp_stages
+        if S > 1 and stage is None:
+            raise ValueError(f"pp_stages={S}: a pipeline-parallel model is "
+                             "one stage of the LLM; pass stage=")
         self.config = cfg
+        self.stage = stage
         self.dtype = compute_dtype or dtype
         self.attn_impl = attn_impl
         recomp = cfg.act_recomp
         self.remat_block = recomp and cfg.act_recomp_policy == "block"
-        self.tkn_emb = nn.Embedding(cfg.vocab_size, cfg.n_embd,
-                                    device=device, dtype=dtype)
+        first = S == 1 or stage == 0
+        last = S == 1 or stage == S - 1
+        if first or last:
+            self.tkn_emb = nn.Embedding(cfg.vocab_size, cfg.n_embd,
+                                        device=device, dtype=dtype)
         if cfg.pos_emb == "rope":
             # MLA rotates only its decoupled rotary features
             d = cfg.rope_head_dim if cfg.attn == "mla" else cfg.head_size
             self.register_buffer("freqs", precompute_rope_freqs(
                 d, cfg.block_size, device=device), persistent=False)
-        elif cfg.pos_emb == "learn":
+        elif first and cfg.pos_emb == "learn":
             self.pos_emb = nn.Parameter(torch.empty(
                 cfg.block_size, cfg.n_embd, device=device, dtype=dtype))
-        else:
+        elif first:
             self.register_buffer("sin_tab", _sin_table(
                 cfg.block_size, cfg.n_embd).to(device), persistent=False)
-        self.blocks = nn.ModuleList(
-            Block(cfg, device=device, dtype=dtype, attn_impl=attn_impl,
-                  remat_attn=recomp and cfg.act_recomp_policy == "attn")
-            for _ in range(cfg.n_layer))
-        self.ln_f = LayerNorm(cfg.n_embd, device=device)
+
+        def block():
+            return Block(cfg, device=device, dtype=dtype,
+                         attn_impl=attn_impl,
+                         remat_attn=recomp and cfg.act_recomp_policy == "attn")
+
+        if S == 1:
+            self.blocks = nn.ModuleList(block() for _ in range(cfg.n_layer))
+        else:
+            from distributed_pytorch_tpu_torch.models.pipeline import \
+                stage_layers
+            self.blocks = StageBlocks(
+                {str(i): block() for i in stage_layers(cfg, stage)})
+        if last:
+            self.ln_f = LayerNorm(cfg.n_embd, device=device)
         # the key of each module's weights in a quantized store
         for name, mod in self.named_modules():
             mod.qname = name
 
     @property
     def device(self) -> torch.device:
-        return self.tkn_emb.weight.device
+        return next(self.parameters()).device
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -235,42 +272,26 @@ class LLM(nn.Module):
         dropout mask."""
         cfg = self.config
         T = idx.shape[1]
-        dt = self.dtype
-        drop = self.training and cfg.dropout > 0.0
-        if drop and dropout_seed is None:
+        if cfg.pp_stages > 1:
+            if caches is not None:
+                raise ValueError(
+                    "pipeline-parallel models don't support KV-cached "
+                    "decoding; restore the checkpoint with pp_stages=1 "
+                    "(a pp checkpoint holds the single model's tensors) "
+                    "to sample from it")
+            raise RuntimeError("a pipeline stage runs through "
+                               "models/pipeline.py's Pipeline.run")
+        if self.training and cfg.dropout > 0.0 and dropout_seed is None:
             raise ValueError("training with dropout > 0 needs a dropout_seed")
         if self.tp[1] != context.model_size():
             raise RuntimeError(
                 f"a model cut for tp={self.tp[1]} runs under a world whose "
                 f"'model' axis has {context.model_size()} rank(s)")
-        x = self._embed(idx, dt)
-        freqs = None
-        rows = seq_positions(T, x.device) if caches is None else None
-        if cfg.pos_emb == "rope":
-            # under sp the table's rows at this rank's positions, which the
-            # attention layers then read from row 0
-            freqs = self.freqs if rows is None else self.freqs[rows]
-        else:
-            tab = self.pos_emb if cfg.pos_emb == "learn" else self.sin_tab
-            p = (slice_rows(tab, pos, T) if rows is None else tab[rows]) \
-                .to(dt)
-            x = x + (p if p.dim() == 3 else p[None])
-        if drop:
-            x = dropout(x, cfg.dropout, subseed(dropout_seed, 0))
-        if caches is None:
-            caches = [None] * cfg.n_layer
-        remat = self.remat_block and caches[0] is None \
-            and torch.is_grad_enabled()
-        total_aux = None
-        for i, (blk, cache) in enumerate(zip(self.blocks, caches)):
-            seed = subseed(dropout_seed, 1 + i) if drop else None
-            if remat:
-                x, aux = _recompute(blk, x, freqs, dropout_seed=seed)
-            else:
-                x, aux = blk(x, freqs, cache, pos, block_tables=block_tables,
-                             dropout_seed=seed)
-            if aux is not None:
-                total_aux = aux if total_aux is None else total_aux + aux
+        rows = seq_positions(T, idx.device) if caches is None else None
+        x = self.embed(idx, dropout_seed, pos=pos, rows=rows)
+        x, total_aux = self.run_layers(
+            range(cfg.n_layer), x, rows=rows, caches=caches, pos=pos,
+            block_tables=block_tables, dropout_seed=dropout_seed)
         x = self.ln_f(x)
         if targets is not None:
             loss = self._loss(x, targets)
@@ -292,6 +313,76 @@ class LLM(nn.Module):
         if logits is not None:
             return logits
         return self._head(sel)
+
+    # -- the pieces of `forward`, which a pipeline stage runs one by one
+    # (models/pipeline.py) -------------------------------------------------
+
+    def embed(self, idx: torch.Tensor, dropout_seed=None, *, pos=0,
+              rows=None) -> torch.Tensor:
+        """The (B, T, C) block input of `idx` at positions `pos` .. pos + T
+        - 1 (`rows` under a 'seq' axis), with the embedding dropout."""
+        cfg = self.config
+        dt = self.dtype
+        x = self._embed(idx, dt)
+        if cfg.pos_emb != "rope":
+            tab = self.pos_emb if cfg.pos_emb == "learn" else self.sin_tab
+            p = (slice_rows(tab, pos, idx.shape[1]) if rows is None
+                 else tab[rows]).to(dt)
+            x = x + (p if p.dim() == 3 else p[None])
+        if self.training and cfg.dropout > 0.0:
+            if dropout_seed is None:
+                raise ValueError("training with dropout > 0 needs a "
+                                 "dropout_seed")
+            x = dropout(x, cfg.dropout, subseed(dropout_seed, 0))
+        return x
+
+    def run_layers(self, layers, x: torch.Tensor, *, rows=None,
+                   caches=None, pos=0, block_tables=None, dropout_seed=None,
+                   microbatch: Optional[int] = None,
+                   stats_weight: float = 1.0):
+        """x through the blocks `layers` in order (the whole stack, or one
+        pipeline chunk); returns (x, the sum of their aux losses or None).
+        `rows` are this rank's positions under a 'seq' axis, `caches` one
+        KV cache a layer (decoding at `pos`). Layer i draws its dropout
+        from `subseed(dropout_seed, 1 + i)`, and in a pipeline's
+        `microbatch` m from `subseed(dropout_seed, 1 + i, m)`; there an
+        MoE block scales its aux loss and bias step by `stats_weight`, and
+        an aux-free one routes with a copy of its bias taken now, which a
+        recomputed block ('block' act_recomp) reuses after later
+        microbatches moved the buffer."""
+        cfg = self.config
+        drop = self.training and cfg.dropout > 0.0
+        freqs = None
+        if cfg.pos_emb == "rope":
+            # under sp the table's rows at this rank's positions, which the
+            # attention layers then read from row 0
+            freqs = self.freqs if rows is None else self.freqs[rows]
+        remat = self.remat_block and (caches is None or caches[0] is None) \
+            and torch.is_grad_enabled()
+        total = None
+        for i in layers:
+            blk = self.blocks[i]
+            ids = (1 + i,) if microbatch is None else (1 + i, microbatch)
+            kw = {"dropout_seed": subseed(dropout_seed, *ids) if drop
+                  else None}
+            if microbatch is not None and hasattr(blk, "moe"):
+                kw["stats_weight"] = stats_weight
+                if cfg.aux_free:
+                    kw["moe_bias"] = blk.moe.expert_bias.clone()
+            if remat:
+                x, aux = _recompute(blk, x, freqs, **kw)
+            else:
+                x, aux = blk(x, freqs, None if caches is None else caches[i],
+                             pos, block_tables=block_tables, **kw)
+            if aux is not None:
+                total = aux if total is None else total + aux
+        return x, total
+
+    def head_loss(self, x: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+        """The last stage: ln_f and the mean loss of `forward` (without
+        the aux term, which the stages' layers add)."""
+        return self._loss(self.ln_f(x), targets)
 
     def _embed(self, idx: torch.Tensor, dt) -> torch.Tensor:
         """Token embeddings; vocab-parallel: this rank's rows looked up,
@@ -319,11 +410,15 @@ class LLM(nn.Module):
         """The MoE layers, in block order (empty for dense models)."""
         return [blk.moe for blk in self.blocks if hasattr(blk, "moe")]
 
-    def commit_moe_state(self) -> None:
+    def commit_moe_state(self, layers=None) -> None:
         """Write every MoE layer's routing state from the last training
-        forward into its buffers (once per micro-step, after backward)."""
-        for moe in self.moe_layers():
-            moe.commit_state()
+        forward into its buffers (once per micro-step, after backward;
+        under pp, `layers`' after each chunk's forward)."""
+        blocks = self.blocks if layers is None else \
+            [self.blocks[i] for i in layers]
+        for blk in blocks:
+            if hasattr(blk, "moe"):
+                blk.moe.commit_state()
 
     def _loss(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """Weight-tied mean cross-entropy (ignore_index -1, fp32 logits)

@@ -41,7 +41,12 @@ Counterpart of the reference package's `models/mlp.py`:
   `commit_state()` writes them — the train step commits once per
   micro-step after its backward. A forward recomputed in the backward
   (`act_recomp`) therefore routes with the bias the micro-step started
-  with, as the reference's remat does, and the bias moves once.
+  with, as the reference's remat does, and the bias moves once. Under
+  pipeline parallelism (models/pipeline.py) the bias commits after each
+  (layer, microbatch) forward with its step and the aux loss scaled by
+  the microbatch's `stats_weight` 1/M, as the reference's `_PipeTick`
+  has it, and a recomputed block gets the bias its microbatch routed
+  with as `bias`.
 * Under a data-parallel recipe (parallel/context.py) the statistics are
   the global batch's, as the reference's under pjit (:54-58): each rank's
   per-expert assignment counts are all-gathered over the ranks holding
@@ -304,7 +309,13 @@ class MoE(nn.Module):
         self.dropped_frac.copy_(drop)
         self.pending_state = None
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, stats_weight: float = 1.0,
+                bias=None):
+        """(y, aux loss). `stats_weight` scales the aux loss and the
+        aux-free bias step (a pipeline microbatch's 1/M,
+        models/pipeline.py); `bias`, where given, is the routing bias to
+        use in place of the `expert_bias` buffer (the one a recomputed
+        pipeline block's microbatch routed with)."""
         cfg = self.config
         B, T, C = x.shape
         dt = x.dtype
@@ -352,7 +363,9 @@ class MoE(nn.Module):
         # router in fp32 (reference :299-329)
         logits = x_flat.float() @ self.gate.float()        # (N, n_routed)
         if cfg.aux_free:
-            topk_idx = (logits + self.expert_bias).topk(k, dim=1).indices
+            if bias is None:
+                bias = self.expert_bias
+            topk_idx = (logits + bias).topk(k, dim=1).indices
             # gates from the UNbiased logits of the selected experts
             topk_gates = torch.softmax(logits.gather(1, topk_idx), dim=1)
         else:
@@ -409,11 +422,17 @@ class MoE(nn.Module):
                                       combine.to(dt))
 
         if self.training:
-            bias = None
+            new_bias = None
             if cfg.aux_free:
-                bias = self.expert_bias + cfg.gamma * (1.0 / n_routed - fi)
-            self.pending_state = (bias, dropped_frac.detach())
+                step = cfg.gamma * (1.0 / n_routed - fi)
+                if stats_weight != 1.0:
+                    step = step * stats_weight
+                new_bias = bias + step
+            self.pending_state = (new_bias, dropped_frac.detach())
 
         y = routed_out if shared_out is None else shared_out + routed_out
         y = context.reduce_from_expert(context.reduce_from_model(y))
-        return y.reshape(B, T, C), aux_loss.float()
+        aux_loss = aux_loss.float()
+        if stats_weight != 1.0:
+            aux_loss = aux_loss * stats_weight
+        return y.reshape(B, T, C), aux_loss

@@ -7,21 +7,27 @@ The reference lays its devices out as a `jax.sharding.Mesh` (`build_mesh`,
 mesh.py:96-106); here the world is a `torch.distributed` process group of
 one process per card, and `World` describes this process's place in it.
 With a 'seq' axis (sequence parallelism, `sp` > 1), an 'expert' axis
-(expert parallelism, `ep` > 1) or a 'model' axis (tensor parallelism,
-`tp` > 1) the ranks form a 2-D `DeviceMesh` in the reference's axis order
-(`AXES`: 'data' outermost, then 'seq', 'expert', 'model'): global rank =
-((data rank x sp + seq rank) x ep + expert rank) x tp + model rank, so the
-ranks of one seq, expert or model group sit on adjacent cards. The mesh's
+(expert parallelism, `ep` > 1), a 'model' axis (tensor parallelism,
+`tp` > 1) or a 'pipe' axis (pipeline parallelism, `pp` > 1) the ranks
+form a 2-D `DeviceMesh` in the reference's axis order (`AXES`: 'data'
+outermost, then 'seq', 'expert', 'model', 'pipe'): global rank =
+(((data rank x sp + seq rank) x ep + expert rank) x tp + model rank) x pp
++ pipe rank, so the ranks of one seq, expert, model or pipe group sit on
+adjacent cards. The mesh's
 'data' group (the ranks holding the same model pieces and the same
 positions of different rows) carries the parameter and optimizer
 sharding's collectives, its 'seq' group (one data rank's sp ranks, which
 hold different positions of the same rows) ring and Ulysses attention,
 its 'expert' group (one data rank's ep ranks, which hold the same rows
 and different experts) the MoE's sum over the experts, its 'model' group
-(one data rank's tp pieces) the tensor-parallel ones; the 'batch' ranks,
+(one data rank's tp pieces) the tensor-parallel ones, its 'pipe' group
+(one data rank's pipeline stages) the stages' activations and gradients
+(models/pipeline.py), with the 'tied' pair of its first and last stage
+summing the tied embedding's gradient; the 'batch' ranks,
 data x seq, hold different tokens, and the loss, the MoE's statistics
-and the gradient reduce over them. Without a 'seq', 'expert' or 'model'
-axis the data group is the whole world. Two of these axes beside each
+and the gradient reduce over them (under a 'pipe' axis the stage's data
+group, the ranks that hold the same layers). Without a 'seq', 'expert',
+'model' or 'pipe' axis the data group is the whole world. Two of these axes beside each
 other are refused (ROADMAP, Queue 1 item 4). The world itself is set up
 so:
 
@@ -99,12 +105,14 @@ def rung_down(n: int) -> int:
 class World:
     """This process's place in the world. `backend` is 'nccl', 'gloo', or
     'none' for the single recipe, which makes no group. `sp` ranks form
-    the 'seq' axis, `ep` ranks the 'expert' axis and `tp` ranks the
-    'model' axis; with one of them over 1, `mesh` is the ("data", "seq"),
-    ("data", "expert") or ("data", "model") `DeviceMesh` and
-    `data_group`, `seq_group` / `expert_group` / `model_group` its groups
-    of this rank (None where the axis is 1, and the data group None where
-    it is the whole world). `batch_group` holds the ranks of different tokens,
+    the 'seq' axis, `ep` ranks the 'expert' axis, `tp` ranks the
+    'model' axis and `pp` ranks the 'pipe' axis; with one of them over 1,
+    `mesh` is the ("data", "seq"), ("data", "expert"), ("data", "model")
+    or ("data", "pipe") `DeviceMesh` and `data_group`, `seq_group` /
+    `expert_group` / `model_group` / `pipe_group` its groups of this rank
+    (None where the axis is 1, and the data group None where it is the
+    whole world); `tied_group` is this data rank's first and last stage
+    (None on the others and without a 'pipe' axis). `batch_group` holds the ranks of different tokens,
     data x seq (None: the whole world). `seq_impl` is the sequence-parallel
     attention the run resolved once from its config (ops/ring_attention.py
     `config_impl`): 'ring', 'zigzag' or 'ulysses'; `seq_layout` follows
@@ -126,6 +134,9 @@ class World:
     expert_group: Any = None
     batch_group: Any = None
     seq_impl: str = "ring"
+    pp: int = 1
+    pipe_group: Any = None
+    tied_group: Any = None
 
     @property
     def is_main(self) -> bool:
@@ -138,23 +149,28 @@ class World:
     @property
     def dp(self) -> int:
         """Ranks on the 'data' axis."""
-        return self.size // (self.tp * self.ep * self.sp)
+        return self.size // (self.tp * self.ep * self.sp * self.pp)
 
     @property
     def data_rank(self) -> int:
-        return self.rank // (self.tp * self.ep * self.sp)
+        return self.rank // (self.tp * self.ep * self.sp * self.pp)
 
     @property
     def seq_rank(self) -> int:
-        return (self.rank // (self.tp * self.ep)) % self.sp
+        return (self.rank // (self.tp * self.ep * self.pp)) % self.sp
 
     @property
     def expert_rank(self) -> int:
-        return (self.rank // self.tp) % self.ep
+        return (self.rank // (self.tp * self.pp)) % self.ep
 
     @property
     def model_rank(self) -> int:
-        return self.rank % self.tp
+        return (self.rank // self.pp) % self.tp
+
+    @property
+    def pipe_rank(self) -> int:
+        """This rank's pipeline stage."""
+        return self.rank % self.pp
 
     @property
     def seq_layout(self) -> str:
@@ -165,7 +181,7 @@ class World:
     @property
     def batch_rank(self) -> int:
         """This rank's place among the data x seq ranks."""
-        return self.rank // (self.tp * self.ep)
+        return self.rank // (self.tp * self.ep * self.pp)
 
 
 def torchrun_env(environ: Optional[Mapping[str, str]] = None
@@ -179,14 +195,15 @@ def torchrun_env(environ: Optional[Mapping[str, str]] = None
 
 def init_world(recipe: str, platform: str = "auto",
                dp_size: int = -1, tp_size: int = 1,
-               sp_size: int = 1, ep_size: int = 1) -> World:
+               sp_size: int = 1, ep_size: int = 1,
+               pp_size: int = 1) -> World:
     """The world of a training run. 'single' makes no group and refuses a
     torchrun launch of more than one process; the other recipes join (or
-    make) a group of dp_size x sp_size x ep_size x tp_size ranks
-    (`dp_size` -1: the world over the others), checked as the reference's
-    `resolve_plan` checks its plan, and with sp_size, ep_size or tp_size >
-    1 lay it out as the ("data", "seq"), ("data", "expert") or ("data",
-    "model") mesh."""
+    make) a group of dp_size x sp_size x ep_size x tp_size x pp_size
+    ranks (`dp_size` -1: the world over the others), checked as the
+    reference's `resolve_plan` checks its plan, and with sp_size,
+    ep_size, tp_size or pp_size > 1 lay it out as the ("data", "seq"),
+    ("data", "expert"), ("data", "model") or ("data", "pipe") mesh."""
     env = torchrun_env()
     cpu = platform == "cpu"
     if recipe == "single":
@@ -194,10 +211,12 @@ def init_world(recipe: str, platform: str = "auto",
             raise ValueError(
                 f"parallelism='single' trains on one process; "
                 f"WORLD_SIZE={env['WORLD_SIZE']} asks for a data-parallel "
-                "recipe (--parallelism dp|zero1|zero2|fsdp|tp|fsdp_tp|sp|ep)")
+                "recipe (--parallelism dp|zero1|zero2|fsdp|tp|fsdp_tp|sp|ep"
+                "|pp)")
         return World(device=resolve_device("cpu" if cpu else None))
     inner = [(n, a) for n, a in (("seq", sp_size), ("expert", ep_size),
-                                 ("model", tp_size)) if a > 1]
+                                 ("model", tp_size), ("pipe", pp_size))
+             if a > 1]
     if len(inner) > 1:
         raise NotImplementedError(
             " beside ".join(f"{n} axis of {a}" for n, a in inner)
@@ -225,7 +244,7 @@ def init_world(recipe: str, platform: str = "auto",
     try:
         try:
             resolve_plan(recipe, size, tp_size=tp_size, sp_size=sp_size,
-                         ep_size=ep_size, dp_size=dp_size)
+                         ep_size=ep_size, pp_size=pp_size, dp_size=dp_size)
         except AssertionError as e:
             raise ValueError(str(e)) from None
         if backend == "nccl":
@@ -242,6 +261,11 @@ def init_world(recipe: str, platform: str = "auto",
                                     mesh_dim_names=("data", name))
             groups = {"data": mesh.get_group("data"),
                       name: mesh.get_group(name)}
+            if name == "pipe":
+                groups["tied"] = groups["pipe"] if n == 2 else \
+                    dist.new_subgroups_by_enumeration(
+                        [[d * n, d * n + n - 1]
+                         for d in range(size // n)])[0]
     except BaseException:
         if owns:
             dist.destroy_process_group()
@@ -252,7 +276,9 @@ def init_world(recipe: str, platform: str = "auto",
                  model_group=groups.get("model"),
                  seq_group=groups.get("seq"),
                  expert_group=groups.get("expert"),
-                 batch_group=groups.get("data") if sp_size == 1 else None)
+                 batch_group=groups.get("data") if sp_size == 1 else None,
+                 pp=pp_size, pipe_group=groups.get("pipe"),
+                 tied_group=groups.get("tied"))
 
 
 def close_world(world: World) -> None:

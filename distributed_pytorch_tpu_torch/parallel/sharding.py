@@ -20,6 +20,7 @@ pick a wrapper that issues them by hand over the 'data' group
 | sp     | 1/W    | 1/W     | 1/W        | FSDP2 on ('seq', 'data') |
 | ep     | experts 1/ep | experts 1/ep | experts 1/ep | cut experts, DDP on 'data' |
 | fsdp, ep_size | 1/(epW) experts, 1/W the rest | the same | the same | cut experts, FSDP2 on 'data' |
+| pp     | a stage's layers | a stage's | a stage's | `PipeRecipe`: all-reduce on the stage's 'data' |
 
 With a 'model' axis (`tp_size` > 1) W is the 'data' axis's size: the world
 is dp x tp ranks (parallel/mesh.py), the leftover ranks landing on 'data'
@@ -102,8 +103,24 @@ refused (ROADMAP, Queue 1 item 4).
   pieces: FSDP2 shards each piece dim 0 over 'data' (the 2-D recipe with
   the 'model' cut done by the layers rather than by DTensor), and the
   kernels always receive plain tensors.
-* Adafactor factors its second moments over whole tensors, so it runs
-  under `single` and `dp` and raises under the sharded recipes.
+* `pp` (`--pp_size` S > 1; dp with it is `pp`): a rank is one pipeline
+  stage (models/pipeline.py) and holds its own layers whole, as the
+  reference's specs put the stacked layer axis over 'pipe'; across
+  'data' it is dp: `PipeRecipe` all-reduces the stage's gradients over
+  its data group (the ranks that hold the same layers) once a step. The
+  tied embedding / head lives on the first and the last stage (one rank
+  when S = 1), and its gradient is summed over exactly those two before
+  the update (`Pipeline.tie_grads`), so both copies and both copies'
+  moments stay equal bit for bit; the reference has one replicated leaf,
+  whose gradient autodiff sums. The norm sums the stages' squares over
+  the 'pipe' group, the tied weight once. Every block parameter of a
+  stage decays (train/state.py `make_optimizer`), as the reference's rank
+  rule does on its stacked blocks. With S = 1, `pp` is `dp`.
+  The 'pipe' axis beside another axis or under zero1 / zero2 / fsdp is
+  refused (ROADMAP, Queue 1 item 4).
+* Adafactor factors its second moments over whole tensors (the
+  reference's stacked blocks under pp), so it runs under `single` and
+  `dp` and raises under the sharded recipes and a 'pipe' axis.
 
 Every recipe steps a rank's data rows only (data/loader.py; the model
 and expert ranks of one data rank take the same rows); the gradient is
@@ -134,13 +151,15 @@ OPT_SHARDED = ("zero1", "zero2") + PARAM_SHARDED
 GRAD_SHARDED = ("zero2",) + PARAM_SHARDED
 # The recipes the port trains.
 PORTED = ("single", "dp", "zero1", "zero2", "fsdp", "tp", "fsdp_tp", "sp",
-          "ep")
-# What the rest of slice 6 brings (ROADMAP, Queue 1 items 3-6).
-SLICE6_LEFT = ("pp, offload, the collective-matmul overlap, ep beside a "
-               "'seq' or 'model' axis, a 'seq' axis beside a 'model' axis, "
-               "zero1 / zero2 with a 'model' or 'expert' axis, and "
-               "Adafactor under the sharded recipes (ROADMAP, Queue 1 "
-               "items 3-6)")
+          "ep", "pp")
+# What the rest of slice 6 brings (ROADMAP, Queue 1 items 4-6).
+SLICE6_LEFT = ("the compositions (the 'pipe' axis beside a 'seq', "
+               "'expert' or 'model' axis or under zero1 / zero2 / fsdp, ep "
+               "beside a 'seq' or 'model' axis, a 'seq' axis beside a "
+               "'model' axis, zero1 / zero2 with a 'model' or 'expert' "
+               "axis, Adafactor under the sharded recipes), offload and "
+               "the collective-matmul overlap (ROADMAP, Queue 1 items "
+               "4-6)")
 
 # Tensor-parallel table, the reference's `_TP_RULES` (sharding.py:44-71) in
 # the port's names: (suffix of the dotted name) -> the axis cut over
@@ -206,28 +225,39 @@ def holds(recipe: str) -> dict[str, bool]:
             "grads": recipe in GRAD_SHARDED}
 
 
-def tp_recipe(recipe: str, tp_size: int, ep_size: int = 1) -> str:
-    """The recipe a 'model' axis of `tp_size` or an 'expert' axis of
-    `ep_size` makes of `recipe`: dp -> tp, fsdp -> fsdp_tp, dp -> ep (the
-    same things, as in the reference)."""
+def tp_recipe(recipe: str, tp_size: int, ep_size: int = 1,
+              pp_size: int = 1) -> str:
+    """The recipe a 'model' axis of `tp_size`, an 'expert' axis of
+    `ep_size` or a 'pipe' axis of `pp_size` makes of `recipe`: dp -> tp,
+    fsdp -> fsdp_tp, dp -> ep, dp -> pp (the same things, as in the
+    reference)."""
     if tp_size > 1:
         return {"dp": "tp", "fsdp": "fsdp_tp"}.get(recipe, recipe)
     if ep_size > 1 and recipe == "dp":
         return "ep"
+    if pp_size > 1 and recipe == "dp":
+        return "pp"
     return recipe
 
 
 def check_recipe(recipe: str, optimizer: str, tp_size: int = 1,
-                 sp_size: int = 1, ep_size: int = 1) -> None:
-    """Refuse a recipe the port does not train, a 'model' or 'expert' axis
-    where the port does not run one (under zero1 / zero2, beside a 'seq'
-    axis or each other), or Adafactor (whole-tensor row and column
-    statistics) under a recipe that shards the moments or a 'model'
-    axis."""
+                 sp_size: int = 1, ep_size: int = 1,
+                 pp_size: int = 1) -> None:
+    """Refuse a recipe the port does not train, a 'model', 'expert' or
+    'pipe' axis where the port does not run one (under zero1 / zero2 /
+    fsdp, beside a 'seq' axis or each other), or Adafactor (whole-tensor
+    row and column statistics) under a recipe that shards the moments or
+    a 'model' axis."""
     if recipe not in PORTED:
         raise NotImplementedError(
             f"parallelism={recipe!r} comes with the rest of slice 6: "
             f"{SLICE6_LEFT}")
+    if (pp_size > 1 and recipe != "pp") or (
+            recipe == "pp" and max(tp_size, sp_size, ep_size) > 1):
+        raise NotImplementedError(
+            f"pp_size={pp_size} under parallelism={recipe!r} with "
+            f"tp_size={tp_size}, sp_size={sp_size}, ep_size={ep_size} "
+            f"comes with the rest of slice 6: {SLICE6_LEFT}")
     if tp_size > 1 and (recipe in ("zero1", "zero2", "sp") or sp_size > 1):
         raise NotImplementedError(
             f"tp_size={tp_size} under parallelism={recipe!r} with "
@@ -240,11 +270,14 @@ def check_recipe(recipe: str, optimizer: str, tp_size: int = 1,
             f"ep_size={ep_size} under parallelism={recipe!r} with "
             f"sp_size={sp_size}, tp_size={tp_size} comes with the rest of "
             f"slice 6: {SLICE6_LEFT}")
-    if optimizer == "adafactor" and (recipe in OPT_SHARDED or tp_size > 1):
+    if optimizer == "adafactor" and (recipe in OPT_SHARDED or tp_size > 1
+                                     or pp_size > 1):
         raise NotImplementedError(
             f"optimizer='adafactor' under parallelism={recipe!r}: Adafactor "
-            "factors its moments over whole tensors; under a sharded recipe "
-            "it comes with slice 6 (ROADMAP, Queue 1 item 4); use 'dp'")
+            "factors its moments over whole tensors (under pp the "
+            "reference's stacked blocks); under a sharded recipe or a "
+            "'pipe' axis it comes with slice 6 (ROADMAP, Queue 1 item 4); "
+            "use 'dp'")
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -550,6 +583,28 @@ class FSDPRecipe(Recipe):
         super().__init__(model, optimizer, world)
 
 
+class PipeRecipe(Recipe):
+    """pp: one pipeline stage (`model`, an `LLM` stage) a rank; its
+    gradients all-reduced and averaged over the stage's data group. The
+    train step drives the stages through `pipe` (models/pipeline.py)."""
+
+    def __init__(self, model, optimizer, world: Optional[World], pipe):
+        super().__init__(model, optimizer, world)
+        self.pipe = pipe
+        pipe.optimizers[model.stage] = optimizer
+
+    def grads(self) -> list:
+        gs = [p.grad for p in self.params()]
+        w = self.world
+        if w is not None and w.distributed and w.dp > 1:
+            works = [dist.all_reduce(g, group=w.data_group, async_op=True)
+                     for g in gs]
+            for work in works:
+                work.wait()
+            torch._foreach_div_(gs, float(w.dp))
+        return gs
+
+
 def _broadcast_params(model, world: World) -> None:
     """Batch rank 0's parameters and buffers on every rank of its data x
     seq ranks (the model ranks hold different pieces)."""
@@ -568,10 +623,19 @@ def wrap(model, optimizer, recipe: str, world: Optional[World]) -> Recipe:
     check_recipe(recipe, type(optimizer).__name__.lower(),
                  world.tp if world is not None else 1,
                  world.sp if world is not None else 1,
-                 world.ep if world is not None else 1)
+                 world.ep if world is not None else 1,
+                 world.pp if world is not None else 1)
     if recipe == "single":
         return Recipe(model, optimizer, world)
-    if recipe in ("dp", "tp", "ep"):
+    if recipe == "pp" and world.pp > 1:
+        from distributed_pytorch_tpu_torch.models.pipeline import (
+            GroupTransport, Pipeline)
+        if world.dp > 1:
+            _broadcast_params(model, world)
+        pipe = Pipeline(model.config, {model.stage: model},
+                        GroupTransport(world))
+        return PipeRecipe(model, optimizer, world, pipe)
+    if recipe in ("dp", "tp", "ep", "pp"):
         return DDPRecipe(model, optimizer, world)
     _broadcast_params(model, world)
     if recipe in ("zero1", "zero2"):
@@ -610,7 +674,10 @@ def _opt_names(model, optimizer) -> list:
 
 def full_model_state_dict(model) -> dict:
     """The model's state dict of whole tensors in the reference's layout
-    (a collective under 'fsdp' and under a 'model' or 'expert' axis)."""
+    (a collective under 'fsdp', under a 'model' or 'expert' axis and
+    under a 'pipe' axis, whose stages' entries it gathers)."""
+    if getattr(model, "pipe", None) is not None:
+        return model.pipe.full_state_dicts(with_optimizer=False)[0]
     return {k: _tp_whole(k, _full(v), model)
             for k, v in model.state_dict().items()}
 
@@ -618,7 +685,9 @@ def full_model_state_dict(model) -> dict:
 def full_state_dicts(model, optimizer) -> tuple[dict, dict]:
     """(model, optimizer) state dicts of whole tensors in the single
     recipe's layout. A collective under the sharded recipes and under a
-    'model' or 'expert' axis: every rank calls it."""
+    'model', 'expert' or 'pipe' axis: every rank calls it."""
+    if getattr(model, "pipe", None) is not None:
+        return model.pipe.full_state_dicts()
     model_sd = full_model_state_dict(model)
     sd = optimizer.state_dict()
     names = _opt_names(model, optimizer) \
@@ -649,8 +718,12 @@ def load_full_state(model, optimizer, model_sd: dict, opt_sd: dict,
                     world: Optional[World] = None) -> None:
     """Load whole-tensor state dicts (`full_state_dicts`' or the single
     recipe's) under any recipe: under a 'model' or 'expert' axis each rank
-    first takes its pieces (parallel/tensor.py `split`, `expert_piece`)."""
+    first takes its pieces (parallel/tensor.py `split`, `expert_piece`),
+    a pipeline stage its layers and their moments."""
     from distributed_pytorch_tpu_torch.parallel import tensor
+    if getattr(model, "pipe", None) is not None:
+        model.pipe.load_full_state(model_sd, opt_sd)
+        return
     cuts = getattr(model, "tp_cuts", None) or {}
     experts = getattr(model, "expert_cuts", None) or ()
     if cuts or experts:

@@ -22,6 +22,7 @@ cache (models/attention.py). Refused, naming the slice that brings it:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -64,6 +65,12 @@ def load_for_inference(ckpt: str, *, device=None, dtype=None,
             raise FileNotFoundError(f"no checkpoint found under {path}")
         path = last
     model_cfg, train_cfg, step = ckpt_mod.load_configs(path)
+    if model_cfg.pp_stages > 1:
+        # a pp checkpoint holds the single model's tensors; decoding runs
+        # the blocks in order (reference sample.py:97-110)
+        model_cfg = dataclasses.replace(model_cfg, pp_stages=1,
+                                        pp_microbatches=0)
+        log("pp checkpoint: decoding with pp_stages=1")
     weights_version = ckpt_mod.weights_version(path)
     log(f"loaded config from {path} (step {step}): "
         f"{model_cfg.n_layer}L/{model_cfg.n_embd}d {model_cfg.attn}"

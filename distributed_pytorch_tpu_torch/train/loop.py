@@ -3,7 +3,7 @@
 Counterpart of the reference package's `train/loop.py` (`_data_paths`
 :147-180, `_agree_stop` :221-235, `estimate_loss` :290-306, `train`
 :309-832) for the 'single', 'dp', 'zero1', 'zero2', 'fsdp', 'tp',
-'fsdp_tp', 'sp' and 'ep' recipes.
+'fsdp_tp', 'sp', 'ep' and 'pp' recipes.
 Per optimizer step one `train_step` call runs the micro-batch
 accumulation, clip and AdamW update (train/step.py) while the host
 prefetches the next batch; the host syncs on the step metrics only at
@@ -71,11 +71,23 @@ rank's n_exp / N experts (parallel/tensor.py `shard_experts`) and the log
 names `expert=`. 'scatter' runs under every recipe, under a 'seq' axis
 too (models/mlp.py `scatter_positions`).
 
+Pipeline parallelism (`--parallelism pp --pp_size S`, or dp with
+`--pp_size S`; `--pp_vpp`, `--pp_microbatches`, `--pp_schedule`): the
+world is dp x S ranks, the 'pipe' groups of S adjacent ranks
+(parallel/mesh.py), every stage of one data rank reading its rows; the
+flag sets the model's `pp_stages`, as the reference links them
+(:330-336), each rank builds its stage from the whole seeded init, the
+train and eval steps run through the schedule (models/pipeline.py,
+train/step.py), and the log names `pipe=` and the schedule with its
+bubble on the static table (`pp schedule: ...`, reference :490-505).
+Telemetry records nothing here either.
+
 Not here yet, and refused where a config asks for them: the rest of slice
-6 (parallel/sharding.py `SLICE6_LEFT`: pp, offload, the collective-matmul
-overlap, ep beside a 'seq' or 'model' axis, a 'seq' axis beside a 'model'
-axis, zero1 / zero2 with a 'model' or 'expert' axis, Adafactor under a
-sharded recipe); the
+6 (parallel/sharding.py `SLICE6_LEFT`: the compositions — the 'pipe' axis
+beside another axis or under zero1 / zero2 / fsdp, ep beside a 'seq' or
+'model' axis, a 'seq' axis beside a 'model' axis, zero1 / zero2 with a
+'model' or 'expert' axis, Adafactor under a sharded recipe — offload and
+the collective-matmul overlap); the
 profiler and the live metrics endpoint (slice 7). The reference's
 telemetry flight recorder, memory planner, AOT program store and
 multi-host bring-up also come with slices 6-7; `telemetry` is accepted
@@ -119,11 +131,16 @@ def check_slice(model_cfg: LLMConfig, train_cfg: TrainConfig) -> None:
     slice does not run."""
     later = []
     tp, ep, sp = train_cfg.tp_size, train_cfg.ep_size, train_cfg.sp_size
-    recipe = sharding.tp_recipe(train_cfg.parallelism, tp, ep)
+    pp = train_cfg.pp_size
+    recipe = sharding.tp_recipe(train_cfg.parallelism, tp, ep, pp)
     if recipe not in sharding.PORTED:
         later.append(f"parallelism={train_cfg.parallelism!r}")
-    if train_cfg.pp_size > 1:
-        later.append(f"pp_size={train_cfg.pp_size}")
+    if pp > 1 and recipe != "pp":
+        later.append(f"pp_size={pp} under parallelism={recipe!r}")
+    if recipe == "pp" and max(tp, sp, ep) > 1:
+        later.append(f"the 'pipe' axis (parallelism='pp', pp_size={pp}) "
+                     f"beside a 'seq', 'expert' or 'model' axis "
+                     f"(sp_size={sp}, ep_size={ep}, tp_size={tp})")
     if tp > 1 and recipe in ("zero1", "zero2"):
         later.append(f"tp_size={tp} under parallelism={recipe!r}")
     if tp > 1 and (recipe == "sp" or sp > 1):
@@ -139,7 +156,7 @@ def check_slice(model_cfg: LLMConfig, train_cfg: TrainConfig) -> None:
     if train_cfg.overlap == "on":
         later.append("overlap='on' (the collective-matmul overlap)")
     if train_cfg.optimizer == "adafactor" \
-            and (recipe in sharding.OPT_SHARDED or tp > 1):
+            and (recipe in sharding.OPT_SHARDED or tp > 1 or pp > 1):
         later.append(f"optimizer='adafactor' under "
                      f"parallelism={train_cfg.parallelism!r}")
     if later:
@@ -153,6 +170,23 @@ def check_slice(model_cfg: LLMConfig, train_cfg: TrainConfig) -> None:
                      "slice 7 (operations tooling)")
     if later:
         raise NotImplementedError("; ".join(later))
+
+
+def _pp_schedule_line(model_cfg: LLMConfig, B: int, dp: int,
+                      stage: int) -> str:
+    """The schedule of a pipeline run and its bubble on the static table
+    (reference loop.py:490-505): the forward table and its mirror, the
+    'carry' schedule's as vpp 1 (a stage's layers one chunk), with the
+    layers rank 0's stage holds."""
+    from distributed_pytorch_tpu_torch.models import pipeline as pipe_mod
+    S = model_cfg.pp_stages
+    vpp = pipe_mod.chunk_vpp(model_cfg)
+    M = pipe_mod.n_microbatches(model_cfg, B, dp)
+    _, summ = pipe_mod.schedule_timeline(S, vpp, M)
+    return (f"pp schedule: {pipe_mod.resolve_schedule(model_cfg)} S={S} "
+            f"vpp={vpp} M={M} | bubble {summ['bubble_frac']:.3f} (model "
+            f"(S-1)/(vpp*M)={summ['bubble_model']:.3f}) | stage {stage} "
+            f"layers {pipe_mod.stage_layers(model_cfg, stage)}")
 
 
 def data_paths(train_cfg: TrainConfig, vocab_size: int) -> tuple[str, str]:
@@ -267,16 +301,31 @@ def train(model_cfg: LLMConfig, train_cfg: TrainConfig,
         raise ValueError(f"ep_size={train_cfg.ep_size} under "
                          "parallelism='single': use 'ep', or --ep_size "
                          "under dp or fsdp")
+    if train_cfg.pp_size > 1 and train_cfg.parallelism == "single":
+        raise ValueError(f"pp_size={train_cfg.pp_size} under "
+                         "parallelism='single': use 'pp', or --pp_size "
+                         "under dp")
     if model_cfg.block_size % train_cfg.sp_size:
         raise ValueError(f"sp_size={train_cfg.sp_size} does not divide "
                          f"block_size {model_cfg.block_size}")
     train_cfg = dataclasses.replace(train_cfg, parallelism=sharding.tp_recipe(
-        train_cfg.parallelism, train_cfg.tp_size, train_cfg.ep_size))
+        train_cfg.parallelism, train_cfg.tp_size, train_cfg.ep_size,
+        train_cfg.pp_size))
+    linked = []
+    if model_cfg.pp_stages != train_cfg.pp_size:
+        # the 'pipe' axis and the model's stage count are one decision;
+        # the trainer flag wins (reference loop.py:330-336)
+        linked.append(f"pp: setting model pp_stages = pp_size = "
+                      f"{train_cfg.pp_size}")
+        model_cfg = dataclasses.replace(model_cfg,
+                                        pp_stages=train_cfg.pp_size)
     world = make_world(model_cfg, train_cfg)
     try:
         with context.use_world(world):
-            return _train(model_cfg, train_cfg, world,
-                          log if world.is_main else (lambda s: None))
+            say = log if world.is_main else (lambda s: None)
+            for line in linked:
+                say(line)
+            return _train(model_cfg, train_cfg, world, say)
     finally:
         close_world(world)
 
@@ -286,7 +335,8 @@ def make_world(model_cfg: LLMConfig, train_cfg: TrainConfig) -> World:
     of its 'seq' axis (ops/ring_attention.py `config_impl`)."""
     world = init_world(train_cfg.parallelism, train_cfg.platform,
                        train_cfg.dp_size, train_cfg.tp_size,
-                       train_cfg.sp_size, train_cfg.ep_size)
+                       train_cfg.sp_size, train_cfg.ep_size,
+                       train_cfg.pp_size)
     if world.sp == 1:
         return world
     from distributed_pytorch_tpu_torch.ops.ring_attention import \
@@ -314,12 +364,13 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
     W = world.dp                                  # ranks on 'data'
     plan = resolve_plan(train_cfg.parallelism, world.size,
                         tp_size=world.tp, sp_size=world.sp,
-                        ep_size=world.ep, dp_size=train_cfg.dp_size)
+                        ep_size=world.ep, pp_size=world.pp,
+                        dp_size=train_cfg.dp_size)
     seq = f" seq={plan.seq} ({world.seq_impl})" if world.sp > 1 else ""
     say(f"device {device} ({name}); tp={world.tp} "
         f"recipe={train_cfg.parallelism} world={world.size} "
         f"backend={world.backend} data={plan.data} model={plan.model}"
-        f"{seq} expert={plan.expert}")
+        f"{seq} expert={plan.expert} pipe={plan.pipe}")
 
     # grad accumulation arithmetic (reference loop.py:346-351)
     B, T = train_cfg.batch_size, model_cfg.block_size
@@ -338,11 +389,18 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
     if not main:
         train_bin, val_bin = data_paths(train_cfg, model_cfg.vocab_size)
 
+    # under a 'pipe' axis a data rank's rows are its share of each
+    # pipeline microbatch of the global batch
+    n_micro = 1
+    if world.pp > 1:
+        from distributed_pytorch_tpu_torch.models import pipeline as pipe_mod
+        n_micro = pipe_mod.n_microbatches(model_cfg, B, W)
+
     def mk(path, seed):
         return DataLoader(path, B, T, grad_accum=grad_accum, seed=seed,
                           device=device, rank=world.data_rank, world=W,
                           seq_rank=world.seq_rank, sp=world.sp,
-                          layout=world.seq_layout)
+                          layout=world.seq_layout, microbatches=n_micro)
 
     train_loader = mk(train_bin, train_cfg.seed)
     # eval streams of their own: the training batches do not depend on the
@@ -353,6 +411,8 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
     state = create_train_state(model_cfg, train_cfg, device, world)
     total, active = state.param_counts
     say(f"params: {total / 1e6:.2f}M total, {active / 1e6:.2f}M active")
+    if world.pp > 1:
+        say(_pp_schedule_line(model_cfg, B, W, world.pipe_rank))
 
     ckpt_root = os.path.join("checkpoints", train_cfg.file_name)
     start_step = 0
@@ -507,6 +567,7 @@ def _train(model_cfg: LLMConfig, train_cfg: TrainConfig, world: World,
     stats["tp"] = world.tp
     stats["sp"] = world.sp
     stats["ep"] = world.ep
+    stats["pp"] = world.pp
     stats["backend"] = world.backend
     if stats.get("anomalies"):
         stats["n_anomalies"] = len(stats["anomalies"])

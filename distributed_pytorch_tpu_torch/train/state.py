@@ -6,7 +6,9 @@ Counterpart of the reference package's `train/state.py`:
   fp32 as the reference computes it, and evaluated at the 0-based count
   of updates applied so far, as optax's schedule count is.
 * AdamW with betas (0.9, 0.999) and eps 1e-8 over two groups: weight
-  decay iff `p.dim() >= 2` (`_decay_mask`, state.py:60-63).
+  decay iff `p.dim() >= 2` (`_decay_mask`, state.py:60-63); on a pipeline
+  stage every block parameter decays, as the reference's rank rule does
+  on its stacked blocks under pp.
 * Lion and Adafactor with optax's rules (state.py:77-99: `optax.lion`
   with b1 0.9, b2 0.99; `optax.adafactor` with its defaults and a
   constant weight_decay_rate = weight_decay * learning_rate), as
@@ -25,11 +27,15 @@ updates applied; an anomaly-skipped step applies none) and the parallel
 the model's parameters are DTensor shards; under `zero1` / `zero2` the
 optimizer is the recipe's `ZeroOptimizer`; under a 'model' axis the cut
 parameters are this rank's pieces, and under an 'expert' axis the expert
-stacks this rank's experts (parallel/tensor.py).
+stacks this rank's experts (parallel/tensor.py). Under a 'pipe' axis the
+model is this rank's pipeline stage, cut from the whole seeded init
+(models/pipeline.py); `create_pipeline_states` builds every stage in one
+process.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -201,13 +207,19 @@ def make_optimizer(model: torch.nn.Module,
     """`cfg.optimizer`'s rule over two groups: weight decay iff
     `_decay_mask`. The learning rate is set before every step (the
     schedule's value at the count of updates applied)."""
-    params = list(model.parameters())
+    # a pipeline stage's blocks decay whatever their rank: the reference
+    # stacks them on a layer axis under pp, so its rank rule decays the
+    # LayerNorm scales and the biases there too
+    stage = getattr(model, "stage", None) is not None
+    named = list(model.named_parameters())
+    decayed = [p for n, p in named
+               if _decay_mask(p) or (stage and n.startswith("blocks."))]
+    ids = {id(p) for p in decayed}
     lr0 = lr_schedule(cfg)(0)
 
     def groups(wd):
-        return [{"params": [p for p in params if _decay_mask(p)],
-                 "weight_decay": wd},
-                {"params": [p for p in params if not _decay_mask(p)],
+        return [{"params": decayed, "weight_decay": wd},
+                {"params": [p for _, p in named if id(p) not in ids],
                  "weight_decay": 0.0}]
 
     if cfg.optimizer == "lion":
@@ -293,11 +305,61 @@ def clip_by_global_norm(grads: list, norm: torch.Tensor,
 
 
 def build_model(model_cfg: LLMConfig, train_cfg: TrainConfig,
-                device=None) -> LLM:
-    """fp32 master weights computing in `train_cfg.compute_dtype`."""
+                device=None, stage=None) -> LLM:
+    """fp32 master weights computing in `train_cfg.compute_dtype` (one
+    pipeline stage with `stage`)."""
     return LLM(model_cfg, device=device, dtype=torch.float32,
                compute_dtype=getattr(torch, train_cfg.compute_dtype),
-               attn_impl=train_cfg.attn_impl)
+               attn_impl=train_cfg.attn_impl, stage=stage)
+
+
+def _whole_init(model_cfg: LLMConfig, train_cfg: TrainConfig, device,
+                init) -> tuple[dict, tuple]:
+    """The whole single model's state dict (`init`, or N(0, 0.02) drawn
+    from `train_cfg.seed` on `device`) and its (total, active) parameter
+    counts: a pipeline run starts from the single model's weights bit for
+    bit, as the reference's pp init (a loop model's, restacked) does."""
+    from distributed_pytorch_tpu_torch.models.gpt import count_params
+    whole = dataclasses.replace(model_cfg, pp_stages=1)
+    counts = count_params(LLM(whole, device="meta"), model_cfg)
+    if init is None:
+        model = build_model(whole, train_cfg, device)
+        g = torch.Generator(device=model.device)
+        g.manual_seed(train_cfg.seed)
+        model.init_weights(g)
+        init = model.state_dict()
+    return init, counts
+
+
+def _stage_model(model_cfg, train_cfg, device, sd, stage) -> LLM:
+    from distributed_pytorch_tpu_torch.models.pipeline import \
+        stage_state_dict
+    model = build_model(model_cfg, train_cfg, device, stage=stage)
+    model.load_state_dict(stage_state_dict(sd, model_cfg, stage))
+    return model
+
+
+def create_pipeline_states(model_cfg: LLMConfig, train_cfg: TrainConfig,
+                           device=None, init=None) -> list:
+    """Every stage of a pipeline-parallel model in this process, as one
+    `TrainState` a stage (`PipeRecipe` over one `Pipeline` with
+    `LocalTransport`, models/pipeline.py), from the whole seeded init or
+    the whole state dict `init`. `train/step.py`'s train step takes the
+    list."""
+    from distributed_pytorch_tpu_torch.models.pipeline import (
+        LocalTransport, Pipeline)
+    from distributed_pytorch_tpu_torch.parallel import sharding
+    sd, counts = _whole_init(model_cfg, train_cfg, device, init)
+    models = {s: _stage_model(model_cfg, train_cfg, device, sd, s)
+              for s in range(model_cfg.pp_stages)}
+    pipe = Pipeline(model_cfg, models, LocalTransport())
+    states = []
+    for s, model in models.items():
+        opt = make_optimizer(model, train_cfg)
+        states.append(TrainState(
+            step=0, model=model, optimizer=opt, param_counts=counts,
+            recipe=sharding.PipeRecipe(model, opt, None, pipe)))
+    return states
 
 
 def create_train_state(model_cfg: LLMConfig, train_cfg: TrainConfig,
@@ -312,6 +374,22 @@ def create_train_state(model_cfg: LLMConfig, train_cfg: TrainConfig,
     whole model's (total, active) counts."""
     from distributed_pytorch_tpu_torch.models.gpt import count_params
     from distributed_pytorch_tpu_torch.parallel import sharding, tensor
+    if model_cfg.pp_stages > 1:
+        if world is None or world.pp != model_cfg.pp_stages:
+            raise ValueError(
+                f"pp_stages={model_cfg.pp_stages} needs a world whose "
+                f"'pipe' axis has as many ranks (got "
+                f"{world.pp if world is not None else 1}); "
+                "create_pipeline_states holds every stage in one process")
+        sd, counts = _whole_init(model_cfg, train_cfg, device, init)
+        model = _stage_model(model_cfg, train_cfg, device, sd,
+                             world.pipe_rank)
+        del sd
+        recipe = sharding.wrap(model, make_optimizer(model, train_cfg),
+                               train_cfg.parallelism, world)
+        return TrainState(step=0, model=recipe.model,
+                          optimizer=recipe.optimizer, recipe=recipe,
+                          param_counts=counts)
     model = build_model(model_cfg, train_cfg, device)
     if init is None:
         g = torch.Generator(device=model.device)

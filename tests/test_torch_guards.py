@@ -93,6 +93,34 @@ def test_grouped_kernels_have_sources_and_guarded_module():
         assert src in CUDA_SOURCES, name
 
 
+def test_pipeline_module_is_guarded_and_runs_on_the_card(monkeypatch):
+    """models/pipeline.py is a source of the import guard and imports
+    torch, numpy, the standard library and the port only (its schedule
+    code is a copy of the reference's, not an import); a pipeline stage
+    and the in-process stages raise without a card unless the CPU is
+    asked for."""
+    import sys
+    from distributed_pytorch_tpu_torch.config import TrainConfig
+    from distributed_pytorch_tpu_torch.models.gpt import LLM
+    from distributed_pytorch_tpu_torch.train.state import \
+        create_pipeline_states
+    path = ROOT / "distributed_pytorch_tpu_torch" / "models" / "pipeline.py"
+    assert path in SOURCES
+    tops = set(_imported_tops(path))
+    assert tops <= {"torch", "numpy", "distributed_pytorch_tpu_torch"} \
+        | set(sys.stdlib_module_names), tops
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LLMConfig(vocab_size=32, block_size=16, n_embd=16, n_head=2,
+                    n_kv_heads=2, attn="mha", n_layer=2, up_dim=16,
+                    pp_stages=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLM(cfg, stage=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_pipeline_states(cfg, TrainConfig())
+    states = create_pipeline_states(cfg, TrainConfig(), "cpu")
+    assert [st.model.device.type for st in states] == ["cpu", "cpu"]
+
+
 def test_guard_matches_exact_top_level_names(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import distributed_pytorch_tpu_torch.ops\n"

@@ -178,16 +178,20 @@ def test_rest_of_slice_6_is_refused(field, value):
     sp_size 2) since sequence parallelism came
     (tests/test_torch_parallel_sp.py), ep (and fsdp with ep_size 2) since
     expert parallelism came (tests/test_torch_parallel_ep.py): beside
-    pp_size 2 they are refused so."""
+    pp_size 2 they are refused so; pp since pipeline parallelism came
+    (tests/test_torch_parallel_pp.py): beside sp_size 2 it is refused
+    so."""
     tc = dataclasses.replace(TrainConfig(platform="cpu", parallelism="fsdp"),
                              **{field: value})
     if (field, value) in (("parallelism", "tp"), ("parallelism", "fsdp_tp"),
                           ("tp_size", 2), ("parallelism", "sp"),
                           ("sp_size", 2), ("parallelism", "ep"),
-                          ("ep_size", 2)):
+                          ("ep_size", 2), ("parallelism", "pp")):
         check_slice(LLMConfig(**TINY), tc)
-        tc = dataclasses.replace(tc, pp_size=2)
-    with pytest.raises(NotImplementedError, match="rest of slice 6: pp"):
+        tc = dataclasses.replace(
+            tc, **({"sp_size": 2} if value == "pp" else {"pp_size": 2}))
+    with pytest.raises(NotImplementedError,
+                       match="rest of slice 6: the compositions"):
         check_slice(LLMConfig(**TINY), tc)
 
 

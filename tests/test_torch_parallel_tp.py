@@ -472,7 +472,7 @@ def test_ep_sp_pp_still_raise_under_tp(field, value):
         TrainConfig(platform="cpu", parallelism="tp", tp_size=2),
         **{field: value})
     what = "zero1 / zero2 with a 'model'" if value in ("zero1", "zero2") \
-        else "rest of slice 6: pp"
+        else "rest of slice 6: the compositions"
     with pytest.raises(NotImplementedError, match=what):
         check_slice(LLMConfig(**TINY), tc)
 

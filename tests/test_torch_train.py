@@ -371,13 +371,16 @@ def test_later_slices_raise(field, value):
     attn_impl 'ring' since sequence parallelism came
     (tests/test_torch_parallel_sp.py), 'ep' since expert parallelism came
     (tests/test_torch_parallel_ep.py), and beside pp_size 2 they raise
-    so."""
+    so; 'pp' since pipeline parallelism came
+    (tests/test_torch_parallel_pp.py), and beside tp_size 2 it raises."""
     mc, tc = LLMConfig(**TINY), TrainConfig(platform="cpu")
     tc = dataclasses.replace(tc, **{field: value})
     if (field, value) in (("parallelism", "tp"), ("parallelism", "sp"),
-                          ("parallelism", "ep"), ("attn_impl", "ring")):
+                          ("parallelism", "ep"), ("attn_impl", "ring"),
+                          ("parallelism", "pp")):
         check_slice(mc, tc)
-        tc = dataclasses.replace(tc, pp_size=2)
+        tc = dataclasses.replace(
+            tc, **({"tp_size": 2} if value == "pp" else {"pp_size": 2}))
     with pytest.raises(NotImplementedError, match="slice|XLA"):
         check_slice(mc, tc)
 

@@ -10,12 +10,16 @@ group's `file://` rendezvous, unique per test), `out` (a directory) and
 test. Each case is a dict with a `kind`:
 
 * 'steps': build the state under `tc['parallelism']` (and `tc['tp_size']`,
-  `tc['sp_size']`, `tc['ep_size']`) from the whole state dict `init`, then run
+  `tc['sp_size']`, `tc['ep_size']`, `tc['pp_size']`, with the model's
+  `pp_stages` equal to it) from the whole state dict `init`, then run
   `make_train_step` over the global batches `batches` ((A, B W, T) arrays,
   W the 'data' axis's size), this rank taking its data rank r's rows
-  r B .. r B + B - 1 of each micro-step, and under a 'seq' axis its seq
-  rank's positions of them (the loader's cut). Records each step's metrics, the whole parameters,
-  the MoE buffers, and at the end the bytes held (`held_bytes`) and the
+  of each micro-step (data/loader.py `data_rows`: r B .. r B + B - 1, or
+  under a 'pipe' axis r's share of each pipeline microbatch), and under
+  a 'seq' axis its seq rank's positions of them (the loader's cut). Records each step's metrics, the whole parameters,
+  the MoE buffers, under a 'pipe' axis the first and last stage's tied
+  embedding and its moments (`tied`), and at the end the bytes held
+  (`held_bytes`) and the
   fused CE's `DEGRADED` counts. With
   `poison` = (rank, step), that rank alone NaN-bombs that step
   (TRAIN_POISON_IT).
@@ -57,6 +61,7 @@ import torch.distributed as dist
 
 from distributed_pytorch_tpu_torch.config import LLMConfig, TrainConfig
 from distributed_pytorch_tpu_torch.data import loader as loader_mod
+from distributed_pytorch_tpu_torch.models import pipeline as pipe_mod
 from distributed_pytorch_tpu_torch.ops import fused_ce
 from distributed_pytorch_tpu_torch.parallel import context, sharding
 from distributed_pytorch_tpu_torch.ops import ring_attention
@@ -76,7 +81,21 @@ def _clone(sd: dict) -> dict:
 def _world(cfg: LLMConfig, tc: TrainConfig):
     return make_world(cfg, dataclasses.replace(
         tc, parallelism=sharding.tp_recipe(tc.parallelism, tc.tp_size,
-                                           tc.ep_size)))
+                                           tc.ep_size, tc.pp_size)))
+
+
+def _tied(state) -> dict:
+    """Under a 'pipe' axis, the first or last stage's copy of the tied
+    embedding and its AdamW moments (empty elsewhere)."""
+    model = state.model
+    if getattr(model, "pipe", None) is None or not hasattr(model,
+                                                           "tkn_emb"):
+        return {}
+    w = model.tkn_emb.weight
+    st = state.optimizer.state.get(w, {})
+    return {"stage": model.stage, "weight": w.detach().clone(),
+            **{k: v.clone() for k, v in st.items() if torch.is_tensor(v)
+               and v.dim() > 0}}
 
 
 def run_steps(case: dict, rank: int, W: int) -> dict:
@@ -93,7 +112,9 @@ def run_steps(case: dict, rank: int, W: int) -> dict:
         out = {"steps": []}
         for x, y in case["batches"]:
             B = x.shape[1] // world.dp
-            rows = slice(world.data_rank * B, (world.data_rank + 1) * B)
+            M = pipe_mod.n_microbatches(cfg, B, world.dp) if world.pp > 1 \
+                else 1
+            rows = loader_mod.data_rows(B, world.dp, world.data_rank, M)
             x, y = x[:, rows], y[:, rows]
             if world.sp > 1:
                 cols = ring_attention.local_positions(
@@ -106,6 +127,7 @@ def run_steps(case: dict, rank: int, W: int) -> dict:
                 state.model))
             rec["moe"] = [{k: b.clone() for k, b in layer.named_buffers()}
                           for layer in state.model.moe_layers()]
+            rec["tied"] = _tied(state)
             out["steps"].append(rec)
         out["held"] = state.recipe.held_bytes()
     out["ce_degraded"] = dict(fused_ce.DEGRADED)
